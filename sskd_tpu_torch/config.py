@@ -1,0 +1,185 @@
+"""Configuration of the port's serving path (port of sskd_tpu/config.py).
+
+Standard-library dataclasses in place of pydantic (the machine with the GPU
+has neither pydantic nor pyyaml). The sections this slice reads keep the
+JAX package's field names, defaults and bounds: ``student``, ``index``,
+``search``, ``service``, ``precision``, ``cors`` and ``monitoring``, each
+with only the fields the slice reads (``index.search_method`` selects the
+engine a preloaded index is served with). Sections and fields that later
+slices need (teacher, training, mining, mesh, rate limiting, auth, cache,
+hybrid, the index layout knobs) are not here yet.
+
+Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
+for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
+environment variables through :meth:`Settings.from_env` (values parsed as
+JSON when they parse, else kept as strings). A value outside its bounds or
+an unknown section or field raises :class:`ConfigError`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import asdict, dataclass, field, fields
+from typing import Any
+
+from sskd_tpu_torch.exceptions import ConfigError
+
+ENV_PREFIX = "SEMANTIC_KD_"
+NESTED_DELIMITER = "__"
+
+
+def _check(obj, name: str, *, ge=None, le=None, choices=None, kind=None) -> None:
+    value = getattr(obj, name)
+    where = f"{type(obj).__name__}.{name}={value!r}"
+    if kind is not None and not isinstance(value, kind):
+        raise ConfigError(f"{where}: expected {kind}")
+    if choices is not None and value not in choices:
+        raise ConfigError(f"{where}: must be one of {choices}")
+    if ge is not None and value < ge:
+        raise ConfigError(f"{where}: must be >= {ge}")
+    if le is not None and value > le:
+        raise ConfigError(f"{where}: must be <= {le}")
+
+
+_INT = (int,)
+_NUM = (int, float)
+
+
+@dataclass
+class StudentModelConfig:
+    model_name: str = "intfloat/e5-small-v2"
+    max_seq_length: int = 512
+    normalize_embeddings: bool = True
+    query_prefix: str = "query: "
+    passage_prefix: str = "passage: "
+    pooling: str = "mean"
+
+    def __post_init__(self):
+        _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
+        _check(self, "pooling", choices=("mean", "cls"))
+
+
+@dataclass
+class IndexConfig:
+    search_method: str = "approx"
+
+    def __post_init__(self):
+        _check(self, "search_method", choices=("exact", "approx", "clustered"))
+
+
+@dataclass
+class PrecisionConfig:
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        _check(self, "compute_dtype", choices=("float32", "bfloat16"))
+
+
+@dataclass
+class CORSConfig:
+    enabled: bool = True
+    allow_origins: list = field(default_factory=lambda: ["*"])
+    allow_methods: list = field(default_factory=lambda: ["GET", "POST"])
+    allow_headers: list = field(default_factory=lambda: ["*"])
+    allow_credentials: bool = False
+
+
+@dataclass
+class MonitoringConfig:
+    prometheus_enabled: bool = True
+    prometheus_path: str = "/metrics"
+    log_queries: bool = False
+    log_latencies: bool = True
+
+
+@dataclass
+class ServiceConfig:
+    environment: str = "development"
+    micro_batch_window_ms: float = 0.0
+    micro_batch_max_size: int = 64
+
+    def __post_init__(self):
+        _check(self, "environment", choices=("development", "staging", "production"))
+        _check(self, "micro_batch_window_ms", ge=0.0, kind=_NUM)
+        _check(self, "micro_batch_max_size", ge=1, kind=_INT)
+
+
+@dataclass
+class SearchConfig:
+    default_k: int = 10
+    max_k: int = 100
+    rerank_enabled: bool = False
+
+    def __post_init__(self):
+        _check(self, "default_k", ge=1, le=100, kind=_INT)
+        _check(self, "max_k", ge=1, kind=_INT)
+
+
+_SECTIONS = {
+    "student": StudentModelConfig,
+    "index": IndexConfig,
+    "precision": PrecisionConfig,
+    "cors": CORSConfig,
+    "monitoring": MonitoringConfig,
+    "service": ServiceConfig,
+    "search": SearchConfig,
+}
+
+
+@dataclass
+class Settings:
+    student: StudentModelConfig = field(default_factory=StudentModelConfig)
+    index: IndexConfig = field(default_factory=IndexConfig)
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    cors: CORSConfig = field(default_factory=CORSConfig)
+    monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
+    service: ServiceConfig = field(default_factory=ServiceConfig)
+    search: SearchConfig = field(default_factory=SearchConfig)
+
+    def to_dict(self) -> dict[str, Any]:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, data: dict[str, Any], base: "Settings | None" = None) -> "Settings":
+        """Settings from a nested ``{section: {field: value}}`` tree, on top
+        of ``base`` (or the defaults)."""
+        merged = (base or cls()).to_dict()
+        for section, values in data.items():
+            if section not in _SECTIONS:
+                raise ConfigError(f"unknown config section {section!r}")
+            if not isinstance(values, dict):
+                raise ConfigError(f"config section {section!r} must be a mapping")
+            known = {f.name for f in fields(_SECTIONS[section])}
+            for name, value in values.items():
+                if name not in known:
+                    raise ConfigError(f"unknown config field {section}.{name}")
+                merged[section][name] = value
+        return cls(**{s: _SECTIONS[s](**merged[s]) for s in _SECTIONS})
+
+    @classmethod
+    def from_env(cls, base: "Settings | None" = None, environ=None) -> "Settings":
+        """Apply ``SEMANTIC_KD_<section>__<field>=value`` overrides; variables
+        that name no known section and field are ignored, as in the JAX
+        package."""
+        environ = os.environ if environ is None else environ
+        tree: dict[str, dict[str, Any]] = {}
+        for key, value in environ.items():
+            if not key.startswith(ENV_PREFIX):
+                continue
+            parts = key[len(ENV_PREFIX) :].lower().split(NESTED_DELIMITER)
+            if len(parts) != 2 or parts[0] not in _SECTIONS:
+                continue
+            section, name = parts
+            if name not in {f.name for f in fields(_SECTIONS[section])}:
+                continue
+            try:
+                tree.setdefault(section, {})[name] = json.loads(value)
+            except ValueError:
+                tree.setdefault(section, {})[name] = value
+        return cls.from_dict(tree, base)
+
+
+def get_settings() -> Settings:
+    """Defaults with the environment's overrides."""
+    return Settings.from_env()

@@ -1,0 +1,332 @@
+"""Exact vector index on the device (port of sskd_tpu/index/builder.py).
+
+The on-disk layout is the JAX package's, byte for byte, so either package
+loads what the other saved::
+
+    index_dir/
+      INDEX_VERSION      — layout version string
+      meta.json          — dim / metric / dtype / index_type / ntotal + checksums
+      vectors.npy        — [N, D] f32, int8 values, or [N, D/2] packed int4
+      scales.npy         — [N] f32 per-row scales (int8 / int4)
+      norms.npy          — [N] f32 original row norms
+      doc_ids.json       — position -> doc id
+      texts.json         — optional doc texts for serving
+      perm.npy, centroids.npy — clustered indexes only
+
+What this slice serves: ``index_type="exact"`` over float32, int8 or int4
+rows (:func:`sskd_tpu_torch.ops.topk.cosine_topk`). ``load`` accepts every
+``index_type`` a saved index records and keeps it; searching an ``approx``
+or ``clustered`` index raises ``NotImplementedError`` until those engines
+are ported. Building clustered, bfloat16 or refined (``refine_m > 0``)
+indexes needs the later slices too and raises here. Unlike the TPU path,
+the device copy of the rows is not padded: the kernels mask a ragged tail.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from sskd_tpu_torch.exceptions import IndexBuildError, IndexLoadError, IndexVersionError
+from sskd_tpu_torch.ops.quant import dequantize_rows, dequantize_rows_int4
+from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
+from sskd_tpu_torch.ops.topk import cosine_topk, cosine_topk_core
+from sskd_tpu_torch.utils.logging import get_logger
+from sskd_tpu_torch.utils.platform import resolve_device
+
+INDEX_VERSION = "sskd-exact-1"
+SEARCH_DTYPES = ("float32", "int8", "int4")
+
+logger = get_logger("index")
+
+
+def _sha256(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _ids_sha256(doc_ids: list[str]) -> str:
+    return hashlib.sha256(json.dumps(doc_ids).encode()).hexdigest()
+
+
+class IndexBuilder:
+    """Exact cosine/dot top-k index over a device-resident matrix."""
+
+    def __init__(
+        self,
+        embedding_dim: int = 384,
+        index_type: str = "exact",
+        metric: str = "cosine",
+        dtype: str = "float32",
+        block_rows: int = 262144,
+        recall_target: float = 0.99,
+        device: str | torch.device | None = "cuda",
+    ):
+        if metric not in ("cosine", "dot"):
+            raise IndexBuildError(f"unsupported metric {metric!r}")
+        if dtype not in ("float32", "bfloat16", "int8", "int4"):
+            raise IndexBuildError(f"unsupported index dtype {dtype!r}")
+        if index_type not in ("exact", "approx", "clustered"):
+            raise IndexBuildError(f"unsupported index_type {index_type!r}")
+        self.embedding_dim = embedding_dim
+        self.index_type = index_type
+        self.metric = metric
+        self.dtype = dtype
+        self.block_rows = block_rows
+        self.recall_target = recall_target
+        self.device = resolve_device(device)
+        self.nprobe = 0
+        self.doc_ids: list[str] = []
+        self.texts: list[str] | None = None
+        self._vectors: np.ndarray | None = None
+        self._scales: np.ndarray | None = None
+        self._norms: np.ndarray | None = None
+        self._perm: np.ndarray | None = None
+        self._centroids: np.ndarray | None = None
+        self._rows_per_cell = 0
+        self.device_vectors: torch.Tensor | None = None  # placed by ensure_device
+        self.device_scales: torch.Tensor | None = None
+
+    @property
+    def ntotal(self) -> int:
+        return 0 if self._vectors is None else int(self._vectors.shape[0])
+
+    @property
+    def is_built(self) -> bool:
+        return self._vectors is not None
+
+    # ------------------------------------------------------------------
+    # Build
+    # ------------------------------------------------------------------
+
+    def build_from_arrays(
+        self,
+        embeddings: np.ndarray,
+        doc_ids: Sequence[str],
+        texts: Sequence[str] | None = None,
+    ) -> "IndexBuilder":
+        """Build from precomputed embeddings [N, D]. Quantization runs on
+        the builder's device."""
+        if self.index_type == "clustered" or self.dtype == "bfloat16":
+            raise IndexBuildError(
+                "clustered and bfloat16 indexes are not ported yet (ROADMAP Queue 1)"
+            )
+        emb = np.asarray(embeddings, dtype=np.float32)
+        if emb.ndim != 2 or emb.shape[1] != self.embedding_dim:
+            raise IndexBuildError(f"embeddings shape {emb.shape} != [N, {self.embedding_dim}]")
+        if len(doc_ids) != emb.shape[0]:
+            raise IndexBuildError("doc_ids length != embedding rows")
+        norms = np.linalg.norm(emb, axis=1)
+        if self.metric == "cosine":
+            emb = emb / np.maximum(norms[:, None], 1e-12)
+        self._norms = norms.astype(np.float32)
+        if self.dtype in ("int8", "int4"):
+            quantize = quantize_rows if self.dtype == "int8" else quantize_rows_int4
+            values, scales = quantize(torch.from_numpy(emb).to(self.device))
+            self._vectors = values.cpu().numpy()
+            self._scales = scales.cpu().numpy()
+        else:
+            self._vectors = emb
+            self._scales = None
+        self.doc_ids = [str(d) for d in doc_ids]
+        self.texts = list(texts) if texts is not None else None
+        self.device_vectors = None
+        logger.info(f"built index: ntotal={self.ntotal} dtype={self.dtype}")
+        return self
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+
+    def save(self, output_dir: str | Path) -> Path:
+        if not self.is_built:
+            raise IndexBuildError("cannot save an empty index")
+        out = Path(output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        np.save(out / "vectors.npy", self._vectors)
+        if self._scales is not None:
+            np.save(out / "scales.npy", self._scales)
+        if self._norms is not None:
+            np.save(out / "norms.npy", self._norms)
+        with open(out / "doc_ids.json", "w") as f:
+            json.dump(self.doc_ids, f)
+        if self.texts is not None:
+            with open(out / "texts.json", "w") as f:
+                json.dump(self.texts, f)
+        if self._perm is not None:
+            np.save(out / "perm.npy", self._perm)
+            np.save(out / "centroids.npy", self._centroids)
+        meta = {
+            "embedding_dim": self.embedding_dim,
+            "index_type": self.index_type,
+            "recall_target": self.recall_target,
+            "metric": self.metric,
+            "dtype": self.dtype,
+            "refine_m": 0,
+            "ntotal": self.ntotal,
+            "checksums": {
+                "vectors": _sha256(self._vectors),
+                "doc_ids": _ids_sha256(self.doc_ids),
+            },
+        }
+        if self._perm is not None:
+            meta["cluster"] = {
+                "rows_per_cell": self._rows_per_cell,
+                "n_cells": int(self._centroids.shape[0]),
+                "nprobe": self.nprobe,
+            }
+            meta["checksums"]["perm"] = _sha256(self._perm)
+        with open(out / "meta.json", "w") as f:
+            json.dump(meta, f, indent=2)
+        (out / "INDEX_VERSION").write_text(INDEX_VERSION + "\n")
+        logger.info(f"saved index to {out} (ntotal={self.ntotal})")
+        return out
+
+    def load(self, index_dir: str | Path) -> "IndexBuilder":
+        path = Path(index_dir)
+        version_file = path / "INDEX_VERSION"
+        if not version_file.exists():
+            raise IndexLoadError(f"no INDEX_VERSION in {path}")
+        version = version_file.read_text().strip()
+        if version != INDEX_VERSION:
+            raise IndexVersionError(f"index version {version!r} != supported {INDEX_VERSION!r}")
+        with open(path / "meta.json") as f:
+            meta = json.load(f)
+        if meta["dtype"] == "bfloat16" or int(meta.get("refine_m", 0)) > 0:
+            # both need bf16 rows in numpy, which the port reads in a later slice
+            raise IndexLoadError(
+                "bfloat16 rows and refine rows are not ported yet (ROADMAP Queue 1)"
+            )
+        vectors = np.load(path / "vectors.npy")
+        if _sha256(vectors) != meta["checksums"]["vectors"]:
+            raise IndexLoadError("vectors checksum mismatch — corrupt index")
+        with open(path / "doc_ids.json") as f:
+            doc_ids = json.load(f)
+        if _ids_sha256(doc_ids) != meta["checksums"]["doc_ids"]:
+            raise IndexLoadError("doc_ids checksum mismatch — corrupt index")
+        self.embedding_dim = meta["embedding_dim"]
+        self.metric = meta["metric"]
+        self.dtype = meta["dtype"]
+        self.index_type = meta.get("index_type", "exact")
+        self.recall_target = meta.get("recall_target", 0.99)
+        self._vectors = vectors
+        self._scales = np.load(path / "scales.npy") if (path / "scales.npy").exists() else None
+        self._norms = np.load(path / "norms.npy") if (path / "norms.npy").exists() else None
+        self.doc_ids = [str(d) for d in doc_ids]
+        texts_file = path / "texts.json"
+        if texts_file.exists():
+            with open(texts_file) as f:
+                self.texts = json.load(f)
+        else:
+            self.texts = None
+        if "cluster" in meta:
+            self._perm = np.load(path / "perm.npy")
+            if _sha256(self._perm) != meta["checksums"].get("perm"):
+                raise IndexLoadError("perm checksum mismatch — corrupt index")
+            self._centroids = np.load(path / "centroids.npy")
+            self._rows_per_cell = int(meta["cluster"]["rows_per_cell"])
+            self.nprobe = int(meta["cluster"]["nprobe"])
+        else:
+            self._perm = None
+            self._centroids = None
+            self._rows_per_cell = 0
+        self.device_vectors = None
+        logger.info(f"loaded index from {path} (ntotal={self.ntotal})")
+        return self
+
+    # ------------------------------------------------------------------
+    # Search
+    # ------------------------------------------------------------------
+
+    def check_searchable(self) -> None:
+        """Raise unless this slice of the port can search the index."""
+        if not self.is_built:
+            raise IndexLoadError("index not built/loaded")
+        if self.index_type != "exact":
+            raise NotImplementedError(
+                f"index_type {self.index_type!r} is not ported yet (ROADMAP Queue 1); "
+                "set index_type='exact' to search this index exactly"
+            )
+        if self.dtype not in SEARCH_DTYPES:
+            raise NotImplementedError(f"dtype {self.dtype!r} search is not ported yet")
+
+    def ensure_device(self) -> None:
+        """Copy the rows (and scales) to the builder's device once."""
+        if self.device_vectors is None:
+            self.device_vectors = torch.from_numpy(self._vectors).to(self.device)
+            self.device_scales = (
+                torch.from_numpy(self._scales).to(self.device)
+                if self._scales is not None
+                else None
+            )
+
+    def search(self, query_emb: np.ndarray, k: int = 10):
+        """Top-k search. ``query_emb`` [B, D] (or [D]); returns (scores [B, k],
+        indices [B, k]) numpy, (-inf, -1) padded."""
+        self.check_searchable()
+        q = np.asarray(query_emb, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        if q.shape[1] != self.embedding_dim:
+            raise IndexBuildError(f"query dim {q.shape[1]} != index dim {self.embedding_dim}")
+        if self.metric == "cosine":
+            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        self.ensure_device()
+        vals, idx = cosine_topk(
+            torch.from_numpy(q).to(self.device),
+            self.device_vectors,
+            k=k,
+            block_rows=min(self.block_rows, max(128, self.ntotal)),
+            row_scales=self.device_scales,
+            valid_n=self.ntotal,
+            method=self.index_type,
+        )
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def map_positions(self, idx: np.ndarray) -> np.ndarray:
+        """Engine positions -> original row positions (identity unless the
+        rows are stored cell-reordered, as a clustered index's are)."""
+        if self._perm is None:
+            return idx
+        idx = np.asarray(idx)
+        safe = np.clip(idx, 0, len(self._perm) - 1)
+        return np.where(idx >= 0, self._perm[safe], -1).astype(idx.dtype)
+
+    def get_texts(self, indices: Sequence[int]) -> list[str | None]:
+        return [
+            self.texts[i] if self.texts is not None and 0 <= i < len(self.texts) else None
+            for i in indices
+        ]
+
+    # ------------------------------------------------------------------
+    # Validation gate
+    # ------------------------------------------------------------------
+
+    def validate(self, n_queries: int = 1000, k: int = 10, seed: int = 0) -> dict[str, float]:
+        """Build-time recall gate (the JAX package's recipe): recall@k of the
+        index's search against exact f32 search over the dequantized rows,
+        for ``n_queries`` probes made of corpus rows plus N(0, 0.05) noise.
+        Both searches run on the builder's device."""
+        self.check_searchable()
+        rng = np.random.default_rng(seed)
+        n = min(n_queries, self.ntotal)
+        probe_rows = rng.choice(self.ntotal, size=n, replace=False)
+        self.ensure_device()
+        if self.dtype == "int8":
+            full = dequantize_rows(self.device_vectors, self.device_scales)
+        elif self.dtype == "int4":
+            full = dequantize_rows_int4(self.device_vectors, self.device_scales)
+        else:
+            full = self.device_vectors
+        noise = torch.from_numpy(rng.normal(0, 0.05, (n, self.embedding_dim)).astype(np.float32))
+        queries = full[torch.from_numpy(probe_rows).to(self.device)] + noise.to(self.device)
+        queries = queries / queries.norm(dim=1, keepdim=True).clamp(min=1e-12)
+        _, gt_top = cosine_topk_core(queries, full, k)
+        _, idx = self.search(queries.cpu().numpy(), k=k)
+        gt_top = gt_top.cpu().numpy()
+        recall = float(np.mean([len(set(gt_top[i]) & set(idx[i])) / k for i in range(n)]))
+        return {"recall@%d" % k: recall, "n_queries": float(n)}

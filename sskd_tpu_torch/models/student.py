@@ -1,0 +1,234 @@
+"""StudentModel: the bi-encoder wrapper (port of sskd_tpu/models/student.py).
+
+API as in the JAX package: ``encode / encode_queries / encode_documents /
+tokenize_batch / save``, e5 ``"query: "`` /
+``"passage: "`` prefixes, batches and sequences padded to a bucket ladder.
+
+Differences from the JAX package:
+- ``device`` defaults to ``"cuda"`` and is never guessed: without CUDA the
+  constructor raises unless the caller passes ``device="cpu"``;
+- a model with no weights on disk gets seeded random weights drawn in the
+  Flax layout and carried over (:mod:`sskd_tpu_torch.models.weights`);
+  ``params`` takes such a Flax-layout tree of numpy arrays, e.g. a JAX
+  checkpoint's parameters, so the port reads no msgpack;
+- the checkpoint format is the port's own::
+
+      dir/
+        sskd_config.json   — arch + wrapper config (same keys as the JAX package)
+        weights.pt         — BiEncoder state_dict, f32
+        tokenizer/         — vocab.txt + tokenizer_config.json
+
+- each text is tokenized once per batch (the JAX package tokenizes twice:
+  once to pick the bucket, once to encode).
+
+The bucket ladder keeps the JAX package's values, chosen on a TPU and not
+yet measured on the H100: the device ladder starts at 16 rows, the CPU
+ladder adds 1, 2, 4 and 8.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from sskd_tpu_torch.exceptions import ModelLoadError
+from sskd_tpu_torch.models.bert import BertConfig, BiEncoder
+from sskd_tpu_torch.models.weights import bi_encoder_from_jax_params, random_jax_params
+from sskd_tpu_torch.tokenization import WordPieceTokenizer, get_default_tokenizer
+from sskd_tpu_torch.utils.logging import get_logger
+from sskd_tpu_torch.utils.platform import resolve_device
+
+logger = get_logger("models.student")
+
+BUCKETS_DEVICE = (16, 32, 64, 128, 256, 512)
+BUCKETS_HOST = (1, 2, 4, 8) + BUCKETS_DEVICE
+ARCH_KEYS = (
+    "vocab_size",
+    "hidden_size",
+    "num_layers",
+    "num_heads",
+    "intermediate_size",
+    "max_position_embeddings",
+    "type_vocab_size",
+    "layer_norm_eps",
+    "hidden_dropout",
+    "attention_dropout",
+    "pad_token_id",
+    "position_style",
+)
+
+
+def buckets_for(device: torch.device) -> tuple[int, ...]:
+    return BUCKETS_HOST if device.type == "cpu" else BUCKETS_DEVICE
+
+
+def bucket_length(n: int, max_len: int, device: torch.device) -> int:
+    for b in buckets_for(device):
+        if n <= b and b <= max_len:
+            return b
+    return max_len
+
+
+class StudentModel:
+    """Bi-encoder student (e5-small-v2 class)."""
+
+    def __init__(
+        self,
+        model_name: str | None = None,
+        device: str | torch.device | None = "cuda",
+        config: BertConfig | None = None,
+        tokenizer: WordPieceTokenizer | None = None,
+        params=None,
+        normalize: bool = True,
+        pooling: str = "mean",
+        compute_dtype: torch.dtype | None = None,
+        max_seq_length: int = 512,
+        query_prefix: str = "query: ",
+        passage_prefix: str = "passage: ",
+        seed: int = 0,
+    ):
+        self.model_name = model_name or "intfloat/e5-small-v2"
+        self.device = resolve_device(device)
+        self.normalize = normalize
+        self.pooling = pooling
+        self.max_seq_length = max_seq_length
+        self.query_prefix = query_prefix
+        self.passage_prefix = passage_prefix
+
+        state = None
+        path = Path(model_name) if model_name else None
+        if path is not None and path.is_dir():
+            if (path / "weights.pt").exists():
+                state = self._load_own_checkpoint(path)
+            elif (path / "params.msgpack").exists() or (path / "config.json").exists():
+                raise ModelLoadError(
+                    f"{path} holds a JAX or Hugging Face checkpoint; the port loads its "
+                    "own format (weights.pt). Carry JAX parameters over with "
+                    "sskd_tpu_torch.models.weights.bi_encoder_from_jax_params."
+                )
+        if state is None:
+            self.config = config or (
+                BertConfig.e5_small_v2() if "e5" in self.model_name else BertConfig.tiny()
+            )
+            self.tokenizer = tokenizer or get_default_tokenizer()
+            if params is None:
+                params = random_jax_params(self.config, seed)
+                logger.warning(
+                    f"no local weights for {self.model_name!r}; seeded random init "
+                    f"({self.config.num_layers}L/{self.config.hidden_size}H, seed {seed})"
+                )
+            state = bi_encoder_from_jax_params(params, self.config)
+        elif params is not None:
+            state = bi_encoder_from_jax_params(params, self.config)
+        if tokenizer is not None:
+            self.tokenizer = tokenizer
+        dtype = compute_dtype or self.config.compute_dtype
+        self.module = BiEncoder(self.config, normalize=self.normalize, pooling=self.pooling)
+        self.module.load_state_dict(state)
+        self.module.to(device=self.device, dtype=dtype).eval()
+
+    # ------------------------------------------------------------------
+    # Loading / saving
+    # ------------------------------------------------------------------
+
+    def _load_own_checkpoint(self, path: Path) -> dict:
+        with open(path / "sskd_config.json") as f:
+            meta = json.load(f)
+        self.config = BertConfig(**{k: meta["architecture"][k] for k in ARCH_KEYS})
+        self.normalize = meta.get("normalize", True)
+        self.pooling = meta.get("pooling", "mean")
+        self.max_seq_length = meta.get("max_seq_length", 512)
+        self.query_prefix = meta.get("query_prefix", self.query_prefix)
+        self.passage_prefix = meta.get("passage_prefix", self.passage_prefix)
+        self.tokenizer = WordPieceTokenizer.from_pretrained_dir(path / "tokenizer")
+        logger.info(f"loaded student checkpoint from {path}")
+        return torch.load(path / "weights.pt", map_location="cpu", weights_only=True)
+
+    def save(self, path: str | Path) -> Path:
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        meta = {
+            "model_name": self.model_name,
+            "architecture": {k: getattr(self.config, k) for k in ARCH_KEYS},
+            "normalize": self.normalize,
+            "pooling": self.pooling,
+            "max_seq_length": self.max_seq_length,
+            "query_prefix": self.query_prefix,
+            "passage_prefix": self.passage_prefix,
+            "embedding_dim": self.embedding_dim,
+        }
+        with open(path / "sskd_config.json", "w") as f:
+            json.dump(meta, f, indent=2)
+        state = {k: v.detach().to("cpu", torch.float32)
+                 for k, v in self.module.state_dict().items()}
+        torch.save(state, path / "weights.pt")
+        self.tokenizer.save(path / "tokenizer")
+        logger.info(f"saved student checkpoint to {path}")
+        return path
+
+    # ------------------------------------------------------------------
+    # Encoding
+    # ------------------------------------------------------------------
+
+    @property
+    def embedding_dim(self) -> int:
+        return self.config.hidden_size
+
+    def tokenize_batch(self, texts: Sequence[str], pad_to: int | None = None) -> dict:
+        """Host-side tokenization to fixed [B, L] int32 arrays; L is the
+        bucket of the longest text (``pad_to`` overrides it)."""
+        ids = [self.tokenizer.tokenize(t) for t in texts]
+        longest = 2 + max((len(i) for i in ids), default=1)
+        length = pad_to or bucket_length(longest, self.max_seq_length, self.device)
+        return self.tokenizer.frame_batch(ids, length)
+
+    def forward_batch(self, batch: dict) -> torch.Tensor:
+        """Embeddings [B, H] f32 on the model's device for a tokenized batch."""
+        ids = torch.from_numpy(batch["input_ids"]).to(self.device, non_blocking=True)
+        mask = torch.from_numpy(batch["attention_mask"]).to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            return self.module(ids.long(), mask)
+
+    def encode(
+        self,
+        texts: str | Sequence[str],
+        normalize: bool | None = None,
+        batch_size: int = 256,
+        prefix: str = "",
+    ) -> np.ndarray:
+        """Encode to [n, embedding_dim] f32 numpy; a bare string is wrapped
+        into a one-element list."""
+        if isinstance(texts, str):
+            texts = [texts]
+        if not texts:
+            return np.zeros((0, self.embedding_dim), np.float32)
+        if prefix:
+            texts = [prefix + t for t in texts]
+        out = []
+        # the device runs chunk i while the host tokenizes chunk i + 1: the
+        # copy back of chunk i (which waits for the device) comes after
+        pending: tuple | None = None
+        for start in range(0, len(texts), batch_size):
+            chunk = list(texts[start : start + batch_size])
+            n = len(chunk)
+            padded_n = bucket_length(n, batch_size, self.device)
+            chunk += [""] * (padded_n - n)
+            emb = self.forward_batch(self.tokenize_batch(chunk))
+            if pending is not None:
+                out.append(pending[0][: pending[1]].cpu().numpy())
+            pending = (emb, n)
+        out.append(pending[0][: pending[1]].cpu().numpy())
+        emb = np.concatenate(out, axis=0)
+        if normalize and not self.normalize:
+            emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+        return emb
+
+    def encode_queries(self, texts: str | Sequence[str], batch_size: int = 256) -> np.ndarray:
+        return self.encode(texts, batch_size=batch_size, prefix=self.query_prefix)
+
+    def encode_documents(self, texts: str | Sequence[str], batch_size: int = 256) -> np.ndarray:
+        return self.encode(texts, batch_size=batch_size, prefix=self.passage_prefix)

@@ -1,0 +1,108 @@
+"""Carry BiEncoder weights between the Flax parameter layout and the port.
+
+The JAX package keeps parameters as a Flax tree: ``Dense`` kernels
+``[in, out]`` with a ``bias``, ``LayerNorm`` ``scale`` / ``bias``, ``Embed``
+``embedding`` tables. :func:`bi_encoder_from_jax_params` turns such a tree of
+numpy arrays into a ``state_dict`` of :class:`~sskd_tpu_torch.models.bert.
+BiEncoder` (``Linear.weight`` is ``[out, in]``, so kernels are transposed).
+The port reads no msgpack and no Flax: callers hand it numpy arrays.
+
+:func:`random_jax_params` draws a Flax-layout tree with the initializers Flax
+applies by default (``lecun_normal`` for Dense kernels, ``variance_scaling(1,
+fan_in, normal)`` for Embed tables, ones and zeros for LayerNorm, zero
+biases) from a numpy seed. It is how the port makes the seeded random
+weights the JAX package serves when a model has no weights on disk
+(sskd_tpu/models/student.py:114-130). The distributions match; the numbers
+do not, as JAX's random bits differ from numpy's.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from sskd_tpu_torch.models.bert import BertConfig
+
+_LINEAR_NAMES = ("query", "key", "value", "output")
+
+
+def _tree(params: Mapping) -> Mapping:
+    """Accept ``{"params": {"encoder": ...}}`` or ``{"encoder": ...}``."""
+    return params["params"] if "params" in params else params
+
+
+def bi_encoder_from_jax_params(params: Mapping, config: BertConfig) -> dict[str, torch.Tensor]:
+    """Flax BiEncoder parameter tree (numpy arrays) -> BiEncoder state_dict (f32)."""
+    enc = _tree(params)["encoder"]
+
+    def t(x) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    sd: dict[str, torch.Tensor] = {}
+
+    def dense(prefix: str, node: Mapping) -> None:
+        sd[f"{prefix}.weight"] = t(node["kernel"]).T.contiguous()
+        sd[f"{prefix}.bias"] = t(node["bias"])
+
+    def norm(prefix: str, node: Mapping) -> None:
+        sd[f"{prefix}.weight"] = t(node["scale"])
+        sd[f"{prefix}.bias"] = t(node["bias"])
+
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"encoder.{name}.weight"] = t(enc[name]["embedding"])
+    norm("encoder.embeddings_norm", enc["embeddings_norm"])
+    for i in range(config.num_layers):
+        layer = enc[f"layer_{i}"]
+        pre = f"encoder.layers.{i}"
+        for name in _LINEAR_NAMES:
+            dense(f"{pre}.attention.{name}", layer["attention"][name])
+        norm(f"{pre}.attention_norm", layer["attention_norm"])
+        dense(f"{pre}.intermediate", layer["intermediate"])
+        dense(f"{pre}.ffn_output", layer["ffn_output"])
+        norm(f"{pre}.ffn_norm", layer["ffn_norm"])
+    return sd
+
+
+def random_jax_params(config: BertConfig, seed: int = 0) -> dict:
+    """A Flax-layout BiEncoder parameter tree drawn with Flax's default
+    initializers from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    H, inter = config.hidden_size, config.intermediate_size
+
+    def lecun_normal(fan_in: int, fan_out: int) -> np.ndarray:
+        # variance_scaling(1, "fan_in", "truncated_normal"): N(0, 1) cut at
+        # +-2, scaled so the variance is 1 / fan_in
+        std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+        out = rng.standard_normal((fan_in, fan_out))
+        bad = np.abs(out) > 2
+        while bad.any():
+            out[bad] = rng.standard_normal(int(bad.sum()))
+            bad = np.abs(out) > 2
+        return (out * std).astype(np.float32)
+
+    def dense(fan_in: int, fan_out: int) -> dict:
+        return {"kernel": lecun_normal(fan_in, fan_out), "bias": np.zeros(fan_out, np.float32)}
+
+    def embed(n: int) -> dict:
+        return {"embedding": (rng.standard_normal((n, H)) / np.sqrt(H)).astype(np.float32)}
+
+    def norm() -> dict:
+        return {"scale": np.ones(H, np.float32), "bias": np.zeros(H, np.float32)}
+
+    enc = {
+        "word_embeddings": embed(config.vocab_size),
+        "position_embeddings": embed(config.max_position_embeddings),
+        "token_type_embeddings": embed(config.type_vocab_size),
+        "embeddings_norm": norm(),
+    }
+    for i in range(config.num_layers):
+        enc[f"layer_{i}"] = {
+            "attention": {name: dense(H, H) for name in _LINEAR_NAMES},
+            "attention_norm": norm(),
+            "intermediate": dense(H, inter),
+            "ffn_output": dense(inter, H),
+            "ffn_norm": norm(),
+        }
+    return {"params": {"encoder": enc}}

@@ -1,0 +1,26 @@
+"""Tensor operations of the port and the wrappers of its CUDA kernels.
+
+Each kernel wrapper keeps a ``launches`` count that grows by one where it
+launches its kernel and nowhere else; ``launch_counts`` reads them and
+``reset_launch_counts`` sets them to 0, so a run can show which kernels its
+path went through.
+"""
+
+from __future__ import annotations
+
+
+def kernel_wrappers() -> dict:
+    """Kernel name -> wrapper function."""
+    from sskd_tpu_torch.ops.attention import flash_attention
+    from sskd_tpu_torch.ops.topk_kernels import bin_gather, binmax
+
+    return {"binmax": binmax, "bin_gather": bin_gather, "flash_attn_fwd": flash_attention}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0

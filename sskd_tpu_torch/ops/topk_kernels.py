@@ -1,0 +1,288 @@
+"""Two-phase exact top-k over a device-resident corpus (port of
+sskd_tpu/ops/topk_pallas.py).
+
+Phase A, ``binmax`` (csrc/binmax.cu): the maximum score of every 128-row bin
+for every query, ``[n_bins, B]``, without a ``[B, N]`` score matrix in device
+memory. Extraction, plain torch: each query's top-kb bins by that maximum.
+Phase B, ``bin_gather`` (csrc/bin_gather.cu): exact scores of the 128 rows of
+each chosen bin, ``[B, kb, 128]``; a final top-k over those candidates is the
+exact answer, because every one of a query's top-k rows lies in a bin whose
+maximum is at least the k-th score, and at most k bins hold them.
+
+Each kernel wrapper launches its kernel on a CUDA tensor and counts the
+launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
+plain torch version (``binmax_plain``, ``bin_gather_plain``), which repeats
+the kernel's arithmetic. Results follow the JAX engine's contract:
+``(vals [B, k] f32, idx [B, k] int32)`` with ``(-inf, -1)`` sentinels, where
+"-inf" is ``finfo(float32).min / 2``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sskd_tpu_torch.ops import _build
+from sskd_tpu_torch.ops.quant import quantize_rows, unpack_int4
+
+NEG_INF = float(torch.finfo(torch.float32).min) / 2
+BIN_W = 128  # rows per bin
+K_MAX = 256  # largest k the two-phase engine serves
+_MODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
+_PLAIN_ROWS = 1 << 18  # rows per chunk of the plain versions' score matrix
+
+
+def _mode(corpus: torch.Tensor) -> int:
+    if corpus.dtype not in _MODES:
+        raise TypeError(f"corpus dtype {corpus.dtype} not in float32 / int8 / uint8")
+    return _MODES[corpus.dtype]
+
+
+def _check_operands(q_in, corpus, row_scales, valid_n):
+    """Validate what both kernels read; returns (mode, row_words)."""
+    mode = _mode(corpus)
+    if q_in.dim() != 2 or corpus.dim() != 2:
+        raise ValueError("queries and corpus must be 2-D")
+    want_q = torch.float32 if mode == 0 else torch.int8
+    if q_in.dtype != want_q:
+        raise TypeError(f"queries must be {want_q} for a {corpus.dtype} corpus")
+    d, dc = q_in.shape[1], corpus.shape[1]
+    if d != (2 * dc if mode == 2 else dc):
+        raise ValueError(f"query dim {d} does not match corpus columns {dc}")
+    if mode != 0 and row_scales is None:
+        raise ValueError("an int8 or int4 corpus requires row_scales")
+    if row_scales is not None and (
+        row_scales.dtype != torch.float32 or row_scales.shape != (corpus.shape[0],)
+    ):
+        raise ValueError("row_scales must be float32 [N]")
+    if not 0 <= valid_n <= corpus.shape[0]:
+        raise ValueError(f"valid_n {valid_n} outside [0, {corpus.shape[0]}]")
+    row_bytes = dc * corpus.element_size()
+    return mode, row_bytes // 4
+
+
+def _check_cuda(*tensors):
+    """The kernels take contiguous tensors on one CUDA device, 16-byte aligned."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"tensor on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# Phase A
+# ---------------------------------------------------------------------------
+
+
+def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.Tensor:
+    """Bin maxima ``[ceil(N / 128), B]`` f32 of ``(corpus @ q_in.T) * row_scales``
+    with rows ``>= valid_n`` at ``NEG_INF``. ``q_in``: f32 queries for an f32
+    corpus, int8 (quantized) queries for an int8 or packed-int4 corpus; the
+    query scale is left out, as it cannot change a query's order of bins."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    mode, row_words = _check_operands(q_in, corpus, row_scales, valid_n)
+    if corpus.device.type == "cpu":
+        return binmax_plain(q_in, corpus, row_scales, valid_n)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"binmax runs on cuda or cpu, not {corpus.device}")
+    if (row_words * 4) % 16:
+        raise ValueError("binmax needs corpus rows of a multiple of 16 bytes")
+    _check_cuda(q_in, corpus, row_scales)
+    B = q_in.shape[0]
+    out = torch.empty(((n + BIN_W - 1) // BIN_W, B), dtype=torch.float32, device=corpus.device)
+    lib = _lib("binmax")
+    _build.check(
+        lib.sskd_binmax(
+            mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
+            B, n, row_words, valid_n, _stream(corpus.device),
+        ),
+        "binmax",
+    )
+    binmax.launches += 1
+    return out
+
+
+binmax.launches = 0
+
+
+def _dense_rows(corpus: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` as f32 values (int4 unpacked); int values < 2^24 stay exact."""
+    block = corpus[lo:hi]
+    if block.dtype == torch.uint8:
+        block = unpack_int4(block)
+    return block.to(torch.float32)
+
+
+def binmax_plain(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.Tensor:
+    """Plain torch version of :func:`binmax` (same arithmetic: an exact
+    integer dot for int8 / int4, then the row scale, the mask and the max)."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    q = q_in.to(torch.float32)
+    parts = []
+    for lo in range(0, n, _PLAIN_ROWS):  # _PLAIN_ROWS is a multiple of BIN_W
+        hi = min(n, lo + _PLAIN_ROWS)
+        scores = _dense_rows(corpus, lo, hi) @ q.T  # [R, B]
+        if row_scales is not None:
+            scores = scores * row_scales[lo:hi, None]
+        rows = torch.arange(lo, hi, device=corpus.device)
+        scores = torch.where((rows < valid_n)[:, None], scores, NEG_INF)
+        pad = -(hi - lo) % BIN_W
+        if pad:
+            scores = torch.cat([scores, scores.new_full((pad, q.shape[0]), NEG_INF)])
+        parts.append(scores.view(-1, BIN_W, q.shape[0]).amax(dim=1))
+    return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# Phase B
+# ---------------------------------------------------------------------------
+
+
+def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
+    """Exact scores ``[B, kb, 128]`` of the rows of bins ``bins [B, kb]``
+    (int32, each < ceil(N / 128)): ``dot * q_scale[b] * row_scale`` for int8 /
+    int4, ``dot * row_scale`` (scale optional) for f32; rows ``>= valid_n``
+    at ``NEG_INF``."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    mode, row_words = _check_operands(q_in, corpus, row_scales, valid_n)
+    B, kb = bins.shape
+    if bins.dtype != torch.int32 or B != q_in.shape[0]:
+        raise ValueError("bins must be int32 [B, kb]")
+    if mode != 0 and (q_scale is None or q_scale.shape != (B,) or q_scale.dtype != torch.float32):
+        raise ValueError("int8 / int4 corpora need q_scale float32 [B]")
+    if corpus.device.type == "cpu":
+        return bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"bin_gather runs on cuda or cpu, not {corpus.device}")
+    if (row_words * 4) % 16:
+        raise ValueError("bin_gather needs corpus rows of a multiple of 16 bytes")
+    _check_cuda(q_in, corpus, row_scales, bins, q_scale if mode != 0 else None)
+    out = torch.empty((B, kb, BIN_W), dtype=torch.float32, device=corpus.device)
+    lib = _lib("bin_gather")
+    _build.check(
+        lib.sskd_bin_gather(
+            mode, _ptr(q_in), _ptr(q_scale if mode != 0 else None), _ptr(corpus),
+            _ptr(row_scales), _ptr(bins), _ptr(out), B, kb, n, row_words, valid_n,
+            _stream(corpus.device),
+        ),
+        "bin_gather",
+    )
+    bin_gather.launches += 1
+    return out
+
+
+bin_gather.launches = 0
+
+
+def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
+    """Plain torch version of :func:`bin_gather`, one query at a time."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    B, kb = bins.shape
+    lane = torch.arange(BIN_W, device=corpus.device)
+    quantized = corpus.dtype != torch.float32
+    out = []
+    for b in range(B):
+        rows = (bins[b].to(torch.int64)[:, None] * BIN_W + lane).reshape(-1)
+        safe = rows.clamp(max=n - 1)
+        dense = corpus[safe]
+        dense = (unpack_int4(dense) if corpus.dtype == torch.uint8 else dense).to(torch.float32)
+        s = dense @ q_in[b].to(torch.float32)
+        if quantized:
+            s = s * q_scale[b] * row_scales[safe]
+        elif row_scales is not None:
+            s = s * row_scales[safe]
+        out.append(torch.where(rows < valid_n, s, NEG_INF).view(kb, BIN_W))
+    return torch.stack(out)
+
+
+_ARGTYPES = {
+    "binmax": "i p p p p i l i l p",
+    "bin_gather": "i p p p p p p i i l i l p",
+}
+_CTYPES = {"i": ctypes.c_int, "l": ctypes.c_long, "p": ctypes.c_void_p}
+
+
+def _lib(stem: str):
+    """The kernel library with its C entry point's signature declared."""
+    lib = _build.load_library(stem)
+    fn = getattr(lib, f"sskd_{stem}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_CTYPES[c] for c in _ARGTYPES[stem].split()]
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """Top-k over the last axis, ties broken toward the lower index (as
+    ``lax.top_k`` does), so that both packages return the same ids."""
+    vals, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], pos[..., :k]
+
+
+def quantize_queries(queries: torch.Tensor, corpus: torch.Tensor):
+    """The engine's query operand: f32 queries for an f32 corpus; int8
+    queries and their f32 scales [B] for an int8 or int4 corpus."""
+    if corpus.dtype == torch.float32:
+        return queries.to(torch.float32).contiguous(), None
+    q_in, q_scale = quantize_rows(queries)
+    return q_in.contiguous(), q_scale.contiguous()
+
+
+def cosine_topk_kernels(queries, corpus, k: int, row_scales=None, valid_n: int | None = None):
+    """Exact top-k through ``binmax`` and ``bin_gather``: same contract as
+    :func:`sskd_tpu_torch.ops.topk.cosine_topk`. ``corpus`` [N, D] f32 or
+    int8, or [N, D/2] uint8 packed int4 (``row_scales`` [N] required for
+    the quantized forms)."""
+    if k > K_MAX:
+        raise ValueError(f"k={k} exceeds kernel capacity {K_MAX}")
+    if corpus.dtype == torch.uint8 and corpus.shape[1] * 2 != queries.shape[1]:
+        raise ValueError(
+            f"packed int4 corpus cols {corpus.shape[1]} != query dim {queries.shape[1]} / 2"
+        )
+    B = queries.shape[0]
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    q_in, q_scale = quantize_queries(queries, corpus)
+
+    bin_max = binmax(q_in, corpus, row_scales, valid_n)  # [n_bins, B]
+    n_bins = bin_max.shape[0]
+    kb = min(k, n_bins)
+    bin_vals, bin_ids = topk_stable(bin_max.T, kb)  # [B, kb]
+    slot_ok = bin_vals > NEG_INF / 2  # dead slots: bins holding no valid row
+    bins = bin_ids.to(torch.int32).contiguous()
+
+    gathered = bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n)
+    cand = torch.where(slot_ok[:, :, None], gathered, NEG_INF).reshape(B, kb * BIN_W)
+    lane = torch.arange(BIN_W, device=corpus.device, dtype=torch.int32)
+    cand_idx = (bins[:, :, None] * BIN_W + lane).reshape(B, kb * BIN_W)
+    k_top = min(k, kb * BIN_W)
+    vals, pos = topk_stable(cand, k_top)
+    idx = torch.gather(cand_idx, 1, pos)
+    if k_top < k:  # pad out to the requested k
+        vals = torch.cat([vals, vals.new_full((B, k - k_top), NEG_INF)], dim=1)
+        idx = torch.cat([idx, idx.new_full((B, k - k_top), -1)], dim=1)
+    idx = torch.where(vals > NEG_INF / 2, idx, -1)
+    return vals, idx

@@ -1,0 +1,283 @@
+"""Serving application (port of sskd_tpu/serve/app.py, the ``/search`` path).
+
+Routes: ``/``, ``/health``, ``/ready``, ``/live``, ``POST /search``,
+``POST /encode`` and ``/metrics``, on the first-party HTTP stack. Startup
+loads the student, preloads the index when ``preload_index_dir`` is given,
+builds the :class:`~sskd_tpu_torch.serve.fused.FusedSearcher`, warms it up
+and starts the micro-batcher. Differences from the JAX package:
+
+- every step of startup is fatal when it fails, warmup included (the JAX
+  package logs a failed warmup and serves on);
+- ``search.rerank_enabled`` raises :class:`ConfigError`: reranking comes
+  with the teacher in a later slice and is not switched off in silence;
+- a preloaded index is served with ``index.search_method`` (the JAX
+  package serves the ``index_type`` the index records and reads the
+  setting only when it builds); a method the port has no engine for yet
+  (``approx``, the default, or ``clustered``) fails at startup;
+- reranking, hybrid search, caches, sharding, ``/docs``, ``/openapi.json``
+  and ``/index/load`` are later slices (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from sskd_tpu_torch.config import Settings, get_settings
+from sskd_tpu_torch.exceptions import ConfigError, SemanticKDError, ValidationError_
+from sskd_tpu_torch.index.builder import IndexBuilder
+from sskd_tpu_torch.models.student import StudentModel
+from sskd_tpu_torch.serve.batcher import MicroBatcher
+from sskd_tpu_torch.serve.fused import FusedSearcher
+from sskd_tpu_torch.serve.http import App, Request, Response
+from sskd_tpu_torch.serve.metrics import Metrics
+from sskd_tpu_torch.serve.middleware import (
+    cors_middleware,
+    hash_query,
+    request_logging_middleware,
+    security_headers_middleware,
+)
+from sskd_tpu_torch.serve.schemas import EncodeRequest, SearchRequest, SearchResult
+from sskd_tpu_torch.utils.logging import get_logger
+from sskd_tpu_torch.version import __version__
+
+logger = get_logger("serve.app")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class AppState:
+    def __init__(self, settings: Settings):
+        self.settings = settings
+        self.metrics = Metrics()
+        self.student: StudentModel | None = None
+        self.index_builder: IndexBuilder | None = None
+        self.fused_searcher: FusedSearcher | None = None
+        self.search_batcher: MicroBatcher | None = None
+        self.ready = False
+
+    @property
+    def index_loaded(self) -> bool:
+        return self.index_builder is not None and self.index_builder.is_built
+
+    def batched_search(self, items: list[tuple[str, int]]):
+        """One encode + search for a micro-batch of (query, k) requests."""
+        queries = [q for q, _ in items]
+        t0 = time.perf_counter()
+        scores, indices = self.fused_searcher.search_texts(queries, k=max(k for _, k in items))
+        self.metrics.search_latency.observe(time.perf_counter() - t0)
+        return [(scores[i, :k], indices[i, :k]) for i, (_, k) in enumerate(items)]
+
+
+def _status_for(exc: SemanticKDError) -> int:
+    if isinstance(exc, ValidationError_):
+        return 422
+    if isinstance(exc, ConfigError):
+        return 400
+    return 500
+
+
+def create_app(
+    settings: Settings | None = None,
+    student_model_path: str | None = None,
+    device: str | torch.device | None = "cuda",
+    preload_index_dir: str | None = None,
+) -> App:
+    settings = settings or get_settings()
+    if settings.search.rerank_enabled:
+        raise ConfigError(
+            "search.rerank_enabled needs the teacher, which is a later slice of the "
+            "port (ROADMAP Queue 1, 'teacher and rerank'); set it to false"
+        )
+    app = App()
+    state = AppState(settings)
+    app.state = state
+
+    # middlewares, added inner to outer
+    if settings.cors.enabled:
+        c = settings.cors
+        app.add_middleware(
+            cors_middleware(
+                c.allow_origins, c.allow_methods, c.allow_headers,
+                allow_credentials=c.allow_credentials,
+            )
+        )
+    app.add_middleware(security_headers_middleware())
+    app.add_middleware(
+        request_logging_middleware(
+            state.metrics,
+            log_queries=settings.monitoring.log_queries,
+            log_latencies=settings.monitoring.log_latencies,
+        )
+    )
+
+    def startup():
+        t0 = time.perf_counter()
+        s = settings.student
+        state.student = StudentModel(
+            student_model_path or s.model_name,
+            device=device,
+            max_seq_length=s.max_seq_length,
+            query_prefix=s.query_prefix,
+            passage_prefix=s.passage_prefix,
+            normalize=s.normalize_embeddings,
+            pooling=s.pooling,
+            compute_dtype=_DTYPES[settings.precision.compute_dtype],
+        )
+        state.metrics.model_load_seconds.set(time.perf_counter() - t0)
+        if preload_index_dir:
+            builder = IndexBuilder(device=state.student.device).load(preload_index_dir)
+            builder.index_type = settings.index.search_method
+            state.index_builder = builder
+            state.fused_searcher = FusedSearcher(state.student, builder)
+            state.metrics.index_size.set(builder.ntotal)
+            state.fused_searcher.warmup(
+                max_batch=settings.service.micro_batch_max_size, k=settings.search.default_k
+            )
+        else:
+            state.student.encode_queries(["warmup query"])
+        if settings.service.micro_batch_max_size > 1 and state.fused_searcher is not None:
+            state.search_batcher = MicroBatcher(
+                state.batched_search,
+                window_ms=settings.service.micro_batch_window_ms,
+                max_size=settings.service.micro_batch_max_size,
+            )
+        state.ready = True
+
+    async def shutdown():
+        state.ready = False
+        if state.search_batcher is not None:
+            await state.search_batcher.close()
+            state.search_batcher = None
+
+    app.on_startup.append(startup)
+    app.on_shutdown.append(shutdown)
+
+    def kd_error_handler(request: Request, exc: SemanticKDError) -> Response:
+        payload = exc.to_dict()
+        if settings.service.environment == "production":
+            payload.pop("details", None)
+        return Response(payload, status=_status_for(exc))
+
+    def bad_json_handler(request: Request, exc: Exception) -> Response:
+        return Response({"error": "invalid JSON body"}, status=422)
+
+    app.add_exception_handler(SemanticKDError, kd_error_handler)
+    app.add_exception_handler(json.JSONDecodeError, bad_json_handler)
+
+    @app.get("/")
+    async def root(request: Request) -> Response:
+        endpoints = ["/health", "/ready", "/live", "/search", "/encode"]
+        if settings.monitoring.prometheus_enabled:
+            endpoints.append(settings.monitoring.prometheus_path)
+        return Response(
+            {
+                "service": "sskd semantic search (PyTorch/CUDA port)",
+                "version": __version__,
+                "environment": settings.service.environment,
+                "endpoints": endpoints,
+            }
+        )
+
+    @app.get("/health")
+    async def health(request: Request) -> Response:
+        return Response(
+            {
+                "status": "healthy" if state.ready else "starting",
+                "model_loaded": state.student is not None,
+                "index_loaded": state.index_loaded,
+                "index_size": state.index_builder.ntotal if state.index_loaded else 0,
+                "version": __version__,
+            }
+        )
+
+    @app.get("/ready")
+    async def ready(request: Request) -> Response:
+        if not state.ready:
+            return Response({"ready": False}, status=503)
+        return Response({"ready": True})
+
+    @app.get("/live")
+    async def live(request: Request) -> Response:
+        return Response({"alive": True})
+
+    if settings.monitoring.prometheus_enabled:
+
+        @app.route("GET", settings.monitoring.prometheus_path)
+        async def metrics_route(request: Request) -> Response:
+            return Response(
+                state.metrics.render(), media_type="text/plain; version=0.0.4; charset=utf-8"
+            )
+
+    @app.post("/search")
+    async def search(request: Request) -> Response:
+        t_start = time.perf_counter()
+        body = SearchRequest.parse(request.json())
+        if body.k > settings.search.max_k:
+            return Response(
+                {
+                    "error": "VALIDATION_ERROR",
+                    "detail": f"k={body.k} exceeds search.max_k={settings.search.max_k}",
+                },
+                status=422,
+            )
+        if body.rerank:
+            raise ConfigError("rerank is a later slice of the port; send rerank=false")
+        if not state.ready or state.student is None:
+            return Response({"error": "service not ready"}, status=503)
+        if not state.index_loaded:
+            return Response({"error": "index not loaded"}, status=503)
+
+        k = min(body.k, state.index_builder.ntotal)
+        if state.search_batcher is not None:
+            score_vec, idx_vec = await state.search_batcher.submit((body.query, k))
+        else:
+            t0 = time.perf_counter()
+            scores, indices = state.fused_searcher.search_texts([body.query], k=k)
+            state.metrics.search_latency.observe(time.perf_counter() - t0)
+            score_vec, idx_vec = scores[0], indices[0]
+
+        b = state.index_builder
+        rows = [(int(i), float(s)) for s, i in zip(score_vec, idx_vec) if i >= 0]
+        texts = b.get_texts([i for i, _ in rows])
+        results = [
+            SearchResult(doc_id=b.doc_ids[i], text=t, score=s, rank=r + 1).to_dict()
+            for r, ((i, s), t) in enumerate(zip(rows, texts))
+        ]
+        latency_ms = (time.perf_counter() - t_start) * 1000.0
+        logger.info(
+            f"search qhash={hash_query(body.query)} k={body.k} latency_ms={latency_ms:.1f}"
+        )
+        return Response(
+            {
+                "query": body.query,
+                "results": results,
+                "total_results": len(results),
+                "reranked": False,
+                "hybrid": False,
+                "latency_ms": latency_ms,
+            }
+        )
+
+    @app.post("/encode")
+    async def encode(request: Request) -> Response:
+        t_start = time.perf_counter()
+        body = EncodeRequest.parse(request.json())
+        if not state.ready or state.student is None:
+            return Response({"error": "service not ready"}, status=503)
+        t0 = time.perf_counter()
+        emb = np.asarray(state.student.encode(body.texts, normalize=body.normalize))
+        state.metrics.encode_latency.observe(time.perf_counter() - t0)
+        return Response(
+            {
+                "embeddings": emb.tolist(),
+                "dimension": int(emb.shape[1]),
+                "num_texts": int(emb.shape[0]),
+                "latency_ms": (time.perf_counter() - t_start) * 1000.0,
+            }
+        )
+
+    return app

@@ -1,0 +1,75 @@
+"""Encode and search in one device pass per (micro-)batch (port of
+sskd_tpu/serve/fused.py, ``FusedSearcher``).
+
+Tokenization runs on the host; the query encode and the top-k run back to
+back on the device with no copy between them, and the host waits once, for
+the ``[B, k]`` result. PyTorch runs eagerly, so there is no program to
+compile per shape: ``warmup`` builds the kernels and touches each batch
+bucket, so that the first request pays neither. The index must be an exact
+index over f32, int8 or int4 rows; other engines are later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sskd_tpu_torch.models.student import bucket_length, buckets_for
+from sskd_tpu_torch.ops.topk import cosine_topk
+
+K_BUCKETS = (10, 20, 50, 100, 200, 400)
+
+
+class FusedSearcher:
+    """Tokenize on the host; encode + top-k on the device."""
+
+    def __init__(self, student, builder):
+        if builder.device != student.device:
+            raise ValueError(
+                f"student on {student.device} but index on {builder.device}"
+            )
+        builder.check_searchable()
+        builder.ensure_device()
+        self.student = student
+        self.builder = builder
+
+    @property
+    def ntotal(self) -> int:
+        return self.builder.ntotal
+
+    def bucket_k(self, k: int) -> int:
+        for bucket in K_BUCKETS:
+            if k <= bucket <= max(self.ntotal, K_BUCKETS[0]):
+                return bucket
+        return k
+
+    def search_texts(self, queries: list[str], k: int):
+        """Returns (scores [B, k], indices [B, k]) numpy."""
+        b = self.builder
+        k_eff = min(self.bucket_k(k), self.ntotal)
+        n = len(queries)
+        padded_n = bucket_length(n, 256, self.student.device)
+        texts = [self.student.query_prefix + t for t in queries] + [
+            self.student.query_prefix
+        ] * (padded_n - n)
+        batch = self.student.tokenize_batch(texts)
+        with torch.inference_mode():
+            q = self.student.forward_batch(batch)
+            vals, idx = cosine_topk(
+                q,
+                b.device_vectors,
+                k=k_eff,
+                block_rows=b.block_rows,
+                row_scales=b.device_scales,
+                valid_n=b.ntotal,
+                method=b.index_type,
+            )
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        return vals[:n, :k], b.map_positions(idx)[:n, :k]
+
+    def warmup(self, max_batch: int = 64, k: int = 10) -> None:
+        for bucket in buckets_for(self.student.device):
+            if bucket > max_batch:
+                break
+            self.search_texts(["warmup"] * bucket, k)
+        self.search_texts(["warmup"], k)
+

@@ -1,0 +1,84 @@
+"""Port vs JAX: attention.
+
+The port's flash wrapper runs its plain version on the CPU; the JAX flash
+kernel runs in interpret mode. f32 throughout; atol 1e-5 covers summation
+order in two f32 matmuls and the softmax over at most 200 keys.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sskd_tpu.ops.attention import flash_attention as j_flash, xla_attention
+from sskd_tpu_torch.ops import attention as ta
+
+
+def _qkv(seed, B, h, L, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, h, L, d)).astype(np.float32) for _ in range(3)]
+
+
+def _mask(seed, B, L):
+    rng = np.random.default_rng(seed + 1)
+    lens = rng.integers(1, L + 1, B)
+    lens[0] = L
+    return (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [64, 200])  # 200: not a multiple of any tile
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_matches_jax(L, masked):
+    q, k, v = _qkv(L, 3, 2, L, 16)
+    mask = _mask(L, 3, L) if masked else None
+    want = np.asarray(
+        j_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                mask=None if mask is None else jnp.asarray(mask), interpret=True)
+    )
+    got = ta.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if mask is None else torch.from_numpy(mask),
+    )
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("L", [16, 512])  # 512: the dispatcher takes the flash path
+def test_plain_and_dispatch_match_xla_attention(L):
+    q, k, v = _qkv(L + 7, 2, 2, L, 16)
+    mask = _mask(L, 2, L)
+    bias = ((1.0 - mask[:, None, None, :]) * (np.finfo(np.float32).min / 2)).astype(np.float32)
+    want = np.asarray(xla_attention(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias)))
+    tq, tk_, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    np.testing.assert_allclose(ta.plain_attention(tq, tk_, tv, tb).numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(ta.scaled_dot_attention(tq, tk_, tv, tb).numpy(), want, atol=1e-5)
+
+
+def test_fully_masked_row_averages_values():
+    """All keys masked: the reference averages v over its L keys."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 1, 8, 16))
+    out = ta.flash_attention(q, k, v, torch.zeros(1, 8, dtype=torch.int32))
+    torch.testing.assert_close(out[0, 0], v[0, 0].mean(dim=0).expand(8, 16), atol=1e-6, rtol=0)
+
+
+def test_flash_error_bound_admits_rounding_and_catches_a_scale_fault():
+    """The bf16 bound the card's kernel is held to: the plain result against
+    one that skips the rounding of p lies inside it; a 2% scale fault does not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(5, 2, 3, 96, 32))
+    mask = torch.from_numpy(_mask(5, 2, 96))
+    want = ta.flash_attention_plain(q, k, v, mask)
+    unrounded_p = ta.flash_attention_plain(q.float(), k.float(), v.float(), mask)
+    got = unrounded_p.to(torch.bfloat16)
+    assert bool(((got.float() - want.float()).abs()
+                 <= ta.flash_error_bound(q, k, v, mask, got, want)).all())
+    faulty = (unrounded_p * 1.02).to(torch.bfloat16)
+    assert not bool(((faulty.float() - want.float()).abs()
+                     <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
+
+
+def test_flash_checks_shapes():
+    q = torch.zeros(1, 1, 4, 16)
+    with pytest.raises(ValueError):
+        ta.flash_attention(q, q, q, torch.ones(1, 5))
+    with pytest.raises(TypeError):
+        ta.flash_attention(q.half(), q.half(), q.half())
