@@ -13,7 +13,11 @@ Phases, each fatal when it fails:
              int4 at 1M x 384, B in {1, 16, 256}, k in {10, 100};
              flash_attn_fwd: [256, 12, L, 32] bf16, L in {128, 256, 512},
              each element within its rounding bound, and f32 at L = 512
-             within 1e-5): error, time per launch (CUDA events), the bound and a library
+             within 1e-5; dropattn_fwd / dropattn_bwd: [256, 12, 192, 32],
+             [32, 12, 64, 32] and [256, 12, 512, 32] bf16 with a random padding
+             bias, p in {0, 0.1}, each element within its rounding bound, f32
+             within 1e-5, the kernels' keep-mask equal to the plain one bit for
+             bit): error, time per launch (CUDA events), the bound and a library
              yardstick that the port never calls;
 3. serve   — the main path at full e5-small-v2 width (12 layers, hidden 384,
              bf16, seeded random weights): encode 8,192 passages of at least
@@ -23,7 +27,15 @@ Phases, each fatal when it fails:
              /search requests, and check every response against the plain
              engine on the same query embeddings; every kernel must have been
              launched by this phase; then recall@10 of the int8 exact search
-             against exact f32 search over the original vectors (gate 0.97).
+             against exact f32 search over the original vectors (gate 0.97);
+4. train   — KDTrainer.train on seeded synthetic samples at full
+             e5-small-v2 width (bf16 compute, f32 parameters, hidden and
+             attention dropout 0.1, remat "full"), the KD recipe of
+             configs/kd.yaml: 512 queries x 8 docs, batch 32, query_len 64,
+             doc_len 192, one epoch (16 steps); every loss finite, the dropattn
+             launches of the train path equal to the count the code implies,
+             best_model reloaded and used to encode; ms per step, samples/s,
+             peak device memory and the device busy share over a few steps.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -56,6 +68,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
 N_DOCS = 8192  # passages encoded at L = 512
 N_ROWS = 1_000_000  # rows of the served index (and of the kernel cases)
+SERVE_KERNELS = ("binmax", "bin_gather", "flash_attn_fwd")
 WORDS = (
     "the quick brown fox jumps over a lazy dog and runs to search for semantic meaning "
     "in documents queries passages models training data index vector embedding score "
@@ -101,6 +114,15 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_times(prof) -> list[tuple[str, float]]:
+    """(name, device us) of every kernel and copy that ran on the card in a
+    profiled window, largest first. Only the device events count: a CPU
+    op's self device time repeats the time of the kernels it launched."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
+                   if e.device_type == cuda), key=lambda kv: -kv[1])
 
 
 def unit_rows(n: int, d: int, gen: torch.Generator) -> torch.Tensor:
@@ -316,6 +338,160 @@ def phase_flash(gen) -> tuple[list, dict]:
     return rows, main
 
 
+def attn_bias(B: int, L: int, gen) -> torch.Tensor:
+    """The encoder's additive key bias [B, L] f32: 0 on the first len tokens,
+    finfo(bf16).min / 2 on the padding (random lengths, the first row full)."""
+    lens = torch.randint(max(1, L // 8), L + 1, (B,), device="cuda", generator=gen)
+    lens[0] = L
+    keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    return torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min / 2).float()
+
+
+def masks_spelled_by_kernels(seed: int) -> bool:
+    """The keep-masks the two kernels apply, read back bit for bit: q = k = 0
+    and a zero bias make every probability 1/256 at L = 256, at p = 0.5 each
+    kept one is 1/128 exactly, and v (g) holding 2^(j % 8) in channel j // 8
+    makes the f32 output (dv) spell each row's (column's) keep bits."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, L, d = 2, 12, 256, 32
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda")
+    bias = torch.zeros(B, L, device="cuda")
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    bit = torch.arange(8, device="cuda")
+
+    def spell(x):
+        n = (x * 128).round().long()
+        return ((n[..., None] >> bit) & 1).reshape(B, h, L, L).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    return bool((spell(out) == want).all()) and bool((spell(dv).transpose(-1, -2) == want).all())
+
+
+def masks_equal(seed: int, BH: int, L: int, p: float) -> bool:
+    """The kernels' generator against the plain one over every (head, row, col)."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    got = ta.dropattn_keep_mask_kernel(seed, BH, L, p)
+    step = max(1, (1 << 26) // (L * L))
+    return all(
+        bool((got[a:a + step] == (ta.dropout_uniform(seed, a, min(step, BH - a), L, "cuda") >= p))
+             .all())
+        for a in range(0, BH, step)
+    )
+
+
+def phase_dropattn(gen) -> tuple[list, dict, dict]:
+    from sskd_tpu_torch.ops import attention as ta
+
+    rows, main_fwd, main_bwd = [], None, None
+    check(masks_spelled_by_kernels(31), "dropattn kernels: applied keep-mask differs")
+    log("[kernels] dropattn: the masks both kernels apply equal the plain mask (L = 256)")
+    for B, h, L, d in ((256, 12, 192, 32), (32, 12, 64, 32), (256, 12, 512, 32)):
+        BH = B * h
+        q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(torch.bfloat16)
+                      for _ in range(4))
+        bias = attn_bias(B, L, gen)
+        seed = 1000 + L
+        check(masks_equal(seed, BH, L, 0.1), f"dropattn keep-mask [{BH}, {L}, {L}] differs")
+        for p in (0.0, 0.1):
+            out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+            want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+            grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
+            torch.cuda.synchronize()
+            lse_err = (lse - want_lse).abs().max().item()
+            check(lse_err <= 1e-4, f"dropattn_fwd lse L={L} p={p}: err {lse_err}")
+            diff = (out.float() - want.float()).abs()
+            f_err = diff.max().item()
+            f_slack = (diff / ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out, want)
+                       ).max().item()
+            check(f_slack <= 1.0, f"dropattn_fwd L={L} p={p}: err {f_err} is {f_slack:.3f} "
+                  "of its bound")
+            bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, grads,
+                                                 want_grads)
+            b_err, b_slack = 0.0, 0.0
+            for name, a, b, bd in zip(("dq", "dk", "dv"), grads, want_grads, bounds):
+                diff = (a.float() - b.float()).abs()
+                b_err = max(b_err, diff.max().item())
+                slack = (diff / bd).max().item()
+                b_slack = max(b_slack, slack)
+                check(slack <= 1.0, f"dropattn_bwd {name} L={L} p={p}: {slack:.3f} of its bound")
+            del out, want, grads, want_grads, bounds
+            entry = {"shape": [B, h, L, d], "dtype": "bf16", "p": p, "lse_max_abs_err": lse_err,
+                     "fwd_max_abs_err": f_err, "fwd_err_over_bound": f_slack,
+                     "bwd_max_abs_err": b_err, "bwd_err_over_bound": b_slack}
+            if (B, L) == (256, 192) and p > 0:
+                # the f32 instantiation rounds nothing: summation order only
+                qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+                o32, l32 = ta.dropattn_fwd(qf, kf, vf, bias, p, seed)
+                w32, _ = ta.dropattn_fwd_plain(qf, kf, vf, bias, p, seed)
+                g32 = ta.dropattn_bwd(qf, kf, vf, bias, p, seed, l32, gf)
+                wg32 = ta.dropattn_bwd_plain(qf, kf, vf, bias, p, seed, l32, gf)
+                torch.cuda.synchronize()
+                entry["f32_fwd_max_abs_err"] = (o32 - w32).abs().max().item()
+                entry["f32_bwd_max_abs_err"] = max((a - b).abs().max().item()
+                                                   for a, b in zip(g32, wg32))
+                check(entry["f32_fwd_max_abs_err"] <= 1e-5
+                      and entry["f32_bwd_max_abs_err"] <= 1e-5,
+                      f"dropattn f32: {entry['f32_fwd_max_abs_err']}, "
+                      f"{entry['f32_bwd_max_abs_err']} > 1e-5")
+                del qf, kf, vf, gf, o32, w32, g32, wg32
+            if p > 0:
+                entry.update(time_dropattn(q, k, v, g, bias, p, seed))
+            rows.append(entry)
+            log(f"[kernels] {json.dumps(entry)}")
+            if (B, L) == (256, 192) and p > 0:
+                main_fwd = {"max_abs_err": f_err, "ms": entry["fwd_ms"],
+                            "plain_ms": entry["fwd_plain_ms"], "bound_ms": entry["fwd_bound_ms"],
+                            "bound_by": entry["fwd_bound_by"],
+                            "library_ms": entry["fwd_library_ms"]}
+                main_bwd = {"max_abs_err": b_err, "ms": entry["bwd_ms"],
+                            "plain_ms": entry["bwd_plain_ms"], "bound_ms": entry["bwd_bound_ms"],
+                            "bound_by": entry["bwd_bound_by"],
+                            "library_ms": entry["bwd_library_ms"]}
+        del q, k, v, g
+    return rows, main_fwd, main_bwd
+
+
+def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
+    """ms per launch of both kernels, of their plain versions and of
+    F.scaled_dot_product_attention with the same additive bias and dropout
+    (forward, and its backward alone); the byte and operation bounds."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, L, d = q.shape
+    BH = B * h
+    _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    out = {
+        "fwd_ms": time_ms(lambda: ta.dropattn_fwd(q, k, v, bias, p, seed), 10),
+        "fwd_plain_ms": time_ms(lambda: ta.dropattn_fwd_plain(q, k, v, bias, p, seed), 2, 1),
+        "bwd_ms": time_ms(lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g), 10),
+        "bwd_plain_ms": time_ms(lambda: ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g),
+                                2, 1),
+    }
+    mask = bias.to(q.dtype)[:, None, None, :]
+    out["fwd_library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p), 10)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=p)
+    out["bwd_library_ms"] = time_ms(
+        lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), 10)
+    elt = BH * L * d * 2  # one bf16 [B, h, L, d] tensor
+    # forward: q, k, v, bias read, out and lse written; 2 products of 2 L^2 d
+    out["fwd_bound_ms"], out["fwd_bound_by"] = bound_ms(
+        4 * elt + B * L * 4 + BH * L * 4, 4.0 * BH * L * L * d, "bf16")
+    # backward: q, k, v, g, bias, lse read, dq, dk, dv written; 5 products
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(
+        7 * elt + B * L * 4 + BH * L * 4, 10.0 * BH * L * L * d, "bf16")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path, served
 # ---------------------------------------------------------------------------
@@ -435,7 +611,7 @@ def breakdown(fused, seed: int, reps: int = 30) -> dict:
             for _ in range(10):
                 fused.search_texts(queries, 10)
             wall_us = (time.perf_counter() - t0) * 1e6
-        busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+        busy_us = sum(t for _, t in device_times(prof))
         parts["device_busy_share"] = busy_us / wall_us if busy_us > 0 else None
         out[f"B={n}"] = parts
         log(f"[serve] breakdown B={n}: {json.dumps(parts)}")
@@ -562,8 +738,8 @@ def phase_serve(args, gen) -> dict:
     counts = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"[serve] launches on the main path: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in SERVE_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the main path")
     times = breakdown(state.fused_searcher, args.seed)
     batch_sizes = [ids_.shape[0] for ids_, _ in recorded]
     check(any(1 < n_real for n_real in _real_rows(recorded, state.student)),
@@ -640,6 +816,148 @@ def _real_rows(recorded, student) -> list[int]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: the KD train path
+# ---------------------------------------------------------------------------
+
+TRAIN_QUERIES = 512  # 16 steps of 32 queries x 8 docs
+
+
+def make_kd_samples(n: int, n_docs: int, seed: int) -> list:
+    """Seeded synthetic KD samples over WORDS: a 6-12 word query, a positive
+    that repeats the query's words, and n_docs - 1 negatives; docs of 40-160
+    words (some past doc_len 192 tokens); teacher scores 5 + noise for the
+    positive, sorted uniforms in (-5, 0) for the negatives."""
+    from sskd_tpu_torch.kd.dataset import KDSample
+
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(n):
+        query = list(rng.choice(WORDS, rng.integers(6, 13)))
+        pos = query * 3 + list(rng.choice(WORDS, rng.integers(20, 130)))
+        negs = [" ".join(rng.choice(WORDS, rng.integers(40, 161))) for _ in range(n_docs - 1)]
+        scores = [5.0 + float(rng.normal(0, 0.5))] + sorted(
+            rng.uniform(-5, 0, n_docs - 1).tolist(), reverse=True)
+        samples.append(KDSample(query=" ".join(query), docs=[" ".join(pos)] + negs,
+                                teacher_scores=scores))
+    return samples
+
+
+def phase_train(args) -> dict:
+    import tempfile
+
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.kd.dataset import KDDataset
+    from sskd_tpu_torch.kd.train import KDTrainer
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    batch, n_docs, query_len, doc_len = 32, 8, 64, 192
+    samples = make_kd_samples(TRAIN_QUERIES, n_docs, args.seed)
+    settings = Settings.from_dict({"training": {
+        "epochs": 1, "batch_size": batch, "learning_rate": 2e-5, "weight_decay": 0.01,
+        "warmup_ratio": 0.1, "max_grad_norm": 1.0, "num_docs_per_query": n_docs,
+        "remat": True, "remat_policy": "full", "resume": False, "seed": args.seed,
+    }})
+    student = StudentModel("intfloat/e5-small-v2", device="cuda", compute_dtype=torch.bfloat16,
+                           seed=args.seed)
+    cfg = student.config
+    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.intermediate_size,
+           cfg.vocab_size) == (384, 12, 12, 1536, 30522), "not e5-small-v2 width")
+    check(cfg.hidden_dropout == 0.1 and cfg.attention_dropout == 0.1, "dropout is not 0.1")
+    check({p.dtype for p in student.module.parameters()} == {torch.float32}, "params not f32")
+    trainer = KDTrainer(student, settings)
+    step_ms, step_losses = [], []
+    inner = trainer._train_step
+
+    def timed_step(batch_, progress, step_seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = inner(batch_, progress, step_seed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_losses.append({k: float(v) for k, v in aux.items()})
+        return aux
+
+    trainer._train_step = timed_step
+    with tempfile.TemporaryDirectory(prefix="sskd_train_") as out_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.train(samples, output_dir=out_dir, query_len=query_len, doc_len=doc_len)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        # the train path ends here: what follows launches outside it
+        counts = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steps = result["global_step"]
+        log(f"[train] {steps} steps in {train_s:.1f} s; launches on the train path: {counts}")
+        check(steps == TRAIN_QUERIES // batch, f"{steps} steps, want {TRAIN_QUERIES // batch}")
+        for i, aux in enumerate(step_losses):
+            check(all(math.isfinite(x) for x in aux.values()), f"step {i}: non-finite {aux}")
+        check(math.isfinite(result["history"][0]["train_loss"]), "non-finite epoch loss")
+        # per step: 12 layers x 2 towers forward, again in the remat recompute,
+        # and 12 x 2 backward
+        towers = 2 * cfg.num_layers
+        check(counts["dropattn_fwd"] == steps * 2 * towers,
+              f"dropattn_fwd launches {counts['dropattn_fwd']}, want {steps * 2 * towers}")
+        check(counts["dropattn_bwd"] == steps * towers,
+              f"dropattn_bwd launches {counts['dropattn_bwd']}, want {steps * towers}")
+
+        best = StudentModel(str(Path(out_dir) / "best_model"), device="cuda",
+                            compute_dtype=torch.bfloat16)
+        emb = best.encode_queries([s.query for s in samples[:64]])
+        check(emb.shape == (64, 384) and np.isfinite(emb).all(), "best_model encode")
+        check(np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-3), "not unit norm")
+        trained = dict(student.module.named_parameters())
+        check(all(torch.equal(p, trained[n].detach())
+                  for n, p in best.module.named_parameters()), "best_model differs")
+        del best
+
+        # device busy share over a few more steps (outside the counted path)
+        ds = KDDataset(samples[:batch * 3], student.tokenizer, num_docs=n_docs,
+                       query_len=query_len, doc_len=doc_len)
+        t0 = time.perf_counter()
+        packed = list(ds.batches(batch, shuffle=False))
+        pack_ms = (time.perf_counter() - t0) * 1e3 / len(packed)
+        trainer._prepare_module()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        inner(packed[0], 0.5, 7)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i, b in enumerate(packed):
+                inner(b, 0.5, 8 + i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        student.module.eval()
+        by_kernel = device_times(prof)
+        busy_us = sum(t for _, t in by_kernel)
+    steady = sorted(step_ms[2:]) or step_ms
+    ms_step = float(np.median(steady))
+    record = {
+        "steps": steps,
+        "train_seconds": train_s,
+        "step_ms": step_ms,
+        "ms_per_step_median": ms_step,
+        "samples_per_s": batch / (ms_step / 1e3),
+        "docs_per_s": batch * n_docs / (ms_step / 1e3),
+        "peak_device_gib": peak_gib,
+        "device_busy_share": busy_us / wall_us if busy_us > 0 else None,
+        # the profiled window: pre-packed batches, so no tokenization runs
+        "pack_ms_per_batch": pack_ms,  # host tokenization + padding of one batch
+        "window_ms_per_step": wall_us / 1e3 / len(packed),
+        "device_ms_per_step": busy_us / 1e3 / len(packed),
+        "top_kernels_ms_per_step": [(k, t / 1e3 / len(packed)) for k, t in by_kernel[:25]],
+        "losses": [a["loss"] for a in step_losses],
+        "history": result["history"],
+        "launches": counts,
+    }
+    log(f"[train] {json.dumps({k: v for k, v in record.items() if k not in ('history',)})}")
+    return record
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -675,22 +993,31 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     topk_rows, main_binmax, main_gather = phase_topk(gen, N_ROWS)
     flash_rows, main_flash = phase_flash(gen)
+    dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
-    record["kernel_cases"] = topk_rows + flash_rows
+    record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows
     t0 = time.perf_counter()
     record["serve"] = phase_serve(args, gen)
     log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["train"] = phase_train(args)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
 
-    launches = record["serve"]["launches"]
+    serve_launches = record["serve"]["launches"]
+    train_launches = record["train"]["launches"]
     kernels = []
-    for name, src, replaces, entry in (
+    for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
-         main_binmax),
+         main_binmax, serve_launches),
         ("bin_gather", "sskd_tpu_torch/csrc/bin_gather.cu", "sskd_tpu/ops/topk_pallas.py:167",
-         main_gather),
+         main_gather, serve_launches),
         ("flash_attn_fwd", "sskd_tpu_torch/csrc/flash_attn.cu", "sskd_tpu/ops/attention.py:43",
-         main_flash),
+         main_flash, serve_launches),
+        ("dropattn_fwd", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
+         "sskd_tpu/ops/attention.py:266", main_dfwd, train_launches),
+        ("dropattn_bwd", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
+         "sskd_tpu/ops/attention.py:296", main_dbwd, train_launches),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

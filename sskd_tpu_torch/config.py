@@ -1,13 +1,15 @@
-"""Configuration of the port's serving path (port of sskd_tpu/config.py).
+"""Configuration of the port (port of sskd_tpu/config.py).
 
 Standard-library dataclasses in place of pydantic (the machine with the GPU
-has neither pydantic nor pyyaml). The sections this slice reads keep the
-JAX package's field names, defaults and bounds: ``student``, ``index``,
-``search``, ``service``, ``precision``, ``cors`` and ``monitoring``, each
-with only the fields the slice reads (``index.search_method`` selects the
-engine a preloaded index is served with). Sections and fields that later
-slices need (teacher, training, mining, mesh, rate limiting, auth, cache,
-hybrid, the index layout knobs) are not here yet.
+has neither pydantic nor pyyaml). The sections the port reads keep the JAX
+package's field names, defaults and bounds: ``student``, ``index``,
+``search``, ``service``, ``precision``, ``cors`` and ``monitoring`` for
+serving, ``loss``, ``training`` and the ANCE fields of ``mining`` for KD
+training, each with only the fields the port reads (``index.search_method``
+selects the engine a preloaded index is served with). Sections and fields
+that later slices need (teacher, the other mining stages, rate limiting,
+auth, cache, hybrid, the index layout knobs) are not here yet; a ``mesh``
+section raises, as data-parallel training is not ported.
 
 Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
 for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
@@ -116,6 +118,86 @@ class SearchConfig:
         _check(self, "max_k", ge=1, kind=_INT)
 
 
+@dataclass
+class LossConfig:
+    margin_mse_weight: float = 0.6
+    listwise_kd_weight: float = 0.2
+    contrastive_weight: float = 0.2
+    temperature_start: float = 4.0
+    temperature_end: float = 2.0
+    contrastive_tau: float = 0.05
+    # widen the InfoNCE denominator with every other query's docs in the batch
+    in_batch_negatives: bool = False
+
+    def __post_init__(self):
+        for name in ("margin_mse_weight", "listwise_kd_weight", "contrastive_weight"):
+            _check(self, name, ge=0.0, le=1.0, kind=_NUM)
+        for name in ("temperature_start", "temperature_end", "contrastive_tau"):
+            _check(self, name, kind=_NUM)
+            if getattr(self, name) <= 0.0:
+                raise ConfigError(f"LossConfig.{name}={getattr(self, name)!r}: must be > 0")
+        total = self.margin_mse_weight + self.listwise_kd_weight + self.contrastive_weight
+        if abs(total - 1.0) > 1e-6:
+            raise ConfigError(f"loss weights must sum to 1.0, got {total}")
+
+
+@dataclass
+class TrainingConfig:
+    epochs: int = 3
+    batch_size: int = 32
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.01
+    warmup_ratio: float = 0.1
+    max_grad_norm: float = 1.0
+    grad_accum_steps: int = 1
+    num_docs_per_query: int = 8
+    early_stopping_patience: int = 2
+    early_stopping_metric: str = "ndcg@10"
+    save_steps: int = 0
+    eval_steps: int = 0
+    # recompute each encoder layer in the backward (torch.utils.checkpoint):
+    # "full" keeps only each layer's input, "dots" also its matrix products
+    remat: bool = True
+    remat_policy: str = "full"
+    # names a JAX generator (rbg, unsafe_rbg, threefry2x32); accepted for
+    # config compatibility. The port's dropout masks come from torch
+    # generators and the dropattn kernels' Philox, whatever this says.
+    rng_impl: str = "rbg"
+    prefetch_batches: int = 2
+    seed: int = 42
+    output_dir: str = "artifacts/models/kd_student"
+    resume: bool = True
+
+    def __post_init__(self):
+        for name in ("epochs", "batch_size", "grad_accum_steps"):
+            _check(self, name, ge=1, kind=_INT)
+        _check(self, "num_docs_per_query", ge=2, kind=_INT)
+        for name in ("early_stopping_patience", "save_steps", "eval_steps", "prefetch_batches"):
+            _check(self, name, ge=0, kind=_INT)
+        _check(self, "weight_decay", ge=0.0, kind=_NUM)
+        _check(self, "warmup_ratio", ge=0.0, le=1.0, kind=_NUM)
+        for name in ("learning_rate", "max_grad_norm"):
+            _check(self, name, kind=_NUM)
+            if getattr(self, name) <= 0.0:
+                raise ConfigError(f"TrainingConfig.{name}={getattr(self, name)!r}: must be > 0")
+        _check(self, "remat_policy", choices=("full", "dots"))
+        _check(self, "rng_impl", choices=("rbg", "unsafe_rbg", "threefry2x32"))
+
+
+@dataclass
+class MiningConfig:
+    """The ANCE fields of the JAX package's MiningConfig: the trainer's
+    in-training negative refresh."""
+
+    ance_refresh_every_n_steps: int = 500
+    ance_enabled: bool = True
+    ance_warmup_steps: int = 0
+
+    def __post_init__(self):
+        _check(self, "ance_refresh_every_n_steps", ge=1, kind=_INT)
+        _check(self, "ance_warmup_steps", ge=0, kind=_INT)
+
+
 _SECTIONS = {
     "student": StudentModelConfig,
     "index": IndexConfig,
@@ -124,6 +206,9 @@ _SECTIONS = {
     "monitoring": MonitoringConfig,
     "service": ServiceConfig,
     "search": SearchConfig,
+    "loss": LossConfig,
+    "training": TrainingConfig,
+    "mining": MiningConfig,
 }
 
 
@@ -136,6 +221,9 @@ class Settings:
     monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
     service: ServiceConfig = field(default_factory=ServiceConfig)
     search: SearchConfig = field(default_factory=SearchConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    mining: MiningConfig = field(default_factory=MiningConfig)
 
     def to_dict(self) -> dict[str, Any]:
         return asdict(self)
@@ -146,6 +234,11 @@ class Settings:
         of ``base`` (or the defaults)."""
         merged = (base or cls()).to_dict()
         for section, values in data.items():
+            if section == "mesh":
+                raise ConfigError(
+                    "the mesh section (data-parallel training and sharding) is not "
+                    "ported yet: ROADMAP Queue 1 item 7"
+                )
             if section not in _SECTIONS:
                 raise ConfigError(f"unknown config section {section!r}")
             if not isinstance(values, dict):

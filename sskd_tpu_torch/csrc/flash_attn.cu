@@ -29,29 +29,12 @@
 #include <float.h>
 #include <math.h>
 
+#include "attn_common.cuh"
+
 namespace sskd {
 
 constexpr int FA_QB = 128;  // queries per block == threads per block
 constexpr float FA_NEG = -FLT_MAX / 2;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// Loads n consecutive T values starting at src into f32 dst (n a multiple of 16 / sizeof(T)).
-template <typename T>
-__device__ __forceinline__ void load_vec(float* dst, const T* src) {
-  constexpr int VE = 16 / sizeof(T);
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VE; ++i) dst[i] = to_f(e[i]);
-}
 
 template <typename T, int D, int KT>
 __global__ void __launch_bounds__(FA_QB) flash_fwd_kernel(

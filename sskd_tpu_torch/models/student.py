@@ -19,7 +19,10 @@ Differences from the JAX package:
         tokenizer/         — vocab.txt + tokenizer_config.json
 
 - each text is tokenized once per batch (the JAX package tokenizes twice:
-  once to pick the bucket, once to encode).
+  once to pick the bucket, once to encode);
+- the parameters live in ``module`` (a torch ``BiEncoder``, f32, computing
+  in ``config.compute_dtype``), not in a ``params`` tree: the trainer
+  updates them in place, and ``encode*`` always runs in eval mode.
 
 The bucket ladder keeps the JAX package's values, chosen on a TPU and not
 yet measured on the H100: the device ladder starts at 16 rows, the CPU
@@ -29,6 +32,7 @@ ladder adds 1, 2, 4 and 8.
 from __future__ import annotations
 
 import json
+from dataclasses import replace
 from pathlib import Path
 from typing import Sequence
 
@@ -126,10 +130,12 @@ class StudentModel:
             state = bi_encoder_from_jax_params(params, self.config)
         if tokenizer is not None:
             self.tokenizer = tokenizer
-        dtype = compute_dtype or self.config.compute_dtype
+        if compute_dtype is not None:
+            self.config = replace(self.config, compute_dtype=compute_dtype)
+        # f32 parameters; each op computes in config.compute_dtype
         self.module = BiEncoder(self.config, normalize=self.normalize, pooling=self.pooling)
         self.module.load_state_dict(state)
-        self.module.to(device=self.device, dtype=dtype).eval()
+        self.module.to(device=self.device).eval()
 
     # ------------------------------------------------------------------
     # Loading / saving
@@ -187,11 +193,18 @@ class StudentModel:
         return self.tokenizer.frame_batch(ids, length)
 
     def forward_batch(self, batch: dict) -> torch.Tensor:
-        """Embeddings [B, H] f32 on the model's device for a tokenized batch."""
+        """Embeddings [B, H] f32 on the model's device for a tokenized batch;
+        always in eval mode (no dropout), whatever mode training left the
+        module in."""
         ids = torch.from_numpy(batch["input_ids"]).to(self.device, non_blocking=True)
         mask = torch.from_numpy(batch["attention_mask"]).to(self.device, non_blocking=True)
-        with torch.inference_mode():
-            return self.module(ids.long(), mask)
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            with torch.inference_mode():
+                return self.module(ids.long(), mask)
+        finally:
+            self.module.train(was_training)
 
     def encode(
         self,

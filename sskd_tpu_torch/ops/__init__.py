@@ -11,10 +11,16 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """Kernel name -> wrapper function."""
-    from sskd_tpu_torch.ops.attention import flash_attention
+    from sskd_tpu_torch.ops.attention import dropattn_bwd, dropattn_fwd, flash_attention
     from sskd_tpu_torch.ops.topk_kernels import bin_gather, binmax
 
-    return {"binmax": binmax, "bin_gather": bin_gather, "flash_attn_fwd": flash_attention}
+    return {
+        "binmax": binmax,
+        "bin_gather": bin_gather,
+        "flash_attn_fwd": flash_attention,
+        "dropattn_fwd": dropattn_fwd,
+        "dropattn_bwd": dropattn_bwd,
+    }
 
 
 def launch_counts() -> dict[str, int]:

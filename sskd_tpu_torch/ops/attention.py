@@ -1,5 +1,4 @@
-"""Attention for the encoder (port of sskd_tpu/ops/attention.py, its
-inference paths).
+"""Attention for the encoder (port of sskd_tpu/ops/attention.py).
 
 - :func:`plain_attention` mirrors ``xla_attention``: f32 scores, additive
   bias, softmax, probabilities cast to the value type, f32 accumulation.
@@ -8,15 +7,28 @@ inference paths).
   the launch in ``flash_attention.launches``; on a CPU tensor it runs
   :func:`flash_attention_plain`, which repeats the kernel's arithmetic.
 - :func:`scaled_dot_attention` dispatches: the kernel for ``L >=
-  FLASH_MIN_L``, plain attention below.
+  FLASH_MIN_L``, plain attention below. The flash branch is differentiable:
+  its backward is the VJP of :func:`plain_attention` with the same bias, as
+  ``_flash_attention_diff`` does in the JAX package.
+- :func:`dropout_attention` is training attention with dropout on the
+  probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
+  (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
+  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``.
 
 The TPU's dispatch rule (a 256 MB score threshold, head groups sized to
 VMEM) is not carried over. ``FLASH_MIN_L`` = 512 is the length the corpus
-encode runs at; where the kernel starts to beat plain attention on the H100
-is measured by chip_smoke.py at L = 128, 256 and 512.
+encode runs at.
 
-The fused dropout-attention kernels of training and the flash backward are
-a later slice of the port.
+The dropout keep-mask. The TPU kernels draw it from the TPU's own generator,
+which nothing else reproduces. Here it is Philox4x32-10 keyed by ``(seed,
+b*h)`` with the counter ``(col // 4, row, 0, 0)``; element ``(row, col)``
+takes word ``col % 4`` of the output, and is kept when the top 24 bits of
+that word, over 2^24, are ``>= p`` (the rule of ``_uniform_bits``). The mask
+is thus a pure function of ``(seed, b*h, row, col)``: the forward, the
+backward and a recompute of the forward under checkpointing all see the same
+one, whatever the tiling. :func:`dropout_keep_mask` computes the same bits
+in plain torch on int64 tensors, building each 32 x 32 -> 64-bit product
+from 16-bit halves so nothing overflows.
 """
 
 from __future__ import annotations
@@ -32,6 +44,14 @@ NEG_INF = float(torch.finfo(torch.float32).min) / 2
 FLASH_MIN_L = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def plain_attention(q, k, v, bias=None):
@@ -81,7 +101,9 @@ def flash_error_bound(q, k, v, mask, got, want):
 def flash_attention(q, k, v, mask=None):
     """Attention of q, k, v [B, h, L, d] (bf16 or f32) with a key keep-mask
     ``mask`` [B, L] (nonzero = attend; None = all), without an [L, L] score
-    matrix in device memory. Returns [B, h, L, d] in the input type."""
+    matrix in device memory. Returns [B, h, L, d] in the input type. The
+    kernel's output carries no gradient: :func:`scaled_dot_attention` is the
+    differentiable entry."""
     B, h, L, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must have one shape [B, h, L, d]")
@@ -115,9 +137,9 @@ def flash_attention(q, k, v, mask=None):
     _build.check(
         fn(
             _DTYPES[q.dtype],
-            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, mask, out)),
+            *(_ptr(t) for t in (q, k, v, mask, out)),
             B, h, L, d, 1.0 / (d**0.5),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+            _stream(q),
         ),
         "flash_attn_fwd",
     )
@@ -128,12 +150,395 @@ def flash_attention(q, k, v, mask=None):
 flash_attention.launches = 0
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward; the backward is the VJP of
+    :func:`plain_attention` with the additive bias (one [B, h, L, L]
+    recompute in the backward only), as ``_flash_diff_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return flash_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = plain_attention(*leaves, bias)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None
+
+
 def scaled_dot_attention(q, k, v, bias=None):
     """Dispatching attention. ``bias``: the encoder's additive mask
     [B, 1, 1, L]; the flash path turns it back into a keep-mask
     (``bias >= -1``, as the JAX dispatcher does)."""
-    L = q.shape[2]
+    B, _, L, _ = q.shape
     if L >= FLASH_MIN_L:
-        mask = None if bias is None else (bias[:, 0, 0, :] >= -1.0).to(torch.int32)
-        return flash_attention(q, k, v, mask)
+        if bias is None:
+            mask = None
+            bias = torch.zeros((B, 1, 1, L), dtype=torch.float32, device=q.device)
+        else:
+            bias = bias.detach()
+            mask = (bias[:, 0, 0, :] >= -1.0).to(torch.int32)
+        return _FlashAttention.apply(q, k, v, mask, bias)
     return plain_attention(q, k, v, bias)
+
+
+# ---------------------------------------------------------------------------
+# Dropout attention: the keep-mask generator
+# ---------------------------------------------------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a * m for int64 ``a`` in [0, 2^32) and a
+    32-bit constant ``m``, from 16-bit halves so no product passes 2^34."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    ll = a_lo * m_lo
+    mid = a_hi * m_lo + a_lo * m_hi + (ll >> 16)
+    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+    hi = a_hi * m_hi + (mid >> 16)
+    return hi, lo
+
+
+def philox4x32(c0, c1, k0: int, k1: torch.Tensor, c2=0, c3=0) -> list[torch.Tensor]:
+    """Philox4x32-10 of the counter (c0, c1, c2, c3) under the key (k0, k1),
+    on int64 tensors holding uint32 values (Random123's round and key
+    schedule; csrc/philox.cuh is the same function with c2 = c3 = 0)."""
+    c0, c1, k1 = torch.broadcast_tensors(c0, c1, k1)
+    c2 = torch.full_like(c0, c2)
+    c3 = torch.full_like(c0, c3)
+    k0 = torch.full_like(c0, k0 & _U32)
+    k1 = k1.clone()
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _U32
+            k1 = (k1 + _PHILOX_W1) & _U32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return [c0, c1, c2, c3]
+
+
+def dropout_uniform(seed: int, bh0: int, n_bh: int, L: int, device=None) -> torch.Tensor:
+    """The uniforms [n_bh, L, L] (f32, multiples of 2^-24 in [0, 1)) of
+    heads ``bh0 .. bh0 + n_bh - 1``; element (row, col) of head ``bh`` is
+    word ``col % 4`` of Philox(counter (col // 4, row), key (seed, bh))."""
+    L4 = (L + 3) // 4
+    bh = torch.arange(bh0, bh0 + n_bh, dtype=torch.int64, device=device)[:, None, None]
+    row = torch.arange(L, dtype=torch.int64, device=device)[None, :, None]
+    col4 = torch.arange(L4, dtype=torch.int64, device=device)[None, None, :]
+    words = philox4x32(col4, row, int(seed), bh)
+    bits = torch.stack(words, dim=-1).reshape(n_bh, L, 4 * L4)[:, :, :L]
+    return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def dropout_keep_mask(seed: int, BH: int, L: int, p: float, device=None) -> torch.Tensor:
+    """The keep-mask [BH, L, L] (bool) the kernels apply at rate ``p``."""
+    return dropout_uniform(seed, 0, BH, L, device) >= p
+
+
+# ---------------------------------------------------------------------------
+# Dropout attention: plain versions and the error bounds
+# ---------------------------------------------------------------------------
+
+def _chunks(BH: int, L: int):
+    """Head ranges for the plain versions: each [chunk, L, L] temporary
+    holds at most 2^27 elements (512 MB in f32) at any L."""
+    step = max(1, (1 << 27) // (L * L))
+    for start in range(0, BH, step):
+        yield start, min(BH, start + step)
+
+
+def _probs_and_mask(qc, kc, biasc, p, seed, bh0, scale, lse=None):
+    """f32 scores -> probs (softmax, or exp(s - lse) when ``lse`` is given)
+    and the keep-mask of heads ``bh0 ..`` (None at p = 0)."""
+    s = torch.matmul(qc.float(), kc.float().transpose(-1, -2)) * scale + biasc[:, None, :]
+    if lse is None:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        total = e.sum(dim=-1, keepdim=True)
+        probs = e / total
+        lse = (m + torch.log(total))[..., 0]
+    else:
+        probs = torch.exp(s - lse[..., None])
+    keep = None
+    if p > 0.0:
+        keep = dropout_uniform(seed, bh0, qc.shape[0], qc.shape[1], qc.device) >= p
+    return probs, keep, lse
+
+
+def _flat(q, k, v, bias):
+    B, h, L, d = q.shape
+    heads_bias = bias.float().repeat_interleave(h, dim=0)  # [B*h, L]
+    return (q.reshape(B * h, L, d), k.reshape(B * h, L, d), v.reshape(B * h, L, d),
+            heads_bias)
+
+
+def dropattn_fwd_plain(q, k, v, bias, p: float, seed: int):
+    """Plain torch version of ``dropattn_fwd``: scores in f32 from the input
+    type, softmax in f32, kept probabilities times 1 / (1 - p), rounded to
+    v's type before the product with v (f32 sums). Returns (out [B, h, L, d]
+    in the input type, lse [B, h, L] f32: the log-sum-exp of each score row,
+    saved for the backward)."""
+    B, h, L, d = q.shape
+    qf, kf, vf, bf = _flat(q, k, v, bias)
+    out = torch.empty_like(qf)
+    lse = torch.empty((B * h, L), dtype=torch.float32, device=q.device)
+    inv = 1.0 / (1.0 - p)
+    for a, b in _chunks(B * h, L):
+        probs, keep, lse[a:b] = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a,
+                                                1.0 / (d**0.5))
+        pd = probs if keep is None else torch.where(keep, probs * inv, 0.0)
+        out[a:b] = torch.matmul(pd.to(v.dtype).float(), vf[a:b].float()).to(v.dtype)
+    return out.view(B, h, L, d), lse.view(B, h, L)
+
+
+def dropattn_bwd_plain(q, k, v, bias, p: float, seed: int, lse, g):
+    """Plain torch version of ``dropattn_bwd``: probs = exp(s - lse), the
+    same keep-mask, ``dv = pd^T g``, ``dprobs = mask(g v^T) / (1 - p)``,
+    ``ds = probs (dprobs - <dprobs, probs>) / sqrt(d)``, ``dq = ds k``,
+    ``dk = ds^T q``; pd and ds are rounded to the input type before their
+    products, as the TPU kernel does; results in the input type."""
+    B, h, L, d = q.shape
+    qf, kf, vf, bf = _flat(q, k, v, bias)
+    gf = g.reshape(B * h, L, d)
+    lsef = lse.reshape(B * h, L)
+    dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+    inv = 1.0 / (1.0 - p)
+    scale = 1.0 / (d**0.5)
+    cdt = q.dtype
+    for a, b in _chunks(B * h, L):
+        probs, keep, _ = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a, scale,
+                                         lsef[a:b])
+        gc = gf[a:b].float()
+        dpd = torch.matmul(gc, vf[a:b].float().transpose(-1, -2))
+        if keep is None:
+            pd, dprobs = probs, dpd
+        else:
+            pd = torch.where(keep, probs * inv, 0.0)
+            dprobs = torch.where(keep, dpd * inv, 0.0)
+        dv[a:b] = torch.matmul(pd.to(cdt).float().transpose(-1, -2), gc).to(cdt)
+        ds = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True)) * scale
+        ds = ds.to(cdt).float()
+        dq[a:b] = torch.matmul(ds, kf[a:b].float()).to(cdt)
+        dk[a:b] = torch.matmul(ds.transpose(-1, -2), qf[a:b].float()).to(cdt)
+    return dq.view(B, h, L, d), dk.view(B, h, L, d), dv.view(B, h, L, d)
+
+
+def dropout_attention_plain(q, k, v, bias, p: float, seed: int):
+    """Forward of dropout attention in plain torch, differentiable by
+    autograd through its ops (the mask is a constant of the graph)."""
+    B, h, L, d = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    probs = torch.softmax(s + bias.float()[:, None, None, :], dim=-1)
+    if p > 0.0:
+        keep = dropout_keep_mask(seed, B * h, L, p, q.device).view(B, h, L, L)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - p)), 0.0)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def _abs_products(q, k, v, bias, p, seed, lse, g):
+    """f32 sums of absolute values that bound the rounding of each product:
+    |pd| @ |v|, |pd|^T @ |g|, |ds| @ |k|, |ds|^T @ |q| and the same with
+    |ds| replaced by probs (|dprobs| + |D|) / sqrt(d), over every head."""
+    B, h, L, d = q.shape
+    qf, kf, vf, bf = (t.float() for t in _flat(q, k, v, bias))
+    gf = None if g is None else g.reshape(B * h, L, d).float()
+    inv, scale = 1.0 / (1.0 - p), 1.0 / (d**0.5)
+    names = ("pv", "pg", "dsk", "dsq", "fk", "fq")
+    out = {n: torch.empty_like(qf) for n in names}
+    for a, b in _chunks(B * h, L):
+        probs, keep, _ = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a, scale,
+                                         None if lse is None else lse.reshape(B * h, L)[a:b])
+        pd = probs if keep is None else torch.where(keep, probs * inv, 0.0)
+        out["pv"][a:b] = torch.matmul(pd, vf[a:b].abs())
+        if gf is None:
+            continue
+        gc = gf[a:b]
+        out["pg"][a:b] = torch.matmul(pd.transpose(-1, -2), gc.abs())
+        dpd = torch.matmul(gc, vf[a:b].transpose(-1, -2))
+        dprobs = dpd * inv if keep is None else torch.where(keep, dpd * inv, 0.0)
+        D = (dprobs * probs).sum(dim=-1, keepdim=True)
+        ds = (probs * (dprobs - D) * scale).abs()
+        f = probs * (dprobs.abs() + D.abs()) * scale
+        out["dsk"][a:b] = torch.matmul(ds, kf[a:b].abs())
+        out["dsq"][a:b] = torch.matmul(ds.transpose(-1, -2), qf[a:b].abs())
+        out["fk"][a:b] = torch.matmul(f, kf[a:b].abs())
+        out["fq"][a:b] = torch.matmul(f.transpose(-1, -2), qf[a:b].abs())
+    return {n: t.view(B, h, L, d) for n, t in out.items()}
+
+
+# relative error of one rounding to the input type: bf16 keeps 8 bits, so
+# round-to-nearest is off by at most 2^-8 of the value; f32 2^-24
+def _unit(dtype) -> float:
+    return 2.0**-8 if dtype == torch.bfloat16 else 2.0**-24
+
+
+def dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want):
+    """Per-element bound on |got - want| between the forward kernel and
+    :func:`dropattn_fwd_plain` on the same inputs and the same mask. Both
+    round each kept probability to the input type (at most u of it, u = 2^-8
+    in bf16), so the products with v differ by at most 2u (pd @ |v|); each
+    side rounds its output (u of its value). The rest is f32 arithmetic in
+    another order: the kernel takes the row max and sum online and scales by
+    1 / sum where the plain version divides; at L <= 512 that moves each
+    probability by well under 1e-5 of itself, which the 1e-5 (pd @ |v|) term
+    covers."""
+    u = _unit(q.dtype)
+    terms = _abs_products(q, k, v, bias, p, seed, None, None)
+    return u * (got.float().abs() + want.float().abs()) + (2 * u + 1e-5) * terms["pv"] + 1e-6
+
+
+def dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want):
+    """Per-element bounds (dq, dk, dv) on |got - want| between the backward
+    kernel and :func:`dropattn_bwd_plain`. Each side rounds pd (for dv) and ds
+    (for dq, dk) to the input type: at most 2u of the sums of absolute
+    products. ds = probs (dprobs - D) is computed in f32 on both sides, but
+    D sums L products in another order and dprobs d products; at L <= 512
+    and f32's 2^-24 that is below 1e-4 of probs (|dprobs| + |D|), taken
+    through the same product with |k| or |q|. Each output is rounded once
+    more (u of its value)."""
+    u = _unit(q.dtype)
+    t = _abs_products(q, k, v, bias, p, seed, lse, g)
+
+    def bound(got_, want_, rounded, f32_part):
+        out = u * (got_.float().abs() + want_.float().abs()) + 2 * u * rounded + 1e-6
+        return out + f32_part
+
+    return (
+        bound(got[0], want[0], t["dsk"], 1e-4 * t["fk"]),
+        bound(got[1], want[1], t["dsq"], 1e-4 * t["fq"]),
+        bound(got[2], want[2], t["pg"], 1e-5 * t["pg"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Dropout attention: the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_dropattn(q, k, v, bias, p):
+    B, h, L, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k and v must have one shape [B, h, L, d]")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"dropout_attention takes float32 or bfloat16, got {q.dtype}")
+    if bias.shape != (B, L):
+        raise ValueError(f"bias must be [B, L] = [{B}, {L}]")
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dropout_attention runs on cuda or cpu, not {q.device}")
+    for t in (k, v, bias):
+        if t.device != q.device:
+            raise ValueError("q, k, v and bias must be on one device")
+    if q.device.type == "cuda" and d not in _HEAD_DIMS:
+        raise ValueError(f"dropattn kernels support head dims {_HEAD_DIMS}, got {d}")
+
+
+def dropattn_fwd(q, k, v, bias, p: float, seed: int):
+    """Wrapper of the ``dropattn_fwd`` kernel: (out, lse) as
+    :func:`dropattn_fwd_plain` returns them. ``bias`` [B, L] is added to
+    every score of key column j; ``seed`` selects the keep-mask."""
+    _check_dropattn(q, k, v, bias, p)
+    if q.device.type == "cpu":
+        return dropattn_fwd_plain(q, k, v, bias, p, seed)
+    B, h, L, d = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    bias = bias.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, h, L), dtype=torch.float32, device=q.device)
+    fn = _build.load_library("dropattn_fwd").sskd_dropattn_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    _build.check(
+        fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, out, lse)), B, h, L, d,
+           1.0 / (d**0.5), int(seed) & _U32, float(p), 1.0 / (1.0 - p), _stream(q)),
+        "dropattn_fwd",
+    )
+    dropattn_fwd.launches += 1
+    return out, lse
+
+
+dropattn_fwd.launches = 0
+
+
+def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
+    """Wrapper of the ``dropattn_bwd`` kernels: (dq, dk, dv) in the input
+    type, as :func:`dropattn_bwd_plain` computes them."""
+    _check_dropattn(q, k, v, bias, p)
+    if g.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError("g must be [B, h, L, d] and lse [B, h, L]")
+    if q.device.type == "cpu":
+        return dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
+    B, h, L, d = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    g = g.to(q.dtype).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = torch.empty((B, h, L), dtype=torch.float32, device=q.device)  # <dprobs, probs>
+    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    _build.check(
+        fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, scratch, dq, dk, dv)),
+           B, h, L, d, 1.0 / (d**0.5), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
+           _stream(q)),
+        "dropattn_bwd",
+    )
+    dropattn_bwd.launches += 1
+    return dq, dk, dv
+
+
+dropattn_bwd.launches = 0
+
+
+def dropattn_keep_mask_kernel(seed: int, BH: int, L: int, p: float) -> torch.Tensor:
+    """The keep-mask [BH, L, L] (bool, on the card) as the kernels' own
+    generator draws it (csrc/philox.cuh through dropattn_fwd.cu), for
+    holding it against :func:`dropout_keep_mask`. Not a path kernel: it has
+    no launch count."""
+    out = torch.empty((BH, L, L), dtype=torch.uint8, device="cuda")
+    fn = _build.load_library("dropattn_fwd").sskd_dropattn_keep_mask
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+                   ctypes.c_float, ctypes.c_void_p]
+    _build.check(fn(_ptr(out), BH, L, int(seed) & _U32, float(p), _stream(out)),
+                 "dropattn_keep_mask")
+    return out.bool()
+
+
+class _DropoutAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, p, seed):
+        out, lse = dropattn_fwd(q, k, v, bias, p, seed)
+        ctx.save_for_backward(q, k, v, bias, lse)
+        ctx.p, ctx.seed = p, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, lse = ctx.saved_tensors
+        dq, dk, dv = dropattn_bwd(q, k, v, bias, ctx.p, ctx.seed, lse, g)
+        return dq, dk, dv, None, None, None
+
+
+def dropout_attention(q, k, v, bias, p: float, seed: int):
+    """Training attention: ``dropout_p(softmax(q k^T / sqrt(d) + bias)) v``
+    for q, k, v [B, h, L, d] (bf16 or f32), ``bias`` [B, L] additive over key
+    positions (no gradient) and an integer ``seed`` (its low 32 bits key the
+    mask; the same seed gives the same mask). Differentiable in q, k, v: the
+    backward kernel regenerates the mask."""
+    return _DropoutAttention.apply(q, k, v, bias.detach().float(), float(p), int(seed))

@@ -2,9 +2,10 @@
 
 Copy of sskd_tpu/tokenization/wordpiece.py, pure Python: the C++ core that the
 JAX package attaches (sskd_tpu/tokenization/native.py) is a later slice of the
-port, so every text takes the Python path here. ``frame_batch`` takes the
-place of ``encode_batch`` for single texts: StudentModel.tokenize_batch
-tokenizes each text once and frames the ids. Pair encoding (the
+port, so every text takes the Python path here. ``encode_batch`` encodes
+single texts (sskd_tpu/tokenization/wordpiece.py:281-399 without the pair
+branch); ``frame_batch`` frames ids already tokenized, which lets
+StudentModel.tokenize_batch tokenize each text once. Pair encoding (the
 cross-encoder's) comes with the teacher in a later slice.
 
 The reference tokenized through HuggingFace's Rust `tokenizers` via
@@ -275,6 +276,18 @@ class WordPieceTokenizer:
             "attention_mask": attention_mask,
             "token_type_ids": np.zeros((batch, length), dtype=np.int32),
         }
+
+    def encode_batch(
+        self,
+        texts: Sequence[str],
+        max_length: int = 512,
+        pad_to: int | None = None,
+    ) -> dict[str, np.ndarray]:
+        """Encode single texts to fixed-shape ``[B, L]`` arrays
+        ``[CLS] tokens [SEP]``, ``L = pad_to or max_length``, each text cut
+        to ``L - 2`` tokens; the same arrays as the JAX package's
+        ``encode_batch`` without ``text_pairs``."""
+        return self.frame_batch([self.tokenize(t) for t in texts], pad_to or max_length)
 
 
 _DEFAULT: WordPieceTokenizer | None = None

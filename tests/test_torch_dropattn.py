@@ -1,0 +1,192 @@
+"""Port vs JAX: training attention, and the keep-mask generator.
+
+On the CPU the port's dropattn wrappers run their plain versions. At p = 0
+they are held against the JAX ``dropout_attention`` in interpret mode
+(forward and q/k/v gradients). At p > 0 no GPU reproduces the TPU's
+generator, so the port's own mask is tested for its properties, and the
+plain backward against autograd through an explicit-mask attention.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sskd_tpu.ops.attention import dropout_attention as j_dropattn
+from sskd_tpu.ops.attention import scaled_dot_attention as j_sda
+from sskd_tpu_torch.ops import attention as ta
+
+NEG = float(np.finfo(np.float32).min / 2)
+
+
+def _inputs(seed, B, h, L, d):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((B, h, L, d)).astype(np.float32) for _ in range(4))
+    lens = rng.integers(1, L + 1, B)
+    lens[0] = L
+    bias = np.where(np.arange(L)[None, :] < lens[:, None], 0.0, NEG).astype(np.float32)
+    return q, k, v, g, bias
+
+
+def _jax_fwd_grads(q, k, v, g, bias, dtype):
+    args = [jnp.asarray(a, dtype) for a in (q, k, v)]
+
+    def f(a, b, c):
+        out = j_dropattn(a, b, c, jnp.asarray(bias), 0.0, jnp.int32(3), interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(g)), out
+
+    (_, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(*args)
+    return [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
+
+
+def _port_fwd_grads(q, k, v, g, bias, dtype, p=0.0, seed=3):
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    out = ta.dropout_attention(*leaves, torch.from_numpy(bias), p, seed)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(dtype))
+    return [x.float().numpy() for x in (out.detach(), *grads)]
+
+
+# f32: summation order through two products and the softmax over <= 48 keys.
+# bf16: both sides round q, k, v, the probabilities, ds and the results to
+# bf16 (2^-8 relative each), and XLA rounds in other places than torch; at
+# these magnitudes (outputs O(1), gradients O(10)) a few bf16 ulps of the
+# largest element: 0.05 absolute plus 2% relative.
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 3e-5, 0.0), ("bfloat16", 5e-2, 2e-2)])
+@pytest.mark.parametrize("L", [16, 48])
+def test_dropout_attention_p0_matches_jax(dtype, atol, rtol, L):
+    q, k, v, g, bias = _inputs(L, 2, 3, L, 16)
+    want = _jax_fwd_grads(q, k, v, g, bias, getattr(jnp, dtype))
+    got = _port_fwd_grads(q, k, v, g, bias, getattr(torch, dtype))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, err_msg=name)
+
+
+def test_flash_gradient_matches_jax_at_512():
+    """scaled_dot_attention at L = 512 takes the flash path in the port; its
+    gradient is the plain VJP on the same bias, against JAX's attention
+    gradient (f32, summation order: 1e-5)."""
+    q, k, v, g, bias = _inputs(512, 2, 2, 512, 16)
+    bias4 = bias[:, None, None, :]
+
+    def f(a, b, c):
+        return jnp.sum(j_sda(a, b, c, jnp.asarray(bias4)) * jnp.asarray(g))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = ta.scaled_dot_attention(*leaves, torch.from_numpy(bias4))
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def test_flash_gradient_survives_a_kernel_output_without_graph(monkeypatch):
+    """On the card the flash kernel writes into a fresh tensor through ctypes,
+    so its output has no autograd graph. Standing in for it with a detached
+    plain result, the dispatcher's gradient must still reach q, k and v."""
+    plain = ta.flash_attention_plain
+    monkeypatch.setattr(ta, "flash_attention",
+                        lambda q, k, v, mask=None: plain(q, k, v, mask).detach())
+    q, k, v, g, bias = _inputs(7, 1, 2, 512, 16)
+    bias4 = torch.from_numpy(bias[:, None, None, :])
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(ta.scaled_dot_attention(*leaves, bias4), leaves,
+                              torch.from_numpy(g))
+    ref = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(ta.plain_attention(*ref, bias4), ref, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_philox_known_answers():
+    """Random123's known-answer vectors for Philox4x32-10 (kat_vectors)."""
+    cases = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in cases:
+        t = lambda x: torch.tensor([x], dtype=torch.int64)  # noqa: E731
+        got = ta.philox4x32(t(ctr[0]), t(ctr[1]), key[0], t(key[1]), ctr[2], ctr[3])
+        assert tuple(int(w) for w in got) == want
+
+
+def test_keep_rate_is_within_five_sigma():
+    mask = ta.dropout_keep_mask(2024, 48, 128, 0.1)
+    n = mask.numel()
+    sigma = (n * 0.9 * 0.1) ** 0.5
+    assert abs(int(mask.sum()) - 0.9 * n) <= 5 * sigma
+
+
+def test_mask_is_a_function_of_seed_head_row_col():
+    full = ta.dropout_keep_mask(5, 12, 96, 0.1)
+    assert bool((full == ta.dropout_keep_mask(5, 12, 96, 0.1)).all())
+    other = ta.dropout_keep_mask(6, 12, 96, 0.1)
+    assert (full != other).float().mean().item() > 0.1
+    # a block of heads, and a shorter length, are slices of the full mask
+    part = ta.dropout_uniform(5, 4, 3, 96) >= 0.1
+    assert bool((part == full[4:7]).all())
+    short = ta.dropout_keep_mask(5, 12, 37, 0.1)
+    assert bool((short == full[:, :37, :37]).all())
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5])
+def test_plain_backward_equals_autograd_through_the_explicit_mask(p):
+    q, k, v, g, bias = _inputs(11, 2, 3, 40, 16)
+    tq, tk, tv, tg, tb = (torch.from_numpy(a) for a in (q, k, v, g, bias))
+    out, lse = ta.dropattn_fwd_plain(tq, tk, tv, tb, p, 21)
+    mine = ta.dropattn_bwd_plain(tq, tk, tv, tb, p, 21, lse, tg)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    ref = ta.dropout_attention_plain(*leaves, tb, p, 21)
+    want = torch.autograd.grad(ref, leaves, tg)
+    torch.testing.assert_close(out, ref.detach(), rtol=0, atol=1e-6)
+    for a, b in zip(mine, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+
+
+def test_same_seed_same_dropout_other_seed_other_dropout():
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(2, 2, 2, 32, 16))
+    a = ta.dropout_attention(q, k, v, bias, 0.1, 8)
+    assert torch.equal(a, ta.dropout_attention(q, k, v, bias, 0.1, 8))
+    assert not torch.equal(a, ta.dropout_attention(q, k, v, bias, 0.1, 9))
+    assert not torch.equal(a, ta.dropout_attention(q, k, v, bias, 0.0, 8))
+
+
+def test_error_bounds_admit_rounding_and_catch_a_scale_fault():
+    """The bf16 bounds the card's kernels are held to: the plain result
+    against one computed without rounding pd and ds lies inside them; a 2%
+    scale fault does not."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(4, 2, 3, 64, 32))
+    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    want, lse = ta.dropattn_fwd_plain(qb, kb, vb, bias, 0.1, 5)
+    unrounded, lse32 = ta.dropattn_fwd_plain(qb.float(), kb.float(), vb.float(), bias, 0.1, 5)
+    got = unrounded.to(torch.bfloat16)
+    ok = ta.dropattn_fwd_error_bound(qb, kb, vb, bias, 0.1, 5, got, want)
+    assert bool(((got.float() - want.float()).abs() <= ok).all())
+    faulty = (unrounded * 1.02).to(torch.bfloat16)
+    bad = ta.dropattn_fwd_error_bound(qb, kb, vb, bias, 0.1, 5, faulty, want)
+    assert not bool(((faulty.float() - want.float()).abs() <= bad).all())
+
+    want_g = ta.dropattn_bwd_plain(qb, kb, vb, bias, 0.1, 5, lse, gb)
+    exact = ta.dropattn_bwd_plain(qb.float(), kb.float(), vb.float(), bias, 0.1, 5, lse32,
+                                  gb.float())
+    got_g = [t.to(torch.bfloat16) for t in exact]
+    bounds = ta.dropattn_bwd_error_bound(qb, kb, vb, bias, 0.1, 5, lse, gb, got_g, want_g)
+    for a, b, bd in zip(got_g, want_g, bounds):
+        assert bool(((a.float() - b.float()).abs() <= bd).all())
+    faulty_g = [(t * 1.02).to(torch.bfloat16) for t in exact]
+    bounds = ta.dropattn_bwd_error_bound(qb, kb, vb, bias, 0.1, 5, lse, gb, faulty_g, want_g)
+    for a, b, bd in zip(faulty_g, want_g, bounds):
+        assert not bool(((a.float() - b.float()).abs() <= bd).all())
+
+
+def test_dropout_attention_checks_its_inputs():
+    q = torch.zeros(1, 1, 4, 16)
+    with pytest.raises(ValueError):
+        ta.dropout_attention(q, q, q, torch.zeros(1, 5), 0.1, 0)
+    with pytest.raises(ValueError):
+        ta.dropout_attention(q, q, q, torch.zeros(1, 4), 1.0, 0)
+    with pytest.raises(TypeError):
+        ta.dropout_attention(q.half(), q.half(), q.half(), torch.zeros(1, 4), 0.1, 0)

@@ -94,3 +94,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
         StudentModel("tiny")
     with pytest.raises(RuntimeError, match="CUDA"):
         IndexBuilder()
+
+
+def test_training_path_imports_without_the_jax_package_dependencies():
+    blocked = BLOCKED + ("jax", "jaxlib", "flax", "optax", "orbax")
+    code = (
+        "import importlib.abc, json, sys\n"
+        f"BLOCKED = {blocked!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "for m in BLOCKED: sys.modules.pop(m, None)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import sskd_tpu_torch.kd.train\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)))\n"
+    )
+    assert _run(code) == []

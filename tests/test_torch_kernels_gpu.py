@@ -104,3 +104,118 @@ def test_launch_counters_count_kernel_launches_only():
     tk.binmax(q, x)
     tk.binmax_plain(q, x)
     assert launch_counts()["binmax"] == 1
+
+
+# ---------------------------------------------------------------------------
+# Training attention: the dropattn kernels and the flash backward
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(B, h, L, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, go = (torch.randn(B, h, L, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    lens = torch.randint(1, L + 1, (B,), device="cuda", generator=g)
+    lens[0] = L
+    keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min / 2)
+    return q, k, v, go, bias
+
+
+@pytest.mark.parametrize("L", [64, 192, 512, 130])
+def test_dropattn_keep_mask_matches_plain(L):
+    _need_card()
+    BH = 3072 if L == 64 else 24
+    got = ta.dropattn_keep_mask_kernel(1234567, BH, L, 0.1)
+    want = ta.dropout_keep_mask(1234567, BH, L, 0.1, device="cuda")
+    assert bool((got == want).all())
+
+
+def test_dropattn_kernels_apply_the_plain_mask():
+    """q = k = 0 and a zero bias make every probability 1/256 at L = 256; at
+    p = 0.5 each kept one is 1/128 exactly, so with v (or g) holding 2^(j % 8)
+    in channel j // 8, the f32 output (or dv) spells each row's (or column's)
+    keep bits: the masks the kernels used, read back bit for bit."""
+    _need_card()
+    B, h, L, d, seed = 2, 3, 256, 32, 99
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda")
+    bias = torch.zeros(B, L, device="cuda")
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    bit = torch.arange(8, device="cuda")
+
+    def spell(x):  # [B, h, L, 32] sums of 2^bit / 128 -> [B, h, L, 256] bits
+        n = (x * 128).round().long()
+        return ((n[..., None] >> bit) & 1).reshape(B, h, L, L).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    assert bool((spell(out) == want).all())
+    assert bool((spell(dv).transpose(-1, -2) == want).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [64, 192, 130])
+def test_dropattn_fwd_bwd_match_plain(dtype, p, L):
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(3, 4, L, 32, dtype, seed=L)
+    seed = 77 + L
+    out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+    grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
+    if dtype == torch.float32:  # summation order only
+        assert (out - want).abs().max().item() <= 1e-5
+        for a, b in zip(grads, want_grads):
+            assert (a - b).abs().max().item() <= 1e-5
+        return
+    bound = ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out, want)
+    assert bool(((out.float() - want.float()).abs() <= bound).all())
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, go, grads, want_grads)
+    for name, a, b, bd in zip("dq dk dv".split(), grads, want_grads, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+def test_dropout_attention_gradient_goes_through_the_kernels():
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(2, 3, 96, 32, torch.float32, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    out = ta.dropout_attention(*leaves, bias, 0.1, 42)
+    got = torch.autograd.grad(out, leaves, go)
+    counts = launch_counts()
+    assert counts["dropattn_fwd"] == 1 and counts["dropattn_bwd"] == 1
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = ta.dropout_attention_plain(*ref_leaves, bias, 0.1, 42)
+    want = torch.autograd.grad(ref, ref_leaves, go)
+    assert (out - ref).abs().max().item() <= 1e-5
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_matches_plain_autograd(dtype):
+    """scaled_dot_attention at L = 512 runs the flash kernel forward and the
+    plain VJP backward: its gradients equal autograd through plain_attention
+    on the same bias (the same arithmetic, so to f32 summation order)."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(2, 3, 512, 32, dtype, seed=11)
+    bias4 = bias.to(dtype)[:, None, None, :]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ta.flash_attention.launches
+    out = ta.scaled_dot_attention(*leaves, bias4)
+    assert ta.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, go)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ta.plain_attention(*ref_leaves, bias4), ref_leaves, go)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-6)
