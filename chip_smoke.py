@@ -34,8 +34,13 @@ Phases, each fatal when it fails:
              configs/kd.yaml: 512 queries x 8 docs, batch 32, query_len 64,
              doc_len 192, one epoch (16 steps); every loss finite, the dropattn
              launches of the train path equal to the count the code implies,
-             best_model reloaded and used to encode; ms per step, samples/s,
-             peak device memory and the device busy share over a few steps.
+             the first update (lr 0) leaving the parameters as they were and
+             the second moving them within AdamW's bound, best_model reloaded
+             and used to encode; then one step's gradients through the
+             kernels no farther from the plain pair's than bf16 rounding of
+             the attention moves them; ms per step (CUDA events and the
+             loop's host cadence), samples/s, peak device memory and the
+             device busy share over a few steps.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -483,12 +488,15 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     out["bwd_library_ms"] = time_ms(
         lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), 10)
     elt = BH * L * d * 2  # one bf16 [B, h, L, d] tensor
-    # forward: q, k, v, bias read, out and lse written; 2 products of 2 L^2 d
+    # The function's own bytes only: the lse the forward saves for the
+    # backward is this port's choice (the TPU pair recomputes it), not part
+    # of the function, so neither bound counts it.
+    # forward: q, k, v, bias read, out written; 2 products of 2 L^2 d
     out["fwd_bound_ms"], out["fwd_bound_by"] = bound_ms(
-        4 * elt + B * L * 4 + BH * L * 4, 4.0 * BH * L * L * d, "bf16")
-    # backward: q, k, v, g, bias, lse read, dq, dk, dv written; 5 products
+        4 * elt + B * L * 4, 4.0 * BH * L * L * d, "bf16")
+    # backward: q, k, v, g, bias read, dq, dk, dv written; 5 products
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(
-        7 * elt + B * L * 4 + BH * L * 4, 10.0 * BH * L * L * d, "bf16")
+        7 * elt + B * L * 4, 10.0 * BH * L * L * d, "bf16")
     return out
 
 
@@ -842,6 +850,96 @@ def make_kd_samples(n: int, n_docs: int, seed: int) -> list:
     return samples
 
 
+# Adam's |m_hat / sqrt(v_hat)| at its second step (b1 0.9, b2 0.999), for any
+# two gradients g1, g2: |b1 g1 + g2| / (1 + b1) over sqrt((b2 g1^2 + g2^2) /
+# (1 + b2)), at most sqrt(b1^2 / b2 + 1) sqrt(1 + b2) / (1 + b1) by
+# Cauchy-Schwarz
+ADAM_STEP2_MAX = math.sqrt(0.9**2 / 0.999 + 1) * math.sqrt(1.999) / 1.9
+
+
+def param_motion(before: dict, after: dict, lr: float, wd: float) -> dict:
+    """How far one AdamW update at Adam's second step, learning rate ``lr``,
+    moved each f32 parameter, against what the update allows: |dp| <= lr
+    (ADAM_STEP2_MAX + wd |p|), with 1e-5 of the first term for the f32
+    roundings inside Adam's ratio (about ten, 6e-7) and one f32 rounding of
+    p in each of the update's two in-place ops. The bound is tight: the
+    ratio reaches ADAM_STEP2_MAX where g1 = (b1 / b2) g2. ``share_moved``:
+    the share of the encoder layers' elements that moved by at least lr / 10."""
+    worst, top, moved, n_layer = 0.0, 0.0, 0, 0
+    for name, p0 in before.items():
+        dp = (after[name] - p0).abs()
+        allowed = (lr * (ADAM_STEP2_MAX * (1 + 1e-5) + wd * p0.abs())
+                   + 2.0**-23 * (p0.abs() + lr) + 1e-12)
+        worst = max(worst, (dp / allowed).max().item())
+        top = max(top, dp.max().item() / lr)
+        if name.startswith("encoder.layers."):
+            moved += int((dp >= 0.1 * lr).sum().item())
+            n_layer += dp.numel()
+    return {"max_dp_over_allowed": worst, "max_dp_over_lr": top,
+            "share_moved": moved / max(1, n_layer)}
+
+
+class PlainDropoutAttention(torch.autograd.Function):
+    """dropout_attention over the plain pair, dropattn_fwd_plain and
+    dropattn_bwd_plain: the kernels' arithmetic with no kernel launched.
+    With ``compute`` f32 it runs the same without the bf16 roundings inside
+    (inputs and results still in the caller's type)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, p, seed, compute):
+        from sskd_tpu_torch.ops import attention as ta
+
+        qc, kc, vc = (t.to(compute) for t in (q, k, v))
+        bias = bias.detach().float()
+        out, lse = ta.dropattn_fwd_plain(qc, kc, vc, bias, p, seed)
+        ctx.save_for_backward(qc, kc, vc, bias, lse)
+        ctx.p, ctx.seed = p, seed
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from sskd_tpu_torch.ops import attention as ta
+
+        qc, kc, vc, bias, lse = ctx.saved_tensors
+        grads = ta.dropattn_bwd_plain(qc, kc, vc, bias, ctx.p, ctx.seed, lse, g.to(qc.dtype))
+        return (*(t.to(g.dtype) for t in grads), None, None, None, None)
+
+
+def step_grads(trainer, batch, compute=None) -> torch.Tensor:
+    """Every parameter's gradient (flat, f32) of one train step on ``batch``
+    at fixed progress and seeds: the trainer's own forward, loss and
+    backward, without the update. ``compute`` None runs the dropattn
+    kernels; a dtype swaps in PlainDropoutAttention computing in it."""
+    from sskd_tpu_torch.models import bert
+
+    module = trainer.student.module
+
+    class NoUpdate:
+        def begin(self):
+            module.zero_grad(set_to_none=True)
+
+        def step(self):
+            pass
+
+    saved = trainer._opt, bert.dropout_attention
+    trainer._opt = NoUpdate()
+    if compute is not None:
+        bert.dropout_attention = (
+            lambda q, k, v, bias, p, seed: PlainDropoutAttention.apply(q, k, v, bias, p, seed,
+                                                                        compute))
+    try:
+        trainer._prepare_module()
+        trainer._train_step(batch, 0.5, 11)
+        grads = torch.cat([p.grad.detach().float().flatten() for p in module.parameters()
+                           if p.grad is not None])
+    finally:
+        trainer._opt, bert.dropout_attention = saved
+        module.zero_grad(set_to_none=True)
+        module.eval()
+        module.encoder.remat = None
+    return grads
+
+
 def phase_train(args) -> dict:
     import tempfile
 
@@ -866,16 +964,38 @@ def phase_train(args) -> dict:
     check(cfg.hidden_dropout == 0.1 and cfg.attention_dropout == 0.1, "dropout is not 0.1")
     check({p.dtype for p in student.module.parameters()} == {torch.float32}, "params not f32")
     trainer = KDTrainer(student, settings)
-    step_ms, step_losses = [], []
     inner = trainer._train_step
+    starts, events, step_aux, snaps, motion = [], [], [], [], {}
+
+    def snapshot():
+        return {n: p.detach().clone() for n, p in student.module.named_parameters()}
 
     def timed_step(batch_, progress, step_seed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        # Each step between two CUDA events, read after the run, and its host
+        # start time: train()'s own loop, with no host sync added from step 3
+        # on. Steps 1 and 2 also between parameter snapshots, outside the
+        # events, compared (with syncs) before step 3 starts.
+        i = len(events)
+        if i < 2:
+            snaps.append(snapshot())
+        elif i == 2:  # the snapshots are freed: the peak counts steps 3 on
+            torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        starts.append(time.perf_counter())
+        start.record()
         aux = inner(batch_, progress, step_seed)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        step_losses.append({k: float(v) for k, v in aux.items()})
+        end.record()
+        events.append((start, end))
+        step_aux.append(aux)
+        if i == 1:
+            snaps.append(snapshot())
+            # the first update's lr is schedule(0) = 0: the parameters stay
+            # as they were; the second moves them, within AdamW's bound
+            motion["step1_unchanged"] = all(torch.equal(snaps[0][n], snaps[1][n])
+                                            for n in snaps[0])
+            motion.update(param_motion(snaps[1], snaps[2], trainer._opt.schedule(1),
+                                       settings.training.weight_decay))
+            snaps.clear()
         return aux
 
     trainer._train_step = timed_step
@@ -889,13 +1009,24 @@ def phase_train(args) -> dict:
         train_s = time.perf_counter() - t0
         # the train path ends here: what follows launches outside it
         counts = launch_counts()
+        trainer._train_step = inner
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         steps = result["global_step"]
         log(f"[train] {steps} steps in {train_s:.1f} s; launches on the train path: {counts}")
         check(steps == TRAIN_QUERIES // batch, f"{steps} steps, want {TRAIN_QUERIES // batch}")
+        step_losses = [{k: float(v) for k, v in aux.items()} for aux in step_aux]
         for i, aux in enumerate(step_losses):
             check(all(math.isfinite(x) for x in aux.values()), f"step {i}: non-finite {aux}")
         check(math.isfinite(result["history"][0]["train_loss"]), "non-finite epoch loss")
+        event_ms = [a.elapsed_time(b) for a, b in events]
+        # the loop's cadence: host time from one step's start to the next
+        cadence_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+
+        log(f"[train] steps 1 and 2 moved the parameters: {json.dumps(motion)}")
+        check(motion["step1_unchanged"], "step 1 changed the parameters (its learning rate is 0)")
+        check(motion["max_dp_over_allowed"] <= 1.0, f"step 2 moved a parameter too far: {motion}")
+        check(motion["max_dp_over_lr"] >= 0.5 and motion["share_moved"] >= 0.5,
+              f"step 2 did not move the parameters by about lr: {motion}")
         # per step: 12 layers x 2 towers forward, again in the remat recompute,
         # and 12 x 2 backward
         towers = 2 * cfg.num_layers
@@ -921,9 +1052,16 @@ def phase_train(args) -> dict:
         packed = list(ds.batches(batch, shuffle=False))
         pack_ms = (time.perf_counter() - t0) * 1e3 / len(packed)
         trainer._prepare_module()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         inner(packed[0], 0.5, 7)
+        # the same steps with the batches packed beforehand, so no
+        # tokenization runs beside them: unprofiled, then profiled
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, b in enumerate(packed):
+            inner(b, 0.5, 8 + i)
+        torch.cuda.synchronize()
+        prepacked_ms = (time.perf_counter() - t0) * 1e3 / len(packed)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i, b in enumerate(packed):
@@ -933,19 +1071,67 @@ def phase_train(args) -> dict:
         student.module.eval()
         by_kernel = device_times(prof)
         busy_us = sum(t for _, t in by_kernel)
-    steady = sorted(step_ms[2:]) or step_ms
+
+    # One step's gradients through the kernels against the same step over
+    # the plain pair (same masks by construction), at the trained weights.
+    # In bf16 any difference, however small, flips later bf16 roundings
+    # through the twelve layers, so the two land about 1 % apart whatever
+    # its source; the yardstick is the plain pair computing in f32 inside,
+    # whose distance from the bf16 plain pair is what rounding the attention
+    # to bf16 does to these gradients. The same step in f32 compute (the
+    # kernels' f32 instantiation) cascades no rounding: there the kernels
+    # and the plain pair differ by f32 summation order only, which the step
+    # keeps far below 1e-3 of the gradient's norm, while a mask, seed or
+    # bias that a recompute or the backward got wrong moves it by percents.
+    g_kernel = step_grads(trainer, packed[0])
+    g_plain = step_grads(trainer, packed[0], torch.bfloat16)
+    g_plain32 = step_grads(trainer, packed[0], torch.float32)
+    g_norm = g_plain.norm().item()
+    grad_check = {
+        "grad_norm": g_norm,
+        "kernel_vs_plain_rel": (g_kernel - g_plain).norm().item() / g_norm,
+        "bf16_noise_rel": (g_plain32 - g_plain).norm().item() / g_norm,
+        "cosine_kernel_plain": F.cosine_similarity(g_kernel, g_plain, dim=0).item(),
+    }
+    del g_kernel, g_plain, g_plain32
+    student32 = StudentModel("intfloat/e5-small-v2", device="cuda", compute_dtype=torch.float32,
+                             seed=args.seed)
+    student32.module.load_state_dict(student.module.state_dict())
+    trainer32 = KDTrainer(student32, settings)
+    g_kernel = step_grads(trainer32, packed[0])
+    g_plain = step_grads(trainer32, packed[0], torch.float32)
+    grad_check["f32_grad_norm"] = g_plain.norm().item()
+    grad_check["f32_kernel_vs_plain_rel"] = ((g_kernel - g_plain).norm().item()
+                                             / grad_check["f32_grad_norm"])
+    del g_kernel, g_plain, student32, trainer32
+    log(f"[train] one step's gradients, kernels vs plain pair: {json.dumps(grad_check)}")
+    check(all(math.isfinite(x) for x in grad_check.values()) and g_norm > 0,
+          f"gradients not finite: {grad_check}")
+    check(grad_check["kernel_vs_plain_rel"] <= grad_check["bf16_noise_rel"],
+          f"kernel gradients farther from the plain pair than bf16 noise: {grad_check}")
+    check(grad_check["f32_kernel_vs_plain_rel"] <= 1e-3,
+          f"f32 step: kernel gradients differ from the plain pair's: {grad_check}")
+    steady = sorted(cadence_ms[2:]) or cadence_ms
     ms_step = float(np.median(steady))
     record = {
         "steps": steps,
         "train_seconds": train_s,
-        "step_ms": step_ms,
+        # host time from each step's start to the next: the loop's pace
+        "step_cadence_ms": cadence_ms,
+        # device time between events around each step (excludes the host's
+        # wait for the next batch)
+        "step_event_ms": event_ms,
+        "event_ms_median": float(np.median(sorted(event_ms[2:]) or event_ms)),
         "ms_per_step_median": ms_step,
         "samples_per_s": batch / (ms_step / 1e3),
         "docs_per_s": batch * n_docs / (ms_step / 1e3),
-        "peak_device_gib": peak_gib,
+        "peak_device_gib": peak_gib,  # steps 3 on, the epoch's end included
+        "param_motion": motion,
+        "grad_check": grad_check,
         "device_busy_share": busy_us / wall_us if busy_us > 0 else None,
-        # the profiled window: pre-packed batches, so no tokenization runs
         "pack_ms_per_batch": pack_ms,  # host tokenization + padding of one batch
+        # pre-packed batches, so no tokenization runs: unprofiled, profiled
+        "prepacked_ms_per_step": prepacked_ms,
         "window_ms_per_step": wall_us / 1e3 / len(packed),
         "device_ms_per_step": busy_us / 1e3 / len(packed),
         "top_kernels_ms_per_step": [(k, t / 1e3 / len(packed)) for k, t in by_kernel[:25]],

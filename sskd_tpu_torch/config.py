@@ -159,9 +159,10 @@ class TrainingConfig:
     # "full" keeps only each layer's input, "dots" also its matrix products
     remat: bool = True
     remat_policy: str = "full"
-    # names a JAX generator (rbg, unsafe_rbg, threefry2x32); accepted for
-    # config compatibility. The port's dropout masks come from torch
-    # generators and the dropattn kernels' Philox, whatever this says.
+    # the JAX package's dropout-key generator (rbg, unsafe_rbg,
+    # threefry2x32). The port draws its masks from torch generators and the
+    # dropattn kernels' Philox, so only the default is accepted: any other
+    # choice raises rather than being ignored.
     rng_impl: str = "rbg"
     prefetch_batches: int = 2
     seed: int = 42
@@ -181,7 +182,12 @@ class TrainingConfig:
             if getattr(self, name) <= 0.0:
                 raise ConfigError(f"TrainingConfig.{name}={getattr(self, name)!r}: must be > 0")
         _check(self, "remat_policy", choices=("full", "dots"))
-        _check(self, "rng_impl", choices=("rbg", "unsafe_rbg", "threefry2x32"))
+        if self.rng_impl != "rbg":
+            raise ConfigError(
+                f"TrainingConfig.rng_impl={self.rng_impl!r}: the JAX generators (rbg, "
+                "unsafe_rbg, threefry2x32) do not exist in the port, whose dropout masks come "
+                "from torch generators and the dropattn kernels' Philox; leave it at 'rbg'"
+            )
 
 
 @dataclass

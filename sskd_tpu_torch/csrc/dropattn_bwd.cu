@@ -16,9 +16,10 @@
 // rounding of the forward's output enters the gradient.
 //
 // Bound on the H100 at the training shape [256*12, 192, 32] bf16: the bytes
-// (q, k, v, g read, dq, dk, dv written: 7 x 37.7 MB, plus bias and lse:
-// ~267 MB, 0.080 ms at 3.35 TB/s) against 10 * B*h*L^2*d = 36 GFLOP for the
-// five products (0.037 ms at the bf16 tensor-core peak): the bytes bound it.
+// (q, k, v, g read, dq, dk, dv written: 7 x 37.7 MB, plus the bias: 264.4 MB,
+// 0.0789 ms at 3.35 TB/s; the saved lse is not part of the function) against
+// 10 * B*h*L^2*d = 36 GFLOP for the five products (0.037 ms at the bf16
+// tensor-core peak): the bytes bound it.
 //
 // Design (a first, simple kernel pair on CUDA cores): dq needs sums along each
 // query row and dk, dv sums down each key column, so two kernels, neither with
@@ -207,26 +208,13 @@ static int launch(const void* q, const void* k, const void* v, const float* bias
   return 0;
 }
 
-template <typename T>
-static int launch_d(const void* q, const void* k, const void* v, const float* bias, const void* g,
-                    const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int h,
-                    int L, int d, float sm_scale, uint32_t seed, float p, float inv,
-                    cudaStream_t s) {
-  if (d == 16)
-    return launch<T, 16>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p, inv, s);
-  if (d == 32)
-    return launch<T, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p, inv, s);
-  if (d == 64)
-    return launch<T, 64>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p, inv, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
 //   dtype: 0 f32, 1 bf16. q, k, v, g, dq, dk, dv: [B, h, L, d] contiguous;
 //   bias: [B, L] f32; lse: [B, h, L] f32 from the forward; dsum: [B, h, L] f32
-//   scratch. d in {16, 32, 64}; 0 <= p < 1, inv = 1 / (1 - p) rounded to f32.
+//   scratch. d = 32 only (others are refused); 0 <= p < 1, inv = 1 / (1 - p)
+//   rounded to f32.
 // Launches the dq kernel, then the dk/dv kernel, on one stream.
 // Returns cudaGetLastError() after the launches.
 extern "C" int sskd_dropattn_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -235,15 +223,16 @@ extern "C" int sskd_dropattn_bwd(int dtype, const void* q, const void* k, const 
                                  int d, float sm_scale, uint32_t seed, float p, float inv,
                                  void* stream) {
   using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || h <= 0 || L <= 0 || d != 32 || !(p >= 0.f && p < 1.f))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (dtype == 0)
-    rc = launch_d<float>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, d, sm_scale, seed, p,
-                         inv, s);
+    rc = launch<float, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p,
+                           inv, s);
   else if (dtype == 1)
-    rc = launch_d<__nv_bfloat16>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, d, sm_scale,
-                                 seed, p, inv, s);
+    rc = launch<__nv_bfloat16, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale,
+                                   seed, p, inv, s);
   else rc = (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

@@ -14,9 +14,10 @@
 // scores in VMEM; no [L, L] tensor exists here, in device memory or on chip.
 //
 // Bound on the H100 at the training shape [256*12, 192, 32] bf16: the bytes
-// (q, k, v and out, 4 x 37.7 MB, plus bias and lse: ~153 MB, 0.046 ms at
-// 3.35 TB/s) against 4 * B*h*L^2*d = 14.5 GFLOP (0.015 ms at the bf16
-// tensor-core peak): the bytes bound it.
+// (q, k, v and out, 4 x 37.7 MB, plus the bias: 151.2 MB, 0.0451 ms at
+// 3.35 TB/s; the lse this kernel saves is not part of the function) against
+// 4 * B*h*L^2*d = 14.5 GFLOP (0.015 ms at the bf16 tensor-core peak): the
+// bytes bound it.
 //
 // Design (a first, simple kernel on CUDA cores, far above that bound): one
 // block of 64 threads per (b*h, 64-query tile), each thread owning one query
@@ -119,16 +120,6 @@ static int launch(const void* q, const void* k, const void* v, const float* bias
   return 0;
 }
 
-template <typename T>
-static int launch_d(const void* q, const void* k, const void* v, const float* bias, void* out,
-                    float* lse, int B, int h, int L, int d, float sm_scale, uint32_t seed,
-                    float p, float inv, cudaStream_t stream) {
-  if (d == 16) return launch<T, 16>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, stream);
-  if (d == 32) return launch<T, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, stream);
-  if (d == 64) return launch<T, 64>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 // The keep-mask as the kernels draw it, one byte per element, for checks.
 __global__ void keep_mask_kernel(uint8_t* out, long BH, int L, uint32_t seed, float p) {
   const int L4 = (L + 3) / 4;
@@ -148,20 +139,23 @@ __global__ void keep_mask_kernel(uint8_t* out, long BH, int L, uint32_t seed, fl
 
 // C interface, loaded with ctypes.
 //   dtype: 0 f32, 1 bf16. q, k, v, out: [B, h, L, d] contiguous; bias: [B, L]
-//   f32; lse: [B, h, L] f32 (written). d in {16, 32, 64}; 0 <= p < 1 and
-//   inv = 1 / (1 - p), rounded to f32 by the caller as the plain version rounds it.
+//   f32; lse: [B, h, L] f32 (written). d = 32 only (the head dim of the models
+//   the port trains; others are refused); 0 <= p < 1 and inv = 1 / (1 - p),
+//   rounded to f32 by the caller as the plain version rounds it.
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const float* bias, void* out, float* lse, int B, int h, int L,
                                  int d, float sm_scale, uint32_t seed, float p, float inv,
                                  void* stream) {
   using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || h <= 0 || L <= 0 || d != 32 || !(p >= 0.f && p < 1.f))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (dtype == 0) rc = launch_d<float>(q, k, v, bias, out, lse, B, h, L, d, sm_scale, seed, p, inv, s);
+  if (dtype == 0)
+    rc = launch<float, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
   else if (dtype == 1)
-    rc = launch_d<__nv_bfloat16>(q, k, v, bias, out, lse, B, h, L, d, sm_scale, seed, p, inv, s);
+    rc = launch<__nv_bfloat16, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
   else rc = (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

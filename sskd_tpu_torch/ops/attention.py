@@ -44,6 +44,9 @@ NEG_INF = float(torch.finfo(torch.float32).min) / 2
 FLASH_MIN_L = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
+# the dropattn kernels are built for the head dim of the models the port
+# trains (e5-small-v2: 384 / 12) and refuse others
+_DROPATTN_HEAD_DIMS = (32,)
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -439,8 +442,8 @@ def _check_dropattn(q, k, v, bias, p):
     for t in (k, v, bias):
         if t.device != q.device:
             raise ValueError("q, k, v and bias must be on one device")
-    if q.device.type == "cuda" and d not in _HEAD_DIMS:
-        raise ValueError(f"dropattn kernels support head dims {_HEAD_DIMS}, got {d}")
+    if q.device.type == "cuda" and d not in _DROPATTN_HEAD_DIMS:
+        raise ValueError(f"dropattn kernels support head dims {_DROPATTN_HEAD_DIMS}, got {d}")
 
 
 def dropattn_fwd(q, k, v, bias, p: float, seed: int):

@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Marked ``gpu``; each test decides inside itself whether a card and nvcc are
 there and skips with the reason otherwise. Run on a machine with the card:
@@ -181,6 +181,21 @@ def test_dropattn_fwd_bwd_match_plain(dtype, p, L):
     for name, a, b, bd in zip("dq dk dv".split(), grads, want_grads, bounds):
         diff = (a.float() - b.float()).abs()
         assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_dropattn_refuses_other_head_dims(d):
+    """The kernels are built for d = 32 only: any other head dim raises
+    before a launch."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(2, 3, 64, d, torch.bfloat16, seed=d)
+    before = ta.dropattn_fwd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        ta.dropattn_fwd(q, k, v, bias, 0.1, 5)
+    lse = torch.zeros(q.shape[:3], device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        ta.dropattn_bwd(q, k, v, bias, 0.1, 5, lse, go)
+    assert ta.dropattn_fwd.launches == before
 
 
 def test_dropout_attention_gradient_goes_through_the_kernels():

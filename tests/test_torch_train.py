@@ -459,6 +459,15 @@ def test_training_config_bounds(bad):
         Settings.from_dict(bad)
 
 
+@pytest.mark.parametrize("impl", ["threefry2x32", "unsafe_rbg", "mersenne"])
+def test_rng_impl_other_than_the_default_raises(impl):
+    """The port has no JAX generators: a choice among them would be ignored,
+    so it is refused; the default is accepted."""
+    assert Settings.from_dict({"training": {"rng_impl": "rbg"}}).training.rng_impl == "rbg"
+    with pytest.raises(ConfigError, match="rng_impl"):
+        Settings.from_dict({"training": {"rng_impl": impl}})
+
+
 def test_training_defaults_to_cuda(monkeypatch, tok):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
