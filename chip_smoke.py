@@ -17,8 +17,12 @@ Phases, each fatal when it fails:
              [32, 12, 64, 32] and [256, 12, 512, 32] bf16 with a random padding
              bias, p in {0, 0.1}, each element within its rounding bound, f32
              within 1e-5, the kernels' keep-mask equal to the plain one bit for
-             bit): error, time per launch (CUDA events), the bound and a library
-             yardstick that the port never calls;
+             bit; binmax_strided, the approx engine's pass, at every binmax case;
+             cell_gather and cell_gather_b1 over 977 cells x 1,024 rows x
+             384, nprobe 64: int8 at B in {1, 16, 64} bit for bit, f32 at B in
+             {1, 16} within 1e-5, and a ragged case, nprobe 11 over cells of 768
+             rows): error, time per launch (CUDA events), the bound and
+             yardsticks that the port never calls;
 3. serve   — the main path at full e5-small-v2 width (12 layers, hidden 384,
              bf16, seeded random weights): encode 8,192 passages of at least
              510 tokens (L = 512, batch 256), fill an int8 exact index to
@@ -40,7 +44,20 @@ Phases, each fatal when it fails:
              kernels no farther from the plain pair's than bf16 rounding of
              the attention moves them; ms per step (CUDA events and the
              loop's host cadence), samples/s, peak device memory and the
-             device busy share over a few steps.
+             device busy share over a few steps;
+5. clustered — the cell-probe path at full width: a seeded 1,000,000 x 384
+             corpus of 1,000 topics in 32 dimensions, built into a clustered
+             int8 index (977 cells x 1,024 rows, nprobe 64), saved and loaded;
+             IndexBuilder.search with one query at a time (cell_gather_b1), 16
+             and 64 (cell_gather) and 256 (the approx sweep); the index served
+             by create_app with SSKD_SERVE_CELL_PROBE=1 to 1 and to 32
+             closed-loop clients, then once more without the variable (approx);
+             every result against the same engine over the plain versions on
+             the same embeddings, 0 mismatched ids; with every cell probed, the
+             exact engine's ids; recall@10 at nprobe 64 against exact search
+             over the same rows (gate 0.90), validate() of the index as
+             clustered and as approx (gate 0.97 for approx), and ms per search
+             of the clustered, approx and exact engines at B in {1, 16, 64}.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -52,9 +69,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import http.client
 import json
 import math
+import os
 import re
 import socket
 import subprocess
@@ -74,6 +93,7 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
 N_DOCS = 8192  # passages encoded at L = 512
 N_ROWS = 1_000_000  # rows of the served index (and of the kernel cases)
 SERVE_KERNELS = ("binmax", "bin_gather", "flash_attn_fwd")
+N_CELLS, CELL_ROWS, NPROBE = 977, 1024, 64  # auto_cells(1,000,000) and the default nprobe
 WORDS = (
     "the quick brown fox jumps over a lazy dog and runs to search for semantic meaning "
     "in documents queries passages models training data index vector embedding score "
@@ -108,6 +128,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rotating(fn, args_sets):
+    """A call that walks ``args_sets`` in turn, one set a call, so that
+    repeated launches do not find their last inputs' rows in the L2 cache."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] += 1
+        return fn(*args_sets[state["i"] % len(args_sets)])
+
+    return call
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max relative error over the entries that are not the -inf sentinel."""
     got, want = got.float(), want.float()
@@ -128,6 +160,21 @@ def device_times(prof) -> list[tuple[str, float]]:
     cuda = torch.autograd.DeviceType.CUDA
     return sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
                    if e.device_type == cuda), key=lambda kv: -kv[1])
+
+
+def kernel_device_ms(fn, name_part: str, iters: int = 16) -> float | None:
+    """Device time per call of the kernels whose name holds ``name_part``,
+    from torch.profiler: what a launch takes on the card when the wrapper's
+    host time exceeds it (CUDA events then read the host's pace)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(t for name, t in device_times(prof) if name_part in name)
+    return us / 1e3 / iters if us > 0 else None
 
 
 def unit_rows(n: int, d: int, gen: torch.Generator) -> torch.Tensor:
@@ -189,14 +236,14 @@ def same_topk(kv, ki, pv, pi, tol: float) -> bool:
     return True
 
 
-def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
+def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict]:
     from sskd_tpu_torch.ops import topk_kernels as tk
     from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
-    from sskd_tpu_torch.ops.topk import cosine_topk_core
+    from sskd_tpu_torch.ops.topk import approx_blocks, approx_min_bins, cosine_topk_core
 
     x = unit_rows(n_rows, dim, gen)
     valid_n = n_rows
-    rows, main_binmax, main_gather = [], None, None
+    rows, main_binmax, main_gather, main_strided = [], None, None, None
     for dtype in ("int8", "f32", "int4"):
         if dtype == "f32":
             corpus, scales = x, None
@@ -226,11 +273,9 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                     s = torch._int_mm(corpus, q_in.T).float() * scales[:, None]
                     return s[: (n_rows // 128) * 128].view(-1, 128, B).amax(1)
                 library_ms = time_ms(lib_fn, 5)
-            b_ms, b_by = bound_ms(
-                n_rows * row_bytes + n_rows * 4 * (scales is not None)
-                + q_in.numel() * q_in.element_size() + n_bins * B * 4,
-                2.0 * B * n_rows * dim, op_kind,
-            )
+            n_bytes = (n_rows * row_bytes + n_rows * 4 * (scales is not None)
+                       + q_in.numel() * q_in.element_size() + n_bins * B * 4)
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_rows * dim, op_kind)
             entry = {
                 "kernel": "binmax", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
                 "max_abs_err": err, "max_rel_err": rel_err(got, want), "ms": ms,
@@ -241,6 +286,50 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
             log(f"[kernels] {json.dumps(entry)}")
             if dtype == "int8" and B == 16:
                 main_binmax = entry
+            # the approx engine's pass at the blocks it takes for k = 10 at 0.99
+            groups = math.ceil(approx_min_bins(10, 0.99) / 128)
+            blocks = approx_blocks(B, groups, n_bins)
+            # the count the engine takes at the other side of its batch rule
+            alt_blocks = approx_blocks(256 if B <= 16 else 1, groups, n_bins)
+            s_got, s_rows = tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)
+            s_want, s_want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks)
+            torch.cuda.synchronize()
+            s_err = (s_got - s_want).abs().max().item()
+            rows_same = (s_rows == s_want_rows).float().mean().item()
+            # f32: summation order can move a near-tie inside a bin
+            check(s_err <= tol and (rows_same == 1.0 if dtype != "f32" else rows_same >= 0.9999),
+                  f"binmax_strided {dtype} B={B}: max abs err {s_err}, "
+                  f"{1 - rows_same:.2e} of the rows differ")
+            s_ms = time_ms(lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks), 20)
+            alt_ms = time_ms(
+                lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, alt_blocks), 20)
+            s_plain = time_ms(
+                lambda: tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks), 3, 1)
+            s_library = None
+            if dtype == "f32" or (dtype == "int8" and B % 8 == 0):
+                span = blocks * 128
+                rounds = -(-n_rows // span)
+
+                def strided_lib():
+                    sc = (corpus @ q_in.T if dtype == "f32"
+                          else torch._int_mm(corpus, q_in.T).float() * scales[:, None])
+                    sc = F.pad(sc, (0, 0, 0, rounds * span - n_rows), value=tk.NEG_INF)
+                    return sc.view(rounds, span, B).max(dim=0)
+                s_library = time_ms(strided_lib, 5)
+            sb_ms, sb_by = bound_ms(n_bytes - n_bins * B * 4 + blocks * 128 * B * 8,
+                                    2.0 * B * n_rows * dim, op_kind)
+            s_entry = {
+                "kernel": "binmax_strided", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
+                "blocks": blocks, "max_abs_err": s_err, "max_rel_err": rel_err(s_got, s_want),
+                "rows_equal_share": rows_same, "ms": s_ms, "plain_ms": s_plain,
+                "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_library,
+                "alt_blocks": alt_blocks, "alt_blocks_ms": alt_ms,
+            }
+            rows.append(s_entry)
+            log(f"[kernels] {json.dumps(s_entry)}")
+            if dtype == "int8" and B == 16:
+                main_strided = s_entry
+            del s_got, s_rows, s_want, s_want_rows
             for k in (10, 100):
                 kb = min(k, n_bins)
                 _, bins = tk.topk_stable(want.T, kb)
@@ -290,7 +379,7 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                 if dtype == "int8" and B == 16 and k == 10:
                     main_gather = g_entry
         del corpus, scales
-    return rows, main_binmax, main_gather
+    return rows, main_binmax, main_gather, main_strided
 
 
 def phase_flash(gen) -> tuple[list, dict]:
@@ -500,6 +589,109 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     return out
 
 
+def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
+    """cell_gather and cell_gather_b1 against their plain versions over 977
+    cells x 1,024 rows (seeded unit rows; each query probes 64 distinct random
+    cells). Timed over a rotation of probes, so that a launch does not find
+    its cells in L2 from the launch before. Beside each: the bound from the
+    distinct cells of the timed probes, the plain version, and two yardsticks
+    the port never calls: bin_gather over the cells spelled out as 128-row
+    bins, and index_select + bmm over the gathered rows."""
+    from sskd_tpu_torch.ops import topk_cluster as tc
+    from sskd_tpu_torch.ops import topk_kernels as tk
+    from sskd_tpu_torch.ops.quant import quantize_rows
+
+    x = unit_rows(N_CELLS * CELL_ROWS, dim, gen)
+    rows, main_gen, main_b1 = [], None, None
+
+    def probes(B, nprobe, n_cells):
+        return torch.stack([torch.randperm(n_cells, device="cuda", generator=gen)[:nprobe]
+                            for _ in range(B)]).to(torch.int32).contiguous()
+
+    for dtype in ("int8", "f32"):
+        corpus, scales = quantize_rows(x) if dtype == "int8" else (x, None)
+        row_bytes = corpus.shape[1] * corpus.element_size()
+        tol = 0.0 if dtype == "int8" else 1e-5
+        # a ragged case first: nprobe 11 over cells of 768 rows, both kernels
+        for B in (1, 3):
+            q_in, q_scale = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
+            probe = probes(B, 11, corpus.shape[0] // 768)
+            fn, plain = ((tc.cell_gather_b1, tc.cell_gather_b1_plain) if B == 1
+                         else (tc.cell_gather, tc.cell_gather_plain))
+            got = fn(q_in, q_scale, corpus, scales, probe, 768)
+            want = plain(q_in, q_scale, corpus, scales, probe, 768)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(got.shape == (B, 11, 768) and err <= tol,
+                  f"{fn.__name__} {dtype} ragged B={B}: max abs err {err} > {tol}")
+        for B in (1, 16, 64) if dtype == "int8" else (1, 16):
+            name = "cell_gather_b1" if B == 1 else "cell_gather"
+            fn, plain = ((tc.cell_gather_b1, tc.cell_gather_b1_plain) if B == 1
+                         else (tc.cell_gather, tc.cell_gather_plain))
+            n_sets = 8 if B == 1 else 2
+            sets = []
+            for _ in range(n_sets):
+                q_in, q_scale = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
+                sets.append((q_in, q_scale, corpus, scales, probes(B, NPROBE, N_CELLS),
+                             CELL_ROWS))
+            err = 0.0
+            for a in sets[:2]:
+                got, want = fn(*a), plain(*a)
+                torch.cuda.synchronize()
+                err = max(err, (got - want).abs().max().item())
+                max_rel = rel_err(got, want)
+                del got, want
+            check(err <= tol, f"{name} {dtype} B={B}: max abs err {err} > {tol}")
+            # timed as the engine calls it: without the probe's range check,
+            # which waits for the device
+            fast = rotating(lambda *a: fn(*a, check_probe=False), sets)
+            ms = time_ms(fast, 40, 4)
+            device_ms = kernel_device_ms(fast, name + "_kernel")
+            plain_ms = time_ms(rotating(plain, sets), 2, 1)
+            # bytes: each distinct probed cell once with its scales, the
+            # queries, the probe, and every score once (mean over the sets)
+            distinct = float(np.mean([torch.unique(a[4]).numel() for a in sets]))
+            n_bytes = (distinct * CELL_ROWS * (row_bytes + 4 * (scales is not None))
+                       + B * row_bytes + B * NPROBE * 4 + B * NPROBE * CELL_ROWS * 4)
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * B * NPROBE * CELL_ROWS * dim,
+                                  "int8" if dtype == "int8" else "f32")
+
+            def as_bins(q_in, q_scale, corpus, scales, probe, rpc):
+                per = rpc // 128
+                lane = torch.arange(per, device="cuda", dtype=torch.int32)
+                bins = (probe[:, :, None] * per + lane).reshape(probe.shape[0], -1).contiguous()
+                return tk.bin_gather(q_in, q_scale, corpus, scales, bins)
+
+            def gather_bmm(q_in, q_scale, corpus, scales, probe, rpc):
+                cells = corpus.view(-1, rpc * corpus.shape[1])
+                picked = cells.index_select(0, probe.reshape(-1).long())
+                picked = picked.view(probe.shape[0], -1, corpus.shape[1]).float()
+                s = torch.bmm(picked, q_in.float()[:, :, None])[:, :, 0]
+                if scales is not None:
+                    s = s * scales.view(-1, rpc)[probe.long()].view(probe.shape[0], -1)
+                return s * q_scale[:, None] if q_scale is not None else s
+
+            bins_ms = time_ms(rotating(as_bins, sets), 20, 2)
+            bmm_ms = time_ms(rotating(gather_bmm, sets), 3, 1) if B <= 16 else None
+            entry = {
+                "kernel": name, "dtype": dtype, "B": B, "nprobe": NPROBE,
+                "cells": [N_CELLS, CELL_ROWS, dim], "distinct_cells": distinct,
+                "max_abs_err": err, "max_rel_err": max_rel, "ms": ms,
+                "kernel_device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bin_gather_ms": bins_ms, "index_select_bmm_ms": bmm_ms,
+                "gb_per_s": n_bytes / ms / 1e6,
+            }
+            rows.append(entry)
+            log(f"[kernels] {json.dumps(entry)}")
+            if dtype == "int8" and B == 16:
+                main_gen = entry
+            if dtype == "int8" and B == 1:
+                main_b1 = entry
+            del sets
+        del corpus, scales
+    return rows, main_gen, main_b1
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path, served
 # ---------------------------------------------------------------------------
@@ -580,6 +772,56 @@ def run_load(port: int, n_requests: int, clients: int, seed: int) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+@contextlib.contextmanager
+def live_server(app, tag: str):
+    """Serve ``app`` on 127.0.0.1 from a thread of this process; yields
+    ``(port, seconds until /ready)`` and shuts the server down on exit. A
+    failed startup or a server that does not stop fails the run."""
+    from sskd_tpu_torch.serve.http import Server
+
+    port = free_port()
+    server = Server(app, host="127.0.0.1", port=port, handle_signals=False)
+    loop = asyncio.new_event_loop()
+    served: dict = {}
+
+    def on_serve_done(task):
+        if not task.cancelled() and task.exception() is not None:
+            served["error"] = task.exception()  # e.g. a failed startup
+            loop.stop()
+
+    def run_server():
+        # the loop runs until stopped, so that Server.shutdown (which ends
+        # serve()) can finish its drain on it
+        loop.create_task(server.serve()).add_done_callback(on_serve_done)
+        loop.run_forever()
+
+    thread = threading.Thread(target=run_server, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        while True:
+            check(thread.is_alive(), f"server died at startup: {served.get('error')!r}")
+            check(time.perf_counter() - t0 < 600, "server not ready after 600 s")
+            try:
+                if get(port, "/ready") == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        startup_s = time.perf_counter() - t0
+        log(f"[{tag}] app ready on 127.0.0.1:{port} after {startup_s:.1f} s "
+            "(checkpoint + index load + warmup)")
+        yield port, startup_s
+    finally:
+        if thread.is_alive():
+            asyncio.run_coroutine_threadsafe(server.shutdown(drain_timeout=5.0), loop).result(60)
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(60)
+    check(not thread.is_alive(), "server thread did not stop")
+    check("error" not in served, f"server failed: {served.get('error')!r}")
+    loop.close()
+
+
 def breakdown(fused, seed: int, reps: int = 30) -> dict:
     """Where one fused search's time goes, in-process: host clock around
     tokenize, encode, top-k and the copy back (each ended by a synchronize),
@@ -634,7 +876,6 @@ def phase_serve(args, gen) -> dict:
     from sskd_tpu_torch.ops.topk import cosine_topk_core
     from sskd_tpu_torch.serve.app import create_app
     from sskd_tpu_torch.serve.fused import K_BUCKETS
-    from sskd_tpu_torch.serve.http import Server
 
     work = ROOT / "build" / "chip_smoke"
     passages = make_passages(N_DOCS, args.seed)
@@ -671,39 +912,7 @@ def phase_serve(args, gen) -> dict:
     })
     app = create_app(settings, student_model_path=str(work / "student"), device="cuda",
                      preload_index_dir=str(work / "index"))
-    port = free_port()
-    server = Server(app, host="127.0.0.1", port=port, handle_signals=False)
-    loop = asyncio.new_event_loop()
-    served: dict = {}
-
-    def on_serve_done(task):
-        if not task.cancelled() and task.exception() is not None:
-            served["error"] = task.exception()  # e.g. a failed startup
-            loop.stop()
-
-    def run_server():
-        # the loop runs until stopped, so that Server.shutdown (which ends
-        # serve()) can finish its drain on it
-        loop.create_task(server.serve()).add_done_callback(on_serve_done)
-        loop.run_forever()
-
-    thread = threading.Thread(target=run_server, daemon=True)
-    t0 = time.perf_counter()
-    thread.start()
-    try:
-        while True:
-            check(thread.is_alive(), f"server died at startup: {served.get('error')!r}")
-            check(time.perf_counter() - t0 < 600, "server not ready after 600 s")
-            try:
-                if get(port, "/ready") == 200:
-                    break
-            except OSError:
-                pass
-            time.sleep(0.5)
-        startup_s = time.perf_counter() - t0
-        log(f"[serve] app ready on 127.0.0.1:{port} after {startup_s:.1f} s "
-            "(checkpoint + index load + warmup)")
-
+    with live_server(app, "serve") as (port, startup_s):
         state = app.state
         recorded = []  # (input_ids [B, L] numpy, embeddings [B, H]) of each request batch
         forward = state.student.forward_batch
@@ -732,14 +941,6 @@ def phase_serve(args, gen) -> dict:
         for load in loads:
             log(f"[serve] closed loop: {json.dumps(load)}")
             check(load["failed"] == 0, f"{load['failed']} of {load['requests']} requests failed")
-    finally:
-        if thread.is_alive():
-            asyncio.run_coroutine_threadsafe(server.shutdown(drain_timeout=5.0), loop).result(60)
-            loop.call_soon_threadsafe(loop.stop)
-            thread.join(60)
-    check(not thread.is_alive(), "server thread did not stop")
-    check("error" not in served, f"server failed: {served.get('error')!r}")
-    loop.close()
     # the main path ends here: what follows (breakdown, checks) launches the
     # kernels outside it
     torch.cuda.synchronize()
@@ -1144,6 +1345,362 @@ def phase_train(args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the clustered (cell-probe) path
+# ---------------------------------------------------------------------------
+
+
+class TopicalData:
+    """The low-intrinsic-dimension "topical" recipe: 1,000 topic centres in 32
+    dimensions, a row = its topic + 0.3 N(0, I), mapped to ``dim`` by a fixed
+    random matrix over sqrt(32), + 0.02 N(0, I), normalised. Uniform random
+    rows have no cluster structure for a cell probe to prune."""
+
+    def __init__(self, seed: int, dim: int = 384, intrinsic: int = 32, topics: int = 1000):
+        self.rng = np.random.default_rng(seed)
+        self.a_map = (self.rng.standard_normal((intrinsic, dim)) / np.sqrt(intrinsic)).astype(
+            np.float32)
+        self.topic = self.rng.standard_normal((topics, intrinsic)).astype(np.float32)
+
+    def rows(self, n: int) -> np.ndarray:
+        out = []
+        for i in range(0, n, 250_000):
+            m = min(250_000, n - i)
+            z = self.topic[self.rng.integers(0, len(self.topic), m)] + 0.3 * (
+                self.rng.standard_normal((m, self.topic.shape[1])).astype(np.float32))
+            x = z @ self.a_map + 0.02 * self.rng.standard_normal(
+                (m, self.a_map.shape[1])).astype(np.float32)
+            x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+            out.append(x.astype(np.float32))
+        return np.concatenate(out)
+
+
+def mismatched(got: np.ndarray, want: np.ndarray) -> int:
+    return int((np.asarray(got) != np.asarray(want)).sum())
+
+
+def distinct_queries(n: int, seed: int) -> list[str]:
+    rng = np.random.default_rng(seed)
+    seen: dict[str, None] = {}
+    while len(seen) < n:
+        seen[" ".join(rng.choice(WORDS, 8))] = None
+    return list(seen)
+
+
+def serve_and_record(app, tag: str, sequential: list[str], concurrent: list[str],
+                     clients: int, load_seed: int | None) -> dict:
+    """Serve ``app``; send ``sequential`` one request at a time from one
+    client and ``concurrent`` from ``clients`` closed-loop clients (threads of
+    this process, every response kept), recording each batch the student
+    embedded; then, if asked, closed-loop load from a client process."""
+    with live_server(app, tag) as (port, startup_s):
+        state = app.state
+        recorded = []
+        forward = state.student.forward_batch
+
+        def recording_forward(batch):
+            out = forward(batch)
+            recorded.append((batch["input_ids"], out.detach().clone()))
+            return out
+
+        state.student.forward_batch = recording_forward
+
+        def client(queries):
+            return [post(port, "/search", {"query": q, "k": 10}) for q in queries]
+
+        results = client(sequential)
+        with ThreadPoolExecutor(clients) as pool:
+            for part in pool.map(client, [concurrent[i::clients] for i in range(clients)]):
+                results += part
+        requests = sequential + [q for i in range(clients) for q in concurrent[i::clients]]
+        state.student.forward_batch = forward
+        loads = []
+        if load_seed is not None:
+            loads = [run_load(port, 500, c, load_seed + c) for c in (1, 32)]
+            for load in loads:
+                log(f"[{tag}] closed loop: {json.dumps(load)}")
+                check(load["failed"] == 0, f"{load['failed']} requests failed")
+    return {"startup_s": startup_s, "recorded": recorded, "requests": requests,
+            "results": results, "loads": loads}
+
+
+def check_served(served: dict, state, plain_engine, tag: str) -> dict:
+    """Every response of ``served`` against ``plain_engine(embeddings [B, H])
+    -> (vals, original positions)`` run on the whole batch it was served
+    from (the same batch, so the same kernel's arithmetic)."""
+    tok, st = state.student.tokenizer, state.student
+    where = {}
+    for i, (ids_, _) in enumerate(served["recorded"]):
+        for r in range(ids_.shape[0]):
+            row = ids_[r].tolist()
+            while row and row[-1] == tok.pad_id:
+                row.pop()
+            where[tuple(row)] = (i, r)
+    plain = {}
+    bad = 0
+    for q, (status, body, _) in zip(served["requests"], served["results"]):
+        check(status == 200, f"[{tag}] /search {q!r}: HTTP {status} {body}")
+        key = (tok.cls_id, *tok.tokenize(st.query_prefix + q), tok.sep_id)
+        check(key in where, f"[{tag}] no recorded embedding for {q!r}")
+        i, r = where[key]
+        if i not in plain:
+            plain[i] = plain_engine(served["recorded"][i][1])
+        vals, pos = plain[i]
+        want = [f"doc-{p}" for p in pos[r, :10].tolist()]
+        got = [x["doc_id"] for x in body["results"]]
+        scores = [x["score"] for x in body["results"]]
+        check(all(math.isfinite(v) for v in scores), f"[{tag}] non-finite scores")
+        bad += sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+        check(np.allclose(scores, vals[r, : len(scores)], rtol=1e-6, atol=1e-7),
+              f"[{tag}] /search {q!r}: scores differ from the plain engine's")
+    batches = [ids_.shape[0] for ids_, _ in served["recorded"]]
+    check(bad == 0, f"[{tag}] {bad} served ids differ from the plain engine's")
+    ms = sorted(r[2] for r in served["results"])
+    log(f"[{tag}] {len(served['results'])} /search responses equal the plain engine's; "
+        f"batch rows seen: {sorted(set(batches))}; client ms p50 {np.percentile(ms, 50):.2f} "
+        f"max {ms[-1]:.2f}")
+    return {"requests": len(served["results"]), "mismatched_ids": bad,
+            "batch_rows": sorted(set(batches)), "n_batches": len(batches),
+            "request_p50_ms": float(np.percentile(ms, 50)), "request_max_ms": ms[-1],
+            "startup_seconds": served["startup_s"], "load": served["loads"]}
+
+
+def clustered_parts_ms(b, queries: torch.Tensor) -> dict:
+    """Device ms of the steps of one clustered search (CUDA events, a
+    rotation of query sets): probe, query quantization, cell scores, the mask
+    and the top-k over the probed rows."""
+    from sskd_tpu_torch.ops import topk_cluster as tc
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    B = queries[0].shape[0]
+    rpc, n = b._rows_per_cell, b.ntotal
+    nprobe = min(b.nprobe, b.device_centroids.shape[0])
+
+    def probe_of(q):
+        return tk.topk_stable(q @ b.device_centroids.T, nprobe)[1].to(torch.int32).contiguous()
+
+    staged = []
+    for q in queries:
+        probe = probe_of(q)
+        q_in, q_scale = tk.quantize_queries(q, b.device_vectors)
+        gather = tc.cell_gather_b1 if B == 1 else tc.cell_gather
+        scores = gather(q_in, q_scale, b.device_vectors, b.device_scales, probe, rpc,
+                        check_probe=False)
+        staged.append((q, probe, q_in, q_scale, scores))
+    lane = torch.arange(rpc, device="cuda", dtype=torch.int32)
+
+    def extract(q, probe, q_in, q_scale, scores):
+        gidx = (probe[:, :, None] * rpc + lane).reshape(B, -1)
+        flat = torch.where(gidx < n, scores.reshape(B, -1), tc.NEG_INF)
+        vals, pos = tc.flat_topk(flat, 10)
+        return vals, torch.gather(gidx, 1, pos)
+
+    return {
+        "probe_ms": time_ms(rotating(lambda q, *_: probe_of(q), staged), 20),
+        "quantize_ms": time_ms(
+            rotating(lambda q, *_: tk.quantize_queries(q, b.device_vectors), staged), 20),
+        "cell_scores_ms": time_ms(
+            rotating(lambda q, probe, q_in, q_scale, _: gather(
+                q_in, q_scale, b.device_vectors, b.device_scales, probe, rpc,
+                check_probe=False), staged), 20),
+        "extract_ms": time_ms(rotating(extract, staged), 20),
+    }
+
+
+def phase_clustered(args) -> dict:
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.index.builder import IndexBuilder
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sskd_tpu_torch.ops.topk import approx_topk, cosine_topk
+    from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
+    from sskd_tpu_torch.serve.app import create_app
+
+    work = ROOT / "build" / "chip_smoke"
+    data = TopicalData(args.seed + 5)
+    t0 = time.perf_counter()
+    emb = data.rows(N_ROWS)
+    queries = data.rows(1000 + 8 + 16 + 64 + 256 + 4)
+    log(f"[clustered] {N_ROWS} topical rows in {time.perf_counter() - t0:.1f} s")
+    ids = [f"doc-{i}" for i in range(N_ROWS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the clustered path starts here
+
+    t0 = time.perf_counter()
+    built = IndexBuilder(384, index_type="clustered", dtype="int8", nprobe=NPROBE, device="cuda")
+    built.build_from_arrays(emb, ids)
+    build_s = time.perf_counter() - t0
+    check((built._centroids.shape[0], built._rows_per_cell) == (N_CELLS, CELL_ROWS),
+          f"cells {built._centroids.shape[0]} x {built._rows_per_cell}")
+    t0 = time.perf_counter()
+    built.save(work / "clustered_index")
+    b = IndexBuilder(device="cuda").load(work / "clustered_index")
+    save_load_s = time.perf_counter() - t0
+    check(b.index_type == "clustered" and b.nprobe == NPROBE and b.ntotal == N_ROWS
+          and np.array_equal(b._perm, built._perm), "the loaded index differs from the built one")
+    del built
+    log(f"[clustered] built {N_CELLS} cells x {CELL_ROWS} rows in {build_s:.1f} s on the host, "
+        f"saved and loaded in {save_load_s:.1f} s")
+
+    # --- the library entry: IndexBuilder.search at each batch size -----------
+    q_val, rest = queries[:1000], queries[1000:]
+    batches = [rest[i:i + 1] for i in range(8)] + [rest[8:24], rest[24:88], rest[88:344]]
+    library = [b.search(q, k=10) for q in batches]
+
+    # --- the served entry ----------------------------------------------------
+    student_dir = work / "student"
+    if not (student_dir / "sskd_config.json").exists():
+        StudentModel("intfloat/e5-small-v2", device="cuda", compute_dtype=torch.bfloat16,
+                     seed=args.seed).save(student_dir)
+    settings = Settings.from_dict({
+        "service": {"micro_batch_window_ms": 5.0, "micro_batch_max_size": 64},
+    })  # index.search_method stays at its default: the index's own type is served
+
+    def make_app():
+        return create_app(settings, student_model_path=str(student_dir), device="cuda",
+                          preload_index_dir=str(work / "clustered_index"))
+
+    texts = distinct_queries(32 + 256 + 8 + 32, args.seed + 9)
+    saved_env = os.environ.get("SSKD_SERVE_CELL_PROBE")
+    os.environ["SSKD_SERVE_CELL_PROBE"] = "1"
+    try:
+        app_probe = make_app()
+        before = launch_counts()["cell_gather"]
+        served_probe = serve_and_record(app_probe, "clustered", texts[:32], texts[32:288], 32,
+                                        args.seed + 100)
+        probe_launches = launch_counts()["cell_gather"] - before
+    finally:
+        if saved_env is None:
+            del os.environ["SSKD_SERVE_CELL_PROBE"]
+        else:
+            os.environ["SSKD_SERVE_CELL_PROBE"] = saved_env
+    app_sweep = make_app()  # the same index without the variable: the approx sweep
+    before = launch_counts()
+    served_sweep = serve_and_record(app_sweep, "clustered-approx", texts[288:296], texts[296:],
+                                    32, None)
+    torch.cuda.synchronize()
+    counts = launch_counts()  # the clustered path ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[clustered] launches on the clustered path: {counts}")
+    check(counts["cell_gather_b1"] >= 8, "cell_gather_b1 was not launched by the library entry")
+    check(counts["cell_gather"] >= 2, "cell_gather was not launched")
+    n_probe_batches = len(served_probe["recorded"])
+    check(probe_launches >= n_probe_batches > 0,
+          f"cell_gather rose by {probe_launches} over {n_probe_batches} served batches")
+    check(counts["cell_gather"] == before["cell_gather"]
+          and counts["binmax_strided"] > before["binmax_strided"],
+          "without SSKD_SERVE_CELL_PROBE the index was not served through the approx sweep")
+
+    # --- every result against the same engine over the plain versions --------
+    dev = dict(row_scales=b.device_scales, valid_n=b.ntotal)
+
+    def plain_clustered(q, k=10):
+        vals, idx = clustered_topk(q, b.device_vectors, b.device_centroids, k, b.nprobe,
+                                   b._rows_per_cell, kernels=False, **dev)
+        return vals.cpu().numpy(), b.map_positions(idx.cpu().numpy())
+
+    def plain_approx(q, k=10):
+        vals, idx = approx_topk(q, b.device_vectors, k, recall_target=b.recall_target,
+                                kernels=False, **dev)
+        return vals.cpu().numpy(), b.map_positions(idx.cpu().numpy())
+
+    def as_searched(q: np.ndarray) -> torch.Tensor:
+        """The queries as IndexBuilder.search hands them to its engine."""
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        return torch.from_numpy(q).cuda()
+
+    lib_bad = 0
+    for q, (vals, idx) in zip(batches, library):
+        engine = plain_clustered if q.shape[0] <= CLUSTER_MAX_BATCH else plain_approx
+        want_vals, want_idx = engine(as_searched(q))
+        lib_bad += mismatched(idx, want_idx)
+        check(np.isfinite(vals).all() and np.allclose(vals, want_vals, rtol=1e-6, atol=1e-7),
+              f"library search B={q.shape[0]}: scores differ from the plain engine's")
+        check(((idx >= 0) & (idx < N_ROWS)).all(), f"library search B={q.shape[0]}: bad ids")
+    check(lib_bad == 0, f"library entry: {lib_bad} ids differ from the plain engines'")
+    log(f"[clustered] library entry: B = 1 x 8, 16, 64 (cell probe) and 256 (approx sweep) "
+        f"equal the plain engines: 0 mismatched ids of {sum(len(q) for q in batches) * 10}")
+    probe_report = check_served(served_probe, app_probe.state,
+                                lambda e: plain_clustered(e.float()), "clustered")
+    check(max(probe_report["batch_rows"]) <= CLUSTER_MAX_BATCH, "a served batch exceeded 64")
+    sweep_report = check_served(served_sweep, app_sweep.state,
+                                lambda e: plain_approx(e.float()), "clustered-approx")
+    del app_probe, app_sweep, served_probe, served_sweep
+
+    # with every cell probed the clustered search is the exact search
+    b.nprobe = N_CELLS
+    full_vals, full_idx = b.search(rest[344:348], k=10)
+    b.nprobe = NPROBE
+    ev, ei = cosine_topk(as_searched(rest[344:348]), b.device_vectors, 10, **dev)
+    check(same_topk(torch.from_numpy(full_vals), torch.from_numpy(full_idx),
+                    ev.cpu(), torch.from_numpy(b.map_positions(ei.cpu().numpy())), 1e-6),
+          "clustered search with nprobe = n_cells differs from the exact engine")
+
+    # --- recall and the validation gates -------------------------------------
+    _, exact_idx = cosine_topk(as_searched(q_val), b.device_vectors, 10, **dev)
+    exact_idx = b.map_positions(exact_idx.cpu().numpy())
+    got_idx = np.concatenate([b.search(q_val[i:i + CLUSTER_MAX_BATCH], k=10)[1]
+                              for i in range(0, len(q_val), CLUSTER_MAX_BATCH)])
+    recall = float(np.mean([len(set(exact_idx[i]) & set(got_idx[i])) / 10
+                            for i in range(len(q_val))]))
+    validate_clustered = b.validate(n_queries=1000)["recall@10"]
+    b.index_type = "approx"  # the same rows, swept
+    try:
+        validate_approx = b.validate(n_queries=1000)["recall@10"]
+        _, approx_idx = b.search(q_val, k=10)
+    finally:
+        b.index_type = "clustered"
+    approx_recall = float(np.mean([len(set(exact_idx[i]) & set(approx_idx[i])) / 10
+                                   for i in range(len(q_val))]))
+    log(f"[clustered] recall@10 vs exact search over the same int8 rows, 1000 topical queries: "
+        f"clustered nprobe {NPROBE} = {recall:.4f}, approx = {approx_recall:.4f}; validate(): "
+        f"clustered {validate_clustered:.4f}, approx {validate_approx:.4f}")
+    check(recall >= 0.90, f"clustered recall@10 {recall} < 0.90")
+    check(validate_approx >= 0.97, f"approx validate() recall@10 {validate_approx} < 0.97")
+
+    # --- ms per search, engine only, on this corpus --------------------------
+    table, parts = {}, {}
+    for B in (1, 16, 64):
+        sets = [torch.from_numpy(q_val[i * B:(i + 1) * B]).cuda() for i in range(8)]
+        engines = {
+            "clustered": lambda q: clustered_topk(q, b.device_vectors, b.device_centroids, 10,
+                                                  b.nprobe, b._rows_per_cell, **dev),
+            "approx": lambda q: cosine_topk(q, b.device_vectors, 10, method="approx",
+                                            recall_target=b.recall_target, **dev),
+            "exact": lambda q: cosine_topk(q, b.device_vectors, 10, **dev),
+        }
+        table[f"B={B}"] = {name: time_ms(rotating(fn, [(q,) for q in sets]), 24, 4)
+                           for name, fn in engines.items()}
+        # the card's own time per search (all kernels, from the profiler): what is
+        # left of the eager host pace above once the launches cost nothing
+        table[f"B={B}"].update({
+            name + "_device": kernel_device_ms(rotating(fn, [(q,) for q in sets]), "")
+            for name, fn in engines.items()})
+        parts[f"B={B}"] = clustered_parts_ms(b, sets)
+        parts[f"B={B}"]["distinct_cells"] = float(
+            np.mean([torch.unique(probed_cells(b, q)).numel() for q in sets]))
+        log(f"[clustered] engine ms B={B}: {json.dumps(table[f'B={B}'])}; clustered steps: "
+            f"{json.dumps(parts[f'B={B}'])}")
+    return {
+        "rows": N_ROWS, "cells": [N_CELLS, CELL_ROWS], "nprobe": NPROBE,
+        "build_seconds_host": build_s, "save_load_seconds": save_load_s,
+        "library_mismatched_ids": lib_bad, "served_cell_probe": probe_report,
+        "served_approx": sweep_report, "cell_gather_launches_served": probe_launches,
+        "recall_at_10_clustered_vs_exact": recall, "recall_at_10_approx_vs_exact": approx_recall,
+        "validate_clustered": validate_clustered, "validate_approx": validate_approx,
+        "engine_ms": table, "clustered_steps_ms": parts,
+        "peak_device_gib": peak_gib, "launches": counts,
+    }
+
+
+def probed_cells(b, q: torch.Tensor) -> torch.Tensor:
+    """The cells that clustered_topk probes for ``q``."""
+    from sskd_tpu_torch.ops.topk_kernels import topk_stable
+
+    nprobe = min(b.nprobe, b.device_centroids.shape[0])
+    return topk_stable(q @ b.device_centroids.T, nprobe)[1]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1177,21 +1734,26 @@ def main(argv=None) -> int:
     record: dict = {"seed": args.seed, "nvidia_smi": smi}
     record["build"] = phase_build()
     t0 = time.perf_counter()
-    topk_rows, main_binmax, main_gather = phase_topk(gen, N_ROWS)
+    topk_rows, main_binmax, main_gather, main_strided = phase_topk(gen, N_ROWS)
     flash_rows, main_flash = phase_flash(gen)
     dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
+    cell_rows, main_cells, main_cells_b1 = phase_cells(gen)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
-    record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows
+    record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows
     t0 = time.perf_counter()
     record["serve"] = phase_serve(args, gen)
     log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["train"] = phase_train(args)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["clustered"] = phase_clustered(args)
+    log(f"[clustered] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
 
     serve_launches = record["serve"]["launches"]
     train_launches = record["train"]["launches"]
+    cluster_launches = record["clustered"]["launches"]
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
@@ -1204,7 +1766,16 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/attention.py:266", main_dfwd, train_launches),
         ("dropattn_bwd", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
          "sskd_tpu/ops/attention.py:296", main_dbwd, train_launches),
+        # the second kernel of binmax.cu: the approx engine's pass, in place of the binned
+        # reduction that XLA fuses for lax.approx_max_k (no Pallas kernel on the TPU side)
+        ("binmax_strided", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk.py:282",
+         main_strided, cluster_launches),
+        ("cell_gather", "sskd_tpu_torch/csrc/cell_gather.cu",
+         "sskd_tpu/ops/topk_cluster.py:248", main_cells, cluster_launches),
+        ("cell_gather_b1", "sskd_tpu_torch/csrc/cell_gather.cu",
+         "sskd_tpu/ops/topk_cluster.py:291", main_cells_b1, cluster_launches),
     ):
+        check(launches[name] > 0, f"kernel {name} was launched no time on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": entry["max_abs_err"],

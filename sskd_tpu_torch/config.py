@@ -5,17 +5,19 @@ has neither pydantic nor pyyaml). The sections the port reads keep the JAX
 package's field names, defaults and bounds: ``student``, ``index``,
 ``search``, ``service``, ``precision``, ``cors`` and ``monitoring`` for
 serving, ``loss``, ``training`` and the ANCE fields of ``mining`` for KD
-training, each with only the fields the port reads (``index.search_method``
-selects the engine a preloaded index is served with). Sections and fields
+training, each with only the fields the port reads. Sections and fields
 that later slices need (teacher, the other mining stages, rate limiting,
-auth, cache, hybrid, the index layout knobs) are not here yet; a ``mesh``
+auth, cache, hybrid, the index's refine fields) are not here yet; a ``mesh``
 section raises, as data-parallel training is not ported.
 
 Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
 for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
 environment variables through :meth:`Settings.from_env` (values parsed as
 JSON when they parse, else kept as strings). A value outside its bounds or
-an unknown section or field raises :class:`ConfigError`.
+an unknown section or field raises :class:`ConfigError`. ``Settings``
+remembers which fields ``from_dict`` / ``from_env`` were given
+(:meth:`Settings.is_set`, the stand-in for pydantic's ``model_fields_set``):
+serving lets an explicit ``index.nprobe`` override a loaded index's own.
 """
 
 from __future__ import annotations
@@ -64,10 +66,26 @@ class StudentModelConfig:
 
 @dataclass
 class IndexConfig:
+    """The JAX package's IndexConfig without its refine fields. These are
+    build-time settings: a loaded index is served as it was recorded, except
+    for an explicitly set ``nprobe`` (see ``serve/app.py``)."""
+
     search_method: str = "approx"
+    recall_target: float = 0.99
+    block_rows: int = 262144
+    cluster_rows: int = 0  # 0 = auto (about sqrt(N))
+    nprobe: int = 64
+    validation_queries: int = 1000
+    validation_recall_at_10: float = 0.97
 
     def __post_init__(self):
         _check(self, "search_method", choices=("exact", "approx", "clustered"))
+        _check(self, "recall_target", ge=0.5, le=1.0, kind=_NUM)
+        _check(self, "block_rows", ge=128, kind=_INT)
+        _check(self, "cluster_rows", ge=0, kind=_INT)
+        _check(self, "nprobe", ge=1, kind=_INT)
+        _check(self, "validation_queries", ge=1, kind=_INT)
+        _check(self, "validation_recall_at_10", ge=0.0, le=1.0, kind=_NUM)
 
 
 @dataclass
@@ -230,15 +248,24 @@ class Settings:
     loss: LossConfig = field(default_factory=LossConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     mining: MiningConfig = field(default_factory=MiningConfig)
+    # the (section, field) names that from_dict / from_env were given
+    fields_set: frozenset = field(default_factory=frozenset, compare=False, repr=False)
 
     def to_dict(self) -> dict[str, Any]:
-        return asdict(self)
+        return {s: asdict(getattr(self, s)) for s in _SECTIONS}
+
+    def is_set(self, section: str, name: str) -> bool:
+        """Whether ``section.name`` was given explicitly (by ``from_dict`` or
+        ``from_env``, here or in ``base``) rather than left at its default."""
+        return (section, name) in self.fields_set
 
     @classmethod
     def from_dict(cls, data: dict[str, Any], base: "Settings | None" = None) -> "Settings":
         """Settings from a nested ``{section: {field: value}}`` tree, on top
         of ``base`` (or the defaults)."""
-        merged = (base or cls()).to_dict()
+        base = base or cls()
+        merged = base.to_dict()
+        given = set(base.fields_set)
         for section, values in data.items():
             if section == "mesh":
                 raise ConfigError(
@@ -254,7 +281,10 @@ class Settings:
                 if name not in known:
                     raise ConfigError(f"unknown config field {section}.{name}")
                 merged[section][name] = value
-        return cls(**{s: _SECTIONS[s](**merged[s]) for s in _SECTIONS})
+                given.add((section, name))
+        return cls(
+            **{s: _SECTIONS[s](**merged[s]) for s in _SECTIONS}, fields_set=frozenset(given)
+        )
 
     @classmethod
     def from_env(cls, base: "Settings | None" = None, environ=None) -> "Settings":

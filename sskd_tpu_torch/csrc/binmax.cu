@@ -23,6 +23,21 @@
 // max over 32 rows, and four partial maxima per query meet in shared memory.
 // A ragged last bin is handled in the kernel (rows >= N are zero-filled and
 // masked), so the corpus needs no padding.
+//
+// binmax_strided_kernel (sskd_binmax_strided) is the approx engine's pass. It
+// stands in for the binned reduction of lax.approx_max_k (sskd_tpu/ops/topk.py
+// _approx_topk), which XLA fuses into the matmul on the TPU. It returns the
+// maximum AND the row that holds it, for bins whose rows lie far apart: with G
+// blocks, block j walks the 128-row tiles j, j + G, j + 2G, ... and thread t
+// keeps the best of its own rows, so bin (j, t) holds the rows (j + i G) * 128 + t.
+// A top-k over such bins loses a result only when two of a query's top k share a
+// bin, and near neighbours are often stored side by side (the chunks of one
+// document; the cells of a clustered index, where bins of contiguous rows read
+// recall@10 0.68 against exact search over 1,000,000 cell-ordered int8 rows in
+// chip_smoke.py's clustered phase): rows G * 128 apart are not. No shuffle and no
+// shared reduction is needed, the lowest row wins a tie because a later row replaces
+// the best only when it is strictly greater, and the same byte bound holds
+// (the corpus once, plus G * 128 * B * 8 bytes of output).
 
 #include "bin_dot.cuh"
 
@@ -67,6 +82,67 @@ __global__ void __launch_bounds__(BIN_W) binmax_kernel(
 }
 
 template <int MODE, int QT>
+__global__ void __launch_bounds__(BIN_W) binmax_strided_kernel(
+    const uint32_t* __restrict__ q, const uint32_t* __restrict__ corpus,
+    const float* __restrict__ scales, float* __restrict__ out, int* __restrict__ arg,
+    int B, long n_rows, int row_words, long valid_n) {
+  __shared__ __align__(16) uint32_t s_rows[BIN_W * RS];
+  __shared__ __align__(16) uint32_t s_q[QT * QWords<MODE>::value];
+
+  const int tid = threadIdx.x;
+  const long n_tiles = (n_rows + BIN_W - 1) / BIN_W;
+  const long bin = (long)blockIdx.x * BIN_W + tid;
+
+  for (int q0 = 0; q0 < B; q0 += QT) {
+    const int nq = min(QT, B - q0);
+    float best[QT];
+    int best_tile[QT];
+#pragma unroll
+    for (int j = 0; j < QT; ++j) { best[j] = NEG_INF; best_tile[j] = (int)blockIdx.x; }
+    for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long row0 = tile * BIN_W;
+      const long row = row0 + tid;
+      const float scale = (scales != nullptr && row < n_rows) ? scales[row] : 1.0f;
+      const bool live = row < valid_n;
+      typename AccT<MODE>::type acc[QT];
+      bin_dot<MODE, QT>(acc, q, q0, nq, corpus, row0, n_rows, row_words, s_rows, s_q);
+#pragma unroll
+      for (int j = 0; j < QT; ++j) {
+        const float s = live ? (float)acc[j] * scale : NEG_INF;
+        if (s > best[j]) { best[j] = s; best_tile[j] = (int)tile; }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      if (j < nq) {
+        out[bin * B + q0 + j] = best[j];
+        arg[bin * B + q0 + j] = best_tile[j] * BIN_W + tid;
+      }
+    }
+  }
+}
+
+template <int MODE>
+static void launch_strided(const void* q, const void* corpus, const float* scales, float* out,
+                           int* arg, int B, long n_rows, int row_words, long valid_n, int blocks,
+                           cudaStream_t stream) {
+  const uint32_t* qw = (const uint32_t*)q;
+  const uint32_t* cw = (const uint32_t*)corpus;
+  if (B == 1)
+    binmax_strided_kernel<MODE, 1><<<blocks, BIN_W, 0, stream>>>(
+        qw, cw, scales, out, arg, B, n_rows, row_words, valid_n);
+  else if (B <= 4)
+    binmax_strided_kernel<MODE, 4><<<blocks, BIN_W, 0, stream>>>(
+        qw, cw, scales, out, arg, B, n_rows, row_words, valid_n);
+  else if (B <= 16)
+    binmax_strided_kernel<MODE, 16><<<blocks, BIN_W, 0, stream>>>(
+        qw, cw, scales, out, arg, B, n_rows, row_words, valid_n);
+  else
+    binmax_strided_kernel<MODE, 32><<<blocks, BIN_W, 0, stream>>>(
+        qw, cw, scales, out, arg, B, n_rows, row_words, valid_n);
+}
+
+template <int MODE, int QT>
 static void launch(const void* q, const void* corpus, const float* scales, float* out,
                    int B, long n_rows, int row_words, long valid_n, cudaStream_t stream) {
   const long n_bins = (n_rows + BIN_W - 1) / BIN_W;
@@ -98,6 +174,24 @@ extern "C" int sskd_binmax(int mode, const void* q, const void* corpus, const fl
   if (mode == F32) launch_mode<F32>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
   else if (mode == I8) launch_mode<I8>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
   else if (mode == I4) launch_mode<I4>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The approx engine's pass. Arguments as sskd_binmax, and: arg [blocks * 128, B] int32, the
+// row of each bin's maximum (a bin of no valid row: NEG_INF and its first row); out has the
+// same shape; blocks in [1, ceil(n_rows / 128)]; n_rows + 128 < 2^31.
+extern "C" int sskd_binmax_strided(int mode, const void* q, const void* corpus,
+                                   const float* scales, float* out, int* arg, int B,
+                                   long n_rows, int row_words, long valid_n, int blocks,
+                                   void* stream) {
+  using namespace sskd;
+  if (n_rows <= 0 || B <= 0 || arg == nullptr || n_rows + BIN_W > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  if (blocks < 1 || blocks > (n_rows + BIN_W - 1) / BIN_W) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == F32) launch_strided<F32>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
+  else if (mode == I8) launch_strided<I8>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
+  else if (mode == I4) launch_strided<I4>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Exact vector index on the device (port of sskd_tpu/index/builder.py).
+"""Vector index on the device (port of sskd_tpu/index/builder.py).
 
 The on-disk layout is the JAX package's, byte for byte, so either package
 loads what the other saved::
@@ -13,13 +13,16 @@ loads what the other saved::
       texts.json         — optional doc texts for serving
       perm.npy, centroids.npy — clustered indexes only
 
-What this slice serves: ``index_type="exact"`` over float32, int8 or int4
-rows (:func:`sskd_tpu_torch.ops.topk.cosine_topk`). ``load`` accepts every
-``index_type`` a saved index records and keeps it; searching an ``approx``
-or ``clustered`` index raises ``NotImplementedError`` until those engines
-are ported. Building clustered, bfloat16 or refined (``refine_m > 0``)
-indexes needs the later slices too and raises here. Unlike the TPU path,
-the device copy of the rows is not padded: the kernels mask a ragged tail.
+``index_type``: ``"exact"`` and ``"approx"`` over float32, int8 or int4 rows
+(:func:`sskd_tpu_torch.ops.topk.cosine_topk`), and ``"clustered"`` over
+float32 or int8 rows stored cell by cell with their permutation and centroids
+(:func:`sskd_tpu_torch.ops.topk_cluster.clustered_topk` up to
+``CLUSTER_MAX_BATCH`` queries, the approx sweep over the reordered rows above
+that, as the JAX package dispatches). What still raises: bfloat16 rows and
+refine rows (``refine_m > 0``), at build and at load. Unlike the TPU path, the
+device copy of the rows is padded only for a clustered index, to whole cells
+(zero rows with scale 1.0, masked by their position): the kernels mask a
+ragged tail themselves.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import torch
 from sskd_tpu_torch.exceptions import IndexBuildError, IndexLoadError, IndexVersionError
 from sskd_tpu_torch.ops.quant import dequantize_rows, dequantize_rows_int4
 from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
+from sskd_tpu_torch.ops.cluster import auto_cells, build_clusters
 from sskd_tpu_torch.ops.topk import cosine_topk, cosine_topk_core
+from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.platform import resolve_device
 
@@ -54,7 +59,7 @@ def _ids_sha256(doc_ids: list[str]) -> str:
 
 
 class IndexBuilder:
-    """Exact cosine/dot top-k index over a device-resident matrix."""
+    """Cosine/dot top-k index over a device-resident matrix."""
 
     def __init__(
         self,
@@ -64,22 +69,33 @@ class IndexBuilder:
         dtype: str = "float32",
         block_rows: int = 262144,
         recall_target: float = 0.99,
+        cluster_rows: int = 0,
+        nprobe: int = 64,
         device: str | torch.device | None = "cuda",
     ):
+        """``cluster_rows``: target rows per cell of a clustered index (0 =
+        auto, about sqrt(N)); ``nprobe``: cells probed per query, a
+        query-time knob that ``save`` records and ``load`` restores."""
         if metric not in ("cosine", "dot"):
             raise IndexBuildError(f"unsupported metric {metric!r}")
         if dtype not in ("float32", "bfloat16", "int8", "int4"):
             raise IndexBuildError(f"unsupported index dtype {dtype!r}")
         if index_type not in ("exact", "approx", "clustered"):
             raise IndexBuildError(f"unsupported index_type {index_type!r}")
+        if dtype == "int4" and index_type == "clustered":
+            raise IndexBuildError(
+                "int4 storage is not supported with the clustered engine "
+                "(the cell-gather kernels read unpacked rows)"
+            )
         self.embedding_dim = embedding_dim
         self.index_type = index_type
         self.metric = metric
         self.dtype = dtype
         self.block_rows = block_rows
         self.recall_target = recall_target
+        self.cluster_rows = cluster_rows
+        self.nprobe = nprobe
         self.device = resolve_device(device)
-        self.nprobe = 0
         self.doc_ids: list[str] = []
         self.texts: list[str] | None = None
         self._vectors: np.ndarray | None = None
@@ -90,6 +106,7 @@ class IndexBuilder:
         self._rows_per_cell = 0
         self.device_vectors: torch.Tensor | None = None  # placed by ensure_device
         self.device_scales: torch.Tensor | None = None
+        self.device_centroids: torch.Tensor | None = None
 
     @property
     def ntotal(self) -> int:
@@ -111,10 +128,8 @@ class IndexBuilder:
     ) -> "IndexBuilder":
         """Build from precomputed embeddings [N, D]. Quantization runs on
         the builder's device."""
-        if self.index_type == "clustered" or self.dtype == "bfloat16":
-            raise IndexBuildError(
-                "clustered and bfloat16 indexes are not ported yet (ROADMAP Queue 1)"
-            )
+        if self.dtype == "bfloat16":
+            raise IndexBuildError("bfloat16 indexes are not ported yet (ROADMAP Queue 1)")
         emb = np.asarray(embeddings, dtype=np.float32)
         if emb.ndim != 2 or emb.shape[1] != self.embedding_dim:
             raise IndexBuildError(f"embeddings shape {emb.shape} != [N, {self.embedding_dim}]")
@@ -123,7 +138,14 @@ class IndexBuilder:
         norms = np.linalg.norm(emb, axis=1)
         if self.metric == "cosine":
             emb = emb / np.maximum(norms[:, None], 1e-12)
-        self._norms = norms.astype(np.float32)
+        self._norms = norms.astype(np.float32)  # original row order
+        if self.index_type == "clustered":
+            n_cells, rpc = auto_cells(emb.shape[0], self.cluster_rows)
+            self._perm, self._centroids = build_clusters(emb, n_cells, rpc)
+            self._rows_per_cell = rpc
+            emb = emb[self._perm]  # cell-contiguous storage
+        else:
+            self._perm, self._centroids, self._rows_per_cell = None, None, 0
         if self.dtype in ("int8", "int4"):
             quantize = quantize_rows if self.dtype == "int8" else quantize_rows_int4
             values, scales = quantize(torch.from_numpy(emb).to(self.device))
@@ -246,23 +268,33 @@ class IndexBuilder:
         """Raise unless this slice of the port can search the index."""
         if not self.is_built:
             raise IndexLoadError("index not built/loaded")
-        if self.index_type != "exact":
-            raise NotImplementedError(
-                f"index_type {self.index_type!r} is not ported yet (ROADMAP Queue 1); "
-                "set index_type='exact' to search this index exactly"
-            )
         if self.dtype not in SEARCH_DTYPES:
             raise NotImplementedError(f"dtype {self.dtype!r} search is not ported yet")
+        if self.index_type == "clustered" and (self._perm is None or self.dtype == "int4"):
+            raise IndexLoadError("a clustered index needs its cell layout and unpacked rows")
 
     def ensure_device(self) -> None:
-        """Copy the rows (and scales) to the builder's device once."""
+        """Copy the rows (and scales, and centroids) to the index's device
+        once. The rows of a cell-reordered index are padded to ``n_cells *
+        rows_per_cell`` with zero rows of scale 1.0, so that the last cell is
+        whole; searches mask positions ``>= ntotal``."""
         if self.device_vectors is None:
-            self.device_vectors = torch.from_numpy(self._vectors).to(self.device)
-            self.device_scales = (
+            vec = torch.from_numpy(self._vectors).to(self.device)
+            scales = (
                 torch.from_numpy(self._scales).to(self.device)
                 if self._scales is not None
                 else None
             )
+            if self._perm is not None:
+                pad = self._centroids.shape[0] * self._rows_per_cell - vec.shape[0]
+                if pad > 0:
+                    vec = torch.cat([vec, vec.new_zeros((pad, vec.shape[1]))])
+                    if scales is not None:
+                        scales = torch.cat([scales, scales.new_ones(pad)])
+                self.device_centroids = torch.from_numpy(self._centroids).to(self.device)
+            else:
+                self.device_centroids = None
+            self.device_vectors, self.device_scales = vec, scales
 
     def search(self, query_emb: np.ndarray, k: int = 10):
         """Top-k search. ``query_emb`` [B, D] (or [D]); returns (scores [B, k],
@@ -276,16 +308,33 @@ class IndexBuilder:
         if self.metric == "cosine":
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         self.ensure_device()
-        vals, idx = cosine_topk(
-            torch.from_numpy(q).to(self.device),
-            self.device_vectors,
-            k=k,
-            block_rows=min(self.block_rows, max(128, self.ntotal)),
-            row_scales=self.device_scales,
-            valid_n=self.ntotal,
-            method=self.index_type,
-        )
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        q_dev = torch.from_numpy(q).to(self.device)
+        if self.index_type == "clustered" and q.shape[0] <= CLUSTER_MAX_BATCH:
+            vals, idx = clustered_topk(
+                q_dev,
+                self.device_vectors,
+                self.device_centroids,
+                k=k,
+                nprobe=self.nprobe,
+                rows_per_cell=self._rows_per_cell,
+                row_scales=self.device_scales,
+                valid_n=self.ntotal,
+            )
+        else:
+            # a clustered index above CLUSTER_MAX_BATCH queries: the probes'
+            # union nears the whole corpus, so the approx sweep over the
+            # reordered rows answers (the JAX package's dispatch)
+            vals, idx = cosine_topk(
+                q_dev,
+                self.device_vectors,
+                k=k,
+                block_rows=min(self.block_rows, max(128, self.ntotal)),
+                row_scales=self.device_scales,
+                valid_n=self.ntotal,
+                method="approx" if self.index_type == "clustered" else self.index_type,
+                recall_target=self.recall_target,
+            )
+        return vals.cpu().numpy(), self.map_positions(idx.cpu().numpy())
 
     def map_positions(self, idx: np.ndarray) -> np.ndarray:
         """Engine positions -> original row positions (identity unless the
@@ -310,23 +359,31 @@ class IndexBuilder:
         """Build-time recall gate (the JAX package's recipe): recall@k of the
         index's search against exact f32 search over the dequantized rows,
         for ``n_queries`` probes made of corpus rows plus N(0, 0.05) noise.
-        Both searches run on the builder's device."""
+        Both searches run on the index's device. A clustered index is
+        probed ``CLUSTER_MAX_BATCH`` queries at a time, so that the gate
+        measures the cell-probe path and not the large-batch sweep."""
         self.check_searchable()
         rng = np.random.default_rng(seed)
         n = min(n_queries, self.ntotal)
         probe_rows = rng.choice(self.ntotal, size=n, replace=False)
         self.ensure_device()
+        rows = self.device_vectors[: self.ntotal]  # without a clustered index's padding
+        scales = self.device_scales[: self.ntotal] if self.device_scales is not None else None
         if self.dtype == "int8":
-            full = dequantize_rows(self.device_vectors, self.device_scales)
+            full = dequantize_rows(rows, scales)
         elif self.dtype == "int4":
-            full = dequantize_rows_int4(self.device_vectors, self.device_scales)
+            full = dequantize_rows_int4(rows, scales)
         else:
-            full = self.device_vectors
+            full = rows
         noise = torch.from_numpy(rng.normal(0, 0.05, (n, self.embedding_dim)).astype(np.float32))
         queries = full[torch.from_numpy(probe_rows).to(self.device)] + noise.to(self.device)
         queries = queries / queries.norm(dim=1, keepdim=True).clamp(min=1e-12)
         _, gt_top = cosine_topk_core(queries, full, k)
-        _, idx = self.search(queries.cpu().numpy(), k=k)
-        gt_top = gt_top.cpu().numpy()
+        gt_top = self.map_positions(gt_top.cpu().numpy())
+        queries = queries.cpu().numpy()
+        step = CLUSTER_MAX_BATCH if self.index_type == "clustered" else max(n, 1)
+        idx = np.concatenate(
+            [self.search(queries[i : i + step], k=k)[1] for i in range(0, n, step)]
+        )
         recall = float(np.mean([len(set(gt_top[i]) & set(idx[i])) / k for i in range(n)]))
         return {"recall@%d" % k: recall, "n_queries": float(n)}

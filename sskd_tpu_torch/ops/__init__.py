@@ -12,7 +12,8 @@ from __future__ import annotations
 def kernel_wrappers() -> dict:
     """Kernel name -> wrapper function."""
     from sskd_tpu_torch.ops.attention import dropattn_bwd, dropattn_fwd, flash_attention
-    from sskd_tpu_torch.ops.topk_kernels import bin_gather, binmax
+    from sskd_tpu_torch.ops.topk_cluster import cell_gather, cell_gather_b1
+    from sskd_tpu_torch.ops.topk_kernels import bin_gather, binmax, binmax_strided
 
     return {
         "binmax": binmax,
@@ -20,6 +21,9 @@ def kernel_wrappers() -> dict:
         "flash_attn_fwd": flash_attention,
         "dropattn_fwd": dropattn_fwd,
         "dropattn_bwd": dropattn_bwd,
+        "binmax_strided": binmax_strided,
+        "cell_gather": cell_gather,
+        "cell_gather_b1": cell_gather_b1,
     }
 
 

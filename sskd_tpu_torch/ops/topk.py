@@ -1,7 +1,7 @@
-"""Exact cosine/dot top-k over a device-resident corpus (port of
-sskd_tpu/ops/topk.py, its exact engines).
+"""Cosine/dot top-k over a device-resident corpus (port of
+sskd_tpu/ops/topk.py, its exact and approx engines).
 
-Two engines, one contract: ``(scores [B, k] f32, indices [B, k] int32)``,
+Three engines, one contract: ``(scores [B, k] f32, indices [B, k] int32)``,
 missing results ``(finfo(f32).min / 2, -1)``, rows ``>= valid_n`` never
 returned, ties broken toward the lower row.
 
@@ -10,12 +10,24 @@ returned, ties broken toward the lower row.
 - The blocked plain engine (:func:`cosine_topk_core`): ``torch.matmul`` per
   block of rows, ``torch.topk`` per block, one merge. It serves the CPU and
   the shapes the gate turns away, as the JAX package leaves those to XLA.
-
-The approx engine (``method="approx"``) is not ported yet: it raises
-``NotImplementedError`` and never falls back to exact in silence.
+- The approx engine (:func:`approx_topk`, ``method="approx"``), which stands
+  in for ``lax.approx_max_k``: that operation folds a query's scores into L
+  bins, keeps each bin's maximum and its position, and takes an exact top-k
+  over the bins, losing a result only where two of the top k share a bin.
+  Here one pass over the corpus (``binmax_strided``) gives the maximum and
+  its row for bins whose rows lie far apart, so that near neighbours stored
+  side by side do not share one; the bins are folded to the number the
+  recall target asks for, a top-k over them is the answer, and neither
+  ``bin_gather`` nor a second pass runs. XLA sizes L from the recall target,
+  at least about ``(k - 1) / -ln(recall_target)`` bins, and does not reduce
+  a row shorter than that. Here a corpus of fewer 128-row tiles than that
+  number of bins (or ``recall_target`` 1.0) goes to the exact engine: the
+  reduction would save it no pass worth the lost results.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,14 +36,11 @@ from sskd_tpu_torch.ops.topk_kernels import (
     BIN_W,
     K_MAX,
     NEG_INF,
+    binmax_strided,
+    binmax_strided_plain,
     cosine_topk_kernels,
+    quantize_queries,
     topk_stable,
-)
-
-APPROX_NOT_PORTED = (
-    "method='approx' is not ported yet (ROADMAP Queue 1, 'approx engine': a "
-    "bin-max with per-bin argmax standing in for lax.approx_max_k); use "
-    "method='exact'"
 )
 
 
@@ -42,11 +51,21 @@ def cosine_topk_core(
     block_rows: int = 262144,
     row_scales: torch.Tensor | None = None,
     valid_n: int | None = None,
+    method: str = "exact",
+    recall_target: float = 0.99,
 ):
-    """Blocked plain exact engine. ``corpus`` [N, D] f32 or int8, or [N, D/2]
-    uint8 packed int4 (unpacked here, as the JAX package does off the
-    kernel path). For int8 / int4 the queries are quantized per row and the
-    integer dot is taken exactly, then ``* q_scale * row_scale``."""
+    """The plain engines. ``exact``: blocked matmul and top-k. ``corpus``
+    [N, D] f32 or int8, or [N, D/2] uint8 packed int4 (unpacked here, as the
+    JAX package does off the kernel path). For int8 / int4 the queries are
+    quantized per row and the integer dot is taken exactly, then ``* q_scale
+    * row_scale``. ``approx``: :func:`approx_topk` over ``binmax_strided_plain``."""
+    if method == "approx":
+        return approx_topk(
+            queries, corpus, k, row_scales=row_scales, valid_n=valid_n,
+            recall_target=recall_target, kernels=False,
+        )
+    if method != "exact":
+        raise ValueError(f"unknown method {method!r}")
     if corpus.dtype == torch.uint8:
         if row_scales is None:
             raise ValueError("packed int4 corpus requires row_scales")
@@ -102,6 +121,88 @@ def kernel_exact_ok(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> bool
     )
 
 
+# Blocks of the strided pass: four for each of the H100's 132 SMs, eight up to
+# 16 queries. More blocks hide more latency at a small batch; at a large one
+# their output (blocks * 128 * B * 8 bytes before the fold) costs more than the
+# hidden latency saves (chip_smoke times the pass at both counts).
+APPROX_BLOCKS = 528
+APPROX_SMALL_BATCH = 16
+
+
+def approx_blocks(batch: int, groups: int, n_tiles: int) -> int:
+    """Blocks of the strided pass: a multiple of ``groups`` under the cap."""
+    cap = APPROX_BLOCKS * (2 if batch <= APPROX_SMALL_BATCH else 1)
+    return groups * max(1, min(cap, n_tiles) // groups)
+
+
+def approx_min_bins(k: int, recall_target: float) -> float:
+    """Fewest bins at which the approx engine reduces: with L bins the chance
+    that a given one of the top k shares its bin with another is about
+    ``(k - 1) / L``, so the expected recall is about ``exp(-(k - 1) / L)``."""
+    if recall_target >= 1.0:
+        return math.inf
+    return (k - 1) / -math.log(recall_target)
+
+
+def approx_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    row_scales: torch.Tensor | None = None,
+    valid_n: int | None = None,
+    recall_target: float = 0.99,
+    kernels: bool | None = None,
+):
+    """Approximate top-k in one pass. The bins the answer is taken from are
+    ``groups * 128`` in number, ``groups`` the fewest that give
+    :func:`approx_min_bins` bins: bin ``(g, t)`` holds the rows ``(g + i *
+    groups) * 128 + t``. The pass itself runs ``groups * fold`` blocks, to
+    fill the card, and its bins are folded ``fold`` to one afterwards. A
+    corpus of fewer 128-row tiles than :func:`approx_min_bins` is answered
+    by the exact engine.
+
+    ``kernels``: True runs the ``binmax_strided`` kernel (and the exact
+    kernel engine below the threshold), False the plain versions; None (the
+    default) takes the kernels where :func:`kernel_exact_ok` holds. The
+    plain pass scores a chunk of rows at a time, so no f32 copy of a
+    quantized corpus is ever held."""
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target {recall_target} outside (0, 1]")
+    if kernels is None:
+        kernels = kernel_exact_ok(queries, corpus, k)
+    if corpus.dtype != torch.float32 and row_scales is None:
+        raise ValueError("an int8 or int4 corpus requires row_scales")
+    B = queries.shape[0]
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    k_eff = max(1, min(k, n))
+    n_tiles = (n + BIN_W - 1) // BIN_W
+    need = max(k_eff, approx_min_bins(k_eff, recall_target))
+    if n_tiles < need:  # also recall_target 1.0
+        exact = cosine_topk_kernels if kernels else cosine_topk_core
+        return exact(queries, corpus, k, row_scales=row_scales, valid_n=valid_n)
+    groups = math.ceil(need / BIN_W)
+    blocks = approx_blocks(B, groups, n_tiles)
+    fold = blocks // groups
+    q_in, q_scale = quantize_queries(queries, corpus)
+    bin_max, bin_row = (binmax_strided if kernels else binmax_strided_plain)(
+        q_in, corpus, row_scales, valid_n, blocks
+    )  # [fold * groups * 128, B] each; block j = i * groups + g folds into group g
+    bin_max, part = bin_max.view(fold, groups * BIN_W, B).max(dim=0)  # the first on a tie
+    bin_row = torch.gather(bin_row.view(fold, groups * BIN_W, B), 0, part[None])[0]
+    vals, bins = topk_stable(bin_max.T, k_eff)  # [B, k_eff]
+    idx = torch.gather(bin_row.T, 1, bins)
+    live = vals > NEG_INF / 2  # a bin of no valid row holds the sentinel
+    if q_scale is not None:
+        vals = vals * q_scale[:, None]
+    vals = torch.where(live, vals, NEG_INF)
+    idx = torch.where(live, idx, -1)
+    if k_eff < k:  # pad out to the requested k
+        vals = torch.cat([vals, vals.new_full((B, k - k_eff), NEG_INF)], dim=1)
+        idx = torch.cat([idx, idx.new_full((B, k - k_eff), -1)], dim=1)
+    return vals, idx
+
+
 def cosine_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -110,12 +211,18 @@ def cosine_topk(
     row_scales: torch.Tensor | None = None,
     valid_n: int | None = None,
     method: str = "exact",
+    recall_target: float = 0.99,
 ):
     """Top-k by ``queries @ corpus.T`` (cosine when both sides are
-    L2-normalized, which the index builder guarantees). ``method`` must be
-    ``"exact"``; see the module docstring for the engines."""
+    L2-normalized, which the index builder guarantees). ``method``:
+    ``"exact"`` or ``"approx"`` (with its ``recall_target``); see the module
+    docstring for the engines. ``block_rows`` sizes the blocked plain exact
+    engine only: the approx pass holds no score tile to bound."""
     if method == "approx":
-        raise NotImplementedError(APPROX_NOT_PORTED)
+        return approx_topk(
+            queries, corpus, k, row_scales=row_scales, valid_n=valid_n,
+            recall_target=recall_target,
+        )
     if method != "exact":
         raise ValueError(f"unknown method {method!r}")
     if kernel_exact_ok(queries, corpus, k):

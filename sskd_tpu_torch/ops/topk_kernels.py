@@ -9,6 +9,10 @@ each chosen bin, ``[B, kb, 128]``; a final top-k over those candidates is the
 exact answer, because every one of a query's top-k rows lies in a bin whose
 maximum is at least the k-th score, and at most k bins hold them.
 
+The approx engine (:func:`sskd_tpu_torch.ops.topk.approx_topk`) needs one
+pass only, ``binmax_strided`` (the second kernel of csrc/binmax.cu): the
+maximum and the row that holds it, for bins whose rows lie far apart.
+
 Each kernel wrapper launches its kernel on a CUDA tensor and counts the
 launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
 plain torch version (``binmax_plain``, ``bin_gather_plain``), which repeats
@@ -20,6 +24,7 @@ the kernel's arithmetic. Results follow the JAX engine's contract:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -106,9 +111,8 @@ def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.T
     _check_cuda(q_in, corpus, row_scales)
     B = q_in.shape[0]
     out = torch.empty(((n + BIN_W - 1) // BIN_W, B), dtype=torch.float32, device=corpus.device)
-    lib = _lib("binmax")
     _build.check(
-        lib.sskd_binmax(
+        _fn("binmax", "sskd_binmax")(
             mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
             B, n, row_words, valid_n, _stream(corpus.device),
         ),
@@ -129,6 +133,16 @@ def _dense_rows(corpus: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     return block.to(torch.float32)
 
 
+def _scores_block(q, corpus, row_scales, lo, hi, valid_n):
+    """Scaled, masked scores ``[hi - lo, B]`` of rows ``[lo, hi)``: an exact
+    integer dot for int8 / int4, then the row scale, then the mask."""
+    scores = _dense_rows(corpus, lo, hi) @ q.T
+    if row_scales is not None:
+        scores = scores * row_scales[lo:hi, None]
+    rows = torch.arange(lo, hi, device=corpus.device)
+    return torch.where((rows < valid_n)[:, None], scores, NEG_INF)
+
+
 def binmax_plain(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.Tensor:
     """Plain torch version of :func:`binmax` (same arithmetic: an exact
     integer dot for int8 / int4, then the row scale, the mask and the max)."""
@@ -138,16 +152,82 @@ def binmax_plain(q_in, corpus, row_scales=None, valid_n: int | None = None) -> t
     parts = []
     for lo in range(0, n, _PLAIN_ROWS):  # _PLAIN_ROWS is a multiple of BIN_W
         hi = min(n, lo + _PLAIN_ROWS)
-        scores = _dense_rows(corpus, lo, hi) @ q.T  # [R, B]
-        if row_scales is not None:
-            scores = scores * row_scales[lo:hi, None]
-        rows = torch.arange(lo, hi, device=corpus.device)
-        scores = torch.where((rows < valid_n)[:, None], scores, NEG_INF)
+        scores = _scores_block(q, corpus, row_scales, lo, hi, valid_n)
         pad = -(hi - lo) % BIN_W
         if pad:
             scores = torch.cat([scores, scores.new_full((pad, q.shape[0]), NEG_INF)])
         parts.append(scores.view(-1, BIN_W, q.shape[0]).amax(dim=1))
     return torch.cat(parts)
+
+
+def binmax_strided(q_in, corpus, row_scales=None, valid_n: int | None = None,
+                   blocks: int = 1):
+    """``(maxima, rows)``, each ``[blocks * 128, B]`` (f32, int32), of the
+    scores of :func:`binmax` over strided bins: bin ``j * 128 + t`` holds the
+    rows ``(j + i * blocks) * 128 + t`` for i = 0, 1, ..., so a bin's rows lie
+    ``blocks * 128`` apart. ``rows`` names the row of each maximum, the lowest
+    on a tie; a bin of no valid row gives ``NEG_INF`` and its first row."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    mode, row_words = _check_operands(q_in, corpus, row_scales, valid_n)
+    if not 1 <= blocks <= (n + BIN_W - 1) // BIN_W:
+        raise ValueError(f"blocks {blocks} outside [1, {(n + BIN_W - 1) // BIN_W}]")
+    if corpus.device.type == "cpu":
+        return binmax_strided_plain(q_in, corpus, row_scales, valid_n, blocks)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"binmax_strided runs on cuda or cpu, not {corpus.device}")
+    if (row_words * 4) % 16:
+        raise ValueError("binmax_strided needs corpus rows of a multiple of 16 bytes")
+    if n + BIN_W >= 2**31:
+        raise ValueError("binmax_strided returns int32 rows: the corpus must have < 2^31 rows")
+    _check_cuda(q_in, corpus, row_scales)
+    B = q_in.shape[0]
+    out = torch.empty((blocks * BIN_W, B), dtype=torch.float32, device=corpus.device)
+    rows = torch.empty((blocks * BIN_W, B), dtype=torch.int32, device=corpus.device)
+    _build.check(
+        _fn("binmax", "sskd_binmax_strided")(
+            mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out), _ptr(rows),
+            B, n, row_words, valid_n, blocks, _stream(corpus.device),
+        ),
+        "binmax_strided",
+    )
+    binmax_strided.launches += 1
+    return out, rows
+
+
+binmax_strided.launches = 0
+
+
+def binmax_strided_plain(q_in, corpus, row_scales=None, valid_n: int | None = None,
+                         blocks: int = 1):
+    """Plain torch version of :func:`binmax_strided`: the scores a chunk of
+    rows at a time (whole rounds of ``blocks`` tiles), the best of each round
+    with its first row, and a running best that a later round replaces only
+    when it is strictly greater."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    q = q_in.to(torch.float32)
+    B, dev = q.shape[0], corpus.device
+    span = blocks * BIN_W  # rows of one round of tiles
+    rounds = max(1, _PLAIN_ROWS // span)
+    best = torch.full((span, B), NEG_INF, dtype=torch.float32, device=dev)
+    first = torch.arange(span, device=dev)[:, None]  # each bin's first row
+    rows = first.expand(span, B).clone()
+    for lo in range(0, n, rounds * span):
+        hi = min(n, lo + rounds * span)
+        scores = _scores_block(q, corpus, row_scales, lo, hi, valid_n)
+        r = -(-(hi - lo) // span)
+        pad = r * span - (hi - lo)
+        if pad:
+            scores = torch.cat([scores, scores.new_full((pad, B), NEG_INF)])
+        scores = scores.view(r, span, B)
+        top = scores.amax(dim=0)
+        step = torch.arange(r, device=dev)[:, None, None]
+        first_round = torch.where(scores == top, step, r).amin(dim=0)  # [span, B]
+        better = top > best
+        best = torch.where(better, top, best)
+        rows = torch.where(better, lo + first_round * span + first, rows)
+    return best, rows.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +256,8 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
         raise ValueError("bin_gather needs corpus rows of a multiple of 16 bytes")
     _check_cuda(q_in, corpus, row_scales, bins, q_scale if mode != 0 else None)
     out = torch.empty((B, kb, BIN_W), dtype=torch.float32, device=corpus.device)
-    lib = _lib("bin_gather")
     _build.check(
-        lib.sskd_bin_gather(
+        _fn("bin_gather", "sskd_bin_gather")(
             mode, _ptr(q_in), _ptr(q_scale if mode != 0 else None), _ptr(corpus),
             _ptr(row_scales), _ptr(bins), _ptr(out), B, kb, n, row_words, valid_n,
             _stream(corpus.device),
@@ -215,19 +294,23 @@ def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | Non
 
 
 _ARGTYPES = {
-    "binmax": "i p p p p i l i l p",
-    "bin_gather": "i p p p p p p i i l i l p",
+    "sskd_binmax": "i p p p p i l i l p",
+    "sskd_binmax_strided": "i p p p p p i l i l i p",
+    "sskd_bin_gather": "i p p p p p p i i l i l p",
+    "sskd_cell_gather": "i p p p p p p p i i i i p",
+    "sskd_cell_gather_b1": "i p p p p p i i i p",
 }
 _CTYPES = {"i": ctypes.c_int, "l": ctypes.c_long, "p": ctypes.c_void_p}
 
 
-def _lib(stem: str):
-    """The kernel library with its C entry point's signature declared."""
-    lib = _build.load_library(stem)
-    fn = getattr(lib, f"sskd_{stem}")
+@functools.lru_cache(maxsize=None)
+def _fn(stem: str, name: str):
+    """C entry point ``name`` of the library built from ``csrc/<stem>.cu``,
+    with its signature declared."""
+    fn = getattr(_build.load_library(stem), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [_CTYPES[c] for c in _ARGTYPES[stem].split()]
-    return lib
+    fn.argtypes = [_CTYPES[c] for c in _ARGTYPES[name].split()]
+    return fn
 
 
 # ---------------------------------------------------------------------------

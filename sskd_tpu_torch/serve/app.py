@@ -10,12 +10,16 @@ and starts the micro-batcher. Differences from the JAX package:
   package logs a failed warmup and serves on);
 - ``search.rerank_enabled`` raises :class:`ConfigError`: reranking comes
   with the teacher in a later slice and is not switched off in silence;
-- a preloaded index is served with ``index.search_method`` (the JAX
-  package serves the ``index_type`` the index records and reads the
-  setting only when it builds); a method the port has no engine for yet
-  (``approx``, the default, or ``clustered``) fails at startup;
 - reranking, hybrid search, caches, sharding, ``/docs``, ``/openapi.json``
   and ``/index/load`` are later slices (ROADMAP).
+
+As in the JAX package, a preloaded index is served under the ``index_type``
+it records (``exact``, ``approx`` or ``clustered``): ``index.search_method``
+is read only where an index is built, which no route of this slice does. An
+``index.nprobe`` that the settings were given explicitly overrides the value
+saved in a clustered index's ``meta.json``; the default does not. What still
+raises at startup: an index of bfloat16 rows or with refine rows (``refine_m
+> 0``), and ``search.rerank_enabled``.
 """
 
 from __future__ import annotations
@@ -130,7 +134,10 @@ def create_app(
         state.metrics.model_load_seconds.set(time.perf_counter() - t0)
         if preload_index_dir:
             builder = IndexBuilder(device=state.student.device).load(preload_index_dir)
-            builder.index_type = settings.index.search_method
+            # nprobe is a query-time knob (the cell layout does not depend on
+            # it): an explicit setting wins over the index's saved value
+            if settings.is_set("index", "nprobe"):
+                builder.nprobe = settings.index.nprobe
             state.index_builder = builder
             state.fused_searcher = FusedSearcher(state.student, builder)
             state.metrics.index_size.set(builder.ntotal)

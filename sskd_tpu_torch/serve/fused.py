@@ -5,16 +5,24 @@ Tokenization runs on the host; the query encode and the top-k run back to
 back on the device with no copy between them, and the host waits once, for
 the ``[B, k]`` result. PyTorch runs eagerly, so there is no program to
 compile per shape: ``warmup`` builds the kernels and touches each batch
-bucket, so that the first request pays neither. The index must be an exact
-index over f32, int8 or int4 rows; other engines are later slices.
+bucket, so that the first request pays neither. The index is an exact, approx
+or clustered one that :meth:`IndexBuilder.check_searchable` admits.
+
+A clustered index is served through the approx sweep over its reordered rows
+unless the environment has ``SSKD_SERVE_CELL_PROBE=1`` and the padded batch is
+at most ``CLUSTER_MAX_BATCH``: the JAX package's switch and its default, which
+a TPU measured. Results are mapped back to original row positions either way.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from sskd_tpu_torch.models.student import bucket_length, buckets_for
 from sskd_tpu_torch.ops.topk import cosine_topk
+from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
 
 K_BUCKETS = (10, 20, 50, 100, 200, 400)
 
@@ -36,6 +44,19 @@ class FusedSearcher:
     def ntotal(self) -> int:
         return self.builder.ntotal
 
+    def _engine(self, padded_n: int) -> str:
+        """The device engine for a padded batch size: the index's own type,
+        except that a clustered index is swept as ``approx`` unless cell
+        probing is opted into and the batch is small enough for it."""
+        if self.builder.index_type != "clustered":
+            return self.builder.index_type
+        if (
+            os.environ.get("SSKD_SERVE_CELL_PROBE", "0") == "1"
+            and padded_n <= CLUSTER_MAX_BATCH
+        ):
+            return "clustered"
+        return "approx"
+
     def bucket_k(self, k: int) -> int:
         for bucket in K_BUCKETS:
             if k <= bucket <= max(self.ntotal, K_BUCKETS[0]):
@@ -52,17 +73,31 @@ class FusedSearcher:
             self.student.query_prefix
         ] * (padded_n - n)
         batch = self.student.tokenize_batch(texts)
+        engine = self._engine(padded_n)
         with torch.inference_mode():
             q = self.student.forward_batch(batch)
-            vals, idx = cosine_topk(
-                q,
-                b.device_vectors,
-                k=k_eff,
-                block_rows=b.block_rows,
-                row_scales=b.device_scales,
-                valid_n=b.ntotal,
-                method=b.index_type,
-            )
+            if engine == "clustered":
+                vals, idx = clustered_topk(
+                    q,
+                    b.device_vectors,
+                    b.device_centroids,
+                    k=k_eff,
+                    nprobe=b.nprobe,
+                    rows_per_cell=b._rows_per_cell,
+                    row_scales=b.device_scales,
+                    valid_n=b.ntotal,
+                )
+            else:
+                vals, idx = cosine_topk(
+                    q,
+                    b.device_vectors,
+                    k=k_eff,
+                    block_rows=b.block_rows,
+                    row_scales=b.device_scales,
+                    valid_n=b.ntotal,
+                    method=engine,
+                    recall_target=b.recall_target,
+                )
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         return vals[:n, :k], b.map_positions(idx)[:n, :k]
 

@@ -32,8 +32,10 @@ def test_port_loads_nb_index_unchanged():
     assert (tb.ntotal, tb.dtype, tb.index_type, tb.embedding_dim) == (8000, "int8", "approx", 64)
     assert tb.doc_ids == jb.doc_ids
     np.testing.assert_array_equal(tb._vectors, jb._vectors)
-    with pytest.raises(NotImplementedError, match="approx"):
-        tb.search(_queries(0, 2, 64), k=10)
+    # searched as it is recorded: 8,000 rows are 63 bins, below the approx
+    # engines' reduction on both sides, so the ids are the exact ones
+    _search_both(jb, tb, _queries(0, 3, 64), k=10)
+    assert tb.index_type == jb.index_type == "approx"
     tb.index_type = jb.index_type = "exact"
     _search_both(jb, tb, _queries(0, 3, 64), k=10)
 
@@ -78,3 +80,27 @@ def test_unported_builds_raise():
         IndexBuilder(embedding_dim=8, dtype="bfloat16", device="cpu").build_from_arrays(
             np.ones((2, 8), np.float32), ["a", "b"]
         )
+    with pytest.raises(TypeError, match="refine_m"):
+        IndexBuilder(embedding_dim=8, dtype="int8", refine_m=4, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int4"])
+def test_approx_index_both_directions(tmp_path, dtype):
+    """An approx index saved by either package is loaded and searched by the
+    other; validate() passes the configs/index.yaml gate."""
+    emb = _queries(5, 900, 64)
+    ids = [f"doc-{i}" for i in range(900)]
+    tb = IndexBuilder(embedding_dim=64, index_type="approx", dtype=dtype, recall_target=0.95,
+                      device="cpu").build_from_arrays(emb, ids)
+    jb = JBuilder(embedding_dim=64, index_type="approx", dtype=dtype,
+                  recall_target=0.95).build_from_arrays(emb, ids)
+    tb.save(tmp_path / "torch")
+    jb.save(tmp_path / "jax")
+    for name in ("vectors.npy", "meta.json", "doc_ids.json"):
+        assert (tmp_path / "torch" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    j_from_t = JBuilder().load(tmp_path / "torch")
+    t_from_j = IndexBuilder(device="cpu").load(tmp_path / "jax")
+    assert t_from_j.index_type == j_from_t.index_type == "approx"
+    assert t_from_j.recall_target == j_from_t.recall_target == 0.95
+    _search_both(j_from_t, t_from_j, _queries(6, 5, 64), k=10)
+    assert t_from_j.validate(n_queries=40)["recall@10"] >= 0.97

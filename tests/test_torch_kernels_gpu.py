@@ -234,3 +234,118 @@ def test_flash_backward_matches_plain_autograd(dtype):
     want = torch.autograd.grad(ta.plain_attention(*ref_leaves, bias4), ref_leaves, go)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The approx engine's strided pass and the cell-gather kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("B,blocks", [(1, 7), (3, 100), (16, 528), (40, 547)])
+def test_binmax_strided_matches_plain(dtype, B, blocks):
+    _need_card()
+    x, q = _data(70_001, 384, B, seed=100 + B)
+    if 4999 + 128 * blocks < x.shape[0]:
+        x[4999 + 128 * blocks] = x[4999]  # equal rows in one bin: the lower wins the tie
+    corpus, scales = _storage(dtype, x)
+    q_in, _ = tk.quantize_queries(q, corpus)
+    valid_n = 70_001 - 200  # the last tile holds no valid row, the one before some
+    before = tk.binmax_strided.launches
+    got, rows = tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)
+    want, want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks)
+    torch.cuda.synchronize()
+    assert tk.binmax_strided.launches == before + 1
+    assert rows.dtype == torch.int32 and rows.shape == got.shape == (blocks * 128, B)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    if dtype == "f32":  # summation order can move a near-tie: the row must hold the maximum
+        live = got > tk.NEG_INF / 2
+        picked = x[rows.long().clamp(max=valid_n - 1)]  # [bins, B, D]
+        score = torch.einsum("gbd,bd->gb", picked, q)
+        torch.testing.assert_close(score[live], got[live], rtol=1e-5, atol=1e-6)
+        assert (rows == want_rows).float().mean().item() > 0.999
+    else:
+        assert torch.equal(got, want) and torch.equal(rows, want_rows)
+
+
+def _cells(dtype, n_cells, rpc, d, B, nprobe, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n_cells * rpc, d, device="cuda", generator=g)
+    x = x / x.norm(dim=1, keepdim=True)
+    q = torch.randn(B, d, device="cuda", generator=g)
+    q = q / q.norm(dim=1, keepdim=True)
+    corpus, scales = _storage(dtype, x)
+    probe = torch.stack([torch.randperm(n_cells, device="cuda", generator=g)[:nprobe]
+                         for _ in range(B)]).to(torch.int32).contiguous()
+    return q, corpus, scales, probe
+
+
+@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("B,nprobe,rpc,d", [(1, 11, 768, 384), (1, 64, 1024, 384), (3, 11, 768, 384),
+                                            (16, 8, 1024, 384), (5, 3, 200, 48), (1, 3, 200, 48),
+                                            (2, 5, 256, 1040)])
+def test_cell_gather_matches_plain(dtype, B, nprobe, rpc, d):
+    from sskd_tpu_torch.ops import topk_cluster as tc
+
+    _need_card()
+    q, corpus, scales, probe = _cells(dtype, 70, rpc, d, B, nprobe, seed=B * 100 + nprobe)
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    wrapper, plain = ((tc.cell_gather_b1, tc.cell_gather_b1_plain) if B == 1
+                      else (tc.cell_gather, tc.cell_gather_plain))
+    before = wrapper.launches
+    got = wrapper(q_in, q_scale, corpus, scales, probe, rpc)
+    want = plain(q_in, q_scale, corpus, scales, probe, rpc)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.shape == (B, nprobe, rpc)
+    if dtype == "int8":  # exact integer dots, the same two products in the same order
+        assert torch.equal(got, want)
+    else:  # summation order only
+        assert (got - want).abs().max().item() <= 1e-5
+    if B > 1:  # the general kernel also takes one query
+        one = tc.cell_gather(q_in[:1], None if q_scale is None else q_scale[:1], corpus, scales,
+                             probe[:1], rpc)
+        assert torch.equal(one, got[:1])
+
+
+def test_cell_gather_refuses_what_the_kernels_do_not_take():
+    from sskd_tpu_torch.ops import topk_cluster as tc
+
+    _need_card()
+    q, corpus, scales, probe = _cells("int8", 8, 256, 384, 2, 3, seed=1)
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    before = tc.cell_gather.launches
+    bad = probe.clone()
+    bad[1, 2] = 8
+    with pytest.raises(ValueError, match="outside"):
+        tc.cell_gather(q_in, q_scale, corpus, scales, bad, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.cell_gather(q_in, q_scale, corpus, scales, probe.T.contiguous().T, 256)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tc.cell_gather(q_in[:, :40].contiguous(), q_scale, corpus[:, :40].contiguous(), scales,
+                       probe, 256)
+    with pytest.raises(ValueError, match="expected"):
+        tc.cell_gather(q_in, q_scale, corpus, scales.cpu(), probe, 256)
+    assert tc.cell_gather.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["int8", "f32"])
+def test_clustered_and_approx_engines_match_their_plain_versions(dtype):
+    from sskd_tpu_torch.ops import topk_cluster as tc
+    from sskd_tpu_torch.ops.topk import approx_topk, cosine_topk
+
+    _need_card()
+    n_cells, rpc, n = 100, 1024, 100 * 1024 - 300
+    q, corpus, scales, _ = _cells(dtype, n_cells, rpc, 384, 16, 1, seed=7)
+    cent = corpus.view(n_cells, rpc, -1).float().mean(dim=1)
+    cent = cent / cent.norm(dim=1, keepdim=True)
+    for B in (1, 16):
+        got = tc.clustered_topk(q[:B], corpus, cent, 10, 16, rpc, row_scales=scales, valid_n=n)
+        want = tc.clustered_topk(q[:B], corpus, cent, 10, 16, rpc, row_scales=scales, valid_n=n,
+                                 kernels=False)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        assert (got[1] == want[1]).float().mean().item() > 0.99 and (got[1] < n).all()
+    kv, ki = cosine_topk(q, corpus, 10, row_scales=scales, valid_n=n, method="approx")
+    pv, pi = approx_topk(q, corpus, 10, row_scales=scales, valid_n=n, kernels=False)
+    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-6)
+    assert (ki == pi).float().mean().item() > 0.99

@@ -122,9 +122,16 @@ def test_unported_configurations_fail_loudly(monkeypatch, pair):
         Settings.from_dict({"search": {"default_k": 0}})
     with pytest.raises(ConfigError):
         Settings.from_dict({"nosuch": {}})
-    # the default search_method, approx, has no engine in the port yet
-    with pytest.raises(NotImplementedError, match="approx"):
-        _client(monkeypatch, ts, idx_dir, index={"search_method": "approx"})
+    with pytest.raises(ConfigError, match="refine_m"):
+        Settings.from_dict({"index": {"refine_m": 64}})  # refine is a later slice
+    # the default search_method, approx, is a build-time setting: an exact
+    # index loaded under it starts up and is served exactly
+    tc = _client(monkeypatch, ts, idx_dir, index={"search_method": "approx"})
+    try:
+        assert tc.app.state.index_builder.index_type == "exact"
+        assert tc.post("/search", json_body={"query": QUERIES[0], "k": 3}).status == 200
+    finally:
+        tc.close()
 
 
 def test_index_recorded_approx_is_served_exactly(monkeypatch, pair):
@@ -135,12 +142,19 @@ def test_index_recorded_approx_is_served_exactly(monkeypatch, pair):
         jb.save(approx_dir)
     finally:
         jb.index_type = "exact"
+    # the index keeps the type it records, whatever search_method says (the
+    # client's settings say exact), and is served by the approx engine: at 40
+    # rows that engine does not reduce, on either side, hence "exactly"
     tc = _client(monkeypatch, ts, approx_dir)
     try:
-        assert tc.app.state.index_builder.index_type == "exact"
-        _, want = JFused(js, jb).search_texts(QUERIES[:1], k=3)
-        got = tc.post("/search", json_body={"query": QUERIES[0], "k": 3}).json()["results"]
-        assert [r["doc_id"] for r in got] == [f"d{i}" for i in want[0]]
+        assert tc.app.state.index_builder.index_type == "approx"
+        assert tc.app.state.fused_searcher._engine(16) == "approx"
+        jb_approx = JBuilder().load(approx_dir)
+        assert jb_approx.index_type == "approx"
+        _, want = JFused(js, jb_approx).search_texts(QUERIES, k=3)
+        for q, want_ids in zip(QUERIES, want):
+            got = tc.post("/search", json_body={"query": q, "k": 3}).json()["results"]
+            assert [r["doc_id"] for r in got] == [f"d{i}" for i in want_ids]
     finally:
         tc.close()
 

@@ -1,10 +1,15 @@
-"""Port vs JAX: the two-phase exact top-k engine.
+"""Port vs JAX: the two-phase exact top-k engine and the approx engine.
 
 On the CPU the port's kernel wrappers run their plain torch versions, and the
 JAX engine runs its Pallas kernels in interpret mode (block_rows=256). The
 same seeded numpy inputs go to both. Ids must be equal; scores agree to 1e-6
 relative: int8 / int4 scores are the same integer dot times the same two f32
 scales (bit-equal in practice), f32 scores differ only by summation order.
+
+The approx engine: ``lax.approx_max_k`` is exact on the CPU, so the JAX approx
+result is the exact one there. The port's reduction is compared with it by
+recall (at least the recall target) and by the scores of the ids it returns;
+below the reduction threshold and at recall_target 1.0 the ids are equal.
 """
 
 import numpy as np
@@ -14,6 +19,7 @@ import torch
 import jax.numpy as jnp
 
 from sskd_tpu.ops.quant import quantize_rows as jquant8, quantize_rows_int4 as jquant4
+from sskd_tpu.ops.topk import cosine_topk as jcosine_topk
 from sskd_tpu.ops.topk_pallas import cosine_topk_pallas
 from sskd_tpu_torch.ops import topk as tt
 from sskd_tpu_torch.ops import topk_kernels as tk
@@ -124,15 +130,164 @@ def test_blocked_engine_matches_kernel_engine():
 def test_dispatch_gate_and_approx():
     q = torch.zeros(2, 64)
     corpus = torch.zeros(1 << 16, 64, dtype=torch.int8)
+    scales = torch.ones(1 << 16)
     assert tt.kernel_exact_ok(q, corpus, 10) is False  # a CPU corpus never
-    with pytest.raises(NotImplementedError, match="approx"):
+    vals, idx = tt.cosine_topk(q, corpus, 10, row_scales=scales, method="approx")
+    assert vals.shape == idx.shape == (2, 10) and idx.dtype == torch.int32
+    assert idx[0].tolist() == list(range(10))  # all tied: each bin's first row, the lower bin
+    _, idx = tt.cosine_topk(q, corpus[:700], 10, row_scales=scales[:700], method="approx")
+    assert idx[0].tolist() == list(range(10))  # 6 tiles, fewer than the bins 0.99 needs: exact
+    with pytest.raises(ValueError, match="row_scales"):
         tt.cosine_topk(q, corpus, 10, method="approx")
+    with pytest.raises(ValueError, match="recall_target"):
+        tt.cosine_topk(q, corpus, 10, row_scales=scales, method="approx", recall_target=0.0)
+    with pytest.raises(ValueError, match="unknown method"):
+        tt.cosine_topk(q, corpus, 10, row_scales=scales, method="hnsw")
     with pytest.raises(ValueError):
         tk.cosine_topk_kernels(q, corpus, tk.K_MAX + 1)
+    assert tt.approx_min_bins(10, 0.99) == pytest.approx(895.5, abs=0.1)
+    assert tt.approx_min_bins(10, 1.0) == float("inf") and tt.approx_min_bins(1, 0.5) == 0.0
 
 
-def test_merge_topk():
-    s = torch.tensor([[0.1, 0.9, 0.5, 0.9]])
-    i = torch.tensor([[10, 11, 12, 13]])
-    v, idx = tt.merge_topk(s, i, 3)
-    assert idx.tolist() == [[11, 13, 12]] and v.shape == (1, 3)
+@pytest.fixture(scope="module")
+def wide():
+    """200,000 x 32 rows (1,563 bins, past the 896 that k = 10 at 0.99 needs)
+    and 64 queries, with JAX's approx result (exact on the CPU) per storage."""
+    rng = np.random.default_rng(11)
+    x, q = _normed(rng, 200_000, 32), _normed(rng, 64, 32)
+    out = {"q": q, "x": x}
+    for dtype in ("f32", "int8"):
+        corpus, scales = _corpus(dtype, x)
+        jv, ji = jcosine_topk(
+            jnp.asarray(q), jnp.asarray(corpus), k=10, valid_n=199_990, method="approx",
+            row_scales=None if scales is None else jnp.asarray(scales), recall_target=0.99,
+        )
+        out[dtype] = (corpus, scales, np.asarray(jv), np.asarray(ji))
+    return out
+
+
+def _approx(wide, dtype, **kw):
+    corpus, scales, jv, ji = wide[dtype]
+    tv, ti = tt.cosine_topk(
+        torch.from_numpy(wide["q"]), torch.from_numpy(corpus), 10, valid_n=199_990,
+        row_scales=None if scales is None else torch.from_numpy(scales), method="approx", **kw,
+    )
+    return tv.numpy(), ti.numpy(), jv, ji
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_approx_meets_its_recall_target(wide, dtype):
+    tv, ti, jv, ji = _approx(wide, dtype, recall_target=0.99)
+    assert ti.dtype == np.int32 and tv.dtype == np.float32 and ti.shape == (64, 10)
+    recall = np.mean([len(set(ti[r]) & set(ji[r])) / 10 for r in range(64)])
+    assert recall >= 0.99, recall
+    assert (np.diff(tv, axis=1) <= 0).all()  # sorted
+    assert ((ti >= 0) & (ti < 199_990)).all()
+    assert all(len(set(row)) == 10 for row in ti)
+    # every returned id carries its true score: the JAX score of that row
+    # where JAX returned it too, and the row's own dot in any case
+    corpus, scales = wide[dtype][:2]
+    for r in range(64):
+        both = {int(i): v for i, v in zip(ji[r], jv[r])}
+        for i, v in zip(ti[r], tv[r]):
+            if int(i) in both:
+                np.testing.assert_allclose(v, both[int(i)], rtol=1e-6, atol=1e-7)
+    rows = corpus[ti].astype(np.float32)  # [64, 10, D]
+    if dtype == "int8":
+        qi, qs = jquant8(wide["q"])
+        true = np.einsum("bkd,bd->bk", rows, np.asarray(qi, np.float32))
+        true = true * np.asarray(qs)[:, None] * scales[ti]
+    else:
+        true = np.einsum("bkd,bd->bk", rows, wide["q"])
+    np.testing.assert_allclose(tv, true, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_approx_at_recall_target_one_is_exact(wide, dtype):
+    tv, ti, jv, ji = _approx(wide, dtype, recall_target=1.0)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8", "int4"])
+def test_approx_below_the_reduction_threshold_is_exact(dtype):
+    """8,000 rows are 63 bins, fewer than k = 10 needs at 0.99: both packages
+    answer exactly. valid_n and k beyond the corpus keep the sentinels."""
+    rng = np.random.default_rng(13)
+    corpus, scales = _corpus(dtype, _normed(rng, 8000, 64))
+    q = _normed(rng, 4, 64)
+    for k, valid_n in ((10, 8000), (10, 7000), (300, 250)):
+        jv, ji = jcosine_topk(
+            jnp.asarray(q), jnp.asarray(corpus), k=k, valid_n=valid_n, method="approx",
+            row_scales=None if scales is None else jnp.asarray(scales),
+        )
+        tv, ti = tt.cosine_topk(
+            torch.from_numpy(q), torch.from_numpy(corpus), k, valid_n=valid_n, method="approx",
+            row_scales=None if scales is None else torch.from_numpy(scales),
+        )
+        _assert_same((np.asarray(jv), np.asarray(ji)), (tv.numpy(), ti.numpy()))
+
+
+def test_approx_masks_the_tail_and_pads():
+    """A reducing corpus with five valid rows: the bins that hold no valid
+    row never surface, and their sentinel is not scaled into a score."""
+    rng = np.random.default_rng(17)
+    corpus, scales = _corpus("int8", _normed(rng, 4096, 32))
+    q = torch.from_numpy(_normed(rng, 3, 32))
+    tv, ti = tt.approx_topk(q, torch.from_numpy(corpus), 8, row_scales=torch.from_numpy(scales),
+                            valid_n=5, recall_target=0.5)
+    assert sorted(ti[0, :5].tolist()) == [0, 1, 2, 3, 4] and (tv[:, :5] > -2).all()
+    assert (ti[:, 5:] == -1).all() and (tv[:, 5:] == tk.NEG_INF).all()
+    tv, ti = tt.approx_topk(q, torch.from_numpy(corpus), 5000, row_scales=torch.from_numpy(scales),
+                            recall_target=0.5)  # k beyond the corpus: exact, padded
+    assert (ti[:, 4096:] == -1).all() and (ti[:, :4096] >= 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("blocks", [1, 3, 6])
+def test_plain_binmax_strided(dtype, blocks):
+    """Bin j * 128 + t holds the rows (j + i * blocks) * 128 + t: its maximum
+    and the first row that holds it, NEG_INF and the bin's first row where no
+    row is valid."""
+    rng = np.random.default_rng(19)
+    x = _normed(rng, 700, 64)
+    if blocks < 6:
+        x[44 + 128 * blocks] = x[44]  # equal rows in one bin: the lower wins
+    corpus, scales = _corpus(dtype, x)
+    tc = torch.from_numpy(corpus)
+    ts = None if scales is None else torch.from_numpy(scales)
+    q_in, _ = tk.quantize_queries(torch.from_numpy(np.concatenate([x[44:45], _normed(rng, 2, 64)])),
+                                  tc)
+    top, rows = tk.binmax_strided(q_in, tc, ts, 650, blocks)
+    assert rows.dtype == torch.int32 and rows.shape == top.shape == (blocks * 128, 3)
+    dense = tk._dense_rows(tc, 0, 700) @ q_in.float().T
+    if ts is not None:
+        dense = dense * ts[:, None]
+    dense[650:] = tk.NEG_INF
+    for b in range(3):
+        for g in range(blocks * 128):
+            member = torch.arange(g, max(700, g + 1), blocks * 128)
+            member = member[member < 700]
+            if len(member) == 0 or dense[member, b].max() <= tk.NEG_INF / 2:
+                assert float(top[g, b]) == tk.NEG_INF and int(rows[g, b]) == g
+                continue
+            best = dense[member, b].max()
+            assert float(top[g, b]) == float(best)
+            assert int(rows[g, b]) == int(member[torch.nonzero(dense[member, b] == best)[0, 0]])
+    assert int(rows[44, 0]) == 44
+    with pytest.raises(ValueError, match="blocks"):
+        tk.binmax_strided(q_in, tc, ts, 650, 7)
+
+
+def test_approx_keeps_neighbours_stored_side_by_side():
+    """Near neighbours in adjacent rows (one document's chunks; a clustered
+    index's cells) must not share a bin: the strided bins keep them apart."""
+    rng = np.random.default_rng(23)
+    centres = _normed(rng, 400, 32)
+    x = np.repeat(centres, 100, axis=0) + 0.05 * rng.standard_normal((40_000, 32)).astype(np.float32)
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # 100 neighbours in a row
+    q = torch.from_numpy(centres[:32].copy())
+    _, got = tt.cosine_topk(q, torch.from_numpy(x), 10, method="approx", recall_target=0.95)
+    _, want = tt.cosine_topk(q, torch.from_numpy(x), 10)
+    recall = np.mean([len(set(got[r].tolist()) & set(want[r].tolist())) / 10 for r in range(32)])
+    assert recall >= 0.95, recall
