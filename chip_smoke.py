@@ -11,13 +11,18 @@ Phases, each fatal when it fails:
 2. kernels — each kernel against its plain torch version on the card at the
              shapes of the main path (binmax / exact engine: f32, int8 and
              int4 at 1M x 384, B in {1, 16, 256}, k in {10, 100};
-             flash_attn_fwd: [256, 12, L, 32] bf16, L in {128, 256, 512},
-             each element within its rounding bound, and f32 at L = 512
-             within 1e-5; dropattn_fwd / dropattn_bwd: [256, 12, 192, 32],
+             flash_attn_fwd: [256, 12, L, 32] bf16 on its tensor-core route,
+             L in {128, 256, 512}, each element within its rounding bound,
+             timed beside SDPA and plain_attention (the FLASH_MIN_L
+             crossover), and f32 (the CUDA-core route) at L = 512 within
+             1e-5; dropattn_fwd / dropattn_bwd: [256, 12, 192, 32],
              [32, 12, 64, 32] and [256, 12, 512, 32] bf16 with a random padding
-             bias, p in {0, 0.1}, each element within its rounding bound, f32
-             within 1e-5, the kernels' keep-mask equal to the plain one bit for
-             bit; binmax_strided, the approx engine's pass, at every binmax case;
+             bias, p in {0, 0.1}, each element within its rounding bound, the
+             backward on the route its (dtype, L) selects and bitwise equal
+             over two launches, f32 within 1e-5, the kernels' keep-mask equal
+             to the plain one bit for bit (f32 at L = 256, and bf16 at L = 192
+             through the tensor-core backward's keep bits); binmax_strided,
+             the approx engine's pass, at every binmax case;
              cell_gather and cell_gather_b1 over 977 cells x 1,024 rows x
              384, nprobe 64: int8 at B in {1, 16, 64} bit for bit, f32 at B in
              {1, 16} within 1e-5, and a ragged case, nprobe 11 over cells of 768
@@ -30,7 +35,8 @@ Phases, each fatal when it fails:
              it with create_app on 127.0.0.1, send single and concurrent
              /search requests, and check every response against the plain
              engine on the same query embeddings; every kernel must have been
-             launched by this phase; then recall@10 of the int8 exact search
+             launched by this phase, every flash launch on the tensor-core
+             route; then recall@10 of the int8 exact search
              against exact f32 search over the original vectors (gate 0.97);
 4. train   — KDTrainer.train on seeded synthetic samples at full
              e5-small-v2 width (bf16 compute, f32 parameters, hidden and
@@ -38,6 +44,7 @@ Phases, each fatal when it fails:
              configs/kd.yaml: 512 queries x 8 docs, batch 32, query_len 64,
              doc_len 192, one epoch (16 steps); every loss finite, the dropattn
              launches of the train path equal to the count the code implies,
+             every backward on the tensor-core route,
              the first update (lr 0) leaving the parameters as they were and
              the second moving them within AdamW's bound, best_model reloaded
              and used to encode; then one step's gradients through the
@@ -90,6 +97,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9  # H100 SXM: SMs and boost clock, for the exp floor
 N_DOCS = 8192  # passages encoded at L = 512
 N_ROWS = 1_000_000  # rows of the served index (and of the kernel cases)
 SERVE_KERNELS = ("binmax", "bin_gather", "flash_attn_fwd")
@@ -200,10 +208,11 @@ def phase_build() -> dict:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 kernel = m.group(1)
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            m = re.search(r"Used (\d+) registers", line)
             if m and kernel:
+                smem = re.search(r"(\d+) bytes smem", line)  # static only; absent when 0
                 summary.setdefault(name, {})[kernel] = {
-                    "registers": int(m.group(1)), "smem_bytes": int(m.group(2))
+                    "registers": int(m.group(1)), "smem_bytes": int(smem.group(1)) if smem else 0
                 }
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and kernel:
@@ -393,9 +402,12 @@ def phase_flash(gen) -> tuple[list, dict]:
         lens = torch.randint(L // 8, L + 1, (B,), device="cuda", generator=gen)
         lens[0] = L
         mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        before = ta.flash_attention.tc_launches
         got = ta.flash_attention(q, k, v, mask)
         want = ta.flash_attention_plain(q, k, v, mask)
         torch.cuda.synchronize()
+        check(ta.flash_attention.tc_launches == before + 1,
+              f"flash_attn_fwd bf16 L={L} did not take the tensor-core route")
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         # bf16: per element, the rounding of p and of the output on each side
@@ -418,12 +430,19 @@ def phase_flash(gen) -> tuple[list, dict]:
         library_ms = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 10
         )
+        # what the encoder runs below FLASH_MIN_L: the crossover a later PR needs
+        bias = torch.where(keep, 0.0, ta.NEG_INF)
+        plain_attention_ms = time_ms(lambda: ta.plain_attention(q, k, v, bias), 5, 1)
+        del bias
         b_ms, b_by = bound_ms(4 * B * h * L * d * 2 + B * L * 4, 4.0 * B * h * L * L * d, "bf16")
         entry = {
             "kernel": "flash_attn_fwd", "dtype": "bf16", "shape": [B, h, L, d],
             "max_abs_err": err, "max_rel_err": rel_err(got, want), "err_over_bound": slack,
-            "f32_max_abs_err": f32_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
+            "f32_max_abs_err": f32_err, "route": ta.flash_route(q.dtype, d), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "plain_attention_ms": plain_attention_ms,
+            # one exp per score on the special-function unit (16 a clock an SM)
+            "exp_floor_ms": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
         }
         rows.append(entry)
         log(f"[kernels] {json.dumps(entry)}")
@@ -467,6 +486,38 @@ def masks_spelled_by_kernels(seed: int) -> bool:
     return bool((spell(out) == want).all()) and bool((spell(dv).transpose(-1, -2) == want).all())
 
 
+def masks_spelled_bf16(seed: int) -> bool:
+    """The same read-back in bf16 at L = 192, the training length the
+    tensor-core backward takes: a bias that leaves keys 0..127 live makes each
+    live probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in
+    bf16; out spells each row's keep bits over the live columns, and dv each
+    live column's over the 192 rows (row i in channel i // 8): the keep bits
+    the tensor-core backward stored in pass 1 and applied to pd."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, L, d, live = 2, 12, 192, 32, 128
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.to(torch.bfloat16).expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
+    bias = torch.where(j < live, 0.0, torch.finfo(torch.bfloat16).min / 2).expand(B, L)
+    bias = bias.contiguous()
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    before = ta.dropattn_bwd.tc_launches
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    check(ta.dropattn_bwd.tc_launches == before + 1, "bf16 L=192: not the tensor-core backward")
+    bit = torch.arange(8, device="cuda")
+
+    def spell(x, n):  # [..., 32] sums of 2^bit / 64 -> [..., n] bits
+        c = (x.float() * 64).round().long()[..., : n // 8]
+        return ((c[..., None] >> bit) & 1).flatten(-2).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    return (bool((spell(out, live) == want[..., :live]).all())
+            and bool((spell(dv[:, :, :live], L) == want[..., :live].transpose(-1, -2)).all()))
+
+
 def masks_equal(seed: int, BH: int, L: int, p: float) -> bool:
     """The kernels' generator against the plain one over every (head, row, col)."""
     from sskd_tpu_torch.ops import attention as ta
@@ -486,6 +537,8 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
     rows, main_fwd, main_bwd = [], None, None
     check(masks_spelled_by_kernels(31), "dropattn kernels: applied keep-mask differs")
     log("[kernels] dropattn: the masks both kernels apply equal the plain mask (L = 256)")
+    check(masks_spelled_bf16(37), "dropattn bf16 L=192: applied keep-mask differs")
+    log("[kernels] dropattn: bf16 at L = 192, the tensor-core backward applies the plain mask")
     for B, h, L, d in ((256, 12, 192, 32), (32, 12, 64, 32), (256, 12, 512, 32)):
         BH = B * h
         q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(torch.bfloat16)
@@ -496,7 +549,16 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
         for p in (0.0, 0.1):
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
             want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+            route = ta.dropattn_bwd_route(q.dtype, L)
+            before = ta.dropattn_bwd.tc_launches
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            check(ta.dropattn_bwd.tc_launches - before == (route == "tc"),
+                  f"dropattn_bwd L={L}: the launch did not take the {route} route")
+            # no atomics, no order that varies: a second launch gives the same bits
+            again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"dropattn_bwd L={L} p={p}: two launches differ")
+            del again
             want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
             torch.cuda.synchronize()
             lse_err = (lse - want_lse).abs().max().item()
@@ -519,7 +581,8 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
             del out, want, grads, want_grads, bounds
             entry = {"shape": [B, h, L, d], "dtype": "bf16", "p": p, "lse_max_abs_err": lse_err,
                      "fwd_max_abs_err": f_err, "fwd_err_over_bound": f_slack,
-                     "bwd_max_abs_err": b_err, "bwd_err_over_bound": b_slack}
+                     "bwd_max_abs_err": b_err, "bwd_err_over_bound": b_slack,
+                     "bwd_route": route, "bwd_bitwise_repeatable": True}
             if (B, L) == (256, 192) and p > 0:
                 # the f32 instantiation rounds nothing: summation order only
                 qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
@@ -568,6 +631,9 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
         "bwd_ms": time_ms(lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g), 10),
         "bwd_plain_ms": time_ms(lambda: ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g),
                                 2, 1),
+        # the same backward without dropout: what drawing the mask costs
+        "bwd_no_dropout_ms": time_ms(lambda: ta.dropattn_bwd(q, k, v, bias, 0.0, seed, lse, g),
+                                     10),
     }
     mask = bias.to(q.dtype)[:, None, None, :]
     out["fwd_library_ms"] = time_ms(
@@ -872,7 +938,7 @@ def phase_serve(args, gen) -> dict:
     from sskd_tpu_torch.config import Settings
     from sskd_tpu_torch.index.builder import IndexBuilder
     from sskd_tpu_torch.models.student import StudentModel
-    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
     from sskd_tpu_torch.ops.topk import cosine_topk_core
     from sskd_tpu_torch.serve.app import create_app
     from sskd_tpu_torch.serve.fused import K_BUCKETS
@@ -944,11 +1010,15 @@ def phase_serve(args, gen) -> dict:
     # the main path ends here: what follows (breakdown, checks) launches the
     # kernels outside it
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, tc_counts = launch_counts(), tc_launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] launches on the main path: {counts}")
+    log(f"[serve] launches on the main path: {counts}; tensor-core routes: {tc_counts}")
     for name in SERVE_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched on the main path")
+    # every L = 512 encode (bf16, head dim 32) went through the tensor-core flash
+    check(tc_counts["flash_attn_fwd"] == counts["flash_attn_fwd"],
+          f"flash_attn_fwd: {tc_counts['flash_attn_fwd']} of {counts['flash_attn_fwd']} "
+          "launches took the tensor-core route")
     times = breakdown(state.fused_searcher, args.seed)
     batch_sizes = [ids_.shape[0] for ids_, _ in recorded]
     check(any(1 < n_real for n_real in _real_rows(recorded, state.student)),
@@ -1014,6 +1084,7 @@ def phase_serve(args, gen) -> dict:
         "validate_recall_at_10": validate["recall@10"],
         "peak_device_gib": peak_gib,
         "launches": counts,
+        "tc_launches": tc_counts,
     }
 
 
@@ -1148,7 +1219,7 @@ def phase_train(args) -> dict:
     from sskd_tpu_torch.kd.dataset import KDDataset
     from sskd_tpu_torch.kd.train import KDTrainer
     from sskd_tpu_torch.models.student import StudentModel
-    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
 
     batch, n_docs, query_len, doc_len = 32, 8, 64, 192
     samples = make_kd_samples(TRAIN_QUERIES, n_docs, args.seed)
@@ -1209,7 +1280,7 @@ def phase_train(args) -> dict:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         # the train path ends here: what follows launches outside it
-        counts = launch_counts()
+        counts, tc_counts = launch_counts(), tc_launch_counts()
         trainer._train_step = inner
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         steps = result["global_step"]
@@ -1235,6 +1306,10 @@ def phase_train(args) -> dict:
               f"dropattn_fwd launches {counts['dropattn_fwd']}, want {steps * 2 * towers}")
         check(counts["dropattn_bwd"] == steps * towers,
               f"dropattn_bwd launches {counts['dropattn_bwd']}, want {steps * towers}")
+        # every backward of both towers (L = 64 and 192, bf16) on the tensor cores
+        check(tc_counts["dropattn_bwd"] == counts["dropattn_bwd"],
+              f"dropattn_bwd: {tc_counts['dropattn_bwd']} of {counts['dropattn_bwd']} "
+              "launches took the tensor-core route")
 
         best = StudentModel(str(Path(out_dir) / "best_model"), device="cuda",
                             compute_dtype=torch.bfloat16)
@@ -1339,6 +1414,7 @@ def phase_train(args) -> dict:
         "losses": [a["loss"] for a in step_losses],
         "history": result["history"],
         "launches": counts,
+        "tc_launches": tc_counts,
     }
     log(f"[train] {json.dumps({k: v for k, v in record.items() if k not in ('history',)})}")
     return record

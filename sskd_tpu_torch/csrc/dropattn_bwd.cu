@@ -19,29 +19,61 @@
 // (q, k, v, g read, dq, dk, dv written: 7 x 37.7 MB, plus the bias: 264.4 MB,
 // 0.0789 ms at 3.35 TB/s; the saved lse is not part of the function) against
 // 10 * B*h*L^2*d = 36 GFLOP for the five products (0.037 ms at the bf16
-// tensor-core peak): the bytes bound it.
+// tensor-core peak): the bytes bound it. A floor above both is the mask:
+// one regeneration of the 113 M-element keep-mask (B*h*L^2) is 28.3 M
+// Philox4x32-10 calls of ~100 integer instructions, ~0.18 ms at ~64 integer
+// operations per clock per SM (132 SMs, ~1.9 GHz); the two exps per score
+// (one per pass below) add ~0.06 ms on the special-function unit.
 //
-// Design (a first, simple kernel pair on CUDA cores): dq needs sums along each
-// query row and dk, dv sums down each key column, so two kernels, neither with
-// atomics.
-//   dq kernel: one block of 64 threads per (b*h, 64-query tile), a thread per
-//     query row holding q, g and its dq accumulator in registers, K, V and the
-//     bias row of the head in shared memory. Pass 1 sums D over the keys, pass
-//     2 accumulates round(ds) k; D is written out for the other kernel.
-//   dkv kernel: one block of 64 threads per (b*h, 64-key tile), a thread per key
-//     row holding k, v and its dk, dv accumulators, Q, G, lse and D of the head
-//     in shared memory; one pass over the queries.
-// The dkv kernel draws the mask one element at a time (a thread walks down a
-// column, and one Philox call covers four columns of one row); the dq kernel
-// draws four keys per call. The next steps are tensor-core tiles (mma.sync /
-// wgmma) and one fused kernel.
+// Two routes, chosen by the wrapper (ops/attention.py) from (dtype, L):
+//
+// 1. bf16 and L <= 256 (the training lengths are 64 and 192):
+//    dropattn_bwd_tc_kernel, a block holding one whole head at a time in
+//    shared memory, as the TPU kernel holds it in VMEM. cp.async brings q, k,
+//    v, g (rows padded to 80 bytes), the bias row and the lse. Warp w owns
+//    query rows 16w..16w+15; products are mma.sync m16n8k16 on bf16 with f32
+//    sums.
+//    - Pass 1, per chunk of 16 keys: S = q k^T and dP = g v^T, probs =
+//      2^(s * scale * log2(e) + (bias - lse) * log2(e)) (one exp), the keep
+//      bits, the row's D = sum(dprobs * probs) with no cross-warp reduction,
+//      pd as bf16 into a [L, L] shared buffer.
+//    - dv = pd^T g: warps split over key rows, pd^T and g through
+//      ldmatrix.trans.
+//    - Pass 2: S and dP again (cheap on the tensor cores), the keep bits
+//      again, ds = probs (dprobs - D) scale as bf16 into the same buffer;
+//      dq = ds k with ds fed from registers.
+//    - dk = ds^T q, as dv.
+//    The keep bits (L^2 / 8 bytes) are drawn once per element, in pass 1,
+//    one Philox call per four neighbouring key columns of one row: each
+//    thread's score fragment holds exactly those four, since the keys of a
+//    16-key chunk enter the mma in the order 0 1 4 5 8 9 12 13 | 2 3 6 7 ...
+//    (ldmatrix takes any row order, so K and V rows follow it for free).
+//    They take 12,300 of a head's 42,000 cycles (clock64 stamps on the
+//    card), as long as the rest of pass 1: the integer work is the floor
+//    above (drawing the next head's bits inside this head's two passes,
+//    beside their tensor-core and exp work, gained only 3 %, so the bits
+//    stay in pass 1). The blocks are persistent (as many as fit, each
+//    walking heads i, i + grid, ...), so the next head's q, k, v, g arrive
+//    by cp.async into a second buffer while this head computes. Every input
+//    is read once, no atomics: two launches give the same bits. Shared
+//    memory at L = 192: 208,896 bytes (one block of 12 warps per SM).
+// 2. f32, or L > 256 (chip_smoke's L = 512 case; training never runs it):
+//    the first kernel pair on CUDA cores. The dq kernel (a thread per query
+//    row, K and V of the head in shared memory) sums D in one pass and
+//    round(ds) k in a second and writes D out; the dk/dv kernel (a thread per
+//    key row, Q and G in shared memory) walks the queries once, drawing the
+//    mask one element at a time. The f32 instantiation rounds nothing, which
+//    keeps the f32 check of the train phase to summation order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
 
+#include <algorithm>
+
 #include "attn_common.cuh"
+#include "mma_common.cuh"
 #include "philox.cuh"
 
 namespace sskd {
@@ -177,6 +209,264 @@ __global__ void __launch_bounds__(DB_TB) dropattn_bwd_dkv_kernel(
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Route 1: bf16, d = 32, L <= 256, tensor cores, a whole head per block
+// ---------------------------------------------------------------------------
+
+constexpr int DT_LD = 40;      // shared row stride of q, k, v, g in bf16 (80 bytes)
+constexpr int DT_MAX_L = 256;  // 227 KB of shared memory at 256 (the buffer is L^2)
+
+// Shared memory of the q, k, v, g tiles, the bias and the lse of one head at
+// padded length Lp (a multiple of 16): the part that is double-buffered.
+__host__ __device__ constexpr size_t dt_head_bytes(int Lp) {
+  return 4 * (size_t)Lp * DT_LD * 2 + 2 * (size_t)Lp * 4;
+}
+// All of it, with n_buf (1 or 2) copies of the head.
+__host__ __device__ constexpr size_t dt_smem_bytes(int Lp, int n_buf) {
+  return n_buf * dt_head_bytes(Lp)
+         + (size_t)Lp * (Lp + 8) * 2       // pd, then ds (rows padded by 16 bytes)
+         + (size_t)Lp * (Lp / 16) * 2      // keep bits, 16 keys a word
+         + 2 * (size_t)Lp * 4;             // bias and lse, times log2(e)
+}
+
+// Row of key slot r (0..7) of ldmatrix matrix `second` (0 or 1) in a 16-key
+// chunk, in the order in which each thread's fragment holds four neighbours.
+__device__ __forceinline__ int perm_key(int r, int second) {
+  return 4 * (r >> 1) + (r & 1) + 2 * second;
+}
+
+// Persistent: block i takes heads i, i + gridDim.x, ...; with n_buf = 2 the
+// copy of the next head's inputs overlaps the current head's work.
+__global__ void __launch_bounds__(512) dropattn_bwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+    __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int BH, int h, int L, int Lp, int n_buf, float sm_scale,
+    float scale_log2, uint32_t seed, float p, float inv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LDP = Lp + 8, NC = Lp / 16;
+  __nv_bfloat16* s_p = reinterpret_cast<__nv_bfloat16*>(smem + n_buf * dt_head_bytes(Lp));
+  uint16_t* s_bits = reinterpret_cast<uint16_t*>(s_p + (size_t)Lp * LDP);
+  float* s_bias2 = reinterpret_cast<float*>(s_bits + Lp * NC);
+  float* s_lse2 = s_bias2 + Lp;
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const bool drop = p > 0.f;
+
+  // the inputs of head bh into buffer buf: q, k, v, g rows (rows past L as
+  // zeros), then the bias row and the lse as they are
+  auto load_head = [&](long bh, int buf) {
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(smem + buf * dt_head_bytes(Lp));
+    const long head_off = bh * (long)L * 32;
+    for (int i = tid; i < 16 * Lp; i += nthreads) {
+      const int t = i / (4 * Lp), j = i % (4 * Lp), r = j >> 2, c = (j & 3) * 8;
+      const __nv_bfloat16* src = (t == 0 ? q : t == 1 ? k : t == 2 ? v : g) + head_off;
+      cp_async16(dst + t * Lp * DT_LD + r * DT_LD + c, src + (long)min(r, L - 1) * 32 + c,
+                 r < L ? 16 : 0);
+    }
+    float* raw = reinterpret_cast<float*>(dst + 4 * Lp * DT_LD);
+    for (int i = tid; i < L; i += nthreads) {
+      cp_async4(raw + i, bias + (bh / h) * L + i);
+      cp_async4(raw + Lp + i, lse + bh * L + i);
+    }
+  };
+
+  int buf = 0;
+  long bh = blockIdx.x;
+  if (n_buf == 2) load_head(bh, 0);
+  cp_async_commit();
+  for (; bh < BH; bh += gridDim.x, buf ^= n_buf - 1) {
+    const long next = bh + gridDim.x;
+    if (n_buf == 1) load_head(bh, 0);
+    else if (next < BH) load_head(next, buf ^ 1);
+    cp_async_commit();
+    if (n_buf == 1) cp_async_wait<0>();
+    else cp_async_wait<1>();  // this head's group has landed; the next may be in flight
+    __syncthreads();
+    const __nv_bfloat16* s_q =
+        reinterpret_cast<const __nv_bfloat16*>(smem + buf * dt_head_bytes(Lp));
+    const __nv_bfloat16* s_k = s_q + Lp * DT_LD;
+    const __nv_bfloat16* s_v = s_k + Lp * DT_LD;
+    const __nv_bfloat16* s_g = s_v + Lp * DT_LD;
+    const float* raw = reinterpret_cast<const float*>(s_g + Lp * DT_LD);
+    // padded rows and keys: probabilities 0 (lse +inf, bias -inf), so every
+    // product over them adds exact zeros
+    for (int i = tid; i < Lp; i += nthreads) {
+      s_bias2[i] = i < L ? raw[i] * LOG2E : -INFINITY;
+      s_lse2[i] = i < L ? raw[Lp + i] * LOG2E : INFINITY;
+    }
+    __syncthreads();
+    const long head_off = bh * (long)L * 32;
+
+    const int row0 = warp * 16 + grp;  // this thread's rows: row0 and row0 + 8
+    uint32_t qa[2][4], ga[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int off = (warp * 16 + mr + (mi & 1) * 8) * DT_LD + ks * 16 + (mi >> 1) * 8;
+      ldmatrix_x4(qa[ks], s_q + off);
+      ldmatrix_x4(ga[ks], s_g + off);
+    }
+    const float lse2[2] = {s_lse2[row0], s_lse2[row0 + 8]};
+
+    // S and dP of a 16-key chunk in the permuted key order: element e of
+    // tile nt holds row row0 + 8 (e >> 1), key c16 + 4 tig + 2 nt + (e & 1)
+    auto scores = [&](int c16, float (&s)[2][4], float (&dp)[2][4]) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      const int key = c16 + perm_key(mr, mi >> 1);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, s_k + key * DT_LD + ks * 16 + (mi & 1) * 8);
+        ldmatrix_x4(vb, s_v + key * DT_LD + ks * 16 + (mi & 1) * 8);
+        mma_bf16(s[0], qa[ks], kb[0], kb[1]);
+        mma_bf16(s[1], qa[ks], kb[2], kb[3]);
+        mma_bf16(dp[0], ga[ks], vb[0], vb[1]);
+        mma_bf16(dp[1], ga[ks], vb[2], vb[3]);
+      }
+    };
+    // probs of the thread's four keys key0..key0+3 in row row0 + 8 rr
+    auto probs4 = [&](const float (&s)[2][4], int rr, int key0, float (&prob)[4]) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float acc = s[j >> 1][2 * rr + (j & 1)];
+        prob[j] = exp2_approx(fmaf(acc, scale_log2, s_bias2[key0 + j] - lse2[rr]));
+      }
+    };
+
+    // ---- pass 1: D, pd and the keep bits ----------------------------------
+    float dsum[2] = {0.f, 0.f};
+    for (int c = 0; c < NC; ++c) {
+      float s[2][4], dp[2][4];
+      scores(c * 16, s, dp);
+      const int key0 = c * 16 + 4 * tig;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        uint32_t keep = 0xFu;
+        if (drop) {
+          const Philox4 w =
+              philox4x32_10((uint32_t)(key0 >> 2), (uint32_t)row, seed, (uint32_t)bh);
+          keep = 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) keep |= (philox_uniform(w.w[j]) >= p ? 1u : 0u) << j;
+          uint32_t word = keep << (4 * tig);
+          word |= __shfl_xor_sync(0xffffffffu, word, 1);
+          word |= __shfl_xor_sync(0xffffffffu, word, 2);
+          if (tig == 0) s_bits[row * NC + c] = (uint16_t)word;
+        }
+        float prob[4], pd[4];
+        probs4(s, rr, key0, prob);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dpv = dp[j >> 1][2 * rr + (j & 1)];
+          const bool kj = (keep >> j) & 1u;
+          const float dprobs = drop ? (kj ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+          dsum[rr] = fmaf(dprobs, prob[j], dsum[rr]);
+          pd[j] = drop ? (kj ? __fmul_rn(prob[j], inv) : 0.f) : prob[j];
+        }
+        *reinterpret_cast<uint2*>(s_p + row * LDP + key0) =
+            make_uint2(pack_bf16(pd[0], pd[1]), pack_bf16(pd[2], pd[3]));
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      dsum[rr] += __shfl_xor_sync(0xffffffffu, dsum[rr], 1);
+      dsum[rr] += __shfl_xor_sync(0xffffffffu, dsum[rr], 2);
+    }
+    __syncthreads();
+
+    // ---- x^T y for the warp's 16 keys: x the [Lp, Lp] buffer, y q or g ----
+    auto column_product = [&](const __nv_bfloat16* y, __nv_bfloat16* out) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      const int kw = warp * 16;
+      for (int c = 0; c < NC; ++c) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, s_p + (c * 16 + (mi >> 1) * 8 + mr) * LDP + kw + (mi & 1) * 8);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t yb[4];
+          ldmatrix_x4_trans(yb,
+                            y + (c * 16 + (mi & 1) * 8 + mr) * DT_LD + half * 16 + (mi >> 1) * 8);
+          mma_bf16(acc[2 * half], a, yb[0], yb[1]);
+          mma_bf16(acc[2 * half + 1], a, yb[2], yb[3]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = kw + grp + 8 * rr;
+        if (key >= L) continue;
+        uint32_t* dst = reinterpret_cast<uint32_t*>(out + head_off + (long)key * 32 + 2 * tig);
+#pragma unroll
+        for (int dn = 0; dn < 4; ++dn)
+          dst[dn * 4] = pack_bf16(acc[dn][2 * rr], acc[dn][2 * rr + 1]);
+      }
+    };
+    column_product(s_g, dv);
+    __syncthreads();  // pd is consumed: the buffer takes ds
+
+    // ---- pass 2: ds, and dq = ds k from registers -------------------------
+    float dqa[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+    for (int c = 0; c < NC; ++c) {
+      float s[2][4], dp[2][4];
+      scores(c * 16, s, dp);
+      const int key0 = c * 16 + 4 * tig;
+      uint32_t a[4];  // ds as the A fragment of a 16-deep product over the permuted keys
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        const uint32_t keep =
+            drop ? (uint32_t)(s_bits[row * NC + c] >> (4 * tig)) & 0xFu : 0xFu;
+        float prob[4], ds[4];
+        probs4(s, rr, key0, prob);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dpv = dp[j >> 1][2 * rr + (j & 1)];
+          const float dprobs = drop ? (((keep >> j) & 1u) ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+          ds[j] = __fmul_rn(__fmul_rn(prob[j], __fsub_rn(dprobs, dsum[rr])), sm_scale);
+        }
+        a[rr] = pack_bf16(ds[0], ds[1]);
+        a[2 + rr] = pack_bf16(ds[2], ds[3]);
+        *reinterpret_cast<uint2*>(s_p + row * LDP + key0) = make_uint2(a[rr], a[2 + rr]);
+      }
+      const int key = c * 16 + perm_key(mr, mi & 1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, s_k + key * DT_LD + half * 16 + (mi >> 1) * 8);
+        mma_bf16(dqa[2 * half], a, kb[0], kb[1]);
+        mma_bf16(dqa[2 * half + 1], a, kb[2], kb[3]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + 8 * rr;
+      if (row >= L) continue;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(dq + head_off + (long)row * 32 + 2 * tig);
+#pragma unroll
+      for (int dn = 0; dn < 4; ++dn)
+        dst[dn * 4] = pack_bf16(dqa[dn][2 * rr], dqa[dn][2 * rr + 1]);
+    }
+    __syncthreads();
+    column_product(s_q, dk);
+    __syncthreads();  // this head's buffers are free for the head after next
+  }
+}
+
 template <typename Kern>
 static int allow_smem(Kern kernel, size_t smem) {
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -235,5 +525,39 @@ extern "C" int sskd_dropattn_bwd(int dtype, const void* q, const void* k, const 
                                    seed, p, inv, s);
   else rc = (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+//   The tensor-core route: bf16, d = 32, L <= 256 (others are refused); the
+//   arguments as above without dsum; scale_log2 = log2(e) / sqrt(d) in f32.
+//   Launches one kernel: blocks of L / 16 warps (L rounded up to 16), as many
+//   as fit the card at once (at most one per head), each walking its heads.
+extern "C" int sskd_dropattn_bwd_tc(const void* q, const void* k, const void* v,
+                                    const float* bias, const void* g, const float* lse, void* dq,
+                                    void* dk, void* dv, int B, int h, int L, int d,
+                                    float sm_scale, float scale_log2, uint32_t seed, float p,
+                                    float inv, void* stream) {
+  using namespace sskd;
+  if (B <= 0 || h <= 0 || L <= 0 || L > DT_MAX_L || d != 32 || !(p >= 0.f && p < 1.f))
+    return (int)cudaErrorInvalidValue;
+  const int Lp = (L + 15) / 16 * 16, threads = 2 * Lp;
+  const int n_buf = dt_smem_bytes(Lp, 2) <= 227 * 1024 ? 2 : 1;
+  const size_t smem = dt_smem_bytes(Lp, n_buf);
+  int rc = allow_smem(dropattn_bwd_tc_kernel, smem);
+  if (rc != 0) return rc;
+  int device = 0, n_sm = 0, per_sm = 0;
+  rc = (int)cudaGetDevice(&device);
+  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dropattn_bwd_tc_kernel,
+                                                            threads, smem);
+  if (rc != 0) return rc;
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long BH = (long)B * h;
+  const unsigned grid = (unsigned)std::min<long>(BH, (long)n_sm * per_sm);
+  dropattn_bwd_tc_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, bias,
+      (const __nv_bfloat16*)g, lse, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      (int)BH, h, L, Lp, n_buf, sm_scale, scale_log2, seed, p, inv);
   return (int)cudaGetLastError();
 }

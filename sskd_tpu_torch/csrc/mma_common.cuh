@@ -1,0 +1,84 @@
+// mma_common.cuh: tensor-core helpers shared by the bf16 attention kernels
+// (flash_attn.cu, dropattn_bwd.cu) for sm_90a: cp.async copies into shared
+// memory, ldmatrix (plain and transposed) and mma.sync m16n8k16 with
+// bf16 operands and f32 accumulators.
+//
+// Fragment layouts of mma.sync.m16n8k16 (lane = 4 * grp + tig, grp 0..7,
+// tig 0..3), two 16-bit values per 32-bit register:
+//   A 16x16: a0 (row grp, k 2tig..+1), a1 (row grp+8, same k),
+//            a2 (row grp, k 2tig+8..+9), a3 (row grp+8, k 2tig+8..+9)
+//   B 16x8:  b0 (k 2tig..+1, col grp), b1 (k 2tig+8..+9, col grp)
+//   C 16x8:  c0, c1 (row grp, cols 2tig, 2tig+1), c2, c3 (row grp+8, same cols)
+// So the C fragments of two neighbouring 8-column tiles, rounded to bf16 and
+// packed in pairs, are the A fragment of a 16-deep product over those 16
+// columns: a score tile feeds the next product from registers.
+//
+// ldmatrix.x4 loads four 8x8 b16 matrices; lane l gives the address of row
+// l % 8 of matrix l / 8, so any permutation of the rows is free. Without
+// .trans, register i of lane l holds (row grp, cols 2tig..+1) of matrix i;
+// with .trans it holds (rows 2tig..+1, col grp).
+
+#pragma once
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace sskd {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 4 bytes global -> shared, asynchronous (both 4-byte aligned).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// c += a b for one 16x8 tile, bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (one MUFU op; ex2.approx is accurate to
+// 2 ulp, and +0 at -inf)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+}  // namespace sskd

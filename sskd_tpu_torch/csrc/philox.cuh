@@ -28,8 +28,10 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint3
       k0 += 0x9E3779B9u;
       k1 += 0xBB67AE85u;
     }
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    // one 32 x 32 -> 64-bit multiply (IMAD.WIDE) gives both halves
+    const uint64_t p0 = (uint64_t)c0 * 0xD2511F53u, p1 = (uint64_t)c2 * 0xCD9E8D57u;
+    const uint32_t lo0 = (uint32_t)p0, hi0 = (uint32_t)(p0 >> 32);
+    const uint32_t lo1 = (uint32_t)p1, hi1 = (uint32_t)(p1 >> 32);
     const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
     c0 = n0;
     c1 = lo1;

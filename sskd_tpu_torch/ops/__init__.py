@@ -3,7 +3,8 @@
 Each kernel wrapper keeps a ``launches`` count that grows by one where it
 launches its kernel and nowhere else; ``launch_counts`` reads them and
 ``reset_launch_counts`` sets them to 0, so a run can show which kernels its
-path went through.
+path went through. A wrapper with more than one kernel route also counts the
+launches of its tensor-core route in ``tc_launches`` (``tc_launch_counts``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,15 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def tc_launch_counts() -> dict[str, int]:
+    """Kernel name -> launches of its tensor-core route, for the wrappers
+    that have one."""
+    return {name: fn.tc_launches for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "tc_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0

@@ -4,8 +4,10 @@
   bias, softmax, probabilities cast to the value type, f32 accumulation.
 - :func:`flash_attention` is the wrapper of the ``flash_attn_fwd`` kernel
   (csrc/flash_attn.cu): on a CUDA tensor it launches the kernel and counts
-  the launch in ``flash_attention.launches``; on a CPU tensor it runs
-  :func:`flash_attention_plain`, which repeats the kernel's arithmetic.
+  the launch in ``flash_attention.launches`` (and, on the tensor-core route
+  of :func:`flash_route`, in ``flash_attention.tc_launches``); on a CPU
+  tensor it runs :func:`flash_attention_plain`, which repeats the kernel's
+  arithmetic.
 - :func:`scaled_dot_attention` dispatches: the kernel for ``L >=
   FLASH_MIN_L``, plain attention below. The flash branch is differentiable:
   its backward is the VJP of :func:`plain_attention` with the same bias, as
@@ -13,7 +15,8 @@
 - :func:`dropout_attention` is training attention with dropout on the
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
-  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``.
+  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``; the backward has a
+  tensor-core route (:func:`dropattn_bwd_route`, ``dropattn_bwd.tc_launches``).
 
 The TPU's dispatch rule (a 256 MB score threshold, head groups sized to
 VMEM) is not carried over. ``FLASH_MIN_L`` = 512 is the length the corpus
@@ -47,6 +50,31 @@ _HEAD_DIMS = (16, 32, 64)
 # the dropattn kernels are built for the head dim of the models the port
 # trains (e5-small-v2: 384 / 12) and refuse others
 _DROPATTN_HEAD_DIMS = (32,)
+# the longest L whose head fits the shared memory of one block of the
+# tensor-core backward (csrc/dropattn_bwd.cu DT_MAX_L)
+DROPATTN_TC_MAX_L = 256
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call of :func:`flash_attention` launches: ``"tc"``
+    (tensor cores, csrc/flash_attn.cu ``flash_fwd_tc_kernel``) for bf16 at
+    head dim 32, ``"cuda_core"`` (``flash_fwd_kernel``) for f32 and the other
+    head dims."""
+    return "tc" if dtype == torch.bfloat16 and d == 32 else "cuda_core"
+
+
+def dropattn_bwd_route(dtype: torch.dtype, L: int) -> str:
+    """The kernels a CUDA call of :func:`dropattn_bwd` launches: ``"tc"``
+    (one tensor-core kernel holding a whole head in shared memory,
+    ``dropattn_bwd_tc_kernel``) for bf16 at L <= ``DROPATTN_TC_MAX_L``,
+    ``"cuda_core"`` (the dq and dk/dv kernel pair) for f32 and longer L."""
+    return "tc" if dtype == torch.bfloat16 and L <= DROPATTN_TC_MAX_L else "cuda_core"
+
+
+def _scale_log2(d: int) -> float:
+    """log2(e) / sqrt(d): the tensor-core kernels fold the softmax scale into
+    their exponent (one ex2 per score); ctypes rounds it to f32."""
+    return math.log2(math.e) / math.sqrt(d)
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -85,18 +113,69 @@ def flash_attention_plain(q, k, v, mask=None):
     return out.to(q.dtype)
 
 
+def _gamma(depth: int) -> float:
+    """Relative error, in units of the sum of the absolute products, that a
+    product of ``depth`` terms picks up on the two sides of a comparison: the
+    tensor cores (mma.sync m16n8k16, bf16 operands) add each step's 16 exact
+    products and the f32 accumulator by aligning them to the largest and
+    truncating, not rounding, which loses less than 2^-23 of the largest term
+    per term, so at most 17 * 2^-23 of the sum per 16-deep step; an f32 sum
+    of ``depth`` terms rounded at each add (the plain version) at most
+    ``depth`` * 2^-24."""
+    return math.ceil(depth / 16) * 17 * 2.0**-23 + depth * 2.0**-24
+
+
+def _exponent_error(s, absdot, shift, d: int):
+    """Bound on |e| where the tensor-core kernels' probability is the plain
+    version's times exp(e), for f32 scores ``s`` (natural units), the sums
+    ``absdot`` = |q| @ |k|^T of the same entries and ``shift`` the terms
+    subtracted in the exponent (|row max| or |bias| + |lse|). The kernels
+    fold scale * log2(e) into the scores and take one ex2: the score's
+    products add _gamma(d) of absdot; the two f32 roundings of the folded
+    scale and of s * it, and the rounding of the difference, at most 2^-22
+    of (|s| + shift); ex2.approx and the plain exp together at most 2^-21."""
+    return _gamma(d) * absdot / math.sqrt(d) + 2.0**-22 * (s.abs() + shift) + 2.0**-21
+
+
 def flash_error_bound(q, k, v, mask, got, want):
     """Per-element bound on |got - want| between two bf16 results of this
-    arithmetic that differ only in f32 summation order (the kernel and
-    :func:`flash_attention_plain`). Each side rounds each p to bf16 (relative
-    error at most 2^-8), so the numerators differ by at most
-    2^-7 * sum(p |v|); over the shared f32 sum of p that is 2^-7 times
-    softmax(s) @ |v|. Each side then rounds its output once more (2^-8 of its
-    value). The f32 reordering adds 1e-5 of the same weighted |v|."""
-    weighted_abs_v = flash_attention_plain(q.float(), k.float(), v.float().abs(), mask)
+    arithmetic: the kernel and :func:`flash_attention_plain`.
+
+    - Each side rounds each p to bf16 (relative error at most 2^-8), so the
+      numerators differ by at most 2^-7 * sum(p |v|); over the shared f32 sum
+      of p that is 2^-7 times softmax(s) @ |v| (``wv``). Each side then rounds
+      its output once more (2^-8 of its value).
+    - The tensor-core route computes each p as the plain one times exp(e_j),
+      |e_j| <= eps_j (:func:`_exponent_error`; 0 for a masked key, whose
+      sentinel score gives both sides exactly 0, or exactly 1 in a row with
+      no live key). Over out = N / D that moves out by at most
+      1.01 (P @ (eps |v|) + sum(P eps) wv), P the softmax.
+    - The sums: p.v on the tensor cores and in f32 (_gamma(L) of wv), the
+      online rescaling of the accumulator once per 64-key tile and the f32
+      sums of p on both sides (2^-24 each of wv per add)."""
+    B, h, L, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = (t.float().reshape(B * h, L, d) for t in (q, k, v))
+    keep = (torch.ones((B * h, 1, L), dtype=torch.bool, device=q.device) if mask is None
+            else (mask != 0).repeat_interleave(h, dim=0)[:, None, :])
+    wv, drift = torch.empty_like(qf), torch.empty_like(qf)
+    for a, b in _chunks(B * h, L):
+        s = torch.matmul(qf[a:b], kf[a:b].transpose(-1, -2)) * scale
+        live = keep[a:b]
+        P = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+        m = torch.where(live, s, -math.inf).amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        absdot = torch.matmul(qf[a:b].abs(), kf[a:b].abs().transpose(-1, -2))
+        eps = torch.where(live, _exponent_error(s, absdot, m.abs(), d), 0.0)
+        absv = vf[a:b].abs()
+        wv[a:b] = torch.matmul(P, absv)
+        Pe = P * eps
+        drift[a:b] = 1.01 * (torch.matmul(Pe, absv) + Pe.sum(dim=-1, keepdim=True) * wv[a:b])
+    sums = _gamma(L) + (math.ceil(L / 64) + L) * 2.0**-24
     return (
         2.0**-8 * (got.float().abs() + want.float().abs())
-        + (2.0**-7 + 1e-5) * weighted_abs_v
+        + (2.0**-7 + sums) * wv.view(B, h, L, d)
+        + drift.view(B, h, L, d)
         + 1e-6
     )
 
@@ -131,26 +210,38 @@ def flash_attention(q, k, v, mask=None):
             raise ValueError("q, k, v and mask must be on one device")
     out = torch.empty_like(q)
     lib = _build.load_library("flash_attn")
-    fn = lib.sskd_flash_attn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float,
-        ctypes.c_void_p,
-    ]
-    _build.check(
-        fn(
-            _DTYPES[q.dtype],
-            *(_ptr(t) for t in (q, k, v, mask, out)),
-            B, h, L, d, 1.0 / (d**0.5),
-            _stream(q),
-        ),
-        "flash_attn_fwd",
-    )
+    if flash_route(q.dtype, d) == "tc":
+        fn = lib.sskd_flash_attn_fwd_tc
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+        _build.check(
+            fn(*(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, _scale_log2(d), _stream(q)),
+            "flash_attn_fwd (tensor cores)",
+        )
+        flash_attention.tc_launches += 1
+    else:
+        fn = lib.sskd_flash_attn_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        _build.check(
+            fn(
+                _DTYPES[q.dtype],
+                *(_ptr(t) for t in (q, k, v, mask, out)),
+                B, h, L, d, 1.0 / (d**0.5),
+                _stream(q),
+            ),
+            "flash_attn_fwd",
+        )
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0  # the launches that took the tensor-core route
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -348,33 +439,49 @@ def dropout_attention_plain(q, k, v, bias, p: float, seed: int):
 
 
 def _abs_products(q, k, v, bias, p, seed, lse, g):
-    """f32 sums of absolute values that bound the rounding of each product:
-    |pd| @ |v|, |pd|^T @ |g|, |ds| @ |k|, |ds|^T @ |q| and the same with
-    |ds| replaced by probs (|dprobs| + |D|) / sqrt(d), over every head."""
+    """f32 sums of absolute values that bound each product's error, over
+    every head: ``pv`` = pd @ |v| (without ``g``); with ``g`` also ``pg`` =
+    pd^T @ |g|, ``dsk`` = |ds| @ |k|, ``dsq`` = |ds|^T @ |q| and the drift
+    of the tensor-core arithmetic (see :func:`dropattn_bwd_error_bound`):
+    ``pg_drift`` = (eps pd)^T @ |g|, ``dsk_drift`` = delta_ds @ |k| and
+    ``dsq_drift`` = delta_ds^T @ |q|."""
     B, h, L, d = q.shape
     qf, kf, vf, bf = (t.float() for t in _flat(q, k, v, bias))
     gf = None if g is None else g.reshape(B * h, L, d).float()
     inv, scale = 1.0 / (1.0 - p), 1.0 / (d**0.5)
-    names = ("pv", "pg", "dsk", "dsq", "fk", "fq")
+    names = ("pv",) if gf is None else ("pg", "dsk", "dsq", "pg_drift", "dsk_drift",
+                                        "dsq_drift")
     out = {n: torch.empty_like(qf) for n in names}
     for a, b in _chunks(B * h, L):
-        probs, keep, _ = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a, scale,
-                                         None if lse is None else lse.reshape(B * h, L)[a:b])
+        lse_c = None if lse is None else lse.reshape(B * h, L)[a:b].float()
+        probs, keep, _ = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a, scale, lse_c)
         pd = probs if keep is None else torch.where(keep, probs * inv, 0.0)
-        out["pv"][a:b] = torch.matmul(pd, vf[a:b].abs())
         if gf is None:
+            out["pv"][a:b] = torch.matmul(pd, vf[a:b].abs())
             continue
-        gc = gf[a:b]
+        gc, qa, ka, va = gf[a:b], qf[a:b].abs(), kf[a:b].abs(), vf[a:b].abs()
         out["pg"][a:b] = torch.matmul(pd.transpose(-1, -2), gc.abs())
         dpd = torch.matmul(gc, vf[a:b].transpose(-1, -2))
         dprobs = dpd * inv if keep is None else torch.where(keep, dpd * inv, 0.0)
         D = (dprobs * probs).sum(dim=-1, keepdim=True)
-        ds = (probs * (dprobs - D) * scale).abs()
-        f = probs * (dprobs.abs() + D.abs()) * scale
-        out["dsk"][a:b] = torch.matmul(ds, kf[a:b].abs())
-        out["dsq"][a:b] = torch.matmul(ds.transpose(-1, -2), qf[a:b].abs())
-        out["fk"][a:b] = torch.matmul(f, kf[a:b].abs())
-        out["fq"][a:b] = torch.matmul(f.transpose(-1, -2), qf[a:b].abs())
+        ds = probs * (dprobs - D) * scale
+        out["dsk"][a:b] = torch.matmul(ds.abs(), ka)
+        out["dsq"][a:b] = torch.matmul(ds.abs().transpose(-1, -2), qa)
+        # the exponent's error where probs > 0 (a padded key's probs is 0 on
+        # both sides), the score product's and dP's
+        s = torch.matmul(qf[a:b], kf[a:b].transpose(-1, -2)) * scale
+        shift = bf[a:b].abs()[:, None, :] + lse_c.abs()[:, :, None]
+        eps = 1.01 * _exponent_error(s, torch.matmul(qa, ka.transpose(-1, -2)), shift, d)
+        eps = torch.where(probs > 0, eps, 0.0)
+        d_dprobs = inv * _gamma(d) * torch.matmul(gc.abs(), va.transpose(-1, -2))
+        pa = probs * dprobs.abs()
+        d_D = ((probs * (d_dprobs + eps * dprobs.abs())).sum(dim=-1, keepdim=True) * 1.01
+               + L * 2.0**-23 * pa.sum(dim=-1, keepdim=True))
+        d_ds = (scale * 1.01 * probs * (eps * (dprobs.abs() + D.abs()) + d_dprobs + d_D)
+                + 2.0**-22 * ds.abs())
+        out["pg_drift"][a:b] = torch.matmul((eps * pd).transpose(-1, -2), gc.abs())
+        out["dsk_drift"][a:b] = torch.matmul(d_ds, ka)
+        out["dsq_drift"][a:b] = torch.matmul(d_ds.transpose(-1, -2), qa)
     return {n: t.view(B, h, L, d) for n, t in out.items()}
 
 
@@ -401,24 +508,35 @@ def dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want):
 
 def dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want):
     """Per-element bounds (dq, dk, dv) on |got - want| between the backward
-    kernel and :func:`dropattn_bwd_plain`. Each side rounds pd (for dv) and ds
-    (for dq, dk) to the input type: at most 2u of the sums of absolute
-    products. ds = probs (dprobs - D) is computed in f32 on both sides, but
-    D sums L products in another order and dprobs d products; at L <= 512
-    and f32's 2^-24 that is below 1e-4 of probs (|dprobs| + |D|), taken
-    through the same product with |k| or |q|. Each output is rounded once
-    more (u of its value)."""
+    kernels (either route) and :func:`dropattn_bwd_plain`.
+
+    - Each side rounds pd (for dv) and ds (for dq, dk) to the input type:
+      at most 2u of the sums of absolute products (u = 2^-8 in bf16); each
+      output is rounded once more (u of its value).
+    - probs: the tensor-core route takes exp2 of the score folded with
+      scale * log2(e) and of (bias - lse) * log2(e), so its probs are the
+      plain ones times exp(e), |e| <= eps (:func:`_exponent_error` with
+      |bias| + |lse| as the shift); dP = g v^T carries _gamma(d) of |g| @
+      |v|^T. Through D = sum(dprobs probs) (plus both sides' f32 sums, L *
+      2^-23 of sum |dprobs probs|) and ds = probs (dprobs - D) scale (three
+      f32 roundings a side), that moves ds by at most delta_ds =
+      1.01 scale probs (eps (|dprobs| + |D|) + delta_dprobs + delta_D) +
+      2^-22 |ds|; pd moves by eps pd.
+    - The products over L: _gamma(L) of the same sums of absolute products.
+    The CUDA-core route (f32, or L > 256) rounds its f32 sums and calls
+    expf, which these terms also cover."""
     u = _unit(q.dtype)
     t = _abs_products(q, k, v, bias, p, seed, lse, g)
+    L = q.shape[2]
 
-    def bound(got_, want_, rounded, f32_part):
-        out = u * (got_.float().abs() + want_.float().abs()) + 2 * u * rounded + 1e-6
-        return out + f32_part
+    def bound(got_, want_, absprod, drift):
+        return (u * (got_.float().abs() + want_.float().abs())
+                + (2 * u + (1 + u) * _gamma(L)) * absprod + (1 + u) * drift + 1e-6)
 
     return (
-        bound(got[0], want[0], t["dsk"], 1e-4 * t["fk"]),
-        bound(got[1], want[1], t["dsq"], 1e-4 * t["fq"]),
-        bound(got[2], want[2], t["pg"], 1e-5 * t["pg"]),
+        bound(got[0], want[0], t["dsk"], t["dsk_drift"]),
+        bound(got[1], want[1], t["dsq"], t["dsq_drift"]),
+        bound(got[2], want[2], t["pg"], t["pg_drift"]),
     )
 
 
@@ -489,8 +607,25 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
     bias = bias.to(torch.float32).contiguous()
     lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load_library("dropattn_bwd")
+    if dropattn_bwd_route(q.dtype, L) == "tc":
+        fn = lib.sskd_dropattn_bwd_tc
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        _build.check(
+            fn(*(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)), B, h, L, d,
+               1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
+               _stream(q)),
+            "dropattn_bwd (tensor cores)",
+        )
+        dropattn_bwd.launches += 1
+        dropattn_bwd.tc_launches += 1
+        return dq, dk, dv
     scratch = torch.empty((B, h, L), dtype=torch.float32, device=q.device)  # <dprobs, probs>
-    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd
+    fn = lib.sskd_dropattn_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
@@ -506,6 +641,7 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
 
 
 dropattn_bwd.launches = 0
+dropattn_bwd.tc_launches = 0  # the launches that took the tensor-core route
 
 
 def dropattn_keep_mask_kernel(seed: int, BH: int, L: int, p: float) -> torch.Tensor:

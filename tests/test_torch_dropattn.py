@@ -14,9 +14,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from sskd_tpu.ops.attention import _dropattn_bwd_call as j_dropattn_bwd
 from sskd_tpu.ops.attention import dropout_attention as j_dropattn
 from sskd_tpu.ops.attention import scaled_dot_attention as j_sda
 from sskd_tpu_torch.ops import attention as ta
+from torch_tc_emulation import dropattn_bwd_tc
 
 NEG = float(np.finfo(np.float32).min / 2)
 
@@ -180,6 +182,49 @@ def test_error_bounds_admit_rounding_and_catch_a_scale_fault():
     bounds = ta.dropattn_bwd_error_bound(qb, kb, vb, bias, 0.1, 5, lse, gb, faulty_g, want_g)
     for a, b, bd in zip(faulty_g, want_g, bounds):
         assert not bool(((a.float() - b.float()).abs() <= bd).all())
+
+
+def _held_to_the_bound(q, k, v, bias, p, seed, lse, g, got, want):
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want)
+    for name, a, b, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+    faulty = [(t.float() * 1.02).to(t.dtype) for t in got]
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, faulty, want)
+    for a, b, bd in zip(faulty, want, bounds):
+        assert not bool(((a.float() - b.float()).abs() <= bd).all())
+
+
+@pytest.mark.parametrize("L", [48, 130])  # 130: a ragged last chunk of 16 keys
+def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_jax_kernel(L):
+    """The bf16 tensor-core backward's arithmetic (truncating mma sums, the
+    exponent folded into one exp2; tests/torch_tc_emulation.py) against the
+    JAX backward kernel in interpret mode at p = 0 on the same bf16 inputs:
+    within dropattn_bwd_error_bound at every element; a 2% fault is not."""
+    q, k, v, g, bias = _inputs(L + 1, 2, 3, L, 32)
+    qb, kb, vb, gb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+    tb = torch.from_numpy(bias)
+    _, lse = ta.dropattn_fwd_plain(qb, kb, vb, tb, 0.0, 3)
+    want = j_dropattn_bwd(0.0, True, *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                       for t in (qb, kb, vb)),
+                          jnp.asarray(bias), jnp.asarray([3], jnp.int32),
+                          jnp.asarray(gb.float().numpy(), jnp.bfloat16))
+    want = [torch.from_numpy(np.array(x.astype(jnp.bfloat16).astype(jnp.float32)))
+            .to(torch.bfloat16) for x in want]
+    got = dropattn_bwd_tc(qb, kb, vb, tb, 0.0, 3, lse, gb, None)
+    _held_to_the_bound(qb, kb, vb, tb, 0.0, 3, lse, gb, got, want)
+
+
+def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_plain_version():
+    """At p = 0.1 (no JAX reference draws the port's mask) the same
+    arithmetic against dropattn_bwd_plain, with the plain keep-mask."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(6, 2, 3, 64, 32))
+    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    _, lse = ta.dropattn_fwd_plain(qb, kb, vb, bias, 0.1, 17)
+    keep = ta.dropout_keep_mask(17, 6, 64, 0.1).view(2, 3, 64, 64)
+    got = dropattn_bwd_tc(qb, kb, vb, bias, 0.1, 17, lse, gb, keep)
+    want = ta.dropattn_bwd_plain(qb, kb, vb, bias, 0.1, 17, lse, gb)
+    _held_to_the_bound(qb, kb, vb, bias, 0.1, 17, lse, gb, got, want)
 
 
 def test_dropout_attention_checks_its_inputs():

@@ -349,3 +349,115 @@ def test_clustered_and_approx_engines_match_their_plain_versions(dtype):
     pv, pi = approx_topk(q, corpus, 10, row_scales=scales, valid_n=n, kernels=False)
     torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-6)
     assert (ki == pi).float().mean().item() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core routes of flash_attn_fwd and dropattn_bwd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L", [512, 200, 130])
+def test_flash_tensor_core_route_matches_plain(L):
+    """bf16 at head dim 32 takes the tensor-core kernel: ragged L, a half
+    row, one live key and no live key, each element within its bound."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1000 + L)
+    q, k, v = (torch.randn(4, 12, L, 32, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([L, L // 2, 1, 0], device="cuda")
+    mask = (torch.arange(L, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    before, tc_before = ta.flash_attention.launches, ta.flash_attention.tc_launches
+    got = ta.flash_attention(q, k, v, mask)
+    want = ta.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert ta.flash_route(q.dtype, 32) == "tc"
+    assert ta.flash_attention.launches == before + 1
+    assert ta.flash_attention.tc_launches == tc_before + 1
+    diff = (got.float() - want.float()).abs()
+    bound = ta.flash_error_bound(q, k, v, mask, got, want)
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [64, 192, 130])
+def test_dropattn_bwd_tensor_core_route_matches_plain(p, L):
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(4, 12, L, 32, torch.bfloat16, seed=300 + L)
+    seed = 5 + L
+    _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    tc_before = ta.dropattn_bwd.tc_launches
+    grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
+    torch.cuda.synchronize()
+    assert ta.dropattn_bwd.tc_launches == tc_before + 1
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, go, grads, want)
+    for name, a, b, bd in zip("dq dk dv".split(), grads, want, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+def test_dropattn_bwd_tensor_core_route_is_bitwise_repeatable():
+    """No atomics and no order that varies between launches."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(8, 12, 192, 32, torch.bfloat16, seed=9)
+    _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 21)
+    first = ta.dropattn_bwd(q, k, v, bias, 0.1, 21, lse, go)
+    second = ta.dropattn_bwd(q, k, v, bias, 0.1, 21, lse, go)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_routes_and_their_counters():
+    """Each call counts one launch; only the tensor-core route counts in
+    tc_launches: flash for bf16 at head dim 32, the backward for bf16 at
+    L <= 256; f32, other head dims and longer L take the CUDA-core kernels."""
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
+
+    _need_card()
+    reset_launch_counts()
+    for dtype, d in ((torch.bfloat16, 32), (torch.float32, 32), (torch.bfloat16, 16)):
+        q = torch.randn(2, 3, 96, d, device="cuda").to(dtype)
+        ta.flash_attention(q, q, q)
+    for dtype, L in ((torch.bfloat16, 192), (torch.float32, 192), (torch.bfloat16, 320)):
+        q, k, v, go, bias = _attn_inputs(2, 3, L, 32, dtype, seed=L)
+        _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
+        ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
+    torch.cuda.synchronize()
+    counts, tc = launch_counts(), tc_launch_counts()
+    assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 1
+    assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 1
+    assert ta.dropattn_bwd_route(torch.bfloat16, ta.DROPATTN_TC_MAX_L) == "tc"
+    assert ta.dropattn_bwd_route(torch.bfloat16, ta.DROPATTN_TC_MAX_L + 1) == "cuda_core"
+    reset_launch_counts()
+    assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_bwd": 0}
+
+
+def test_dropattn_tensor_core_backward_applies_the_plain_mask():
+    """bf16 at L = 192: a bias that leaves keys 0..127 live makes each live
+    probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in bf16;
+    with v (and g) holding 2^(j % 8) in channel j // 8, out spells each row's
+    keep bits over the live columns and dv each live column's over the 192
+    rows: the keep bits the tensor-core backward stored and applied."""
+    _need_card()
+    B, h, L, d, live, seed = 2, 3, 192, 32, 128, 99
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.to(torch.bfloat16).expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
+    bias = torch.where(j < live, 0.0, torch.finfo(torch.bfloat16).min / 2).expand(B, L)
+    bias = bias.contiguous()
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    tc_before = ta.dropattn_bwd.tc_launches
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    assert ta.dropattn_bwd.tc_launches == tc_before + 1
+    bit = torch.arange(8, device="cuda")
+
+    def spell(x, n):  # [..., 32] sums of 2^bit / 64 -> [..., n] bits
+        c = (x.float() * 64).round().long()[..., : n // 8]
+        return ((c[..., None] >> bit) & 1).flatten(-2).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    assert bool((spell(out, live) == want[..., :live]).all())
+    assert bool((spell(dv[:, :, :live], L) == want[..., :live].transpose(-1, -2)).all())
