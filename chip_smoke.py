@@ -17,16 +17,20 @@ Phases, each fatal when it fails:
              crossover), and f32 (the CUDA-core route) at L = 512 within
              1e-5; dropattn_fwd / dropattn_bwd: [256, 12, 192, 32],
              [32, 12, 64, 32] and [256, 12, 512, 32] bf16 with a random padding
-             bias, p in {0, 0.1}, each element within its rounding bound, the
-             backward on the route its (dtype, L) selects and bitwise equal
-             over two launches, f32 within 1e-5, the kernels' keep-mask equal
-             to the plain one bit for bit (f32 at L = 256, and bf16 at L = 192
-             through the tensor-core backward's keep bits); binmax_strided,
+             bias, p in {0, 0.1}, each element within its rounding bound, each
+             kernel on the route its (dtype, L) selects (the forward on the
+             tensor cores at all three) and bitwise equal over two launches,
+             f32 within 1e-5, the kernels' keep-mask equal to the plain one
+             bit for bit (f32 at L = 256, and bf16 at L = 192 through the
+             tensor-core forward and backward), each timed beside SDPA, the
+             byte bound and the exp and Philox floors; binmax_strided,
              the approx engine's pass, at every binmax case;
              cell_gather and cell_gather_b1 over 977 cells x 1,024 rows x
-             384, nprobe 64: int8 at B in {1, 16, 64} bit for bit, f32 at B in
-             {1, 16} within 1e-5, and a ragged case, nprobe 11 over cells of 768
-             rows): error, time per launch (CUDA events), the bound and
+             384, nprobe 64: int8 at B in {1, 16, 64} bit for bit (B > 1 on
+             cell_gather's tensor-core route), f32 at B in {1, 16} within
+             1e-5, and a ragged case, nprobe 11 over cells of 768 rows):
+             error, time per launch (CUDA events, and on the card alone from
+             the profiler for bin_gather and the cell kernels), the bound and
              yardsticks that the port never calls;
 3. serve   — the main path at full e5-small-v2 width (12 layers, hidden 384,
              bf16, seeded random weights): encode 8,192 passages of at least
@@ -44,7 +48,7 @@ Phases, each fatal when it fails:
              configs/kd.yaml: 512 queries x 8 docs, batch 32, query_len 64,
              doc_len 192, one epoch (16 steps); every loss finite, the dropattn
              launches of the train path equal to the count the code implies,
-             every backward on the tensor-core route,
+             every forward and backward on the tensor-core route,
              the first update (lr 0) leaving the parameters as they were and
              the second moving them within AdamW's bound, best_model reloaded
              and used to encode; then one step's gradients through the
@@ -61,7 +65,8 @@ Phases, each fatal when it fails:
              closed-loop clients, then once more without the variable (approx);
              every result against the same engine over the plain versions on
              the same embeddings, 0 mismatched ids; with every cell probed, the
-             exact engine's ids; recall@10 at nprobe 64 against exact search
+             exact engine's ids; every cell_gather launch on the tensor-core
+             route; recall@10 at nprobe 64 against exact search
              over the same rows (gate 0.90), validate() of the index as
              clustered and as approx (gate 0.97 for approx), and ms per search
              of the clustered, approx and exact engines at B in {1, 16, 64}.
@@ -352,6 +357,10 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 g_ms = time_ms(
                     lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n), 20
                 )
+                # the card's own time: the wrapper's host time can exceed it
+                g_dev = kernel_device_ms(
+                    lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n),
+                    "bin_gather_kernel") if k == 10 else None
                 g_plain = time_ms(
                     lambda: tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n),
                     2, 1,
@@ -379,7 +388,8 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 g_entry = {
                     "kernel": "bin_gather", "dtype": dtype, "B": B, "k": k, "kb": kb,
                     "max_abs_err": g_err, "max_rel_err": rel_err(g_got, g_want),
-                    "ms": g_ms, "plain_ms": g_plain, "bound_ms": gb_ms,
+                    "ms": g_ms, "kernel_device_ms": g_dev, "plain_ms": g_plain,
+                    "bound_ms": gb_ms,
                     "bound_by": gb_by, "library_ms": None,
                     "engine_ms": e_ms, "plain_engine_ms": e_plain,
                 }
@@ -492,7 +502,8 @@ def masks_spelled_bf16(seed: int) -> bool:
     live probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in
     bf16; out spells each row's keep bits over the live columns, and dv each
     live column's over the 192 rows (row i in channel i // 8): the keep bits
-    the tensor-core backward stored in pass 1 and applied to pd."""
+    the tensor-core forward drew and applied, and those the tensor-core
+    backward stored in pass 1 and applied to pd."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, L, d, live = 2, 12, 192, 32, 128
@@ -503,7 +514,9 @@ def masks_spelled_bf16(seed: int) -> bool:
     zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
     bias = torch.where(j < live, 0.0, torch.finfo(torch.bfloat16).min / 2).expand(B, L)
     bias = bias.contiguous()
+    before = ta.dropattn_fwd.tc_launches
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    check(ta.dropattn_fwd.tc_launches == before + 1, "bf16 L=192: not the tensor-core forward")
     before = ta.dropattn_bwd.tc_launches
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
     check(ta.dropattn_bwd.tc_launches == before + 1, "bf16 L=192: not the tensor-core backward")
@@ -538,7 +551,8 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
     check(masks_spelled_by_kernels(31), "dropattn kernels: applied keep-mask differs")
     log("[kernels] dropattn: the masks both kernels apply equal the plain mask (L = 256)")
     check(masks_spelled_bf16(37), "dropattn bf16 L=192: applied keep-mask differs")
-    log("[kernels] dropattn: bf16 at L = 192, the tensor-core backward applies the plain mask")
+    log("[kernels] dropattn: bf16 at L = 192, the tensor-core forward and backward apply the "
+        "plain mask")
     for B, h, L, d in ((256, 12, 192, 32), (32, 12, 64, 32), (256, 12, 512, 32)):
         BH = B * h
         q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(torch.bfloat16)
@@ -547,7 +561,16 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
         seed = 1000 + L
         check(masks_equal(seed, BH, L, 0.1), f"dropattn keep-mask [{BH}, {L}, {L}] differs")
         for p in (0.0, 0.1):
+            f_route = ta.dropattn_fwd_route(q.dtype, L)
+            check(f_route == "tc", f"dropattn_fwd bf16 L={L}: route {f_route}")
+            before = ta.dropattn_fwd.tc_launches
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+            check(ta.dropattn_fwd.tc_launches == before + 1,
+                  f"dropattn_fwd L={L}: the launch did not take the tensor-core route")
+            f_again = ta.dropattn_fwd(q, k, v, bias, p, seed)
+            check(torch.equal(out, f_again[0]) and torch.equal(lse, f_again[1]),
+                  f"dropattn_fwd L={L} p={p}: two launches differ")
+            del f_again
             want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
             route = ta.dropattn_bwd_route(q.dtype, L)
             before = ta.dropattn_bwd.tc_launches
@@ -582,7 +605,7 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
             entry = {"shape": [B, h, L, d], "dtype": "bf16", "p": p, "lse_max_abs_err": lse_err,
                      "fwd_max_abs_err": f_err, "fwd_err_over_bound": f_slack,
                      "bwd_max_abs_err": b_err, "bwd_err_over_bound": b_slack,
-                     "bwd_route": route, "bwd_bitwise_repeatable": True}
+                     "fwd_route": f_route, "bwd_route": route, "bitwise_repeatable": True}
             if (B, L) == (256, 192) and p > 0:
                 # the f32 instantiation rounds nothing: summation order only
                 qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
@@ -628,6 +651,8 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     out = {
         "fwd_ms": time_ms(lambda: ta.dropattn_fwd(q, k, v, bias, p, seed), 10),
         "fwd_plain_ms": time_ms(lambda: ta.dropattn_fwd_plain(q, k, v, bias, p, seed), 2, 1),
+        # the same forward without dropout: what drawing the mask costs it
+        "fwd_no_dropout_ms": time_ms(lambda: ta.dropattn_fwd(q, k, v, bias, 0.0, seed), 10),
         "bwd_ms": time_ms(lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g), 10),
         "bwd_plain_ms": time_ms(lambda: ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g),
                                 2, 1),
@@ -652,6 +677,12 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     # backward: q, k, v, g, bias read, dq, dk, dv written; 5 products
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(
         7 * elt + B * L * 4, 10.0 * BH * L * L * d, "bf16")
+    # floors above the bytes: the forward's two exps per score (one a pass)
+    # on the special-function unit, 16 a clock an SM; the mask's Philox
+    # work, measured as what dropout adds to the backward, which draws each
+    # keep bit once, as the forward does
+    out["fwd_exp_floor_ms"] = 2 * BH * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3
+    out["philox_floor_ms"] = out["bwd_ms"] - out["bwd_no_dropout_ms"]
     return out
 
 
@@ -669,6 +700,7 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
 
     x = unit_rows(N_CELLS * CELL_ROWS, dim, gen)
     rows, main_gen, main_b1 = [], None, None
+    check(tc.cell_gather_route(torch.int8, dim) == "tc", "int8 cell_gather: not the tensor cores")
 
     def probes(B, nprobe, n_cells):
         return torch.stack([torch.randperm(n_cells, device="cuda", generator=gen)[:nprobe]
@@ -710,9 +742,16 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
             check(err <= tol, f"{name} {dtype} B={B}: max abs err {err} > {tol}")
             # timed as the engine calls it: without the probe's range check,
             # which waits for the device
+            route = tc.cell_gather_route(corpus.dtype, row_bytes) if B > 1 else "cuda_core"
+            if B > 1:
+                before = tc.cell_gather.tc_launches
+                fn(*sets[0])
+                check(tc.cell_gather.tc_launches - before == (route == "tc"),
+                      f"cell_gather {dtype} B={B}: the launch did not take the {route} route")
             fast = rotating(lambda *a: fn(*a, check_probe=False), sets)
             ms = time_ms(fast, 40, 4)
-            device_ms = kernel_device_ms(fast, name + "_kernel")
+            device_ms = kernel_device_ms(
+                fast, name + ("_tc_kernel" if route == "tc" else "_kernel"))
             plain_ms = time_ms(rotating(plain, sets), 2, 1)
             # bytes: each distinct probed cell once with its scales, the
             # queries, the probe, and every score once (mean over the sets)
@@ -740,7 +779,7 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
             bins_ms = time_ms(rotating(as_bins, sets), 20, 2)
             bmm_ms = time_ms(rotating(gather_bmm, sets), 3, 1) if B <= 16 else None
             entry = {
-                "kernel": name, "dtype": dtype, "B": B, "nprobe": NPROBE,
+                "kernel": name, "dtype": dtype, "B": B, "nprobe": NPROBE, "route": route,
                 "cells": [N_CELLS, CELL_ROWS, dim], "distinct_cells": distinct,
                 "max_abs_err": err, "max_rel_err": max_rel, "ms": ms,
                 "kernel_device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1177,14 +1216,34 @@ class PlainDropoutAttention(torch.autograd.Function):
         return (*(t.to(g.dtype) for t in grads), None, None, None, None)
 
 
-def step_grads(trainer, batch, compute=None) -> torch.Tensor:
+def step_grads(trainer, batch, compute=None, pinned=None) -> torch.Tensor:
     """Every parameter's gradient (flat, f32) of one train step on ``batch``
     at fixed progress and seeds: the trainer's own forward, loss and
     backward, without the update. ``compute`` None runs the dropattn
-    kernels; a dtype swaps in PlainDropoutAttention computing in it."""
+    kernels; a dtype swaps in PlainDropoutAttention computing in it.
+
+    ``pinned`` (a dict) fixes where Margin-MSE takes each row's max: the
+    first call on it records the argmax of every ``_masked_max`` of the step
+    (``pinned["index"]``), later calls take the max at those indices, the
+    same function with the same subgradient, and count in
+    ``pinned["moved"]`` the rows whose own argmax lies elsewhere."""
+    from sskd_tpu_torch.kd import losses
     from sskd_tpu_torch.models import bert
 
     module = trainer.student.module
+    masked_max = losses._masked_max
+    calls = []
+
+    def pinned_max(x, mask):
+        masked = torch.where(mask > 0, x, losses._NEG)
+        own = masked.argmax(dim=-1, keepdim=True)
+        index = pinned.setdefault("index", [])
+        if len(calls) == len(index):
+            index.append(own)
+        at = index[len(calls)]
+        pinned["moved"] = pinned.get("moved", 0) + int((own != at).sum())
+        calls.append(at)
+        return masked.gather(-1, at)
 
     class NoUpdate:
         def begin(self):
@@ -1199,6 +1258,8 @@ def step_grads(trainer, batch, compute=None) -> torch.Tensor:
         bert.dropout_attention = (
             lambda q, k, v, bias, p, seed: PlainDropoutAttention.apply(q, k, v, bias, p, seed,
                                                                         compute))
+    if pinned is not None:
+        losses._masked_max = pinned_max
     try:
         trainer._prepare_module()
         trainer._train_step(batch, 0.5, 11)
@@ -1206,6 +1267,7 @@ def step_grads(trainer, batch, compute=None) -> torch.Tensor:
                            if p.grad is not None])
     finally:
         trainer._opt, bert.dropout_attention = saved
+        losses._masked_max = masked_max
         module.zero_grad(set_to_none=True)
         module.eval()
         module.encoder.remat = None
@@ -1306,7 +1368,11 @@ def phase_train(args) -> dict:
               f"dropattn_fwd launches {counts['dropattn_fwd']}, want {steps * 2 * towers}")
         check(counts["dropattn_bwd"] == steps * towers,
               f"dropattn_bwd launches {counts['dropattn_bwd']}, want {steps * towers}")
-        # every backward of both towers (L = 64 and 192, bf16) on the tensor cores
+        # every forward and backward of both towers (L = 64 and 192, bf16) on
+        # the tensor cores
+        check(tc_counts["dropattn_fwd"] == counts["dropattn_fwd"],
+              f"dropattn_fwd: {tc_counts['dropattn_fwd']} of {counts['dropattn_fwd']} "
+              "launches took the tensor-core route")
         check(tc_counts["dropattn_bwd"] == counts["dropattn_bwd"],
               f"dropattn_bwd: {tc_counts['dropattn_bwd']} of {counts['dropattn_bwd']} "
               "launches took the tensor-core route")
@@ -1359,12 +1425,29 @@ def phase_train(args) -> dict:
     # and the plain pair differ by f32 summation order only, which the step
     # keeps far below 1e-3 of the gradient's norm, while a mask, seed or
     # bias that a recompute or the backward got wrong moves it by percents.
-    g_kernel = step_grads(trainer, packed[0])
-    g_plain = step_grads(trainer, packed[0], torch.bfloat16)
-    g_plain32 = step_grads(trainer, packed[0], torch.float32)
+    # The bf16 distances are taken over the gradients of all three pre-packed
+    # batches at once. Margin-MSE subtracts each row's max student score,
+    # whose gradient goes to the argmax doc alone; the random-init student
+    # scores a query's docs about 1e-3 apart, less than bf16 rounding moves
+    # them, so any perturbation (a constant added to the bias, the plain pair
+    # in f32, the kernels) can move some row's argmax, which moves 7-23 % of
+    # the gradient's norm at once. Every run of a batch therefore takes the
+    # max where the plain run found it (in the f32 step too): the same loss,
+    # the same subgradient, and a comparison of the attention's arithmetic
+    # alone.
+    g_kernel, g_plain, g_plain32, moved = [], [], [], 0
+    for b in packed:
+        pinned: dict = {}
+        g_plain.append(step_grads(trainer, b, torch.bfloat16, pinned))
+        g_kernel.append(step_grads(trainer, b, None, pinned))
+        g_plain32.append(step_grads(trainer, b, torch.float32, pinned))
+        moved += pinned["moved"]
+    g_kernel, g_plain, g_plain32 = (torch.cat(g) for g in (g_kernel, g_plain, g_plain32))
     g_norm = g_plain.norm().item()
     grad_check = {
-        "grad_norm": g_norm,
+        "grad_norm": g_norm, "batches": len(packed),
+        # rows whose own argmax the kernels' or the f32 run moved (pinned)
+        "max_rows_moved": moved,
         "kernel_vs_plain_rel": (g_kernel - g_plain).norm().item() / g_norm,
         "bf16_noise_rel": (g_plain32 - g_plain).norm().item() / g_norm,
         "cosine_kernel_plain": F.cosine_similarity(g_kernel, g_plain, dim=0).item(),
@@ -1374,8 +1457,10 @@ def phase_train(args) -> dict:
                              seed=args.seed)
     student32.module.load_state_dict(student.module.state_dict())
     trainer32 = KDTrainer(student32, settings)
-    g_kernel = step_grads(trainer32, packed[0])
-    g_plain = step_grads(trainer32, packed[0], torch.float32)
+    pinned = {}
+    g_plain = step_grads(trainer32, packed[0], torch.float32, pinned)
+    g_kernel = step_grads(trainer32, packed[0], None, pinned)
+    grad_check["f32_max_rows_moved"] = pinned["moved"]
     grad_check["f32_grad_norm"] = g_plain.norm().item()
     grad_check["f32_kernel_vs_plain_rel"] = ((g_kernel - g_plain).norm().item()
                                              / grad_check["f32_grad_norm"])
@@ -1586,7 +1671,7 @@ def phase_clustered(args) -> dict:
     from sskd_tpu_torch.config import Settings
     from sskd_tpu_torch.index.builder import IndexBuilder
     from sskd_tpu_torch.models.student import StudentModel
-    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
     from sskd_tpu_torch.ops.topk import approx_topk, cosine_topk
     from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
     from sskd_tpu_torch.serve.app import create_app
@@ -1654,11 +1739,14 @@ def phase_clustered(args) -> dict:
     served_sweep = serve_and_record(app_sweep, "clustered-approx", texts[288:296], texts[296:],
                                     32, None)
     torch.cuda.synchronize()
-    counts = launch_counts()  # the clustered path ends here
+    counts, tc_counts = launch_counts(), tc_launch_counts()  # the clustered path ends here
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"[clustered] launches on the clustered path: {counts}")
     check(counts["cell_gather_b1"] >= 8, "cell_gather_b1 was not launched by the library entry")
     check(counts["cell_gather"] >= 2, "cell_gather was not launched")
+    check(tc_counts["cell_gather"] == counts["cell_gather"],
+          f"cell_gather: {tc_counts['cell_gather']} of {counts['cell_gather']} launches took "
+          "the tensor-core route")
     n_probe_batches = len(served_probe["recorded"])
     check(probe_launches >= n_probe_batches > 0,
           f"cell_gather rose by {probe_launches} over {n_probe_batches} served batches")
@@ -1764,7 +1852,7 @@ def phase_clustered(args) -> dict:
         "recall_at_10_clustered_vs_exact": recall, "recall_at_10_approx_vs_exact": approx_recall,
         "validate_clustered": validate_clustered, "validate_approx": validate_approx,
         "engine_ms": table, "clustered_steps_ms": parts,
-        "peak_device_gib": peak_gib, "launches": counts,
+        "peak_device_gib": peak_gib, "launches": counts, "tc_launches": tc_counts,
     }
 
 
@@ -1816,6 +1904,12 @@ def main(argv=None) -> int:
     cell_rows, main_cells, main_cells_b1 = phase_cells(gen)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows
+    # the int8 cell_gather at both batches the clustered engine probes with
+    record["cell_gather_int8"] = {
+        f"B={r['B']}": {n: r[n] for n in ("route", "ms", "kernel_device_ms", "bound_ms",
+                                          "distinct_cells")}
+        for r in cell_rows if r["kernel"] == "cell_gather" and r["dtype"] == "int8"}
+    log(f"[kernels] cell_gather int8: {json.dumps(record['cell_gather_int8'])}")
     t0 = time.perf_counter()
     record["serve"] = phase_serve(args, gen)
     log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")

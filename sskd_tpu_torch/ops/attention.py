@@ -15,8 +15,9 @@
 - :func:`dropout_attention` is training attention with dropout on the
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
-  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``; the backward has a
-  tensor-core route (:func:`dropattn_bwd_route`, ``dropattn_bwd.tc_launches``).
+  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``; each has a
+  tensor-core route (:func:`dropattn_fwd_route`, :func:`dropattn_bwd_route`;
+  ``dropattn_fwd.tc_launches``, ``dropattn_bwd.tc_launches``).
 
 The TPU's dispatch rule (a 256 MB score threshold, head groups sized to
 VMEM) is not carried over. ``FLASH_MIN_L`` = 512 is the length the corpus
@@ -53,6 +54,9 @@ _DROPATTN_HEAD_DIMS = (32,)
 # the longest L whose head fits the shared memory of one block of the
 # tensor-core backward (csrc/dropattn_bwd.cu DT_MAX_L)
 DROPATTN_TC_MAX_L = 256
+# the longest L whose K and V fit the shared memory of one block of the
+# tensor-core forward (csrc/dropattn_fwd.cu DFT_MAX_L)
+DROPATTN_FWD_TC_MAX_L = 1024
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
@@ -61,6 +65,14 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
     head dim 32, ``"cuda_core"`` (``flash_fwd_kernel``) for f32 and the other
     head dims."""
     return "tc" if dtype == torch.bfloat16 and d == 32 else "cuda_core"
+
+
+def dropattn_fwd_route(dtype: torch.dtype, L: int) -> str:
+    """The kernel a CUDA call of :func:`dropattn_fwd` launches: ``"tc"``
+    (tensor cores, csrc/dropattn_fwd.cu ``dropattn_fwd_tc_kernel``) for bf16
+    at L <= ``DROPATTN_FWD_TC_MAX_L``, ``"cuda_core"``
+    (``dropattn_fwd_kernel``) for f32 and longer L."""
+    return "tc" if dtype == torch.bfloat16 and L <= DROPATTN_FWD_TC_MAX_L else "cuda_core"
 
 
 def dropattn_bwd_route(dtype: torch.dtype, L: int) -> str:
@@ -439,26 +451,22 @@ def dropout_attention_plain(q, k, v, bias, p: float, seed: int):
 
 
 def _abs_products(q, k, v, bias, p, seed, lse, g):
-    """f32 sums of absolute values that bound each product's error, over
-    every head: ``pv`` = pd @ |v| (without ``g``); with ``g`` also ``pg`` =
-    pd^T @ |g|, ``dsk`` = |ds| @ |k|, ``dsq`` = |ds|^T @ |q| and the drift
-    of the tensor-core arithmetic (see :func:`dropattn_bwd_error_bound`):
+    """f32 sums of absolute values that bound each backward product's
+    error, over every head: ``pg`` = pd^T @ |g|, ``dsk`` = |ds| @ |k|,
+    ``dsq`` = |ds|^T @ |q| and the drift of the tensor-core arithmetic (see
+    :func:`dropattn_bwd_error_bound`):
     ``pg_drift`` = (eps pd)^T @ |g|, ``dsk_drift`` = delta_ds @ |k| and
     ``dsq_drift`` = delta_ds^T @ |q|."""
     B, h, L, d = q.shape
     qf, kf, vf, bf = (t.float() for t in _flat(q, k, v, bias))
-    gf = None if g is None else g.reshape(B * h, L, d).float()
+    gf = g.reshape(B * h, L, d).float()
     inv, scale = 1.0 / (1.0 - p), 1.0 / (d**0.5)
-    names = ("pv",) if gf is None else ("pg", "dsk", "dsq", "pg_drift", "dsk_drift",
-                                        "dsq_drift")
+    names = ("pg", "dsk", "dsq", "pg_drift", "dsk_drift", "dsq_drift")
     out = {n: torch.empty_like(qf) for n in names}
     for a, b in _chunks(B * h, L):
-        lse_c = None if lse is None else lse.reshape(B * h, L)[a:b].float()
+        lse_c = lse.reshape(B * h, L)[a:b].float()
         probs, keep, _ = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a, scale, lse_c)
         pd = probs if keep is None else torch.where(keep, probs * inv, 0.0)
-        if gf is None:
-            out["pv"][a:b] = torch.matmul(pd, vf[a:b].abs())
-            continue
         gc, qa, ka, va = gf[a:b], qf[a:b].abs(), kf[a:b].abs(), vf[a:b].abs()
         out["pg"][a:b] = torch.matmul(pd.transpose(-1, -2), gc.abs())
         dpd = torch.matmul(gc, vf[a:b].transpose(-1, -2))
@@ -492,18 +500,47 @@ def _unit(dtype) -> float:
 
 
 def dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want):
-    """Per-element bound on |got - want| between the forward kernel and
-    :func:`dropattn_fwd_plain` on the same inputs and the same mask. Both
-    round each kept probability to the input type (at most u of it, u = 2^-8
-    in bf16), so the products with v differ by at most 2u (pd @ |v|); each
-    side rounds its output (u of its value). The rest is f32 arithmetic in
-    another order: the kernel takes the row max and sum online and scales by
-    1 / sum where the plain version divides; at L <= 512 that moves each
-    probability by well under 1e-5 of itself, which the 1e-5 (pd @ |v|) term
-    covers."""
+    """Per-element bound on |got - want| between the forward kernel (either
+    route) and :func:`dropattn_fwd_plain` on the same inputs and the same
+    mask.
+
+    - Both round each kept probability to the input type (at most u of it,
+      u = 2^-8 in bf16), so the products with v differ by at most 2u of
+      ``pv`` = pd @ |v|; each side rounds its output (u of its value).
+    - The tensor-core route takes each normalised probability as one exp2 of
+      the score folded with scale * log2(e) and of (bias - lse) * log2(e), so
+      its probs are the plain ones times exp(e_j), |e_j| <= eps_j + d_lse:
+      eps_j (:func:`_exponent_error` with |bias| + |lse| as the shift, 0 where
+      probs is 0) for the score's truncating sums and the roundings, and
+      d_lse for its own lse: the largest eps_j of the row, which moves each
+      term of the row's sum as much, the ex2 of each rescale of the running
+      sums (one per 16-key chunk and per merge, 2^-21 each), the f32 sums of
+      L terms (L * 2^-24) and log2 (2^-21). Through pd @ v that moves out by
+      at most 1.01 (pd @ (eps |v|) + d_lse pv).
+    - The products over L: _gamma(L) of pv (truncating mma sums on one side,
+      f32 sums on the other). The CUDA-core route (online max and sum,
+      expf and a division) moves each probability by less than the 1e-5
+      (pd @ |v|) term, which the bound keeps."""
     u = _unit(q.dtype)
-    terms = _abs_products(q, k, v, bias, p, seed, None, None)
-    return u * (got.float().abs() + want.float().abs()) + (2 * u + 1e-5) * terms["pv"] + 1e-6
+    B, h, L, d = q.shape
+    qf, kf, vf, bf = (t.float() for t in _flat(q, k, v, bias))
+    inv, scale = 1.0 / (1.0 - p), 1.0 / (d**0.5)
+    pv, drift = torch.empty_like(qf), torch.empty_like(qf)
+    rescale = (math.ceil(L / 16) + 3) * 2.0**-21 + L * 2.0**-24
+    for a, b in _chunks(B * h, L):
+        probs, keep, lse = _probs_and_mask(qf[a:b], kf[a:b], bf[a:b], p, seed, a, scale)
+        pd = probs if keep is None else torch.where(keep, probs * inv, 0.0)
+        absv = vf[a:b].abs()
+        pv[a:b] = torch.matmul(pd, absv)
+        s = torch.matmul(qf[a:b], kf[a:b].transpose(-1, -2)) * scale
+        absdot = torch.matmul(qf[a:b].abs(), kf[a:b].abs().transpose(-1, -2))
+        shift = bf[a:b].abs()[:, None, :] + lse.abs()[:, :, None]
+        eps = torch.where(probs > 0, _exponent_error(s, absdot, shift, d), 0.0)
+        d_lse = eps.amax(dim=-1, keepdim=True) + rescale
+        drift[a:b] = 1.01 * (torch.matmul(pd * eps, absv) + d_lse * pv[a:b])
+    pv, drift = pv.view(B, h, L, d), drift.view(B, h, L, d)
+    return (u * (got.float().abs() + want.float().abs())
+            + (2 * u + 1e-5 + (1 + u) * _gamma(L)) * pv + (1 + u) * drift + 1e-6)
 
 
 def dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want):
@@ -576,7 +613,22 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B, h, L), dtype=torch.float32, device=q.device)
-    fn = _build.load_library("dropattn_fwd").sskd_dropattn_fwd
+    lib = _build.load_library("dropattn_fwd")
+    if dropattn_fwd_route(q.dtype, L) == "tc":
+        fn = lib.sskd_dropattn_fwd_tc
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        _build.check(
+            fn(*(_ptr(t) for t in (q, k, v, bias, out, lse)), B, h, L, d, _scale_log2(d),
+               int(seed) & _U32, float(p), 1.0 / (1.0 - p), _stream(q)),
+            "dropattn_fwd (tensor cores)",
+        )
+        dropattn_fwd.launches += 1
+        dropattn_fwd.tc_launches += 1
+        return out, lse
+    fn = lib.sskd_dropattn_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
@@ -591,6 +643,7 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
 
 
 dropattn_fwd.launches = 0
+dropattn_fwd.tc_launches = 0  # the launches that took the tensor-core route
 
 
 def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):

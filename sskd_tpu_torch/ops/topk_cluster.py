@@ -11,12 +11,15 @@ Shapes: corpus ``[P, D]`` row-reordered so that cell ``i`` owns rows
 ``valid_n``). Indices come back in REORDERED space: the caller (IndexBuilder)
 maps them through its stored permutation.
 
-The per-cell scores are the two kernels of csrc/cell_gather.cu, chosen as the
+The per-cell scores are the kernels of csrc/cell_gather.cu, chosen as the
 JAX package chooses its two: one query goes to ``cell_gather_b1``, any other
-batch to ``cell_gather``. Each wrapper launches its kernel on a CUDA tensor
-and counts the launch in its ``launches`` attribute; on a CPU tensor it runs
-its plain torch version (``cell_gather_plain``, ``cell_gather_b1_plain``),
-which keeps its kernel's order of the two scale products. The JAX package's
+batch to ``cell_gather``, which has two routes (:func:`cell_gather_route`):
+int8 rows on the tensor cores, each probed cell read once, counted also in
+``cell_gather.tc_launches``; f32 rows on CUDA cores. Each wrapper launches
+its kernel on a CUDA tensor and counts the launch in its ``launches``
+attribute; on a CPU tensor it runs its plain torch version
+(``cell_gather_plain``, ``cell_gather_b1_plain``), which keeps its kernel's
+order of the two scale products. The JAX package's
 ``clustered_topk_impl`` twin exists to avoid a nested jit; PyTorch runs
 eagerly, so there is one function here.
 """
@@ -46,6 +49,20 @@ CLUSTER_MAX_BATCH = 64
 
 _MODES = {torch.float32: 0, torch.int8: 1}
 _MAX_ROW_BYTES = 48 * 1024  # the kernels keep the query row in shared memory
+# the longest int8 row the tensor-core route takes (csrc/cell_gather.cu
+# TC_MAX_ROW_BYTES): the widths of the models the port serves, and those the
+# card's tests cover; longer rows take the CUDA-core kernel
+CELL_TC_MAX_ROW_BYTES = 1024
+
+
+def cell_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
+    """The kernel a CUDA call of :func:`cell_gather` launches: ``"tc"``
+    (``cell_gather_tc_kernel``: each probed cell's rows brought into shared
+    memory once and scored against all its queries by int8 mma) for int8
+    rows of at most ``CELL_TC_MAX_ROW_BYTES``, ``"cuda_core"``
+    (``cell_gather_kernel``, a block per (query, slot, tile)) for f32 and
+    longer rows."""
+    return "tc" if dtype == torch.int8 and row_bytes <= CELL_TC_MAX_ROW_BYTES else "cuda_core"
 
 
 def _check_cells(q_in, q_scale, corpus, row_scales, probe, rows_per_cell, one_query):
@@ -110,8 +127,20 @@ def cell_gather(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
                       q_in, q_scale, row_scales)
     B, nprobe = probe.shape
     out = torch.empty((B, nprobe, rows_per_cell), dtype=torch.float32, device=corpus.device)
-    # the (query, slot) pairs sorted by cell: blocks that read one cell run side by side
-    order = torch.sort(probe.view(-1), stable=True)[1].to(torch.int32) if B > 1 else None
+    # the (query, slot) pairs sorted by cell: the cells in order and the pairs' order
+    cells, order = torch.sort(probe.view(-1), stable=True)
+    if cell_gather_route(corpus.dtype, row_bytes) == "tc":
+        _build.check(
+            _fn("cell_gather", "sskd_cell_gather_tc")(
+                _ptr(q_in), _ptr(q_scale), _ptr(corpus), _ptr(row_scales), _ptr(cells),
+                _ptr(order), _ptr(out), B, nprobe, rows_per_cell, row_bytes,
+                _stream(corpus.device),
+            ),
+            "cell_gather (tensor cores)",
+        )
+        cell_gather.launches += 1
+        cell_gather.tc_launches += 1
+        return out
     _build.check(
         _fn("cell_gather", "sskd_cell_gather")(
             mode, _ptr(q_in), _ptr(q_scale), _ptr(corpus), _ptr(row_scales), _ptr(probe),
@@ -125,6 +154,7 @@ def cell_gather(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
 
 
 cell_gather.launches = 0
+cell_gather.tc_launches = 0  # the launches that took the tensor-core route
 
 
 def cell_gather_b1(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,

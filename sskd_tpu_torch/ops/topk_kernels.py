@@ -299,6 +299,7 @@ _ARGTYPES = {
     "sskd_bin_gather": "i p p p p p p i i l i l p",
     "sskd_cell_gather": "i p p p p p p p i i i i p",
     "sskd_cell_gather_b1": "i p p p p p i i i p",
+    "sskd_cell_gather_tc": "p p p p p p p i i i i p",
 }
 _CTYPES = {"i": ctypes.c_int, "l": ctypes.c_long, "p": ctypes.c_void_p}
 

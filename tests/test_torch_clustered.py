@@ -39,6 +39,7 @@ from sskd_tpu_torch.serve import app as app_module
 from sskd_tpu_torch.serve.fused import FusedSearcher
 from sskd_tpu_torch.serve.http import TestClient
 from sskd_tpu_torch.tokenization import WordPieceTokenizer
+from torch_tc_emulation import CELL_RUN, cell_gather_tc
 
 
 def _mixture(n, d, n_modes, spread, seed=0):
@@ -157,6 +158,38 @@ def test_plain_cell_gather_matches_pallas(cells, dtype, nprobe, B):
         np.testing.assert_array_equal(got, want)
     else:  # f32: summation order; int8 against XLA at B > 1: the scales' order
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,nprobe,rpc,d,same", [
+    (2, 3, 256, 128, False), (16, 8, 256, 128, False), (64, 5, 200, 48, False),
+    (200, 11, 768, 64, True), (3, 11, 768, 64, False),
+])
+def test_tensor_core_cell_gather_schedule_reads_each_cell_once(B, nprobe, rpc, d, same):
+    """The int8 tensor-core cell gather's schedule (tests/torch_tc_emulation.py):
+    every (query, slot) pair is scored, bit for bit as cell_gather_plain
+    scores it, and every distinct probed cell is brought in once, also where
+    a cell's pairs straddle two runs of the sorted order and where every
+    query probes the same cells. d = 48 is not a whole number of the mma's
+    32-byte steps; rpc = 200 ends on a partial tile."""
+    n_cells = 20
+    rng = np.random.default_rng(B * 1000 + nprobe)
+    x = rng.standard_normal((n_cells * rpc, d)).astype(np.float32)
+    xq, xs = (_t(np.asarray(a)) for a in jquant8(x))
+    q_in, q_scale = tt.quantize_queries(_t(rng.standard_normal((B, d)).astype(np.float32)), xq)
+    if same:
+        probe = np.tile(rng.permutation(n_cells)[:nprobe], (B, 1))
+    else:
+        probe = np.stack([rng.permutation(n_cells)[:nprobe] for _ in range(B)])
+    probe = _t(probe.astype(np.int32))
+    got, loads = cell_gather_tc(q_in, q_scale, xq, xs, probe, rpc)
+    want = tt.cell_gather(q_in, q_scale, xq, xs, probe, rpc)
+    assert torch.equal(got, want)  # no NaN left: every pair scored
+    assert sorted(loads) == sorted(set(probe.reshape(-1).tolist()))
+    assert set(loads.values()) == {1}
+    sorted_cells = torch.sort(probe.reshape(-1)).values
+    bounds = range(CELL_RUN, B * nprobe, CELL_RUN)
+    straddles = sum(int(sorted_cells[i - 1] == sorted_cells[i]) for i in bounds)
+    assert straddles > 0 or B * nprobe <= CELL_RUN
 
 
 def test_cell_gather_wrappers_refuse_bad_operands(cells):

@@ -15,10 +15,11 @@ import jax
 import jax.numpy as jnp
 
 from sskd_tpu.ops.attention import _dropattn_bwd_call as j_dropattn_bwd
+from sskd_tpu.ops.attention import _dropattn_fwd_call as j_dropattn_fwd
 from sskd_tpu.ops.attention import dropout_attention as j_dropattn
 from sskd_tpu.ops.attention import scaled_dot_attention as j_sda
 from sskd_tpu_torch.ops import attention as ta
-from torch_tc_emulation import dropattn_bwd_tc
+from torch_tc_emulation import dropattn_bwd_tc, dropattn_fwd_tc
 
 NEG = float(np.finfo(np.float32).min / 2)
 
@@ -225,6 +226,57 @@ def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_plain_versio
     got = dropattn_bwd_tc(qb, kb, vb, bias, 0.1, 17, lse, gb, keep)
     want = ta.dropattn_bwd_plain(qb, kb, vb, bias, 0.1, 17, lse, gb)
     _held_to_the_bound(qb, kb, vb, bias, 0.1, 17, lse, gb, got, want)
+
+
+def _fwd_within(q, k, v, bias, p, seed, got, want):
+    bound = ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want)
+    return (got.float() - want.float()).abs() / bound
+
+
+FWD_LENGTHS = [16, 64, 100, 192, 512]  # 100: a ragged last chunk of 16 keys
+
+
+@pytest.mark.parametrize("L", FWD_LENGTHS)
+def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_jax_kernel(L):
+    """The bf16 tensor-core forward's arithmetic (truncating mma sums, two
+    passes with the exponent folded into one exp2; tests/torch_tc_emulation.py)
+    against the JAX forward kernel in interpret mode at p = 0 on the same
+    bf16 inputs: within dropattn_fwd_error_bound at every element, its lse
+    within 1e-4 of the plain one (the check the card holds the kernel to);
+    the same arithmetic with every probability 2 % off is not."""
+    q, k, v, _, bias = _inputs(L + 7, 2, 3, L, 32)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    tb = torch.from_numpy(bias)
+    want = j_dropattn_fwd(0.0, True, *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                       for t in (qb, kb, vb)),
+                          jnp.asarray(bias), jnp.asarray([3], jnp.int32))
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(torch.bfloat16)
+    got, lse = dropattn_fwd_tc(qb, kb, vb, tb, 0.0, None)
+    ratio = _fwd_within(qb, kb, vb, tb, 0.0, 3, got, want)
+    assert ratio.max().item() <= 1.0, ratio.max().item()
+    _, want_lse = ta.dropattn_fwd_plain(qb, kb, vb, tb, 0.0, 3)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    faulty, _ = dropattn_fwd_tc(qb, kb, vb, tb, 0.0, None, fault=1.02)
+    assert _fwd_within(qb, kb, vb, tb, 0.0, 3, faulty, want).max().item() > 1.0
+
+
+@pytest.mark.parametrize("L", FWD_LENGTHS)
+def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_plain_version(L):
+    """At p = 0.1 (no JAX reference draws the port's mask) the same
+    arithmetic against dropattn_fwd_plain with the plain keep-mask; a 2 %
+    fault in the probabilities, or the mask shifted by one key, is not."""
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 11, 2, 3, L, 32))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    keep = ta.dropout_keep_mask(19, 6, L, 0.1).view(2, 3, L, L)
+    want, want_lse = ta.dropattn_fwd_plain(qb, kb, vb, bias, 0.1, 19)
+    got, lse = dropattn_fwd_tc(qb, kb, vb, bias, 0.1, keep)
+    ratio = _fwd_within(qb, kb, vb, bias, 0.1, 19, got, want)
+    assert ratio.max().item() <= 1.0, ratio.max().item()
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    faulty, _ = dropattn_fwd_tc(qb, kb, vb, bias, 0.1, keep, fault=1.02)
+    assert _fwd_within(qb, kb, vb, bias, 0.1, 19, faulty, want).max().item() > 1.0
+    shifted, _ = dropattn_fwd_tc(qb, kb, vb, bias, 0.1, torch.roll(keep, 1, dims=-1))
+    assert _fwd_within(qb, kb, vb, bias, 0.1, 19, shifted, want).max().item() > 1.0
 
 
 def test_dropout_attention_checks_its_inputs():

@@ -419,18 +419,25 @@ def test_attention_routes_and_their_counters():
     for dtype, d in ((torch.bfloat16, 32), (torch.float32, 32), (torch.bfloat16, 16)):
         q = torch.randn(2, 3, 96, d, device="cuda").to(dtype)
         ta.flash_attention(q, q, q)
-    for dtype, L in ((torch.bfloat16, 192), (torch.float32, 192), (torch.bfloat16, 320)):
+    for dtype, L in ((torch.bfloat16, 192), (torch.float32, 192), (torch.bfloat16, 320),
+                     (torch.bfloat16, 1040)):
         q, k, v, go, bias = _attn_inputs(2, 3, L, 32, dtype, seed=L)
         _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
-        ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
+        if L <= 320:
+            ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
     torch.cuda.synchronize()
     counts, tc = launch_counts(), tc_launch_counts()
     assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 1
     assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 1
+    assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 2
     assert ta.dropattn_bwd_route(torch.bfloat16, ta.DROPATTN_TC_MAX_L) == "tc"
     assert ta.dropattn_bwd_route(torch.bfloat16, ta.DROPATTN_TC_MAX_L + 1) == "cuda_core"
+    assert ta.dropattn_fwd_route(torch.bfloat16, ta.DROPATTN_FWD_TC_MAX_L) == "tc"
+    assert ta.dropattn_fwd_route(torch.bfloat16, ta.DROPATTN_FWD_TC_MAX_L + 1) == "cuda_core"
+    assert ta.dropattn_fwd_route(torch.float32, 64) == "cuda_core"
     reset_launch_counts()
-    assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_bwd": 0}
+    assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
+                                  "cell_gather": 0}
 
 
 def test_dropattn_tensor_core_backward_applies_the_plain_mask():
@@ -461,3 +468,113 @@ def test_dropattn_tensor_core_backward_applies_the_plain_mask():
     want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
     assert bool((spell(out, live) == want[..., :live]).all())
     assert bool((spell(dv[:, :, :live], L) == want[..., :live].transpose(-1, -2)).all())
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core dropattn_fwd and the tensor-core cell_gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [16, 64, 100, 130, 192, 256, 512])
+def test_dropattn_fwd_tensor_core_route_matches_plain(p, L):
+    """bf16 at head dim 32 takes the tensor-core forward at every L the
+    trainer uses and beyond: each element within dropattn_fwd_error_bound,
+    the lse within 1e-4 of the plain one (what the backward reads)."""
+    _need_card()
+    q, k, v, _, bias = _attn_inputs(4, 12, L, 32, torch.bfloat16, seed=500 + L)
+    seed = 40 + L
+    before, tc_before = ta.dropattn_fwd.launches, ta.dropattn_fwd.tc_launches
+    out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+    torch.cuda.synchronize()
+    assert ta.dropattn_fwd_route(q.dtype, L) == "tc"
+    assert ta.dropattn_fwd.launches == before + 1
+    assert ta.dropattn_fwd.tc_launches == tc_before + 1
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    diff = (out.float() - want.float()).abs()
+    bound = ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out, want)
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+def test_dropattn_fwd_tensor_core_route_is_bitwise_repeatable():
+    _need_card()
+    q, k, v, _, bias = _attn_inputs(8, 12, 192, 32, torch.bfloat16, seed=13)
+    first = ta.dropattn_fwd(q, k, v, bias, 0.1, 21)
+    second = ta.dropattn_fwd(q, k, v, bias, 0.1, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("L", [64, 256, 512])
+def test_dropattn_fwd_tensor_core_route_applies_the_plain_mask(L):
+    """bf16, q = k = 0 and a zero bias: each probability is 1/L, each kept
+    pd 2/L at p = 0.5, exact in bf16. With v holding 2^(j % 8) in channel
+    (j // 8) % 32 for the keys j of one window of 256 (0 elsewhere), out
+    spells each row's keep bits over that window: the mask the tensor-core
+    forward applied, read back bit for bit over every column."""
+    _need_card()
+    B, h, d, seed = 2, 3, 32, 71
+    zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
+    bias = torch.zeros(B, L, device="cuda")
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    j = torch.arange(L, device="cuda")
+    bit = torch.arange(8, device="cuda")
+    tc_before = ta.dropattn_fwd.tc_launches
+    for w0 in range(0, L, 256):
+        n = min(256, L - w0)
+        code = torch.zeros(L, d, device="cuda")
+        win = j[w0:w0 + n]
+        code[win, (win - w0) // 8] = (2.0 ** (win % 8)).float()
+        code = code.to(torch.bfloat16).expand(B, h, L, d).contiguous()
+        out, _ = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+        c = (out.float() * (L / 2)).round().long()[..., : n // 8]
+        spelled = ((c[..., None] >> bit) & 1).flatten(-2).bool()
+        assert bool((spelled == want[..., w0:w0 + n]).all())
+    assert ta.dropattn_fwd.tc_launches == tc_before + (L + 255) // 256
+
+
+@pytest.mark.parametrize("B,nprobe,rpc,same", [
+    (2, 64, 1024, False), (16, 64, 1024, False), (64, 64, 1024, False), (200, 11, 768, False),
+    (64, 11, 768, True), (200, 64, 1024, True), (3, 11, 768, False), (16, 5, 200, False),
+])
+def test_cell_gather_tensor_core_route_is_bit_for_bit(B, nprobe, rpc, same):
+    """int8 at any batch takes the tensor-core route: bit for bit with the
+    plain version where queries share cells (runs of the sorted pairs
+    straddle a cell at every batch above one run), where every query probes
+    the same cells (one block scores them all), on ragged cells (768, 200
+    rows: partial 64-row tiles) and at nprobe 11."""
+    from sskd_tpu_torch.ops import topk_cluster as tc
+
+    _need_card()
+    n_cells = 70 if rpc <= 768 else 977
+    q, corpus, scales, probe = _cells("int8", n_cells, rpc, 384, B, nprobe, seed=B + nprobe)
+    if same:
+        probe = probe[:1].expand(B, nprobe).contiguous()
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    assert tc.cell_gather_route(corpus.dtype, 384) == "tc"
+    before, tc_before = tc.cell_gather.launches, tc.cell_gather.tc_launches
+    got = tc.cell_gather(q_in, q_scale, corpus, scales, probe, rpc)
+    want = tc.cell_gather_plain(q_in, q_scale, corpus, scales, probe, rpc)
+    again = tc.cell_gather(q_in, q_scale, corpus, scales, probe, rpc)
+    torch.cuda.synchronize()
+    assert tc.cell_gather.launches == before + 2 and tc.cell_gather.tc_launches == tc_before + 2
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_cell_gather_routes_by_dtype_and_row_size():
+    from sskd_tpu_torch.ops import topk_cluster as tc
+
+    _need_card()
+    assert tc.cell_gather_route(torch.int8, tc.CELL_TC_MAX_ROW_BYTES) == "tc"
+    assert tc.cell_gather_route(torch.int8, tc.CELL_TC_MAX_ROW_BYTES + 16) == "cuda_core"
+    assert tc.cell_gather_route(torch.float32, 384 * 4) == "cuda_core"
+    for dtype, d in (("int8", 1040), ("f32", 384)):
+        q, corpus, scales, probe = _cells(dtype, 20, 256, d, 4, 5, seed=d)
+        q_in, q_scale = tk.quantize_queries(q, corpus)
+        tc_before = tc.cell_gather.tc_launches
+        got = tc.cell_gather(q_in, q_scale, corpus, scales, probe, 256)
+        want = tc.cell_gather_plain(q_in, q_scale, corpus, scales, probe, 256)
+        torch.cuda.synchronize()
+        assert tc.cell_gather.tc_launches == tc_before
+        assert (got - want).abs().max().item() <= (0.0 if dtype == "int8" else 1e-5)
