@@ -10,7 +10,12 @@ Phases, each fatal when it fails:
              spills;
 2. kernels — each kernel against its plain torch version on the card at the
              shapes of the main path (binmax / exact engine: f32, int8 and
-             int4 at 1M x 384, B in {1, 16, 256}, k in {10, 100};
+             int4 at 1M x 384, B in {1, 16, 256} and int8 also at 64, k in
+             {10, 100}, int8 binmax_strided and bin_gather on their
+             tensor-core routes, with bin_gather's pairs in their own order
+             against sorted by bin on corpus-derived queries, the
+             wrapper's host microseconds by part, and binmax_strided at
+             several block counts for approx_blocks;
              flash_attn_fwd: [256, 12, L, 32] bf16 on its tensor-core route,
              L in {128, 256, 512}, each element within its rounding bound,
              timed beside SDPA and plain_attention (the FLASH_MIN_L
@@ -30,7 +35,7 @@ Phases, each fatal when it fails:
              cell_gather's tensor-core route), f32 at B in {1, 16} within
              1e-5, and a ragged case, nprobe 11 over cells of 768 rows):
              error, time per launch (CUDA events, and on the card alone from
-             the profiler for bin_gather and the cell kernels), the bound and
+             the profiler for the top-k and cell kernels), the bound and
              yardsticks that the port never calls;
 3. serve   — the main path at full e5-small-v2 width (12 layers, hidden 384,
              bf16, seeded random weights): encode 8,192 passages of at least
@@ -39,8 +44,8 @@ Phases, each fatal when it fails:
              it with create_app on 127.0.0.1, send single and concurrent
              /search requests, and check every response against the plain
              engine on the same query embeddings; every kernel must have been
-             launched by this phase, every flash launch on the tensor-core
-             route; then recall@10 of the int8 exact search
+             launched by this phase, every flash and bin_gather launch on the
+             tensor-core route; then recall@10 of the int8 exact search
              against exact f32 search over the original vectors (gate 0.97);
 4. train   — KDTrainer.train on seeded synthetic samples at full
              e5-small-v2 width (bf16 compute, f32 parameters, hidden and
@@ -65,8 +70,8 @@ Phases, each fatal when it fails:
              closed-loop clients, then once more without the variable (approx);
              every result against the same engine over the plain versions on
              the same embeddings, 0 mismatched ids; with every cell probed, the
-             exact engine's ids; every cell_gather launch on the tensor-core
-             route; recall@10 at nprobe 64 against exact search
+             exact engine's ids; every cell_gather and binmax_strided launch
+             on the tensor-core route; recall@10 at nprobe 64 against exact search
              over the same rows (gate 0.90), validate() of the index as
              clustered and as approx (gate 0.97 for approx), and ms per search
              of the clustered, approx and exact engines at B in {1, 16, 64}.
@@ -82,6 +87,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import ctypes
 import http.client
 import json
 import math
@@ -265,7 +271,7 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             corpus, scales = (quantize_rows if dtype == "int8" else quantize_rows_int4)(x)
         row_bytes = corpus.shape[1] * corpus.element_size()
         op_kind = "f32" if dtype == "f32" else "int8"
-        for B in (1, 16, 256):
+        for B in (1, 16, 64, 256) if dtype == "int8" else (1, 16, 256):
             q = unit_rows(B, dim, gen)
             q_in, q_scale = tk.quantize_queries(q, corpus)
             got = tk.binmax(q_in, corpus, scales, valid_n)
@@ -293,6 +299,8 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             entry = {
                 "kernel": "binmax", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
                 "max_abs_err": err, "max_rel_err": rel_err(got, want), "ms": ms,
+                "kernel_device_ms": kernel_device_ms(
+                    lambda: tk.binmax(q_in, corpus, scales, valid_n), "binmax_kernel", 8),
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
             }
@@ -304,8 +312,14 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             groups = math.ceil(approx_min_bins(10, 0.99) / 128)
             blocks = approx_blocks(B, groups, n_bins)
             # the count the engine takes at the other side of its batch rule
-            alt_blocks = approx_blocks(256 if B <= 16 else 1, groups, n_bins)
+            alt_blocks = approx_blocks(256 if B <= 64 else 1, groups, n_bins)
+            s_route = tk.binmax_strided_route(corpus.dtype, row_bytes)
+            tc_before = tk.binmax_strided.tc_launches
             s_got, s_rows = tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)
+            check(tk.binmax_strided.tc_launches - tc_before == (s_route == "tc"),
+                  f"binmax_strided {dtype} B={B}: the launch did not take the {s_route} route")
+            check(s_route == ("tc" if dtype == "int8" else "cuda_core"),
+                  f"binmax_strided {dtype}: route {s_route}")
             s_want, s_want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks)
             torch.cuda.synchronize()
             s_err = (s_got - s_want).abs().max().item()
@@ -315,8 +329,17 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                   f"binmax_strided {dtype} B={B}: max abs err {s_err}, "
                   f"{1 - rows_same:.2e} of the rows differ")
             s_ms = time_ms(lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks), 20)
+            s_dev = kernel_device_ms(
+                lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks),
+                "binmax_strided_tc_kernel" if s_route == "tc" else "binmax_strided_kernel", 8)
             alt_ms = time_ms(
                 lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, alt_blocks), 20)
+            # the pass at other multiples of the groups, for approx_blocks (int8)
+            sweep = {}
+            if dtype == "int8":
+                for cand in (groups * 19, groups * 38, groups * 75, groups * 150, groups * 300):
+                    sweep[str(cand)] = time_ms(
+                        lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, cand), 10)
             s_plain = time_ms(
                 lambda: tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks), 3, 1)
             s_library = None
@@ -335,9 +358,10 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             s_entry = {
                 "kernel": "binmax_strided", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
                 "blocks": blocks, "max_abs_err": s_err, "max_rel_err": rel_err(s_got, s_want),
-                "rows_equal_share": rows_same, "ms": s_ms, "plain_ms": s_plain,
+                "rows_equal_share": rows_same, "route": s_route, "ms": s_ms,
+                "kernel_device_ms": s_dev, "plain_ms": s_plain,
                 "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_library,
-                "alt_blocks": alt_blocks, "alt_blocks_ms": alt_ms,
+                "alt_blocks": alt_blocks, "alt_blocks_ms": alt_ms, "blocks_ms": sweep,
             }
             rows.append(s_entry)
             log(f"[kernels] {json.dumps(s_entry)}")
@@ -348,7 +372,12 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 kb = min(k, n_bins)
                 _, bins = tk.topk_stable(want.T, kb)
                 bins = bins.to(torch.int32).contiguous()
+                g_route = tk.bin_gather_route(corpus.dtype, row_bytes)
+                tc_before = tk.bin_gather.tc_launches
                 g_got = tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
+                check(tk.bin_gather.tc_launches - tc_before == (g_route == "tc")
+                      and g_route == ("tc" if dtype == "int8" else "cuda_core"),
+                      f"bin_gather {dtype} B={B}: the launch did not take the {g_route} route")
                 g_want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n)
                 torch.cuda.synchronize()
                 g_err = (g_got - g_want).abs().max().item()
@@ -360,7 +389,7 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 # the card's own time: the wrapper's host time can exceed it
                 g_dev = kernel_device_ms(
                     lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n),
-                    "bin_gather_kernel") if k == 10 else None
+                    "bin_gather_tc_kernel" if g_route == "tc" else "bin_gather_kernel")
                 g_plain = time_ms(
                     lambda: tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n),
                     2, 1,
@@ -387,6 +416,7 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 )
                 g_entry = {
                     "kernel": "bin_gather", "dtype": dtype, "B": B, "k": k, "kb": kb,
+                    "route": g_route,
                     "max_abs_err": g_err, "max_rel_err": rel_err(g_got, g_want),
                     "ms": g_ms, "kernel_device_ms": g_dev, "plain_ms": g_plain,
                     "bound_ms": gb_ms,
@@ -397,8 +427,103 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 log(f"[kernels] {json.dumps(g_entry)}")
                 if dtype == "int8" and B == 16 and k == 10:
                     main_gather = g_entry
+        if dtype == "int8":
+            rows += gather_order_cases(gen, x, corpus, scales)
+            rows.append(wrapper_host_us(gen, corpus, scales))
         del corpus, scales
     return rows, main_binmax, main_gather, main_strided
+
+
+def gather_order_cases(gen, x, corpus, scales) -> list:
+    """bin_gather's tensor-core route with the (query, slot) pairs in their
+    own order, one a block (what the wrapper passes), and sorted by bin in
+    runs of two moved to bin boundaries (each distinct bin read once, at the
+    price of a sort), on corpus-derived queries at B = 16
+    and 64, also as a padded batch whose last three quarters repeat one
+    query. Device time from the profiler, and CUDA events around the whole
+    call with the sort."""
+    from sskd_tpu_torch.ops import _build
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    n = corpus.shape[0]
+    fn = tk._fn("bin_gather", "sskd_bin_gather_tc")
+    out = []
+
+    def gather(q_in, q_scale, bins, sort):
+        B, kb = bins.shape
+        o = torch.empty((B, kb, 128), dtype=torch.float32, device="cuda")
+        cells, order = torch.sort(bins.view(-1), stable=True) if sort else (bins, None)
+        _build.check(fn(tk._ptr(q_in), tk._ptr(q_scale), tk._ptr(corpus), tk._ptr(scales),
+                        tk._ptr(cells), tk._ptr(order), tk._ptr(o), B, kb, n,
+                        corpus.shape[1], n, 2 if sort else tk.GATHER_TC_RUN,
+                        tk._stream(corpus.device)),
+                     "bin_gather (tensor cores, sorted)")
+        return o
+
+    for B in (16, 64):
+        for padded in (False, True):
+            src = torch.randint(0, n, (B,), device="cuda", generator=gen)
+            q = x[src] + 0.05 * torch.randn(B, x.shape[1], device="cuda", generator=gen)
+            if padded:
+                q[B // 4:] = q[0]
+            q = q / q.norm(dim=1, keepdim=True)
+            q_in, q_scale = tk.quantize_queries(q, corpus)
+            _, bins = tk.topk_stable(tk.binmax(q_in, corpus, scales, n).T, 10)
+            bins = bins.to(torch.int32).contiguous()
+            want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, n)
+            entry = {"kernel": "bin_gather_order", "B": B, "kb": 10, "padded": padded,
+                     "distinct_bins": torch.unique(bins).numel()}
+            for name, sort in (("own_order", False), ("sorted", True)):
+                got = gather(q_in, q_scale, bins, sort)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"bin_gather {name} B={B}: differs from plain")
+                entry[name + "_ms"] = time_ms(lambda: gather(q_in, q_scale, bins, sort), 50)
+                entry[name + "_device_ms"] = kernel_device_ms(
+                    lambda: gather(q_in, q_scale, bins, sort), "bin_gather_tc_kernel", 30)
+            entry["sort_device_ms"] = kernel_device_ms(
+                lambda: torch.sort(bins.view(-1), stable=True), "", 30)
+            log(f"[kernels] {json.dumps(entry)}")
+            out.append(entry)
+    return out
+
+
+def wrapper_host_us(gen, corpus, scales, calls: int = 2000) -> dict:
+    """Host microseconds per call of the bin_gather wrapper at int8 B = 16,
+    kb = 10 (no synchronisation inside the loop), and of its parts."""
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    n = corpus.shape[0]
+    q_in, q_scale = tk.quantize_queries(unit_rows(16, corpus.shape[1], gen), corpus)
+    bins = torch.randint(0, n // 128, (16, 10), device="cuda", dtype=torch.int32,
+                         generator=gen)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        el = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return el / calls * 1e6
+
+    parts = {
+        "wrapper": lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, n),
+        "check_operands": lambda: tk._check_operands(q_in, corpus, scales, n),
+        "check_cuda": lambda: tk._check_cuda(q_in, corpus, scales, bins, q_scale),
+        "torch_empty": lambda: torch.empty((16, 10, 128), dtype=torch.float32,
+                                           device=corpus.device),
+        "stream": lambda: tk._stream(corpus.device),
+        "ptr_x7": lambda: [tk._ptr(t) for t in (q_in, q_scale, corpus, scales, bins, None, q_in)],
+        # what the wrapper built in their place before it passed ints and the raw stream
+        "stream_object": lambda: ctypes.c_void_p(torch.cuda.current_stream(corpus.device).cuda_stream),
+        "ptr_ctypes_x7": lambda: [ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+                                  for t in (q_in, q_scale, corpus, scales, bins, None, q_in)],
+    }
+    entry = {"kernel": "bin_gather_host_us", "B": 16, "kb": 10,
+             **{name: host_us(fn) for name, fn in parts.items()}}
+    log(f"[kernels] {json.dumps(entry)}")
+    return entry
 
 
 def phase_flash(gen) -> tuple[list, dict]:
@@ -1057,6 +1182,10 @@ def phase_serve(args, gen) -> dict:
     # every L = 512 encode (bf16, head dim 32) went through the tensor-core flash
     check(tc_counts["flash_attn_fwd"] == counts["flash_attn_fwd"],
           f"flash_attn_fwd: {tc_counts['flash_attn_fwd']} of {counts['flash_attn_fwd']} "
+          "launches took the tensor-core route")
+    # every phase B of the int8 exact index on the tensor cores
+    check(tc_counts["bin_gather"] == counts["bin_gather"],
+          f"bin_gather: {tc_counts['bin_gather']} of {counts['bin_gather']} "
           "launches took the tensor-core route")
     times = breakdown(state.fused_searcher, args.seed)
     batch_sizes = [ids_.shape[0] for ids_, _ in recorded]
@@ -1747,6 +1876,9 @@ def phase_clustered(args) -> dict:
     check(tc_counts["cell_gather"] == counts["cell_gather"],
           f"cell_gather: {tc_counts['cell_gather']} of {counts['cell_gather']} launches took "
           "the tensor-core route")
+    check(tc_counts["binmax_strided"] == counts["binmax_strided"],
+          f"binmax_strided: {tc_counts['binmax_strided']} of {counts['binmax_strided']} "
+          "launches of the approx sweep took the tensor-core route")
     n_probe_batches = len(served_probe["recorded"])
     check(probe_launches >= n_probe_batches > 0,
           f"cell_gather rose by {probe_launches} over {n_probe_batches} served batches")

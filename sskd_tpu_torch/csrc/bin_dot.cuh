@@ -19,14 +19,14 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <float.h>
+
+#include "mma_common.cuh"  // NEG_INF
 
 namespace sskd {
 
 constexpr int BIN_W = 128;     // rows per bin == threads per block
 constexpr int CW = 32;         // row words (128 bytes) staged per chunk
 constexpr int RS = CW + 4;     // padded shared-memory row stride: conflict-free 16-byte reads
-constexpr float NEG_INF = -FLT_MAX / 2;  // finfo(float32).min / 2, the repo's sentinel
 
 enum Mode { F32 = 0, I8 = 1, I4 = 2 };
 

@@ -12,14 +12,33 @@
 // same integer through an f32 dot of integer values), then multiplied by the
 // query scale and the row scale in that order.
 //
-// Bound on the H100: B * kb * 128 rows are read (B=64, k=10 at 384 int8 bytes
-// is 31 MB, ~9 us at 3.35 TB/s) plus the output; the dp4a work is small.
+// Bound on the H100: bytes, each distinct chosen bin's rows once (B=16, k=10 at
+// 384 int8 bytes is 160 bins, 7.9 MB, ~2.4 us at 3.35 TB/s) plus the output; the
+// products are few. At that size the time is latency: a bin's rows must be in
+// flight together, not fetched in turn.
 //
-// Design: one block per (query, bin slot), the shared inner loop of
-// bin_dot.cuh with a one-query tile; each thread writes its row's score, so the
-// block writes 128 contiguous floats.
+// Two kernels, chosen by the wrapper (ops/topk_kernels.py bin_gather_route):
+//
+// 1. int8 rows of at most 1,024 bytes: bin_gather_tc_kernel, the tensor-core
+//    gather of gather_tc.cuh (shared with cell_gather_tc_kernel) with a
+//    128-row bin as the cell. Each warp takes one (query, slot) pair and one
+//    16-row tile of its bin, brought into shared memory by cp.async in one
+//    burst (B * kb * 8 warps, every tile in flight at once up to B = 16 at kb
+//    = 10) and scored by ldmatrix and mma.sync m16n8k32 s8 against the
+//    query's B fragment; rows >= valid_n give NEG_INF and the rows of a ragged
+//    last bin past the corpus are zero-filled. The pairs go in their own
+//    order, one a warp, with one stage of shared memory (6.5 KB a warp), so
+//    that ~34 warps fit an SM; two such warps a block, so the card dispatches
+//    half the blocks (a little faster on the card than one; four no faster). Sorting them by bin, so that a bin that several queries chose
+//    is read once, lost on the card (chip_smoke.py bin_gather_order): the sort
+//    costs more than the kernel, and the runs it needs serialise the loads.
+// 2. f32 and int4 rows (and longer int8 rows): bin_gather_kernel, one block
+//    per (query, bin slot), the shared inner loop of bin_dot.cuh with a
+//    one-query tile; each thread writes its row's score, so the block writes
+//    128 contiguous floats.
 
 #include "bin_dot.cuh"
+#include "gather_tc.cuh"
 
 namespace sskd {
 
@@ -49,6 +68,19 @@ __global__ void __launch_bounds__(BIN_W) bin_gather_kernel(
   out[slot * BIN_W + tid] = s;
 }
 
+constexpr int GATHER_WARPS = 2;  // independent one-warp jobs a block holds
+static_assert(tc_smem_bytes(GATHER_WARPS, 1, TC_MAX_ROW_BYTES) <= 48 * 1024,
+              "no opt-in shared memory needed");
+
+__global__ void __launch_bounds__(GATHER_WARPS * 32) bin_gather_tc_kernel(
+    const int8_t* __restrict__ q, const float* __restrict__ q_scale,
+    const int8_t* __restrict__ corpus, const float* __restrict__ scales,
+    const int* __restrict__ bins, const long long* __restrict__ order, float* __restrict__ out,
+    int n_pairs, int kb, int row_bytes, int run_len, long n_rows, long valid_n) {
+  gather_tc<GATHER_WARPS, 1>(q, q_scale, corpus, scales, bins, order, out, n_pairs, kb, BIN_W,
+                             row_bytes, BIN_W / TC_TILE, run_len, n_rows, valid_n);
+}
+
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
@@ -74,5 +106,29 @@ extern "C" int sskd_bin_gather(int mode, const void* q, const float* q_scale,
     bin_gather_kernel<I4><<<grid, BIN_W, 0, s>>>(qw, q_scale, cw, scales, bins, out, kb, n_rows, row_words, valid_n);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route: int8 only, row_bytes a multiple of 16 of at most 1,024.
+//   bins: [B * kb] int32, the bins of the pairs in the order the blocks take them, each in
+//   [0, ceil(n_rows / 128)); order: [B * kb] int64, the pair b * kb + s of each, or NULL for
+//   the pairs in their own order (bins = the [B, kb] bins as they are). run_len >= 1: the
+//   entries a block takes before the move to bin boundaries. Other arguments as above.
+extern "C" int sskd_bin_gather_tc(const void* q, const float* q_scale, const void* corpus,
+                                  const float* scales, const int* bins, const long long* order,
+                                  float* out, int B, int kb, long n_rows, int row_bytes,
+                                  long valid_n, int run_len, void* stream) {
+  using namespace sskd;
+  if (B <= 0 || kb <= 0 || n_rows <= 0 || run_len <= 0 || row_bytes <= 0 || row_bytes % 16 ||
+      row_bytes > TC_MAX_ROW_BYTES || q_scale == nullptr || scales == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long n_pairs = (long)B * kb;
+  const long jobs = (n_pairs + run_len - 1) / run_len * (BIN_W / TC_TILE);
+  const long blocks = (jobs + GATHER_WARPS - 1) / GATHER_WARPS;
+  if (n_pairs > 0x7fffffffL || jobs > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const size_t smem = tc_smem_bytes(GATHER_WARPS, 1, row_bytes);
+  bin_gather_tc_kernel<<<(unsigned)blocks, GATHER_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)q, q_scale, (const int8_t*)corpus, scales, bins, order, out, (int)n_pairs,
+      kb, row_bytes, run_len, n_rows, valid_n);
   return (int)cudaGetLastError();
 }

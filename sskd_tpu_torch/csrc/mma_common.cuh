@@ -1,7 +1,9 @@
-// mma_common.cuh: tensor-core helpers shared by the bf16 attention kernels
-// (flash_attn.cu, dropattn_bwd.cu) for sm_90a: cp.async copies into shared
-// memory, ldmatrix (plain and transposed) and mma.sync m16n8k16 with
-// bf16 operands and f32 accumulators.
+// mma_common.cuh: tensor-core helpers for sm_90a shared by the kernels:
+// cp.async copies into shared memory, ldmatrix (plain and transposed),
+// mma.sync m16n8k16 with bf16 operands and f32 accumulators (the attention
+// kernels), and mma.sync m16n8k32 with s8 operands and exact s32 sums over
+// padded rows of int8 (the top-k kernels: binmax.cu, bin_gather.cu,
+// cell_gather.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * grp + tig, grp 0..7,
 // tig 0..3), two 16-bit values per 32-bit register:
@@ -17,10 +19,20 @@
 // l % 8 of matrix l / 8, so any permutation of the rows is free. Without
 // .trans, register i of lane l holds (row grp, cols 2tig..+1) of matrix i;
 // with .trans it holds (rows 2tig..+1, col grp).
+//
+// Fragment layouts of mma.sync.m16n8k32 s8 (four 8-bit values per register):
+//   A 16x32: a0 (row grp, k 4tig..+3), a1 (row grp+8, same k),
+//            a2 (row grp, k 16+4tig..+3), a3 (row grp+8, k 16+4tig..+3)
+//   B 32x8:  b0 (k 4tig..+3, col grp), b1 (k 16+4tig..+3, col grp)
+//   C 16x8:  c0, c1 (row grp, cols 2tig, 2tig+1), c2, c3 (row grp+8), s32
+// so the A fragment of 16 rows x 32 bytes is one ldmatrix.x4 whose matrices
+// are (rows 0-7, bytes 0-15), (rows 8-15, bytes 0-15), (rows 0-7, bytes
+// 16-31), (rows 8-15, bytes 16-31): s8_a_offset.
 
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace sskd {
@@ -37,6 +49,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 // 4 bytes global -> shared, asynchronous (both 4-byte aligned).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+// the 128-byte line holding p into L1, without waiting for it
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -80,5 +96,31 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG_INF = -FLT_MAX / 2;  // finfo(float32).min / 2, the repo's sentinel
+
+// --- int8 rows on the tensor cores ------------------------------------------
+
+// shared row stride of an int8 tile: the row rounded up to 32 bytes (the
+// mma's depth), plus 16 so that ldmatrix's eight row addresses fall in eight
+// different 16-byte bank groups
+__host__ __device__ constexpr int tc_stride(int row_bytes) {
+  return (row_bytes + 31) / 32 * 32 + 16;
+}
+
+// the byte offset, in a 16-row tile of stride ld, of the row that `lane`
+// hands ldmatrix_x4 for the A fragment of the tile's first 32 bytes
+__device__ __forceinline__ int s8_a_offset(int ld, int lane) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 16;
+}
+
+// c += a b for one 16x8 tile, s8 operands (32 deep), exact s32 sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace sskd

@@ -121,17 +121,18 @@ def kernel_exact_ok(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> bool
     )
 
 
-# Blocks of the strided pass: four for each of the H100's 132 SMs, eight up to
-# 16 queries. More blocks hide more latency at a small batch; at a large one
-# their output (blocks * 128 * B * 8 bytes before the fold) costs more than the
-# hidden latency saves (chip_smoke times the pass at both counts).
+# Blocks of the strided pass: four for each of the H100's 132 SMs up to 64
+# queries, half as many above, where each block runs once per 64 queries
+# (csrc/binmax.cu ST_QUERIES) and its output (blocks * 128 * B * 8 bytes before
+# the fold) grows with the batch. chip_smoke.py times the tensor-core pass at
+# 133 to 2,100 blocks for B in {1, 16, 64, 256}.
 APPROX_BLOCKS = 528
-APPROX_SMALL_BATCH = 16
+APPROX_CHUNK = 64
 
 
 def approx_blocks(batch: int, groups: int, n_tiles: int) -> int:
     """Blocks of the strided pass: a multiple of ``groups`` under the cap."""
-    cap = APPROX_BLOCKS * (2 if batch <= APPROX_SMALL_BATCH else 1)
+    cap = APPROX_BLOCKS if batch <= APPROX_CHUNK else APPROX_BLOCKS // 2
     return groups * max(1, min(cap, n_tiles) // groups)
 
 

@@ -15,8 +15,12 @@ maximum and the row that holds it, for bins whose rows lie far apart.
 
 Each kernel wrapper launches its kernel on a CUDA tensor and counts the
 launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
-plain torch version (``binmax_plain``, ``bin_gather_plain``), which repeats
-the kernel's arithmetic. Results follow the JAX engine's contract:
+plain torch version (``binmax_plain``, ``bin_gather_plain``,
+``binmax_strided_plain``), which repeats the kernel's arithmetic.
+``binmax_strided`` and ``bin_gather`` have two routes each
+(:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows on the
+tensor cores, counted also in ``tc_launches``; f32, int4 and longer int8
+rows on the CUDA cores. Results follow the JAX engine's contract:
 ``(vals [B, k] f32, idx [B, k] int32)`` with ``(-inf, -1)`` sentinels, where
 "-inf" is ``finfo(float32).min / 2``.
 """
@@ -36,6 +40,29 @@ BIN_W = 128  # rows per bin
 K_MAX = 256  # largest k the two-phase engine serves
 _MODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
 _PLAIN_ROWS = 1 << 18  # rows per chunk of the plain versions' score matrix
+# the longest int8 row the tensor-core routes take (csrc/binmax.cu
+# ST_MAX_ROW_BYTES, csrc/gather_tc.cuh TC_MAX_ROW_BYTES): the widths of the
+# models the port serves; longer rows take the CUDA-core kernels
+TC_MAX_ROW_BYTES = 1024
+GATHER_TC_RUN = 1  # (query, slot) pairs a bin_gather_tc job takes, in their own order
+
+
+def binmax_strided_route(dtype: torch.dtype, row_bytes: int) -> str:
+    """The kernel a CUDA call of :func:`binmax_strided` launches: ``"tc"``
+    (``binmax_strided_tc_kernel``: int8 mma, each block's queries staged once
+    and its tiles read once for up to 64 of them) for int8 rows of at most
+    ``TC_MAX_ROW_BYTES``, ``"cuda_core"`` (``binmax_strided_kernel``, dp4a /
+    fma) for f32, packed int4 and longer rows."""
+    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+
+
+def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
+    """The kernel a CUDA call of :func:`bin_gather` launches: ``"tc"``
+    (``bin_gather_tc_kernel``: a warp for each 16 rows of a chosen bin, int8
+    mma) for int8 rows of at most ``TC_MAX_ROW_BYTES``, ``"cuda_core"``
+    (``bin_gather_kernel``, a block per (query, bin slot)) for f32, packed
+    int4 and longer rows."""
+    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
 
 
 def _mode(corpus: torch.Tensor) -> int:
@@ -82,11 +109,17 @@ def _check_cuda(*tensors):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    """A tensor's address for a ``c_void_p`` argument (ctypes takes the int
+    or None as it is)."""
+    return t.data_ptr() if t is not None else None
 
 
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``:
+    ``torch.cuda.current_stream(device).cuda_stream`` without the Stream
+    object it builds, which cost a launch-bound wrapper 3 us a call on the
+    card's host (chip_smoke.py's ``bin_gather_host_us``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +217,17 @@ def binmax_strided(q_in, corpus, row_scales=None, valid_n: int | None = None,
     B = q_in.shape[0]
     out = torch.empty((blocks * BIN_W, B), dtype=torch.float32, device=corpus.device)
     rows = torch.empty((blocks * BIN_W, B), dtype=torch.int32, device=corpus.device)
+    if binmax_strided_route(corpus.dtype, row_words * 4) == "tc":
+        _build.check(
+            _fn("binmax", "sskd_binmax_strided_tc")(
+                _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out), _ptr(rows),
+                B, n, row_words * 4, valid_n, blocks, _stream(corpus.device),
+            ),
+            "binmax_strided (tensor cores)",
+        )
+        binmax_strided.launches += 1
+        binmax_strided.tc_launches += 1
+        return out, rows
     _build.check(
         _fn("binmax", "sskd_binmax_strided")(
             mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out), _ptr(rows),
@@ -196,6 +240,7 @@ def binmax_strided(q_in, corpus, row_scales=None, valid_n: int | None = None,
 
 
 binmax_strided.launches = 0
+binmax_strided.tc_launches = 0  # the launches that took the tensor-core route
 
 
 def binmax_strided_plain(q_in, corpus, row_scales=None, valid_n: int | None = None,
@@ -256,6 +301,19 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
         raise ValueError("bin_gather needs corpus rows of a multiple of 16 bytes")
     _check_cuda(q_in, corpus, row_scales, bins, q_scale if mode != 0 else None)
     out = torch.empty((B, kb, BIN_W), dtype=torch.float32, device=corpus.device)
+    if bin_gather_route(corpus.dtype, row_words * 4) == "tc":
+        # the pairs in their own order (order NULL), one a job: no sort
+        _build.check(
+            _fn("bin_gather", "sskd_bin_gather_tc")(
+                _ptr(q_in), _ptr(q_scale), _ptr(corpus), _ptr(row_scales), _ptr(bins),
+                None, _ptr(out), B, kb, n, row_words * 4, valid_n, GATHER_TC_RUN,
+                _stream(corpus.device),
+            ),
+            "bin_gather (tensor cores)",
+        )
+        bin_gather.launches += 1
+        bin_gather.tc_launches += 1
+        return out
     _build.check(
         _fn("bin_gather", "sskd_bin_gather")(
             mode, _ptr(q_in), _ptr(q_scale if mode != 0 else None), _ptr(corpus),
@@ -269,6 +327,7 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
 
 
 bin_gather.launches = 0
+bin_gather.tc_launches = 0  # the launches that took the tensor-core route
 
 
 def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
@@ -296,7 +355,9 @@ def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | Non
 _ARGTYPES = {
     "sskd_binmax": "i p p p p i l i l p",
     "sskd_binmax_strided": "i p p p p p i l i l i p",
+    "sskd_binmax_strided_tc": "p p p p p i l i l i p",
     "sskd_bin_gather": "i p p p p p p i i l i l p",
+    "sskd_bin_gather_tc": "p p p p p p p i i l i l i p",
     "sskd_cell_gather": "i p p p p p p p i i i i p",
     "sskd_cell_gather_b1": "i p p p p p i i i p",
     "sskd_cell_gather_tc": "p p p p p p p i i i i p",

@@ -437,7 +437,7 @@ def test_attention_routes_and_their_counters():
     assert ta.dropattn_fwd_route(torch.float32, 64) == "cuda_core"
     reset_launch_counts()
     assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
-                                  "cell_gather": 0}
+                                  "cell_gather": 0, "bin_gather": 0, "binmax_strided": 0}
 
 
 def test_dropattn_tensor_core_backward_applies_the_plain_mask():
@@ -578,3 +578,93 @@ def test_cell_gather_routes_by_dtype_and_row_size():
         torch.cuda.synchronize()
         assert tc.cell_gather.tc_launches == tc_before
         assert (got - want).abs().max().item() <= (0.0 if dtype == "int8" else 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core routes of binmax_strided and bin_gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,blocks,d", [(1, 7, 384), (5, 100, 384), (16, 528, 384),
+                                        (40, 547, 384), (64, 525, 384), (256, 133, 384),
+                                        (16, 100, 1024), (65, 259, 1024), (3, 11, 48)])
+def test_binmax_strided_tensor_core_route_is_bit_for_bit(B, blocks, d):
+    """int8 takes the tensor-core route: maxima and rows bit for bit with
+    the plain version, ties to the lower row, a last tile of no valid row,
+    rows of 48 bytes (a zero tail) to 1,024, and bitwise equal over two
+    launches."""
+    _need_card()
+    x, q = _data(70_001, d, B, seed=200 + B)
+    if 4999 + 128 * blocks < x.shape[0]:
+        x[4999 + 128 * blocks] = x[4999]
+    q[0] = x[4999]
+    corpus, scales = _storage("int8", x)
+    q_in, _ = tk.quantize_queries(q, corpus)
+    valid_n = 70_001 - 200
+    assert tk.binmax_strided_route(corpus.dtype, d) == "tc"
+    before, tc_before = tk.binmax_strided.launches, tk.binmax_strided.tc_launches
+    got, rows = tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)
+    again, again_rows = tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)
+    want, want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks)
+    torch.cuda.synchronize()
+    assert tk.binmax_strided.launches == before + 2
+    assert tk.binmax_strided.tc_launches == tc_before + 2
+    assert torch.equal(got, want) and torch.equal(rows, want_rows)
+    assert torch.equal(again, got) and torch.equal(again_rows, rows)
+    if 4999 + 128 * blocks < x.shape[0]:
+        assert int(rows[4999 % (128 * blocks), 0]) == 4999
+
+
+@pytest.mark.parametrize("B,kb,d", [(1, 10, 384), (5, 10, 384), (16, 10, 384), (40, 10, 384),
+                                    (64, 10, 384), (256, 10, 384), (16, 100, 384),
+                                    (64, 100, 384), (16, 10, 1024), (5, 12, 48)])
+def test_bin_gather_tensor_core_route_is_bit_for_bit(B, kb, d):
+    """int8 takes the tensor-core route: scores bit for bit with the plain
+    version, also where queries share bins and for the ragged last bin, at
+    rows of 48 to 1,024 bytes, and bitwise equal over two launches."""
+    _need_card()
+    n = 70_001
+    x, q = _data(n, d, B, seed=300 + B + kb)
+    corpus, scales = _storage("int8", x)
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    n_bins = (n + 127) // 128
+    g = torch.Generator(device="cuda").manual_seed(B * kb)
+    bins = torch.stack([torch.randperm(n_bins, device="cuda", generator=g)[:kb]
+                        for _ in range(B)]).to(torch.int32)
+    bins[: max(1, B // 2), 0] = n_bins - 1  # the ragged last bin, shared
+    bins[B // 2:, 1:] = bins[0, 1:].clone()  # the other half share the rest with query 0
+    bins = bins.contiguous()
+    valid_n = n - 40
+    assert tk.bin_gather_route(corpus.dtype, d) == "tc"
+    before, tc_before = tk.bin_gather.launches, tk.bin_gather.tc_launches
+    got = tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
+    again = tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
+    want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n)
+    torch.cuda.synchronize()
+    assert tk.bin_gather.launches == before + 2 and tk.bin_gather.tc_launches == tc_before + 2
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype,d", [("f32", 384), ("int4", 384), ("int8", 1040)])
+def test_topk_cuda_core_routes_and_their_counters(dtype, d):
+    """f32, packed int4 and int8 rows over the limits stay on the CUDA-core
+    kernels: counted in launches, not in tc_launches."""
+    _need_card()
+    x, q = _data(20_001, d, 4, seed=d)
+    corpus, scales = _storage(dtype, x)
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    row_bytes = corpus.shape[1] * corpus.element_size()
+    assert tk.binmax_strided_route(corpus.dtype, row_bytes) == "cuda_core"
+    assert tk.bin_gather_route(corpus.dtype, row_bytes) == "cuda_core"
+    before = (tk.binmax_strided.launches, tk.bin_gather.launches)
+    tc_before = (tk.binmax_strided.tc_launches, tk.bin_gather.tc_launches)
+    got, rows = tk.binmax_strided(q_in, corpus, scales, 20_001, 11)
+    want, _ = tk.binmax_strided_plain(q_in, corpus, scales, 20_001, 11)
+    bins = tk.topk_stable(tk.binmax_plain(q_in, corpus, scales).T, 10)[1].to(torch.int32)
+    g_got = tk.bin_gather(q_in, q_scale, corpus, scales, bins.contiguous())
+    g_want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins)
+    torch.cuda.synchronize()
+    assert (tk.binmax_strided.launches, tk.bin_gather.launches) == (before[0] + 1, before[1] + 1)
+    assert (tk.binmax_strided.tc_launches, tk.bin_gather.tc_launches) == tc_before
+    tol = 1e-5 if dtype == "f32" else 0.0
+    assert (got - want).abs().max().item() <= tol and (g_got - g_want).abs().max().item() <= tol

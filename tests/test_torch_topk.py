@@ -23,6 +23,7 @@ from sskd_tpu.ops.topk import cosine_topk as jcosine_topk
 from sskd_tpu.ops.topk_pallas import cosine_topk_pallas
 from sskd_tpu_torch.ops import topk as tt
 from sskd_tpu_torch.ops import topk_kernels as tk
+from torch_tc_emulation import bin_gather_tc, binmax_strided_tc
 
 
 def _normed(rng, n, d):
@@ -291,3 +292,103 @@ def test_approx_keeps_neighbours_stored_side_by_side():
     _, want = tt.cosine_topk(q, torch.from_numpy(x), 10)
     recall = np.mean([len(set(got[r].tolist()) & set(want[r].tolist())) / 10 for r in range(32)])
     assert recall >= 0.95, recall
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core routes of binmax_strided and bin_gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("route,dtype,row_bytes,want", [
+    (tk.binmax_strided_route, torch.int8, 384, "tc"),
+    (tk.binmax_strided_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
+    (tk.binmax_strided_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
+    (tk.binmax_strided_route, torch.float32, 384 * 4, "cuda_core"),
+    (tk.binmax_strided_route, torch.uint8, 192, "cuda_core"),
+    (tk.bin_gather_route, torch.int8, 384, "tc"),
+    (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
+    (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
+    (tk.bin_gather_route, torch.float32, 384 * 4, "cuda_core"),
+    (tk.bin_gather_route, torch.uint8, 192, "cuda_core"),
+])
+def test_topk_kernel_routes(route, dtype, row_bytes, want):
+    """int8 rows go to the tensor cores; f32, packed int4 and rows over the
+    route's limit to the CUDA-core kernels."""
+    assert route(dtype, row_bytes) == want
+
+
+def _int8_case(seed, n, d, B):
+    rng = np.random.default_rng(seed)
+    x = _normed(rng, n, d)
+    return x, _normed(rng, B, d)
+
+
+@pytest.mark.parametrize("n,valid_n,blocks,B,d", [
+    (3000, 3000, 7, 1, 64),      # 24 tiles: 7 blocks do not divide them
+    (3000, 2950, 5, 5, 64),      # the last tile holds no valid row
+    (2800, 2700, 22, 64, 48),    # one tile a block, rows of 48 bytes (a zero tail)
+    (3000, 2999, 3, 65, 64),     # two query chunks, the second of one query
+    (1100, 1100, 9, 16, 96),     # every block one tile, the last ragged
+])
+def test_tensor_core_binmax_strided_traversal_is_bit_for_bit(n, valid_n, blocks, B, d):
+    """The tensor-core strided pass (tests/torch_tc_emulation.py: the warps'
+    row positions, the tiles in increasing order, queries in chunks of 64,
+    the running best) gives binmax_strided_plain's maxima and rows bit for
+    bit, equal rows in one bin keeping the lower."""
+    x, q = _int8_case(n + blocks, n, d, B)
+    for t, i in ((40, 1), (41, 2)):  # ties in bins 40 and 41, where the bin has the rows
+        if t + 128 * blocks * i < n:
+            x[t + 128 * blocks * i] = x[t]
+    q[0] = x[40]
+    xq, xs = (torch.from_numpy(np.array(a)) for a in jquant8(x))
+    q_in, _ = tk.quantize_queries(torch.from_numpy(q), xq)
+    got, rows = binmax_strided_tc(q_in, xq, xs, valid_n, blocks)
+    want, want_rows = tk.binmax_strided_plain(q_in, xq, xs, valid_n, blocks)
+    assert torch.equal(got, want) and torch.equal(rows, want_rows)
+    assert int(rows[40, 0]) == 40  # the tie: the lower row
+    dead = got <= tk.NEG_INF / 2  # a bin of no valid row: its first row
+    first = torch.arange(blocks * 128, dtype=torch.int32)[:, None].expand_as(rows)
+    assert torch.equal(rows[dead], first[dead])
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("B,kb", [(1, 1), (1, 12), (5, 12), (64, 1), (64, 12), (65, 12)])
+def test_tensor_core_bin_gather_traversal_is_bit_for_bit(B, kb, sort):
+    """The tensor-core bin gather (tests/torch_tc_emulation.py: 16-row tiles,
+    the valid_n mask, the ragged last bin read as zeros, the pairs in their
+    own order or sorted by bin) gives bin_gather_plain's scores bit for bit,
+    with every (query, slot) pair scored; sorted, each distinct bin is
+    loaded once."""
+    n, d, valid_n = 1900, 64, 1850  # 15 bins, the last of 108 rows
+    x, q = _int8_case(B * 100 + kb, n, d, B)
+    xq, xs = (torch.from_numpy(np.array(a)) for a in jquant8(x))
+    q_in, q_scale = tk.quantize_queries(torch.from_numpy(q), xq)
+    rng = np.random.default_rng(B + kb)
+    bins = np.stack([rng.permutation(15)[:kb] for _ in range(B)]).astype(np.int32)
+    bins[: max(1, B // 2), 0] = 14  # the ragged last bin, shared by half the queries
+    bins = torch.from_numpy(bins)
+    got, loads = bin_gather_tc(q_in, q_scale, xq, xs, bins, valid_n, sort=sort)
+    want = tk.bin_gather_plain(q_in, q_scale, xq, xs, bins, valid_n)
+    assert torch.equal(got, want)  # no NaN left: every pair scored
+    assert (got[:, :, 1850 - 14 * 128:][bins == 14] == tk.NEG_INF).all()
+    if sort:
+        assert set(loads.values()) == {1}
+        assert sorted(loads) == sorted(set(bins.reshape(-1).tolist()))
+
+
+def test_exact_engine_at_b64_int8_matches_jax():
+    """The exact engine at the batch the serve load reaches, int8 rows and
+    a ragged valid_n: the port's plain engine gives the JAX package's ids,
+    through its Pallas kernels in interpret mode and through cosine_topk."""
+    rng = np.random.default_rng(64)
+    x = _normed(rng, 3000, 64)
+    corpus, scales = _corpus("int8", x)
+    q = (x[rng.choice(2900, 64, replace=False)]
+         + 0.05 * rng.standard_normal((64, 64)).astype(np.float32))
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    j, t = _both(q, corpus, scales, k=10, valid_n=2901)
+    _assert_same(j, t)
+    _, ji = jcosine_topk(jnp.asarray(q), jnp.asarray(corpus), 10,
+                         row_scales=jnp.asarray(scales), valid_n=2901)
+    np.testing.assert_array_equal(t[1], np.asarray(ji))
+    assert (t[1] < 2901).all()

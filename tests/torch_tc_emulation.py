@@ -19,18 +19,26 @@ step, with what differs from the plain versions beyond summation order:
   as 2^(s * scale * log2(e) + (bias - lse) * log2(e)), rounded to bf16
   after the keep-mask and 1 / (1 - p).
 
-``cell_gather_tc`` follows the schedule of csrc/cell_gather.cu
-``cell_gather_tc_kernel``: the (query, slot) pairs sorted by cell, runs of
-8 moved to cell boundaries, each run's cells taken in turn and each cell's
-queries eight at a time, with exact integer dots and the kernel's order of
-the two scale products.
+``tile_gather_tc`` follows the schedule of csrc/gather_tc.cuh, the int8
+gather that ``cell_gather_tc_kernel`` and ``bin_gather_tc_kernel`` share:
+runs of entries moved to the boundaries of equal cells, each run's groups
+taken in turn, each group's 16-row tiles (rows past the corpus read as
+zeros) against its queries eight at a time, exact integer dots, the
+kernels' order of the two scale products and NEG_INF at rows >= valid_n.
+``cell_gather_tc`` gives it the pairs sorted by cell in runs of 8;
+``bin_gather_tc`` 128-row bins, in the pairs' own order or sorted by bin.
+
+``binmax_strided_tc`` follows csrc/binmax.cu ``binmax_strided_tc_kernel``:
+logical block j as two blocks of four warps, each warp 16 row positions of
+every tile j, j + blocks, ... in increasing order, queries in chunks of 64
+as 8-query groups, a running best replaced only when strictly greater, and
+the C-fragment layout in which each lane writes its bins.
 
 The kernels themselves run only on the card; these versions let the CPU
 tests hold the error bounds that the card's checks use against the new
 arithmetic and the JAX kernels.
 """
 
-import bisect
 import math
 from collections import Counter
 
@@ -140,6 +148,66 @@ def dropattn_bwd_tc(q, k, v, bias, p, seed, lse, g, keep_mask):
 
 
 CELL_RUN = 8  # csrc/cell_gather.cu TC_RUN
+TC_TILE = 16  # csrc/gather_tc.cuh: rows a warp scores
+BIN_W = 128
+
+
+def _groups(cells, n, run_len):
+    """The groups (start, end) of equal neighbouring cells each run scores,
+    run by run: runs of ``run_len`` entries moved to cell boundaries (one
+    entry a run, as it is, for run_len 1)."""
+    if run_len == 1:
+        return [(i, i, i + 1) for i in range(n)]
+    out = []
+    for run in range((n + run_len - 1) // run_len):
+        s, e = run * run_len, min(run * run_len + run_len, n)
+        while 0 < s < e and cells[s] == cells[s - 1]:
+            s += 1
+        if s >= e:
+            continue
+        while e < n and cells[e] == cells[e - 1]:
+            e += 1
+        g = s
+        while g < e:
+            g_end = g + 1
+            while g_end < e and cells[g_end] == cells[g]:
+                g_end += 1
+            out.append((run, g, g_end))
+            g = g_end
+    return out
+
+
+def tile_gather_tc(q_in, q_scale, corpus, row_scales, cells, order, per_query, rpc, run_len,
+                   valid_n):
+    """(scores [n_pairs, rpc] f32, loads) of the gather of csrc/gather_tc.cuh:
+    ``cells`` [n] the cell of each entry, ``order`` [n] its pair (None: entry
+    i is pair i), pair p = b * per_query + j against query b. ``loads``
+    counts how many times a cell's tiles are brought into shared memory (a
+    Counter by cell). A pair no run scores stays NaN."""
+    n = len(cells)
+    cl = [int(c) for c in cells]
+    od = list(range(n)) if order is None else [int(p) for p in order]
+    n_rows, d = corpus.shape
+    out = torch.full((n, rpc), float("nan"))
+    loads = Counter()
+    for _, g, g_end in _groups(cl, n, run_len):
+        c = cl[g]
+        loads[c] += 1
+        for r0 in range(0, rpc, TC_TILE):  # the warps of the run, one tile each
+            rows = c * rpc + r0 + torch.arange(min(TC_TILE, rpc - r0))
+            live = rows < n_rows
+            tile = torch.zeros(len(rows), d, dtype=torch.int64)
+            tile[live] = corpus[rows[live]].to(torch.int64)  # past the corpus: zeros
+            scale = torch.full((len(rows),), float("nan"))  # never read where dead
+            scale[live] = row_scales[rows[live]]
+            for q0 in range(g, g_end, 8):
+                pairs = od[q0:min(q0 + 8, g_end)]
+                bs = [pair // per_query for pair in pairs]
+                dots = (tile @ q_in[bs].to(torch.int64).T).to(torch.float32)  # exact
+                scores = (dots * q_scale[bs]) * scale[:, None]
+                scores = torch.where((rows < valid_n)[:, None], scores, NEG)
+                out[pairs, r0:r0 + len(rows)] = scores.T
+    return out, loads
 
 
 def cell_gather_tc(q_in, q_scale, corpus, row_scales, probe, rpc):
@@ -149,30 +217,73 @@ def cell_gather_tc(q_in, q_scale, corpus, row_scales, probe, rpc):
     cell; every tile of a cell is loaded by the same runs). A pair no run
     scores stays NaN."""
     B, nprobe = probe.shape
-    n = B * nprobe
     cells, order = torch.sort(probe.reshape(-1), stable=True)
-    cl, od = cells.tolist(), order.tolist()
-    out = torch.full((n, rpc), float("nan"))
-    loads = Counter()
-    for run in range((n + CELL_RUN - 1) // CELL_RUN):
-        s, e = run * CELL_RUN, min(run * CELL_RUN + CELL_RUN, n)
-        if s > 0:
-            s = max(s, bisect.bisect_right(cl, cl[s - 1]))
-        if s >= e:
-            continue
-        e = bisect.bisect_right(cl, cl[e - 1])
-        g = s
-        while g < e:
-            c, g_end = cl[g], g + 1
-            while g_end < e and cl[g_end] == c:
-                g_end += 1
-            loads[c] += 1
-            rows = corpus[c * rpc:(c + 1) * rpc].to(torch.int64)
-            for q0 in range(g, g_end, 8):
-                pairs = od[q0:min(q0 + 8, g_end)]
-                bs = [pair // nprobe for pair in pairs]
-                dots = (rows @ q_in[bs].to(torch.int64).T).to(torch.float32)  # exact
-                scores = (dots * q_scale[bs]) * row_scales[c * rpc:(c + 1) * rpc, None]
-                out[pairs] = scores.T
-            g = g_end
+    out, loads = tile_gather_tc(q_in, q_scale, corpus, row_scales, cells, order, nprobe, rpc,
+                                CELL_RUN, corpus.shape[0])
     return out.view(B, nprobe, rpc), loads
+
+
+def bin_gather_tc(q_in, q_scale, corpus, row_scales, bins, valid_n, sort=False):
+    """(scores [B, kb, 128] f32, loads) of the int8 tensor-core bin gather
+    over bins of 128 rows, the last one ragged: the (query, slot) pairs in
+    their own order, one a warp (the wrapper's), or sorted by bin in runs
+    of 8 as cell_gather takes its pairs (each distinct bin loaded once)."""
+    B, kb = bins.shape
+    if sort:
+        cells, order = torch.sort(bins.reshape(-1), stable=True)
+    else:
+        cells, order = bins.reshape(-1), None
+    out, loads = tile_gather_tc(q_in, q_scale, corpus, row_scales, cells, order, kb, BIN_W,
+                                CELL_RUN if sort else 1, valid_n)
+    return out.view(B, kb, BIN_W), loads
+
+
+ST_WARPS, ST_PARTS, ST_QUERIES = 4, 2, 64  # csrc/binmax.cu
+
+
+def binmax_strided_tc(q_in, corpus, row_scales, valid_n, blocks):
+    """(maxima [blocks * 128, B] f32, rows [blocks * 128, B] int32) of the
+    int8 tensor-core strided pass, block by block and warp by warp."""
+    n, d = corpus.shape
+    B = q_in.shape[0]
+    n_tiles = (n + BIN_W - 1) // BIN_W
+    rows_all = torch.zeros(n_tiles * BIN_W, d, dtype=torch.int64)
+    rows_all[:n] = corpus.to(torch.int64)  # a ragged last tile: zeros
+    scales_all = torch.full((n_tiles * BIN_W,), float("nan"))  # never read where dead
+    scales_all[:n] = row_scales
+    ng = 1 if B <= 8 else 2 if B <= 16 else 4 if B <= 32 else 8
+    chunks = (B + ST_QUERIES - 1) // ST_QUERIES
+    best = torch.full((blocks * BIN_W, B), NEG)
+    rows_out = torch.zeros((blocks * BIN_W, B), dtype=torch.int32)
+    # the C fragment of lane (grp, tig), group n, element e: row grp + 8 (e >> 1)
+    # of the warp's 16, query n * 8 + 2 tig + (e & 1)
+    lane, n_i, e = torch.meshgrid(torch.arange(32), torch.arange(ng), torch.arange(4),
+                                  indexing="ij")
+    frag_row = ((lane >> 2) + 8 * (e >> 1)).reshape(-1)
+    frag_col = (n_i * 8 + 2 * (lane & 3) + (e & 1)).reshape(-1)
+    for j in range(blocks):
+        n_mine = (n_tiles - 1 - j) // blocks + 1
+        for part in range(ST_PARTS):
+            for chunk in range(chunks):
+                q0 = chunk * ST_QUERIES
+                nq = min(ng * 8, B - q0)
+                qf = torch.zeros(ng * 8, d, dtype=torch.int64)  # absent queries: zeros
+                qf[:nq] = q_in[q0:q0 + nq].to(torch.int64)
+                for warp in range(ST_WARPS):
+                    t0 = part * 64 + warp * 16
+                    run_best = torch.full((16, ng * 8), NEG)
+                    run_i = torch.zeros((16, ng * 8), dtype=torch.int64)
+                    for i in range(n_mine):  # tiles in increasing order
+                        r = (j + i * blocks) * BIN_W + t0 + torch.arange(16)
+                        acc = (rows_all[r] @ qf.T).to(torch.float32)  # exact int32 sums
+                        s = torch.where((r < valid_n)[:, None], acc * scales_all[r][:, None], NEG)
+                        better = s > run_best  # strictly: the lowest row keeps a tie
+                        run_best = torch.where(better, s, run_best)
+                        run_i = torch.where(better, i, run_i)
+                    keep = frag_col < nq
+                    fr, fc = frag_row[keep], frag_col[keep]
+                    bins = j * BIN_W + t0 + fr
+                    best[bins, q0 + fc] = run_best[fr, fc]
+                    rows_out[bins, q0 + fc] = ((j + run_i[fr, fc] * blocks) * BIN_W + t0
+                                               + fr).to(torch.int32)
+    return best, rows_out
