@@ -10,10 +10,12 @@ Phases, each fatal when it fails:
              spills;
 2. kernels — each kernel against its plain torch version on the card at the
              shapes of the main path (binmax / exact engine: f32, int8 and
-             int4 at 1M x 384, B in {1, 16, 256} and int8 also at 64, k in
-             {10, 100}, int8 binmax_strided and bin_gather on their
-             tensor-core routes, with bin_gather's pairs in their own order
-             against sorted by bin on corpus-derived queries, the
+             int4 at 1M x 384, B in {1, 16, 256} and int8 also at 32 and 64,
+             k in {10, 100}, int8 binmax, binmax_strided and bin_gather on
+             their tensor-core routes, f32 binmax and binmax_strided on the
+             register-tiled CUDA-core kernels, with bin_gather's pairs in
+             their own order against sorted by bin on corpus-derived queries,
+             binmax also with the L2 cache flushed before each launch, the
              wrapper's host microseconds by part, and binmax_strided at
              several block counts for approx_blocks;
              flash_attn_fwd: [256, 12, L, 32] bf16 on its tensor-core route,
@@ -44,8 +46,8 @@ Phases, each fatal when it fails:
              it with create_app on 127.0.0.1, send single and concurrent
              /search requests, and check every response against the plain
              engine on the same query embeddings; every kernel must have been
-             launched by this phase, every flash and bin_gather launch on the
-             tensor-core route; then recall@10 of the int8 exact search
+             launched by this phase, every flash, binmax and bin_gather launch
+             on the tensor-core route; then recall@10 of the int8 exact search
              against exact f32 search over the original vectors (gate 0.97);
 4. train   — KDTrainer.train on seeded synthetic samples at full
              e5-small-v2 width (bf16 compute, f32 parameters, hidden and
@@ -109,6 +111,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
 SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9  # H100 SXM: SMs and boost clock, for the exp floor
+L2_FLUSH_BYTES = 256 << 20  # written between launches to empty the 50 MB L2 cache
+STREAM_HOLD_CYCLES = 400_000_000  # about 0.2 s of the SM clock: longer than 16 eager searches
 N_DOCS = 8192  # passages encoded at L = 512
 N_ROWS = 1_000_000  # rows of the served index (and of the kernel cases)
 SERVE_KERNELS = ("binmax", "bin_gather", "flash_attn_fwd")
@@ -181,19 +185,65 @@ def device_times(prof) -> list[tuple[str, float]]:
                    if e.device_type == cuda), key=lambda kv: -kv[1])
 
 
-def kernel_device_ms(fn, name_part: str, iters: int = 16) -> float | None:
+# kernel_device_ms's profiled windows, those discarded, the kernels of earlier
+# windows left out, and the readings taken by stream_device_ms instead
+PROFILER = {"windows": 0, "short": 0, "late_events": 0, "fallbacks": 0}
+
+
+def kernel_device_ms(fn, name_part: str, iters: int = 16,
+                     fallback: bool = True) -> float | None:
     """Device time per call of the kernels whose name holds ``name_part``,
     from torch.profiler: what a launch takes on the card when the wrapper's
-    host time exceeds it (CUDA events then read the host's pace)."""
+    host time exceeds it (CUDA events then read the host's pace). A window
+    can hand over kernels of the window before it and lose some of its own
+    (on an H100: 5 or 7 of 8 launches of one kernel, read 3/8 or 1/8
+    short). So only kernels that started within the window's host span
+    count, and the window only when they are a multiple of ``iters``
+    (``PROFILER["short"]`` otherwise); after three that are not, the call's
+    whole device time from stream_device_ms, every kernel of it counted
+    (None without ``fallback``)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(t for name, t in device_times(prof) if name_part in name)
-    return us / 1e3 / iters if us > 0 else None
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        host = [e.time_range for e in events if e.device_type != cuda]
+        t0, t1 = min(r.start for r in host), max(r.end for r in host)
+        hits = [e.time_range for e in events if e.device_type == cuda and name_part in e.name]
+        mine = [r for r in hits if t0 <= r.start <= t1]
+        PROFILER["windows"] += 1
+        PROFILER["late_events"] += len(hits) - len(mine)
+        if mine and len(mine) % iters == 0:
+            return sum(r.elapsed_us() for r in mine) / 1e3 / iters
+        PROFILER["short"] += 1
+    if not fallback:
+        return None
+    PROFILER["fallbacks"] += 1
+    return stream_device_ms(fn, iters)
+
+
+def stream_device_ms(fn, iters: int = 16) -> float | None:
+    """Device time per call of all that ``fn`` launches, from CUDA events,
+    without the profiler: a sleep kernel holds the stream until every launch
+    of the ``iters`` calls is queued, so the events time them back to back
+    on the card, whatever the host's pace. None when ``fn`` waits for the
+    card (the sleep had ended before the last launch was queued)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(STREAM_HOLD_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    held = not start.query()  # the sleep still ran when the last launch was queued
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if held else None
 
 
 def unit_rows(n: int, d: int, gen: torch.Generator) -> torch.Tensor:
@@ -264,6 +314,7 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
     x = unit_rows(n_rows, dim, gen)
     valid_n = n_rows
     rows, main_binmax, main_gather, main_strided = [], None, None, None
+    l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for dtype in ("int8", "f32", "int4"):
         if dtype == "f32":
             corpus, scales = x, None
@@ -271,10 +322,16 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             corpus, scales = (quantize_rows if dtype == "int8" else quantize_rows_int4)(x)
         row_bytes = corpus.shape[1] * corpus.element_size()
         op_kind = "f32" if dtype == "f32" else "int8"
-        for B in (1, 16, 64, 256) if dtype == "int8" else (1, 16, 256):
+        for B in (1, 16, 32, 64, 256) if dtype == "int8" else (1, 16, 256):
             q = unit_rows(B, dim, gen)
             q_in, q_scale = tk.quantize_queries(q, corpus)
+            route = tk.binmax_route(corpus.dtype, row_bytes)
+            check(route == ("tc" if dtype == "int8" else "cuda_core"),
+                  f"binmax {dtype}: route {route}")
+            tc_before = tk.binmax.tc_launches
             got = tk.binmax(q_in, corpus, scales, valid_n)
+            check(tk.binmax.tc_launches - tc_before == (route == "tc"),
+                  f"binmax {dtype} B={B}: the launch did not take the {route} route")
             want = tk.binmax_plain(q_in, corpus, scales, valid_n)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
@@ -296,11 +353,18 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             n_bytes = (n_rows * row_bytes + n_rows * 4 * (scales is not None)
                        + q_in.numel() * q_in.element_size() + n_bins * B * 4)
             b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_rows * dim, op_kind)
+            name = ("binmax_tc_kernel" if route == "tc"
+                    else "binmax_f32_kernel" if dtype == "f32" else "binmax_kernel")
             entry = {
                 "kernel": "binmax", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
-                "max_abs_err": err, "max_rel_err": rel_err(got, want), "ms": ms,
+                "route": route, "max_abs_err": err, "max_rel_err": rel_err(got, want), "ms": ms,
                 "kernel_device_ms": kernel_device_ms(
-                    lambda: tk.binmax(q_in, corpus, scales, valid_n), "binmax_kernel", 8),
+                    lambda: tk.binmax(q_in, corpus, scales, valid_n), name, 8),
+                # the same launches, each after the L2 cache was overwritten: what
+                # the byte bound assumes (the overwrite's own kernel is not counted)
+                "kernel_device_ms_cold_l2": kernel_device_ms(
+                    lambda: (l2_flush.zero_(), tk.binmax(q_in, corpus, scales, valid_n)),
+                    name, 8, fallback=False),
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
             }
@@ -331,7 +395,8 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
             s_ms = time_ms(lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks), 20)
             s_dev = kernel_device_ms(
                 lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks),
-                "binmax_strided_tc_kernel" if s_route == "tc" else "binmax_strided_kernel", 8)
+                "binmax_strided_tc_kernel" if s_route == "tc"
+                else "binmax_strided_f32_kernel" if dtype == "f32" else "binmax_strided_kernel", 8)
             alt_ms = time_ms(
                 lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, alt_blocks), 20)
             # the pass at other multiples of the groups, for approx_blocks (int8)
@@ -478,8 +543,9 @@ def gather_order_cases(gen, x, corpus, scales) -> list:
                 torch.cuda.synchronize()
                 check(torch.equal(got, want), f"bin_gather {name} B={B}: differs from plain")
                 entry[name + "_ms"] = time_ms(lambda: gather(q_in, q_scale, bins, sort), 50)
-                entry[name + "_device_ms"] = kernel_device_ms(
-                    lambda: gather(q_in, q_scale, bins, sort), "bin_gather_tc_kernel", 30)
+                entry[name + "_device_ms"] = kernel_device_ms(  # the gather without the sort
+                    lambda: gather(q_in, q_scale, bins, sort), "bin_gather_tc_kernel", 30,
+                    fallback=False)
             entry["sort_device_ms"] = kernel_device_ms(
                 lambda: torch.sort(bins.view(-1), stable=True), "", 30)
             log(f"[kernels] {json.dumps(entry)}")
@@ -1183,7 +1249,10 @@ def phase_serve(args, gen) -> dict:
     check(tc_counts["flash_attn_fwd"] == counts["flash_attn_fwd"],
           f"flash_attn_fwd: {tc_counts['flash_attn_fwd']} of {counts['flash_attn_fwd']} "
           "launches took the tensor-core route")
-    # every phase B of the int8 exact index on the tensor cores
+    # every phase A and phase B of the int8 exact index on the tensor cores
+    check(tc_counts["binmax"] == counts["binmax"],
+          f"binmax: {tc_counts['binmax']} of {counts['binmax']} "
+          "launches took the tensor-core route")
     check(tc_counts["bin_gather"] == counts["bin_gather"],
           f"bin_gather: {tc_counts['bin_gather']} of {counts['bin_gather']} "
           "launches took the tensor-core route")
@@ -1966,11 +2035,13 @@ def phase_clustered(args) -> dict:
         }
         table[f"B={B}"] = {name: time_ms(rotating(fn, [(q,) for q in sets]), 24, 4)
                            for name, fn in engines.items()}
-        # the card's own time per search (all kernels, from the profiler): what is
-        # left of the eager host pace above once the launches cost nothing
-        table[f"B={B}"].update({
-            name + "_device": kernel_device_ms(rotating(fn, [(q,) for q in sets]), "")
-            for name, fn in engines.items()})
+        # the card's own time per search (all kernels): what is left of the eager
+        # host pace above once the launches cost nothing; from the profiler where
+        # the engine waits for the card (the clustered one checks its probe)
+        for name, fn in engines.items():
+            calls = rotating(fn, [(q,) for q in sets])
+            table[f"B={B}"][name + "_device"] = (stream_device_ms(calls)
+                                                 or kernel_device_ms(calls, ""))
         parts[f"B={B}"] = clustered_parts_ms(b, sets)
         parts[f"B={B}"]["distinct_cells"] = float(
             np.mean([torch.unique(probed_cells(b, q)).numel() for q in sets]))
@@ -2052,6 +2123,8 @@ def main(argv=None) -> int:
     record["clustered"] = phase_clustered(args)
     log(f"[clustered] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
+    record["profiler_windows"] = dict(PROFILER)
+    log(f"[profiler] kernel_device_ms windows: {json.dumps(PROFILER)}")
 
     serve_launches = record["serve"]["launches"]
     train_launches = record["train"]["launches"]

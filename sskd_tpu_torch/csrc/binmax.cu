@@ -13,18 +13,43 @@
 //
 // Bound on the H100: the corpus is read once, so at serving batch sizes the
 // kernel is bound by device-memory bytes (N * row_bytes over 3.35 TB/s; 1M x
-// 384 int8 is 384 MB, about 115 us). At B >= ~64 the dp4a work on CUDA cores
-// takes over: tensor-core int8 (mma.sync / wgmma) is the next step.
+// 384 int8 is 384 MB, about 115 us); f32 at B = 256 is bound by its FMA (2 B N
+// D over 67 TFLOP/s, 2.93 ms at 1M x 384).
 //
-// Design: one block per bin (bin_dot.cuh stages the bin's rows through shared
-// memory in 128-byte chunks), the query batch walked in tiles of QT queries so
-// the bin is read from device memory once and from L2/shared memory for later
-// tiles. Each thread scales and masks its row's score, a warp shuffle takes the
-// max over 32 rows, and four partial maxima per query meet in shared memory.
-// A ragged last bin is handled in the kernel (rows >= N are zero-filled and
-// masked), so the corpus needs no padding.
+// binmax has three kernels, chosen by the wrapper (ops/topk_kernels.py
+// binmax_route):
+//  - binmax_tc_kernel, int8 rows of at most 1,024 bytes, on the tensor cores.
+//    The design of binmax_strided_tc_kernel below (queries staged once per
+//    block as mma.sync m16n8k32 s8 B fragments, a warp's 16-row tiles through
+//    its own two-stage cp.async ring, exact int32 sums) with one maximum a bin:
+//    a warp owns one bin of 128 contiguous rows at a time (eight tiles, one
+//    48 KB run at 384-byte rows), keeps the masked, scaled running maximum in
+//    registers in the C-fragment layout, and reduces it once a bin (the two
+//    row halves of the fragment, then shuffles over the grp bits; lanes of
+//    grp 0 write). Above 16 queries the grid fills the card once: the chunk
+//    of 64 queries is the fastest index, so the blocks that share bins run
+//    side by side and find them in L2, and each block walks many bins. Up to
+//    16 queries a block stages at most 6 KB of fragments, little beside the
+//    48 KB a bin moves: there a warp takes one bin and the block scheduler
+//    evens out the tail, which a walk of 3-4 bins a warp leaves uneven.
+//  - binmax_f32_kernel, f32 rows of any length, on the CUDA cores: the
+//    register-tiled score tile of f32_tile.cuh (queries staged once per block,
+//    or in bands of the row when 8 whole ones do not fit; each warp's rows
+//    streamed in K-chunks through its own ring, an R x C tile of outer
+//    products per thread, full-precision FMA: 8 x 8 over a tile of two bins
+//    at 64 queries, 4 x C over one bin below), the bin's maximum taken by
+//    shuffles over the row lanes of a warp and one shared-memory step across
+//    warps. The grid fills the card once, the chunk the fastest index.
+//  - binmax_kernel, packed int4 and int8 rows above 1,024 bytes, dp4a on the
+//    CUDA cores: one block per bin (bin_dot.cuh stages the bin's rows through
+//    shared memory in 128-byte chunks), the queries in tiles of QT, a warp
+//    shuffle and four partial maxima in shared memory.
+// A ragged last bin is handled in every kernel (rows >= N are zero-filled and
+// masked), so the corpus needs no padding. int8 and int4 results are bit for
+// bit with the plain version (exact integer sums, max independent of order);
+// f32 sums run in another order than the plain version's matrix product.
 //
-// binmax_strided_kernel (sskd_binmax_strided) is the approx engine's pass. It
+// binmax_strided (sskd_binmax_strided) is the approx engine's pass. It
 // stands in for the binned reduction of lax.approx_max_k (sskd_tpu/ops/topk.py
 // _approx_topk), which XLA fuses into the matmul on the TPU. It returns the
 // maximum AND the row that holds it, for bins whose rows lie far apart: with G
@@ -34,38 +59,41 @@
 // bin, and near neighbours are often stored side by side (the chunks of one
 // document; the cells of a clustered index, where bins of contiguous rows read
 // recall@10 0.68 against exact search over 1,000,000 cell-ordered int8 rows in
-// chip_smoke.py's clustered phase): rows G * 128 apart are not. No shuffle and no
-// shared reduction is needed, the lowest row wins a tie because a later row replaces
-// the best only when it is strictly greater, and the same byte bound holds
-// (the corpus once, plus G * 128 * B * 8 bytes of output).
+// chip_smoke.py's clustered phase): rows G * 128 apart are not. The lowest row
+// wins a tie because tiles are visited in increasing order and a later row
+// replaces the best only when it is strictly greater, and the same byte bound
+// holds (the corpus once, plus G * 128 * B * 8 bytes of output).
 //
-// binmax_strided has two kernels, chosen by the wrapper (ops/topk_kernels.py
-// binmax_strided_route). f32, int4 and int8 rows above 1,024 bytes take
-// binmax_strided_kernel on the CUDA cores (bin_dot.cuh, dp4a): a block re-reads
-// its tiles for every 32 queries, and its running best costs ~220 registers,
-// so few warps hide the synchronous loads. int8 rows of at most 1,024 bytes take
-// binmax_strided_tc_kernel:
-//  - Logical block j is ST_PARTS CUDA blocks of ST_WARPS warps, each warp
-//    owning 16 row positions t of every 128-row tile: the bins are unchanged.
-//  - A block stages its chunk of up to 64 queries once, as the B fragments of
-//    mma.sync m16n8k32 s8 in shared memory (24 KB at 64 queries of 384
-//    bytes), and reads the corpus once for them: above 64 queries the blocks
-//    of the other chunks of the same tiles run beside it (the chunk is the
-//    fastest index of the grid) and find the tiles in L2.
-//  - Each warp has its own ring of two 16-row tiles filled by cp.async (a
-//    tile is 16 contiguous rows, so a warp's copy is one coalesced run), and
-//    waits on its own copies only: no block barrier after the queries. Two
-//    stages beat three on the card at every batch: at 76 KB of shared memory
-//    three blocks fit an SM, at 102 KB two.
-//  - Per tile and 32-byte step, one ldmatrix A fragment (rows padded by
-//    tc_stride) meets each 8-query group's B fragment: 12 mma per group for
-//    384-byte rows, exact int32 sums.
-//  - (float)acc * scale[row], NEG_INF at rows >= valid_n, is held against the
-//    running best in registers in the C-fragment layout; a tile replaces it
-//    only when strictly greater, in increasing tile order, so the lowest row
-//    wins, and a bin of no valid row keeps NEG_INF and its first row.
+// binmax_strided has three kernels too (binmax_strided_route):
+//  - binmax_strided_tc_kernel, int8 rows of at most 1,024 bytes:
+//    - Logical block j is ST_PARTS CUDA blocks of ST_WARPS warps, each warp
+//      owning 16 row positions t of every 128-row tile: the bins are unchanged.
+//    - A block stages its chunk of up to 64 queries once, as the B fragments of
+//      mma.sync m16n8k32 s8 in shared memory (24 KB at 64 queries of 384
+//      bytes), and reads the corpus once for them: above 64 queries the blocks
+//      of the other chunks of the same tiles run beside it (the chunk is the
+//      fastest index of the grid) and find the tiles in L2.
+//    - Each warp has its own ring of two 16-row tiles filled by cp.async (a
+//      tile is 16 contiguous rows, so a warp's copy is one coalesced run), and
+//      waits on its own copies only: no block barrier after the queries. Two
+//      stages beat three on the card at every batch: at 76 KB of shared memory
+//      three blocks fit an SM, at 102 KB two.
+//    - Per tile and 32-byte step, one ldmatrix A fragment (rows padded by
+//      tc_stride) meets each 8-query group's B fragment: 12 mma per group for
+//      384-byte rows, exact int32 sums.
+//    - (float)acc * scale[row], NEG_INF at rows >= valid_n, is held against the
+//      running best in registers in the C-fragment layout; a tile replaces it
+//      only when strictly greater, in increasing tile order, so the lowest row
+//      wins, and a bin of no valid row keeps NEG_INF and its first row.
+//  - binmax_strided_f32_kernel, f32 rows: block j (by query chunk) walks its
+//    tiles through the f32 score tile of f32_tile.cuh and keeps the running
+//    best and its tile per (row position, query) in registers, replaced only
+//    when strictly greater.
+//  - binmax_strided_kernel, packed int4 and int8 rows above 1,024 bytes
+//    (bin_dot.cuh, dp4a): a block re-reads its tiles for every 32 queries.
 
 #include "bin_dot.cuh"
+#include "f32_tile.cuh"
 
 namespace sskd {
 
@@ -148,13 +176,18 @@ __global__ void __launch_bounds__(BIN_W) binmax_strided_kernel(
   }
 }
 
-constexpr int ST_WARPS = 4;                // a warp scores 16 row positions of a tile
-constexpr int ST_ROWS = ST_WARPS * 16;     // row positions of a tile a block owns
-constexpr int ST_PARTS = BIN_W / ST_ROWS;  // CUDA blocks of one logical block
+// --- int8 rows on the tensor cores (binmax_tc_kernel, binmax_strided_tc_kernel) ---
+
+constexpr int ST_WARPS = 4;                // warps of a block; a warp scores 16-row tiles
+constexpr int ST_ROWS = ST_WARPS * 16;     // row positions of a tile a strided block owns
+constexpr int ST_PARTS = BIN_W / ST_ROWS;  // CUDA blocks of one logical strided block
 constexpr int ST_STAGES = 2;               // tiles in a warp's ring
 constexpr int ST_QUERIES = 64;             // queries of a chunk: 8 groups of 8
 constexpr int ST_MAX_ROW_BYTES = 1024;
+constexpr int BT_TILES = BIN_W / 16;       // 16-row tiles of a bin
 
+// shared memory of both tensor-core kernels: the chunk's B fragments, then
+// each warp's ring of ST_STAGES x (16 rows of stride tc_stride, their scales)
 __host__ __device__ constexpr int st_stage_bytes(int row_bytes) {
   return 16 * tc_stride(row_bytes) + 16 * (int)sizeof(float);
 }
@@ -168,8 +201,153 @@ __host__ __device__ constexpr size_t st_smem_bytes(int groups, int row_bytes) {
 static_assert(st_smem_bytes(ST_QUERIES / 8, ST_MAX_ROW_BYTES) <= 227 * 1024,
               "the longest row fits a block");
 
+// The chunk's queries q0 .. q0 + nq - 1 as B fragments in shared memory,
+// [group][step][lane] (b0, b1); absent queries and the tail past the row's
+// bytes are zeros. The caller publishes them with a block barrier.
+template <int NG>
+__device__ __forceinline__ void tc_stage_queries(uint2* s_qf, const int8_t* __restrict__ q, int q0,
+                                                 int nq, int row_bytes, int n_k) {
+  for (int i = threadIdx.x; i < NG * n_k * 32; i += ST_WARPS * 32) {
+    const int l = i & 31, ks = (i >> 5) % n_k, n = (i >> 5) / n_k;
+    const int qq = n * 8 + (l >> 2), k0 = ks * 32 + 4 * (l & 3);
+    uint2 v = make_uint2(0u, 0u);
+    if (qq < nq) {
+      const int8_t* qr = q + (long)(q0 + qq) * row_bytes;
+      if (k0 < row_bytes) v.x = __ldg(reinterpret_cast<const uint32_t*>(qr + k0));
+      if (k0 + 16 < row_bytes) v.y = __ldg(reinterpret_cast<const uint32_t*>(qr + k0 + 16));
+    }
+    s_qf[i] = v;
+  }
+}
+
+// NG: the 8-query groups of a chunk (1, 2, 4 or 8). Grid: units * chunks, block
+// (unit, chunk) at unit * chunks + chunk; warp w of a unit owns the bins
+// unit * ST_WARPS + w + i * units * ST_WARPS, i = 0, 1, ... At least one block
+// an SM: without it ptxas held NG = 8 to 128 registers and spilled.
+template <int NG>
+__global__ void __launch_bounds__(ST_WARPS * 32, 1) binmax_tc_kernel(
+    const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
+    const float* __restrict__ scales, float* __restrict__ out,
+    int B, long n_rows, int row_bytes, long valid_n, int units, int chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = tc_stride(row_bytes), n_k = ld / 32;
+  const int stage_bytes = st_stage_bytes(row_bytes);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int chunk = blockIdx.x % chunks;
+  const int unit = blockIdx.x / chunks;
+  const int q0 = chunk * ST_QUERIES;
+  const int nq = min(NG * 8, B - q0);
+
+  uint2* s_qf = reinterpret_cast<uint2*>(smem);
+  tc_stage_queries<NG>(s_qf, q, q0, nq, row_bytes, n_k);
+  __syncthreads();
+
+  // the warp's ring: ST_STAGES x (16 rows of stride ld, then their 16 scales)
+  unsigned char* ring = smem + st_query_bytes(NG, row_bytes) + warp * ST_STAGES * stage_bytes;
+  const int n_bins = (int)((n_rows + BIN_W - 1) / BIN_W);
+  const int first = unit * ST_WARPS + warp, step = units * ST_WARPS;
+  const int n_mine = first < n_bins ? (n_bins - 1 - first) / step + 1 : 0;
+  const int n_tiles = n_mine * BT_TILES;  // tile i: tile i % 8 of the warp's bin i / 8
+  const int row_chunks = ld / 16 - 1;  // 16-byte pieces of a padded row
+  const int chunks16 = row_bytes / 16;  // of them, those the row fills
+  // the i-th tile into stage st: 16 contiguous rows, a lane a 16-byte piece;
+  // rows past the corpus and the tail as zeros, their scales not read
+  auto load = [&](int i, int st) {
+    unsigned char* dst = ring + st * stage_bytes;
+    const long row0 = (long)(first + (i / BT_TILES) * step) * BIN_W + (i % BT_TILES) * 16;
+    for (int p = lane; p < 16 * row_chunks; p += 32) {
+      const int r = p / row_chunks, k = p - r * row_chunks;
+      const bool live = row0 + r < n_rows && k < chunks16;
+      cp_async16(dst + r * ld + k * 16, corpus + (live ? (row0 + r) * row_bytes + k * 16 : 0),
+                 live ? 16 : 0);
+    }
+    if (lane < 16 && row0 + lane < n_rows)
+      cp_async4(dst + 16 * ld + lane * 4, scales + row0 + lane);
+  };
+
+  float mx[NG][4];  // the running maximum of the warp's bin, C-fragment layout
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[n][e] = NEG_INF;
+
+  const int a_off = s8_a_offset(ld, lane);
+#pragma unroll
+  for (int s = 0; s < ST_STAGES - 1; ++s) {
+    if (s < n_tiles) load(s, s);
+    cp_async_commit();
+  }
+  int st = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + ST_STAGES - 1 < n_tiles)  // into the stage the warp freed last
+      load(i + ST_STAGES - 1, st == 0 ? ST_STAGES - 1 : st - 1);
+    cp_async_commit();
+    cp_async_wait<ST_STAGES - 1>();  // this tile has landed
+    __syncwarp();
+    const unsigned char* tile = ring + st * stage_bytes;
+    int acc[NG][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0;
+#pragma unroll 2
+    for (int ks = 0; ks < n_k; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, tile + a_off + ks * 32);
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        const uint2 b = s_qf[(n * n_k + ks) * 32 + lane];
+        mma_s8(acc[n], a, b.x, b.y);
+      }
+    }
+    // acc[n]: rows row0 + grp (e 0, 1) and row0 + grp + 8 (e 2, 3), queries
+    // n * 8 + 2 tig + (e & 1)
+    const long row0 = (long)(first + (i / BT_TILES) * step) * BIN_W + (i % BT_TILES) * 16;
+    const float* sc = reinterpret_cast<const float*>(tile + 16 * ld);
+    const float sc_lo = sc[grp], sc_hi = sc[grp + 8];
+    if (row0 + 16 <= valid_n) {  // the tile's rows all valid: no mask
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[n][e] = fmaxf(mx[n][e], (float)acc[n][e] * (e < 2 ? sc_lo : sc_hi));
+    } else {  // masked before the max: no stale scale of a dead row reaches it
+      const bool live_lo = row0 + grp < valid_n, live_hi = row0 + grp + 8 < valid_n;
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = e < 2 ? live_lo : live_hi;
+          const float s = live ? (float)acc[n][e] * (e < 2 ? sc_lo : sc_hi) : NEG_INF;
+          mx[n][e] = fmaxf(mx[n][e], s);
+        }
+    }
+    __syncwarp();  // every lane is done with the stage before it is refilled
+    st = st + 1 == ST_STAGES ? 0 : st + 1;
+    if (i % BT_TILES == BT_TILES - 1) {  // the bin's last tile: reduce and write
+      const long bin = first + (i / BT_TILES) * step;
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        float m0 = fmaxf(mx[n][0], mx[n][2]), m1 = fmaxf(mx[n][1], mx[n][3]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {  // over grp: rows, never queries
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        const int col = n * 8 + 2 * tig;
+        if (grp == 0 && col < nq) out[bin * B + q0 + col] = m0;
+        if (grp == 0 && col + 1 < nq) out[bin * B + q0 + col + 1] = m1;
+        mx[n][0] = mx[n][1] = mx[n][2] = mx[n][3] = NEG_INF;
+      }
+    }
+  }
+}
+
 // NG: the 8-query groups of a chunk (1, 2, 4 or 8). Grid: blocks * ST_PARTS *
 // chunks, block (j, part, chunk) at ((j * ST_PARTS + part) * chunks + chunk).
+// Its tile loop (and binmax_tc_kernel's) is written out in the kernel: moved
+// into helper functions, it ran 17 % slower at B = 256 on an H100.
 template <int NG>
 __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
     const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
@@ -187,20 +365,8 @@ __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
   const int q0 = chunk * ST_QUERIES;
   const int nq = min(NG * 8, B - q0);
 
-  // the chunk's queries as B fragments, [group][step][lane] (b0, b1); absent
-  // queries and the tail past the row's bytes are zeros
   uint2* s_qf = reinterpret_cast<uint2*>(smem);
-  for (int i = tid; i < NG * n_k * 32; i += ST_WARPS * 32) {
-    const int l = i & 31, ks = (i >> 5) % n_k, n = (i >> 5) / n_k;
-    const int qq = n * 8 + (l >> 2), k0 = ks * 32 + 4 * (l & 3);
-    uint2 v = make_uint2(0u, 0u);
-    if (qq < nq) {
-      const int8_t* qr = q + (long)(q0 + qq) * row_bytes;
-      if (k0 < row_bytes) v.x = __ldg(reinterpret_cast<const uint32_t*>(qr + k0));
-      if (k0 + 16 < row_bytes) v.y = __ldg(reinterpret_cast<const uint32_t*>(qr + k0 + 16));
-    }
-    s_qf[i] = v;
-  }
+  tc_stage_queries<NG>(s_qf, q, q0, nq, row_bytes, n_k);
   __syncthreads();
 
   // the warp's ring: ST_STAGES x (16 rows of stride ld, then their 16 scales)
@@ -301,13 +467,238 @@ __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
     }
 }
 
+// --- f32 rows on the CUDA cores (binmax_f32_kernel, binmax_strided_f32_kernel) ---
+
+// The f32 tiles (f32_tile.cuh), 8 warps at 64 queries and 4 below: binmax
+// scores 8 x 8 a thread at 64 queries, a tile of two bins; the strided pass
+// keeps a best and its tile for each score, so it stays at 4 x C (R = 8 would
+// need some 230 registers), one bin a tile.
+template <int QC>
+using BinmaxTile = FTile<QC, QC >= 64 ? 8 : 4, QC >= 64 ? 8 : 4>;
+template <int QC>
+using StridedTile = FTile<QC, 4, QC >= 64 ? 8 : 4>;
+
+// Grid: units * chunks, block (unit, chunk) at unit * chunks + chunk; a block
+// walks the tiles unit, unit + units, ...
+template <int QC>
+__global__ void __launch_bounds__(BinmaxTile<QC>::THREADS) binmax_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ corpus,
+    const float* __restrict__ scales, float* __restrict__ out,
+    int B, long n_rows, int dim, int band, long valid_n, int units, int chunks) {
+  using T = BinmaxTile<QC>;
+  constexpr int BINS = T::ROWS / FT_ROWS, WPB = T::WARPS / BINS;  // bins a tile, warps a bin
+  extern __shared__ __align__(16) float fsmem[];
+  __shared__ float s_red[2][T::WARPS][QC];  // by tile parity: warps run a tile apart at most
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qg = lane % T::QG, rl = lane / T::QG;
+  const int chunk = blockIdx.x % chunks, unit = blockIdx.x / chunks;
+  const int q0 = chunk * QC, nq = min(QC, B - q0);
+  const long n_bins = (n_rows + FT_ROWS - 1) / FT_ROWS;
+  const long n_tiles = (n_rows + T::ROWS - 1) / T::ROWS;
+  const int n_mine = unit < n_tiles ? (int)((n_tiles - 1 - unit) / units) + 1 : 0;
+  f32_tiles<T>(
+      q, q0, nq, corpus, n_rows, dim, band, fsmem, n_mine,
+      [&](int i) { return ((long)unit + (long)i * units) * T::ROWS; },
+      [&](int i, float (&acc)[T::R][T::C]) {
+        const long tile0 = ((long)unit + (long)i * units) * T::ROWS;
+        const long row0 = tile0 + warp * T::RW + rl;
+        float m[T::C];
+#pragma unroll
+        for (int j = 0; j < T::C; ++j) m[j] = NEG_INF;
+#pragma unroll
+        for (int r = 0; r < T::R; ++r) {
+          const long row = row0 + r * T::LR;
+          const bool live = row < valid_n;
+          const float sc = scales != nullptr && live ? __ldg(scales + row) : 1.0f;
+#pragma unroll
+          for (int j = 0; j < T::C; ++j) m[j] = fmaxf(m[j], live ? acc[r][j] * sc : NEG_INF);
+        }
+#pragma unroll
+        for (int j = 0; j < T::C; ++j)
+#pragma unroll
+          for (int off = T::QG; off < 32; off <<= 1)  // over the warp's row lanes
+            m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+        float (*red)[QC] = s_red[i & 1];
+        if (lane < T::QG) {
+#pragma unroll
+          for (int j = 0; j < T::C; ++j) red[warp][j * T::QG + qg] = m[j];
+        }
+        __syncthreads();  // s_red[i & 1] is written again only after the next tile's barrier
+        if (tid < BINS * QC) {  // the tile's bins: warps b * WPB .. of bin b
+          const int b = tid / QC, col = tid % QC;
+          const long bin = tile0 / FT_ROWS + b;
+          if (col < nq && bin < n_bins) {
+            float v = red[b * WPB][col];
+#pragma unroll
+            for (int w = 1; w < WPB; ++w) v = fmaxf(v, red[b * WPB + w][col]);
+            out[bin * B + q0 + col] = v;
+          }
+        }
+      });
+}
+
+// Grid: blocks * chunks, block (j, chunk) at j * chunks + chunk.
+template <int QC>
+__global__ void __launch_bounds__(StridedTile<QC>::THREADS) binmax_strided_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ corpus,
+    const float* __restrict__ scales, float* __restrict__ out, int* __restrict__ arg,
+    int B, long n_rows, int dim, int band, long valid_n, int blocks, int chunks) {
+  using T = StridedTile<QC>;
+  static_assert(T::ROWS == FT_ROWS, "a strided tile is one bin of rows");
+  extern __shared__ __align__(16) float fsmem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qg = lane % T::QG, rl = lane / T::QG;
+  const int t0 = warp * T::RW + rl;  // the thread's first row position of a tile
+  const int chunk = blockIdx.x % chunks, j = blockIdx.x / chunks;
+  const int q0 = chunk * QC, nq = min(QC, B - q0);
+  const long n_tiles = (n_rows + FT_ROWS - 1) / FT_ROWS;
+  const int n_mine = (int)((n_tiles - 1 - j) / blocks) + 1;  // tiles j, j + blocks, ...
+
+  float best[T::R][T::C];
+  int best_i[T::R][T::C];  // the tile of each best, as its turn i (tile j + i * blocks)
+#pragma unroll
+  for (int r = 0; r < T::R; ++r)
+#pragma unroll
+    for (int c = 0; c < T::C; ++c) { best[r][c] = NEG_INF; best_i[r][c] = 0; }
+  f32_tiles<T>(
+      q, q0, nq, corpus, n_rows, dim, band, fsmem, n_mine,
+      [&](int i) { return ((long)j + (long)i * blocks) * FT_ROWS; },
+      [&](int i, float (&acc)[T::R][T::C]) {
+        const long row0 = ((long)j + (long)i * blocks) * FT_ROWS + t0;
+#pragma unroll
+        for (int r = 0; r < T::R; ++r) {
+          const long row = row0 + r * T::LR;
+          const bool live = row < valid_n;
+          const float sc = scales != nullptr && live ? __ldg(scales + row) : 1.0f;
+#pragma unroll
+          for (int c = 0; c < T::C; ++c) {
+            const float s = live ? acc[r][c] * sc : NEG_INF;
+            if (s > best[r][c]) { best[r][c] = s; best_i[r][c] = i; }
+          }
+        }
+      });
+#pragma unroll
+  for (int r = 0; r < T::R; ++r)
+#pragma unroll
+    for (int c = 0; c < T::C; ++c) {
+      const int col = c * T::QG + qg;
+      if (col < nq) {
+        const int t = t0 + r * T::LR;
+        const long o = ((long)j * BIN_W + t) * B + q0 + col;
+        out[o] = best[r][c];
+        arg[o] = (int)(((long)j + (long)best_i[r][c] * blocks) * BIN_W + t);
+      }
+    }
+}
+
+// --- launches ---
+
+// Readies a launch of `kernel` with `smem` bytes of dynamic shared memory:
+// allows it `max_smem`, the most any launch of it takes (the same at every
+// launch, so that no launch lowers another's allowance), and, where `resident`
+// is given, sets it to the blocks the card holds at once (SMs x blocks an SM).
+static cudaError_t launch_setup(const void* kernel, size_t max_smem, int threads, size_t smem,
+                                long* resident) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
+  if (e != cudaSuccess || resident == nullptr) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  *resident = (long)sms * (per_sm > 0 ? per_sm : 1);
+  return e;
+}
+
+// units of a walking grid: enough blocks of every chunk to fill the card once,
+// and no more than the work items
+static long fill_units(long resident, int chunks, long items) {
+  const long units = resident / chunks > 1 ? resident / chunks : 1;
+  return units < items ? units : items;
+}
+
+template <int NG>
+static int launch_binmax_tc(const void* q, const void* corpus, const float* scales, float* out,
+                            int B, long n_rows, int row_bytes, long valid_n, int chunks,
+                            cudaStream_t stream) {
+  const size_t smem = st_smem_bytes(NG, row_bytes);
+  long resident = 0;  // read above 16 queries only: below, a warp takes one bin
+  const cudaError_t e = launch_setup((const void*)binmax_tc_kernel<NG>,
+                                     st_smem_bytes(NG, ST_MAX_ROW_BYTES), ST_WARPS * 32, smem,
+                                     NG <= 2 ? nullptr : &resident);
+  if (e != cudaSuccess) return (int)e;
+  const long n_bins = (n_rows + BIN_W - 1) / BIN_W;
+  const long items = (n_bins + ST_WARPS - 1) / ST_WARPS;  // one bin a warp
+  const long units = NG <= 2 ? items : fill_units(resident, chunks, items);
+  binmax_tc_kernel<NG><<<(unsigned)(units * chunks), ST_WARPS * 32, smem, stream>>>(
+      (const int8_t*)q, (const int8_t*)corpus, scales, out, B, n_rows, row_bytes, valid_n,
+      (int)units, chunks);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory of a block of Tile<qc> staging bands of `band` floats
+template <template <int> class Tile>
+static size_t f32_smem(int qc, int band) {
+  return qc == 64 ? ft_smem_bytes<Tile<64>>(band) : qc == 32 ? ft_smem_bytes<Tile<32>>(band)
+       : qc == 16 ? ft_smem_bytes<Tile<16>>(band) : ft_smem_bytes<Tile<8>>(band);
+}
+
+// (queries a block of an f32 kernel holds, floats of depth it stages at once):
+// the batch's size class, halved while the whole row does not fit, down to 8
+// queries, whose rows are then staged in bands of as many K-chunks as fit
+template <template <int> class Tile>
+static int2 f32_chunk(int B, int dim) {
+  const int full = ft_full_band(dim);
+  int qc = B <= 8 ? 8 : B <= 16 ? 16 : B <= 32 ? 32 : 64;
+  while (qc > 8 && f32_smem<Tile>(qc, full) > FT_SMEM_MAX) qc /= 2;
+  int band = full;
+  while (f32_smem<Tile>(qc, band) > FT_SMEM_MAX) band -= FT_KC_MAX;
+  return make_int2(qc, band);
+}
+
+template <int QC>
+static int launch_binmax_f32(const void* q, const void* corpus, const float* scales, float* out,
+                             int B, long n_rows, int dim, int band, long valid_n,
+                             cudaStream_t stream) {
+  using T = BinmaxTile<QC>;
+  const size_t smem = ft_smem_bytes<T>(band);
+  long resident = 0;
+  const cudaError_t e =
+      launch_setup((const void*)binmax_f32_kernel<QC>, FT_SMEM_MAX, T::THREADS, smem, &resident);
+  if (e != cudaSuccess) return (int)e;
+  const int chunks = (B + QC - 1) / QC;
+  const long units = fill_units(resident, chunks, (n_rows + T::ROWS - 1) / T::ROWS);
+  binmax_f32_kernel<QC><<<(unsigned)(units * chunks), T::THREADS, smem, stream>>>(
+      (const float*)q, (const float*)corpus, scales, out, B, n_rows, dim, band, valid_n,
+      (int)units, chunks);
+  return (int)cudaGetLastError();
+}
+
+template <int QC>
+static int launch_strided_f32(const void* q, const void* corpus, const float* scales, float* out,
+                              int* arg, int B, long n_rows, int dim, int band, long valid_n,
+                              int blocks, cudaStream_t stream) {
+  using T = StridedTile<QC>;
+  const size_t smem = ft_smem_bytes<T>(band);
+  const cudaError_t e = launch_setup((const void*)binmax_strided_f32_kernel<QC>, FT_SMEM_MAX,
+                                     T::THREADS, smem, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  const int chunks = (B + QC - 1) / QC;
+  if ((long)blocks * chunks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  binmax_strided_f32_kernel<QC><<<(unsigned)((long)blocks * chunks), T::THREADS, smem, stream>>>(
+      (const float*)q, (const float*)corpus, scales, out, arg, B, n_rows, dim, band, valid_n,
+      blocks, chunks);
+  return (int)cudaGetLastError();
+}
+
 template <int NG>
 static int launch_strided_tc(const void* q, const void* corpus, const float* scales, float* out,
                              int* arg, int B, long n_rows, int row_bytes, long valid_n,
                              int blocks, int chunks, cudaStream_t stream) {
   const size_t smem = st_smem_bytes(NG, row_bytes);
-  const cudaError_t e = cudaFuncSetAttribute(
-      binmax_strided_tc_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = launch_setup((const void*)binmax_strided_tc_kernel<NG>,
+                                     st_smem_bytes(NG, ST_MAX_ROW_BYTES), ST_WARPS * 32, smem,
+                                     nullptr);
   if (e != cudaSuccess) return (int)e;
   binmax_strided_tc_kernel<NG><<<(unsigned)((long)blocks * ST_PARTS * chunks), ST_WARPS * 32,
                                  smem, stream>>>(
@@ -365,11 +756,33 @@ extern "C" int sskd_binmax(int mode, const void* q, const void* corpus, const fl
   using namespace sskd;
   if (n_rows <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == F32) launch_mode<F32>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
-  else if (mode == I8) launch_mode<I8>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
+  if (mode == F32) {
+    const int2 c = f32_chunk<BinmaxTile>(B, row_words);
+    if (c.x == 64) return launch_binmax_f32<64>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
+    if (c.x == 32) return launch_binmax_f32<32>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
+    if (c.x == 16) return launch_binmax_f32<16>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
+    return launch_binmax_f32<8>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
+  }
+  if (mode == I8) launch_mode<I8>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
   else if (mode == I4) launch_mode<I4>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The tensor-core route of binmax: int8 rows only, row_bytes a multiple of 16 of at most
+// 1,024; scales required; n_rows < 2^31. Arguments and result as sskd_binmax.
+extern "C" int sskd_binmax_tc(const void* q, const void* corpus, const float* scales, float* out,
+                              int B, long n_rows, int row_bytes, long valid_n, void* stream) {
+  using namespace sskd;
+  if (n_rows <= 0 || B <= 0 || scales == nullptr || row_bytes <= 0 || row_bytes % 16 ||
+      row_bytes > ST_MAX_ROW_BYTES || n_rows > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (B + ST_QUERIES - 1) / ST_QUERIES;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 8) return launch_binmax_tc<1>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  if (B <= 16) return launch_binmax_tc<2>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  if (B <= 32) return launch_binmax_tc<4>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  return launch_binmax_tc<8>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
 }
 
 // The approx engine's pass. Arguments as sskd_binmax, and: arg [blocks * 128, B] int32, the
@@ -383,8 +796,14 @@ extern "C" int sskd_binmax_strided(int mode, const void* q, const void* corpus,
   if (n_rows <= 0 || B <= 0 || arg == nullptr || n_rows + BIN_W > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   if (blocks < 1 || blocks > (n_rows + BIN_W - 1) / BIN_W) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == F32) launch_strided<F32>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
-  else if (mode == I8) launch_strided<I8>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
+  if (mode == F32) {
+    const int2 c = f32_chunk<StridedTile>(B, row_words);
+    if (c.x == 64) return launch_strided_f32<64>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
+    if (c.x == 32) return launch_strided_f32<32>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
+    if (c.x == 16) return launch_strided_f32<16>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
+    return launch_strided_f32<8>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
+  }
+  if (mode == I8) launch_strided<I8>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
   else if (mode == I4) launch_strided<I4>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -17,12 +17,13 @@ Each kernel wrapper launches its kernel on a CUDA tensor and counts the
 launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
 plain torch version (``binmax_plain``, ``bin_gather_plain``,
 ``binmax_strided_plain``), which repeats the kernel's arithmetic.
-``binmax_strided`` and ``bin_gather`` have two routes each
-(:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows on the
+Each kernel has two routes (:func:`binmax_route`,
+:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows on the
 tensor cores, counted also in ``tc_launches``; f32, int4 and longer int8
-rows on the CUDA cores. Results follow the JAX engine's contract:
-``(vals [B, k] f32, idx [B, k] int32)`` with ``(-inf, -1)`` sentinels, where
-"-inf" is ``finfo(float32).min / 2``.
+rows on the CUDA cores (f32 in ``binmax`` and ``binmax_strided`` through
+the register-tiled score tile of csrc/f32_tile.cuh). Results follow the JAX
+engine's contract: ``(vals [B, k] f32, idx [B, k] int32)`` with ``(-inf,
+-1)`` sentinels, where "-inf" is ``finfo(float32).min / 2``.
 """
 
 from __future__ import annotations
@@ -47,12 +48,23 @@ TC_MAX_ROW_BYTES = 1024
 GATHER_TC_RUN = 1  # (query, slot) pairs a bin_gather_tc job takes, in their own order
 
 
+def binmax_route(dtype: torch.dtype, row_bytes: int) -> str:
+    """The kernel a CUDA call of :func:`binmax` launches: ``"tc"``
+    (``binmax_tc_kernel``: int8 mma, a warp a bin of 128 contiguous rows,
+    each block's queries staged once) for int8 rows of at most
+    ``TC_MAX_ROW_BYTES``, ``"cuda_core"`` for f32 (``binmax_f32_kernel``, the
+    register-tiled fma tile), packed int4 and longer int8 rows
+    (``binmax_kernel``, dp4a)."""
+    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+
+
 def binmax_strided_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`binmax_strided` launches: ``"tc"``
     (``binmax_strided_tc_kernel``: int8 mma, each block's queries staged once
     and its tiles read once for up to 64 of them) for int8 rows of at most
-    ``TC_MAX_ROW_BYTES``, ``"cuda_core"`` (``binmax_strided_kernel``, dp4a /
-    fma) for f32, packed int4 and longer rows."""
+    ``TC_MAX_ROW_BYTES``, ``"cuda_core"`` for f32
+    (``binmax_strided_f32_kernel``, the register-tiled fma tile), packed int4
+    and longer int8 rows (``binmax_strided_kernel``, dp4a)."""
     return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
 
 
@@ -144,6 +156,17 @@ def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.T
     _check_cuda(q_in, corpus, row_scales)
     B = q_in.shape[0]
     out = torch.empty(((n + BIN_W - 1) // BIN_W, B), dtype=torch.float32, device=corpus.device)
+    if binmax_route(corpus.dtype, row_words * 4) == "tc":
+        _build.check(
+            _fn("binmax", "sskd_binmax_tc")(
+                _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
+                B, n, row_words * 4, valid_n, _stream(corpus.device),
+            ),
+            "binmax (tensor cores)",
+        )
+        binmax.launches += 1
+        binmax.tc_launches += 1
+        return out
     _build.check(
         _fn("binmax", "sskd_binmax")(
             mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
@@ -156,6 +179,7 @@ def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.T
 
 
 binmax.launches = 0
+binmax.tc_launches = 0  # the launches that took the tensor-core route
 
 
 def _dense_rows(corpus: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -354,6 +378,7 @@ def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | Non
 
 _ARGTYPES = {
     "sskd_binmax": "i p p p p i l i l p",
+    "sskd_binmax_tc": "p p p p i l i l p",
     "sskd_binmax_strided": "i p p p p p i l i l i p",
     "sskd_binmax_strided_tc": "p p p p p i l i l i p",
     "sskd_bin_gather": "i p p p p p p i i l i l p",

@@ -437,7 +437,8 @@ def test_attention_routes_and_their_counters():
     assert ta.dropattn_fwd_route(torch.float32, 64) == "cuda_core"
     reset_launch_counts()
     assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
-                                  "cell_gather": 0, "bin_gather": 0, "binmax_strided": 0}
+                                  "cell_gather": 0, "bin_gather": 0, "binmax_strided": 0,
+                                  "binmax": 0}
 
 
 def test_dropattn_tensor_core_backward_applies_the_plain_mask():
@@ -648,23 +649,100 @@ def test_bin_gather_tensor_core_route_is_bit_for_bit(B, kb, d):
 @pytest.mark.parametrize("dtype,d", [("f32", 384), ("int4", 384), ("int8", 1040)])
 def test_topk_cuda_core_routes_and_their_counters(dtype, d):
     """f32, packed int4 and int8 rows over the limits stay on the CUDA-core
-    kernels: counted in launches, not in tc_launches."""
+    kernels of binmax, binmax_strided and bin_gather: counted in launches,
+    not in tc_launches."""
     _need_card()
     x, q = _data(20_001, d, 4, seed=d)
     corpus, scales = _storage(dtype, x)
     q_in, q_scale = tk.quantize_queries(q, corpus)
     row_bytes = corpus.shape[1] * corpus.element_size()
+    assert tk.binmax_route(corpus.dtype, row_bytes) == "cuda_core"
     assert tk.binmax_strided_route(corpus.dtype, row_bytes) == "cuda_core"
     assert tk.bin_gather_route(corpus.dtype, row_bytes) == "cuda_core"
-    before = (tk.binmax_strided.launches, tk.bin_gather.launches)
-    tc_before = (tk.binmax_strided.tc_launches, tk.bin_gather.tc_launches)
+    wrappers = (tk.binmax, tk.binmax_strided, tk.bin_gather)
+    before = tuple(w.launches for w in wrappers)
+    tc_before = tuple(w.tc_launches for w in wrappers)
+    m_got = tk.binmax(q_in, corpus, scales)
+    m_want = tk.binmax_plain(q_in, corpus, scales)
     got, rows = tk.binmax_strided(q_in, corpus, scales, 20_001, 11)
     want, _ = tk.binmax_strided_plain(q_in, corpus, scales, 20_001, 11)
-    bins = tk.topk_stable(tk.binmax_plain(q_in, corpus, scales).T, 10)[1].to(torch.int32)
+    bins = tk.topk_stable(m_want.T, 10)[1].to(torch.int32)
     g_got = tk.bin_gather(q_in, q_scale, corpus, scales, bins.contiguous())
     g_want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins)
     torch.cuda.synchronize()
-    assert (tk.binmax_strided.launches, tk.bin_gather.launches) == (before[0] + 1, before[1] + 1)
-    assert (tk.binmax_strided.tc_launches, tk.bin_gather.tc_launches) == tc_before
+    assert tuple(w.launches for w in wrappers) == tuple(n + 1 for n in before)
+    assert tuple(w.tc_launches for w in wrappers) == tc_before
     tol = 1e-5 if dtype == "f32" else 0.0
+    assert (m_got - m_want).abs().max().item() <= tol
     assert (got - want).abs().max().item() <= tol and (g_got - g_want).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core route of binmax, and the f32 routes of binmax and binmax_strided
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,d", [(1, 384), (8, 48), (16, 384), (17, 384), (32, 1024),
+                                 (64, 384), (65, 64), (256, 384)])
+def test_binmax_tensor_core_route_is_bit_for_bit(B, d):
+    """int8 takes the tensor-core route: bin maxima bit for bit with the plain
+    version, a ragged last bin, a valid_n that leaves it with no valid row and
+    the bin before it partly valid, rows of 48 to 1,024 bytes, query counts
+    that fill no 8-query group or chunk, and bitwise equal over two launches."""
+    _need_card()
+    n = 70_001  # 547 bins, the last of 113 rows
+    x, q = _data(n, d, B, seed=400 + B + d)
+    q[0] = x[4999]
+    corpus, scales = _storage("int8", x)
+    q_in, _ = tk.quantize_queries(q, corpus)
+    assert tk.binmax_route(corpus.dtype, d) == "tc"
+    for valid_n in (n, 546 * 128 - 3):
+        before, tc_before = tk.binmax.launches, tk.binmax.tc_launches
+        got = tk.binmax(q_in, corpus, scales, valid_n)
+        again = tk.binmax(q_in, corpus, scales, valid_n)
+        want = tk.binmax_plain(q_in, corpus, scales, valid_n)
+        torch.cuda.synchronize()
+        assert tk.binmax.launches == before + 2 and tk.binmax.tc_launches == tc_before + 2
+        assert got.shape == (547, B)
+        assert torch.equal(got, want) and torch.equal(again, got)
+    assert (got[-1] == tk.NEG_INF).all() and (got[:-1] > tk.NEG_INF).all()
+
+
+@pytest.mark.parametrize("B,d,scaled", [(1, 384, False), (9, 384, True), (16, 1024, False),
+                                        (40, 384, False), (64, 128, True), (65, 384, False),
+                                        (256, 384, True), (17, 4100, True), (5, 10_000, False)])
+def test_f32_routes_of_binmax_and_binmax_strided_within_1e5(B, d, scaled):
+    """f32 takes the register-tiled CUDA-core kernels of both wrappers: maxima
+    within 1e-5 of the plain versions (another summation order), the strided
+    rows holding their maxima, the lower of two equal rows in one bin, a
+    ragged last bin and a last tile of no valid row; rows of any length
+    (10,000 floats are staged in three bands, the last ragged)."""
+    _need_card()
+    n, blocks = 70_001, 100
+    x, q = _data(n, d, B, seed=500 + B + d)
+    x[4999 + 128 * blocks] = x[4999]
+    q[0] = x[4999]
+    scales = None
+    if scaled:
+        g = torch.Generator(device="cuda").manual_seed(B)
+        scales = torch.rand(n, device="cuda", generator=g) + 0.5
+        scales[4999 + 128 * blocks] = scales[4999]
+    valid_n = n - 200
+    assert tk.binmax_route(torch.float32, 4 * d) == "cuda_core"
+    before = (tk.binmax.launches, tk.binmax_strided.launches)
+    got = tk.binmax(q, x, scales, valid_n)
+    want = tk.binmax_plain(q, x, scales, valid_n)
+    top, rows = tk.binmax_strided(q, x, scales, valid_n, blocks)
+    w_top, w_rows = tk.binmax_strided_plain(q, x, scales, valid_n, blocks)
+    torch.cuda.synchronize()
+    assert (tk.binmax.launches, tk.binmax_strided.launches) == (before[0] + 1, before[1] + 1)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got <= tk.NEG_INF / 2, want <= tk.NEG_INF / 2)
+    assert (top - w_top).abs().max().item() <= 1e-5
+    assert (rows == w_rows).float().mean().item() >= 0.9999
+    assert int(rows[4999 % (128 * blocks), 0]) == 4999
+    live = top > tk.NEG_INF / 2  # each row named holds its bin's maximum
+    picked = torch.einsum("gbd,bd->gb", x[rows.long().clamp(max=valid_n - 1)], q)
+    if scales is not None:
+        picked = picked * scales[rows.long().clamp(max=valid_n - 1)]
+    torch.testing.assert_close(picked[live], top[live], rtol=1e-5, atol=1e-6)

@@ -12,6 +12,8 @@ recall (at least the recall target) and by the scores of the ids it returns;
 below the reduction threshold and at recall_target 1.0 the ids are equal.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,13 @@ from sskd_tpu.ops.topk import cosine_topk as jcosine_topk
 from sskd_tpu.ops.topk_pallas import cosine_topk_pallas
 from sskd_tpu_torch.ops import topk as tt
 from sskd_tpu_torch.ops import topk_kernels as tk
-from torch_tc_emulation import bin_gather_tc, binmax_strided_tc
+from torch_tc_emulation import (
+    bin_gather_tc,
+    binmax_f32,
+    binmax_strided_f32,
+    binmax_strided_tc,
+    binmax_tc,
+)
 
 
 def _normed(rng, n, d):
@@ -126,6 +134,22 @@ def test_blocked_engine_matches_kernel_engine():
     bv, bi = tt.cosine_topk_core(q, v, 10, block_rows=128, row_scales=s, valid_n=850)
     np.testing.assert_array_equal(ki.numpy(), bi.numpy())
     np.testing.assert_array_equal(kv.numpy(), bv.numpy())
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float32, 384, True),
+    (torch.float32, 4100, True),     # past one band of 8 staged queries' whole rows
+    (torch.float32, 10_000, True),
+    (torch.int8, 1040, True),        # over the tensor-core limit: the dp4a kernel
+    (torch.bfloat16, 384, False),
+])
+def test_exact_gate_takes_rows_of_any_length(dtype, d, want):
+    """On a CUDA corpus the kernel engine takes f32 and int8 rows of any
+    length (the f32 kernels stage long rows in bands), so no row length
+    sends the caller to the blocked torch engine."""
+    corpus = SimpleNamespace(device=torch.device("cuda"), dtype=dtype, shape=(1 << 16, d))
+    assert tt.kernel_exact_ok(torch.zeros(2, d), corpus, 10) is want
+    assert tt.kernel_exact_ok(torch.zeros(2, d), corpus, tk.K_MAX + 1) is False
 
 
 def test_dispatch_gate_and_approx():
@@ -295,11 +319,18 @@ def test_approx_keeps_neighbours_stored_side_by_side():
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core routes of binmax_strided and bin_gather
+# The tensor-core routes of binmax, binmax_strided and bin_gather, and the
+# register-tiled f32 route of binmax and binmax_strided
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("route,dtype,row_bytes,want", [
+    (tk.binmax_route, torch.int8, 48, "tc"),
+    (tk.binmax_route, torch.int8, 384, "tc"),
+    (tk.binmax_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
+    (tk.binmax_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
+    (tk.binmax_route, torch.float32, 384 * 4, "cuda_core"),
+    (tk.binmax_route, torch.uint8, 192, "cuda_core"),
     (tk.binmax_strided_route, torch.int8, 384, "tc"),
     (tk.binmax_strided_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
     (tk.binmax_strided_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
@@ -392,3 +423,103 @@ def test_exact_engine_at_b64_int8_matches_jax():
                          row_scales=jnp.asarray(scales), valid_n=2901)
     np.testing.assert_array_equal(t[1], np.asarray(ji))
     assert (t[1] < 2901).all()
+
+
+@pytest.mark.parametrize("n,valid_n,B,d,units", [
+    (1000, 1000, 1, 64, 2),      # a ragged last bin (104 rows)
+    (1000, 890, 5, 48, 1),       # the last bin holds no valid row; rows of 48 bytes
+    (1000, 950, 8, 64, 3),       # a ragged valid_n inside the ragged last bin
+    (2000, 1999, 9, 384, 2),     # two query groups, the second of one query
+    (1300, 1250, 64, 1024, 1),   # a whole chunk of 64 at the longest row
+    (1100, 1100, 65, 384, 4),    # two chunks, the second of one query
+])
+def test_tensor_core_binmax_traversal_is_bit_for_bit(n, valid_n, B, d, units):
+    """The tensor-core binmax (tests/torch_tc_emulation.py: units of four
+    warps walking bins of 128 contiguous rows as eight 16-row tiles, queries
+    in chunks of 64, the masked running maximum in the C-fragment layout and
+    its reduction over the row halves and the grp lanes) gives binmax_plain's
+    maxima bit for bit, every column of every bin written; a bin of no valid
+    row gives NEG_INF."""
+    x, q = _int8_case(n * 7 + B, n, d, B)
+    xq, xs = (torch.from_numpy(np.array(a)) for a in jquant8(x))
+    q_in, _ = tk.quantize_queries(torch.from_numpy(q), xq)
+    got = binmax_tc(q_in, xq, xs, valid_n, units)
+    want = tk.binmax_plain(q_in, xq, xs, valid_n)
+    assert got.shape == want.shape == ((n + 127) // 128, B)
+    assert torch.equal(got, want)  # no NaN left: every (bin, query) written
+    dead = torch.arange(got.shape[0]) * 128 >= valid_n
+    assert (got[dead] == tk.NEG_INF).all() and (got[~dead] > tk.NEG_INF).all()
+
+
+def _jax_binmax(q_in, corpus, scales, valid_n, block_rows=256):
+    """The JAX package's _binmax_kernel through its own pallas_call, in
+    interpret mode: bin maxima [ceil(N / 128), B] without the query scale."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from sskd_tpu.ops import topk_pallas as tp
+
+    n, dc = corpus.shape
+    B = q_in.shape[0]
+    padded = -(-n // block_rows) * block_rows
+    corpus = np.pad(corpus, ((0, padded - n), (0, 0)))
+    scales = np.pad(scales, (0, padded - n)).reshape(padded, 1)
+    spec = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
+    out = pl.pallas_call(
+        functools.partial(tp._binmax_dispatch, has_scales=True, is_int8=True, is_int4=False,
+                          block_rows=block_rows),
+        grid=(padded // block_rows,),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  spec((B, dc), lambda i: (0, 0)),
+                  spec((block_rows, dc), lambda i: (i, 0)),
+                  spec((block_rows, 1), lambda i: (i, 0))],
+        out_specs=spec((block_rows // 128, B), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((padded // 128, B), jnp.float32),
+        interpret=True,
+    )(jnp.asarray([[valid_n]], jnp.int32), jnp.asarray(q_in), jnp.asarray(corpus),
+      jnp.asarray(scales))
+    return np.asarray(out)[: -(-n // 128)]
+
+
+def test_plain_binmax_matches_the_jax_binmax_kernel():
+    """binmax_plain, which the tensor-core route matches bit for bit, gives
+    the JAX package's _binmax_kernel maxima (interpret mode) bit for bit at
+    int8, a ragged corpus and a valid_n that leaves the last bin empty."""
+    x, q = _int8_case(77, 1000, 64, 9)
+    xq, xs = (np.array(a) for a in jquant8(x))
+    q_in, _ = tk.quantize_queries(torch.from_numpy(q), torch.from_numpy(xq))
+    want = tk.binmax_plain(q_in, torch.from_numpy(xq), torch.from_numpy(xs), 890).numpy()
+    got = _jax_binmax(q_in.numpy(), xq, xs, 890)
+    np.testing.assert_array_equal(got, want)
+    assert (want[-1] == tk.NEG_INF).all()
+
+
+@pytest.mark.parametrize("d", [384, 1024, 10_000])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_f32_tile_order_is_within_1e5_of_plain(d, scaled):
+    """The f32 kernels' summation order (one fma chain a score over the row
+    in order, tests/torch_tc_emulation.py; rows staged in bands keep it)
+    stays within the 1e-5 that the card's checks allow of binmax_plain and
+    binmax_strided_plain, and the strided pass keeps the lower of two equal
+    rows in one bin."""
+    n, valid_n, B, blocks = 1500, 1460, 9, 5
+    x, q = _int8_case(d + scaled, n, d, B)
+    x[17 + 128 * blocks] = x[17]  # equal rows in bin 17: the lower wins
+    q[0] = x[17]
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    scales = np.random.default_rng(d).uniform(0.5, 2.0, n).astype(np.float32)
+    scales[17 + 128 * blocks] = scales[17]
+    scales = torch.from_numpy(scales)
+    sc = scales if scaled else None
+    got = binmax_f32(qt, xt, sc, valid_n)
+    want = tk.binmax_plain(qt, xt, sc, valid_n)
+    assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got <= tk.NEG_INF / 2, want <= tk.NEG_INF / 2)
+    top, rows = binmax_strided_f32(qt, xt, sc, valid_n, blocks)
+    w_top, w_rows = tk.binmax_strided_plain(qt, xt, sc, valid_n, blocks)
+    assert (top - w_top).abs().max().item() <= 1e-5
+    assert (rows == w_rows).float().mean().item() >= 0.9999
+    assert int(rows[17, 0]) == 17

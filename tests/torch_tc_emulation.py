@@ -32,7 +32,19 @@ kernels' order of the two scale products and NEG_INF at rows >= valid_n.
 logical block j as two blocks of four warps, each warp 16 row positions of
 every tile j, j + blocks, ... in increasing order, queries in chunks of 64
 as 8-query groups, a running best replaced only when strictly greater, and
-the C-fragment layout in which each lane writes its bins.
+the C-fragment layout in which each lane writes its bins. ``binmax_tc``
+follows ``binmax_tc_kernel``: the units of four warps, a warp a bin of 128
+contiguous rows at a time as eight 16-row tiles (rows past the corpus read
+as zeros, masked with their stale scales), the masked running maximum in
+the C-fragment layout, and its reduction (the two row halves, then the
+lanes' grp bits; grp 0 writes).
+
+``f32_tile_scores`` writes out the order of csrc/f32_tile.cuh, which both
+f32 kernels of csrc/binmax.cu take: each score one fma chain over the row's
+floats in order (each step the exact product added in float64 and rounded
+once to f32). ``binmax_f32`` and ``binmax_strided_f32`` take the bins'
+maxima of those scores, the strided one visiting each block's tiles in
+increasing order with a strict compare.
 
 The kernels themselves run only on the card; these versions let the CPU
 tests hold the error bounds that the card's checks use against the new
@@ -255,12 +267,7 @@ def binmax_strided_tc(q_in, corpus, row_scales, valid_n, blocks):
     chunks = (B + ST_QUERIES - 1) // ST_QUERIES
     best = torch.full((blocks * BIN_W, B), NEG)
     rows_out = torch.zeros((blocks * BIN_W, B), dtype=torch.int32)
-    # the C fragment of lane (grp, tig), group n, element e: row grp + 8 (e >> 1)
-    # of the warp's 16, query n * 8 + 2 tig + (e & 1)
-    lane, n_i, e = torch.meshgrid(torch.arange(32), torch.arange(ng), torch.arange(4),
-                                  indexing="ij")
-    frag_row = ((lane >> 2) + 8 * (e >> 1)).reshape(-1)
-    frag_col = (n_i * 8 + 2 * (lane & 3) + (e & 1)).reshape(-1)
+    frag_row, frag_col = _frag_layout(ng)
     for j in range(blocks):
         n_mine = (n_tiles - 1 - j) // blocks + 1
         for part in range(ST_PARTS):
@@ -287,3 +294,102 @@ def binmax_strided_tc(q_in, corpus, row_scales, valid_n, blocks):
                     rows_out[bins, q0 + fc] = ((j + run_i[fr, fc] * blocks) * BIN_W + t0
                                                + fr).to(torch.int32)
     return best, rows_out
+
+
+def _frag_layout(ng):
+    """(row of 16, query column) of each C-fragment element, lane-major:
+    lane (grp, tig), group n, element e hold row grp + 8 (e >> 1) and query
+    n * 8 + 2 tig + (e & 1)."""
+    lane, n_i, e = torch.meshgrid(torch.arange(32), torch.arange(ng), torch.arange(4),
+                                  indexing="ij")
+    rows = (lane >> 2) + 8 * (e >> 1)
+    return rows.reshape(-1), (n_i * 8 + 2 * (lane & 3) + (e & 1)).reshape(-1)
+
+
+def binmax_tc(q_in, corpus, row_scales, valid_n, units):
+    """Bin maxima [ceil(N / 128), B] f32 of the int8 tensor-core binmax,
+    unit by unit and warp by warp, with ``units`` units of four warps (the
+    card's count fills it; the result does not depend on it). A bin no warp
+    writes stays NaN."""
+    n, d = corpus.shape
+    B = q_in.shape[0]
+    n_bins = (n + BIN_W - 1) // BIN_W
+    rows_all = torch.zeros(n_bins * BIN_W, d, dtype=torch.int64)
+    rows_all[:n] = corpus.to(torch.int64)  # a ragged last bin: zeros
+    scales_all = torch.full((n_bins * BIN_W,), float("nan"))  # stale where dead: masked
+    scales_all[:n] = row_scales
+    ng = 1 if B <= 8 else 2 if B <= 16 else 4 if B <= 32 else 8
+    chunks = (B + ST_QUERIES - 1) // ST_QUERIES
+    out = torch.full((n_bins, B), float("nan"))
+    frag_row, frag_col = _frag_layout(ng)
+    for chunk in range(chunks):
+        q0 = chunk * ST_QUERIES
+        nq = min(ng * 8, B - q0)
+        qf = torch.zeros(ng * 8, d, dtype=torch.int64)  # absent queries: zeros
+        qf[:nq] = q_in[q0:q0 + nq].to(torch.int64)
+        for unit in range(units):
+            for warp in range(ST_WARPS):
+                for b in range(unit * ST_WARPS + warp, n_bins, units * ST_WARPS):
+                    mx = torch.full((32 * ng * 4,), NEG)  # the lanes' running maxima
+                    for t in range(BIN_W // 16):  # the bin's tiles in order
+                        r = b * BIN_W + t * 16 + torch.arange(16)
+                        acc = (rows_all[r] @ qf.T).to(torch.float32)  # exact int32 sums
+                        s = torch.where((r < valid_n)[:, None], acc * scales_all[r][:, None],
+                                        NEG)
+                        mx = torch.maximum(mx, s[frag_row, frag_col])
+                    mx = mx.view(8, 4, ng, 4)  # grp, tig, n, e
+                    halves = torch.maximum(mx[..., :2], mx[..., 2:])  # rows grp, grp + 8
+                    m = halves.amax(dim=0)  # the shuffles over grp: [tig, n, e & 1]
+                    tig, n_i, e = torch.meshgrid(torch.arange(4), torch.arange(ng),
+                                                 torch.arange(2), indexing="ij")
+                    col = (n_i * 8 + 2 * tig + e).reshape(-1)
+                    keep = col < nq
+                    out[b, q0 + col[keep]] = m.reshape(-1)[keep]
+    return out
+
+
+def f32_tile_scores(q, corpus):
+    """Scores [N, B] f32 of every row against every query, each one fma
+    chain over the row's floats in order."""
+    qd, rows = q.double(), corpus.double()
+    acc = torch.zeros(corpus.shape[0], q.shape[0], dtype=torch.float32)
+    for k in range(corpus.shape[1]):
+        acc = (acc.double() + rows[:, k:k + 1] * qd[:, k]).float()
+    return acc
+
+
+def _f32_masked(q, corpus, row_scales, valid_n):
+    """The f32 kernels' masked scores, padded to whole 128-row tiles."""
+    n = corpus.shape[0]
+    s = f32_tile_scores(q, corpus)
+    if row_scales is not None:
+        s = s * row_scales[:, None]
+    s = torch.where((torch.arange(n) < valid_n)[:, None], s, NEG)
+    pad = -n % BIN_W
+    return torch.cat([s, torch.full((pad, q.shape[0]), NEG)]) if pad else s
+
+
+def binmax_f32(q, corpus, row_scales, valid_n):
+    """Bin maxima [ceil(N / 128), B] of ``binmax_f32_kernel``."""
+    return _f32_masked(q, corpus, row_scales, valid_n).view(-1, BIN_W, q.shape[0]).amax(dim=1)
+
+
+def binmax_strided_f32(q, corpus, row_scales, valid_n, blocks):
+    """(maxima, rows) [blocks * 128, B] of ``binmax_strided_f32_kernel``:
+    block j visits tiles j, j + blocks, ... in order, a later tile taking a
+    bin only when strictly greater."""
+    B = q.shape[0]
+    s = _f32_masked(q, corpus, row_scales, valid_n)
+    n_tiles = s.shape[0] // BIN_W
+    best = torch.full((blocks * BIN_W, B), NEG)
+    first = torch.arange(blocks * BIN_W)[:, None].expand(-1, B)
+    rows = first.clone()
+    for j in range(blocks):
+        lo, hi = j * BIN_W, (j + 1) * BIN_W
+        for tile in range(j, n_tiles, blocks):
+            cand = s[tile * BIN_W:(tile + 1) * BIN_W]
+            better = cand > best[lo:hi]
+            best[lo:hi] = torch.where(better, cand, best[lo:hi])
+            rows[lo:hi] = torch.where(better, tile * BIN_W + torch.arange(BIN_W)[:, None],
+                                      rows[lo:hi])
+    return best, rows.to(torch.int32)
