@@ -11,7 +11,10 @@ Phases, each fatal when it fails:
 2. kernels — each kernel against its plain torch version on the card at the
              shapes of the main path (binmax / exact engine: f32, int8 and
              int4 at 1M x 384, B in {1, 16, 256} and int8 also at 32 and 64,
-             k in {10, 100}, int8 binmax, binmax_strided and bin_gather on
+             k in {10, 100}, and bf16 at B in {1, 16, 64, 256}, k in {10,
+             40}, every bf16 launch on its bf16 route within 1e-5, beside
+             cuBLAS's bf16 product with the query rounded and the f32 route
+             over the widened rows; int8 binmax, binmax_strided and bin_gather on
              their tensor-core routes, f32 binmax and binmax_strided on the
              register-tiled CUDA-core kernels, with bin_gather's pairs in
              their own order against sorted by bin on corpus-derived queries,
@@ -34,8 +37,10 @@ Phases, each fatal when it fails:
              the approx engine's pass, at every binmax case;
              cell_gather and cell_gather_b1 over 977 cells x 1,024 rows x
              384, nprobe 64: int8 at B in {1, 16, 64} bit for bit (B > 1 on
-             cell_gather's tensor-core route), f32 at B in {1, 16} within
-             1e-5, and a ragged case, nprobe 11 over cells of 768 rows):
+             cell_gather's tensor-core route), f32 at B in {1, 16} and bf16
+             (the query rounded to bf16) at B in {1, 16, 64} within 1e-5, a
+             ragged case, nprobe 11 over cells of 768 rows, and
+             cell_gather_b1's kernel alone on the card):
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k and cell kernels), the bound and
              yardsticks that the port never calls;
@@ -76,7 +81,28 @@ Phases, each fatal when it fails:
              on the tensor-core route; recall@10 at nprobe 64 against exact search
              over the same rows (gate 0.90), validate() of the index as
              clustered and as approx (gate 0.97 for approx), and ms per search
-             of the clustered, approx and exact engines at B in {1, 16, 64}.
+             of the clustered, approx and exact engines at B in {1, 16, 64};
+6. refine  — the same topical corpus (made once for both phases) built into
+             five indexes, each saved and loaded: (a) int8 approx and (b) int4
+             exact, both with refine_m 40 (bf16 refine rows), (c) bf16 exact,
+             (d) bf16 approx, (e) bf16 clustered (977 cells x 1,024 rows,
+             nprobe 64); IndexBuilder.search of each at B = 1 x 8, 16, 64 and
+             256, (a) with its refine rows on the device and on the host;
+             (a) served by create_app with index.refine_storage "device"
+             (1 and 32 closed-loop clients), then "host" (the same), and (b)
+             once (the refined engine over int4 candidates); every result
+             against the same engine over the plain versions on the same
+             embeddings (0 ids that differ but at ties within 1e-5, and none
+             at all for (a) and (b)); every launch on bf16 rows on a bf16
+             route, the candidates of (a) from the tensor-core strided pass
+             and of (b) from the int4 routes of binmax and bin_gather;
+             recall@10 against exact f32 search over the original rows
+             ((a) at least its unrefined int8 sweep's and 0.97, (b) above
+             its unrefined int4 search's, (c) 0.97, (e) 0.90), validate()
+             ((a), (c), (d) 0.97, (e) 0.90, (b) through the refined engine
+             above its own unrefined value), and ms per search of the
+             refined (device and host), int8 approx, bf16 exact, approx and
+             clustered engines at B in {1, 16, 64}.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -270,11 +296,10 @@ def phase_build() -> dict:
             if m:
                 kernel = m.group(1)
             m = re.search(r"Used (\d+) registers", line)
-            if m and kernel:
+            if m and kernel:  # after the spill line of the same kernel: keep what it set
                 smem = re.search(r"(\d+) bytes smem", line)  # static only; absent when 0
-                summary.setdefault(name, {})[kernel] = {
-                    "registers": int(m.group(1)), "smem_bytes": int(smem.group(1)) if smem else 0
-                }
+                summary.setdefault(name, {}).setdefault(kernel, {}).update(
+                    registers=int(m.group(1)), smem_bytes=int(smem.group(1)) if smem else 0)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and kernel:
                 summary.setdefault(name, {}).setdefault(kernel, {})["spill_bytes"] = (
@@ -306,45 +331,75 @@ def same_topk(kv, ki, pv, pi, tol: float) -> bool:
     return True
 
 
-def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict]:
+# the route each storage type takes in binmax, binmax_strided and bin_gather
+TOPK_ROUTES = {"int8": "tc", "f32": "cuda_core", "int4": "cuda_core", "bf16": "bf16"}
+
+
+def routed(wrapper, route: str, fn):
+    """Run ``fn`` and check that it launched ``wrapper`` once, on ``route``
+    (its tc_launches / bf16_launches counters); returns what ``fn`` returns."""
+    before = (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches)
+    out = fn()
+    after = (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches)
+    want = (before[0] + 1, before[1] + (route == "tc"), before[2] + (route == "bf16"))
+    check(after == want, f"{wrapper.__name__}: the launch did not take the {route} route")
+    return out
+
+
+def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
+    """The top-k kernels against their plain versions over seeded unit rows;
+    returns (rows, the main-path entries by name, the bf16 entries by name):
+    each kernel at int8 B = 16 (k = 10), and each bf16 route at B = 16."""
     from sskd_tpu_torch.ops import topk_kernels as tk
     from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
     from sskd_tpu_torch.ops.topk import approx_blocks, approx_min_bins, cosine_topk_core
 
     x = unit_rows(n_rows, dim, gen)
     valid_n = n_rows
-    rows, main_binmax, main_gather, main_strided = [], None, None, None
+    rows, main, bf16 = [], {}, {}
     l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for dtype in ("int8", "f32", "int4"):
+    for dtype in ("int8", "f32", "int4", "bf16"):
         if dtype == "f32":
             corpus, scales = x, None
+        elif dtype == "bf16":
+            corpus, scales = x.to(torch.bfloat16), None
+            widened = corpus.float()  # the same rows for the f32 route's yardstick
         else:
             corpus, scales = (quantize_rows if dtype == "int8" else quantize_rows_int4)(x)
         row_bytes = corpus.shape[1] * corpus.element_size()
-        op_kind = "f32" if dtype == "f32" else "int8"
-        for B in (1, 16, 32, 64, 256) if dtype == "int8" else (1, 16, 256):
+        op_kind = "int8" if dtype in ("int8", "int4") else "f32"
+        want_route = TOPK_ROUTES[dtype]
+        for B in {"int8": (1, 16, 32, 64, 256), "bf16": (1, 16, 64, 256)}.get(dtype, (1, 16, 256)):
             q = unit_rows(B, dim, gen)
             q_in, q_scale = tk.quantize_queries(q, corpus)
             route = tk.binmax_route(corpus.dtype, row_bytes)
-            check(route == ("tc" if dtype == "int8" else "cuda_core"),
-                  f"binmax {dtype}: route {route}")
-            tc_before = tk.binmax.tc_launches
-            got = tk.binmax(q_in, corpus, scales, valid_n)
-            check(tk.binmax.tc_launches - tc_before == (route == "tc"),
-                  f"binmax {dtype} B={B}: the launch did not take the {route} route")
+            check(route == want_route, f"binmax {dtype}: route {route}")
+            got = routed(tk.binmax, route, lambda: tk.binmax(q_in, corpus, scales, valid_n))
             want = tk.binmax_plain(q_in, corpus, scales, valid_n)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            tol = 0.0 if dtype != "f32" else 1e-5
+            tol = 0.0 if op_kind == "int8" else 1e-5
             check(err <= tol, f"binmax {dtype} B={B}: max abs err {err} > {tol}")
             n_bins = got.shape[0]
             ms = time_ms(lambda: tk.binmax(q_in, corpus, scales, valid_n), 20)
             plain_ms = time_ms(lambda: tk.binmax_plain(q_in, corpus, scales, valid_n), 3, 1)
-            library_ms = None
+            library_ms, yardsticks = None, {}
             if dtype == "f32":
                 def lib_fn():
                     return (corpus @ q_in.T)[: (n_rows // 128) * 128].view(-1, 128, B).amax(1)
                 library_ms = time_ms(lib_fn, 5)
+            elif dtype == "bf16":
+                # no library call computes bf16 rows against an f32 query: cuBLAS's bf16
+                # product rounds the query to bf16 (a looser function), and the f32
+                # route over the widened rows moves twice the bytes; neither is this one
+                def cublas_bf16():
+                    s = corpus @ q_in.to(torch.bfloat16).T
+                    return s[: (n_rows // 128) * 128].float().view(-1, 128, B).amax(1)
+                yardsticks = {
+                    "yardstick_cublas_bf16_query_rounded_ms": time_ms(cublas_bf16, 5),
+                    "yardstick_f32_route_widened_rows_ms": time_ms(
+                        lambda: tk.binmax(q_in, widened, None, valid_n), 10),
+                }
             elif dtype == "int8" and B % 8 == 0:
                 def lib_fn():
                     s = torch._int_mm(corpus, q_in.T).float() * scales[:, None]
@@ -354,7 +409,7 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                        + q_in.numel() * q_in.element_size() + n_bins * B * 4)
             b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_rows * dim, op_kind)
             name = ("binmax_tc_kernel" if route == "tc"
-                    else "binmax_f32_kernel" if dtype == "f32" else "binmax_kernel")
+                    else "binmax_f32_kernel" if dtype in ("f32", "bf16") else "binmax_kernel")
             entry = {
                 "kernel": "binmax", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
                 "route": route, "max_abs_err": err, "max_rel_err": rel_err(got, want), "ms": ms,
@@ -366,37 +421,38 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                     lambda: (l2_flush.zero_(), tk.binmax(q_in, corpus, scales, valid_n)),
                     name, 8, fallback=False),
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library_ms,
+                "library_ms": library_ms, **yardsticks,
             }
             rows.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
-            if dtype == "int8" and B == 16:
-                main_binmax = entry
+            if B == 16 and dtype == "int8":
+                main["binmax"] = entry
+            if B == 16 and dtype == "bf16":
+                bf16["binmax"] = entry
             # the approx engine's pass at the blocks it takes for k = 10 at 0.99
             groups = math.ceil(approx_min_bins(10, 0.99) / 128)
             blocks = approx_blocks(B, groups, n_bins)
             # the count the engine takes at the other side of its batch rule
             alt_blocks = approx_blocks(256 if B <= 64 else 1, groups, n_bins)
             s_route = tk.binmax_strided_route(corpus.dtype, row_bytes)
-            tc_before = tk.binmax_strided.tc_launches
-            s_got, s_rows = tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)
-            check(tk.binmax_strided.tc_launches - tc_before == (s_route == "tc"),
-                  f"binmax_strided {dtype} B={B}: the launch did not take the {s_route} route")
-            check(s_route == ("tc" if dtype == "int8" else "cuda_core"),
-                  f"binmax_strided {dtype}: route {s_route}")
+            check(s_route == want_route, f"binmax_strided {dtype}: route {s_route}")
+            s_got, s_rows = routed(tk.binmax_strided, s_route, lambda: tk.binmax_strided(
+                q_in, corpus, scales, valid_n, blocks))
             s_want, s_want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks)
             torch.cuda.synchronize()
             s_err = (s_got - s_want).abs().max().item()
             rows_same = (s_rows == s_want_rows).float().mean().item()
-            # f32: summation order can move a near-tie inside a bin
-            check(s_err <= tol and (rows_same == 1.0 if dtype != "f32" else rows_same >= 0.9999),
+            # f32, bf16: summation order can move a near-tie inside a bin
+            check(s_err <= tol and (rows_same == 1.0 if op_kind == "int8"
+                                    else rows_same >= 0.9999),
                   f"binmax_strided {dtype} B={B}: max abs err {s_err}, "
                   f"{1 - rows_same:.2e} of the rows differ")
             s_ms = time_ms(lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks), 20)
             s_dev = kernel_device_ms(
                 lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks),
                 "binmax_strided_tc_kernel" if s_route == "tc"
-                else "binmax_strided_f32_kernel" if dtype == "f32" else "binmax_strided_kernel", 8)
+                else "binmax_strided_f32_kernel" if op_kind == "f32"
+                else "binmax_strided_kernel", 8)
             alt_ms = time_ms(
                 lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, alt_blocks), 20)
             # the pass at other multiples of the groups, for approx_blocks (int8)
@@ -407,17 +463,28 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                         lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, cand), 10)
             s_plain = time_ms(
                 lambda: tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks), 3, 1)
-            s_library = None
-            if dtype == "f32" or (dtype == "int8" and B % 8 == 0):
+            s_library, s_yard = None, {}
+            if dtype in ("f32", "bf16") or (dtype == "int8" and B % 8 == 0):
                 span = blocks * 128
                 rounds = -(-n_rows // span)
 
                 def strided_lib():
-                    sc = (corpus @ q_in.T if dtype == "f32"
-                          else torch._int_mm(corpus, q_in.T).float() * scales[:, None])
+                    if dtype == "bf16":  # the query rounded: a looser function (above)
+                        sc = (corpus @ q_in.to(torch.bfloat16).T).float()
+                    elif dtype == "f32":
+                        sc = corpus @ q_in.T
+                    else:
+                        sc = torch._int_mm(corpus, q_in.T).float() * scales[:, None]
                     sc = F.pad(sc, (0, 0, 0, rounds * span - n_rows), value=tk.NEG_INF)
                     return sc.view(rounds, span, B).max(dim=0)
-                s_library = time_ms(strided_lib, 5)
+                if dtype == "bf16":
+                    s_yard = {
+                        "yardstick_cublas_bf16_query_rounded_ms": time_ms(strided_lib, 5),
+                        "yardstick_f32_route_widened_rows_ms": time_ms(
+                            lambda: tk.binmax_strided(q_in, widened, None, valid_n, blocks), 10),
+                    }
+                else:
+                    s_library = time_ms(strided_lib, 5)
             sb_ms, sb_by = bound_ms(n_bytes - n_bins * B * 4 + blocks * 128 * B * 8,
                                     2.0 * B * n_rows * dim, op_kind)
             s_entry = {
@@ -425,28 +492,28 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 "blocks": blocks, "max_abs_err": s_err, "max_rel_err": rel_err(s_got, s_want),
                 "rows_equal_share": rows_same, "route": s_route, "ms": s_ms,
                 "kernel_device_ms": s_dev, "plain_ms": s_plain,
-                "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_library,
+                "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_library, **s_yard,
                 "alt_blocks": alt_blocks, "alt_blocks_ms": alt_ms, "blocks_ms": sweep,
             }
             rows.append(s_entry)
             log(f"[kernels] {json.dumps(s_entry)}")
-            if dtype == "int8" and B == 16:
-                main_strided = s_entry
+            if B == 16 and dtype == "int8":
+                main["binmax_strided"] = s_entry
+            if B == 16 and dtype == "bf16":
+                bf16["binmax_strided"] = s_entry
             del s_got, s_rows, s_want, s_want_rows
-            for k in (10, 100):
+            for k in (10, 40) if dtype == "bf16" else (10, 100):
                 kb = min(k, n_bins)
                 _, bins = tk.topk_stable(want.T, kb)
                 bins = bins.to(torch.int32).contiguous()
                 g_route = tk.bin_gather_route(corpus.dtype, row_bytes)
-                tc_before = tk.bin_gather.tc_launches
-                g_got = tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
-                check(tk.bin_gather.tc_launches - tc_before == (g_route == "tc")
-                      and g_route == ("tc" if dtype == "int8" else "cuda_core"),
-                      f"bin_gather {dtype} B={B}: the launch did not take the {g_route} route")
+                check(g_route == want_route, f"bin_gather {dtype}: route {g_route}")
+                g_got = routed(tk.bin_gather, g_route, lambda: tk.bin_gather(
+                    q_in, q_scale, corpus, scales, bins, valid_n))
                 g_want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n)
                 torch.cuda.synchronize()
                 g_err = (g_got - g_want).abs().max().item()
-                g_tol = 0.0 if dtype != "f32" else 1e-5
+                g_tol = tol
                 check(g_err <= g_tol, f"bin_gather {dtype} B={B} k={k}: err {g_err} > {g_tol}")
                 g_ms = time_ms(
                     lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n), 20
@@ -488,15 +555,22 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                     "bound_by": gb_by, "library_ms": None,
                     "engine_ms": e_ms, "plain_engine_ms": e_plain,
                 }
+                if dtype == "bf16":  # the same bins over the widened rows: twice the bytes
+                    g_entry["yardstick_f32_route_widened_rows_device_ms"] = kernel_device_ms(
+                        lambda: tk.bin_gather(q_in, None, widened, None, bins, valid_n),
+                        "bin_gather_kernel")
                 rows.append(g_entry)
                 log(f"[kernels] {json.dumps(g_entry)}")
-                if dtype == "int8" and B == 16 and k == 10:
-                    main_gather = g_entry
+                if B == 16 and k == 10 and dtype == "int8":
+                    main["bin_gather"] = g_entry
+                if B == 16 and k == 10 and dtype == "bf16":
+                    bf16["bin_gather"] = g_entry
         if dtype == "int8":
             rows += gather_order_cases(gen, x, corpus, scales)
             rows.append(wrapper_host_us(gen, corpus, scales))
         del corpus, scales
-    return rows, main_binmax, main_gather, main_strided
+    del widened
+    return rows, main, bf16
 
 
 def gather_order_cases(gen, x, corpus, scales) -> list:
@@ -880,30 +954,45 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
 def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
     """cell_gather and cell_gather_b1 against their plain versions over 977
     cells x 1,024 rows (seeded unit rows; each query probes 64 distinct random
-    cells). Timed over a rotation of probes, so that a launch does not find
-    its cells in L2 from the launch before. Beside each: the bound from the
-    distinct cells of the timed probes, the plain version, and two yardsticks
-    the port never calls: bin_gather over the cells spelled out as 128-row
-    bins, and index_select + bmm over the gathered rows."""
+    cells), in int8, f32 and bf16 (the query rounded to bf16). Timed over a
+    rotation of probes, so that a launch does not find its cells in L2 from
+    the launch before. Beside each: the bound from the distinct cells of the
+    timed probes, the plain version, and two yardsticks the port never calls:
+    bin_gather over the cells spelled out as 128-row bins, and index_select +
+    bmm over the gathered rows; for one query also the kernel alone on the
+    card, without the wrapper's query-scale multiply. Returns (rows, the
+    main-path entries, the bf16 entries), each by kernel name."""
+    from sskd_tpu_torch.ops import _build
     from sskd_tpu_torch.ops import topk_cluster as tc
     from sskd_tpu_torch.ops import topk_kernels as tk
     from sskd_tpu_torch.ops.quant import quantize_rows
 
     x = unit_rows(N_CELLS * CELL_ROWS, dim, gen)
-    rows, main_gen, main_b1 = [], None, None
+    rows, main, bf16 = [], {}, {}
     check(tc.cell_gather_route(torch.int8, dim) == "tc", "int8 cell_gather: not the tensor cores")
+    b1_fn = tk._fn("cell_gather", "sskd_cell_gather_b1")
+
+    def b1_kernel(q_in, q_scale, corpus, scales, probe, rpc):
+        """cell_gather_b1_kernel's launch alone (the C entry point)."""
+        out = torch.empty((1, probe.shape[1], rpc), dtype=torch.float32, device="cuda")
+        _build.check(b1_fn(tc._MODES[corpus.dtype], tk._ptr(q_in), tk._ptr(corpus),
+                           tk._ptr(scales), tk._ptr(probe), tk._ptr(out), probe.shape[1], rpc,
+                           corpus.shape[1] * corpus.element_size(), tk._stream(corpus.device)),
+                     "cell_gather_b1 (alone)")
+        return out
 
     def probes(B, nprobe, n_cells):
         return torch.stack([torch.randperm(n_cells, device="cuda", generator=gen)[:nprobe]
                             for _ in range(B)]).to(torch.int32).contiguous()
 
-    for dtype in ("int8", "f32"):
-        corpus, scales = quantize_rows(x) if dtype == "int8" else (x, None)
+    for dtype in ("int8", "f32", "bf16"):
+        corpus, scales = {"int8": lambda: quantize_rows(x), "f32": lambda: (x, None),
+                          "bf16": lambda: (x.to(torch.bfloat16), None)}[dtype]()
         row_bytes = corpus.shape[1] * corpus.element_size()
         tol = 0.0 if dtype == "int8" else 1e-5
         # a ragged case first: nprobe 11 over cells of 768 rows, both kernels
         for B in (1, 3):
-            q_in, q_scale = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
+            q_in, q_scale = tc.cell_queries(unit_rows(B, dim, gen), corpus)
             probe = probes(B, 11, corpus.shape[0] // 768)
             fn, plain = ((tc.cell_gather_b1, tc.cell_gather_b1_plain) if B == 1
                          else (tc.cell_gather, tc.cell_gather_plain))
@@ -913,14 +1002,14 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
             err = (got - want).abs().max().item()
             check(got.shape == (B, 11, 768) and err <= tol,
                   f"{fn.__name__} {dtype} ragged B={B}: max abs err {err} > {tol}")
-        for B in (1, 16, 64) if dtype == "int8" else (1, 16):
+        for B in (1, 16) if dtype == "f32" else (1, 16, 64):
             name = "cell_gather_b1" if B == 1 else "cell_gather"
             fn, plain = ((tc.cell_gather_b1, tc.cell_gather_b1_plain) if B == 1
                          else (tc.cell_gather, tc.cell_gather_plain))
             n_sets = 8 if B == 1 else 2
             sets = []
             for _ in range(n_sets):
-                q_in, q_scale = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
+                q_in, q_scale = tc.cell_queries(unit_rows(B, dim, gen), corpus)
                 sets.append((q_in, q_scale, corpus, scales, probes(B, NPROBE, N_CELLS),
                              CELL_ROWS))
             err = 0.0
@@ -933,12 +1022,14 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
             check(err <= tol, f"{name} {dtype} B={B}: max abs err {err} > {tol}")
             # timed as the engine calls it: without the probe's range check,
             # which waits for the device
-            route = tc.cell_gather_route(corpus.dtype, row_bytes) if B > 1 else "cuda_core"
-            if B > 1:
-                before = tc.cell_gather.tc_launches
-                fn(*sets[0])
-                check(tc.cell_gather.tc_launches - before == (route == "tc"),
-                      f"cell_gather {dtype} B={B}: the launch did not take the {route} route")
+            route = (tc.cell_gather_route(corpus.dtype, row_bytes) if B > 1
+                     else "bf16" if dtype == "bf16" else "cuda_core")
+            before = (fn.launches, getattr(fn, "tc_launches", 0), fn.bf16_launches)
+            fn(*sets[0])
+            after = (fn.launches, getattr(fn, "tc_launches", 0), fn.bf16_launches)
+            check(after == (before[0] + 1, before[1] + (route == "tc"),
+                            before[2] + (route == "bf16")),
+                  f"{name} {dtype} B={B}: the launch did not take the {route} route")
             fast = rotating(lambda *a: fn(*a, check_probe=False), sets)
             ms = time_ms(fast, 40, 4)
             device_ms = kernel_device_ms(
@@ -956,6 +1047,8 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
                 per = rpc // 128
                 lane = torch.arange(per, device="cuda", dtype=torch.int32)
                 bins = (probe[:, :, None] * per + lane).reshape(probe.shape[0], -1).contiguous()
+                if corpus.dtype == torch.bfloat16:  # the rounded query, widened: the same scores
+                    q_in = q_in.float()
                 return tk.bin_gather(q_in, q_scale, corpus, scales, bins)
 
             def gather_bmm(q_in, q_scale, corpus, scales, probe, rpc):
@@ -969,23 +1062,25 @@ def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
 
             bins_ms = time_ms(rotating(as_bins, sets), 20, 2)
             bmm_ms = time_ms(rotating(gather_bmm, sets), 3, 1) if B <= 16 else None
+            # one query: the kernel alone on the card, CUDA events behind the held
+            # stream (the whole call adds the query-scale multiply of int8)
+            alone_ms = (stream_device_ms(rotating(b1_kernel, sets), 32) if B == 1 else None)
             entry = {
                 "kernel": name, "dtype": dtype, "B": B, "nprobe": NPROBE, "route": route,
                 "cells": [N_CELLS, CELL_ROWS, dim], "distinct_cells": distinct,
                 "max_abs_err": err, "max_rel_err": max_rel, "ms": ms,
-                "kernel_device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "kernel_device_ms": device_ms, "kernel_alone_device_ms": alone_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "bin_gather_ms": bins_ms, "index_select_bmm_ms": bmm_ms,
                 "gb_per_s": n_bytes / ms / 1e6,
             }
             rows.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
-            if dtype == "int8" and B == 16:
-                main_gen = entry
-            if dtype == "int8" and B == 1:
-                main_b1 = entry
+            if B in (1, 16) and dtype in ("int8", "bf16"):
+                (main if dtype == "int8" else bf16)[name] = entry
             del sets
         del corpus, scales
-    return rows, main_gen, main_b1
+    return rows, main, bf16
 
 
 # ---------------------------------------------------------------------------
@@ -1865,7 +1960,22 @@ def clustered_parts_ms(b, queries: torch.Tensor) -> dict:
     }
 
 
-def phase_clustered(args) -> dict:
+TOPICAL_QUERIES = 1000 + 8 + 16 + 64 + 256 + 4  # recall probes, then the batches
+
+
+def topical_corpus(seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """The clustered and refine phases' seeded corpus: N_ROWS topical rows and
+    TOPICAL_QUERIES topical queries, made once and shared by both phases."""
+    data = TopicalData(seed + 5)
+    t0 = time.perf_counter()
+    emb = data.rows(N_ROWS)
+    queries = data.rows(TOPICAL_QUERIES)
+    log(f"[topical] {N_ROWS} rows and {TOPICAL_QUERIES} queries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return emb, queries
+
+
+def phase_clustered(args, emb: np.ndarray, queries: np.ndarray) -> dict:
     from sskd_tpu_torch.config import Settings
     from sskd_tpu_torch.index.builder import IndexBuilder
     from sskd_tpu_torch.models.student import StudentModel
@@ -1875,11 +1985,6 @@ def phase_clustered(args) -> dict:
     from sskd_tpu_torch.serve.app import create_app
 
     work = ROOT / "build" / "chip_smoke"
-    data = TopicalData(args.seed + 5)
-    t0 = time.perf_counter()
-    emb = data.rows(N_ROWS)
-    queries = data.rows(1000 + 8 + 16 + 64 + 256 + 4)
-    log(f"[clustered] {N_ROWS} topical rows in {time.perf_counter() - t0:.1f} s")
     ids = [f"doc-{i}" for i in range(N_ROWS)]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()  # the clustered path starts here
@@ -2059,6 +2164,302 @@ def phase_clustered(args) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: refined search and indexes of bf16 rows
+# ---------------------------------------------------------------------------
+
+REFINE_M = 40
+REFINE_INDEXES = {  # (a) to (e), built from the topical corpus
+    "a": dict(index_type="approx", dtype="int8", refine_m=REFINE_M),
+    "b": dict(index_type="exact", dtype="int4", refine_m=REFINE_M),
+    "c": dict(index_type="exact", dtype="bfloat16"),
+    "d": dict(index_type="approx", dtype="bfloat16"),
+    "e": dict(index_type="clustered", dtype="bfloat16", nprobe=NPROBE),
+}
+BF16_KERNELS = ("binmax", "bin_gather", "binmax_strided", "cell_gather", "cell_gather_b1")
+
+
+def counters() -> dict:
+    from sskd_tpu_torch.ops import bf16_launch_counts, launch_counts, tc_launch_counts
+
+    return {"all": launch_counts(), "tc": tc_launch_counts(), "bf16": bf16_launch_counts()}
+
+
+def counted_since(before: dict) -> dict:
+    """The launches by kind and kernel since ``before`` (a ``counters()``)."""
+    now = counters()
+    return {kind: {k: v - before[kind][k] for k, v in now[kind].items()} for kind in now}
+
+
+def tie_mismatches(got_v, got_i, want_v, want_i, tol: float) -> tuple[int, int]:
+    """(ids that differ, those of them not a tie): an id in one result only
+    is a tie when it scores within ``tol`` of that row's last score."""
+    raw = untied = 0
+    for r in range(got_i.shape[0]):
+        a, b = got_i[r].tolist(), want_i[r].tolist()
+        raw += sum(x != y for x, y in zip(a, b))
+        for i in set(a) ^ set(b):
+            v = got_v[r][a.index(i)] if i in a else want_v[r][b.index(i)]
+            untied += abs(float(v) - float(want_v[r][-1])) > tol
+    return raw, untied
+
+
+def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
+    """Indexes (a) to (e) of REFINE_INDEXES built from the topical corpus,
+    saved and loaded; searched at the library entry and served; every result
+    against the same engine over the plain versions; recall against exact
+    f32 search over the original rows; the engines' ms per search."""
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.index.builder import IndexBuilder
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.ops import reset_launch_counts
+    from sskd_tpu_torch.ops.topk import (
+        approx_topk,
+        cosine_topk,
+        cosine_topk_core,
+        refined_candidates,
+        refined_candidates_core,
+        refined_topk,
+        refined_topk_core,
+    )
+    from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
+    from sskd_tpu_torch.serve.app import create_app
+
+    work = ROOT / "build" / "chip_smoke"
+    ids = [f"doc-{i}" for i in range(N_ROWS)]
+    q_val, rest = queries[:1000], queries[1000:]
+    batches = [rest[i:i + 1] for i in range(8)] + [rest[8:24], rest[24:88], rest[88:344]]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # the refine path starts here
+
+    idx, build_s = {}, {}
+    for name, kw in REFINE_INDEXES.items():
+        t0 = time.perf_counter()
+        built = IndexBuilder(384, device="cuda", **kw).build_from_arrays(emb, ids)
+        build_s[name] = time.perf_counter() - t0
+        built.save(work / f"refine_{name}")
+        b = IndexBuilder(device="cuda").load(work / f"refine_{name}")
+        check(b.ntotal == N_ROWS and b.dtype == kw["dtype"] and b.index_type == kw["index_type"]
+              and b.refine_m == kw.get("refine_m", 0)
+              and np.array_equal(b._vectors, built._vectors), f"({name}): loaded != built")
+        del built
+        b.ensure_device()
+        idx[name] = b
+    check((idx["e"]._centroids.shape[0], idx["e"]._rows_per_cell) == (N_CELLS, CELL_ROWS),
+          "(e): not 977 cells x 1,024 rows")
+    log(f"[refine] built, saved and loaded (a)-(e); build seconds {json.dumps(build_s)}")
+
+    def as_searched(q: np.ndarray) -> torch.Tensor:
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        return torch.from_numpy(q.astype(np.float32)).cuda()
+
+    def plain(name: str, q: torch.Tensor, storage: str = "device", builder=None):
+        """The engine that index ``name`` is searched by over the plain
+        versions, (vals, original ids) numpy: at the library entry
+        (``idx[name]``), or as the app that loaded it as ``builder`` serves it
+        (the refined engine for every index with refine rows)."""
+        b = idx[name] if builder is None else builder
+        dev = dict(row_scales=b.device_scales, valid_n=b.ntotal)
+        kind = "approx" if builder is not None and b._refine is not None else b.index_type
+        if b._refine is not None and kind == "approx":
+            if storage == "host":
+                _, cand = refined_candidates_core(q, b.device_vectors, REFINE_M, kernels=False,
+                                                  **dev)
+                return b._host_rescore(q.cpu().numpy(), cand.cpu().numpy(), 10)
+            v, i = refined_topk_core(q, b.device_vectors, b.device_refine, 10,
+                                     refine_m=b.refine_m, kernels=False, **dev)
+        elif kind == "clustered" and q.shape[0] <= CLUSTER_MAX_BATCH:
+            v, i = clustered_topk(q, b.device_vectors, b.device_centroids, 10, b.nprobe,
+                                  b._rows_per_cell, kernels=False, **dev)
+        elif kind in ("approx", "clustered"):
+            v, i = approx_topk(q, b.device_vectors, 10, recall_target=b.recall_target,
+                               kernels=False, **dev)
+        else:
+            v, i = cosine_topk_core(q, b.device_vectors, 10, **dev)
+        return v.cpu().numpy(), b.map_positions(i.cpu().numpy())
+
+    # --- the library entry: IndexBuilder.search at B = 1 (x 8), 16, 64, 256 ---
+    library, routes = {}, {}
+    exact_ids = {"a": True, "b": True}  # int8 / int4 sums: bit for bit with the plain versions
+    for name, storage in (("a", "device"), ("a", "host"), ("b", "device"), ("c", "device"),
+                          ("d", "device"), ("e", "device")):
+        b = idx[name]
+        b.refine_storage = storage
+        before = counters()
+        results = [b.search(q, k=10) for q in batches]
+        torch.cuda.synchronize()
+        tag = name + ("-host" if storage == "host" else "")
+        routes[tag] = counted_since(before)
+        raw = untied = 0
+        for q, (vals, got) in zip(batches, results):
+            want_v, want_i = plain(name, as_searched(q), storage)
+            finite = np.isfinite(vals).all() and ((got >= 0) & (got < N_ROWS)).all()
+            check(finite, f"library ({tag}) B={q.shape[0]}: bad scores or ids")
+            check(np.allclose(vals, want_v, rtol=1e-5, atol=1e-6),
+                  f"library ({tag}) B={q.shape[0]}: scores differ from the plain engine's")
+            r, u = tie_mismatches(vals, got, want_v, want_i, 1e-5)
+            raw, untied = raw + r, untied + u
+        check(untied == 0 and (raw == 0 or not exact_ids.get(name)),
+              f"library ({tag}): {raw} ids differ from the plain engine's, {untied} not ties")
+        library[tag] = {"mismatched_ids": raw, "mismatched_ids_not_ties": untied,
+                        "launches": routes[tag]["all"], "bf16_launches": routes[tag]["bf16"]}
+        log(f"[refine] library ({tag}): {sum(len(q) for q in batches) * 10} ids, {raw} differ "
+            f"from the plain engine's ({untied} not ties); launches {json.dumps(routes[tag])}")
+    idx["a"].refine_storage = "device"
+    # every launch on bf16 rows took a bf16 route; the refined paths their own routes
+    for tag in ("c", "d", "e"):
+        for k in BF16_KERNELS:
+            check(routes[tag]["all"][k] == routes[tag]["bf16"][k],
+                  f"({tag}): {routes[tag]['bf16'][k]} of {routes[tag]['all'][k]} {k} launches "
+                  "took the bf16 route")
+    check(routes["c"]["bf16"]["binmax"] > 0 and routes["c"]["bf16"]["bin_gather"] > 0,
+          "(c) did not launch binmax and bin_gather")
+    check(routes["d"]["bf16"]["binmax_strided"] > 0, "(d) did not launch binmax_strided")
+    check(routes["e"]["bf16"]["cell_gather_b1"] >= 8 and routes["e"]["bf16"]["cell_gather"] >= 2
+          and routes["e"]["bf16"]["binmax_strided"] >= 1, "(e) missed a cell kernel or the sweep")
+    for tag in ("a", "a-host"):
+        check(routes[tag]["tc"]["binmax_strided"] == routes[tag]["all"]["binmax_strided"] > 0,
+              f"({tag}): the candidates did not come from the tensor-core strided pass")
+    check(routes["b"]["all"]["binmax"] > 0 and routes["b"]["all"]["bin_gather"] > 0
+          and routes["b"]["tc"]["binmax"] == routes["b"]["bf16"]["binmax"] == 0,
+          "(b): the int4 routes of binmax and bin_gather were not taken")
+
+    # --- the served entry: (a) with the refine rows on the device and on the host, (b) once ---
+    student_dir = work / "student"
+    if not (student_dir / "sskd_config.json").exists():
+        StudentModel("intfloat/e5-small-v2", device="cuda", compute_dtype=torch.bfloat16,
+                     seed=args.seed).save(student_dir)
+    texts = distinct_queries(32 + 256, args.seed + 13)
+    served = {}
+    for tag, name, storage, load_seed in (("refine-device", "a", "device", args.seed + 200),
+                                          ("refine-host", "a", "host", args.seed + 300),
+                                          ("refine-int4", "b", "device", None)):
+        settings = Settings.from_dict({
+            "index": {"refine_storage": storage},
+            "service": {"micro_batch_window_ms": 5.0, "micro_batch_max_size": 64},
+        })
+        app = create_app(settings, student_model_path=str(student_dir), device="cuda",
+                         preload_index_dir=str(work / f"refine_{name}"))
+        before = counters()
+        rec = serve_and_record(app, tag, texts[:32], texts[32:], 32, load_seed)
+        torch.cuda.synchronize()
+        launched = counted_since(before)
+        sb = app.state.index_builder
+        engine = "host_refined" if storage == "host" else "refined"
+        check(sb.refine_storage == storage and app.state.fused_searcher._engine(16) == engine
+              and (sb.device_refine is None) == (storage == "host"),
+              f"[{tag}] the app did not serve the {engine} engine")
+        if name == "a":
+            check(launched["tc"]["binmax_strided"] == launched["all"]["binmax_strided"] > 0
+                  and launched["all"]["binmax"] == 0,
+                  f"[{tag}] the candidates did not come from the tensor-core strided pass")
+        else:
+            check(launched["all"]["binmax"] > 0 and launched["all"]["bin_gather"] > 0
+                  and launched["tc"]["binmax"] == launched["tc"]["bin_gather"] == 0
+                  and launched["all"]["binmax_strided"] == 0,
+                  f"[{tag}] the candidates did not come from the int4 routes")
+        report = check_served(rec, app.state,
+                              lambda e, sb=sb, st=storage: plain(name, e.float(), st, sb), tag)
+        served[tag] = {**report, "launches": launched["all"], "tc_launches": launched["tc"]}
+        del app, rec
+    counts = counters()  # the refine path ends after recall and validate below
+
+    # --- recall@10 against exact f32 search over the original rows -------------
+    qv = as_searched(q_val)
+    full = torch.from_numpy(emb).cuda()
+    _, gt = cosine_topk_core(qv, full, 10)
+    gt = gt.cpu().numpy()
+    del full
+
+    def recall(got: np.ndarray) -> float:
+        return float(np.mean([len(set(gt[i]) & set(got[i])) / 10 for i in range(len(gt))]))
+
+    def chunked(b):
+        step = CLUSTER_MAX_BATCH if b.index_type == "clustered" else len(q_val)
+        return np.concatenate([b.search(q_val[i:i + step], k=10)[1]
+                               for i in range(0, len(q_val), step)])
+
+    a, b4 = idx["a"], idx["b"]
+    rec = {name: recall(chunked(idx[name])) for name in idx}
+    rec["a_unrefined_int8_approx"] = recall(cosine_topk(
+        qv, a.device_vectors, 10, row_scales=a.device_scales, method="approx",
+        recall_target=a.recall_target)[1].cpu().numpy())
+    rec["b_refined_served_path"] = recall(refined_topk(
+        qv, b4.device_vectors, b4.device_refine, 10, refine_m=REFINE_M,
+        row_scales=b4.device_scales)[1].cpu().numpy())
+    for m in (100, 256):  # how many int4 candidates this corpus needs
+        rec[f"b_refined_m{m}"] = recall(refined_topk(
+            qv, b4.device_vectors, b4.device_refine, 10, refine_m=m,
+            row_scales=b4.device_scales)[1].cpu().numpy())
+    a.refine_storage = "host"
+    rec["a_host"] = recall(chunked(a))
+    a.refine_storage = "device"
+    val = {name: b.validate(n_queries=1000)["recall@10"] for name, b in idx.items()}
+    b4.index_type = "approx"  # (b)'s own rows through the refined engine that serves it
+    try:
+        val["b_as_approx_refined"] = b4.validate(n_queries=1000)["recall@10"]
+    finally:
+        b4.index_type = "exact"
+    torch.cuda.synchronize()
+    with_checks = counters()
+    log(f"[refine] recall@10 vs exact f32 over the original rows, 1000 topical queries: "
+        f"{json.dumps(rec)}; validate(): {json.dumps(val)}")
+    check(rec["a"] >= rec["a_unrefined_int8_approx"] and rec["a"] >= 0.97
+          and rec["a_host"] == rec["a"], f"(a) recall@10 {rec['a']}")
+    check(rec["b_refined_served_path"] > rec["b"],
+          f"(b): the rescore did not raise recall@10 ({rec['b_refined_served_path']} <= "
+          f"{rec['b']})")
+    check(rec["c"] >= 0.97, f"(c) recall@10 {rec['c']} < 0.97")
+    check(rec["e"] >= 0.90, f"(e) recall@10 {rec['e']} < 0.90")
+    for name in ("a", "c", "d"):
+        check(val[name] >= 0.97, f"({name}) validate() {val[name]} < 0.97")
+    check(val["e"] >= 0.90, f"(e) validate() {val['e']} < 0.90")
+    check(val["b_as_approx_refined"] > val["b"],
+          f"(b): validate() refined {val['b_as_approx_refined']} <= unrefined {val['b']}")
+
+    # --- ms per search, engine only, eager and on the card ----------------------
+    c, d, e = idx["c"], idx["d"], idx["e"]
+    ad = dict(row_scales=a.device_scales, valid_n=N_ROWS)
+
+    def host_refined(q):
+        _, cand = refined_candidates(q, a.device_vectors, REFINE_M, **ad)
+        return a._host_rescore(q.cpu().numpy(), cand.cpu().numpy(), 10)
+
+    engines = {
+        "refined_device": lambda q: refined_topk(q, a.device_vectors, a.device_refine, 10,
+                                                 refine_m=REFINE_M, **ad),
+        "refined_host": host_refined,
+        "refined_host_candidates": lambda q: refined_candidates(q, a.device_vectors, REFINE_M,
+                                                                **ad),
+        "int8_approx_unrefined": lambda q: cosine_topk(q, a.device_vectors, 10, method="approx",
+                                                       recall_target=a.recall_target, **ad),
+        "bf16_exact": lambda q: cosine_topk(q, c.device_vectors, 10, valid_n=N_ROWS),
+        "bf16_approx": lambda q: cosine_topk(q, d.device_vectors, 10, method="approx",
+                                             recall_target=d.recall_target, valid_n=N_ROWS),
+        "bf16_clustered": lambda q: clustered_topk(q, e.device_vectors, e.device_centroids, 10,
+                                                   e.nprobe, e._rows_per_cell, valid_n=N_ROWS),
+    }
+    table = {}
+    for B in (1, 16, 64):
+        sets = [(as_searched(q_val[i * B:(i + 1) * B]),) for i in range(8)]
+        row = {}
+        for ename, fn in engines.items():
+            row[ename] = time_ms(rotating(fn, sets), 24, 4)
+            if ename != "refined_host":  # it waits for the card: its device part is the next
+                row[ename + "_device"] = stream_device_ms(rotating(fn, sets))
+        table[f"B={B}"] = row
+        log(f"[refine] engine ms B={B}: {json.dumps(row)}")
+    return {
+        "rows": N_ROWS, "refine_m": REFINE_M, "indexes": REFINE_INDEXES,
+        "build_seconds": build_s, "library": library, "served": served,
+        "recall_at_10_vs_f32": rec, "validate": val, "engine_ms": table,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts["all"], "tc_launches": counts["tc"], "bf16_launches": counts["bf16"],
+        "launches_with_checks": with_checks["all"],
+        "bf16_launches_with_checks": with_checks["bf16"],
+    }
+
+
 def probed_cells(b, q: torch.Tensor) -> torch.Tensor:
     """The cells that clustered_topk probes for ``q``."""
     from sskd_tpu_torch.ops.topk_kernels import topk_stable
@@ -2101,10 +2502,10 @@ def main(argv=None) -> int:
     record: dict = {"seed": args.seed, "nvidia_smi": smi}
     record["build"] = phase_build()
     t0 = time.perf_counter()
-    topk_rows, main_binmax, main_gather, main_strided = phase_topk(gen, N_ROWS)
+    topk_rows, main_topk, bf16_topk = phase_topk(gen, N_ROWS)
     flash_rows, main_flash = phase_flash(gen)
     dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
-    cell_rows, main_cells, main_cells_b1 = phase_cells(gen)
+    cell_rows, main_cells, bf16_cells = phase_cells(gen)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows
     # the int8 cell_gather at both batches the clustered engine probes with
@@ -2119,9 +2520,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["train"] = phase_train(args)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    emb, queries = topical_corpus(args.seed)
     t0 = time.perf_counter()
-    record["clustered"] = phase_clustered(args)
+    record["clustered"] = phase_clustered(args, emb, queries)
     log(f"[clustered] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["refine"] = phase_refine(args, emb, queries)
+    log(f"[refine] phase took {time.perf_counter() - t0:.1f} s")
+    del emb, queries
     record["seconds"] = time.perf_counter() - t_all
     record["profiler_windows"] = dict(PROFILER)
     log(f"[profiler] kernel_device_ms windows: {json.dumps(PROFILER)}")
@@ -2129,12 +2535,13 @@ def main(argv=None) -> int:
     serve_launches = record["serve"]["launches"]
     train_launches = record["train"]["launches"]
     cluster_launches = record["clustered"]["launches"]
+    refine_bf16 = {f"{k}.bf16": v for k, v in record["refine"]["bf16_launches"].items()}
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
-         main_binmax, serve_launches),
+         main_topk["binmax"], serve_launches),
         ("bin_gather", "sskd_tpu_torch/csrc/bin_gather.cu", "sskd_tpu/ops/topk_pallas.py:167",
-         main_gather, serve_launches),
+         main_topk["bin_gather"], serve_launches),
         ("flash_attn_fwd", "sskd_tpu_torch/csrc/flash_attn.cu", "sskd_tpu/ops/attention.py:43",
          main_flash, serve_launches),
         ("dropattn_fwd", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
@@ -2144,11 +2551,23 @@ def main(argv=None) -> int:
         # the second kernel of binmax.cu: the approx engine's pass, in place of the binned
         # reduction that XLA fuses for lax.approx_max_k (no Pallas kernel on the TPU side)
         ("binmax_strided", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk.py:282",
-         main_strided, cluster_launches),
+         main_topk["binmax_strided"], cluster_launches),
         ("cell_gather", "sskd_tpu_torch/csrc/cell_gather.cu",
-         "sskd_tpu/ops/topk_cluster.py:248", main_cells, cluster_launches),
+         "sskd_tpu/ops/topk_cluster.py:248", main_cells["cell_gather"], cluster_launches),
         ("cell_gather_b1", "sskd_tpu_torch/csrc/cell_gather.cu",
-         "sskd_tpu/ops/topk_cluster.py:291", main_cells_b1, cluster_launches),
+         "sskd_tpu/ops/topk_cluster.py:291", main_cells["cell_gather_b1"], cluster_launches),
+        # the bf16 routes, each the bf16 branch of its TPU kernel (or of the XLA dot
+        # of the approx sweep), with their launches on the refine phase's bf16 indexes
+        ("binmax.bf16", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:135",
+         bf16_topk["binmax"], refine_bf16),
+        ("bin_gather.bf16", "sskd_tpu_torch/csrc/bin_gather.cu",
+         "sskd_tpu/ops/topk_pallas.py:205", bf16_topk["bin_gather"], refine_bf16),
+        ("binmax_strided.bf16", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk.py:267",
+         bf16_topk["binmax_strided"], refine_bf16),
+        ("cell_gather.bf16", "sskd_tpu_torch/csrc/cell_gather.cu",
+         "sskd_tpu/ops/topk_cluster.py:272", bf16_cells["cell_gather"], refine_bf16),
+        ("cell_gather_b1.bf16", "sskd_tpu_torch/csrc/cell_gather.cu",
+         "sskd_tpu/ops/topk_cluster.py:308", bf16_cells["cell_gather_b1"], refine_bf16),
     ):
         check(launches[name] > 0, f"kernel {name} was launched no time on its path")
         kernels.append({

@@ -7,8 +7,8 @@ package's field names, defaults and bounds: ``student``, ``index``,
 serving, ``loss``, ``training`` and the ANCE fields of ``mining`` for KD
 training, each with only the fields the port reads. Sections and fields
 that later slices need (teacher, the other mining stages, rate limiting,
-auth, cache, hybrid, the index's refine fields) are not here yet; a ``mesh``
-section raises, as data-parallel training is not ported.
+auth, cache, hybrid) are not here yet; a ``mesh`` section raises, as
+data-parallel training is not ported.
 
 Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
 for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
@@ -66,15 +66,21 @@ class StudentModelConfig:
 
 @dataclass
 class IndexConfig:
-    """The JAX package's IndexConfig without its refine fields. These are
+    """The JAX package's IndexConfig, the fields the port reads. These are
     build-time settings: a loaded index is served as it was recorded, except
-    for an explicitly set ``nprobe`` (see ``serve/app.py``)."""
+    for an explicitly set ``nprobe`` and for ``refine_storage``, where the
+    bf16 refine rows live, a deployment choice applied at load (see
+    ``serve/app.py``)."""
 
     search_method: str = "approx"
     recall_target: float = 0.99
     block_rows: int = 262144
     cluster_rows: int = 0  # 0 = auto (about sqrt(N))
     nprobe: int = 64
+    # int8 / int4 two-stage refinement: the sweep fetches refine_m candidates,
+    # their bf16 rows are rescored; 0 disables
+    refine_m: int = 0
+    refine_storage: str = "device"  # "device" or "host": where the bf16 refine rows live
     validation_queries: int = 1000
     validation_recall_at_10: float = 0.97
 
@@ -84,6 +90,8 @@ class IndexConfig:
         _check(self, "block_rows", ge=128, kind=_INT)
         _check(self, "cluster_rows", ge=0, kind=_INT)
         _check(self, "nprobe", ge=1, kind=_INT)
+        _check(self, "refine_m", ge=0, kind=_INT)
+        _check(self, "refine_storage", choices=("device", "host"))
         _check(self, "validation_queries", ge=1, kind=_INT)
         _check(self, "validation_recall_at_10", ge=0.0, le=1.0, kind=_NUM)
 

@@ -10,6 +10,8 @@
 //
 // Storage modes (the corpus layouts of ops/quant.py):
 //   F32: rows are D floats, queries D floats, FMA in f32.
+//   BF16: rows are D bf16 (two a word), queries D floats; each bf16 widened to
+//        f32 exactly (a 16-bit shift), FMA in f32, one chain in order over k.
 //   I8 : rows are D int8, queries D int8 (quantized by the caller), dp4a into int32.
 //   I4 : rows are D/2 bytes, byte j holds dim j in its low nibble and dim j + D/2
 //        in its high nibble, both biased by +8 ("halves" layout). The nibbles are
@@ -20,7 +22,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"  // NEG_INF
+#include "mma_common.cuh"  // NEG_INF, bf16_lo / bf16_hi
 
 namespace sskd {
 
@@ -28,13 +30,17 @@ constexpr int BIN_W = 128;     // rows per bin == threads per block
 constexpr int CW = 32;         // row words (128 bytes) staged per chunk
 constexpr int RS = CW + 4;     // padded shared-memory row stride: conflict-free 16-byte reads
 
-enum Mode { F32 = 0, I8 = 1, I4 = 2 };
+enum Mode { F32 = 0, I8 = 1, I4 = 2, BF16 = 3 };
 
 template <int MODE> struct AccT { typedef int type; };
 template <> struct AccT<F32> { typedef float type; };
+template <> struct AccT<BF16> { typedef float type; };
 
-// Query words per chunk: I4 needs the low-half and the high-half query words.
-template <int MODE> struct QWords { static constexpr int value = (MODE == I4) ? 2 * CW : CW; };
+// Query words per chunk: I4 needs the low-half and the high-half query words,
+// BF16 the two floats of each row word's two values.
+template <int MODE> struct QWords {
+  static constexpr int value = (MODE == I4 || MODE == BF16) ? 2 * CW : CW;
+};
 
 __device__ __forceinline__ int nib_lo(uint32_t p) { return (int)__vsub4(p & 0x0F0F0F0Fu, 0x08080808u); }
 __device__ __forceinline__ int nib_hi(uint32_t p) { return (int)__vsub4((p >> 4) & 0x0F0F0F0Fu, 0x08080808u); }
@@ -52,7 +58,7 @@ __device__ __forceinline__ void bin_dot(
     uint32_t* s_rows, uint32_t* s_q) {
   constexpr int QW = QWords<MODE>::value;
   const int tid = threadIdx.x;
-  const int q_row_words = (MODE == I4) ? 2 * row_words : row_words;
+  const int q_row_words = (MODE == I4 || MODE == BF16) ? 2 * row_words : row_words;
 #pragma unroll
   for (int j = 0; j < QT; ++j) acc[j] = 0;
 
@@ -77,6 +83,8 @@ __device__ __forceinline__ void bin_dot(
         if (MODE == I4) {
           const int half = w / CW, ww = w % CW;
           if (ww < cw) val = qrow[half * row_words + c0 + ww];
+        } else if (MODE == BF16) {
+          if (w < 2 * cw) val = qrow[2 * c0 + w];
         } else if (w < cw) {
           val = qrow[c0 + w];
         }
@@ -97,6 +105,19 @@ __device__ __forceinline__ void bin_dot(
           a = fmaf(__uint_as_float(rv.y), qv.y, a);
           a = fmaf(__uint_as_float(rv.z), qv.z, a);
           a = fmaf(__uint_as_float(rv.w), qv.w, a);
+          acc[j] = a;
+        } else if (MODE == BF16) {
+          const float4 qa = *reinterpret_cast<const float4*>(s_q + j * QW + 2 * w);
+          const float4 qb = *reinterpret_cast<const float4*>(s_q + j * QW + 2 * w + 4);
+          float a = acc[j];
+          a = fmaf(bf16_lo(rv.x), qa.x, a);
+          a = fmaf(bf16_hi(rv.x), qa.y, a);
+          a = fmaf(bf16_lo(rv.y), qa.z, a);
+          a = fmaf(bf16_hi(rv.y), qa.w, a);
+          a = fmaf(bf16_lo(rv.z), qb.x, a);
+          a = fmaf(bf16_hi(rv.z), qb.y, a);
+          a = fmaf(bf16_lo(rv.w), qb.z, a);
+          a = fmaf(bf16_hi(rv.w), qb.w, a);
           acc[j] = a;
         } else if (MODE == I8) {
           const uint4 qv = *reinterpret_cast<const uint4*>(s_q + j * QW + w);

@@ -7,6 +7,7 @@
 // from binmax's output), rescans the bin's 128 rows exactly:
 //   out[b, s, t] = dot(row, q b) * q_scale[b] * scale[row]   (int8 / int4)
 //   out[b, s, t] = dot(row, q b) * scale[row]                (f32, scale optional)
+//   out[b, s, t] = dot(row, q b)                             (bf16 rows, f32 query)
 // where row = bins[b, s] * 128 + t, and rows >= valid_n give finfo(f32).min / 2.
 // For int8 and int4 the dot is the exact int32 sum (the TPU kernel reaches the
 // same integer through an f32 dot of integer values), then multiplied by the
@@ -32,10 +33,12 @@
 //    half the blocks (a little faster on the card than one; four no faster). Sorting them by bin, so that a bin that several queries chose
 //    is read once, lost on the card (chip_smoke.py bin_gather_order): the sort
 //    costs more than the kernel, and the runs it needs serialise the loads.
-// 2. f32 and int4 rows (and longer int8 rows): bin_gather_kernel, one block
-//    per (query, bin slot), the shared inner loop of bin_dot.cuh with a
+// 2. f32, bf16 and int4 rows (and longer int8 rows): bin_gather_kernel, one
+//    block per (query, bin slot), the shared inner loop of bin_dot.cuh with a
 //    one-query tile; each thread writes its row's score, so the block writes
-//    128 contiguous floats.
+//    128 contiguous floats. bf16 rows (the "bf16" route, the TPU kernel's bf16
+//    branch: bf16 rows against the f32 query, f32 sums) are widened exactly
+//    and each score is one fmaf chain in order; a bf16 index has no scales.
 
 #include "bin_dot.cuh"
 #include "gather_tc.cuh"
@@ -62,7 +65,7 @@ __global__ void __launch_bounds__(BIN_W) bin_gather_kernel(
   float s = NEG_INF;
   if (row < valid_n) {
     s = (float)acc[0];
-    if (MODE != F32) s = s * q_scale[b] * scales[row];
+    if (MODE == I8 || MODE == I4) s = s * q_scale[b] * scales[row];
     else if (scales != nullptr) s = s * scales[row];
   }
   out[slot * BIN_W + tid] = s;
@@ -84,8 +87,9 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32) bin_gather_tc_kernel(
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
-//   mode: 0 f32, 1 int8, 2 packed int4. q: [B, D] f32 or int8. q_scale: [B] f32 (int modes).
-//   corpus: [n_rows, row_words] 32-bit words. scales: [n_rows] f32 or NULL (f32 mode only).
+//   mode: 0 f32, 1 int8, 2 packed int4, 3 bf16. q: [B, D] f32 (f32 and bf16 rows) or int8.
+//   q_scale: [B] f32 (int modes). corpus: [n_rows, row_words] 32-bit words (a multiple of 4).
+//   scales: [n_rows] f32 (int modes), or NULL or [n_rows] f32 (f32 and bf16).
 //   bins: [B, kb] int32, each in [0, ceil(n_rows / 128)). out: [B, kb, 128] f32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_bin_gather(int mode, const void* q, const float* q_scale,
@@ -104,6 +108,8 @@ extern "C" int sskd_bin_gather(int mode, const void* q, const float* q_scale,
     bin_gather_kernel<I8><<<grid, BIN_W, 0, s>>>(qw, q_scale, cw, scales, bins, out, kb, n_rows, row_words, valid_n);
   else if (mode == I4)
     bin_gather_kernel<I4><<<grid, BIN_W, 0, s>>>(qw, q_scale, cw, scales, bins, out, kb, n_rows, row_words, valid_n);
+  else if (mode == BF16)
+    bin_gather_kernel<BF16><<<grid, BIN_W, 0, s>>>(qw, q_scale, cw, scales, bins, out, kb, n_rows, row_words, valid_n);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -6,18 +6,20 @@
 // Computes, for every 128-row bin g of the corpus and every query b,
 //   out[g, b] = max over rows r of bin g of (dot(row r, q b) * scale[r]),
 // with rows r >= valid_n set to finfo(f32).min / 2 before the max. The dot is
-// f32, int8 x int8 summed in int32, or packed int4 nibbles (halves layout)
-// against int8 queries. The per-query int8 scale is NOT applied: it is a
+// f32, bf16 rows widened exactly against f32 queries with f32 sums (the TPU
+// kernel's bf16 branch), int8 x int8 summed in int32, or packed int4 nibbles
+// (halves layout) against int8 queries. The per-query int8 scale is NOT applied: it is a
 // positive factor per column and cannot change a query's ranking of bins, so
 // the caller never needs it here (same contract as the TPU kernel).
 //
 // Bound on the H100: the corpus is read once, so at serving batch sizes the
 // kernel is bound by device-memory bytes (N * row_bytes over 3.35 TB/s; 1M x
 // 384 int8 is 384 MB, about 115 us); f32 at B = 256 is bound by its FMA (2 B N
-// D over 67 TFLOP/s, 2.93 ms at 1M x 384).
+// D over 67 TFLOP/s, 2.93 ms at 1M x 384), and so is bf16 above about 20
+// queries (768 MB of 1M x 384 bf16 rows take 0.229 ms).
 //
 // binmax has three kernels, chosen by the wrapper (ops/topk_kernels.py
-// binmax_route):
+// binmax_route), the second in two row types:
 //  - binmax_tc_kernel, int8 rows of at most 1,024 bytes, on the tensor cores.
 //    The design of binmax_strided_tc_kernel below (queries staged once per
 //    block as mma.sync m16n8k32 s8 B fragments, a warp's 16-row tiles through
@@ -40,6 +42,9 @@
 //    at 64 queries, 4 x C over one bin below), the bin's maximum taken by
 //    shuffles over the row lanes of a warp and one shared-memory step across
 //    warps. The grid fills the card once, the chunk the fastest index.
+//    bf16 rows (the "bf16" route) take the same kernel with the tile's row
+//    type bf16: half the bytes a row through the rings, widened to f32 when
+//    read from shared memory, the same in-order fmaf chain a score.
 //  - binmax_kernel, packed int4 and int8 rows above 1,024 bytes, dp4a on the
 //    CUDA cores: one block per bin (bin_dot.cuh stages the bin's rows through
 //    shared memory in 128-byte chunks), the queries in tiles of QT, a warp
@@ -47,7 +52,8 @@
 // A ragged last bin is handled in every kernel (rows >= N are zero-filled and
 // masked), so the corpus needs no padding. int8 and int4 results are bit for
 // bit with the plain version (exact integer sums, max independent of order);
-// f32 sums run in another order than the plain version's matrix product.
+// f32 and bf16 sums run in another order than the plain version's matrix
+// product (each score one fmaf chain in order, which the CPU tests write out).
 //
 // binmax_strided (sskd_binmax_strided) is the approx engine's pass. It
 // stands in for the binned reduction of lax.approx_max_k (sskd_tpu/ops/topk.py
@@ -85,10 +91,10 @@
 //      running best in registers in the C-fragment layout; a tile replaces it
 //      only when strictly greater, in increasing tile order, so the lowest row
 //      wins, and a bin of no valid row keeps NEG_INF and its first row.
-//  - binmax_strided_f32_kernel, f32 rows: block j (by query chunk) walks its
-//    tiles through the f32 score tile of f32_tile.cuh and keeps the running
-//    best and its tile per (row position, query) in registers, replaced only
-//    when strictly greater.
+//  - binmax_strided_f32_kernel, f32 and (the "bf16" route) bf16 rows: block j
+//    (by query chunk) walks its tiles through the f32 score tile of
+//    f32_tile.cuh and keeps the running best and its tile per (row position,
+//    query) in registers, replaced only when strictly greater.
 //  - binmax_strided_kernel, packed int4 and int8 rows above 1,024 bytes
 //    (bin_dot.cuh, dp4a): a block re-reads its tiles for every 32 queries.
 
@@ -473,19 +479,19 @@ __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
 // scores 8 x 8 a thread at 64 queries, a tile of two bins; the strided pass
 // keeps a best and its tile for each score, so it stays at 4 x C (R = 8 would
 // need some 230 registers), one bin a tile.
-template <int QC>
-using BinmaxTile = FTile<QC, QC >= 64 ? 8 : 4, QC >= 64 ? 8 : 4>;
-template <int QC>
-using StridedTile = FTile<QC, 4, QC >= 64 ? 8 : 4>;
+template <int QC, class TR>
+using BinmaxTile = FTile<QC, QC >= 64 ? 8 : 4, QC >= 64 ? 8 : 4, TR>;
+template <int QC, class TR>
+using StridedTile = FTile<QC, 4, QC >= 64 ? 8 : 4, TR>;
 
 // Grid: units * chunks, block (unit, chunk) at unit * chunks + chunk; a block
-// walks the tiles unit, unit + units, ...
-template <int QC>
-__global__ void __launch_bounds__(BinmaxTile<QC>::THREADS) binmax_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ corpus,
+// walks the tiles unit, unit + units, ... TR: float, or uint16_t for bf16 rows.
+template <int QC, class TR>
+__global__ void __launch_bounds__(BinmaxTile<QC, TR>::THREADS) binmax_f32_kernel(
+    const float* __restrict__ q, const TR* __restrict__ corpus,
     const float* __restrict__ scales, float* __restrict__ out,
     int B, long n_rows, int dim, int band, long valid_n, int units, int chunks) {
-  using T = BinmaxTile<QC>;
+  using T = BinmaxTile<QC, TR>;
   constexpr int BINS = T::ROWS / FT_ROWS, WPB = T::WARPS / BINS;  // bins a tile, warps a bin
   extern __shared__ __align__(16) float fsmem[];
   __shared__ float s_red[2][T::WARPS][QC];  // by tile parity: warps run a tile apart at most
@@ -538,12 +544,12 @@ __global__ void __launch_bounds__(BinmaxTile<QC>::THREADS) binmax_f32_kernel(
 }
 
 // Grid: blocks * chunks, block (j, chunk) at j * chunks + chunk.
-template <int QC>
-__global__ void __launch_bounds__(StridedTile<QC>::THREADS) binmax_strided_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ corpus,
+template <int QC, class TR>
+__global__ void __launch_bounds__(StridedTile<QC, TR>::THREADS) binmax_strided_f32_kernel(
+    const float* __restrict__ q, const TR* __restrict__ corpus,
     const float* __restrict__ scales, float* __restrict__ out, int* __restrict__ arg,
     int B, long n_rows, int dim, int band, long valid_n, int blocks, int chunks) {
-  using T = StridedTile<QC>;
+  using T = StridedTile<QC, TR>;
   static_assert(T::ROWS == FT_ROWS, "a strided tile is one bin of rows");
   extern __shared__ __align__(16) float fsmem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -636,59 +642,85 @@ static int launch_binmax_tc(const void* q, const void* corpus, const float* scal
   return (int)cudaGetLastError();
 }
 
-// the dynamic shared memory of a block of Tile<qc> staging bands of `band` floats
-template <template <int> class Tile>
+// the dynamic shared memory of a block of Tile<qc, TR> staging bands of `band` floats
+template <template <int, class> class Tile, class TR>
 static size_t f32_smem(int qc, int band) {
-  return qc == 64 ? ft_smem_bytes<Tile<64>>(band) : qc == 32 ? ft_smem_bytes<Tile<32>>(band)
-       : qc == 16 ? ft_smem_bytes<Tile<16>>(band) : ft_smem_bytes<Tile<8>>(band);
+  return qc == 64 ? ft_smem_bytes<Tile<64, TR>>(band)
+       : qc == 32 ? ft_smem_bytes<Tile<32, TR>>(band)
+       : qc == 16 ? ft_smem_bytes<Tile<16, TR>>(band) : ft_smem_bytes<Tile<8, TR>>(band);
 }
 
 // (queries a block of an f32 kernel holds, floats of depth it stages at once):
 // the batch's size class, halved while the whole row does not fit, down to 8
 // queries, whose rows are then staged in bands of as many K-chunks as fit
-template <template <int> class Tile>
+template <template <int, class> class Tile, class TR>
 static int2 f32_chunk(int B, int dim) {
   const int full = ft_full_band(dim);
   int qc = B <= 8 ? 8 : B <= 16 ? 16 : B <= 32 ? 32 : 64;
-  while (qc > 8 && f32_smem<Tile>(qc, full) > FT_SMEM_MAX) qc /= 2;
+  while (qc > 8 && f32_smem<Tile, TR>(qc, full) > FT_SMEM_MAX) qc /= 2;
   int band = full;
-  while (f32_smem<Tile>(qc, band) > FT_SMEM_MAX) band -= FT_KC_MAX;
+  while (f32_smem<Tile, TR>(qc, band) > FT_SMEM_MAX) band -= FT_KC_MAX;
   return make_int2(qc, band);
 }
 
-template <int QC>
+template <int QC, class TR>
 static int launch_binmax_f32(const void* q, const void* corpus, const float* scales, float* out,
                              int B, long n_rows, int dim, int band, long valid_n,
                              cudaStream_t stream) {
-  using T = BinmaxTile<QC>;
+  using T = BinmaxTile<QC, TR>;
   const size_t smem = ft_smem_bytes<T>(band);
   long resident = 0;
-  const cudaError_t e =
-      launch_setup((const void*)binmax_f32_kernel<QC>, FT_SMEM_MAX, T::THREADS, smem, &resident);
+  const cudaError_t e = launch_setup((const void*)binmax_f32_kernel<QC, TR>, FT_SMEM_MAX,
+                                     T::THREADS, smem, &resident);
   if (e != cudaSuccess) return (int)e;
   const int chunks = (B + QC - 1) / QC;
   const long units = fill_units(resident, chunks, (n_rows + T::ROWS - 1) / T::ROWS);
-  binmax_f32_kernel<QC><<<(unsigned)(units * chunks), T::THREADS, smem, stream>>>(
-      (const float*)q, (const float*)corpus, scales, out, B, n_rows, dim, band, valid_n,
+  binmax_f32_kernel<QC, TR><<<(unsigned)(units * chunks), T::THREADS, smem, stream>>>(
+      (const float*)q, (const TR*)corpus, scales, out, B, n_rows, dim, band, valid_n,
       (int)units, chunks);
   return (int)cudaGetLastError();
 }
 
-template <int QC>
+// binmax over f32 (TR float) or bf16 (TR uint16_t) rows of `dim` values
+template <class TR>
+static int launch_binmax_tiled(const void* q, const void* corpus, const float* scales,
+                               float* out, int B, long n_rows, int dim, long valid_n,
+                               cudaStream_t s) {
+  const int2 c = f32_chunk<BinmaxTile, TR>(B, dim);
+  if (c.x == 64) return launch_binmax_f32<64, TR>(q, corpus, scales, out, B, n_rows, dim, c.y, valid_n, s);
+  if (c.x == 32) return launch_binmax_f32<32, TR>(q, corpus, scales, out, B, n_rows, dim, c.y, valid_n, s);
+  if (c.x == 16) return launch_binmax_f32<16, TR>(q, corpus, scales, out, B, n_rows, dim, c.y, valid_n, s);
+  return launch_binmax_f32<8, TR>(q, corpus, scales, out, B, n_rows, dim, c.y, valid_n, s);
+}
+
+template <int QC, class TR>
 static int launch_strided_f32(const void* q, const void* corpus, const float* scales, float* out,
                               int* arg, int B, long n_rows, int dim, int band, long valid_n,
                               int blocks, cudaStream_t stream) {
-  using T = StridedTile<QC>;
+  using T = StridedTile<QC, TR>;
   const size_t smem = ft_smem_bytes<T>(band);
-  const cudaError_t e = launch_setup((const void*)binmax_strided_f32_kernel<QC>, FT_SMEM_MAX,
-                                     T::THREADS, smem, nullptr);
+  const cudaError_t e = launch_setup((const void*)binmax_strided_f32_kernel<QC, TR>,
+                                     FT_SMEM_MAX, T::THREADS, smem, nullptr);
   if (e != cudaSuccess) return (int)e;
   const int chunks = (B + QC - 1) / QC;
   if ((long)blocks * chunks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  binmax_strided_f32_kernel<QC><<<(unsigned)((long)blocks * chunks), T::THREADS, smem, stream>>>(
-      (const float*)q, (const float*)corpus, scales, out, arg, B, n_rows, dim, band, valid_n,
+  binmax_strided_f32_kernel<QC, TR><<<(unsigned)((long)blocks * chunks), T::THREADS, smem,
+                                      stream>>>(
+      (const float*)q, (const TR*)corpus, scales, out, arg, B, n_rows, dim, band, valid_n,
       blocks, chunks);
   return (int)cudaGetLastError();
+}
+
+// binmax_strided over f32 (TR float) or bf16 (TR uint16_t) rows of `dim` values
+template <class TR>
+static int launch_strided_tiled(const void* q, const void* corpus, const float* scales,
+                                float* out, int* arg, int B, long n_rows, int dim, long valid_n,
+                                int blocks, cudaStream_t s) {
+  const int2 c = f32_chunk<StridedTile, TR>(B, dim);
+  if (c.x == 64) return launch_strided_f32<64, TR>(q, corpus, scales, out, arg, B, n_rows, dim, c.y, valid_n, blocks, s);
+  if (c.x == 32) return launch_strided_f32<32, TR>(q, corpus, scales, out, arg, B, n_rows, dim, c.y, valid_n, blocks, s);
+  if (c.x == 16) return launch_strided_f32<16, TR>(q, corpus, scales, out, arg, B, n_rows, dim, c.y, valid_n, blocks, s);
+  return launch_strided_f32<8, TR>(q, corpus, scales, out, arg, B, n_rows, dim, c.y, valid_n, blocks, s);
 }
 
 template <int NG>
@@ -747,8 +779,9 @@ static void launch_mode(const void* q, const void* corpus, const float* scales, 
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
-//   mode: 0 f32, 1 int8, 2 packed int4. q: [B, D] f32 or int8. corpus: [n_rows, row_words]
-//   32-bit words. scales: [n_rows] f32 or NULL. out: [ceil(n_rows / 128), B] f32.
+//   mode: 0 f32, 1 int8, 2 packed int4, 3 bf16. q: [B, D] f32 (f32 and bf16 rows) or int8.
+//   corpus: [n_rows, row_words] 32-bit words (a multiple of 4). scales: [n_rows] f32 or NULL.
+//   out: [ceil(n_rows / 128), B] f32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_binmax(int mode, const void* q, const void* corpus, const float* scales,
                            float* out, int B, long n_rows, int row_words, long valid_n,
@@ -756,13 +789,11 @@ extern "C" int sskd_binmax(int mode, const void* q, const void* corpus, const fl
   using namespace sskd;
   if (n_rows <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == F32) {
-    const int2 c = f32_chunk<BinmaxTile>(B, row_words);
-    if (c.x == 64) return launch_binmax_f32<64>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
-    if (c.x == 32) return launch_binmax_f32<32>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
-    if (c.x == 16) return launch_binmax_f32<16>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
-    return launch_binmax_f32<8>(q, corpus, scales, out, B, n_rows, row_words, c.y, valid_n, s);
-  }
+  if (mode == F32)
+    return launch_binmax_tiled<float>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
+  if (mode == BF16)
+    return launch_binmax_tiled<uint16_t>(q, corpus, scales, out, B, n_rows, 2 * row_words,
+                                         valid_n, s);
   if (mode == I8) launch_mode<I8>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
   else if (mode == I4) launch_mode<I4>(q, corpus, scales, out, B, n_rows, row_words, valid_n, s);
   else return (int)cudaErrorInvalidValue;
@@ -796,13 +827,12 @@ extern "C" int sskd_binmax_strided(int mode, const void* q, const void* corpus,
   if (n_rows <= 0 || B <= 0 || arg == nullptr || n_rows + BIN_W > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   if (blocks < 1 || blocks > (n_rows + BIN_W - 1) / BIN_W) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == F32) {
-    const int2 c = f32_chunk<StridedTile>(B, row_words);
-    if (c.x == 64) return launch_strided_f32<64>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
-    if (c.x == 32) return launch_strided_f32<32>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
-    if (c.x == 16) return launch_strided_f32<16>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
-    return launch_strided_f32<8>(q, corpus, scales, out, arg, B, n_rows, row_words, c.y, valid_n, blocks, s);
-  }
+  if (mode == F32)
+    return launch_strided_tiled<float>(q, corpus, scales, out, arg, B, n_rows, row_words,
+                                       valid_n, blocks, s);
+  if (mode == BF16)
+    return launch_strided_tiled<uint16_t>(q, corpus, scales, out, arg, B, n_rows,
+                                          2 * row_words, valid_n, blocks, s);
   if (mode == I8) launch_strided<I8>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
   else if (mode == I4) launch_strided<I4>(q, corpus, scales, out, arg, B, n_rows, row_words, valid_n, blocks, s);
   else return (int)cudaErrorInvalidValue;

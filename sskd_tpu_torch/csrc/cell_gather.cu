@@ -8,13 +8,17 @@
 // For query b and probe slot j, with c = probe[b, j] and r < rpc:
 //   general kernels       out[b, j, r] = (dot(row, q b) * q_scale[b]) * scale[row]   (int8)
 //                         out[b, j, r] = dot(row, q b) * scale[row]      (f32, scale optional)
-//   cell_gather_b1_kernel out[0, j, r] = dot(row, q) * scale[row]     (int8 or f32, one query;
+//                         out[b, j, r] = dot(row, q b)                   (bf16 rows and query)
+//   cell_gather_b1_kernel out[0, j, r] = dot(row, q) * scale[row]     (int8, f32 or bf16, one query;
 //                         the caller multiplies by the query's scale afterwards)
 // where row = c * rpc + r. The int8 dot is the exact int32 sum (mma or dp4a);
 // the TPU kernels reach the same integer through an f32 dot of cast values
 // (general) or an int32 dot (one query), and each kernel keeps its TPU
-// kernel's order of the two scale products. No kernel masks rows: the caller
-// masks the padded tail through the rows' positions.
+// kernel's order of the two scale products. For bf16 rows (CELL_BF16, the
+// "bf16" route of both kernels) the query comes rounded to bf16, as the JAX
+// package rounds it (topk_cluster.py q.astype(corpus.dtype)): each product
+// of two bf16 values is exact in f32 and the sums are f32. No kernel masks
+// rows: the caller masks the padded tail through the rows' positions.
 //
 // Bound on the H100: bytes. Each distinct probed cell must be read once (rpc *
 // (row_bytes + 4) bytes with its scales) and every score written once (B *
@@ -35,7 +39,7 @@
 //    sort; a block, one warp, takes runs of 8 pairs of that order moved to
 //    cell boundaries, so every distinct cell lies in exactly one run. Rows of
 //    a multiple of 16 but not 32 bytes take a zero tail.
-// 2. f32, any batch (and int8 rows above 1,024 bytes):
+// 2. f32 and bf16, any batch (and int8 rows above 1,024 bytes):
 //    cell_gather_kernel, one block per (query, slot, 128-row tile of the
 //    cell), walking the pairs in the wrapper's order sorted by cell so that
 //    blocks reading one cell run side by side and find it in L2.
@@ -56,13 +60,14 @@
 
 namespace sskd {
 
-enum CellMode { CELL_F32 = 0, CELL_I8 = 1 };
+enum CellMode { CELL_F32 = 0, CELL_I8 = 1, CELL_BF16 = 2 };
 
 constexpr int LPR = 8;  // lanes per corpus row
 constexpr int RPG = 4;  // rows a lane group carries at once
 
 template <int MODE> struct CellAcc { typedef int type; };
 template <> struct CellAcc<CELL_F32> { typedef float type; };
+template <> struct CellAcc<CELL_BF16> { typedef float type; };
 
 template <int MODE>
 __device__ __forceinline__ void dot16(typename CellAcc<MODE>::type& acc, const uint4& r,
@@ -73,6 +78,17 @@ __device__ __forceinline__ void dot16(typename CellAcc<MODE>::type& acc, const u
     a = fmaf(__uint_as_float(r.y), __uint_as_float(q.y), a);
     a = fmaf(__uint_as_float(r.z), __uint_as_float(q.z), a);
     a = fmaf(__uint_as_float(r.w), __uint_as_float(q.w), a);
+    acc = a;
+  } else if (MODE == CELL_BF16) {  // eight values a piece, widened in order
+    float a = acc;
+    a = fmaf(bf16_lo(r.x), bf16_lo(q.x), a);
+    a = fmaf(bf16_hi(r.x), bf16_hi(q.x), a);
+    a = fmaf(bf16_lo(r.y), bf16_lo(q.y), a);
+    a = fmaf(bf16_hi(r.y), bf16_hi(q.y), a);
+    a = fmaf(bf16_lo(r.z), bf16_lo(q.z), a);
+    a = fmaf(bf16_hi(r.z), bf16_hi(q.z), a);
+    a = fmaf(bf16_lo(r.w), bf16_lo(q.w), a);
+    a = fmaf(bf16_hi(r.w), bf16_hi(q.w), a);
     acc = a;
   } else {
     int a = acc;
@@ -220,9 +236,9 @@ constexpr int MAX_ROW_BYTES = 48 * 1024;  // the query row sits in default share
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
-//   mode: 0 f32, 1 int8. q: [B, row_bytes] in the corpus type. q_scale: [B] f32 (int8 only).
-//   corpus: [P, row_bytes], cell c = rows [c * rpc, (c + 1) * rpc). scales: [P] f32 (required
-//   for int8, optional for f32). probe: [B, nprobe] int32, each in [0, P / rpc).
+//   mode: 0 f32, 1 int8, 2 bf16. q: [B, row_bytes] in the corpus type. q_scale: [B] f32 (int8
+//   only). corpus: [P, row_bytes], cell c = rows [c * rpc, (c + 1) * rpc). scales: [P] f32
+//   (required for int8, optional for f32 and bf16). probe: [B, nprobe] int32, each in [0, P / rpc).
 //   order (sskd_cell_gather only): [B * nprobe] int64, a permutation of the (query, slot)
 //   pairs b * nprobe + j in the order the blocks take them.
 //   out: [B, nprobe, rpc] f32. row_bytes is a multiple of 16, at most 48 KB.
@@ -244,6 +260,9 @@ extern "C" int sskd_cell_gather(int mode, const void* q, const float* q_scale,
   const uint4* cv = (const uint4*)corpus;
   if (mode == CELL_F32)
     cell_gather_kernel<CELL_F32><<<(unsigned)blocks, GEN_THREADS, row_bytes, s>>>(
+        qv, q_scale, cv, scales, probe, order, out, nprobe, rpc, row_vec, tiles);
+  else if (mode == CELL_BF16)
+    cell_gather_kernel<CELL_BF16><<<(unsigned)blocks, GEN_THREADS, row_bytes, s>>>(
         qv, q_scale, cv, scales, probe, order, out, nprobe, rpc, row_vec, tiles);
   else if (mode == CELL_I8 && q_scale != nullptr && scales != nullptr)
     cell_gather_kernel<CELL_I8><<<(unsigned)blocks, GEN_THREADS, row_bytes, s>>>(
@@ -292,6 +311,9 @@ extern "C" int sskd_cell_gather_b1(int mode, const void* q, const void* corpus,
   const uint4* cv = (const uint4*)corpus;
   if (mode == CELL_F32)
     cell_gather_b1_kernel<CELL_F32><<<(unsigned)blocks, B1_THREADS, row_bytes, s>>>(
+        qv, cv, scales, probe, out, rpc, row_vec, tiles);
+  else if (mode == CELL_BF16)
+    cell_gather_b1_kernel<CELL_BF16><<<(unsigned)blocks, B1_THREADS, row_bytes, s>>>(
         qv, cv, scales, probe, out, rpc, row_vec, tiles);
   else if (mode == CELL_I8 && scales != nullptr)
     cell_gather_b1_kernel<CELL_I8><<<(unsigned)blocks, B1_THREADS, row_bytes, s>>>(

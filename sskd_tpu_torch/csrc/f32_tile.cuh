@@ -1,5 +1,6 @@
 // f32_tile.cuh: the register-tiled f32 score tile of the CUDA-core routes of
-// binmax.cu (binmax_f32_kernel, binmax_strided_f32_kernel).
+// binmax.cu (binmax_f32_kernel, binmax_strided_f32_kernel), for f32 rows and,
+// as the bf16 routes, for bf16 rows against the same f32 queries.
 //
 // A block holds a chunk of QC queries in shared memory for its whole life and
 // walks a list of tiles of the corpus, each one or two bins of 128 rows. Warp
@@ -27,9 +28,17 @@
 // the corpus, depth past D and absent queries are zeros, which leave a chain
 // as it was. The caller's epilogue gets each tile's finished register tile.
 //
+// Row type TR: float, or uint16_t holding bf16 bits. bf16 rows stream through
+// the rings at 2 bytes a value (a 16-byte copy is 8 values) and are widened
+// to f32 exactly as they are read from shared memory (a 16-bit shift), so a
+// score is the same fmaf chain over the widened row: the function of the TPU
+// kernel's bf16 branch (bf16 rows, an f32 query, f32 sums). bf16 tensor cores
+// would round the query to bf16, which is another function.
+//
 // Bank conflicts: the LR rows (and the QG queries) one float4 load of a warp
 // reads are consecutive at a stride of 4 (mod 32) floats, so they lie in
-// distinct 16-byte bank groups.
+// distinct 16-byte bank groups; the 8-byte loads of bf16 rows, at a stride
+// of 144 or 80 bytes (K-chunks of 64 or 32 values), do too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,9 +53,10 @@ constexpr int FT_KC_MAX = 64;  // the deepest K-chunk a stage holds
 constexpr int FT_STAGES = 2;
 constexpr size_t FT_SMEM_MAX = 216 * 1024;  // dynamic; the rest of 227 KB for static arrays
 
-// QC queries a block, R rows a thread, WARPS warps a block
-template <int QC, int R_, int WARPS_>
+// QC queries a block, R rows a thread, WARPS warps a block, rows of type TR
+template <int QC, int R_, int WARPS_, class TR = float>
 struct FTile {
+  using Row = TR;
   static constexpr int QG = QC >= 64 ? 8 : 4;  // query groups: the lanes of a row group
   static constexpr int C = QC / QG;            // queries a thread
   static constexpr int R = R_;                 // rows a thread scores
@@ -59,7 +69,8 @@ struct FTile {
   // above, where the staged queries leave the rings less room (at 32 queries
   // two blocks, 8 warps, still fit an SM)
   static constexpr int KC = QC <= 16 ? FT_KC_MAX : 32;
-  static constexpr int LD = KC + 4;            // shared row stride of a stage (floats)
+  static constexpr int VEC = 16 / (int)sizeof(TR);  // row values a 16-byte copy moves
+  static constexpr int LD = KC + VEC;          // shared row stride of a stage (values)
   static constexpr bool BANDS = QC == 8;       // the one chunk staged in bands (f32_chunk)
   static_assert(ROWS % FT_ROWS == 0, "a tile is whole bins");
 };
@@ -74,8 +85,17 @@ __host__ __device__ constexpr int ft_full_band(int dim) {
 // warps' rings
 template <class T>
 __host__ __device__ constexpr size_t ft_smem_bytes(int band) {
-  return ((size_t)T::QG * T::C * (band + 4) + (size_t)FT_STAGES * T::ROWS * T::LD) *
-         sizeof(float);
+  return (size_t)T::QG * T::C * (band + 4) * sizeof(float) +
+         (size_t)FT_STAGES * T::ROWS * T::LD * sizeof(typename T::Row);
+}
+
+// four row values from shared memory as f32: a float4, or four bf16 widened
+__device__ __forceinline__ float4 ft_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ft_load4(const uint16_t* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
 }
 
 // Stages floats k0 .. k0 + band - 1 of the queries q0 .. q0 + nq - 1 of q
@@ -103,10 +123,11 @@ __device__ __forceinline__ void ft_stage_queries(float* s_q, const float* __rest
 // thread of the block calls it; epi is called by all of them alike.
 template <class T, class RowOf, class Epi>
 __device__ __forceinline__ void f32_tiles(const float* __restrict__ q, int q0, int nq,
-                                          const float* __restrict__ corpus, long n_rows, int dim,
-                                          int band, float* smem, int n_tiles, RowOf row0_of,
-                                          Epi epi) {
-  constexpr int R = T::R, C = T::C, RW = T::RW, KC = T::KC, LD = T::LD;
+                                          const typename T::Row* __restrict__ corpus,
+                                          long n_rows, int dim, int band, float* smem,
+                                          int n_tiles, RowOf row0_of, Epi epi) {
+  using TR = typename T::Row;
+  constexpr int R = T::R, C = T::C, RW = T::RW, KC = T::KC, LD = T::LD, VEC = T::VEC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qg = lane % T::QG, rl = lane / T::QG;
   const int qs = band + 4;
@@ -115,16 +136,16 @@ __device__ __forceinline__ void f32_tiles(const float* __restrict__ q, int q0, i
   const bool banded = T::BANDS && band_kc < n_kc;  // each band staged anew for each tile
   const int total = n_tiles * n_kc;
   float* s_q = smem;
-  float* my_ring = smem + T::QG * T::C * qs + warp * FT_STAGES * RW * LD;
+  TR* my_ring = reinterpret_cast<TR*>(smem + T::QG * T::C * qs) + warp * FT_STAGES * RW * LD;
 
   // K-chunk `it` (tile it / n_kc) of the warp's rows into stage st: RW rows x
-  // KC floats, 16 bytes a copy; rows past the corpus and depth past dim as zeros
+  // KC values, 16 bytes a copy; rows past the corpus and depth past dim as zeros
   auto load = [&](int it, int st) {
     const int i = it / n_kc, k0 = (it - i * n_kc) * KC;
     const long row0 = row0_of(i) + warp * RW;
-    float* dst = my_ring + st * RW * LD;
-    for (int p = lane; p < RW * (KC / 4); p += 32) {
-      const int r = p / (KC / 4), k = k0 + (p % (KC / 4)) * 4;
+    TR* dst = my_ring + st * RW * LD;
+    for (int p = lane; p < RW * (KC / VEC); p += 32) {
+      const int r = p / (KC / VEC), k = k0 + (p % (KC / VEC)) * VEC;
       const bool live = row0 + r < n_rows && k < dim;
       cp_async16(dst + r * LD + (k - k0), corpus + (live ? (row0 + r) * dim + k : 0),
                  live ? 16 : 0);
@@ -154,14 +175,13 @@ __device__ __forceinline__ void f32_tiles(const float* __restrict__ q, int q0, i
     cp_async_commit();
     cp_async_wait<FT_STAGES - 1>();  // chunk it has landed
     __syncwarp();
-    const float* rows = my_ring + st * RW * LD + rl * LD;
+    const TR* rows = my_ring + st * RW * LD + rl * LD;
     const float* qk = s_q + qg * qs + (banded ? kc % band_kc : kc) * KC;
 #pragma unroll
     for (int k = 0; k < KC; k += 4) {
       float4 a[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        a[r] = *reinterpret_cast<const float4*>(rows + r * T::LR * LD + k);
+      for (int r = 0; r < R; ++r) a[r] = ft_load4(rows + r * T::LR * LD + k);
 #pragma unroll
       for (int j = 0; j < C; ++j) {
         const float4 b = *reinterpret_cast<const float4*>(qk + j * T::QG * qs + k);

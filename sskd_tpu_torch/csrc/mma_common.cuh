@@ -1,9 +1,9 @@
 // mma_common.cuh: tensor-core helpers for sm_90a shared by the kernels:
 // cp.async copies into shared memory, ldmatrix (plain and transposed),
 // mma.sync m16n8k16 with bf16 operands and f32 accumulators (the attention
-// kernels), and mma.sync m16n8k32 with s8 operands and exact s32 sums over
+// kernels), mma.sync m16n8k32 with s8 operands and exact s32 sums over
 // padded rows of int8 (the top-k kernels: binmax.cu, bin_gather.cu,
-// cell_gather.cu).
+// cell_gather.cu), and the exact widening of bf16 rows to f32.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * grp + tig, grp 0..7,
 // tig 0..3), two 16-bit values per 32-bit register:
@@ -97,6 +97,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF = -FLT_MAX / 2;  // finfo(float32).min / 2, the repo's sentinel
+
+// The two bf16 values of a 32-bit word, widened to f32 exactly (a bf16 is the
+// high half of an f32); the value at the lower address is the low half.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 // --- int8 rows on the tensor cores ------------------------------------------
 

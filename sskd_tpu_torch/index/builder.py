@@ -6,29 +6,43 @@ loads what the other saved::
     index_dir/
       INDEX_VERSION      — layout version string
       meta.json          — dim / metric / dtype / index_type / ntotal + checksums
-      vectors.npy        — [N, D] f32, int8 values, or [N, D/2] packed int4
+      vectors.npy        — [N, D] f32, bf16, int8 values, or [N, D/2] packed int4
       scales.npy         — [N] f32 per-row scales (int8 / int4)
       norms.npy          — [N] f32 original row norms
+      refine.npy         — [N, D] bf16 refine rows (int8 / int4 with refine_m > 0)
       doc_ids.json       — position -> doc id
       texts.json         — optional doc texts for serving
       perm.npy, centroids.npy — clustered indexes only
 
-``index_type``: ``"exact"`` and ``"approx"`` over float32, int8 or int4 rows
-(:func:`sskd_tpu_torch.ops.topk.cosine_topk`), and ``"clustered"`` over
-float32 or int8 rows stored cell by cell with their permutation and centroids
-(:func:`sskd_tpu_torch.ops.topk_cluster.clustered_topk` up to
-``CLUSTER_MAX_BATCH`` queries, the approx sweep over the reordered rows above
-that, as the JAX package dispatches). What still raises: bfloat16 rows and
-refine rows (``refine_m > 0``), at build and at load. Unlike the TPU path, the
-device copy of the rows is padded only for a clustered index, to whole cells
-(zero rows with scale 1.0, masked by their position): the kernels mask a
-ragged tail themselves.
+``index_type``: ``"exact"`` and ``"approx"`` over float32, bfloat16, int8 or
+int4 rows (:func:`sskd_tpu_torch.ops.topk.cosine_topk`), and ``"clustered"``
+over float32, bfloat16 or int8 rows stored cell by cell with their
+permutation and centroids (:func:`sskd_tpu_torch.ops.topk_cluster.clustered_topk`
+up to ``CLUSTER_MAX_BATCH`` queries, the approx sweep over the reordered rows
+above that, as the JAX package dispatches). An int8 or int4 index built with
+``refine_m > 0`` keeps bf16 copies of its rows; an ``approx`` one is then
+searched by the refined engine (:func:`sskd_tpu_torch.ops.topk.refined_topk`),
+with the rows on the device or, at ``refine_storage="host"``, on the host
+(:meth:`IndexBuilder._host_rescore`). Unlike the TPU path, the device copy of
+the rows is padded only for a clustered index, to whole cells (zero rows with
+scale 1.0, masked by their position): the kernels mask a ragged tail
+themselves.
+
+bf16 without ``ml_dtypes`` (which the machine with the card lacks): rows are
+kept in numpy as their bits (``uint16``) and on the device as
+``torch.bfloat16``; f32 rows convert through ``torch`` (round to nearest
+even, as ``ml_dtypes`` rounds). The JAX package saves bf16 with ``np.save``
+as descr ``'<V2'``, which ``np.load`` reads as two-byte voids; the port reads
+those bytes as ``uint16`` and writes ``'<V2'`` in turn, so that the JAX
+loader's ``dtype.kind == "V"`` test still recognises the rows. Checksums are
+of the bytes, the same on both sides.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 from pathlib import Path
 from typing import Sequence
 
@@ -39,19 +53,55 @@ from sskd_tpu_torch.exceptions import IndexBuildError, IndexLoadError, IndexVers
 from sskd_tpu_torch.ops.quant import dequantize_rows, dequantize_rows_int4
 from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
 from sskd_tpu_torch.ops.cluster import auto_cells, build_clusters
-from sskd_tpu_torch.ops.topk import cosine_topk, cosine_topk_core
+from sskd_tpu_torch.ops.topk import (
+    cosine_topk,
+    cosine_topk_core,
+    refined_candidates,
+    refined_topk,
+    rescore_candidates,
+)
 from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.platform import resolve_device
 
 INDEX_VERSION = "sskd-exact-1"
-SEARCH_DTYPES = ("float32", "int8", "int4")
+BF16_DESCR = "<V2"  # what np.save writes for ml_dtypes.bfloat16
 
 logger = get_logger("index")
 
 
 def _sha256(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _bf16_bits(rows: np.ndarray) -> np.ndarray:
+    """f32 rows rounded to bf16 (nearest even), as their bits ``uint16``."""
+    t = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def _bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """The bf16 tensor over ``bits`` (uint16) on the CPU, sharing its memory."""
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
+
+
+def _save_bf16(path: Path, bits: np.ndarray) -> None:
+    """``bits`` (uint16) as a ``.npy`` of descr ``'<V2'``, byte for byte what
+    ``np.save`` writes for the same rows as ``ml_dtypes.bfloat16``."""
+    bits = np.ascontiguousarray(bits)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": BF16_DESCR, "fortran_order": False, "shape": bits.shape}
+        )
+        f.write(bits.tobytes())
+
+
+def _load_bf16(path: Path) -> np.ndarray:
+    """A saved bf16 array (two-byte voids, or uint16) as its bits ``uint16``."""
+    arr = np.load(path)
+    if arr.dtype.itemsize != 2 or arr.dtype.kind not in "Vu":
+        raise IndexLoadError(f"{path.name}: expected bf16 rows, found {arr.dtype}")
+    return arr.view(np.uint16)
 
 
 def _ids_sha256(doc_ids: list[str]) -> str:
@@ -71,17 +121,27 @@ class IndexBuilder:
         recall_target: float = 0.99,
         cluster_rows: int = 0,
         nprobe: int = 64,
+        refine_m: int = 0,
+        refine_storage: str = "device",
         device: str | torch.device | None = "cuda",
     ):
         """``cluster_rows``: target rows per cell of a clustered index (0 =
         auto, about sqrt(N)); ``nprobe``: cells probed per query, a
-        query-time knob that ``save`` records and ``load`` restores."""
+        query-time knob that ``save`` records and ``load`` restores.
+        ``refine_m`` (int8 / int4): keep bf16 copies of the rows, and search
+        an ``approx`` index in two stages, the quantized sweep fetching
+        ``refine_m`` candidates whose bf16 rows are rescored (0 disables).
+        ``refine_storage``: where the bf16 rows live when searched,
+        ``"device"`` or ``"host"`` (rescored on the host; frees 2 bytes a
+        value of device memory); a deployment choice, not saved."""
         if metric not in ("cosine", "dot"):
             raise IndexBuildError(f"unsupported metric {metric!r}")
         if dtype not in ("float32", "bfloat16", "int8", "int4"):
             raise IndexBuildError(f"unsupported index dtype {dtype!r}")
         if index_type not in ("exact", "approx", "clustered"):
             raise IndexBuildError(f"unsupported index_type {index_type!r}")
+        if refine_storage not in ("device", "host"):
+            raise IndexBuildError(f"unsupported refine_storage {refine_storage!r}")
         if dtype == "int4" and index_type == "clustered":
             raise IndexBuildError(
                 "int4 storage is not supported with the clustered engine "
@@ -95,11 +155,14 @@ class IndexBuilder:
         self.recall_target = recall_target
         self.cluster_rows = cluster_rows
         self.nprobe = nprobe
+        self.refine_m = refine_m
+        self._refine_storage = refine_storage
         self.device = resolve_device(device)
         self.doc_ids: list[str] = []
         self.texts: list[str] | None = None
-        self._vectors: np.ndarray | None = None
+        self._vectors: np.ndarray | None = None  # f32, int8, packed int4, or bf16 bits
         self._scales: np.ndarray | None = None
+        self._refine: np.ndarray | None = None  # bf16 bits of the rows (refine_m > 0)
         self._norms: np.ndarray | None = None
         self._perm: np.ndarray | None = None
         self._centroids: np.ndarray | None = None
@@ -107,6 +170,27 @@ class IndexBuilder:
         self.device_vectors: torch.Tensor | None = None  # placed by ensure_device
         self.device_scales: torch.Tensor | None = None
         self.device_centroids: torch.Tensor | None = None
+        self.device_refine: torch.Tensor | None = None  # refine rows at "device" storage
+
+    @property
+    def refine_storage(self) -> str:
+        return self._refine_storage
+
+    @refine_storage.setter
+    def refine_storage(self, value: str) -> None:
+        """A query-time knob: setting it moves the refine rows to the device
+        (``"device"``) or drops the device copy (``"host"``) at once, once the
+        index has been placed, so that no search serves the old placement."""
+        if value not in ("device", "host"):
+            raise IndexBuildError(f"unsupported refine_storage {value!r}")
+        self._refine_storage = value
+        if self.device_vectors is not None:
+            self.device_refine = self._placed_refine()
+
+    def _placed_refine(self) -> torch.Tensor | None:
+        if self._refine is None or self._refine_storage != "device":
+            return None
+        return _bf16_tensor(self._refine).to(self.device)
 
     @property
     def ntotal(self) -> int:
@@ -128,8 +212,6 @@ class IndexBuilder:
     ) -> "IndexBuilder":
         """Build from precomputed embeddings [N, D]. Quantization runs on
         the builder's device."""
-        if self.dtype == "bfloat16":
-            raise IndexBuildError("bfloat16 indexes are not ported yet (ROADMAP Queue 1)")
         emb = np.asarray(embeddings, dtype=np.float32)
         if emb.ndim != 2 or emb.shape[1] != self.embedding_dim:
             raise IndexBuildError(f"embeddings shape {emb.shape} != [N, {self.embedding_dim}]")
@@ -151,9 +233,11 @@ class IndexBuilder:
             values, scales = quantize(torch.from_numpy(emb).to(self.device))
             self._vectors = values.cpu().numpy()
             self._scales = scales.cpu().numpy()
+            self._refine = _bf16_bits(emb) if self.refine_m > 0 else None
         else:
-            self._vectors = emb
+            self._vectors = _bf16_bits(emb) if self.dtype == "bfloat16" else emb
             self._scales = None
+            self._refine = None
         self.doc_ids = [str(d) for d in doc_ids]
         self.texts = list(texts) if texts is not None else None
         self.device_vectors = None
@@ -169,7 +253,10 @@ class IndexBuilder:
             raise IndexBuildError("cannot save an empty index")
         out = Path(output_dir)
         out.mkdir(parents=True, exist_ok=True)
-        np.save(out / "vectors.npy", self._vectors)
+        if self.dtype == "bfloat16":
+            _save_bf16(out / "vectors.npy", self._vectors)
+        else:
+            np.save(out / "vectors.npy", self._vectors)
         if self._scales is not None:
             np.save(out / "scales.npy", self._scales)
         if self._norms is not None:
@@ -179,6 +266,8 @@ class IndexBuilder:
         if self.texts is not None:
             with open(out / "texts.json", "w") as f:
                 json.dump(self.texts, f)
+        if self._refine is not None:
+            _save_bf16(out / "refine.npy", self._refine)
         if self._perm is not None:
             np.save(out / "perm.npy", self._perm)
             np.save(out / "centroids.npy", self._centroids)
@@ -188,13 +277,15 @@ class IndexBuilder:
             "recall_target": self.recall_target,
             "metric": self.metric,
             "dtype": self.dtype,
-            "refine_m": 0,
+            "refine_m": self.refine_m if self._refine is not None else 0,
             "ntotal": self.ntotal,
             "checksums": {
                 "vectors": _sha256(self._vectors),
                 "doc_ids": _ids_sha256(self.doc_ids),
             },
         }
+        if self._refine is not None:
+            meta["checksums"]["refine"] = _sha256(self._refine)
         if self._perm is not None:
             meta["cluster"] = {
                 "rows_per_cell": self._rows_per_cell,
@@ -218,12 +309,10 @@ class IndexBuilder:
             raise IndexVersionError(f"index version {version!r} != supported {INDEX_VERSION!r}")
         with open(path / "meta.json") as f:
             meta = json.load(f)
-        if meta["dtype"] == "bfloat16" or int(meta.get("refine_m", 0)) > 0:
-            # both need bf16 rows in numpy, which the port reads in a later slice
-            raise IndexLoadError(
-                "bfloat16 rows and refine rows are not ported yet (ROADMAP Queue 1)"
-            )
-        vectors = np.load(path / "vectors.npy")
+        if meta["dtype"] == "bfloat16":
+            vectors = _load_bf16(path / "vectors.npy")
+        else:
+            vectors = np.load(path / "vectors.npy")
         if _sha256(vectors) != meta["checksums"]["vectors"]:
             raise IndexLoadError("vectors checksum mismatch — corrupt index")
         with open(path / "doc_ids.json") as f:
@@ -235,6 +324,20 @@ class IndexBuilder:
         self.dtype = meta["dtype"]
         self.index_type = meta.get("index_type", "exact")
         self.recall_target = meta.get("recall_target", 0.99)
+        self.refine_m = int(meta.get("refine_m", 0))
+        self._refine = None
+        if self.refine_m > 0:
+            # a missing refine file is as corrupt as a checksum mismatch: the
+            # plain quantized sweep would quietly lose the recall it was built for
+            if not (path / "refine.npy").exists():
+                raise IndexLoadError(
+                    f"meta records refine_m {self.refine_m} > 0 but refine.npy is missing "
+                    "— corrupt or partially-written index"
+                )
+            refine = _load_bf16(path / "refine.npy")
+            if _sha256(refine) != meta["checksums"].get("refine"):
+                raise IndexLoadError("refine checksum mismatch — corrupt index")
+            self._refine = refine
         self._vectors = vectors
         self._scales = np.load(path / "scales.npy") if (path / "scales.npy").exists() else None
         self._norms = np.load(path / "norms.npy") if (path / "norms.npy").exists() else None
@@ -257,6 +360,7 @@ class IndexBuilder:
             self._centroids = None
             self._rows_per_cell = 0
         self.device_vectors = None
+        self.device_refine = None
         logger.info(f"loaded index from {path} (ntotal={self.ntotal})")
         return self
 
@@ -265,21 +369,23 @@ class IndexBuilder:
     # ------------------------------------------------------------------
 
     def check_searchable(self) -> None:
-        """Raise unless this slice of the port can search the index."""
+        """Raise unless the index can be searched."""
         if not self.is_built:
             raise IndexLoadError("index not built/loaded")
-        if self.dtype not in SEARCH_DTYPES:
-            raise NotImplementedError(f"dtype {self.dtype!r} search is not ported yet")
         if self.index_type == "clustered" and (self._perm is None or self.dtype == "int4"):
             raise IndexLoadError("a clustered index needs its cell layout and unpacked rows")
 
     def ensure_device(self) -> None:
-        """Copy the rows (and scales, and centroids) to the index's device
-        once. The rows of a cell-reordered index are padded to ``n_cells *
-        rows_per_cell`` with zero rows of scale 1.0, so that the last cell is
-        whole; searches mask positions ``>= ntotal``."""
+        """Copy the rows (and scales, centroids, and refine rows at
+        ``refine_storage="device"``) to the index's device once. The rows of a
+        cell-reordered index are padded to ``n_cells * rows_per_cell`` with
+        zero rows of scale 1.0, so that the last cell is whole; searches mask
+        positions ``>= ntotal``."""
         if self.device_vectors is None:
-            vec = torch.from_numpy(self._vectors).to(self.device)
+            if self.dtype == "bfloat16":
+                vec = _bf16_tensor(self._vectors).to(self.device)
+            else:
+                vec = torch.from_numpy(self._vectors).to(self.device)
             scales = (
                 torch.from_numpy(self._scales).to(self.device)
                 if self._scales is not None
@@ -295,10 +401,16 @@ class IndexBuilder:
             else:
                 self.device_centroids = None
             self.device_vectors, self.device_scales = vec, scales
+            self.device_refine = self._placed_refine()
 
     def search(self, query_emb: np.ndarray, k: int = 10):
         """Top-k search. ``query_emb`` [B, D] (or [D]); returns (scores [B, k],
-        indices [B, k]) numpy, (-inf, -1) padded."""
+        indices [B, k]) numpy, (-inf, -1) padded. An ``approx`` index with
+        refine rows is searched by the refined engine, on the device or with
+        the rescore on the host (``refine_storage``); an exact or clustered
+        one by its own engine, as the JAX package's ``search`` does (the
+        served path refines any non-clustered index with refine rows:
+        ``serve/fused.py``)."""
         self.check_searchable()
         q = np.asarray(query_emb, dtype=np.float32)
         if q.ndim == 1:
@@ -309,6 +421,18 @@ class IndexBuilder:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         self.ensure_device()
         q_dev = torch.from_numpy(q).to(self.device)
+        if self._refine is not None and self.index_type == "approx":
+            if self.refine_storage == "host":
+                _, cand = refined_candidates(
+                    q_dev, self.device_vectors, max(k, min(self.refine_m, self.ntotal)),
+                    row_scales=self.device_scales, valid_n=self.ntotal,
+                )
+                return self._host_rescore(q, cand.cpu().numpy(), k)
+            vals, idx = refined_topk(
+                q_dev, self.device_vectors, self.device_refine, k, refine_m=self.refine_m,
+                row_scales=self.device_scales, valid_n=self.ntotal,
+            )
+            return vals.cpu().numpy(), idx.cpu().numpy()
         if self.index_type == "clustered" and q.shape[0] <= CLUSTER_MAX_BATCH:
             vals, idx = clustered_topk(
                 q_dev,
@@ -336,6 +460,18 @@ class IndexBuilder:
             )
         return vals.cpu().numpy(), self.map_positions(idx.cpu().numpy())
 
+    def _host_rescore(self, q: np.ndarray, cand: np.ndarray, k: int):
+        """The refine rows' rescore on the host (``refine_storage="host"``):
+        the engine's rescore (:func:`sskd_tpu_torch.ops.topk.rescore_candidates`)
+        on the CPU, over the candidates' bf16 rows and the (normalized)
+        queries. Returns numpy (vals, idx), -inf and -1 where no candidate
+        is, as the JAX package's host rescore returns them."""
+        vals, idx = rescore_candidates(
+            torch.from_numpy(np.asarray(q, dtype=np.float32)), _bf16_tensor(self._refine),
+            torch.from_numpy(np.asarray(cand)), k,
+        )
+        return torch.where(idx >= 0, vals, -math.inf).numpy(), idx.numpy()
+
     def map_positions(self, idx: np.ndarray) -> np.ndarray:
         """Engine positions -> original row positions (identity unless the
         rows are stored cell-reordered, as a clustered index's are)."""
@@ -357,8 +493,10 @@ class IndexBuilder:
 
     def validate(self, n_queries: int = 1000, k: int = 10, seed: int = 0) -> dict[str, float]:
         """Build-time recall gate (the JAX package's recipe): recall@k of the
-        index's search against exact f32 search over the dequantized rows,
-        for ``n_queries`` probes made of corpus rows plus N(0, 0.05) noise.
+        index's search against exact f32 search over the bf16 refine rows
+        where there are any (they are the original rows, so the gate credits
+        the rescore), else the dequantized or widened stored rows, for
+        ``n_queries`` probes made of corpus rows plus N(0, 0.05) noise.
         Both searches run on the index's device. A clustered index is
         probed ``CLUSTER_MAX_BATCH`` queries at a time, so that the gate
         measures the cell-probe path and not the large-batch sweep."""
@@ -369,12 +507,14 @@ class IndexBuilder:
         self.ensure_device()
         rows = self.device_vectors[: self.ntotal]  # without a clustered index's padding
         scales = self.device_scales[: self.ntotal] if self.device_scales is not None else None
-        if self.dtype == "int8":
+        if self._refine is not None:
+            full = _bf16_tensor(self._refine).to(self.device).to(torch.float32)
+        elif self.dtype == "int8":
             full = dequantize_rows(rows, scales)
         elif self.dtype == "int4":
             full = dequantize_rows_int4(rows, scales)
         else:
-            full = rows
+            full = rows.to(torch.float32)
         noise = torch.from_numpy(rng.normal(0, 0.05, (n, self.embedding_dim)).astype(np.float32))
         queries = full[torch.from_numpy(probe_rows).to(self.device)] + noise.to(self.device)
         queries = queries / queries.norm(dim=1, keepdim=True).clamp(min=1e-12)

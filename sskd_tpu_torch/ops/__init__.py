@@ -4,7 +4,9 @@ Each kernel wrapper keeps a ``launches`` count that grows by one where it
 launches its kernel and nowhere else; ``launch_counts`` reads them and
 ``reset_launch_counts`` sets them to 0, so a run can show which kernels its
 path went through. A wrapper with more than one kernel route also counts the
-launches of its tensor-core route in ``tc_launches`` (``tc_launch_counts``).
+launches of its tensor-core route in ``tc_launches`` (``tc_launch_counts``),
+and a top-k wrapper those of its bf16 route in ``bf16_launches``
+(``bf16_launch_counts``).
 """
 
 from __future__ import annotations
@@ -39,8 +41,16 @@ def tc_launch_counts() -> dict[str, int]:
             if hasattr(fn, "tc_launches")}
 
 
+def bf16_launch_counts() -> dict[str, int]:
+    """Kernel name -> launches of its bf16 route, for the wrappers that have
+    one."""
+    return {name: fn.bf16_launches for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "bf16_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "tc_launches"):
-            fn.tc_launches = 0
+        for extra in ("tc_launches", "bf16_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)

@@ -1,5 +1,5 @@
 """Cosine/dot top-k over a device-resident corpus (port of
-sskd_tpu/ops/topk.py, its exact and approx engines).
+sskd_tpu/ops/topk.py, its exact, approx and refined engines).
 
 Three engines, one contract: ``(scores [B, k] f32, indices [B, k] int32)``,
 missing results ``(finfo(f32).min / 2, -1)``, rows ``>= valid_n`` never
@@ -23,6 +23,16 @@ returned, ties broken toward the lower row.
   a row shorter than that. Here a corpus of fewer 128-row tiles than that
   number of bins (or ``recall_target`` 1.0) goes to the exact engine: the
   reduction would save it no pass worth the lost results.
+- The refined engine (:func:`refined_topk`): a quantized sweep fetches
+  ``refine_m`` candidates (:func:`refined_candidates`), whose bf16 rows are
+  rescored against the query (:func:`rescore_candidates`). As in the JAX
+  package the rescore is plain tensor code (XLA there, torch ops here), not
+  a kernel.
+
+Corpora: f32, bf16 (an f32 query against the widened rows, the TPU kernels'
+bf16 branch), int8 and packed int4 rows. On a CUDA corpus of any other type
+the engines raise (:func:`kernel_exact_ok`): no kernel takes it, and none
+of them falls back to its plain version for it.
 """
 
 from __future__ import annotations
@@ -55,8 +65,9 @@ def cosine_topk_core(
     recall_target: float = 0.99,
 ):
     """The plain engines. ``exact``: blocked matmul and top-k. ``corpus``
-    [N, D] f32 or int8, or [N, D/2] uint8 packed int4 (unpacked here, as the
-    JAX package does off the kernel path). For int8 / int4 the queries are
+    [N, D] f32, bf16 (widened to f32 a block at a time, against the f32
+    query) or int8, or [N, D/2] uint8 packed int4 (unpacked here, as the JAX
+    package does off the kernel path). For int8 / int4 the queries are
     quantized per row and the integer dot is taken exactly, then ``* q_scale
     * row_scale``. ``approx``: :func:`approx_topk` over ``binmax_strided_plain``."""
     if method == "approx":
@@ -108,17 +119,30 @@ def cosine_topk_core(
     return vals, idx
 
 
+# the corpus types the top-k kernels take (csrc/binmax.cu, csrc/bin_gather.cu)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.uint8)
+
+
+def on_card(corpus: torch.Tensor) -> bool:
+    """Whether the engines take the kernels for ``corpus``: True on a CUDA
+    device for the types of ``KERNEL_DTYPES``, False on the CPU; a CUDA
+    corpus of another type raises, since it would otherwise reach the plain
+    versions unseen."""
+    if corpus.device.type != "cuda":
+        return False
+    if corpus.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"no kernel takes {corpus.dtype} rows on {corpus.device}")
+    return True
+
+
 def kernel_exact_ok(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> bool:
-    """Gate of the two-phase kernel engine: a CUDA corpus, k within the
+    """Gate of the two-phase kernel engine: a corpus :func:`on_card` (which
+    raises for a CUDA corpus of a type no kernel takes), k within the
     kernels' capacity, and a corpus of more than 2 * k bins' rows (below that
-    the rescan is no cheaper than a full sweep). Shapes the kernels cannot
-    take past this gate make their wrappers raise."""
-    return (
-        corpus.device.type == "cuda"
-        and corpus.dtype in (torch.float32, torch.int8, torch.uint8)
-        and 1 <= k <= K_MAX
-        and corpus.shape[0] > 2 * k * BIN_W
-    )
+    the rescan is no cheaper than a full sweep, and the engines take the
+    blocked matmul, as the JAX package leaves those shapes to XLA). Shapes
+    the kernels cannot take past this gate make their wrappers raise."""
+    return on_card(corpus) and 1 <= k <= K_MAX and corpus.shape[0] > 2 * k * BIN_W
 
 
 # Blocks of the strided pass: four for each of the H100's 132 SMs up to 64
@@ -162,16 +186,16 @@ def approx_topk(
     corpus of fewer 128-row tiles than :func:`approx_min_bins` is answered
     by the exact engine.
 
-    ``kernels``: True runs the ``binmax_strided`` kernel (and the exact
-    kernel engine below the threshold), False the plain versions; None (the
-    default) takes the kernels where :func:`kernel_exact_ok` holds. The
-    plain pass scores a chunk of rows at a time, so no f32 copy of a
-    quantized corpus is ever held."""
+    ``kernels``: True runs the ``binmax_strided`` kernel (and, below the
+    threshold, the exact kernel engine where :func:`kernel_exact_ok` holds),
+    False the plain versions; None (the default) takes the kernels for a
+    corpus :func:`on_card`. The plain pass scores a chunk of rows at a time,
+    so no f32 copy of a quantized corpus is ever held."""
     if not 0.0 < recall_target <= 1.0:
         raise ValueError(f"recall_target {recall_target} outside (0, 1]")
     if kernels is None:
-        kernels = kernel_exact_ok(queries, corpus, k)
-    if corpus.dtype != torch.float32 and row_scales is None:
+        kernels = on_card(corpus)
+    if corpus.dtype in (torch.int8, torch.uint8) and row_scales is None:
         raise ValueError("an int8 or int4 corpus requires row_scales")
     B = queries.shape[0]
     n = corpus.shape[0]
@@ -180,8 +204,10 @@ def approx_topk(
     n_tiles = (n + BIN_W - 1) // BIN_W
     need = max(k_eff, approx_min_bins(k_eff, recall_target))
     if n_tiles < need:  # also recall_target 1.0
-        exact = cosine_topk_kernels if kernels else cosine_topk_core
-        return exact(queries, corpus, k, row_scales=row_scales, valid_n=valid_n)
+        if kernels and kernel_exact_ok(queries, corpus, k):
+            return cosine_topk_kernels(queries, corpus, k, row_scales=row_scales,
+                                       valid_n=valid_n)
+        return cosine_topk_core(queries, corpus, k, row_scales=row_scales, valid_n=valid_n)
     groups = math.ceil(need / BIN_W)
     blocks = approx_blocks(B, groups, n_tiles)
     fold = blocks // groups
@@ -231,6 +257,106 @@ def cosine_topk(
     return cosine_topk_core(
         queries, corpus, k, block_rows=block_rows, row_scales=row_scales, valid_n=valid_n
     )
+
+
+# ---------------------------------------------------------------------------
+# The refined engine (JAX sskd_tpu/ops/topk.py refined_candidates_core ..
+# refined_topk): a quantized sweep for candidates, a bf16 rescore
+# ---------------------------------------------------------------------------
+
+
+def refined_candidates_core(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    refine_m: int,
+    row_scales: torch.Tensor | None = None,
+    valid_n: int | None = None,
+    recall_target: float = 0.95,
+    kernels: bool | None = None,
+):
+    """Candidate stage of the refined search: ``(vals [B, m], positions [B,
+    m])`` of the quantized sweep alone, -1 past the rows there are (``m`` may
+    exceed the row count). Packed int4 rows take the exact kernel engine
+    where its gate holds (its exact candidates only raise recall@m, and
+    unpacked rows are never materialized), as the JAX package takes its
+    exact Pallas engine; every other corpus the approx engine at the loose
+    ``recall_target``. ``kernels``: as :func:`approx_topk`; False runs the
+    same engine over the plain versions. (The JAX package's ``block_rows``
+    sizes its XLA sweep; the approx pass here holds no score tile to bound.)"""
+    if corpus.dtype == torch.uint8 and kernel_exact_ok(queries, corpus, refine_m):
+        exact = cosine_topk_kernels if kernels is not False else cosine_topk_core
+        return exact(queries, corpus, refine_m, row_scales=row_scales, valid_n=valid_n)
+    return approx_topk(queries, corpus, refine_m, row_scales=row_scales, valid_n=valid_n,
+                       recall_target=recall_target, kernels=kernels)
+
+
+def refined_candidates(queries, corpus, refine_m, row_scales=None, valid_n=None,
+                       recall_target=0.95):
+    """:func:`refined_candidates_core` through the kernels where they take the
+    corpus (the entry of the host-refine paths)."""
+    return refined_candidates_core(queries, corpus, refine_m, row_scales=row_scales,
+                                   valid_n=valid_n, recall_target=recall_target)
+
+
+def rescore_candidates(queries: torch.Tensor, refine_rows: torch.Tensor, cand: torch.Tensor,
+                       k: int):
+    """``(vals [B, k] f32, idx [B, k] int32)``: the candidates ``cand [B, m]``
+    (-1 for none) rescored against their rows of ``refine_rows [N, D]`` (bf16,
+    in the corpus's storage order), the query rounded to the rows' type
+    first, each product widened to f32 and summed in f32; the top k, ties to
+    the lower candidate slot (as ``lax.top_k``); (-inf, -1) past the live
+    candidates. Written as an elementwise product and an f32 sum (B x m x D
+    values, 1M at B = 64, m = 40), not a matrix product: a bf16 ``bmm``
+    returns bf16, and an f32 one runs through TF32 under
+    ``torch.set_float32_matmul_precision("high")``; either would round the
+    scores."""
+    safe = cand.clamp(0, refine_rows.shape[0] - 1).long()
+    rows = refine_rows[safe].to(torch.float32)  # [B, m, D]
+    q = queries.to(refine_rows.dtype).to(torch.float32)
+    res = (rows * q[:, None, :]).sum(dim=-1)
+    res = torch.where(cand >= 0, res, NEG_INF)
+    B, m = cand.shape
+    k_eff = min(k, m)
+    vals, pos = topk_stable(res, k_eff)
+    idx = torch.gather(cand, 1, pos).to(torch.int32)
+    if k_eff < k:
+        vals = torch.cat([vals, vals.new_full((B, k - k_eff), NEG_INF)], dim=1)
+        idx = torch.cat([idx, idx.new_full((B, k - k_eff), -1)], dim=1)
+    idx = torch.where(vals > NEG_INF / 2, idx, -1)
+    return vals, idx
+
+
+def refined_topk_core(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    refine_rows: torch.Tensor,
+    k: int,
+    refine_m: int = 40,
+    row_scales: torch.Tensor | None = None,
+    valid_n: int | None = None,
+    recall_target: float = 0.95,
+    kernels: bool | None = None,
+):
+    """Two-stage search: the quantized sweep fetches ``refine_m`` candidates
+    (clamped to ``[k, N]``), whose bf16 rows are rescored exactly
+    (:func:`rescore_candidates`). The sweep runs at a loose ``recall_target``
+    (0.95): the true top k need only lie somewhere in the top ``refine_m``,
+    and the rescore restores their order. ``kernels`` as
+    :func:`refined_candidates_core`."""
+    refine_m = max(k, min(refine_m, corpus.shape[0]))
+    _, cand = refined_candidates_core(
+        queries, corpus, refine_m, row_scales=row_scales, valid_n=valid_n,
+        recall_target=recall_target, kernels=kernels,
+    )
+    return rescore_candidates(queries, refine_rows, cand, k)
+
+
+def refined_topk(queries, corpus, refine_rows, k, refine_m=40, row_scales=None, valid_n=None,
+                 recall_target=0.95):
+    """:func:`refined_topk_core` through the kernels where they take the corpus."""
+    return refined_topk_core(queries, corpus, refine_rows, k, refine_m=refine_m,
+                             row_scales=row_scales, valid_n=valid_n,
+                             recall_target=recall_target)
 
 
 def merge_topk(scores: torch.Tensor, indices: torch.Tensor, k: int):

@@ -13,13 +13,17 @@ maps them through its stored permutation.
 
 The per-cell scores are the kernels of csrc/cell_gather.cu, chosen as the
 JAX package chooses its two: one query goes to ``cell_gather_b1``, any other
-batch to ``cell_gather``, which has two routes (:func:`cell_gather_route`):
+batch to ``cell_gather``, which has three routes (:func:`cell_gather_route`):
 int8 rows on the tensor cores, each probed cell read once, counted also in
-``cell_gather.tc_launches``; f32 rows on CUDA cores. Each wrapper launches
-its kernel on a CUDA tensor and counts the launch in its ``launches``
-attribute; on a CPU tensor it runs its plain torch version
-(``cell_gather_plain``, ``cell_gather_b1_plain``), which keeps its kernel's
-order of the two scale products. The JAX package's
+``cell_gather.tc_launches``; bf16 rows, counted also in ``bf16_launches``
+(both wrappers); f32 rows on CUDA cores. A bf16 corpus is scored against
+the query rounded to bf16 (:func:`cell_queries`), as the JAX package's cell
+paths round it (``q.astype(corpus.dtype)``): the products of two bf16 are
+exact in f32 and the sums are f32. Each wrapper launches its kernel on a
+CUDA tensor and counts the launch in its ``launches`` attribute; on a CPU
+tensor it runs its plain torch version (``cell_gather_plain``,
+``cell_gather_b1_plain``), which keeps its kernel's order of the two scale
+products. The JAX package's
 ``clustered_topk_impl`` twin exists to avoid a nested jit; PyTorch runs
 eagerly, so there is one function here.
 """
@@ -47,7 +51,7 @@ from sskd_tpu_torch.ops.topk_kernels import (
 # the GPU kernels, which take any batch. Kept as the JAX package's behaviour.
 CLUSTER_MAX_BATCH = 64
 
-_MODES = {torch.float32: 0, torch.int8: 1}
+_MODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 _MAX_ROW_BYTES = 48 * 1024  # the kernels keep the query row in shared memory
 # the longest int8 row the tensor-core route takes (csrc/cell_gather.cu
 # TC_MAX_ROW_BYTES): the widths of the models the port serves, and those the
@@ -59,16 +63,28 @@ def cell_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`cell_gather` launches: ``"tc"``
     (``cell_gather_tc_kernel``: each probed cell's rows brought into shared
     memory once and scored against all its queries by int8 mma) for int8
-    rows of at most ``CELL_TC_MAX_ROW_BYTES``, ``"cuda_core"``
+    rows of at most ``CELL_TC_MAX_ROW_BYTES``; ``"bf16"``
+    (``cell_gather_kernel`` in its bf16 mode) for bf16; ``"cuda_core"``
     (``cell_gather_kernel``, a block per (query, slot, tile)) for f32 and
-    longer rows."""
+    longer int8 rows."""
+    if dtype == torch.bfloat16:
+        return "bf16"
     return "tc" if dtype == torch.int8 and row_bytes <= CELL_TC_MAX_ROW_BYTES else "cuda_core"
+
+
+def cell_queries(queries: torch.Tensor, corpus: torch.Tensor):
+    """The cell kernels' query operand: the queries in the corpus type (bf16
+    rounded to nearest even for a bf16 corpus, f32 for f32), or int8 queries
+    and their f32 scales [B] for an int8 corpus."""
+    if corpus.dtype == torch.bfloat16:
+        return queries.to(torch.bfloat16).contiguous(), None
+    return quantize_queries(queries, corpus)
 
 
 def _check_cells(q_in, q_scale, corpus, row_scales, probe, rows_per_cell, one_query):
     """Validate what both cell-gather kernels read; returns (mode, row_bytes)."""
     if corpus.dtype not in _MODES:
-        raise TypeError(f"corpus dtype {corpus.dtype} not in float32 / int8")
+        raise TypeError(f"corpus dtype {corpus.dtype} not in float32 / bfloat16 / int8")
     mode = _MODES[corpus.dtype]
     if q_in.dim() != 2 or corpus.dim() != 2 or probe.dim() != 2:
         raise ValueError("queries, corpus and probe must be 2-D")
@@ -116,7 +132,8 @@ def cell_gather(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
     """Scores ``[B, nprobe, rpc]`` f32 of the rows of the cells ``probe [B,
     nprobe]`` (int32, each in ``[0, P // rpc)``): ``(dot * q_scale[b]) *
     row_scale`` for an int8 corpus (``q_in`` int8, quantized by the caller),
-    ``dot * row_scale`` (scale optional, ``q_scale`` ignored) for f32. No row
+    ``dot * row_scale`` (scale optional, ``q_scale`` ignored) for f32 and
+    bf16 (``q_in`` in the corpus type: :func:`cell_queries`). No row
     is masked. ``check_probe=False`` skips the range check of ``probe``, which
     waits for the device; for a probe that is in range by construction."""
     mode, row_bytes = _check_cells(q_in, q_scale, corpus, row_scales, probe, rows_per_cell, False)
@@ -129,7 +146,8 @@ def cell_gather(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
     out = torch.empty((B, nprobe, rows_per_cell), dtype=torch.float32, device=corpus.device)
     # the (query, slot) pairs sorted by cell: the cells in order and the pairs' order
     cells, order = torch.sort(probe.view(-1), stable=True)
-    if cell_gather_route(corpus.dtype, row_bytes) == "tc":
+    route = cell_gather_route(corpus.dtype, row_bytes)
+    if route == "tc":
         _build.check(
             _fn("cell_gather", "sskd_cell_gather_tc")(
                 _ptr(q_in), _ptr(q_scale), _ptr(corpus), _ptr(row_scales), _ptr(cells),
@@ -150,11 +168,13 @@ def cell_gather(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
         "cell_gather",
     )
     cell_gather.launches += 1
+    cell_gather.bf16_launches += route == "bf16"
     return out
 
 
 cell_gather.launches = 0
 cell_gather.tc_launches = 0  # the launches that took the tensor-core route
+cell_gather.bf16_launches = 0  # the launches that took the bf16 route
 
 
 def cell_gather_b1(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
@@ -179,15 +199,18 @@ def cell_gather_b1(q_in, q_scale, corpus, row_scales, probe, rows_per_cell: int,
         "cell_gather_b1",
     )
     cell_gather_b1.launches += 1
+    cell_gather_b1.bf16_launches += corpus.dtype == torch.bfloat16
     return out * q_scale[0] if q_scale is not None else out
 
 
 cell_gather_b1.launches = 0
+cell_gather_b1.bf16_launches = 0  # the launches over bf16 rows
 
 
 def _cell_dots(q_row, corpus, cells, rows_per_cell):
     """``(dots [nprobe * rpc] f32, rows [nprobe * rpc] int64)`` of one query
-    against the rows of ``cells``; int8 values < 2^24 stay exact in f32."""
+    against the rows of ``cells``; int8 values < 2^24 stay exact in f32, and
+    so does each product of two bf16."""
     lane = torch.arange(rows_per_cell, device=corpus.device)
     rows = (cells.to(torch.int64)[:, None] * rows_per_cell + lane).reshape(-1)
     return corpus[rows].to(torch.float32) @ q_row.to(torch.float32), rows
@@ -242,7 +265,7 @@ def flat_topk(scores: torch.Tensor, k: int):
 
 def clustered_topk(
     queries: torch.Tensor,  # [B, D] f32 (L2-normalized by the caller)
-    corpus: torch.Tensor,  # [P, D] f32 / int8, cell-contiguous rows
+    corpus: torch.Tensor,  # [P, D] f32 / bf16 / int8, cell-contiguous rows
     centroids: torch.Tensor,  # [n_cells, D] f32, L2-normalized
     k: int,
     nprobe: int,
@@ -271,7 +294,7 @@ def clustered_topk(
     _, probe = topk_stable(q @ centroids.T, nprobe)
     probe = probe.to(torch.int32).contiguous()
 
-    q_in, q_scale = quantize_queries(q, corpus)
+    q_in, q_scale = cell_queries(q, corpus)
     if kernels:
         gather = cell_gather_b1 if B == 1 else cell_gather
         # the probe is a top-k over n_cells columns: in range by construction

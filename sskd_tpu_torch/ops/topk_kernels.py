@@ -17,13 +17,15 @@ Each kernel wrapper launches its kernel on a CUDA tensor and counts the
 launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
 plain torch version (``binmax_plain``, ``bin_gather_plain``,
 ``binmax_strided_plain``), which repeats the kernel's arithmetic.
-Each kernel has two routes (:func:`binmax_route`,
+Each kernel has three routes (:func:`binmax_route`,
 :func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows on the
-tensor cores, counted also in ``tc_launches``; f32, int4 and longer int8
-rows on the CUDA cores (f32 in ``binmax`` and ``binmax_strided`` through
-the register-tiled score tile of csrc/f32_tile.cuh). Results follow the JAX
-engine's contract: ``(vals [B, k] f32, idx [B, k] int32)`` with ``(-inf,
--1)`` sentinels, where "-inf" is ``finfo(float32).min / 2``.
+tensor cores, counted also in ``tc_launches``; bf16 rows against f32
+queries (the TPU kernels' bf16 branch: each bf16 widened exactly, f32
+sums), counted also in ``bf16_launches``; f32, int4 and longer int8 rows
+on the CUDA cores (f32 and bf16 in ``binmax`` and ``binmax_strided``
+through the register-tiled score tile of csrc/f32_tile.cuh). Results
+follow the JAX engine's contract: ``(vals [B, k] f32, idx [B, k] int32)``
+with ``(-inf, -1)`` sentinels, where "-inf" is ``finfo(float32).min / 2``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from sskd_tpu_torch.ops.quant import quantize_rows, unpack_int4
 NEG_INF = float(torch.finfo(torch.float32).min) / 2
 BIN_W = 128  # rows per bin
 K_MAX = 256  # largest k the two-phase engine serves
-_MODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
+_MODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2, torch.bfloat16: 3}
+_QUANTIZED = (1, 2)  # the modes of int8 queries and row scales
 _PLAIN_ROWS = 1 << 18  # rows per chunk of the plain versions' score matrix
 # the longest int8 row the tensor-core routes take (csrc/binmax.cu
 # ST_MAX_ROW_BYTES, csrc/gather_tc.cuh TC_MAX_ROW_BYTES): the widths of the
@@ -48,38 +51,47 @@ TC_MAX_ROW_BYTES = 1024
 GATHER_TC_RUN = 1  # (query, slot) pairs a bin_gather_tc job takes, in their own order
 
 
+def _route(dtype: torch.dtype, row_bytes: int) -> str:
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+
+
 def binmax_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`binmax` launches: ``"tc"``
     (``binmax_tc_kernel``: int8 mma, a warp a bin of 128 contiguous rows,
     each block's queries staged once) for int8 rows of at most
-    ``TC_MAX_ROW_BYTES``, ``"cuda_core"`` for f32 (``binmax_f32_kernel``, the
-    register-tiled fma tile), packed int4 and longer int8 rows
-    (``binmax_kernel``, dp4a)."""
-    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+    ``TC_MAX_ROW_BYTES``; ``"bf16"`` (``binmax_f32_kernel`` with bf16 rows
+    through the register-tiled fma tile, widened in shared memory) for bf16;
+    ``"cuda_core"`` for f32 (``binmax_f32_kernel``), packed int4 and longer
+    int8 rows (``binmax_kernel``, dp4a)."""
+    return _route(dtype, row_bytes)
 
 
 def binmax_strided_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`binmax_strided` launches: ``"tc"``
     (``binmax_strided_tc_kernel``: int8 mma, each block's queries staged once
     and its tiles read once for up to 64 of them) for int8 rows of at most
-    ``TC_MAX_ROW_BYTES``, ``"cuda_core"`` for f32
-    (``binmax_strided_f32_kernel``, the register-tiled fma tile), packed int4
-    and longer int8 rows (``binmax_strided_kernel``, dp4a)."""
-    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+    ``TC_MAX_ROW_BYTES``; ``"bf16"`` (``binmax_strided_f32_kernel`` with bf16
+    rows) for bf16; ``"cuda_core"`` for f32 (``binmax_strided_f32_kernel``,
+    the register-tiled fma tile), packed int4 and longer int8 rows
+    (``binmax_strided_kernel``, dp4a)."""
+    return _route(dtype, row_bytes)
 
 
 def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`bin_gather` launches: ``"tc"``
     (``bin_gather_tc_kernel``: a warp for each 16 rows of a chosen bin, int8
-    mma) for int8 rows of at most ``TC_MAX_ROW_BYTES``, ``"cuda_core"``
+    mma) for int8 rows of at most ``TC_MAX_ROW_BYTES``; ``"bf16"``
+    (``bin_gather_kernel`` in its bf16 mode) for bf16; ``"cuda_core"``
     (``bin_gather_kernel``, a block per (query, bin slot)) for f32, packed
     int4 and longer rows."""
-    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+    return _route(dtype, row_bytes)
 
 
 def _mode(corpus: torch.Tensor) -> int:
     if corpus.dtype not in _MODES:
-        raise TypeError(f"corpus dtype {corpus.dtype} not in float32 / int8 / uint8")
+        raise TypeError(f"corpus dtype {corpus.dtype} not in float32 / bfloat16 / int8 / uint8")
     return _MODES[corpus.dtype]
 
 
@@ -88,13 +100,13 @@ def _check_operands(q_in, corpus, row_scales, valid_n):
     mode = _mode(corpus)
     if q_in.dim() != 2 or corpus.dim() != 2:
         raise ValueError("queries and corpus must be 2-D")
-    want_q = torch.float32 if mode == 0 else torch.int8
+    want_q = torch.int8 if mode in _QUANTIZED else torch.float32
     if q_in.dtype != want_q:
         raise TypeError(f"queries must be {want_q} for a {corpus.dtype} corpus")
     d, dc = q_in.shape[1], corpus.shape[1]
     if d != (2 * dc if mode == 2 else dc):
         raise ValueError(f"query dim {d} does not match corpus columns {dc}")
-    if mode != 0 and row_scales is None:
+    if mode in _QUANTIZED and row_scales is None:
         raise ValueError("an int8 or int4 corpus requires row_scales")
     if row_scales is not None and (
         row_scales.dtype != torch.float32 or row_scales.shape != (corpus.shape[0],)
@@ -142,8 +154,9 @@ def _stream(device):
 def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.Tensor:
     """Bin maxima ``[ceil(N / 128), B]`` f32 of ``(corpus @ q_in.T) * row_scales``
     with rows ``>= valid_n`` at ``NEG_INF``. ``q_in``: f32 queries for an f32
-    corpus, int8 (quantized) queries for an int8 or packed-int4 corpus; the
-    query scale is left out, as it cannot change a query's order of bins."""
+    or bf16 corpus, int8 (quantized) queries for an int8 or packed-int4
+    corpus; the query scale is left out, as it cannot change a query's order
+    of bins."""
     n = corpus.shape[0]
     valid_n = n if valid_n is None else int(valid_n)
     mode, row_words = _check_operands(q_in, corpus, row_scales, valid_n)
@@ -156,7 +169,8 @@ def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.T
     _check_cuda(q_in, corpus, row_scales)
     B = q_in.shape[0]
     out = torch.empty(((n + BIN_W - 1) // BIN_W, B), dtype=torch.float32, device=corpus.device)
-    if binmax_route(corpus.dtype, row_words * 4) == "tc":
+    route = binmax_route(corpus.dtype, row_words * 4)
+    if route == "tc":
         _build.check(
             _fn("binmax", "sskd_binmax_tc")(
                 _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
@@ -175,11 +189,13 @@ def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.T
         "binmax",
     )
     binmax.launches += 1
+    binmax.bf16_launches += route == "bf16"
     return out
 
 
 binmax.launches = 0
 binmax.tc_launches = 0  # the launches that took the tensor-core route
+binmax.bf16_launches = 0  # the launches that took the bf16 route
 
 
 def _dense_rows(corpus: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -241,7 +257,8 @@ def binmax_strided(q_in, corpus, row_scales=None, valid_n: int | None = None,
     B = q_in.shape[0]
     out = torch.empty((blocks * BIN_W, B), dtype=torch.float32, device=corpus.device)
     rows = torch.empty((blocks * BIN_W, B), dtype=torch.int32, device=corpus.device)
-    if binmax_strided_route(corpus.dtype, row_words * 4) == "tc":
+    route = binmax_strided_route(corpus.dtype, row_words * 4)
+    if route == "tc":
         _build.check(
             _fn("binmax", "sskd_binmax_strided_tc")(
                 _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out), _ptr(rows),
@@ -260,11 +277,13 @@ def binmax_strided(q_in, corpus, row_scales=None, valid_n: int | None = None,
         "binmax_strided",
     )
     binmax_strided.launches += 1
+    binmax_strided.bf16_launches += route == "bf16"
     return out, rows
 
 
 binmax_strided.launches = 0
 binmax_strided.tc_launches = 0  # the launches that took the tensor-core route
+binmax_strided.bf16_launches = 0  # the launches that took the bf16 route
 
 
 def binmax_strided_plain(q_in, corpus, row_scales=None, valid_n: int | None = None,
@@ -307,15 +326,16 @@ def binmax_strided_plain(q_in, corpus, row_scales=None, valid_n: int | None = No
 def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
     """Exact scores ``[B, kb, 128]`` of the rows of bins ``bins [B, kb]``
     (int32, each < ceil(N / 128)): ``dot * q_scale[b] * row_scale`` for int8 /
-    int4, ``dot * row_scale`` (scale optional) for f32; rows ``>= valid_n``
-    at ``NEG_INF``."""
+    int4, ``dot * row_scale`` (scale optional) for f32 and bf16 rows (f32
+    queries); rows ``>= valid_n`` at ``NEG_INF``."""
     n = corpus.shape[0]
     valid_n = n if valid_n is None else int(valid_n)
     mode, row_words = _check_operands(q_in, corpus, row_scales, valid_n)
     B, kb = bins.shape
     if bins.dtype != torch.int32 or B != q_in.shape[0]:
         raise ValueError("bins must be int32 [B, kb]")
-    if mode != 0 and (q_scale is None or q_scale.shape != (B,) or q_scale.dtype != torch.float32):
+    quantized = mode in _QUANTIZED
+    if quantized and (q_scale is None or q_scale.shape != (B,) or q_scale.dtype != torch.float32):
         raise ValueError("int8 / int4 corpora need q_scale float32 [B]")
     if corpus.device.type == "cpu":
         return bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n)
@@ -323,9 +343,10 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
         raise ValueError(f"bin_gather runs on cuda or cpu, not {corpus.device}")
     if (row_words * 4) % 16:
         raise ValueError("bin_gather needs corpus rows of a multiple of 16 bytes")
-    _check_cuda(q_in, corpus, row_scales, bins, q_scale if mode != 0 else None)
+    _check_cuda(q_in, corpus, row_scales, bins, q_scale if quantized else None)
     out = torch.empty((B, kb, BIN_W), dtype=torch.float32, device=corpus.device)
-    if bin_gather_route(corpus.dtype, row_words * 4) == "tc":
+    route = bin_gather_route(corpus.dtype, row_words * 4)
+    if route == "tc":
         # the pairs in their own order (order NULL), one a job: no sort
         _build.check(
             _fn("bin_gather", "sskd_bin_gather_tc")(
@@ -340,18 +361,20 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
         return out
     _build.check(
         _fn("bin_gather", "sskd_bin_gather")(
-            mode, _ptr(q_in), _ptr(q_scale if mode != 0 else None), _ptr(corpus),
+            mode, _ptr(q_in), _ptr(q_scale if quantized else None), _ptr(corpus),
             _ptr(row_scales), _ptr(bins), _ptr(out), B, kb, n, row_words, valid_n,
             _stream(corpus.device),
         ),
         "bin_gather",
     )
     bin_gather.launches += 1
+    bin_gather.bf16_launches += route == "bf16"
     return out
 
 
 bin_gather.launches = 0
 bin_gather.tc_launches = 0  # the launches that took the tensor-core route
+bin_gather.bf16_launches = 0  # the launches that took the bf16 route
 
 
 def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
@@ -360,7 +383,7 @@ def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | Non
     valid_n = n if valid_n is None else int(valid_n)
     B, kb = bins.shape
     lane = torch.arange(BIN_W, device=corpus.device)
-    quantized = corpus.dtype != torch.float32
+    quantized = corpus.dtype in (torch.int8, torch.uint8)
     out = []
     for b in range(B):
         rows = (bins[b].to(torch.int64)[:, None] * BIN_W + lane).reshape(-1)
@@ -413,9 +436,10 @@ def topk_stable(x: torch.Tensor, k: int):
 
 
 def quantize_queries(queries: torch.Tensor, corpus: torch.Tensor):
-    """The engine's query operand: f32 queries for an f32 corpus; int8
-    queries and their f32 scales [B] for an int8 or int4 corpus."""
-    if corpus.dtype == torch.float32:
+    """The engine's query operand: f32 queries for an f32 or bf16 corpus (the
+    TPU kernels take a bf16 corpus against the f32 query); int8 queries and
+    their f32 scales [B] for an int8 or int4 corpus."""
+    if corpus.dtype in (torch.float32, torch.bfloat16):
         return queries.to(torch.float32).contiguous(), None
     q_in, q_scale = quantize_rows(queries)
     return q_in.contiguous(), q_scale.contiguous()
@@ -423,8 +447,8 @@ def quantize_queries(queries: torch.Tensor, corpus: torch.Tensor):
 
 def cosine_topk_kernels(queries, corpus, k: int, row_scales=None, valid_n: int | None = None):
     """Exact top-k through ``binmax`` and ``bin_gather``: same contract as
-    :func:`sskd_tpu_torch.ops.topk.cosine_topk`. ``corpus`` [N, D] f32 or
-    int8, or [N, D/2] uint8 packed int4 (``row_scales`` [N] required for
+    :func:`sskd_tpu_torch.ops.topk.cosine_topk`. ``corpus`` [N, D] f32, bf16
+    or int8, or [N, D/2] uint8 packed int4 (``row_scales`` [N] required for
     the quantized forms)."""
     if k > K_MAX:
         raise ValueError(f"k={k} exceeds kernel capacity {K_MAX}")

@@ -14,12 +14,15 @@ and starts the micro-batcher. Differences from the JAX package:
   and ``/index/load`` are later slices (ROADMAP).
 
 As in the JAX package, a preloaded index is served under the ``index_type``
-it records (``exact``, ``approx`` or ``clustered``): ``index.search_method``
+it records (``exact``, ``approx`` or ``clustered``), of f32, bf16, int8 or
+int4 rows, and one with bf16 refine rows through the refined engine
+(:class:`~sskd_tpu_torch.serve.fused.FusedSearcher`): ``index.search_method``
 is read only where an index is built, which no route of this slice does. An
 ``index.nprobe`` that the settings were given explicitly overrides the value
-saved in a clustered index's ``meta.json``; the default does not. What still
-raises at startup: an index of bfloat16 rows or with refine rows (``refine_m
-> 0``), and ``search.rerank_enabled``.
+saved in a clustered index's ``meta.json``; the default does not.
+``index.refine_storage`` (a deployment choice, not saved with the index)
+places the refine rows of the loaded index on the device or the host. What
+still raises at startup: ``search.rerank_enabled``.
 """
 
 from __future__ import annotations
@@ -138,6 +141,9 @@ def create_app(
             # it): an explicit setting wins over the index's saved value
             if settings.is_set("index", "nprobe"):
                 builder.nprobe = settings.index.nprobe
+            # where the bf16 refine rows live is a deployment choice (the
+            # rows are the same bytes either way)
+            builder.refine_storage = settings.index.refine_storage
             state.index_builder = builder
             state.fused_searcher = FusedSearcher(state.student, builder)
             state.metrics.index_size.set(builder.ntotal)

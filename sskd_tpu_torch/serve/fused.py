@@ -12,6 +12,11 @@ A clustered index is served through the approx sweep over its reordered rows
 unless the environment has ``SSKD_SERVE_CELL_PROBE=1`` and the padded batch is
 at most ``CLUSTER_MAX_BATCH``: the JAX package's switch and its default, which
 a TPU measured. Results are mapped back to original row positions either way.
+Any other index with bf16 refine rows is served by the refined engine, exact
+ones too (as the JAX package serves them, while its ``IndexBuilder.search``
+refines only an approx index): ``"refined"`` with the rows on the device, or
+``"host_refined"``, where the device pass ends at the candidates and the
+rescore runs on the host (``refine_storage="host"``).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import os
 import torch
 
 from sskd_tpu_torch.models.student import bucket_length, buckets_for
-from sskd_tpu_torch.ops.topk import cosine_topk
+from sskd_tpu_torch.ops.topk import cosine_topk, refined_candidates, refined_topk
 from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
 
 K_BUCKETS = (10, 20, 50, 100, 200, 400)
@@ -45,10 +50,15 @@ class FusedSearcher:
         return self.builder.ntotal
 
     def _engine(self, padded_n: int) -> str:
-        """The device engine for a padded batch size: the index's own type,
-        except that a clustered index is swept as ``approx`` unless cell
-        probing is opted into and the batch is small enough for it."""
+        """The device engine for a padded batch size: ``refined`` or
+        ``host_refined`` for a non-clustered index with refine rows (by its
+        ``refine_storage``: a served quantized index keeps the recall its
+        rescore was built for), else the index's own type, except that a
+        clustered index is swept as ``approx`` unless cell probing is opted
+        into and the batch is small enough for it."""
         if self.builder.index_type != "clustered":
+            if self.builder._refine is not None:
+                return "host_refined" if self.builder.refine_storage == "host" else "refined"
             return self.builder.index_type
         if (
             os.environ.get("SSKD_SERVE_CELL_PROBE", "0") == "1"
@@ -87,6 +97,18 @@ class FusedSearcher:
                     row_scales=b.device_scales,
                     valid_n=b.ntotal,
                 )
+            elif engine == "refined":
+                vals, idx = refined_topk(
+                    q, b.device_vectors, b.device_refine, k_eff, refine_m=b.refine_m,
+                    row_scales=b.device_scales, valid_n=b.ntotal,
+                )
+            elif engine == "host_refined":
+                # the device pass ends at the candidates; the query embeddings
+                # and the candidates go to the host for the rescore
+                _, cand = refined_candidates(
+                    q, b.device_vectors, max(b.refine_m, k_eff),
+                    row_scales=b.device_scales, valid_n=b.ntotal,
+                )
             else:
                 vals, idx = cosine_topk(
                     q,
@@ -98,7 +120,10 @@ class FusedSearcher:
                     method=engine,
                     recall_target=b.recall_target,
                 )
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        if engine == "host_refined":
+            vals, idx = b._host_rescore(q.float().cpu().numpy(), cand.cpu().numpy(), k_eff)
+        else:
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         return vals[:n, :k], b.map_positions(idx)[:n, :k]
 
     def warmup(self, max_batch: int = 64, k: int = 10) -> None:

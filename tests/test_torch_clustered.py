@@ -511,16 +511,17 @@ def test_index_config_follows_jax():
 
     jdefault, tdefault = JIndexConfig(), IndexConfig()
     for name in ("search_method", "recall_target", "block_rows", "cluster_rows", "nprobe",
-                 "validation_queries", "validation_recall_at_10"):
+                 "refine_m", "refine_storage", "validation_queries",
+                 "validation_recall_at_10"):
         assert getattr(tdefault, name) == getattr(jdefault, name), name
     for bad in ({"recall_target": 0.4}, {"recall_target": 1.1}, {"block_rows": 64},
                 {"cluster_rows": -1}, {"nprobe": 0}, {"validation_queries": 0},
-                {"validation_recall_at_10": 1.5}, {"refine_m": 4}):
+                {"validation_recall_at_10": 1.5}, {"refine_m": -1},
+                {"refine_storage": "disk"}):
         with pytest.raises(ConfigError):
             Settings.from_dict({"index": bad})
-        if "refine_m" not in bad:
-            with pytest.raises(Exception):
-                JIndexConfig(**bad)
+        with pytest.raises(Exception):
+            JIndexConfig(**bad)
 
 
 def test_approx_fallthrough_matches_jax_sweep(cells):

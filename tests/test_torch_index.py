@@ -5,9 +5,10 @@ import json
 import numpy as np
 import pytest
 
+from sskd_tpu.exceptions import IndexBuildError as JIndexBuildError
 from sskd_tpu.exceptions import IndexLoadError as JIndexLoadError
 from sskd_tpu.index.builder import IndexBuilder as JBuilder
-from sskd_tpu_torch.exceptions import IndexLoadError
+from sskd_tpu_torch.exceptions import IndexBuildError, IndexLoadError
 from sskd_tpu_torch.index.builder import IndexBuilder
 
 NB_INDEX = "artifacts/nb_index"
@@ -76,12 +77,22 @@ def test_validate_gate():
 
 
 def test_unported_builds_raise():
-    with pytest.raises(Exception, match="not ported"):
-        IndexBuilder(embedding_dim=8, dtype="bfloat16", device="cpu").build_from_arrays(
-            np.ones((2, 8), np.float32), ["a", "b"]
-        )
-    with pytest.raises(TypeError, match="refine_m"):
-        IndexBuilder(embedding_dim=8, dtype="int8", refine_m=4, device="cpu")
+    """bf16 rows and refine rows are built now (tests/test_torch_refine.py
+    holds them to JAX); what the JAX builder refuses, the port refuses too."""
+    x = _queries(7, 300, 8)
+    bf = IndexBuilder(embedding_dim=8, dtype="bfloat16", device="cpu").build_from_arrays(
+        x, [str(i) for i in range(300)]
+    )
+    assert bf._vectors.dtype == np.uint16 and bf._refine is None
+    ref = IndexBuilder(embedding_dim=8, dtype="int8", refine_m=4, device="cpu")
+    ref.build_from_arrays(x, [str(i) for i in range(300)])
+    assert ref._refine.shape == (300, 8) and ref.refine_m == 4
+    for kw in (dict(dtype="int4", index_type="clustered"), dict(refine_storage="disk"),
+               dict(dtype="float16")):
+        with pytest.raises(IndexBuildError):
+            IndexBuilder(embedding_dim=8, device="cpu", **kw)
+        with pytest.raises(JIndexBuildError):
+            JBuilder(embedding_dim=8, **kw)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8", "int4"])

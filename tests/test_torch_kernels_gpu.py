@@ -38,6 +38,8 @@ def _data(n, d, b, seed):
 def _storage(dtype, x):
     if dtype == "f32":
         return x.contiguous(), None
+    if dtype == "bf16":
+        return x.to(torch.bfloat16).contiguous(), None
     return (quantize_rows if dtype == "int8" else quantize_rows_int4)(x)
 
 
@@ -746,3 +748,177 @@ def test_f32_routes_of_binmax_and_binmax_strided_within_1e5(B, d, scaled):
     if scales is not None:
         picked = picked * scales[rows.long().clamp(max=valid_n - 1)]
     torch.testing.assert_close(picked[live], top[live], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 routes: bf16 rows against f32 queries (binmax, binmax_strided,
+# bin_gather), the bf16-rounded query (cell_gather, cell_gather_b1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,d", [(1, 384), (9, 384), (16, 64), (40, 384), (64, 1024),
+                                 (256, 384), (5, 10_000)])
+def test_bf16_routes_of_binmax_and_binmax_strided(B, d):
+    """bf16 rows take the f32 tile with its row type bf16 (the "bf16" route,
+    counted in bf16_launches): each score the in-order fma chain over the
+    widened row, so the maxima equal the CPU emulation of that chain bit for
+    bit (tests/torch_tc_emulation.py) and lie within 1e-5 of the plain
+    versions; the strided rows hold their maxima, the lower of two equal
+    rows in one bin; rows of any length (10,000 values in bands)."""
+    from torch_tc_emulation import binmax_f32, binmax_strided_f32
+
+    _need_card()
+    n, blocks = 20_001, 30
+    x, q = _data(n, d, B, seed=600 + B + d)
+    x[4999 + 128 * blocks] = x[4999]
+    q[0] = x[4999]
+    corpus, _ = _storage("bf16", x)
+    valid_n = n - 200
+    assert tk.binmax_route(corpus.dtype, 2 * d) == tk.binmax_strided_route(corpus.dtype, 2 * d)
+    assert tk.binmax_route(corpus.dtype, 2 * d) == "bf16"
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    assert q_in.dtype == torch.float32 and q_scale is None
+    before = (tk.binmax.launches, tk.binmax.bf16_launches, tk.binmax_strided.bf16_launches)
+    got = tk.binmax(q_in, corpus, None, valid_n)
+    top, rows = tk.binmax_strided(q_in, corpus, None, valid_n, blocks)
+    torch.cuda.synchronize()
+    assert (tk.binmax.launches, tk.binmax.bf16_launches,
+            tk.binmax_strided.bf16_launches) == tuple(v + 1 for v in before)
+    want = tk.binmax_plain(q_in, corpus, None, valid_n)
+    w_top, _ = tk.binmax_strided_plain(q_in, corpus, None, valid_n, blocks)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (top - w_top).abs().max().item() <= 1e-5
+    if d <= 1024:  # the emulation walks the depth in Python
+        cpu = corpus.cpu()
+        assert torch.equal(got.cpu(), binmax_f32(q_in.cpu(), cpu, None, valid_n))
+        e_top, e_rows = binmax_strided_f32(q_in.cpu(), cpu, None, valid_n, blocks)
+        assert torch.equal(top.cpu(), e_top) and torch.equal(rows.cpu(), e_rows)
+    assert int(rows[4999 % (128 * blocks), 0]) == 4999
+
+
+@pytest.mark.parametrize("B,kb,d", [(1, 10, 384), (16, 10, 384), (64, 40, 384), (3, 7, 64),
+                                    (2, 12, 1040)])
+def test_bf16_route_of_bin_gather(B, kb, d):
+    """bin_gather over bf16 rows (bin_gather_kernel's bf16 mode, the "bf16"
+    route): no scales, the f32 query, each score the in-order fma chain over
+    the widened row, so bit for bit with the CPU emulation and within 1e-5
+    of the plain version; rows past valid_n at the sentinel."""
+    from torch_tc_emulation import f32_tile_scores
+
+    _need_card()
+    n = 20_001
+    x, q = _data(n, d, B, seed=700 + B + d)
+    corpus, _ = _storage("bf16", x)
+    valid_n = n - 9
+    assert tk.bin_gather_route(corpus.dtype, 2 * d) == "bf16"
+    _, bins = tk.topk_stable(tk.binmax_plain(q, corpus, None, valid_n).T, kb)
+    bins = bins.to(torch.int32).contiguous()
+    before = (tk.bin_gather.launches, tk.bin_gather.bf16_launches, tk.bin_gather.tc_launches)
+    got = tk.bin_gather(q, None, corpus, None, bins, valid_n)
+    torch.cuda.synchronize()
+    assert (tk.bin_gather.launches, tk.bin_gather.bf16_launches,
+            tk.bin_gather.tc_launches) == (before[0] + 1, before[1] + 1, before[2])
+    want = tk.bin_gather_plain(q, None, corpus, None, bins, valid_n)
+    assert (got - want).abs().max().item() <= 1e-5
+    rows = (bins.long()[:, :, None] * 128 + torch.arange(128, device="cuda")).view(B, -1)
+    scores = f32_tile_scores(q.cpu(), corpus.cpu())  # [N, B]
+    safe = rows.clamp(max=n - 1).cpu()
+    emu = torch.where(rows.cpu() < valid_n, scores[safe, torch.arange(B)[:, None]], tk.NEG_INF)
+    assert torch.equal(got.view(B, -1).cpu(), emu)
+
+
+@pytest.mark.parametrize("B,nprobe,rpc,d", [(1, 64, 1024, 384), (1, 11, 768, 384),
+                                            (16, 8, 1024, 384), (64, 5, 200, 48),
+                                            (3, 11, 768, 64)])
+def test_bf16_routes_of_the_cell_gathers(B, nprobe, rpc, d):
+    """cell_gather and cell_gather_b1 over bf16 rows (CELL_BF16, the "bf16"
+    route of both): the query rounded to bf16 by cell_queries, within 1e-5
+    of the plain versions (the products are exact; the sums run in another
+    order), and the general kernel gives one query what it gives a batch."""
+    from sskd_tpu_torch.ops import topk_cluster as tc
+
+    _need_card()
+    q, corpus, scales, probe = _cells("bf16", 70, rpc, d, B, nprobe, seed=B * 10 + nprobe)
+    q_in, q_scale = tc.cell_queries(q, corpus)
+    assert q_in.dtype == torch.bfloat16 and q_scale is None and scales is None
+    assert tc.cell_gather_route(corpus.dtype, 2 * d) == "bf16"
+    wrapper, plain = ((tc.cell_gather_b1, tc.cell_gather_b1_plain) if B == 1
+                      else (tc.cell_gather, tc.cell_gather_plain))
+    before = (wrapper.launches, wrapper.bf16_launches)
+    got = wrapper(q_in, None, corpus, None, probe, rpc)
+    want = plain(q_in, None, corpus, None, probe, rpc)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (B, nprobe, rpc) and (got - want).abs().max().item() <= 1e-5
+    if B > 1:
+        one = tc.cell_gather(q_in[:1], None, corpus, None, probe[:1], rpc)
+        assert torch.equal(one, got[:1])
+
+
+def test_bf16_engines_match_their_plain_versions():
+    """Exact, approx and clustered search over bf16 rows on the card against
+    the same engines over the plain versions: ids equal but at near-ties,
+    every launch on a bf16 route."""
+    from sskd_tpu_torch.ops import bf16_launch_counts, launch_counts
+    from sskd_tpu_torch.ops import topk_cluster as tc
+    from sskd_tpu_torch.ops.topk import approx_topk, cosine_topk, cosine_topk_core
+
+    _need_card()
+    n_cells, rpc, n = 100, 1024, 100 * 1024 - 300
+    q, corpus, _, _ = _cells("bf16", n_cells, rpc, 384, 16, 1, seed=8)
+    cent = corpus.view(n_cells, rpc, -1).float().mean(dim=1)
+    cent = cent / cent.norm(dim=1, keepdim=True)
+    before, bf_before = launch_counts(), bf16_launch_counts()
+    pairs = [
+        (cosine_topk(q, corpus, 10, valid_n=n), cosine_topk_core(q, corpus, 10, valid_n=n)),
+        # at 0.95 the approx engine reduces 798 tiles (at 0.99 it needs 896: exact)
+        (cosine_topk(q, corpus, 10, valid_n=n, method="approx", recall_target=0.95),
+         approx_topk(q, corpus, 10, valid_n=n, recall_target=0.95, kernels=False)),
+    ]
+    for B in (1, 16):
+        pairs.append((tc.clustered_topk(q[:B], corpus, cent, 10, 16, rpc, valid_n=n),
+                      tc.clustered_topk(q[:B], corpus, cent, 10, 16, rpc, valid_n=n,
+                                        kernels=False)))
+    torch.cuda.synchronize()
+    for (kv, ki), (pv, pi) in pairs:
+        torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-6)
+        assert (ki == pi).float().mean().item() > 0.99 and (ki < n).all()
+    after, bf_after = launch_counts(), bf16_launch_counts()
+    for name in ("binmax", "bin_gather", "binmax_strided", "cell_gather", "cell_gather_b1"):
+        assert after[name] - before[name] == bf_after[name] - bf_before[name] >= 1, name
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
+    """The refined engine on the card, with torch.set_float32_matmul_precision
+    ("high") set (TF32 for f32 matrix products), against the same engine over
+    the plain versions at "highest": the rescore is an elementwise product
+    and an f32 sum, so the scores agree within 1e-6 and the ids are equal.
+    int8 candidates come from the approx pass on the tensor cores, int4 from
+    the exact kernel engine."""
+    from sskd_tpu_torch.ops import tc_launch_counts, launch_counts
+    from sskd_tpu_torch.ops.topk import refined_topk, refined_topk_core
+
+    _need_card()
+    x, q = _data(300_000, 384, 64, seed=9 if dtype == "int8" else 10)
+    corpus, scales = _storage(dtype, x)
+    rows = x.to(torch.bfloat16)
+    want = refined_topk_core(q, corpus, rows, 10, refine_m=40, row_scales=scales,
+                             kernels=False)
+    before, tc_before = launch_counts(), tc_launch_counts()
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = refined_topk(q, corpus, rows, 10, refine_m=40, row_scales=scales)
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    after, tc_after = launch_counts(), tc_launch_counts()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    assert torch.equal(got[1], want[1])
+    if dtype == "int8":
+        assert tc_after["binmax_strided"] - tc_before["binmax_strided"] == 1
+        assert after["binmax_strided"] - before["binmax_strided"] == 1
+    else:
+        assert after["binmax"] - before["binmax"] == 1 and after["bin_gather"] - before[
+            "bin_gather"] == 1

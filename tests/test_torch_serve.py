@@ -122,8 +122,12 @@ def test_unported_configurations_fail_loudly(monkeypatch, pair):
         Settings.from_dict({"search": {"default_k": 0}})
     with pytest.raises(ConfigError):
         Settings.from_dict({"nosuch": {}})
+    # refine is served now (tests/test_torch_refine.py); its fields are bounded
+    assert Settings.from_dict({"index": {"refine_m": 64}}).index.refine_m == 64
     with pytest.raises(ConfigError, match="refine_m"):
-        Settings.from_dict({"index": {"refine_m": 64}})  # refine is a later slice
+        Settings.from_dict({"index": {"refine_m": -1}})
+    with pytest.raises(ConfigError, match="refine_storage"):
+        Settings.from_dict({"index": {"refine_storage": "disk"}})
     # the default search_method, approx, is a build-time setting: an exact
     # index loaded under it starts up and is served exactly
     tc = _client(monkeypatch, ts, idx_dir, index={"search_method": "approx"})

@@ -141,11 +141,12 @@ def test_blocked_engine_matches_kernel_engine():
     (torch.float32, 4100, True),     # past one band of 8 staged queries' whole rows
     (torch.float32, 10_000, True),
     (torch.int8, 1040, True),        # over the tensor-core limit: the dp4a kernel
-    (torch.bfloat16, 384, False),
+    (torch.bfloat16, 384, True),     # the bf16 routes (the f32 tile over widened rows)
+    (torch.bfloat16, 10_000, True),
 ])
 def test_exact_gate_takes_rows_of_any_length(dtype, d, want):
-    """On a CUDA corpus the kernel engine takes f32 and int8 rows of any
-    length (the f32 kernels stage long rows in bands), so no row length
+    """On a CUDA corpus the kernel engine takes f32, bf16 and int8 rows of
+    any length (the f32 tile stages long rows in bands), so no row length
     sends the caller to the blocked torch engine."""
     corpus = SimpleNamespace(device=torch.device("cuda"), dtype=dtype, shape=(1 << 16, d))
     assert tt.kernel_exact_ok(torch.zeros(2, d), corpus, 10) is want
