@@ -40,10 +40,17 @@ Phases, each fatal when it fails:
              cell_gather's tensor-core route), f32 at B in {1, 16} and bf16
              (the query rounded to bf16) at B in {1, 16, 64} within 1e-5, a
              ragged case, nprobe 11 over cells of 768 rows, and
-             cell_gather_b1's kernel alone on the card):
+             cell_gather_b1's kernel alone on the card; the teacher's head
+             dim 64: dropattn_fwd / dropattn_bwd at [32, 16, 64, 64] and
+             [8, 16, 512, 64] (f32 there streams the head through shared
+             memory in chunks), f32 and bf16, p in {0, 0.1}, and
+             flash_attn_fwd at [32, 16, 512, 64], f32 and bf16, each on the
+             CUDA-core route (dtype, d, L) selects, counted at d = 64, bitwise
+             repeatable, f32 within 1e-5 and bf16 within the rounding bounds,
+             the keep-mask read back bit for bit at L = 256 and 512):
              error, time per launch (CUDA events, and on the card alone from
-             the profiler for the top-k and cell kernels), the bound and
-             yardsticks that the port never calls;
+             the profiler for the top-k, cell and d = 64 attention kernels),
+             the bound and yardsticks that the port never calls;
 3. serve   — the main path at full e5-small-v2 width (12 layers, hidden 384,
              bf16, seeded random weights): encode 8,192 passages of at least
              510 tokens (L = 512, batch 256), fill an int8 exact index to
@@ -102,7 +109,27 @@ Phases, each fatal when it fails:
              ((a), (c), (d) 0.97, (e) 0.90, (b) through the refined engine
              above its own unrefined value), and ms per search of the
              refined (device and host), int8 approx, bf16 exact, approx and
-             clustered engines at B in {1, 16, 64}.
+             clustered engines at B in {1, 16, 64};
+7. teacher — the cross-encoder at full bge-reranker-large width (24
+             layers, hidden 1024, 16 heads of 64, FFN 4096, vocab 250,002,
+             roberta positions; seeded random weights, f32 compute, dropout
+             0.1): TeacherTrainer.train on 720 seeded triples (1 positive to 8
+             negatives) with the CLI's defaults (16 steps of 32 at max_len
+             64, lr 1e-3, pos_fraction 0.25): every loss finite, 24
+             dropattn_fwd and 24 dropattn_bwd launches a step, all at d = 64
+             on the route the code selects, step 1 (lr 0) leaving the
+             parameters bit for bit, one step's gradients through the kernels
+             within 1e-3 of the plain pair's; saved and reloaded bit for bit;
+             TeacherModel.score of 1,024 pairs in chunks of 32 whose buckets
+             reach 512 (every L = 512 chunk 24 flash_attn_fwd launches at
+             d = 64), within 1e-4 (1 + |s|) of the same scores through the
+             plain versions; then create_app over the serve phase's index and
+             student with search.rerank_enabled and the saved teacher,
+             /search with rerank=true from 1 client and then 8 closed-loop
+             clients: every response reranked, in the order and with the
+             scores of TeacherModel.score on its pairs (ties within 1e-5
+             excepted); ms per step, samples/s, peak memory, pairs/s, rerank
+             ms and queries/s.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -826,7 +853,7 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
         seed = 1000 + L
         check(masks_equal(seed, BH, L, 0.1), f"dropattn keep-mask [{BH}, {L}, {L}] differs")
         for p in (0.0, 0.1):
-            f_route = ta.dropattn_fwd_route(q.dtype, L)
+            f_route = ta.dropattn_fwd_route(q.dtype, d, L)
             check(f_route == "tc", f"dropattn_fwd bf16 L={L}: route {f_route}")
             before = ta.dropattn_fwd.tc_launches
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
@@ -837,7 +864,7 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
                   f"dropattn_fwd L={L} p={p}: two launches differ")
             del f_again
             want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
-            route = ta.dropattn_bwd_route(q.dtype, L)
+            route = ta.dropattn_bwd_route(q.dtype, d, L)
             before = ta.dropattn_bwd.tc_launches
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             check(ta.dropattn_bwd.tc_launches - before == (route == "tc"),
@@ -907,7 +934,8 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
 def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     """ms per launch of both kernels, of their plain versions and of
     F.scaled_dot_product_attention with the same additive bias and dropout
-    (forward, and its backward alone); the byte and operation bounds."""
+    (forward, and its backward alone); the byte and operation bounds (the
+    operations at the bf16 tensor-core rate, or f32's for f32 inputs)."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, L, d = q.shape
@@ -932,16 +960,17 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=p)
     out["bwd_library_ms"] = time_ms(
         lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), 10)
-    elt = BH * L * d * 2  # one bf16 [B, h, L, d] tensor
+    elt = BH * L * d * q.element_size()  # one [B, h, L, d] tensor
+    kind = "f32" if q.dtype == torch.float32 else "bf16"
     # The function's own bytes only: the lse the forward saves for the
     # backward is this port's choice (the TPU pair recomputes it), not part
     # of the function, so neither bound counts it.
     # forward: q, k, v, bias read, out written; 2 products of 2 L^2 d
     out["fwd_bound_ms"], out["fwd_bound_by"] = bound_ms(
-        4 * elt + B * L * 4, 4.0 * BH * L * L * d, "bf16")
+        4 * elt + B * L * 4, 4.0 * BH * L * L * d, kind)
     # backward: q, k, v, g, bias read, dq, dk, dv written; 5 products
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(
-        7 * elt + B * L * 4, 10.0 * BH * L * L * d, "bf16")
+        7 * elt + B * L * 4, 10.0 * BH * L * L * d, kind)
     # floors above the bytes: the forward's two exps per score (one a pass)
     # on the special-function unit, 16 a clock an SM; the mask's Philox
     # work, measured as what dropout adds to the backward, which draws each
@@ -949,6 +978,168 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
     out["fwd_exp_floor_ms"] = 2 * BH * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3
     out["philox_floor_ms"] = out["bwd_ms"] - out["bwd_no_dropout_ms"]
     return out
+
+
+def masks_spelled_d64(seed: int, L: int) -> bool:
+    """The read-back of masks_spelled_by_kernels at head dim 64 in f32: each
+    probability 1/L, each kept pd 2/L at p = 0.5, v (and g) holding
+    2^(j % 8) in channel j // 8; at L = 512 both CUDA-core kernels stream
+    the head through shared memory in chunks."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, d = 2, 16, 64
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda")
+    bias = torch.zeros(B, L, device="cuda")
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    bit = torch.arange(8, device="cuda")
+
+    def spell(x):
+        n = (x[..., : L // 8] * (L / 2)).round().long()
+        return ((n[..., None] >> bit) & 1).reshape(B, h, L, L).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    return bool((spell(out) == want).all()) and bool((spell(dv).transpose(-1, -2) == want).all())
+
+
+def phase_attention64(gen) -> tuple[list, dict]:
+    """The attention kernels at the teacher's head dim 64 against their plain
+    versions: dropattn_fwd / dropattn_bwd at the teacher trainer's shape
+    [32, 16, 64, 64] and at [8, 16, 512, 64] (f32 past the shared memory of a
+    block: the chunked path), f32 and bf16, p in {0, 0.1}; flash_attn_fwd at
+    the rerank shape [32, 16, 512, 64], f32 and bf16. Every launch on the
+    route (dtype, d, L) selects (the CUDA cores) and counted at d = 64, two
+    launches bitwise equal, bf16 within the rounding bounds, f32 within 1e-5,
+    the keep-mask read back bit for bit; each timed by CUDA events and the
+    profiler beside SDPA, the plain version and the bound. Returns the rows
+    and the main entries (f32: the teacher computes in f32)."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    rows, main = [], {}
+    for L in (256, 512):
+        check(masks_spelled_d64(53 + L, L), f"dropattn d=64 L={L}: applied keep-mask differs")
+    log("[kernels] dropattn d=64: both kernels apply the plain mask (f32, L = 256 and 512)")
+    for (B, h, L, d), dtype in ((shape, dt) for shape in ((32, 16, 64, 64), (8, 16, 512, 64))
+                                for dt in (torch.float32, torch.bfloat16)):
+        q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(dtype)
+                      for _ in range(4))
+        bias = attn_bias(B, L, gen)
+        seed = 640 + L
+        for p in (0.0, 0.1):
+            f_route, b_route = ta.dropattn_fwd_route(dtype, d, L), ta.dropattn_bwd_route(dtype, d, L)
+            check(f_route == b_route == "cuda_core", f"dropattn d=64 routes {f_route}, {b_route}")
+            before = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
+                      ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
+            out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+            grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            after = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
+                     ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
+            check(after == (before[0], before[1] + 1, before[2], before[3] + 1),
+                  f"dropattn d=64 L={L}: launches {before} -> {after}")
+            again = ta.dropattn_fwd(q, k, v, bias, p, seed)
+            g_again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                  and all(torch.equal(a, b) for a, b in zip(grads, g_again)),
+                  f"dropattn d=64 L={L} p={p}: two launches differ")
+            del again, g_again
+            want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+            want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
+            torch.cuda.synchronize()
+            lse_err = (lse - want_lse).abs().max().item()
+            check(lse_err <= 1e-4, f"dropattn_fwd d=64 lse L={L} p={p}: err {lse_err}")
+            f_err = (out.float() - want.float()).abs().max().item()
+            b_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(grads, want_grads))
+            entry = {"shape": [B, h, L, d], "dtype": str(dtype).split(".")[1], "p": p,
+                     "lse_max_abs_err": lse_err, "fwd_max_abs_err": f_err,
+                     "bwd_max_abs_err": b_err, "fwd_route": f_route, "bwd_route": b_route,
+                     "bitwise_repeatable": True}
+            if dtype == torch.float32:  # summation order only
+                check(f_err <= 1e-5 and b_err <= 1e-5,
+                      f"dropattn d=64 f32 L={L} p={p}: {f_err}, {b_err} > 1e-5")
+            else:
+                diff = (out.float() - want.float()).abs()
+                f_slack = (diff / ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out,
+                                                             want)).max().item()
+                bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, grads,
+                                                     want_grads)
+                b_slack = max(((a.float() - b.float()).abs() / bd).max().item()
+                              for a, b, bd in zip(grads, want_grads, bounds))
+                check(f_slack <= 1.0 and b_slack <= 1.0,
+                      f"dropattn d=64 bf16 L={L} p={p}: {f_slack:.3f}, {b_slack:.3f} of the bounds")
+                entry.update(fwd_err_over_bound=f_slack, bwd_err_over_bound=b_slack)
+                del bounds
+            del out, lse, grads, want, want_lse, want_grads
+            if p > 0:
+                entry.update(time_dropattn(q, k, v, g, bias, p, seed))
+                _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+                entry["fwd_kernel_device_ms"] = kernel_device_ms(
+                    lambda: ta.dropattn_fwd(q, k, v, bias, p, seed), "dropattn_fwd_kernel")
+                entry["bwd_kernel_device_ms"] = kernel_device_ms(
+                    lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g), "dropattn_bwd_d")
+                del lse
+                if (B, L) == (32, 64) and dtype == torch.float32:
+                    for name, pre in (("dropattn_fwd.d64", "fwd"), ("dropattn_bwd.d64", "bwd")):
+                        main[name] = {
+                            "max_abs_err": f_err if pre == "fwd" else b_err,
+                            **{key: entry[f"{pre}_{key}"] for key in
+                               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            rows.append(entry)
+            log(f"[kernels] {json.dumps(entry)}")
+        del q, k, v, g
+
+    B, h, L, d = 32, 16, 512, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        lens = torch.randint(L // 8, L + 1, (B,), device="cuda", generator=gen)
+        lens[0] = L
+        mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        route = ta.flash_route(dtype, d)
+        check(route == "cuda_core", f"flash d=64: route {route}")
+        before = (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(64, 0))
+        got = ta.flash_attention(q, k, v, mask)
+        check((ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(64, 0))
+              == (before[0], before[1] + 1), "flash d=64: not one CUDA-core launch at d = 64")
+        check(torch.equal(got, ta.flash_attention(q, k, v, mask)), "flash d=64: launches differ")
+        want = ta.flash_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        entry = {"kernel": "flash_attn_fwd", "dtype": str(dtype).split(".")[1],
+                 "shape": [B, h, L, d], "route": route, "max_abs_err": err,
+                 "max_rel_err": rel_err(got, want)}
+        if dtype == torch.float32:
+            check(err <= 1e-5, f"flash_attn_fwd d=64 f32: max abs err {err} > 1e-5")
+        else:
+            slack = (diff / ta.flash_error_bound(q, k, v, mask, got, want)).max().item()
+            check(slack <= 1.0, f"flash_attn_fwd d=64 bf16: {slack:.3f} of its bound")
+            entry["err_over_bound"] = slack
+        del got, want, diff
+        keep = mask[:, None, None, :].bool()
+        b_ms, b_by = bound_ms(4 * B * h * L * d * q.element_size() + B * L * 4,
+                              4.0 * B * h * L * L * d,
+                              "f32" if dtype == torch.float32 else "bf16")
+        entry.update({
+            "ms": time_ms(lambda: ta.flash_attention(q, k, v, mask), 10),
+            "kernel_device_ms": kernel_device_ms(lambda: ta.flash_attention(q, k, v, mask),
+                                                 "flash_fwd_kernel"),
+            "plain_ms": time_ms(lambda: ta.flash_attention_plain(q, k, v, mask), 3, 1),
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 10),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        rows.append(entry)
+        log(f"[kernels] {json.dumps(entry)}")
+        if dtype == torch.float32:
+            main["flash_attn_fwd.d64"] = {key: entry[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        del q, k, v
+    return rows, main
 
 
 def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
@@ -1122,11 +1313,12 @@ def get(port: int, path: str) -> int:
         conn.close()
 
 
-def loadgen(port: int, n_requests: int, clients: int, seed: int) -> dict:
+def loadgen(port: int, n_requests: int, clients: int, seed: int, rerank: bool = False) -> dict:
     """Closed-loop load: ``clients`` threads, each sending its share of
-    ``n_requests`` /search requests one after another. Runs in its own
-    process (``--loadgen``), so the clients do not share the server's
-    interpreter lock."""
+    ``n_requests`` /search requests one after another (with ``rerank``
+    true when asked; a response that says ``reranked: false`` then counts
+    as failed). Runs in its own process (``--loadgen``), so the clients do
+    not share the server's interpreter lock."""
     rng = np.random.default_rng(seed)
     queries = [" ".join(rng.choice(WORDS, 6)) for _ in range(n_requests)]
     per_client = [queries[i::clients] for i in range(clients)]
@@ -1135,7 +1327,9 @@ def loadgen(port: int, n_requests: int, clients: int, seed: int) -> dict:
         out = []
         for q in qs:
             try:
-                status, _, ms = post(port, "/search", {"query": q, "k": 10})
+                status, body, ms = post(port, "/search", {"query": q, "k": 10, "rerank": rerank})
+                if rerank and status == 200 and body.get("reranked") is not True:
+                    status = -1
             except OSError:
                 status, ms = 0, float("inf")
             out.append((status, ms))
@@ -1149,15 +1343,16 @@ def loadgen(port: int, n_requests: int, clients: int, seed: int) -> dict:
     failed = sum(status != 200 for status, _ in done)
     return {
         "clients": clients, "requests": len(done), "failed": failed,
+        "not_reranked": sum(status == -1 for status, _ in done),
         "queries_per_s": len(done) / wall, "p50_ms": float(np.percentile(lat, 50)),
         "p99_ms": float(np.percentile(lat, 99)), "max_ms": lat[-1],
     }
 
 
-def run_load(port: int, n_requests: int, clients: int, seed: int) -> dict:
+def run_load(port: int, n_requests: int, clients: int, seed: int, rerank: bool = False) -> dict:
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-         "--loadgen", f"{port},{n_requests},{clients}"],
+         "--loadgen", f"{port},{n_requests},{clients},{int(rerank)}"],
         capture_output=True, text=True, timeout=900, check=True,
     )
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -2460,6 +2655,322 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the teacher (bge-reranker-large cross-encoder)
+# ---------------------------------------------------------------------------
+
+TEACHER_STEPS, TEACHER_BATCH, TEACHER_MAX_LEN = 16, 32, 64  # the CLI's train-teacher defaults
+TEACHER_QUERIES = 80  # x 9 triples: 1 positive and 8 negatives each
+SCORE_PAIRS = 1024
+RERANK_TOP_K = 50
+
+
+def make_teacher_triples(n: int, seed: int) -> list:
+    """Seeded synthetic (query, passage, label) triples, 1 positive to 8
+    negatives a query: a 4-8 word query, a positive that repeats its words
+    among others, negatives of other words; 20-60 words a passage."""
+    rng = np.random.default_rng(seed)
+    triples = []
+    for _ in range(n):
+        query = list(rng.choice(WORDS, rng.integers(4, 9)))
+        pos = query * 2 + list(rng.choice(WORDS, rng.integers(10, 50)))
+        rng.shuffle(pos)
+        triples.append((" ".join(query), " ".join(pos), 1.0))
+        for _ in range(8):
+            neg = [w for w in rng.choice(WORDS, rng.integers(20, 61)) if w not in query]
+            triples.append((" ".join(query), " ".join(neg), 0.0))
+    order = rng.permutation(len(triples))
+    return [triples[i] for i in order]
+
+
+def make_score_pairs(n: int, seed: int) -> list:
+    """(query, passage) pairs whose passages run 30, 180, 330 and 480 words
+    in turns of 32 pairs, so that score's chunks of 32 fall in the buckets
+    of 64, 256 and 512 tokens (the last two both 512)."""
+    rng = np.random.default_rng(seed)
+    return [(" ".join(rng.choice(WORDS, 6)),
+             " ".join(rng.choice(WORDS, 30 + 150 * ((i // 32) % 4)))) for i in range(n)]
+
+
+def teacher_grads(trainer, ids, mask, types, labels, plain: bool) -> torch.Tensor:
+    """Every parameter's gradient (flat, f32) of one teacher train step's
+    loss at a fixed dropout seed, without the update: through the dropattn
+    kernels, or (``plain``) through their plain versions in f32."""
+    from sskd_tpu_torch.kd.teacher_train import sigmoid_binary_cross_entropy
+    from sskd_tpu_torch.models import bert
+
+    module = trainer.teacher.module
+    saved = bert.dropout_attention
+    if plain:
+        bert.dropout_attention = (
+            lambda q, k, v, bias, p, seed: PlainDropoutAttention.apply(q, k, v, bias, p, seed,
+                                                                        torch.float32))
+    try:
+        module.train()
+        module.zero_grad(set_to_none=True)
+        logits = module(ids, mask, types, dropout_seed=13)
+        sigmoid_binary_cross_entropy(logits, labels).mean().backward()
+        return torch.cat([p.grad.detach().flatten() for p in module.parameters()])
+    finally:
+        bert.dropout_attention = saved
+        module.zero_grad(set_to_none=True)
+        module.eval()
+
+
+def phase_teacher(args) -> dict:
+    """The teacher path at full bge-reranker-large width (24 layers, hidden
+    1024, 16 heads of 64, FFN 4096, vocab 250,002, roberta positions; seeded
+    random weights, f32 compute, dropout 0.1): TeacherTrainer.train with the
+    CLI's defaults, save and reload, TeacherModel.score of 1,024 pairs in
+    buckets up to 512, and /search with rerank=true served by create_app over
+    the serve phase's index and student."""
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.kd.teacher_train import TeacherTrainer
+    from sskd_tpu_torch.models.teacher import TeacherModel
+    from sskd_tpu_torch.ops import (
+        head_dim_launch_counts,
+        launch_counts,
+        reset_launch_counts,
+        tc_launch_counts,
+    )
+    from sskd_tpu_torch.ops import attention as ta
+    from sskd_tpu_torch.serve.app import create_app
+
+    work = ROOT / "build" / "chip_smoke"
+    record: dict = {}
+    t0 = time.perf_counter()
+    teacher = TeacherModel("BAAI/bge-reranker-large", device="cuda", seed=args.seed)
+    record["init_seconds"] = time.perf_counter() - t0
+    cfg = teacher.config
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, cfg.vocab_size,
+           cfg.max_position_embeddings, cfg.pad_token_id, cfg.position_style, cfg.layer_norm_eps,
+           cfg.type_vocab_size) == (24, 1024, 16, 4096, 250002, 514, 1, "roberta", 1e-5, 1),
+          f"not bge-reranker-large width: {cfg}")
+    check(cfg.compute_dtype == torch.float32 and cfg.hidden_dropout == 0.1
+          and cfg.attention_dropout == 0.1, "not f32 compute with dropout 0.1")
+    n_params = sum(p.numel() for p in teacher.module.parameters())
+    log(f"[teacher] bge-reranker-large width, {n_params:,} parameters, seeded in "
+        f"{record['init_seconds']:.1f} s")
+
+    # ---- training ------------------------------------------------------
+    triples = make_teacher_triples(TEACHER_QUERIES, args.seed)
+    trainer = TeacherTrainer(teacher, learning_rate=1e-3, seed=args.seed)
+    inner = trainer._train_step
+    starts, events, snaps = [], [], []
+
+    def timed_step(ids, mask, types, labels, step):
+        # each step between CUDA events, its host start time; step 1 between
+        # parameter snapshots (its rate is 0: the parameters must not move)
+        if step == 0:
+            snaps.append([p.detach().clone() for p in teacher.module.parameters()])
+        elif step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        starts.append(time.perf_counter())
+        start.record()
+        loss = inner(ids, mask, types, labels, step)
+        end.record()
+        events.append((start, end))
+        if step == 0:
+            snaps.append(all(torch.equal(a, b.detach())
+                             for a, b in zip(snaps.pop(), teacher.module.parameters())))
+        return loss
+
+    trainer._train_step = timed_step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(triples, steps=TEACHER_STEPS, batch_size=TEACHER_BATCH,
+                           max_len=TEACHER_MAX_LEN)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts, tc_counts, by_d = launch_counts(), tc_launch_counts(), head_dim_launch_counts()
+    trainer._train_step = inner
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[teacher] trained {TEACHER_STEPS} steps in {train_s:.1f} s; launches {counts}, "
+        f"tensor-core {tc_counts}, by head dim {by_d}")
+    losses = result["losses"]
+    check(len(losses) == TEACHER_STEPS and all(math.isfinite(x) for x in losses),
+          f"teacher losses {losses}")
+    check(snaps == [True], "teacher step 1 changed the parameters (its learning rate is 0)")
+    # one forward and one backward a layer a step: no remat
+    want = TEACHER_STEPS * cfg.num_layers
+    route = ta.dropattn_fwd_route(torch.float32, 64, TEACHER_MAX_LEN)
+    for name in ("dropattn_fwd", "dropattn_bwd"):
+        check(counts[name] == want and by_d[name] == {64: want},
+              f"{name}: {counts[name]} launches {by_d[name]}, want {want} at d = 64")
+        check(tc_counts[name] == (want if route == "tc" else 0),
+              f"{name}: {tc_counts[name]} tensor-core launches on the {route} route")
+    event_ms = [a.elapsed_time(b) for a, b in events]
+    cadence_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    ms_step = float(np.median(cadence_ms[2:]))
+    record["train"] = {
+        "steps": TEACHER_STEPS, "batch": TEACHER_BATCH, "max_len": TEACHER_MAX_LEN,
+        "triples": len(triples), "train_seconds": train_s, "losses": losses,
+        "step_cadence_ms": cadence_ms, "step_event_ms": event_ms,
+        "ms_per_step_median": ms_step,
+        "event_ms_median": float(np.median(event_ms[2:])),
+        "samples_per_s": TEACHER_BATCH / (ms_step / 1e3), "peak_device_gib": peak_gib,
+        "heldout_pair_accuracy": result["heldout_pair_accuracy"],
+        "step1_unchanged": True, "launches": counts, "head_dim_launches": by_d,
+        "route": route,
+    }
+
+    # one step's gradients through the kernels against the plain pair (f32:
+    # summation order only, so far below 1e-3 of the gradient's norm)
+    batch, labels = trainer._tokenize(triples[:TEACHER_BATCH], TEACHER_MAX_LEN)
+    ids, mask, types = (torch.from_numpy(batch[k]).cuda().long()
+                        for k in ("input_ids", "attention_mask", "token_type_ids"))
+    lab = torch.from_numpy(labels).cuda()
+    g_kernel = teacher_grads(trainer, ids, mask, types, lab, plain=False)
+    g_plain = teacher_grads(trainer, ids, mask, types, lab, plain=True)
+    g_norm = g_plain.norm().item()
+    grad_rel = (g_kernel - g_plain).norm().item() / g_norm
+    del g_kernel, g_plain
+    record["train"]["grad_check"] = {"grad_norm": g_norm, "kernel_vs_plain_rel": grad_rel}
+    log(f"[teacher] {json.dumps(record['train'])}")
+    check(math.isfinite(grad_rel) and g_norm > 0 and grad_rel <= 1e-3,
+          f"teacher gradients through the kernels vs the plain pair: {grad_rel} > 1e-3")
+
+    # ---- save, reload, score -------------------------------------------
+    t0 = time.perf_counter()
+    teacher_dir = teacher.save(work / "teacher")
+    trained = {k: v.detach().cpu() for k, v in teacher.module.state_dict().items()}
+    del teacher, trainer
+    torch.cuda.empty_cache()
+    scorer = TeacherModel(str(teacher_dir), device="cuda")
+    check(all(torch.equal(v.cpu(), trained[k]) for k, v in scorer.module.state_dict().items()),
+          "the reloaded teacher differs from the trained one")
+    record["save_load_seconds"] = time.perf_counter() - t0
+    del trained
+    pairs = make_score_pairs(SCORE_PAIRS, args.seed)
+    lengths = [scorer.tokenize_pairs(pairs[i:i + TEACHER_BATCH])["input_ids"].shape[1]
+               for i in range(0, SCORE_PAIRS, TEACHER_BATCH)]
+    n512 = lengths.count(512)
+    check(n512 > 0, f"no chunk reached L = 512: {lengths}")
+    scorer.score(pairs[:TEACHER_BATCH])  # first use of the card's cuBLAS handles
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = scorer.score(pairs, batch_size=TEACHER_BATCH)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    counts, by_d = launch_counts(), head_dim_launch_counts()
+    check(counts["flash_attn_fwd"] == cfg.num_layers * n512
+          and by_d["flash_attn_fwd"] == {64: cfg.num_layers * n512},
+          f"flash_attn_fwd: {counts['flash_attn_fwd']} launches {by_d['flash_attn_fwd']}, "
+          f"want {cfg.num_layers} for each of {n512} chunks at L = 512, at d = 64")
+    real_flash = ta.flash_attention
+    ta.flash_attention = lambda q, k, v, m=None: ta.flash_attention_plain(q, k, v, m)
+    try:
+        plain_scores = scorer.score(pairs, batch_size=TEACHER_BATCH)
+    finally:
+        ta.flash_attention = real_flash
+    diff = np.abs(np.asarray(scores) - np.asarray(plain_scores))
+    # f32 throughout: the kernel and its plain version differ by summation
+    # order, which 24 layers carry to the logits far below 1e-4 (1 + |s|)
+    score_slack = float(np.max(diff / (1e-4 * (1.0 + np.abs(plain_scores)))))
+    check(all(math.isfinite(x) for x in scores) and score_slack <= 1.0,
+          f"teacher scores through the kernels vs the plain versions: {score_slack} of 1e-4")
+    # where one chunk's forward at L = 512 spends the card's time (outside
+    # the counted run): CUDA events, and device time by kernel from the
+    # profiler (windows unchecked, as the train phase's breakdown)
+    chunk = scorer.tokenize_pairs(pairs[lengths.index(512) * TEACHER_BATCH:][:TEACHER_BATCH])
+    chunk_ms = time_ms(lambda: scorer.forward_batch(chunk), 5, 1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            scorer.forward_batch(chunk)
+        torch.cuda.synchronize()
+    by_kernel = device_times(prof)
+    record["score"] = {
+        "pairs": SCORE_PAIRS, "batch_size": TEACHER_BATCH, "chunk_lengths": lengths,
+        "chunks_at_512": n512, "seconds": score_s, "pairs_per_s": SCORE_PAIRS / score_s,
+        "max_abs_diff_vs_plain": float(diff.max()), "diff_over_bound": score_slack,
+        "launches": counts, "head_dim_launches": by_d,
+        "chunk512_ms": chunk_ms,
+        "chunk512_device_ms": sum(t for _, t in by_kernel) / 3 / 1e3,
+        "chunk512_top_kernels_ms": [(k, t / 3 / 1e3) for k, t in by_kernel[:8]],
+    }
+    log(f"[teacher] score: {json.dumps(record['score'])}")
+
+    # ---- rerank served --------------------------------------------------
+    settings = Settings.from_dict({
+        "index": {"search_method": "exact"},
+        "service": {"micro_batch_window_ms": 5.0, "micro_batch_max_size": 64},
+        "search": {"rerank_enabled": True, "rerank_top_k": RERANK_TOP_K,
+                   "rerank_timeout_ms": 60000.0},
+        "teacher": {"model_name": str(teacher_dir), "batch_size": TEACHER_BATCH},
+    })
+    app = create_app(settings, student_model_path=str(work / "student"), device="cuda",
+                     preload_index_dir=str(work / "index"))
+    reset_launch_counts()
+    rerank_ms = []
+    queries = [" ".join(np.random.default_rng(args.seed + 100 + i).choice(WORDS, 6))
+               for i in range(6)]
+    with live_server(app, "teacher") as (port, startup_s):
+        state = app.state
+        check(state.teacher is not None, "the app started with reranking off")
+        served_score = state.teacher.score
+
+        def timed_score(pairs_, bs):
+            t = time.perf_counter()
+            out = served_score(pairs_, bs)
+            rerank_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        state.teacher.score = timed_score
+        sequential = []
+        for q in queries:
+            status, plain, _ = post(port, "/search", {"query": q, "k": RERANK_TOP_K})
+            check(status == 200 and plain["reranked"] is False, f"/search {q!r}: {status}")
+            status, body, ms = post(port, "/search", {"query": q, "k": 10, "rerank": True,
+                                                      "rerank_top_k": RERANK_TOP_K})
+            check(status == 200 and body["reranked"] is True,
+                  f"/search rerank {q!r}: HTTP {status}, reranked {body.get('reranked')}")
+            sequential.append((q, plain, body, ms))
+        loads = [run_load(port, n, c, args.seed + 200 + c, rerank=True)
+                 for n, c in ((8, 1), (32, 8))]
+        for load in loads:
+            log(f"[teacher] rerank closed loop: {json.dumps(load)}")
+            check(load["failed"] == 0, f"{load['failed']} of {load['requests']} rerank requests "
+                  f"failed ({load['not_reranked']} not reranked)")
+        state.teacher.score = served_score
+    torch.cuda.synchronize()
+    counts, by_d = launch_counts(), head_dim_launch_counts()
+    check(by_d["flash_attn_fwd"].get(64, 0) > 0, "rerank launched no flash_attn_fwd at d = 64")
+    # each reranked response in the order of TeacherModel.score on its pairs
+    worst = 0.0
+    for q, plain, body, _ in sequential:
+        want = scorer.score([(q, r["text"] or r["doc_id"]) for r in plain["results"]],
+                            batch_size=TEACHER_BATCH)
+        order = sorted(range(len(want)), key=lambda i: -want[i])[:10]
+        got_scores = [r["score"] for r in body["results"]]
+        worst = max(worst, max(abs(a - want[i]) for a, i in zip(got_scores, order)))
+        for r, i in zip(body["results"], order):
+            check(r["doc_id"] == plain["results"][i]["doc_id"]
+                  or abs(r["score"] - want[i]) <= 1e-5,
+                  f"rerank {q!r}: {r['doc_id']} where the teacher ranks "
+                  f"{plain['results'][i]['doc_id']}")
+    check(worst <= 1e-5, f"served rerank scores differ from TeacherModel.score by {worst}")
+    lat = sorted(ms for *_, ms in sequential)
+    record["rerank"] = {
+        "startup_seconds": startup_s, "top_k": RERANK_TOP_K, "sequential_ms": lat,
+        "sequential_p50_ms": float(np.percentile(lat, 50)), "load": loads,
+        "rerank_ms": rerank_ms, "rerank_p50_ms": float(np.percentile(rerank_ms, 50)),
+        "max_score_diff_vs_score": worst, "launches": counts, "head_dim_launches": by_d,
+    }
+    log(f"[teacher] rerank: {json.dumps(record['rerank'])}")
+    del scorer, app
+    torch.cuda.empty_cache()
+    record["teacher_launches"] = {
+        "dropattn_fwd.d64": record["train"]["head_dim_launches"]["dropattn_fwd"][64],
+        "dropattn_bwd.d64": record["train"]["head_dim_launches"]["dropattn_bwd"][64],
+        "flash_attn_fwd.d64": record["score"]["head_dim_launches"]["flash_attn_fwd"][64],
+    }
+    return record
+
+
 def probed_cells(b, q: torch.Tensor) -> torch.Tensor:
     """The cells that clustered_topk probes for ``q``."""
     from sskd_tpu_torch.ops.topk_kernels import topk_stable
@@ -2475,11 +2986,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke.json"))
-    ap.add_argument("--loadgen", help=argparse.SUPPRESS)  # PORT,REQUESTS,CLIENTS (child)
+    ap.add_argument("--loadgen", help=argparse.SUPPRESS)  # PORT,REQUESTS,CLIENTS,RERANK (child)
     args = ap.parse_args(argv)
     if args.loadgen:
-        port, n_requests, clients = (int(v) for v in args.loadgen.split(","))
-        print(json.dumps(loadgen(port, n_requests, clients, args.seed)))
+        port, n_requests, clients, rerank = (int(v) for v in args.loadgen.split(","))
+        print(json.dumps(loadgen(port, n_requests, clients, args.seed, bool(rerank))))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2506,8 +3017,9 @@ def main(argv=None) -> int:
     flash_rows, main_flash = phase_flash(gen)
     dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
+    attn64_rows, main_d64 = phase_attention64(gen)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
-    record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows
+    record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows + attn64_rows
     # the int8 cell_gather at both batches the clustered engine probes with
     record["cell_gather_int8"] = {
         f"B={r['B']}": {n: r[n] for n in ("route", "ms", "kernel_device_ms", "bound_ms",
@@ -2528,6 +3040,9 @@ def main(argv=None) -> int:
     record["refine"] = phase_refine(args, emb, queries)
     log(f"[refine] phase took {time.perf_counter() - t0:.1f} s")
     del emb, queries
+    t0 = time.perf_counter()
+    record["teacher"] = phase_teacher(args)
+    log(f"[teacher] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
     record["profiler_windows"] = dict(PROFILER)
     log(f"[profiler] kernel_device_ms windows: {json.dumps(PROFILER)}")
@@ -2536,6 +3051,7 @@ def main(argv=None) -> int:
     train_launches = record["train"]["launches"]
     cluster_launches = record["clustered"]["launches"]
     refine_bf16 = {f"{k}.bf16": v for k, v in record["refine"]["bf16_launches"].items()}
+    teacher_launches = record["teacher"]["teacher_launches"]
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
@@ -2568,6 +3084,14 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/topk_cluster.py:272", bf16_cells["cell_gather"], refine_bf16),
         ("cell_gather_b1.bf16", "sskd_tpu_torch/csrc/cell_gather.cu",
          "sskd_tpu/ops/topk_cluster.py:308", bf16_cells["cell_gather_b1"], refine_bf16),
+        # the teacher's head dim 64 (CUDA-core routes, f32 as the teacher computes), with
+        # the launches of its train steps (dropattn) and of its scoring (flash)
+        ("flash_attn_fwd.d64", "sskd_tpu_torch/csrc/flash_attn.cu", "sskd_tpu/ops/attention.py:43",
+         main_d64["flash_attn_fwd.d64"], teacher_launches),
+        ("dropattn_fwd.d64", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
+         "sskd_tpu/ops/attention.py:266", main_d64["dropattn_fwd.d64"], teacher_launches),
+        ("dropattn_bwd.d64", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
+         "sskd_tpu/ops/attention.py:296", main_d64["dropattn_bwd.d64"], teacher_launches),
     ):
         check(launches[name] > 0, f"kernel {name} was launched no time on its path")
         kernels.append({

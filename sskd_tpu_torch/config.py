@@ -2,13 +2,13 @@
 
 Standard-library dataclasses in place of pydantic (the machine with the GPU
 has neither pydantic nor pyyaml). The sections the port reads keep the JAX
-package's field names, defaults and bounds: ``student``, ``index``,
-``search``, ``service``, ``precision``, ``cors`` and ``monitoring`` for
-serving, ``loss``, ``training`` and the ANCE fields of ``mining`` for KD
-training, each with only the fields the port reads. Sections and fields
-that later slices need (teacher, the other mining stages, rate limiting,
-auth, cache, hybrid) are not here yet; a ``mesh`` section raises, as
-data-parallel training is not ported.
+package's field names, defaults and bounds: ``student``, ``teacher``,
+``index``, ``search`` (with the rerank fields), ``service``, ``precision``,
+``cors`` and ``monitoring`` for serving, ``loss``, ``training`` and the ANCE
+fields of ``mining`` for KD training, each with only the fields the port
+reads. Sections and fields that later slices need (the other mining stages,
+rate limiting, auth, cache, hybrid) are not here yet; a ``mesh`` section
+raises, as data-parallel training is not ported.
 
 Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
 for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
@@ -62,6 +62,19 @@ class StudentModelConfig:
     def __post_init__(self):
         _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
         _check(self, "pooling", choices=("mean", "cls"))
+
+
+@dataclass
+class TeacherModelConfig:
+    """The cross-encoder teacher (sskd_tpu/config.py:44)."""
+
+    model_name: str = "BAAI/bge-reranker-large"
+    max_seq_length: int = 512
+    batch_size: int = 32
+
+    def __post_init__(self):
+        _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
+        _check(self, "batch_size", ge=1, kind=_INT)
 
 
 @dataclass
@@ -138,10 +151,17 @@ class SearchConfig:
     default_k: int = 10
     max_k: int = 100
     rerank_enabled: bool = False
+    rerank_top_k: int = 50  # results the teacher rescores
+    rerank_timeout_ms: float = 5000.0  # past it, the bi-encoder order is served
 
     def __post_init__(self):
         _check(self, "default_k", ge=1, le=100, kind=_INT)
         _check(self, "max_k", ge=1, kind=_INT)
+        _check(self, "rerank_top_k", ge=1, le=200, kind=_INT)
+        _check(self, "rerank_timeout_ms", kind=_NUM)
+        if self.rerank_timeout_ms <= 0.0:
+            raise ConfigError(f"SearchConfig.rerank_timeout_ms={self.rerank_timeout_ms!r}: "
+                              "must be > 0")
 
 
 @dataclass
@@ -232,6 +252,7 @@ class MiningConfig:
 
 _SECTIONS = {
     "student": StudentModelConfig,
+    "teacher": TeacherModelConfig,
     "index": IndexConfig,
     "precision": PrecisionConfig,
     "cors": CORSConfig,
@@ -247,6 +268,7 @@ _SECTIONS = {
 @dataclass
 class Settings:
     student: StudentModelConfig = field(default_factory=StudentModelConfig)
+    teacher: TeacherModelConfig = field(default_factory=TeacherModelConfig)
     index: IndexConfig = field(default_factory=IndexConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     cors: CORSConfig = field(default_factory=CORSConfig)

@@ -25,9 +25,11 @@
 // operations per clock per SM (132 SMs, ~1.9 GHz); the two exps per score
 // (one per pass below) add ~0.06 ms on the special-function unit.
 //
-// Two routes, chosen by the wrapper (ops/attention.py) from (dtype, L):
+// Two routes, chosen by the wrapper (ops/attention.py dropattn_bwd_route)
+// from (dtype, d, L):
 //
-// 1. bf16 and L <= 256 (the training lengths are 64 and 192):
+// 1. bf16, d = 32 and L <= 256 (the student's training lengths are 64 and
+//    192):
 //    dropattn_bwd_tc_kernel, a block holding one whole head at a time in
 //    shared memory, as the TPU kernel holds it in VMEM. cp.async brings q, k,
 //    v, g (rows padded to 80 bytes), the bias row and the lse. Warp w owns
@@ -57,13 +59,17 @@
 //    by cp.async into a second buffer while this head computes. Every input
 //    is read once, no atomics: two launches give the same bits. Shared
 //    memory at L = 192: 208,896 bytes (one block of 12 warps per SM).
-// 2. f32, or L > 256 (chip_smoke's L = 512 case; training never runs it):
-//    the first kernel pair on CUDA cores. The dq kernel (a thread per query
-//    row, K and V of the head in shared memory) sums D in one pass and
+// 2. f32, d = 64 (the teacher's head dim, bf16 too), or L > 256: the first
+//    kernel pair on CUDA cores, at d = 32 and 64. The dq kernel (a thread per
+//    query row, K and V of the head in shared memory) sums D in one pass and
 //    round(ds) k in a second and writes D out; the dk/dv kernel (a thread per
 //    key row, Q and G in shared memory) walks the queries once, drawing the
-//    mask one element at a time. The f32 instantiation rounds nothing, which
-//    keeps the f32 check of the train phase to summation order.
+//    mask one element at a time. When a head's rows do not fit a block's
+//    227 KB (2 L d sizeof(T) + 4 or 8 L bytes: at d = 64 in f32 above L = 450
+//    or 447) each kernel streams them through shared memory in chunks of 128
+//    rows, in the same order, so the sums and the mask are unchanged and any
+//    L is taken. The f32 instantiation rounds nothing, which keeps the f32
+//    check of the train phase to summation order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,49 +85,76 @@
 namespace sskd {
 
 constexpr int DB_TB = 64;  // rows per block == threads per block
+constexpr size_t DB_SMEM_MAX = 227 * 1024;  // shared memory a block may hold
+constexpr int DB_KC = 128;  // rows a chunk when the head does not fit DB_SMEM_MAX
+
+// Rows (keys for the dq kernel, queries for the dk/dv kernel) a block holds
+// in shared memory at once: all L when they fit DB_SMEM_MAX, else DB_KC (a
+// multiple of 4, so each chunk of keys starts a Philox group). A row takes
+// two rows of T and `extra` floats.
+template <typename T, int D>
+static int db_chunk_rows(int L, int extra) {
+  const size_t per_row = 2 * (size_t)D * sizeof(T) + extra * sizeof(float);
+  return (size_t)L * per_row <= DB_SMEM_MAX ? L : DB_KC;
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DB_TB) dropattn_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const T* __restrict__ g, const float* __restrict__ lse,
-    float* __restrict__ dsum, T* __restrict__ dq, int h, int L, int n_t, float sm_scale,
+    float* __restrict__ dsum, T* __restrict__ dq, int h, int L, int n_t, int kc, float sm_scale,
     uint32_t seed, float p, float inv) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_k = reinterpret_cast<T*>(smem);
-  T* s_v = s_k + (size_t)L * D;
-  float* s_bias = reinterpret_cast<float*>(s_v + (size_t)L * D);
+  T* s_v = s_k + (size_t)kc * D;
+  float* s_bias = reinterpret_cast<float*>(s_v + (size_t)kc * D);
 
   const int tid = threadIdx.x;
   const long bh = blockIdx.x / n_t;
   const int qi = (blockIdx.x % n_t) * DB_TB + tid;
   const long b = bh / h;
   const long head_off = bh * (long)L * D;
+  const bool live = qi < L;  // rows past L take part in the barriers only
+  const bool resident = kc >= L;  // the whole head in one chunk, staged once
 
-  copy_rows<T, D>(s_k, k + head_off, L, tid, DB_TB);
-  copy_rows<T, D>(s_v, v + head_off, L, tid, DB_TB);
-  for (int j = tid; j < L; j += DB_TB) s_bias[j] = bias[b * L + j];
-  __syncthreads();
-  if (qi >= L) return;
+  // keys j0 .. j0 + n - 1: their k and v rows and bias
+  auto stage = [&](int j0) {
+    const int n = min(kc, L - j0);
+    __syncthreads();
+    copy_rows<T, D>(s_k, k + head_off + (long)j0 * D, n, tid, DB_TB);
+    copy_rows<T, D>(s_v, v + head_off + (long)j0 * D, n, tid, DB_TB);
+    for (int j = tid; j < n; j += DB_TB) s_bias[j] = bias[b * L + j0 + j];
+    __syncthreads();
+    return n;
+  };
 
   float qr[D], gr[D];
-  load_row<T, D>(qr, q + head_off + (long)qi * D);
-  load_row<T, D>(gr, g + head_off + (long)qi * D);
-  const float lse_i = lse[bh * L + qi];
+  float lse_i = 0.f;
+  if (live) {
+    load_row<T, D>(qr, q + head_off + (long)qi * D);
+    load_row<T, D>(gr, g + head_off + (long)qi * D);
+    lse_i = lse[bh * L + qi];
+  }
 
   // pass 1: D = <dprobs, probs>
   float dsum_i = 0.f;
-  for (int j0 = 0; j0 < L; j0 += 4) {
-    Philox4 r = {};
-    if (p > 0.f) r = philox4x32_10((uint32_t)(j0 >> 2), (uint32_t)qi, seed, (uint32_t)bh);
+  for (int j0 = 0; j0 < L; j0 += kc) {
+    const int n = stage(j0);
+    if (!live) continue;
+    for (int c4 = 0; c4 < n; c4 += 4) {
+      Philox4 r = {};
+      if (p > 0.f)
+        r = philox4x32_10((uint32_t)((j0 + c4) >> 2), (uint32_t)qi, seed, (uint32_t)bh);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = j0 + jj;
-      if (j >= L) break;
-      const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
-      const float prob = expf(s - lse_i);
-      float dprobs = dot_row<T, D>(gr, s_v + (long)j * D);
-      if (p > 0.f) dprobs = philox_uniform(r.w[jj]) >= p ? dprobs * inv : 0.f;
-      dsum_i = fmaf(dprobs, prob, dsum_i);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = c4 + jj;
+        if (j >= n) break;
+        const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
+        const float prob = expf(s - lse_i);
+        float dprobs = dot_row<T, D>(gr, s_v + (long)j * D);
+        if (p > 0.f) dprobs = philox_uniform(r.w[jj]) >= p ? dprobs * inv : 0.f;
+        dsum_i = fmaf(dprobs, prob, dsum_i);
+      }
     }
   }
 
@@ -129,21 +162,27 @@ __global__ void __launch_bounds__(DB_TB) dropattn_bwd_dq_kernel(
   float acc[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  for (int j0 = 0; j0 < L; j0 += 4) {
-    Philox4 r = {};
-    if (p > 0.f) r = philox4x32_10((uint32_t)(j0 >> 2), (uint32_t)qi, seed, (uint32_t)bh);
+  for (int j0 = 0; j0 < L; j0 += kc) {
+    const int n = resident ? L : stage(j0);
+    if (!live) continue;
+    for (int c4 = 0; c4 < n; c4 += 4) {
+      Philox4 r = {};
+      if (p > 0.f)
+        r = philox4x32_10((uint32_t)((j0 + c4) >> 2), (uint32_t)qi, seed, (uint32_t)bh);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = j0 + jj;
-      if (j >= L) break;
-      const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
-      const float prob = expf(s - lse_i);
-      float dprobs = dot_row<T, D>(gr, s_v + (long)j * D);
-      if (p > 0.f) dprobs = philox_uniform(r.w[jj]) >= p ? dprobs * inv : 0.f;
-      const float ds = prob * (dprobs - dsum_i) * sm_scale;
-      axpy_row<T, D>(acc, round_as(ds, (const T*)nullptr), s_k + (long)j * D);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = c4 + jj;
+        if (j >= n) break;
+        const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
+        const float prob = expf(s - lse_i);
+        float dprobs = dot_row<T, D>(gr, s_v + (long)j * D);
+        if (p > 0.f) dprobs = philox_uniform(r.w[jj]) >= p ? dprobs * inv : 0.f;
+        const float ds = prob * (dprobs - dsum_i) * sm_scale;
+        axpy_row<T, D>(acc, round_as(ds, (const T*)nullptr), s_k + (long)j * D);
+      }
     }
   }
+  if (!live) return;
   T* o = dq + head_off + (long)qi * D;
 #pragma unroll
   for (int c = 0; c < D; ++c) store_as(o + c, acc[c]);
@@ -155,51 +194,60 @@ __global__ void __launch_bounds__(DB_TB) dropattn_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const T* __restrict__ g, const float* __restrict__ lse,
     const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv, int h, int L,
-    int n_t, float sm_scale, uint32_t seed, float p, float inv) {
+    int n_t, int qc, float sm_scale, uint32_t seed, float p, float inv) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_q = reinterpret_cast<T*>(smem);
-  T* s_g = s_q + (size_t)L * D;
-  float* s_lse = reinterpret_cast<float*>(s_g + (size_t)L * D);
-  float* s_dsum = s_lse + L;
+  T* s_g = s_q + (size_t)qc * D;
+  float* s_lse = reinterpret_cast<float*>(s_g + (size_t)qc * D);
+  float* s_dsum = s_lse + qc;
 
   const int tid = threadIdx.x;
   const long bh = blockIdx.x / n_t;
   const int kj = (blockIdx.x % n_t) * DB_TB + tid;
   const long b = bh / h;
   const long head_off = bh * (long)L * D;
-
-  copy_rows<T, D>(s_q, q + head_off, L, tid, DB_TB);
-  copy_rows<T, D>(s_g, g + head_off, L, tid, DB_TB);
-  for (int i = tid; i < L; i += DB_TB) {
-    s_lse[i] = lse[bh * L + i];
-    s_dsum[i] = dsum[bh * L + i];
-  }
-  __syncthreads();
-  if (kj >= L) return;
+  const bool live = kj < L;  // rows past L take part in the barriers only
 
   float kr[D], vr[D], acc_k[D], acc_v[D];
-  load_row<T, D>(kr, k + head_off + (long)kj * D);
-  load_row<T, D>(vr, v + head_off + (long)kj * D);
 #pragma unroll
   for (int c = 0; c < D; ++c) {
     acc_k[c] = 0.f;
     acc_v[c] = 0.f;
   }
-  const float bias_j = bias[b * L + kj];
-  const bool drop = p > 0.f;
-  for (int i = 0; i < L; ++i) {
-    const T* q_i = s_q + (long)i * D;
-    const T* g_i = s_g + (long)i * D;
-    const float s = dot_row<T, D>(kr, q_i) * sm_scale + bias_j;
-    const float prob = expf(s - s_lse[i]);
-    const bool keep = !drop || dropout_keep(seed, (uint32_t)bh, i, kj, p);
-    const float pd = drop ? (keep ? prob * inv : 0.f) : prob;
-    axpy_row<T, D>(acc_v, round_as(pd, (const T*)nullptr), g_i);
-    float dprobs = dot_row<T, D>(vr, g_i);
-    if (drop) dprobs = keep ? dprobs * inv : 0.f;
-    const float ds = prob * (dprobs - s_dsum[i]) * sm_scale;
-    axpy_row<T, D>(acc_k, round_as(ds, (const T*)nullptr), q_i);
+  float bias_j = 0.f;
+  if (live) {
+    load_row<T, D>(kr, k + head_off + (long)kj * D);
+    load_row<T, D>(vr, v + head_off + (long)kj * D);
+    bias_j = bias[b * L + kj];
   }
+  const bool drop = p > 0.f;
+  // the queries in chunks of qc: their q and g rows, lse and D
+  for (int i0 = 0; i0 < L; i0 += qc) {
+    const int n = min(qc, L - i0);
+    __syncthreads();
+    copy_rows<T, D>(s_q, q + head_off + (long)i0 * D, n, tid, DB_TB);
+    copy_rows<T, D>(s_g, g + head_off + (long)i0 * D, n, tid, DB_TB);
+    for (int i = tid; i < n; i += DB_TB) {
+      s_lse[i] = lse[bh * L + i0 + i];
+      s_dsum[i] = dsum[bh * L + i0 + i];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = 0; i < n; ++i) {
+      const T* q_i = s_q + (long)i * D;
+      const T* g_i = s_g + (long)i * D;
+      const float s = dot_row<T, D>(kr, q_i) * sm_scale + bias_j;
+      const float prob = expf(s - s_lse[i]);
+      const bool keep = !drop || dropout_keep(seed, (uint32_t)bh, i0 + i, kj, p);
+      const float pd = drop ? (keep ? prob * inv : 0.f) : prob;
+      axpy_row<T, D>(acc_v, round_as(pd, (const T*)nullptr), g_i);
+      float dprobs = dot_row<T, D>(vr, g_i);
+      if (drop) dprobs = keep ? dprobs * inv : 0.f;
+      const float ds = prob * (dprobs - s_dsum[i]) * sm_scale;
+      axpy_row<T, D>(acc_k, round_as(ds, (const T*)nullptr), q_i);
+    }
+  }
+  if (!live) return;
   T* ok = dk + head_off + (long)kj * D;
   T* ov = dv + head_off + (long)kj * D;
 #pragma unroll
@@ -480,21 +528,22 @@ template <typename T, int D>
 static int launch(const void* q, const void* k, const void* v, const float* bias, const void* g,
                   const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int h,
                   int L, float sm_scale, uint32_t seed, float p, float inv, cudaStream_t stream) {
-  const size_t smem_dq = 2 * (size_t)L * D * sizeof(T) + (size_t)L * sizeof(float);
-  const size_t smem_dkv = 2 * (size_t)L * D * sizeof(T) + 2 * (size_t)L * sizeof(float);
+  const int kc = db_chunk_rows<T, D>(L, 1), qc = db_chunk_rows<T, D>(L, 2);
+  const size_t smem_dq = 2 * (size_t)kc * D * sizeof(T) + (size_t)kc * sizeof(float);
+  const size_t smem_dkv = 2 * (size_t)qc * D * sizeof(T) + 2 * (size_t)qc * sizeof(float);
   int rc = allow_smem(dropattn_bwd_dq_kernel<T, D>, smem_dq);
   if (rc == 0) rc = allow_smem(dropattn_bwd_dkv_kernel<T, D>, smem_dkv);
   if (rc != 0) return rc;
   const int n_t = (L + DB_TB - 1) / DB_TB;
   const unsigned grid = (unsigned)((long)B * h * n_t);
   dropattn_bwd_dq_kernel<T, D><<<grid, DB_TB, smem_dq, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (const T*)g, lse, dsum, (T*)dq, h, L, n_t,
+      (const T*)q, (const T*)k, (const T*)v, bias, (const T*)g, lse, dsum, (T*)dq, h, L, n_t, kc,
       sm_scale, seed, p, inv);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   dropattn_bwd_dkv_kernel<T, D><<<grid, DB_TB, smem_dkv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bias, (const T*)g, lse, dsum, (T*)dk, (T*)dv, h,
-      L, n_t, sm_scale, seed, p, inv);
+      L, n_t, qc, sm_scale, seed, p, inv);
   return 0;
 }
 
@@ -503,8 +552,8 @@ static int launch(const void* q, const void* k, const void* v, const float* bias
 // C interface, loaded with ctypes.
 //   dtype: 0 f32, 1 bf16. q, k, v, g, dq, dk, dv: [B, h, L, d] contiguous;
 //   bias: [B, L] f32; lse: [B, h, L] f32 from the forward; dsum: [B, h, L] f32
-//   scratch. d = 32 only (others are refused); 0 <= p < 1, inv = 1 / (1 - p)
-//   rounded to f32.
+//   scratch. d = 32 or 64 (others are refused), any L; 0 <= p < 1, inv =
+//   1 / (1 - p) rounded to f32.
 // Launches the dq kernel, then the dk/dv kernel, on one stream.
 // Returns cudaGetLastError() after the launches.
 extern "C" int sskd_dropattn_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -513,15 +562,21 @@ extern "C" int sskd_dropattn_bwd(int dtype, const void* q, const void* k, const 
                                  int d, float sm_scale, uint32_t seed, float p, float inv,
                                  void* stream) {
   using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0 || d != 32 || !(p >= 0.f && p < 1.f))
+  if (B <= 0 || h <= 0 || L <= 0 || (d != 32 && d != 64) || !(p >= 0.f && p < 1.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (dtype == 0)
+  if (dtype == 0 && d == 32)
     rc = launch<float, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p,
                            inv, s);
-  else if (dtype == 1)
+  else if (dtype == 0)
+    rc = launch<float, 64>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p,
+                           inv, s);
+  else if (dtype == 1 && d == 32)
     rc = launch<__nv_bfloat16, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale,
+                                   seed, p, inv, s);
+  else if (dtype == 1)
+    rc = launch<__nv_bfloat16, 64>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale,
                                    seed, p, inv, s);
   else rc = (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;

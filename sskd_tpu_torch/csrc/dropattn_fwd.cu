@@ -24,9 +24,10 @@
 // backward, which draws the same mask once).
 //
 // Two routes, chosen by the wrapper (ops/attention.py dropattn_fwd_route)
-// from (dtype, L):
+// from (dtype, d, L):
 //
-// 1. bf16 and L <= 1024 (the training lengths are 64 and 192):
+// 1. bf16, d = 32 and L <= 1024 (the student's training lengths are 64 and
+//    192):
 //    dropattn_fwd_tc_kernel on the tensor cores. A block of 8 warps owns 128
 //    query rows, 16 a warp, whose q stays in registers as mma A fragments; the
 //    head's whole K and V (rows padded to 80 bytes, so ldmatrix reads them
@@ -50,14 +51,20 @@
 //    the four keys of its call, and V's rows follow the same order through
 //    ldmatrix's per-lane addresses. ops/attention.py dropattn_fwd_error_bound
 //    derives what the folded exponent and the truncating sums add.
-// 2. f32, or bf16 at L > 1024: dropattn_fwd_kernel, the first kernel on CUDA
-//    cores: one block of 64 threads per (b*h, 64-query tile), each thread
-//    owning one query row with q and its f32 accumulator in registers, the
-//    head's K, V (in T) and bias row in shared memory read as broadcasts; two
-//    passes over the keys, the first for the row max and sum online, the
-//    second forming each probability as the reference does (exp(s - max) /
-//    sum), applying the mask and accumulating pd v. The f32 instantiation
-//    rounds nothing, which keeps the f32 checks to summation order.
+// 2. f32, d = 64 (the teacher's head dim, bf16 too), or bf16 at L > 1024:
+//    dropattn_fwd_kernel, the first kernel on CUDA cores, at d = 32 and 64:
+//    one block of 64 threads per (b*h, 64-query tile), each thread owning one
+//    query row with q and its f32 accumulator in registers, the head's K, V
+//    (in T) and bias row in shared memory read as broadcasts; two passes over
+//    the keys, the first for the row max and sum online, the second forming
+//    each probability as the reference does (exp(s - max) / sum), applying the
+//    mask and accumulating pd v. When the head's K, V and bias do not fit a
+//    block's 227 KB (2 L d sizeof(T) + 4 L bytes: at d = 64 in f32 above L =
+//    450, in bf16 above L = 894) both passes stream them through shared memory
+//    in chunks of 128 keys; the mask is a function of (row, col) and each
+//    row's sums run over the keys in the same order, so chunking changes no
+//    bit of the result, and any L is taken. The f32 instantiation rounds
+//    nothing, which keeps the f32 checks to summation order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,41 +78,65 @@
 namespace sskd {
 
 constexpr int DF_QB = 64;  // query rows per block == threads per block
+constexpr size_t DF_SMEM_MAX = 227 * 1024;  // shared memory a block may hold
+constexpr int DF_KC = 128;  // keys a chunk when the head does not fit DF_SMEM_MAX
+
+// Keys a block of the CUDA-core kernel holds in shared memory at once: the
+// head's L when its K and V rows and bias fit DF_SMEM_MAX, else DF_KC (a
+// multiple of 4, so each chunk starts a Philox group).
+template <typename T, int D>
+static int df_chunk_keys(int L) {
+  const size_t per_key = 2 * (size_t)D * sizeof(T) + sizeof(float);
+  return (size_t)L * per_key <= DF_SMEM_MAX ? L : DF_KC;
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DF_QB) dropattn_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ lse, int h,
-    int L, int n_qt, float sm_scale, uint32_t seed, float p, float inv) {
+    int L, int n_qt, int kc, float sm_scale, uint32_t seed, float p, float inv) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_k = reinterpret_cast<T*>(smem);
-  T* s_v = s_k + (size_t)L * D;
-  float* s_bias = reinterpret_cast<float*>(s_v + (size_t)L * D);
+  T* s_v = s_k + (size_t)kc * D;
+  float* s_bias = reinterpret_cast<float*>(s_v + (size_t)kc * D);
 
   const int tid = threadIdx.x;
   const long bh = blockIdx.x / n_qt;
   const int qi = (blockIdx.x % n_qt) * DF_QB + tid;
   const long b = bh / h;
   const long head_off = bh * (long)L * D;
+  // rows past L take part in every chunk's barriers and compute nothing
+  const bool live = qi < L;
+  // the whole head in one chunk: staged once, for both passes
+  const bool resident = kc >= L;
 
-  copy_rows<T, D>(s_k, k + head_off, L, tid, DF_QB);
-  copy_rows<T, D>(s_v, v + head_off, L, tid, DF_QB);
-  for (int j = tid; j < L; j += DF_QB) s_bias[j] = bias[b * L + j];
-  __syncthreads();
-  if (qi >= L) return;
+  // keys j0 .. j0 + n - 1 (and their v rows when with_v) into shared memory
+  auto stage = [&](int j0, bool with_v) {
+    const int n = min(kc, L - j0);
+    __syncthreads();  // every thread is done with the chunk before
+    copy_rows<T, D>(s_k, k + head_off + (long)j0 * D, n, tid, DF_QB);
+    if (with_v) copy_rows<T, D>(s_v, v + head_off + (long)j0 * D, n, tid, DF_QB);
+    for (int j = tid; j < n; j += DF_QB) s_bias[j] = bias[b * L + j0 + j];
+    __syncthreads();
+    return n;
+  };
 
   float qr[D];
-  load_row<T, D>(qr, q + head_off + (long)qi * D);
+  if (live) load_row<T, D>(qr, q + head_off + (long)qi * D);
 
   // pass 1: row max and sum, online
   float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < L; ++j) {
-    const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
-    if (s > m) {
-      l = l * expf(m - s) + 1.f;
-      m = s;
-    } else {
-      l += expf(s - m);
+  for (int j0 = 0; j0 < L; j0 += kc) {
+    const int n = stage(j0, resident);
+    if (!live) continue;
+    for (int j = 0; j < n; ++j) {
+      const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
+      if (s > m) {
+        l = l * expf(m - s) + 1.f;
+        m = s;
+      } else {
+        l += expf(s - m);
+      }
     }
   }
 
@@ -113,20 +144,26 @@ __global__ void __launch_bounds__(DF_QB) dropattn_fwd_kernel(
   float acc[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  for (int j0 = 0; j0 < L; j0 += 4) {
-    Philox4 r = {};
-    if (p > 0.f) r = philox4x32_10((uint32_t)(j0 >> 2), (uint32_t)qi, seed, (uint32_t)bh);
+  for (int j0 = 0; j0 < L; j0 += kc) {
+    const int n = resident ? L : stage(j0, true);
+    if (!live) continue;
+    for (int c4 = 0; c4 < n; c4 += 4) {
+      Philox4 r = {};
+      if (p > 0.f)
+        r = philox4x32_10((uint32_t)((j0 + c4) >> 2), (uint32_t)qi, seed, (uint32_t)bh);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = j0 + jj;
-      if (j >= L) break;
-      const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
-      const float prob = expf(s - m) / l;
-      float pd = prob;
-      if (p > 0.f) pd = philox_uniform(r.w[jj]) >= p ? prob * inv : 0.f;
-      axpy_row<T, D>(acc, round_as(pd, (const T*)nullptr), s_v + (long)j * D);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = c4 + jj;
+        if (j >= n) break;
+        const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
+        const float prob = expf(s - m) / l;
+        float pd = prob;
+        if (p > 0.f) pd = philox_uniform(r.w[jj]) >= p ? prob * inv : 0.f;
+        axpy_row<T, D>(acc, round_as(pd, (const T*)nullptr), s_v + (long)j * D);
+      }
     }
   }
+  if (!live) return;
   T* o = out + head_off + (long)qi * D;
 #pragma unroll
   for (int c = 0; c < D; ++c) store_as(o + c, acc[c]);
@@ -137,8 +174,8 @@ template <typename T, int D>
 static int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
                   float* lse, int B, int h, int L, float sm_scale, uint32_t seed, float p,
                   float inv, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)L * D * sizeof(T) + (size_t)L * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int kc = df_chunk_keys<T, D>(L);
+  const size_t smem = 2 * (size_t)kc * D * sizeof(T) + (size_t)kc * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         dropattn_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -147,7 +184,8 @@ static int launch(const void* q, const void* k, const void* v, const float* bias
   const int n_qt = (L + DF_QB - 1) / DF_QB;
   const unsigned grid = (unsigned)((long)B * h * n_qt);
   dropattn_fwd_kernel<T, D><<<grid, DF_QB, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, lse, h, L, n_qt, sm_scale, seed, p, inv);
+      (const T*)q, (const T*)k, (const T*)v, bias, (T*)out, lse, h, L, n_qt, kc, sm_scale, seed,
+      p, inv);
   return 0;
 }
 
@@ -349,23 +387,28 @@ __global__ void keep_mask_kernel(uint8_t* out, long BH, int L, uint32_t seed, fl
 
 // C interface, loaded with ctypes.
 //   dtype: 0 f32, 1 bf16. q, k, v, out: [B, h, L, d] contiguous; bias: [B, L]
-//   f32; lse: [B, h, L] f32 (written). d = 32 only (the head dim of the models
-//   the port trains; others are refused); 0 <= p < 1 and inv = 1 / (1 - p),
-//   rounded to f32 by the caller as the plain version rounds it.
+//   f32; lse: [B, h, L] f32 (written). d = 32 or 64 (the head dims of the
+//   models the port trains: e5-small-v2's and bge-reranker-large's; others
+//   are refused), any L; 0 <= p < 1 and inv = 1 / (1 - p), rounded to f32 by
+//   the caller as the plain version rounds it.
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const float* bias, void* out, float* lse, int B, int h, int L,
                                  int d, float sm_scale, uint32_t seed, float p, float inv,
                                  void* stream) {
   using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0 || d != 32 || !(p >= 0.f && p < 1.f))
+  if (B <= 0 || h <= 0 || L <= 0 || (d != 32 && d != 64) || !(p >= 0.f && p < 1.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (dtype == 0)
+  if (dtype == 0 && d == 32)
     rc = launch<float, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
-  else if (dtype == 1)
+  else if (dtype == 0)
+    rc = launch<float, 64>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
+  else if (dtype == 1 && d == 32)
     rc = launch<__nv_bfloat16, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
+  else if (dtype == 1)
+    rc = launch<__nv_bfloat16, 64>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
   else rc = (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 """BERT-family encoder as torch modules (port of sskd_tpu/models/bert.py).
 
-One backbone for the bi-encoder student (e5-small-v2 class) and, later, the
-cross-encoder teacher (XLM-RoBERTa class). Module and parameter names follow
-the Flax tree (``word_embeddings``, ``layers.{i}.attention.query``, ...), so
+One backbone for the bi-encoder student (e5-small-v2 class, :class:`BiEncoder`)
+and the cross-encoder teacher (XLM-RoBERTa class, :class:`CrossEncoder`).
+Module and parameter names follow the Flax tree (``word_embeddings``,
+``layers.{i}.attention.query``, ``pooler``, ...), so
 :mod:`sskd_tpu_torch.models.weights` maps one onto the other by name.
 
 Details kept from the JAX package: erf GELU; an additive attention bias of
@@ -367,3 +368,24 @@ class BiEncoder(nn.Module):
         emb = hidden[:, 0, :] if self.pooling == "cls" else mean_pool(hidden, attention_mask)
         emb = emb.to(torch.float32)
         return l2_normalize(emb) if self.normalize else emb
+
+
+class CrossEncoder(nn.Module):
+    """Teacher tower: encoder -> the CLS row -> ``pooler`` dense layer in the
+    compute type -> tanh -> f32 -> ``classifier`` dense layer to one output
+    in f32 (the XLM-R classification head). Output ``[B]`` f32 relevance
+    logits. Parameters are f32; the encoder and the pooler compute in
+    ``config.compute_dtype``."""
+
+    def __init__(self, config: BertConfig):
+        super().__init__()
+        self.config = config
+        self.encoder = BertEncoder(config)
+        self.pooler = Linear(config.hidden_size, config.hidden_size, config.compute_dtype)
+        self.classifier = Linear(config.hidden_size, 1, torch.float32)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                dropout_seed: int | None = None) -> torch.Tensor:
+        hidden = self.encoder(input_ids, attention_mask, token_type_ids, dropout_seed)
+        pooled = torch.tanh(self.pooler(hidden[:, 0, :]))
+        return self.classifier(pooled.to(torch.float32))[:, 0]

@@ -1,19 +1,23 @@
-"""Carry BiEncoder weights between the Flax parameter layout and the port.
+"""Carry BiEncoder and CrossEncoder weights between the Flax parameter
+layout and the port.
 
 The JAX package keeps parameters as a Flax tree: ``Dense`` kernels
 ``[in, out]`` with a ``bias``, ``LayerNorm`` ``scale`` / ``bias``, ``Embed``
 ``embedding`` tables. :func:`bi_encoder_from_jax_params` turns such a tree of
 numpy arrays into a ``state_dict`` of :class:`~sskd_tpu_torch.models.bert.
-BiEncoder` (``Linear.weight`` is ``[out, in]``, so kernels are transposed).
-The port reads no msgpack and no Flax: callers hand it numpy arrays.
+BiEncoder` (``Linear.weight`` is ``[out, in]``, so kernels are transposed),
+:func:`cross_encoder_from_jax_params` one of :class:`~sskd_tpu_torch.models.
+bert.CrossEncoder` (the encoder, then the ``pooler`` and ``classifier``
+head). The port reads no msgpack and no Flax: callers hand it numpy arrays.
 
 :func:`random_jax_params` draws a Flax-layout tree with the initializers Flax
 applies by default (``lecun_normal`` for Dense kernels, ``variance_scaling(1,
 fan_in, normal)`` for Embed tables, ones and zeros for LayerNorm, zero
-biases) from a numpy seed. It is how the port makes the seeded random
-weights the JAX package serves when a model has no weights on disk
-(sskd_tpu/models/student.py:114-130). The distributions match; the numbers
-do not, as JAX's random bits differ from numpy's.
+biases) from a numpy seed, with the cross-encoder's two head layers when
+asked. It is how the port makes the seeded random weights the JAX package
+serves when a model has no weights on disk (sskd_tpu/models/student.py:114-130,
+sskd_tpu/models/teacher.py:66-80). The distributions match; the numbers do
+not, as JAX's random bits differ from numpy's.
 """
 
 from __future__ import annotations
@@ -33,41 +37,56 @@ def _tree(params: Mapping) -> Mapping:
     return params["params"] if "params" in params else params
 
 
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _dense(sd: dict, prefix: str, node: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(node["kernel"]).T.contiguous()
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
 def bi_encoder_from_jax_params(params: Mapping, config: BertConfig) -> dict[str, torch.Tensor]:
     """Flax BiEncoder parameter tree (numpy arrays) -> BiEncoder state_dict (f32)."""
     enc = _tree(params)["encoder"]
-
-    def t(x) -> torch.Tensor:
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
     sd: dict[str, torch.Tensor] = {}
 
-    def dense(prefix: str, node: Mapping) -> None:
-        sd[f"{prefix}.weight"] = t(node["kernel"]).T.contiguous()
-        sd[f"{prefix}.bias"] = t(node["bias"])
-
     def norm(prefix: str, node: Mapping) -> None:
-        sd[f"{prefix}.weight"] = t(node["scale"])
-        sd[f"{prefix}.bias"] = t(node["bias"])
+        sd[f"{prefix}.weight"] = _t(node["scale"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
 
     for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
-        sd[f"encoder.{name}.weight"] = t(enc[name]["embedding"])
+        sd[f"encoder.{name}.weight"] = _t(enc[name]["embedding"])
     norm("encoder.embeddings_norm", enc["embeddings_norm"])
     for i in range(config.num_layers):
         layer = enc[f"layer_{i}"]
         pre = f"encoder.layers.{i}"
         for name in _LINEAR_NAMES:
-            dense(f"{pre}.attention.{name}", layer["attention"][name])
+            _dense(sd, f"{pre}.attention.{name}", layer["attention"][name])
         norm(f"{pre}.attention_norm", layer["attention_norm"])
-        dense(f"{pre}.intermediate", layer["intermediate"])
-        dense(f"{pre}.ffn_output", layer["ffn_output"])
+        _dense(sd, f"{pre}.intermediate", layer["intermediate"])
+        _dense(sd, f"{pre}.ffn_output", layer["ffn_output"])
         norm(f"{pre}.ffn_norm", layer["ffn_norm"])
     return sd
 
 
-def random_jax_params(config: BertConfig, seed: int = 0) -> dict:
+def cross_encoder_from_jax_params(params: Mapping,
+                                  config: BertConfig) -> dict[str, torch.Tensor]:
+    """Flax CrossEncoder parameter tree (numpy arrays: ``encoder``,
+    ``pooler``, ``classifier``) -> CrossEncoder state_dict (f32)."""
+    tree = _tree(params)
+    sd = bi_encoder_from_jax_params(tree, config)
+    _dense(sd, "pooler", tree["pooler"])
+    _dense(sd, "classifier", tree["classifier"])
+    return sd
+
+
+def random_jax_params(config: BertConfig, seed: int = 0, cross_encoder: bool = False) -> dict:
     """A Flax-layout BiEncoder parameter tree drawn with Flax's default
-    initializers from ``numpy.random.default_rng(seed)``."""
+    initializers from ``numpy.random.default_rng(seed)``; with
+    ``cross_encoder`` also the CrossEncoder's ``pooler`` ([H, H]) and
+    ``classifier`` ([H, 1]) Dense layers, drawn after the encoder, so the
+    encoder's numbers do not depend on the head."""
     rng = np.random.default_rng(seed)
     H, inter = config.hidden_size, config.intermediate_size
 
@@ -105,4 +124,8 @@ def random_jax_params(config: BertConfig, seed: int = 0) -> dict:
             "ffn_output": dense(inter, H),
             "ffn_norm": norm(),
         }
-    return {"params": {"encoder": enc}}
+    tree = {"encoder": enc}
+    if cross_encoder:
+        tree["pooler"] = dense(H, H)
+        tree["classifier"] = dense(H, 1)
+    return {"params": tree}

@@ -5,8 +5,9 @@ launches its kernel and nowhere else; ``launch_counts`` reads them and
 ``reset_launch_counts`` sets them to 0, so a run can show which kernels its
 path went through. A wrapper with more than one kernel route also counts the
 launches of its tensor-core route in ``tc_launches`` (``tc_launch_counts``),
-and a top-k wrapper those of its bf16 route in ``bf16_launches``
-(``bf16_launch_counts``).
+a top-k wrapper those of its bf16 route in ``bf16_launches``
+(``bf16_launch_counts``), and an attention wrapper its launches by head dim
+in ``head_dim_launches`` (``head_dim_launch_counts``).
 """
 
 from __future__ import annotations
@@ -48,9 +49,17 @@ def bf16_launch_counts() -> dict[str, int]:
             if hasattr(fn, "bf16_launches")}
 
 
+def head_dim_launch_counts() -> dict[str, dict[int, int]]:
+    """Kernel name -> {head dim: launches}, for the attention wrappers."""
+    return {name: dict(fn.head_dim_launches) for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "head_dim_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for extra in ("tc_launches", "bf16_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
+        if hasattr(fn, "head_dim_launches"):
+            fn.head_dim_launches = {}

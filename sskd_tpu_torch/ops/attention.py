@@ -15,9 +15,13 @@
 - :func:`dropout_attention` is training attention with dropout on the
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
-  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``; each has a
-  tensor-core route (:func:`dropattn_fwd_route`, :func:`dropattn_bwd_route`;
+  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 32 (the
+  student's) and 64 (the teacher's); each has a tensor-core route at head
+  dim 32 (:func:`dropattn_fwd_route`, :func:`dropattn_bwd_route`;
   ``dropattn_fwd.tc_launches``, ``dropattn_bwd.tc_launches``).
+
+The three wrappers also count their launches by head dim
+(``head_dim_launches``, ``{d: launches}``).
 
 The TPU's dispatch rule (a 256 MB score threshold, head groups sized to
 VMEM) is not carried over. ``FLASH_MIN_L`` = 512 is the length the corpus
@@ -48,9 +52,10 @@ NEG_INF = float(torch.finfo(torch.float32).min) / 2
 FLASH_MIN_L = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
-# the dropattn kernels are built for the head dim of the models the port
-# trains (e5-small-v2: 384 / 12) and refuse others
-_DROPATTN_HEAD_DIMS = (32,)
+# the dropattn kernels are built for the head dims of the models the port
+# trains (e5-small-v2: 384 / 12; bge-reranker-large: 1024 / 16) and refuse
+# others
+_DROPATTN_HEAD_DIMS = (32, 64)
 # the longest L whose head fits the shared memory of one block of the
 # tensor-core backward (csrc/dropattn_bwd.cu DT_MAX_L)
 DROPATTN_TC_MAX_L = 256
@@ -67,20 +72,31 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
     return "tc" if dtype == torch.bfloat16 and d == 32 else "cuda_core"
 
 
-def dropattn_fwd_route(dtype: torch.dtype, L: int) -> str:
+def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernel a CUDA call of :func:`dropattn_fwd` launches: ``"tc"``
     (tensor cores, csrc/dropattn_fwd.cu ``dropattn_fwd_tc_kernel``) for bf16
-    at L <= ``DROPATTN_FWD_TC_MAX_L``, ``"cuda_core"``
-    (``dropattn_fwd_kernel``) for f32 and longer L."""
-    return "tc" if dtype == torch.bfloat16 and L <= DROPATTN_FWD_TC_MAX_L else "cuda_core"
+    at head dim 32 and L <= ``DROPATTN_FWD_TC_MAX_L``, ``"cuda_core"``
+    (``dropattn_fwd_kernel``) for f32, head dim 64 and longer L."""
+    tc = dtype == torch.bfloat16 and d == 32 and L <= DROPATTN_FWD_TC_MAX_L
+    return "tc" if tc else "cuda_core"
 
 
-def dropattn_bwd_route(dtype: torch.dtype, L: int) -> str:
+def dropattn_bwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernels a CUDA call of :func:`dropattn_bwd` launches: ``"tc"``
     (one tensor-core kernel holding a whole head in shared memory,
-    ``dropattn_bwd_tc_kernel``) for bf16 at L <= ``DROPATTN_TC_MAX_L``,
-    ``"cuda_core"`` (the dq and dk/dv kernel pair) for f32 and longer L."""
-    return "tc" if dtype == torch.bfloat16 and L <= DROPATTN_TC_MAX_L else "cuda_core"
+    ``dropattn_bwd_tc_kernel``) for bf16 at head dim 32 and L <=
+    ``DROPATTN_TC_MAX_L``, ``"cuda_core"`` (the dq and dk/dv kernel pair) for
+    f32, head dim 64 and longer L."""
+    tc = dtype == torch.bfloat16 and d == 32 and L <= DROPATTN_TC_MAX_L
+    return "tc" if tc else "cuda_core"
+
+
+def _count(wrapper, d: int, tc: bool) -> None:
+    """One launch of ``wrapper``'s kernel at head dim ``d``, on its
+    tensor-core route when ``tc``."""
+    wrapper.launches += 1
+    wrapper.tc_launches += int(tc)
+    wrapper.head_dim_launches[d] = wrapper.head_dim_launches.get(d, 0) + 1
 
 
 def _scale_log2(d: int) -> float:
@@ -222,7 +238,8 @@ def flash_attention(q, k, v, mask=None):
             raise ValueError("q, k, v and mask must be on one device")
     out = torch.empty_like(q)
     lib = _build.load_library("flash_attn")
-    if flash_route(q.dtype, d) == "tc":
+    tc = flash_route(q.dtype, d) == "tc"
+    if tc:
         fn = lib.sskd_flash_attn_fwd_tc
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
@@ -231,7 +248,6 @@ def flash_attention(q, k, v, mask=None):
             fn(*(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, _scale_log2(d), _stream(q)),
             "flash_attn_fwd (tensor cores)",
         )
-        flash_attention.tc_launches += 1
     else:
         fn = lib.sskd_flash_attn_fwd
         fn.restype = ctypes.c_int
@@ -248,12 +264,13 @@ def flash_attention(q, k, v, mask=None):
             ),
             "flash_attn_fwd",
         )
-    flash_attention.launches += 1
+    _count(flash_attention, d, tc)
     return out
 
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0  # the launches that took the tensor-core route
+flash_attention.head_dim_launches = {}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -598,7 +615,8 @@ def _check_dropattn(q, k, v, bias, p):
         if t.device != q.device:
             raise ValueError("q, k, v and bias must be on one device")
     if q.device.type == "cuda" and d not in _DROPATTN_HEAD_DIMS:
-        raise ValueError(f"dropattn kernels support head dims {_DROPATTN_HEAD_DIMS}, got {d}")
+        raise ValueError(f"dropattn kernels support head dims {_DROPATTN_HEAD_DIMS}, got {d}; "
+                         "any L is taken")
 
 
 def dropattn_fwd(q, k, v, bias, p: float, seed: int):
@@ -614,7 +632,7 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
     out = torch.empty_like(q)
     lse = torch.empty((B, h, L), dtype=torch.float32, device=q.device)
     lib = _build.load_library("dropattn_fwd")
-    if dropattn_fwd_route(q.dtype, L) == "tc":
+    if dropattn_fwd_route(q.dtype, d, L) == "tc":
         fn = lib.sskd_dropattn_fwd_tc
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
@@ -625,8 +643,7 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
                int(seed) & _U32, float(p), 1.0 / (1.0 - p), _stream(q)),
             "dropattn_fwd (tensor cores)",
         )
-        dropattn_fwd.launches += 1
-        dropattn_fwd.tc_launches += 1
+        _count(dropattn_fwd, d, True)
         return out, lse
     fn = lib.sskd_dropattn_fwd
     fn.restype = ctypes.c_int
@@ -638,12 +655,13 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
            1.0 / (d**0.5), int(seed) & _U32, float(p), 1.0 / (1.0 - p), _stream(q)),
         "dropattn_fwd",
     )
-    dropattn_fwd.launches += 1
+    _count(dropattn_fwd, d, False)
     return out, lse
 
 
 dropattn_fwd.launches = 0
 dropattn_fwd.tc_launches = 0  # the launches that took the tensor-core route
+dropattn_fwd.head_dim_launches = {}
 
 
 def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
@@ -661,7 +679,7 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
     lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load_library("dropattn_bwd")
-    if dropattn_bwd_route(q.dtype, L) == "tc":
+    if dropattn_bwd_route(q.dtype, d, L) == "tc":
         fn = lib.sskd_dropattn_bwd_tc
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
@@ -674,8 +692,7 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
                _stream(q)),
             "dropattn_bwd (tensor cores)",
         )
-        dropattn_bwd.launches += 1
-        dropattn_bwd.tc_launches += 1
+        _count(dropattn_bwd, d, True)
         return dq, dk, dv
     scratch = torch.empty((B, h, L), dtype=torch.float32, device=q.device)  # <dprobs, probs>
     fn = lib.sskd_dropattn_bwd
@@ -689,12 +706,13 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
            _stream(q)),
         "dropattn_bwd",
     )
-    dropattn_bwd.launches += 1
+    _count(dropattn_bwd, d, False)
     return dq, dk, dv
 
 
 dropattn_bwd.launches = 0
 dropattn_bwd.tc_launches = 0  # the launches that took the tensor-core route
+dropattn_bwd.head_dim_launches = {}
 
 
 def dropattn_keep_mask_kernel(seed: int, BH: int, L: int, p: float) -> torch.Tensor:

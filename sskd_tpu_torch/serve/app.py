@@ -2,16 +2,31 @@
 
 Routes: ``/``, ``/health``, ``/ready``, ``/live``, ``POST /search``,
 ``POST /encode`` and ``/metrics``, on the first-party HTTP stack. Startup
-loads the student, preloads the index when ``preload_index_dir`` is given,
-builds the :class:`~sskd_tpu_torch.serve.fused.FusedSearcher`, warms it up
-and starts the micro-batcher. Differences from the JAX package:
+loads the student, with ``search.rerank_enabled`` the cross-encoder teacher
+(``teacher.model_name``, :class:`~sskd_tpu_torch.models.teacher.TeacherModel`),
+preloads the index when ``preload_index_dir`` is given, builds the
+:class:`~sskd_tpu_torch.serve.fused.FusedSearcher`, warms it up and starts
+the micro-batcher. Differences from the JAX package:
 
 - every step of startup is fatal when it fails, warmup included (the JAX
-  package logs a failed warmup and serves on);
-- ``search.rerank_enabled`` raises :class:`ConfigError`: reranking comes
-  with the teacher in a later slice and is not switched off in silence;
-- reranking, hybrid search, caches, sharding, ``/docs``, ``/openapi.json``
-  and ``/index/load`` are later slices (ROADMAP).
+  package logs a failed warmup and serves on), but for one case that the
+  JAX package tolerates too: a teacher checkpoint directory that cannot be
+  read (``OSError``, ``ValueError``, ``ModelLoadError``,
+  ``WeightConversionError``, ``ConfigError``) leaves reranking off, and
+  ``rerank=true`` is then answered in the bi-encoder's order with
+  ``reranked: false``. A CUDA or kernel error while the teacher is built or
+  run is not such a case: it fails the startup or the request;
+- hybrid search, caches, sharding, ``/docs``, ``/openapi.json`` and
+  ``/index/load`` are later slices (ROADMAP).
+
+``/search`` with ``rerank=true`` fetches the request's ``rerank_top_k``
+results (default 50, as in the JAX app; ``search.rerank_top_k`` is kept for
+the settings' parity), scores (query, text or doc id) pairs with the teacher
+in a worker thread at ``teacher.batch_size``, and answers them in the order
+of the teacher's logits, which become the scores, with ``reranked: true``.
+Past ``search.rerank_timeout_ms`` the bi-encoder's order is served (the
+scoring runs on in its thread). Both are counted as in the JAX package
+(``semantic_kd_rerank_trigger_total``, ``semantic_kd_rerank_latency_seconds``).
 
 As in the JAX package, a preloaded index is served under the ``index_type``
 it records (``exact``, ``approx`` or ``clustered``), of f32, bf16, int8 or
@@ -21,12 +36,12 @@ is read only where an index is built, which no route of this slice does. An
 ``index.nprobe`` that the settings were given explicitly overrides the value
 saved in a clustered index's ``meta.json``; the default does not.
 ``index.refine_storage`` (a deployment choice, not saved with the index)
-places the refine rows of the loaded index on the device or the host. What
-still raises at startup: ``search.rerank_enabled``.
+places the refine rows of the loaded index on the device or the host.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import time
 
@@ -34,9 +49,16 @@ import numpy as np
 import torch
 
 from sskd_tpu_torch.config import Settings, get_settings
-from sskd_tpu_torch.exceptions import ConfigError, SemanticKDError, ValidationError_
+from sskd_tpu_torch.exceptions import (
+    ConfigError,
+    ModelLoadError,
+    SemanticKDError,
+    ValidationError_,
+    WeightConversionError,
+)
 from sskd_tpu_torch.index.builder import IndexBuilder
 from sskd_tpu_torch.models.student import StudentModel
+from sskd_tpu_torch.models.teacher import TeacherModel
 from sskd_tpu_torch.serve.batcher import MicroBatcher
 from sskd_tpu_torch.serve.fused import FusedSearcher
 from sskd_tpu_torch.serve.http import App, Request, Response
@@ -54,6 +76,8 @@ from sskd_tpu_torch.version import __version__
 logger = get_logger("serve.app")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# what a teacher checkpoint that cannot be read raises: reranking stays off
+_UNREADABLE_CHECKPOINT = (OSError, ValueError, ModelLoadError, WeightConversionError, ConfigError)
 
 
 class AppState:
@@ -61,6 +85,7 @@ class AppState:
         self.settings = settings
         self.metrics = Metrics()
         self.student: StudentModel | None = None
+        self.teacher: TeacherModel | None = None
         self.index_builder: IndexBuilder | None = None
         self.fused_searcher: FusedSearcher | None = None
         self.search_batcher: MicroBatcher | None = None
@@ -94,11 +119,6 @@ def create_app(
     preload_index_dir: str | None = None,
 ) -> App:
     settings = settings or get_settings()
-    if settings.search.rerank_enabled:
-        raise ConfigError(
-            "search.rerank_enabled needs the teacher, which is a later slice of the "
-            "port (ROADMAP Queue 1, 'teacher and rerank'); set it to false"
-        )
     app = App()
     state = AppState(settings)
     app.state = state
@@ -135,6 +155,16 @@ def create_app(
             compute_dtype=_DTYPES[settings.precision.compute_dtype],
         )
         state.metrics.model_load_seconds.set(time.perf_counter() - t0)
+        if settings.search.rerank_enabled:
+            try:
+                state.teacher = TeacherModel(
+                    settings.teacher.model_name,
+                    device=device,
+                    max_seq_length=settings.teacher.max_seq_length,
+                )
+            except _UNREADABLE_CHECKPOINT:
+                logger.exception("teacher checkpoint unreadable: reranking disabled")
+                state.teacher = None
         if preload_index_dir:
             builder = IndexBuilder(device=state.student.device).load(preload_index_dir)
             # nprobe is a query-time knob (the cell layout does not depend on
@@ -237,14 +267,13 @@ def create_app(
                 },
                 status=422,
             )
-        if body.rerank:
-            raise ConfigError("rerank is a later slice of the port; send rerank=false")
         if not state.ready or state.student is None:
             return Response({"error": "service not ready"}, status=503)
         if not state.index_loaded:
             return Response({"error": "index not loaded"}, status=503)
 
-        k = min(body.k, state.index_builder.ntotal)
+        fetch_k = body.rerank_top_k if body.rerank else body.k
+        k = min(fetch_k, state.index_builder.ntotal)
         if state.search_batcher is not None:
             score_vec, idx_vec = await state.search_batcher.submit((body.query, k))
         else:
@@ -257,19 +286,46 @@ def create_app(
         rows = [(int(i), float(s)) for s, i in zip(score_vec, idx_vec) if i >= 0]
         texts = b.get_texts([i for i, _ in rows])
         results = [
-            SearchResult(doc_id=b.doc_ids[i], text=t, score=s, rank=r + 1).to_dict()
+            SearchResult(doc_id=b.doc_ids[i], text=t, score=s, rank=r + 1)
             for r, ((i, s), t) in enumerate(zip(rows, texts))
         ]
+        reranked = False
+        if body.rerank:
+            state.metrics.rerank_triggers.inc()
+            if state.teacher is not None:
+                t0 = time.perf_counter()
+                pairs = [(body.query, r.text or r.doc_id) for r in results]
+                t_scores = None
+                try:
+                    t_scores = await asyncio.wait_for(
+                        asyncio.to_thread(state.teacher.score, pairs,
+                                          settings.teacher.batch_size),
+                        timeout=settings.search.rerank_timeout_ms / 1000.0,
+                    )
+                except asyncio.TimeoutError:
+                    logger.warning(f"rerank timed out after {settings.search.rerank_timeout_ms} "
+                                   "ms: serving the bi-encoder order")
+                state.metrics.rerank_latency.observe(time.perf_counter() - t0)
+                if t_scores is not None:
+                    order = sorted(range(len(results)), key=lambda i: -t_scores[i])
+                    results = [
+                        SearchResult(doc_id=results[i].doc_id, text=results[i].text,
+                                     score=float(t_scores[i]), rank=r + 1)
+                        for r, i in enumerate(order)
+                    ]
+                    reranked = True
+        results = [r.to_dict() for r in results[: body.k]]
         latency_ms = (time.perf_counter() - t_start) * 1000.0
         logger.info(
-            f"search qhash={hash_query(body.query)} k={body.k} latency_ms={latency_ms:.1f}"
+            f"search qhash={hash_query(body.query)} k={body.k} rerank={reranked} "
+            f"latency_ms={latency_ms:.1f}"
         )
         return Response(
             {
                 "query": body.query,
                 "results": results,
                 "total_results": len(results),
-                "reranked": False,
+                "reranked": reranked,
                 "hybrid": False,
                 "latency_ms": latency_ms,
             }

@@ -61,6 +61,9 @@ class Counter(_Metric):
         with self._lock:
             self._series[values] = self._series.get(values, 0.0) + amount
 
+    def inc(self, amount: float = 1.0) -> None:
+        self._add((), amount)
+
     def _lines(self, labels, state):
         return [f"{self.name}_total{_labels(labels)} {float(state)!r}"]
 
@@ -123,6 +126,12 @@ class Metrics:
         )
         self.model_load_seconds = Gauge("semantic_kd_model_load_seconds", "Model load wall time")
         self.index_size = Gauge("semantic_kd_index_size", "Number of vectors in the loaded index")
+        self.rerank_latency = Histogram(
+            "semantic_kd_rerank_latency_seconds", "Teacher rerank latency"
+        )
+        self.rerank_triggers = Counter(
+            "semantic_kd_rerank_trigger", "Searches that requested reranking"
+        )
 
     def render(self) -> bytes:
         lines: list[str] = []

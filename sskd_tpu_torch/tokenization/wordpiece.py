@@ -3,10 +3,10 @@
 Copy of sskd_tpu/tokenization/wordpiece.py, pure Python: the C++ core that the
 JAX package attaches (sskd_tpu/tokenization/native.py) is a later slice of the
 port, so every text takes the Python path here. ``encode_batch`` encodes
-single texts (sskd_tpu/tokenization/wordpiece.py:281-399 without the pair
-branch); ``frame_batch`` frames ids already tokenized, which lets
-StudentModel.tokenize_batch tokenize each text once. Pair encoding (the
-cross-encoder's) comes with the teacher in a later slice.
+single texts and (query, passage) pairs, the cross-encoder's input, as
+sskd_tpu/tokenization/wordpiece.py:281-399 does; ``frame_batch`` and
+``frame_pairs`` frame ids already tokenized, which lets StudentModel and
+TeacherModel tokenize each text once.
 
 The reference tokenized through HuggingFace's Rust `tokenizers` via
 ``transformers.AutoTokenizer`` (reference: src/utils/chunk.py:14,
@@ -277,17 +277,59 @@ class WordPieceTokenizer:
             "token_type_ids": np.zeros((batch, length), dtype=np.int32),
         }
 
+    def frame_pairs(
+        self, a_ids: Sequence[Sequence[int]], b_ids: Sequence[Sequence[int]], length: int
+    ) -> dict[str, np.ndarray]:
+        """Frame pre-tokenized pairs as ``[CLS] a [SEP] b [SEP]`` in fixed
+        ``[B, length]`` arrays, token types 0 up to the first ``[SEP]`` and 1
+        after it. Pairs longer than ``length - 3`` tokens lose one token at a
+        time from the longer side (from ``a`` at a tie), as the JAX package
+        truncates."""
+        batch = len(a_ids)
+        input_ids = np.full((batch, length), self.pad_id, dtype=np.int32)
+        attention_mask = np.zeros((batch, length), dtype=np.int32)
+        token_type_ids = np.zeros((batch, length), dtype=np.int32)
+        budget = length - 3
+        for bi, (a, b) in enumerate(zip(a_ids, b_ids)):
+            la, lb = len(a), len(b)
+            while la + lb > budget:
+                if la >= lb:
+                    la -= 1
+                else:
+                    lb -= 1
+            n = la + lb + 3
+            input_ids[bi, 0] = self.cls_id
+            input_ids[bi, 1 : 1 + la] = a[:la]
+            input_ids[bi, 1 + la] = self.sep_id
+            input_ids[bi, 2 + la : 2 + la + lb] = b[:lb]
+            input_ids[bi, n - 1] = self.sep_id
+            token_type_ids[bi, 2 + la : n] = 1
+            attention_mask[bi, :n] = 1
+        return {
+            "input_ids": input_ids,
+            "attention_mask": attention_mask,
+            "token_type_ids": token_type_ids,
+        }
+
     def encode_batch(
         self,
         texts: Sequence[str],
+        text_pairs: Sequence[str] | None = None,
         max_length: int = 512,
         pad_to: int | None = None,
     ) -> dict[str, np.ndarray]:
-        """Encode single texts to fixed-shape ``[B, L]`` arrays
-        ``[CLS] tokens [SEP]``, ``L = pad_to or max_length``, each text cut
-        to ``L - 2`` tokens; the same arrays as the JAX package's
-        ``encode_batch`` without ``text_pairs``."""
-        return self.frame_batch([self.tokenize(t) for t in texts], pad_to or max_length)
+        """Encode to fixed-shape ``[B, L]`` arrays, ``L = pad_to or
+        max_length``: single texts as ``[CLS] tokens [SEP]``, each cut to
+        ``L - 2`` tokens; with ``text_pairs`` (the cross-encoder's input) as
+        ``[CLS] a [SEP] b [SEP]`` with token types 0 / 1 (:meth:`frame_pairs`).
+        The same arrays as the JAX package's ``encode_batch``."""
+        if text_pairs is not None and len(text_pairs) != len(texts):
+            raise ValueError("texts and text_pairs must have equal length")
+        length = pad_to or max_length
+        ids = [self.tokenize(t) for t in texts]
+        if text_pairs is None:
+            return self.frame_batch(ids, length)
+        return self.frame_pairs(ids, [self.tokenize(t) for t in text_pairs], length)
 
 
 _DEFAULT: WordPieceTokenizer | None = None

@@ -104,3 +104,21 @@ def test_flash_checks_shapes():
         ta.flash_attention(q, q, q, torch.ones(1, 5))
     with pytest.raises(TypeError):
         ta.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("L", [64, 200])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_matches_jax_at_head_dim_64(L, masked):
+    """As test_flash_matches_jax at the teacher's head dim (the port's flash
+    at d = 64 runs the CUDA-core kernel on the card): atol 1e-5."""
+    q, k, v = _qkv(L + 64, 3, 2, L, 64)
+    mask = _mask(L + 64, 3, L) if masked else None
+    want = np.asarray(
+        j_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                mask=None if mask is None else jnp.asarray(mask), interpret=True)
+    )
+    got = ta.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if mask is None else torch.from_numpy(mask),
+    )
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)

@@ -287,3 +287,87 @@ def test_dropout_attention_checks_its_inputs():
         ta.dropout_attention(q, q, q, torch.zeros(1, 4), 1.0, 0)
     with pytest.raises(TypeError):
         ta.dropout_attention(q.half(), q.half(), q.half(), torch.zeros(1, 4), 0.1, 0)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 64 (the teacher's)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 3e-5, 0.0), ("bfloat16", 5e-2, 2e-2)])
+@pytest.mark.parametrize("L", [16, 48])
+def test_dropout_attention_p0_matches_jax_at_head_dim_64(dtype, atol, rtol, L):
+    """As test_dropout_attention_p0_matches_jax at the teacher's head dim:
+    the plain pair the wrappers run on the CPU against the JAX
+    dropout_attention in interpret mode, forward and gradients, with the
+    same tolerances (the sums over d are twice as deep, still far inside)."""
+    q, k, v, g, bias = _inputs(L + 64, 2, 3, L, 64)
+    want = _jax_fwd_grads(q, k, v, g, bias, getattr(jnp, dtype))
+    got = _port_fwd_grads(q, k, v, g, bias, getattr(torch, dtype))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("L", [64, 256])
+def test_the_mask_applied_at_head_dim_64_is_dropout_keep_mask(L):
+    """q = k = 0 and a zero bias make each probability 1/L, each kept pd
+    2/L at p = 0.5; v (and g) holding 2^(j % 8) in channel j // 8 make the
+    f32 output (dv) spell each row's (column's) keep bits: at head dim 64
+    the wrappers apply dropout_keep_mask, bit for bit (the check the card
+    makes of the kernels)."""
+    B, h, d, seed = 2, 3, 64, 123
+    j = torch.arange(L)
+    code = torch.zeros(L, d)
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d)
+    bias = torch.zeros(B, L)
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    bit = torch.arange(8)
+
+    def spell(x):
+        n = (x[..., : L // 8] * (L / 2)).round().long()
+        return ((n[..., None] >> bit) & 1).reshape(B, h, L, L).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5).view(B, h, L, L)
+    assert bool((spell(out) == want).all())
+    assert bool((spell(dv).transpose(-1, -2) == want).all())
+
+
+def test_routes_send_head_dim_64_to_the_cuda_cores():
+    """The tensor-core dropattn kernels take head dim 32 only: bf16 at head
+    dim 64 goes to the CUDA-core kernels at every L (before, the routes
+    looked at the dtype and L alone and would have sent it to a kernel that
+    refuses it); head dim 32 keeps its routes."""
+    for L in (16, 64, 192, 256, 512, 1024, 2048):
+        assert ta.dropattn_fwd_route(torch.bfloat16, 64, L) == "cuda_core"
+        assert ta.dropattn_bwd_route(torch.bfloat16, 64, L) == "cuda_core"
+        assert ta.dropattn_fwd_route(torch.float32, 64, L) == "cuda_core"
+        assert ta.dropattn_fwd_route(torch.bfloat16, 32, L) == (
+            "tc" if L <= ta.DROPATTN_FWD_TC_MAX_L else "cuda_core")
+        assert ta.dropattn_bwd_route(torch.bfloat16, 32, L) == (
+            "tc" if L <= ta.DROPATTN_TC_MAX_L else "cuda_core")
+    assert ta.flash_route(torch.bfloat16, 64) == "cuda_core"
+    assert 64 in ta._DROPATTN_HEAD_DIMS
+
+
+def test_error_bounds_at_head_dim_64_admit_rounding_and_catch_a_scale_fault():
+    """The bf16 bounds the card holds the d = 64 kernels to: the plain
+    result against one computed without rounding pd and ds lies inside
+    them; a 2 % scale fault does not."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(8, 2, 3, 64, 64))
+    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    want, lse = ta.dropattn_fwd_plain(qb, kb, vb, bias, 0.1, 5)
+    unrounded, lse32 = ta.dropattn_fwd_plain(qb.float(), kb.float(), vb.float(), bias, 0.1, 5)
+    got = unrounded.to(torch.bfloat16)
+    ok = ta.dropattn_fwd_error_bound(qb, kb, vb, bias, 0.1, 5, got, want)
+    assert bool(((got.float() - want.float()).abs() <= ok).all())
+    faulty = (unrounded * 1.02).to(torch.bfloat16)
+    bad = ta.dropattn_fwd_error_bound(qb, kb, vb, bias, 0.1, 5, faulty, want)
+    assert not bool(((faulty.float() - want.float()).abs() <= bad).all())
+    want_g = ta.dropattn_bwd_plain(qb, kb, vb, bias, 0.1, 5, lse, gb)
+    exact = ta.dropattn_bwd_plain(qb.float(), kb.float(), vb.float(), bias, 0.1, 5, lse32,
+                                  gb.float())
+    _held_to_the_bound(qb, kb, vb, bias, 0.1, 5, lse, gb, [t.to(torch.bfloat16) for t in exact],
+                       want_g)

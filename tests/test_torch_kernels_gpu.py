@@ -185,10 +185,10 @@ def test_dropattn_fwd_bwd_match_plain(dtype, p, L):
         assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 128])
 def test_dropattn_refuses_other_head_dims(d):
-    """The kernels are built for d = 32 only: any other head dim raises
-    before a launch."""
+    """The kernels are built for d = 32 and 64 only: any other head dim
+    raises before a launch."""
     _need_card()
     q, k, v, go, bias = _attn_inputs(2, 3, 64, d, torch.bfloat16, seed=d)
     before = ta.dropattn_fwd.launches
@@ -432,11 +432,11 @@ def test_attention_routes_and_their_counters():
     assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 1
     assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 1
     assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 2
-    assert ta.dropattn_bwd_route(torch.bfloat16, ta.DROPATTN_TC_MAX_L) == "tc"
-    assert ta.dropattn_bwd_route(torch.bfloat16, ta.DROPATTN_TC_MAX_L + 1) == "cuda_core"
-    assert ta.dropattn_fwd_route(torch.bfloat16, ta.DROPATTN_FWD_TC_MAX_L) == "tc"
-    assert ta.dropattn_fwd_route(torch.bfloat16, ta.DROPATTN_FWD_TC_MAX_L + 1) == "cuda_core"
-    assert ta.dropattn_fwd_route(torch.float32, 64) == "cuda_core"
+    assert ta.dropattn_bwd_route(torch.bfloat16, 32, ta.DROPATTN_TC_MAX_L) == "tc"
+    assert ta.dropattn_bwd_route(torch.bfloat16, 32, ta.DROPATTN_TC_MAX_L + 1) == "cuda_core"
+    assert ta.dropattn_fwd_route(torch.bfloat16, 32, ta.DROPATTN_FWD_TC_MAX_L) == "tc"
+    assert ta.dropattn_fwd_route(torch.bfloat16, 32, ta.DROPATTN_FWD_TC_MAX_L + 1) == "cuda_core"
+    assert ta.dropattn_fwd_route(torch.float32, 32, 64) == "cuda_core"
     reset_launch_counts()
     assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
                                   "cell_gather": 0, "bin_gather": 0, "binmax_strided": 0,
@@ -491,7 +491,7 @@ def test_dropattn_fwd_tensor_core_route_matches_plain(p, L):
     out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
     want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
     torch.cuda.synchronize()
-    assert ta.dropattn_fwd_route(q.dtype, L) == "tc"
+    assert ta.dropattn_fwd_route(q.dtype, 32, L) == "tc"
     assert ta.dropattn_fwd.launches == before + 1
     assert ta.dropattn_fwd.tc_launches == tc_before + 1
     assert (lse - want_lse).abs().max().item() <= 1e-4
@@ -922,3 +922,148 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
     else:
         assert after["binmax"] - before["binmax"] == 1 and after["bin_gather"] - before[
             "bin_gather"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The dropattn kernels at head dim 64 (the teacher's), on the CUDA cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [64, 130, 512])
+def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
+    """Head dim 64 takes the CUDA-core pair in f32 and bf16 (512 in f32:
+    the head's K and V exceed a block's shared memory and stream through it
+    in chunks): f32 within 1e-5 (summation order), bf16 each element within
+    its rounding bound, the lse within 1e-5."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(2, 4, L, 64, dtype, seed=640 + L)
+    seed = 64 + L
+    assert ta.dropattn_fwd_route(dtype, 64, L) == "cuda_core"
+    assert ta.dropattn_bwd_route(dtype, 64, L) == "cuda_core"
+    before = (dict(ta.dropattn_fwd.head_dim_launches), ta.dropattn_fwd.tc_launches)
+    out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+    want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
+    torch.cuda.synchronize()
+    assert ta.dropattn_fwd.head_dim_launches[64] == before[0].get(64, 0) + 1
+    assert ta.dropattn_fwd.tc_launches == before[1]
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
+    if dtype == torch.float32:
+        assert (out - want).abs().max().item() <= 1e-5
+        for a, b in zip(grads, want_grads):
+            assert (a - b).abs().max().item() <= 1e-5
+        return
+    bound = ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out, want)
+    assert bool(((out.float() - want.float()).abs() <= bound).all())
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, go, grads, want_grads)
+    for name, a, b, bd in zip("dq dk dv".split(), grads, want_grads, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+def test_dropattn_head_dim_64_bf16_beyond_the_resident_length():
+    """bf16 at L = 1000: past the 894 keys whose K and V fit a block, so the
+    CUDA-core pair streams them in chunks; within the rounding bounds."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(1, 2, 1000, 64, torch.bfloat16, seed=1000)
+    out, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 5)
+    grads = ta.dropattn_bwd(q, k, v, bias, 0.1, 5, lse, go)
+    want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 5)
+    want_grads = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 5, lse, go)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
+    bound = ta.dropattn_fwd_error_bound(q, k, v, bias, 0.1, 5, out, want)
+    assert bool(((out.float() - want.float()).abs() <= bound).all())
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, 0.1, 5, lse, go, grads, want_grads)
+    for a, b, bd in zip(grads, want_grads, bounds):
+        assert bool(((a.float() - b.float()).abs() <= bd).all())
+
+
+@pytest.mark.parametrize("L", [256, 512])
+def test_dropattn_head_dim_64_kernels_apply_the_plain_mask(L):
+    """f32 at head dim 64, q = k = 0 and a zero bias: each probability is
+    1/L, each kept pd 2/L at p = 0.5; v (and g) holding 2^(j % 8) in channel
+    j // 8 make out (dv) spell each row's (column's) keep bits, read back
+    bit for bit. At L = 512 both kernels stream the head in chunks."""
+    _need_card()
+    B, h, d, seed = 2, 3, 64, 123
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda")
+    bias = torch.zeros(B, L, device="cuda")
+    out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    bit = torch.arange(8, device="cuda")
+
+    def spell(x):  # [B, h, L, 64] sums of 2^bit * 2 / L -> [B, h, L, L] bits
+        n = (x[..., : L // 8] * (L / 2)).round().long()
+        return ((n[..., None] >> bit) & 1).reshape(B, h, L, L).bool()
+
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    assert bool((spell(out) == want).all())
+    assert bool((spell(dv).transpose(-1, -2) == want).all())
+
+
+def test_dropattn_head_dim_64_is_bitwise_repeatable():
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(4, 16, 64, 64, torch.float32, seed=17)
+    first = ta.dropattn_fwd(q, k, v, bias, 0.1, 9)
+    second = ta.dropattn_fwd(q, k, v, bias, 0.1, 9)
+    g1 = ta.dropattn_bwd(q, k, v, bias, 0.1, 9, first[1], go)
+    g2 = ta.dropattn_bwd(q, k, v, bias, 0.1, 9, first[1], go)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_head_dim_routes_and_counters():
+    """bf16 at head dim 64 is routed to the CUDA-core kernels (the
+    tensor-core ones take head dim 32 only), and the launches are counted
+    by head dim."""
+    from sskd_tpu_torch.ops import head_dim_launch_counts, reset_launch_counts, tc_launch_counts
+
+    _need_card()
+    assert ta.dropattn_fwd_route(torch.bfloat16, 64, 64) == "cuda_core"
+    assert ta.dropattn_bwd_route(torch.bfloat16, 64, 64) == "cuda_core"
+    assert ta.dropattn_fwd_route(torch.bfloat16, 32, 64) == "tc"
+    reset_launch_counts()
+    for d in (32, 64):
+        q, k, v, go, bias = _attn_inputs(2, 3, 64, d, torch.bfloat16, seed=d)
+        _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
+        ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
+        ta.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    by_d, tc = head_dim_launch_counts(), tc_launch_counts()
+    assert by_d == {name: {32: 1, 64: 1}
+                    for name in ("flash_attn_fwd", "dropattn_fwd", "dropattn_bwd")}
+    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == tc["flash_attn_fwd"] == 1
+    reset_launch_counts()
+    assert head_dim_launch_counts() == {"flash_attn_fwd": {}, "dropattn_fwd": {},
+                                        "dropattn_bwd": {}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_64_at_the_rerank_length(dtype):
+    """The teacher's scoring shape at L = 512: flash at head dim 64 on the
+    CUDA-core kernel, f32 within 1e-5 and bf16 within its rounding bound."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(64)
+    q, k, v = (torch.randn(4, 16, 512, 64, device="cuda", generator=g).to(dtype)
+               for _ in range(3))
+    lens = torch.tensor([512, 300, 1, 0], device="cuda")
+    mask = (torch.arange(512, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    assert ta.flash_route(dtype, 64) == "cuda_core"
+    got = ta.flash_attention(q, k, v, mask)
+    want = ta.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        bound = ta.flash_error_bound(q, k, v, mask, got, want)
+        assert bool((diff <= bound).all()), (diff / bound).max().item()

@@ -115,9 +115,11 @@ def test_encode_and_validation(monkeypatch, pair):
 
 def test_unported_configurations_fail_loudly(monkeypatch, pair):
     js, ts, jb, idx_dir = pair
-    with pytest.raises(ConfigError, match="later slice"):
-        app_module.create_app(Settings.from_dict({"search": {"rerank_enabled": True}}),
-                              device="cpu")
+    # rerank is served now (tests/test_torch_rerank.py); its fields are bounded
+    with pytest.raises(ConfigError, match="rerank_top_k"):
+        Settings.from_dict({"search": {"rerank_top_k": 201}})
+    with pytest.raises(ConfigError, match="rerank_timeout_ms"):
+        Settings.from_dict({"search": {"rerank_timeout_ms": 0}})
     with pytest.raises(ConfigError):
         Settings.from_dict({"search": {"default_k": 0}})
     with pytest.raises(ConfigError):

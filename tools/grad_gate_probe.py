@@ -66,7 +66,7 @@ def main() -> int:
     plain = cs.PlainDropoutAttention.apply
 
     def forward_on_cuda_cores(q, k, v, b, p, s):
-        ta.dropattn_fwd_route = lambda dtype, L: "cuda_core"
+        ta.dropattn_fwd_route = lambda dtype, d, L: "cuda_core"
         return kernels(q, k, v, b, p, s)
 
     attns = {
