@@ -41,13 +41,17 @@ Phases, each fatal when it fails:
              (the query rounded to bf16) at B in {1, 16, 64} within 1e-5, a
              ragged case, nprobe 11 over cells of 768 rows, and
              cell_gather_b1's kernel alone on the card; the teacher's head
-             dim 64: dropattn_fwd / dropattn_bwd at [32, 16, 64, 64] and
-             [8, 16, 512, 64] (f32 there streams the head through shared
-             memory in chunks), f32 and bf16, p in {0, 0.1}, and
-             flash_attn_fwd at [32, 16, 512, 64], f32 and bf16, each on the
-             CUDA-core route (dtype, d, L) selects, counted at d = 64, bitwise
-             repeatable, f32 within 1e-5 and bf16 within the rounding bounds,
-             the keep-mask read back bit for bit at L = 256 and 512):
+             dim 64: dropattn_fwd / dropattn_bwd at [32, 16, 64, 64] (the
+             backward on the tensor cores, f32 as three TF32 products) and
+             [8, 16, 512, 64] (the CUDA-core kernels; f32 there streams the
+             head through shared memory in chunks), f32 and bf16, p in {0,
+             0.1}, and flash_attn_fwd at [32, 16, 512, 64] on its tensor-core
+             route, f32 and bf16, each on the route (dtype, d, L) selects,
+             one tensor-core launch a call where that is the route, counted
+             at d = 64, bitwise repeatable, f32 within 1e-5 and bf16 within
+             the rounding bounds, the keep-mask read back bit for bit (f32 at
+             L = 64, 128, 256 and 512, bf16 at 192), ptxas's registers and
+             spills beside each time):
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k, cell and d = 64 attention kernels),
              the bound and yardsticks that the port never calls;
@@ -117,19 +121,22 @@ Phases, each fatal when it fails:
              negatives) with the CLI's defaults (16 steps of 32 at max_len
              64, lr 1e-3, pos_fraction 0.25): every loss finite, 24
              dropattn_fwd and 24 dropattn_bwd launches a step, all at d = 64
-             on the route the code selects, step 1 (lr 0) leaving the
-             parameters bit for bit, one step's gradients through the kernels
-             within 1e-3 of the plain pair's; saved and reloaded bit for bit;
-             TeacherModel.score of 1,024 pairs in chunks of 32 whose buckets
-             reach 512 (every L = 512 chunk 24 flash_attn_fwd launches at
-             d = 64), within 1e-4 (1 + |s|) of the same scores through the
-             plain versions; then create_app over the serve phase's index and
-             student with search.rerank_enabled and the saved teacher,
-             /search with rerank=true from 1 client and then 8 closed-loop
-             clients: every response reranked, in the order and with the
-             scores of TeacherModel.score on its pairs (ties within 1e-5
-             excepted); ms per step, samples/s, peak memory, pairs/s, rerank
-             ms and queries/s.
+             on the route the code selects (every backward on the tensor
+             cores), step 1 (lr 0) leaving the parameters bit for bit, one
+             step's gradients through the kernels within 1e-3 of the plain
+             pair's; saved and reloaded bit for bit; TeacherModel.score of
+             1,024 pairs in chunks of 32 whose buckets reach 512 (every
+             L = 512 chunk 24 flash_attn_fwd launches at d = 64, all on the
+             tensor cores), within 1e-4 (1 + |s|) of the same scores through
+             the plain versions, and one chunk's device time by kernel from
+             a checked profiler window; then create_app over the serve
+             phase's index and student with search.rerank_enabled and the
+             saved teacher, /search with rerank=true from 1 client and then
+             8 closed-loop clients: every response reranked, in the order and
+             with the scores of TeacherModel.score on its pairs (ties within
+             1e-5 excepted), every flash launch at d = 64 on the tensor
+             cores; ms per step, samples/s, peak memory, pairs/s, rerank ms
+             and queries/s.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -162,7 +169,8 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense, per second
+# dense, per second: tensor cores (bf16, int8, tf32) and the CUDA cores' f32 FMA
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9  # H100 SXM: SMs and boost clock, for the exp floor
 L2_FLUSH_BYTES = 256 << 20  # written between launches to empty the 50 MB L2 cache
 STREAM_HOLD_CYCLES = 400_000_000  # about 0.2 s of the SM clock: longer than 16 eager searches
@@ -238,28 +246,25 @@ def device_times(prof) -> list[tuple[str, float]]:
                    if e.device_type == cuda), key=lambda kv: -kv[1])
 
 
-# kernel_device_ms's profiled windows, those discarded, the kernels of earlier
-# windows left out, and the readings taken by stream_device_ms instead
+# profiled_window's windows, those refused, the kernels of earlier windows
+# left out, and kernel_device_ms's readings taken by stream_device_ms instead
 PROFILER = {"windows": 0, "short": 0, "late_events": 0, "fallbacks": 0}
 
 
-def kernel_device_ms(fn, name_part: str, iters: int = 16,
-                     fallback: bool = True) -> float | None:
-    """Device time per call of the kernels whose name holds ``name_part``,
-    from torch.profiler: what a launch takes on the card when the wrapper's
-    host time exceeds it (CUDA events then read the host's pace). A window
-    can hand over kernels of the window before it and lose some of its own
-    (on an H100: 5 or 7 of 8 launches of one kernel, read 3/8 or 1/8
-    short). So only kernels that started within the window's host span
-    count, and the window only when they are a multiple of ``iters``
-    (``PROFILER["short"]`` otherwise); after three that are not, the call's
-    whole device time from stream_device_ms, every kernel of it counted
-    (None without ``fallback``)."""
+def profiled_window(fn, iters: int, accept, tries: int = 3) -> list | None:
+    """The device events of ``iters`` calls of ``fn`` that started within a
+    profiled window's host span, from the first of ``tries`` windows whose
+    events ``accept`` takes (given them and all the window's device events);
+    None when none does. A window can hand over kernels of the window
+    before it and lose some of its own (on an H100: 5 or 7 of 8 launches of
+    one kernel; late in this script, 31 of the teacher chunk's 457 device
+    events in most windows). PROFILER counts the windows, the events left
+    out of their spans and the windows refused."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):
+    for _ in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
@@ -267,13 +272,32 @@ def kernel_device_ms(fn, name_part: str, iters: int = 16,
         events = prof.events()
         host = [e.time_range for e in events if e.device_type != cuda]
         t0, t1 = min(r.start for r in host), max(r.end for r in host)
-        hits = [e.time_range for e in events if e.device_type == cuda and name_part in e.name]
-        mine = [r for r in hits if t0 <= r.start <= t1]
+        device = [e for e in events if e.device_type == cuda]
+        mine = [e for e in device if t0 <= e.time_range.start <= t1]
         PROFILER["windows"] += 1
-        PROFILER["late_events"] += len(hits) - len(mine)
-        if mine and len(mine) % iters == 0:
-            return sum(r.elapsed_us() for r in mine) / 1e3 / iters
+        PROFILER["late_events"] += len(device) - len(mine)
+        if accept(mine, device):
+            return mine
         PROFILER["short"] += 1
+    return None
+
+
+def kernel_device_ms(fn, name_part: str, iters: int = 16,
+                     fallback: bool = True) -> float | None:
+    """Device time per call of the kernels whose name holds ``name_part``,
+    from torch.profiler: what a launch takes on the card when the wrapper's
+    host time exceeds it (CUDA events then read the host's pace). A window
+    counts only when those kernels are a multiple of ``iters``
+    (profiled_window); after three that are not, the call's whole device
+    time from stream_device_ms, every kernel of it counted (None without
+    ``fallback``)."""
+    def hits(events):
+        return [e for e in events if name_part in e.name]
+
+    mine = profiled_window(fn, iters, lambda ev, _: len(hits(ev)) > 0
+                           and len(hits(ev)) % iters == 0)
+    if mine is not None:
+        return sum(e.time_range.elapsed_us() for e in hits(mine)) / 1e3 / iters
     if not fallback:
         return None
     PROFILER["fallbacks"] += 1
@@ -297,6 +321,29 @@ def stream_device_ms(fn, iters: int = 16) -> float | None:
     held = not start.query()  # the sleep still ran when the last launch was queued
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters if held else None
+
+
+def checked_device_times(fn, name_part: str,
+                         per_call: int) -> tuple[list[tuple[str, float]] | None, list]:
+    """(name, device ms) of every kernel one call of ``fn`` runs, largest
+    first, from a profiled window that holds exactly ``per_call`` kernels
+    whose name holds ``name_part`` (profiled_window, up to ten windows), or
+    None when none does; and what each window held: [those kernels, its
+    device events, the device events outside its span]."""
+    seen = []
+
+    def accept(events, device):
+        seen.append([sum(name_part in e.name for e in events), len(events),
+                     len(device) - len(events)])
+        return seen[-1][0] == per_call
+
+    mine = profiled_window(fn, 1, accept, tries=10)
+    if mine is None:
+        return None, seen
+    by_name: dict[str, float] = {}
+    for e in mine:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return sorted(by_name.items(), key=lambda kv: -kv[1]), seen
 
 
 def unit_rows(n: int, d: int, gen: torch.Generator) -> torch.Tensor:
@@ -788,17 +835,17 @@ def masks_spelled_by_kernels(seed: int) -> bool:
     return bool((spell(out) == want).all()) and bool((spell(dv).transpose(-1, -2) == want).all())
 
 
-def masks_spelled_bf16(seed: int) -> bool:
+def masks_spelled_bf16(seed: int, d: int = 32) -> bool:
     """The same read-back in bf16 at L = 192, the training length the
     tensor-core backward takes: a bias that leaves keys 0..127 live makes each
     live probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in
     bf16; out spells each row's keep bits over the live columns, and dv each
     live column's over the 192 rows (row i in channel i // 8): the keep bits
-    the tensor-core forward drew and applied, and those the tensor-core
-    backward stored in pass 1 and applied to pd."""
+    the forward drew and applied (on the tensor cores at d = 32), and those
+    the tensor-core backward stored in pass 1 and applied to pd."""
     from sskd_tpu_torch.ops import attention as ta
 
-    B, h, L, d, live = 2, 12, 192, 32, 128
+    B, h, L, live = 2, 12, 192, 128
     j = torch.arange(L, device="cuda")
     code = torch.zeros(L, d, device="cuda")
     code[j, j // 8] = (2.0 ** (j % 8)).float()
@@ -808,7 +855,8 @@ def masks_spelled_bf16(seed: int) -> bool:
     bias = bias.contiguous()
     before = ta.dropattn_fwd.tc_launches
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
-    check(ta.dropattn_fwd.tc_launches == before + 1, "bf16 L=192: not the tensor-core forward")
+    check(ta.dropattn_fwd.tc_launches == before + (d == 32),
+          f"bf16 d={d} L=192: not the forward's route")
     before = ta.dropattn_bwd.tc_launches
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
     check(ta.dropattn_bwd.tc_launches == before + 1, "bf16 L=192: not the tensor-core backward")
@@ -931,11 +979,12 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
     return rows, main_fwd, main_bwd
 
 
-def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
+def time_dropattn(q, k, v, g, bias, p, seed, bwd_kind=None) -> dict:
     """ms per launch of both kernels, of their plain versions and of
     F.scaled_dot_product_attention with the same additive bias and dropout
     (forward, and its backward alone); the byte and operation bounds (the
-    operations at the bf16 tensor-core rate, or f32's for f32 inputs)."""
+    operations at the bf16 tensor-core rate, or the CUDA cores' f32 rate for
+    f32 inputs; the backward's at ``bwd_kind``'s where given)."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, L, d = q.shape
@@ -970,7 +1019,7 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
         4 * elt + B * L * 4, 4.0 * BH * L * L * d, kind)
     # backward: q, k, v, g, bias read, dq, dk, dv written; 5 products
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(
-        7 * elt + B * L * 4, 10.0 * BH * L * L * d, kind)
+        7 * elt + B * L * 4, 10.0 * BH * L * L * d, bwd_kind or kind)
     # floors above the bytes: the forward's two exps per score (one a pass)
     # on the special-function unit, 16 a clock an SM; the mask's Philox
     # work, measured as what dropout adds to the backward, which draws each
@@ -983,8 +1032,9 @@ def time_dropattn(q, k, v, g, bias, p, seed) -> dict:
 def masks_spelled_d64(seed: int, L: int) -> bool:
     """The read-back of masks_spelled_by_kernels at head dim 64 in f32: each
     probability 1/L, each kept pd 2/L at p = 0.5, v (and g) holding
-    2^(j % 8) in channel j // 8; at L = 512 both CUDA-core kernels stream
-    the head through shared memory in chunks."""
+    2^(j % 8) in channel j // 8; up to L = 128 the backward is the f32
+    tensor-core kernel (checked), past it the CUDA-core pair, and at L = 512
+    both CUDA-core kernels stream the head through shared memory in chunks."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, d = 2, 16, 64
@@ -995,7 +1045,10 @@ def masks_spelled_d64(seed: int, L: int) -> bool:
     zero = torch.zeros(B, h, L, d, device="cuda")
     bias = torch.zeros(B, L, device="cuda")
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    before = ta.dropattn_bwd.tc_launches
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    check(ta.dropattn_bwd.tc_launches - before == (L <= 128),
+          f"dropattn_bwd f32 d=64 L={L}: not on the route its length selects")
     bit = torch.arange(8, device="cuda")
 
     def spell(x):
@@ -1006,23 +1059,37 @@ def masks_spelled_d64(seed: int, L: int) -> bool:
     return bool((spell(out) == want).all()) and bool((spell(dv).transpose(-1, -2) == want).all())
 
 
-def phase_attention64(gen) -> tuple[list, dict]:
+def ptxas_of(build: dict, lib: str, pattern: str) -> dict:
+    """The build summary (registers, shared memory, spills) of the kernels of
+    library ``lib`` whose mangled name matches ``pattern``."""
+    return {name: info for name, info in build.get(lib, {}).items() if re.search(pattern, name)}
+
+
+def phase_attention64(gen, build: dict) -> tuple[list, dict]:
     """The attention kernels at the teacher's head dim 64 against their plain
     versions: dropattn_fwd / dropattn_bwd at the teacher trainer's shape
-    [32, 16, 64, 64] and at [8, 16, 512, 64] (f32 past the shared memory of a
-    block: the chunked path), f32 and bf16, p in {0, 0.1}; flash_attn_fwd at
-    the rerank shape [32, 16, 512, 64], f32 and bf16. Every launch on the
-    route (dtype, d, L) selects (the CUDA cores) and counted at d = 64, two
-    launches bitwise equal, bf16 within the rounding bounds, f32 within 1e-5,
-    the keep-mask read back bit for bit; each timed by CUDA events and the
-    profiler beside SDPA, the plain version and the bound. Returns the rows
-    and the main entries (f32: the teacher computes in f32)."""
+    [32, 16, 64, 64] (the backward on the tensor cores, f32 as three TF32
+    products) and at [8, 16, 512, 64] (the CUDA-core kernels; f32 past the
+    shared memory of a block: the chunked path), f32 and bf16, p in {0,
+    0.1}; flash_attn_fwd at the rerank shape [32, 16, 512, 64] on its
+    tensor-core route, f32 and bf16. Every launch on the route (dtype, d, L)
+    selects, one tensor-core launch a call where that is the route, counted
+    at d = 64, two launches bitwise equal, bf16 within the rounding bounds,
+    f32 within 1e-5, the keep-mask read back bit for bit (f32 at L = 64 and
+    128 through the tensor-core backward, 256 and 512 through the CUDA-core
+    pair; bf16 at L = 192); each timed by CUDA events and the profiler
+    beside SDPA, the plain version and the bounds (the tensor cores' peak,
+    three TF32 passes, and the CUDA cores' FMA rate), with ptxas's registers
+    and spills. Returns the rows and the main entries (f32: the teacher
+    computes in f32)."""
     from sskd_tpu_torch.ops import attention as ta
 
     rows, main = [], {}
-    for L in (256, 512):
+    for L in (64, 128, 256, 512):
         check(masks_spelled_d64(53 + L, L), f"dropattn d=64 L={L}: applied keep-mask differs")
-    log("[kernels] dropattn d=64: both kernels apply the plain mask (f32, L = 256 and 512)")
+    check(masks_spelled_bf16(57, 64), "dropattn bf16 d=64 L=192: applied keep-mask differs")
+    log("[kernels] dropattn d=64: both kernels apply the plain mask (f32, L = 64, 128, 256 and "
+        "512; bf16, L = 192)")
     for (B, h, L, d), dtype in ((shape, dt) for shape in ((32, 16, 64, 64), (8, 16, 512, 64))
                                 for dt in (torch.float32, torch.bfloat16)):
         q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(dtype)
@@ -1031,14 +1098,17 @@ def phase_attention64(gen) -> tuple[list, dict]:
         seed = 640 + L
         for p in (0.0, 0.1):
             f_route, b_route = ta.dropattn_fwd_route(dtype, d, L), ta.dropattn_bwd_route(dtype, d, L)
-            check(f_route == b_route == "cuda_core", f"dropattn d=64 routes {f_route}, {b_route}")
+            want_b = "tc" if L <= 64 else "cuda_core"
+            check(f_route == "cuda_core" and b_route == want_b,
+                  f"dropattn d=64 L={L} routes {f_route}, {b_route}")
             before = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
                       ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             after = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
                      ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
-            check(after == (before[0], before[1] + 1, before[2], before[3] + 1),
+            check(after == (before[0], before[1] + 1, before[2] + (b_route == "tc"),
+                            before[3] + 1),
                   f"dropattn d=64 L={L}: launches {before} -> {after}")
             again = ta.dropattn_fwd(q, k, v, bias, p, seed)
             g_again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
@@ -1058,7 +1128,7 @@ def phase_attention64(gen) -> tuple[list, dict]:
                      "lse_max_abs_err": lse_err, "fwd_max_abs_err": f_err,
                      "bwd_max_abs_err": b_err, "fwd_route": f_route, "bwd_route": b_route,
                      "bitwise_repeatable": True}
-            if dtype == torch.float32:  # summation order only
+            if dtype == torch.float32:  # summation order (and the TF32 terms' truncation)
                 check(f_err <= 1e-5 and b_err <= 1e-5,
                       f"dropattn d=64 f32 L={L} p={p}: {f_err}, {b_err} > 1e-5")
             else:
@@ -1075,13 +1145,25 @@ def phase_attention64(gen) -> tuple[list, dict]:
                 del bounds
             del out, lse, grads, want, want_lse, want_grads
             if p > 0:
-                entry.update(time_dropattn(q, k, v, g, bias, p, seed))
+                tc = b_route == "tc"
+                entry.update(time_dropattn(q, k, v, g, bias, p, seed, bwd_kind=(
+                    ("tf32" if dtype == torch.float32 else "bf16") if tc else None)))
                 _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
                 entry["fwd_kernel_device_ms"] = kernel_device_ms(
                     lambda: ta.dropattn_fwd(q, k, v, bias, p, seed), "dropattn_fwd_kernel")
                 entry["bwd_kernel_device_ms"] = kernel_device_ms(
-                    lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g), "dropattn_bwd_d")
+                    lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g),
+                    "dropattn_bwd_tc" if tc else "dropattn_bwd_d")
                 del lse
+                ops = 10.0 * B * h * L * L * d
+                entry["bwd_cuda_core_bound_ms"] = ops / PEAK_OPS["f32"] * 1e3
+                if tc and dtype == torch.float32:
+                    entry["bwd_three_pass_ms"] = 3 * ops / PEAK_OPS["tf32"] * 1e3
+                f32 = dtype == torch.float32
+                entry["bwd_ptxas"] = ptxas_of(
+                    build, "dropattn_bwd",
+                    ("tc_tf32_kernelILi64" if f32 else "tc_kernelILi64") if tc
+                    else "_(dq|dkv)_kernelI" + ("f" if f32 else "13__nv_bfloat16") + "Li64")
                 if (B, L) == (32, 64) and dtype == torch.float32:
                     for name, pre in (("dropattn_fwd.d64", "fwd"), ("dropattn_bwd.d64", "bwd")):
                         main[name] = {
@@ -1100,11 +1182,11 @@ def phase_attention64(gen) -> tuple[list, dict]:
         lens[0] = L
         mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
         route = ta.flash_route(dtype, d)
-        check(route == "cuda_core", f"flash d=64: route {route}")
+        check(route == "tc", f"flash d=64: route {route}")
         before = (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(64, 0))
         got = ta.flash_attention(q, k, v, mask)
         check((ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(64, 0))
-              == (before[0], before[1] + 1), "flash d=64: not one CUDA-core launch at d = 64")
+              == (before[0] + 1, before[1] + 1), "flash d=64: not one tensor-core launch at d = 64")
         check(torch.equal(got, ta.flash_attention(q, k, v, mask)), "flash d=64: launches differ")
         want = ta.flash_attention_plain(q, k, v, mask)
         torch.cuda.synchronize()
@@ -1121,18 +1203,24 @@ def phase_attention64(gen) -> tuple[list, dict]:
             entry["err_over_bound"] = slack
         del got, want, diff
         keep = mask[:, None, None, :].bool()
-        b_ms, b_by = bound_ms(4 * B * h * L * d * q.element_size() + B * L * 4,
-                              4.0 * B * h * L * L * d,
-                              "f32" if dtype == torch.float32 else "bf16")
+        ops = 4.0 * B * h * L * L * d
+        b_ms, b_by = bound_ms(4 * B * h * L * d * q.element_size() + B * L * 4, ops,
+                              "tf32" if dtype == torch.float32 else "bf16")
         entry.update({
             "ms": time_ms(lambda: ta.flash_attention(q, k, v, mask), 10),
             "kernel_device_ms": kernel_device_ms(lambda: ta.flash_attention(q, k, v, mask),
-                                                 "flash_fwd_kernel"),
+                                                 "flash_fwd_tc"),
             "plain_ms": time_ms(lambda: ta.flash_attention_plain(q, k, v, mask), 3, 1),
             "library_ms": time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 10),
             "bound_ms": b_ms, "bound_by": b_by,
+            "cuda_core_bound_ms": ops / PEAK_OPS["f32"] * 1e3,
+            "exp_floor_ms": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
+            "ptxas": ptxas_of(build, "flash_attn", "tc_tf32_kernelILi64"
+                              if dtype == torch.float32 else "tc_kernelILi64"),
         })
+        if dtype == torch.float32:
+            entry["three_pass_ms"] = 3 * ops / PEAK_OPS["tf32"] * 1e3
         rows.append(entry)
         log(f"[kernels] {json.dumps(entry)}")
         if dtype == torch.float32:
@@ -2795,10 +2883,13 @@ def phase_teacher(args) -> dict:
     check(snaps == [True], "teacher step 1 changed the parameters (its learning rate is 0)")
     # one forward and one backward a layer a step: no remat
     want = TEACHER_STEPS * cfg.num_layers
-    route = ta.dropattn_fwd_route(torch.float32, 64, TEACHER_MAX_LEN)
-    for name in ("dropattn_fwd", "dropattn_bwd"):
+    routes = {"dropattn_fwd": ta.dropattn_fwd_route(torch.float32, 64, TEACHER_MAX_LEN),
+              "dropattn_bwd": ta.dropattn_bwd_route(torch.float32, 64, TEACHER_MAX_LEN)}
+    check(routes["dropattn_bwd"] == "tc", f"teacher backward route {routes['dropattn_bwd']}")
+    for name, route in routes.items():
         check(counts[name] == want and by_d[name] == {64: want},
               f"{name}: {counts[name]} launches {by_d[name]}, want {want} at d = 64")
+        # every launch at d = 64 (above): so all of them on the route when tc counts them all
         check(tc_counts[name] == (want if route == "tc" else 0),
               f"{name}: {tc_counts[name]} tensor-core launches on the {route} route")
     event_ms = [a.elapsed_time(b) for a, b in events]
@@ -2813,7 +2904,7 @@ def phase_teacher(args) -> dict:
         "samples_per_s": TEACHER_BATCH / (ms_step / 1e3), "peak_device_gib": peak_gib,
         "heldout_pair_accuracy": result["heldout_pair_accuracy"],
         "step1_unchanged": True, "launches": counts, "head_dim_launches": by_d,
-        "route": route,
+        "tc_launches": tc_counts, "routes": routes,
     }
 
     # one step's gradients through the kernels against the plain pair (f32:
@@ -2855,11 +2946,13 @@ def phase_teacher(args) -> dict:
     scores = scorer.score(pairs, batch_size=TEACHER_BATCH)
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
-    counts, by_d = launch_counts(), head_dim_launch_counts()
-    check(counts["flash_attn_fwd"] == cfg.num_layers * n512
-          and by_d["flash_attn_fwd"] == {64: cfg.num_layers * n512},
+    counts, by_d, tc_counts = launch_counts(), head_dim_launch_counts(), tc_launch_counts()
+    n_flash = cfg.num_layers * n512
+    check(counts["flash_attn_fwd"] == n_flash and by_d["flash_attn_fwd"] == {64: n_flash}
+          and tc_counts["flash_attn_fwd"] == n_flash,
           f"flash_attn_fwd: {counts['flash_attn_fwd']} launches {by_d['flash_attn_fwd']}, "
-          f"want {cfg.num_layers} for each of {n512} chunks at L = 512, at d = 64")
+          f"{tc_counts['flash_attn_fwd']} on the tensor cores, want {cfg.num_layers} for each "
+          f"of {n512} chunks at L = 512, at d = 64, all on the tensor-core route")
     real_flash = ta.flash_attention
     ta.flash_attention = lambda q, k, v, m=None: ta.flash_attention_plain(q, k, v, m)
     try:
@@ -2873,24 +2966,22 @@ def phase_teacher(args) -> dict:
     check(all(math.isfinite(x) for x in scores) and score_slack <= 1.0,
           f"teacher scores through the kernels vs the plain versions: {score_slack} of 1e-4")
     # where one chunk's forward at L = 512 spends the card's time (outside
-    # the counted run): CUDA events, and device time by kernel from the
-    # profiler (windows unchecked, as the train phase's breakdown)
+    # the counted run): CUDA events, and device time by kernel from a
+    # profiled window that holds every flash launch of its calls
     chunk = scorer.tokenize_pairs(pairs[lengths.index(512) * TEACHER_BATCH:][:TEACHER_BATCH])
     chunk_ms = time_ms(lambda: scorer.forward_batch(chunk), 5, 1)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            scorer.forward_batch(chunk)
-        torch.cuda.synchronize()
-    by_kernel = device_times(prof)
+    by_kernel, windows = checked_device_times(lambda: scorer.forward_batch(chunk), "flash_fwd",
+                                              cfg.num_layers)
     record["score"] = {
         "pairs": SCORE_PAIRS, "batch_size": TEACHER_BATCH, "chunk_lengths": lengths,
         "chunks_at_512": n512, "seconds": score_s, "pairs_per_s": SCORE_PAIRS / score_s,
         "max_abs_diff_vs_plain": float(diff.max()), "diff_over_bound": score_slack,
-        "launches": counts, "head_dim_launches": by_d,
+        "launches": counts, "head_dim_launches": by_d, "tc_launches": tc_counts,
         "chunk512_ms": chunk_ms,
-        "chunk512_device_ms": sum(t for _, t in by_kernel) / 3 / 1e3,
-        "chunk512_top_kernels_ms": [(k, t / 3 / 1e3) for k, t in by_kernel[:8]],
+        # None when no window of ten held the chunk's 24 flash launches
+        "chunk512_device_ms": None if by_kernel is None else sum(t for _, t in by_kernel),
+        "chunk512_top_kernels_ms": None if by_kernel is None else by_kernel[:8],
+        "chunk512_windows": windows,
     }
     log(f"[teacher] score: {json.dumps(record['score'])}")
 
@@ -2937,8 +3028,11 @@ def phase_teacher(args) -> dict:
                   f"failed ({load['not_reranked']} not reranked)")
         state.teacher.score = served_score
     torch.cuda.synchronize()
-    counts, by_d = launch_counts(), head_dim_launch_counts()
-    check(by_d["flash_attn_fwd"].get(64, 0) > 0, "rerank launched no flash_attn_fwd at d = 64")
+    counts, by_d, tc_counts = launch_counts(), head_dim_launch_counts(), tc_launch_counts()
+    check(by_d["flash_attn_fwd"].get(64, 0) > 0
+          and tc_counts["flash_attn_fwd"] == counts["flash_attn_fwd"] == by_d["flash_attn_fwd"][64],
+          f"rerank: flash_attn_fwd {counts['flash_attn_fwd']} launches {by_d['flash_attn_fwd']}, "
+          f"{tc_counts['flash_attn_fwd']} on the tensor cores; want all at d = 64 on them")
     # each reranked response in the order of TeacherModel.score on its pairs
     worst = 0.0
     for q, plain, body, _ in sequential:
@@ -2959,6 +3053,7 @@ def phase_teacher(args) -> dict:
         "sequential_p50_ms": float(np.percentile(lat, 50)), "load": loads,
         "rerank_ms": rerank_ms, "rerank_p50_ms": float(np.percentile(rerank_ms, 50)),
         "max_score_diff_vs_score": worst, "launches": counts, "head_dim_launches": by_d,
+        "tc_launches": tc_counts,
     }
     log(f"[teacher] rerank: {json.dumps(record['rerank'])}")
     del scorer, app
@@ -3017,7 +3112,7 @@ def main(argv=None) -> int:
     flash_rows, main_flash = phase_flash(gen)
     dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
-    attn64_rows, main_d64 = phase_attention64(gen)
+    attn64_rows, main_d64 = phase_attention64(gen, record["build"])
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows + attn64_rows
     # the int8 cell_gather at both batches the clustered engine probes with
@@ -3084,8 +3179,9 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/topk_cluster.py:272", bf16_cells["cell_gather"], refine_bf16),
         ("cell_gather_b1.bf16", "sskd_tpu_torch/csrc/cell_gather.cu",
          "sskd_tpu/ops/topk_cluster.py:308", bf16_cells["cell_gather_b1"], refine_bf16),
-        # the teacher's head dim 64 (CUDA-core routes, f32 as the teacher computes), with
-        # the launches of its train steps (dropattn) and of its scoring (flash)
+        # the teacher's head dim 64 (f32 as the teacher computes; flash and the backward on
+        # the tensor cores), with the launches of its train steps (dropattn) and of its
+        # scoring (flash)
         ("flash_attn_fwd.d64", "sskd_tpu_torch/csrc/flash_attn.cu", "sskd_tpu/ops/attention.py:43",
          main_d64["flash_attn_fwd.d64"], teacher_launches),
         ("dropattn_fwd.d64", "sskd_tpu_torch/csrc/dropattn_fwd.cu",

@@ -18,23 +18,45 @@
 // B*h*L^2 = 805 M of them, at 16 per clock per SM on the special-function unit
 // (132 SMs, ~1.98 GHz) is ~0.19 ms.
 //
-// Two routes, chosen by the wrapper (ops/attention.py) from (dtype, d):
+// At the teacher's scoring shape [32, 16, 512, 64] the bytes are 268 MB in
+// f32 (0.080 ms; bf16 0.040 ms) and the operations 4 * B*h*L^2*d = 34.4 GFLOP:
+// 0.069 ms at TF32's 495 TFLOP/s, 0.035 ms at bf16's 989, but the f32 route
+// makes three TF32 passes (0.21 ms), and on the CUDA cores' FMA (67 TFLOP/s)
+// the same work takes 0.513 ms. The exp floor is B*h*L^2 = 134 M exps, ~0.03 ms.
 //
-// 1. bf16, d = 32: flash_fwd_tc_kernel, on the tensor cores (FlashAttention-2
-//    shape). A block of 4 warps owns 64 query rows, 16 per warp, whose q stays
-//    in registers as mma A fragments. K and V tiles of 64 keys are
-//    double-buffered in shared memory by cp.async (rows padded to 80 bytes, so
-//    ldmatrix reads them without bank conflicts). Per tile a warp computes
-//    S = q k^T with mma.sync m16n8k16 (f32 sums), runs the online softmax on
-//    the accumulator fragments, and feeds p, rounded to bf16, straight from
-//    registers as the A operand of p.v (V through ldmatrix.trans). Exactly one
-//    exp per score: the scale and log2(e) are folded into the scores, so each
-//    exp is one ex2.approx, and on a tile whose 64 keys are all live (every
-//    tile of a full row) its exponent is one fma of the raw sum, with no mask
-//    applied; ops/attention.py flash_error_bound derives what that and the
-//    tensor cores' f32 sums add to the error.
-// 2. f32, or d in {16, 64} (the teacher's head dim): flash_fwd_kernel, the
-//    first kernel on CUDA cores: one block of 128 threads per (b*h, 128-query
+// Three routes, chosen by the wrapper (ops/attention.py flash_route) from
+// (dtype, d):
+//
+// 1. bf16, d in {32, 64}: flash_fwd_tc_kernel<D>, on the tensor cores
+//    (FlashAttention-2 shape). A block of 4 warps owns 64 query rows, 16 per
+//    warp, whose q stays in registers as mma A fragments (D / 16 k-steps).
+//    K and V tiles of 64 keys are double-buffered in shared memory by
+//    cp.async (rows padded to D + 8 bf16, 80 or 144 bytes, so ldmatrix reads
+//    them without bank conflicts). Per tile a warp computes S = q k^T with
+//    mma.sync m16n8k16 (f32 sums), runs the online softmax on the
+//    accumulator fragments, and feeds p, rounded to bf16, straight from
+//    registers as the A operand of p.v (V through ldmatrix.trans; D / 8
+//    output tiles of 8). Exactly one exp per score: the scale and log2(e)
+//    are folded into the scores, so each exp is one ex2.approx, and on a tile
+//    whose 64 keys are all live (every tile of a full row) its exponent is
+//    one fma of the raw sum, with no mask applied; ops/attention.py
+//    flash_error_bound derives what that and the tensor cores' f32 sums add
+//    to the error. D = 32 is the code of the first tensor-core kernel.
+// 2. f32, d = 64 (the teacher computes in f32): flash_fwd_tc_tf32_kernel<D>,
+//    the same blocks and tiles with f32 rows padded to 68 floats, each product
+//    mma.sync m16n8k8 on tf32 operands as three products (mma_common.cuh
+//    3xTF32: about 2^-21 of each product, f32 sums), so the f32 function
+//    holds to 1e-5 of the plain version where one TF32 pass is off by ~1e-3.
+//    The fragments are plain 32-bit shared-memory reads (ldmatrix moves b16):
+//    q's once per block into registers, K's and V's at each use, each split
+//    into hi and lo where it is used (two integer operations a term), the
+//    small products in accumulators of their own. A score tile's C fragment
+//    is the A fragment of its p.v step when column 2tig is taken as k = tig
+//    and 2tig + 1 as k = tig + 4, so p stays in registers, and V is read as
+//    rows 2tig and 2tig + 1 (no bank conflict at a stride of 68). The softmax is the CUDA-core kernel's, in
+//    natural units: p = expf(s - m), nothing rounded but by the products.
+// 3. f32 at d in {16, 32}, bf16 at d = 16: flash_fwd_kernel, the first
+//    kernel on CUDA cores: one block of 128 threads per (b*h, 128-query
 //    tile), a thread per query row, K and V tiles converted to f32 in shared
 //    memory and read as broadcasts. The f32 instantiation rounds nothing, so
 //    it holds the masking and the tiling to summation order.
@@ -147,21 +169,29 @@ __global__ void __launch_bounds__(FA_QB) flash_fwd_kernel(
 
 
 // ---------------------------------------------------------------------------
-// Route 1: bf16, d = 32, tensor cores
+// Route 1: bf16, d in {32, 64}, tensor cores
 // ---------------------------------------------------------------------------
+
+constexpr int FT_KB = 64;  // keys per tile
 
 constexpr int FT_QB = 64;  // query rows per block: 4 warps x 16
 constexpr int FT_THREADS = FT_QB * 2;  // a warp per 16 query rows
-constexpr int FT_KB = 64;  // keys per tile
-constexpr int FT_LD = 40;  // shared row stride in bf16 (80 bytes)
 
+// D: the head dim, 32 or 64. Shared rows are padded to D + 8 bf16 (80 or 144
+// bytes: 5 or 9 units of 16 bytes, so ldmatrix's eight row addresses fall in
+// eight bank groups); 46.6 KB of static shared memory at 64. The copy loops
+// count in unsigned ints, so that the divisions by powers of two are shifts
+// (signed, they slow the D = 32 kernel: tools/probe_attention64.py).
+template <int D>
 __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
     __nv_bfloat16* __restrict__ out, int h, int L, int n_qt, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 s_q[FT_QB * FT_LD];
-  __shared__ __align__(16) __nv_bfloat16 s_k[2][FT_KB * FT_LD];
-  __shared__ __align__(16) __nv_bfloat16 s_v[2][FT_KB * FT_LD];
+  constexpr int LD = D + 8;
+  constexpr unsigned CH = D / 8;  // 16-byte chunks a row
+  __shared__ __align__(16) __nv_bfloat16 s_q[FT_QB * LD];
+  __shared__ __align__(16) __nv_bfloat16 s_k[2][FT_KB * LD];
+  __shared__ __align__(16) __nv_bfloat16 s_v[2][FT_KB * LD];
   __shared__ float s_keep[2][FT_KB];  // 1 keep, 0 masked, -1 past L
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -169,23 +199,23 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
   const long bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * FT_QB;
-  const long head_off = bh * (long)L * 32;
+  const long head_off = bh * (long)L * D;
   const __nv_bfloat16* qh = q + head_off;
   const __nv_bfloat16* kh = k + head_off;
   const __nv_bfloat16* vh = v + head_off;
   const int* mrow = mask + (bh / h) * L;
 
   // rows past L are copied as zeros (cp.async with 0 source bytes)
-  for (int i = tid; i < FT_QB * 4; i += FT_THREADS) {
-    const int r = i >> 2, c = (i & 3) * 8, qr = q0 + r;
-    cp_async16(s_q + r * FT_LD + c, qh + (long)min(qr, L - 1) * 32 + c, qr < L ? 16 : 0);
+  for (unsigned i = tid; i < FT_QB * CH; i += FT_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8, qr = q0 + r;
+    cp_async16(s_q + r * LD + c, qh + (long)min(qr, L - 1) * D + c, qr < L ? 16 : 0);
   }
   auto load_tile = [&](int stage, int k0) {
-    for (int i = tid; i < FT_KB * 8; i += FT_THREADS) {
-      const int which = i >> 8, j = i & 255;  // 256 chunks of K, then 256 of V
-      const int r = j >> 2, c = (j & 3) * 8, kr = k0 + r;
-      const __nv_bfloat16* src = (which ? vh : kh) + (long)min(kr, L - 1) * 32 + c;
-      __nv_bfloat16* dst = (which ? s_v[stage] : s_k[stage]) + r * FT_LD + c;
+    for (unsigned i = tid; i < FT_KB * CH * 2; i += FT_THREADS) {
+      const int which = i / (FT_KB * CH), j = i % (FT_KB * CH);  // the chunks of K, then of V
+      const int r = j / CH, c = (j % CH) * 8, kr = k0 + r;
+      const __nv_bfloat16* src = (which ? vh : kh) + (long)min(kr, L - 1) * D + c;
+      __nv_bfloat16* dst = (which ? s_v[stage] : s_k[stage]) + r * LD + c;
       cp_async16(dst, src, kr < L ? 16 : 0);
     }
     if (tid < FT_KB) {
@@ -196,10 +226,10 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
   load_tile(0, 0);
   cp_async_commit();
 
-  uint32_t qa[2][4];  // A fragments of the warp's 16 query rows, d 0-15 and 16-31
-  float o[4][4];      // 16 rows x 32 d, f32
+  uint32_t qa[D / 16][4];  // A fragments of the warp's 16 query rows, 16 d each
+  float o[D / 8][4];       // 16 rows x D, f32
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m2[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};  // rows grp and grp + 8
@@ -212,23 +242,26 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-        ldmatrix_x4(qa[ks], s_q + (warp * 16 + mr + (mi & 1) * 8) * FT_LD + ks * 16 + (mi >> 1) * 8);
+      for (int ks = 0; ks < D / 16; ++ks)
+        ldmatrix_x4(qa[ks], s_q + (warp * 16 + mr + (mi & 1) * 8) * LD + ks * 16 + (mi >> 1) * 8);
     }
     const __nv_bfloat16* sk = s_k[t & 1];
     const __nv_bfloat16* sv = s_v[t & 1];
     const float* keep = s_keep[t & 1];
 
-    // S = q k^T, 8 tiles of 8 keys
+    // S = q k^T, 8 tiles of 8 keys, 32 d an ldmatrix
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      uint32_t kb[4];
-      ldmatrix_x4(kb, sk + (nt * 8 + mr) * FT_LD + mi * 8);
-      mma_bf16(s[nt], qa[0], kb[0], kb[1]);
-      mma_bf16(s[nt], qa[1], kb[2], kb[3]);
+#pragma unroll
+      for (int kc = 0; kc < D / 32; ++kc) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, sk + (nt * 8 + mr) * LD + kc * 32 + mi * 8);
+        mma_bf16(s[nt], qa[2 * kc], kb[0], kb[1]);
+        mma_bf16(s[nt], qa[2 * kc + 1], kb[2], kb[3]);
+      }
     }
     // The row max in log2 units. A tile whose 64 keys are all live (every
     // tile of a full row) needs no mask: its max is the max of the raw sums
@@ -268,7 +301,7 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
     // the exponent of each p: s * scale - m in one fma on a live tile
     const float a_mul = live ? scale_log2 : 1.f;
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn) {
+    for (int dn = 0; dn < D / 8; ++dn) {
       o[dn][0] *= alpha[0];
       o[dn][1] *= alpha[0];
       o[dn][2] *= alpha[1];
@@ -287,13 +320,13 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
       pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
       pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
-    // o += p v over the tile's 4 steps of 16 keys
+    // o += p v over the tile's 4 steps of 16 keys, 16 d an ldmatrix
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < D / 16; ++half) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, sv + (ks * 16 + mr + (mi & 1) * 8) * FT_LD + half * 16 + (mi >> 1) * 8);
+        ldmatrix_x4_trans(vb, sv + (ks * 16 + mr + (mi & 1) * 8) * LD + half * 16 + (mi >> 1) * 8);
         mma_bf16(o[2 * half], pa[ks], vb[0], vb[1]);
         mma_bf16(o[2 * half + 1], pa[ks], vb[2], vb[3]);
       }
@@ -308,10 +341,184 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
     const int row = q0 + warp * 16 + grp + 8 * r;
     if (row < L) {
       const float denom = fmaxf(l[r], 1e-30f);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(out + head_off + (long)row * 32 + 2 * tig);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out + head_off + (long)row * D + 2 * tig);
 #pragma unroll
-      for (int dn = 0; dn < 4; ++dn)
+      for (int dn = 0; dn < D / 8; ++dn)
         dst[dn * 4] = pack_bf16(o[dn][2 * r] / denom, o[dn][2 * r + 1] / denom);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Route 2: f32, d = 64, tensor cores as three TF32 products
+// ---------------------------------------------------------------------------
+
+constexpr int FF_LD = 68;  // shared row stride in floats (272 bytes; 68 = 4 mod 32)
+constexpr int FF_KB = 64;  // keys per tile
+
+// Dynamic shared memory of the f32 route: q, two stages of K and V, the keep
+// flags (87.5 KB at D = 64: two blocks an SM).
+__host__ __device__ constexpr size_t ff_smem_bytes() {
+  return (size_t)(FT_QB + 4 * FF_KB) * FF_LD * 4 + 2 * FF_KB * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ mask, float* __restrict__ out, int h, int L, int n_qt,
+    float sm_scale) {
+  static_assert(D + 4 <= FF_LD, "row stride");
+  constexpr unsigned CH = D / 4;  // 16-byte chunks a row
+  constexpr int NT = FF_KB / 8;  // 8-key tiles a tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_q = reinterpret_cast<float*>(smem);
+  float* s_k = s_q + FT_QB * FF_LD;       // [2][FF_KB * FF_LD]
+  float* s_v = s_k + 2 * FF_KB * FF_LD;   // [2][FF_KB * FF_LD]
+  float* s_keep = s_v + 2 * FF_KB * FF_LD;  // [2][FF_KB]: 1 keep, 0 masked, -1 past L
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const long bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * FT_QB;
+  const long head_off = bh * (long)L * D;
+  const float* qh = q + head_off;
+  const float* kh = k + head_off;
+  const float* vh = v + head_off;
+  const int* mrow = mask + (bh / h) * L;
+
+  for (unsigned i = tid; i < FT_QB * CH; i += FT_THREADS) {
+    const int r = i / CH, c = (i % CH) * 4, qr = q0 + r;
+    cp_async16(s_q + r * FF_LD + c, qh + (long)min(qr, L - 1) * D + c, qr < L ? 16 : 0);
+  }
+  auto load_tile = [&](int stage, int k0) {
+    for (unsigned i = tid; i < FF_KB * CH * 2; i += FT_THREADS) {
+      const int which = i / (FF_KB * CH), j = i % (FF_KB * CH);
+      const int r = j / CH, c = (j % CH) * 4, kr = k0 + r;
+      const float* src = (which ? vh : kh) + (long)min(kr, L - 1) * D + c;
+      float* dst = (which ? s_v : s_k) + stage * FF_KB * FF_LD + r * FF_LD + c;
+      cp_async16(dst, src, kr < L ? 16 : 0);
+    }
+    if (tid < FF_KB) {
+      const int kr = k0 + tid;
+      s_keep[stage * FF_KB + tid] = kr < L ? (mrow[kr] != 0 ? 1.f : 0.f) : -1.f;
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float qa[D / 8][4];  // q's A fragments, 8 d a step, split into hi and lo at each use
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};  // rows grp and grp + 8, natural units
+
+  const int n_kt = (L + FF_KB - 1) / FF_KB;
+  for (int t = 0; t < n_kt; ++t) {
+    if (t + 1 < n_kt) load_tile((t + 1) & 1, (t + 1) * FF_KB);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+      const float* qr = s_q + (warp * 16 + grp) * FF_LD + tig;
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        qa[ks][0] = qr[ks * 8];
+        qa[ks][1] = qr[8 * FF_LD + ks * 8];
+        qa[ks][2] = qr[ks * 8 + 4];
+        qa[ks][3] = qr[8 * FF_LD + ks * 8 + 4];
+      }
+    }
+    const float* sk = s_k + (t & 1) * FF_KB * FF_LD;
+    const float* sv = s_v + (t & 1) * FF_KB * FF_LD;
+    const float* keep = s_keep + (t & 1) * FF_KB;
+
+    // S = q k^T, NT tiles of 8 keys: B fragment b0 = K[key grp][d tig], b1 at
+    // d tig + 4 (banks 4 grp + tig: no conflict)
+    float s[NT][4], s_lo[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = s_lo[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      split_tf32_a(qa[ks], ah, al);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* kr = sk + (nt * 8 + grp) * FF_LD + ks * 8 + tig;
+        mma_3xtf32(s[nt], s_lo[nt], ah, al, kr[0], kr[4]);
+      }
+    }
+    // the scores in natural units, masked as flash_fwd_kernel masks them
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      fold_lo(s[nt], s_lo[nt]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float kf = keep[nt * 8 + 2 * tig + (e & 1)];
+        const float x = kf > 0.f ? s[nt][e] * sm_scale : (kf == 0.f ? FA_NEG : -INFINITY);
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      o[dn][0] *= alpha[0];
+      o[dn][1] *= alpha[0];
+      o[dn][2] *= alpha[1];
+      o[dn][3] *= alpha[1];
+    }
+    // p = exp(s - m), summed, then o += p v: tile nt is one 8-deep step whose
+    // k = tig is key 2tig and k = tig + 4 key 2tig + 1, so B is V[key 2tig]
+    // and V[key 2tig + 1] at d grp (banks 8 tig + grp and + 4: no conflict);
+    // the tile's small terms fold into o at its end
+    float o_lo[D / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_lo[dn][e] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p[4] = {expf(s[nt][0] - m[0]), expf(s[nt][2] - m[1]),
+                          expf(s[nt][1] - m[0]), expf(s[nt][3] - m[1])};  // a0..a3
+      l[0] += p[0] + p[2];
+      l[1] += p[1] + p[3];
+      uint32_t ph[4], pl[4];
+      split_tf32_a(p, ph, pl);
+      const float* vr = sv + (nt * 8 + 2 * tig) * FF_LD + grp;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        mma_3xtf32(o[dn], o_lo[dn], ph, pl, vr[dn * 8], vr[FF_LD + dn * 8]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) fold_lo(o[dn], o_lo[dn]);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + warp * 16 + grp + 8 * r;
+    if (row < L) {
+      const float denom = fmaxf(l[r], 1e-30f);
+      float* dst = out + head_off + (long)row * D + 2 * tig;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        *reinterpret_cast<float2*>(dst + dn * 8) =
+            make_float2(o[dn][2 * r] / denom, o[dn][2 * r + 1] / denom);
     }
   }
 }
@@ -330,7 +537,6 @@ static int launch_d(const void* q, const void* k, const void* v, const int* mask
                     int B, int h, int L, int d, float sm_scale, cudaStream_t stream) {
   if (d == 16) launch<T, 16, 64>(q, k, v, mask, out, B, h, L, sm_scale, stream);
   else if (d == 32) launch<T, 32, 64>(q, k, v, mask, out, B, h, L, sm_scale, stream);
-  else if (d == 64) launch<T, 64, 32>(q, k, v, mask, out, B, h, L, sm_scale, stream);
   else return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -339,7 +545,7 @@ static int launch_d(const void* q, const void* k, const void* v, const int* mask
 
 // C interface, loaded with ctypes.
 //   dtype: 0 f32, 1 bf16. q, k, v, out: [B, h, L, d] contiguous. mask: [B, L] int32.
-//   d in {16, 32, 64}.
+//   d in {16, 32} (head dim 64 takes the tensor-core routes below).
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
                                    const int* mask, void* out, int B, int h, int L, int d,
@@ -355,16 +561,34 @@ extern "C" int sskd_flash_attn_fwd(int dtype, const void* q, const void* k, cons
   return (int)cudaGetLastError();
 }
 
-//   The tensor-core route: bf16 only, d = 32; q, k, v, out [B, h, L, 32]
-//   contiguous, mask [B, L] int32; scale_log2 = log2(e) / sqrt(d) in f32.
-extern "C" int sskd_flash_attn_fwd_tc(const void* q, const void* k, const void* v,
-                                      const int* mask, void* out, int B, int h, int L,
-                                      float scale_log2, void* stream) {
+//   The tensor-core routes: dtype 1 (bf16) at d = 32 or 64, dtype 0 (f32) at
+//   d = 64 (others are refused); q, k, v, out [B, h, L, d] contiguous, mask
+//   [B, L] int32; sm_scale = 1 / sqrt(d) (the f32 route) and scale_log2 =
+//   log2(e) / sqrt(d) (the bf16 route), both in f32.
+extern "C" int sskd_flash_attn_fwd_tc(int dtype, const void* q, const void* k, const void* v,
+                                      const int* mask, void* out, int B, int h, int L, int d,
+                                      float sm_scale, float scale_log2, void* stream) {
   using namespace sskd;
   if (B <= 0 || h <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  const int n_qt = (L + FT_QB - 1) / FT_QB;
-  flash_fwd_tc_kernel<<<(unsigned)((long)B * h * n_qt), FT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
-      (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && (d == 32 || d == 64)) {
+    auto kernel = d == 32 ? flash_fwd_tc_kernel<32> : flash_fwd_tc_kernel<64>;
+    const int n_qt = (L + FT_QB - 1) / FT_QB;
+    kernel<<<(unsigned)((long)B * h * n_qt), FT_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
+        (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
+  } else if (dtype == 0 && d == 64) {
+    constexpr size_t smem = ff_smem_bytes();
+    const int rc = (int)cudaFuncSetAttribute(flash_fwd_tc_tf32_kernel<64>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+    if (rc != 0) return rc;
+    const int n_qt = (L + FT_QB - 1) / FT_QB;
+    flash_fwd_tc_tf32_kernel<64><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
+        (const float*)q, (const float*)k, (const float*)v, mask, (float*)out, h, L, n_qt,
+        sm_scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

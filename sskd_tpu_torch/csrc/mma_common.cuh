@@ -1,7 +1,9 @@
 // mma_common.cuh: tensor-core helpers for sm_90a shared by the kernels:
 // cp.async copies into shared memory, ldmatrix (plain and transposed),
 // mma.sync m16n8k16 with bf16 operands and f32 accumulators (the attention
-// kernels), mma.sync m16n8k32 with s8 operands and exact s32 sums over
+// kernels), mma.sync m16n8k8 with tf32 operands as three products for f32
+// (the f32 attention kernels at head dim 64), mma.sync m16n8k32 with s8
+// operands and exact s32 sums over
 // padded rows of int8 (the top-k kernels: binmax.cu, bin_gather.cu,
 // cell_gather.cu), and the exact widening of bf16 rows to f32.
 //
@@ -102,6 +104,80 @@ constexpr float NEG_INF = -FLT_MAX / 2;  // finfo(float32).min / 2, the repo's s
 // high half of an f32); the value at the lower address is the low half.
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// --- f32 on the tensor cores as three TF32 products ---------------------------
+//
+// Fragment layouts of mma.sync.m16n8k8 with tf32 operands (one value per
+// 32-bit register; lane = 4 * grp + tig):
+//   A 16x8: a0 (row grp, k tig), a1 (row grp+8, k tig),
+//           a2 (row grp, k tig+4), a3 (row grp+8, k tig+4)
+//   B 8x8:  b0 (k tig, col grp), b1 (k tig+4, col grp)
+//   C 16x8: as m16n8k16's: c0, c1 (row grp, cols 2tig, 2tig+1), c2, c3 (row grp+8)
+// So the C fragment of a score tile is the A fragment of an 8-deep product
+// over its 8 columns when column 2tig is taken as k = tig and 2tig+1 as
+// k = tig+4: a0 = c0, a1 = c2, a2 = c1, a3 = c3.
+//
+// 3xTF32: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact
+// in f32), and a b = lo_a hi_b + hi_a lo_b + hi_a hi_b with f32 sums (the
+// small terms apart, mma_3xtf32); what is dropped, lo_a lo_b and the
+// rounding of lo, is about 2^-21 of |a b|, which keeps the f32 function of a
+// product at the tensor cores' TF32 rate over three passes.
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), low 13 bits 0:
+// what cvt.rna.tf32.f32 gives for finite x, in two integer operations (half
+// of the dropped bits added to the pattern, then cleared) on the full-rate
+// pipes, where the conversion instruction made the f32 flash slower
+// (tools/probe_attention64.py times both and holds them bit for bit)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// the two TF32 terms of x
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// the hi and lo terms of an A fragment (4 values) in fragment order
+__device__ __forceinline__ void split_tf32_a(const float (&x)[4], uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c += a b for one 16x8 tile, one 8-deep step, tf32 operands, f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c + c_lo += a b in f32 as three tf32 products, for A split into (ah, al)
+// and the B values b0, b1 (split here): hi hi into c, lo hi and hi lo into
+// c_lo. The tensor cores truncate each step's sum toward zero to f32, so
+// each mma into the accumulator loses up to an ulp of it; keeping the small
+// terms apart leaves c one truncation a step instead of three (c_lo is
+// ~2^-11 of c, its truncations ~2^-11 as large). The caller adds c_lo into
+// c once, when the sum is done.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], float (&c_lo)[4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  mma_tf32(c_lo, al, h0, h1);
+  mma_tf32(c_lo, ah, l0, l1);
+  mma_tf32(c, ah, h0, h1);
+}
+
+// c += c_lo, element by element (the end of a 3xTF32 sum)
+__device__ __forceinline__ void fold_lo(float (&c)[4], const float (&c_lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += c_lo[e];
+}
 
 // --- int8 rows on the tensor cores ------------------------------------------
 

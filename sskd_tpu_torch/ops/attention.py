@@ -16,9 +16,15 @@
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
   ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 32 (the
-  student's) and 64 (the teacher's); each has a tensor-core route at head
-  dim 32 (:func:`dropattn_fwd_route`, :func:`dropattn_bwd_route`;
-  ``dropattn_fwd.tc_launches``, ``dropattn_bwd.tc_launches``).
+  student's) and 64 (the teacher's). The forward has a tensor-core route
+  for bf16 at head dim 32 (:func:`dropattn_fwd_route`), the backward for
+  bf16 at head dims 32 and 64 and for f32 at 64 (:func:`dropattn_bwd_route`),
+  as flash has (:func:`flash_route`); ``tc_launches`` counts them.
+- The f32 tensor-core routes (head dim 64, the teacher's f32 compute) take
+  each product as three TF32 products on the tensor cores (hi and lo terms
+  of each operand, f32 sums: csrc/mma_common.cuh), which keeps the f32
+  function to about 2^-21 of each product; one TF32 pass would be ~1e-3
+  off.
 
 The three wrappers also count their launches by head dim
 (``head_dim_launches``, ``{d: launches}``).
@@ -57,8 +63,10 @@ _HEAD_DIMS = (16, 32, 64)
 # others
 _DROPATTN_HEAD_DIMS = (32, 64)
 # the longest L whose head fits the shared memory of one block of the
-# tensor-core backward (csrc/dropattn_bwd.cu DT_MAX_L)
-DROPATTN_TC_MAX_L = 256
+# tensor-core backward, by (dtype, head dim) (csrc/dropattn_bwd.cu
+# dt_smem_bytes with one head buffer; the kernel refuses longer L)
+DROPATTN_TC_MAX_L = {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 208,
+                     (torch.float32, 64): 128}
 # the longest L whose K and V fit the shared memory of one block of the
 # tensor-core forward (csrc/dropattn_fwd.cu DFT_MAX_L)
 DROPATTN_FWD_TC_MAX_L = 1024
@@ -66,10 +74,12 @@ DROPATTN_FWD_TC_MAX_L = 1024
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of :func:`flash_attention` launches: ``"tc"``
-    (tensor cores, csrc/flash_attn.cu ``flash_fwd_tc_kernel``) for bf16 at
-    head dim 32, ``"cuda_core"`` (``flash_fwd_kernel``) for f32 and the other
-    head dims."""
-    return "tc" if dtype == torch.bfloat16 and d == 32 else "cuda_core"
+    (tensor cores, csrc/flash_attn.cu: ``flash_fwd_tc_kernel`` for bf16 at
+    head dims 32 and 64, ``flash_fwd_tc_tf32_kernel`` for f32 at head dim 64,
+    three TF32 products a product), ``"cuda_core"`` (``flash_fwd_kernel``)
+    for f32 at head dims 16 and 32 and bf16 at 16."""
+    tc = (dtype == torch.bfloat16 and d in (32, 64)) or (dtype == torch.float32 and d == 64)
+    return "tc" if tc else "cuda_core"
 
 
 def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
@@ -83,12 +93,12 @@ def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
 
 def dropattn_bwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernels a CUDA call of :func:`dropattn_bwd` launches: ``"tc"``
-    (one tensor-core kernel holding a whole head in shared memory,
-    ``dropattn_bwd_tc_kernel``) for bf16 at head dim 32 and L <=
-    ``DROPATTN_TC_MAX_L``, ``"cuda_core"`` (the dq and dk/dv kernel pair) for
-    f32, head dim 64 and longer L."""
-    tc = dtype == torch.bfloat16 and d == 32 and L <= DROPATTN_TC_MAX_L
-    return "tc" if tc else "cuda_core"
+    (one tensor-core kernel holding a whole head in shared memory:
+    ``dropattn_bwd_tc_kernel`` for bf16 at head dims 32 and 64,
+    ``dropattn_bwd_tc_tf32_kernel`` for f32 at head dim 64) for L up to
+    ``DROPATTN_TC_MAX_L[(dtype, d)]``, ``"cuda_core"`` (the dq and dk/dv
+    kernel pair) for f32 at head dim 32 and for longer L."""
+    return "tc" if L <= DROPATTN_TC_MAX_L.get((dtype, d), 0) else "cuda_core"
 
 
 def _count(wrapper, d: int, tc: bool) -> None:
@@ -242,10 +252,11 @@ def flash_attention(q, k, v, mask=None):
     if tc:
         fn = lib.sskd_flash_attn_fwd_tc
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         _build.check(
-            fn(*(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, _scale_log2(d), _stream(q)),
+            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, d,
+               1.0 / (d**0.5), _scale_log2(d), _stream(q)),
             "flash_attn_fwd (tensor cores)",
         )
     else:
@@ -577,8 +588,9 @@ def dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want):
       1.01 scale probs (eps (|dprobs| + |D|) + delta_dprobs + delta_D) +
       2^-22 |ds|; pd moves by eps pd.
     - The products over L: _gamma(L) of the same sums of absolute products.
-    The CUDA-core route (f32, or L > 256) rounds its f32 sums and calls
-    expf, which these terms also cover."""
+    The CUDA-core pair (past the tensor-core route's L) rounds its f32 sums
+    and calls expf, which these terms also cover. The f32 routes are held
+    to 1e-5 instead."""
     u = _unit(q.dtype)
     t = _abs_products(q, k, v, bias, p, seed, lse, g)
     L = q.shape[2]
@@ -682,12 +694,13 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
     if dropattn_bwd_route(q.dtype, d, L) == "tc":
         fn = lib.sskd_dropattn_bwd_tc
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p,
         ]
         _build.check(
-            fn(*(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)), B, h, L, d,
+            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)),
+               B, h, L, d,
                1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
                _stream(q)),
             "dropattn_bwd (tensor cores)",

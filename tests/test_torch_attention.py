@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from sskd_tpu.ops.attention import flash_attention as j_flash, xla_attention
 from sskd_tpu_torch.ops import attention as ta
-from torch_tc_emulation import flash_tc
+from torch_tc_emulation import flash_tc, flash_tf32
 
 
 def _qkv(seed, B, h, L, d):
@@ -62,10 +62,12 @@ def test_fully_masked_row_averages_values():
     torch.testing.assert_close(out[0, 0], v[0, 0].mean(dim=0).expand(8, 16), atol=1e-6, rtol=0)
 
 
-def test_flash_error_bound_admits_rounding_and_catches_a_scale_fault():
-    """The bf16 bound the card's kernel is held to: the plain result against
-    one that skips the rounding of p lies inside it; a 2% scale fault does not."""
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(5, 2, 3, 96, 32))
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_error_bound_admits_rounding_and_catches_a_scale_fault(d):
+    """The bf16 bound the card's kernel is held to, at the student's and the
+    teacher's head dims: the plain result against one that skips the
+    rounding of p lies inside it; a 2% scale fault does not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(5, 2, 3, 96, d))
     mask = torch.from_numpy(_mask(5, 2, 96))
     want = ta.flash_attention_plain(q, k, v, mask)
     unrounded_p = ta.flash_attention_plain(q.float(), k.float(), v.float(), mask)
@@ -77,13 +79,15 @@ def test_flash_error_bound_admits_rounding_and_catches_a_scale_fault():
                      <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
 
 
-def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_jax_kernel():
+@pytest.mark.parametrize("d", [32, 64])
+def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_jax_kernel(d):
     """The bf16 tensor-core route's arithmetic (truncating mma sums, the scale
     folded into one exp2, 64-key online tiles; tests/torch_tc_emulation.py)
     against the JAX flash kernel in interpret mode on the same bf16 inputs,
-    ragged L and a row with no live key included: within flash_error_bound
-    at every element, and a 2% scale fault of it is not."""
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(9, 3, 2, 200, 32))
+    ragged L and a row with no live key included, at head dims 32 and 64:
+    within flash_error_bound at every element, and a 2% scale fault of it is
+    not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(9, 3, 2, 200, d))
     mask = torch.from_numpy(_mask(9, 3, 200))
     mask[2] = 0
     want = np.array(j_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
@@ -98,6 +102,64 @@ def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_jax_kernel():
                      <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
 
 
+@pytest.mark.parametrize("d", [32, 64])
+def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_plain_version(d):
+    """The same bf16 arithmetic against flash_attention_plain (what the card
+    holds the kernel to) at the teacher's scoring length, a half row and a
+    row with no live key included: within flash_error_bound; a 2 % fault of
+    it is not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(d + 3, 3, 4, 512, d))
+    mask = torch.from_numpy(_mask(d + 3, 3, 512))
+    mask[1] = (torch.arange(512) < 256).int()
+    mask[2] = 0
+    want = ta.flash_attention_plain(q, k, v, mask)
+    got = flash_tc(q, k, v, mask)
+    diff = (got.float() - want.float()).abs()
+    bound = ta.flash_error_bound(q, k, v, mask, got, want)
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+    faulty = (got.float() * 1.02).to(torch.bfloat16)
+    assert not bool(((faulty.float() - want.float()).abs()
+                     <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
+
+
+def _f32_flash_case(seed, B, h, L):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(seed, B, h, L, 64))
+    mask = torch.from_numpy(_mask(seed, B, L))
+    return q, k, v, mask
+
+
+def test_tf32_flash_arithmetic_is_within_1e5_of_the_plain_version():
+    """The f32 route at head dim 64 (three TF32 products a product, their
+    small terms in an accumulator of their own, truncating mma sums, the
+    CUDA-core kernel's softmax; tests/torch_tc_emulation.py flash_tf32)
+    against flash_attention_plain at the teacher's scoring width [2, 16,
+    512, 64]: within the 1e-5 the card holds the f32 kernel to."""
+    q, k, v, mask = _f32_flash_case(21, 2, 16, 512)
+    err = (flash_tf32(q, k, v, mask) - ta.flash_attention_plain(q, k, v, mask)).abs().max()
+    assert err.item() <= 1e-5, err.item()
+
+
+def test_tf32_flash_arithmetic_is_within_1e5_of_the_jax_kernel():
+    """The same against the JAX flash kernel in interpret mode (f32), ragged
+    L and a row with no live key included: within 1e-5."""
+    q, k, v, mask = _f32_flash_case(23, 3, 2, 200)
+    mask[2] = 0
+    want = np.asarray(j_flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                              mask=jnp.asarray(mask.numpy()), interpret=True))
+    err = np.abs(flash_tf32(q, k, v, mask).numpy() - want).max()
+    assert err <= 1e-5, err
+
+
+def test_one_pass_tf32_flash_fails_the_1e5_check():
+    """One TF32 pass (each operand rounded to TF32 once) misses 1e-5 at the
+    same shape by about a hundred times: the f32 checks would catch a
+    kernel that dropped the small terms."""
+    q, k, v, mask = _f32_flash_case(21, 2, 16, 512)
+    err = (flash_tf32(q, k, v, mask, passes=1)
+           - ta.flash_attention_plain(q, k, v, mask)).abs().max()
+    assert err.item() > 1e-4, err.item()
+
+
 def test_flash_checks_shapes():
     q = torch.zeros(1, 1, 4, 16)
     with pytest.raises(ValueError):
@@ -109,8 +171,9 @@ def test_flash_checks_shapes():
 @pytest.mark.parametrize("L", [64, 200])
 @pytest.mark.parametrize("masked", [False, True])
 def test_flash_matches_jax_at_head_dim_64(L, masked):
-    """As test_flash_matches_jax at the teacher's head dim (the port's flash
-    at d = 64 runs the CUDA-core kernel on the card): atol 1e-5."""
+    """As test_flash_matches_jax at the teacher's head dim (on the CPU the
+    wrapper runs the plain version; on the card d = 64 takes the tensor-core
+    routes): atol 1e-5."""
     q, k, v = _qkv(L + 64, 3, 2, L, 64)
     mask = _mask(L + 64, 3, L) if masked else None
     want = np.asarray(

@@ -19,7 +19,12 @@ from sskd_tpu.ops.attention import _dropattn_fwd_call as j_dropattn_fwd
 from sskd_tpu.ops.attention import dropout_attention as j_dropattn
 from sskd_tpu.ops.attention import scaled_dot_attention as j_sda
 from sskd_tpu_torch.ops import attention as ta
-from torch_tc_emulation import dropattn_bwd_tc, dropattn_fwd_tc
+from torch_tc_emulation import (
+    dropattn_bwd_tc,
+    dropattn_bwd_tf32,
+    dropattn_fwd_tc,
+    tf32_fragment_keys,
+)
 
 NEG = float(np.finfo(np.float32).min / 2)
 
@@ -196,13 +201,15 @@ def _held_to_the_bound(q, k, v, bias, p, seed, lse, g, got, want):
         assert not bool(((a.float() - b.float()).abs() <= bd).all())
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("L", [48, 130])  # 130: a ragged last chunk of 16 keys
-def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_jax_kernel(L):
+def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_jax_kernel(L, d):
     """The bf16 tensor-core backward's arithmetic (truncating mma sums, the
     exponent folded into one exp2; tests/torch_tc_emulation.py) against the
-    JAX backward kernel in interpret mode at p = 0 on the same bf16 inputs:
-    within dropattn_bwd_error_bound at every element; a 2% fault is not."""
-    q, k, v, g, bias = _inputs(L + 1, 2, 3, L, 32)
+    JAX backward kernel in interpret mode at p = 0 on the same bf16 inputs,
+    at head dims 32 and 64: within dropattn_bwd_error_bound at every
+    element; a 2% fault is not."""
+    q, k, v, g, bias = _inputs(L + 1, 2, 3, L, d)
     qb, kb, vb, gb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
     tb = torch.from_numpy(bias)
     _, lse = ta.dropattn_fwd_plain(qb, kb, vb, tb, 0.0, 3)
@@ -216,16 +223,96 @@ def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_jax_kernel(L
     _held_to_the_bound(qb, kb, vb, tb, 0.0, 3, lse, gb, got, want)
 
 
-def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_plain_version():
+@pytest.mark.parametrize("d", [32, 64])
+def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_plain_version(d):
     """At p = 0.1 (no JAX reference draws the port's mask) the same
     arithmetic against dropattn_bwd_plain, with the plain keep-mask."""
-    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(6, 2, 3, 64, 32))
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(6, 2, 3, 64, d))
     qb, kb, vb, gb = (t.to(torch.bfloat16) for t in (q, k, v, g))
     _, lse = ta.dropattn_fwd_plain(qb, kb, vb, bias, 0.1, 17)
     keep = ta.dropout_keep_mask(17, 6, 64, 0.1).view(2, 3, 64, 64)
     got = dropattn_bwd_tc(qb, kb, vb, bias, 0.1, 17, lse, gb, keep)
     want = ta.dropattn_bwd_plain(qb, kb, vb, bias, 0.1, 17, lse, gb)
     _held_to_the_bound(qb, kb, vb, bias, 0.1, 17, lse, gb, got, want)
+
+
+def _f32_within_1e5(got, want):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_tf32_backward_arithmetic_is_within_1e5_of_the_plain_version(p):
+    """The f32 route at head dim 64 (three TF32 products a product, their
+    small terms in an accumulator of their own, truncating mma sums, dq's
+    steps in the kernel's key order; tests/torch_tc_emulation.py
+    dropattn_bwd_tf32) against dropattn_bwd_plain at [4, 16, 64, 64] with a
+    padding bias, with the plain keep-mask at p = 0.1: within the 1e-5 the
+    card holds the f32 kernel to."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(64, 4, 16, 64, 64))
+    _, lse = ta.dropattn_fwd_plain(q, k, v, bias, p, 29)
+    keep = None if p == 0 else ta.dropout_keep_mask(29, 64, 64, p).view(4, 16, 64, 64)
+    got = dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep)
+    _f32_within_1e5(got, ta.dropattn_bwd_plain(q, k, v, bias, p, 29, lse, g))
+
+
+@pytest.mark.parametrize("L", [48, 100])  # 100: a ragged last chunk of 16 keys
+def test_tf32_backward_arithmetic_is_within_1e5_of_the_jax_kernel(L):
+    """The same against the JAX backward kernel in interpret mode at p = 0
+    (f32): within 1e-5."""
+    q, k, v, g, bias = _inputs(L + 5, 2, 3, L, 64)
+    tq, tk, tv, tg, tb = (torch.from_numpy(a) for a in (q, k, v, g, bias))
+    _, lse = ta.dropattn_fwd_plain(tq, tk, tv, tb, 0.0, 3)
+    want = j_dropattn_bwd(0.0, True, *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias),
+                          jnp.asarray([3], jnp.int32), jnp.asarray(g))
+    got = dropattn_bwd_tf32(tq, tk, tv, tb, 0.0, lse, tg, None)
+    _f32_within_1e5(got, [torch.from_numpy(np.array(x)) for x in want])
+
+
+def test_one_pass_tf32_backward_fails_the_1e5_check():
+    """One TF32 pass misses 1e-5 at the teacher's train shape by far: the
+    f32 checks would catch a kernel that dropped the small terms."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(64, 4, 16, 64, 64))
+    _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 29)
+    keep = ta.dropout_keep_mask(29, 64, 64, 0.1).view(4, 16, 64, 64)
+    got = dropattn_bwd_tf32(q, k, v, bias, 0.1, lse, g, keep, passes=1)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 29, lse, g)
+    assert max((a - b).abs().max().item() for a, b in zip(got, want)) > 1e-4
+
+
+def test_the_f32_backward_lanes_hold_whole_philox_groups():
+    """The f32 tensor-core backward's index arithmetic (csrc/dropattn_bwd.cu
+    key_slot and its fragment reads): lane (grp, tig) holds keys 4 tig ..
+    4 tig + 3 of every 16-key chunk, the four words of one Philox call, and
+    dq's steps read k rows 4 tig + 2 s and 4 tig + 2 s + 1, the keys of the
+    ds values that lane gives as k = tig and tig + 4."""
+    scores, dq_rows = tf32_fragment_keys()
+    for lane in range(32):
+        tig = lane & 3
+        assert scores[lane] == [4 * tig + j for j in range(4)]
+        assert dq_rows[lane] == [[4 * tig + 2 * s + b for b in range(2)] for s in range(2)]
+
+
+def _tc_backward_smem(dtype, d: int, L: int) -> int:
+    """Shared memory of one block of the tensor-core backward with one head
+    buffer (csrc/dropattn_bwd.cu dt_smem_bytes)."""
+    Lp = (L + 15) // 16 * 16
+    if dtype == torch.bfloat16:
+        head, elt = 4 * Lp * (d + 8) * 2 + 2 * Lp * 4, 2
+    else:
+        head, elt = Lp * (2 * (d + 8) + 2 * (d + 4)) * 4 + 2 * Lp * 4, 4
+    return head + Lp * (Lp + 8) * elt + Lp * (Lp // 16) * 2 + 2 * Lp * 4
+
+
+def test_tensor_core_backward_limits_are_the_longest_lengths_that_fit():
+    """DROPATTN_TC_MAX_L is, for each (dtype, head dim), the longest L whose
+    head fits the 232,448 bytes of shared memory a block may hold (the
+    kernel refuses more), within its block size of 2 L threads."""
+    for (dtype, d), limit in ta.DROPATTN_TC_MAX_L.items():
+        assert _tc_backward_smem(dtype, d, limit) <= 227 * 1024
+        assert _tc_backward_smem(dtype, d, limit + 16) > 227 * 1024
+        assert 2 * ((limit + 15) // 16 * 16) <= (512 if dtype == torch.bfloat16 else 256)
 
 
 def _fwd_within(q, k, v, bias, p, seed, got, want):
@@ -336,19 +423,27 @@ def test_the_mask_applied_at_head_dim_64_is_dropout_keep_mask(L):
 
 
 def test_routes_send_head_dim_64_to_the_cuda_cores():
-    """The tensor-core dropattn kernels take head dim 32 only: bf16 at head
-    dim 64 goes to the CUDA-core kernels at every L (before, the routes
-    looked at the dtype and L alone and would have sent it to a kernel that
-    refuses it); head dim 32 keeps its routes."""
-    for L in (16, 64, 192, 256, 512, 1024, 2048):
+    """The routes at head dim 64: flash and the backward take the tensor
+    cores (bf16 and f32, the backward while the head fits a block: L <= 208
+    in bf16, 128 in f32), the forward stays on the CUDA-core kernel (its
+    tensor-core route takes head dim 32 only) at every L, and so does the
+    backward past its limit; head dim 32 keeps its routes."""
+    limits = ta.DROPATTN_TC_MAX_L
+    assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
+    for L in (16, 64, 128, 129, 192, 208, 209, 256, 512, 1024, 2048):
         assert ta.dropattn_fwd_route(torch.bfloat16, 64, L) == "cuda_core"
-        assert ta.dropattn_bwd_route(torch.bfloat16, 64, L) == "cuda_core"
         assert ta.dropattn_fwd_route(torch.float32, 64, L) == "cuda_core"
+        for dtype in (torch.bfloat16, torch.float32):
+            assert ta.dropattn_bwd_route(dtype, 64, L) == (
+                "tc" if L <= limits[(dtype, 64)] else "cuda_core")
         assert ta.dropattn_fwd_route(torch.bfloat16, 32, L) == (
             "tc" if L <= ta.DROPATTN_FWD_TC_MAX_L else "cuda_core")
         assert ta.dropattn_bwd_route(torch.bfloat16, 32, L) == (
-            "tc" if L <= ta.DROPATTN_TC_MAX_L else "cuda_core")
-    assert ta.flash_route(torch.bfloat16, 64) == "cuda_core"
+            "tc" if L <= limits[(torch.bfloat16, 32)] else "cuda_core")
+        assert ta.dropattn_bwd_route(torch.float32, 32, L) == "cuda_core"
+    assert ta.flash_route(torch.bfloat16, 64) == ta.flash_route(torch.float32, 64) == "tc"
+    assert ta.flash_route(torch.bfloat16, 32) == "tc"
+    assert ta.flash_route(torch.float32, 32) == ta.flash_route(torch.bfloat16, 16) == "cuda_core"
     assert 64 in ta._DROPATTN_HEAD_DIMS
 
 

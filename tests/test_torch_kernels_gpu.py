@@ -432,8 +432,9 @@ def test_attention_routes_and_their_counters():
     assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 1
     assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 1
     assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 2
-    assert ta.dropattn_bwd_route(torch.bfloat16, 32, ta.DROPATTN_TC_MAX_L) == "tc"
-    assert ta.dropattn_bwd_route(torch.bfloat16, 32, ta.DROPATTN_TC_MAX_L + 1) == "cuda_core"
+    limit = ta.DROPATTN_TC_MAX_L[(torch.bfloat16, 32)]
+    assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit) == "tc"
+    assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit + 1) == "cuda_core"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, ta.DROPATTN_FWD_TC_MAX_L) == "tc"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, ta.DROPATTN_FWD_TC_MAX_L + 1) == "cuda_core"
     assert ta.dropattn_fwd_route(torch.float32, 32, 64) == "cuda_core"
@@ -443,14 +444,16 @@ def test_attention_routes_and_their_counters():
                                   "binmax": 0}
 
 
-def test_dropattn_tensor_core_backward_applies_the_plain_mask():
+@pytest.mark.parametrize("d", [32, 64])
+def test_dropattn_tensor_core_backward_applies_the_plain_mask(d):
     """bf16 at L = 192: a bias that leaves keys 0..127 live makes each live
     probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in bf16;
     with v (and g) holding 2^(j % 8) in channel j // 8, out spells each row's
     keep bits over the live columns and dv each live column's over the 192
-    rows: the keep bits the tensor-core backward stored and applied."""
+    rows: the keep bits the tensor-core backward stored and applied, at head
+    dims 32 and 64."""
     _need_card()
-    B, h, L, d, live, seed = 2, 3, 192, 32, 128, 99
+    B, h, L, live, seed = 2, 3, 192, 128, 99
     j = torch.arange(L, device="cuda")
     code = torch.zeros(L, d, device="cuda")
     code[j, j // 8] = (2.0 ** (j % 8)).float()
@@ -925,7 +928,7 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
 
 
 # ---------------------------------------------------------------------------
-# The dropattn kernels at head dim 64 (the teacher's), on the CUDA cores
+# The attention kernels at head dim 64 (the teacher's)
 # ---------------------------------------------------------------------------
 
 
@@ -933,16 +936,20 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("L", [64, 130, 512])
 def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
-    """Head dim 64 takes the CUDA-core pair in f32 and bf16 (512 in f32:
-    the head's K and V exceed a block's shared memory and stream through it
-    in chunks): f32 within 1e-5 (summation order), bf16 each element within
-    its rounding bound, the lse within 1e-5."""
+    """Head dim 64: the forward on the CUDA-core kernel (512 in f32: the
+    head's K and V exceed a block's shared memory and stream through it in
+    chunks), the backward on the tensor cores where the head fits a block
+    (64 in both dtypes, 130 in bf16) and on the CUDA-core pair past that:
+    f32 within 1e-5, bf16 each element within its rounding bound, the lse
+    within 1e-5."""
     _need_card()
     q, k, v, go, bias = _attn_inputs(2, 4, L, 64, dtype, seed=640 + L)
     seed = 64 + L
     assert ta.dropattn_fwd_route(dtype, 64, L) == "cuda_core"
-    assert ta.dropattn_bwd_route(dtype, 64, L) == "cuda_core"
-    before = (dict(ta.dropattn_fwd.head_dim_launches), ta.dropattn_fwd.tc_launches)
+    b_tc = ta.dropattn_bwd_route(dtype, 64, L) == "tc"
+    assert b_tc == (L <= ta.DROPATTN_TC_MAX_L[(dtype, 64)])
+    before = (dict(ta.dropattn_fwd.head_dim_launches), ta.dropattn_fwd.tc_launches,
+              ta.dropattn_bwd.tc_launches)
     out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
     grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
     want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
@@ -950,6 +957,7 @@ def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
     torch.cuda.synchronize()
     assert ta.dropattn_fwd.head_dim_launches[64] == before[0].get(64, 0) + 1
     assert ta.dropattn_fwd.tc_launches == before[1]
+    assert ta.dropattn_bwd.tc_launches == before[2] + int(b_tc)
     torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
     if dtype == torch.float32:
         assert (out - want).abs().max().item() <= 1e-5
@@ -1022,42 +1030,168 @@ def test_dropattn_head_dim_64_is_bitwise_repeatable():
 
 
 def test_head_dim_routes_and_counters():
-    """bf16 at head dim 64 is routed to the CUDA-core kernels (the
-    tensor-core ones take head dim 32 only), and the launches are counted
-    by head dim."""
+    """At head dim 64 flash and the backward take the tensor cores in bf16
+    and f32, the forward the CUDA-core kernel; at head dim 32 bf16 takes the
+    tensor cores throughout; the launches are counted by head dim and on
+    the tensor-core route."""
     from sskd_tpu_torch.ops import head_dim_launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
-    assert ta.dropattn_fwd_route(torch.bfloat16, 64, 64) == "cuda_core"
-    assert ta.dropattn_bwd_route(torch.bfloat16, 64, 64) == "cuda_core"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert ta.dropattn_fwd_route(dtype, 64, 64) == "cuda_core"
+        assert ta.dropattn_bwd_route(dtype, 64, 64) == ta.flash_route(dtype, 64) == "tc"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, 64) == "tc"
     reset_launch_counts()
-    for d in (32, 64):
-        q, k, v, go, bias = _attn_inputs(2, 3, 64, d, torch.bfloat16, seed=d)
+    for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32)):
+        q, k, v, go, bias = _attn_inputs(2, 3, 64, d, dtype, seed=d)
         _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
         ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
         ta.flash_attention(q, k, v)
     torch.cuda.synchronize()
     by_d, tc = head_dim_launch_counts(), tc_launch_counts()
-    assert by_d == {name: {32: 1, 64: 1}
+    assert by_d == {name: {32: 1, 64: 2}
                     for name in ("flash_attn_fwd", "dropattn_fwd", "dropattn_bwd")}
-    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == tc["flash_attn_fwd"] == 1
+    assert tc["dropattn_fwd"] == 1 and tc["dropattn_bwd"] == tc["flash_attn_fwd"] == 3
     reset_launch_counts()
     assert head_dim_launch_counts() == {"flash_attn_fwd": {}, "dropattn_fwd": {},
                                         "dropattn_bwd": {}}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [200, 512])  # 200: a ragged last tile of 64 keys
+def test_flash_head_dim_64_tensor_core_routes(dtype, L):
+    """Flash at head dim 64 on its tensor-core route (three TF32 products in
+    f32): one launch counted on the route and at d = 64, two launches
+    bitwise equal, f32 within 1e-5 and bf16 within the rounding bound, with
+    a half row, one live key and no live key."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(L + 64)
+    q, k, v = (torch.randn(4, 16, L, 64, device="cuda", generator=g).to(dtype) for _ in range(3))
+    lens = torch.tensor([L, L // 2, 1, 0], device="cuda")
+    mask = (torch.arange(L, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    before = (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(64, 0))
+    got = ta.flash_attention(q, k, v, mask)
+    assert (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches[64]) == (
+        before[0] + 1, before[1] + 1)
+    again = ta.flash_attention(q, k, v, mask)
+    want = ta.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        bound = ta.flash_error_bound(q, k, v, mask, got, want)
+        assert bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+def _limit(dtype):
+    return ta.DROPATTN_TC_MAX_L[(dtype, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [64, 100, "limit"])  # 100: a ragged last chunk of 16 keys
+def test_dropattn_bwd_head_dim_64_tensor_core_route(dtype, p, L):
+    """The backward at head dim 64 on the tensor cores, at the teacher's
+    train length, a ragged one and the longest the route takes (208 in
+    bf16, 128 in f32): one launch on the route, two launches bitwise equal,
+    f32 within 1e-5 of the plain version, bf16 within its rounding bound."""
+    _need_card()
+    L = _limit(dtype) if L == "limit" else L
+    q, k, v, go, bias = _attn_inputs(4, 16, L, 64, dtype, seed=700 + L)
+    seed = 70 + L
+    _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    before = ta.dropattn_bwd.tc_launches
+    grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    assert ta.dropattn_bwd.tc_launches == before + 1
+    again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    if dtype == torch.float32:
+        for name, a, b in zip("dq dk dv".split(), grads, want):
+            assert (a - b).abs().max().item() <= 1e-5, name
+        return
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, go, grads, want)
+    for name, a, b, bd in zip("dq dk dv".split(), grads, want, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropattn_bwd_head_dim_64_route_edge(dtype):
+    """The next L after the tensor-core limit goes to the chunked CUDA-core
+    pair (counted, not on the route, within the same checks), and the
+    tensor-core kernel itself refuses a head one chunk of 16 past its limit."""
+    import ctypes
+
+    from sskd_tpu_torch.ops import _build
+
+    _need_card()
+    L = _limit(dtype) + 1
+    q, k, v, go, bias = _attn_inputs(2, 4, L, 64, dtype, seed=L)
+    _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 5)
+    before = (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches)
+    grads = ta.dropattn_bwd(q, k, v, bias, 0.1, 5, lse, go)
+    assert (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches) == (before[0] + 1, before[1])
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 5, lse, go)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert max((a - b).abs().max().item() for a, b in zip(grads, want)) <= 1e-5
+    else:
+        bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, 0.1, 5, lse, go, grads, want)
+        assert all(bool(((a.float() - b.float()).abs() <= bd).all())
+                   for a, b, bd in zip(grads, want, bounds))
+    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd_tc
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
+    outs = [torch.empty_like(q) for _ in range(3)]
+    rc = fn(int(dtype == torch.bfloat16), *(ctypes.c_void_p(t.data_ptr()) for t in
+                                            (q, k, v, bias, go, lse, *outs)),
+            2, 4, _limit(dtype) + 16, 64, 0.125, 0.18, 5, 0.1, 1 / 0.9,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc != 0
+
+
+@pytest.mark.parametrize("L", [64, 128])
+def test_dropattn_head_dim_64_f32_tensor_core_backward_applies_the_plain_mask(L):
+    """The read-back of test_dropattn_head_dim_64_kernels_apply_the_plain_mask
+    through the f32 tensor-core backward (L <= 128): q = k = 0, each kept pd
+    2/L at p = 0.5, g holding 2^(j % 8) in channel j // 8, so dv spells each
+    column's keep bits over the L rows, bit for bit."""
+    _need_card()
+    B, h, d, seed = 2, 16, 64, 321
+    j = torch.arange(L, device="cuda")
+    code = torch.zeros(L, d, device="cuda")
+    code[j, j // 8] = (2.0 ** (j % 8)).float()
+    code = code.expand(B, h, L, d).contiguous()
+    zero = torch.zeros(B, h, L, d, device="cuda")
+    bias = torch.zeros(B, L, device="cuda")
+    _, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    before = ta.dropattn_bwd.tc_launches
+    _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
+    assert ta.dropattn_bwd.tc_launches == before + 1
+    bit = torch.arange(8, device="cuda")
+    n = (dv[..., : L // 8] * (L / 2)).round().long()
+    spelled = ((n[..., None] >> bit) & 1).reshape(B, h, L, L).bool()
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    assert bool((spelled.transpose(-1, -2) == want).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_head_dim_64_at_the_rerank_length(dtype):
-    """The teacher's scoring shape at L = 512: flash at head dim 64 on the
-    CUDA-core kernel, f32 within 1e-5 and bf16 within its rounding bound."""
+    """The teacher's scoring shape at L = 512: flash at head dim 64 on its
+    tensor-core route, f32 within 1e-5 and bf16 within its rounding bound."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(64)
     q, k, v = (torch.randn(4, 16, 512, 64, device="cuda", generator=g).to(dtype)
                for _ in range(3))
     lens = torch.tensor([512, 300, 1, 0], device="cuda")
     mask = (torch.arange(512, device="cuda")[None] < lens[:, None]).to(torch.int32)
-    assert ta.flash_route(dtype, 64) == "cuda_core"
+    assert ta.flash_route(dtype, 64) == "tc"
     got = ta.flash_attention(q, k, v, mask)
     want = ta.flash_attention_plain(q, k, v, mask)
     torch.cuda.synchronize()

@@ -19,6 +19,20 @@ step, with what differs from the plain versions beyond summation order:
   as 2^(s * scale * log2(e) + (bias - lse) * log2(e)), rounded to bf16
   after the keep-mask and 1 / (1 - p).
 
+The f32 routes at head dim 64 (``flash_fwd_tc_tf32_kernel``,
+``dropattn_bwd_tc_tf32_kernel``) take each product as three TF32 products
+(``mma_tf32``): each operand rounded to TF32 as cvt.rna.tf32.f32 does (10
+mantissa bits, to nearest, ties away) into a hi term and its remainder into
+a lo term, each 8-deep step of mma.sync m16n8k8 adding hi hi to the
+accumulator and lo hi, hi lo to one of their own, each step's 8 exact
+products added to its accumulator and the sum truncated toward zero, as
+``mma``'s; the two accumulators added once at the end. The softmax is the CUDA-core
+kernels' in natural units (f32 exp, nothing folded). ``flash_tf32`` and
+``dropattn_bwd_tf32`` follow them, the backward's dq steps in the kernel's
+key order; ``passes=1`` gives the one-pass TF32 product the tests show the
+1e-5 checks would catch. ``tf32_fragment_keys`` writes out which keys of a
+16-key chunk each lane of the f32 backward holds.
+
 ``tile_gather_tc`` follows the schedule of csrc/gather_tc.cuh, the int8
 gather that ``cell_gather_tc_kernel`` and ``bin_gather_tc_kernel`` share:
 runs of entries moved to the boundaries of equal cells, each run's groups
@@ -157,6 +171,117 @@ def dropattn_bwd_tc(q, k, v, bias, p, seed, lse, g, keep_mask):
     dq = mma(ds, kf)
     dk = mma(ds.transpose(-1, -2), qf)
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as cvt.rna.tf32.f32 rounds it and as the
+    kernels' tf32_rna computes it (csrc/mma_common.cuh): the low 13 bits of
+    the pattern cleared after adding half of them (to nearest, ties away
+    from zero; the sign bit is untouched)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in f32)."""
+    hi = tf32(x)
+    return hi, tf32(x.float() - hi)
+
+
+def mma_tf32(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
+             passes: int = 3) -> torch.Tensor:
+    """acc + a @ b over the last two dims as the f32 tensor-core routes take
+    it: 8-deep steps, each adding hi hi to the accumulator (from ``acc``)
+    and lo hi, hi lo to a second one (from 0), each product's exact sum
+    added and truncated toward zero to f32; the two added at the end. At
+    ``passes`` 1 only hi hi: one TF32 pass."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    big = (torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32) if acc is None
+           else acc)
+    small = torch.zeros_like(big)
+    for k0 in range(0, a.shape[-1], 8):
+        step = slice(k0, k0 + 8)
+        if passes == 3:
+            for x, y in ((al, bh), (ah, bl)):
+                small = _trunc32(small.double() + x[..., step].double() @ y[..., step, :].double())
+        big = _trunc32(big.double() + ah[..., step].double() @ bh[..., step, :].double())
+    return big + small
+
+
+def flash_tf32(q, k, v, mask, passes: int = 3):
+    """The f32 flash kernel's result at head dim 64 for q, k, v [B, h, L, d]
+    (f32) and a key keep-mask [B, L] (None = all): 64-key tiles, the online
+    softmax in natural units, both products on ``mma_tf32``."""
+    B, h, L, d = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    keep = (torch.ones(B, L) if mask is None else mask.float())[:, None, None, :]
+    m = torch.full((B, h, L, 1), NEG)
+    l = torch.zeros(B, h, L, 1)
+    o = torch.zeros(B, h, L, d)
+    for k0 in range(0, L, 64):
+        kt, vt, mt = k[:, :, k0:k0 + 64], v[:, :, k0:k0 + 64], keep[..., k0:k0 + 64]
+        s = torch.where(mt > 0, mma_tf32(q, kt.transpose(-1, -2), passes=passes) * scale, NEG)
+        mx = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        m = mx
+        p = torch.exp(s - m)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = mma_tf32(p, vt, o * alpha, passes=passes)
+    return o / l.clamp(min=1e-30)
+
+
+# the keys of a 16-key chunk in the order of the f32 backward's dq steps:
+# step s takes keys 4 tig + 2 s (k = tig) and 4 tig + 2 s + 1 (k = tig + 4)
+_DQ_KEY_ORDER = [4 * t + 2 * s + b for s in range(2) for b in range(2) for t in range(4)]
+
+
+def dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
+    """(dq, dk, dv) of the f32 backward kernel at head dim 64 for q, k, v, g
+    [B, h, L, d] (f32), bias [B, L], the forward's lse [B, h, L] and
+    ``keep_mask`` [B, h, L, L] (bool) or None at p = 0."""
+    B, h, L, d = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    s = mma_tf32(q, k.transpose(-1, -2), passes=passes) * scale + bias.float()[:, None, None, :]
+    probs = torch.exp(s - lse.float()[..., None])
+    dp = mma_tf32(g, v.transpose(-1, -2), passes=passes)
+    if keep_mask is None:
+        pd, dprobs = probs, dp
+    else:
+        pd = torch.where(keep_mask, probs * inv, 0.0)
+        dprobs = torch.where(keep_mask, dp * inv, 0.0)
+    D = (dprobs * probs).sum(dim=-1, keepdim=True)
+    ds = probs * (dprobs - D) * scale
+    dv = mma_tf32(pd.transpose(-1, -2), g, passes=passes)
+    dk = mma_tf32(ds.transpose(-1, -2), q, passes=passes)
+    Lp = (L + 15) // 16 * 16  # keys past L: ds 0 and zero rows of k
+    order = torch.tensor([c + j for c in range(0, Lp, 16) for j in _DQ_KEY_ORDER])
+    ds_p = torch.nn.functional.pad(ds, (0, Lp - L))[..., order]
+    k_p = torch.nn.functional.pad(k, (0, 0, 0, Lp - L))[..., order, :]
+    dq = mma_tf32(ds_p, k_p, passes=passes)
+    return dq, dk, dv
+
+
+def _key_slot(t: int) -> int:
+    """csrc/dropattn_bwd.cu key_slot: the slot of key t of a 16-key chunk."""
+    return 8 * ((t >> 1) & 1) + 2 * (t >> 2) + (t & 1)
+
+
+def tf32_fragment_keys():
+    """What the f32 backward's lanes hold of a 16-key chunk, from its index
+    arithmetic: ``scores[lane][e_all]`` the key of score element e of tiles
+    0 and 1 (column 2 tig + (e & 1) of tile nt is slot 8 nt + 2 tig + (e & 1),
+    slot r holding the key whose key_slot is r), and ``dq_rows[lane][s][b]``
+    the key of the k row that dq's step s reads as b0 (b = 0) or b1 (b = 1):
+    slot 8 s + 2 tig + b."""
+    key_at = {_key_slot(t): t for t in range(16)}
+    scores, dq_rows = [], []
+    for lane in range(32):
+        tig = lane & 3
+        scores.append([key_at[8 * nt + 2 * tig + (e & 1)] for nt in range(2) for e in range(2)])
+        dq_rows.append([[key_at[8 * s + 2 * tig + b] for b in range(2)] for s in range(2)])
+    return scores, dq_rows
 
 
 CELL_RUN = 8  # csrc/cell_gather.cu TC_RUN
