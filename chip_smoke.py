@@ -41,17 +41,17 @@ Phases, each fatal when it fails:
              (the query rounded to bf16) at B in {1, 16, 64} within 1e-5, a
              ragged case, nprobe 11 over cells of 768 rows, and
              cell_gather_b1's kernel alone on the card; the teacher's head
-             dim 64: dropattn_fwd / dropattn_bwd at [32, 16, 64, 64] (the
-             backward on the tensor cores, f32 as three TF32 products) and
-             [8, 16, 512, 64] (the CUDA-core kernels; f32 there streams the
-             head through shared memory in chunks), f32 and bf16, p in {0,
-             0.1}, and flash_attn_fwd at [32, 16, 512, 64] on its tensor-core
-             route, f32 and bf16, each on the route (dtype, d, L) selects,
-             one tensor-core launch a call where that is the route, counted
-             at d = 64, bitwise repeatable, f32 within 1e-5 and bf16 within
-             the rounding bounds, the keep-mask read back bit for bit (f32 at
-             L = 64, 128, 256 and 512, bf16 at 192), ptxas's registers and
-             spills beside each time):
+             dim 64: dropattn_fwd / dropattn_bwd at [32, 16, 64, 64] (both on
+             the tensor cores, f32 as three TF32 products) and [8, 16, 512,
+             64] (the forward on the tensor cores, the backward on the
+             CUDA-core pair), f32 and bf16, p in {0, 0.1}, and flash_attn_fwd
+             at [32, 16, 512, 64] on its tensor-core route, f32 and bf16,
+             each on the route (dtype, d, L) selects, one tensor-core launch a
+             call where that is the route, counted at d = 64, bitwise
+             repeatable, f32 within 1e-5 and bf16 within the rounding bounds,
+             the keep-mask read back bit for bit (f32 at L = 64, 128, 256 and
+             512 through the tensor-core forward, bf16 at 192), ptxas's
+             registers and spills beside each time):
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k, cell and d = 64 attention kernels),
              the bound and yardsticks that the port never calls;
@@ -121,8 +121,8 @@ Phases, each fatal when it fails:
              negatives) with the CLI's defaults (16 steps of 32 at max_len
              64, lr 1e-3, pos_fraction 0.25): every loss finite, 24
              dropattn_fwd and 24 dropattn_bwd launches a step, all at d = 64
-             on the route the code selects (every backward on the tensor
-             cores), step 1 (lr 0) leaving the parameters bit for bit, one
+             and on the tensor cores, step 1 (lr 0) leaving the parameters
+             bit for bit, one
              step's gradients through the kernels within 1e-3 of the plain
              pair's; saved and reloaded bit for bit; TeacherModel.score of
              1,024 pairs in chunks of 32 whose buckets reach 512 (every
@@ -841,8 +841,8 @@ def masks_spelled_bf16(seed: int, d: int = 32) -> bool:
     live probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in
     bf16; out spells each row's keep bits over the live columns, and dv each
     live column's over the 192 rows (row i in channel i // 8): the keep bits
-    the forward drew and applied (on the tensor cores at d = 32), and those
-    the tensor-core backward stored in pass 1 and applied to pd."""
+    the tensor-core forward drew and applied, and those the tensor-core
+    backward stored in pass 1 and applied to pd."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, L, live = 2, 12, 192, 128
@@ -855,8 +855,8 @@ def masks_spelled_bf16(seed: int, d: int = 32) -> bool:
     bias = bias.contiguous()
     before = ta.dropattn_fwd.tc_launches
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
-    check(ta.dropattn_fwd.tc_launches == before + (d == 32),
-          f"bf16 d={d} L=192: not the forward's route")
+    check(ta.dropattn_fwd.tc_launches == before + 1,
+          f"bf16 d={d} L=192: not the tensor-core forward")
     before = ta.dropattn_bwd.tc_launches
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
     check(ta.dropattn_bwd.tc_launches == before + 1, "bf16 L=192: not the tensor-core backward")
@@ -979,12 +979,13 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
     return rows, main_fwd, main_bwd
 
 
-def time_dropattn(q, k, v, g, bias, p, seed, bwd_kind=None) -> dict:
+def time_dropattn(q, k, v, g, bias, p, seed, fwd_kind=None, bwd_kind=None) -> dict:
     """ms per launch of both kernels, of their plain versions and of
     F.scaled_dot_product_attention with the same additive bias and dropout
     (forward, and its backward alone); the byte and operation bounds (the
     operations at the bf16 tensor-core rate, or the CUDA cores' f32 rate for
-    f32 inputs; the backward's at ``bwd_kind``'s where given)."""
+    f32 inputs; each kernel's at ``fwd_kind``'s / ``bwd_kind``'s where
+    given)."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, L, d = q.shape
@@ -1016,7 +1017,8 @@ def time_dropattn(q, k, v, g, bias, p, seed, bwd_kind=None) -> dict:
     # of the function, so neither bound counts it.
     # forward: q, k, v, bias read, out written; 2 products of 2 L^2 d
     out["fwd_bound_ms"], out["fwd_bound_by"] = bound_ms(
-        4 * elt + B * L * 4, 4.0 * BH * L * L * d, kind)
+        4 * elt + B * L * 4, 4.0 * BH * L * L * d, fwd_kind or kind)
+    out["fwd_bytes_bound_ms"] = (4 * elt + B * L * 4) / HBM_BYTES_PER_S * 1e3
     # backward: q, k, v, g, bias read, dq, dk, dv written; 5 products
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(
         7 * elt + B * L * 4, 10.0 * BH * L * L * d, bwd_kind or kind)
@@ -1032,9 +1034,10 @@ def time_dropattn(q, k, v, g, bias, p, seed, bwd_kind=None) -> dict:
 def masks_spelled_d64(seed: int, L: int) -> bool:
     """The read-back of masks_spelled_by_kernels at head dim 64 in f32: each
     probability 1/L, each kept pd 2/L at p = 0.5, v (and g) holding
-    2^(j % 8) in channel j // 8; up to L = 128 the backward is the f32
-    tensor-core kernel (checked), past it the CUDA-core pair, and at L = 512
-    both CUDA-core kernels stream the head through shared memory in chunks."""
+    2^(j % 8) in channel j // 8; the forward is the f32 tensor-core kernel
+    at every L (checked), the backward up to L = 128 (checked), past it the
+    CUDA-core pair, which at L = 512 streams the head through shared memory
+    in chunks."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, d = 2, 16, 64
@@ -1044,7 +1047,10 @@ def masks_spelled_d64(seed: int, L: int) -> bool:
     code = code.expand(B, h, L, d).contiguous()
     zero = torch.zeros(B, h, L, d, device="cuda")
     bias = torch.zeros(B, L, device="cuda")
+    before = ta.dropattn_fwd.tc_launches
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    check(ta.dropattn_fwd.tc_launches == before + 1,
+          f"dropattn_fwd f32 d=64 L={L}: not the tensor-core forward")
     before = ta.dropattn_bwd.tc_launches
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
     check(ta.dropattn_bwd.tc_launches - before == (L <= 128),
@@ -1068,20 +1074,21 @@ def ptxas_of(build: dict, lib: str, pattern: str) -> dict:
 def phase_attention64(gen, build: dict) -> tuple[list, dict]:
     """The attention kernels at the teacher's head dim 64 against their plain
     versions: dropattn_fwd / dropattn_bwd at the teacher trainer's shape
-    [32, 16, 64, 64] (the backward on the tensor cores, f32 as three TF32
-    products) and at [8, 16, 512, 64] (the CUDA-core kernels; f32 past the
-    shared memory of a block: the chunked path), f32 and bf16, p in {0,
-    0.1}; flash_attn_fwd at the rerank shape [32, 16, 512, 64] on its
-    tensor-core route, f32 and bf16. Every launch on the route (dtype, d, L)
-    selects, one tensor-core launch a call where that is the route, counted
-    at d = 64, two launches bitwise equal, bf16 within the rounding bounds,
-    f32 within 1e-5, the keep-mask read back bit for bit (f32 at L = 64 and
-    128 through the tensor-core backward, 256 and 512 through the CUDA-core
-    pair; bf16 at L = 192); each timed by CUDA events and the profiler
-    beside SDPA, the plain version and the bounds (the tensor cores' peak,
-    three TF32 passes, and the CUDA cores' FMA rate), with ptxas's registers
-    and spills. Returns the rows and the main entries (f32: the teacher
-    computes in f32)."""
+    [32, 16, 64, 64] (both on the tensor cores, f32 as three TF32 products)
+    and at [8, 16, 512, 64] (the forward on the tensor cores, the backward on
+    the CUDA-core pair; f32 past the shared memory of a block: the chunked
+    path), f32 and bf16, p in {0, 0.1}; flash_attn_fwd at the rerank shape
+    [32, 16, 512, 64] on its tensor-core route, f32 and bf16. Every launch
+    on the route (dtype, d, L) selects, one tensor-core launch a call where
+    that is the route, counted at d = 64, two launches bitwise equal, bf16
+    within the rounding bounds, f32 within 1e-5, the keep-mask read back bit
+    for bit (through the tensor-core forward: f32 at L = 64, 128, 256 and
+    512, bf16 at 192; the backward on the tensor cores at 64 and 128, the
+    CUDA-core pair at 256 and 512); each timed by CUDA events and the
+    profiler beside SDPA, the plain version and the bounds (the tensor
+    cores' peak, three TF32 passes, and the CUDA cores' FMA rate), with
+    ptxas's registers and spills. Returns the rows and the main entries
+    (f32: the teacher computes in f32)."""
     from sskd_tpu_torch.ops import attention as ta
 
     rows, main = [], {}
@@ -1099,7 +1106,7 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
         for p in (0.0, 0.1):
             f_route, b_route = ta.dropattn_fwd_route(dtype, d, L), ta.dropattn_bwd_route(dtype, d, L)
             want_b = "tc" if L <= 64 else "cuda_core"
-            check(f_route == "cuda_core" and b_route == want_b,
+            check(f_route == "tc" and b_route == want_b,
                   f"dropattn d=64 L={L} routes {f_route}, {b_route}")
             before = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
                       ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
@@ -1107,7 +1114,7 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             after = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
                      ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
-            check(after == (before[0], before[1] + 1, before[2] + (b_route == "tc"),
+            check(after == (before[0] + 1, before[1] + 1, before[2] + (b_route == "tc"),
                             before[3] + 1),
                   f"dropattn d=64 L={L}: launches {before} -> {after}")
             again = ta.dropattn_fwd(q, k, v, bias, p, seed)
@@ -1146,20 +1153,31 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
             del out, lse, grads, want, want_lse, want_grads
             if p > 0:
                 tc = b_route == "tc"
-                entry.update(time_dropattn(q, k, v, g, bias, p, seed, bwd_kind=(
-                    ("tf32" if dtype == torch.float32 else "bf16") if tc else None)))
+                f32 = dtype == torch.float32
+                tc_kind = "tf32" if f32 else "bf16"
+                entry.update(time_dropattn(q, k, v, g, bias, p, seed, fwd_kind=tc_kind,
+                                           bwd_kind=tc_kind if tc else None))
                 _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+                # the tensor-core forward's kernel by name: dropattn_fwd_tc_tf32_kernel<64>
+                # in f32, dropattn_fwd_tc_kernel<64> in bf16
                 entry["fwd_kernel_device_ms"] = kernel_device_ms(
-                    lambda: ta.dropattn_fwd(q, k, v, bias, p, seed), "dropattn_fwd_kernel")
+                    lambda: ta.dropattn_fwd(q, k, v, bias, p, seed),
+                    "dropattn_fwd_tc_tf32_kernel" if f32 else "dropattn_fwd_tc_kernel")
                 entry["bwd_kernel_device_ms"] = kernel_device_ms(
                     lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g),
                     "dropattn_bwd_tc" if tc else "dropattn_bwd_d")
                 del lse
-                ops = 10.0 * B * h * L * L * d
+                fwd_ops, ops = 4.0 * B * h * L * L * d, 10.0 * B * h * L * L * d
+                entry["fwd_cuda_core_bound_ms"] = fwd_ops / PEAK_OPS["f32"] * 1e3
                 entry["bwd_cuda_core_bound_ms"] = ops / PEAK_OPS["f32"] * 1e3
-                if tc and dtype == torch.float32:
+                # the keep-mask: one Philox4x32-10 call for four keys of a row
+                entry["philox_calls"] = B * h * L * L // 4
+                if f32:
+                    entry["fwd_three_pass_ms"] = 3 * fwd_ops / PEAK_OPS["tf32"] * 1e3
+                if tc and f32:
                     entry["bwd_three_pass_ms"] = 3 * ops / PEAK_OPS["tf32"] * 1e3
-                f32 = dtype == torch.float32
+                entry["fwd_ptxas"] = ptxas_of(build, "dropattn_fwd", "tc_tf32_kernelILi64"
+                                              if f32 else "tc_kernelILi64")
                 entry["bwd_ptxas"] = ptxas_of(
                     build, "dropattn_bwd",
                     ("tc_tf32_kernelILi64" if f32 else "tc_kernelILi64") if tc
@@ -1214,10 +1232,12 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
             "library_ms": time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 10),
             "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_bound_ms": (4 * B * h * L * d * q.element_size() + B * L * 4)
+            / HBM_BYTES_PER_S * 1e3,
             "cuda_core_bound_ms": ops / PEAK_OPS["f32"] * 1e3,
             "exp_floor_ms": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
             "ptxas": ptxas_of(build, "flash_attn", "tc_tf32_kernelILi64"
-                              if dtype == torch.float32 else "tc_kernelILi64"),
+                              if dtype == torch.float32 else "tc2_kernelILi64"),
         })
         if dtype == torch.float32:
             entry["three_pass_ms"] = 3 * ops / PEAK_OPS["tf32"] * 1e3
@@ -2885,7 +2905,7 @@ def phase_teacher(args) -> dict:
     want = TEACHER_STEPS * cfg.num_layers
     routes = {"dropattn_fwd": ta.dropattn_fwd_route(torch.float32, 64, TEACHER_MAX_LEN),
               "dropattn_bwd": ta.dropattn_bwd_route(torch.float32, 64, TEACHER_MAX_LEN)}
-    check(routes["dropattn_bwd"] == "tc", f"teacher backward route {routes['dropattn_bwd']}")
+    check(routes == {"dropattn_fwd": "tc", "dropattn_bwd": "tc"}, f"teacher routes {routes}")
     for name, route in routes.items():
         check(counts[name] == want and by_d[name] == {64: want},
               f"{name}: {counts[name]} launches {by_d[name]}, want {want} at d = 64")

@@ -66,6 +66,26 @@ __device__ __forceinline__ void axpy_row(float* acc, float w, const T* row) {
   }
 }
 
+// The key order of the tensor-core dropout kernels. A 16-key chunk enters
+// the mma in the order 0 1 4 5 8 9 12 13 | 2 3 6 7 10 11 14 15, so that each
+// thread's C fragment of the chunk's scores (columns 2 tig, 2 tig + 1 of its
+// two 8-key tiles) holds keys 4 tig .. 4 tig + 3: the four words of one
+// Philox call (philox.cuh keep_bits4).
+// perm_key: the key of slot r (0..7) of ldmatrix matrix `second` (0 or 1):
+// the bf16 kernels hand ldmatrix these rows, which it reads in any order.
+__device__ __forceinline__ int perm_key(int r, int second) {
+  return 4 * (r >> 1) + (r & 1) + 2 * second;
+}
+// key_slot: its inverse, the slot (8 second + r) of key t (0..15) of a chunk.
+// The f32 kernels, whose 32-bit fragment reads cannot permute rows as
+// ldmatrix does, store k and v rows in slot order (slot_row) and read eight
+// consecutive slots.
+__host__ __device__ constexpr int key_slot(int t) {
+  return 8 * ((t >> 1) & 1) + 2 * (t >> 2) + (t & 1);
+}
+// the shared row of key r of a tile whose 16-key chunks are in slot order
+__host__ __device__ constexpr int slot_row(int r) { return (r & ~15) + key_slot(r & 15); }
+
 // Copies n_rows rows of D values of T from global src to shared dst,
 // 16 bytes per thread per step, the block's threads striding together.
 template <typename T, int D>

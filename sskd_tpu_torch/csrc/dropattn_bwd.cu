@@ -301,27 +301,13 @@ __host__ __device__ constexpr size_t dt_smem_bytes(int Lp, int n_buf) {
          + (size_t)Lp * (Lp + 8) * sizeof(T) + (size_t)Lp * (Lp / 16) * 2 + 2 * (size_t)Lp * 4;
 }
 
-// Row of key slot r (0..7) of ldmatrix matrix `second` (0 or 1) in a 16-key
-// chunk, in the order in which each thread's fragment holds four neighbours.
-__device__ __forceinline__ int perm_key(int r, int second) {
-  return 4 * (r >> 1) + (r & 1) + 2 * second;
-}
-// Its inverse: the slot (8 second + r) of key t (0..15) of a chunk. The f32
-// route stores k and v rows in slot order, so that its fragment reads, which
-// cannot permute rows as ldmatrix does, read eight consecutive slots.
-__host__ __device__ constexpr int key_slot(int t) {
-  return 8 * ((t >> 1) & 1) + 2 * (t >> 2) + (t & 1);
-}
-
-// The keep bits of one row's four keys key0..key0+3 (one Philox call), and
+// The keep bits of one row's four keys key0..key0+3 (one Philox call:
+// keep_bits4, in the key order of attn_common.cuh perm_key / key_slot), and
 // the row's 16-bit word of chunk c gathered from the four threads tig of a
 // row into s_bits by tig 0.
 __device__ __forceinline__ uint32_t draw_keep4(uint32_t seed, uint32_t bh, int row, int key0,
                                                float p, int tig, uint16_t* word_dst) {
-  const Philox4 w = philox4x32_10((uint32_t)(key0 >> 2), (uint32_t)row, seed, bh);
-  uint32_t keep = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) keep |= (philox_uniform(w.w[j]) >= p ? 1u : 0u) << j;
+  const uint32_t keep = keep_bits4(seed, bh, row, key0, p);
   uint32_t word = keep << (4 * tig);
   word |= __shfl_xor_sync(0xffffffffu, word, 1);
   word |= __shfl_xor_sync(0xffffffffu, word, 2);
@@ -596,7 +582,7 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
       const float* src = (t == 0 ? q : t == 1 ? k : t == 2 ? v : g) + head_off;
       float* dst = t == 0   ? base + r * LDQ
                    : t == 3 ? base + Lp * (LDQ + 2 * LDK) + r * LDQ
-                            : base + Lp * (LDQ + (t - 1) * LDK) + ((r & ~15) + key_slot(r & 15)) * LDK;
+                            : base + Lp * (LDQ + (t - 1) * LDK) + slot_row(r) * LDK;
       cp_async16(dst + c, src + (long)min(r, L - 1) * D + c, r < L ? 16 : 0);
     }
     float* raw = base + Lp * (2 * LDQ + 2 * LDK);

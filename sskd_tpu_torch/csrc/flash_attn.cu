@@ -27,9 +27,14 @@
 // Three routes, chosen by the wrapper (ops/attention.py flash_route) from
 // (dtype, d):
 //
-// 1. bf16, d in {32, 64}: flash_fwd_tc_kernel<D>, on the tensor cores
-//    (FlashAttention-2 shape). A block of 4 warps owns 64 query rows, 16 per
-//    warp, whose q stays in registers as mma A fragments (D / 16 k-steps).
+// 1. bf16, d in {32, 64}: flash_fwd_tc_kernel<32> and flash_fwd_tc2_kernel<64>,
+//    on the tensor cores (FlashAttention-2 shape). Query rows go in m-tiles
+//    of 16, whose q stays in registers as mma A fragments (D / 16 k-steps);
+//    a block has 4 warps, each owning one m-tile at d = 32 (64 rows) and two
+//    at d = 64 (128 rows, FlashAttention-2's shape for that head dim), where
+//    each K and V tile a block copies from L2 then serves twice the rows
+//    that it did at 64 (the copies bounded the 64-row kernel) and each K and
+//    V fragment a warp reads feeds both m-tiles, two blocks an SM.
 //    K and V tiles of 64 keys are double-buffered in shared memory by
 //    cp.async (rows padded to D + 8 bf16, 80 or 144 bytes, so ldmatrix reads
 //    them without bank conflicts). Per tile a warp computes S = q k^T with
@@ -177,11 +182,13 @@ constexpr int FT_KB = 64;  // keys per tile
 constexpr int FT_QB = 64;  // query rows per block: 4 warps x 16
 constexpr int FT_THREADS = FT_QB * 2;  // a warp per 16 query rows
 
-// D: the head dim, 32 or 64. Shared rows are padded to D + 8 bf16 (80 or 144
-// bytes: 5 or 9 units of 16 bytes, so ldmatrix's eight row addresses fall in
-// eight bank groups); 46.6 KB of static shared memory at 64. The copy loops
-// count in unsigned ints, so that the divisions by powers of two are shifts
-// (signed, they slow the D = 32 kernel: tools/probe_attention64.py).
+// D: the head dim, instantiated at 32 (d = 64 takes flash_fwd_tc2_kernel
+// below: built on this template, the two-tile kernel cost d = 32 3-11 % in
+// tools/probe_attention64.py). Shared rows are padded to D + 8 bf16 (80
+// bytes: 5 units of 16 bytes, so ldmatrix's eight row addresses fall in
+// eight bank groups). The copy loops count in unsigned ints, so that the
+// divisions by powers of two are shifts (signed, they slow the D = 32
+// kernel: tools/probe_attention64.py).
 template <int D>
 __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -347,6 +354,216 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
         dst[dn * 4] = pack_bf16(o[dn][2 * r] / denom, o[dn][2 * r + 1] / denom);
     }
   }
+}
+
+// D = 64: a block of 4 warps owns 128 query rows, two 16-row m-tiles a warp
+// (FlashAttention-2's shape for this head dim), so each K and V tile a block
+// copies from L2 serves twice the rows that the 64-row kernel above serves
+// it (at 64 rows the copies bounded the kernel: tools/probe_attention64.py)
+// and each K and V fragment a warp reads from shared memory feeds both
+// m-tiles. Each row's arithmetic is the kernel's above, bit for bit.
+// Registers for two blocks an SM (230 of them); 55.8 KB of dynamic shared
+// memory (q, two stages of K and V, their keep flags).
+constexpr int FT2_MT = 2;                         // m-tiles a warp
+constexpr int FT2_QB = FT2_MT * FT_QB;            // query rows a block
+__host__ __device__ constexpr size_t ft2_smem_bytes(int d) {
+  return (size_t)(FT2_QB + 4 * FT_KB) * (d + 8) * 2 + 2 * FT_KB * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(FT_THREADS, 2) flash_fwd_tc2_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+    __nv_bfloat16* __restrict__ out, int h, int L, int n_qt, float scale_log2) {
+  constexpr int MT = FT2_MT, QB = FT2_QB;
+  constexpr int LD = D + 8;
+  constexpr unsigned CH = D / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* s_k = s_q + QB * LD;         // [2][FT_KB * LD]
+  __nv_bfloat16* s_v = s_k + 2 * FT_KB * LD;  // [2][FT_KB * LD]
+  // [2][FT_KB]: 1 keep, 0 masked, -1 past L
+  float* s_keep = reinterpret_cast<float*>(s_v + 2 * FT_KB * LD);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
+  const long bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * QB;
+  const long head_off = bh * (long)L * D;
+  const __nv_bfloat16* qh = q + head_off;
+  const __nv_bfloat16* kh = k + head_off;
+  const __nv_bfloat16* vh = v + head_off;
+  const int* mrow = mask + (bh / h) * L;
+
+  // rows past L are copied as zeros (cp.async with 0 source bytes)
+  for (unsigned i = tid; i < QB * CH; i += FT_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8, qr = q0 + r;
+    cp_async16(s_q + r * LD + c, qh + (long)min(qr, L - 1) * D + c, qr < L ? 16 : 0);
+  }
+  auto load_tile = [&](int stage, int k0) {
+    for (unsigned i = tid; i < FT_KB * CH * 2; i += FT_THREADS) {
+      const int which = i / (FT_KB * CH), j = i % (FT_KB * CH);  // the chunks of K, then of V
+      const int r = j / CH, c = (j % CH) * 8, kr = k0 + r;
+      const __nv_bfloat16* src = (which ? vh : kh) + (long)min(kr, L - 1) * D + c;
+      __nv_bfloat16* dst = (which ? s_v : s_k) + (stage * FT_KB + r) * LD + c;
+      cp_async16(dst, src, kr < L ? 16 : 0);
+    }
+    if (tid < FT_KB) {
+      const int kr = k0 + tid;
+      s_keep[stage * FT_KB + tid] = kr < L ? (mrow[kr] != 0 ? 1.f : 0.f) : -1.f;
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // the warp's m-tiles of 16 query rows: tile mt holds rows (warp MT + mt) 16 ..
+  uint32_t qa[MT][D / 16][4];  // their A fragments, 16 d each
+  float o[MT][D / 8][4];       // 16 rows x D each, f32
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][i][e] = 0.f;
+  float m2[MT][2], l[MT][2];  // rows grp and grp + 8 of each m-tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m2[mt][0] = m2[mt][1] = FA_NEG;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  const int n_kt = (L + FT_KB - 1) / FT_KB;
+  for (int t = 0; t < n_kt; ++t) {
+    if (t + 1 < n_kt) load_tile((t + 1) & 1, (t + 1) * FT_KB);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and q) has landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          ldmatrix_x4(qa[mt][ks], s_q + ((warp * MT + mt) * 16 + mr + (mi & 1) * 8) * LD +
+                                      ks * 16 + (mi >> 1) * 8);
+    }
+    const __nv_bfloat16* sk = s_k + (t & 1) * FT_KB * LD;
+    const __nv_bfloat16* sv = s_v + (t & 1) * FT_KB * LD;
+    const float* keep = s_keep + (t & 1) * FT_KB;
+
+    // S = q k^T, 8 tiles of 8 keys, 32 d an ldmatrix, each K fragment into
+    // every m-tile of the warp
+    float s[MT][8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 32; ++kc) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, sk + (nt * 8 + mr) * LD + kc * 32 + mi * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][nt], qa[mt][2 * kc], kb[0], kb[1]);
+          mma_bf16(s[mt][nt], qa[mt][2 * kc + 1], kb[2], kb[3]);
+        }
+      }
+    }
+    // The row max in log2 units. A tile whose 64 keys are all live (every
+    // tile of a full row) needs no mask: its max is the max of the raw sums
+    // times the scale (the rounded product is monotone), and each exponent
+    // below is one fma. Otherwise each score is scaled or replaced by its
+    // sentinel first.
+    const bool live = __all_sync(0xffffffffu, keep[lane] > 0.f && keep[lane + 32] > 0.f);
+    // the exponent of each p: s * scale - m in one fma on a live tile
+    const float a_mul = live ? scale_log2 : 1.f;
+    uint32_t pa[MT][4][4];  // p of each m-tile as bf16 A fragments, 16 keys each
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {m2[mt][0], m2[mt][1]};
+      if (live) {
+        float raw[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) raw[e >> 1] = fmaxf(raw[e >> 1], s[mt][nt][e]);
+        mx[0] = fmaxf(mx[0], raw[0] * scale_log2);
+        mx[1] = fmaxf(mx[1], raw[1] * scale_log2);
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float kf = keep[nt * 8 + 2 * tig + (e & 1)];
+            const float x = kf > 0.f ? s[mt][nt][e] * scale_log2 : (kf == 0.f ? FA_NEG : -INFINITY);
+            s[mt][nt][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2_approx(m2[mt][r] - mx[r]);
+        m2[mt][r] = mx[r];
+        l[mt][r] *= alpha[r];
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[mt][dn][0] *= alpha[0];
+        o[mt][dn][1] *= alpha[0];
+        o[mt][dn][2] *= alpha[1];
+        o[mt][dn][3] *= alpha[1];
+      }
+      // p = 2^(s - m): summed unrounded, then packed as bf16 A fragments
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float p0 = exp2_approx(fmaf(s[mt][nt][0], a_mul, -m2[mt][0]));
+        const float p1 = exp2_approx(fmaf(s[mt][nt][1], a_mul, -m2[mt][0]));
+        const float p2 = exp2_approx(fmaf(s[mt][nt][2], a_mul, -m2[mt][1]));
+        const float p3 = exp2_approx(fmaf(s[mt][nt][3], a_mul, -m2[mt][1]));
+        l[mt][0] += p0 + p1;
+        l[mt][1] += p2 + p3;
+        pa[mt][nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
+        pa[mt][nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+    }
+    // o += p v over the tile's 4 steps of 16 keys, 16 d an ldmatrix, each V
+    // fragment into every m-tile
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int half = 0; half < D / 16; ++half) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, sv + (ks * 16 + mr + (mi & 1) * 8) * LD + half * 16 + (mi >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][2 * half], pa[mt][ks], vb[0], vb[1]);
+          mma_bf16(o[mt][2 * half + 1], pa[mt][ks], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // the tile's buffers are free for tile t + 2
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+      const int row = q0 + (warp * MT + mt) * 16 + grp + 8 * r;
+      if (row < L) {
+        const float denom = fmaxf(l[mt][r], 1e-30f);
+        uint32_t* dst = reinterpret_cast<uint32_t*>(out + head_off + (long)row * D + 2 * tig);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn)
+          dst[dn * 4] = pack_bf16(o[mt][dn][2 * r] / denom, o[mt][dn][2 * r + 1] / denom);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -571,10 +788,18 @@ extern "C" int sskd_flash_attn_fwd_tc(int dtype, const void* q, const void* k, c
   using namespace sskd;
   if (B <= 0 || h <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && (d == 32 || d == 64)) {
-    auto kernel = d == 32 ? flash_fwd_tc_kernel<32> : flash_fwd_tc_kernel<64>;
+  if (dtype == 1 && d == 32) {
     const int n_qt = (L + FT_QB - 1) / FT_QB;
-    kernel<<<(unsigned)((long)B * h * n_qt), FT_THREADS, 0, s>>>(
+    flash_fwd_tc_kernel<32><<<(unsigned)((long)B * h * n_qt), FT_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
+        (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
+  } else if (dtype == 1 && d == 64) {
+    constexpr size_t smem = ft2_smem_bytes(64);
+    const int rc = (int)cudaFuncSetAttribute(
+        flash_fwd_tc2_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != 0) return rc;
+    const int n_qt = (L + FT2_QB - 1) / FT2_QB;
+    flash_fwd_tc2_kernel<64><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
         (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
   } else if (dtype == 0 && d == 64) {

@@ -51,6 +51,17 @@ __device__ __forceinline__ float philox_uniform(uint32_t word) {
   return (float)(word >> 8) * (1.0f / 16777216.0f);
 }
 
+// The keep bits of keys key0 .. key0 + 3 (key0 a multiple of 4) of row `row`
+// of head bh, bit j for key key0 + j: the four words of one Philox call.
+__device__ __forceinline__ uint32_t keep_bits4(uint32_t seed, uint32_t bh, int row, int key0,
+                                               float p) {
+  const Philox4 w = philox4x32_10((uint32_t)(key0 >> 2), (uint32_t)row, seed, bh);
+  uint32_t keep = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) keep |= (philox_uniform(w.w[j]) >= p ? 1u : 0u) << j;
+  return keep;
+}
+
 // keep decision for (row, col) of head bh (one Philox call per element)
 __device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh, int row, int col,
                                              float p) {

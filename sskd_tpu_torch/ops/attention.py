@@ -16,10 +16,10 @@
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
   ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 32 (the
-  student's) and 64 (the teacher's). The forward has a tensor-core route
-  for bf16 at head dim 32 (:func:`dropattn_fwd_route`), the backward for
-  bf16 at head dims 32 and 64 and for f32 at 64 (:func:`dropattn_bwd_route`),
-  as flash has (:func:`flash_route`); ``tc_launches`` counts them.
+  student's) and 64 (the teacher's). Both have tensor-core routes for bf16
+  at head dims 32 and 64 and for f32 at 64 (:func:`dropattn_fwd_route`,
+  :func:`dropattn_bwd_route`), as flash has (:func:`flash_route`);
+  ``tc_launches`` counts them.
 - The f32 tensor-core routes (head dim 64, the teacher's f32 compute) take
   each product as three TF32 products on the tensor cores (hi and lo terms
   of each operand, f32 sums: csrc/mma_common.cuh), which keeps the f32
@@ -67,9 +67,11 @@ _DROPATTN_HEAD_DIMS = (32, 64)
 # dt_smem_bytes with one head buffer; the kernel refuses longer L)
 DROPATTN_TC_MAX_L = {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 208,
                      (torch.float32, 64): 128}
-# the longest L whose K and V fit the shared memory of one block of the
-# tensor-core forward (csrc/dropattn_fwd.cu DFT_MAX_L)
-DROPATTN_FWD_TC_MAX_L = 1024
+# the longest L whose head's K and V fit the shared memory of one block of
+# the bf16 tensor-core forward, by (dtype, head dim) (csrc/dropattn_fwd.cu
+# dft_smem_bytes; the kernel refuses longer L); the f32 tensor-core forward
+# at head dim 64 streams K and V and takes any L
+DROPATTN_FWD_TC_MAX_L = {(torch.bfloat16, 32): 1344, (torch.bfloat16, 64): 656}
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
@@ -84,11 +86,14 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 
 def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernel a CUDA call of :func:`dropattn_fwd` launches: ``"tc"``
-    (tensor cores, csrc/dropattn_fwd.cu ``dropattn_fwd_tc_kernel``) for bf16
-    at head dim 32 and L <= ``DROPATTN_FWD_TC_MAX_L``, ``"cuda_core"``
-    (``dropattn_fwd_kernel``) for f32, head dim 64 and longer L."""
-    tc = dtype == torch.bfloat16 and d == 32 and L <= DROPATTN_FWD_TC_MAX_L
-    return "tc" if tc else "cuda_core"
+    (tensor cores, csrc/dropattn_fwd.cu: ``dropattn_fwd_tc_kernel`` for bf16
+    at head dims 32 and 64 up to ``DROPATTN_FWD_TC_MAX_L[(dtype, d)]``,
+    ``dropattn_fwd_tc_tf32_kernel`` for f32 at head dim 64 at any L, three
+    TF32 products a product), ``"cuda_core"`` (``dropattn_fwd_kernel``) for
+    f32 at head dim 32 and bf16 past its limit."""
+    if dtype == torch.float32 and d == 64:
+        return "tc"
+    return "tc" if L <= DROPATTN_FWD_TC_MAX_L.get((dtype, d), 0) else "cuda_core"
 
 
 def dropattn_bwd_route(dtype: torch.dtype, d: int, L: int) -> str:
@@ -528,9 +533,9 @@ def _unit(dtype) -> float:
 
 
 def dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want):
-    """Per-element bound on |got - want| between the forward kernel (either
-    route) and :func:`dropattn_fwd_plain` on the same inputs and the same
-    mask.
+    """Per-element bound on |got - want| between a bf16 forward kernel (the
+    tensor-core route at head dims 32 and 64, or the CUDA-core one) and
+    :func:`dropattn_fwd_plain` on the same inputs and the same mask.
 
     - Both round each kept probability to the input type (at most u of it,
       u = 2^-8 in bf16), so the products with v differ by at most 2u of
@@ -548,7 +553,8 @@ def dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want):
     - The products over L: _gamma(L) of pv (truncating mma sums on one side,
       f32 sums on the other). The CUDA-core route (online max and sum,
       expf and a division) moves each probability by less than the 1e-5
-      (pd @ |v|) term, which the bound keeps."""
+      (pd @ |v|) term, which the bound keeps. The f32 routes are held to
+      1e-5 instead."""
     u = _unit(q.dtype)
     B, h, L, d = q.shape
     qf, kf, vf, bf = (t.float() for t in _flat(q, k, v, bias))
@@ -647,12 +653,14 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
     if dropattn_fwd_route(q.dtype, d, L) == "tc":
         fn = lib.sskd_dropattn_fwd_tc
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p,
         ]
         _build.check(
-            fn(*(_ptr(t) for t in (q, k, v, bias, out, lse)), B, h, L, d, _scale_log2(d),
-               int(seed) & _U32, float(p), 1.0 / (1.0 - p), _stream(q)),
+            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, out, lse)), B, h, L, d,
+               1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
+               _stream(q)),
             "dropattn_fwd (tensor cores)",
         )
         _count(dropattn_fwd, d, True)

@@ -23,6 +23,8 @@ from torch_tc_emulation import (
     dropattn_bwd_tc,
     dropattn_bwd_tf32,
     dropattn_fwd_tc,
+    dropattn_fwd_tf32,
+    tf32_forward_fragment_keys,
     tf32_fragment_keys,
 )
 
@@ -323,15 +325,17 @@ def _fwd_within(q, k, v, bias, p, seed, got, want):
 FWD_LENGTHS = [16, 64, 100, 192, 512]  # 100: a ragged last chunk of 16 keys
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("L", FWD_LENGTHS)
-def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_jax_kernel(L):
+def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_jax_kernel(L, d):
     """The bf16 tensor-core forward's arithmetic (truncating mma sums, two
     passes with the exponent folded into one exp2; tests/torch_tc_emulation.py)
     against the JAX forward kernel in interpret mode at p = 0 on the same
-    bf16 inputs: within dropattn_fwd_error_bound at every element, its lse
-    within 1e-4 of the plain one (the check the card holds the kernel to);
-    the same arithmetic with every probability 2 % off is not."""
-    q, k, v, _, bias = _inputs(L + 7, 2, 3, L, 32)
+    bf16 inputs, at head dims 32 and 64: within dropattn_fwd_error_bound at
+    every element, its lse within 1e-4 of the plain one (the check the card
+    holds the kernel to); the same arithmetic with every probability 2 % off
+    is not."""
+    q, k, v, _, bias = _inputs(L + 7, 2, 3, L, d)
     qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     tb = torch.from_numpy(bias)
     want = j_dropattn_fwd(0.0, True, *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
@@ -347,12 +351,14 @@ def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_jax_kernel(L)
     assert _fwd_within(qb, kb, vb, tb, 0.0, 3, faulty, want).max().item() > 1.0
 
 
+@pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("L", FWD_LENGTHS)
-def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_plain_version(L):
+def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_plain_version(L, d):
     """At p = 0.1 (no JAX reference draws the port's mask) the same
-    arithmetic against dropattn_fwd_plain with the plain keep-mask; a 2 %
-    fault in the probabilities, or the mask shifted by one key, is not."""
-    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 11, 2, 3, L, 32))
+    arithmetic against dropattn_fwd_plain with the plain keep-mask, at head
+    dims 32 and 64; a 2 % fault in the probabilities, or the mask shifted by
+    one key, is not."""
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 11, 2, 3, L, d))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     keep = ta.dropout_keep_mask(19, 6, L, 0.1).view(2, 3, L, L)
     want, want_lse = ta.dropattn_fwd_plain(qb, kb, vb, bias, 0.1, 19)
@@ -423,21 +429,26 @@ def test_the_mask_applied_at_head_dim_64_is_dropout_keep_mask(L):
 
 
 def test_routes_send_head_dim_64_to_the_cuda_cores():
-    """The routes at head dim 64: flash and the backward take the tensor
-    cores (bf16 and f32, the backward while the head fits a block: L <= 208
-    in bf16, 128 in f32), the forward stays on the CUDA-core kernel (its
-    tensor-core route takes head dim 32 only) at every L, and so does the
-    backward past its limit; head dim 32 keeps its routes."""
-    limits = ta.DROPATTN_TC_MAX_L
+    """The routes at head dim 64: flash and both dropattn kernels take the
+    tensor cores in bf16 and f32. The f32 forward streams the head and takes
+    every L; the bf16 forward takes L while the head's K and V fit a block
+    (656 at d = 64, 1344 at d = 32) and the CUDA-core kernel past that; the
+    backward takes L while the head fits a block (208 in bf16, 128 in f32)
+    and the CUDA-core pair past that; f32 at head dim 32 stays on the CUDA
+    cores."""
+    limits, fwd_limits = ta.DROPATTN_TC_MAX_L, ta.DROPATTN_FWD_TC_MAX_L
     assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
-    for L in (16, 64, 128, 129, 192, 208, 209, 256, 512, 1024, 2048):
-        assert ta.dropattn_fwd_route(torch.bfloat16, 64, L) == "cuda_core"
-        assert ta.dropattn_fwd_route(torch.float32, 64, L) == "cuda_core"
+    assert fwd_limits == {(torch.bfloat16, 32): 1344, (torch.bfloat16, 64): 656}
+    for L in (16, 64, 128, 129, 192, 208, 209, 256, 512, 656, 657, 1024, 1344, 1345, 2048):
+        assert ta.dropattn_fwd_route(torch.float32, 64, L) == "tc"
+        assert ta.dropattn_fwd_route(torch.bfloat16, 64, L) == (
+            "tc" if L <= 656 else "cuda_core")
         for dtype in (torch.bfloat16, torch.float32):
             assert ta.dropattn_bwd_route(dtype, 64, L) == (
                 "tc" if L <= limits[(dtype, 64)] else "cuda_core")
         assert ta.dropattn_fwd_route(torch.bfloat16, 32, L) == (
-            "tc" if L <= ta.DROPATTN_FWD_TC_MAX_L else "cuda_core")
+            "tc" if L <= 1344 else "cuda_core")
+        assert ta.dropattn_fwd_route(torch.float32, 32, L) == "cuda_core"
         assert ta.dropattn_bwd_route(torch.bfloat16, 32, L) == (
             "tc" if L <= limits[(torch.bfloat16, 32)] else "cuda_core")
         assert ta.dropattn_bwd_route(torch.float32, 32, L) == "cuda_core"
@@ -466,3 +477,97 @@ def test_error_bounds_at_head_dim_64_admit_rounding_and_catch_a_scale_fault():
                                   gb.float())
     _held_to_the_bound(qb, kb, vb, bias, 0.1, 5, lse, gb, [t.to(torch.bfloat16) for t in exact],
                        want_g)
+
+
+# ---------------------------------------------------------------------------
+# The f32 tensor-core forward at head dim 64 (one online pass, three TF32
+# products a product) and the bf16 forward's limits
+# ---------------------------------------------------------------------------
+
+
+def _fwd_within_1e5(got, want):
+    (out, lse), (want_out, want_lse) = got, want
+    err = (out - want_out).abs().max().item()
+    assert err <= 1e-5, err
+    lse_err = (lse - want_lse).abs().max().item()
+    assert lse_err <= 1e-4, lse_err
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", [(4, 64), (2, 512)])
+def test_tf32_forward_arithmetic_is_within_1e5_of_the_plain_version(B, L, p):
+    """The f32 forward at head dim 64 (tests/torch_tc_emulation.py
+    dropattn_fwd_tf32: three TF32 products a product with their small terms
+    apart, truncating mma sums, one online pass over 64-key tiles) against
+    dropattn_fwd_plain at [4, 16, 64, 64] (the teacher's train shape) and
+    [2, 16, 512, 64] (eight tiles), with a padding bias and, at p = 0.1, the
+    plain keep-mask: out within the 1e-5 and lse within the 1e-4 the card
+    holds the kernel to."""
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 3, B, 16, L, 64))
+    keep = None if p == 0 else ta.dropout_keep_mask(31, B * 16, L, p).view(B, 16, L, L)
+    got = dropattn_fwd_tf32(q, k, v, bias, p, keep)
+    _fwd_within_1e5(got, ta.dropattn_fwd_plain(q, k, v, bias, p, 31))
+
+
+@pytest.mark.parametrize("L", [64, 128])
+def test_tf32_forward_arithmetic_is_within_1e5_of_the_jax_kernel(L):
+    """The same against the JAX forward kernel in interpret mode at p = 0
+    (f32, a padding bias): out within 1e-5, lse within 1e-4 of the plain
+    version's."""
+    q, k, v, _, bias = _inputs(L + 9, 2, 3, L, 64)
+    tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    want = j_dropattn_fwd(0.0, True, *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias),
+                          jnp.asarray([3], jnp.int32))
+    out, lse = dropattn_fwd_tf32(tq, tk, tv, tb, 0.0, None)
+    err = np.abs(out.numpy() - np.asarray(want)).max()
+    assert err <= 1e-5, err
+    _, want_lse = ta.dropattn_fwd_plain(tq, tk, tv, tb, 0.0, 3)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def test_one_pass_tf32_forward_fails_the_1e5_check():
+    """One TF32 pass misses 1e-5 at the teacher's train shape by far: the
+    f32 checks would catch a forward that dropped the small terms."""
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(67, 4, 16, 64, 64))
+    keep = ta.dropout_keep_mask(31, 64, 64, 0.1).view(4, 16, 64, 64)
+    out, _ = dropattn_fwd_tf32(q, k, v, bias, 0.1, keep, passes=1)
+    want, _ = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 31)
+    assert (out - want).abs().max().item() > 1e-4
+
+
+def test_the_f32_forward_lanes_hold_whole_philox_groups():
+    """The f32 tensor-core forward's index arithmetic (K and V rows stored by
+    csrc/attn_common.cuh slot_row): the key each score element's shared row
+    holds is the key the kernel takes its bias and keep bit for; lane (grp,
+    tig) holds keys 4 tig .. 4 tig + 3 of every 16-key chunk of the tile, the
+    four words of one Philox call; and step nt of p v reads the V rows of
+    the keys of that lane's score columns."""
+    stored, used, pv_rows = tf32_forward_fragment_keys()
+    for lane in range(32):
+        tig = lane & 3
+        assert stored[lane] == used[lane]
+        for c in range(4):
+            assert sorted(stored[lane][4 * c:4 * c + 4]) == [16 * c + 4 * tig + j for j in range(4)]
+        assert pv_rows[lane] == stored[lane]
+
+
+def _tc_forward_smem(d: int, L: int) -> int:
+    """Shared memory of one block of the bf16 tensor-core forward
+    (csrc/dropattn_fwd.cu dft_smem_bytes): its q rows (16 a warp, dft_warps:
+    128 at head dim 32; at 64, 64 while L <= 64 and 256 past that) and the
+    head's k and v rows, padded to d + 8 bf16, and the bias."""
+    Lp = (L + 15) // 16 * 16
+    rows = 128 if d == 32 else 64 if L <= 64 else 256
+    return (rows + 2 * Lp) * (d + 8) * 2 + Lp * 4
+
+
+def test_tensor_core_forward_limits_are_the_longest_lengths_that_fit():
+    """DROPATTN_FWD_TC_MAX_L is, for each head dim of the bf16 route, the
+    longest L whose head fits the 232,448 bytes of shared memory a block
+    may hold (the kernel refuses more); at head dim 64 it is past the
+    longest length the teacher scores at (512)."""
+    for (dtype, d), limit in ta.DROPATTN_FWD_TC_MAX_L.items():
+        assert dtype == torch.bfloat16
+        assert _tc_forward_smem(d, limit) <= 227 * 1024
+        assert _tc_forward_smem(d, limit + 16) > 227 * 1024
+    assert ta.DROPATTN_FWD_TC_MAX_L[(torch.bfloat16, 64)] >= 512

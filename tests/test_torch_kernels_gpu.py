@@ -413,7 +413,8 @@ def test_dropattn_bwd_tensor_core_route_is_bitwise_repeatable():
 def test_attention_routes_and_their_counters():
     """Each call counts one launch; only the tensor-core route counts in
     tc_launches: flash for bf16 at head dim 32, the backward for bf16 at
-    L <= 256; f32, other head dims and longer L take the CUDA-core kernels."""
+    L <= 256, the forward for bf16 at L <= 1344; f32, other head dims and
+    longer L take the CUDA-core kernels."""
     from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
@@ -422,7 +423,7 @@ def test_attention_routes_and_their_counters():
         q = torch.randn(2, 3, 96, d, device="cuda").to(dtype)
         ta.flash_attention(q, q, q)
     for dtype, L in ((torch.bfloat16, 192), (torch.float32, 192), (torch.bfloat16, 320),
-                     (torch.bfloat16, 1040)):
+                     (torch.bfloat16, 1360)):
         q, k, v, go, bias = _attn_inputs(2, 3, L, 32, dtype, seed=L)
         _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
         if L <= 320:
@@ -435,8 +436,9 @@ def test_attention_routes_and_their_counters():
     limit = ta.DROPATTN_TC_MAX_L[(torch.bfloat16, 32)]
     assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit) == "tc"
     assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit + 1) == "cuda_core"
-    assert ta.dropattn_fwd_route(torch.bfloat16, 32, ta.DROPATTN_FWD_TC_MAX_L) == "tc"
-    assert ta.dropattn_fwd_route(torch.bfloat16, 32, ta.DROPATTN_FWD_TC_MAX_L + 1) == "cuda_core"
+    fwd_limit = ta.DROPATTN_FWD_TC_MAX_L[(torch.bfloat16, 32)]
+    assert ta.dropattn_fwd_route(torch.bfloat16, 32, fwd_limit) == "tc"
+    assert ta.dropattn_fwd_route(torch.bfloat16, 32, fwd_limit + 1) == "cuda_core"
     assert ta.dropattn_fwd_route(torch.float32, 32, 64) == "cuda_core"
     reset_launch_counts()
     assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
@@ -450,8 +452,8 @@ def test_dropattn_tensor_core_backward_applies_the_plain_mask(d):
     probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in bf16;
     with v (and g) holding 2^(j % 8) in channel j // 8, out spells each row's
     keep bits over the live columns and dv each live column's over the 192
-    rows: the keep bits the tensor-core backward stored and applied, at head
-    dims 32 and 64."""
+    rows: the keep bits the tensor-core forward applied and the tensor-core
+    backward stored and applied, at head dims 32 and 64."""
     _need_card()
     B, h, L, live, seed = 2, 3, 192, 128, 99
     j = torch.arange(L, device="cuda")
@@ -461,7 +463,9 @@ def test_dropattn_tensor_core_backward_applies_the_plain_mask(d):
     zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
     bias = torch.where(j < live, 0.0, torch.finfo(torch.bfloat16).min / 2).expand(B, L)
     bias = bias.contiguous()
+    fwd_before = ta.dropattn_fwd.tc_launches
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    assert ta.dropattn_fwd.tc_launches == fwd_before + 1
     tc_before = ta.dropattn_bwd.tc_launches
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
     assert ta.dropattn_bwd.tc_launches == tc_before + 1
@@ -936,16 +940,15 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("L", [64, 130, 512])
 def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
-    """Head dim 64: the forward on the CUDA-core kernel (512 in f32: the
-    head's K and V exceed a block's shared memory and stream through it in
-    chunks), the backward on the tensor cores where the head fits a block
-    (64 in both dtypes, 130 in bf16) and on the CUDA-core pair past that:
-    f32 within 1e-5, bf16 each element within its rounding bound, the lse
-    within 1e-5."""
+    """Head dim 64: the forward on the tensor cores (f32 streaming K and V
+    in tiles of 64 keys, bf16 holding the head's K and V), the backward on
+    the tensor cores where the head fits a block (64 in both dtypes, 130 in
+    bf16) and on the CUDA-core pair past that: f32 within 1e-5, bf16 each
+    element within its rounding bound, the lse within 1e-5."""
     _need_card()
     q, k, v, go, bias = _attn_inputs(2, 4, L, 64, dtype, seed=640 + L)
     seed = 64 + L
-    assert ta.dropattn_fwd_route(dtype, 64, L) == "cuda_core"
+    assert ta.dropattn_fwd_route(dtype, 64, L) == "tc"
     b_tc = ta.dropattn_bwd_route(dtype, 64, L) == "tc"
     assert b_tc == (L <= ta.DROPATTN_TC_MAX_L[(dtype, 64)])
     before = (dict(ta.dropattn_fwd.head_dim_launches), ta.dropattn_fwd.tc_launches,
@@ -956,7 +959,7 @@ def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
     want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
     torch.cuda.synchronize()
     assert ta.dropattn_fwd.head_dim_launches[64] == before[0].get(64, 0) + 1
-    assert ta.dropattn_fwd.tc_launches == before[1]
+    assert ta.dropattn_fwd.tc_launches == before[1] + 1
     assert ta.dropattn_bwd.tc_launches == before[2] + int(b_tc)
     torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
     if dtype == torch.float32:
@@ -990,12 +993,14 @@ def test_dropattn_head_dim_64_bf16_beyond_the_resident_length():
         assert bool(((a.float() - b.float()).abs() <= bd).all())
 
 
-@pytest.mark.parametrize("L", [256, 512])
+@pytest.mark.parametrize("L", [256, 512, 64, 128])
 def test_dropattn_head_dim_64_kernels_apply_the_plain_mask(L):
     """f32 at head dim 64, q = k = 0 and a zero bias: each probability is
     1/L, each kept pd 2/L at p = 0.5; v (and g) holding 2^(j % 8) in channel
     j // 8 make out (dv) spell each row's (column's) keep bits, read back
-    bit for bit. At L = 512 both kernels stream the head in chunks."""
+    bit for bit. The forward is the tensor-core kernel (one launch on the
+    route) at every L; at L = 512 the backward's pair streams the head in
+    chunks."""
     _need_card()
     B, h, d, seed = 2, 3, 64, 123
     j = torch.arange(L, device="cuda")
@@ -1004,7 +1009,9 @@ def test_dropattn_head_dim_64_kernels_apply_the_plain_mask(L):
     code = code.expand(B, h, L, d).contiguous()
     zero = torch.zeros(B, h, L, d, device="cuda")
     bias = torch.zeros(B, L, device="cuda")
+    before = ta.dropattn_fwd.tc_launches
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
+    assert ta.dropattn_fwd.tc_launches == before + 1
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
     bit = torch.arange(8, device="cuda")
 
@@ -1030,15 +1037,14 @@ def test_dropattn_head_dim_64_is_bitwise_repeatable():
 
 
 def test_head_dim_routes_and_counters():
-    """At head dim 64 flash and the backward take the tensor cores in bf16
-    and f32, the forward the CUDA-core kernel; at head dim 32 bf16 takes the
-    tensor cores throughout; the launches are counted by head dim and on
-    the tensor-core route."""
+    """At head dim 64 flash and both dropattn kernels take the tensor cores
+    in bf16 and f32; at head dim 32 bf16 takes the tensor cores throughout;
+    the launches are counted by head dim and on the tensor-core route."""
     from sskd_tpu_torch.ops import head_dim_launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
     for dtype in (torch.bfloat16, torch.float32):
-        assert ta.dropattn_fwd_route(dtype, 64, 64) == "cuda_core"
+        assert ta.dropattn_fwd_route(dtype, 64, 64) == "tc"
         assert ta.dropattn_bwd_route(dtype, 64, 64) == ta.flash_route(dtype, 64) == "tc"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, 64) == "tc"
     reset_launch_counts()
@@ -1051,14 +1057,14 @@ def test_head_dim_routes_and_counters():
     by_d, tc = head_dim_launch_counts(), tc_launch_counts()
     assert by_d == {name: {32: 1, 64: 2}
                     for name in ("flash_attn_fwd", "dropattn_fwd", "dropattn_bwd")}
-    assert tc["dropattn_fwd"] == 1 and tc["dropattn_bwd"] == tc["flash_attn_fwd"] == 3
+    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == tc["flash_attn_fwd"] == 3
     reset_launch_counts()
     assert head_dim_launch_counts() == {"flash_attn_fwd": {}, "dropattn_fwd": {},
                                         "dropattn_bwd": {}}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L", [200, 512])  # 200: a ragged last tile of 64 keys
+@pytest.mark.parametrize("L", [200, 512, 64])  # 200: a ragged last tile of 64 keys
 def test_flash_head_dim_64_tensor_core_routes(dtype, L):
     """Flash at head dim 64 on its tensor-core route (three TF32 products in
     f32): one launch counted on the route and at d = 64, two launches
@@ -1201,3 +1207,77 @@ def test_flash_head_dim_64_at_the_rerank_length(dtype):
     else:
         bound = ta.flash_error_bound(q, k, v, mask, got, want)
         assert bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core dropattn_fwd at head dim 64 (f32 as three TF32 products,
+# and bf16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", [(32, 64), (8, 512)])
+def test_dropattn_fwd_head_dim_64_tensor_core_route(dtype, p, B, L):
+    """The forward at head dim 64 on the tensor cores at the teacher's train
+    shape [32, 16, 64, 64] and at [8, 16, 512, 64]: one launch on the route
+    at d = 64, two launches bitwise equal, f32 within 1e-5 of the plain
+    version and bf16 within dropattn_fwd_error_bound, the lse within
+    1e-4."""
+    _need_card()
+    q, k, v, _, bias = _attn_inputs(B, 16, L, 64, dtype, seed=800 + L)
+    seed = 80 + L
+    assert ta.dropattn_fwd_route(dtype, 64, L) == "tc"
+    before = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0))
+    out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    assert (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches[64]) == (
+        before[0] + 1, before[1] + 1)
+    again = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    if dtype == torch.float32:
+        assert (out - want).abs().max().item() <= 1e-5
+        return
+    diff = (out.float() - want.float()).abs()
+    bound = ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out, want)
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_dropattn_fwd_bf16_tensor_core_route_edge(d):
+    """The bf16 forward's limit (the longest L whose head's K and V fit a
+    block) takes the tensor cores; the next L the CUDA-core kernel, both
+    within dropattn_fwd_error_bound; the tensor-core kernel itself refuses a
+    head one chunk of 16 past the limit."""
+    import ctypes
+
+    from sskd_tpu_torch.ops import _build
+
+    _need_card()
+    limit = ta.DROPATTN_FWD_TC_MAX_L[(torch.bfloat16, d)]
+    for L, tc in ((limit, 1), (limit + 1, 0)):
+        q, k, v, _, bias = _attn_inputs(1, 2, L, d, torch.bfloat16, seed=L + d)
+        before = (ta.dropattn_fwd.launches, ta.dropattn_fwd.tc_launches)
+        out, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 5)
+        assert (ta.dropattn_fwd.launches, ta.dropattn_fwd.tc_launches) == (
+            before[0] + 1, before[1] + tc)
+        want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 5)
+        torch.cuda.synchronize()
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+        bound = ta.dropattn_fwd_error_bound(q, k, v, bias, 0.1, 5, out, want)
+        assert bool(((out.float() - want.float()).abs() <= bound).all())
+    fn = _build.load_library("dropattn_fwd").sskd_dropattn_fwd_tc
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
+    L = limit + 16
+    q = torch.zeros(1, 1, L, d, device="cuda", dtype=torch.bfloat16)
+    bias, out = torch.zeros(1, L, device="cuda"), torch.empty_like(q)
+    lse = torch.empty(1, 1, L, device="cuda")
+    rc = fn(1, *(ctypes.c_void_p(t.data_ptr()) for t in (q, q, q, bias, out, lse)),
+            1, 1, L, d, d**-0.5, ta._scale_log2(d), 5, 0.1, 1 / 0.9,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc != 0

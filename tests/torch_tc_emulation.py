@@ -27,11 +27,14 @@ a lo term, each 8-deep step of mma.sync m16n8k8 adding hi hi to the
 accumulator and lo hi, hi lo to one of their own, each step's 8 exact
 products added to its accumulator and the sum truncated toward zero, as
 ``mma``'s; the two accumulators added once at the end. The softmax is the CUDA-core
-kernels' in natural units (f32 exp, nothing folded). ``flash_tf32`` and
-``dropattn_bwd_tf32`` follow them, the backward's dq steps in the kernel's
-key order; ``passes=1`` gives the one-pass TF32 product the tests show the
-1e-5 checks would catch. ``tf32_fragment_keys`` writes out which keys of a
-16-key chunk each lane of the f32 backward holds.
+kernels' in natural units (f32 exp, nothing folded). ``flash_tf32``,
+``dropattn_fwd_tf32`` (``dropattn_fwd_tc_tf32_kernel``: one online pass
+over 64-key tiles, the kept p times 1 / (1 - p) into p v in the tile's slot
+order, one division at the end) and ``dropattn_bwd_tf32`` follow them, the
+backward's dq steps in the kernel's key order; ``passes=1`` gives the
+one-pass TF32 product the tests show the 1e-5 checks would catch.
+``tf32_fragment_keys`` and ``tf32_forward_fragment_keys`` write out which
+keys of a chunk each lane of the f32 backward and forward holds.
 
 ``tile_gather_tc`` follows the schedule of csrc/gather_tc.cuh, the int8
 gather that ``cell_gather_tc_kernel`` and ``bin_gather_tc_kernel`` share:
@@ -264,8 +267,70 @@ def dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
 
 
 def _key_slot(t: int) -> int:
-    """csrc/dropattn_bwd.cu key_slot: the slot of key t of a 16-key chunk."""
+    """csrc/attn_common.cuh key_slot: the slot of key t of a 16-key chunk."""
     return 8 * ((t >> 1) & 1) + 2 * (t >> 2) + (t & 1)
+
+
+def _slot_row(r: int) -> int:
+    """csrc/attn_common.cuh slot_row: the shared row of key r of a tile
+    whose 16-key chunks are stored in slot order."""
+    return (r & ~15) + _key_slot(r & 15)
+
+
+# the keys of a 64-key tile in the order of its shared rows (slot order)
+_SLOT_ORDER = sorted(range(64), key=_slot_row)
+
+
+def dropattn_fwd_tf32(q, k, v, bias, p, keep_mask, passes: int = 3):
+    """(out, lse) of the f32 forward kernel at head dim 64 for q, k, v
+    [B, h, L, d] (f32), bias [B, L] and ``keep_mask`` [B, h, L, L] (bool) or
+    None at p = 0: 64-key tiles, s = qk * scale + bias, the running max and
+    sum in natural units (the sum over every key, kept or not), the
+    accumulator rescaled a tile, the kept p times 1 / (1 - p) into p v whose
+    8-deep steps take the tile's keys in slot order, out = o / sum and lse =
+    max + log(sum)."""
+    B, h, L, d = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    bias4 = bias.float()[:, None, None, :]
+    m = torch.full((B, h, L, 1), -math.inf)
+    l = torch.zeros(B, h, L, 1)
+    o = torch.zeros(B, h, L, d)
+    for k0 in range(0, L, 64):
+        n = min(64, L - k0)
+        kt, vt = k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]
+        s = mma_tf32(q, kt.transpose(-1, -2), passes=passes) * scale + bias4[..., k0:k0 + n]
+        mx = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        base = torch.where(mx == -math.inf, 0.0, mx)
+        alpha = torch.exp(m - base)
+        m = mx
+        e = torch.exp(s - base)
+        l = l * alpha + e.sum(dim=-1, keepdim=True)
+        pd = e if keep_mask is None else torch.where(keep_mask[..., k0:k0 + n], e * inv, 0.0)
+        # keys past L: p 0 and zero rows of v, in the slots the kernel gives them
+        pd = torch.nn.functional.pad(pd, (0, 64 - n))[..., _SLOT_ORDER]
+        vt = torch.nn.functional.pad(vt, (0, 0, 0, 64 - n))[..., _SLOT_ORDER, :]
+        o = mma_tf32(pd, vt, o * alpha, passes=passes)
+    return o / l, (m + torch.log(l))[..., 0]
+
+
+def tf32_forward_fragment_keys():
+    """What the f32 forward's lanes hold of a 64-key tile, from its index
+    arithmetic: ``stored[lane]`` the key in the shared row of score element
+    e (0, 1) of tile nt (column 2 tig + e of tile nt is shared row nt * 8 +
+    2 tig + e, rows stored by slot_row), ``used[lane]`` the key the kernel
+    takes that element for (its bias and keep bit: 16 (nt >> 1) + 4 tig +
+    2 (nt & 1) + e), and ``pv_rows[lane]`` the keys of the V rows step nt of
+    p v reads as b0 and b1 (shared rows nt * 8 + 2 tig and + 1)."""
+    key_at = {_slot_row(r): r for r in range(64)}
+    stored, used, pv_rows = [], [], []
+    for lane in range(32):
+        tig = lane & 3
+        stored.append([key_at[nt * 8 + 2 * tig + e] for nt in range(8) for e in range(2)])
+        used.append([16 * (nt >> 1) + 4 * tig + 2 * (nt & 1) + e
+                     for nt in range(8) for e in range(2)])
+        pv_rows.append([key_at[nt * 8 + 2 * tig + b] for nt in range(8) for b in range(2)])
+    return stored, used, pv_rows
 
 
 def tf32_fragment_keys():

@@ -1,5 +1,6 @@
 """Timing probes behind the design of the head-dim-64 attention kernels
-(``csrc/flash_attn.cu``, ``csrc/dropattn_bwd.cu``) on one NVIDIA GPU.
+(``csrc/flash_attn.cu``, ``csrc/dropattn_fwd.cu``, ``csrc/dropattn_bwd.cu``)
+on one NVIDIA GPU.
 
 1. ``mma.sync`` throughput: TF32 m16n8k8 and bf16 m16n8k16, eight
    independent products a loop step, with 4, 8 and 16 warps an SM.
@@ -10,14 +11,20 @@
    ``cvt.rna.tf32.f32`` (its result held bit for bit against the integer
    split), with one TF32 pass, with no split, with a fast exp, with each K
    and V tile loaded once, and with the loads alone; the bf16 flash at the
-   same shape with each tile loaded once and with the loads alone; the f32
-   backward at [32, 16, 64, 64] with one and with two head buffers; the
-   bf16 flash at d = 32 ([256, 12, 512, 32]) with signed loop counters.
+   same shape with each tile loaded once and with the loads alone; the bf16
+   dropattn_fwd at d = 64 past L = 64 as 8 warps (128 rows a block); the
+   f32 dropattn_fwd at [32, 16, 64, 64] and [8, 16, 512, 64] with a first
+   pass for the row max before the online one (two passes), with each K and
+   V tile loaded once and with the loads alone; the f32 backward at [32,
+   16, 64, 64] with one and with two head buffers; the bf16 flash at d = 32
+   ([256, 12, 512, 32]) with signed loop counters.
 3. With ``--parent DIR``, a copy of an earlier commit's
    ``sskd_tpu_torch/csrc`` (``git archive <commit> sskd_tpu_torch/csrc |
-   tar -x -C DIR``): the d = 32 tensor-core flash and backward of both
-   trees at the student's shapes, in turns parent, tree, tree, parent, and
-   whether their results are equal bit for bit.
+   tar -x -C DIR``): the parent's kernels beside the tree's, in turns
+   parent, tree, tree, parent, and whether their results are equal bit for
+   bit: the d = 32 tensor-core flash, forward and backward at the student's
+   shapes; the bf16 flash at d = 64; dropattn_fwd at d = 64 in f32 and bf16
+   at both shapes above.
 
 Prints the card's name and power limit and one JSON line per probe, and
 writes them to ``chiprun_out/probe_attention64.json``.
@@ -79,6 +86,73 @@ MMA3 = """  mma_tf32(c_lo, al, h0, h1);
   mma_tf32(c_lo, ah, l0, l1);
   mma_tf32(c, ah, h0, h1);"""
 INT_SPLIT = "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;"
+F32_FWD_LOOP = "    if (t + 1 < n_kt) load_tile((t + 1) & 1, (t + 1) * DF32_KB);"
+F32_FWD_HEAD = "  const int n_kt = (L + DF32_KB - 1) / DF32_KB;\n  for (int t = 0; t < n_kt; ++t) {"
+# the f32 forward's start of its online pass, and a first pass before it that
+# finds each row's max over every tile (the products of S once more), so that
+# the online pass never rescales: the two-pass shape, with the same result
+FWD_ONLINE_START = """  load_tile(0, 0);
+  cp_async_commit();
+
+  float qa[D / 8][4];  // q's A fragments, 8 d a step, split into hi and lo at each use
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  // rows grp and grp + 8: the running max (natural units) and this thread's
+  // part of the running sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+"""
+FWD_TWO_PASS_START = """  float qa[D / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int t = 0; t < (L + DF32_KB - 1) / DF32_KB; ++t) {
+    load_tile(0, t * DF32_KB);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t == 0) {
+      const float* qr = s_q + (warp * 16 + grp) * LD + tig;
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        qa[ks][0] = qr[ks * 8];
+        qa[ks][1] = qr[8 * LD + ks * 8];
+        qa[ks][2] = qr[ks * 8 + 4];
+        qa[ks][3] = qr[8 * LD + ks * 8 + 4];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, s_lo[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        split_tf32_a(qa[ks], ah, al);
+        const float* kr = s_k + (nt * 8 + grp) * LD + ks * 8 + tig;
+        mma_3xtf32(s, s_lo, ah, al, kr[0], kr[4]);
+      }
+      fold_lo(s, s_lo);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 16 * (nt >> 1) + 4 * tig + 2 * (nt & 1) + (e & 1);
+        m[e >> 1] = fmaxf(m[e >> 1], __fadd_rn(__fmul_rn(s[e], sm_scale), s_bias[key]));
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+  load_tile(0, 0);
+  cp_async_commit();
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+"""
 
 # name -> (source built, [(file, text, replacement)])
 VARIANTS = {
@@ -99,7 +173,8 @@ VARIANTS = {
         ("flash_attn.cu", "  const int n_kt = (L + FT_KB - 1) / FT_KB;\n  for (int t = 0; t < n_kt; ++t) {",
          "  const int n_kt = (L + FT_KB - 1) / FT_KB;\n  for (int t = 0; t < n_kt; ++t) {\n    if (L > 0) {"
          " if (t + 1 < n_kt) load_tile((t + 1) & 1, (t + 1) * FT_KB); cp_async_commit();"
-         " cp_async_wait<1>(); __syncthreads(); if (t == 0) ldmatrix_x4(qa[0], s_q + tid * 8);"
+         " cp_async_wait<1>(); __syncthreads();"
+         " if (t == 0) ldmatrix_x4(*reinterpret_cast<uint32_t(*)[4]>(&qa), s_q + tid * 8);"
          " continue; }")]),
     "signed_loops": ("flash_attn.cu", [
         ("flash_attn.cu", "for (unsigned i = tid; i < FT_QB * CH; i += FT_THREADS) {",
@@ -110,6 +185,15 @@ VARIANTS = {
          "  constexpr int CH = D / 8;  // 16-byte chunks a row")]),
     "one_buffer": ("dropattn_bwd.cu", [("dropattn_bwd.cu", "per_sm[1] >= per_sm[0] ? 2 : 1", "1")]),
     "two_buffers": ("dropattn_bwd.cu", [("dropattn_bwd.cu", "per_sm[1] >= per_sm[0] ? 2 : 1", "2")]),
+    "fwd_two_pass": ("dropattn_fwd.cu", [("dropattn_fwd.cu", FWD_ONLINE_START, FWD_TWO_PASS_START)]),
+    "fwd_tiles_once": ("dropattn_fwd.cu", [("dropattn_fwd.cu", F32_FWD_LOOP,
+                                            F32_FWD_LOOP.replace("n_kt)", "min(n_kt, 2))"))]),
+    "fwd_bf16_w8": ("dropattn_fwd.cu", [("dropattn_fwd.cu", ": launch_tc<64, 16>(",
+                                         ": launch_tc<64, 8>(")]),
+    "fwd_loads_only": ("dropattn_fwd.cu", [
+        ("dropattn_fwd.cu", F32_FWD_HEAD,
+         F32_FWD_HEAD + "\n    if (L > 0) { if (t + 1 < n_kt) load_tile((t + 1) & 1, (t + 1) * DF32_KB);"
+         " cp_async_commit(); cp_async_wait<1>(); __syncthreads(); qa[0][0] += s_q[tid]; continue; }")]),
 }
 
 
@@ -187,6 +271,41 @@ def bwd_call(lib, q, k, v, bias, g, lse, outs, p, seed, new_api: bool = True):
     return lambda: fn(*args, stream())
 
 
+def fwd_call(lib, q, k, v, bias, out, lse, p, seed, tc: bool = True, new_api: bool = True):
+    """A launch of ``sskd_dropattn_fwd_tc`` (the tensor-core routes; before
+    this tree's API, bf16 at d = 32 only, without dtype and sm_scale) or,
+    with ``tc`` False, of ``sskd_dropattn_fwd`` (the CUDA-core kernel)."""
+    B, h, L, d = q.shape
+    ptrs = [ptr(t) for t in (q, k, v, bias, out, lse)]
+    tail = [seed, p, 1.0 / (1.0 - p)]
+    dtype = int(q.dtype == torch.bfloat16)
+    if not tc:
+        fn = lib.sskd_dropattn_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [P] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, P]
+        return lambda: fn(dtype, *ptrs, B, h, L, d, 1.0 / d**0.5, *tail, stream())
+    fn = lib.sskd_dropattn_fwd_tc
+    fn.restype = ctypes.c_int
+    if new_api:
+        fn.argtypes = [ctypes.c_int] + [P] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, P]
+        return lambda: fn(dtype, *ptrs, B, h, L, d, 1.0 / d**0.5, ta._scale_log2(d), *tail,
+                          stream())
+    fn.argtypes = [P] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, P]
+    return lambda: fn(*ptrs, B, h, L, d, ta._scale_log2(d), *tail, stream())
+
+
+def launched(calls: dict) -> None:
+    """One launch of each call, each checked and synchronised on its own."""
+    for name, call in calls.items():
+        rc = call()
+        if rc != 0:
+            raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+        torch.cuda.synchronize()
+
+
 def mma_rates(work: Path) -> dict:
     src = work / "mma_rate.cu"
     src.write_text(MMA_RATE_SRC)
@@ -232,17 +351,26 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"variant {name}: {text!r} not in {file}")
             (tree / file).write_text(body.replace(text, repl))
         procs[name] = (nvcc(tree / source, tree / "lib.so", tree), tree / "lib.so")
+    parent = {}  # source stem -> whether its tensor-core entry takes the dtype
     if args.parent:
-        for stem in ("flash_attn", "dropattn_bwd"):
+        for stem, entry in (("flash_attn", "sskd_flash_attn_fwd_tc"),
+                            ("dropattn_bwd", "sskd_dropattn_bwd_tc"),
+                            ("dropattn_fwd", "sskd_dropattn_fwd_tc")):
             src = Path(args.parent) / f"{stem}.cu"
             procs[f"parent_{stem}"] = (nvcc(src, WORK / f"parent_{stem}.so", src.parent),
                                        WORK / f"parent_{stem}.so")
+            parent[stem] = f"{entry}(int dtype" in src.read_text()
     own = _build.build_all()
     libs = built(procs)
     tree_flash = ctypes.CDLL(str(own["flash_attn"].path))
     tree_bwd = ctypes.CDLL(str(own["dropattn_bwd"].path))
+    tree_fwd = ctypes.CDLL(str(own["dropattn_fwd"].path))
     record = {"nvidia_smi": smi, "mma_sync": mma_rates(WORK)}
     print(json.dumps({"mma_sync": record["mma_sync"]}), flush=True)
+
+    def emit(key, value):
+        record[key] = value
+        print(json.dumps({key: value}), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype, names in ((torch.float32, ("cvt_split", "one_pass", "no_split", "fast_exp",
@@ -254,16 +382,42 @@ def main(argv=None) -> int:
         outs = {n: torch.empty_like(q) for n in ("tree", *names)}
         calls = {"tree": flash_call(tree_flash, q, k, v, mask, outs["tree"])}
         calls.update({n: flash_call(libs[n], q, k, v, mask, outs[n]) for n in names})
-        for call in calls.values():
-            if call() != 0:
-                raise RuntimeError("flash launch failed")
-        torch.cuda.synchronize()
-        key = f"flash_d64_{str(dtype).split('.')[1]}_ms"
-        record[key] = in_turns(calls)
+        if args.parent and dtype == torch.bfloat16:
+            outs["parent"] = torch.empty_like(q)
+            calls["parent"] = flash_call(libs["parent_flash_attn"], q, k, v, mask, outs["parent"],
+                                         parent["flash_attn"])
+        launched(calls)
+        res = in_turns(calls)
         if dtype == torch.float32:
-            record[key]["cvt_split_bitwise_equal"] = bool(torch.equal(outs["tree"],
-                                                                      outs["cvt_split"]))
-        print(json.dumps({key: record[key]}), flush=True)
+            res["cvt_split_bitwise_equal"] = bool(torch.equal(outs["tree"], outs["cvt_split"]))
+        else:
+            if args.parent:
+                res["parent_bitwise_equal"] = bool(torch.equal(outs["tree"], outs["parent"]))
+        emit(f"flash_d64_{str(dtype).split('.')[1]}_ms", res)
+
+    # dropattn_fwd at d = 64: the one-pass f32 kernel against two passes and
+    # its copies, and both dtypes against the parent's CUDA-core kernel
+    for B, L in ((32, 64), (8, 512)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, 16, L, 64, device="cuda", generator=g).to(dtype)
+                       for _ in range(3))
+            bias = torch.zeros(B, L, device="cuda")
+            names = (("fwd_two_pass", "fwd_tiles_once", "fwd_loads_only")
+                     if dtype == torch.float32 else ("fwd_bf16_w8",) if L > 64 else ())
+            outs = {n: (torch.empty_like(q), torch.empty(B, 16, L, device="cuda"))
+                    for n in ("tree", "parent", *names)}
+            calls = {"tree": fwd_call(tree_fwd, q, k, v, bias, *outs["tree"], 0.1, 5)}
+            calls.update({n: fwd_call(libs[n], q, k, v, bias, *outs[n], 0.1, 5) for n in names})
+            if args.parent:
+                calls["parent"] = fwd_call(libs["parent_dropattn_fwd"], q, k, v, bias,
+                                           *outs["parent"], 0.1, 5, tc=False)
+            launched(calls)
+            res = in_turns(calls)
+            want, _ = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 5)
+            res["tree_max_abs_err"] = (outs["tree"][0].float() - want.float()).abs().max().item()
+            if dtype == torch.float32:
+                res["two_pass_max_abs_err"] = (outs["fwd_two_pass"][0] - want).abs().max().item()
+            emit(f"dropattn_fwd_d64_{str(dtype).split('.')[1]}_{B}x{L}_ms", res)
 
     q, k, v, go = (torch.randn(32, 16, 64, 64, device="cuda", generator=g) for _ in range(4))
     bias = torch.zeros(32, 64, device="cuda")
@@ -273,12 +427,8 @@ def main(argv=None) -> int:
     calls = {"tree": bwd_call(tree_bwd, q, k, v, bias, go, lse, outs["tree"], 0.1, 5)}
     calls.update({n: bwd_call(libs[n], q, k, v, bias, go, lse, outs[n], 0.1, 5)
                   for n in ("one_buffer", "two_buffers")})
-    for call in calls.values():
-        if call() != 0:
-            raise RuntimeError("dropattn_bwd launch failed")
-    record["dropattn_bwd_d64_float32_ms"] = in_turns(calls)
-    print(json.dumps({"dropattn_bwd_d64_float32_ms": record["dropattn_bwd_d64_float32_ms"]}),
-          flush=True)
+    launched(calls)
+    emit("dropattn_bwd_d64_float32_ms", in_turns(calls))
 
     q, k, v = (torch.randn(256, 12, 512, 32, device="cuda", generator=g).to(torch.bfloat16)
                for _ in range(3))
@@ -288,36 +438,37 @@ def main(argv=None) -> int:
              "signed_loops": flash_call(libs["signed_loops"], q, k, v, mask, out_s)}
     if args.parent:
         out_p = torch.empty_like(q)
-        new_api = "sskd_flash_attn_fwd_tc(int dtype" in (Path(args.parent) / "flash_attn.cu").read_text()
-        calls["parent"] = flash_call(libs["parent_flash_attn"], q, k, v, mask, out_p, new_api)
-    for call in calls.values():
-        if call() != 0:
-            raise RuntimeError("flash launch failed")
-    torch.cuda.synchronize()
-    record["flash_d32_bfloat16_ms"] = in_turns(calls)
+        calls["parent"] = flash_call(libs["parent_flash_attn"], q, k, v, mask, out_p,
+                                     parent["flash_attn"])
+    launched(calls)
+    res = in_turns(calls)
     if args.parent:
-        record["flash_d32_bfloat16_ms"]["parent_bitwise_equal"] = bool(torch.equal(out_t, out_p))
-    print(json.dumps({"flash_d32_bfloat16_ms": record["flash_d32_bfloat16_ms"]}), flush=True)
+        res["parent_bitwise_equal"] = bool(torch.equal(out_t, out_p))
+    emit("flash_d32_bfloat16_ms", res)
 
     if args.parent:
         q, k, v, go = (torch.randn(256, 12, 192, 32, device="cuda", generator=g)
                        .to(torch.bfloat16) for _ in range(4))
         bias = torch.zeros(256, 192, device="cuda")
-        _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 7)
+        outs = {n: (torch.empty_like(q), torch.empty(256, 12, 192, device="cuda"))
+                for n in ("tree", "parent")}
+        calls = {"parent": fwd_call(libs["parent_dropattn_fwd"], q, k, v, bias, *outs["parent"],
+                                    0.1, 7, new_api=parent["dropattn_fwd"]),
+                 "tree": fwd_call(tree_fwd, q, k, v, bias, *outs["tree"], 0.1, 7)}
+        launched(calls)
+        res = in_turns(calls)
+        res["parent_bitwise_equal"] = all(bool(torch.equal(a, b))
+                                          for a, b in zip(outs["tree"], outs["parent"]))
+        emit("dropattn_fwd_d32_bfloat16_ms", res)
+        lse = outs["tree"][1]
         outs_t, outs_p = ([torch.empty_like(q) for _ in range(3)] for _ in range(2))
-        new_api = "sskd_dropattn_bwd_tc(int dtype" in (Path(args.parent) / "dropattn_bwd.cu").read_text()
         calls = {"parent": bwd_call(libs["parent_dropattn_bwd"], q, k, v, bias, go, lse, outs_p,
-                                    0.1, 7, new_api),
+                                    0.1, 7, parent["dropattn_bwd"]),
                  "tree": bwd_call(tree_bwd, q, k, v, bias, go, lse, outs_t, 0.1, 7)}
-        for call in calls.values():
-            if call() != 0:
-                raise RuntimeError("dropattn_bwd launch failed")
-        torch.cuda.synchronize()
-        record["dropattn_bwd_d32_bfloat16_ms"] = in_turns(calls)
-        record["dropattn_bwd_d32_bfloat16_ms"]["parent_bitwise_equal"] = all(
-            bool(torch.equal(a, b)) for a, b in zip(outs_t, outs_p))
-        print(json.dumps({"dropattn_bwd_d32_bfloat16_ms": record["dropattn_bwd_d32_bfloat16_ms"]}),
-              flush=True)
+        launched(calls)
+        res = in_turns(calls)
+        res["parent_bitwise_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(outs_t, outs_p))
+        emit("dropattn_bwd_d32_bfloat16_ms", res)
     out = ROOT / "chiprun_out" / "probe_attention64.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
