@@ -10,12 +10,18 @@ Phases, each fatal when it fails:
              spills;
 2. kernels — each kernel against its plain torch version on the card at the
              shapes of the main path (binmax / exact engine: f32, int8 and
-             int4 at 1M x 384, B in {1, 16, 256} and int8 also at 32 and 64,
-             k in {10, 100}, and bf16 at B in {1, 16, 64, 256}, k in {10,
+             int4 at 1M x 384, B in {1, 16, 256}, int8 also at 32 and 64 and
+             int4 at 64, k in {10, 100}, and bf16 at B in {1, 16, 64, 256}, k in {10,
              40}, every bf16 launch on its bf16 route within 1e-5, beside
              cuBLAS's bf16 product with the query rounded and the f32 route
              over the widened rows; int8 binmax, binmax_strided and bin_gather on
-             their tensor-core routes, f32 binmax and binmax_strided on the
+             their tensor-core routes, int4 binmax and binmax_strided too (bit
+             for bit, cold L2 cache, beside torch._int_mm over the rows
+             unpacked in the call and beforehand) and int4 bin_gather on the
+             CUDA cores, int4 binmax and binmax_strided also at 1M x 1056
+             (528 packed bytes, past the tensor-core route) on their dp4a
+             kernels, B in {1, 16, 256}, bit for bit, f32 binmax and
+             binmax_strided on the
              register-tiled CUDA-core kernels, with bin_gather's pairs in
              their own order against sorted by bin on corpus-derived queries,
              binmax also with the L2 cache flushed before each launch, the
@@ -106,14 +112,17 @@ Phases, each fatal when it fails:
              embeddings (0 ids that differ but at ties within 1e-5, and none
              at all for (a) and (b)); every launch on bf16 rows on a bf16
              route, the candidates of (a) from the tensor-core strided pass
-             and of (b) from the int4 routes of binmax and bin_gather;
+             and of (b) from binmax on the tensor cores and bin_gather on the
+             CUDA cores;
              recall@10 against exact f32 search over the original rows
              ((a) at least its unrefined int8 sweep's and 0.97, (b) above
              its unrefined int4 search's, (c) 0.97, (e) 0.90), validate()
              ((a), (c), (d) 0.97, (e) 0.90, (b) through the refined engine
              above its own unrefined value), and ms per search of the
              refined (device and host), int8 approx, bf16 exact, approx and
-             clustered engines at B in {1, 16, 64};
+             clustered engines and the approx engine over (b)'s int4 rows
+             (its strided pass on the tensor cores, its result the plain
+             engine's) at B in {1, 16, 64};
 7. teacher — the cross-encoder at full bge-reranker-large width (24
              layers, hidden 1024, 16 heads of 64, FFN 4096, vocab 250,002,
              roberta positions; seeded random weights, f32 compute, dropout
@@ -405,8 +414,14 @@ def same_topk(kv, ki, pv, pi, tol: float) -> bool:
     return True
 
 
-# the route each storage type takes in binmax, binmax_strided and bin_gather
-TOPK_ROUTES = {"int8": "tc", "f32": "cuda_core", "int4": "cuda_core", "bf16": "bf16"}
+# the route each storage type takes in binmax, binmax_strided and bin_gather (packed
+# int4 rows of 192 bytes on the tensor cores in the first two, on the CUDA cores in the
+# gather)
+TOPK_ROUTES = {
+    kernel: {"int8": "tc", "f32": "cuda_core", "bf16": "bf16",
+             "int4": "cuda_core" if kernel == "bin_gather" else "tc"}
+    for kernel in ("binmax", "binmax_strided", "bin_gather")
+}
 
 
 def routed(wrapper, route: str, fn):
@@ -420,17 +435,21 @@ def routed(wrapper, route: str, fn):
     return out
 
 
-def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
+def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict]:
     """The top-k kernels against their plain versions over seeded unit rows;
-    returns (rows, the main-path entries by name, the bf16 entries by name):
-    each kernel at int8 B = 16 (k = 10), and each bf16 route at B = 16."""
+    returns (rows, the main-path entries by name, the bf16 entries by name,
+    the int4 entries by name): each kernel at int8 B = 16 (k = 10), each bf16
+    route at B = 16, and binmax and binmax_strided over int4 at B = 16."""
     from sskd_tpu_torch.ops import topk_kernels as tk
-    from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
+    from sskd_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4, unpack_int4
     from sskd_tpu_torch.ops.topk import approx_blocks, approx_min_bins, cosine_topk_core
 
     x = unit_rows(n_rows, dim, gen)
     valid_n = n_rows
-    rows, main, bf16 = [], {}, {}
+    rows, main, bf16, int4 = [], {}, {}, {}
+    # the cases added after the phases' seeded draws were fixed take theirs from a
+    # generator of their own, so that every later phase keeps its inputs
+    extra = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 1)
     l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for dtype in ("int8", "f32", "int4", "bf16"):
         if dtype == "f32":
@@ -442,18 +461,21 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
             corpus, scales = (quantize_rows if dtype == "int8" else quantize_rows_int4)(x)
         row_bytes = corpus.shape[1] * corpus.element_size()
         op_kind = "int8" if dtype in ("int8", "int4") else "f32"
-        want_route = TOPK_ROUTES[dtype]
-        for B in {"int8": (1, 16, 32, 64, 256), "bf16": (1, 16, 64, 256)}.get(dtype, (1, 16, 256)):
-            q = unit_rows(B, dim, gen)
+        want_route = {kernel: routes[dtype] for kernel, routes in TOPK_ROUTES.items()}
+        if dtype == "int4":  # the same rows unpacked, for the yardstick over int8 rows
+            unpacked = unpack_int4(corpus)
+        for B in {"int8": (1, 16, 32, 64, 256), "f32": (1, 16, 256)}.get(dtype, (1, 16, 64, 256)):
+            q = unit_rows(B, dim, extra if (dtype, B) == ("int4", 64) else gen)
             q_in, q_scale = tk.quantize_queries(q, corpus)
             route = tk.binmax_route(corpus.dtype, row_bytes)
-            check(route == want_route, f"binmax {dtype}: route {route}")
+            check(route == want_route["binmax"], f"binmax {dtype}: route {route}")
             got = routed(tk.binmax, route, lambda: tk.binmax(q_in, corpus, scales, valid_n))
             want = tk.binmax_plain(q_in, corpus, scales, valid_n)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = 0.0 if op_kind == "int8" else 1e-5
-            check(err <= tol, f"binmax {dtype} B={B}: max abs err {err} > {tol}")
+            check(err <= tol and (op_kind != "int8" or torch.equal(got, want)),
+                  f"binmax {dtype} B={B}: max abs err {err} > {tol}")
             n_bins = got.shape[0]
             ms = time_ms(lambda: tk.binmax(q_in, corpus, scales, valid_n), 20)
             plain_ms = time_ms(lambda: tk.binmax_plain(q_in, corpus, scales, valid_n), 3, 1)
@@ -479,6 +501,18 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                     s = torch._int_mm(corpus, q_in.T).float() * scales[:, None]
                     return s[: (n_rows // 128) * 128].view(-1, 128, B).amax(1)
                 library_ms = time_ms(lib_fn, 5)
+            elif dtype == "int4" and B % 8 == 0:
+                # no library call takes packed rows: cuBLAS's int8 product after
+                # unpacking (the unpack timed), and over a copy unpacked beforehand
+                def int_mm_bins(rows_i8):
+                    s = torch._int_mm(rows_i8, q_in.T).float() * scales[:, None]
+                    return s[: (n_rows // 128) * 128].view(-1, 128, B).amax(1)
+                yardsticks = {
+                    "yardstick_int_mm_unpack_included_ms": time_ms(
+                        lambda: int_mm_bins(unpack_int4(corpus)), 5),
+                    "yardstick_int_mm_unpacked_rows_ms": time_ms(
+                        lambda: int_mm_bins(unpacked), 5),
+                }
             n_bytes = (n_rows * row_bytes + n_rows * 4 * (scales is not None)
                        + q_in.numel() * q_in.element_size() + n_bins * B * 4)
             b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_rows * dim, op_kind)
@@ -503,13 +537,16 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                 main["binmax"] = entry
             if B == 16 and dtype == "bf16":
                 bf16["binmax"] = entry
+            if B == 16 and dtype == "int4":
+                int4["binmax"] = entry
             # the approx engine's pass at the blocks it takes for k = 10 at 0.99
             groups = math.ceil(approx_min_bins(10, 0.99) / 128)
             blocks = approx_blocks(B, groups, n_bins)
             # the count the engine takes at the other side of its batch rule
             alt_blocks = approx_blocks(256 if B <= 64 else 1, groups, n_bins)
             s_route = tk.binmax_strided_route(corpus.dtype, row_bytes)
-            check(s_route == want_route, f"binmax_strided {dtype}: route {s_route}")
+            check(s_route == want_route["binmax_strided"],
+                  f"binmax_strided {dtype}: route {s_route}")
             s_got, s_rows = routed(tk.binmax_strided, s_route, lambda: tk.binmax_strided(
                 q_in, corpus, scales, valid_n, blocks))
             s_want, s_want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks)
@@ -517,16 +554,20 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
             s_err = (s_got - s_want).abs().max().item()
             rows_same = (s_rows == s_want_rows).float().mean().item()
             # f32, bf16: summation order can move a near-tie inside a bin
-            check(s_err <= tol and (rows_same == 1.0 if op_kind == "int8"
-                                    else rows_same >= 0.9999),
+            check(s_err <= tol and (torch.equal(s_got, s_want) and rows_same == 1.0
+                                    if op_kind == "int8" else rows_same >= 0.9999),
                   f"binmax_strided {dtype} B={B}: max abs err {s_err}, "
                   f"{1 - rows_same:.2e} of the rows differ")
             s_ms = time_ms(lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks), 20)
+            s_name = ("binmax_strided_tc_kernel" if s_route == "tc"
+                      else "binmax_strided_f32_kernel" if op_kind == "f32"
+                      else "binmax_strided_kernel")
             s_dev = kernel_device_ms(
-                lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks),
-                "binmax_strided_tc_kernel" if s_route == "tc"
-                else "binmax_strided_f32_kernel" if op_kind == "f32"
-                else "binmax_strided_kernel", 8)
+                lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, blocks), s_name, 8)
+            s_cold = kernel_device_ms(  # each launch after the L2 cache was overwritten
+                lambda: (l2_flush.zero_(),
+                         tk.binmax_strided(q_in, corpus, scales, valid_n, blocks)),
+                s_name, 8, fallback=False) if dtype == "int4" else None
             alt_ms = time_ms(
                 lambda: tk.binmax_strided(q_in, corpus, scales, valid_n, alt_blocks), 20)
             # the pass at other multiples of the groups, for approx_blocks (int8)
@@ -538,15 +579,18 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
             s_plain = time_ms(
                 lambda: tk.binmax_strided_plain(q_in, corpus, scales, valid_n, blocks), 3, 1)
             s_library, s_yard = None, {}
-            if dtype in ("f32", "bf16") or (dtype == "int8" and B % 8 == 0):
+            if dtype in ("f32", "bf16") or (dtype in ("int8", "int4") and B % 8 == 0):
                 span = blocks * 128
                 rounds = -(-n_rows // span)
 
-                def strided_lib():
+                def strided_lib(rows_i8=None):
                     if dtype == "bf16":  # the query rounded: a looser function (above)
                         sc = (corpus @ q_in.to(torch.bfloat16).T).float()
                     elif dtype == "f32":
                         sc = corpus @ q_in.T
+                    elif dtype == "int4":  # no library call takes packed rows (above)
+                        rows_i8 = unpack_int4(corpus) if rows_i8 is None else rows_i8
+                        sc = torch._int_mm(rows_i8, q_in.T).float() * scales[:, None]
                     else:
                         sc = torch._int_mm(corpus, q_in.T).float() * scales[:, None]
                     sc = F.pad(sc, (0, 0, 0, rounds * span - n_rows), value=tk.NEG_INF)
@@ -557,6 +601,12 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                         "yardstick_f32_route_widened_rows_ms": time_ms(
                             lambda: tk.binmax_strided(q_in, widened, None, valid_n, blocks), 10),
                     }
+                elif dtype == "int4":
+                    s_yard = {
+                        "yardstick_int_mm_unpack_included_ms": time_ms(strided_lib, 5),
+                        "yardstick_int_mm_unpacked_rows_ms": time_ms(
+                            lambda: strided_lib(unpacked), 5),
+                    }
                 else:
                     s_library = time_ms(strided_lib, 5)
             sb_ms, sb_by = bound_ms(n_bytes - n_bins * B * 4 + blocks * 128 * B * 8,
@@ -565,7 +615,8 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                 "kernel": "binmax_strided", "dtype": dtype, "B": B, "N": n_rows, "D": dim,
                 "blocks": blocks, "max_abs_err": s_err, "max_rel_err": rel_err(s_got, s_want),
                 "rows_equal_share": rows_same, "route": s_route, "ms": s_ms,
-                "kernel_device_ms": s_dev, "plain_ms": s_plain,
+                "kernel_device_ms": s_dev, "kernel_device_ms_cold_l2": s_cold,
+                "plain_ms": s_plain,
                 "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": s_library, **s_yard,
                 "alt_blocks": alt_blocks, "alt_blocks_ms": alt_ms, "blocks_ms": sweep,
             }
@@ -575,13 +626,15 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
                 main["binmax_strided"] = s_entry
             if B == 16 and dtype == "bf16":
                 bf16["binmax_strided"] = s_entry
+            if B == 16 and dtype == "int4":
+                int4["binmax_strided"] = s_entry
             del s_got, s_rows, s_want, s_want_rows
             for k in (10, 40) if dtype == "bf16" else (10, 100):
                 kb = min(k, n_bins)
                 _, bins = tk.topk_stable(want.T, kb)
                 bins = bins.to(torch.int32).contiguous()
                 g_route = tk.bin_gather_route(corpus.dtype, row_bytes)
-                check(g_route == want_route, f"bin_gather {dtype}: route {g_route}")
+                check(g_route == want_route["bin_gather"], f"bin_gather {dtype}: route {g_route}")
                 g_got = routed(tk.bin_gather, g_route, lambda: tk.bin_gather(
                     q_in, q_scale, corpus, scales, bins, valid_n))
                 g_want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n)
@@ -642,9 +695,65 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict]:
         if dtype == "int8":
             rows += gather_order_cases(gen, x, corpus, scales)
             rows.append(wrapper_host_us(gen, corpus, scales))
+        if dtype == "int4":
+            del unpacked
         del corpus, scales
-    del widened
-    return rows, main, bf16
+    del widened, x
+    rows += dp4a_cases(extra, n_rows, l2_flush)
+    return rows, main, bf16, int4
+
+
+def dp4a_cases(gen, n_rows: int, l2_flush, dim: int = 1056) -> list:
+    """binmax and binmax_strided on their dp4a kernels (binmax_kernel,
+    binmax_strided_kernel): packed int4 rows of dim / 2 = 528 bytes, over the
+    512 the tensor-core route takes, at B in {1, 16, 256}; bit for bit against
+    the plain versions, with the L2 cache cold and warm."""
+    from sskd_tpu_torch.ops import topk_kernels as tk
+    from sskd_tpu_torch.ops.quant import quantize_rows_int4
+    from sskd_tpu_torch.ops.topk import approx_blocks, approx_min_bins
+
+    corpus, scales = quantize_rows_int4(unit_rows(n_rows, dim, gen))
+    row_bytes = corpus.shape[1]
+    n_bins = -(-n_rows // 128)
+    groups = math.ceil(approx_min_bins(10, 0.99) / 128)
+    out = []
+    for B in (1, 16, 256):
+        q_in, _ = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
+        blocks = approx_blocks(B, groups, n_bins)
+        for kernel, wrapper, route_fn, plain, name, more, out_bytes in (
+                ("binmax", tk.binmax, tk.binmax_route, tk.binmax_plain, "binmax_kernel",
+                 (), n_bins * B * 4),
+                ("binmax_strided", tk.binmax_strided, tk.binmax_strided_route,
+                 tk.binmax_strided_plain, "binmax_strided_kernel", (blocks,),
+                 blocks * 128 * B * 8)):
+            route = route_fn(corpus.dtype, row_bytes)
+            check(route == "cuda_core", f"{kernel} int4 D={dim}: route {route}")
+            call = lambda w=wrapper, a=more: w(q_in, corpus, scales, n_rows, *a)
+            got = routed(wrapper, route, call)
+            want = plain(q_in, corpus, scales, n_rows, *more)
+            if kernel == "binmax":  # binmax gives the maxima, binmax_strided (maxima, rows)
+                got, want = (got,), (want,)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{kernel} int4 D={dim} B={B}: not bit for bit the plain version")
+            err = (got[0] - want[0]).abs().max().item()
+            del got, want
+            b_ms, b_by = bound_ms(n_rows * (row_bytes + 4) + q_in.numel() + out_bytes,
+                                  2.0 * B * n_rows * dim, "int8")
+            entry = {
+                "kernel": kernel, "dtype": "int4", "B": B, "N": n_rows, "D": dim,
+                "blocks": blocks if kernel == "binmax_strided" else None,
+                "route": route, "max_abs_err": err, "ms": time_ms(call, 10),
+                "kernel_device_ms": kernel_device_ms(call, name, 8),
+                "kernel_device_ms_cold_l2": kernel_device_ms(
+                    lambda c=call: (l2_flush.zero_(), c()), name, 8, fallback=False),
+                "plain_ms": time_ms(lambda p=plain, a=more: p(
+                    q_in, corpus, scales, n_rows, *a), 2, 1),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+            out.append(entry)
+            log(f"[kernels] {json.dumps(entry)}")
+    del corpus, scales
+    return out
 
 
 def gather_order_cases(gen, x, corpus, scales) -> list:
@@ -2623,9 +2732,10 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
     for tag in ("a", "a-host"):
         check(routes[tag]["tc"]["binmax_strided"] == routes[tag]["all"]["binmax_strided"] > 0,
               f"({tag}): the candidates did not come from the tensor-core strided pass")
-    check(routes["b"]["all"]["binmax"] > 0 and routes["b"]["all"]["bin_gather"] > 0
-          and routes["b"]["tc"]["binmax"] == routes["b"]["bf16"]["binmax"] == 0,
-          "(b): the int4 routes of binmax and bin_gather were not taken")
+    check(routes["b"]["tc"]["binmax"] == routes["b"]["all"]["binmax"] > 0
+          and routes["b"]["all"]["bin_gather"] > 0 and routes["b"]["tc"]["bin_gather"] == 0
+          and routes["b"]["bf16"]["binmax"] == 0,
+          "(b): binmax did not take the tensor cores and bin_gather the CUDA cores")
 
     # --- the served entry: (a) with the refine rows on the device and on the host, (b) once ---
     student_dir = work / "student"
@@ -2657,10 +2767,11 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
                   and launched["all"]["binmax"] == 0,
                   f"[{tag}] the candidates did not come from the tensor-core strided pass")
         else:
-            check(launched["all"]["binmax"] > 0 and launched["all"]["bin_gather"] > 0
-                  and launched["tc"]["binmax"] == launched["tc"]["bin_gather"] == 0
+            check(launched["tc"]["binmax"] == launched["all"]["binmax"] > 0
+                  and launched["all"]["bin_gather"] > 0 and launched["tc"]["bin_gather"] == 0
                   and launched["all"]["binmax_strided"] == 0,
-                  f"[{tag}] the candidates did not come from the int4 routes")
+                  f"[{tag}] the candidates did not come from the int4 routes (binmax on "
+                  "the tensor cores, bin_gather on the CUDA cores)")
         report = check_served(rec, app.state,
                               lambda e, sb=sb, st=storage: plain(name, e.float(), st, sb), tag)
         served[tag] = {**report, "launches": launched["all"], "tc_launches": launched["tc"]}
@@ -2723,6 +2834,7 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
     # --- ms per search, engine only, eager and on the card ----------------------
     c, d, e = idx["c"], idx["d"], idx["e"]
     ad = dict(row_scales=a.device_scales, valid_n=N_ROWS)
+    b4d = dict(row_scales=b4.device_scales, valid_n=N_ROWS)
 
     def host_refined(q):
         _, cand = refined_candidates(q, a.device_vectors, REFINE_M, **ad)
@@ -2741,10 +2853,21 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
                                              recall_target=d.recall_target, valid_n=N_ROWS),
         "bf16_clustered": lambda q: clustered_topk(q, e.device_vectors, e.device_centroids, 10,
                                                    e.nprobe, e._rows_per_cell, valid_n=N_ROWS),
+        # (b)'s int4 rows through the approx engine: binmax_strided over packed rows
+        "int4_approx": lambda q: approx_topk(q, b4.device_vectors, 10, **b4d),
     }
-    table = {}
+    table, int4_approx = {}, {}
     for B in (1, 16, 64):
         sets = [(as_searched(q_val[i * B:(i + 1) * B]),) for i in range(8)]
+        # the int4 approx engine on the tensor-core strided pass, against its plain pass
+        before = counters()
+        got_v, got_i = engines["int4_approx"](sets[0][0])
+        launched = counted_since(before)
+        want_v, want_i = approx_topk(sets[0][0], b4.device_vectors, 10, kernels=False, **b4d)
+        check(launched["tc"]["binmax_strided"] == launched["all"]["binmax_strided"] == 1
+              and torch.equal(got_i, want_i) and torch.equal(got_v, want_v),
+              f"int4 approx B={B}: not the tensor-core strided pass, or not the plain result")
+        int4_approx[f"B={B}"] = launched["all"]
         row = {}
         for ename, fn in engines.items():
             row[ename] = time_ms(rotating(fn, sets), 24, 4)
@@ -2756,6 +2879,7 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
         "rows": N_ROWS, "refine_m": REFINE_M, "indexes": REFINE_INDEXES,
         "build_seconds": build_s, "library": library, "served": served,
         "recall_at_10_vs_f32": rec, "validate": val, "engine_ms": table,
+        "int4_approx_launches": int4_approx,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts["all"], "tc_launches": counts["tc"], "bf16_launches": counts["bf16"],
         "launches_with_checks": with_checks["all"],
@@ -3128,7 +3252,7 @@ def main(argv=None) -> int:
     record: dict = {"seed": args.seed, "nvidia_smi": smi}
     record["build"] = phase_build()
     t0 = time.perf_counter()
-    topk_rows, main_topk, bf16_topk = phase_topk(gen, N_ROWS)
+    topk_rows, main_topk, bf16_topk, int4_topk = phase_topk(gen, N_ROWS)
     flash_rows, main_flash = phase_flash(gen)
     dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
@@ -3216,6 +3340,9 @@ def main(argv=None) -> int:
             "ms": entry["ms"], "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"],
         })
+        if name in int4_topk:  # its packed int4 mode on the tensor cores, B = 16
+            kernels[-1]["int4"] = {n: int4_topk[name][n]
+                                   for n in ("ms", "kernel_device_ms", "bound_ms")}
     record["kernels"] = kernels
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -14,16 +14,19 @@
 //
 // Bound on the H100: the corpus is read once, so at serving batch sizes the
 // kernel is bound by device-memory bytes (N * row_bytes over 3.35 TB/s; 1M x
-// 384 int8 is 384 MB, about 115 us); f32 at B = 256 is bound by its FMA (2 B N
-// D over 67 TFLOP/s, 2.93 ms at 1M x 384), and so is bf16 above about 20
-// queries (768 MB of 1M x 384 bf16 rows take 0.229 ms).
+// 384 int8 is 384 MB, about 115 us, and packed int4 192 MB, about 57 us);
+// packed int4 at B = 256 by the int8 mma operations (2 B N D over 1,979
+// TOP/s: 0.099 ms at 1M x 384, above its 57 us of bytes); f32 at B = 256 by
+// its FMA (2 B N D over 67 TFLOP/s, 2.93 ms at 1M x 384), and so is bf16
+// above about 20 queries (768 MB of 1M x 384 bf16 rows take 0.229 ms).
 //
 // binmax has three kernels, chosen by the wrapper (ops/topk_kernels.py
-// binmax_route), the second in two row types:
-//  - binmax_tc_kernel, int8 rows of at most 1,024 bytes, on the tensor cores.
-//    The design of binmax_strided_tc_kernel below (queries staged once per
-//    block as mma.sync m16n8k32 s8 B fragments, a warp's 16-row tiles through
-//    its own two-stage cp.async ring, exact int32 sums) with one maximum a bin:
+// binmax_route), the first and third in two row types each:
+//  - binmax_tc_kernel, int8 rows of at most 1,024 bytes and packed int4 rows
+//    of at most 512 (D <= 1,024), on the tensor cores. The design of
+//    binmax_strided_tc_kernel below (queries staged once per block as
+//    mma.sync m16n8k32 s8 B fragments, a warp's 16-row tiles through its own
+//    two-stage cp.async ring, exact int32 sums) with one maximum a bin:
 //    a warp owns one bin of 128 contiguous rows at a time (eight tiles, one
 //    48 KB run at 384-byte rows), keeps the masked, scaled running maximum in
 //    registers in the C-fragment layout, and reduces it once a bin (the two
@@ -34,6 +37,13 @@
 //    16 queries a block stages at most 6 KB of fragments, little beside the
 //    48 KB a bin moves: there a warp takes one bin and the block scheduler
 //    evens out the tail, which a walk of 3-4 bins a warp leaves uneven.
+//    Packed int4 rows (PACKED) move through the rings as they are stored, half
+//    the bytes of int8 at the same D, and are unpacked in registers: one
+//    ldmatrix over a 32-byte packed step gives the A fragment of those bytes,
+//    whose low nibbles are the s8 fragment of dims [32 ks, 32 ks + 32) and
+//    high nibbles that of dims [D/2 + 32 ks, ...) (the halves layout), each
+//    against the B fragments of its half of the queries (unpack_i4): two mma
+//    a packed step, the mma count of int8 at the same D.
 //  - binmax_f32_kernel, f32 rows of any length, on the CUDA cores: the
 //    register-tiled score tile of f32_tile.cuh (queries staged once per block,
 //    or in bands of the row when 8 whole ones do not fit; each warp's rows
@@ -45,10 +55,10 @@
 //    bf16 rows (the "bf16" route) take the same kernel with the tile's row
 //    type bf16: half the bytes a row through the rings, widened to f32 when
 //    read from shared memory, the same in-order fmaf chain a score.
-//  - binmax_kernel, packed int4 and int8 rows above 1,024 bytes, dp4a on the
-//    CUDA cores: one block per bin (bin_dot.cuh stages the bin's rows through
-//    shared memory in 128-byte chunks), the queries in tiles of QT, a warp
-//    shuffle and four partial maxima in shared memory.
+//  - binmax_kernel, int8 rows above 1,024 bytes and packed int4 rows above
+//    512, dp4a on the CUDA cores: one block per bin (bin_dot.cuh stages the
+//    bin's rows through shared memory in 128-byte chunks), the queries in
+//    tiles of QT, a warp shuffle and four partial maxima in shared memory.
 // A ragged last bin is handled in every kernel (rows >= N are zero-filled and
 // masked), so the corpus needs no padding. int8 and int4 results are bit for
 // bit with the plain version (exact integer sums, max independent of order);
@@ -71,7 +81,8 @@
 // holds (the corpus once, plus G * 128 * B * 8 bytes of output).
 //
 // binmax_strided has three kernels too (binmax_strided_route):
-//  - binmax_strided_tc_kernel, int8 rows of at most 1,024 bytes:
+//  - binmax_strided_tc_kernel, int8 rows of at most 1,024 bytes and packed
+//    int4 rows of at most 512:
 //    - Logical block j is ST_PARTS CUDA blocks of ST_WARPS warps, each warp
 //      owning 16 row positions t of every 128-row tile: the bins are unchanged.
 //    - A block stages its chunk of up to 64 queries once, as the B fragments of
@@ -86,7 +97,8 @@
 //      three blocks fit an SM, at 102 KB two.
 //    - Per tile and 32-byte step, one ldmatrix A fragment (rows padded by
 //      tc_stride) meets each 8-query group's B fragment: 12 mma per group for
-//      384-byte rows, exact int32 sums.
+//      384-byte rows, exact int32 sums. Packed int4 rows as in binmax_tc_kernel:
+//      6 packed steps of 192 bytes, each unpacked into two fragments, 12 mma.
 //    - (float)acc * scale[row], NEG_INF at rows >= valid_n, is held against the
 //      running best in registers in the C-fragment layout; a tile replaces it
 //      only when strictly greater, in increasing tile order, so the lowest row
@@ -95,8 +107,9 @@
 //    (by query chunk) walks its tiles through the f32 score tile of
 //    f32_tile.cuh and keeps the running best and its tile per (row position,
 //    query) in registers, replaced only when strictly greater.
-//  - binmax_strided_kernel, packed int4 and int8 rows above 1,024 bytes
-//    (bin_dot.cuh, dp4a): a block re-reads its tiles for every 32 queries.
+//  - binmax_strided_kernel, int8 rows above 1,024 bytes and packed int4 rows
+//    above 512 (bin_dot.cuh, dp4a): a block re-reads its tiles for every 32
+//    queries.
 
 #include "bin_dot.cuh"
 #include "f32_tile.cuh"
@@ -182,18 +195,24 @@ __global__ void __launch_bounds__(BIN_W) binmax_strided_kernel(
   }
 }
 
-// --- int8 rows on the tensor cores (binmax_tc_kernel, binmax_strided_tc_kernel) ---
+// --- int8 and packed int4 rows on the tensor cores (binmax_tc_kernel,
+// binmax_strided_tc_kernel) ---
 
 constexpr int ST_WARPS = 4;                // warps of a block; a warp scores 16-row tiles
 constexpr int ST_ROWS = ST_WARPS * 16;     // row positions of a tile a strided block owns
 constexpr int ST_PARTS = BIN_W / ST_ROWS;  // CUDA blocks of one logical strided block
 constexpr int ST_STAGES = 2;               // tiles in a warp's ring
 constexpr int ST_QUERIES = 64;             // queries of a chunk: 8 groups of 8
-constexpr int ST_MAX_ROW_BYTES = 1024;
+constexpr int ST_MAX_ROW_BYTES = 1024;     // int8; packed int4 rows half of it (D <= 1,024)
 constexpr int BT_TILES = BIN_W / 16;       // 16-row tiles of a bin
 
-// shared memory of both tensor-core kernels: the chunk's B fragments, then
-// each warp's ring of ST_STAGES x (16 rows of stride tc_stride, their scales)
+// query halves of a row type: a packed int4 row holds dims j and D/2 + j in
+// byte j, so its queries are staged as two halves of row_bytes each
+__host__ __device__ constexpr int st_halves(bool packed) { return packed ? 2 : 1; }
+
+// shared memory of both tensor-core kernels: the chunk's B fragments (per
+// half), then each warp's ring of ST_STAGES x (16 rows of stride tc_stride,
+// their scales); row_bytes the bytes a row is stored in
 __host__ __device__ constexpr int st_stage_bytes(int row_bytes) {
   return 16 * tc_stride(row_bytes) + 16 * (int)sizeof(float);
 }
@@ -206,19 +225,23 @@ __host__ __device__ constexpr size_t st_smem_bytes(int groups, int row_bytes) {
 }
 static_assert(st_smem_bytes(ST_QUERIES / 8, ST_MAX_ROW_BYTES) <= 227 * 1024,
               "the longest row fits a block");
+static_assert(st_smem_bytes(2 * ST_QUERIES / 8, ST_MAX_ROW_BYTES / 2) <=
+              st_smem_bytes(ST_QUERIES / 8, ST_MAX_ROW_BYTES), "so does the longest packed row");
 
 // The chunk's queries q0 .. q0 + nq - 1 as B fragments in shared memory,
-// [group][step][lane] (b0, b1); absent queries and the tail past the row's
-// bytes are zeros. The caller publishes them with a block barrier.
-template <int NG>
+// [half][group][step][lane] (b0, b1): half h holds the query bytes [h *
+// row_bytes, (h + 1) * row_bytes) of rows of H * row_bytes; absent queries
+// and each half's tail past row_bytes are zeros. The caller publishes them
+// with a block barrier.
+template <int NG, int H>
 __device__ __forceinline__ void tc_stage_queries(uint2* s_qf, const int8_t* __restrict__ q, int q0,
                                                  int nq, int row_bytes, int n_k) {
-  for (int i = threadIdx.x; i < NG * n_k * 32; i += ST_WARPS * 32) {
-    const int l = i & 31, ks = (i >> 5) % n_k, n = (i >> 5) / n_k;
-    const int qq = n * 8 + (l >> 2), k0 = ks * 32 + 4 * (l & 3);
+  for (int i = threadIdx.x; i < H * NG * n_k * 32; i += ST_WARPS * 32) {
+    const int l = i & 31, ks = (i >> 5) % n_k, g = (i >> 5) / n_k;
+    const int h = g / NG, qq = (g % NG) * 8 + (l >> 2), k0 = ks * 32 + 4 * (l & 3);
     uint2 v = make_uint2(0u, 0u);
     if (qq < nq) {
-      const int8_t* qr = q + (long)(q0 + qq) * row_bytes;
+      const int8_t* qr = q + (long)(q0 + qq) * H * row_bytes + h * row_bytes;
       if (k0 < row_bytes) v.x = __ldg(reinterpret_cast<const uint32_t*>(qr + k0));
       if (k0 + 16 < row_bytes) v.y = __ldg(reinterpret_cast<const uint32_t*>(qr + k0 + 16));
     }
@@ -226,11 +249,31 @@ __device__ __forceinline__ void tc_stage_queries(uint2* s_qf, const int8_t* __re
   }
 }
 
-// NG: the 8-query groups of a chunk (1, 2, 4 or 8). Grid: units * chunks, block
-// (unit, chunk) at unit * chunks + chunk; warp w of a unit owns the bins
-// unit * ST_WARPS + w + i * units * ST_WARPS, i = 0, 1, ... At least one block
-// an SM: without it ptxas held NG = 8 to 128 registers and spilled.
-template <int NG>
+// The s8 A fragments of a packed int4 step from the four registers one
+// ldmatrix_x4 gives over its 32 bytes a row: lo those of the low nibbles
+// (dims 32 ks ..), hi those of the high nibbles (dims D/2 + 32 ks ..). A
+// stored nibble n is the value n - 8; it goes to the high half of its byte
+// with the top bit flipped, the s8 value 16 (n - 8): the sums are 16 times
+// the dot, exact in int32 (|dot| <= 8 * 127 * D), and i4_dot shifts them back.
+// A zero-filled byte (a row's tail, a row past the corpus) reads as -8 in both
+// halves: the tail meets zero query lanes, and rows past the corpus are masked.
+__device__ __forceinline__ void unpack_i4(const uint32_t (&p)[4], uint32_t (&lo)[4],
+                                          uint32_t (&hi)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    lo[r] = ((p[r] << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
+    hi[r] = (p[r] & 0xF0F0F0F0u) ^ 0x80808080u;
+  }
+}
+__device__ __forceinline__ int i4_dot(int acc) { return acc >> 4; }  // exact: a multiple of 16
+
+// NG: the 8-query groups of a chunk (1, 2, 4 or 8); PACKED: packed int4 rows of
+// row_bytes = D/2 (queries of D bytes), else int8 rows of row_bytes = D. Grid:
+// units * chunks, block (unit, chunk) at unit * chunks + chunk; warp w of a
+// unit owns the bins unit * ST_WARPS + w + i * units * ST_WARPS, i = 0, 1, ...
+// At least one block an SM: without it ptxas held NG = 8 to 128 registers and
+// spilled.
+template <int NG, bool PACKED>
 __global__ void __launch_bounds__(ST_WARPS * 32, 1) binmax_tc_kernel(
     const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
     const float* __restrict__ scales, float* __restrict__ out,
@@ -246,11 +289,12 @@ __global__ void __launch_bounds__(ST_WARPS * 32, 1) binmax_tc_kernel(
   const int nq = min(NG * 8, B - q0);
 
   uint2* s_qf = reinterpret_cast<uint2*>(smem);
-  tc_stage_queries<NG>(s_qf, q, q0, nq, row_bytes, n_k);
+  tc_stage_queries<NG, st_halves(PACKED)>(s_qf, q, q0, nq, row_bytes, n_k);
   __syncthreads();
 
   // the warp's ring: ST_STAGES x (16 rows of stride ld, then their 16 scales)
-  unsigned char* ring = smem + st_query_bytes(NG, row_bytes) + warp * ST_STAGES * stage_bytes;
+  unsigned char* ring = smem + st_query_bytes(st_halves(PACKED) * NG, row_bytes) +
+                        warp * ST_STAGES * stage_bytes;
   const int n_bins = (int)((n_rows + BIN_W - 1) / BIN_W);
   const int first = unit * ST_WARPS + warp, step = units * ST_WARPS;
   const int n_mine = first < n_bins ? (n_bins - 1 - first) / step + 1 : 0;
@@ -301,11 +345,29 @@ __global__ void __launch_bounds__(ST_WARPS * 32, 1) binmax_tc_kernel(
     for (int ks = 0; ks < n_k; ++ks) {
       uint32_t a[4];
       ldmatrix_x4(a, tile + a_off + ks * 32);
+      if constexpr (PACKED) {  // the low nibbles against the first half of the queries
+        uint32_t lo[4], hi[4];
+        unpack_i4(a, lo, hi);
 #pragma unroll
-      for (int n = 0; n < NG; ++n) {
-        const uint2 b = s_qf[(n * n_k + ks) * 32 + lane];
-        mma_s8(acc[n], a, b.x, b.y);
+        for (int n = 0; n < NG; ++n) {
+          const uint2 bl = s_qf[(n * n_k + ks) * 32 + lane];
+          const uint2 bh = s_qf[((NG + n) * n_k + ks) * 32 + lane];
+          mma_s8(acc[n], lo, bl.x, bl.y);
+          mma_s8(acc[n], hi, bh.x, bh.y);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const uint2 b = s_qf[(n * n_k + ks) * 32 + lane];
+          mma_s8(acc[n], a, b.x, b.y);
+        }
       }
+    }
+    if constexpr (PACKED) {
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = i4_dot(acc[n][e]);
     }
     // acc[n]: rows row0 + grp (e 0, 1) and row0 + grp + 8 (e 2, 3), queries
     // n * 8 + 2 tig + (e & 1)
@@ -350,11 +412,12 @@ __global__ void __launch_bounds__(ST_WARPS * 32, 1) binmax_tc_kernel(
   }
 }
 
-// NG: the 8-query groups of a chunk (1, 2, 4 or 8). Grid: blocks * ST_PARTS *
-// chunks, block (j, part, chunk) at ((j * ST_PARTS + part) * chunks + chunk).
-// Its tile loop (and binmax_tc_kernel's) is written out in the kernel: moved
-// into helper functions, it ran 17 % slower at B = 256 on an H100.
-template <int NG>
+// NG and PACKED as binmax_tc_kernel's. Grid: blocks * ST_PARTS * chunks, block
+// (j, part, chunk) at ((j * ST_PARTS + part) * chunks + chunk). Its tile loop
+// (and binmax_tc_kernel's) is written out in the kernel: moved into helper
+// functions, it ran 17 % slower at B = 256 on an H100, and with the 32-byte
+// step alone in one, the int8 pass 6-10 % slower at B = 64 and 256.
+template <int NG, bool PACKED>
 __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
     const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
     const float* __restrict__ scales, float* __restrict__ out, int* __restrict__ arg,
@@ -372,11 +435,12 @@ __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
   const int nq = min(NG * 8, B - q0);
 
   uint2* s_qf = reinterpret_cast<uint2*>(smem);
-  tc_stage_queries<NG>(s_qf, q, q0, nq, row_bytes, n_k);
+  tc_stage_queries<NG, st_halves(PACKED)>(s_qf, q, q0, nq, row_bytes, n_k);
   __syncthreads();
 
   // the warp's ring: ST_STAGES x (16 rows of stride ld, then their 16 scales)
-  unsigned char* ring = smem + st_query_bytes(NG, row_bytes) + warp * ST_STAGES * stage_bytes;
+  unsigned char* ring = smem + st_query_bytes(st_halves(PACKED) * NG, row_bytes) +
+                        warp * ST_STAGES * stage_bytes;
   const long n_tiles = (n_rows + BIN_W - 1) / BIN_W;
   const int n_mine = (int)((n_tiles - 1 - j) / blocks) + 1;  // tiles j, j + blocks, ...
   const int row_chunks = ld / 16 - 1;  // 16-byte pieces of a padded row
@@ -426,11 +490,29 @@ __global__ void __launch_bounds__(ST_WARPS * 32) binmax_strided_tc_kernel(
     for (int ks = 0; ks < n_k; ++ks) {
       uint32_t a[4];
       ldmatrix_x4(a, tile + a_off + ks * 32);
+      if constexpr (PACKED) {  // the low nibbles against the first half of the queries
+        uint32_t lo[4], hi[4];
+        unpack_i4(a, lo, hi);
 #pragma unroll
-      for (int n = 0; n < NG; ++n) {
-        const uint2 b = s_qf[(n * n_k + ks) * 32 + lane];
-        mma_s8(acc[n], a, b.x, b.y);
+        for (int n = 0; n < NG; ++n) {
+          const uint2 bl = s_qf[(n * n_k + ks) * 32 + lane];
+          const uint2 bh = s_qf[((NG + n) * n_k + ks) * 32 + lane];
+          mma_s8(acc[n], lo, bl.x, bl.y);
+          mma_s8(acc[n], hi, bh.x, bh.y);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const uint2 b = s_qf[(n * n_k + ks) * 32 + lane];
+          mma_s8(acc[n], a, b.x, b.y);
+        }
       }
+    }
+    if constexpr (PACKED) {
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = i4_dot(acc[n][e]);
     }
     // acc[n]: rows t0 + grp (e 0, 1) and t0 + grp + 8 (e 2, 3), queries
     // n * 8 + 2 tig + (e & 1)
@@ -623,23 +705,45 @@ static long fill_units(long resident, int chunks, long items) {
   return units < items ? units : items;
 }
 
-template <int NG>
+// the dynamic shared memory of a tensor-core block of NG groups over rows of
+// row_bytes, and the most any launch of that kernel takes (its longest row)
+template <int NG, bool PACKED>
+static size_t tc_smem(int row_bytes) {
+  return st_smem_bytes(st_halves(PACKED) * NG, row_bytes);
+}
+template <int NG, bool PACKED>
+static size_t tc_max_smem() {
+  return tc_smem<NG, PACKED>(ST_MAX_ROW_BYTES / st_halves(PACKED));
+}
+
+template <int NG, bool PACKED>
 static int launch_binmax_tc(const void* q, const void* corpus, const float* scales, float* out,
                             int B, long n_rows, int row_bytes, long valid_n, int chunks,
                             cudaStream_t stream) {
-  const size_t smem = st_smem_bytes(NG, row_bytes);
+  const size_t smem = tc_smem<NG, PACKED>(row_bytes);
   long resident = 0;  // read above 16 queries only: below, a warp takes one bin
-  const cudaError_t e = launch_setup((const void*)binmax_tc_kernel<NG>,
-                                     st_smem_bytes(NG, ST_MAX_ROW_BYTES), ST_WARPS * 32, smem,
-                                     NG <= 2 ? nullptr : &resident);
+  const cudaError_t e = launch_setup((const void*)binmax_tc_kernel<NG, PACKED>, tc_max_smem<NG, PACKED>(),
+                                     ST_WARPS * 32, smem, NG <= 2 ? nullptr : &resident);
   if (e != cudaSuccess) return (int)e;
   const long n_bins = (n_rows + BIN_W - 1) / BIN_W;
   const long items = (n_bins + ST_WARPS - 1) / ST_WARPS;  // one bin a warp
   const long units = NG <= 2 ? items : fill_units(resident, chunks, items);
-  binmax_tc_kernel<NG><<<(unsigned)(units * chunks), ST_WARPS * 32, smem, stream>>>(
+  binmax_tc_kernel<NG, PACKED><<<(unsigned)(units * chunks), ST_WARPS * 32, smem, stream>>>(
       (const int8_t*)q, (const int8_t*)corpus, scales, out, B, n_rows, row_bytes, valid_n,
       (int)units, chunks);
   return (int)cudaGetLastError();
+}
+
+// binmax_tc_kernel at the batch's size class
+template <bool PACKED>
+static int launch_binmax_tc_batch(const void* q, const void* corpus, const float* scales,
+                                  float* out, int B, long n_rows, int row_bytes, long valid_n,
+                                  cudaStream_t s) {
+  const int chunks = (B + ST_QUERIES - 1) / ST_QUERIES;
+  if (B <= 8) return launch_binmax_tc<1, PACKED>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  if (B <= 16) return launch_binmax_tc<2, PACKED>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  if (B <= 32) return launch_binmax_tc<4, PACKED>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  return launch_binmax_tc<8, PACKED>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
 }
 
 // the dynamic shared memory of a block of Tile<qc, TR> staging bands of `band` floats
@@ -723,20 +827,33 @@ static int launch_strided_tiled(const void* q, const void* corpus, const float* 
   return launch_strided_f32<8, TR>(q, corpus, scales, out, arg, B, n_rows, dim, c.y, valid_n, blocks, s);
 }
 
-template <int NG>
+template <int NG, bool PACKED>
 static int launch_strided_tc(const void* q, const void* corpus, const float* scales, float* out,
                              int* arg, int B, long n_rows, int row_bytes, long valid_n,
                              int blocks, int chunks, cudaStream_t stream) {
-  const size_t smem = st_smem_bytes(NG, row_bytes);
-  const cudaError_t e = launch_setup((const void*)binmax_strided_tc_kernel<NG>,
-                                     st_smem_bytes(NG, ST_MAX_ROW_BYTES), ST_WARPS * 32, smem,
-                                     nullptr);
+  const size_t smem = tc_smem<NG, PACKED>(row_bytes);
+  const cudaError_t e = launch_setup((const void*)binmax_strided_tc_kernel<NG, PACKED>,
+                                     tc_max_smem<NG, PACKED>(), ST_WARPS * 32, smem, nullptr);
   if (e != cudaSuccess) return (int)e;
-  binmax_strided_tc_kernel<NG><<<(unsigned)((long)blocks * ST_PARTS * chunks), ST_WARPS * 32,
-                                 smem, stream>>>(
+  binmax_strided_tc_kernel<NG, PACKED><<<(unsigned)((long)blocks * ST_PARTS * chunks),
+                                     ST_WARPS * 32, smem, stream>>>(
       (const int8_t*)q, (const int8_t*)corpus, scales, out, arg, B, n_rows, row_bytes, valid_n,
       blocks, chunks);
   return (int)cudaGetLastError();
+}
+
+// binmax_strided_tc_kernel at the batch's size class
+template <bool PACKED>
+static int launch_strided_tc_batch(const void* q, const void* corpus, const float* scales,
+                                   float* out, int* arg, int B, long n_rows, int row_bytes,
+                                   long valid_n, int blocks, int chunks, cudaStream_t s) {
+  if (B <= 8)
+    return launch_strided_tc<1, PACKED>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
+  if (B <= 16)
+    return launch_strided_tc<2, PACKED>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
+  if (B <= 32)
+    return launch_strided_tc<4, PACKED>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
+  return launch_strided_tc<8, PACKED>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
 }
 
 template <int MODE>
@@ -800,20 +917,22 @@ extern "C" int sskd_binmax(int mode, const void* q, const void* corpus, const fl
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route of binmax: int8 rows only, row_bytes a multiple of 16 of at most
-// 1,024; scales required; n_rows < 2^31. Arguments and result as sskd_binmax.
-extern "C" int sskd_binmax_tc(const void* q, const void* corpus, const float* scales, float* out,
-                              int B, long n_rows, int row_bytes, long valid_n, void* stream) {
+// The tensor-core route of binmax. mode: 1 int8 rows, row_bytes a multiple of 16
+// of at most 1,024; 2 packed int4 rows, row_bytes (D/2) a multiple of 16 of at
+// most 512, queries of 2 row_bytes int8. Scales required; n_rows < 2^31.
+// Arguments and result as sskd_binmax.
+extern "C" int sskd_binmax_tc(int mode, const void* q, const void* corpus, const float* scales,
+                              float* out, int B, long n_rows, int row_bytes, long valid_n,
+                              void* stream) {
   using namespace sskd;
-  if (n_rows <= 0 || B <= 0 || scales == nullptr || row_bytes <= 0 || row_bytes % 16 ||
-      row_bytes > ST_MAX_ROW_BYTES || n_rows > 0x7fffffffL)
+  const int max_bytes = mode == I4 ? ST_MAX_ROW_BYTES / 2 : ST_MAX_ROW_BYTES;
+  if ((mode != I8 && mode != I4) || n_rows <= 0 || B <= 0 || scales == nullptr ||
+      row_bytes <= 0 || row_bytes % 16 || row_bytes > max_bytes || n_rows > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
-  const int chunks = (B + ST_QUERIES - 1) / ST_QUERIES;
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 8) return launch_binmax_tc<1>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
-  if (B <= 16) return launch_binmax_tc<2>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
-  if (B <= 32) return launch_binmax_tc<4>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
-  return launch_binmax_tc<8>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, chunks, s);
+  if (mode == I4)
+    return launch_binmax_tc_batch<true>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, s);
+  return launch_binmax_tc_batch<false>(q, corpus, scales, out, B, n_rows, row_bytes, valid_n, s);
 }
 
 // The approx engine's pass. Arguments as sskd_binmax, and: arg [blocks * 128, B] int32, the
@@ -839,25 +958,25 @@ extern "C" int sskd_binmax_strided(int mode, const void* q, const void* corpus,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route of the approx engine's pass: int8 rows only, row_bytes a multiple
-// of 16 of at most 1,024; scales required. Arguments and results as sskd_binmax_strided.
-extern "C" int sskd_binmax_strided_tc(const void* q, const void* corpus, const float* scales,
-                                      float* out, int* arg, int B, long n_rows, int row_bytes,
-                                      long valid_n, int blocks, void* stream) {
+// The tensor-core route of the approx engine's pass: mode and rows as
+// sskd_binmax_tc's; scales required. Arguments and results as sskd_binmax_strided.
+extern "C" int sskd_binmax_strided_tc(int mode, const void* q, const void* corpus,
+                                      const float* scales, float* out, int* arg, int B,
+                                      long n_rows, int row_bytes, long valid_n, int blocks,
+                                      void* stream) {
   using namespace sskd;
-  if (n_rows <= 0 || B <= 0 || arg == nullptr || scales == nullptr ||
-      n_rows + BIN_W > 0x7fffffffL || row_bytes <= 0 || row_bytes % 16 ||
-      row_bytes > ST_MAX_ROW_BYTES)
+  const int max_bytes = mode == I4 ? ST_MAX_ROW_BYTES / 2 : ST_MAX_ROW_BYTES;
+  if ((mode != I8 && mode != I4) || n_rows <= 0 || B <= 0 || arg == nullptr ||
+      scales == nullptr || n_rows + BIN_W > 0x7fffffffL || row_bytes <= 0 || row_bytes % 16 ||
+      row_bytes > max_bytes)
     return (int)cudaErrorInvalidValue;
   if (blocks < 1 || blocks > (n_rows + BIN_W - 1) / BIN_W) return (int)cudaErrorInvalidValue;
   const int chunks = (B + ST_QUERIES - 1) / ST_QUERIES;
   if ((long)blocks * ST_PARTS * chunks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 8)
-    return launch_strided_tc<1>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
-  if (B <= 16)
-    return launch_strided_tc<2>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
-  if (B <= 32)
-    return launch_strided_tc<4>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
-  return launch_strided_tc<8>(q, corpus, scales, out, arg, B, n_rows, row_bytes, valid_n, blocks, chunks, s);
+  if (mode == I4)
+    return launch_strided_tc_batch<true>(q, corpus, scales, out, arg, B, n_rows, row_bytes,
+                                         valid_n, blocks, chunks, s);
+  return launch_strided_tc_batch<false>(q, corpus, scales, out, arg, B, n_rows, row_bytes,
+                                        valid_n, blocks, chunks, s);
 }

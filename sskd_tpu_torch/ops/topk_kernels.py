@@ -18,11 +18,12 @@ launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
 plain torch version (``binmax_plain``, ``bin_gather_plain``,
 ``binmax_strided_plain``), which repeats the kernel's arithmetic.
 Each kernel has three routes (:func:`binmax_route`,
-:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows on the
-tensor cores, counted also in ``tc_launches``; bf16 rows against f32
-queries (the TPU kernels' bf16 branch: each bf16 widened exactly, f32
-sums), counted also in ``bf16_launches``; f32, int4 and longer int8 rows
-on the CUDA cores (f32 and bf16 in ``binmax`` and ``binmax_strided``
+:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows, and in
+``binmax`` and ``binmax_strided`` packed int4 rows too, on the tensor cores,
+counted also in ``tc_launches``; bf16 rows against f32 queries (the TPU
+kernels' bf16 branch: each bf16 widened exactly, f32 sums), counted also in
+``bf16_launches``; f32, longer int8 and int4 rows, and ``bin_gather``'s int4
+rows, on the CUDA cores (f32 and bf16 in ``binmax`` and ``binmax_strided``
 through the register-tiled score tile of csrc/f32_tile.cuh). Results
 follow the JAX engine's contract: ``(vals [B, k] f32, idx [B, k] int32)``
 with ``(-inf, -1)`` sentinels, where "-inf" is ``finfo(float32).min / 2``.
@@ -46,37 +47,46 @@ _QUANTIZED = (1, 2)  # the modes of int8 queries and row scales
 _PLAIN_ROWS = 1 << 18  # rows per chunk of the plain versions' score matrix
 # the longest int8 row the tensor-core routes take (csrc/binmax.cu
 # ST_MAX_ROW_BYTES, csrc/gather_tc.cuh TC_MAX_ROW_BYTES): the widths of the
-# models the port serves; longer rows take the CUDA-core kernels
+# models the port serves; longer rows take the CUDA-core kernels. Packed int4
+# rows of at most half of it (D <= 1,024) take the tensor cores in binmax and
+# binmax_strided.
 TC_MAX_ROW_BYTES = 1024
 GATHER_TC_RUN = 1  # (query, slot) pairs a bin_gather_tc job takes, in their own order
 
 
-def _route(dtype: torch.dtype, row_bytes: int) -> str:
+def _route(dtype: torch.dtype, row_bytes: int, packed_tc: bool) -> str:
     if dtype == torch.bfloat16:
         return "bf16"
-    return "tc" if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES else "cuda_core"
+    if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES:
+        return "tc"
+    if packed_tc and dtype == torch.uint8 and row_bytes <= TC_MAX_ROW_BYTES // 2:
+        return "tc"
+    return "cuda_core"
 
 
 def binmax_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`binmax` launches: ``"tc"``
     (``binmax_tc_kernel``: int8 mma, a warp a bin of 128 contiguous rows,
     each block's queries staged once) for int8 rows of at most
-    ``TC_MAX_ROW_BYTES``; ``"bf16"`` (``binmax_f32_kernel`` with bf16 rows
-    through the register-tiled fma tile, widened in shared memory) for bf16;
-    ``"cuda_core"`` for f32 (``binmax_f32_kernel``), packed int4 and longer
-    int8 rows (``binmax_kernel``, dp4a)."""
-    return _route(dtype, row_bytes)
+    ``TC_MAX_ROW_BYTES`` and packed int4 rows of at most half of it (each
+    packed step unpacked in registers into the s8 fragments of both halves
+    of the row); ``"bf16"`` (``binmax_f32_kernel`` with bf16 rows through
+    the register-tiled fma tile, widened in shared memory) for bf16;
+    ``"cuda_core"`` for f32 (``binmax_f32_kernel``) and longer int8 and
+    int4 rows (``binmax_kernel``, dp4a)."""
+    return _route(dtype, row_bytes, packed_tc=True)
 
 
 def binmax_strided_route(dtype: torch.dtype, row_bytes: int) -> str:
     """The kernel a CUDA call of :func:`binmax_strided` launches: ``"tc"``
     (``binmax_strided_tc_kernel``: int8 mma, each block's queries staged once
     and its tiles read once for up to 64 of them) for int8 rows of at most
-    ``TC_MAX_ROW_BYTES``; ``"bf16"`` (``binmax_strided_f32_kernel`` with bf16
-    rows) for bf16; ``"cuda_core"`` for f32 (``binmax_strided_f32_kernel``,
-    the register-tiled fma tile), packed int4 and longer int8 rows
+    ``TC_MAX_ROW_BYTES`` and packed int4 rows of at most half of it;
+    ``"bf16"`` (``binmax_strided_f32_kernel`` with bf16 rows) for bf16;
+    ``"cuda_core"`` for f32 (``binmax_strided_f32_kernel``, the
+    register-tiled fma tile) and longer int8 and int4 rows
     (``binmax_strided_kernel``, dp4a)."""
-    return _route(dtype, row_bytes)
+    return _route(dtype, row_bytes, packed_tc=True)
 
 
 def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
@@ -85,8 +95,11 @@ def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
     mma) for int8 rows of at most ``TC_MAX_ROW_BYTES``; ``"bf16"``
     (``bin_gather_kernel`` in its bf16 mode) for bf16; ``"cuda_core"``
     (``bin_gather_kernel``, a block per (query, bin slot)) for f32, packed
-    int4 and longer rows."""
-    return _route(dtype, row_bytes)
+    int4 and longer rows. int4 stays on the CUDA cores: it reads half the
+    int8 gather's bytes and beat it at kb = 100 on an H100 (0.0197 against
+    0.0361 ms at B = 16, 0.247 against 0.494 at B = 256), and at kb = 10 both
+    are launch-bound (0.0060 against 0.0053 ms)."""
+    return _route(dtype, row_bytes, packed_tc=False)
 
 
 def _mode(corpus: torch.Tensor) -> int:
@@ -173,7 +186,7 @@ def binmax(q_in, corpus, row_scales=None, valid_n: int | None = None) -> torch.T
     if route == "tc":
         _build.check(
             _fn("binmax", "sskd_binmax_tc")(
-                _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
+                mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out),
                 B, n, row_words * 4, valid_n, _stream(corpus.device),
             ),
             "binmax (tensor cores)",
@@ -261,7 +274,7 @@ def binmax_strided(q_in, corpus, row_scales=None, valid_n: int | None = None,
     if route == "tc":
         _build.check(
             _fn("binmax", "sskd_binmax_strided_tc")(
-                _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out), _ptr(rows),
+                mode, _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(out), _ptr(rows),
                 B, n, row_words * 4, valid_n, blocks, _stream(corpus.device),
             ),
             "binmax_strided (tensor cores)",
@@ -401,9 +414,9 @@ def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | Non
 
 _ARGTYPES = {
     "sskd_binmax": "i p p p p i l i l p",
-    "sskd_binmax_tc": "p p p p i l i l p",
+    "sskd_binmax_tc": "i p p p p i l i l p",
     "sskd_binmax_strided": "i p p p p p i l i l i p",
-    "sskd_binmax_strided_tc": "p p p p p i l i l i p",
+    "sskd_binmax_strided_tc": "i p p p p p i l i l i p",
     "sskd_bin_gather": "i p p p p p p i i l i l p",
     "sskd_bin_gather_tc": "p p p p p p p i i l i l i p",
     "sskd_cell_gather": "i p p p p p p p i i i i p",

@@ -655,11 +655,11 @@ def test_bin_gather_tensor_core_route_is_bit_for_bit(B, kb, d):
     assert torch.equal(got, want) and torch.equal(again, got)
 
 
-@pytest.mark.parametrize("dtype,d", [("f32", 384), ("int4", 384), ("int8", 1040)])
+@pytest.mark.parametrize("dtype,d", [("f32", 384), ("int4", 1056), ("int8", 1040)])
 def test_topk_cuda_core_routes_and_their_counters(dtype, d):
-    """f32, packed int4 and int8 rows over the limits stay on the CUDA-core
-    kernels of binmax, binmax_strided and bin_gather: counted in launches,
-    not in tc_launches."""
+    """f32 rows, and packed int4 (528 bytes) and int8 rows over the limits,
+    stay on the CUDA-core kernels of binmax, binmax_strided and bin_gather:
+    counted in launches, not in tc_launches."""
     _need_card()
     x, q = _data(20_001, d, 4, seed=d)
     corpus, scales = _storage(dtype, x)
@@ -715,6 +715,38 @@ def test_binmax_tensor_core_route_is_bit_for_bit(B, d):
         assert got.shape == (547, B)
         assert torch.equal(got, want) and torch.equal(again, got)
     assert (got[-1] == tk.NEG_INF).all() and (got[:-1] > tk.NEG_INF).all()
+
+
+@pytest.mark.parametrize("d", [32, 384, 1024])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 16, 17, 64, 65, 256])
+def test_int4_tensor_core_routes_are_bit_for_bit(B, d):
+    """Packed int4 rows of 16 to 512 bytes take the tensor-core kernels of
+    binmax and binmax_strided: maxima (and the strided pass's rows) bit for
+    bit with the plain versions, counted in tc_launches, over a ragged
+    corpus with a valid_n that cuts a bin and leaves the last one empty, at
+    query counts that fill no 8-query group or chunk."""
+    _need_card()
+    n = 70_001  # 547 bins, the last of 113 rows
+    x, q = _data(n, d, B, seed=500 + B + d)
+    q[0] = x[4999]
+    corpus, scales = _storage("int4", x)
+    q_in, _ = tk.quantize_queries(q, corpus)
+    assert corpus.dtype == torch.uint8 and corpus.shape[1] == d // 2
+    assert tk.binmax_route(corpus.dtype, d // 2) == "tc"
+    assert tk.binmax_strided_route(corpus.dtype, d // 2) == "tc"
+    valid_n = 546 * 128 - 3
+    counts = (tk.binmax.launches, tk.binmax.tc_launches, tk.binmax_strided.launches,
+              tk.binmax_strided.tc_launches)
+    got = tk.binmax(q_in, corpus, scales, valid_n)
+    s_got, s_rows = tk.binmax_strided(q_in, corpus, scales, valid_n, 133)
+    want = tk.binmax_plain(q_in, corpus, scales, valid_n)
+    s_want, s_want_rows = tk.binmax_strided_plain(q_in, corpus, scales, valid_n, 133)
+    torch.cuda.synchronize()
+    assert (tk.binmax.launches, tk.binmax.tc_launches, tk.binmax_strided.launches,
+            tk.binmax_strided.tc_launches) == tuple(c + 1 for c in counts)
+    assert got.shape == (547, B) and torch.equal(got, want)
+    assert (got[-1] == tk.NEG_INF).all() and (got[:-1] > tk.NEG_INF).all()
+    assert torch.equal(s_got, s_want) and torch.equal(s_rows, s_want_rows)
 
 
 @pytest.mark.parametrize("B,d,scaled", [(1, 384, False), (9, 384, True), (16, 1024, False),
@@ -902,7 +934,7 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
     the plain versions at "highest": the rescore is an elementwise product
     and an f32 sum, so the scores agree within 1e-6 and the ids are equal.
     int8 candidates come from the approx pass on the tensor cores, int4 from
-    the exact kernel engine."""
+    the exact kernel engine, its binmax on the tensor cores."""
     from sskd_tpu_torch.ops import tc_launch_counts, launch_counts
     from sskd_tpu_torch.ops.topk import refined_topk, refined_topk_core
 
@@ -929,6 +961,8 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
     else:
         assert after["binmax"] - before["binmax"] == 1 and after["bin_gather"] - before[
             "bin_gather"] == 1
+        assert tc_after["binmax"] - tc_before["binmax"] == 1
+        assert tc_after["bin_gather"] == tc_before["bin_gather"]
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,8 @@ from torch_tc_emulation import (
     binmax_strided_f32,
     binmax_strided_tc,
     binmax_tc,
+    packed_tile_dot,
+    unpack_i4_words,
 )
 
 
@@ -331,21 +333,27 @@ def test_approx_keeps_neighbours_stored_side_by_side():
     (tk.binmax_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
     (tk.binmax_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
     (tk.binmax_route, torch.float32, 384 * 4, "cuda_core"),
-    (tk.binmax_route, torch.uint8, 192, "cuda_core"),
+    (tk.binmax_route, torch.uint8, 192, "tc"),
+    (tk.binmax_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2, "tc"),
+    (tk.binmax_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2 + 16, "cuda_core"),
     (tk.binmax_strided_route, torch.int8, 384, "tc"),
     (tk.binmax_strided_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
     (tk.binmax_strided_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
     (tk.binmax_strided_route, torch.float32, 384 * 4, "cuda_core"),
-    (tk.binmax_strided_route, torch.uint8, 192, "cuda_core"),
+    (tk.binmax_strided_route, torch.uint8, 192, "tc"),
+    (tk.binmax_strided_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2, "tc"),
+    (tk.binmax_strided_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2 + 16, "cuda_core"),
     (tk.bin_gather_route, torch.int8, 384, "tc"),
     (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
     (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
     (tk.bin_gather_route, torch.float32, 384 * 4, "cuda_core"),
     (tk.bin_gather_route, torch.uint8, 192, "cuda_core"),
+    (tk.bin_gather_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2, "cuda_core"),
 ])
 def test_topk_kernel_routes(route, dtype, row_bytes, want):
-    """int8 rows go to the tensor cores; f32, packed int4 and rows over the
-    route's limit to the CUDA-core kernels."""
+    """int8 rows go to the tensor cores, and packed int4 rows of at most
+    512 bytes (D <= 1,024) in binmax and binmax_strided; f32, bin_gather's
+    int4 and rows over the route's limit to the CUDA-core kernels."""
     assert route(dtype, row_bytes) == want
 
 
@@ -452,9 +460,31 @@ def test_tensor_core_binmax_traversal_is_bit_for_bit(n, valid_n, B, d, units):
     assert (got[dead] == tk.NEG_INF).all() and (got[~dead] > tk.NEG_INF).all()
 
 
+@pytest.mark.parametrize("n,valid_n,B,d,units,blocks", [
+    (1000, 950, 8, 64, 3, 7),      # one 8-query group; rows of 32 packed bytes
+    (2000, 1999, 65, 96, 2, 3),    # two chunks; 48 packed bytes, a zero tail a row
+    (1300, 1250, 16, 1024, 1, 11),  # the longest packed row (512 bytes)
+])
+def test_tensor_core_int4_walks_are_bit_for_bit(n, valid_n, B, d, units, blocks):
+    """Packed int4 rows through the tensor-core walks of binmax and
+    binmax_strided (tests/torch_tc_emulation.py: each packed step unpacked
+    into two s8 fragments, rows past the corpus read as zero bytes, -8 in
+    every dim, and masked) give binmax_plain's and binmax_strided_plain's
+    results bit for bit."""
+    x, q = _int8_case(n + B + d, n, d, B)
+    xq, xs = (torch.from_numpy(np.array(a)) for a in jquant4(x))
+    q_in, _ = tk.quantize_queries(torch.from_numpy(q), xq)
+    got = binmax_tc(q_in, xq, xs, valid_n, units)
+    assert torch.equal(got, tk.binmax_plain(q_in, xq, xs, valid_n))
+    s_got, s_rows = binmax_strided_tc(q_in, xq, xs, valid_n, blocks)
+    s_want, s_want_rows = tk.binmax_strided_plain(q_in, xq, xs, valid_n, blocks)
+    assert torch.equal(s_got, s_want) and torch.equal(s_rows, s_want_rows)
+
+
 def _jax_binmax(q_in, corpus, scales, valid_n, block_rows=256):
     """The JAX package's _binmax_kernel through its own pallas_call, in
-    interpret mode: bin maxima [ceil(N / 128), B] without the query scale."""
+    interpret mode: bin maxima [ceil(N / 128), B] without the query scale,
+    over int8 rows or packed int4 rows (uint8, the halves layout)."""
     import functools
 
     import jax
@@ -464,17 +494,18 @@ def _jax_binmax(q_in, corpus, scales, valid_n, block_rows=256):
     from sskd_tpu.ops import topk_pallas as tp
 
     n, dc = corpus.shape
-    B = q_in.shape[0]
+    B, d = q_in.shape
+    is_int4 = corpus.dtype == np.uint8
     padded = -(-n // block_rows) * block_rows
     corpus = np.pad(corpus, ((0, padded - n), (0, 0)))
     scales = np.pad(scales, (0, padded - n)).reshape(padded, 1)
     spec = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
     out = pl.pallas_call(
-        functools.partial(tp._binmax_dispatch, has_scales=True, is_int8=True, is_int4=False,
-                          block_rows=block_rows),
+        functools.partial(tp._binmax_dispatch, has_scales=True, is_int8=not is_int4,
+                          is_int4=is_int4, block_rows=block_rows),
         grid=(padded // block_rows,),
         in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  spec((B, dc), lambda i: (0, 0)),
+                  spec((B, d), lambda i: (0, 0)),
                   spec((block_rows, dc), lambda i: (i, 0)),
                   spec((block_rows, 1), lambda i: (i, 0))],
         out_specs=spec((block_rows // 128, B), lambda i: (i, 0)),
@@ -485,17 +516,82 @@ def _jax_binmax(q_in, corpus, scales, valid_n, block_rows=256):
     return np.asarray(out)[: -(-n // 128)]
 
 
-def test_plain_binmax_matches_the_jax_binmax_kernel():
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_plain_binmax_matches_the_jax_binmax_kernel(dtype):
     """binmax_plain, which the tensor-core route matches bit for bit, gives
     the JAX package's _binmax_kernel maxima (interpret mode) bit for bit at
-    int8, a ragged corpus and a valid_n that leaves the last bin empty."""
-    x, q = _int8_case(77, 1000, 64, 9)
-    xq, xs = (np.array(a) for a in jquant8(x))
+    int8 and packed int4, a ragged corpus and a valid_n that leaves the last
+    bin empty; so does the emulated tensor-core walk
+    (tests/torch_tc_emulation.py ``binmax_tc``: int4 unpacked a packed step
+    at a time, rows of 48 packed bytes, a zero-filled tail in each step)."""
+    x, q = _int8_case(77, 1000, 96 if dtype == "int4" else 64, 9)
+    xq, xs = (np.array(a) for a in (jquant4 if dtype == "int4" else jquant8)(x))
     q_in, _ = tk.quantize_queries(torch.from_numpy(q), torch.from_numpy(xq))
     want = tk.binmax_plain(q_in, torch.from_numpy(xq), torch.from_numpy(xs), 890).numpy()
     got = _jax_binmax(q_in.numpy(), xq, xs, 890)
     np.testing.assert_array_equal(got, want)
     assert (want[-1] == tk.NEG_INF).all()
+    walked = binmax_tc(q_in, torch.from_numpy(xq), torch.from_numpy(xs), 890, 2).numpy()
+    np.testing.assert_array_equal(walked, got)
+
+
+def test_int4_fragment_unpack_matches_the_jax_nibbles():
+    """The tensor-core kernels' unpack of a packed step (csrc/binmax.cu
+    ``unpack_i4`` on the 32-bit registers of an ldmatrix fragment) gives, for
+    each of the 256 byte values in each byte of a register, 16 times the JAX
+    package's nibble values (``_unpack_nibbles``): the low nibble into the
+    fragment of the first half of the dims, the high one into the second."""
+    from sskd_tpu.ops.topk_pallas import _unpack_nibbles
+
+    from torch_tc_emulation import _s8_bytes, _words
+
+    values = np.arange(256, dtype=np.uint8)
+    j_lo, j_hi = (np.asarray(a).astype(np.int64) for a in _unpack_nibbles(jnp.asarray(values)))
+    for shift in range(4):  # the value in every byte position of a register
+        rows = torch.from_numpy(np.roll(values, shift).astype(np.int64))[None]
+        lo, hi = (_s8_bytes(w)[0].numpy() for w in unpack_i4_words(_words(rows)))
+        np.testing.assert_array_equal(lo, 16 * np.roll(j_lo, shift))
+        np.testing.assert_array_equal(hi, 16 * np.roll(j_hi, shift))
+
+
+@pytest.mark.parametrize("half", [16, 48, 192, 512])
+def test_packed_tile_dot_is_the_unpacked_dot(half):
+    """The emulated mma over a packed tile (two mma a 32-byte step, the rows
+    zero-filled to the step count, a half of 16 mod 32 bytes leaving a zero
+    tail in the last step, the 16-fold sums shifted back) equals
+    ``unpack_int4(packed) @ q`` exactly, at the extremes of the int4 and
+    int8 values too."""
+    from sskd_tpu_torch.ops.quant import unpack_int4
+
+    rng = np.random.default_rng(half)
+    packed = torch.from_numpy(rng.integers(0, 256, (16, half), dtype=np.uint8))
+    packed[0] = 0x00  # every value -8
+    packed[1] = 0xFF  # every value 7
+    q = torch.from_numpy(rng.integers(-127, 128, (8, 2 * half), dtype=np.int8))
+    q[0] = -127
+    want = unpack_int4(packed).to(torch.int64) @ q.to(torch.int64).T
+    assert torch.equal(packed_tile_dot(packed.to(torch.int64), q), want)
+
+
+def test_plain_strided_int4_pass_is_the_int8_pass_over_unpacked_rows():
+    """binmax_strided_plain over packed int4 rows gives, bit for bit, the
+    int8 plain pass over the same rows unpacked by the JAX package
+    (``_unpack_nibbles``, halves layout), maxima and rows; the emulated
+    tensor-core strided pass gives the same over the packed rows."""
+    from sskd_tpu.ops.topk_pallas import _unpack_nibbles
+
+    n, valid_n, blocks, B = 2300, 2250, 5, 17  # a ragged last tile, two 8-query groups
+    x, q = _int8_case(31, n, 96, B)
+    xq, xs = (np.array(a) for a in jquant4(x))
+    lo, hi = (np.asarray(a) for a in _unpack_nibbles(jnp.asarray(xq)))
+    unpacked = torch.from_numpy(np.concatenate([lo, hi], axis=1))
+    packed, scales = torch.from_numpy(xq), torch.from_numpy(xs)
+    q_in, _ = tk.quantize_queries(torch.from_numpy(q), packed)
+    got, rows = tk.binmax_strided_plain(q_in, packed, scales, valid_n, blocks)
+    want, want_rows = tk.binmax_strided_plain(q_in, unpacked, scales, valid_n, blocks)
+    assert torch.equal(got, want) and torch.equal(rows, want_rows)
+    walked, walked_rows = binmax_strided_tc(q_in, packed, scales, valid_n, blocks)
+    assert torch.equal(walked, got) and torch.equal(walked_rows, rows)
 
 
 @pytest.mark.parametrize("d", [384, 1024, 10_000])

@@ -54,7 +54,13 @@ follows ``binmax_tc_kernel``: the units of four warps, a warp a bin of 128
 contiguous rows at a time as eight 16-row tiles (rows past the corpus read
 as zeros, masked with their stale scales), the masked running maximum in
 the C-fragment layout, and its reduction (the two row halves, then the
-lanes' grp bits; grp 0 writes).
+lanes' grp bits; grp 0 writes). Both take packed int4 rows (uint8, the
+halves layout) as the kernels do: ``unpack_i4_words`` writes out
+``unpack_i4``'s logic operations on the 32-bit registers that ldmatrix
+gives, and ``packed_tile_dot`` the two mma a packed step (the low nibbles
+against the first half of the queries, the high ones against the second),
+the 16-fold sums and their shift back, over rows zero-filled to the step
+count as the kernels' copies leave them.
 
 ``f32_tile_scores`` writes out the order of csrc/f32_tile.cuh, which both
 f32 kernels of csrc/binmax.cu take: each score one fma chain over the row's
@@ -443,14 +449,68 @@ def bin_gather_tc(q_in, q_scale, corpus, row_scales, bins, valid_n, sort=False):
 ST_WARPS, ST_PARTS, ST_QUERIES = 4, 2, 64  # csrc/binmax.cu
 
 
+def unpack_i4_words(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """csrc/binmax.cu ``unpack_i4`` on 32-bit registers (int64 tensors of
+    values < 2^32): each nibble n of a packed byte to the s8 value 16 (n - 8)
+    in the high half of its byte, the low nibbles into ``lo`` and the high
+    ones into ``hi``, two logic operations and one."""
+    lo = ((words << 4) & 0xF0F0F0F0) ^ 0x80808080
+    hi = (words & 0xF0F0F0F0) ^ 0x80808080
+    return lo, hi
+
+
+def _words(rows: torch.Tensor) -> torch.Tensor:
+    """[R, 4 W] bytes (int64 values 0..255) -> [R, W] little-endian words."""
+    b = rows.view(rows.shape[0], -1, 4)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
+def _s8_bytes(words: torch.Tensor) -> torch.Tensor:
+    """[R, W] words -> [R, 4 W] their bytes as s8 values."""
+    b = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)], dim=-1).flatten(1)
+    return b - 256 * (b >= 128)
+
+
+def tc_steps(row_bytes: int) -> int:
+    """The 32-byte steps of a row of ``row_bytes`` (csrc/mma_common.cuh
+    tc_stride / 32)."""
+    return ((row_bytes + 31) // 32 * 32 + 16) // 32
+
+
+def packed_tile_dot(rows: torch.Tensor, qf: torch.Tensor) -> torch.Tensor:
+    """int32 dots [R, G] of packed int4 rows (``rows`` [R, D/2] int64 byte
+    values) with int8 queries ``qf`` [G, D], as the tensor-core kernels take
+    them: the rows zero-filled to the step count, each step's low and high
+    nibbles (``unpack_i4_words``) against the query halves zero-padded to
+    it, the sums 16 times the dot, exact, shifted back."""
+    half = rows.shape[1]
+    width = 32 * tc_steps(half)
+    padded = torch.zeros(rows.shape[0], width, dtype=torch.int64)
+    padded[:, :half] = rows
+    lo, hi = (_s8_bytes(w) for w in unpack_i4_words(_words(padded)))
+    q = qf.to(torch.int64)
+    q_lo, q_hi = (torch.zeros(q.shape[0], width, dtype=torch.int64) for _ in range(2))
+    q_lo[:, :half], q_hi[:, :half] = q[:, :half], q[:, half:]
+    acc16 = lo @ q_lo.T + hi @ q_hi.T
+    assert acc16.abs().max().item() < 2**31 and (acc16 % 16 == 0).all()
+    return acc16 >> 4
+
+
+def _tile_dot(rows: torch.Tensor, qf: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Exact int32 dots [R, G] of a tile's rows (int8, or packed int4 bytes)
+    with the chunk's queries."""
+    return packed_tile_dot(rows, qf) if packed else rows @ qf.T
+
+
 def binmax_strided_tc(q_in, corpus, row_scales, valid_n, blocks):
     """(maxima [blocks * 128, B] f32, rows [blocks * 128, B] int32) of the
-    int8 tensor-core strided pass, block by block and warp by warp."""
+    tensor-core strided pass over int8 or packed int4 rows, block by block
+    and warp by warp."""
     n, d = corpus.shape
-    B = q_in.shape[0]
+    B, packed = q_in.shape[0], corpus.dtype == torch.uint8
     n_tiles = (n + BIN_W - 1) // BIN_W
     rows_all = torch.zeros(n_tiles * BIN_W, d, dtype=torch.int64)
-    rows_all[:n] = corpus.to(torch.int64)  # a ragged last tile: zeros
+    rows_all[:n] = corpus.to(torch.int64)  # a ragged last tile: zero bytes
     scales_all = torch.full((n_tiles * BIN_W,), float("nan"))  # never read where dead
     scales_all[:n] = row_scales
     ng = 1 if B <= 8 else 2 if B <= 16 else 4 if B <= 32 else 8
@@ -464,7 +524,7 @@ def binmax_strided_tc(q_in, corpus, row_scales, valid_n, blocks):
             for chunk in range(chunks):
                 q0 = chunk * ST_QUERIES
                 nq = min(ng * 8, B - q0)
-                qf = torch.zeros(ng * 8, d, dtype=torch.int64)  # absent queries: zeros
+                qf = torch.zeros(ng * 8, q_in.shape[1], dtype=torch.int64)  # absent: zeros
                 qf[:nq] = q_in[q0:q0 + nq].to(torch.int64)
                 for warp in range(ST_WARPS):
                     t0 = part * 64 + warp * 16
@@ -472,7 +532,7 @@ def binmax_strided_tc(q_in, corpus, row_scales, valid_n, blocks):
                     run_i = torch.zeros((16, ng * 8), dtype=torch.int64)
                     for i in range(n_mine):  # tiles in increasing order
                         r = (j + i * blocks) * BIN_W + t0 + torch.arange(16)
-                        acc = (rows_all[r] @ qf.T).to(torch.float32)  # exact int32 sums
+                        acc = _tile_dot(rows_all[r], qf, packed).to(torch.float32)
                         s = torch.where((r < valid_n)[:, None], acc * scales_all[r][:, None], NEG)
                         better = s > run_best  # strictly: the lowest row keeps a tie
                         run_best = torch.where(better, s, run_best)
@@ -497,15 +557,15 @@ def _frag_layout(ng):
 
 
 def binmax_tc(q_in, corpus, row_scales, valid_n, units):
-    """Bin maxima [ceil(N / 128), B] f32 of the int8 tensor-core binmax,
-    unit by unit and warp by warp, with ``units`` units of four warps (the
-    card's count fills it; the result does not depend on it). A bin no warp
-    writes stays NaN."""
+    """Bin maxima [ceil(N / 128), B] f32 of the tensor-core binmax over int8
+    or packed int4 rows, unit by unit and warp by warp, with ``units`` units
+    of four warps (the card's count fills it; the result does not depend on
+    it). A bin no warp writes stays NaN."""
     n, d = corpus.shape
-    B = q_in.shape[0]
+    B, packed = q_in.shape[0], corpus.dtype == torch.uint8
     n_bins = (n + BIN_W - 1) // BIN_W
     rows_all = torch.zeros(n_bins * BIN_W, d, dtype=torch.int64)
-    rows_all[:n] = corpus.to(torch.int64)  # a ragged last bin: zeros
+    rows_all[:n] = corpus.to(torch.int64)  # a ragged last bin: zero bytes
     scales_all = torch.full((n_bins * BIN_W,), float("nan"))  # stale where dead: masked
     scales_all[:n] = row_scales
     ng = 1 if B <= 8 else 2 if B <= 16 else 4 if B <= 32 else 8
@@ -515,7 +575,7 @@ def binmax_tc(q_in, corpus, row_scales, valid_n, units):
     for chunk in range(chunks):
         q0 = chunk * ST_QUERIES
         nq = min(ng * 8, B - q0)
-        qf = torch.zeros(ng * 8, d, dtype=torch.int64)  # absent queries: zeros
+        qf = torch.zeros(ng * 8, q_in.shape[1], dtype=torch.int64)  # absent queries: zeros
         qf[:nq] = q_in[q0:q0 + nq].to(torch.int64)
         for unit in range(units):
             for warp in range(ST_WARPS):
@@ -523,7 +583,7 @@ def binmax_tc(q_in, corpus, row_scales, valid_n, units):
                     mx = torch.full((32 * ng * 4,), NEG)  # the lanes' running maxima
                     for t in range(BIN_W // 16):  # the bin's tiles in order
                         r = b * BIN_W + t * 16 + torch.arange(16)
-                        acc = (rows_all[r] @ qf.T).to(torch.float32)  # exact int32 sums
+                        acc = _tile_dot(rows_all[r], qf, packed).to(torch.float32)
                         s = torch.where((r < valid_n)[:, None], acc * scales_all[r][:, None],
                                         NEG)
                         mx = torch.maximum(mx, s[frag_row, frag_col])
