@@ -14,13 +14,17 @@ Phases, each fatal when it fails:
              int4 at 64, k in {10, 100}, and bf16 at B in {1, 16, 64, 256}, k in {10,
              40}, every bf16 launch on its bf16 route within 1e-5, beside
              cuBLAS's bf16 product with the query rounded and the f32 route
-             over the widened rows; int8 binmax, binmax_strided and bin_gather on
-             their tensor-core routes, int4 binmax and binmax_strided too (bit
-             for bit, cold L2 cache, beside torch._int_mm over the rows
-             unpacked in the call and beforehand) and int4 bin_gather on the
-             CUDA cores, int4 binmax and binmax_strided also at 1M x 1056
-             (528 packed bytes, past the tensor-core route) on their dp4a
-             kernels, B in {1, 16, 256}, bit for bit, f32 binmax and
+             over the widened rows, bf16 bin_gather on its tensor-core route
+             (the f32 query as three bf16 terms); int8 binmax, binmax_strided
+             and bin_gather on their tensor-core routes, int4 too (bit for
+             bit, cold L2 cache, beside torch._int_mm over the rows unpacked
+             in the call and beforehand, and bin_gather beside index_select +
+             bmm of the chosen rows and beside bin_gather_kernel, the
+             CUDA-core kernel it replaced on these rows), int4 binmax,
+             binmax_strided and bin_gather also at 1M x 1056 (528 packed
+             bytes, past the tensor-core route) on their dp4a kernels, B in
+             {1, 16, 256}, bit for bit, bf16 bin_gather at D = 528 on
+             bin_gather_kernel's bf16 mode within 1e-5, f32 binmax and
              binmax_strided on the
              register-tiled CUDA-core kernels, with bin_gather's pairs in
              their own order against sorted by bin on corpus-derived queries,
@@ -111,9 +115,9 @@ Phases, each fatal when it fails:
              against the same engine over the plain versions on the same
              embeddings (0 ids that differ but at ties within 1e-5, and none
              at all for (a) and (b)); every launch on bf16 rows on a bf16
-             route, the candidates of (a) from the tensor-core strided pass
-             and of (b) from binmax on the tensor cores and bin_gather on the
-             CUDA cores;
+             route, (c)'s bin_gather launches on its bf16 tensor-core route,
+             the candidates of (a) from the tensor-core strided pass and of
+             (b) from binmax and bin_gather on the tensor cores;
              recall@10 against exact f32 search over the original rows
              ((a) at least its unrefined int8 sweep's and 0.97, (b) above
              its unrefined int4 search's, (c) 0.97, (e) 0.90), validate()
@@ -414,23 +418,28 @@ def same_topk(kv, ki, pv, pi, tol: float) -> bool:
     return True
 
 
-# the route each storage type takes in binmax, binmax_strided and bin_gather (packed
-# int4 rows of 192 bytes on the tensor cores in the first two, on the CUDA cores in the
-# gather)
+# the route each storage type takes in binmax, binmax_strided and bin_gather at 384
+# dims (packed int4 rows of 192 bytes on the tensor cores in all three, bf16 rows on
+# the tensor cores in the gather)
 TOPK_ROUTES = {
-    kernel: {"int8": "tc", "f32": "cuda_core", "bf16": "bf16",
-             "int4": "cuda_core" if kernel == "bin_gather" else "tc"}
+    kernel: {"int8": "tc", "f32": "cuda_core", "int4": "tc",
+             "bf16": "bf16_tc" if kernel == "bin_gather" else "bf16"}
     for kernel in ("binmax", "binmax_strided", "bin_gather")
 }
+# the kernel each bin_gather route launches
+GATHER_KERNEL = {"tc": "bin_gather_tc_kernel", "bf16_tc": "bin_gather_bf16_tc_kernel",
+                 "bf16": "bin_gather_kernel", "cuda_core": "bin_gather_kernel"}
 
 
 def routed(wrapper, route: str, fn):
     """Run ``fn`` and check that it launched ``wrapper`` once, on ``route``
-    (its tc_launches / bf16_launches counters); returns what ``fn`` returns."""
+    (its tc_launches / bf16_launches counters: "bf16_tc" counts in both);
+    returns what ``fn`` returns."""
     before = (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches)
     out = fn()
     after = (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches)
-    want = (before[0] + 1, before[1] + (route == "tc"), before[2] + (route == "bf16"))
+    want = (before[0] + 1, before[1] + (route in ("tc", "bf16_tc")),
+            before[2] + (route in ("bf16", "bf16_tc")))
     check(after == want, f"{wrapper.__name__}: the launch did not take the {route} route")
     return out
 
@@ -640,27 +649,51 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 g_want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n)
                 torch.cuda.synchronize()
                 g_err = (g_got - g_want).abs().max().item()
-                g_tol = tol
-                check(g_err <= g_tol, f"bin_gather {dtype} B={B} k={k}: err {g_err} > {g_tol}")
-                g_ms = time_ms(
-                    lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n), 20
-                )
+                check(g_err <= tol and (op_kind != "int8" or torch.equal(g_got, g_want)),
+                      f"bin_gather {dtype} B={B} k={k}: err {g_err} > {tol}")
+                g_rel = rel_err(g_got, g_want)
+                del g_got
+                g_call = lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
+                g_ms = time_ms(g_call, 20)
                 # the card's own time: the wrapper's host time can exceed it
-                g_dev = kernel_device_ms(
-                    lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n),
-                    "bin_gather_tc_kernel" if g_route == "tc" else "bin_gather_kernel")
+                g_name = GATHER_KERNEL[g_route]
+                g_dev = kernel_device_ms(g_call, g_name)
+                g_cold = kernel_device_ms(  # each launch after the L2 cache was overwritten
+                    lambda: (l2_flush.zero_(), g_call()), g_name, 8, fallback=False)
                 g_plain = time_ms(
                     lambda: tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n),
                     2, 1,
                 )
-                # bytes: each distinct bin's rows once (queries share bins)
+                # bytes: each distinct bin's rows once (queries share bins); the raw
+                # bytes, each pair's bins read on their own, bound a layout that does
+                # not reuse a bin several queries chose
                 cand = B * kb * 128
                 rows_read = torch.unique(bins).numel() * 128
-                gb_ms, gb_by = bound_ms(
-                    rows_read * (row_bytes + 4 * (scales is not None)) + cand * 4
-                    + bins.numel() * 4 + q_in.numel() * q_in.element_size(),
-                    2.0 * cand * dim, op_kind,
-                )
+                row_in = row_bytes + 4 * (scales is not None)
+                rest = cand * 4 + bins.numel() * 4 + q_in.numel() * q_in.element_size()
+                gb_ms, gb_by = bound_ms(rows_read * row_in + rest, 2.0 * cand * dim, op_kind)
+                raw_ms, _ = bound_ms(cand * row_in + rest, 2.0 * cand * dim, op_kind)
+                # the yardstick: index_select of the chosen rows and bmm with the query
+                # (int4: over the rows unpacked in the call and beforehand)
+                pick = (bins.long()[:, :, None] * 128
+                        + torch.arange(128, device="cuda")).view(-1).clamp(max=n_rows - 1)
+
+                def gather_bmm(src, unpack=False):
+                    picked = src.index_select(0, pick)
+                    picked = unpack_int4(picked) if unpack else picked
+                    sc = torch.bmm(picked.float().view(B, kb * 128, dim),
+                                   q_in.float()[:, :, None])[:, :, 0]
+                    if scales is not None:
+                        sc = sc * scales[pick].view(B, -1)
+                    return sc * q_scale[:, None] if q_scale is not None else sc
+                if dtype == "int4":
+                    yard = {"yardstick_index_select_bmm_unpack_included_ms": time_ms(
+                                lambda: gather_bmm(corpus, True), 10),
+                            "yardstick_index_select_bmm_unpacked_rows_ms": time_ms(
+                                lambda: gather_bmm(unpacked), 10)}
+                else:
+                    yard = {"yardstick_index_select_bmm_ms": time_ms(
+                        lambda: gather_bmm(corpus), 10)}
                 # the whole engine against the blocked plain engine
                 kv, ki = tk.cosine_topk_kernels(q, corpus, k, row_scales=scales, valid_n=valid_n)
                 pv, pi = cosine_topk_core(q, corpus, k, row_scales=scales, valid_n=valid_n)
@@ -676,12 +709,31 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                 g_entry = {
                     "kernel": "bin_gather", "dtype": dtype, "B": B, "k": k, "kb": kb,
                     "route": g_route,
-                    "max_abs_err": g_err, "max_rel_err": rel_err(g_got, g_want),
-                    "ms": g_ms, "kernel_device_ms": g_dev, "plain_ms": g_plain,
-                    "bound_ms": gb_ms,
-                    "bound_by": gb_by, "library_ms": None,
+                    "max_abs_err": g_err, "max_rel_err": g_rel,
+                    "ms": g_ms, "kernel_device_ms": g_dev, "kernel_device_ms_cold_l2": g_cold,
+                    "plain_ms": g_plain, "bound_ms": gb_ms, "bound_by": gb_by,
+                    "bound_raw_bytes_ms": raw_ms, "distinct_bins": rows_read // 128,
+                    "library_ms": None, **yard,
                     "engine_ms": e_ms, "plain_engine_ms": e_plain,
                 }
+                if dtype in ("int4", "bf16"):
+                    # the CUDA-core kernel these rows took before, on the same inputs
+                    old_call = lambda: bin_gather_cuda_cores(
+                        q_in, q_scale, corpus, scales, bins, valid_n)
+                    old = old_call()
+                    torch.cuda.synchronize()
+                    old_err = (old - g_want).abs().max().item()
+                    check(old_err <= tol and (op_kind != "int8" or torch.equal(old, g_want)),
+                          f"bin_gather_kernel {dtype} B={B} k={k}: err {old_err} > {tol}")
+                    del old
+                    g_entry.update({
+                        "cuda_core_kernel_max_abs_err": old_err,
+                        "cuda_core_kernel_device_ms": kernel_device_ms(
+                            old_call, "bin_gather_kernel"),
+                        "cuda_core_kernel_device_ms_cold_l2": kernel_device_ms(
+                            lambda: (l2_flush.zero_(), old_call()), "bin_gather_kernel", 8,
+                            fallback=False),
+                    })
                 if dtype == "bf16":  # the same bins over the widened rows: twice the bytes
                     g_entry["yardstick_f32_route_widened_rows_device_ms"] = kernel_device_ms(
                         lambda: tk.bin_gather(q_in, None, widened, None, bins, valid_n),
@@ -692,6 +744,8 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                     main["bin_gather"] = g_entry
                 if B == 16 and k == 10 and dtype == "bf16":
                     bf16["bin_gather"] = g_entry
+                if B == 16 and k == 10 and dtype == "int4":
+                    int4["bin_gather"] = g_entry
         if dtype == "int8":
             rows += gather_order_cases(gen, x, corpus, scales)
             rows.append(wrapper_host_us(gen, corpus, scales))
@@ -704,10 +758,13 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
 
 
 def dp4a_cases(gen, n_rows: int, l2_flush, dim: int = 1056) -> list:
-    """binmax and binmax_strided on their dp4a kernels (binmax_kernel,
-    binmax_strided_kernel): packed int4 rows of dim / 2 = 528 bytes, over the
-    512 the tensor-core route takes, at B in {1, 16, 256}; bit for bit against
-    the plain versions, with the L2 cache cold and warm."""
+    """The CUDA-core kernels that the 384-dim cases no longer reach, bit for
+    bit against the plain versions, with the L2 cache cold and warm: binmax,
+    binmax_strided and bin_gather on their dp4a kernels (binmax_kernel,
+    binmax_strided_kernel, bin_gather_kernel) over packed int4 rows of dim /
+    2 = 528 bytes, over the 512 the tensor-core routes take, at B in {1, 16,
+    256} (the gather at k = 10 over the bins binmax chose); then
+    bin_gather_kernel's bf16 mode over rows of 1,056 bytes (long_bf16_gather)."""
     from sskd_tpu_torch.ops import topk_kernels as tk
     from sskd_tpu_torch.ops.quant import quantize_rows_int4
     from sskd_tpu_torch.ops.topk import approx_blocks, approx_min_bins
@@ -718,8 +775,9 @@ def dp4a_cases(gen, n_rows: int, l2_flush, dim: int = 1056) -> list:
     groups = math.ceil(approx_min_bins(10, 0.99) / 128)
     out = []
     for B in (1, 16, 256):
-        q_in, _ = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
+        q_in, q_scale = tk.quantize_queries(unit_rows(B, dim, gen), corpus)
         blocks = approx_blocks(B, groups, n_bins)
+        bins = None
         for kernel, wrapper, route_fn, plain, name, more, out_bytes in (
                 ("binmax", tk.binmax, tk.binmax_route, tk.binmax_plain, "binmax_kernel",
                  (), n_bins * B * 4),
@@ -732,6 +790,7 @@ def dp4a_cases(gen, n_rows: int, l2_flush, dim: int = 1056) -> list:
             got = routed(wrapper, route, call)
             want = plain(q_in, corpus, scales, n_rows, *more)
             if kernel == "binmax":  # binmax gives the maxima, binmax_strided (maxima, rows)
+                bins = tk.topk_stable(want.T, 10)[1].to(torch.int32).contiguous()
                 got, want = (got,), (want,)
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"{kernel} int4 D={dim} B={B}: not bit for bit the plain version")
@@ -752,8 +811,62 @@ def dp4a_cases(gen, n_rows: int, l2_flush, dim: int = 1056) -> list:
             }
             out.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
+        out.append(cuda_core_gather_case(q_in, q_scale, corpus, scales, bins, "int4", dim,
+                                         l2_flush))
     del corpus, scales
+    out.append(long_bf16_gather(gen, l2_flush))
     return out
+
+
+def cuda_core_gather_case(q_in, q_scale, corpus, scales, bins, dtype, dim, l2_flush) -> dict:
+    """bin_gather on bin_gather_kernel (the "cuda_core" route for int4, "bf16"
+    for bf16) over rows past the tensor-core routes: int4 bit for bit with
+    the plain version, bf16 within 1e-5; warm and cold device times."""
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    n_rows, row_bytes = corpus.shape[0], corpus.shape[1] * corpus.element_size()
+    B, kb = bins.shape
+    route = tk.bin_gather_route(corpus.dtype, row_bytes)
+    check(route == ("bf16" if dtype == "bf16" else "cuda_core"),
+          f"bin_gather {dtype} D={dim}: route {route}")
+    call = lambda: tk.bin_gather(q_in, q_scale, corpus, scales, bins, n_rows)
+    got = routed(tk.bin_gather, route, call)
+    want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, n_rows)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want) if dtype == "int4" else err <= 1e-5,
+          f"bin_gather {dtype} D={dim} B={B}: err {err} against the plain version")
+    del got, want
+    cand = B * kb * 128
+    row_in = row_bytes + 4 * (scales is not None)
+    b_ms, b_by = bound_ms(torch.unique(bins).numel() * 128 * row_in + cand * 4
+                          + bins.numel() * 4 + q_in.numel() * q_in.element_size(),
+                          2.0 * cand * dim, "int8" if dtype == "int4" else "f32")
+    entry = {
+        "kernel": "bin_gather", "dtype": dtype, "B": B, "N": n_rows, "D": dim, "kb": kb,
+        "route": route, "max_abs_err": err, "ms": time_ms(call, 20),
+        "kernel_device_ms": kernel_device_ms(call, "bin_gather_kernel", 8),
+        "kernel_device_ms_cold_l2": kernel_device_ms(
+            lambda: (l2_flush.zero_(), call()), "bin_gather_kernel", 8, fallback=False),
+        "plain_ms": time_ms(lambda: tk.bin_gather_plain(
+            q_in, q_scale, corpus, scales, bins, n_rows), 2, 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    log(f"[kernels] {json.dumps(entry)}")
+    return entry
+
+
+def long_bf16_gather(gen, l2_flush, n_rows: int = 100_000, dim: int = 528) -> dict:
+    """bin_gather over bf16 rows of 1,056 bytes, past the 1,024 that its
+    tensor-core kernel takes: bin_gather_kernel's bf16 mode at B = 16, k =
+    10 over the bins the plain binmax chose."""
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    corpus = unit_rows(n_rows, dim, gen).to(torch.bfloat16)
+    q = unit_rows(16, dim, gen)
+    bins = tk.topk_stable(tk.binmax_plain(q, corpus, None, n_rows).T, 10)[1]
+    return cuda_core_gather_case(q, None, corpus, None, bins.to(torch.int32).contiguous(),
+                                 "bf16", dim, l2_flush)
 
 
 def gather_order_cases(gen, x, corpus, scales) -> list:
@@ -775,7 +888,7 @@ def gather_order_cases(gen, x, corpus, scales) -> list:
         B, kb = bins.shape
         o = torch.empty((B, kb, 128), dtype=torch.float32, device="cuda")
         cells, order = torch.sort(bins.view(-1), stable=True) if sort else (bins, None)
-        _build.check(fn(tk._ptr(q_in), tk._ptr(q_scale), tk._ptr(corpus), tk._ptr(scales),
+        _build.check(fn(1, tk._ptr(q_in), tk._ptr(q_scale), tk._ptr(corpus), tk._ptr(scales),
                         tk._ptr(cells), tk._ptr(order), tk._ptr(o), B, kb, n,
                         corpus.shape[1], n, 2 if sort else tk.GATHER_TC_RUN,
                         tk._stream(corpus.device)),
@@ -807,6 +920,25 @@ def gather_order_cases(gen, x, corpus, scales) -> list:
                 lambda: torch.sort(bins.view(-1), stable=True), "", 30)
             log(f"[kernels] {json.dumps(entry)}")
             out.append(entry)
+    return out
+
+
+def bin_gather_cuda_cores(q_in, q_scale, corpus, scales, bins, valid_n):
+    """bin_gather_kernel launched through its C entry (sskd_bin_gather) on
+    rows that the wrapper sends to a tensor-core kernel: the kernel those
+    rows took before, for its time beside its successor's on the same
+    inputs. Returns the scores [B, kb, 128]."""
+    from sskd_tpu_torch.ops import _build
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    B, kb = bins.shape
+    mode = tk._mode(corpus)
+    out = torch.empty((B, kb, 128), dtype=torch.float32, device="cuda")
+    _build.check(tk._fn("bin_gather", "sskd_bin_gather")(
+        mode, tk._ptr(q_in), tk._ptr(q_scale if mode in tk._QUANTIZED else None),
+        tk._ptr(corpus), tk._ptr(scales), tk._ptr(bins), tk._ptr(out), B, kb, corpus.shape[0],
+        corpus.shape[1] * corpus.element_size() // 4, valid_n, tk._stream(corpus.device)),
+        "bin_gather (CUDA cores)")
     return out
 
 
@@ -2726,6 +2858,8 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
                   "took the bf16 route")
     check(routes["c"]["bf16"]["binmax"] > 0 and routes["c"]["bf16"]["bin_gather"] > 0,
           "(c) did not launch binmax and bin_gather")
+    check(routes["c"]["tc"]["bin_gather"] == routes["c"]["all"]["bin_gather"],
+          "(c): a bin_gather launch missed the bf16 tensor-core route")
     check(routes["d"]["bf16"]["binmax_strided"] > 0, "(d) did not launch binmax_strided")
     check(routes["e"]["bf16"]["cell_gather_b1"] >= 8 and routes["e"]["bf16"]["cell_gather"] >= 2
           and routes["e"]["bf16"]["binmax_strided"] >= 1, "(e) missed a cell kernel or the sweep")
@@ -2733,9 +2867,9 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
         check(routes[tag]["tc"]["binmax_strided"] == routes[tag]["all"]["binmax_strided"] > 0,
               f"({tag}): the candidates did not come from the tensor-core strided pass")
     check(routes["b"]["tc"]["binmax"] == routes["b"]["all"]["binmax"] > 0
-          and routes["b"]["all"]["bin_gather"] > 0 and routes["b"]["tc"]["bin_gather"] == 0
+          and routes["b"]["tc"]["bin_gather"] == routes["b"]["all"]["bin_gather"] > 0
           and routes["b"]["bf16"]["binmax"] == 0,
-          "(b): binmax did not take the tensor cores and bin_gather the CUDA cores")
+          "(b): binmax and bin_gather did not take the tensor cores")
 
     # --- the served entry: (a) with the refine rows on the device and on the host, (b) once ---
     student_dir = work / "student"
@@ -2768,10 +2902,10 @@ def phase_refine(args, emb: np.ndarray, queries: np.ndarray) -> dict:
                   f"[{tag}] the candidates did not come from the tensor-core strided pass")
         else:
             check(launched["tc"]["binmax"] == launched["all"]["binmax"] > 0
-                  and launched["all"]["bin_gather"] > 0 and launched["tc"]["bin_gather"] == 0
+                  and launched["tc"]["bin_gather"] == launched["all"]["bin_gather"] > 0
                   and launched["all"]["binmax_strided"] == 0,
-                  f"[{tag}] the candidates did not come from the int4 routes (binmax on "
-                  "the tensor cores, bin_gather on the CUDA cores)")
+                  f"[{tag}] the candidates did not come from the int4 routes (binmax and "
+                  "bin_gather on the tensor cores)")
         report = check_served(rec, app.state,
                               lambda e, sb=sb, st=storage: plain(name, e.float(), st, sb), tag)
         served[tag] = {**report, "launches": launched["all"], "tc_launches": launched["tc"]}
@@ -3342,6 +3476,9 @@ def main(argv=None) -> int:
         })
         if name in int4_topk:  # its packed int4 mode on the tensor cores, B = 16
             kernels[-1]["int4"] = {n: int4_topk[name][n]
+                                   for n in ("ms", "kernel_device_ms", "bound_ms")}
+        if name == "bin_gather":  # its bf16 rows on the tensor cores, B = 16
+            kernels[-1]["bf16"] = {n: bf16_topk[name][n]
                                    for n in ("ms", "kernel_device_ms", "bound_ms")}
     record["kernels"] = kernels
     out = Path(args.out)

@@ -249,24 +249,6 @@ __device__ __forceinline__ void tc_stage_queries(uint2* s_qf, const int8_t* __re
   }
 }
 
-// The s8 A fragments of a packed int4 step from the four registers one
-// ldmatrix_x4 gives over its 32 bytes a row: lo those of the low nibbles
-// (dims 32 ks ..), hi those of the high nibbles (dims D/2 + 32 ks ..). A
-// stored nibble n is the value n - 8; it goes to the high half of its byte
-// with the top bit flipped, the s8 value 16 (n - 8): the sums are 16 times
-// the dot, exact in int32 (|dot| <= 8 * 127 * D), and i4_dot shifts them back.
-// A zero-filled byte (a row's tail, a row past the corpus) reads as -8 in both
-// halves: the tail meets zero query lanes, and rows past the corpus are masked.
-__device__ __forceinline__ void unpack_i4(const uint32_t (&p)[4], uint32_t (&lo)[4],
-                                          uint32_t (&hi)[4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    lo[r] = ((p[r] << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
-    hi[r] = (p[r] & 0xF0F0F0F0u) ^ 0x80808080u;
-  }
-}
-__device__ __forceinline__ int i4_dot(int acc) { return acc >> 4; }  // exact: a multiple of 16
-
 // NG: the 8-query groups of a chunk (1, 2, 4 or 8); PACKED: packed int4 rows of
 // row_bytes = D/2 (queries of D bytes), else int8 rows of row_bytes = D. Grid:
 // units * chunks, block (unit, chunk) at unit * chunks + chunk; warp w of a

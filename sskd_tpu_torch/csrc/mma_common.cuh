@@ -5,7 +5,9 @@
 // (the f32 attention kernels at head dim 64), mma.sync m16n8k32 with s8
 // operands and exact s32 sums over
 // padded rows of int8 (the top-k kernels: binmax.cu, bin_gather.cu,
-// cell_gather.cu), and the exact widening of bf16 rows to f32.
+// cell_gather.cu), the unpack of packed int4 rows into s8 fragments, the
+// exact split of an f32 query into three bf16 terms (bf16 rows on the tensor
+// cores in bin_gather.cu), and the exact widening of bf16 rows to f32.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * grp + tig, grp 0..7,
 // tig 0..3), two 16-bit values per 32-bit register:
@@ -202,6 +204,48 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// --- packed int4 rows on the tensor cores (binmax.cu, gather_tc.cuh) ---------
+
+// The s8 A fragments of a packed int4 step from the four registers one
+// ldmatrix_x4 gives over its 32 bytes a row: lo those of the low nibbles
+// (dims 32 ks ..), hi those of the high nibbles (dims D/2 + 32 ks ..). A
+// stored nibble n is the value n - 8; it goes to the high half of its byte
+// with the top bit flipped, the s8 value 16 (n - 8): the sums are 16 times
+// the dot, exact in int32 (|dot| <= 8 * 127 * D), and i4_dot shifts them back.
+// A zero-filled byte (a row's tail, a row past the corpus) reads as -8 in both
+// halves: the tail meets zero query lanes, and rows past the corpus are masked.
+__device__ __forceinline__ void unpack_i4(const uint32_t (&p)[4], uint32_t (&lo)[4],
+                                          uint32_t (&hi)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    lo[r] = ((p[r] << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
+    hi[r] = (p[r] & 0xF0F0F0F0u) ^ 0x80808080u;
+  }
+}
+__device__ __forceinline__ int i4_dot(int acc) { return acc >> 4; }  // exact: a multiple of 16
+
+// --- an f32 query against bf16 rows on the tensor cores (gather_tc.cuh) ------
+//
+// An f32 x is the exact sum of three bf16 terms: t0 = bf16(x), t1 =
+// bf16(x - t0), t2 = x - t0 - t1 (each difference exact in f32, and t2
+// holds at most 8 significant bits, so it is a bf16 value), for every x
+// whose t0 is finite. With the terms as three columns of a B fragment, one
+// bf16 mma gives the three partial dots of a row with the f32 query, each
+// product exact in f32.
+
+// x rounded to bf16 (to nearest even), as an f32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// term t (0, 1 or 2) of x, as an f32 holding a bf16 value (t1 rounded by
+// the caller's pack_bf16)
+__device__ __forceinline__ float bf16_term(float x, int t) {
+  if (t == 0) return x;
+  const float r = x - bf16_round(x);
+  return t == 1 ? r : r - bf16_round(r);
 }
 
 }  // namespace sskd

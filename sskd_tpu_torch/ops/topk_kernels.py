@@ -17,14 +17,17 @@ Each kernel wrapper launches its kernel on a CUDA tensor and counts the
 launch in its ``launches`` attribute; on a CPU tensor it runs the kernel's
 plain torch version (``binmax_plain``, ``bin_gather_plain``,
 ``binmax_strided_plain``), which repeats the kernel's arithmetic.
-Each kernel has three routes (:func:`binmax_route`,
-:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows, and in
-``binmax`` and ``binmax_strided`` packed int4 rows too, on the tensor cores,
+Each kernel has its routes (:func:`binmax_route`,
+:func:`binmax_strided_route`, :func:`bin_gather_route`): int8 rows of at
+most 1,024 bytes and packed int4 rows of at most 512 on the tensor cores,
 counted also in ``tc_launches``; bf16 rows against f32 queries (the TPU
 kernels' bf16 branch: each bf16 widened exactly, f32 sums), counted also in
-``bf16_launches``; f32, longer int8 and int4 rows, and ``bin_gather``'s int4
-rows, on the CUDA cores (f32 and bf16 in ``binmax`` and ``binmax_strided``
-through the register-tiled score tile of csrc/f32_tile.cuh). Results
+``bf16_launches``, in ``bin_gather`` on the tensor cores up to 1,024 bytes
+(the query split exactly into three bf16 terms, counted in both), in
+``binmax`` and ``binmax_strided`` and past that on the CUDA cores; f32 and
+longer int8 and int4 rows on the CUDA cores (f32 and bf16 in ``binmax``
+and ``binmax_strided`` through the register-tiled score tile of
+csrc/f32_tile.cuh). Results
 follow the JAX engine's contract: ``(vals [B, k] f32, idx [B, k] int32)``
 with ``(-inf, -1)`` sentinels, where "-inf" is ``finfo(float32).min / 2``.
 """
@@ -45,21 +48,21 @@ K_MAX = 256  # largest k the two-phase engine serves
 _MODES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2, torch.bfloat16: 3}
 _QUANTIZED = (1, 2)  # the modes of int8 queries and row scales
 _PLAIN_ROWS = 1 << 18  # rows per chunk of the plain versions' score matrix
-# the longest int8 row the tensor-core routes take (csrc/binmax.cu
+# the longest row the tensor-core routes take, in bytes (csrc/binmax.cu
 # ST_MAX_ROW_BYTES, csrc/gather_tc.cuh TC_MAX_ROW_BYTES): the widths of the
 # models the port serves; longer rows take the CUDA-core kernels. Packed int4
-# rows of at most half of it (D <= 1,024) take the tensor cores in binmax and
-# binmax_strided.
+# rows of at most half of it (D <= 1,024) take the tensor cores too, and in
+# bin_gather bf16 rows of at most all of it (D <= 512).
 TC_MAX_ROW_BYTES = 1024
 GATHER_TC_RUN = 1  # (query, slot) pairs a bin_gather_tc job takes, in their own order
 
 
-def _route(dtype: torch.dtype, row_bytes: int, packed_tc: bool) -> str:
+def _route(dtype: torch.dtype, row_bytes: int) -> str:
     if dtype == torch.bfloat16:
         return "bf16"
     if dtype == torch.int8 and row_bytes <= TC_MAX_ROW_BYTES:
         return "tc"
-    if packed_tc and dtype == torch.uint8 and row_bytes <= TC_MAX_ROW_BYTES // 2:
+    if dtype == torch.uint8 and row_bytes <= TC_MAX_ROW_BYTES // 2:
         return "tc"
     return "cuda_core"
 
@@ -74,7 +77,7 @@ def binmax_route(dtype: torch.dtype, row_bytes: int) -> str:
     the register-tiled fma tile, widened in shared memory) for bf16;
     ``"cuda_core"`` for f32 (``binmax_f32_kernel``) and longer int8 and
     int4 rows (``binmax_kernel``, dp4a)."""
-    return _route(dtype, row_bytes, packed_tc=True)
+    return _route(dtype, row_bytes)
 
 
 def binmax_strided_route(dtype: torch.dtype, row_bytes: int) -> str:
@@ -86,20 +89,37 @@ def binmax_strided_route(dtype: torch.dtype, row_bytes: int) -> str:
     ``"cuda_core"`` for f32 (``binmax_strided_f32_kernel``, the
     register-tiled fma tile) and longer int8 and int4 rows
     (``binmax_strided_kernel``, dp4a)."""
-    return _route(dtype, row_bytes, packed_tc=True)
+    return _route(dtype, row_bytes)
 
 
 def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
-    """The kernel a CUDA call of :func:`bin_gather` launches: ``"tc"``
-    (``bin_gather_tc_kernel``: a warp for each 16 rows of a chosen bin, int8
-    mma) for int8 rows of at most ``TC_MAX_ROW_BYTES``; ``"bf16"``
-    (``bin_gather_kernel`` in its bf16 mode) for bf16; ``"cuda_core"``
-    (``bin_gather_kernel``, a block per (query, bin slot)) for f32, packed
-    int4 and longer rows. int4 stays on the CUDA cores: it reads half the
-    int8 gather's bytes and beat it at kb = 100 on an H100 (0.0197 against
-    0.0361 ms at B = 16, 0.247 against 0.494 at B = 256), and at kb = 10 both
-    are launch-bound (0.0060 against 0.0053 ms)."""
-    return _route(dtype, row_bytes, packed_tc=False)
+    """The kernel a CUDA call of :func:`bin_gather` launches. The tensor-core
+    kernels give each 16-row tile of a (query, bin slot) pair its own warp,
+    and take every row type whose tile fits a warp's shared memory:
+
+    - ``"tc"``: ``bin_gather_tc_kernel``, int8 mma, for int8 rows of at most
+      ``TC_MAX_ROW_BYTES`` and packed int4 rows of at most half of it (each
+      packed step unpacked in registers into the s8 fragments of both halves
+      of the row, against the query staged once a warp).
+    - ``"bf16_tc"``: ``bin_gather_bf16_tc_kernel``, for bf16 rows of at most
+      ``TC_MAX_ROW_BYTES`` (D <= 512): the f32 query split exactly into three
+      bf16 terms, one bf16 mma a 16-dim step, the f32-query function of the
+      CUDA cores up to the summation order.
+    - ``"bf16"``: ``bin_gather_kernel`` in its bf16 mode, longer bf16 rows.
+    - ``"cuda_core"``: ``bin_gather_kernel``, a block per pair, for f32 and
+      longer int8 and int4 rows.
+
+    Why, on an H100 (tools/probe_gather.py, 1M x 384 rows, B * kb pairs):
+    where one launch's latency is the time, the tensor-core kernels beat
+    ``bin_gather_kernel`` (int8 0.0053 against 0.0080 ms in chip_smoke.py;
+    int4 0.0048 against 0.0071, bf16 0.0080 against 0.0157 at B = 16, kb = 10;
+    bf16 still 1.2x at 640 pairs); from about 640 pairs on, both read near
+    the raw bytes' rate, within 7 % of each other either way (int4
+    0.24-0.25 ms each at B = 256, kb = 100). So no batch or kb picks the
+    route."""
+    if dtype == torch.bfloat16 and row_bytes <= TC_MAX_ROW_BYTES:
+        return "bf16_tc"
+    return _route(dtype, row_bytes)
 
 
 def _mode(corpus: torch.Tensor) -> int:
@@ -359,18 +379,19 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
     _check_cuda(q_in, corpus, row_scales, bins, q_scale if quantized else None)
     out = torch.empty((B, kb, BIN_W), dtype=torch.float32, device=corpus.device)
     route = bin_gather_route(corpus.dtype, row_words * 4)
-    if route == "tc":
+    if route in ("tc", "bf16_tc"):
         # the pairs in their own order (order NULL), one a job: no sort
         _build.check(
             _fn("bin_gather", "sskd_bin_gather_tc")(
-                _ptr(q_in), _ptr(q_scale), _ptr(corpus), _ptr(row_scales), _ptr(bins),
-                None, _ptr(out), B, kb, n, row_words * 4, valid_n, GATHER_TC_RUN,
-                _stream(corpus.device),
+                mode, _ptr(q_in), _ptr(q_scale if quantized else None), _ptr(corpus),
+                _ptr(row_scales), _ptr(bins), None, _ptr(out), B, kb, n, row_words * 4,
+                valid_n, GATHER_TC_RUN, _stream(corpus.device),
             ),
             "bin_gather (tensor cores)",
         )
         bin_gather.launches += 1
         bin_gather.tc_launches += 1
+        bin_gather.bf16_launches += route == "bf16_tc"
         return out
     _build.check(
         _fn("bin_gather", "sskd_bin_gather")(
@@ -386,8 +407,8 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
 
 
 bin_gather.launches = 0
-bin_gather.tc_launches = 0  # the launches that took the tensor-core route
-bin_gather.bf16_launches = 0  # the launches that took the bf16 route
+bin_gather.tc_launches = 0  # the launches that took a tensor-core route ("tc", "bf16_tc")
+bin_gather.bf16_launches = 0  # the launches over bf16 rows ("bf16_tc", "bf16")
 
 
 def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
@@ -418,7 +439,7 @@ _ARGTYPES = {
     "sskd_binmax_strided": "i p p p p p i l i l i p",
     "sskd_binmax_strided_tc": "i p p p p p i l i l i p",
     "sskd_bin_gather": "i p p p p p p i i l i l p",
-    "sskd_bin_gather_tc": "p p p p p p p i i l i l i p",
+    "sskd_bin_gather_tc": "i p p p p p p p i i l i l i p",
     "sskd_cell_gather": "i p p p p p p p i i i i p",
     "sskd_cell_gather_b1": "i p p p p p i i i p",
     "sskd_cell_gather_tc": "p p p p p p p i i i i p",

@@ -278,7 +278,8 @@ def test_kernel_gate_takes_bf16_and_refuses_what_no_kernel_takes():
         with pytest.raises(TypeError, match="no kernel takes"):
             tt.approx_topk(q, _on("cuda", dtype), 10)
     for route in (tk.binmax_route, tk.binmax_strided_route, tk.bin_gather_route):
-        assert route(torch.bfloat16, 768) == "bf16"
+        want = "bf16_tc" if route is tk.bin_gather_route else "bf16"
+        assert route(torch.bfloat16, 768) == want
         assert route(torch.int8, 384) == "tc" and route(torch.float32, 1536) == "cuda_core"
 
 

@@ -655,6 +655,43 @@ def test_bin_gather_tensor_core_route_is_bit_for_bit(B, kb, d):
     assert torch.equal(got, want) and torch.equal(again, got)
 
 
+@pytest.mark.parametrize("d", [32, 96, 384, 1024])
+@pytest.mark.parametrize("kb", [1, 10, 100])
+@pytest.mark.parametrize("B", [1, 7, 16, 65, 256])
+def test_int4_bin_gather_tensor_core_route_is_bit_for_bit(B, kb, d):
+    """Packed int4 rows of 16 to 512 bytes take bin_gather's tensor-core
+    kernel (counted in tc_launches): scores bit for bit with the plain
+    version, where queries share bins, for the ragged last bin and a valid_n
+    that cuts the bin before it, at a half of 16 mod 32 bytes (D = 96: each
+    half's query lanes past its bytes must read as zeros), and bitwise
+    equal over two launches."""
+    _need_card()
+    n = 70_001  # 547 bins, the last of 113 rows
+    x, q = _data(n, d, B, seed=800 + B + kb + d)
+    corpus, scales = _storage("int4", x)
+    q_in, q_scale = tk.quantize_queries(q, corpus)
+    assert corpus.shape[1] == d // 2 and tk.bin_gather_route(corpus.dtype, d // 2) == "tc"
+    g = torch.Generator(device="cuda").manual_seed(B * kb + d)
+    bins = torch.stack([torch.randperm(547, device="cuda", generator=g)[:kb]
+                        for _ in range(B)]).to(torch.int32)
+    bins[: max(1, B // 2), 0] = 546  # the ragged last bin, shared
+    if kb > 1:
+        bins[B // 2:, 1] = 545  # the bin that valid_n cuts
+        bins[B // 2:, 2:] = bins[0, 2:].clone()  # shared with query 0
+    bins = bins.contiguous()
+    valid_n = 545 * 128 + 70
+    before = (tk.bin_gather.launches, tk.bin_gather.tc_launches, tk.bin_gather.bf16_launches)
+    got = tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
+    again = tk.bin_gather(q_in, q_scale, corpus, scales, bins, valid_n)
+    want = tk.bin_gather_plain(q_in, q_scale, corpus, scales, bins, valid_n)
+    torch.cuda.synchronize()
+    assert (tk.bin_gather.launches, tk.bin_gather.tc_launches,
+            tk.bin_gather.bf16_launches) == (before[0] + 2, before[1] + 2, before[2])
+    assert torch.equal(got, want) and torch.equal(again, got)
+    rows = bins.long()[:, :, None] * 128 + torch.arange(128, device="cuda")
+    assert torch.equal(got == tk.NEG_INF, rows >= valid_n)
+
+
 @pytest.mark.parametrize("dtype,d", [("f32", 384), ("int4", 1056), ("int8", 1040)])
 def test_topk_cuda_core_routes_and_their_counters(dtype, d):
     """f32 rows, and packed int4 (528 bytes) and int8 rows over the limits,
@@ -838,27 +875,38 @@ def test_bf16_routes_of_binmax_and_binmax_strided(B, d):
 @pytest.mark.parametrize("B,kb,d", [(1, 10, 384), (16, 10, 384), (64, 40, 384), (3, 7, 64),
                                     (2, 12, 1040)])
 def test_bf16_route_of_bin_gather(B, kb, d):
-    """bin_gather over bf16 rows (bin_gather_kernel's bf16 mode, the "bf16"
-    route): no scales, the f32 query, each score the in-order fma chain over
-    the widened row, so bit for bit with the CPU emulation and within 1e-5
-    of the plain version; rows past valid_n at the sentinel."""
-    from torch_tc_emulation import f32_tile_scores
+    """bin_gather over bf16 rows: no scales, the f32 query. Rows of at most
+    1,024 bytes take the tensor-core kernel (the "bf16_tc" route, counted in
+    bf16_launches and tc_launches): the query split exactly into three bf16
+    terms, each step's sum truncated to f32, so within 1e-5 of the plain
+    version and of the CPU emulation of that arithmetic; longer rows take
+    bin_gather_kernel's bf16 mode (the "bf16" route), each score the
+    in-order fma chain over the widened row, bit for bit with the CPU
+    emulation. Rows past valid_n at the sentinel."""
+    from torch_tc_emulation import bin_gather_bf16_tc, f32_tile_scores
 
     _need_card()
     n = 20_001
     x, q = _data(n, d, B, seed=700 + B + d)
     corpus, _ = _storage("bf16", x)
     valid_n = n - 9
-    assert tk.bin_gather_route(corpus.dtype, 2 * d) == "bf16"
+    route = tk.bin_gather_route(corpus.dtype, 2 * d)
+    assert route == ("bf16_tc" if 2 * d <= tk.TC_MAX_ROW_BYTES else "bf16")
     _, bins = tk.topk_stable(tk.binmax_plain(q, corpus, None, valid_n).T, kb)
     bins = bins.to(torch.int32).contiguous()
     before = (tk.bin_gather.launches, tk.bin_gather.bf16_launches, tk.bin_gather.tc_launches)
     got = tk.bin_gather(q, None, corpus, None, bins, valid_n)
     torch.cuda.synchronize()
     assert (tk.bin_gather.launches, tk.bin_gather.bf16_launches,
-            tk.bin_gather.tc_launches) == (before[0] + 1, before[1] + 1, before[2])
+            tk.bin_gather.tc_launches) == (before[0] + 1, before[1] + 1,
+                                           before[2] + (route == "bf16_tc"))
     want = tk.bin_gather_plain(q, None, corpus, None, bins, valid_n)
     assert (got - want).abs().max().item() <= 1e-5
+    if route == "bf16_tc":
+        emu = bin_gather_bf16_tc(q.cpu(), corpus.cpu(), None, bins.cpu(), valid_n)
+        assert (got.cpu() - emu).abs().max().item() <= 1e-5
+        assert torch.equal(got.cpu() == tk.NEG_INF, emu == tk.NEG_INF)
+        return
     rows = (bins.long()[:, :, None] * 128 + torch.arange(128, device="cuda")).view(B, -1)
     scores = f32_tile_scores(q.cpu(), corpus.cpu())  # [N, B]
     safe = rows.clamp(max=n - 1).cpu()
@@ -934,7 +982,7 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
     the plain versions at "highest": the rescore is an elementwise product
     and an f32 sum, so the scores agree within 1e-6 and the ids are equal.
     int8 candidates come from the approx pass on the tensor cores, int4 from
-    the exact kernel engine, its binmax on the tensor cores."""
+    the exact kernel engine, its binmax and bin_gather on the tensor cores."""
     from sskd_tpu_torch.ops import tc_launch_counts, launch_counts
     from sskd_tpu_torch.ops.topk import refined_topk, refined_topk_core
 
@@ -962,7 +1010,7 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
         assert after["binmax"] - before["binmax"] == 1 and after["bin_gather"] - before[
             "bin_gather"] == 1
         assert tc_after["binmax"] - tc_before["binmax"] == 1
-        assert tc_after["bin_gather"] == tc_before["bin_gather"]
+        assert tc_after["bin_gather"] - tc_before["bin_gather"] == 1
 
 
 # ---------------------------------------------------------------------------

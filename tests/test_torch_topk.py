@@ -14,6 +14,7 @@ below the reduction threshold and at recall_target 1.0 the ids are equal.
 
 from types import SimpleNamespace
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -26,12 +27,14 @@ from sskd_tpu.ops.topk_pallas import cosine_topk_pallas
 from sskd_tpu_torch.ops import topk as tt
 from sskd_tpu_torch.ops import topk_kernels as tk
 from torch_tc_emulation import (
+    bin_gather_bf16_tc,
     bin_gather_tc,
     binmax_f32,
     binmax_strided_f32,
     binmax_strided_tc,
     binmax_tc,
     packed_tile_dot,
+    split_bf16x3,
     unpack_i4_words,
 )
 
@@ -347,13 +350,19 @@ def test_approx_keeps_neighbours_stored_side_by_side():
     (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
     (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
     (tk.bin_gather_route, torch.float32, 384 * 4, "cuda_core"),
-    (tk.bin_gather_route, torch.uint8, 192, "cuda_core"),
-    (tk.bin_gather_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2, "cuda_core"),
+    (tk.bin_gather_route, torch.uint8, 192, "tc"),
+    (tk.bin_gather_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2, "tc"),
+    (tk.bin_gather_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2 + 16, "cuda_core"),
+    (tk.bin_gather_route, torch.bfloat16, 768, "bf16_tc"),
+    (tk.bin_gather_route, torch.bfloat16, tk.TC_MAX_ROW_BYTES, "bf16_tc"),
+    (tk.bin_gather_route, torch.bfloat16, tk.TC_MAX_ROW_BYTES + 16, "bf16"),
 ])
 def test_topk_kernel_routes(route, dtype, row_bytes, want):
     """int8 rows go to the tensor cores, and packed int4 rows of at most
-    512 bytes (D <= 1,024) in binmax and binmax_strided; f32, bin_gather's
-    int4 and rows over the route's limit to the CUDA-core kernels."""
+    512 bytes (D <= 1,024); bin_gather's bf16 rows of at most 1,024 bytes
+    (D <= 512) to its split-query tensor-core kernel, longer ones to the
+    CUDA cores' bf16 mode; f32 and rows over the route's limit to the
+    CUDA-core kernels."""
     assert route(dtype, row_bytes) == want
 
 
@@ -414,6 +423,146 @@ def test_tensor_core_bin_gather_traversal_is_bit_for_bit(B, kb, sort):
     if sort:
         assert set(loads.values()) == {1}
         assert sorted(loads) == sorted(set(bins.reshape(-1).tolist()))
+
+
+def _jax_gather(q_in, q_scale, corpus, scales, bins, valid_n):
+    """The JAX package's _gather_kernel through its own pallas_call, in
+    interpret mode: scores [B, kb, 128] of the rows of ``bins`` [B, kb], one
+    grid step a query with its kb bins as operands; int8 queries as f32
+    with their scales [B] for int8 and packed int4 rows, f32 queries for
+    bf16 rows (ml_dtypes bfloat16)."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from sskd_tpu.ops import topk_pallas as tp
+
+    B, d = q_in.shape
+    kb = bins.shape[1]
+    n, dc = corpus.shape
+    padded = -(-n // 128) * 128
+    corpus = np.pad(corpus, ((0, padded - n), (0, 0)))
+    quantized = corpus.dtype in (np.int8, np.uint8)
+    vmem = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
+
+    def bin_spec(jj, width):
+        return vmem((128, width), functools.partial(
+            lambda b, j, bins, valid, _jj: (bins[b, _jj], 0), _jj=jj))
+
+    specs = [vmem((B, d), lambda b, j, bins, valid: (0, 0)),
+             vmem((B, 1), lambda b, j, bins, valid: (0, 0))]
+    operands = [jnp.asarray(q_in, jnp.float32),
+                jnp.asarray(q_scale.reshape(B, 1) if quantized else np.ones((B, 1), np.float32))]
+    specs += [bin_spec(jj, dc) for jj in range(kb)]
+    operands += [jnp.asarray(corpus)] * kb
+    if scales is not None:
+        specs += [bin_spec(jj, 1) for jj in range(kb)]
+        operands += [jnp.asarray(np.pad(scales, (0, padded - n)).reshape(padded, 1))] * kb
+    out = pl.pallas_call(
+        functools.partial(tp._gather_kernel, has_scales=scales is not None,
+                          is_int8=corpus.dtype == np.int8, is_int4=corpus.dtype == np.uint8),
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=2, grid=(B, 1), in_specs=specs,
+            out_specs=vmem((1, kb, 128), lambda b, j, bins, valid: (b, j, 0))),
+        out_shape=jax.ShapeDtypeStruct((B, kb, 128), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(bins), jnp.asarray([valid_n], jnp.int32), *operands)
+    return np.asarray(out)
+
+
+def _gather_bins(seed, B, kb, n_bins):
+    """Seeded distinct bins [B, kb] int32, the ragged last bin shared by half
+    the queries."""
+    rng = np.random.default_rng(seed)
+    bins = np.stack([rng.permutation(n_bins)[:kb] for _ in range(B)]).astype(np.int32)
+    bins[: max(1, B // 2), 0] = n_bins - 1
+    return torch.from_numpy(bins)
+
+
+@pytest.mark.parametrize("n,valid_n,B,kb,d", [
+    (1900, 1900, 1, 12, 64),     # a ragged last bin (108 rows), rows of 32 packed bytes
+    (1900, 1850, 5, 12, 96),     # 48 packed bytes (16 mod 32), valid_n cuts the last bin
+    (1300, 1250, 9, 7, 1024),    # the longest packed row (512 bytes), two 8-query groups
+    (2000, 1920, 3, 16, 32),     # 16 packed bytes, the last bin holds no valid row
+])
+def test_tensor_core_int4_bin_gather_is_bit_for_bit(n, valid_n, B, kb, d):
+    """Packed int4 rows through the tensor-core bin gather
+    (tests/torch_tc_emulation.py ``bin_gather_tc``: each packed step
+    unpacked into two s8 fragments against the query halves, each half's
+    lanes past its bytes zero, rows past the corpus read as zero bytes, -8
+    in every dim, and masked) give bin_gather_plain's scores bit for bit,
+    and so does the JAX package's _gather_kernel int4 branch (interpret
+    mode)."""
+    x, q = _int8_case(n + B + d, n, d, B)
+    xq, xs = (np.array(a) for a in jquant4(x))
+    packed, scales = torch.from_numpy(xq), torch.from_numpy(xs)
+    q_in, q_scale = tk.quantize_queries(torch.from_numpy(q), packed)
+    n_bins = -(-n // 128)
+    bins = _gather_bins(n * B + kb, B, kb, n_bins)
+    got, _ = bin_gather_tc(q_in, q_scale, packed, scales, bins, valid_n)
+    want = tk.bin_gather_plain(q_in, q_scale, packed, scales, bins, valid_n)
+    assert torch.equal(got, want)  # no NaN left: every pair scored
+    jax_got = _jax_gather(q_in.numpy(), q_scale.numpy(), xq, xs, bins.numpy(), valid_n)
+    np.testing.assert_array_equal(jax_got, want.numpy())
+    rows = bins.long()[:, :, None] * 128 + torch.arange(128)
+    assert ((got == tk.NEG_INF) == (rows >= valid_n)).all()
+
+
+@pytest.mark.parametrize("kind", ["seeded", "zeros", "bf16_values", "small"])
+def test_split_query_terms_are_exact(kind):
+    """The f32 query's three bf16 terms (csrc/mma_common.cuh ``bf16_term``,
+    tests/torch_tc_emulation.py ``split_bf16x3``) are bf16 values that sum
+    to the query exactly, bit for bit, in f32 and in float64: over seeded
+    values, zeros (every term 0), exact bf16 values (t1 = t2 = 0) and small
+    magnitudes."""
+    rng = np.random.default_rng(5)
+    x = {"seeded": rng.standard_normal(20_000) * 10.0 ** rng.integers(-6, 7, 20_000),
+         "zeros": np.zeros(64),
+         "bf16_values": rng.standard_normal(4096).astype(ml_dtypes.bfloat16).astype(np.float64),
+         "small": rng.standard_normal(4096) * 1e-30}[kind]
+    x = torch.from_numpy(np.asarray(x, dtype=np.float32))
+    terms = split_bf16x3(x)
+    for t in terms:
+        assert torch.equal(t.to(torch.bfloat16).float(), t)  # each a bf16 value
+    assert torch.equal((terms[0] + terms[1]) + terms[2], x)
+    total = terms[0].double() + terms[1].double() + terms[2].double()
+    assert torch.equal(total, x.double())
+    if kind in ("zeros", "bf16_values"):
+        assert torch.equal(terms[1], torch.zeros_like(x)) and torch.equal(terms[2], terms[1])
+
+
+@pytest.mark.parametrize("n,valid_n,B,kb,d,scaled", [
+    (1900, 1850, 3, 12, 64, False),    # a ragged last bin cut by valid_n
+    (1300, 1300, 2, 5, 512, False),    # the longest row of the route (1,024 bytes)
+    (2000, 1920, 4, 9, 40, True),      # 80-byte rows (a zero tail), scales
+])
+def test_split_query_bf16_gather_within_1e5(n, valid_n, B, kb, d, scaled):
+    """The bf16 tensor-core bin gather (tests/torch_tc_emulation.py
+    ``bin_gather_bf16_tc``: the f32 query as three bf16 terms in one mma a
+    16-dim step, each step's sum truncated to f32, each score (c2 + c1) +
+    c0) stays within the 1e-5 that the card's checks allow of
+    bin_gather_plain and of the JAX package's _gather_kernel bf16 branch
+    (interpret mode), with rows past valid_n at the sentinel."""
+    x, q = _int8_case(n + d + B, n, d, B)
+    xb = x.astype(ml_dtypes.bfloat16)
+    xt = torch.from_numpy(xb.view(np.int16)).view(torch.bfloat16)
+    qt = torch.from_numpy(q)
+    scales = (np.random.default_rng(d).uniform(0.5, 2.0, n).astype(np.float32)
+              if scaled else None)
+    st = torch.from_numpy(scales) if scaled else None
+    bins = _gather_bins(n + kb, B, kb, -(-n // 128))
+    got = bin_gather_bf16_tc(qt, xt, st, bins, valid_n)
+    want = tk.bin_gather_plain(qt, None, xt, st, bins, valid_n)
+    dead = want == tk.NEG_INF
+    assert torch.equal(got == tk.NEG_INF, dead)
+    assert (got - want).abs().max().item() <= 1e-5
+    jax_got = _jax_gather(q, None, xb, scales, bins.numpy(), valid_n)
+    assert np.abs(got.numpy() - jax_got).max() <= 1e-5
+    # the split carries the f32 query: rounding it to bf16 moves scores further
+    rounded = tk.bin_gather_plain(qt.to(torch.bfloat16).float(), None, xt, st, bins, valid_n)
+    assert (rounded - want).abs().max().item() > 10 * (got - want).abs().max().item()
 
 
 def test_exact_engine_at_b64_int8_matches_jax():
@@ -536,7 +685,7 @@ def test_plain_binmax_matches_the_jax_binmax_kernel(dtype):
 
 
 def test_int4_fragment_unpack_matches_the_jax_nibbles():
-    """The tensor-core kernels' unpack of a packed step (csrc/binmax.cu
+    """The tensor-core kernels' unpack of a packed step (csrc/mma_common.cuh
     ``unpack_i4`` on the 32-bit registers of an ldmatrix fragment) gives, for
     each of the 256 byte values in each byte of a register, 16 times the JAX
     package's nibble values (``_unpack_nibbles``): the low nibble into the

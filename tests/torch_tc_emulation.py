@@ -36,14 +36,21 @@ one-pass TF32 product the tests show the 1e-5 checks would catch.
 ``tf32_fragment_keys`` and ``tf32_forward_fragment_keys`` write out which
 keys of a chunk each lane of the f32 backward and forward holds.
 
-``tile_gather_tc`` follows the schedule of csrc/gather_tc.cuh, the int8
+``tile_gather_tc`` follows the schedule of csrc/gather_tc.cuh, the
 gather that ``cell_gather_tc_kernel`` and ``bin_gather_tc_kernel`` share:
 runs of entries moved to the boundaries of equal cells, each run's groups
 taken in turn, each group's 16-row tiles (rows past the corpus read as
-zeros) against its queries eight at a time, exact integer dots, the
-kernels' order of the two scale products and NEG_INF at rows >= valid_n.
+zero bytes) against its queries eight at a time, exact integer dots (int8
+rows, or packed int4 rows through ``packed_tile_dot``, which the kernel
+scores one staged query at a time: the same exact sums), the kernels' order
+of the two scale products and NEG_INF at rows >= valid_n.
 ``cell_gather_tc`` gives it the pairs sorted by cell in runs of 8;
 ``bin_gather_tc`` 128-row bins, in the pairs' own order or sorted by bin.
+``bin_gather_bf16_tc`` follows ``bin_gather_bf16_tc_kernel``: bf16 rows
+against the f32 query split exactly into three bf16 terms
+(``split_bf16x3``), the terms as columns 0-2 of an 8-column B operand,
+one ``mma`` a 16-dim step over rows zero-filled to the step count, and
+each score the sum of the three columns, the smallest first.
 
 ``binmax_strided_tc`` follows csrc/binmax.cu ``binmax_strided_tc_kernel``:
 logical block j as two blocks of four warps, each warp 16 row positions of
@@ -396,6 +403,7 @@ def tile_gather_tc(q_in, q_scale, corpus, row_scales, cells, order, per_query, r
     cl = [int(c) for c in cells]
     od = list(range(n)) if order is None else [int(p) for p in order]
     n_rows, d = corpus.shape
+    packed = corpus.dtype == torch.uint8
     out = torch.full((n, rpc), float("nan"))
     loads = Counter()
     for _, g, g_end in _groups(cl, n, run_len):
@@ -405,13 +413,13 @@ def tile_gather_tc(q_in, q_scale, corpus, row_scales, cells, order, per_query, r
             rows = c * rpc + r0 + torch.arange(min(TC_TILE, rpc - r0))
             live = rows < n_rows
             tile = torch.zeros(len(rows), d, dtype=torch.int64)
-            tile[live] = corpus[rows[live]].to(torch.int64)  # past the corpus: zeros
+            tile[live] = corpus[rows[live]].to(torch.int64)  # past the corpus: zero bytes
             scale = torch.full((len(rows),), float("nan"))  # never read where dead
             scale[live] = row_scales[rows[live]]
             for q0 in range(g, g_end, 8):
                 pairs = od[q0:min(q0 + 8, g_end)]
                 bs = [pair // per_query for pair in pairs]
-                dots = (tile @ q_in[bs].to(torch.int64).T).to(torch.float32)  # exact
+                dots = _tile_dot(tile, q_in[bs].to(torch.int64), packed).to(torch.float32)
                 scores = (dots * q_scale[bs]) * scale[:, None]
                 scores = torch.where((rows < valid_n)[:, None], scores, NEG)
                 out[pairs, r0:r0 + len(rows)] = scores.T
@@ -432,10 +440,11 @@ def cell_gather_tc(q_in, q_scale, corpus, row_scales, probe, rpc):
 
 
 def bin_gather_tc(q_in, q_scale, corpus, row_scales, bins, valid_n, sort=False):
-    """(scores [B, kb, 128] f32, loads) of the int8 tensor-core bin gather
-    over bins of 128 rows, the last one ragged: the (query, slot) pairs in
-    their own order, one a warp (the wrapper's), or sorted by bin in runs
-    of 8 as cell_gather takes its pairs (each distinct bin loaded once)."""
+    """(scores [B, kb, 128] f32, loads) of the tensor-core bin gather over
+    int8 or packed int4 rows in bins of 128 rows, the last one ragged: the
+    (query, slot) pairs in their own order, one a warp (the wrapper's), or
+    sorted by bin in runs of 8 as cell_gather takes its pairs (each distinct
+    bin loaded once)."""
     B, kb = bins.shape
     if sort:
         cells, order = torch.sort(bins.reshape(-1), stable=True)
@@ -446,11 +455,50 @@ def bin_gather_tc(q_in, q_scale, corpus, row_scales, bins, valid_n, sort=False):
     return out.view(B, kb, BIN_W), loads
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 terms of f32 ``x`` (csrc/mma_common.cuh ``bf16_term``),
+    as f32 tensors: t0 = bf16(x), t1 = bf16(x - t0), t2 = x - t0 - t1, each
+    difference taken in f32."""
+    t0 = _bf16(x)
+    r = x - t0
+    t1 = _bf16(r)
+    return t0, t1, r - t1
+
+
+def bin_gather_bf16_tc(q, corpus, row_scales, bins, valid_n):
+    """Scores [B, kb, 128] f32 of ``bin_gather_bf16_tc_kernel`` for f32
+    queries ``q`` [B, D] and bf16 rows ``corpus`` [N, D]: each (query, slot)
+    pair's rows, zero-filled past the corpus and to the step count, times
+    the query's three bf16 terms in columns 0-2 of an 8-column operand
+    (``mma``: each 16-deep step's exact sum truncated to f32), each score
+    (c2 + c1) + c0, then the row scale if any and NEG_INF at rows >=
+    valid_n."""
+    B, kb = bins.shape
+    n, d = corpus.shape
+    width = 16 * tc_steps(2 * d)  # the kernel's 32-byte steps, 16 bf16 each
+    out = torch.empty(B, kb, BIN_W)
+    for b in range(B):
+        terms = torch.zeros(width, 8)
+        for col, t in enumerate(split_bf16x3(q[b].to(torch.float32))):
+            terms[:d, col] = t
+        for slot in range(kb):
+            rows = int(bins[b, slot]) * BIN_W + torch.arange(BIN_W)
+            live = rows < n
+            tile = torch.zeros(BIN_W, width)
+            tile[live, :d] = corpus[rows[live]].float()
+            acc = mma(tile, terms)
+            scores = (acc[:, 2] + acc[:, 1]) + acc[:, 0]
+            if row_scales is not None:
+                scores = scores * row_scales[rows.clamp(max=n - 1)]
+            out[b, slot] = torch.where(rows < valid_n, scores, NEG)
+    return out
+
+
 ST_WARPS, ST_PARTS, ST_QUERIES = 4, 2, 64  # csrc/binmax.cu
 
 
 def unpack_i4_words(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """csrc/binmax.cu ``unpack_i4`` on 32-bit registers (int64 tensors of
+    """csrc/mma_common.cuh ``unpack_i4`` on 32-bit registers (int64 tensors of
     values < 2^32): each nibble n of a packed byte to the s8 value 16 (n - 8)
     in the high half of its byte, the low nibbles into ``lo`` and the high
     ones into ``hi``, two logic operations and one."""
