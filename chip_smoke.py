@@ -36,14 +36,20 @@ Phases, each fatal when it fails:
              timed beside SDPA and plain_attention (the FLASH_MIN_L
              crossover), and f32 (the CUDA-core route) at L = 512 within
              1e-5; dropattn_fwd / dropattn_bwd: [256, 12, 192, 32],
-             [32, 12, 64, 32] and [256, 12, 512, 32] bf16 with a random padding
-             bias, p in {0, 0.1}, each element within its rounding bound, each
-             kernel on the route its (dtype, L) selects (the forward on the
-             tensor cores at all three) and bitwise equal over two launches,
-             f32 within 1e-5, the kernels' keep-mask equal to the plain one
-             bit for bit (f32 at L = 256, and bf16 at L = 192 through the
-             tensor-core forward and backward), each timed beside SDPA, the
-             byte bound and the exp and Philox floors; binmax_strided,
+             [32, 12, 64, 32], [256, 12, 512, 32] and [32, 12, 264, 32] bf16
+             and [256, 12, 192, 32] f32 with a random padding bias, p in {0,
+             0.1}, each element within its rounding bound (f32 within 1e-5),
+             each kernel on the route its (dtype, L) selects (the backward
+             holding the head at L = 64 and 192 in bf16, streaming it past
+             256 and in f32) and bitwise equal over two launches, the
+             kernels' keep-mask equal to the plain one bit for bit (f32 at
+             L = 256; bf16 at L = 192 and 512 through the resident and the
+             streaming backward; the streaming backward's packed keep bits
+             at L = 512 and 264), each timed beside SDPA, the byte bound and
+             the exp and Philox floors, the streaming kernels' device time
+             summed over their three launches, ptxas's registers and
+             spills, and the streaming kernels at [256, 12, 192, 32] bf16
+             beside the resident one; binmax_strided,
              the approx engine's pass, at every binmax case;
              cell_gather and cell_gather_b1 over 977 cells x 1,024 rows x
              384, nprobe 64: int8 at B in {1, 16, 64} bit for bit (B > 1 on
@@ -52,16 +58,19 @@ Phases, each fatal when it fails:
              ragged case, nprobe 11 over cells of 768 rows, and
              cell_gather_b1's kernel alone on the card; the teacher's head
              dim 64: dropattn_fwd / dropattn_bwd at [32, 16, 64, 64] (both on
-             the tensor cores, f32 as three TF32 products) and [8, 16, 512,
-             64] (the forward on the tensor cores, the backward on the
-             CUDA-core pair), f32 and bf16, p in {0, 0.1}, and flash_attn_fwd
+             the tensor cores, f32 as three TF32 products, the backward
+             holding the head; the streaming kernels timed beside it), [8,
+             16, 512, 64] f32 and bf16, [32, 16, 512, 64] f32 and the ragged
+             [8, 16, 200, 64] f32 and [8, 16, 216, 64] bf16 (the backward
+             streaming the head), p in {0, 0.1}, and flash_attn_fwd
              at [32, 16, 512, 64] on its tensor-core route, f32 and bf16,
              each on the route (dtype, d, L) selects, one tensor-core launch a
              call where that is the route, counted at d = 64, bitwise
              repeatable, f32 within 1e-5 and bf16 within the rounding bounds,
              the keep-mask read back bit for bit (f32 at L = 64, 128, 256 and
-             512 through the tensor-core forward, bf16 at 192), ptxas's
-             registers and spills beside each time):
+             512 through the tensor-core forward and both backward routes,
+             bf16 at 192), the streaming backward's packed keep bits at
+             L = 200, ptxas's registers and spills beside each time):
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k, cell and d = 64 attention kernels),
              the bound and yardsticks that the port never calls;
@@ -88,7 +97,14 @@ Phases, each fatal when it fails:
              kernels no farther from the plain pair's than bf16 rounding of
              the attention moves them; ms per step (CUDA events and the
              loop's host cadence), samples/s, peak device memory and the
-             device busy share over a few steps;
+             device busy share over a few steps; then KDTrainer.train at
+             doc_len 512 (the length configs/kd.yaml encodes passages at),
+             query_len 64, 4 steps of 32 queries x 8 docs of 300-480 words:
+             every loss finite, the dropattn launches the code implies,
+             every doc-tower backward (L = 512) on the streaming route and
+             every query-tower one holding its head, one step's gradients
+             vs the plain pair's within bf16 rounding's distance at 4
+             queries x 8 docs (three batches), ms per step and peak memory;
 5. clustered — the cell-probe path at full width: a seeded 1,000,000 x 384
              corpus of 1,000 topics in 32 dimensions, built into a clustered
              int8 index (977 cells x 1,024 rows, nprobe 64), saved and loaded;
@@ -137,7 +153,12 @@ Phases, each fatal when it fails:
              and on the tensor cores, step 1 (lr 0) leaving the parameters
              bit for bit, one
              step's gradients through the kernels within 1e-3 of the plain
-             pair's; saved and reloaded bit for bit; TeacherModel.score of
+             pair's; then 4 steps at max_len 512 (batch 32, passages of
+             300-480 words): every loss finite, 24 + 24 dropattn launches a
+             step at d = 64, every backward streaming the head, one step's
+             gradients within 1e-3 of the plain pair's at a batch of 8, ms
+             per step, samples/s and peak memory; saved and reloaded bit for
+             bit; TeacherModel.score of
              1,024 pairs in chunks of 32 whose buckets reach 512 (every
              L = 512 chunk 24 flash_attn_fwd launches at d = 64, all on the
              tensor cores), within 1e-4 (1 + |s|) of the same scores through
@@ -1125,89 +1146,194 @@ def masks_equal(seed: int, BH: int, L: int, p: float) -> bool:
     )
 
 
-def phase_dropattn(gen) -> tuple[list, dict, dict]:
+def masks_spelled_stream_bf16(seed: int) -> bool:
+    """The read-back of masks_spelled_bf16 through the streaming backward at
+    L = 512, head dim 32: a bias that leaves keys 0..255 live makes each
+    live probability 1/256, each kept pd 1/128 exactly in bf16 at p = 0.5;
+    g holding 2^(i % 8) in channel i // 8 for the rows i of one half (two
+    launches) makes dv spell each live key's keep bits over all 512 rows:
+    the bits the first kernel drew and the third applied."""
     from sskd_tpu_torch.ops import attention as ta
 
-    rows, main_fwd, main_bwd = [], None, None
+    B, h, L, d, live = 2, 12, 512, 32, 256
+    j = torch.arange(L, device="cuda")
+    zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
+    bias = torch.where(j < live, 0.0, torch.finfo(torch.bfloat16).min / 2).expand(B, L)
+    bias = bias.contiguous()
+    _, lse = ta.dropattn_fwd(zero, zero, zero, bias, 0.5, seed)
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    bit = torch.arange(8, device="cuda")
+    ok = True
+    for half in range(2):
+        rows = j - 256 * half
+        mine = (rows >= 0) & (rows < 256)
+        code = torch.zeros(L, d, device="cuda")
+        code[j[mine], rows[mine] // 8] = (2.0 ** (rows[mine] % 8)).float()
+        code = code.to(torch.bfloat16).expand(B, h, L, d).contiguous()
+        before = ta.dropattn_bwd.stream_launches
+        _, _, dv = ta.dropattn_bwd(zero, zero, zero, bias, 0.5, seed, lse, code)
+        check(ta.dropattn_bwd.stream_launches == before + 1,
+              "bf16 L=512: not the streaming backward")
+        c = (dv[:, :, :live].float() * 128).round().long()
+        spelled = ((c[..., None] >> bit) & 1).flatten(-2).bool()  # [B, h, live keys, 256 rows]
+        ok = ok and bool((spelled == want[:, :, 256 * half:256 * (half + 1), :live]
+                          .transpose(-1, -2)).all())
+    return ok
+
+
+def stream_bits_equal(q, k, v, bias, p, seed, lse, g) -> bool:
+    """The keep bits the streaming backward's first kernel wrote, through
+    its private entry, against the plain mask packed the same way
+    (pack_keep_bits), head block by head block."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, L, _ = q.shape
+    bits = ta._dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g)[4]
+    step = max(1, (1 << 25) // (L * L))
+    return all(torch.equal(bits[a:a + step], ta.pack_keep_bits(
+        ta.dropout_uniform(seed, a, min(step, B * h - a), L, "cuda") >= p))
+        for a in range(0, B * h, step))
+
+
+def stream_times(q, k, v, bias, p, seed, lse, g, build: dict, pre: str = "bwd") -> dict:
+    """The streaming backward's ms a call (CUDA events), its device time
+    summed over its three launches (profiler; kernel_device_ms), and
+    ptxas's registers and spills of its kernels at this (dtype, d), keyed
+    ``{pre}_ms`` etc. Through the private entry, so it takes any L."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    d = q.shape[-1]
+    tname = "f" if q.dtype == torch.float32 else "13__nv_bfloat16"
+    return {
+        f"{pre}_ms": time_ms(lambda: ta._dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g), 10),
+        f"{pre}_kernel_device_ms": kernel_device_ms(
+            lambda: ta._dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g),
+            "dropattn_bwd_stream"),
+        f"{pre}_ptxas": ptxas_of(build, "dropattn_bwd",
+                                 f"dropattn_bwd_stream_(rows|cols)_kernelI{tname}Li{d}"),
+    }
+
+
+# the dropattn cases at head dim 32: the student's train lengths (bf16 on the
+# resident backward), doc_len 512 and a ragged length past the resident
+# limit (bf16 on the streaming backward), and f32 compute at L = 192
+# (streaming: no resident f32 kernel at d = 32)
+DROPATTN_D32_CASES = (((256, 12, 192, 32), torch.bfloat16), ((32, 12, 64, 32), torch.bfloat16),
+                      ((256, 12, 512, 32), torch.bfloat16), ((32, 12, 264, 32), torch.bfloat16),
+                      ((256, 12, 192, 32), torch.float32))
+
+
+def phase_dropattn(gen, build: dict) -> tuple[list, dict, dict, dict]:
+    """dropattn_fwd / dropattn_bwd at head dim 32 against their plain
+    versions (DROPATTN_D32_CASES), p in {0, 0.1}: each on the route its
+    (dtype, L) selects, one tensor-core backward launch a call (and one on
+    the streaming route where that is the route), bitwise repeatable, bf16
+    within the rounding bounds and f32 within 1e-5; the keep-masks read back
+    bit for bit (L = 256 f32, L = 192 bf16 through the resident backward,
+    L = 512 bf16 through the streaming one) and the streaming backward's
+    packed keep bits equal to the plain ones at L = 512 and 264; times
+    beside SDPA and the bounds, the streaming kernels' summed device time
+    and ptxas's registers and spills, and at [256, 12, 192, 32] bf16 the
+    streaming kernels beside the resident one. Returns the rows and the
+    main entries of the resident forward and backward ([256, 12, 192, 32]
+    bf16, p 0.1) and of the streaming backward ([256, 12, 512, 32] bf16)."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    rows, main_fwd, main_bwd, main_stream = [], None, None, None
     check(masks_spelled_by_kernels(31), "dropattn kernels: applied keep-mask differs")
     log("[kernels] dropattn: the masks both kernels apply equal the plain mask (L = 256)")
     check(masks_spelled_bf16(37), "dropattn bf16 L=192: applied keep-mask differs")
-    log("[kernels] dropattn: bf16 at L = 192, the tensor-core forward and backward apply the "
-        "plain mask")
-    for B, h, L, d in ((256, 12, 192, 32), (32, 12, 64, 32), (256, 12, 512, 32)):
+    check(masks_spelled_stream_bf16(39), "dropattn bf16 L=512: applied keep-mask differs")
+    log("[kernels] dropattn: bf16 at L = 192 and 512, the tensor-core forward and the resident "
+        "and streaming backward apply the plain mask")
+    for (B, h, L, d), dtype in DROPATTN_D32_CASES:
         BH = B * h
-        q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(torch.bfloat16)
+        f32 = dtype == torch.float32
+        q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(dtype)
                       for _ in range(4))
         bias = attn_bias(B, L, gen)
         seed = 1000 + L
         check(masks_equal(seed, BH, L, 0.1), f"dropattn keep-mask [{BH}, {L}, {L}] differs")
         for p in (0.0, 0.1):
-            f_route = ta.dropattn_fwd_route(q.dtype, d, L)
-            check(f_route == "tc", f"dropattn_fwd bf16 L={L}: route {f_route}")
+            tag = f"{str(dtype).split('.')[1]} L={L} p={p}"
+            f_route = ta.dropattn_fwd_route(dtype, d, L)
+            check(f_route == ("cuda_core" if f32 else "tc"), f"dropattn_fwd {tag}: route {f_route}")
             before = ta.dropattn_fwd.tc_launches
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
-            check(ta.dropattn_fwd.tc_launches == before + 1,
-                  f"dropattn_fwd L={L}: the launch did not take the tensor-core route")
+            check(ta.dropattn_fwd.tc_launches == before + (f_route == "tc"),
+                  f"dropattn_fwd {tag}: the launch did not take the {f_route} route")
             f_again = ta.dropattn_fwd(q, k, v, bias, p, seed)
             check(torch.equal(out, f_again[0]) and torch.equal(lse, f_again[1]),
-                  f"dropattn_fwd L={L} p={p}: two launches differ")
+                  f"dropattn_fwd {tag}: two launches differ")
             del f_again
             want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
-            route = ta.dropattn_bwd_route(q.dtype, d, L)
-            before = ta.dropattn_bwd.tc_launches
+            route = ta.dropattn_bwd_route(dtype, d, L)
+            check(route == ("tc" if L <= ta.DROPATTN_TC_MAX_L.get((dtype, d), 0)
+                            else "tc_stream"), f"dropattn_bwd {tag}: route {route}")
+            before = (ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.stream_launches)
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
-            check(ta.dropattn_bwd.tc_launches - before == (route == "tc"),
-                  f"dropattn_bwd L={L}: the launch did not take the {route} route")
+            check((ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.stream_launches)
+                  == (before[0] + 1, before[1] + (route == "tc_stream")),
+                  f"dropattn_bwd {tag}: the launch did not take the {route} route")
             # no atomics, no order that varies: a second launch gives the same bits
             again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             check(all(torch.equal(a, b) for a, b in zip(grads, again)),
-                  f"dropattn_bwd L={L} p={p}: two launches differ")
+                  f"dropattn_bwd {tag}: two launches differ")
             del again
             want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
             torch.cuda.synchronize()
             lse_err = (lse - want_lse).abs().max().item()
-            check(lse_err <= 1e-4, f"dropattn_fwd lse L={L} p={p}: err {lse_err}")
-            diff = (out.float() - want.float()).abs()
-            f_err = diff.max().item()
-            f_slack = (diff / ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out, want)
-                       ).max().item()
-            check(f_slack <= 1.0, f"dropattn_fwd L={L} p={p}: err {f_err} is {f_slack:.3f} "
-                  "of its bound")
-            bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, grads,
-                                                 want_grads)
-            b_err, b_slack = 0.0, 0.0
-            for name, a, b, bd in zip(("dq", "dk", "dv"), grads, want_grads, bounds):
-                diff = (a.float() - b.float()).abs()
-                b_err = max(b_err, diff.max().item())
-                slack = (diff / bd).max().item()
-                b_slack = max(b_slack, slack)
-                check(slack <= 1.0, f"dropattn_bwd {name} L={L} p={p}: {slack:.3f} of its bound")
-            del out, want, grads, want_grads, bounds
-            entry = {"shape": [B, h, L, d], "dtype": "bf16", "p": p, "lse_max_abs_err": lse_err,
-                     "fwd_max_abs_err": f_err, "fwd_err_over_bound": f_slack,
-                     "bwd_max_abs_err": b_err, "bwd_err_over_bound": b_slack,
-                     "fwd_route": f_route, "bwd_route": route, "bitwise_repeatable": True}
-            if (B, L) == (256, 192) and p > 0:
-                # the f32 instantiation rounds nothing: summation order only
-                qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-                o32, l32 = ta.dropattn_fwd(qf, kf, vf, bias, p, seed)
-                w32, _ = ta.dropattn_fwd_plain(qf, kf, vf, bias, p, seed)
-                g32 = ta.dropattn_bwd(qf, kf, vf, bias, p, seed, l32, gf)
-                wg32 = ta.dropattn_bwd_plain(qf, kf, vf, bias, p, seed, l32, gf)
-                torch.cuda.synchronize()
-                entry["f32_fwd_max_abs_err"] = (o32 - w32).abs().max().item()
-                entry["f32_bwd_max_abs_err"] = max((a - b).abs().max().item()
-                                                   for a, b in zip(g32, wg32))
-                check(entry["f32_fwd_max_abs_err"] <= 1e-5
-                      and entry["f32_bwd_max_abs_err"] <= 1e-5,
-                      f"dropattn f32: {entry['f32_fwd_max_abs_err']}, "
-                      f"{entry['f32_bwd_max_abs_err']} > 1e-5")
-                del qf, kf, vf, gf, o32, w32, g32, wg32
+            check(lse_err <= 1e-4, f"dropattn_fwd lse {tag}: err {lse_err}")
+            f_err = (out.float() - want.float()).abs().max().item()
+            b_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(grads, want_grads))
+            entry = {"shape": [B, h, L, d], "dtype": str(dtype).split(".")[1], "p": p,
+                     "lse_max_abs_err": lse_err, "fwd_max_abs_err": f_err,
+                     "bwd_max_abs_err": b_err, "fwd_route": f_route, "bwd_route": route,
+                     "bitwise_repeatable": True}
+            if f32:  # summation order (and the TF32 terms' truncation)
+                check(f_err <= 1e-5 and b_err <= 1e-5, f"dropattn {tag}: {f_err}, {b_err} > 1e-5")
+            else:
+                f_slack = ((out.float() - want.float()).abs() / ta.dropattn_fwd_error_bound(
+                    q, k, v, bias, p, seed, out, want)).max().item()
+                check(f_slack <= 1.0, f"dropattn_fwd {tag}: err {f_err} is {f_slack:.3f} "
+                      "of its bound")
+                bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, grads,
+                                                     want_grads)
+                b_slack = 0.0
+                for name, a, b, bd in zip(("dq", "dk", "dv"), grads, want_grads, bounds):
+                    slack = ((a.float() - b.float()).abs() / bd).max().item()
+                    b_slack = max(b_slack, slack)
+                    check(slack <= 1.0, f"dropattn_bwd {name} {tag}: {slack:.3f} of its bound")
+                entry.update(fwd_err_over_bound=f_slack, bwd_err_over_bound=b_slack)
+                del bounds
+            if route == "tc_stream" and p > 0 and L in (512, 264):
+                check(stream_bits_equal(q, k, v, bias, p, seed, lse, g),
+                      f"dropattn_bwd {tag}: the packed keep bits differ from the plain mask")
+                entry["keep_bits_equal"] = True
+            if (B, L) == (256, 192) and p > 0 and not f32:
+                # the streaming kernels at the resident kernel's length: the
+                # same checks, and their times beside the resident kernel's
+                s_grads = ta._dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g)[:3]
+                bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, s_grads,
+                                                     want_grads)
+                s_slack = max(((a.float() - b.float()).abs() / bd).max().item()
+                              for a, b, bd in zip(s_grads, want_grads, bounds))
+                check(s_slack <= 1.0, f"streaming dropattn_bwd {tag}: {s_slack:.3f} of its bound")
+                entry["stream_err_over_bound"] = s_slack
+                entry.update(stream_times(q, k, v, bias, p, seed, lse, g, build, "stream"))
+                del s_grads, bounds
+            del out, want, grads, want_grads
             if p > 0:
-                entry.update(time_dropattn(q, k, v, g, bias, p, seed))
+                entry.update(time_dropattn(q, k, v, g, bias, p, seed,
+                                           bwd_kind="tf32" if f32 else "bf16"))
+                if route == "tc_stream":
+                    entry.update(stream_times(q, k, v, bias, p, seed, lse, g, build))
+                    entry["bwd_three_pass_ms"] = (3 * 10.0 * BH * L * L * d / PEAK_OPS["tf32"] * 1e3
+                                                  if f32 else None)
             rows.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
-            if (B, L) == (256, 192) and p > 0:
+            if (B, L) == (256, 192) and p > 0 and not f32:
                 main_fwd = {"max_abs_err": f_err, "ms": entry["fwd_ms"],
                             "plain_ms": entry["fwd_plain_ms"], "bound_ms": entry["fwd_bound_ms"],
                             "bound_by": entry["fwd_bound_by"],
@@ -1216,8 +1342,14 @@ def phase_dropattn(gen) -> tuple[list, dict, dict]:
                             "plain_ms": entry["bwd_plain_ms"], "bound_ms": entry["bwd_bound_ms"],
                             "bound_by": entry["bwd_bound_by"],
                             "library_ms": entry["bwd_library_ms"]}
+            if (B, L) == (256, 512) and p > 0:
+                main_stream = {"max_abs_err": b_err, "ms": entry["bwd_ms"],
+                               "plain_ms": entry["bwd_plain_ms"],
+                               "bound_ms": entry["bwd_bound_ms"], "bound_by": entry["bwd_bound_by"],
+                               "library_ms": entry["bwd_library_ms"]}
+            del lse
         del q, k, v, g
-    return rows, main_fwd, main_bwd
+    return rows, main_fwd, main_bwd, main_stream
 
 
 def time_dropattn(q, k, v, g, bias, p, seed, fwd_kind=None, bwd_kind=None) -> dict:
@@ -1276,9 +1408,8 @@ def masks_spelled_d64(seed: int, L: int) -> bool:
     """The read-back of masks_spelled_by_kernels at head dim 64 in f32: each
     probability 1/L, each kept pd 2/L at p = 0.5, v (and g) holding
     2^(j % 8) in channel j // 8; the forward is the f32 tensor-core kernel
-    at every L (checked), the backward up to L = 128 (checked), past it the
-    CUDA-core pair, which at L = 512 streams the head through shared memory
-    in chunks."""
+    at every L (checked), the backward the resident one up to L = 128 and
+    the streaming one past it (checked)."""
     from sskd_tpu_torch.ops import attention as ta
 
     B, h, d = 2, 16, 64
@@ -1292,9 +1423,10 @@ def masks_spelled_d64(seed: int, L: int) -> bool:
     out, lse = ta.dropattn_fwd(zero, zero, code, bias, 0.5, seed)
     check(ta.dropattn_fwd.tc_launches == before + 1,
           f"dropattn_fwd f32 d=64 L={L}: not the tensor-core forward")
-    before = ta.dropattn_bwd.tc_launches
+    before = (ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.stream_launches)
     _, _, dv = ta.dropattn_bwd(zero, zero, code, bias, 0.5, seed, lse, code)
-    check(ta.dropattn_bwd.tc_launches - before == (L <= 128),
+    check((ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.stream_launches)
+          == (before[0] + 1, before[1] + (L > 128)),
           f"dropattn_bwd f32 d=64 L={L}: not on the route its length selects")
     bit = torch.arange(8, device="cuda")
 
@@ -1312,24 +1444,33 @@ def ptxas_of(build: dict, lib: str, pattern: str) -> dict:
     return {name: info for name, info in build.get(lib, {}).items() if re.search(pattern, name)}
 
 
+# the dropattn cases at head dim 64: the teacher's train shape (the
+# resident backward), L = 512 (the teacher at max_len 512, and the rerank
+# length at B = 8) and ragged lengths past the resident limits (streaming)
+DROPATTN_D64_CASES = (((32, 16, 64, 64), torch.float32), ((32, 16, 64, 64), torch.bfloat16),
+                      ((8, 16, 512, 64), torch.float32), ((8, 16, 512, 64), torch.bfloat16),
+                      ((32, 16, 512, 64), torch.float32), ((8, 16, 200, 64), torch.float32),
+                      ((8, 16, 216, 64), torch.bfloat16))
+
+
 def phase_attention64(gen, build: dict) -> tuple[list, dict]:
     """The attention kernels at the teacher's head dim 64 against their plain
-    versions: dropattn_fwd / dropattn_bwd at the teacher trainer's shape
-    [32, 16, 64, 64] (both on the tensor cores, f32 as three TF32 products)
-    and at [8, 16, 512, 64] (the forward on the tensor cores, the backward on
-    the CUDA-core pair; f32 past the shared memory of a block: the chunked
-    path), f32 and bf16, p in {0, 0.1}; flash_attn_fwd at the rerank shape
-    [32, 16, 512, 64] on its tensor-core route, f32 and bf16. Every launch
-    on the route (dtype, d, L) selects, one tensor-core launch a call where
-    that is the route, counted at d = 64, two launches bitwise equal, bf16
-    within the rounding bounds, f32 within 1e-5, the keep-mask read back bit
-    for bit (through the tensor-core forward: f32 at L = 64, 128, 256 and
-    512, bf16 at 192; the backward on the tensor cores at 64 and 128, the
-    CUDA-core pair at 256 and 512); each timed by CUDA events and the
-    profiler beside SDPA, the plain version and the bounds (the tensor
-    cores' peak, three TF32 passes, and the CUDA cores' FMA rate), with
-    ptxas's registers and spills. Returns the rows and the main entries
-    (f32: the teacher computes in f32)."""
+    versions: dropattn_fwd / dropattn_bwd at DROPATTN_D64_CASES (the forward
+    on the tensor cores, f32 as three TF32 products; the backward resident
+    at [32, 16, 64, 64] and streaming past the resident lengths), p in {0,
+    0.1}; flash_attn_fwd at the rerank shape [32, 16, 512, 64] on its
+    tensor-core route, f32 and bf16. Every launch on the route (dtype, d, L)
+    selects, one tensor-core launch a call (and one on the streaming route
+    where that is the route), counted at d = 64, two launches bitwise equal,
+    bf16 within the rounding bounds, f32 within 1e-5, the keep-mask read
+    back bit for bit (through the tensor-core forward and the backward: f32
+    at L = 64, 128, 256 and 512, bf16 at 192), the streaming backward's
+    packed keep bits equal to the plain ones at L = 200; each timed by CUDA
+    events and the profiler beside SDPA, the plain version and the bounds
+    (the tensor cores' peak, three TF32 passes, and the CUDA cores' FMA
+    rate), with ptxas's registers and spills, and at [32, 16, 64, 64] the
+    streaming kernels beside the resident one. Returns the rows and the
+    main entries (f32: the teacher computes in f32)."""
     from sskd_tpu_torch.ops import attention as ta
 
     rows, main = [], {}
@@ -1338,37 +1479,40 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
     check(masks_spelled_bf16(57, 64), "dropattn bf16 d=64 L=192: applied keep-mask differs")
     log("[kernels] dropattn d=64: both kernels apply the plain mask (f32, L = 64, 128, 256 and "
         "512; bf16, L = 192)")
-    for (B, h, L, d), dtype in ((shape, dt) for shape in ((32, 16, 64, 64), (8, 16, 512, 64))
-                                for dt in (torch.float32, torch.bfloat16)):
+    for (B, h, L, d), dtype in DROPATTN_D64_CASES:
         q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(dtype)
                       for _ in range(4))
         bias = attn_bias(B, L, gen)
         seed = 640 + L
+        f32 = dtype == torch.float32
         for p in (0.0, 0.1):
+            tag = f"{str(dtype).split('.')[1]} [{B}, {h}, {L}, {d}] p={p}"
             f_route, b_route = ta.dropattn_fwd_route(dtype, d, L), ta.dropattn_bwd_route(dtype, d, L)
-            want_b = "tc" if L <= 64 else "cuda_core"
+            want_b = "tc" if L <= ta.DROPATTN_TC_MAX_L[(dtype, d)] else "tc_stream"
             check(f_route == "tc" and b_route == want_b,
-                  f"dropattn d=64 L={L} routes {f_route}, {b_route}")
+                  f"dropattn d=64 {tag}: routes {f_route}, {b_route}")
             before = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
-                      ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
+                      ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0),
+                      ta.dropattn_bwd.stream_launches)
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             after = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(64, 0),
-                     ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0))
-            check(after == (before[0] + 1, before[1] + 1, before[2] + (b_route == "tc"),
-                            before[3] + 1),
-                  f"dropattn d=64 L={L}: launches {before} -> {after}")
+                     ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.head_dim_launches.get(64, 0),
+                     ta.dropattn_bwd.stream_launches)
+            check(after == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1,
+                            before[4] + (b_route == "tc_stream")),
+                  f"dropattn d=64 {tag}: launches {before} -> {after}")
             again = ta.dropattn_fwd(q, k, v, bias, p, seed)
             g_again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
                   and all(torch.equal(a, b) for a, b in zip(grads, g_again)),
-                  f"dropattn d=64 L={L} p={p}: two launches differ")
+                  f"dropattn d=64 {tag}: two launches differ")
             del again, g_again
             want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
             want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
             torch.cuda.synchronize()
             lse_err = (lse - want_lse).abs().max().item()
-            check(lse_err <= 1e-4, f"dropattn_fwd d=64 lse L={L} p={p}: err {lse_err}")
+            check(lse_err <= 1e-4, f"dropattn_fwd d=64 lse {tag}: err {lse_err}")
             f_err = (out.float() - want.float()).abs().max().item()
             b_err = max((a.float() - b.float()).abs().max().item()
                         for a, b in zip(grads, want_grads))
@@ -1376,9 +1520,9 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
                      "lse_max_abs_err": lse_err, "fwd_max_abs_err": f_err,
                      "bwd_max_abs_err": b_err, "fwd_route": f_route, "bwd_route": b_route,
                      "bitwise_repeatable": True}
-            if dtype == torch.float32:  # summation order (and the TF32 terms' truncation)
+            if f32:  # summation order (and the TF32 terms' truncation)
                 check(f_err <= 1e-5 and b_err <= 1e-5,
-                      f"dropattn d=64 f32 L={L} p={p}: {f_err}, {b_err} > 1e-5")
+                      f"dropattn d=64 f32 {tag}: {f_err}, {b_err} > 1e-5")
             else:
                 diff = (out.float() - want.float()).abs()
                 f_slack = (diff / ta.dropattn_fwd_error_bound(q, k, v, bias, p, seed, out,
@@ -1388,25 +1532,45 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
                 b_slack = max(((a.float() - b.float()).abs() / bd).max().item()
                               for a, b, bd in zip(grads, want_grads, bounds))
                 check(f_slack <= 1.0 and b_slack <= 1.0,
-                      f"dropattn d=64 bf16 L={L} p={p}: {f_slack:.3f}, {b_slack:.3f} of the bounds")
+                      f"dropattn d=64 {tag}: {f_slack:.3f}, {b_slack:.3f} of the bounds")
                 entry.update(fwd_err_over_bound=f_slack, bwd_err_over_bound=b_slack)
                 del bounds
+            if b_route == "tc_stream" and p > 0 and L == 200:
+                check(stream_bits_equal(q, k, v, bias, p, seed, lse, g),
+                      f"dropattn_bwd d=64 {tag}: the packed keep bits differ from the plain mask")
+                entry["keep_bits_equal"] = True
+            if b_route == "tc" and p > 0:
+                # the streaming kernels at the resident kernel's length
+                s_grads = ta._dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g)[:3]
+                if f32:
+                    s_err = max((a - b).abs().max().item() for a, b in zip(s_grads, want_grads))
+                    check(s_err <= 1e-5, f"streaming dropattn_bwd d=64 {tag}: {s_err} > 1e-5")
+                    entry["stream_max_abs_err"] = s_err
+                else:
+                    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, s_grads,
+                                                         want_grads)
+                    s_slack = max(((a.float() - b.float()).abs() / bd).max().item()
+                                  for a, b, bd in zip(s_grads, want_grads, bounds))
+                    check(s_slack <= 1.0, f"streaming dropattn_bwd d=64 {tag}: {s_slack:.3f}")
+                    entry["stream_err_over_bound"] = s_slack
+                    del bounds
+                entry.update(stream_times(q, k, v, bias, p, seed, lse, g, build, "stream"))
+                del s_grads
             del out, lse, grads, want, want_lse, want_grads
             if p > 0:
-                tc = b_route == "tc"
-                f32 = dtype == torch.float32
                 tc_kind = "tf32" if f32 else "bf16"
                 entry.update(time_dropattn(q, k, v, g, bias, p, seed, fwd_kind=tc_kind,
-                                           bwd_kind=tc_kind if tc else None))
+                                           bwd_kind=tc_kind))
                 _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
                 # the tensor-core forward's kernel by name: dropattn_fwd_tc_tf32_kernel<64>
-                # in f32, dropattn_fwd_tc_kernel<64> in bf16
+                # in f32, dropattn_fwd_tc_kernel<64> in bf16; the backward's one kernel,
+                # or its three streaming kernels summed
                 entry["fwd_kernel_device_ms"] = kernel_device_ms(
                     lambda: ta.dropattn_fwd(q, k, v, bias, p, seed),
                     "dropattn_fwd_tc_tf32_kernel" if f32 else "dropattn_fwd_tc_kernel")
                 entry["bwd_kernel_device_ms"] = kernel_device_ms(
                     lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g),
-                    "dropattn_bwd_tc" if tc else "dropattn_bwd_d")
+                    "dropattn_bwd_tc" if b_route == "tc" else "dropattn_bwd_stream")
                 del lse
                 fwd_ops, ops = 4.0 * B * h * L * L * d, 10.0 * B * h * L * L * d
                 entry["fwd_cuda_core_bound_ms"] = fwd_ops / PEAK_OPS["f32"] * 1e3
@@ -1415,20 +1579,25 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
                 entry["philox_calls"] = B * h * L * L // 4
                 if f32:
                     entry["fwd_three_pass_ms"] = 3 * fwd_ops / PEAK_OPS["tf32"] * 1e3
-                if tc and f32:
                     entry["bwd_three_pass_ms"] = 3 * ops / PEAK_OPS["tf32"] * 1e3
                 entry["fwd_ptxas"] = ptxas_of(build, "dropattn_fwd", "tc_tf32_kernelILi64"
                                               if f32 else "tc_kernelILi64")
                 entry["bwd_ptxas"] = ptxas_of(
                     build, "dropattn_bwd",
-                    ("tc_tf32_kernelILi64" if f32 else "tc_kernelILi64") if tc
-                    else "_(dq|dkv)_kernelI" + ("f" if f32 else "13__nv_bfloat16") + "Li64")
-                if (B, L) == (32, 64) and dtype == torch.float32:
+                    ("tc_tf32_kernelILi64" if f32 else "tc_kernelILi64") if b_route == "tc"
+                    else "dropattn_bwd_stream_(rows|cols)_kernelI" + ("f" if f32 else
+                                                                      "13__nv_bfloat16") + "Li64")
+                if (B, L) == (32, 64) and f32:
                     for name, pre in (("dropattn_fwd.d64", "fwd"), ("dropattn_bwd.d64", "bwd")):
                         main[name] = {
                             "max_abs_err": f_err if pre == "fwd" else b_err,
                             **{key: entry[f"{pre}_{key}"] for key in
                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                if (B, L) == (32, 512) and f32:
+                    main["dropattn_bwd.stream.d64"] = {
+                        "max_abs_err": b_err,
+                        **{key: entry[f"bwd_{key}"] for key in
+                           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
             rows.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
         del q, k, v, g
@@ -1976,21 +2145,24 @@ def _real_rows(recorded, student) -> list[int]:
 # ---------------------------------------------------------------------------
 
 TRAIN_QUERIES = 512  # 16 steps of 32 queries x 8 docs
+LONG_DOC_STEPS = 4  # the run at doc_len 512: 4 steps of 32 queries x 8 docs
 
 
-def make_kd_samples(n: int, n_docs: int, seed: int) -> list:
+def make_kd_samples(n: int, n_docs: int, seed: int, doc_words: tuple = (40, 160)) -> list:
     """Seeded synthetic KD samples over WORDS: a 6-12 word query, a positive
-    that repeats the query's words, and n_docs - 1 negatives; docs of 40-160
-    words (some past doc_len 192 tokens); teacher scores 5 + noise for the
-    positive, sorted uniforms in (-5, 0) for the negatives."""
+    that repeats the query's words, and n_docs - 1 negatives; docs of
+    ``doc_words`` words (40-160 by default, some past doc_len 192 tokens);
+    teacher scores 5 + noise for the positive, sorted uniforms in (-5, 0)
+    for the negatives."""
     from sskd_tpu_torch.kd.dataset import KDSample
 
+    lo, hi = doc_words
     rng = np.random.default_rng(seed)
     samples = []
     for _ in range(n):
         query = list(rng.choice(WORDS, rng.integers(6, 13)))
-        pos = query * 3 + list(rng.choice(WORDS, rng.integers(20, 130)))
-        negs = [" ".join(rng.choice(WORDS, rng.integers(40, 161))) for _ in range(n_docs - 1)]
+        pos = query * 3 + list(rng.choice(WORDS, rng.integers(lo - 20, hi - 30)))
+        negs = [" ".join(rng.choice(WORDS, rng.integers(lo, hi + 1))) for _ in range(n_docs - 1)]
         scores = [5.0 + float(rng.normal(0, 0.5))] + sorted(
             rng.uniform(-5, 0, n_docs - 1).tolist(), reverse=True)
         samples.append(KDSample(query=" ".join(query), docs=[" ".join(pos)] + negs,
@@ -2272,24 +2444,8 @@ def phase_train(args) -> dict:
     # max where the plain run found it (in the f32 step too): the same loss,
     # the same subgradient, and a comparison of the attention's arithmetic
     # alone.
-    g_kernel, g_plain, g_plain32, moved = [], [], [], 0
-    for b in packed:
-        pinned: dict = {}
-        g_plain.append(step_grads(trainer, b, torch.bfloat16, pinned))
-        g_kernel.append(step_grads(trainer, b, None, pinned))
-        g_plain32.append(step_grads(trainer, b, torch.float32, pinned))
-        moved += pinned["moved"]
-    g_kernel, g_plain, g_plain32 = (torch.cat(g) for g in (g_kernel, g_plain, g_plain32))
-    g_norm = g_plain.norm().item()
-    grad_check = {
-        "grad_norm": g_norm, "batches": len(packed),
-        # rows whose own argmax the kernels' or the f32 run moved (pinned)
-        "max_rows_moved": moved,
-        "kernel_vs_plain_rel": (g_kernel - g_plain).norm().item() / g_norm,
-        "bf16_noise_rel": (g_plain32 - g_plain).norm().item() / g_norm,
-        "cosine_kernel_plain": F.cosine_similarity(g_kernel, g_plain, dim=0).item(),
-    }
-    del g_kernel, g_plain, g_plain32
+    grad_check = grads_vs_plain(trainer, packed)
+    g_norm = grad_check["grad_norm"]
     student32 = StudentModel("intfloat/e5-small-v2", device="cuda", compute_dtype=torch.float32,
                              seed=args.seed)
     student32.module.load_state_dict(student.module.state_dict())
@@ -2339,6 +2495,127 @@ def phase_train(args) -> dict:
         "tc_launches": tc_counts,
     }
     log(f"[train] {json.dumps({k: v for k, v in record.items() if k not in ('history',)})}")
+    record["doc_len_512"] = train_long_docs(args, student, settings)
+    return record
+
+
+def grads_vs_plain(trainer, batches) -> dict:
+    """One step's gradients through the kernels against the same step over
+    the plain pair in bf16 and in f32 compute, over ``batches`` at once, the
+    argmax of Margin-MSE pinned where the plain run found it (phase_train's
+    check: the kernels no farther from the bf16 plain pair than bf16
+    rounding of the attention moves it)."""
+    g_kernel, g_plain, g_plain32, moved = [], [], [], 0
+    for b in batches:
+        pinned: dict = {}
+        g_plain.append(step_grads(trainer, b, torch.bfloat16, pinned))
+        g_kernel.append(step_grads(trainer, b, None, pinned))
+        g_plain32.append(step_grads(trainer, b, torch.float32, pinned))
+        moved += pinned["moved"]
+    g_kernel, g_plain, g_plain32 = (torch.cat(g) for g in (g_kernel, g_plain, g_plain32))
+    g_norm = g_plain.norm().item()
+    return {
+        "grad_norm": g_norm, "batches": len(batches), "max_rows_moved": moved,
+        "kernel_vs_plain_rel": (g_kernel - g_plain).norm().item() / g_norm,
+        "bf16_noise_rel": (g_plain32 - g_plain).norm().item() / g_norm,
+        "cosine_kernel_plain": F.cosine_similarity(g_kernel, g_plain, dim=0).item(),
+    }
+
+
+def train_long_docs(args, student, settings) -> dict:
+    """KDTrainer.train at doc_len 512 (the length configs/kd.yaml encodes
+    passages at, max_seq_length and chunk_max_tokens) and query_len 64, the
+    trained student of phase_train going on, batch 32 x 8 docs of 300-480
+    words, bf16, remat full, LONG_DOC_STEPS steps: every loss finite, the
+    dropattn launches the code implies, every doc-tower backward (L = 512)
+    on the streaming route and every query-tower one (L = 64) on the
+    resident one; ms per step and peak memory; then one step's gradients
+    through the kernels against the plain pair's at 4 queries x 8 docs
+    (three batches), within bf16 rounding's distance."""
+    import tempfile
+
+    from sskd_tpu_torch.kd.dataset import KDDataset
+    from sskd_tpu_torch.kd.train import KDTrainer
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
+    from sskd_tpu_torch.ops import attention as ta
+
+    batch, n_docs, query_len, doc_len = 32, 8, 64, 512
+    cfg = student.config
+    samples = make_kd_samples(batch * LONG_DOC_STEPS, n_docs, args.seed + 1, doc_words=(300, 480))
+    routes = {L: ta.dropattn_bwd_route(torch.bfloat16, cfg.hidden_size // cfg.num_heads, L)
+              for L in (query_len, doc_len)}
+    check(routes == {query_len: "tc", doc_len: "tc_stream"}, f"doc_len 512 routes {routes}")
+    trainer = KDTrainer(student, settings)
+    inner = trainer._train_step
+    events, starts, losses = [], [], []
+
+    def timed_step(batch_, progress, step_seed):
+        if len(events) == 1:  # the peak counts steps 2 on
+            torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        starts.append(time.perf_counter())
+        start.record()
+        aux = inner(batch_, progress, step_seed)
+        end.record()
+        events.append((start, end))
+        losses.append(aux)
+        return aux
+
+    trainer._train_step = timed_step
+    with tempfile.TemporaryDirectory(prefix="sskd_train512_") as out_dir:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.train(samples, output_dir=out_dir, query_len=query_len,
+                               doc_len=doc_len)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        # the run ends here: what follows launches outside it
+        counts, tc_counts = launch_counts(), tc_launch_counts()
+        stream = ta.dropattn_bwd.stream_launches
+        trainer._train_step = inner
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = result["global_step"]
+    log(f"[train] doc_len 512: {steps} steps in {train_s:.1f} s; launches {counts}, "
+        f"tensor-core {tc_counts}, streaming dropattn_bwd {stream}")
+    check(steps == LONG_DOC_STEPS, f"doc_len 512: {steps} steps, want {LONG_DOC_STEPS}")
+    step_losses = [{k: float(v) for k, v in aux.items()} for aux in losses]
+    check(all(math.isfinite(x) for aux in step_losses for x in aux.values()),
+          f"doc_len 512: non-finite losses {step_losses}")
+    layers = cfg.num_layers
+    # a step: each tower's 12 layers forward, again in the remat recompute, and backward
+    check(counts["dropattn_fwd"] == steps * 2 * 2 * layers
+          and counts["dropattn_bwd"] == steps * 2 * layers,
+          f"doc_len 512: dropattn launches {counts}, want {steps * 4 * layers} forward and "
+          f"{steps * 2 * layers} backward")
+    check(tc_counts["dropattn_bwd"] == counts["dropattn_bwd"] and stream == steps * layers,
+          f"doc_len 512: {tc_counts['dropattn_bwd']} tensor-core and {stream} streaming "
+          f"dropattn_bwd launches of {counts['dropattn_bwd']}; want every doc-tower backward "
+          f"({steps * layers}) streaming and every query-tower one resident")
+    event_ms = [a.elapsed_time(b) for a, b in events]
+    cadence_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    ds = KDDataset(samples[:12], student.tokenizer, num_docs=n_docs, query_len=query_len,
+                   doc_len=doc_len)
+    small = list(ds.batches(4, shuffle=False))
+    grad_check = grads_vs_plain(trainer, small)
+    log(f"[train] doc_len 512, one step's gradients, kernels vs plain pair: "
+        f"{json.dumps(grad_check)}")
+    check(all(math.isfinite(x) for x in grad_check.values()) and grad_check["grad_norm"] > 0,
+          f"doc_len 512: gradients not finite: {grad_check}")
+    check(grad_check["kernel_vs_plain_rel"] <= grad_check["bf16_noise_rel"],
+          f"doc_len 512: kernel gradients farther from the plain pair than bf16 noise: "
+          f"{grad_check}")
+    ms_step = float(np.median(event_ms[1:]))
+    record = {
+        "steps": steps, "batch": batch, "docs": n_docs, "query_len": query_len,
+        "doc_len": doc_len, "train_seconds": train_s, "step_event_ms": event_ms,
+        "step_cadence_ms": cadence_ms, "event_ms_median": ms_step,
+        "samples_per_s": batch / (ms_step / 1e3), "peak_device_gib": peak_gib,
+        "losses": [a["loss"] for a in step_losses], "launches": counts,
+        "tc_launches": tc_counts, "stream_launches": stream, "routes": routes,
+        "grad_check": grad_check,
+    }
+    log(f"[train] doc_len 512: {json.dumps(record)}")
     return record
 
 
@@ -3029,21 +3306,26 @@ TEACHER_STEPS, TEACHER_BATCH, TEACHER_MAX_LEN = 16, 32, 64  # the CLI's train-te
 TEACHER_QUERIES = 80  # x 9 triples: 1 positive and 8 negatives each
 SCORE_PAIRS = 1024
 RERANK_TOP_K = 50
+# the run at max_len 512: 4 steps of the CLI's batch, 16 queries x 9 triples,
+# one step's gradients checked at a batch of 8
+TEACHER_LONG_STEPS, TEACHER_LONG_LEN, TEACHER_LONG_QUERIES, TEACHER_GRAD_BATCH = 4, 512, 16, 8
 
 
-def make_teacher_triples(n: int, seed: int) -> list:
+def make_teacher_triples(n: int, seed: int, passage_words: tuple = (20, 60)) -> list:
     """Seeded synthetic (query, passage, label) triples, 1 positive to 8
     negatives a query: a 4-8 word query, a positive that repeats its words
-    among others, negatives of other words; 20-60 words a passage."""
+    among others, negatives of other words; ``passage_words`` words a
+    passage (20-60 by default)."""
+    lo, hi = passage_words
     rng = np.random.default_rng(seed)
     triples = []
     for _ in range(n):
         query = list(rng.choice(WORDS, rng.integers(4, 9)))
-        pos = query * 2 + list(rng.choice(WORDS, rng.integers(10, 50)))
+        pos = query * 2 + list(rng.choice(WORDS, rng.integers(lo - 10, hi - 10)))
         rng.shuffle(pos)
         triples.append((" ".join(query), " ".join(pos), 1.0))
         for _ in range(8):
-            neg = [w for w in rng.choice(WORDS, rng.integers(20, 61)) if w not in query]
+            neg = [w for w in rng.choice(WORDS, rng.integers(lo, hi + 1)) if w not in query]
             triples.append((" ".join(query), " ".join(neg), 0.0))
     order = rng.permutation(len(triples))
     return [triples[i] for i in order]
@@ -3081,6 +3363,99 @@ def teacher_grads(trainer, ids, mask, types, labels, plain: bool) -> torch.Tenso
         bert.dropout_attention = saved
         module.zero_grad(set_to_none=True)
         module.eval()
+
+
+def train_teacher_long(args, teacher) -> dict:
+    """TeacherTrainer.train at max_len 512 (the CLI's --max-len for a
+    teacher that scores at 512, as bge-reranker-large does and rerank
+    buckets reach) with the CLI's batch 32 and rate, TEACHER_LONG_STEPS
+    steps, on seeded triples whose passages fill 512 tokens: every loss
+    finite, 24 dropattn_fwd and 24 dropattn_bwd launches a step at d = 64,
+    every backward on the streaming route; ms per step, samples/s and peak
+    memory; then one step's gradients through the kernels within 1e-3 of the
+    plain pair's at a batch of 8 (where the plain pair's [8, 16, 512, 512]
+    f32 fits)."""
+    from sskd_tpu_torch.kd.teacher_train import TeacherTrainer
+    from sskd_tpu_torch.ops import (
+        head_dim_launch_counts,
+        launch_counts,
+        reset_launch_counts,
+        tc_launch_counts,
+    )
+    from sskd_tpu_torch.ops import attention as ta
+
+    cfg = teacher.config
+    d = cfg.hidden_size // cfg.num_heads
+    route = ta.dropattn_bwd_route(torch.float32, d, TEACHER_LONG_LEN)
+    check(route == "tc_stream", f"teacher at max_len 512: backward route {route}")
+    triples = make_teacher_triples(TEACHER_LONG_QUERIES, args.seed + 1, passage_words=(300, 480))
+    trainer = TeacherTrainer(teacher, learning_rate=1e-3, seed=args.seed + 1)
+    inner = trainer._train_step
+    starts, events = [], []
+
+    def timed_step(ids, mask, types, labels, step):
+        if step == 1:  # the peak counts steps 2 on
+            torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        starts.append(time.perf_counter())
+        start.record()
+        loss = inner(ids, mask, types, labels, step)
+        end.record()
+        events.append((start, end))
+        return loss
+
+    trainer._train_step = timed_step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(triples, steps=TEACHER_LONG_STEPS, batch_size=TEACHER_BATCH,
+                           max_len=TEACHER_LONG_LEN)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts, tc_counts, by_d = launch_counts(), tc_launch_counts(), head_dim_launch_counts()
+    stream = ta.dropattn_bwd.stream_launches
+    trainer._train_step = inner
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[teacher] max_len 512: {TEACHER_LONG_STEPS} steps in {train_s:.1f} s; launches "
+        f"{counts}, tensor-core {tc_counts}, by head dim {by_d}, streaming {stream}")
+    losses = result["losses"]
+    check(len(losses) == TEACHER_LONG_STEPS and all(math.isfinite(x) for x in losses),
+          f"teacher max_len 512 losses {losses}")
+    want = TEACHER_LONG_STEPS * cfg.num_layers
+    for name in ("dropattn_fwd", "dropattn_bwd"):
+        check(counts[name] == want and by_d[name] == {d: want} and tc_counts[name] == want,
+              f"teacher max_len 512: {name} {counts[name]} launches {by_d[name]}, "
+              f"{tc_counts[name]} on the tensor cores; want {want} at d = {d}, all on them")
+    check(stream == want, f"teacher max_len 512: {stream} of {want} backward launches streamed")
+    event_ms = [a.elapsed_time(b) for a, b in events]
+    cadence_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    ms_step = float(np.median(event_ms[1:]))
+    batch, labels = trainer._tokenize(triples[:TEACHER_GRAD_BATCH], TEACHER_LONG_LEN)
+    ids, mask, types = (torch.from_numpy(batch[k]).cuda().long()
+                        for k in ("input_ids", "attention_mask", "token_type_ids"))
+    check(ids.shape == (TEACHER_GRAD_BATCH, TEACHER_LONG_LEN), f"grad batch {tuple(ids.shape)}")
+    lab = torch.from_numpy(labels).cuda()
+    g_kernel = teacher_grads(trainer, ids, mask, types, lab, plain=False)
+    g_plain = teacher_grads(trainer, ids, mask, types, lab, plain=True)
+    g_norm = g_plain.norm().item()
+    grad_rel = (g_kernel - g_plain).norm().item() / g_norm
+    del g_kernel, g_plain, trainer
+    torch.cuda.empty_cache()
+    record = {
+        "steps": TEACHER_LONG_STEPS, "batch": TEACHER_BATCH, "max_len": TEACHER_LONG_LEN,
+        "triples": len(triples), "train_seconds": train_s, "losses": losses,
+        "step_event_ms": event_ms, "step_cadence_ms": cadence_ms, "event_ms_median": ms_step,
+        "samples_per_s": TEACHER_BATCH / (ms_step / 1e3), "peak_device_gib": peak_gib,
+        "launches": counts, "head_dim_launches": by_d, "tc_launches": tc_counts,
+        "stream_launches": stream, "route": route,
+        "grad_check": {"batch": TEACHER_GRAD_BATCH, "grad_norm": g_norm,
+                       "kernel_vs_plain_rel": grad_rel},
+    }
+    log(f"[teacher] max_len 512: {json.dumps(record)}")
+    check(math.isfinite(grad_rel) and g_norm > 0 and grad_rel <= 1e-3,
+          f"teacher max_len 512: gradients through the kernels vs the plain pair: {grad_rel} "
+          "> 1e-3")
+    return record
 
 
 def phase_teacher(args) -> dict:
@@ -3200,12 +3575,16 @@ def phase_teacher(args) -> dict:
     log(f"[teacher] {json.dumps(record['train'])}")
     check(math.isfinite(grad_rel) and g_norm > 0 and grad_rel <= 1e-3,
           f"teacher gradients through the kernels vs the plain pair: {grad_rel} > 1e-3")
+    del trainer
+    torch.cuda.empty_cache()
+    # ---- training at max_len 512, the backward streaming -----------------
+    record["train_512"] = train_teacher_long(args, teacher)
 
     # ---- save, reload, score -------------------------------------------
     t0 = time.perf_counter()
     teacher_dir = teacher.save(work / "teacher")
     trained = {k: v.detach().cpu() for k, v in teacher.module.state_dict().items()}
-    del teacher, trainer
+    del teacher
     torch.cuda.empty_cache()
     scorer = TeacherModel(str(teacher_dir), device="cuda")
     check(all(torch.equal(v.cpu(), trained[k]) for k, v in scorer.module.state_dict().items()),
@@ -3388,7 +3767,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     topk_rows, main_topk, bf16_topk, int4_topk = phase_topk(gen, N_ROWS)
     flash_rows, main_flash = phase_flash(gen)
-    dropattn_rows, main_dfwd, main_dbwd = phase_dropattn(gen)
+    dropattn_rows, main_dfwd, main_dbwd, main_stream = phase_dropattn(gen, record["build"])
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
     attn64_rows, main_d64 = phase_attention64(gen, record["build"])
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
@@ -3425,6 +3804,11 @@ def main(argv=None) -> int:
     cluster_launches = record["clustered"]["launches"]
     refine_bf16 = {f"{k}.bf16": v for k, v in record["refine"]["bf16_launches"].items()}
     teacher_launches = record["teacher"]["teacher_launches"]
+    # the streaming backward's launches on its two paths: the KD run at
+    # doc_len 512 (its doc tower) and the teacher at max_len 512
+    stream_launches = {
+        "dropattn_bwd.stream": record["train"]["doc_len_512"]["stream_launches"],
+        "dropattn_bwd.stream.d64": record["teacher"]["train_512"]["stream_launches"]}
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
@@ -3466,6 +3850,13 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/attention.py:266", main_d64["dropattn_fwd.d64"], teacher_launches),
         ("dropattn_bwd.d64", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
          "sskd_tpu/ops/attention.py:296", main_d64["dropattn_bwd.d64"], teacher_launches),
+        # the backward past a block's shared memory, streaming the head: bf16 at
+        # [256, 12, 512, 32] (the KD doc tower at doc_len 512) and f32 at
+        # [32, 16, 512, 64] (the teacher at max_len 512)
+        ("dropattn_bwd.stream", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
+         "sskd_tpu/ops/attention.py:296", main_stream, stream_launches),
+        ("dropattn_bwd.stream.d64", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
+         "sskd_tpu/ops/attention.py:296", main_d64["dropattn_bwd.stream.d64"], stream_launches),
     ):
         check(launches[name] > 0, f"kernel {name} was launched no time on its path")
         kernels.append({

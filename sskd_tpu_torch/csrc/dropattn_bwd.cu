@@ -32,7 +32,8 @@
 // bytes bound it.
 //
 // Two routes, chosen by the wrapper (ops/attention.py dropattn_bwd_route)
-// from (dtype, d, L):
+// from (dtype, d, L), both on the tensor cores, neither with atomics (two
+// launches give the same bits):
 //
 // 1. bf16 at d in {32, 64}, f32 at d = 64, while a whole head fits a
 //    block's shared memory (L <= 256 in bf16 at d = 32, 208 at d = 64, 128
@@ -47,10 +48,10 @@
 //    the bias row and the lse. Warp w owns query rows 16w..16w+15; sums are
 //    f32.
 //    - Pass 1, per chunk of 16 keys: S = q k^T and dP = g v^T, probs (bf16:
-//      2^(s * scale * log2(e) + (bias - lse) * log2(e)), one exp; f32: the
-//      CUDA-core kernels' expf(s * scale + bias - lse)), the keep bits, the
-//      row's D = sum(dprobs * probs) with no cross-warp reduction, pd into
-//      an [L, L] shared buffer (bf16, or f32 on the f32 route).
+//      2^(s * scale * log2(e) + (bias - lse) * log2(e)), one exp; f32:
+//      expf(s * scale + bias - lse)), the keep bits, the row's D =
+//      sum(dprobs * probs) with no cross-warp reduction, pd into an [L, L]
+//      shared buffer (bf16, or f32 on the f32 route).
 //    - dv = pd^T g: warps split over key rows.
 //    - Pass 2: S and dP again (cheap on the tensor cores), the keep bits
 //      again, ds = probs (dprobs - D) scale into the same buffer; dq = ds k
@@ -69,20 +70,43 @@
 //    bits stay in pass 1). The blocks are persistent (as many as fit, each
 //    walking heads i, i + grid, ...), so the next head's q, k, v, g can
 //    arrive by cp.async into a second buffer while this head computes
-//    (launch_tc). Every input is read once, no atomics: two launches give
-//    the same bits. Shared memory at L = 192 in bf16 at d = 32: 208,896
-//    bytes (one block of 12 warps per SM).
-// 2. f32 at d = 32, and past the limits above: the first kernel pair on
-//    CUDA cores, at d = 32 and 64. The dq kernel (a thread per query row, K
-//    and V of the head in shared memory) sums D in one pass and round(ds) k
-//    in a second and writes D out; the dk/dv kernel (a thread per key row,
-//    Q and G in shared memory) walks the queries once, drawing the mask one
-//    element at a time. When a head's rows do not fit a block's 227 KB
-//    (2 L d sizeof(T) + 4 or 8 L bytes: at d = 64 in f32 above L = 450 or
-//    447) each kernel streams them through shared memory in chunks of 128
-//    rows, in the same order, so the sums and the mask are unchanged and any
-//    L is taken. The f32 instantiation rounds nothing, which keeps the f32
-//    check of the train phase to summation order.
+//    (launch_tc). Every input is read once. Shared memory at L = 192 in bf16
+//    at d = 32: 208,896 bytes (one block of 12 warps per SM).
+// 2. Every other (dtype, d, L) at d in {32, 64}, bf16 and f32, f32 at d = 32
+//    at every L (the student trained in f32): the streaming kernels, three
+//    launches on one stream, each block 4 warps of 16 rows and the other
+//    side of the head streamed through shared memory in tiles of 64 rows by
+//    cp.async, two tiles in flight, so no head is too long. The products and
+//    probabilities are route 1's, fragment for fragment (bf16 m16n8k16
+//    through ldmatrix, K and V rows in the Philox order; f32 three TF32
+//    products, K and V rows in slot order), with rows padded to D + 8 bf16
+//    or D + 4 floats.
+//    - K1, dropattn_bwd_stream_rows_kernel<T, D, false>, a block per 64
+//      query rows of a head: S and dP per 16-key chunk, probs, the keep bits
+//      (the mask's only draw of the backward, one Philox call for four keys
+//      of a row), D = sum(dprobs * probs) within the warp's own rows. It
+//      writes D (f32 [B*h, L]) and the keep bits packed, uint32 words
+//      [B*h, L, ceil(L / 32)], bit j % 32 of word j / 32 for key j, bits
+//      past L 0 (ops/attention.py dropout_keep_bits).
+//    - K2, the same kernel with DQ: S and dP again, the keep bits read, not
+//      drawn, ds = probs (dprobs - D) scale, dq = round_T(ds) k with ds fed
+//      from registers, as route 1's pass 2.
+//    - K3, dropattn_bwd_stream_cols_kernel<T, D>, a block per 64 keys of a
+//      head: its K and V rows and their bias stay; q, g, lse, D and the keep
+//      bits of 64 queries stream. S^T = k q^T and dP^T = v g^T come out with
+//      keys as rows, so pd^T and ds^T are A fragments from registers: dv +=
+//      round_T(pd^T) g and dk += round_T(ds^T) q, f32 sums, each output
+//      rounded once. In f32 the warp reads K's and V's A fragments from
+//      shared memory at each use rather than hold them beside the four
+//      accumulators of dk and dv.
+//    D is not folded into K2 by splitting dq into sum(probs dprobs) k -
+//    D sum(probs) k: that rounds something other than round_T(ds) and
+//    cancels badly. Rows and keys past L are zero rows with lse +inf and
+//    bias -inf: probabilities 0, products exact zeros, nothing written.
+//    Work at [256 * 12, 512, 32] bf16: nine products of 2 L^2 d over the three
+//    kernels (the five of the function, S and dP twice more), three exps a
+//    score, the mask drawn once; the keep bits add L^2 / 8 bytes a head,
+//    written once and read twice (100.7 MB at that shape).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,186 +114,14 @@
 #include <math.h>
 
 #include <algorithm>
+#include <climits>
+#include <type_traits>
 
 #include "attn_common.cuh"
 #include "mma_common.cuh"
 #include "philox.cuh"
 
 namespace sskd {
-
-constexpr int DB_TB = 64;  // rows per block == threads per block
-constexpr size_t DB_SMEM_MAX = 227 * 1024;  // shared memory a block may hold
-constexpr int DB_KC = 128;  // rows a chunk when the head does not fit DB_SMEM_MAX
-
-// Rows (keys for the dq kernel, queries for the dk/dv kernel) a block holds
-// in shared memory at once: all L when they fit DB_SMEM_MAX, else DB_KC (a
-// multiple of 4, so each chunk of keys starts a Philox group). A row takes
-// two rows of T and `extra` floats.
-template <typename T, int D>
-static int db_chunk_rows(int L, int extra) {
-  const size_t per_row = 2 * (size_t)D * sizeof(T) + extra * sizeof(float);
-  return (size_t)L * per_row <= DB_SMEM_MAX ? L : DB_KC;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(DB_TB) dropattn_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const T* __restrict__ g, const float* __restrict__ lse,
-    float* __restrict__ dsum, T* __restrict__ dq, int h, int L, int n_t, int kc, float sm_scale,
-    uint32_t seed, float p, float inv) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_k = reinterpret_cast<T*>(smem);
-  T* s_v = s_k + (size_t)kc * D;
-  float* s_bias = reinterpret_cast<float*>(s_v + (size_t)kc * D);
-
-  const int tid = threadIdx.x;
-  const long bh = blockIdx.x / n_t;
-  const int qi = (blockIdx.x % n_t) * DB_TB + tid;
-  const long b = bh / h;
-  const long head_off = bh * (long)L * D;
-  const bool live = qi < L;  // rows past L take part in the barriers only
-  const bool resident = kc >= L;  // the whole head in one chunk, staged once
-
-  // keys j0 .. j0 + n - 1: their k and v rows and bias
-  auto stage = [&](int j0) {
-    const int n = min(kc, L - j0);
-    __syncthreads();
-    copy_rows<T, D>(s_k, k + head_off + (long)j0 * D, n, tid, DB_TB);
-    copy_rows<T, D>(s_v, v + head_off + (long)j0 * D, n, tid, DB_TB);
-    for (int j = tid; j < n; j += DB_TB) s_bias[j] = bias[b * L + j0 + j];
-    __syncthreads();
-    return n;
-  };
-
-  float qr[D], gr[D];
-  float lse_i = 0.f;
-  if (live) {
-    load_row<T, D>(qr, q + head_off + (long)qi * D);
-    load_row<T, D>(gr, g + head_off + (long)qi * D);
-    lse_i = lse[bh * L + qi];
-  }
-
-  // pass 1: D = <dprobs, probs>
-  float dsum_i = 0.f;
-  for (int j0 = 0; j0 < L; j0 += kc) {
-    const int n = stage(j0);
-    if (!live) continue;
-    for (int c4 = 0; c4 < n; c4 += 4) {
-      Philox4 r = {};
-      if (p > 0.f)
-        r = philox4x32_10((uint32_t)((j0 + c4) >> 2), (uint32_t)qi, seed, (uint32_t)bh);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = c4 + jj;
-        if (j >= n) break;
-        const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
-        const float prob = expf(s - lse_i);
-        float dprobs = dot_row<T, D>(gr, s_v + (long)j * D);
-        if (p > 0.f) dprobs = philox_uniform(r.w[jj]) >= p ? dprobs * inv : 0.f;
-        dsum_i = fmaf(dprobs, prob, dsum_i);
-      }
-    }
-  }
-
-  // pass 2: dq = round(ds) k
-  float acc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  for (int j0 = 0; j0 < L; j0 += kc) {
-    const int n = resident ? L : stage(j0);
-    if (!live) continue;
-    for (int c4 = 0; c4 < n; c4 += 4) {
-      Philox4 r = {};
-      if (p > 0.f)
-        r = philox4x32_10((uint32_t)((j0 + c4) >> 2), (uint32_t)qi, seed, (uint32_t)bh);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = c4 + jj;
-        if (j >= n) break;
-        const float s = dot_row<T, D>(qr, s_k + (long)j * D) * sm_scale + s_bias[j];
-        const float prob = expf(s - lse_i);
-        float dprobs = dot_row<T, D>(gr, s_v + (long)j * D);
-        if (p > 0.f) dprobs = philox_uniform(r.w[jj]) >= p ? dprobs * inv : 0.f;
-        const float ds = prob * (dprobs - dsum_i) * sm_scale;
-        axpy_row<T, D>(acc, round_as(ds, (const T*)nullptr), s_k + (long)j * D);
-      }
-    }
-  }
-  if (!live) return;
-  T* o = dq + head_off + (long)qi * D;
-#pragma unroll
-  for (int c = 0; c < D; ++c) store_as(o + c, acc[c]);
-  dsum[bh * L + qi] = dsum_i;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(DB_TB) dropattn_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv, int h, int L,
-    int n_t, int qc, float sm_scale, uint32_t seed, float p, float inv) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_q = reinterpret_cast<T*>(smem);
-  T* s_g = s_q + (size_t)qc * D;
-  float* s_lse = reinterpret_cast<float*>(s_g + (size_t)qc * D);
-  float* s_dsum = s_lse + qc;
-
-  const int tid = threadIdx.x;
-  const long bh = blockIdx.x / n_t;
-  const int kj = (blockIdx.x % n_t) * DB_TB + tid;
-  const long b = bh / h;
-  const long head_off = bh * (long)L * D;
-  const bool live = kj < L;  // rows past L take part in the barriers only
-
-  float kr[D], vr[D], acc_k[D], acc_v[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    acc_k[c] = 0.f;
-    acc_v[c] = 0.f;
-  }
-  float bias_j = 0.f;
-  if (live) {
-    load_row<T, D>(kr, k + head_off + (long)kj * D);
-    load_row<T, D>(vr, v + head_off + (long)kj * D);
-    bias_j = bias[b * L + kj];
-  }
-  const bool drop = p > 0.f;
-  // the queries in chunks of qc: their q and g rows, lse and D
-  for (int i0 = 0; i0 < L; i0 += qc) {
-    const int n = min(qc, L - i0);
-    __syncthreads();
-    copy_rows<T, D>(s_q, q + head_off + (long)i0 * D, n, tid, DB_TB);
-    copy_rows<T, D>(s_g, g + head_off + (long)i0 * D, n, tid, DB_TB);
-    for (int i = tid; i < n; i += DB_TB) {
-      s_lse[i] = lse[bh * L + i0 + i];
-      s_dsum[i] = dsum[bh * L + i0 + i];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int i = 0; i < n; ++i) {
-      const T* q_i = s_q + (long)i * D;
-      const T* g_i = s_g + (long)i * D;
-      const float s = dot_row<T, D>(kr, q_i) * sm_scale + bias_j;
-      const float prob = expf(s - s_lse[i]);
-      const bool keep = !drop || dropout_keep(seed, (uint32_t)bh, i0 + i, kj, p);
-      const float pd = drop ? (keep ? prob * inv : 0.f) : prob;
-      axpy_row<T, D>(acc_v, round_as(pd, (const T*)nullptr), g_i);
-      float dprobs = dot_row<T, D>(vr, g_i);
-      if (drop) dprobs = keep ? dprobs * inv : 0.f;
-      const float ds = prob * (dprobs - s_dsum[i]) * sm_scale;
-      axpy_row<T, D>(acc_k, round_as(ds, (const T*)nullptr), q_i);
-    }
-  }
-  if (!live) return;
-  T* ok = dk + head_off + (long)kj * D;
-  T* ov = dv + head_off + (long)kj * D;
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    store_as(ok + c, acc_k[c]);
-    store_as(ov + c, acc_v[c]);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Route 1: tensor cores, a whole head per block: bf16 at d in {32, 64}, f32
@@ -540,8 +392,9 @@ __global__ void __launch_bounds__(512) dropattn_bwd_tc_kernel(
 }
 
 // The f32 route: the same blocks, passes and keep bits, each product on
-// mma.sync m16n8k8 as three TF32 products, each probability the CUDA-core
-// kernels' expf(s * scale + bias - lse) in natural units. Fragments are
+// mma.sync m16n8k8 as three TF32 products, each probability
+// expf(s * scale + bias - lse) in natural units, as the plain version takes
+// it. Fragments are
 // 32-bit shared-memory reads: q's and g's once a pass into registers, and
 // k's, v's and the [Lp, Lp] buffer's at each use, each split into hi and lo
 // where it is used; every product keeps its small terms in an accumulator of
@@ -659,8 +512,8 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
         fold_lo(dp[nt], dp_lo[nt]);
       }
     };
-    // probs of the thread's four keys key0..key0+3 in row row0 + 8 rr, as the
-    // CUDA-core kernels take them
+    // probs of the thread's four keys key0..key0+3 in row row0 + 8 rr, in
+    // natural units
     auto probs4 = [&](const float (&s)[2][4], int rr, int key0, float (&prob)[4]) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -794,35 +647,587 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Route 2: tensor cores, the head streamed (any L): bf16 and f32 at d in
+// {32, 64}
+// ---------------------------------------------------------------------------
+
+constexpr int DS_ROWS = 64;  // rows a block owns (K1, K2: queries; K3: keys): 4 warps x 16
+constexpr int DS_TILE = 64;  // rows a streamed tile (K1, K2: keys; K3: queries)
+constexpr int DS_THREADS = 128;
+
+// Shared row stride of the streaming kernels' tiles: bf16 rows padded to
+// D + 8 (ldmatrix's eight row addresses in distinct bank groups), f32 rows
+// to D + 4 (= 4 mod 32: the 32-bit fragment reads of rows grp at column tig,
+// and of rows 2 tig and 2 tig + 1 at column grp, hit distinct banks).
+template <typename T, int D>
+__host__ __device__ constexpr int ds_ld() {
+  return sizeof(T) == 2 ? D + 8 : D + 4;
+}
+
+// Shared memory of either streaming kernel: six tiles of 64 rows (the
+// block's own two, then the streamed two in each of two stages), then per
+// stage 64 floats of bias (K1, K2) or 64 lse, 64 D and 128 bit words (K3).
+// K1 and K2: 31,232 / 55,808 bytes in bf16 at d = 32 / 64, 55,808 / 104,960
+// in f32; K3 1,536 more.
+template <typename T, int D>
+__host__ __device__ constexpr size_t ds_smem_bytes(bool cols) {
+  return 6 * (size_t)DS_TILE * ds_ld<T, D>() * sizeof(T) + 2 * (size_t)DS_TILE * (cols ? 16 : 4);
+}
+
+// 4 bytes global -> shared, asynchronous; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+// one f32 from shared memory, read where it stands (asm volatile: neither
+// hoisted out of its loop nor merged with an earlier read, so K3's f32 A
+// fragments do not take registers for the whole tile)
+__device__ __forceinline__ float lds_f32(const float* p) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(smem_addr(p)));
+  return x;
+}
+
+// c + c_lo += a b as mma_3xtf32 takes it, except that this step's hi hi
+// product starts from zero and is added to c rounded to nearest. For the
+// long sums of the streaming kernels (dq over L keys, dk and dv over L
+// queries, L / 8 steps) a truncation of the running sum at each step, all
+// toward zero, biases it by up to L / 8 ulps of its value: at L = 72 and
+// 192 in f32 that reached 1e-5 on the card. Here each step truncates only
+// its own sum.
+__device__ __forceinline__ void mma_3xtf32_rn(float (&c)[4], float (&c_lo)[4],
+                                              const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                              float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c_lo, al, h0, h1);
+  mma_tf32(c_lo, ah, l0, l1);
+  mma_tf32(t, ah, h0, h1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// The A fragments of a warp's 16 rows (row16 .. row16 + 15 of a shared tile):
+// bf16 four registers of two values per 16-deep step (ldmatrix), f32 four
+// values per 8-deep step (split into TF32 terms at each use).
+template <int D>
+struct BfFrags {
+  uint32_t r[D / 16][4];
+};
+template <int D>
+struct F32Frags {
+  float r[D / 8][4];
+};
+template <typename T, int D>
+using DsFrags = typename std::conditional<sizeof(T) == 2, BfFrags<D>, F32Frags<D>>::type;
+
+template <int D>
+__device__ __forceinline__ void load_frags(BfFrags<D>& f, const __nv_bfloat16* tile, int row16,
+                                           int lane) {
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldmatrix_x4(f.r[ks], tile + (row16 + mr + (mi & 1) * 8) * (D + 8) + ks * 16 + (mi >> 1) * 8);
+}
+template <int D>
+__device__ __forceinline__ void load_frags(F32Frags<D>& f, const float* tile, int row16,
+                                           int lane) {
+  const float* r = tile + (row16 + (lane >> 2)) * (D + 4) + (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    f.r[ks][0] = lds_f32(r + ks * 8);
+    f.r[ks][1] = lds_f32(r + 8 * (D + 4) + ks * 8);
+    f.r[ks][2] = lds_f32(r + ks * 8 + 4);
+    f.r[ks][3] = lds_f32(r + 8 * (D + 4) + ks * 8 + 4);
+  }
+}
+
+// S = a b^T and dP = c e^T of one 16-row x 16-column chunk: a, c the warp's
+// A fragments, b, e shared tiles whose rows c16 .. c16 + 15 are the chunk's
+// columns. Element e of tile nt holds row grp + 8 (e >> 1), column c16 +
+// 4 tig + 2 nt + (e & 1) (the Philox order: bf16 through perm_key, f32 from
+// rows stored in slot order), or with `natural` (bf16) c16 + 8 nt + 2 tig +
+// (e & 1).
+template <int D>
+__device__ __forceinline__ void chunk_products(float (&s)[2][4], float (&dp)[2][4],
+                                               const BfFrags<D>& a, const BfFrags<D>& c,
+                                               const __nv_bfloat16* b, const __nv_bfloat16* e,
+                                               int c16, int lane, bool natural) {
+  constexpr int LD = D + 8;
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+  const int row = c16 + (natural ? mr + (mi >> 1) * 8 : perm_key(mr, mi >> 1));
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t bb[4], eb[4];
+    ldmatrix_x4(bb, b + row * LD + ks * 16 + (mi & 1) * 8);
+    ldmatrix_x4(eb, e + row * LD + ks * 16 + (mi & 1) * 8);
+    mma_bf16(s[0], a.r[ks], bb[0], bb[1]);
+    mma_bf16(s[1], a.r[ks], bb[2], bb[3]);
+    mma_bf16(dp[0], c.r[ks], eb[0], eb[1]);
+    mma_bf16(dp[1], c.r[ks], eb[2], eb[3]);
+  }
+}
+template <int D>
+__device__ __forceinline__ void chunk_products(float (&s)[2][4], float (&dp)[2][4],
+                                               const F32Frags<D>& a, const F32Frags<D>& c,
+                                               const float* b, const float* e, int c16, int lane,
+                                               bool) {
+  constexpr int LD = D + 4;
+  const int grp = lane >> 2, tig = lane & 3;
+  float s_lo[2][4], dp_lo[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = s_lo[nt][i] = dp_lo[nt][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    split_tf32_a(a.r[ks], ah, al);
+    split_tf32_a(c.r[ks], ch, cl);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float* br = b + (c16 + 8 * nt + grp) * LD + ks * 8 + tig;
+      const float* er = e + (c16 + 8 * nt + grp) * LD + ks * 8 + tig;
+      mma_3xtf32(s[nt], s_lo[nt], ah, al, br[0], br[4]);
+      mma_3xtf32(dp[nt], dp_lo[nt], ch, cl, er[0], er[4]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    fold_lo(s[nt], s_lo[nt]);
+    fold_lo(dp[nt], dp_lo[nt]);
+  }
+}
+
+// acc (+ acc_lo) += x y over one 16-deep chunk: x [16 rows, 16] f32 by
+// element (x[rr][j]: row grp + 8 rr, the j-th of the thread's four columns
+// of chunk_products), y rows c16 .. c16 + 15 of a shared tile with D
+// columns, in the chunk's column order. bf16: x rounded and packed into the
+// A fragment of one m16n8k16 step, y through ldmatrix.trans (rows in the
+// order of x's columns: `natural`, or perm_key); f32: two 8-deep steps
+// (mma_3xtf32_rn), step st taking columns 4 tig + 2 st and + 1 as k = tig and
+// tig + 4 (rows 8 st + 2 tig and + 1 of a slot-ordered tile).
+template <int D>
+__device__ __forceinline__ void chunk_accumulate(float (&acc)[D / 8][4], float (&)[D / 8][4],
+                                                 const float (&x)[2][4],
+                                                 const __nv_bfloat16* y, int c16, int lane,
+                                                 bool natural) {
+  constexpr int LD = D + 8;
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t a[4] = {pack_bf16(x[0][0], x[0][1]), pack_bf16(x[1][0], x[1][1]),
+                         pack_bf16(x[0][2], x[0][3]), pack_bf16(x[1][2], x[1][3])};
+  const int row = c16 + (natural ? mr + (mi & 1) * 8 : perm_key(mr, mi & 1));
+#pragma unroll
+  for (int half = 0; half < D / 16; ++half) {
+    uint32_t yb[4];
+    ldmatrix_x4_trans(yb, y + row * LD + half * 16 + (mi >> 1) * 8);
+    mma_bf16(acc[2 * half], a, yb[0], yb[1]);
+    mma_bf16(acc[2 * half + 1], a, yb[2], yb[3]);
+  }
+}
+template <int D>
+__device__ __forceinline__ void chunk_accumulate(float (&acc)[D / 8][4], float (&acc_lo)[D / 8][4],
+                                                 const float (&x)[2][4], const float* y, int c16,
+                                                 int lane, bool) {
+  constexpr int LD = D + 4;
+  const int grp = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const float a[4] = {x[0][2 * st], x[1][2 * st], x[0][2 * st + 1], x[1][2 * st + 1]};
+    uint32_t ah[4], al[4];
+    split_tf32_a(a, ah, al);
+    const float* yr = y + (c16 + 8 * st + 2 * tig) * LD + grp;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      mma_3xtf32_rn(acc[dn], acc_lo[dn], ah, al, yr[dn * 8], yr[LD + dn * 8]);
+  }
+}
+
+// 2^(s scale log2(e) + bias2 - lse2) in bf16 (bias2, lse2 in log2 units: one
+// ex2, route 1's exponent); expf(s scale + bias - lse) in f32
+template <typename T>
+__device__ __forceinline__ float ds_prob(float s, float bias, float lse, float sm_scale,
+                                         float scale_log2) {
+  if constexpr (sizeof(T) == 2) return exp2_approx(fmaf(s, scale_log2, bias - lse));
+  return expf(__fsub_rn(__fadd_rn(__fmul_rn(s, sm_scale), bias), lse));
+}
+
+// Stores a warp's 16 x D f32 accumulator (C fragments) as rows row .. of
+// out (rows at or past L skipped), rounded to T once.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[D / 8][4],
+                                           int row, int L, int tig) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row + 8 * rr >= L) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (long)(row + 8 * rr) * D + 2 * tig);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) dst[dn * 4] = pack_bf16(acc[dn][2 * rr], acc[dn][2 * rr + 1]);
+  }
+}
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 8][4], int row, int L,
+                                           int tig) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (row + 8 * rr >= L) continue;
+    float* dst = out + (long)(row + 8 * rr) * D + 2 * tig;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<float2*>(dst + dn * 8) = make_float2(acc[dn][2 * rr], acc[dn][2 * rr + 1]);
+  }
+}
+
+// K1 (DQ false) and K2 (DQ true): a block per (head, 64 query rows), warp w
+// rows 16w..16w+15, K and V streamed in 64-key tiles. K1 draws the keep bits
+// and writes them with D; K2 reads them and D and writes dq.
+template <typename T, int D, bool DQ>
+__global__ void __launch_bounds__(DS_THREADS) dropattn_bwd_stream_rows_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const T* __restrict__ g, const float* __restrict__ lse,
+    float* __restrict__ dsum, uint32_t* __restrict__ bits, T* __restrict__ dq, int h, int L,
+    int n_rt, float sm_scale, float scale_log2, uint32_t seed, float p, float inv) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int LD = ds_ld<T, D>();
+  constexpr int VE = 16 / sizeof(T);  // elements a 16-byte copy
+  constexpr unsigned CH = D / VE;     // 16-byte copies a row (unsigned: divisions are shifts)
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_q = reinterpret_cast<T*>(smem);
+  T* s_g = s_q + DS_ROWS * LD;
+  T* s_k = s_g + DS_ROWS * LD;      // [2][DS_TILE][LD]
+  T* s_v = s_k + 2 * DS_TILE * LD;  // [2][DS_TILE][LD]
+  float* s_bias = reinterpret_cast<float*>(s_v + 2 * DS_TILE * LD);  // [2][DS_TILE]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const long bh = blockIdx.x / n_rt;
+  const int r0 = (blockIdx.x % n_rt) * DS_ROWS;
+  const long head_off = bh * (long)L * D;
+  const float* brow = bias + (bh / h) * L;
+  const int W = (L + 31) >> 5;  // keep-bit words a row
+  const bool drop = p > 0.f;
+
+  // the block's q and g rows (rows past L as zeros)
+  for (unsigned i = tid; i < 2 * DS_ROWS * CH; i += DS_THREADS) {
+    const unsigned t = i / (DS_ROWS * CH), j = i % (DS_ROWS * CH);
+    const int r = j / CH, c = (j % CH) * VE, row = r0 + r;
+    cp_async16((t ? s_g : s_q) + r * LD + c,
+               (t ? g : q) + head_off + (long)min(row, L - 1) * D + c, row < L ? 16 : 0);
+  }
+  // keys k0 .. k0 + 63 into stage `stage`: K and V rows (bf16 as they are,
+  // f32 in slot order; keys past L as zero rows), the bias by key (bf16 in
+  // log2 units; past L -inf)
+  auto load_tile = [&](int stage, int k0) {
+    for (unsigned i = tid; i < 2 * DS_TILE * CH; i += DS_THREADS) {
+      const unsigned t = i / (DS_TILE * CH), j = i % (DS_TILE * CH);
+      const int r = j / CH, c = (j % CH) * VE, key = k0 + r;
+      cp_async16((t ? s_v : s_k) + (stage * DS_TILE + (BF ? r : slot_row(r))) * LD + c,
+                 (t ? v : k) + head_off + (long)min(key, L - 1) * D + c, key < L ? 16 : 0);
+    }
+    if (tid < DS_TILE) {
+      const int key = k0 + tid;
+      s_bias[stage * DS_TILE + tid] = key < L ? (BF ? brow[key] * LOG2E : brow[key]) : -INFINITY;
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  const int row0 = r0 + warp * 16 + grp;  // this thread's rows: row0 and row0 + 8
+  float lse_r[2], dsum_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row0 + 8 * rr;
+    // rows past L: probability 0 at every key
+    lse_r[rr] = row < L ? (BF ? lse[bh * L + row] * LOG2E : lse[bh * L + row]) : INFINITY;
+    if (DQ && row < L) dsum_r[rr] = dsum[bh * L + row];
+  }
+  DsFrags<T, D> qa, ga;
+  float acc[D / 8][4], acc_lo[D / 8][4];  // dq (K2)
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = acc_lo[i][e] = 0.f;
+
+  const int n_kt = (L + DS_TILE - 1) / DS_TILE;
+  for (int t = 0; t < n_kt; ++t) {
+    if (t + 1 < n_kt) load_tile((t + 1) & 1, (t + 1) * DS_TILE);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and the block's rows) has landed
+    __syncthreads();
+    if (t == 0) {
+      load_frags(qa, s_q, warp * 16, lane);
+      load_frags(ga, s_g, warp * 16, lane);
+    }
+    const T* sk = s_k + (t & 1) * DS_TILE * LD;
+    const T* sv = s_v + (t & 1) * DS_TILE * LD;
+    const float* sb = s_bias + (t & 1) * DS_TILE;
+    const int k0 = t * DS_TILE;
+    const int n_c = min(DS_TILE / 16, (L - k0 + 15) >> 4);  // chunks holding a key < L
+    // the rows' keep bits of this tile, bit j for key k0 + j: drawn (K1) or read (K2)
+    uint64_t tile_bits[2] = {0u, 0u};
+    if (DQ && drop) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        if (row >= L) continue;
+        const uint32_t* src = bits + (bh * L + row) * W + (k0 >> 5);
+        tile_bits[rr] = src[0] | ((k0 >> 5) + 1 < W ? (uint64_t)src[1] << 32 : 0u);
+      }
+    }
+    for (int c = 0; c < n_c; ++c) {
+      float s[2][4], dp[2][4];
+      chunk_products(s, dp, qa, ga, sk, sv, c * 16, lane, false);
+      const int kc = c * 16 + 4 * tig;  // the thread's four keys kc .. kc + 3 of the tile
+      float ds[2][4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        uint32_t keep = 0xFu;
+        if (drop && !DQ) {
+          keep = keep_bits4(seed, (uint32_t)bh, row0 + 8 * rr, k0 + kc, p);
+          uint32_t word = keep << (4 * tig);  // the row's 16 keys of the chunk
+          word |= __shfl_xor_sync(0xffffffffu, word, 1);
+          word |= __shfl_xor_sync(0xffffffffu, word, 2);
+          tile_bits[rr] |= (uint64_t)word << (16 * c);
+        } else if (drop) {
+          keep = (uint32_t)(tile_bits[rr] >> kc) & 0xFu;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float prob =
+              ds_prob<T>(s[j >> 1][2 * rr + (j & 1)], sb[kc + j], lse_r[rr], sm_scale, scale_log2);
+          const float dpv = dp[j >> 1][2 * rr + (j & 1)];
+          const float dprobs = drop ? (((keep >> j) & 1u) ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+          if (DQ)
+            ds[rr][j] = __fmul_rn(__fmul_rn(prob, __fsub_rn(dprobs, dsum_r[rr])), sm_scale);
+          else
+            dsum_r[rr] = fmaf(dprobs, prob, dsum_r[rr]);
+        }
+      }
+      if constexpr (DQ) chunk_accumulate<D>(acc, acc_lo, ds, sk, c * 16, lane, false);
+    }
+    if (!DQ && drop && tig < 2) {  // lanes tig 0 and 1 write the rows' two words of the tile
+      const int w = (k0 >> 5) + tig;
+      if (w < W) {
+        const int live = L - 32 * w;  // keys of the word below L
+        uint32_t word = (uint32_t)(tile_bits[0] >> (32 * tig));
+        uint32_t word8 = (uint32_t)(tile_bits[1] >> (32 * tig));
+        const uint32_t keep_mask = live >= 32 ? 0xffffffffu : (1u << live) - 1u;
+        if (row0 < L) bits[(bh * L + row0) * W + w] = word & keep_mask;
+        if (row0 + 8 < L) bits[(bh * L + row0 + 8) * W + w] = word8 & keep_mask;
+      }
+    }
+    __syncthreads();  // the tile's buffers are free for tile t + 2
+  }
+
+  if constexpr (DQ) {
+    if constexpr (!BF) {
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) fold_lo(acc[dn], acc_lo[dn]);
+    }
+    store_rows<D>(dq + head_off, acc, row0, L, tig);
+  } else {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      dsum_r[rr] += __shfl_xor_sync(0xffffffffu, dsum_r[rr], 1);
+      dsum_r[rr] += __shfl_xor_sync(0xffffffffu, dsum_r[rr], 2);
+      if (tig == 0 && row0 + 8 * rr < L) dsum[bh * L + row0 + 8 * rr] = dsum_r[rr];
+    }
+  }
+}
+
+// K3: a block per (head, 64 keys), warp w keys 16w..16w+15, q, g, lse, D
+// and the keep bits streamed in 64-query tiles. S^T and dP^T have keys as
+// rows and the queries in their natural order: element e of a 16-query
+// chunk's tile nt (bf16) holds key grp + 8 (e >> 1), query c16 + 8 nt +
+// 2 tig + (e & 1); in f32 each 8-query tile nt holds queries 8 nt + 2 tig +
+// (e & 1), its C fragment the A fragment of an 8-deep step with column 2 tig
+// as k = tig and 2 tig + 1 as k = tig + 4 (a0 = c0, a1 = c2, a2 = c1, a3 =
+// c3), so B reads q's or g's rows 8 nt + 2 tig and + 1.
+template <typename T, int D>
+__global__ void __launch_bounds__(DS_THREADS) dropattn_bwd_stream_cols_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const T* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ dsum, const uint32_t* __restrict__ bits, T* __restrict__ dk,
+    T* __restrict__ dv, int h, int L, int n_kt, float sm_scale, float scale_log2, float p,
+    float inv) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int LD = ds_ld<T, D>();
+  constexpr int VE = 16 / sizeof(T);
+  constexpr unsigned CH = D / VE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_k = reinterpret_cast<T*>(smem);
+  T* s_v = s_k + DS_ROWS * LD;
+  T* s_q = s_v + DS_ROWS * LD;      // [2][DS_TILE][LD]
+  T* s_g = s_q + 2 * DS_TILE * LD;  // [2][DS_TILE][LD]
+  float* s_lse = reinterpret_cast<float*>(s_g + 2 * DS_TILE * LD);  // [2][DS_TILE]
+  float* s_dsum = s_lse + 2 * DS_TILE;                              // [2][DS_TILE]
+  uint32_t* s_bits = reinterpret_cast<uint32_t*>(s_dsum + 2 * DS_TILE);  // [2][DS_TILE][2]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const long bh = blockIdx.x / n_kt;
+  const int kb0 = (blockIdx.x % n_kt) * DS_ROWS;
+  const long head_off = bh * (long)L * D;
+  const int W = (L + 31) >> 5;
+  const bool drop = p > 0.f;
+
+  // the block's k and v rows (past L as zeros)
+  for (unsigned i = tid; i < 2 * DS_ROWS * CH; i += DS_THREADS) {
+    const unsigned t = i / (DS_ROWS * CH), j = i % (DS_ROWS * CH);
+    const int r = j / CH, c = (j % CH) * VE, key = kb0 + r;
+    cp_async16((t ? s_v : s_k) + r * LD + c,
+               (t ? v : k) + head_off + (long)min(key, L - 1) * D + c, key < L ? 16 : 0);
+  }
+  // queries i0 .. i0 + 63 into stage `stage`: q and g rows, lse, D and the
+  // two words of keep bits over the block's keys (past L as zeros)
+  auto load_tile = [&](int stage, int i0) {
+    for (unsigned i = tid; i < 2 * DS_TILE * CH; i += DS_THREADS) {
+      const unsigned t = i / (DS_TILE * CH), j = i % (DS_TILE * CH);
+      const int r = j / CH, c = (j % CH) * VE, row = i0 + r;
+      cp_async16((t ? s_g : s_q) + (stage * DS_TILE + r) * LD + c,
+                 (t ? g : q) + head_off + (long)min(row, L - 1) * D + c, row < L ? 16 : 0);
+    }
+    for (int i = tid; i < 4 * DS_TILE; i += DS_THREADS) {
+      const int what = i / DS_TILE, r = i % DS_TILE, row = min(i0 + r, L - 1);
+      const bool live = i0 + r < L;
+      if (what < 2) {
+        cp_async4_zfill((what ? s_dsum : s_lse) + stage * DS_TILE + r,
+                        (what ? dsum : lse) + bh * L + row, live ? 4 : 0);
+      } else {
+        const int w = min((kb0 >> 5) + what - 2, W - 1);
+        cp_async4_zfill(s_bits + (stage * DS_TILE + r) * 2 + what - 2,
+                        bits + (bh * L + row) * W + w,
+                        live && (kb0 >> 5) + what - 2 < W ? 4 : 0);
+      }
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  const int key0 = kb0 + warp * 16 + grp;  // this thread's keys: key0 and key0 + 8
+  const int bit0 = 16 * (warp & 1) + grp;  // their bits in word warp >> 1: bit0, bit0 + 8
+  float kbias[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key0 + 8 * rr;
+    kbias[rr] = key < L ? (BF ? bias[(bh / h) * L + key] * LOG2E : bias[(bh / h) * L + key])
+                        : -INFINITY;
+  }
+  DsFrags<T, D> ka, va;  // bf16: loaded once; f32: read at each use
+  float dka[D / 8][4], dka_lo[D / 8][4], dva[D / 8][4], dva_lo[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dka_lo[i][e] = dva[i][e] = dva_lo[i][e] = 0.f;
+
+  const int n_qt = (L + DS_TILE - 1) / DS_TILE;
+  for (int t = 0; t < n_qt; ++t) {
+    if (t + 1 < n_qt) load_tile((t + 1) & 1, (t + 1) * DS_TILE);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (BF) {
+      if (t == 0) {
+        load_frags(ka, s_k, warp * 16, lane);
+        load_frags(va, s_v, warp * 16, lane);
+      }
+    }
+    const T* sq = s_q + (t & 1) * DS_TILE * LD;
+    const T* sg = s_g + (t & 1) * DS_TILE * LD;
+    const float* sl = s_lse + (t & 1) * DS_TILE;
+    const float* sd = s_dsum + (t & 1) * DS_TILE;
+    const uint32_t* sw = s_bits + (t & 1) * DS_TILE * 2 + (warp >> 1);
+    const int i0 = t * DS_TILE;
+    // pd^T and ds^T of query column `col` (tile-relative) for key row rr
+    auto grads = [&](float sv, float dpv, int col, int rr, float& pd, float& ds) {
+      const bool live = i0 + col < L;
+      const float lse_q = live ? (BF ? sl[col] * LOG2E : sl[col]) : INFINITY;
+      const float prob = ds_prob<T>(sv, kbias[rr], lse_q, sm_scale, scale_log2);
+      const bool kept = !drop || ((sw[2 * col] >> (bit0 + 8 * rr)) & 1u);
+      const float dprobs = drop ? (kept ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+      pd = drop ? (kept ? __fmul_rn(prob, inv) : 0.f) : prob;
+      ds = __fmul_rn(__fmul_rn(prob, __fsub_rn(dprobs, sd[col])), sm_scale);
+    };
+    if constexpr (BF) {
+      const int n_c = min(DS_TILE / 16, (L - i0 + 15) >> 4);
+      for (int c = 0; c < n_c; ++c) {
+        float s[2][4], dp[2][4];
+        chunk_products(s, dp, ka, va, sq, sg, c * 16, lane, true);
+        float pd[2][4], ds[2][4];  // [rr][j]: key row rr, query c16 + 8 (j >> 1) + 2 tig + (j & 1)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            grads(s[nt][e], dp[nt][e], c * 16 + 8 * nt + 2 * tig + (e & 1), e >> 1,
+                  pd[e >> 1][2 * nt + (e & 1)], ds[e >> 1][2 * nt + (e & 1)]);
+        chunk_accumulate<D>(dva, dva_lo, pd, sg, c * 16, lane, true);
+        chunk_accumulate<D>(dka, dka_lo, ds, sq, c * 16, lane, true);
+      }
+    } else {
+      const int n_c = min(DS_TILE / 8, (L - i0 + 7) >> 3);
+      for (int nt = 0; nt < n_c; ++nt) {
+        float s[4] = {}, s_lo[4] = {}, dp[4] = {}, dp_lo[4] = {};
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          const float* kr = reinterpret_cast<const float*>(s_k) + (warp * 16 + grp) * LD + ks * 8 + tig;
+          const float* vr = reinterpret_cast<const float*>(s_v) + (warp * 16 + grp) * LD + ks * 8 + tig;
+          const float a_k[4] = {lds_f32(kr), lds_f32(kr + 8 * LD), lds_f32(kr + 4),
+                                lds_f32(kr + 8 * LD + 4)};
+          const float a_v[4] = {lds_f32(vr), lds_f32(vr + 8 * LD), lds_f32(vr + 4),
+                                lds_f32(vr + 8 * LD + 4)};
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          split_tf32_a(a_k, kh, kl);
+          split_tf32_a(a_v, vh, vl);
+          const float* qr = reinterpret_cast<const float*>(sq) + (8 * nt + grp) * LD + ks * 8 + tig;
+          const float* gr = reinterpret_cast<const float*>(sg) + (8 * nt + grp) * LD + ks * 8 + tig;
+          mma_3xtf32(s, s_lo, kh, kl, qr[0], qr[4]);
+          mma_3xtf32(dp, dp_lo, vh, vl, gr[0], gr[4]);
+        }
+        fold_lo(s, s_lo);
+        fold_lo(dp, dp_lo);
+        float pd[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) grads(s[e], dp[e], 8 * nt + 2 * tig + (e & 1), e >> 1, pd[e], ds[e]);
+        const float ap[4] = {pd[0], pd[2], pd[1], pd[3]}, as[4] = {ds[0], ds[2], ds[1], ds[3]};
+        uint32_t ph[4], pl[4], sh[4], sl_[4];
+        split_tf32_a(ap, ph, pl);
+        split_tf32_a(as, sh, sl_);
+        const float* gr = reinterpret_cast<const float*>(sg) + (8 * nt + 2 * tig) * LD + grp;
+        const float* qr = reinterpret_cast<const float*>(sq) + (8 * nt + 2 * tig) * LD + grp;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          mma_3xtf32_rn(dva[dn], dva_lo[dn], ph, pl, gr[dn * 8], gr[LD + dn * 8]);
+          mma_3xtf32_rn(dka[dn], dka_lo[dn], sh, sl_, qr[dn * 8], qr[LD + dn * 8]);
+        }
+      }
+    }
+    __syncthreads();  // the tile's buffers are free for tile t + 2
+  }
+  if constexpr (!BF) {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      fold_lo(dka[dn], dka_lo[dn]);
+      fold_lo(dva[dn], dva_lo[dn]);
+    }
+  }
+  store_rows<D>(dk + head_off, dka, key0, L, tig);
+  store_rows<D>(dv + head_off, dva, key0, L, tig);
+}
+
 template <typename Kern>
 static int allow_smem(Kern kernel, size_t smem) {
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)smem);
-  return 0;
-}
-
-template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v, const float* bias, const void* g,
-                  const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int h,
-                  int L, float sm_scale, uint32_t seed, float p, float inv, cudaStream_t stream) {
-  const int kc = db_chunk_rows<T, D>(L, 1), qc = db_chunk_rows<T, D>(L, 2);
-  const size_t smem_dq = 2 * (size_t)kc * D * sizeof(T) + (size_t)kc * sizeof(float);
-  const size_t smem_dkv = 2 * (size_t)qc * D * sizeof(T) + 2 * (size_t)qc * sizeof(float);
-  int rc = allow_smem(dropattn_bwd_dq_kernel<T, D>, smem_dq);
-  if (rc == 0) rc = allow_smem(dropattn_bwd_dkv_kernel<T, D>, smem_dkv);
-  if (rc != 0) return rc;
-  const int n_t = (L + DB_TB - 1) / DB_TB;
-  const unsigned grid = (unsigned)((long)B * h * n_t);
-  dropattn_bwd_dq_kernel<T, D><<<grid, DB_TB, smem_dq, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (const T*)g, lse, dsum, (T*)dq, h, L, n_t, kc,
-      sm_scale, seed, p, inv);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  dropattn_bwd_dkv_kernel<T, D><<<grid, DB_TB, smem_dkv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (const T*)g, lse, dsum, (T*)dk, (T*)dv, h,
-      L, n_t, qc, sm_scale, seed, p, inv);
   return 0;
 }
 
@@ -859,50 +1264,54 @@ static int launch_tc(Kern kernel, int max_threads, long BH, int L, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// The streaming route's three launches for operand T at head dim D, one
+// block per (head, 64 rows) each.
+template <typename T, int D>
+static int launch_stream(const void* q, const void* k, const void* v, const float* bias,
+                         const void* g, const float* lse, float* dsum, uint32_t* bits, void* dq,
+                         void* dk, void* dv, int B, int h, int L, float sm_scale,
+                         float scale_log2, uint32_t seed, float p, float inv,
+                         cudaStream_t stream) {
+  const size_t rows_smem = ds_smem_bytes<T, D>(false), cols_smem = ds_smem_bytes<T, D>(true);
+  int rc = allow_smem(dropattn_bwd_stream_rows_kernel<T, D, false>, rows_smem);
+  if (rc == 0) rc = allow_smem(dropattn_bwd_stream_rows_kernel<T, D, true>, rows_smem);
+  if (rc == 0) rc = allow_smem(dropattn_bwd_stream_cols_kernel<T, D>, cols_smem);
+  if (rc != 0) return rc;
+  const int n_t = (L + DS_TILE - 1) / DS_TILE;
+  if ((long)B * h * n_t > INT_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((long)B * h * n_t);
+  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v, *tg = (const T*)g;
+  dropattn_bwd_stream_rows_kernel<T, D, false><<<grid, DS_THREADS, rows_smem, stream>>>(
+      tq, tk, tv, bias, tg, lse, dsum, bits, nullptr, h, L, n_t, sm_scale, scale_log2, seed, p,
+      inv);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  dropattn_bwd_stream_rows_kernel<T, D, true><<<grid, DS_THREADS, rows_smem, stream>>>(
+      tq, tk, tv, bias, tg, lse, dsum, bits, (T*)dq, h, L, n_t, sm_scale, scale_log2, seed, p,
+      inv);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  dropattn_bwd_stream_cols_kernel<T, D><<<grid, DS_THREADS, cols_smem, stream>>>(
+      tq, tk, tv, bias, tg, lse, dsum, bits, (T*)dk, (T*)dv, h, L, n_t, sm_scale, scale_log2, p,
+      inv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
 //   dtype: 0 f32, 1 bf16. q, k, v, g, dq, dk, dv: [B, h, L, d] contiguous;
-//   bias: [B, L] f32; lse: [B, h, L] f32 from the forward; dsum: [B, h, L] f32
-//   scratch. d = 32 or 64 (others are refused), any L; 0 <= p < 1, inv =
-//   1 / (1 - p) rounded to f32.
-// Launches the dq kernel, then the dk/dv kernel, on one stream.
-// Returns cudaGetLastError() after the launches.
-extern "C" int sskd_dropattn_bwd(int dtype, const void* q, const void* k, const void* v,
-                                 const float* bias, const void* g, const float* lse,
-                                 float* dsum, void* dq, void* dk, void* dv, int B, int h, int L,
-                                 int d, float sm_scale, uint32_t seed, float p, float inv,
-                                 void* stream) {
-  using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0 || (d != 32 && d != 64) || !(p >= 0.f && p < 1.f))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (dtype == 0 && d == 32)
-    rc = launch<float, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p,
-                           inv, s);
-  else if (dtype == 0)
-    rc = launch<float, 64>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale, seed, p,
-                           inv, s);
-  else if (dtype == 1 && d == 32)
-    rc = launch<__nv_bfloat16, 32>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale,
-                                   seed, p, inv, s);
-  else if (dtype == 1)
-    rc = launch<__nv_bfloat16, 64>(q, k, v, bias, g, lse, dsum, dq, dk, dv, B, h, L, sm_scale,
-                                   seed, p, inv, s);
-  else rc = (int)cudaErrorInvalidValue;
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
-}
-
-//   The tensor-core routes: dtype 1 (bf16) at d = 32 or 64, dtype 0 (f32) at
+//   bias: [B, L] f32; lse: [B, h, L] f32 from the forward; 0 <= p < 1, inv =
+//   1 / (1 - p) rounded to f32; sm_scale = 1 / sqrt(d) and scale_log2 =
+//   log2(e) / sqrt(d) in f32 (the bf16 kernels' exponent).
+//   Each returns cudaGetLastError() after its launches.
+//
+//   The resident route: dtype 1 (bf16) at d = 32 or 64, dtype 0 (f32) at
 //   d = 64, at any L whose head fits a block's shared memory (dt_smem_bytes
 //   with one buffer: L <= 256 for bf16 at d = 32, 208 at d = 64, 128 for
-//   f32); others are refused. The arguments as above without dsum;
-//   scale_log2 = log2(e) / sqrt(d) in f32 (the bf16 route's exponent).
-//   Launches one kernel: blocks of L / 16 warps (L rounded up to 16), as many
-//   as fit the card at once (at most one per head), each walking its heads
-//   (launch_tc).
+//   f32); others are refused. Launches one kernel: blocks of L / 16 warps (L
+//   rounded up to 16), as many as fit the card at once (at most one per
+//   head), each walking its heads (launch_tc).
 extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, const void* v,
                                     const float* bias, const void* g, const float* lse, void* dq,
                                     void* dk, void* dv, int B, int h, int L, int d,
@@ -925,5 +1334,35 @@ extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, con
     return launch_tc<float, 64>(dropattn_bwd_tc_tf32_kernel<64>, 256, BH, L, s, (const float*)q,
                                 (const float*)k, (const float*)v, bias, (const float*)g, lse,
                                 (float*)dq, (float*)dk, (float*)dv, h, L, sm_scale, seed, p, inv);
+  return (int)cudaErrorInvalidValue;
+}
+
+//   The streaming route: dtype 0 or 1 at d = 32 or 64, any L (other head
+//   dims are refused). dsum: [B, h, L] f32 and bits: [B*h, L, ceil(L / 32)]
+//   uint32, scratch that the first kernel writes (D and the keep bits) and
+//   the other two read. Launches K1, K2 and K3 on the stream, each
+//   B * h * ceil(L / 64) blocks of 128 threads (launch_stream).
+extern "C" int sskd_dropattn_bwd_stream(int dtype, const void* q, const void* k, const void* v,
+                                        const float* bias, const void* g, const float* lse,
+                                        float* dsum, uint32_t* bits, void* dq, void* dk,
+                                        void* dv, int B, int h, int L, int d, float sm_scale,
+                                        float scale_log2, uint32_t seed, float p, float inv,
+                                        void* stream) {
+  using namespace sskd;
+  if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (dtype == 1 && d == 32)
+    return launch_stream<bf, 32>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
+                                 sm_scale, scale_log2, seed, p, inv, s);
+  if (dtype == 1 && d == 64)
+    return launch_stream<bf, 64>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
+                                 sm_scale, scale_log2, seed, p, inv, s);
+  if (dtype == 0 && d == 32)
+    return launch_stream<float, 32>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
+                                    sm_scale, scale_log2, seed, p, inv, s);
+  if (dtype == 0 && d == 64)
+    return launch_stream<float, 64>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
+                                    sm_scale, scale_log2, seed, p, inv, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,9 @@ launches its kernel and nowhere else; ``launch_counts`` reads them and
 path went through. A wrapper with more than one kernel route also counts the
 launches of its tensor-core route in ``tc_launches`` (``tc_launch_counts``),
 a top-k wrapper those of its bf16 route in ``bf16_launches``
-(``bf16_launch_counts``), and an attention wrapper its launches by head dim
-in ``head_dim_launches`` (``head_dim_launch_counts``).
+(``bf16_launch_counts``), an attention wrapper its launches by head dim in
+``head_dim_launches`` (``head_dim_launch_counts``), and ``dropattn_bwd``
+those of its streaming route in ``stream_launches``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def head_dim_launch_counts() -> dict[str, dict[int, int]]:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for extra in ("tc_launches", "bf16_launches"):
+        for extra in ("tc_launches", "bf16_launches", "stream_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
         if hasattr(fn, "head_dim_launches"):

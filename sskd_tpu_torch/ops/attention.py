@@ -16,11 +16,15 @@
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
   ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 32 (the
-  student's) and 64 (the teacher's). Both have tensor-core routes for bf16
-  at head dims 32 and 64 and for f32 at 64 (:func:`dropattn_fwd_route`,
-  :func:`dropattn_bwd_route`), as flash has (:func:`flash_route`);
-  ``tc_launches`` counts them.
-- The f32 tensor-core routes (head dim 64, the teacher's f32 compute) take
+  student's) and 64 (the teacher's). The forward has tensor-core routes for
+  bf16 at head dims 32 and 64 and for f32 at 64 (:func:`dropattn_fwd_route`),
+  as flash has (:func:`flash_route`); the backward is on the tensor cores at
+  every (dtype, head dim, L) it takes, a head held in shared memory
+  (``"tc"``) or streamed through it (``"tc_stream"``,
+  :func:`dropattn_bwd_route`). ``tc_launches`` counts the tensor-core
+  launches, ``dropattn_bwd.stream_launches`` the streaming ones.
+- The f32 tensor-core routes (the teacher's f32 compute, and the student's
+  in f32 on the streaming backward) take
   each product as three TF32 products on the tensor cores (hi and lo terms
   of each operand, f32 sums: csrc/mma_common.cuh), which keeps the f32
   function to about 2^-21 of each product; one TF32 pass would be ~1e-3
@@ -101,9 +105,12 @@ def dropattn_bwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     (one tensor-core kernel holding a whole head in shared memory:
     ``dropattn_bwd_tc_kernel`` for bf16 at head dims 32 and 64,
     ``dropattn_bwd_tc_tf32_kernel`` for f32 at head dim 64) for L up to
-    ``DROPATTN_TC_MAX_L[(dtype, d)]``, ``"cuda_core"`` (the dq and dk/dv
-    kernel pair) for f32 at head dim 32 and for longer L."""
-    return "tc" if L <= DROPATTN_TC_MAX_L.get((dtype, d), 0) else "cuda_core"
+    ``DROPATTN_TC_MAX_L[(dtype, d)]``; ``"tc_stream"`` (three tensor-core
+    kernels streaming the head through shared memory in 64-row tiles:
+    ``dropattn_bwd_stream_rows_kernel`` for D and the keep bits, again for
+    dq, then ``dropattn_bwd_stream_cols_kernel`` for dk and dv) for every
+    other (dtype, d, L), f32 at head dim 32 at every L included."""
+    return "tc" if L <= DROPATTN_TC_MAX_L.get((dtype, d), 0) else "tc_stream"
 
 
 def _count(wrapper, d: int, tc: bool) -> None:
@@ -383,6 +390,25 @@ def dropout_keep_mask(seed: int, BH: int, L: int, p: float, device=None) -> torc
     return dropout_uniform(seed, 0, BH, L, device) >= p
 
 
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """A keep-mask [n, L, L] (bool) packed as the streaming backward's first
+    kernel writes it: int32 words [n, L, ceil(L / 32)] (uint32 bit
+    patterns), bit j % 32 of word j // 32 holding key j's bit, bits past L
+    0."""
+    n, L, _ = keep.shape
+    W = (L + 31) // 32
+    bits = torch.nn.functional.pad(keep, (0, 32 * W - L)).view(n, L, W, 32).to(torch.int64)
+    words = (bits << torch.arange(32, dtype=torch.int64, device=keep.device)).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def dropout_keep_bits(seed: int, BH: int, L: int, p: float, device=None) -> torch.Tensor:
+    """The keep-mask of :func:`dropout_keep_mask` packed by
+    :func:`pack_keep_bits`: [BH, L, ceil(L / 32)] int32."""
+    return torch.cat([pack_keep_bits(dropout_uniform(seed, a, b - a, L, device) >= p)
+                      for a, b in _chunks(BH, L)])
+
+
 # ---------------------------------------------------------------------------
 # Dropout attention: plain versions and the error bounds
 # ---------------------------------------------------------------------------
@@ -594,9 +620,9 @@ def dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want):
       1.01 scale probs (eps (|dprobs| + |D|) + delta_dprobs + delta_D) +
       2^-22 |ds|; pd moves by eps pd.
     - The products over L: _gamma(L) of the same sums of absolute products.
-    The CUDA-core pair (past the tensor-core route's L) rounds its f32 sums
-    and calls expf, which these terms also cover. The f32 routes are held
-    to 1e-5 instead."""
+    The streaming route takes the resident route's arithmetic over other
+    tiles (its S^T and dP^T with the operands' roles swapped), which the
+    same terms cover. The f32 routes are held to 1e-5 instead."""
     u = _unit(q.dtype)
     t = _abs_products(q, k, v, bias, p, seed, lse, g)
     L = q.shape[2]
@@ -697,42 +723,67 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
     g = g.to(q.dtype).contiguous()
     bias = bias.to(torch.float32).contiguous()
     lse = lse.to(torch.float32).contiguous()
+    if dropattn_bwd_route(q.dtype, d, L) == "tc_stream":
+        return _dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g)[:3]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load_library("dropattn_bwd")
-    if dropattn_bwd_route(q.dtype, d, L) == "tc":
-        fn = lib.sskd_dropattn_bwd_tc
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p,
-        ]
-        _build.check(
-            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)),
-               B, h, L, d,
-               1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
-               _stream(q)),
-            "dropattn_bwd (tensor cores)",
-        )
-        _count(dropattn_bwd, d, True)
-        return dq, dk, dv
-    scratch = torch.empty((B, h, L), dtype=torch.float32, device=q.device)  # <dprobs, probs>
-    fn = lib.sskd_dropattn_bwd
+    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd_tc
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     _build.check(
-        fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, scratch, dq, dk, dv)),
-           B, h, L, d, 1.0 / (d**0.5), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
+        fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)),
+           B, h, L, d,
+           1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
            _stream(q)),
-        "dropattn_bwd",
+        "dropattn_bwd (tensor cores)",
     )
-    _count(dropattn_bwd, d, False)
+    _count(dropattn_bwd, d, True)
     return dq, dk, dv
 
 
+def _dropattn_bwd_stream(q, k, v, bias, p: float, seed: int, lse, g):
+    """The streaming route's three launches on CUDA tensors as
+    :func:`dropattn_bwd` prepares them (contiguous; g in q's type, bias and
+    lse f32), at any L: (dq, dk, dv, D [B, h, L] f32, the keep bits [B*h,
+    L, ceil(L / 32)] int32 as :func:`pack_keep_bits` lays them out, written
+    at p > 0 only). D and the bits are the first kernel's scratch, returned
+    for checks. :func:`dropattn_bwd` calls it past the resident route's
+    lengths; a check may call it at any length. Counted as one launch on the
+    tensor cores and one on the streaming route."""
+    B, h, L, d = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"the streaming dropattn_bwd runs on cuda, not {q.device}")
+    if d not in _DROPATTN_HEAD_DIMS:
+        raise ValueError(f"dropattn kernels support head dims {_DROPATTN_HEAD_DIMS}, got {d}")
+    if (g.dtype != q.dtype or bias.dtype != torch.float32 or lse.dtype != torch.float32
+            or not all(t.is_contiguous() for t in (q, k, v, bias, g, lse))):
+        raise ValueError("the streaming dropattn_bwd takes contiguous tensors, g in q's type, "
+                         "bias and lse in f32")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dsum = torch.empty((B, h, L), dtype=torch.float32, device=q.device)
+    bits = torch.empty((B * h, L, (L + 31) // 32), dtype=torch.int32, device=q.device)
+    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd_stream
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    _build.check(
+        fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, dsum, bits, dq, dk, dv)),
+           B, h, L, d, 1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p),
+           1.0 / (1.0 - p), _stream(q)),
+        "dropattn_bwd (streaming, tensor cores)",
+    )
+    _count(dropattn_bwd, d, True)
+    dropattn_bwd.stream_launches += 1
+    return dq, dk, dv, dsum, bits
+
+
 dropattn_bwd.launches = 0
-dropattn_bwd.tc_launches = 0  # the launches that took the tensor-core route
+dropattn_bwd.tc_launches = 0  # the launches on the tensor cores: all of them
+dropattn_bwd.stream_launches = 0  # those that streamed the head ("tc_stream")
 dropattn_bwd.head_dim_launches = {}
 
 

@@ -433,9 +433,10 @@ def test_routes_send_head_dim_64_to_the_cuda_cores():
     tensor cores in bf16 and f32. The f32 forward streams the head and takes
     every L; the bf16 forward takes L while the head's K and V fit a block
     (656 at d = 64, 1344 at d = 32) and the CUDA-core kernel past that; the
-    backward takes L while the head fits a block (208 in bf16, 128 in f32)
-    and the CUDA-core pair past that; f32 at head dim 32 stays on the CUDA
-    cores."""
+    backward holds the head in a block while it fits (208 in bf16, 128 in
+    f32) and streams it on the tensor cores past that ("tc_stream"), as it
+    does for f32 at head dim 32 at every L: no backward is left on the CUDA
+    cores. (The name is the one the test had before the streaming route.)"""
     limits, fwd_limits = ta.DROPATTN_TC_MAX_L, ta.DROPATTN_FWD_TC_MAX_L
     assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
     assert fwd_limits == {(torch.bfloat16, 32): 1344, (torch.bfloat16, 64): 656}
@@ -445,13 +446,13 @@ def test_routes_send_head_dim_64_to_the_cuda_cores():
             "tc" if L <= 656 else "cuda_core")
         for dtype in (torch.bfloat16, torch.float32):
             assert ta.dropattn_bwd_route(dtype, 64, L) == (
-                "tc" if L <= limits[(dtype, 64)] else "cuda_core")
+                "tc" if L <= limits[(dtype, 64)] else "tc_stream")
         assert ta.dropattn_fwd_route(torch.bfloat16, 32, L) == (
             "tc" if L <= 1344 else "cuda_core")
         assert ta.dropattn_fwd_route(torch.float32, 32, L) == "cuda_core"
         assert ta.dropattn_bwd_route(torch.bfloat16, 32, L) == (
-            "tc" if L <= limits[(torch.bfloat16, 32)] else "cuda_core")
-        assert ta.dropattn_bwd_route(torch.float32, 32, L) == "cuda_core"
+            "tc" if L <= limits[(torch.bfloat16, 32)] else "tc_stream")
+        assert ta.dropattn_bwd_route(torch.float32, 32, L) == "tc_stream"
     assert ta.flash_route(torch.bfloat16, 64) == ta.flash_route(torch.float32, 64) == "tc"
     assert ta.flash_route(torch.bfloat16, 32) == "tc"
     assert ta.flash_route(torch.float32, 32) == ta.flash_route(torch.bfloat16, 16) == "cuda_core"

@@ -1,0 +1,146 @@
+"""The streaming tensor-core dropattn backward (csrc/dropattn_bwd.cu route
+2, ``"tc_stream"``) on the CPU.
+
+Its kernels run only on the card. Their arithmetic, written out kernel by
+kernel over 64-row tiles in tests/torch_tc_emulation.py
+(``dropattn_bwd_stream_tc`` for bf16, ``dropattn_bwd_stream_tf32`` for f32
+as three TF32 products), is held against the JAX backward kernel in
+interpret mode at p = 0 and against ``dropattn_bwd_plain`` with the plain
+keep-mask at p = 0.1, at B * h = 2 and lengths past each resident limit:
+f32 within 1e-5, bf16 within ``dropattn_bwd_error_bound``. Beside them: the
+packed keep bits the first kernel writes (``dropout_keep_bits``) and the
+route.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sskd_tpu.ops.attention import _dropattn_bwd_call as j_dropattn_bwd
+from sskd_tpu_torch.ops import attention as ta
+from torch_tc_emulation import dropattn_bwd_stream_tc, dropattn_bwd_stream_tf32
+
+NEG = float(np.finfo(np.float32).min / 2)
+
+# (dtype, head dim, L): past the resident limits (f32 at d = 64: 128; bf16
+# at d = 64: 208, at d = 32: 256), ragged against the 64-row tiles and the
+# 16-key chunks; f32 at d = 32, which only the streaming route takes
+CASES = [(torch.float32, 64, 136), (torch.bfloat16, 64, 216), (torch.bfloat16, 32, 264),
+         (torch.float32, 32, 72), (torch.float32, 32, 136)]
+IDS = [f"{str(dt).split('.')[1]}-d{d}-L{L}" for dt, d, L in CASES]
+
+
+def _inputs(seed, B, h, L, d):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((B, h, L, d)).astype(np.float32) for _ in range(4))
+    lens = rng.integers(1, L + 1, B)
+    lens[0] = L
+    bias = np.where(np.arange(L)[None, :] < lens[:, None], 0.0, NEG).astype(np.float32)
+    return q, k, v, g, bias
+
+
+def _emulated(dtype, q, k, v, bias, p, lse, g, keep):
+    if dtype == torch.bfloat16:
+        return dropattn_bwd_stream_tc(q, k, v, bias, p, lse, g, keep)
+    return dropattn_bwd_stream_tf32(q, k, v, bias, p, lse, g, keep)
+
+
+def _within(dtype, q, k, v, bias, p, seed, lse, g, got, want):
+    """f32: within 1e-5 at every element; bf16: within
+    dropattn_bwd_error_bound, and a 5 % fault is not (at these lengths the
+    bound of dv reaches 2 % of its values at p = 0)."""
+    if dtype == torch.float32:
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = (a - b).abs().max().item()
+            assert err <= 1e-5, (name, err)
+        return
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want)
+    for name, a, b, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+    faulty = [(t.float() * 1.05).to(t.dtype) for t in got]
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, faulty, want)
+    for a, b, bd in zip(faulty, want, bounds):
+        assert not bool(((a.float() - b.float()).abs() <= bd).all())
+
+
+@pytest.mark.parametrize("dtype,d,L", CASES, ids=IDS)
+def test_streaming_backward_arithmetic_is_within_tolerance_of_the_jax_kernel(dtype, d, L):
+    """p = 0: the emulated streaming kernels against the JAX backward
+    kernel in interpret mode on the same inputs (bf16 rounded first)."""
+    assert ta.dropattn_bwd_route(dtype, d, L) == "tc_stream"
+    q, k, v, g, bias = _inputs(L + d, 1, 2, L, d)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
+    tb = torch.from_numpy(bias)
+    _, lse = ta.dropattn_fwd_plain(tq, tk, tv, tb, 0.0, 3)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = j_dropattn_bwd(0.0, True, *(jnp.asarray(t.float().numpy(), jdt) for t in (tq, tk, tv)),
+                          jnp.asarray(bias), jnp.asarray([3], jnp.int32),
+                          jnp.asarray(tg.float().numpy(), jdt))
+    want = [torch.from_numpy(np.array(x.astype(jdt).astype(jnp.float32))).to(dtype) for x in want]
+    got = _emulated(dtype, tq, tk, tv, tb, 0.0, lse, tg, None)
+    _within(dtype, tq, tk, tv, tb, 0.0, 3, lse, tg, got, want)
+
+
+@pytest.mark.parametrize("dtype,d,L", CASES, ids=IDS)
+def test_streaming_backward_arithmetic_is_within_tolerance_of_the_plain_version(dtype, d, L):
+    """p = 0.1 (no JAX reference draws the port's mask): the emulated
+    streaming kernels with the plain keep-mask against dropattn_bwd_plain;
+    the mask shifted by one key is not within the tolerance."""
+    q, k, v, g, bias = (torch.from_numpy(a).to(dtype) for a in _inputs(L + 2 * d, 1, 2, L, d))
+    bias = bias.float()
+    _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 41)
+    keep = ta.dropout_keep_mask(41, 2, L, 0.1).view(1, 2, L, L)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 41, lse, g)
+    got = _emulated(dtype, q, k, v, bias, 0.1, lse, g, keep)
+    _within(dtype, q, k, v, bias, 0.1, 41, lse, g, got, want)
+    shifted = _emulated(dtype, q, k, v, bias, 0.1, lse, g, torch.roll(keep, 1, dims=-1))
+    if dtype == torch.float32:
+        assert max((a - b).abs().max().item() for a, b in zip(shifted, want)) > 1e-3
+    else:
+        bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, 0.1, 41, lse, g, shifted, want)
+        assert not all(bool(((a.float() - b.float()).abs() <= bd).all())
+                       for a, b, bd in zip(shifted, want, bounds))
+
+
+def test_one_pass_tf32_streaming_backward_fails_the_1e5_check():
+    """One TF32 pass misses 1e-5 at L = 136, head dim 64: the f32 checks
+    would catch streaming kernels that dropped the small terms."""
+    q, k, v, g, bias = (torch.from_numpy(a) for a in _inputs(7, 1, 2, 136, 64))
+    _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 43)
+    keep = ta.dropout_keep_mask(43, 2, 136, 0.1).view(1, 2, 136, 136)
+    got = dropattn_bwd_stream_tf32(q, k, v, bias, 0.1, lse, g, keep, passes=1)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 43, lse, g)
+    assert max((a - b).abs().max().item() for a, b in zip(got, want)) > 1e-4
+
+
+@pytest.mark.parametrize("L", [64, 100, 513])
+def test_dropout_keep_bits_pack_dropout_keep_mask(L):
+    """The packed layout of the first streaming kernel's keep bits: bit
+    j % 32 of word j // 32 of row i is dropout_keep_mask[bh, i, j], bits past
+    L are 0, words are uint32 patterns in int32."""
+    BH, W = 3, (L + 31) // 32
+    mask = ta.dropout_keep_mask(77, BH, L, 0.1)
+    bits = ta.dropout_keep_bits(77, BH, L, 0.1)
+    assert bits.shape == (BH, L, W) and bits.dtype == torch.int32
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    unpacked = ((words[..., None] >> torch.arange(32)) & 1).flatten(-2).bool()
+    assert bool((unpacked[..., :L] == mask).all())
+    assert not bool(unpacked[..., L:].any())
+    assert torch.equal(ta.pack_keep_bits(mask), bits)
+
+
+def test_streaming_route_takes_every_length_past_the_resident_limits():
+    """dropattn_bwd_route: "tc" up to DROPATTN_TC_MAX_L (unchanged), "tc_stream"
+    past it and for f32 at head dim 32 at every L; never "cuda_core"."""
+    limits = ta.DROPATTN_TC_MAX_L
+    assert limits == {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 208,
+                      (torch.float32, 64): 128}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (32, 64):
+            limit = limits.get((dtype, d), 0)
+            for L in (1, 16, 63, 64, 65, 128, 129, 200, 208, 209, 256, 257, 512, 1000, 4096):
+                route = ta.dropattn_bwd_route(dtype, d, L)
+                assert route == ("tc" if L <= limit else "tc_stream"), (dtype, d, L, route)

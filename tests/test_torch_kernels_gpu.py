@@ -411,10 +411,12 @@ def test_dropattn_bwd_tensor_core_route_is_bitwise_repeatable():
 
 
 def test_attention_routes_and_their_counters():
-    """Each call counts one launch; only the tensor-core route counts in
-    tc_launches: flash for bf16 at head dim 32, the backward for bf16 at
-    L <= 256, the forward for bf16 at L <= 1344; f32, other head dims and
-    longer L take the CUDA-core kernels."""
+    """Each call counts one launch; only the tensor-core routes count in
+    tc_launches: flash for bf16 at head dim 32, the forward for bf16 at
+    L <= 1344, the backward at every L (bf16 at L <= 256 holding the head,
+    f32 and longer L streaming it, counted in stream_launches too); f32
+    flash and forward, other head dims and longer L take the CUDA-core
+    kernels."""
     from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
@@ -431,11 +433,13 @@ def test_attention_routes_and_their_counters():
     torch.cuda.synchronize()
     counts, tc = launch_counts(), tc_launch_counts()
     assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 1
-    assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 1
+    assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 3
+    assert ta.dropattn_bwd.stream_launches == 2  # f32 at 192, bf16 at 320
     assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 2
     limit = ta.DROPATTN_TC_MAX_L[(torch.bfloat16, 32)]
     assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit) == "tc"
-    assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit + 1) == "cuda_core"
+    assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit + 1) == "tc_stream"
+    assert ta.dropattn_bwd_route(torch.float32, 32, 64) == "tc_stream"
     fwd_limit = ta.DROPATTN_FWD_TC_MAX_L[(torch.bfloat16, 32)]
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, fwd_limit) == "tc"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, fwd_limit + 1) == "cuda_core"
@@ -444,6 +448,7 @@ def test_attention_routes_and_their_counters():
     assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
                                   "cell_gather": 0, "bin_gather": 0, "binmax_strided": 0,
                                   "binmax": 0}
+    assert ta.dropattn_bwd.stream_launches == 0
 
 
 @pytest.mark.parametrize("d", [32, 64])
@@ -1024,15 +1029,15 @@ def test_refined_engine_on_the_card_under_high_matmul_precision(dtype):
 def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
     """Head dim 64: the forward on the tensor cores (f32 streaming K and V
     in tiles of 64 keys, bf16 holding the head's K and V), the backward on
-    the tensor cores where the head fits a block (64 in both dtypes, 130 in
-    bf16) and on the CUDA-core pair past that: f32 within 1e-5, bf16 each
-    element within its rounding bound, the lse within 1e-5."""
+    the tensor cores, holding the head in a block where it fits (64 in both
+    dtypes, 130 in bf16) and streaming it past that: f32 within 1e-5, bf16
+    each element within its rounding bound, the lse within 1e-5."""
     _need_card()
     q, k, v, go, bias = _attn_inputs(2, 4, L, 64, dtype, seed=640 + L)
     seed = 64 + L
     assert ta.dropattn_fwd_route(dtype, 64, L) == "tc"
-    b_tc = ta.dropattn_bwd_route(dtype, 64, L) == "tc"
-    assert b_tc == (L <= ta.DROPATTN_TC_MAX_L[(dtype, 64)])
+    b_route = ta.dropattn_bwd_route(dtype, 64, L)
+    assert b_route == ("tc" if L <= ta.DROPATTN_TC_MAX_L[(dtype, 64)] else "tc_stream")
     before = (dict(ta.dropattn_fwd.head_dim_launches), ta.dropattn_fwd.tc_launches,
               ta.dropattn_bwd.tc_launches)
     out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
@@ -1042,7 +1047,7 @@ def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
     torch.cuda.synchronize()
     assert ta.dropattn_fwd.head_dim_launches[64] == before[0].get(64, 0) + 1
     assert ta.dropattn_fwd.tc_launches == before[1] + 1
-    assert ta.dropattn_bwd.tc_launches == before[2] + int(b_tc)
+    assert ta.dropattn_bwd.tc_launches == before[2] + 1
     torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
     if dtype == torch.float32:
         assert (out - want).abs().max().item() <= 1e-5
@@ -1058,8 +1063,9 @@ def test_dropattn_head_dim_64_matches_plain(dtype, p, L):
 
 
 def test_dropattn_head_dim_64_bf16_beyond_the_resident_length():
-    """bf16 at L = 1000: past the 894 keys whose K and V fit a block, so the
-    CUDA-core pair streams them in chunks; within the rounding bounds."""
+    """bf16 at L = 1000: past the forward's tensor-core length (656), so the
+    CUDA-core forward streams K and V in chunks, and the backward streams
+    the head on the tensor cores; within the rounding bounds."""
     _need_card()
     q, k, v, go, bias = _attn_inputs(1, 2, 1000, 64, torch.bfloat16, seed=1000)
     out, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 5)
@@ -1081,8 +1087,8 @@ def test_dropattn_head_dim_64_kernels_apply_the_plain_mask(L):
     1/L, each kept pd 2/L at p = 0.5; v (and g) holding 2^(j % 8) in channel
     j // 8 make out (dv) spell each row's (column's) keep bits, read back
     bit for bit. The forward is the tensor-core kernel (one launch on the
-    route) at every L; at L = 512 the backward's pair streams the head in
-    chunks."""
+    route) at every L; past L = 128 the backward streams the head (the keep
+    bits drawn by its first kernel, read by the other two)."""
     _need_card()
     B, h, d, seed = 2, 3, 64, 123
     j = torch.arange(L, device="cuda")
@@ -1209,9 +1215,10 @@ def test_dropattn_bwd_head_dim_64_tensor_core_route(dtype, p, L):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dropattn_bwd_head_dim_64_route_edge(dtype):
-    """The next L after the tensor-core limit goes to the chunked CUDA-core
-    pair (counted, not on the route, within the same checks), and the
-    tensor-core kernel itself refuses a head one chunk of 16 past its limit."""
+    """The next L after the resident limit goes to the streaming kernels
+    (counted on the tensor cores and on the streaming route, within the same
+    checks), and the resident kernel itself refuses a head one chunk of 16
+    past its limit."""
     import ctypes
 
     from sskd_tpu_torch.ops import _build
@@ -1220,9 +1227,11 @@ def test_dropattn_bwd_head_dim_64_route_edge(dtype):
     L = _limit(dtype) + 1
     q, k, v, go, bias = _attn_inputs(2, 4, L, 64, dtype, seed=L)
     _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 5)
-    before = (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches)
+    before = (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches,
+              ta.dropattn_bwd.stream_launches)
     grads = ta.dropattn_bwd(q, k, v, bias, 0.1, 5, lse, go)
-    assert (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches) == (before[0] + 1, before[1])
+    assert (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches,
+            ta.dropattn_bwd.stream_launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 5, lse, go)
     torch.cuda.synchronize()
     if dtype == torch.float32:
@@ -1363,3 +1372,130 @@ def test_dropattn_fwd_bf16_tensor_core_route_edge(d):
             1, 1, L, d, d**-0.5, ta._scale_log2(d), 5, 0.1, 1 / 0.9,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert rc != 0
+
+
+# ---------------------------------------------------------------------------
+# The streaming tensor-core dropattn_bwd ("tc_stream": three kernels, any L)
+# ---------------------------------------------------------------------------
+
+# (dtype, B, h, L, d): the kernel phase's long shapes (B cut), and ragged ones
+STREAM_SHAPES = [(torch.bfloat16, 16, 12, 512, 32), (torch.float32, 8, 16, 512, 64),
+                 (torch.bfloat16, 8, 16, 512, 64), (torch.float32, 8, 16, 200, 64),
+                 (torch.bfloat16, 8, 16, 216, 64), (torch.bfloat16, 32, 12, 264, 32),
+                 (torch.float32, 32, 12, 192, 32), (torch.float32, 4, 12, 72, 32),
+                 (torch.float32, 2, 3, 33, 32)]
+
+
+def _grads_within(dtype, q, k, v, bias, p, seed, lse, go, grads, want):
+    """f32: within 1e-5 (1 + |want|). _attn_inputs gives some batch rows one
+    live key, whose probability 1 at every query makes that key's dv a sum
+    of L terms of size |g| (|dv| up to tens at L = 512); two f32 sums of
+    that size, the plain product's own included, differ by a few ulps of
+    it, which passes 1e-5 there (1.3e-5 on an H100 at [8, 16, 512, 64]).
+    bf16: within dropattn_bwd_error_bound."""
+    if dtype == torch.float32:  # summation order, and the TF32 terms' truncation
+        for name, a, b in zip("dq dk dv".split(), grads, want):
+            ratio = ((a - b).abs() / (1 + b.abs())).max().item()
+            assert ratio <= 1e-5, (name, ratio, b.abs().max().item())
+        return
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, go, grads, want)
+    for name, a, b, bd in zip("dq dk dv".split(), grads, want, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,B,h,L,d", STREAM_SHAPES)
+def test_streaming_backward_matches_plain(dtype, B, h, L, d, p):
+    """The streaming route: one launch counted on the tensor cores and on
+    the streaming route, two launches bitwise equal, f32 within 1e-5
+    (1 + |want|) of the plain version and bf16 within
+    dropattn_bwd_error_bound (_grads_within)."""
+    _need_card()
+    assert ta.dropattn_bwd_route(dtype, d, L) == "tc_stream"
+    q, k, v, go, bias = _attn_inputs(B, h, L, d, dtype, seed=900 + L + d)
+    seed = 90 + L
+    _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    before = (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches,
+              ta.dropattn_bwd.stream_launches)
+    grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    assert (ta.dropattn_bwd.launches, ta.dropattn_bwd.tc_launches,
+            ta.dropattn_bwd.stream_launches) == tuple(n + 1 for n in before)
+    again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _grads_within(dtype, q, k, v, bias, p, seed, lse, go, grads, want)
+
+
+@pytest.mark.parametrize("dtype,B,h,L,d", [(torch.bfloat16, 4, 12, 512, 32),
+                                           (torch.float32, 2, 16, 200, 64),
+                                           (torch.float32, 2, 3, 33, 32)])
+def test_streaming_first_kernel_writes_the_keep_bits_and_d(dtype, B, h, L, d):
+    """K1's outputs: the keep bits packed as dropout_keep_bits lays them
+    out (bit j % 32 of word j // 32, bits past L 0), bit for bit, and D =
+    rowsum(dprobs * probs) within 1e-5 (1 + |D|) of the plain one."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(B, h, L, d, dtype, seed=L + 7)
+    _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 61)
+    dq, dk, dv, dsum, bits = ta._dropattn_bwd_stream(q, k, v, bias.float(), 0.1, 61, lse, go)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, ta.dropout_keep_bits(61, B * h, L, 0.1, device="cuda"))
+    qf, kf, vf, gf = (t.float().reshape(B * h, L, d) for t in (q, k, v, go))
+    s = qf @ kf.transpose(-1, -2) / d**0.5 + bias.float().repeat_interleave(h, 0)[:, None, :]
+    probs = torch.exp(s - lse.reshape(B * h, L, 1))
+    keep = ta.dropout_keep_mask(61, B * h, L, 0.1, device="cuda")
+    dprobs = torch.where(keep, (gf @ vf.transpose(-1, -2)) / 0.9, 0.0)
+    want = (dprobs * probs).sum(-1).view(B, h, L)
+    assert ((dsum - want).abs() / (1 + want.abs())).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,B,h,L,d", [(torch.bfloat16, 8, 12, 192, 32),
+                                           (torch.float32, 8, 16, 64, 64),
+                                           (torch.bfloat16, 8, 16, 64, 64)])
+def test_streaming_kernels_at_the_resident_lengths_match_plain(dtype, B, h, L, d):
+    """The streaming kernels through their private entry at lengths the
+    resident kernel takes (the route stays "tc" there): within the same
+    tolerances of the plain version, one launch counted on the streaming
+    route."""
+    _need_card()
+    assert ta.dropattn_bwd_route(dtype, d, L) == "tc"
+    q, k, v, go, bias = _attn_inputs(B, h, L, d, dtype, seed=L + 11)
+    _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 63)
+    before = ta.dropattn_bwd.stream_launches
+    grads = ta._dropattn_bwd_stream(q, k, v, bias.float(), 0.1, 63, lse, go)[:3]
+    assert ta.dropattn_bwd.stream_launches == before + 1
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 63, lse, go)
+    torch.cuda.synchronize()
+    _grads_within(dtype, q, k, v, bias, 0.1, 63, lse, go, grads, want)
+
+
+def test_streaming_backward_applies_the_plain_mask_in_bf16():
+    """bf16 at L = 512, head dim 32: a bias that leaves keys 0..255 live makes
+    each live probability 1/256, so at p = 0.5 each kept pd is 1/128 exactly
+    in bf16; g holding 2^(i % 8) in channel i // 8 for rows i of one half
+    (two launches, 256 rows each) makes dv spell each live column's keep
+    bits over all 512 rows: the bits K1 drew, read by K3, bit for bit."""
+    _need_card()
+    B, h, L, d, live, seed = 2, 3, 512, 32, 256, 77
+    j = torch.arange(L, device="cuda")
+    zero = torch.zeros(B, h, L, d, device="cuda", dtype=torch.bfloat16)
+    bias = torch.where(j < live, 0.0, torch.finfo(torch.bfloat16).min / 2).expand(B, L)
+    bias = bias.contiguous()
+    _, lse = ta.dropattn_fwd(zero, zero, zero, bias, 0.5, seed)
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    bit = torch.arange(8, device="cuda")
+    for half in range(2):
+        rows = j - 256 * half
+        code = torch.zeros(L, d, device="cuda")
+        mine = (rows >= 0) & (rows < 256)
+        code[j[mine], rows[mine] // 8] = (2.0 ** (rows[mine] % 8)).float()
+        code = code.to(torch.bfloat16).expand(B, h, L, d).contiguous()
+        before = ta.dropattn_bwd.stream_launches
+        _, _, dv = ta.dropattn_bwd(zero, zero, zero, bias, 0.5, seed, lse, code)
+        assert ta.dropattn_bwd.stream_launches == before + 1
+        c = (dv[:, :, :live].float() * 128).round().long()  # [B, h, live keys, 32 channels]
+        spelled = ((c[..., None] >> bit) & 1).flatten(-2).bool()  # [B, h, live, 256 rows]
+        assert bool((spelled == want[:, :, 256 * half:256 * half + 256, :live]
+                     .transpose(-1, -2)).all())
+

@@ -20,7 +20,8 @@ step, with what differs from the plain versions beyond summation order:
   after the keep-mask and 1 / (1 - p).
 
 The f32 routes at head dim 64 (``flash_fwd_tc_tf32_kernel``,
-``dropattn_bwd_tc_tf32_kernel``) take each product as three TF32 products
+``dropattn_bwd_tc_tf32_kernel``, and the streaming backward at head dims
+32 and 64) take each product as three TF32 products
 (``mma_tf32``): each operand rounded to TF32 as cvt.rna.tf32.f32 does (10
 mantissa bits, to nearest, ties away) into a hi term and its remainder into
 a lo term, each 8-deep step of mma.sync m16n8k8 adding hi hi to the
@@ -33,6 +34,11 @@ over 64-key tiles, the kept p times 1 / (1 - p) into p v in the tile's slot
 order, one division at the end) and ``dropattn_bwd_tf32`` follow them, the
 backward's dq steps in the kernel's key order; ``passes=1`` gives the
 one-pass TF32 product the tests show the 1e-5 checks would catch.
+``dropattn_bwd_stream_tc`` and ``dropattn_bwd_stream_tf32`` follow the
+streaming backward (csrc/dropattn_bwd.cu route 2) kernel by kernel: D and
+the keep bits over 64-key tiles, dq over the same tiles, dk and dv over
+64-query tiles from S^T and dP^T, each sum on one chain across the tiles
+(``mma_tf32_pair`` carries the f32 route's two accumulators).
 ``tf32_fragment_keys`` and ``tf32_forward_fragment_keys`` write out which
 keys of a chunk each lane of the f32 backward and forward holds.
 
@@ -204,24 +210,35 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32(x.float() - hi)
 
 
-def mma_tf32(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
-             passes: int = 3) -> torch.Tensor:
-    """acc + a @ b over the last two dims as the f32 tensor-core routes take
-    it: 8-deep steps, each adding hi hi to the accumulator (from ``acc``)
-    and lo hi, hi lo to a second one (from 0), each product's exact sum
-    added and truncated toward zero to f32; the two added at the end. At
-    ``passes`` 1 only hi hi: one TF32 pass."""
+def mma_tf32_pair(a: torch.Tensor, b: torch.Tensor, big: torch.Tensor, small: torch.Tensor,
+                  passes: int = 3, rounded: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) after adding a @ b over the last two dims as the f32
+    tensor-core routes take it: 8-deep steps, each adding hi hi to ``big``
+    and lo hi, hi lo to ``small``, each product's exact sum added and
+    truncated toward zero to f32. With ``rounded`` (the streaming
+    backward's long sums, ``mma_3xtf32_rn``) each step's hi hi starts from
+    zero, is truncated on its own and is added to ``big`` rounded to
+    nearest. A kernel that carries both accumulators over several tiles adds
+    them once, at its end. At ``passes`` 1 only hi hi: one TF32 pass."""
     ah, al = split_tf32(a)
     bh, bl = split_tf32(b)
-    big = (torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32) if acc is None
-           else acc)
-    small = torch.zeros_like(big)
     for k0 in range(0, a.shape[-1], 8):
         step = slice(k0, k0 + 8)
         if passes == 3:
             for x, y in ((al, bh), (ah, bl)):
                 small = _trunc32(small.double() + x[..., step].double() @ y[..., step, :].double())
-        big = _trunc32(big.double() + ah[..., step].double() @ bh[..., step, :].double())
+        hh = ah[..., step].double() @ bh[..., step, :].double()
+        big = big + _trunc32(hh) if rounded else _trunc32(big.double() + hh)
+    return big, small
+
+
+def mma_tf32(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
+             passes: int = 3) -> torch.Tensor:
+    """acc + a @ b (``mma_tf32_pair`` from ``acc`` and 0), the two
+    accumulators added at the end."""
+    big = (torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32) if acc is None
+           else acc)
+    big, small = mma_tf32_pair(a, b, big, torch.zeros_like(big), passes)
     return big + small
 
 
@@ -277,6 +294,116 @@ def dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
     k_p = torch.nn.functional.pad(k, (0, 0, 0, Lp - L))[..., order, :]
     dq = mma_tf32(ds_p, k_p, passes=passes)
     return dq, dk, dv
+
+
+STREAM_TILE = 64  # csrc/dropattn_bwd.cu DS_TILE: the rows of a streamed tile
+
+
+def _stream_tiles(L: int) -> list[tuple[int, int]]:
+    return [(a, min(a + STREAM_TILE, L)) for a in range(0, L, STREAM_TILE)]
+
+
+def dropattn_bwd_stream_tc(q, k, v, bias, p, lse, g, keep_mask):
+    """(dq, dk, dv) of the bf16 streaming backward (csrc/dropattn_bwd.cu
+    route 2) for q, k, v, g [B, h, L, d] (bf16), bias [B, L] f32, the
+    forward's lse [B, h, L] and ``keep_mask`` [B, h, L, L] (bool) or None at
+    p = 0, kernel by kernel over 64-row tiles:
+
+    - K1, per 64-key tile: S = q k^T and dP = g v^T on ``mma`` (16-deep
+      steps over d), each probability one exp2 of one fma of the score with
+      scale * log2(e) and (bias - lse) * log2(e), D = sum(dprobs * probs)
+      summed tile after tile;
+    - K2: S and dP again, ds = probs (dprobs - D) scale rounded to bf16, dq
+      on one truncating chain of 16-deep steps over the tiles;
+    - K3, per 64-query tile: S^T = k q^T and dP^T = v g^T (the same sums
+      with the operands' roles swapped), pd^T and ds^T rounded to bf16, dv
+      and dk each on one chain over the tiles."""
+    B, h, L, d = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    scale_log2 = torch.tensor(LOG2E / math.sqrt(d), dtype=torch.float32)
+    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    bias2 = bias.float() * LOG2E  # [B, L], one f32 product as the kernels take it
+    lse2 = lse.float() * LOG2E    # [B, h, L]
+
+    def probs(acc, shift):  # one fma, one exp2
+        return torch.exp2((acc.double() * scale_log2.double() + shift.double()).float()) * EX2_ERR
+
+    def rows_tile(a, b):  # K1 and K2: S and dP of keys a..b, probs, dprobs
+        s = mma(qf, kf[:, :, a:b].transpose(-1, -2))
+        dp = mma(gf, vf[:, :, a:b].transpose(-1, -2))
+        pr = probs(s, bias2[:, None, None, a:b] - lse2[..., None])
+        keep = None if keep_mask is None else keep_mask[..., a:b]
+        return pr, dp if keep is None else torch.where(keep, dp * inv, 0.0)
+
+    D = torch.zeros(B, h, L, 1)
+    for a, b in _stream_tiles(L):
+        pr, dprobs = rows_tile(a, b)
+        D = D + (dprobs * pr).sum(dim=-1, keepdim=True)
+    dq = torch.zeros(B, h, L, d)
+    for a, b in _stream_tiles(L):
+        pr, dprobs = rows_tile(a, b)
+        dq = mma(_bf16(pr * (dprobs - D) * scale), kf[:, :, a:b], dq)
+    dk, dv = torch.zeros(B, h, L, d), torch.zeros(B, h, L, d)
+    for a, b in _stream_tiles(L):
+        st = mma(kf, qf[:, :, a:b].transpose(-1, -2))  # [.., keys, queries]
+        dpt = mma(vf, gf[:, :, a:b].transpose(-1, -2))
+        pr = probs(st, bias2[:, None, :, None] - lse2[:, :, None, a:b])
+        keep = None if keep_mask is None else keep_mask[..., a:b, :].transpose(-1, -2)
+        pd = pr if keep is None else torch.where(keep, pr * inv, 0.0)
+        dprobs = dpt if keep is None else torch.where(keep, dpt * inv, 0.0)
+        ds = _bf16(pr * (dprobs - D[..., a:b, 0][:, :, None, :]) * scale)
+        dv = mma(_bf16(pd), gf[:, :, a:b], dv)
+        dk = mma(ds, qf[:, :, a:b], dk)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def dropattn_bwd_stream_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
+    """(dq, dk, dv) of the f32 streaming backward at head dim 32 or 64 for
+    q, k, v, g [B, h, L, d] (f32), bias [B, L], the forward's lse [B, h, L]
+    and ``keep_mask`` [B, h, L, L] (bool) or None at p = 0: the kernels of
+    ``dropattn_bwd_stream_tc`` with every product three TF32 products
+    (``mma_tf32_pair``) and each probability expf(s * scale + bias - lse) in
+    natural units. K2's 8-deep steps take each 16-key chunk in the key order
+    of the f32 kernels (K and V rows stored in slot order); dq, dk and dv
+    each carry both accumulators over the tiles and add them at the end."""
+    B, h, L, d = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    lsef = lse.float()
+
+    def rows_tile(a, b):
+        s = mma_tf32(q, k[:, :, a:b].transpose(-1, -2), passes=passes) * scale
+        pr = torch.exp(s + bias.float()[:, None, None, a:b] - lsef[..., None])
+        dp = mma_tf32(g, v[:, :, a:b].transpose(-1, -2), passes=passes)
+        keep = None if keep_mask is None else keep_mask[..., a:b]
+        return pr, dp if keep is None else torch.where(keep, dp * inv, 0.0)
+
+    D = torch.zeros(B, h, L, 1)
+    for a, b in _stream_tiles(L):
+        pr, dprobs = rows_tile(a, b)
+        D = D + (dprobs * pr).sum(dim=-1, keepdim=True)
+    dq = dq_lo = torch.zeros(B, h, L, d)
+    for a, b in _stream_tiles(L):
+        pr, dprobs = rows_tile(a, b)
+        ds = pr * (dprobs - D) * scale
+        n = (b - a + 15) // 16 * 16  # keys past L: ds 0 and zero rows of k
+        order = torch.tensor([c + j for c in range(0, n, 16) for j in _DQ_KEY_ORDER])
+        ds_p = torch.nn.functional.pad(ds, (0, n - (b - a)))[..., order]
+        k_p = torch.nn.functional.pad(k[:, :, a:b], (0, 0, 0, n - (b - a)))[..., order, :]
+        dq, dq_lo = mma_tf32_pair(ds_p, k_p, dq, dq_lo, passes, rounded=True)
+    dk = dk_lo = dv = dv_lo = torch.zeros(B, h, L, d)
+    for a, b in _stream_tiles(L):
+        st = mma_tf32(k, q[:, :, a:b].transpose(-1, -2), passes=passes) * scale
+        pr = torch.exp(st + bias.float()[:, None, :, None] - lsef[:, :, None, a:b])
+        dpt = mma_tf32(v, g[:, :, a:b].transpose(-1, -2), passes=passes)
+        keep = None if keep_mask is None else keep_mask[..., a:b, :].transpose(-1, -2)
+        pd = pr if keep is None else torch.where(keep, pr * inv, 0.0)
+        dprobs = dpt if keep is None else torch.where(keep, dpt * inv, 0.0)
+        ds = pr * (dprobs - D[..., a:b, 0][:, :, None, :]) * scale
+        dv, dv_lo = mma_tf32_pair(pd, g[:, :, a:b], dv, dv_lo, passes, rounded=True)
+        dk, dk_lo = mma_tf32_pair(ds, q[:, :, a:b], dk, dk_lo, passes, rounded=True)
+    return dq + dq_lo, dk + dk_lo, dv + dv_lo
 
 
 def _key_slot(t: int) -> int:
