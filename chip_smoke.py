@@ -170,7 +170,35 @@ Phases, each fatal when it fails:
              with the scores of TeacherModel.score on its pairs (ties within
              1e-5 excepted), every flash launch at d = 64 on the tensor
              cores; ms per step, samples/s, peak memory, pairs/s, rerank ms
-             and queries/s.
+             and queries/s;
+8. eval    — KDEvaluator on the card: (a) the JAX package's demo checkpoints
+             (artifacts/demo/{run_kd/best_model, vanilla, teacher}), each
+             read from its params.msgpack, over load_eval_inputs(test.jsonl,
+             600): evaluate_retrieval of both students and
+             evaluate_retrieval_teacher, vanilla and the teacher within 1e-3
+             of their *_metrics.json in every metric, kd_student within 1e-3
+             of the same evaluator on the CPU, and the acceptance gate
+             printed as `semantic-kd compare` prints it, which must be
+             FAILED, the JAX package's verdict on these files (tiny models:
+             no kernel runs); (b) at full e5-small-v2 width in f32 (seeded
+             weights): evaluate_retrieval over the 8,192 passages and 1,000
+             12-word spans of distinct passages (flash in f32 at d = 32 on
+             flash_fwd_kernel, 384 launches; binmax and bin_gather in f32,
+             one launch each for the 1,000 queries), its top-20 ids against
+             cosine_topk_core but at ties within 1e-5, its metrics within
+             1e-6 of those of the plain ids, the encode within 1e-4 (1 + |x|)
+             of plain attention's on 1,024 passages;
+             evaluate_retrieval_chunked over 1,024 passages in
+             TextChunker(512, 80) windows (two each), the doc ranking the
+             MaxSim of the plain scores; evaluate_retrieval_reranked with
+             the teacher phase's saved teacher (64 queries, rerank_k 10), in
+             TeacherModel.score's order, every flash launch at d = 64 on the
+             tensor cores; evaluate_ranking_quality on 64 queries x 8
+             passages, Kendall tau within 1e-6 of scipy's; those three
+             kernels at the eval shapes against their plain versions, beside
+             SDPA or matmul and their bounds; (c) the native WordPiece core
+             attached, the 8,192 passages' ids equal through it and through
+             pure Python, and the ms each way.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -3723,6 +3751,506 @@ def phase_teacher(args) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: evaluation
+# ---------------------------------------------------------------------------
+
+DEMO = ROOT / "artifacts" / "demo"
+DEMO_TEST = DEMO / "data" / "raw" / "demo" / "test.jsonl"
+EVAL_KS = (1, 5, 10, 20)
+EVAL_QUERIES = 1000  # 12-word spans of distinct passages, each its passage's query
+CHUNKED_PASSAGES = 1024  # the chunked corpus and the rerank corpus
+RERANK_QUERIES, RERANK_K = 64, 10
+QUALITY_QUERIES, QUALITY_DOCS = 64, 8
+
+
+def max_gap(got: dict, want: dict) -> float:
+    check(set(got) == set(want), f"metric keys differ: {sorted(set(got) ^ set(want))}")
+    return max(abs(got[k] - want[k]) for k in want)
+
+
+def eval_checkpoints() -> dict:
+    """(a) The JAX package's demo checkpoints, each read from its
+    params.msgpack: load_eval_inputs(test.jsonl, 600) (90 queries, 871
+    passages), evaluate_retrieval of both students and
+    evaluate_retrieval_teacher on the card. These models are short-text and
+    tiny (hidden 128 with 4 heads, 64 with 4): their L stays under
+    FLASH_MIN_L and 871 rows under the exact engine's kernel gate, so this
+    part launches no kernel."""
+    from sskd_tpu_torch.cli.pipeline import load_eval_inputs
+    from sskd_tpu_torch.kd.eval import KDEvaluator
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.models.teacher import TeacherModel
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    q_map, corpus, qrels = load_eval_inputs(DEMO_TEST, 600)
+    check((len(q_map), len(corpus)) == (90, 871),
+          f"demo split: {len(q_map)} queries, {len(corpus)} passages, want 90 and 871")
+    card = KDEvaluator(device="cuda")
+    reset_launch_counts()
+    rows = {}
+    for name, sub in (("kd_student", "run_kd/best_model"), ("vanilla", "vanilla")):
+        check((DEMO / sub / "params.msgpack").exists() and not (DEMO / sub / "weights.pt").exists(),
+              f"{sub}: not a JAX checkpoint directory")
+        rows[name] = card.evaluate_retrieval(StudentModel(str(DEMO / sub), device="cuda"),
+                                             q_map, corpus, qrels)
+    teacher = TeacherModel(str(DEMO / "teacher"), device="cuda")
+    rows["teacher"] = card.evaluate_retrieval_teacher(teacher, q_map, corpus, qrels)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kd_cpu = KDEvaluator(device="cpu").evaluate_retrieval(
+        StudentModel(str(DEMO / "run_kd/best_model"), device="cpu"), q_map, corpus, qrels)
+    cpu_s = time.perf_counter() - t0
+    recorded = {name: json.loads((DEMO / f"{name}_metrics.json").read_text())
+                for name in ("vanilla", "teacher", "kd_student")}
+    gaps = {
+        "vanilla_vs_json": max_gap(rows["vanilla"], recorded["vanilla"]),
+        "teacher_vs_json": max_gap(rows["teacher"], recorded["teacher"]),
+        "kd_student_vs_cpu": max_gap(rows["kd_student"], kd_cpu),
+        # the checkpoint changed after the JSON was written: recorded, not held
+        "kd_student_vs_json": max_gap(rows["kd_student"], recorded["kd_student"]),
+    }
+    teacher_ndcg = rows["teacher"]["ndcg@10"]
+    gate = {"teacher_ndcg@10": teacher_ndcg, "threshold": 0.95 * teacher_ndcg,
+            "kd_passes": bool(rows["kd_student"]["ndcg@10"] >= 0.95 * teacher_ndcg)}
+    # the report and the gate line as `semantic-kd compare` prints them
+    report = KDEvaluator.generate_report(rows, title="Model comparison")
+    report += (f"\nAcceptance gate (KD >= {0.95:.0%} of teacher nDCG@10 = "
+               f"{gate['threshold']:.4f}): **{'PASSED' if gate['kd_passes'] else 'FAILED'}**\n")
+    for line in report.splitlines():
+        log(f"[eval] {line}")
+    out = {"rows": rows, "kd_student_cpu": kd_cpu, "gaps": gaps, "gate": gate,
+           "launches": launches, "card_seconds": card_s, "cpu_seconds": cpu_s}
+    log(f"[eval] checkpoints: {json.dumps({k: out[k] for k in ('gaps', 'gate', 'launches')})}")
+    for key in ("vanilla_vs_json", "teacher_vs_json", "kd_student_vs_cpu"):
+        check(gaps[key] <= 1e-3, f"eval {key}: a metric {gaps[key]} away (gate 1e-3)")
+    check(not gate["kd_passes"], "the gate PASSED on the demo checkpoints, where the JAX "
+          "package's evaluator finds it FAILED")
+    check(sum(launches.values()) == 0, f"the tiny models launched kernels: {launches}")
+    return out
+
+
+def native_tokenize(tok, texts: list[str], cap: int) -> dict:
+    """(c) The native WordPiece core: attached, the same ids as pure Python
+    on every text, and the ms to tokenize them each way on the card's host."""
+    check(tok._native_core() is not None,
+          "the native WordPiece core is not attached (native/wordpiece.cc did not build)")
+    t0 = time.perf_counter()
+    core_ids = [tok.tokenize(t) for t in texts]
+    core_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch_ids = tok.ids_batch(texts, cap)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py_ids = [tok._tokenize_python(t)[0] for t in texts]
+    py_ms = (time.perf_counter() - t0) * 1e3
+    check(core_ids == py_ids, "the native core's ids differ from pure Python's")
+    check(all(b.tolist() == p[:cap] for b, p in zip(batch_ids, py_ids)),
+          "the core's batch ids differ from pure Python's")
+    out = {"texts": len(texts), "tokens": sum(len(i) for i in py_ids),
+           "core_ms": core_ms, "core_batch_ms": batch_ms, "python_ms": py_ms,
+           "host_cpus": os.cpu_count()}
+    log(f"[eval] native tokenizer: {json.dumps(out)}")
+    return out
+
+
+def eval_kernel_cases(q: torch.Tensor, d: torch.Tensor, seed: int) -> dict:
+    """The kernels the full-width evaluation launches, at its shapes, against
+    their plain versions (outside its counted run): binmax and bin_gather
+    over its f32 rows (B = 1,000 queries x 8,192 passages, k = 20) and
+    flash_attn_fwd in f32 at [256, 12, 512, 32] (its encode; the CUDA-core
+    kernel), each beside the library call or yardstick and its bound."""
+    from sskd_tpu_torch.ops import attention as ta
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    B, n, dim = q.shape[0], d.shape[0], d.shape[1]
+    out = {}
+    check(tk.binmax_route(d.dtype, dim * 4) == "cuda_core", "f32 binmax route")
+    got = tk.binmax(q, d, None, n)
+    want = tk.binmax_plain(q, d, None, n)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5, f"binmax f32 B={B}: max abs err {err} > 1e-5")
+    n_bins = got.shape[0]
+    b_ms, b_by = bound_ms(n * dim * 4 + B * dim * 4 + n_bins * B * 4, 2.0 * B * n * dim, "f32")
+    out["binmax.f32"] = {
+        "kernel": "binmax", "dtype": "f32", "B": B, "N": n, "D": dim, "route": "cuda_core",
+        "max_abs_err": err, "ms": time_ms(lambda: tk.binmax(q, d, None, n), 20),
+        "kernel_device_ms": kernel_device_ms(lambda: tk.binmax(q, d, None, n),
+                                             "binmax_f32_kernel", 8),
+        "plain_ms": time_ms(lambda: tk.binmax_plain(q, d, None, n), 5, 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: (d @ q.T)[: (n // 128) * 128].view(-1, 128, B).amax(1),
+                              10),
+    }
+    kb = min(20, n_bins)
+    _, bins = tk.topk_stable(want.T, kb)
+    bins = bins.to(torch.int32).contiguous()
+    check(tk.bin_gather_route(d.dtype, dim * 4) == "cuda_core", "f32 bin_gather route")
+    g_got = tk.bin_gather(q, None, d, None, bins, n)
+    g_want = tk.bin_gather_plain(q, None, d, None, bins, n)
+    torch.cuda.synchronize()
+    g_err = (g_got - g_want).abs().max().item()
+    check(g_err <= 1e-5, f"bin_gather f32 B={B}: max abs err {g_err} > 1e-5")
+    cand = B * kb * 128
+    distinct = torch.unique(bins).numel()
+    gb_ms, gb_by = bound_ms(distinct * 128 * dim * 4 + cand * 4 + bins.numel() * 4
+                            + B * dim * 4, 2.0 * cand * dim, "f32")
+    pick = (bins.long()[:, :, None] * 128
+            + torch.arange(128, device="cuda")).view(-1).clamp(max=n - 1)
+    out["bin_gather.f32"] = {
+        "kernel": "bin_gather", "dtype": "f32", "B": B, "kb": kb, "distinct_bins": distinct,
+        "route": "cuda_core", "max_abs_err": g_err,
+        "ms": time_ms(lambda: tk.bin_gather(q, None, d, None, bins, n), 20),
+        "kernel_device_ms": kernel_device_ms(
+            lambda: tk.bin_gather(q, None, d, None, bins, n), "bin_gather_kernel", 8),
+        "plain_ms": time_ms(lambda: tk.bin_gather_plain(q, None, d, None, bins, n), 2, 1),
+        "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": None,
+        "yardstick_index_select_bmm_ms": time_ms(lambda: torch.bmm(
+            d.index_select(0, pick).view(B, kb * 128, dim), q[:, :, None]), 10),
+    }
+    del g_got, g_want, got, want
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    Bf, h, L, hd = 256, 12, 512, 32
+    check(ta.flash_route(torch.float32, hd) == "cuda_core", "f32 flash route at d = 32")
+    qf, kf, vf = (torch.randn(Bf, h, L, hd, device="cuda", generator=gen) for _ in range(3))
+    lens = torch.randint(L // 8, L + 1, (Bf,), device="cuda", generator=gen)
+    lens[0] = L
+    mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+    f_err = (ta.flash_attention(qf, kf, vf, mask)
+             - ta.flash_attention_plain(qf, kf, vf, mask)).abs().max().item()
+    check(f_err <= 1e-5, f"flash_attn_fwd f32 d=32: max abs err {f_err} > 1e-5")
+    keep = mask[:, None, None, :].bool()
+    n_bytes = 4 * Bf * h * L * hd * 4 + Bf * L * 4
+    fb_ms, fb_by = bound_ms(n_bytes, 4.0 * Bf * h * L * L * hd, "f32")
+    out["flash_attn_fwd.f32"] = {
+        "kernel": "flash_attn_fwd", "dtype": "f32", "shape": [Bf, h, L, hd],
+        "route": "cuda_core", "max_abs_err": f_err,
+        "ms": time_ms(lambda: ta.flash_attention(qf, kf, vf, mask), 10),
+        "kernel_device_ms": kernel_device_ms(lambda: ta.flash_attention(qf, kf, vf, mask),
+                                             "flash_fwd_kernel", 8),
+        "plain_ms": time_ms(lambda: ta.flash_attention_plain(qf, kf, vf, mask), 3, 1),
+        "bound_ms": fb_ms, "bound_by": fb_by,
+        "byte_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=keep), 10),
+    }
+    for entry in out.values():
+        log(f"[eval] kernel {json.dumps(entry)}")
+    return out
+
+
+def ranking_gap(metrics: dict, want_rank: list, qids: list, qrels: dict, ks,
+                tie_rows: int) -> float:
+    """How far the evaluator's ``metrics`` are from those of ``want_rank`` (per
+    query, doc ids in rank order), less each tie row's share: a row whose
+    ids differ only at ties can move a mean metric by at most 1 / len(qids)."""
+    from sskd_tpu_torch.utils.metrics import compute_retrieval_metrics
+
+    results = {q: [float(qrels.get(q, {}).get(doc, 0.0)) for doc in rank]
+               for q, rank in zip(qids, want_rank)}
+    total = {q: sum(1 for v in qrels.get(q, {}).values() if v > 0) for q in qids}
+    gap = max_gap(metrics, compute_retrieval_metrics(results, total, ks=ks))
+    return max(0.0, gap - tie_rows / len(qids))
+
+
+def eval_full_width(args) -> dict:
+    """(b) The evaluator at e5-small-v2's full width (12 layers, hidden 384,
+    12 heads, seeded weights, f32 compute as the JAX StudentModel defaults
+    to) over the 8,192 passages of the serve phase (L = 512: flash in f32 at
+    d = 32, the CUDA-core kernel) and 1,000 seeded 12-word spans of distinct
+    passages, each relevant to its passage alone; evaluate_retrieval (ranked
+    by binmax and bin_gather in f32, B = 1,000 in one launch each),
+    evaluate_retrieval_chunked over 1,024 passages in TextChunker(512, 80)
+    windows, evaluate_retrieval_reranked with the teacher phase's saved
+    full-width teacher (64 queries, rerank_k 10; its flash on
+    flash_fwd_tc_tf32_kernel<64>), evaluate_ranking_quality on 64 queries x
+    8 passages; and (c) the native WordPiece core on the 8,192 passages."""
+    from scipy.stats import kendalltau
+
+    from sskd_tpu_torch.kd import eval as kd_eval
+    from sskd_tpu_torch.kd.eval import KDEvaluator, block_rows_for
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.models.teacher import TeacherModel
+    from sskd_tpu_torch.ops import (
+        head_dim_launch_counts,
+        launch_counts,
+        reset_launch_counts,
+        tc_launch_counts,
+    )
+    from sskd_tpu_torch.ops import attention as ta
+    from sskd_tpu_torch.ops.topk import cosine_topk_core
+    from sskd_tpu_torch.utils.chunk import TextChunker, maxsim_aggregate_topk
+
+    record: dict = {}
+    parts_s: dict = {}
+    student = StudentModel("intfloat/e5-small-v2", device="cuda", seed=args.seed)
+    cfg = student.config
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.vocab_size)
+          == (12, 384, 12, 30522) and cfg.compute_dtype == torch.float32,
+          f"not e5-small-v2 width in f32: {cfg}")
+    passages = make_passages(N_DOCS, args.seed)
+    rng = np.random.default_rng(args.seed + 300)
+    picks = rng.choice(N_DOCS, EVAL_QUERIES, replace=False)
+    queries, qrels = {}, {}
+    for i, p in enumerate(picks):
+        words = passages[p].split()
+        s = int(rng.integers(0, len(words) - 12))
+        queries[f"q{i}"] = " ".join(words[s : s + 12])
+        qrels[f"q{i}"] = {f"p{p}": 1.0}
+    corpus = {f"p{j}": text for j, text in enumerate(passages)}
+    qids, doc_ids = list(queries), list(corpus)
+
+    # (c) the native core, on the passages as the encoder sees them
+    t0 = time.perf_counter()
+    record["native"] = native_tokenize(
+        student.tokenizer, [student.passage_prefix + p for p in passages],
+        student.max_seq_length)
+    parts_s["native"] = time.perf_counter() - t0
+
+    # the evaluator's rankings and its encode times, recorded as it runs
+    real_topk = kd_eval.cosine_topk
+    ranked: list = []
+    timed: dict = {}
+
+    def recording_topk(q, d, k, **kw):
+        out = real_topk(q, d, k, **kw)
+        ranked.append((q, d, k, kw, out))
+        return out
+
+    def timing(fn, name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[name] = timed.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    kd_eval.cosine_topk = recording_topk
+    student.encode_documents = timing(student.encode_documents, "encode_documents_s")
+    student.encode_queries = timing(student.encode_queries, "encode_queries_s")
+    ev = KDEvaluator(k_values=EVAL_KS, device="cuda")
+    try:
+        # ---- evaluate_retrieval: the main path of the phase --------------
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = ev.evaluate_retrieval(student, queries, corpus, qrels)
+        torch.cuda.synchronize()
+        parts_s["evaluate_retrieval"] = time.perf_counter() - t0
+        encode_s = dict(timed)  # the evaluator's own encodes, before the checks' encode
+        counts, tc_counts, by_d = launch_counts(), tc_launch_counts(), head_dim_launch_counts()
+        log(f"[eval] full width: {json.dumps(metrics)}; launches {counts}, tensor-core "
+            f"{tc_counts}, by head dim {by_d}; {json.dumps(timed)}")
+        n_flash = cfg.num_layers * -(-N_DOCS // ev.batch_size)  # queries stay under 512
+        check(counts["flash_attn_fwd"] == n_flash and by_d["flash_attn_fwd"] == {32: n_flash}
+              and tc_counts["flash_attn_fwd"] == 0,
+              f"flash_attn_fwd: {counts['flash_attn_fwd']} launches {by_d['flash_attn_fwd']}, "
+              f"{tc_counts['flash_attn_fwd']} on the tensor cores; want {n_flash} at d = 32 "
+              "on flash_fwd_kernel (f32)")
+        check(counts["binmax"] == 1 and counts["bin_gather"] == 1
+              and tc_counts["binmax"] == tc_counts["bin_gather"] == 0,
+              f"binmax / bin_gather: {counts['binmax']} / {counts['bin_gather']} launches "
+              f"({tc_counts['binmax']} / {tc_counts['bin_gather']} tensor-core); want one "
+              "f32 launch each for the 1,000 queries")
+        others = {k: v for k, v in counts.items()
+                  if k not in ("flash_attn_fwd", "binmax", "bin_gather") and v}
+        check(not others, f"kernels off the evaluation path launched: {others}")
+        record["launches"] = {"flash_attn_fwd.f32": by_d["flash_attn_fwd"].get(32, 0),
+                              "binmax.f32": counts["binmax"],
+                              "bin_gather.f32": counts["bin_gather"]}
+        check(len(ranked) == 1, f"{len(ranked)} rankings, want 1")
+        q, d, k, kw, (vals, idx) = ranked.pop()
+        check(q.shape == (EVAL_QUERIES, 384) and d.shape == (N_DOCS, 384) and k == 20
+              and kw.get("block_rows") == block_rows_for(N_DOCS),
+              f"ranked {tuple(q.shape)} against {tuple(d.shape)} at k = {k}, {kw}")
+        pv, pi = cosine_topk_core(q, d, k)
+        raw, untied = tie_mismatches(vals.cpu(), idx.cpu(), pv.cpu(), pi.cpu(), 1e-5)
+        tie_rows = int((idx != pi).any(dim=1).sum().item())
+        check(untied == 0, f"top-{k} ids: {untied} differ from cosine_topk_core but at ties")
+        gap = ranking_gap(metrics, [[doc_ids[i] for i in row] for row in pi.cpu().tolist()],
+                          qids, qrels, EVAL_KS, tie_rows)
+        check(gap <= 1e-6, f"metrics {gap} from those of the plain ids (gate 1e-6)")
+        # the encode against the same encode through plain attention
+        sub = [corpus[x] for x in doc_ids[:CHUNKED_PASSAGES]]
+        real_flash = ta.flash_attention
+        ta.flash_attention = lambda q_, k_, v_, m=None: ta.flash_attention_plain(q_, k_, v_, m)
+        try:
+            plain_emb = torch.from_numpy(student.encode_documents(sub)).cuda()
+        finally:
+            ta.flash_attention = real_flash
+        emb_slack = ((d[:CHUNKED_PASSAGES] - plain_emb).abs()
+                     / (1e-4 * (1 + plain_emb.abs()))).max().item()
+        check(emb_slack <= 1.0, f"embeddings vs plain attention: {emb_slack} of 1e-4 (1 + |x|)")
+        record["retrieval"] = {
+            "metrics": metrics, "queries": EVAL_QUERIES, "passages": N_DOCS,
+            "launches": counts, "head_dim_launches": by_d, "tc_launches": tc_counts,
+            "ids_differing_at_ties": raw, "tie_rows": tie_rows, "metric_gap_vs_plain": gap,
+            "embedding_slack_vs_plain": emb_slack, **encode_s,
+            "docs_per_s": N_DOCS / encode_s["encode_documents_s"],
+        }
+        record["kernels"] = eval_kernel_cases(q.contiguous(), d.contiguous(), args.seed + 301)
+        del q, d, plain_emb, vals, idx, pv, pi
+        timed.clear()
+
+        # ---- evaluate_retrieval_chunked over 1,024 passages ---------------
+        t0 = time.perf_counter()
+        chunker = TextChunker(student.tokenizer, max_tokens=512, stride=80)
+        chunk_texts, chunk_docs = [], []
+        for j in range(CHUNKED_PASSAGES):
+            pieces = chunker.chunk_text(passages[j])
+            check(len(pieces) == 2, f"passage {j}: {len(pieces)} chunks, want 2")
+            chunk_texts += [c.text for c in pieces]
+            chunk_docs += [f"p{j}"] * len(pieces)
+        sub_q = {qid: queries[qid] for qid, p in zip(qids, picks) if p < CHUNKED_PASSAGES}
+        reset_launch_counts()
+        chunked = ev.evaluate_retrieval_chunked(student, sub_q, chunk_texts, chunk_docs, qrels)
+        torch.cuda.synchronize()
+        parts_s["evaluate_retrieval_chunked"] = time.perf_counter() - t0
+        c_counts, c_by_d = launch_counts(), head_dim_launch_counts()
+        q, d, k, _, (vals, idx) = ranked.pop()
+        scores = (q @ d.T).cpu()  # every chunk's plain score
+        owner = np.asarray([int(x[1:]) for x in chunk_docs])
+        want_rank, tie_rows = [], 0
+        for r in range(scores.shape[0]):
+            best = torch.full((CHUNKED_PASSAGES,), -np.inf).scatter_reduce(
+                0, torch.from_numpy(owner), scores[r], "amax")
+            top = torch.sort(best, descending=True, stable=True)
+            want = [f"p{i}" for i in top.indices[: max(EVAL_KS)].tolist()]
+            valid = idx[r] >= 0
+            _, got = maxsim_aggregate_topk(vals[r][valid].cpu().numpy(),
+                                           [chunk_docs[i] for i in idx[r][valid].tolist()],
+                                           k=max(EVAL_KS))
+            for a, b in zip(got, want):
+                if a != b:
+                    check(abs(float(best[int(a[1:])] - best[int(b[1:])])) <= 1e-5,
+                          f"chunked ranking: {a} where the MaxSim of the plain scores has {b}")
+            tie_rows += got != want
+            want_rank.append(want)
+        c_gap = ranking_gap(chunked, want_rank, list(sub_q), qrels, EVAL_KS, tie_rows)
+        check(c_gap <= 1e-6, f"chunked metrics {c_gap} from the MaxSim of the plain scores")
+        record["chunked"] = {
+            "metrics": chunked, "queries": len(sub_q), "passages": CHUNKED_PASSAGES,
+            "chunks": len(chunk_texts), "fetch_k": k, "tie_rows": tie_rows,
+            "metric_gap_vs_plain": c_gap, "launches": c_counts, "head_dim_launches": c_by_d,
+            **timed, "seconds": parts_s["evaluate_retrieval_chunked"],
+        }
+        log(f"[eval] chunked: {json.dumps(record['chunked'])}")
+        del q, d, scores
+        timed.clear()
+
+        # ---- evaluate_retrieval_reranked with the full-width teacher ------
+        t0 = time.perf_counter()
+        teacher = TeacherModel(str(ROOT / "build" / "chip_smoke" / "teacher"), device="cuda")
+        tcfg = teacher.config
+        check((tcfg.num_layers, tcfg.hidden_size, tcfg.num_heads) == (24, 1024, 16)
+              and tcfg.compute_dtype == torch.float32, f"not the full-width teacher: {tcfg}")
+        parts_s["teacher_load"] = time.perf_counter() - t0
+        scored: list = []
+        real_score = teacher.score
+
+        def recording_score(pairs, batch_size=32):
+            out = real_score(pairs, batch_size)
+            scored.append((list(pairs), out))
+            return out
+
+        teacher.score = recording_score
+        rr_q = dict(list(sub_q.items())[:RERANK_QUERIES])
+        check(len(rr_q) == RERANK_QUERIES, f"{len(rr_q)} rerank queries")
+        rr_corpus = {f"p{j}": passages[j] for j in range(CHUNKED_PASSAGES)}
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        reranked = ev.evaluate_retrieval_reranked(student, teacher, rr_q, rr_corpus, qrels,
+                                                  rerank_k=RERANK_K)
+        torch.cuda.synchronize()
+        parts_s["evaluate_retrieval_reranked"] = time.perf_counter() - t0
+        r_counts, r_by_d, r_tc = launch_counts(), head_dim_launch_counts(), tc_launch_counts()
+        pairs, flat = scored.pop()
+        n_chunks = -(-len(pairs) // 256)
+        check(len(pairs) == RERANK_QUERIES * RERANK_K, f"{len(pairs)} rerank pairs")
+        check(r_by_d["flash_attn_fwd"].get(64, 0) == tcfg.num_layers * n_chunks
+              and r_tc["flash_attn_fwd"] == r_by_d["flash_attn_fwd"][64],
+              f"rerank flash: {r_by_d['flash_attn_fwd']}, {r_tc['flash_attn_fwd']} on the "
+              f"tensor cores; want {tcfg.num_layers * n_chunks} at d = 64, all on "
+              "flash_fwd_tc_tf32_kernel<64>")
+        # each query's candidates again through TeacherModel.score, on their own
+        q_, _, _, _, (_, cand) = ranked.pop()
+        rr_ids = list(rr_corpus)
+        want_rank, tie_rows, worst = [], 0, 0.0
+        for r, qid in enumerate(rr_q):
+            docs = [rr_ids[i] for i in cand[r].tolist() if i >= 0]
+            mine = real_score([(rr_q[qid], rr_corpus[x]) for x in docs], batch_size=32)
+            theirs = flat[r * RERANK_K : (r + 1) * RERANK_K]
+            worst = max(worst, max(abs(a - b) / (1 + abs(b)) for a, b in zip(theirs, mine)))
+            want = [docs[i] for i in np.argsort(-np.asarray(mine), kind="stable")]
+            got = [docs[i] for i in np.argsort(-np.asarray(theirs), kind="stable")]
+            for a, b in zip(got, want):
+                if a != b:
+                    check(abs(mine[docs.index(a)] - mine[docs.index(b)]) <= 1e-4,
+                          f"rerank {qid}: {a} where TeacherModel.score orders {b}")
+            tie_rows += got != want
+            want_rank.append(want)
+        check(worst <= 1e-4, f"rerank scores vs TeacherModel.score alone: {worst} (1 + |s|)")
+        ks = [x for x in EVAL_KS if x <= RERANK_K]
+        r_gap = ranking_gap(reranked, want_rank, list(rr_q), qrels, ks, tie_rows)
+        check(r_gap <= 1e-6, f"reranked metrics {r_gap} from TeacherModel.score's order")
+        record["reranked"] = {
+            "metrics": reranked, "queries": RERANK_QUERIES, "rerank_k": RERANK_K,
+            "pairs": len(pairs), "score_gap_vs_alone": worst, "tie_rows": tie_rows,
+            "metric_gap": r_gap, "launches": r_counts, "head_dim_launches": r_by_d,
+            "tc_launches": r_tc, "seconds": parts_s["evaluate_retrieval_reranked"],
+        }
+        log(f"[eval] reranked: {json.dumps(record['reranked'])}")
+        del q_
+
+        # ---- evaluate_ranking_quality against the teacher's scores --------
+        t0 = time.perf_counter()
+        qq = [queries[qid] for qid in qids[:QUALITY_QUERIES]]
+        docs_per_q = []
+        for p in picks[:QUALITY_QUERIES]:
+            others = [int(x) for x in rng.choice(N_DOCS, QUALITY_DOCS, replace=False) if x != p]
+            docs_per_q.append([passages[p]] + [passages[x] for x in others[: QUALITY_DOCS - 1]])
+        t_flat = real_score([(qt, doc) for qt, docs in zip(qq, docs_per_q) for doc in docs],
+                            batch_size=256)
+        t_scores = np.asarray(t_flat).reshape(QUALITY_QUERIES, QUALITY_DOCS)
+        binary = [[1] + [0] * (QUALITY_DOCS - 1)] * QUALITY_QUERIES
+        quality = ev.evaluate_ranking_quality(student, qq, docs_per_q, t_scores.tolist(), binary)
+        parts_s["evaluate_ranking_quality"] = time.perf_counter() - t0
+        taus = []
+        for query, docs, ts in zip(qq, docs_per_q, t_scores):
+            s = (student.encode_queries([query]) @ student.encode_documents(docs).T)[0]
+            taus.append(kendalltau(s.astype(np.float64), ts)[0])
+        tau_gap = abs(quality["kendall_tau"] - float(np.mean(taus)))
+        check(tau_gap <= 1e-6, f"Kendall tau {quality['kendall_tau']} vs scipy's "
+              f"{np.mean(taus)}")
+        record["ranking_quality"] = {**quality, "scipy_kendall_tau": float(np.mean(taus)),
+                                     "tau_gap": tau_gap,
+                                     "seconds": parts_s["evaluate_ranking_quality"]}
+        log(f"[eval] ranking quality: {json.dumps(record['ranking_quality'])}")
+        teacher.score = real_score
+        del teacher
+    finally:
+        kd_eval.cosine_topk = real_topk
+    torch.cuda.empty_cache()
+    record["parts_seconds"] = parts_s
+    return record
+
+
+def phase_eval(args) -> dict:
+    """Evaluation on the card: (a) the repository's JAX checkpoints and the
+    gate, (b) the evaluator at full width, (c) the native tokenizer core."""
+    t0 = time.perf_counter()
+    record = {"checkpoints": eval_checkpoints()}
+    record["checkpoints_seconds"] = time.perf_counter() - t0
+    record.update(eval_full_width(args))
+    return record
+
+
 def probed_cells(b, q: torch.Tensor) -> torch.Tensor:
     """The cells that clustered_topk probes for ``q``."""
     from sskd_tpu_torch.ops.topk_kernels import topk_stable
@@ -3795,6 +4323,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["teacher"] = phase_teacher(args)
     log(f"[teacher] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["eval"] = phase_eval(args)
+    log(f"[eval] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
     record["profiler_windows"] = dict(PROFILER)
     log(f"[profiler] kernel_device_ms windows: {json.dumps(PROFILER)}")
@@ -3809,6 +4340,7 @@ def main(argv=None) -> int:
     stream_launches = {
         "dropattn_bwd.stream": record["train"]["doc_len_512"]["stream_launches"],
         "dropattn_bwd.stream.d64": record["teacher"]["train_512"]["stream_launches"]}
+    eval_kernels, eval_launches = record["eval"]["kernels"], record["eval"]["launches"]
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
@@ -3857,6 +4389,14 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/attention.py:296", main_stream, stream_launches),
         ("dropattn_bwd.stream.d64", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
          "sskd_tpu/ops/attention.py:296", main_d64["dropattn_bwd.stream.d64"], stream_launches),
+        # the f32 routes the evaluation at full width takes: binmax and bin_gather over
+        # its 8,192 f32 rows for 1,000 queries, flash at d = 32 in its f32 encode
+        ("binmax.f32", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
+         eval_kernels["binmax.f32"], eval_launches),
+        ("bin_gather.f32", "sskd_tpu_torch/csrc/bin_gather.cu",
+         "sskd_tpu/ops/topk_pallas.py:167", eval_kernels["bin_gather.f32"], eval_launches),
+        ("flash_attn_fwd.f32", "sskd_tpu_torch/csrc/flash_attn.cu",
+         "sskd_tpu/ops/attention.py:43", eval_kernels["flash_attn_fwd.f32"], eval_launches),
     ):
         check(launches[name] > 0, f"kernel {name} was launched no time on its path")
         kernels.append({

@@ -1,7 +1,7 @@
 """Knowledge distillation of the bi-encoder student (port of sskd_tpu/kd):
 losses, batch packing, the trainer, and the teacher's own training
-(``kd/teacher_train.py``). The evaluation module (``kd/eval.py``) is a later
-slice."""
+(``kd/teacher_train.py``). The evaluator, ``kd/eval.py``, is imported from
+its module."""
 
 from sskd_tpu_torch.kd.dataset import KDDataset, KDSample, prefetch_batches
 from sskd_tpu_torch.kd.losses import (

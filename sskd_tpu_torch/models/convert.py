@@ -19,19 +19,25 @@ an 8-byte little-endian header length, a JSON header, then the raw
 little-endian buffers. bf16 tensors come back as their ``uint16`` bits, which
 the converter widens to f32 (exactly: a bf16 value is the top half of an f32
 one).
+
+JAX checkpoints (``params.msgpack``, written by ``flax.serialization.to_bytes``
+in the JAX package) go through :func:`read_flax_msgpack`, a decoder of that
+msgpack layout in the same manner (the machine with the GPU has no
+``msgpack`` and no ``flax``).
 """
 
 from __future__ import annotations
 
 import json
 import pickle
+import struct
 from pathlib import Path
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from sskd_tpu_torch.exceptions import WeightConversionError
+from sskd_tpu_torch.exceptions import ModelLoadError, WeightConversionError
 from sskd_tpu_torch.models.bert import BertConfig
 
 # safetensors dtype names -> numpy little-endian types (BF16 as its bits)
@@ -175,6 +181,156 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
             raise WeightConversionError(f"{path}: {name!r} holds {arr.size} values, not {shape}")
         out[name] = arr.reshape(shape).copy()
     return out
+
+
+# Flax's msgpack extension codes (flax.serialization._MsgpackExtType)
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+# the numpy dtype names Flax writes for an ndarray; bfloat16 comes back as its
+# uint16 bits viewed as torch.bfloat16 (numpy has no bfloat16 without ml_dtypes)
+_MSGPACK_DTYPES = {
+    name: np.dtype(name).newbyteorder("<")
+    for name in ("float64", "float32", "float16", "int64", "int32", "int16", "int8",
+                 "uint64", "uint32", "uint16", "uint8", "bool", "complex64", "complex128")
+}
+
+
+class _MsgpackReader:
+    """A cursor over msgpack bytes: one :meth:`value` a call. Every read is
+    bounds-checked, so a truncated buffer raises :class:`ModelLoadError`."""
+
+    def __init__(self, raw: bytes | memoryview, where: str):
+        self.raw = memoryview(raw)
+        self.pos = 0
+        self.where = where
+
+    def fail(self, what: str):
+        raise ModelLoadError(f"{self.where}: {what} at byte {self.pos}")
+
+    def take(self, n: int) -> memoryview:
+        if n < 0 or self.pos + n > len(self.raw):
+            self.fail(f"truncated msgpack ({n} bytes wanted, {len(self.raw) - self.pos} left)")
+        out = self.raw[self.pos : self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self.unpack(">B")
+        if b <= 0x7F:  # positive fixint
+            return b
+        if b >= 0xE0:  # negative fixint
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self.text(b & 0x1F)
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        ints = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+                0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q", 0xCA: ">f", 0xCB: ">d"}
+        if b in ints:
+            return self.unpack(ints[b])
+        lengths = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I", 0xD9: ">B", 0xDA: ">H", 0xDB: ">I",
+                   0xDC: ">H", 0xDD: ">I", 0xDE: ">H", 0xDF: ">I"}
+        if b in lengths:
+            n = self.unpack(lengths[b])
+            if b <= 0xC6:  # bin 8 / 16 / 32
+                return bytes(self.take(n))
+            if b <= 0xDB:  # str 8 / 16 / 32
+                return self.text(n)
+            return self.array(n) if b <= 0xDD else self.map(n)
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if b in fixext:
+            return self.ext(fixext[b])
+        if b in (0xC7, 0xC8, 0xC9):  # ext 8 / 16 / 32
+            return self.ext(self.unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b]))
+        self.pos -= 1
+        self.fail(f"unknown msgpack type byte 0x{b:02x}")
+
+    def text(self, n: int) -> str:
+        try:
+            return str(self.take(n), "utf-8")
+        except UnicodeDecodeError as e:
+            self.fail(f"bad utf-8 string: {e}")
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            out[key] = self.value()
+        return out
+
+    def ext(self, n: int):
+        code = self.unpack(">b")
+        body = _MsgpackReader(self.take(n), self.where)
+        if code == _EXT_COMPLEX:
+            real, imag = body.value()
+            return complex(real, imag)
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            shape, name, buf = body.value()
+            arr = _flax_ndarray(shape, name, buf, self)
+            return arr if code == _EXT_NDARRAY else arr[()]
+        self.fail(f"unknown msgpack ext code {code}")
+
+
+def _flax_ndarray(shape, name, buf, reader: _MsgpackReader):
+    """One ndarray of Flax's encoding: ``(shape, dtype name, C-order bytes)``.
+    bfloat16 comes back as a torch.bfloat16 tensor."""
+    if not isinstance(shape, list) or not isinstance(buf, bytes):
+        reader.fail(f"malformed ndarray ({type(shape).__name__}, {type(buf).__name__})")
+    count = int(np.prod(shape, dtype=np.int64))
+    if name == "bfloat16":
+        dtype = np.dtype("<u2")
+    elif name in _MSGPACK_DTYPES:
+        dtype = _MSGPACK_DTYPES[name]
+    else:
+        reader.fail(f"unsupported ndarray dtype {name!r}")
+    if len(buf) != count * dtype.itemsize:
+        reader.fail(f"ndarray of {len(buf)} bytes is not {shape} {name}")
+    arr = np.frombuffer(buf, dtype=dtype).reshape(shape).copy()
+    if name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return arr
+
+
+def _unchunk(node, where: str):
+    """Flax's form for an array over ``MAX_CHUNK_SIZE`` bytes, a dict
+    ``{"__msgpack_chunked_array__": True, "shape": {"0": ..}, "chunks": {"0":
+    flat chunk, ..}}``, back to the array; other dicts are walked."""
+    if not isinstance(node, dict):
+        return node
+    if "__msgpack_chunked_array__" in node:
+        try:
+            shape = [node["shape"][str(i)] for i in range(len(node["shape"]))]
+            chunks = [node["chunks"][str(i)] for i in range(len(node["chunks"]))]
+            if all(isinstance(c, torch.Tensor) for c in chunks):
+                return torch.cat(chunks).reshape(shape)
+            return np.concatenate(chunks).reshape(shape)
+        except (KeyError, TypeError, ValueError, RuntimeError) as e:
+            raise ModelLoadError(f"{where}: malformed chunked array: {e}") from e
+    return {k: _unchunk(v, where) for k, v in node.items()}
+
+
+def read_flax_msgpack(path: str | Path):
+    """The tree of a Flax ``params.msgpack`` (what ``flax.serialization.
+    msgpack_restore`` returns): nested dicts (and lists) of numpy arrays and
+    scalars, bfloat16 leaves as torch.bfloat16 tensors. Raises
+    :class:`ModelLoadError` for a truncated or malformed file, an unknown
+    dtype or ext code."""
+    path = Path(path)
+    reader = _MsgpackReader(path.read_bytes(), str(path))
+    tree = reader.value()
+    if reader.pos != len(reader.raw):
+        reader.fail(f"{len(reader.raw) - reader.pos} bytes after the tree")
+    return _unchunk(tree, str(path))
 
 
 def load_hf_checkpoint(model_dir: str | Path) -> tuple[dict, dict]:

@@ -9,14 +9,17 @@ Differences from the JAX package:
   constructor raises unless the caller passes ``device="cpu"``;
 - a model with no weights on disk gets seeded random weights drawn in the
   Flax layout and carried over (:mod:`sskd_tpu_torch.models.weights`);
-  ``params`` takes such a Flax-layout tree of numpy arrays, e.g. a JAX
-  checkpoint's parameters, so the port reads no msgpack;
+  ``params`` takes such a Flax-layout tree of numpy arrays;
 - the checkpoint format is the port's own::
 
       dir/
         sskd_config.json   — arch + wrapper config (same keys as the JAX package)
         weights.pt         — BiEncoder state_dict, f32
         tokenizer/         — vocab.txt + tokenizer_config.json
+
+  and a JAX package's checkpoint directory (the same files with
+  ``params.msgpack`` in place of ``weights.pt``) loads too, through the
+  port's own msgpack reader (``weights.pt`` wins when both are there);
 
 - each text is tokenized once per batch (the JAX package tokenizes twice:
   once to pick the bucket, once to encode);
@@ -41,7 +44,11 @@ import torch
 
 from sskd_tpu_torch.exceptions import ModelLoadError
 from sskd_tpu_torch.models.bert import BertConfig, BiEncoder
-from sskd_tpu_torch.models.weights import bi_encoder_from_jax_params, random_jax_params
+from sskd_tpu_torch.models.weights import (
+    bi_encoder_from_jax_params,
+    checkpoint_state,
+    random_jax_params,
+)
 from sskd_tpu_torch.tokenization import WordPieceTokenizer, get_default_tokenizer
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.platform import resolve_device
@@ -106,13 +113,13 @@ class StudentModel:
         state = None
         path = Path(model_name) if model_name else None
         if path is not None and path.is_dir():
-            if (path / "weights.pt").exists():
+            if (path / "weights.pt").exists() or (path / "params.msgpack").exists():
                 state = self._load_own_checkpoint(path)
-            elif (path / "params.msgpack").exists() or (path / "config.json").exists():
+            elif (path / "config.json").exists():
                 raise ModelLoadError(
-                    f"{path} holds a JAX or Hugging Face checkpoint; the port loads its "
-                    "own format (weights.pt). Carry JAX parameters over with "
-                    "sskd_tpu_torch.models.weights.bi_encoder_from_jax_params."
+                    f"{path} holds a Hugging Face checkpoint; the student loads its own "
+                    "format (weights.pt) or the JAX package's (params.msgpack). Carry HF "
+                    "weights over with sskd_tpu_torch.models.convert."
                 )
         if state is None:
             self.config = config or (
@@ -151,8 +158,9 @@ class StudentModel:
         self.query_prefix = meta.get("query_prefix", self.query_prefix)
         self.passage_prefix = meta.get("passage_prefix", self.passage_prefix)
         self.tokenizer = WordPieceTokenizer.from_pretrained_dir(path / "tokenizer")
+        state = checkpoint_state(path, self.config)
         logger.info(f"loaded student checkpoint from {path}")
-        return torch.load(path / "weights.pt", map_location="cpu", weights_only=True)
+        return state
 
     def save(self, path: str | Path) -> Path:
         path = Path(path)
@@ -187,7 +195,8 @@ class StudentModel:
     def tokenize_batch(self, texts: Sequence[str], pad_to: int | None = None) -> dict:
         """Host-side tokenization to fixed [B, L] int32 arrays; L is the
         bucket of the longest text (``pad_to`` overrides it)."""
-        ids = [self.tokenizer.tokenize(t) for t in texts]
+        # ids cut to the longest frame they can reach lose nothing
+        ids = self.tokenizer.ids_batch(texts, max(pad_to or 0, self.max_seq_length))
         longest = 2 + max((len(i) for i in ids), default=1)
         length = pad_to or bucket_length(longest, self.max_seq_length, self.device)
         return self.tokenizer.frame_batch(ids, length)

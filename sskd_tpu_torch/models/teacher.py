@@ -17,8 +17,10 @@ Differences from the JAX package:
   checkpoint's parameters;
 - the checkpoint format is the port's own (``sskd_config.json`` with the
   JAX package's keys, ``weights.pt`` with the CrossEncoder's f32
-  state_dict, ``tokenizer/``); an HF checkpoint directory (``config.json``
-  with ``model.safetensors`` or ``pytorch_model.bin``) goes through
+  state_dict, ``tokenizer/``), or the JAX package's (``params.msgpack`` in
+  place of ``weights.pt``, read by the port's own msgpack reader;
+  ``weights.pt`` wins when both are there); an HF checkpoint directory
+  (``config.json`` with ``model.safetensors`` or ``pytorch_model.bin``) goes through
   :mod:`sskd_tpu_torch.models.convert`. A directory the port cannot read
   raises :class:`~sskd_tpu_torch.exceptions.ModelLoadError` or
   :class:`~sskd_tpu_torch.exceptions.WeightConversionError`;
@@ -32,17 +34,20 @@ from __future__ import annotations
 
 import json
 import math
-import pickle
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from sskd_tpu_torch.exceptions import ModelLoadError, WeightConversionError
+from sskd_tpu_torch.exceptions import WeightConversionError
 from sskd_tpu_torch.models.bert import BertConfig, CrossEncoder
 from sskd_tpu_torch.models.student import ARCH_KEYS, bucket_length
-from sskd_tpu_torch.models.weights import cross_encoder_from_jax_params, random_jax_params
+from sskd_tpu_torch.models.weights import (
+    checkpoint_state,
+    cross_encoder_from_jax_params,
+    random_jax_params,
+)
 from sskd_tpu_torch.tokenization import WordPieceTokenizer, get_default_tokenizer
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.platform import resolve_device
@@ -104,22 +109,12 @@ class TeacherModel:
     # ------------------------------------------------------------------
 
     def _load_own_checkpoint(self, path: Path) -> dict:
-        if not (path / "weights.pt").exists() and (path / "params.msgpack").exists():
-            raise ModelLoadError(
-                f"{path} holds a JAX checkpoint; the port loads its own format "
-                "(weights.pt). Carry JAX parameters over with "
-                "sskd_tpu_torch.models.weights.cross_encoder_from_jax_params."
-            )
         with open(path / "sskd_config.json") as f:
             meta = json.load(f)
         self.config = BertConfig(**{k: meta["architecture"][k] for k in ARCH_KEYS})
         self.max_seq_length = meta.get("max_seq_length", 512)
         self.tokenizer = WordPieceTokenizer.from_pretrained_dir(path / "tokenizer")
-        try:
-            state = torch.load(path / "weights.pt", map_location="cpu", weights_only=True)
-        # a truncated or foreign file (read on the CPU, so no device error)
-        except (RuntimeError, EOFError, ValueError, pickle.UnpicklingError) as e:
-            raise ModelLoadError(f"cannot read {path / 'weights.pt'}: {e}") from e
+        state = checkpoint_state(path, self.config, cross_encoder=True)
         logger.info(f"loaded teacher checkpoint from {path}")
         return state
 
@@ -161,8 +156,10 @@ class TeacherModel:
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]) -> dict:
         """``[CLS] q [SEP] d [SEP]`` arrays [B, L] (int32), L the bucket of
         the longest pair (at most ``max_seq_length``)."""
-        a = [self.tokenizer.tokenize(q) for q, _ in pairs]
-        b = [self.tokenizer.tokenize(d) for _, d in pairs]
+        # ids cut to max_seq_length lose nothing: frame_pairs cuts each pair
+        # to at most max_seq_length - 3 tokens, whatever the longer side held
+        a = self.tokenizer.ids_batch([q for q, _ in pairs], self.max_seq_length)
+        b = self.tokenizer.ids_batch([d for _, d in pairs], self.max_seq_length)
         longest = 3 + max(len(x) + len(y) for x, y in zip(a, b))
         length = bucket_length(longest, self.max_seq_length, self.device)
         return self.tokenizer.frame_pairs(a, b, length)

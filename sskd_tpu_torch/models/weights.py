@@ -22,12 +22,16 @@ not, as JAX's random bits differ from numpy's.
 
 from __future__ import annotations
 
+import pickle
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from sskd_tpu_torch.exceptions import ModelLoadError, WeightConversionError
 from sskd_tpu_torch.models.bert import BertConfig
+from sskd_tpu_torch.models.convert import read_flax_msgpack
 
 _LINEAR_NAMES = ("query", "key", "value", "output")
 
@@ -38,6 +42,9 @@ def _tree(params: Mapping) -> Mapping:
 
 
 def _t(x) -> torch.Tensor:
+    """numpy array, or a torch tensor (bf16 from a Flax checkpoint), -> f32."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).clone()
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
@@ -79,6 +86,29 @@ def cross_encoder_from_jax_params(params: Mapping,
     _dense(sd, "pooler", tree["pooler"])
     _dense(sd, "classifier", tree["classifier"])
     return sd
+
+
+def checkpoint_state(path: Path, config: BertConfig,
+                     cross_encoder: bool = False) -> dict[str, torch.Tensor]:
+    """The state_dict of a checkpoint directory: ``weights.pt`` (the port's
+    format) when it is there, else ``params.msgpack`` (the JAX package's,
+    carried over by :func:`bi_encoder_from_jax_params` or, with
+    ``cross_encoder``, :func:`cross_encoder_from_jax_params`). Raises
+    :class:`ModelLoadError` for a file it cannot read and
+    :class:`WeightConversionError` for a Flax tree that lacks a weight."""
+    pt = path / "weights.pt"
+    if pt.exists():
+        try:
+            return torch.load(pt, map_location="cpu", weights_only=True)
+        # a truncated or foreign file (read on the CPU, so no device error)
+        except (RuntimeError, EOFError, ValueError, pickle.UnpicklingError) as e:
+            raise ModelLoadError(f"cannot read {pt}: {e}") from e
+    tree = read_flax_msgpack(path / "params.msgpack")
+    convert = cross_encoder_from_jax_params if cross_encoder else bi_encoder_from_jax_params
+    try:
+        return convert(tree, config)
+    except (KeyError, TypeError) as e:
+        raise WeightConversionError(f"{path / 'params.msgpack'} lacks a weight: {e}") from e
 
 
 def random_jax_params(config: BertConfig, seed: int = 0, cross_encoder: bool = False) -> dict:

@@ -1,12 +1,14 @@
 """Self-contained WordPiece tokenizer (host-side).
 
-Copy of sskd_tpu/tokenization/wordpiece.py, pure Python: the C++ core that the
-JAX package attaches (sskd_tpu/tokenization/native.py) is a later slice of the
-port, so every text takes the Python path here. ``encode_batch`` encodes
-single texts and (query, passage) pairs, the cross-encoder's input, as
-sskd_tpu/tokenization/wordpiece.py:281-399 does; ``frame_batch`` and
-``frame_pairs`` frame ids already tokenized, which lets StudentModel and
-TeacherModel tokenize each text once.
+Copy of sskd_tpu/tokenization/wordpiece.py. As there, ASCII text goes
+through the C++ core (native/wordpiece.cc, bound by
+:mod:`sskd_tpu_torch.tokenization.native`) when it builds, and other text
+through pure Python, with the same ids and offsets either way;
+``ids_batch`` tokenizes an all-ASCII batch in one multithreaded call of the
+core. ``encode_batch`` encodes single texts and (query, passage) pairs, the
+cross-encoder's input, as sskd_tpu/tokenization/wordpiece.py:281-399 does;
+``frame_batch`` and ``frame_pairs`` frame ids already tokenized, which lets
+StudentModel and TeacherModel tokenize each text once.
 
 The reference tokenized through HuggingFace's Rust `tokenizers` via
 ``transformers.AutoTokenizer`` (reference: src/utils/chunk.py:14,
@@ -27,6 +29,7 @@ vocab parity; the algorithm here matches BERT WordPiece semantics.
 from __future__ import annotations
 
 import json
+import os
 import unicodedata
 from collections import Counter
 from pathlib import Path
@@ -110,6 +113,8 @@ class WordPieceTokenizer:
         self.cls_id = self.vocab[CLS]
         self.sep_id = self.vocab[SEP]
         self.mask_id = self.vocab[MASK]
+        self._native = None
+        self._native_tried = False
 
     @property
     def vocab_size(self) -> int:
@@ -228,11 +233,35 @@ class WordPieceTokenizer:
             start = end
         return pieces
 
+    def _native_core(self):
+        """The C++ core, attached on first use (sskd_tpu/tokenization/
+        wordpiece.py:225-241); None when it cannot be built, when
+        ``SSKD_NATIVE_TOKENIZER=0``, or for a word-length limit other than
+        the core's 100 characters."""
+        if not self._native_tried:
+            self._native_tried = True
+            if (os.environ.get("SSKD_NATIVE_TOKENIZER", "1") != "0"
+                    and self.max_input_chars_per_word == 100):
+                from sskd_tpu_torch.tokenization.native import NativeWordPiece
+
+                try:
+                    self._native = NativeWordPiece(self.vocab, self.unk_id, self.lowercase)
+                except (RuntimeError, OSError):
+                    self._native = None
+        return self._native
+
     def tokenize_with_offsets(
         self, text: str
     ) -> tuple[list[int], list[tuple[int, int]]]:
         """Token ids + per-token (start_char, end_char) offsets.
-        WordPiece pieces of one word share proportional sub-offsets."""
+        WordPiece pieces of one word share proportional sub-offsets. ASCII
+        text runs through the C++ core when it is attached."""
+        native = self._native_core()
+        if native is not None and text.isascii():
+            return native.tokenize_with_offsets(text)
+        return self._tokenize_python(text)
+
+    def _tokenize_python(self, text: str) -> tuple[list[int], list[tuple[int, int]]]:
         ids: list[int] = []
         offsets: list[tuple[int, int]] = []
         for word, start, end in basic_tokenize_with_offsets(text, self.lowercase):
@@ -251,6 +280,16 @@ class WordPieceTokenizer:
 
     def tokenize(self, text: str) -> list[int]:
         return self.tokenize_with_offsets(text)[0]
+
+    def ids_batch(self, texts: Sequence[str], cap: int) -> list:
+        """The ids of each text, cut to ``cap`` tokens: an all-ASCII batch of
+        more than one text in one call of the C++ core (its threads run
+        without the GIL), other batches text by text."""
+        native = self._native_core()
+        if native is not None and len(texts) > 1 and all(t.isascii() for t in texts):
+            mat, counts = native.tokenize_ids_matrix(list(texts), cap=cap)
+            return [mat[i, : counts[i]] for i in range(len(texts))]
+        return [self.tokenize(t)[:cap] for t in texts]
 
     # ------------------------------------------------------------------
     # Model-input encoding (static shapes)
@@ -326,10 +365,10 @@ class WordPieceTokenizer:
         if text_pairs is not None and len(text_pairs) != len(texts):
             raise ValueError("texts and text_pairs must have equal length")
         length = pad_to or max_length
-        ids = [self.tokenize(t) for t in texts]
+        ids = self.ids_batch(texts, length)
         if text_pairs is None:
             return self.frame_batch(ids, length)
-        return self.frame_pairs(ids, [self.tokenize(t) for t in text_pairs], length)
+        return self.frame_pairs(ids, self.ids_batch(text_pairs, length), length)
 
 
 _DEFAULT: WordPieceTokenizer | None = None
@@ -348,8 +387,6 @@ def get_default_tokenizer() -> WordPieceTokenizer:
     (full coverage via char fallback, so it tokenizes anything)."""
     global _DEFAULT
     if _DEFAULT is None:
-        import os
-
         tok_dir = os.environ.get("SEMANTIC_KD_TOKENIZER_DIR")
         if tok_dir and Path(tok_dir, "vocab.txt").exists():
             _DEFAULT = WordPieceTokenizer.from_pretrained_dir(tok_dir)

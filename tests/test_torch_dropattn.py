@@ -428,7 +428,7 @@ def test_the_mask_applied_at_head_dim_64_is_dropout_keep_mask(L):
     assert bool((spell(dv).transpose(-1, -2) == want).all())
 
 
-def test_routes_send_head_dim_64_to_the_cuda_cores():
+def test_routes_send_head_dim_64_to_the_tensor_cores():
     """The routes at head dim 64: flash and both dropattn kernels take the
     tensor cores in bf16 and f32. The f32 forward streams the head and takes
     every L; the bf16 forward takes L while the head's K and V fit a block
@@ -436,7 +436,7 @@ def test_routes_send_head_dim_64_to_the_cuda_cores():
     backward holds the head in a block while it fits (208 in bf16, 128 in
     f32) and streams it on the tensor cores past that ("tc_stream"), as it
     does for f32 at head dim 32 at every L: no backward is left on the CUDA
-    cores. (The name is the one the test had before the streaming route.)"""
+    cores."""
     limits, fwd_limits = ta.DROPATTN_TC_MAX_L, ta.DROPATTN_FWD_TC_MAX_L
     assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
     assert fwd_limits == {(torch.bfloat16, 32): 1344, (torch.bfloat16, 64): 656}

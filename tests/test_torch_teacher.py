@@ -308,9 +308,17 @@ def test_confidence_predict_score_and_save_load(tmp_path, teachers):
 
 
 def test_unreadable_checkpoints_raise_load_errors(tmp_path, teachers):
+    """A JAX checkpoint directory (params.msgpack) loads and scores as the
+    JAX teacher does (1e-5); a truncated params.msgpack or weights.pt raises
+    ModelLoadError, a missing weights file OSError."""
     jt, tt = teachers
     jax_dir = jt.save(tmp_path / "jax_format")
-    with pytest.raises(ModelLoadError, match="JAX checkpoint"):
+    pairs = _pairs(12, 6)
+    loaded = TeacherModel(str(jax_dir), device="cpu")
+    np.testing.assert_allclose(loaded.score(pairs), jt.score(pairs), rtol=1e-5, atol=1e-5)
+    raw = (jax_dir / "params.msgpack").read_bytes()
+    (jax_dir / "params.msgpack").write_bytes(raw[: len(raw) // 2])
+    with pytest.raises(ModelLoadError, match="truncated"):
         TeacherModel(str(jax_dir), device="cpu")
     own = tt.save(tmp_path / "own")
     raw = (own / "weights.pt").read_bytes()
