@@ -70,7 +70,14 @@ Phases, each fatal when it fails:
              the keep-mask read back bit for bit (f32 at L = 64, 128, 256 and
              512 through the tensor-core forward and both backward routes,
              bf16 at 192), the streaming backward's packed keep bits at
-             L = 200, ptxas's registers and spills beside each time):
+             L = 200, ptxas's registers and spills beside each time); head
+             dim 16 (BertConfig.tiny, the pipeline phase's --tiny models):
+             dropattn_fwd / dropattn_bwd at [256, 4, 192, 16] and
+             [32, 4, 64, 16] bf16 (tensor cores; the backward holding the
+             head) and [32, 4, 64, 16] f32 (CUDA-core forward, streaming
+             backward), p in {0, 0.1}, the keep-mask bit for bit, bitwise
+             repeatable, bf16 within the rounding bounds and f32 within 1e-5
+             (1 + |want|), each timed beside SDPA with dropout:
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k, cell and d = 64 attention kernels),
              the bound and yardsticks that the port never calls;
@@ -198,7 +205,28 @@ Phases, each fatal when it fails:
              kernels at the eval shapes against their plain versions, beside
              SDPA or matmul and their bounds; (c) the native WordPiece core
              attached, the 8,192 passages' ids equal through it and through
-             pure Python, and the ms each way.
+             pure Python, and the ms each way;
+9. pipeline — run_train_pipeline end to end (data, parquet through the
+             port's own reader and writer, integrity, BM25, mining, KD):
+             (a) scripts/run_demo_pipeline.sh's recipe at stage 2 over a
+             copy of artifacts/demo's raw splits with its teacher and its
+             vanilla init (read from params.msgpack): the 420 queries'
+             negatives equal run_kd/mined_stage2.json (ids; scores within
+             1e-4 (1 + |s|), order only among near ties), every loss finite,
+             best_model reloaded, its nDCG@10 on test.jsonl above the
+             vanilla init's (reported with MRR@10, recall@10 and nDCG@20
+             beside the JAX files and the gate, which is not enforced); (b)
+             the --tiny defaults: 48 generated demo rows prepared and
+             checked by require_integrity, stage 3 with BertConfig.tiny (the
+             student bf16, every dropattn launch at d = 16 on the tensor
+             cores), then 4 TeacherTrainer steps of the tiny teacher in f32
+             (d = 16: CUDA-core forward, streaming backward); (c) full width
+             (e5-small-v2 bf16, bge-reranker-large f32, seeded, vocabulary
+             fitted to the corpus) at stage 3 over 128 queries, bm25 top
+             100, batch 32: every loss finite, more than half the queries
+             with negatives, each union at most 5 teacher ids and the ANCE
+             picks, every dropattn launch at d = 32 on the tensor cores;
+             seconds per pipeline step and the teacher's pairs a second.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -1685,6 +1713,101 @@ def phase_attention64(gen, build: dict) -> tuple[list, dict]:
             main["flash_attn_fwd.d64"] = {key: entry[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         del q, k, v
+    return rows, main
+
+
+# head dim 16 (BertConfig.tiny: hidden 64, 4 heads), the shapes the pipeline
+# phase's --tiny runs launch: the bf16 student's doc tower (32 queries x 8 docs
+# at doc_len 192) and query tower (query_len 64), and the f32 teacher's train
+# step (batch 32, max_len 64)
+DROPATTN_D16_CASES = (((256, 4, 192, 16), torch.bfloat16), ((32, 4, 64, 16), torch.bfloat16),
+                      ((32, 4, 64, 16), torch.float32))
+
+
+def phase_attention16(gen) -> tuple[list, dict]:
+    """dropattn_fwd / dropattn_bwd at head dim 16 against their plain
+    versions (DROPATTN_D16_CASES), p in {0, 0.1}: bf16 on the tensor cores
+    (dropattn_fwd_tc_kernel<16>, the resident dropattn_bwd_tc_kernel<16>),
+    f32 on dropattn_fwd_kernel<float, 16> and the streaming backward; the
+    kernels' keep-mask equal to the plain one bit for bit, the backward
+    bitwise equal over two launches, bf16 within dropattn_*_error_bound and
+    f32 within 1e-5 (1 + |want|); times beside SDPA with dropout and its
+    backward, and the bounds. Returns the rows and the main entries (the
+    bf16 doc tower's shape, the f32 teacher's)."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    rows, main = [], {}
+    for (B, h, L, d), dtype in DROPATTN_D16_CASES:
+        f32 = dtype == torch.float32
+        q, k, v, g = (torch.randn(B, h, L, d, device="cuda", generator=gen).to(dtype)
+                      for _ in range(4))
+        bias = attn_bias(B, L, gen)
+        seed = 1600 + L + B
+        check(masks_equal(seed, B * h, L, 0.1), f"dropattn d=16 keep-mask [{B * h}, {L}] differs")
+        f_route, b_route = ta.dropattn_fwd_route(dtype, d, L), ta.dropattn_bwd_route(dtype, d, L)
+        check((f_route, b_route) == (("cuda_core", "tc_stream") if f32 else ("tc", "tc")),
+              f"dropattn d=16 {dtype} L={L}: routes {f_route}, {b_route}")
+        for p in (0.0, 0.1):
+            tag = f"d=16 {str(dtype).split('.')[1]} [{B}, {h}, {L}] p={p}"
+            before = (ta.dropattn_fwd.head_dim_launches.get(16, 0), ta.dropattn_fwd.tc_launches,
+                      ta.dropattn_bwd.head_dim_launches.get(16, 0), ta.dropattn_bwd.tc_launches,
+                      ta.dropattn_bwd.stream_launches)
+            out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+            grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            check((ta.dropattn_fwd.head_dim_launches[16], ta.dropattn_fwd.tc_launches,
+                   ta.dropattn_bwd.head_dim_launches[16], ta.dropattn_bwd.tc_launches,
+                   ta.dropattn_bwd.stream_launches)
+                  == (before[0] + 1, before[1] + (not f32), before[2] + 1, before[3] + 1,
+                      before[4] + f32), f"dropattn {tag}: launches not counted on their routes")
+            again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"dropattn_bwd {tag}: two launches differ")
+            del again
+            want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+            want_grads = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, g)
+            torch.cuda.synchronize()
+            lse_err = (lse - want_lse).abs().max().item()
+            check(lse_err <= 1e-4, f"dropattn_fwd lse {tag}: err {lse_err}")
+            f_err = (out.float() - want.float()).abs().max().item()
+            b_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(grads, want_grads))
+            entry = {"shape": [B, h, L, d], "dtype": str(dtype).split(".")[1], "p": p,
+                     "lse_max_abs_err": lse_err, "fwd_max_abs_err": f_err,
+                     "bwd_max_abs_err": b_err, "fwd_route": f_route, "bwd_route": b_route,
+                     "bitwise_repeatable": True}
+            if f32:
+                for name, a, b in (("out", out, want),) + tuple(zip(("dq", "dk", "dv"), grads,
+                                                                      want_grads)):
+                    ratio = ((a - b).abs() / (1 + b.abs())).max().item()
+                    check(ratio <= 1e-5, f"dropattn {name} {tag}: {ratio} > 1e-5 (1 + |want|)")
+            else:
+                f_slack = ((out.float() - want.float()).abs() / ta.dropattn_fwd_error_bound(
+                    q, k, v, bias, p, seed, out, want)).max().item()
+                check(f_slack <= 1.0, f"dropattn_fwd {tag}: {f_slack:.3f} of its bound")
+                bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, grads,
+                                                     want_grads)
+                b_slack = max(((a.float() - b.float()).abs() / bd).max().item()
+                              for a, b, bd in zip(grads, want_grads, bounds))
+                check(b_slack <= 1.0, f"dropattn_bwd {tag}: {b_slack:.3f} of its bound")
+                entry.update(fwd_err_over_bound=f_slack, bwd_err_over_bound=b_slack)
+                del bounds
+            del out, want, grads, want_grads, lse
+            if p > 0:
+                entry.update(time_dropattn(q, k, v, g, bias, p, seed,
+                                           bwd_kind="tf32" if f32 else "bf16"))
+                name = "d16.f32" if f32 else "d16"
+                if (f32 or L == 192) and f"dropattn_fwd.{name}" not in main:
+                    for kern, pre, err in (("dropattn_fwd", "fwd", f_err),
+                                           ("dropattn_bwd", "bwd", b_err)):
+                        main[f"{kern}.{name}"] = {
+                            "max_abs_err": err, "ms": entry[f"{pre}_ms"],
+                            "plain_ms": entry[f"{pre}_plain_ms"],
+                            "bound_ms": entry[f"{pre}_bound_ms"],
+                            "bound_by": entry[f"{pre}_bound_by"],
+                            "library_ms": entry[f"{pre}_library_ms"]}
+            rows.append(entry)
+            log(f"[kernels] {json.dumps(entry)}")
+        del q, k, v, g
     return rows, main
 
 
@@ -4251,6 +4374,293 @@ def phase_eval(args) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# The pipeline phase: run_train_pipeline end to end
+# ---------------------------------------------------------------------------
+
+# scripts/run_demo_pipeline.sh's recipe for `train` (lr, eval_steps, patience,
+# in-batch negatives, confidence 0.0, 12 epochs, batch 16, stage 2)
+DEMO_RECIPE = {
+    "training": {"learning_rate": 2e-3, "eval_steps": 16, "early_stopping_patience": 12,
+                 "epochs": 12, "batch_size": 16},
+    "loss": {"in_batch_negatives": True},
+    "mining": {"teacher_confidence_threshold": 0.0, "stage": 2},
+}
+TINY_SAMPLES = 48  # the --tiny run's generated demo rows
+FULL_QUERIES = 128  # the full-width run's queries (bm25 top 100: about 12,800 teacher pairs)
+PIPELINE_KS = ("ndcg@10", "mrr@10", "recall@10", "ndcg@20")
+
+
+@contextlib.contextmanager
+def pipeline_probe():
+    """While open: the wall time of each step of run_train_pipeline (from
+    its "[k/7]" log records) and the pairs and seconds of every
+    TeacherModel.score call (mining's stage 2). Yields the dict it fills."""
+    import logging
+
+    from sskd_tpu_torch.models.teacher import TeacherModel
+
+    probe = {"marks": [], "score_pairs": 0, "score_seconds": 0.0}
+
+    class Marks(logging.Handler):
+        def emit(self, rec):
+            msg = rec.getMessage()
+            if msg.startswith("[") and "/7]" in msg[:6]:
+                probe["marks"].append((msg[:5], time.perf_counter()))
+
+    lg = logging.getLogger("sskd_tpu_torch.pipeline")
+    handler, saved = Marks(), (lg.level, lg.propagate)
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    lg.propagate = False
+    score = TeacherModel.score
+
+    def counted(self, pairs, batch_size=32):
+        t0 = time.perf_counter()
+        out = score(self, pairs, batch_size=batch_size)
+        torch.cuda.synchronize()
+        probe["score_seconds"] += time.perf_counter() - t0
+        probe["score_pairs"] += len(pairs)
+        return out
+
+    TeacherModel.score = counted
+    t0 = time.perf_counter()
+    try:
+        yield probe
+    finally:
+        TeacherModel.score = score
+        lg.removeHandler(handler)
+        lg.setLevel(saved[0])
+        lg.propagate = saved[1]
+        ends = [t for _, t in probe["marks"][1:]] + [time.perf_counter()]
+        probe["step_seconds"] = {m: e - t for (m, t), e in zip(probe["marks"], ends)}
+        probe["seconds"] = time.perf_counter() - t0
+        del probe["marks"]
+
+
+def finite_losses(result: dict) -> int:
+    """Checks every loss term of every epoch record is finite; returns how
+    many there were."""
+    losses = [v for rec in result["history"] for k, v in rec.items()
+              if isinstance(v, float) and ("loss" in k or k in ("margin_mse", "listwise_kd",
+                                                                "contrastive"))]
+    check(losses and all(math.isfinite(v) for v in losses), f"a loss is not finite: {losses}")
+    return len(losses)
+
+
+def mined_vs_file(got: list, want: list) -> dict:
+    """The mined negatives against the JAX run's file: per query the same
+    ids, each score within 1e-4 (1 + |s|) of the file's; where the order
+    differs, the file's scores of the swapped ids lie within that bound of
+    each other."""
+    worst, swapped = 0.0, 0
+    check(len(got) == len(want), f"{len(got)} mined queries, the file has {len(want)}")
+    for qi, (g, w) in enumerate(zip(got, want)):
+        ws = dict(zip(w["doc_ids"], w["scores"]))
+        check(sorted(g.doc_ids) == sorted(w["doc_ids"]), f"query {qi}: mined ids differ: "
+              f"{g.doc_ids} against {w['doc_ids']}")
+        for i, (d, sc) in enumerate(zip(g.doc_ids, g.scores)):
+            gap = abs(sc - ws[d]) / (1 + abs(ws[d]))
+            worst = max(worst, gap)
+            check(gap <= 1e-4, f"query {qi}: {d} scored {sc}, the file {ws[d]}")
+            if d != w["doc_ids"][i]:
+                other = w["scores"][i]
+                swapped += 1
+                check(abs(ws[d] - other) <= 1e-4 * (1 + abs(other)),
+                      f"query {qi}: {d} and {w['doc_ids'][i]} swapped, not a near tie")
+    return {"queries": len(got), "max_score_gap": worst, "swapped": swapped}
+
+
+def pipeline_demo(work: Path) -> dict:
+    """(a) The demo recipe over the repository's demo run: the raw splits
+    copied, the teacher and the student init (artifacts/demo/{teacher,
+    vanilla}, the JAX KD run's own, read from params.msgpack), stage 2 with
+    the validation split as the dev evaluator; the 420 queries' negatives
+    against run_kd/mined_stage2.json, the KD student on test.jsonl against
+    the vanilla init."""
+    import shutil
+
+    from sskd_tpu_torch.cli.pipeline import load_eval_inputs, run_train_pipeline
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.kd.eval import KDEvaluator
+    from sskd_tpu_torch.mining.miners import MinedNegatives
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.ops import head_dim_launch_counts, launch_counts, reset_launch_counts
+
+    raw = work / "data" / "raw" / "demo"
+    raw.mkdir(parents=True)
+    for f in (DEMO / "data" / "raw" / "demo").iterdir():
+        shutil.copy(f, raw / f.name)
+    recipe = dict(DEMO_RECIPE, student={"model_name": str(DEMO / "vanilla")},
+                  teacher={"model_name": str(DEMO / "teacher")})
+    reset_launch_counts()
+    with pipeline_probe() as probe:
+        result = run_train_pipeline(Settings.from_dict(recipe), data_dir=work / "data",
+                                    output_dir=work / "run_kd", dataset="demo",
+                                    dev_data=raw / "validation.jsonl", device="cuda")
+    torch.cuda.synchronize()
+    launches, by_d = launch_counts(), head_dim_launch_counts()
+    mined = [MinedNegatives(**m) for m in json.loads((work / "run_kd" / "mined_stage2.json")
+                                                     .read_text())]
+    want = json.loads((DEMO / "run_kd" / "mined_stage2.json").read_text())
+    out = {"mined_vs_file": mined_vs_file(mined, want), "losses": finite_losses(result),
+           "global_step": result["global_step"], "best_dev_ndcg@10": result["best_metric"],
+           "launches": launches, "head_dim_launches": by_d, **probe}
+    check(by_d["dropattn_fwd"].get(32, 0) > 0 and by_d["dropattn_bwd"].get(32, 0) > 0,
+          f"the demo student (head dim 32) launched no dropattn kernel: {by_d}")
+    best = StudentModel(str(work / "run_kd" / "best_model"), device="cuda")
+    inputs = load_eval_inputs(DEMO_TEST, 600)
+    kd = KDEvaluator(device="cuda").evaluate_retrieval(best, *inputs)
+    recorded = {name: json.loads((DEMO / f"{name}_metrics.json").read_text())
+                for name in ("vanilla", "kd_student", "teacher")}
+    out["kd_student"] = {k: kd[k] for k in PIPELINE_KS}
+    out["jax_files"] = {name: {k: m[k] for k in PIPELINE_KS} for name, m in recorded.items()}
+    threshold = 0.95 * recorded["teacher"]["ndcg@10"]
+    out["gate"] = {"threshold": threshold, "kd_passes": bool(kd["ndcg@10"] >= threshold),
+                   "enforced": False}
+    log(f"[pipeline] (a) demo: {json.dumps(out)}")
+    check(kd["ndcg@10"] > recorded["vanilla"]["ndcg@10"],
+          f"the KD student's nDCG@10 {kd['ndcg@10']:.4f} is not above the vanilla init's "
+          f"{recorded['vanilla']['ndcg@10']:.4f}")
+    return out
+
+
+def pipeline_tiny(work: Path) -> dict:
+    """(b) The --tiny defaults at head dim 16: TINY_SAMPLES generated demo
+    rows prepared to parquet through the port's writer, require_integrity,
+    run_train_pipeline at stage 3 with BertConfig.tiny for both models (the
+    student in bf16, as configs/kd.yaml's precision computes; the teacher
+    in f32), 1 epoch, confidence 0.0; then 4 TeacherTrainer steps of the
+    tiny teacher in f32 as `train-teacher --tiny` runs them (batch 32,
+    max_len 64, the corpus-fitted vocabulary). Every dropattn launch of the
+    student at d = 16 on the tensor cores, the teacher's forward on the
+    CUDA cores and its backward streaming."""
+    from dataclasses import replace
+
+    from sskd_tpu_torch.cli.pipeline import run_train_pipeline
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.data.demo import generate_demo_dataset
+    from sskd_tpu_torch.data.integrity import require_integrity
+    from sskd_tpu_torch.data.prepare import prepare_dataset
+    from sskd_tpu_torch.kd.teacher_train import TeacherTrainer, triples_from_raw
+    from sskd_tpu_torch.models.bert import BertConfig
+    from sskd_tpu_torch.models.teacher import TeacherModel
+    from sskd_tpu_torch.ops import head_dim_launch_counts, reset_launch_counts, tc_launch_counts
+    from sskd_tpu_torch.ops import attention as ta
+    from sskd_tpu_torch.tokenization import WordPieceTokenizer
+
+    data = work / "data"
+    t0 = time.perf_counter()
+    generate_demo_dataset(data / "raw" / "demo", num_samples=TINY_SAMPLES)
+    manifest = prepare_dataset(data, dataset="demo")
+    require_integrity(data, "demo")
+    prep_s = time.perf_counter() - t0
+    settings = Settings.from_dict({"mining": {"teacher_confidence_threshold": 0.0}})
+    reset_launch_counts()
+    with pipeline_probe() as probe:
+        result = run_train_pipeline(
+            settings, data_dir=data, output_dir=work / "run", dataset="demo", stage=3, epochs=1,
+            student_config=BertConfig.tiny(compute_dtype=torch.bfloat16),
+            teacher_config=BertConfig.tiny(), device="cuda")
+    torch.cuda.synchronize()
+    by_d, tc = head_dim_launch_counts(), tc_launch_counts()
+    student = {k: by_d[k].get(16, 0) for k in ("dropattn_fwd", "dropattn_bwd")}
+    check(min(student.values()) > 0 and sum(by_d["dropattn_fwd"].values()) == student[
+        "dropattn_fwd"], f"the tiny student's dropattn launches: {by_d}")
+    check(tc["dropattn_fwd"] == student["dropattn_fwd"] and tc["dropattn_bwd"]
+          == student["dropattn_bwd"], f"a bf16 d=16 launch left the tensor cores: {tc}")
+    out = {"prepare_seconds": prep_s, "chunks": {k: v["num_chunks"]
+                                                 for k, v in manifest["splits"].items()},
+           "losses": finite_losses(result), "global_step": result["global_step"],
+           "student_launches": student, **probe}
+    # train-teacher --tiny: the corpus-fitted vocabulary, 4 steps in f32
+    triples = triples_from_raw(data / "raw" / "demo" / "train.jsonl")
+    texts = sorted({q for q, _, _ in triples} | {d for _, d, _ in triples})
+    tok = WordPieceTokenizer.build_from_corpus(texts, vocab_size=2048)
+    teacher = TeacherModel("tiny-teacher", device="cuda", tokenizer=tok,
+                           config=replace(BertConfig.tiny(), vocab_size=tok.vocab_size))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = TeacherTrainer(teacher).train(triples, steps=4, batch_size=32, max_len=64)
+    torch.cuda.synchronize()
+    by_d = head_dim_launch_counts()
+    f32 = {k: by_d[k].get(16, 0) for k in ("dropattn_fwd", "dropattn_bwd")}
+    check(f32["dropattn_fwd"] > 0 and f32["dropattn_bwd"] == ta.dropattn_bwd.stream_launches
+          and ta.dropattn_fwd.tc_launches == 0,
+          f"the tiny teacher's dropattn launches at d = 16: {by_d}")
+    check(math.isfinite(tr["final_loss"]), f"the tiny teacher's loss {tr['final_loss']}")
+    out["teacher"] = {"steps": tr["steps"], "final_loss": tr["final_loss"],
+                      "seconds": time.perf_counter() - t0, "launches": f32}
+    out["d16_launches"] = {"dropattn_fwd.d16": student["dropattn_fwd"],
+                           "dropattn_bwd.d16": student["dropattn_bwd"],
+                           "dropattn_fwd.d16.f32": f32["dropattn_fwd"],
+                           "dropattn_bwd.d16.f32": f32["dropattn_bwd"]}
+    log(f"[pipeline] (b) tiny: {json.dumps(out)}")
+    return out
+
+
+def pipeline_full(work: Path) -> dict:
+    """(c) Full width: e5-small-v2 (bf16 compute, f32 parameters) and
+    bge-reranker-large (f32), seeded weights and the vocabulary fitted to
+    the corpus (2,048, as the pipeline fits it for any config it is
+    handed), stage 3 over FULL_QUERIES queries of the port's demo data, bm25
+    top 100, batch 32, 1 epoch. Seconds per step and the teacher's pairs a
+    second."""
+    from sskd_tpu_torch.cli.pipeline import run_train_pipeline
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.data.demo import generate_demo_dataset
+    from sskd_tpu_torch.models.bert import BertConfig
+    from sskd_tpu_torch.ops import head_dim_launch_counts, reset_launch_counts, tc_launch_counts
+
+    data = work / "data"
+    # the train split's share is 0.8: this many rows keep FULL_QUERIES in it
+    generate_demo_dataset(data / "raw" / "demo", num_samples=FULL_QUERIES * 5 // 4)
+    settings = Settings.from_dict({"mining": {"teacher_confidence_threshold": 0.0},
+                                   "training": {"batch_size": 32}})
+    reset_launch_counts()
+    with pipeline_probe() as probe:
+        result = run_train_pipeline(
+            settings, data_dir=data, output_dir=work / "run", dataset="demo", stage=3, epochs=1,
+            student_config=BertConfig.e5_small_v2(compute_dtype=torch.bfloat16),
+            teacher_config=BertConfig.bge_reranker_large(), device="cuda")
+    torch.cuda.synchronize()
+    by_d, tc = head_dim_launch_counts(), tc_launch_counts()
+    mined = json.loads((work / "run" / "mined_stage3.json").read_text())
+    with_negs = sum(1 for m in mined if m["doc_ids"])
+    out = {"queries": result["num_queries"], "corpus": result["corpus_size"],
+           "with_negatives": with_negs, "losses": finite_losses(result),
+           "global_step": result["global_step"], "head_dim_launches": by_d, **probe}
+    out["pairs_per_s"] = probe["score_pairs"] / max(probe["score_seconds"], 1e-9)
+    check(result["num_queries"] == FULL_QUERIES, f"{result['num_queries']} queries")
+    check(with_negs > len(mined) // 2, f"{with_negs} of {len(mined)} queries mined negatives")
+    check(all(len(m["doc_ids"]) == len(set(m["doc_ids"])) <= 5 + settings.mining.ance_top_k
+              for m in mined), "a stage-3 union is not at most 5 teacher ids and the ANCE picks")
+    d32 = {k: by_d[k].get(32, 0) for k in ("dropattn_fwd", "dropattn_bwd")}
+    check(min(d32.values()) > 0 and tc["dropattn_fwd"] == d32["dropattn_fwd"]
+          and tc["dropattn_bwd"] == d32["dropattn_bwd"],
+          f"the full-width student's dropattn launches at d = 32 left the tensor cores: {by_d}")
+    log(f"[pipeline] (c) full width: {json.dumps(out)}")
+    return out
+
+
+def phase_pipeline(args) -> dict:
+    """run_train_pipeline on the card: (a) the demo recipe over the
+    repository's demo run, (b) the --tiny defaults at head dim 16, (c) full
+    width. Each part in its own directory under build/chip_smoke."""
+    import shutil
+
+    base = ROOT / "build" / "chip_smoke" / "pipeline"
+    shutil.rmtree(base, ignore_errors=True)
+    record = {}
+    for name, part in (("demo", pipeline_demo), ("tiny", pipeline_tiny), ("full", pipeline_full)):
+        t0 = time.perf_counter()
+        record[name] = part(base / name)
+        record[name]["part_seconds"] = time.perf_counter() - t0
+        log(f"[pipeline] ({name}) took {record[name]['part_seconds']:.1f} s")
+    shutil.rmtree(base, ignore_errors=True)
+    return record
+
+
 def probed_cells(b, q: torch.Tensor) -> torch.Tensor:
     """The cells that clustered_topk probes for ``q``."""
     from sskd_tpu_torch.ops.topk_kernels import topk_stable
@@ -4298,8 +4708,10 @@ def main(argv=None) -> int:
     dropattn_rows, main_dfwd, main_dbwd, main_stream = phase_dropattn(gen, record["build"])
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
     attn64_rows, main_d64 = phase_attention64(gen, record["build"])
+    attn16_rows, main_d16 = phase_attention16(gen)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
-    record["kernel_cases"] = topk_rows + flash_rows + dropattn_rows + cell_rows + attn64_rows
+    record["kernel_cases"] = (topk_rows + flash_rows + dropattn_rows + cell_rows + attn64_rows
+                              + attn16_rows)
     # the int8 cell_gather at both batches the clustered engine probes with
     record["cell_gather_int8"] = {
         f"B={r['B']}": {n: r[n] for n in ("route", "ms", "kernel_device_ms", "bound_ms",
@@ -4326,6 +4738,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["eval"] = phase_eval(args)
     log(f"[eval] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["pipeline"] = phase_pipeline(args)
+    log(f"[pipeline] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
     record["profiler_windows"] = dict(PROFILER)
     log(f"[profiler] kernel_device_ms windows: {json.dumps(PROFILER)}")
@@ -4341,6 +4756,7 @@ def main(argv=None) -> int:
         "dropattn_bwd.stream": record["train"]["doc_len_512"]["stream_launches"],
         "dropattn_bwd.stream.d64": record["teacher"]["train_512"]["stream_launches"]}
     eval_kernels, eval_launches = record["eval"]["kernels"], record["eval"]["launches"]
+    tiny_launches = record["pipeline"]["tiny"]["d16_launches"]
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
@@ -4397,6 +4813,17 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/topk_pallas.py:167", eval_kernels["bin_gather.f32"], eval_launches),
         ("flash_attn_fwd.f32", "sskd_tpu_torch/csrc/flash_attn.cu",
          "sskd_tpu/ops/attention.py:43", eval_kernels["flash_attn_fwd.f32"], eval_launches),
+        # head dim 16, the pipeline's --tiny models: the bf16 student's KD run
+        # (tensor cores) and the f32 teacher's train steps (CUDA-core forward,
+        # streaming backward)
+        ("dropattn_fwd.d16", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
+         "sskd_tpu/ops/attention.py:266", main_d16["dropattn_fwd.d16"], tiny_launches),
+        ("dropattn_bwd.d16", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
+         "sskd_tpu/ops/attention.py:296", main_d16["dropattn_bwd.d16"], tiny_launches),
+        ("dropattn_fwd.d16.f32", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
+         "sskd_tpu/ops/attention.py:266", main_d16["dropattn_fwd.d16.f32"], tiny_launches),
+        ("dropattn_bwd.d16.f32", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
+         "sskd_tpu/ops/attention.py:296", main_d16["dropattn_bwd.d16.f32"], tiny_launches),
     ):
         check(launches[name] > 0, f"kernel {name} was launched no time on its path")
         kernels.append({

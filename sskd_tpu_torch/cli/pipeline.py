@@ -1,11 +1,21 @@
-"""The evaluation and training inputs of the pipeline (port of
-``build_training_inputs`` and ``load_eval_inputs``,
-sskd_tpu/cli/pipeline.py:29-127).
+"""End-to-end KD training pipeline (port of sskd_tpu/cli/pipeline.py;
+reference: scripts/train_kd_pipeline.py, 7 steps):
 
-``load_eval_inputs`` gives ``(queries, corpus, qrels)`` for
-:class:`~sskd_tpu_torch.kd.eval.KDEvaluator` from a raw JSONL split and its
-``<split>.qrels.jsonl`` sidecar. The rest of the pipeline (fetch, prepare,
-BM25, mining, training) is a later slice of the port.
+  [1] generate the offline demo set (the hub fetch of other datasets needs
+      the network and is not part of the port: a missing raw split raises)
+  [2] prepare: chunk to parquet (512 tokens / stride 80), through the port's
+      own parquet writer
+  [3] build (or reuse) the BM25 index over the passage corpus
+  [4] load teacher + student
+  [5] build queries/positives/corpus from raw JSONL (is_selected == 1)
+  [6] mine the negative curriculum (stage 1..3), cached to
+      ``mined_stage{stage}.json`` with a staleness guard
+  [7] KD training (AdamW + the combined KD loss), with the stage-3
+      in-training ANCE refresh and an optional held-out dev evaluator
+
+``build_training_inputs`` and ``load_eval_inputs`` give the evaluation's
+inputs too. The models run on ``device`` (default ``"cuda"``: raises
+without CUDA); the tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,7 +23,12 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+from sskd_tpu_torch.config import Settings
 from sskd_tpu_torch.data.prepare import _iter_passages_graded
+from sskd_tpu_torch.exceptions import ConfigError, DataError
+from sskd_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("pipeline")
 
 
 def build_training_inputs(raw_jsonl: Path, max_samples: int | None = None):
@@ -111,3 +126,261 @@ def load_eval_inputs(raw_jsonl: str | Path, max_samples: int | None = None):
                     if t in text_to_id
                 }
     return q_map, corpus, qrels
+
+
+def mined_to_samples(queries, positives, mined, corpus):
+    """Assemble KDSamples: positive first (contrastive column 0), mined
+    negatives after with teacher scores as soft labels."""
+    from sskd_tpu_torch.kd.dataset import KDSample
+
+    samples = []
+    for query, pos_texts, negs in zip(queries, positives, mined):
+        docs = [pos_texts[0]] + [corpus[c] for c in negs.doc_ids]
+        scores = [1.0] + list(negs.scores)
+        samples.append(KDSample(query=query, docs=docs, teacher_scores=scores))
+    return samples
+
+
+def _load_mined_cache(cache_path: Path, queries, corpus):
+    """The cached mining results, or None when the file is missing or stale:
+    the cache is keyed by path only, so a regenerated dataset can leave
+    negatives pointing at doc ids that no longer exist; every referenced id
+    is checked against the live corpus and the query count."""
+    from sskd_tpu_torch.mining.miners import MinedNegatives
+
+    if not cache_path.exists():
+        return None
+    with open(cache_path) as f:
+        raw = json.load(f)
+    cached = [MinedNegatives(doc_ids=m["doc_ids"], scores=m["scores"]) for m in raw]
+    if len(cached) == len(queries) and all(d in corpus for m in cached for d in m.doc_ids):
+        logger.info(f"[6/7] using cached mining results {cache_path}")
+        return cached
+    logger.warning(
+        f"[6/7] cached mining results {cache_path} are stale for the current dataset "
+        "(unknown doc ids or query-count mismatch) — re-mining"
+    )
+    return None
+
+
+def run_train_pipeline(
+    settings: Settings,
+    data_dir: str | Path = "data",
+    output_dir: str | Path | None = None,
+    dataset: str = "demo",
+    max_samples: int | None = None,
+    stage: int | None = None,
+    epochs: int | None = None,
+    use_demo_data: bool | None = None,
+    student_config=None,
+    teacher_config=None,
+    tokenizer=None,
+    mesh=None,
+    save_init_to: str | Path | None = None,
+    dev_data: str | Path | None = None,
+    device="cuda",
+) -> dict:
+    """The seven steps over ``data_dir``; returns the trainer's result with
+    ``num_queries`` and ``corpus_size``. ``student_config`` /
+    ``teacher_config`` (the ``--tiny`` runs) build seeded models with a
+    vocabulary fitted to the corpus; otherwise ``settings.student.model_name``
+    and ``settings.teacher.model_name`` name checkpoints (the port's own or
+    the JAX package's) or known architectures. ``mesh`` (data-parallel
+    training) is refused, as the port's trainer refuses it."""
+    from dataclasses import replace
+
+    from sskd_tpu_torch.data.demo import generate_demo_dataset
+    from sskd_tpu_torch.data.prepare import prepare_dataset
+    from sskd_tpu_torch.data.registry import ensure_dirs, get_chunks_path, get_raw_dir, get_raw_path
+    from sskd_tpu_torch.kd.train import KDTrainer
+    from sskd_tpu_torch.mining.bm25 import BM25Index
+    from sskd_tpu_torch.mining.miners import build_mining_curriculum, refresh_ance_negatives
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.models.teacher import TeacherModel
+    from sskd_tpu_torch.utils.platform import resolve_device
+
+    if mesh is not None:
+        raise ConfigError(
+            "data-parallel training over a mesh is not ported yet: ROADMAP Queue 1 item 7"
+        )
+    device = resolve_device(device)
+    data_dir = Path(data_dir)
+    output_dir = Path(output_dir or settings.training.output_dir)
+    stage = stage or settings.mining.stage
+    max_samples = max_samples if max_samples is not None else (
+        settings.data.max_samples or None
+    )
+    if use_demo_data is None:
+        use_demo_data = dataset == "demo"
+
+    # [1/7] generate ---------------------------------------------------------
+    ensure_dirs(data_dir, dataset)
+    raw_train = get_raw_path(data_dir, dataset, "train")
+    if not raw_train.exists():
+        if not use_demo_data:
+            raise DataError(
+                f"raw split not found: {raw_train}. Fetching {dataset!r} from the Hugging "
+                "Face hub (sskd_tpu/data/fetch.py) needs the network and is not part of the "
+                "port: place the raw JSONL there, or use the demo dataset"
+            )
+        logger.info("[1/7] generating offline demo dataset")
+        generate_demo_dataset(get_raw_dir(data_dir, dataset), num_samples=max_samples or 200)
+    else:
+        logger.info("[1/7] raw data present, skipping generation")
+
+    # [2/7] prepare ----------------------------------------------------------
+    train_parquet = get_chunks_path(data_dir, dataset, "train")
+    if not train_parquet.exists():
+        logger.info("[2/7] preparing chunked parquet")
+        prepare_dataset(
+            data_dir,
+            dataset=dataset,
+            max_tokens=settings.data.chunk_max_tokens,
+            stride=settings.data.chunk_stride,
+            max_samples=max_samples,
+        )
+    else:
+        logger.info("[2/7] prepared parquet present, skipping")
+
+    # [5/7 first] training inputs: the corpus defines the mining id space
+    logger.info("[5/7] building queries/positives/corpus from raw JSONL")
+    queries, positives, positive_ids, corpus, _ = build_training_inputs(raw_train, max_samples)
+    logger.info(f"    {len(queries)} queries, corpus {len(corpus)} passages")
+
+    # [3/7] BM25 over the same passage-id space the miners look texts up in
+    bm25_dir = data_dir / "bm25" / dataset
+    bm25 = None
+    if BM25Index.exists(bm25_dir):
+        logger.info("[3/7] loading persisted BM25 index")
+        bm25 = BM25Index.load(bm25_dir)
+        if set(bm25.doc_ids) != set(corpus):
+            logger.warning("persisted BM25 id space is stale — rebuilding")
+            bm25 = None
+    if bm25 is None:
+        logger.info("[3/7] building BM25 index over the passage corpus")
+        ids = list(corpus.keys())
+        bm25 = BM25Index(
+            k1=settings.mining.bm25_k1, b=settings.mining.bm25_b,
+            epsilon=settings.mining.bm25_epsilon,
+        ).build([corpus[i] for i in ids], ids)
+        bm25.save(bm25_dir)
+
+    # [4/7] models -----------------------------------------------------------
+    logger.info("[4/7] loading models")
+    if student_config is not None and tokenizer is None:
+        # tiny/demo mode: a corpus-fitted vocabulary instead of the
+        # near-character fallback tokenizer
+        from sskd_tpu_torch.tokenization import WordPieceTokenizer
+
+        tokenizer = WordPieceTokenizer.build_from_corpus(
+            sorted(set(corpus.values()) | set(queries)), vocab_size=2048
+        )
+        student_config = replace(student_config, vocab_size=tokenizer.vocab_size)
+        if teacher_config is not None:
+            teacher_config = replace(teacher_config, vocab_size=tokenizer.vocab_size)
+    student = StudentModel(
+        settings.student.model_name,
+        device=device,
+        config=student_config,
+        tokenizer=tokenizer,
+        max_seq_length=settings.student.max_seq_length,
+        query_prefix=settings.student.query_prefix,
+        passage_prefix=settings.student.passage_prefix,
+        normalize=settings.student.normalize_embeddings,
+        pooling=settings.student.pooling,
+    )
+    if save_init_to:
+        # the untrained snapshot sharing this run's init and tokenizer: the
+        # fair "vanilla" row of the KD comparison
+        student.save(save_init_to)
+    teacher = None
+    if stage >= 2:
+        teacher = TeacherModel(
+            settings.teacher.model_name,
+            device=device,
+            config=teacher_config,
+            tokenizer=tokenizer,
+            max_seq_length=settings.teacher.max_seq_length,
+        )
+
+    # [6/7] mining (with the mined-negatives cache) -----------------------------
+    cache_path = output_dir / f"mined_stage{stage}.json"
+    mined = _load_mined_cache(cache_path, queries, corpus)
+    if mined is None:
+        logger.info(f"[6/7] mining curriculum stage {stage}")
+        mined = build_mining_curriculum(
+            stage,
+            queries,
+            positives,
+            corpus,
+            bm25,
+            teacher=teacher,
+            student=student,
+            positive_ids_per_query=positive_ids,
+            bm25_top_k=settings.mining.bm25_top_k,
+            teacher_top_k=settings.mining.teacher_top_k,
+            teacher_confidence_threshold=settings.mining.teacher_confidence_threshold,
+            ance_top_k=settings.mining.ance_top_k,
+            ance_margin=settings.mining.ance_margin,
+            teacher_batch_size=settings.teacher.batch_size,
+            denoise_threshold=settings.mining.denoise_text_overlap_threshold,
+        )
+        output_dir.mkdir(parents=True, exist_ok=True)
+        with open(cache_path, "w") as f:
+            json.dump([{"doc_ids": m.doc_ids, "scores": m.scores} for m in mined], f)
+
+    samples = mined_to_samples(queries, positives, mined, corpus)
+    n_empty = sum(1 for m in mined if not m.doc_ids)
+    if n_empty > len(mined) // 2:
+        logger.warning(
+            f"{n_empty}/{len(mined)} queries mined ZERO negatives — with positive-only "
+            "samples every KD loss term is 0 and nothing trains. Likely cause: teacher "
+            f"confidence threshold ({settings.mining.teacher_confidence_threshold}) filters "
+            "all candidates (untrained teacher?). Lower "
+            "SEMANTIC_KD_MINING__TEACHER_CONFIDENCE_THRESHOLD or use stage 1."
+        )
+    n_dev = max(1, len(samples) // 10)
+    dev_samples = samples[:n_dev]
+    train_samples = samples[n_dev:] or samples
+
+    # stage-3 in-training ANCE refresh: the teacher candidate pool is cached,
+    # only the student-adversarial selection reruns with the live student
+    negative_refresher = None
+    if stage == 3:
+        teacher_pool = mined  # the union already holds the rescored candidates
+
+        def negative_refresher(current_student):
+            fresh = refresh_ance_negatives(
+                current_student, queries, positives, teacher_pool, corpus,
+                ance_top_k=settings.mining.ance_top_k, ance_margin=settings.mining.ance_margin,
+            )
+            fresh_samples = mined_to_samples(queries, positives, fresh, corpus)
+            return fresh_samples[n_dev:] or fresh_samples
+
+    # held-out dev evaluator: full-corpus retrieval nDCG@10 over a separate
+    # raw split drives early stopping and best-model selection when given
+    dev_evaluator = None
+    if dev_data is not None:
+        from sskd_tpu_torch.kd.eval import KDEvaluator
+
+        dev_q, dcorpus, dev_qrels = load_eval_inputs(Path(dev_data))
+        dev_ev = KDEvaluator(k_values=(10,), device=device)
+
+        def dev_evaluator(current_student):
+            return dev_ev.evaluate_retrieval(current_student, dev_q, dcorpus, dev_qrels)[
+                "ndcg@10"]
+
+    # [7/7] train ------------------------------------------------------------
+    logger.info(f"[7/7] KD training: {len(train_samples)} train / {n_dev} dev")
+    trainer = KDTrainer(student, settings)
+    result = trainer.train(
+        train_samples,
+        dev_samples=dev_samples,
+        epochs=epochs,
+        output_dir=output_dir,
+        negative_refresher=negative_refresher,
+        dev_evaluator=dev_evaluator,
+    )
+    result["num_queries"] = len(queries)
+    result["corpus_size"] = len(corpus)
+    return result

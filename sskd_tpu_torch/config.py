@@ -4,11 +4,12 @@ Standard-library dataclasses in place of pydantic (the machine with the GPU
 has neither pydantic nor pyyaml). The sections the port reads keep the JAX
 package's field names, defaults and bounds: ``student``, ``teacher``,
 ``index``, ``search`` (with the rerank fields), ``service``, ``precision``,
-``cors`` and ``monitoring`` for serving, ``loss``, ``training`` and the ANCE
-fields of ``mining`` for KD training, each with only the fields the port
-reads. Sections and fields that later slices need (the other mining stages,
-rate limiting, auth, cache, hybrid) are not here yet; a ``mesh`` section
-raises, as data-parallel training is not ported.
+``cors`` and ``monitoring`` for serving, ``loss``, ``training``, ``mining``
+(the three-stage curriculum) and ``data`` (the pipeline's data directory
+and chunking) for KD training, each with only the fields the port reads.
+Sections that later slices need (rate limiting, auth, cache, hybrid) are
+not here yet; a ``mesh`` section raises, as data-parallel training is not
+ported.
 
 Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
 for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
@@ -238,16 +239,55 @@ class TrainingConfig:
 
 @dataclass
 class MiningConfig:
-    """The ANCE fields of the JAX package's MiningConfig: the trainer's
-    in-training negative refresh."""
+    """The three-stage curriculum's knobs (sskd_tpu/config.py MiningConfig):
+    the stage, BM25's depth and parameters, the teacher's depth and
+    confidence floor, ANCE's picks, margin and in-training refresh, and the
+    denoising threshold."""
 
+    stage: int = 3
+    bm25_top_k: int = 100
+    teacher_top_k: int = 10
+    teacher_confidence_threshold: float = 0.6
+    ance_top_k: int = 5
+    ance_margin: float = 0.1
     ance_refresh_every_n_steps: int = 500
     ance_enabled: bool = True
     ance_warmup_steps: int = 0
+    denoise_text_overlap_threshold: float = 0.9
+    bm25_k1: float = 1.5
+    bm25_b: float = 0.75
+    bm25_epsilon: float = 0.25
 
     def __post_init__(self):
-        _check(self, "ance_refresh_every_n_steps", ge=1, kind=_INT)
+        _check(self, "stage", ge=1, le=3, kind=_INT)
+        for name in ("bm25_top_k", "teacher_top_k", "ance_top_k",
+                     "ance_refresh_every_n_steps"):
+            _check(self, name, ge=1, kind=_INT)
         _check(self, "ance_warmup_steps", ge=0, kind=_INT)
+        for name in ("teacher_confidence_threshold", "denoise_text_overlap_threshold",
+                     "bm25_b"):
+            _check(self, name, ge=0.0, le=1.0, kind=_NUM)
+        for name in ("ance_margin", "bm25_epsilon"):
+            _check(self, name, ge=0.0, kind=_NUM)
+        _check(self, "bm25_k1", kind=_NUM)
+        if self.bm25_k1 <= 0.0:
+            raise ConfigError(f"MiningConfig.bm25_k1={self.bm25_k1!r}: must be > 0")
+
+
+@dataclass
+class DataConfig:
+    """Where the pipeline keeps its data and how it chunks it
+    (sskd_tpu/config.py DataConfig)."""
+
+    data_dir: str = "data"
+    max_samples: int = 0  # 0 = all
+    chunk_max_tokens: int = 512
+    chunk_stride: int = 80
+
+    def __post_init__(self):
+        _check(self, "max_samples", ge=0, kind=_INT)
+        _check(self, "chunk_max_tokens", ge=8, kind=_INT)
+        _check(self, "chunk_stride", ge=0, kind=_INT)
 
 
 _SECTIONS = {
@@ -262,6 +302,7 @@ _SECTIONS = {
     "loss": LossConfig,
     "training": TrainingConfig,
     "mining": MiningConfig,
+    "data": DataConfig,
 }
 
 
@@ -278,6 +319,7 @@ class Settings:
     loss: LossConfig = field(default_factory=LossConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     mining: MiningConfig = field(default_factory=MiningConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     # the (section, field) names that from_dict / from_env were given
     fields_set: frozenset = field(default_factory=frozenset, compare=False, repr=False)
 

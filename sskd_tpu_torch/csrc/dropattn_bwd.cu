@@ -8,12 +8,16 @@
 // keep-mask (philox.cuh), then
 //   dv     = round_T(pd)^T g                       pd = keep ? probs / (1 - p) : 0
 //   dprobs = keep ? (g v^T) / (1 - p) : 0
-//   D      = rowsum(dprobs * probs)
+//   D      = rowsum(dprobs * probs)                (f32: / rowsum(probs))
 //   ds     = probs * (dprobs - D) / sqrt(d)
 //   dq     = round_T(ds) k,   dk = round_T(ds)^T q
 // with f32 sums, each output rounded to T once. D is recomputed from the
 // scores as the TPU kernel does, not taken from rowsum(g * out), so no bf16
-// rounding of the forward's output enters the gradient.
+// rounding of the forward's output enters the gradient. The f32 routes
+// divide it by the row's sum of the probabilities they recompute
+// (normalized_dsum): with an lse from a forward whose score products ran in
+// another order those sum to 1 only to a few ulps, and on a row with one
+// live key ds was left at a few ulps of dprobs instead of 0.
 //
 // Bound on the H100 at the training shape [256*12, 192, 32] bf16: the bytes
 // (q, k, v, g read, dq, dk, dv written: 7 x 37.7 MB, plus the bias: 264.4 MB,
@@ -35,9 +39,10 @@
 // from (dtype, d, L), both on the tensor cores, neither with atomics (two
 // launches give the same bits):
 //
-// 1. bf16 at d in {32, 64}, f32 at d = 64, while a whole head fits a
-//    block's shared memory (L <= 256 in bf16 at d = 32, 208 at d = 64, 128
-//    in f32; the student trains at 64 and 192, the teacher at 64):
+// 1. bf16 at d in {16, 32, 64}, f32 at d = 64, while a whole head fits a
+//    block's shared memory (L <= 256 in bf16 at d = 16 and 32, 208 at d =
+//    64, 128 in f32; the student trains at 64 and 192, the teacher at 64,
+//    the tiny models of the pipeline's --tiny runs at d = 16):
 //    dropattn_bwd_tc_kernel<D> (bf16, mma.sync m16n8k16) and
 //    dropattn_bwd_tc_tf32_kernel<D> (f32, each product three TF32 products
 //    on m16n8k8 with their small terms in an accumulator of their own:
@@ -72,8 +77,9 @@
 //    arrive by cp.async into a second buffer while this head computes
 //    (launch_tc). Every input is read once. Shared memory at L = 192 in bf16
 //    at d = 32: 208,896 bytes (one block of 12 warps per SM).
-// 2. Every other (dtype, d, L) at d in {32, 64}, bf16 and f32, f32 at d = 32
-//    at every L (the student trained in f32): the streaming kernels, three
+// 2. Every other (dtype, d, L) at d in {16, 32, 64}, bf16 and f32, f32 at
+//    d = 16 and 32 at every L (the student trained in f32, the tiny
+//    teacher): the streaming kernels, three
 //    launches on one stream, each block 4 warps of 16 rows and the other
 //    side of the head streamed through shared memory in tiles of 64 rows by
 //    cp.async, two tiles in flight, so no head is too long. The products and
@@ -84,7 +90,8 @@
 //    - K1, dropattn_bwd_stream_rows_kernel<T, D, false>, a block per 64
 //      query rows of a head: S and dP per 16-key chunk, probs, the keep bits
 //      (the mask's only draw of the backward, one Philox call for four keys
-//      of a row), D = sum(dprobs * probs) within the warp's own rows. It
+//      of a row), D = sum(dprobs * probs) within the warp's own rows (f32:
+//      over sum(probs), normalized_dsum). It
 //      writes D (f32 [B*h, L]) and the keep bits packed, uint32 words
 //      [B*h, L, ceil(L / 32)], bit j % 32 of word j / 32 for key j, bits
 //      past L 0 (ops/attention.py dropout_keep_bits).
@@ -124,7 +131,7 @@
 namespace sskd {
 
 // ---------------------------------------------------------------------------
-// Route 1: tensor cores, a whole head per block: bf16 at d in {32, 64}, f32
+// Route 1: tensor cores, a whole head per block: bf16 at d in {16, 32, 64}, f32
 // (three TF32 products) at d = 64
 // ---------------------------------------------------------------------------
 
@@ -165,6 +172,18 @@ __device__ __forceinline__ uint32_t draw_keep4(uint32_t seed, uint32_t bh, int r
   word |= __shfl_xor_sync(0xffffffffu, word, 2);
   if (tig == 0) *word_dst = (uint16_t)word;
   return keep;
+}
+
+// D of one row on the f32 routes: sum(dprobs * probs) / sum(probs), both
+// sums over the probabilities that ds takes. probs = exp(s - lse) with the
+// lse of a forward whose score products ran in another order sum to 1 only
+// to a few ulps; on a row with one live key that left probs (dprobs - D) at
+// a few ulps of dprobs where the exact value is 0 (and the plain pair's,
+// whose lse matches its own scores bit for bit). Dividing by the sum makes
+// D that key's dprobs again, so ds is 0 there; elsewhere it moves D by the
+// same few ulps. Rows with no probability (past L) keep D = 0.
+__device__ __forceinline__ float normalized_dsum(float dsum, float psum) {
+  return psum > 0.f ? __fdiv_rn(dsum, psum) : 0.f;
 }
 
 // Persistent: block i takes heads i, i + gridDim.x, ...; with n_buf = 2 the
@@ -525,7 +544,7 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
 
     // ---- pass 1: D, pd and the keep bits ----------------------------------
     load_qg();
-    float dsum[2] = {0.f, 0.f};
+    float dsum[2] = {0.f, 0.f}, psum[2] = {0.f, 0.f};
     for (int c = 0; c < NC; ++c) {
       float s[2][4], dp[2][4];
       scores(c * 16, s, dp);
@@ -544,6 +563,7 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
           const bool kj = (keep >> j) & 1u;
           const float dprobs = drop ? (kj ? __fmul_rn(dpv, inv) : 0.f) : dpv;
           dsum[rr] = fmaf(dprobs, prob[j], dsum[rr]);
+          psum[rr] = __fadd_rn(psum[rr], prob[j]);
           pd[j] = drop ? (kj ? __fmul_rn(prob[j], inv) : 0.f) : prob[j];
         }
         *reinterpret_cast<float4*>(s_p + row * LDP + key0) = make_float4(pd[0], pd[1], pd[2], pd[3]);
@@ -553,6 +573,9 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
     for (int rr = 0; rr < 2; ++rr) {
       dsum[rr] += __shfl_xor_sync(0xffffffffu, dsum[rr], 1);
       dsum[rr] += __shfl_xor_sync(0xffffffffu, dsum[rr], 2);
+      psum[rr] += __shfl_xor_sync(0xffffffffu, psum[rr], 1);
+      psum[rr] += __shfl_xor_sync(0xffffffffu, psum[rr], 2);
+      dsum[rr] = normalized_dsum(dsum[rr], psum[rr]);
     }
     __syncthreads();
 
@@ -649,7 +672,7 @@ __global__ void __launch_bounds__(256) dropattn_bwd_tc_tf32_kernel(
 
 // ---------------------------------------------------------------------------
 // Route 2: tensor cores, the head streamed (any L): bf16 and f32 at d in
-// {32, 64}
+// {16, 32, 64}
 // ---------------------------------------------------------------------------
 
 constexpr int DS_ROWS = 64;  // rows a block owns (K1, K2: queries; K3: keys): 4 warps x 16
@@ -941,7 +964,7 @@ __global__ void __launch_bounds__(DS_THREADS) dropattn_bwd_stream_rows_kernel(
   cp_async_commit();
 
   const int row0 = r0 + warp * 16 + grp;  // this thread's rows: row0 and row0 + 8
-  float lse_r[2], dsum_r[2] = {0.f, 0.f};
+  float lse_r[2], dsum_r[2] = {0.f, 0.f}, psum_r[2] = {0.f, 0.f};
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = row0 + 8 * rr;
@@ -1005,10 +1028,12 @@ __global__ void __launch_bounds__(DS_THREADS) dropattn_bwd_stream_rows_kernel(
               ds_prob<T>(s[j >> 1][2 * rr + (j & 1)], sb[kc + j], lse_r[rr], sm_scale, scale_log2);
           const float dpv = dp[j >> 1][2 * rr + (j & 1)];
           const float dprobs = drop ? (((keep >> j) & 1u) ? __fmul_rn(dpv, inv) : 0.f) : dpv;
-          if (DQ)
+          if (DQ) {
             ds[rr][j] = __fmul_rn(__fmul_rn(prob, __fsub_rn(dprobs, dsum_r[rr])), sm_scale);
-          else
+          } else {
             dsum_r[rr] = fmaf(dprobs, prob, dsum_r[rr]);
+            if (!BF) psum_r[rr] = __fadd_rn(psum_r[rr], prob);
+          }
         }
       }
       if constexpr (DQ) chunk_accumulate<D>(acc, acc_lo, ds, sk, c * 16, lane, false);
@@ -1038,6 +1063,11 @@ __global__ void __launch_bounds__(DS_THREADS) dropattn_bwd_stream_rows_kernel(
     for (int rr = 0; rr < 2; ++rr) {
       dsum_r[rr] += __shfl_xor_sync(0xffffffffu, dsum_r[rr], 1);
       dsum_r[rr] += __shfl_xor_sync(0xffffffffu, dsum_r[rr], 2);
+      if constexpr (!BF) {  // f32: normalised as the resident f32 kernel's
+        psum_r[rr] += __shfl_xor_sync(0xffffffffu, psum_r[rr], 1);
+        psum_r[rr] += __shfl_xor_sync(0xffffffffu, psum_r[rr], 2);
+        dsum_r[rr] = normalized_dsum(dsum_r[rr], psum_r[rr]);
+      }
       if (tig == 0 && row0 + 8 * rr < L) dsum[bh * L + row0 + 8 * rr] = dsum_r[rr];
     }
   }
@@ -1306,10 +1336,10 @@ static int launch_stream(const void* q, const void* k, const void* v, const floa
 //   log2(e) / sqrt(d) in f32 (the bf16 kernels' exponent).
 //   Each returns cudaGetLastError() after its launches.
 //
-//   The resident route: dtype 1 (bf16) at d = 32 or 64, dtype 0 (f32) at
+//   The resident route: dtype 1 (bf16) at d = 16, 32 or 64, dtype 0 (f32) at
 //   d = 64, at any L whose head fits a block's shared memory (dt_smem_bytes
-//   with one buffer: L <= 256 for bf16 at d = 32, 208 at d = 64, 128 for
-//   f32); others are refused. Launches one kernel: blocks of L / 16 warps (L
+//   with one buffer) in at most 512 threads: L <= 256 for bf16 at d = 16
+//   and 32, 208 at d = 64, 128 for f32; others are refused. Launches one kernel: blocks of L / 16 warps (L
 //   rounded up to 16), as many as fit the card at once (at most one per
 //   head), each walking its heads (launch_tc).
 extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, const void* v,
@@ -1322,6 +1352,10 @@ extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, con
   const long BH = (long)B * h;
   cudaStream_t s = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
+  if (dtype == 1 && d == 16)
+    return launch_tc<bf, 16>(dropattn_bwd_tc_kernel<16>, 512, BH, L, s, (const bf*)q,
+                             (const bf*)k, (const bf*)v, bias, (const bf*)g, lse, (bf*)dq,
+                             (bf*)dk, (bf*)dv, h, L, sm_scale, scale_log2, seed, p, inv);
   if (dtype == 1 && d == 32)
     return launch_tc<bf, 32>(dropattn_bwd_tc_kernel<32>, 512, BH, L, s, (const bf*)q,
                              (const bf*)k, (const bf*)v, bias, (const bf*)g, lse, (bf*)dq,
@@ -1337,7 +1371,7 @@ extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, con
   return (int)cudaErrorInvalidValue;
 }
 
-//   The streaming route: dtype 0 or 1 at d = 32 or 64, any L (other head
+//   The streaming route: dtype 0 or 1 at d = 16, 32 or 64, any L (other head
 //   dims are refused). dsum: [B, h, L] f32 and bits: [B*h, L, ceil(L / 32)]
 //   uint32, scratch that the first kernel writes (D and the keep bits) and
 //   the other two read. Launches K1, K2 and K3 on the stream, each
@@ -1352,6 +1386,12 @@ extern "C" int sskd_dropattn_bwd_stream(int dtype, const void* q, const void* k,
   if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
+  if (dtype == 1 && d == 16)
+    return launch_stream<bf, 16>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
+                                 sm_scale, scale_log2, seed, p, inv, s);
+  if (dtype == 0 && d == 16)
+    return launch_stream<float, 16>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
+                                    sm_scale, scale_log2, seed, p, inv, s);
   if (dtype == 1 && d == 32)
     return launch_stream<bf, 32>(q, k, v, bias, g, lse, dsum, bits, dq, dk, dv, B, h, L,
                                  sm_scale, scale_log2, seed, p, inv, s);

@@ -35,13 +35,15 @@
 // Three routes, chosen by the wrapper (ops/attention.py dropattn_fwd_route)
 // from (dtype, d, L):
 //
-// 1. bf16 at d in {32, 64} while the head's K and V fit a block (L <= 1344
-//    at d = 32, 656 at d = 64; the student trains at 64 and 192):
+// 1. bf16 at d in {16, 32, 64} while the head's K and V fit a block (L <=
+//    2256 at d = 16, 1344 at d = 32, 656 at d = 64; the student trains at 64
+//    and 192, the pipeline's --tiny student at d = 16):
 //    dropattn_fwd_tc_kernel<D, NW> on the tensor cores. A block of NW warps
 //    owns 16 query rows a warp, whose q stays in registers as mma A
-//    fragments (dft_warps: 8 warps, 128 rows, at d = 32; at d = 64 4 warps
-//    while L <= 64 and 16, 256 rows, past that); the head's whole K and V
-//    (rows padded to D + 8 bf16, 80 or 144 bytes, so ldmatrix reads them
+//    fragments (dft_warps: 8 warps, 128 rows, at d = 32; at d = 16 4 warps
+//    while L <= 64 and 8 past that; at d = 64 4 warps while L <= 64 and 16,
+//    256 rows, past that); the head's whole K and V (rows padded to D + 8
+//    bf16, 48, 80 or 144 bytes, so ldmatrix reads them
 //    without bank conflicts) and its bias row times log2(e) sit in shared
 //    memory, brought by cp.async (L = 192 at d = 32: 41.7 KB a block; 128
 //    rows share one copy, which at L = 512 was 1.5x faster than 64).
@@ -82,7 +84,7 @@
 //    key_slot), so each thread's score fragment of a 16-key chunk holds the
 //    four keys of one Philox call, as in the f32 backward, and the keep bits
 //    are those the tensor-core backward regenerates.
-// 3. f32 at d = 32, and bf16 past route 1's lengths: dropattn_fwd_kernel, the
+// 3. f32 at d = 16 and 32, and bf16 past route 1's lengths: dropattn_fwd_kernel, the
 //    first kernel, on CUDA cores: one block of 64 threads per (b*h, 64-query
 //    tile), each thread owning one query row with q and its f32 accumulator
 //    in registers, the head's K, V (in T) and bias row in shared memory read
@@ -221,24 +223,26 @@ static int launch(const void* q, const void* k, const void* v, const float* bias
 }
 
 // ---------------------------------------------------------------------------
-// Route 1: bf16, d in {32, 64}, the head's K and V in shared memory
+// Route 1: bf16, d in {16, 32, 64}, the head's K and V in shared memory
 // ---------------------------------------------------------------------------
 
 // The bf16 route's blocks: NW warps of 16 query rows each. D = 32: 8 warps
-// (128 rows). D = 64: 4 warps (64 rows) while L <= 64, the teacher's train
+// (128 rows). D = 16: 4 warps while L <= 64 (the tiny models' lengths),
+// where 128 rows would idle half the warps, 8 past that. D = 64: 4 warps
+// (64 rows) while L <= 64, the teacher's train
 // length, where a 128-row block would idle half its warps; 16 warps (256
 // rows) past that, so that each copy of the head's K and V serves 256 rows
 // with as many warps an SM as the block holds (at L = 512 this beat 8 warps
 // of two 16-row tiles each: tools/probe_attention64.py).
 template <int D>
 __host__ __device__ constexpr int dft_warps(int L) {
-  return D == 32 ? 8 : L <= 64 ? 4 : 16;
+  return D == 32 ? 8 : L <= 64 ? 4 : D == 16 ? 8 : 16;
 }
 
 // Shared memory of a block of QB rows at padded length Lp (a multiple of
 // 16): q, k, v rows (padded to D + 8 bf16), then the bias row times log2(e).
-// The route takes L while this fits DF_SMEM_MAX: up to 1344 at D = 32, 656
-// at 64.
+// The route takes L while this fits DF_SMEM_MAX: up to 2256 at D = 16, 1344
+// at 32, 656 at 64.
 template <int D>
 __host__ __device__ constexpr size_t dft_smem_bytes(int QB, int Lp) {
   return (size_t)(QB + 2 * Lp) * (D + 8) * 2 + (size_t)Lp * 4;
@@ -649,9 +653,10 @@ __global__ void keep_mask_kernel(uint8_t* out, long BH, int L, uint32_t seed, fl
 //   dtype: 0 f32, 1 bf16. q, k, v, out: [B, h, L, d] contiguous; bias: [B, L]
 //   f32; lse: [B, h, L] f32 (written). 0 <= p < 1 and inv = 1 / (1 - p),
 //   rounded to f32 by the caller as the plain version rounds it.
-// The CUDA-core route: f32 at d = 32, bf16 at d = 32 or 64 (the head dims
-// of the models the port trains: e5-small-v2's and bge-reranker-large's; f32
-// at 64 takes the tensor cores, others are refused), any L.
+// The CUDA-core route: f32 at d = 16 and 32, bf16 at d = 16, 32 or 64 (the
+// head dims of the models the port trains: e5-small-v2's,
+// bge-reranker-large's and BertConfig.tiny's; f32 at 64 takes the tensor
+// cores, others are refused), any L.
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const float* bias, void* out, float* lse, int B, int h, int L,
@@ -661,7 +666,11 @@ extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const 
   if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (dtype == 0 && d == 32)
+  if (dtype == 0 && d == 16)
+    rc = launch<float, 16>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
+  else if (dtype == 1 && d == 16)
+    rc = launch<__nv_bfloat16, 16>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
+  else if (dtype == 0 && d == 32)
     rc = launch<float, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
   else if (dtype == 1 && d == 32)
     rc = launch<__nv_bfloat16, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
@@ -672,8 +681,9 @@ extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const 
   return (int)cudaGetLastError();
 }
 
-//   The tensor-core routes: dtype 1 (bf16) at d = 32 or 64 while
-//   dft_smem_bytes fits a block (L <= 1344 at d = 32, 656 at d = 64; a block
+//   The tensor-core routes: dtype 1 (bf16) at d = 16, 32 or 64 while
+//   dft_smem_bytes fits a block (L <= 2256 at d = 16, 1344 at d = 32, 656 at
+//   d = 64; a block
 //   per (b*h, 16 dft_warps query rows)), dtype 0 (f32) at d = 64 at any L
 //   (blocks of 4 warps, one per (b*h, 64-query tile)); others are refused.
 //   The arguments as above; scale_log2 = log2(e) / sqrt(d) in f32 (the bf16
@@ -686,7 +696,11 @@ extern "C" int sskd_dropattn_fwd_tc(int dtype, const void* q, const void* k, con
   if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (dtype == 1 && d == 32) {
+  if (dtype == 1 && d == 16) {
+    rc = dft_warps<16>(L) == 4
+             ? launch_tc<16, 4>(q, k, v, bias, out, lse, B, h, L, scale_log2, seed, p, inv, s)
+             : launch_tc<16, 8>(q, k, v, bias, out, lse, B, h, L, scale_log2, seed, p, inv, s);
+  } else if (dtype == 1 && d == 32) {
     rc = launch_tc<32, 8>(q, k, v, bias, out, lse, B, h, L, scale_log2, seed, p, inv, s);
   } else if (dtype == 1 && d == 64) {
     rc = dft_warps<64>(L) == 4

@@ -10,8 +10,8 @@ for bit, and so do ``search``'s ties.
 
 Persistence is the JAX package's: four JSON files (doc ids, tokenized
 corpus, parameters, a SHA-256 checksum of the first two), checked on load.
-``build_from_parquet`` waits for the mining slice of the port (the machine
-with the GPU has no pandas).
+``build_from_parquet`` reads a chunk file through the port's own parquet
+reader (``data/parquet.py``; the machine with the GPU has no pandas).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from sskd_tpu_torch.exceptions import ChecksumMismatchError, DataError
 from sskd_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("mining.bm25")
+
 
 def tokenize(text: str) -> list[str]:
     """Lowercase whitespace tokenization."""
@@ -58,6 +59,21 @@ class BM25Index:
         self.tokenized_corpus = [tokenize(t) for t in texts]
         self._fit()
         return self
+
+    def build_from_parquet(
+        self,
+        parquet_path: str | Path,
+        text_column: str = "text",
+        id_column: str = "chunk_id",
+        max_docs: int | None = None,
+    ) -> "BM25Index":
+        from sskd_tpu_torch.data.parquet import read_parquet
+
+        cols = read_parquet(parquet_path, columns=[id_column, text_column])
+        ids, texts = cols[id_column], cols[text_column]
+        if max_docs:
+            ids, texts = ids[:max_docs], texts[:max_docs]
+        return self.build(texts, [str(i) for i in ids])
 
     def _fit(self) -> None:
         n_docs = len(self.tokenized_corpus)
@@ -119,6 +135,15 @@ class BM25Index:
     def batch_search(self, queries: Sequence[str], k: int = 10) -> list[list[tuple[str, float]]]:
         return [self.search(q, k) for q in queries]
 
+    def get_doc_text(self, doc_id: str) -> str:
+        """The document's text as its tokens joined by spaces (lowercased,
+        whitespace collapsed), as the JAX package rebuilds it."""
+        try:
+            idx = self.doc_ids.index(doc_id)
+        except ValueError:
+            raise DataError(f"unknown doc_id {doc_id!r}")
+        return " ".join(self.tokenized_corpus[idx])
+
     @staticmethod
     def _checksum(doc_ids: list[str], corpus: list[list[str]]) -> str:
         h = hashlib.sha256()
@@ -161,3 +186,28 @@ class BM25Index:
         idx.tokenized_corpus = corpus
         idx._fit()
         return idx
+
+    @staticmethod
+    def exists(index_dir: str | Path) -> bool:
+        """All four persistence files present (the pipeline's reuse check)."""
+        path = Path(index_dir)
+        return all(
+            (path / name).exists()
+            for name in ("doc_ids.json", "tokenized_corpus.json", "bm25_params.json",
+                         "checksum.json")
+        )
+
+
+def build_bm25_index(
+    parquet_path: str | Path,
+    output_dir: str | Path,
+    text_column: str = "text",
+    id_column: str = "chunk_id",
+    max_docs: int | None = None,
+) -> BM25Index:
+    """Build over a chunk file and persist (reference: bm25.py:239-283)."""
+    idx = BM25Index().build_from_parquet(
+        parquet_path, text_column=text_column, id_column=id_column, max_docs=max_docs
+    )
+    idx.save(output_dir)
+    return idx

@@ -15,9 +15,10 @@
 - :func:`dropout_attention` is training attention with dropout on the
   probabilities, over the ``dropattn_fwd`` / ``dropattn_bwd`` kernels
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
-  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 32 (the
-  student's) and 64 (the teacher's). The forward has tensor-core routes for
-  bf16 at head dims 32 and 64 and for f32 at 64 (:func:`dropattn_fwd_route`),
+  ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 16 (the
+  pipeline's ``--tiny`` models), 32 (the student's) and 64 (the teacher's).
+  The forward has tensor-core routes for bf16 at head dims 16, 32 and 64 and
+  for f32 at 64 (:func:`dropattn_fwd_route`),
   as flash has (:func:`flash_route`); the backward is on the tensor cores at
   every (dtype, head dim, L) it takes, a head held in shared memory
   (``"tc"``) or streamed through it (``"tc_stream"``,
@@ -63,19 +64,59 @@ FLASH_MIN_L = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 # the dropattn kernels are built for the head dims of the models the port
-# trains (e5-small-v2: 384 / 12; bge-reranker-large: 1024 / 16) and refuse
-# others
-_DROPATTN_HEAD_DIMS = (32, 64)
-# the longest L whose head fits the shared memory of one block of the
-# tensor-core backward, by (dtype, head dim) (csrc/dropattn_bwd.cu
-# dt_smem_bytes with one head buffer; the kernel refuses longer L)
-DROPATTN_TC_MAX_L = {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 208,
-                     (torch.float32, 64): 128}
+# trains (e5-small-v2: 384 / 12; bge-reranker-large: 1024 / 16; the
+# pipeline's --tiny BertConfig: 64 / 4) and refuse others
+_DROPATTN_HEAD_DIMS = (16, 32, 64)
+_SMEM_MAX = 227 * 1024  # shared memory a block may hold (DT_SMEM_MAX, DF_SMEM_MAX)
+
+
+def _dt_smem_bytes(dtype, d: int, Lp: int) -> int:
+    """Shared memory of one block of the resident tensor-core backward with
+    one head buffer at padded length ``Lp`` (csrc/dropattn_bwd.cu
+    dt_smem_bytes: the head's q, k, v, g rows, bias and lse, the [Lp, Lp]
+    buffer of pd then ds, the keep bits, the bias and lse as used)."""
+    if dtype == torch.bfloat16:
+        head, elt = 4 * Lp * (d + 8) * 2 + 2 * Lp * 4, 2
+    else:
+        head, elt = Lp * (2 * (d + 8) + 2 * (d + 4)) * 4 + 2 * Lp * 4, 4
+    return head + Lp * (Lp + 8) * elt + Lp * (Lp // 16) * 2 + 2 * Lp * 4
+
+
+def _dft_smem_bytes(d: int, L: int) -> int:
+    """Shared memory of one block of the bf16 tensor-core forward at length
+    ``L`` (csrc/dropattn_fwd.cu dft_smem_bytes with dft_warps' rows)."""
+    Lp = (L + 15) // 16 * 16
+    rows = 16 * (8 if d == 32 else 4 if L <= 64 else 8 if d == 16 else 16)
+    return (rows + 2 * Lp) * (d + 8) * 2 + Lp * 4
+
+
+def _longest(fits) -> int:
+    """The largest multiple of 16 for which ``fits`` holds (it holds at 16
+    and, once false, stays false)."""
+    L = 16
+    while fits(L + 16):
+        L += 16
+    return L
+
+
+# the longest L whose head fits one block of the resident tensor-core
+# backward, by (dtype, head dim): its shared memory with one head buffer
+# within _SMEM_MAX and its 2 Lp threads within the kernel's launch bound
+# (512 in bf16, 256 in f32); the kernel refuses longer L
+DROPATTN_TC_MAX_L = {
+    (dtype, d): _longest(lambda L, dt=dtype, d=d: _dt_smem_bytes(dt, d, L) <= _SMEM_MAX
+                         and 2 * L <= (512 if dt == torch.bfloat16 else 256))
+    for dtype, d in ((torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 64),
+                     (torch.float32, 64))
+}
 # the longest L whose head's K and V fit the shared memory of one block of
-# the bf16 tensor-core forward, by (dtype, head dim) (csrc/dropattn_fwd.cu
-# dft_smem_bytes; the kernel refuses longer L); the f32 tensor-core forward
-# at head dim 64 streams K and V and takes any L
-DROPATTN_FWD_TC_MAX_L = {(torch.bfloat16, 32): 1344, (torch.bfloat16, 64): 656}
+# the bf16 tensor-core forward, by (dtype, head dim) (the kernel refuses
+# longer L); the f32 tensor-core forward at head dim 64 streams K and V and
+# takes any L
+DROPATTN_FWD_TC_MAX_L = {
+    (torch.bfloat16, d): _longest(lambda L, d=d: _dft_smem_bytes(d, L) <= _SMEM_MAX)
+    for d in (16, 32, 64)
+}
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
@@ -91,10 +132,10 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernel a CUDA call of :func:`dropattn_fwd` launches: ``"tc"``
     (tensor cores, csrc/dropattn_fwd.cu: ``dropattn_fwd_tc_kernel`` for bf16
-    at head dims 32 and 64 up to ``DROPATTN_FWD_TC_MAX_L[(dtype, d)]``,
+    at head dims 16, 32 and 64 up to ``DROPATTN_FWD_TC_MAX_L[(dtype, d)]``,
     ``dropattn_fwd_tc_tf32_kernel`` for f32 at head dim 64 at any L, three
     TF32 products a product), ``"cuda_core"`` (``dropattn_fwd_kernel``) for
-    f32 at head dim 32 and bf16 past its limit."""
+    f32 at head dims 16 and 32 and bf16 past its limit."""
     if dtype == torch.float32 and d == 64:
         return "tc"
     return "tc" if L <= DROPATTN_FWD_TC_MAX_L.get((dtype, d), 0) else "cuda_core"
@@ -103,13 +144,13 @@ def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
 def dropattn_bwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernels a CUDA call of :func:`dropattn_bwd` launches: ``"tc"``
     (one tensor-core kernel holding a whole head in shared memory:
-    ``dropattn_bwd_tc_kernel`` for bf16 at head dims 32 and 64,
+    ``dropattn_bwd_tc_kernel`` for bf16 at head dims 16, 32 and 64,
     ``dropattn_bwd_tc_tf32_kernel`` for f32 at head dim 64) for L up to
     ``DROPATTN_TC_MAX_L[(dtype, d)]``; ``"tc_stream"`` (three tensor-core
     kernels streaming the head through shared memory in 64-row tiles:
     ``dropattn_bwd_stream_rows_kernel`` for D and the keep bits, again for
     dq, then ``dropattn_bwd_stream_cols_kernel`` for dk and dv) for every
-    other (dtype, d, L), f32 at head dim 32 at every L included."""
+    other (dtype, d, L), f32 at head dims 16 and 32 at every L included."""
     return "tc" if L <= DROPATTN_TC_MAX_L.get((dtype, d), 0) else "tc_stream"
 
 
@@ -560,7 +601,7 @@ def _unit(dtype) -> float:
 
 def dropattn_fwd_error_bound(q, k, v, bias, p, seed, got, want):
     """Per-element bound on |got - want| between a bf16 forward kernel (the
-    tensor-core route at head dims 32 and 64, or the CUDA-core one) and
+    tensor-core route at head dims 16, 32 and 64, or the CUDA-core one) and
     :func:`dropattn_fwd_plain` on the same inputs and the same mask.
 
     - Both round each kept probability to the input type (at most u of it,

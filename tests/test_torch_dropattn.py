@@ -73,6 +73,20 @@ def test_dropout_attention_p0_matches_jax(dtype, atol, rtol, L):
         np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, err_msg=name)
 
 
+@pytest.mark.parametrize("L", [64, 130])
+def test_dropout_attention_f32_p0_matches_jax_at_head_dim_16(L):
+    """The head dim of BertConfig.tiny (hidden 64, 4 heads), which the
+    pipeline's --tiny student and teacher train at: the plain pair the
+    wrappers run on the CPU against the JAX dropout_attention in interpret
+    mode at p = 0, forward and q, k, v gradients, each within 1e-5
+    (1 + |want|)."""
+    q, k, v, g, bias = _inputs(L + 16, 2, 4, L, 16)
+    want = _jax_fwd_grads(q, k, v, g, bias, jnp.float32)
+    got = _port_fwd_grads(q, k, v, g, bias, torch.float32)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert (np.abs(a - b) / (1 + np.abs(b))).max() <= 1e-5, name
+
+
 def test_flash_gradient_matches_jax_at_512():
     """scaled_dot_attention at L = 512 takes the flash path in the port; its
     gradient is the plain VJP on the same bias, against JAX's attention
@@ -203,13 +217,13 @@ def _held_to_the_bound(q, k, v, bias, p, seed, lse, g, got, want):
         assert not bool(((a.float() - b.float()).abs() <= bd).all())
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("L", [48, 130])  # 130: a ragged last chunk of 16 keys
 def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_jax_kernel(L, d):
     """The bf16 tensor-core backward's arithmetic (truncating mma sums, the
     exponent folded into one exp2; tests/torch_tc_emulation.py) against the
     JAX backward kernel in interpret mode at p = 0 on the same bf16 inputs,
-    at head dims 32 and 64: within dropattn_bwd_error_bound at every
+    at head dims 16, 32 and 64: within dropattn_bwd_error_bound at every
     element; a 2% fault is not."""
     q, k, v, g, bias = _inputs(L + 1, 2, 3, L, d)
     qb, kb, vb, gb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
@@ -225,7 +239,7 @@ def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_jax_kernel(L
     _held_to_the_bound(qb, kb, vb, tb, 0.0, 3, lse, gb, got, want)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_plain_version(d):
     """At p = 0.1 (no JAX reference draws the port's mask) the same
     arithmetic against dropattn_bwd_plain, with the plain keep-mask."""
@@ -312,9 +326,14 @@ def test_tensor_core_backward_limits_are_the_longest_lengths_that_fit():
     head fits the 232,448 bytes of shared memory a block may hold (the
     kernel refuses more), within its block size of 2 L threads."""
     for (dtype, d), limit in ta.DROPATTN_TC_MAX_L.items():
+        threads = 512 if dtype == torch.bfloat16 else 256
         assert _tc_backward_smem(dtype, d, limit) <= 227 * 1024
-        assert _tc_backward_smem(dtype, d, limit + 16) > 227 * 1024
-        assert 2 * ((limit + 15) // 16 * 16) <= (512 if dtype == torch.bfloat16 else 256)
+        assert 2 * ((limit + 15) // 16 * 16) <= threads
+        # one step longer breaks one of the two (at head dim 16 the threads)
+        assert (_tc_backward_smem(dtype, d, limit + 16) > 227 * 1024
+                or 2 * (limit + 16) > threads)
+    assert set(ta.DROPATTN_TC_MAX_L) == {(torch.bfloat16, 16), (torch.bfloat16, 32),
+                                         (torch.bfloat16, 64), (torch.float32, 64)}
 
 
 def _fwd_within(q, k, v, bias, p, seed, got, want):
@@ -323,15 +342,17 @@ def _fwd_within(q, k, v, bias, p, seed, got, want):
 
 
 FWD_LENGTHS = [16, 64, 100, 192, 512]  # 100: a ragged last chunk of 16 keys
+# head dims 32 and 64 at every length; 16 (the --tiny models) at the lengths
+# its runs take and a ragged one
+FWD_CASES = [(L, d) for d in (32, 64) for L in FWD_LENGTHS] + [(L, 16) for L in (64, 100, 192)]
 
 
-@pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("L", FWD_LENGTHS)
+@pytest.mark.parametrize("L,d", FWD_CASES)
 def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_jax_kernel(L, d):
     """The bf16 tensor-core forward's arithmetic (truncating mma sums, two
     passes with the exponent folded into one exp2; tests/torch_tc_emulation.py)
     against the JAX forward kernel in interpret mode at p = 0 on the same
-    bf16 inputs, at head dims 32 and 64: within dropattn_fwd_error_bound at
+    bf16 inputs, at head dims 16, 32 and 64: within dropattn_fwd_error_bound at
     every element, its lse within 1e-4 of the plain one (the check the card
     holds the kernel to); the same arithmetic with every probability 2 % off
     is not."""
@@ -351,12 +372,11 @@ def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_jax_kernel(L,
     assert _fwd_within(qb, kb, vb, tb, 0.0, 3, faulty, want).max().item() > 1.0
 
 
-@pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("L", FWD_LENGTHS)
+@pytest.mark.parametrize("L,d", FWD_CASES)
 def test_tensor_core_forward_arithmetic_is_within_the_bound_of_the_plain_version(L, d):
     """At p = 0.1 (no JAX reference draws the port's mask) the same
     arithmetic against dropattn_fwd_plain with the plain keep-mask, at head
-    dims 32 and 64; a 2 % fault in the probabilities, or the mask shifted by
+    dims 16, 32 and 64; a 2 % fault in the probabilities, or the mask shifted by
     one key, is not."""
     q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 11, 2, 3, L, d))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -439,7 +459,8 @@ def test_routes_send_head_dim_64_to_the_tensor_cores():
     cores."""
     limits, fwd_limits = ta.DROPATTN_TC_MAX_L, ta.DROPATTN_FWD_TC_MAX_L
     assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
-    assert fwd_limits == {(torch.bfloat16, 32): 1344, (torch.bfloat16, 64): 656}
+    assert fwd_limits == {(torch.bfloat16, 16): 2256, (torch.bfloat16, 32): 1344,
+                          (torch.bfloat16, 64): 656}
     for L in (16, 64, 128, 129, 192, 208, 209, 256, 512, 656, 657, 1024, 1344, 1345, 2048):
         assert ta.dropattn_fwd_route(torch.float32, 64, L) == "tc"
         assert ta.dropattn_fwd_route(torch.bfloat16, 64, L) == (
@@ -453,10 +474,18 @@ def test_routes_send_head_dim_64_to_the_tensor_cores():
         assert ta.dropattn_bwd_route(torch.bfloat16, 32, L) == (
             "tc" if L <= limits[(torch.bfloat16, 32)] else "tc_stream")
         assert ta.dropattn_bwd_route(torch.float32, 32, L) == "tc_stream"
+        # head dim 16 (the --tiny models): bf16 as at 32, f32 on the CUDA-core
+        # forward and the streaming backward
+        assert ta.dropattn_fwd_route(torch.bfloat16, 16, L) == (
+            "tc" if L <= 2256 else "cuda_core")
+        assert ta.dropattn_fwd_route(torch.float32, 16, L) == "cuda_core"
+        assert ta.dropattn_bwd_route(torch.bfloat16, 16, L) == (
+            "tc" if L <= limits[(torch.bfloat16, 16)] else "tc_stream")
+        assert ta.dropattn_bwd_route(torch.float32, 16, L) == "tc_stream"
     assert ta.flash_route(torch.bfloat16, 64) == ta.flash_route(torch.float32, 64) == "tc"
     assert ta.flash_route(torch.bfloat16, 32) == "tc"
     assert ta.flash_route(torch.float32, 32) == ta.flash_route(torch.bfloat16, 16) == "cuda_core"
-    assert 64 in ta._DROPATTN_HEAD_DIMS
+    assert ta._DROPATTN_HEAD_DIMS == (16, 32, 64)
 
 
 def test_error_bounds_at_head_dim_64_admit_rounding_and_catch_a_scale_fault():
@@ -558,7 +587,7 @@ def _tc_forward_smem(d: int, L: int) -> int:
     128 at head dim 32; at 64, 64 while L <= 64 and 256 past that) and the
     head's k and v rows, padded to d + 8 bf16, and the bias."""
     Lp = (L + 15) // 16 * 16
-    rows = 128 if d == 32 else 64 if L <= 64 else 256
+    rows = 128 if d == 32 else 64 if L <= 64 else 128 if d == 16 else 256
     return (rows + 2 * Lp) * (d + 8) * 2 + Lp * 4
 
 

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 from sskd_tpu.ops.attention import _dropattn_bwd_call as j_dropattn_bwd
 from sskd_tpu_torch.ops import attention as ta
-from torch_tc_emulation import dropattn_bwd_stream_tc, dropattn_bwd_stream_tf32
+from torch_tc_emulation import dropattn_bwd_stream_tc, dropattn_bwd_stream_tf32, dropattn_bwd_tf32
 
 NEG = float(np.finfo(np.float32).min / 2)
 
@@ -133,13 +133,15 @@ def test_dropout_keep_bits_pack_dropout_keep_mask(L):
 
 
 def test_streaming_route_takes_every_length_past_the_resident_limits():
-    """dropattn_bwd_route: "tc" up to DROPATTN_TC_MAX_L (unchanged), "tc_stream"
-    past it and for f32 at head dim 32 at every L; never "cuda_core"."""
+    """dropattn_bwd_route: "tc" up to DROPATTN_TC_MAX_L (unchanged at head
+    dims 32 and 64; bf16 at 16 up to 256, where its 2 L threads reach the
+    kernel's 512), "tc_stream" past it and for f32 at head dims 16 and 32 at
+    every L; never "cuda_core"."""
     limits = ta.DROPATTN_TC_MAX_L
-    assert limits == {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 208,
-                      (torch.float32, 64): 128}
+    assert limits == {(torch.bfloat16, 16): 256, (torch.bfloat16, 32): 256,
+                      (torch.bfloat16, 64): 208, (torch.float32, 64): 128}
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (32, 64):
+        for d in (16, 32, 64):
             limit = limits.get((dtype, d), 0)
             for L in (1, 16, 63, 64, 65, 128, 129, 200, 208, 209, 256, 257, 512, 1000, 4096):
                 route = ta.dropattn_bwd_route(dtype, d, L)
@@ -184,3 +186,44 @@ def test_one_live_key_rows_hold_f32_backwards_to_the_relative_bound(B, h, L, d):
             assert (err / (1 + b.abs())).max().item() <= 1e-5, name
         # of the size the card's streaming kernel showed against the plain pair
         assert (got[2][1:].double() - exact[2][1:]).abs().max().item() > 5e-6
+
+
+@pytest.mark.parametrize("L,d", [(72, 64), (136, 32)])
+def test_f32_backwards_give_zero_dq_dk_on_one_live_key_rows(L, d):
+    """On rows with one live key ds is exactly 0 (probs one-hot), and so are
+    dq and dk there; the plain pair gives 0 (its lse matches its own scores
+    bit for bit). The f32 kernels recompute the scores in another order, so
+    probs = exp(s - lse) is 1 only to a few ulps; with D = sum(dprobs *
+    probs) that left ds at a few ulps of dprobs (the emulations before the
+    repair, ``normalize=False``: 4.5e-6 / 9.9e-6 at L = 136). With D
+    divided by the row's sum of probs (csrc/dropattn_bwd.cu
+    normalized_dsum) the emulated resident and streaming kernels give dq
+    and dk of at most 1e-6 there, and stay within 1e-5 (1 + |want|) of the
+    plain pair on every row (the f32 backward's tolerance on the card: dv
+    on those rows sums L rows of g)."""
+    q, k, v, g, bias = _inputs(L + d, 2, 2, L, d)
+    bias[1:] = np.where(np.arange(L) < 1, 0.0, NEG)  # batch row 1 keeps one key
+    tq, tk, tv, tg, tb = (torch.from_numpy(a) for a in (q, k, v, g, bias))
+    _, lse = ta.dropattn_fwd_plain(tq, tk, tv, tb, 0.0, 3)
+    want = ta.dropattn_bwd_plain(tq, tk, tv, tb, 0.0, 3, lse, tg)
+    kernels = [dropattn_bwd_stream_tf32] + ([dropattn_bwd_tf32] if d == 64 else [])
+    # many small float64 products: two threads, so that the suite's other
+    # workers on the machine are not starved (restored below)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _hold_one_live_key_rows(kernels, tq, tk, tv, tb, lse, tg, want)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _hold_one_live_key_rows(kernels, tq, tk, tv, tb, lse, tg, want):
+    for kernel in kernels:
+        before = kernel(tq, tk, tv, tb, 0.0, lse, tg, None, normalize=False)
+        assert max(before[i][1:].abs().max().item() for i in range(2)) > 2e-6
+        got = kernel(tq, tk, tv, tb, 0.0, lse, tg, None)
+        for name, a in zip(("dq", "dk"), got):
+            assert a[1:].abs().max().item() <= 1e-6, (kernel.__name__, name)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            ratio = ((a - b).abs() / (1 + b.abs())).max().item()
+            assert ratio <= 1e-5, (kernel.__name__, name)

@@ -159,12 +159,13 @@ def test_dropattn_kernels_apply_the_plain_mask():
     assert bool((spell(dv).transpose(-1, -2) == want).all())
 
 
+@pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("L", [64, 192, 130])
-def test_dropattn_fwd_bwd_match_plain(dtype, p, L):
+def test_dropattn_fwd_bwd_match_plain(dtype, p, L, d):
     _need_card()
-    q, k, v, go, bias = _attn_inputs(3, 4, L, 32, dtype, seed=L)
+    q, k, v, go, bias = _attn_inputs(3, 4, L, d, dtype, seed=L)
     seed = 77 + L
     out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
     want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
@@ -185,9 +186,9 @@ def test_dropattn_fwd_bwd_match_plain(dtype, p, L):
         assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
 
 
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [48, 128])
 def test_dropattn_refuses_other_head_dims(d):
-    """The kernels are built for d = 32 and 64 only: any other head dim
+    """The kernels are built for d = 16, 32 and 64 only: any other head dim
     raises before a launch."""
     _need_card()
     q, k, v, go, bias = _attn_inputs(2, 3, 64, d, torch.bfloat16, seed=d)
@@ -451,16 +452,17 @@ def test_attention_routes_and_their_counters():
     assert ta.dropattn_bwd.stream_launches == 0
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_dropattn_tensor_core_backward_applies_the_plain_mask(d):
     """bf16 at L = 192: a bias that leaves keys 0..127 live makes each live
     probability 1/128, so at p = 0.5 each kept pd is 1/64 exactly in bf16;
     with v (and g) holding 2^(j % 8) in channel j // 8, out spells each row's
     keep bits over the live columns and dv each live column's over the 192
     rows: the keep bits the tensor-core forward applied and the tensor-core
-    backward stored and applied, at head dims 32 and 64."""
+    backward stored and applied, at head dims 32 and 64; at head dim 16 (16
+    channels spell 128 rows) L = 128, every key live."""
     _need_card()
-    B, h, L, live, seed = 2, 3, 192, 128, 99
+    B, h, L, live, seed = 2, 3, 192 if d > 16 else 128, 128, 99
     j = torch.arange(L, device="cuda")
     code = torch.zeros(L, d, device="cuda")
     code[j, j // 8] = (2.0 ** (j % 8)).float()
@@ -1135,17 +1137,21 @@ def test_head_dim_routes_and_counters():
         assert ta.dropattn_fwd_route(dtype, 64, 64) == "tc"
         assert ta.dropattn_bwd_route(dtype, 64, 64) == ta.flash_route(dtype, 64) == "tc"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, 64) == "tc"
+    assert ta.dropattn_fwd_route(torch.bfloat16, 16, 64) == "tc"
+    assert ta.dropattn_bwd_route(torch.bfloat16, 16, 64) == "tc"
     reset_launch_counts()
-    for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32)):
+    for d, dtype in ((32, torch.bfloat16), (64, torch.bfloat16), (64, torch.float32),
+                     (16, torch.bfloat16)):
         q, k, v, go, bias = _attn_inputs(2, 3, 64, d, dtype, seed=d)
         _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
         ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
         ta.flash_attention(q, k, v)
     torch.cuda.synchronize()
     by_d, tc = head_dim_launch_counts(), tc_launch_counts()
-    assert by_d == {name: {32: 1, 64: 2}
+    assert by_d == {name: {32: 1, 64: 2, 16: 1}
                     for name in ("flash_attn_fwd", "dropattn_fwd", "dropattn_bwd")}
-    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == tc["flash_attn_fwd"] == 3
+    # flash at head dim 16 runs on the CUDA cores (flash_route)
+    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == 4 and tc["flash_attn_fwd"] == 3
     reset_launch_counts()
     assert head_dim_launch_counts() == {"flash_attn_fwd": {}, "dropattn_fwd": {},
                                         "dropattn_bwd": {}}
@@ -1336,7 +1342,7 @@ def test_dropattn_fwd_head_dim_64_tensor_core_route(dtype, p, B, L):
     assert bool((diff <= bound).all()), (diff / bound).max().item()
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_dropattn_fwd_bf16_tensor_core_route_edge(d):
     """The bf16 forward's limit (the longest L whose head's K and V fit a
     block) takes the tensor cores; the next L the CUDA-core kernel, both
@@ -1499,3 +1505,39 @@ def test_streaming_backward_applies_the_plain_mask_in_bf16():
         assert bool((spelled == want[:, :, 256 * half:256 * half + 256, :live]
                      .transpose(-1, -2)).all())
 
+
+
+# the one-live-key rows of tests/test_torch_dropattn_stream.py through every
+# f32 kernel: the resident dropattn_bwd_tc_tf32_kernel<64> and the streaming
+# kernels at head dims 16, 32 and 64
+ONE_KEY_SHAPES = [(32, 16, 64, 64, "tc"), (8, 16, 512, 64, "tc_stream"),
+                  (32, 12, 192, 32, "tc_stream"), (16, 4, 64, 16, "tc_stream")]
+
+
+@pytest.mark.parametrize("B,h,L,d,route", ONE_KEY_SHAPES)
+def test_f32_backwards_give_zero_dq_dk_on_one_live_key_rows(B, h, L, d, route):
+    """Batch rows 1.. keep one key, so probs is one-hot there and dq and dk
+    are exactly 0 (the float64 backward's, and the plain pair's, value).
+    With lse from the plain forward, whose score products run in another
+    order than the kernels', every f32 kernel gives dq and dk of at most
+    2e-6 on those rows (1.08e-5 resident and 2.31e-5 streaming before D was
+    divided by the row's sum of probs), and stays within 1e-5 (1 + |want|)
+    of the plain pair on the full batch row 0. (dv on the one-key rows sums
+    L rows of g, partial sums of tens: f32 noise of a few 1e-5 absolute on
+    both sides, ROADMAP's recorded divergence; not this test's subject.)"""
+    _need_card()
+    assert ta.dropattn_bwd_route(torch.float32, d, L) == route
+    g = torch.Generator(device="cuda").manual_seed(1000 + L + d)
+    q, k, v, go = (torch.randn(B, h, L, d, device="cuda", generator=g) for _ in range(4))
+    lens = torch.ones(B, dtype=torch.long, device="cuda")
+    lens[0] = L
+    keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min / 2)
+    _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.0, 3)
+    got = ta.dropattn_bwd(q, k, v, bias, 0.0, 3, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.0, 3, lse, go)
+    torch.cuda.synchronize()
+    for name, a in zip(("dq", "dk"), got):
+        assert a[1:].abs().max().item() <= 2e-6, (name, a[1:].abs().max().item())
+    _grads_within(torch.float32, q, k, v, bias, 0.0, 3, lse, go, [t[:1] for t in got],
+                  [t[:1] for t in want])

@@ -32,7 +32,9 @@ kernels' in natural units (f32 exp, nothing folded). ``flash_tf32``,
 ``dropattn_fwd_tf32`` (``dropattn_fwd_tc_tf32_kernel``: one online pass
 over 64-key tiles, the kept p times 1 / (1 - p) into p v in the tile's slot
 order, one division at the end) and ``dropattn_bwd_tf32`` follow them, the
-backward's dq steps in the kernel's key order; ``passes=1`` gives the
+backward's dq steps in the kernel's key order, its D divided by the row's
+sum of probabilities (``normalize=False``: before that repair, D as the
+plain pair forms it); ``passes=1`` gives the
 one-pass TF32 product the tests show the 1e-5 checks would catch.
 ``dropattn_bwd_stream_tc`` and ``dropattn_bwd_stream_tf32`` follow the
 streaming backward (csrc/dropattn_bwd.cu route 2) kernel by kernel: D and
@@ -269,10 +271,22 @@ def flash_tf32(q, k, v, mask, passes: int = 3):
 _DQ_KEY_ORDER = [4 * t + 2 * s + b for s in range(2) for b in range(2) for t in range(4)]
 
 
-def dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
+def _row_d(dprobs, probs, normalize: bool):
+    """D of each row: sum(dprobs * probs), on the f32 kernels over
+    sum(probs) (csrc/dropattn_bwd.cu normalized_dsum; 0 where that is 0).
+    ``normalize=False`` is the kernels' arithmetic before that division."""
+    D = (dprobs * probs).sum(dim=-1, keepdim=True)
+    if not normalize:
+        return D
+    total = probs.sum(dim=-1, keepdim=True)
+    return torch.where(total > 0, D / torch.where(total > 0, total, 1.0), 0.0)
+
+
+def dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3,
+                      normalize: bool = True):
     """(dq, dk, dv) of the f32 backward kernel at head dim 64 for q, k, v, g
     [B, h, L, d] (f32), bias [B, L], the forward's lse [B, h, L] and
-    ``keep_mask`` [B, h, L, L] (bool) or None at p = 0."""
+    ``keep_mask`` [B, h, L, L] (bool) or None at p = 0; D as ``_row_d``."""
     B, h, L, d = q.shape
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
@@ -284,7 +298,7 @@ def dropattn_bwd_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
     else:
         pd = torch.where(keep_mask, probs * inv, 0.0)
         dprobs = torch.where(keep_mask, dp * inv, 0.0)
-    D = (dprobs * probs).sum(dim=-1, keepdim=True)
+    D = _row_d(dprobs, probs, normalize)
     ds = probs * (dprobs - D) * scale
     dv = mma_tf32(pd.transpose(-1, -2), g, passes=passes)
     dk = mma_tf32(ds.transpose(-1, -2), q, passes=passes)
@@ -358,7 +372,8 @@ def dropattn_bwd_stream_tc(q, k, v, bias, p, lse, g, keep_mask):
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
-def dropattn_bwd_stream_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3):
+def dropattn_bwd_stream_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 3,
+                             normalize: bool = True):
     """(dq, dk, dv) of the f32 streaming backward at head dim 32 or 64 for
     q, k, v, g [B, h, L, d] (f32), bias [B, L], the forward's lse [B, h, L]
     and ``keep_mask`` [B, h, L, L] (bool) or None at p = 0: the kernels of
@@ -366,7 +381,8 @@ def dropattn_bwd_stream_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 
     (``mma_tf32_pair``) and each probability expf(s * scale + bias - lse) in
     natural units. K2's 8-deep steps take each 16-key chunk in the key order
     of the f32 kernels (K and V rows stored in slot order); dq, dk and dv
-    each carry both accumulators over the tiles and add them at the end."""
+    each carry both accumulators over the tiles and add them at the end. K1
+    sums dprobs * probs and probs tile after tile and divides (``_row_d``)."""
     B, h, L, d = q.shape
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
@@ -379,10 +395,13 @@ def dropattn_bwd_stream_tf32(q, k, v, bias, p, lse, g, keep_mask, passes: int = 
         keep = None if keep_mask is None else keep_mask[..., a:b]
         return pr, dp if keep is None else torch.where(keep, dp * inv, 0.0)
 
-    D = torch.zeros(B, h, L, 1)
+    D, total = torch.zeros(B, h, L, 1), torch.zeros(B, h, L, 1)
     for a, b in _stream_tiles(L):
         pr, dprobs = rows_tile(a, b)
         D = D + (dprobs * pr).sum(dim=-1, keepdim=True)
+        total = total + pr.sum(dim=-1, keepdim=True)
+    if normalize:
+        D = torch.where(total > 0, D / torch.where(total > 0, total, 1.0), 0.0)
     dq = dq_lo = torch.zeros(B, h, L, d)
     for a, b in _stream_tiles(L):
         pr, dprobs = rows_tile(a, b)

@@ -23,6 +23,12 @@ largest |dv|. Prints one JSON line per shape and writes them to
 ``chiprun_out/probe_one_live_key.json``.
 
     python3 tools/probe_one_live_key.py [--device cpu|cuda] [--lengths 72 136]
+        [--shapes 32,16,64,64 8,16,512,64]
+
+``--shapes`` (B,h,L,d each) replaces the default shapes, (8, 16, L, 64)
+and (4, 12, L, 32) at each of ``--lengths``. The f32 kernels divide D by
+the row's sum of probabilities (csrc/dropattn_bwd.cu normalized_dsum),
+which gives dq and dk of 0 on these rows up to the rounding of probs.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
     ap.add_argument("--lengths", type=int, nargs="+", default=[72, 136])
+    ap.add_argument("--shapes", nargs="+", default=None, help="B,h,L,d each")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "probe_one_live_key.json"))
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -89,23 +96,24 @@ def main(argv=None) -> int:
                               text=True).stdout.strip()
         print(card, flush=True)
     rows = []
-    for L in args.lengths:
-        for B, h, d in ((8, 16, 64), (4, 12, 32)):
-            q, k, v, go, bias = inputs(B, h, L, d, 1000 + L + d, args.device)
-            one_key = torch.zeros(B, h, L, d, dtype=torch.bool, device=args.device)
-            one_key[1:] = True
-            want = exact_backward(q, k, v, go, bias)
-            _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.0, 3)
-            entry = {"shape": [B, h, L, d], "device": args.device, "card": card,
-                     "max_abs_dv_one_key_rows": want[2][one_key].abs().max().item(),
-                     "plain": errors(ta.dropattn_bwd_plain(q, k, v, bias, 0.0, 3, lse, go),
-                                     want, one_key)}
-            if args.device == "cuda":
-                entry["route"] = ta.dropattn_bwd_route(q.dtype, d, L)
-                entry["kernel"] = errors(ta.dropattn_bwd(q, k, v, bias, 0.0, 3, lse, go),
-                                         want, one_key)
-            rows.append(entry)
-            print(json.dumps(entry), flush=True)
+    shapes = ([tuple(int(x) for x in sh.split(",")) for sh in args.shapes] if args.shapes
+              else [(B, h, L, d) for L in args.lengths for B, h, d in ((8, 16, 64), (4, 12, 32))])
+    for B, h, L, d in shapes:
+        q, k, v, go, bias = inputs(B, h, L, d, 1000 + L + d, args.device)
+        one_key = torch.zeros(B, h, L, d, dtype=torch.bool, device=args.device)
+        one_key[1:] = True
+        want = exact_backward(q, k, v, go, bias)
+        _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.0, 3)
+        entry = {"shape": [B, h, L, d], "device": args.device, "card": card,
+                 "max_abs_dv_one_key_rows": want[2][one_key].abs().max().item(),
+                 "plain": errors(ta.dropattn_bwd_plain(q, k, v, bias, 0.0, 3, lse, go),
+                                 want, one_key)}
+        if args.device == "cuda":
+            entry["route"] = ta.dropattn_bwd_route(q.dtype, d, L)
+            entry["kernel"] = errors(ta.dropattn_bwd(q, k, v, bias, 0.0, 3, lse, go),
+                                     want, one_key)
+        rows.append(entry)
+        print(json.dumps(entry), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
