@@ -34,7 +34,7 @@ Phases, each fatal when it fails:
              flash_attn_fwd: [256, 12, L, 32] bf16 on its tensor-core route,
              L in {128, 256, 512}, each element within its rounding bound,
              timed beside SDPA and plain_attention (the FLASH_MIN_L
-             crossover), and f32 (the CUDA-core route) at L = 512 within
+             crossover), and f32 (its tensor-core route) at L = 512 within
              1e-5; dropattn_fwd / dropattn_bwd: [256, 12, 192, 32],
              [32, 12, 64, 32], [256, 12, 512, 32] and [32, 12, 264, 32] bf16
              and [256, 12, 192, 32] f32 with a random padding bias, p in {0,
@@ -48,8 +48,10 @@ Phases, each fatal when it fails:
              at L = 512 and 264), each timed beside SDPA, the byte bound and
              the exp and Philox floors, the streaming kernels' device time
              summed over their three launches, ptxas's registers and
-             spills, and the streaming kernels at [256, 12, 192, 32] bf16
-             beside the resident one; binmax_strided,
+             spills, the f32 forward (dropattn_fwd_tc_tf32_kernel<32>)
+             beside SDPA's device time, its three TF32 passes and the FMA
+             bound of the kernel it replaced, and the streaming kernels at
+             [256, 12, 192, 32] bf16 beside the resident one; binmax_strided,
              the approx engine's pass, at every binmax case;
              cell_gather and cell_gather_b1 over 977 cells x 1,024 rows x
              384, nprobe 64: int8 at B in {1, 16, 64} bit for bit (B > 1 on
@@ -74,7 +76,7 @@ Phases, each fatal when it fails:
              dim 16 (BertConfig.tiny, the pipeline phase's --tiny models):
              dropattn_fwd / dropattn_bwd at [256, 4, 192, 16] and
              [32, 4, 64, 16] bf16 (tensor cores; the backward holding the
-             head) and [32, 4, 64, 16] f32 (CUDA-core forward, streaming
+             head) and [32, 4, 64, 16] f32 (tensor-core forward, streaming
              backward), p in {0, 0.1}, the keep-mask bit for bit, bitwise
              repeatable, bf16 within the rounding bounds and f32 within 1e-5
              (1 + |want|), each timed beside SDPA with dropout:
@@ -190,7 +192,8 @@ Phases, each fatal when it fails:
              no kernel runs); (b) at full e5-small-v2 width in f32 (seeded
              weights): evaluate_retrieval over the 8,192 passages and 1,000
              12-word spans of distinct passages (flash in f32 at d = 32 on
-             flash_fwd_kernel, 384 launches; binmax and bin_gather in f32,
+             flash_fwd_tc_tf32_kernel<32>, 384 launches, every one on the
+             tensor cores; binmax and bin_gather in f32,
              one launch each for the 1,000 queries), its top-20 ids against
              cosine_topk_core but at ties within 1e-5, its metrics within
              1e-6 of those of the plain ids, the encode within 1e-4 (1 + |x|)
@@ -213,14 +216,15 @@ Phases, each fatal when it fails:
              vanilla init (read from params.msgpack): the 420 queries'
              negatives equal run_kd/mined_stage2.json (ids; scores within
              1e-4 (1 + |s|), order only among near ties), every loss finite,
-             best_model reloaded, its nDCG@10 on test.jsonl above the
+             every dropattn_fwd launch of the f32 student on the tensor
+             cores, best_model reloaded, its nDCG@10 on test.jsonl above the
              vanilla init's (reported with MRR@10, recall@10 and nDCG@20
              beside the JAX files and the gate, which is not enforced); (b)
              the --tiny defaults: 48 generated demo rows prepared and
              checked by require_integrity, stage 3 with BertConfig.tiny (the
              student bf16, every dropattn launch at d = 16 on the tensor
              cores), then 4 TeacherTrainer steps of the tiny teacher in f32
-             (d = 16: CUDA-core forward, streaming backward); (c) full width
+             (d = 16: tensor-core forward, streaming backward); (c) full width
              (e5-small-v2 bf16, bge-reranker-large f32, seeded, vocabulary
              fitted to the corpus) at stage 3 over 128 queries, bm25 top
              100, batch 32: every loss finite, more than half the queries
@@ -1084,11 +1088,15 @@ def phase_flash(gen) -> tuple[list, dict]:
               "of its bound")
         f32_err = None
         if L == 512:
-            # the f32 instantiation of the same kernel code rounds nothing, so
-            # it holds the scale, the masking and every tile to summation order
+            # the f32 route on the same inputs (three TF32 products a product,
+            # flash_fwd_tc_tf32_kernel<32>): every tile and the masking within
+            # 1e-5 of the plain version
             qf, kf, vf = q.float(), k.float(), v.float()
+            before = ta.flash_attention.tc_launches
             f32_err = (ta.flash_attention(qf, kf, vf, mask)
                        - ta.flash_attention_plain(qf, kf, vf, mask)).abs().max().item()
+            check(ta.flash_attention.tc_launches == before + 1,
+                  f"flash_attn_fwd f32 L={L} did not take the tensor-core route")
             check(f32_err <= 1e-5, f"flash_attn_fwd f32 L={L}: max abs err {f32_err} > 1e-5")
             del qf, kf, vf
         ms = time_ms(lambda: ta.flash_attention(q, k, v, mask), 10)
@@ -1272,8 +1280,9 @@ def stream_times(q, k, v, bias, p, seed, lse, g, build: dict, pre: str = "bwd") 
 
 # the dropattn cases at head dim 32: the student's train lengths (bf16 on the
 # resident backward), doc_len 512 and a ragged length past the resident
-# limit (bf16 on the streaming backward), and f32 compute at L = 192
-# (streaming: no resident f32 kernel at d = 32)
+# limit (bf16 on the streaming backward), and f32 compute at L = 192 (the
+# f32 tensor-core forward; the backward streaming: no resident f32 kernel at
+# d = 32)
 DROPATTN_D32_CASES = (((256, 12, 192, 32), torch.bfloat16), ((32, 12, 64, 32), torch.bfloat16),
                       ((256, 12, 512, 32), torch.bfloat16), ((32, 12, 264, 32), torch.bfloat16),
                       ((256, 12, 192, 32), torch.float32))
@@ -1295,7 +1304,7 @@ def phase_dropattn(gen, build: dict) -> tuple[list, dict, dict, dict]:
     bf16, p 0.1) and of the streaming backward ([256, 12, 512, 32] bf16)."""
     from sskd_tpu_torch.ops import attention as ta
 
-    rows, main_fwd, main_bwd, main_stream = [], None, None, None
+    rows, main_fwd, main_bwd, main_stream, main_fwd_f32 = [], None, None, None, None
     check(masks_spelled_by_kernels(31), "dropattn kernels: applied keep-mask differs")
     log("[kernels] dropattn: the masks both kernels apply equal the plain mask (L = 256)")
     check(masks_spelled_bf16(37), "dropattn bf16 L=192: applied keep-mask differs")
@@ -1313,7 +1322,7 @@ def phase_dropattn(gen, build: dict) -> tuple[list, dict, dict, dict]:
         for p in (0.0, 0.1):
             tag = f"{str(dtype).split('.')[1]} L={L} p={p}"
             f_route = ta.dropattn_fwd_route(dtype, d, L)
-            check(f_route == ("cuda_core" if f32 else "tc"), f"dropattn_fwd {tag}: route {f_route}")
+            check(f_route == "tc", f"dropattn_fwd {tag}: route {f_route}")
             before = ta.dropattn_fwd.tc_launches
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
             check(ta.dropattn_fwd.tc_launches == before + (f_route == "tc"),
@@ -1382,7 +1391,10 @@ def phase_dropattn(gen, build: dict) -> tuple[list, dict, dict, dict]:
             del out, want, grads, want_grads
             if p > 0:
                 entry.update(time_dropattn(q, k, v, g, bias, p, seed,
+                                           fwd_kind="tf32" if f32 else "bf16",
                                            bwd_kind="tf32" if f32 else "bf16"))
+                if f32:  # the f32 forward on the tensor cores: dropattn_fwd_tc_tf32_kernel<32>
+                    entry.update(f32_forward_times(q, k, v, bias, p, seed, build))
                 if route == "tc_stream":
                     entry.update(stream_times(q, k, v, bias, p, seed, lse, g, build))
                     entry["bwd_three_pass_ms"] = (3 * 10.0 * BH * L * L * d / PEAK_OPS["tf32"] * 1e3
@@ -1398,6 +1410,9 @@ def phase_dropattn(gen, build: dict) -> tuple[list, dict, dict, dict]:
                             "plain_ms": entry["bwd_plain_ms"], "bound_ms": entry["bwd_bound_ms"],
                             "bound_by": entry["bwd_bound_by"],
                             "library_ms": entry["bwd_library_ms"]}
+            if (B, L) == (256, 192) and p > 0 and f32:
+                main_fwd_f32 = {"max_abs_err": f_err, **{key: entry[f"fwd_{key}"] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
             if (B, L) == (256, 512) and p > 0:
                 main_stream = {"max_abs_err": b_err, "ms": entry["bwd_ms"],
                                "plain_ms": entry["bwd_plain_ms"],
@@ -1405,7 +1420,33 @@ def phase_dropattn(gen, build: dict) -> tuple[list, dict, dict, dict]:
                                "library_ms": entry["bwd_library_ms"]}
             del lse
         del q, k, v, g
-    return rows, main_fwd, main_bwd, main_stream
+    return rows, main_fwd, main_bwd, main_stream, main_fwd_f32
+
+
+def f32_forward_times(q, k, v, bias, p, seed, build: dict) -> dict:
+    """The f32 tensor-core forward at head dim 16 or 32 beside its yardsticks:
+    its device time alone (profiler; kernel_device_ms), SDPA with dropout's
+    device time behind a held stream (every kernel of the call), the three
+    TF32 passes at TF32's peak, the same products on the CUDA cores' FMA (the
+    bound of the kernel this route replaced), the exp floor (one expf a
+    score), the Philox calls, and ptxas's registers and spills of
+    dropattn_fwd_tc_tf32_kernel<d>."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, L, d = q.shape
+    ops = 4.0 * B * h * L * L * d
+    mask = bias.to(q.dtype)[:, None, None, :]
+    return {
+        "fwd_kernel_device_ms": kernel_device_ms(
+            lambda: ta.dropattn_fwd(q, k, v, bias, p, seed), "dropattn_fwd_tc_tf32_kernel"),
+        "fwd_library_device_ms": stream_device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p)),
+        "fwd_three_pass_ms": 3 * ops / PEAK_OPS["tf32"] * 1e3,
+        "fwd_cuda_core_bound_ms": ops / PEAK_OPS["f32"] * 1e3,
+        "fwd_exp_floor_ms_one_pass": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
+        "philox_calls": B * h * L * L // 4,
+        "fwd_ptxas": ptxas_of(build, "dropattn_fwd", f"tc_tf32_kernelILi{d}E"),
+    }
 
 
 def time_dropattn(q, k, v, g, bias, p, seed, fwd_kind=None, bwd_kind=None) -> dict:
@@ -1724,11 +1765,12 @@ DROPATTN_D16_CASES = (((256, 4, 192, 16), torch.bfloat16), ((32, 4, 64, 16), tor
                       ((32, 4, 64, 16), torch.float32))
 
 
-def phase_attention16(gen) -> tuple[list, dict]:
+def phase_attention16(gen, build: dict) -> tuple[list, dict]:
     """dropattn_fwd / dropattn_bwd at head dim 16 against their plain
     versions (DROPATTN_D16_CASES), p in {0, 0.1}: bf16 on the tensor cores
     (dropattn_fwd_tc_kernel<16>, the resident dropattn_bwd_tc_kernel<16>),
-    f32 on dropattn_fwd_kernel<float, 16> and the streaming backward; the
+    f32 on dropattn_fwd_tc_tf32_kernel<16> (f32_forward_times beside it)
+    and the streaming backward; the
     kernels' keep-mask equal to the plain one bit for bit, the backward
     bitwise equal over two launches, bf16 within dropattn_*_error_bound and
     f32 within 1e-5 (1 + |want|); times beside SDPA with dropout and its
@@ -1745,7 +1787,7 @@ def phase_attention16(gen) -> tuple[list, dict]:
         seed = 1600 + L + B
         check(masks_equal(seed, B * h, L, 0.1), f"dropattn d=16 keep-mask [{B * h}, {L}] differs")
         f_route, b_route = ta.dropattn_fwd_route(dtype, d, L), ta.dropattn_bwd_route(dtype, d, L)
-        check((f_route, b_route) == (("cuda_core", "tc_stream") if f32 else ("tc", "tc")),
+        check((f_route, b_route) == (("tc", "tc_stream") if f32 else ("tc", "tc")),
               f"dropattn d=16 {dtype} L={L}: routes {f_route}, {b_route}")
         for p in (0.0, 0.1):
             tag = f"d=16 {str(dtype).split('.')[1]} [{B}, {h}, {L}] p={p}"
@@ -1757,7 +1799,7 @@ def phase_attention16(gen) -> tuple[list, dict]:
             check((ta.dropattn_fwd.head_dim_launches[16], ta.dropattn_fwd.tc_launches,
                    ta.dropattn_bwd.head_dim_launches[16], ta.dropattn_bwd.tc_launches,
                    ta.dropattn_bwd.stream_launches)
-                  == (before[0] + 1, before[1] + (not f32), before[2] + 1, before[3] + 1,
+                  == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1,
                       before[4] + f32), f"dropattn {tag}: launches not counted on their routes")
             again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             check(all(torch.equal(a, b) for a, b in zip(grads, again)),
@@ -1794,7 +1836,10 @@ def phase_attention16(gen) -> tuple[list, dict]:
             del out, want, grads, want_grads, lse
             if p > 0:
                 entry.update(time_dropattn(q, k, v, g, bias, p, seed,
+                                           fwd_kind="tf32" if f32 else "bf16",
                                            bwd_kind="tf32" if f32 else "bf16"))
+                if f32:
+                    entry.update(f32_forward_times(q, k, v, bias, p, seed, build))
                 name = "d16.f32" if f32 else "d16"
                 if (f32 or L == 192) and f"dropattn_fwd.{name}" not in main:
                     for kern, pre, err in (("dropattn_fwd", "fwd", f_err),
@@ -2581,8 +2626,9 @@ def phase_train(args) -> dict:
     # its source; the yardstick is the plain pair computing in f32 inside,
     # whose distance from the bf16 plain pair is what rounding the attention
     # to bf16 does to these gradients. The same step in f32 compute (the
-    # kernels' f32 instantiation) cascades no rounding: there the kernels
-    # and the plain pair differ by f32 summation order only, which the step
+    # kernels' f32 routes, three TF32 products a product) cascades no
+    # rounding: there the kernels and the plain pair differ by about 2^-21
+    # of each product and f32 summation order, which the step
     # keeps far below 1e-3 of the gradient's norm, while a mask, seed or
     # bias that a recompute or the backward got wrong moves it by percents.
     # The bf16 distances are taken over the gradients of all three pre-packed
@@ -3980,12 +4026,15 @@ def native_tokenize(tok, texts: list[str], cap: int) -> dict:
     return out
 
 
-def eval_kernel_cases(q: torch.Tensor, d: torch.Tensor, seed: int) -> dict:
+def eval_kernel_cases(q: torch.Tensor, d: torch.Tensor, seed: int, build: dict) -> dict:
     """The kernels the full-width evaluation launches, at its shapes, against
     their plain versions (outside its counted run): binmax and bin_gather
     over its f32 rows (B = 1,000 queries x 8,192 passages, k = 20) and
-    flash_attn_fwd in f32 at [256, 12, 512, 32] (its encode; the CUDA-core
-    kernel), each beside the library call or yardstick and its bound."""
+    flash_attn_fwd in f32 at [256, 12, 512, 32] (its encode, on the tensor
+    cores: flash_fwd_tc_tf32_kernel<32>, bitwise repeatable), each beside
+    the library call or yardstick and its bound (flash: also the three TF32
+    passes, the CUDA cores' FMA bound, the exp floor and ptxas's registers
+    and spills)."""
     from sskd_tpu_torch.ops import attention as ta
     from sskd_tpu_torch.ops import topk_kernels as tk
 
@@ -4039,28 +4088,40 @@ def eval_kernel_cases(q: torch.Tensor, d: torch.Tensor, seed: int) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     Bf, h, L, hd = 256, 12, 512, 32
-    check(ta.flash_route(torch.float32, hd) == "cuda_core", "f32 flash route at d = 32")
+    check(ta.flash_route(torch.float32, hd) == "tc", "f32 flash route at d = 32")
     qf, kf, vf = (torch.randn(Bf, h, L, hd, device="cuda", generator=gen) for _ in range(3))
     lens = torch.randint(L // 8, L + 1, (Bf,), device="cuda", generator=gen)
     lens[0] = L
     mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
-    f_err = (ta.flash_attention(qf, kf, vf, mask)
-             - ta.flash_attention_plain(qf, kf, vf, mask)).abs().max().item()
+    before = ta.flash_attention.tc_launches
+    got = ta.flash_attention(qf, kf, vf, mask)
+    f_err = (got - ta.flash_attention_plain(qf, kf, vf, mask)).abs().max().item()
+    check(ta.flash_attention.tc_launches == before + 1, "f32 flash d=32: not the tensor cores")
     check(f_err <= 1e-5, f"flash_attn_fwd f32 d=32: max abs err {f_err} > 1e-5")
+    check(torch.equal(got, ta.flash_attention(qf, kf, vf, mask)), "f32 flash d=32: launches differ")
+    del got
     keep = mask[:, None, None, :].bool()
     n_bytes = 4 * Bf * h * L * hd * 4 + Bf * L * 4
-    fb_ms, fb_by = bound_ms(n_bytes, 4.0 * Bf * h * L * L * hd, "f32")
+    ops = 4.0 * Bf * h * L * L * hd
+    fb_ms, fb_by = bound_ms(n_bytes, ops, "tf32")
     out["flash_attn_fwd.f32"] = {
         "kernel": "flash_attn_fwd", "dtype": "f32", "shape": [Bf, h, L, hd],
-        "route": "cuda_core", "max_abs_err": f_err,
+        "route": "tc", "max_abs_err": f_err, "bitwise_repeatable": True,
         "ms": time_ms(lambda: ta.flash_attention(qf, kf, vf, mask), 10),
         "kernel_device_ms": kernel_device_ms(lambda: ta.flash_attention(qf, kf, vf, mask),
-                                             "flash_fwd_kernel", 8),
+                                             "flash_fwd_tc_tf32_kernel", 8),
         "plain_ms": time_ms(lambda: ta.flash_attention_plain(qf, kf, vf, mask), 3, 1),
         "bound_ms": fb_ms, "bound_by": fb_by,
         "byte_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        # three TF32 passes at TF32's peak, and the same products on the CUDA
+        # cores' FMA (the bound of flash_fwd_kernel<float, 32>, which this
+        # route replaced)
+        "three_pass_ms": 3 * ops / PEAK_OPS["tf32"] * 1e3,
+        "cuda_core_bound_ms": ops / PEAK_OPS["f32"] * 1e3,
+        "exp_floor_ms": Bf * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
         "library_ms": time_ms(
             lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=keep), 10),
+        "ptxas": ptxas_of(build, "flash_attn", "tc_tf32_kernelILi32E"),
     }
     for entry in out.values():
         log(f"[eval] kernel {json.dumps(entry)}")
@@ -4081,11 +4142,11 @@ def ranking_gap(metrics: dict, want_rank: list, qids: list, qrels: dict, ks,
     return max(0.0, gap - tie_rows / len(qids))
 
 
-def eval_full_width(args) -> dict:
+def eval_full_width(args, build: dict) -> dict:
     """(b) The evaluator at e5-small-v2's full width (12 layers, hidden 384,
     12 heads, seeded weights, f32 compute as the JAX StudentModel defaults
     to) over the 8,192 passages of the serve phase (L = 512: flash in f32 at
-    d = 32, the CUDA-core kernel) and 1,000 seeded 12-word spans of distinct
+    d = 32, on the tensor cores) and 1,000 seeded 12-word spans of distinct
     passages, each relevant to its passage alone; evaluate_retrieval (ranked
     by binmax and bin_gather in f32, B = 1,000 in one launch each),
     evaluate_retrieval_chunked over 1,024 passages in TextChunker(512, 80)
@@ -4172,10 +4233,10 @@ def eval_full_width(args) -> dict:
             f"{tc_counts}, by head dim {by_d}; {json.dumps(timed)}")
         n_flash = cfg.num_layers * -(-N_DOCS // ev.batch_size)  # queries stay under 512
         check(counts["flash_attn_fwd"] == n_flash and by_d["flash_attn_fwd"] == {32: n_flash}
-              and tc_counts["flash_attn_fwd"] == 0,
+              and tc_counts["flash_attn_fwd"] == n_flash,
               f"flash_attn_fwd: {counts['flash_attn_fwd']} launches {by_d['flash_attn_fwd']}, "
-              f"{tc_counts['flash_attn_fwd']} on the tensor cores; want {n_flash} at d = 32 "
-              "on flash_fwd_kernel (f32)")
+              f"{tc_counts['flash_attn_fwd']} on the tensor cores; want {n_flash} at d = 32, "
+              "all on flash_fwd_tc_tf32_kernel<32>")
         check(counts["binmax"] == 1 and counts["bin_gather"] == 1
               and tc_counts["binmax"] == tc_counts["bin_gather"] == 0,
               f"binmax / bin_gather: {counts['binmax']} / {counts['bin_gather']} launches "
@@ -4217,7 +4278,8 @@ def eval_full_width(args) -> dict:
             "embedding_slack_vs_plain": emb_slack, **encode_s,
             "docs_per_s": N_DOCS / encode_s["encode_documents_s"],
         }
-        record["kernels"] = eval_kernel_cases(q.contiguous(), d.contiguous(), args.seed + 301)
+        record["kernels"] = eval_kernel_cases(q.contiguous(), d.contiguous(), args.seed + 301,
+                                              build)
         del q, d, plain_emb, vals, idx, pv, pi
         timed.clear()
 
@@ -4296,11 +4358,13 @@ def eval_full_width(args) -> dict:
         pairs, flat = scored.pop()
         n_chunks = -(-len(pairs) // 256)
         check(len(pairs) == RERANK_QUERIES * RERANK_K, f"{len(pairs)} rerank pairs")
+        # the teacher's flash at d = 64, and the student's encode of the
+        # candidates at d = 32 (f32): every launch on the tensor cores
         check(r_by_d["flash_attn_fwd"].get(64, 0) == tcfg.num_layers * n_chunks
-              and r_tc["flash_attn_fwd"] == r_by_d["flash_attn_fwd"][64],
+              and r_tc["flash_attn_fwd"] == sum(r_by_d["flash_attn_fwd"].values()),
               f"rerank flash: {r_by_d['flash_attn_fwd']}, {r_tc['flash_attn_fwd']} on the "
-              f"tensor cores; want {tcfg.num_layers * n_chunks} at d = 64, all on "
-              "flash_fwd_tc_tf32_kernel<64>")
+              f"tensor cores; want {tcfg.num_layers * n_chunks} at d = 64, every launch on "
+              "flash_fwd_tc_tf32_kernel<64> / <32>")
         # each query's candidates again through TeacherModel.score, on their own
         q_, _, _, _, (_, cand) = ranked.pop()
         rr_ids = list(rr_corpus)
@@ -4364,13 +4428,13 @@ def eval_full_width(args) -> dict:
     return record
 
 
-def phase_eval(args) -> dict:
+def phase_eval(args, build: dict) -> dict:
     """Evaluation on the card: (a) the repository's JAX checkpoints and the
     gate, (b) the evaluator at full width, (c) the native tokenizer core."""
     t0 = time.perf_counter()
     record = {"checkpoints": eval_checkpoints()}
     record["checkpoints_seconds"] = time.perf_counter() - t0
-    record.update(eval_full_width(args))
+    record.update(eval_full_width(args, build))
     return record
 
 
@@ -4477,7 +4541,8 @@ def pipeline_demo(work: Path) -> dict:
     vanilla}, the JAX KD run's own, read from params.msgpack), stage 2 with
     the validation split as the dev evaluator; the 420 queries' negatives
     against run_kd/mined_stage2.json, the KD student on test.jsonl against
-    the vanilla init."""
+    the vanilla init. The student computes in f32: every dropattn_fwd
+    launch on the tensor cores (dropattn_fwd_tc_tf32_kernel<32>)."""
     import shutil
 
     from sskd_tpu_torch.cli.pipeline import load_eval_inputs, run_train_pipeline
@@ -4485,7 +4550,12 @@ def pipeline_demo(work: Path) -> dict:
     from sskd_tpu_torch.kd.eval import KDEvaluator
     from sskd_tpu_torch.mining.miners import MinedNegatives
     from sskd_tpu_torch.models.student import StudentModel
-    from sskd_tpu_torch.ops import head_dim_launch_counts, launch_counts, reset_launch_counts
+    from sskd_tpu_torch.ops import (
+        head_dim_launch_counts,
+        launch_counts,
+        reset_launch_counts,
+        tc_launch_counts,
+    )
 
     raw = work / "data" / "raw" / "demo"
     raw.mkdir(parents=True)
@@ -4499,15 +4569,18 @@ def pipeline_demo(work: Path) -> dict:
                                     output_dir=work / "run_kd", dataset="demo",
                                     dev_data=raw / "validation.jsonl", device="cuda")
     torch.cuda.synchronize()
-    launches, by_d = launch_counts(), head_dim_launch_counts()
+    launches, by_d, tc = launch_counts(), head_dim_launch_counts(), tc_launch_counts()
     mined = [MinedNegatives(**m) for m in json.loads((work / "run_kd" / "mined_stage2.json")
                                                      .read_text())]
     want = json.loads((DEMO / "run_kd" / "mined_stage2.json").read_text())
     out = {"mined_vs_file": mined_vs_file(mined, want), "losses": finite_losses(result),
            "global_step": result["global_step"], "best_dev_ndcg@10": result["best_metric"],
-           "launches": launches, "head_dim_launches": by_d, **probe}
+           "launches": launches, "head_dim_launches": by_d, "tc_launches": tc, **probe}
     check(by_d["dropattn_fwd"].get(32, 0) > 0 and by_d["dropattn_bwd"].get(32, 0) > 0,
           f"the demo student (head dim 32) launched no dropattn kernel: {by_d}")
+    # the student computes in f32: every forward on dropattn_fwd_tc_tf32_kernel<32>
+    check(tc["dropattn_fwd"] == launches["dropattn_fwd"],
+          f"a dropattn_fwd launch of the demo run left the tensor cores: {tc}, {by_d}")
     best = StudentModel(str(work / "run_kd" / "best_model"), device="cuda")
     inputs = load_eval_inputs(DEMO_TEST, 600)
     kd = KDEvaluator(device="cuda").evaluate_retrieval(best, *inputs)
@@ -4534,7 +4607,8 @@ def pipeline_tiny(work: Path) -> dict:
     tiny teacher in f32 as `train-teacher --tiny` runs them (batch 32,
     max_len 64, the corpus-fitted vocabulary). Every dropattn launch of the
     student at d = 16 on the tensor cores, the teacher's forward on the
-    CUDA cores and its backward streaming."""
+    tensor cores too (dropattn_fwd_tc_tf32_kernel<16>) and its backward
+    streaming."""
     from dataclasses import replace
 
     from sskd_tpu_torch.cli.pipeline import run_train_pipeline
@@ -4586,8 +4660,9 @@ def pipeline_tiny(work: Path) -> dict:
     by_d = head_dim_launch_counts()
     f32 = {k: by_d[k].get(16, 0) for k in ("dropattn_fwd", "dropattn_bwd")}
     check(f32["dropattn_fwd"] > 0 and f32["dropattn_bwd"] == ta.dropattn_bwd.stream_launches
-          and ta.dropattn_fwd.tc_launches == 0,
-          f"the tiny teacher's dropattn launches at d = 16: {by_d}")
+          and ta.dropattn_fwd.tc_launches == f32["dropattn_fwd"],
+          f"the tiny teacher's dropattn launches at d = 16: {by_d}, "
+          f"{ta.dropattn_fwd.tc_launches} forwards on the tensor cores")
     check(math.isfinite(tr["final_loss"]), f"the tiny teacher's loss {tr['final_loss']}")
     out["teacher"] = {"steps": tr["steps"], "final_loss": tr["final_loss"],
                       "seconds": time.perf_counter() - t0, "launches": f32}
@@ -4705,10 +4780,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     topk_rows, main_topk, bf16_topk, int4_topk = phase_topk(gen, N_ROWS)
     flash_rows, main_flash = phase_flash(gen)
-    dropattn_rows, main_dfwd, main_dbwd, main_stream = phase_dropattn(gen, record["build"])
+    dropattn_rows, main_dfwd, main_dbwd, main_stream, main_dfwd_f32 = phase_dropattn(
+        gen, record["build"])
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
     attn64_rows, main_d64 = phase_attention64(gen, record["build"])
-    attn16_rows, main_d16 = phase_attention16(gen)
+    attn16_rows, main_d16 = phase_attention16(gen, record["build"])
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     record["kernel_cases"] = (topk_rows + flash_rows + dropattn_rows + cell_rows + attn64_rows
                               + attn16_rows)
@@ -4736,7 +4812,7 @@ def main(argv=None) -> int:
     record["teacher"] = phase_teacher(args)
     log(f"[teacher] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    record["eval"] = phase_eval(args)
+    record["eval"] = phase_eval(args, record["build"])
     log(f"[eval] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["pipeline"] = phase_pipeline(args)
@@ -4757,6 +4833,9 @@ def main(argv=None) -> int:
         "dropattn_bwd.stream.d64": record["teacher"]["train_512"]["stream_launches"]}
     eval_kernels, eval_launches = record["eval"]["kernels"], record["eval"]["launches"]
     tiny_launches = record["pipeline"]["tiny"]["d16_launches"]
+    # the f32 student of the demo pipeline: its forwards at d = 32 in f32
+    demo_launches = {"dropattn_fwd.f32":
+                     record["pipeline"]["demo"]["head_dim_launches"]["dropattn_fwd"][32]}
     kernels = []
     for name, src, replaces, entry, launches in (
         ("binmax", "sskd_tpu_torch/csrc/binmax.cu", "sskd_tpu/ops/topk_pallas.py:82",
@@ -4767,6 +4846,10 @@ def main(argv=None) -> int:
          main_flash, serve_launches),
         ("dropattn_fwd", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
          "sskd_tpu/ops/attention.py:266", main_dfwd, train_launches),
+        # its f32 mode at d = 32 (dropattn_fwd_tc_tf32_kernel<32>), with the
+        # launches of the demo pipeline's f32 student
+        ("dropattn_fwd.f32", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
+         "sskd_tpu/ops/attention.py:266", main_dfwd_f32, demo_launches),
         ("dropattn_bwd", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
          "sskd_tpu/ops/attention.py:296", main_dbwd, train_launches),
         # the second kernel of binmax.cu: the approx engine's pass, in place of the binned
@@ -4814,8 +4897,8 @@ def main(argv=None) -> int:
         ("flash_attn_fwd.f32", "sskd_tpu_torch/csrc/flash_attn.cu",
          "sskd_tpu/ops/attention.py:43", eval_kernels["flash_attn_fwd.f32"], eval_launches),
         # head dim 16, the pipeline's --tiny models: the bf16 student's KD run
-        # (tensor cores) and the f32 teacher's train steps (CUDA-core forward,
-        # streaming backward)
+        # and the f32 teacher's train steps (both forwards on the tensor
+        # cores; the f32 backward streaming)
         ("dropattn_fwd.d16", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
          "sskd_tpu/ops/attention.py:266", main_d16["dropattn_fwd.d16"], tiny_launches),
         ("dropattn_bwd.d16", "sskd_tpu_torch/csrc/dropattn_bwd.cu",

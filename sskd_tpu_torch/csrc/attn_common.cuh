@@ -1,7 +1,8 @@
 // attn_common.cuh: element helpers shared by the attention kernels
-// (flash_attn.cu, dropattn_fwd.cu, dropattn_bwd.cu). T is float or
-// __nv_bfloat16; arithmetic is f32, and round_as rounds an f32 value to T and
-// back, as a cast to the input type before a product does.
+// (flash_attn.cu, dropattn_fwd.cu, dropattn_bwd.cu). T is __nv_bfloat16 (the
+// CUDA-core kernels' one type since every f32 attention takes the tensor
+// cores); arithmetic is f32, and round_as rounds an f32 value to T and back,
+// as a cast to the input type before a product does.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -10,13 +11,10 @@
 
 namespace sskd {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Loads 16 bytes of T values starting at src (16-byte aligned) into f32 dst.

@@ -32,6 +32,12 @@
 // Philox calls. The bytes bound both in bf16; in f32 the three passes bound
 // the longer one.
 //
+// In f32 at the student's shape [256*12, 192, 32] (the demo pipeline's
+// student computes in f32) the bytes are 302 MB, 0.090 ms, and the three
+// TF32 passes 0.088 ms (0.216 ms on the FMA), under the keep-mask's 28.3 M
+// Philox calls; at the tiny teacher's [32*4, 64, 16] the bytes, 2.1 MB, take
+// 0.0006 ms: launch latency sets that shape's time.
+//
 // Three routes, chosen by the wrapper (ops/attention.py dropattn_fwd_route)
 // from (dtype, d, L):
 //
@@ -65,16 +71,18 @@
 //    follow the same order through ldmatrix's per-lane addresses.
 //    ops/attention.py dropattn_fwd_error_bound derives what the folded
 //    exponent and the truncating sums add.
-// 2. f32 at d = 64 (the teacher computes in f32), any L:
+// 2. f32 at d in {16, 32, 64} (the teacher computes in f32, and so do the
+//    demo pipeline's student and the tiny teacher), any L:
 //    dropattn_fwd_tc_tf32_kernel<D>, one online pass on the tensor cores, in
 //    the shape of csrc/flash_attn.cu flash_fwd_tc_tf32_kernel: a block of 4
 //    warps owns 64 query rows; K and V stream through shared memory in tiles
 //    of 64 keys, double-buffered by cp.async where the head has two or more
-//    (f32 rows padded to 68 floats, the stride at which the 32-bit fragment
-//    reads hit distinct banks); each product is mma.sync m16n8k8 on tf32
-//    operands as three products with the small ones in an accumulator of
-//    their own (mma_common.cuh mma_3xtf32), which holds the f32 function to
-//    1e-5 of the plain version. The softmax is the CUDA-core kernel's in
+//    (f32 rows padded to D + 4 floats, the stride at which the 32-bit
+//    fragment reads hit distinct banks at 16, 32 and 64); each product is
+//    mma.sync m16n8k8 on tf32 operands (D / 8 steps for S, D / 8 output
+//    tiles for p v) as three products with the small ones in an accumulator
+//    of their own (mma_common.cuh mma_3xtf32), which holds the f32 function
+//    to 1e-5 of the plain version. The softmax is the CUDA-core kernel's in
 //    natural units: s = qk * scale + bias, a running max, p = expf(s - max)
 //    summed unmasked, the accumulator rescaled when the max moves, the kept p
 //    times 1 / (1 - p) fed from registers as the A fragment of p v, and one
@@ -83,21 +91,27 @@
 //    times both). K and V rows are stored in slot order (attn_common.cuh
 //    key_slot), so each thread's score fragment of a 16-key chunk holds the
 //    four keys of one Philox call, as in the f32 backward, and the keep bits
-//    are those the tensor-core backward regenerates.
-// 3. f32 at d = 16 and 32, and bf16 past route 1's lengths: dropattn_fwd_kernel, the
-//    first kernel, on CUDA cores: one block of 64 threads per (b*h, 64-query
+//    are those the tensor-core backward regenerates. Its shared memory is
+//    46.6 KB at d = 32 and 26.1 KB at d = 16 with two stages. On an H100 at
+//    [256, 12, 192, 32], p 0.1, this kernel (127 registers) took 0.49 ms in
+//    tools/probe_attention_f32.py, against 0.51-0.54 ms with 4 or 8 warps, q
+//    split once and S an 8-key tile at a time, 0.63-0.73 ms with each K and
+//    V tile split into its TF32 terms once for the block (the same bits),
+//    1.71 ms for the CUDA-core kernel it replaced and 1.13 ms for SDPA with
+//    dropout.
+// 3. bf16 past route 1's lengths: dropattn_fwd_kernel, the first kernel, on
+//    CUDA cores: one block of 64 threads per (b*h, 64-query
 //    tile), each thread owning one query row with q and its f32 accumulator
 //    in registers, the head's K, V (in T) and bias row in shared memory read
 //    as broadcasts; two passes over the keys, the first for the row max and
 //    sum online, the second forming each probability as the reference does
 //    (exp(s - max) / sum), applying the mask and accumulating pd v. When the
 //    head's K, V and bias do not fit a block's 227 KB (2 L d sizeof(T) + 4 L
-//    bytes: above L = 894 at d = 32 in f32 and at d = 64 in bf16)
+//    bytes: above L = 3418 at d = 16, 1760 at d = 32 and 894 at d = 64)
 //    both passes stream them through shared memory in chunks of 128 keys; the
 //    mask is a function of (row, col) and each row's sums run over the keys
 //    in the same order, so chunking changes no bit of the result, and any L
-//    is taken. The f32 instantiation rounds nothing, which keeps the f32
-//    checks to summation order.
+//    is taken.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -428,8 +442,8 @@ static int launch_tc(const void* q, const void* k, const void* v, const float* b
 }
 
 // ---------------------------------------------------------------------------
-// Route 2: f32, d = 64, one online pass on the tensor cores (three TF32
-// products a product), K and V streamed in tiles of 64 keys
+// Route 2: f32, d in {16, 32, 64}, one online pass on the tensor cores
+// (three TF32 products a product), K and V streamed in tiles of 64 keys
 // ---------------------------------------------------------------------------
 
 constexpr int DF32_QB = 64;              // query rows per block: 4 warps x 16
@@ -438,7 +452,8 @@ constexpr int DF32_KB = 64;              // keys per tile
 
 // Dynamic shared memory at n_stage (1 or 2) tiles in flight: q, then K, V
 // and the bias of each stage (rows padded to D + 4 floats). 88 KB at D = 64
-// with two stages (two blocks an SM), 52.5 KB with one (a head of one tile).
+// with two stages (two blocks an SM), 52.5 KB with one (a head of one tile);
+// 46.6 and 27.9 KB at D = 32, 26.1 and 15.6 KB at D = 16.
 template <int D>
 __host__ __device__ constexpr size_t df32_smem_bytes(int n_stage) {
   return ((size_t)(DF32_QB + 2 * n_stage * DF32_KB) * (D + 4) + (size_t)n_stage * DF32_KB) * 4;
@@ -632,6 +647,25 @@ __global__ void __launch_bounds__(DF32_THREADS) dropattn_fwd_tc_tf32_kernel(
   }
 }
 
+// A launch of dropattn_fwd_tc_tf32_kernel<D>: one block of 4 warps per
+// (b*h, 64-query tile). At d = 64 its shared memory passes 48 KB: the
+// attribute is set once, on the first launch.
+template <int D>
+static int launch_tf32(const float* q, const float* k, const float* v, const float* bias,
+                       float* out, float* lse, int B, int h, int L, float sm_scale, uint32_t seed,
+                       float p, float inv, cudaStream_t s) {
+  static const int attr = (int)cudaFuncSetAttribute(
+      dropattn_fwd_tc_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)df32_smem_bytes<D>(2));
+  if (attr != 0) return attr;
+  const int n_stage = L > DF32_KB ? 2 : 1;
+  const int n_qt = (L + DF32_QB - 1) / DF32_QB;
+  dropattn_fwd_tc_tf32_kernel<D><<<(unsigned)((long)B * h * n_qt), DF32_THREADS,
+                                   df32_smem_bytes<D>(n_stage), s>>>(
+      q, k, v, bias, out, lse, h, L, n_qt, n_stage, sm_scale, seed, p, inv);
+  return 0;
+}
+
 // The keep-mask as the kernels draw it, one byte per element, for checks.
 __global__ void keep_mask_kernel(uint8_t* out, long BH, int L, uint32_t seed, float p) {
   const int L4 = (L + 3) / 4;
@@ -653,10 +687,11 @@ __global__ void keep_mask_kernel(uint8_t* out, long BH, int L, uint32_t seed, fl
 //   dtype: 0 f32, 1 bf16. q, k, v, out: [B, h, L, d] contiguous; bias: [B, L]
 //   f32; lse: [B, h, L] f32 (written). 0 <= p < 1 and inv = 1 / (1 - p),
 //   rounded to f32 by the caller as the plain version rounds it.
-// The CUDA-core route: f32 at d = 16 and 32, bf16 at d = 16, 32 or 64 (the
-// head dims of the models the port trains: e5-small-v2's,
-// bge-reranker-large's and BertConfig.tiny's; f32 at 64 takes the tensor
-// cores, others are refused), any L.
+// The CUDA-core route: bf16 at d = 16, 32 or 64 (the head dims of the
+// models the port trains: e5-small-v2's, bge-reranker-large's and
+// BertConfig.tiny's), any L; the wrapper sends it only the heads past the
+// bf16 tensor-core route's lengths. f32 and other head dims are refused
+// (f32 takes the tensor cores at every L).
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const float* bias, void* out, float* lse, int B, int h, int L,
@@ -666,12 +701,8 @@ extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const 
   if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
-  if (dtype == 0 && d == 16)
-    rc = launch<float, 16>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
-  else if (dtype == 1 && d == 16)
+  if (dtype == 1 && d == 16)
     rc = launch<__nv_bfloat16, 16>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
-  else if (dtype == 0 && d == 32)
-    rc = launch<float, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
   else if (dtype == 1 && d == 32)
     rc = launch<__nv_bfloat16, 32>(q, k, v, bias, out, lse, B, h, L, sm_scale, seed, p, inv, s);
   else if (dtype == 1 && d == 64)
@@ -684,8 +715,8 @@ extern "C" int sskd_dropattn_fwd(int dtype, const void* q, const void* k, const 
 //   The tensor-core routes: dtype 1 (bf16) at d = 16, 32 or 64 while
 //   dft_smem_bytes fits a block (L <= 2256 at d = 16, 1344 at d = 32, 656 at
 //   d = 64; a block
-//   per (b*h, 16 dft_warps query rows)), dtype 0 (f32) at d = 64 at any L
-//   (blocks of 4 warps, one per (b*h, 64-query tile)); others are refused.
+//   per (b*h, 16 dft_warps query rows)), dtype 0 (f32) at d = 16, 32 or 64 at
+//   any L (a block of 4 warps per (b*h, 64-query tile)); others are refused.
 //   The arguments as above; scale_log2 = log2(e) / sqrt(d) in f32 (the bf16
 //   route's exponent), sm_scale = 1 / sqrt(d) (the f32 route's).
 extern "C" int sskd_dropattn_fwd_tc(int dtype, const void* q, const void* k, const void* v,
@@ -706,16 +737,14 @@ extern "C" int sskd_dropattn_fwd_tc(int dtype, const void* q, const void* k, con
     rc = dft_warps<64>(L) == 4
              ? launch_tc<64, 4>(q, k, v, bias, out, lse, B, h, L, scale_log2, seed, p, inv, s)
              : launch_tc<64, 16>(q, k, v, bias, out, lse, B, h, L, scale_log2, seed, p, inv, s);
-  } else if (dtype == 0 && d == 64) {
-    const int n_stage = L > DF32_KB ? 2 : 1;
-    const size_t smem = df32_smem_bytes<64>(n_stage);
-    rc = (int)cudaFuncSetAttribute(dropattn_fwd_tc_tf32_kernel<64>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != 0) return rc;
-    const int n_qt = (L + DF32_QB - 1) / DF32_QB;
-    dropattn_fwd_tc_tf32_kernel<64><<<(unsigned)((long)B * h * n_qt), DF32_THREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, bias, (float*)out, lse, h, L, n_qt,
-        n_stage, sm_scale, seed, p, inv);
+  } else if (dtype == 0 && (d == 16 || d == 32 || d == 64)) {
+    const float* fq = (const float*)q;
+    const float* fk = (const float*)k;
+    const float* fv = (const float*)v;
+    float* fo = (float*)out;
+    rc = d == 64   ? launch_tf32<64>(fq, fk, fv, bias, fo, lse, B, h, L, sm_scale, seed, p, inv, s)
+         : d == 32 ? launch_tf32<32>(fq, fk, fv, bias, fo, lse, B, h, L, sm_scale, seed, p, inv, s)
+                   : launch_tf32<16>(fq, fk, fv, bias, fo, lse, B, h, L, sm_scale, seed, p, inv, s);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }

@@ -23,6 +23,10 @@
 // 0.069 ms at TF32's 495 TFLOP/s, 0.035 ms at bf16's 989, but the f32 route
 // makes three TF32 passes (0.21 ms), and on the CUDA cores' FMA (67 TFLOP/s)
 // the same work takes 0.513 ms. The exp floor is B*h*L^2 = 134 M exps, ~0.03 ms.
+// At the f32 encode shape [256, 12, 512, 32] (the evaluator's student) the
+// bytes are 805 MB (0.240 ms) and the three TF32 passes of 103 GFLOP 0.625
+// ms (the same products on the FMA 1.538 ms); at head dim 16 the bytes bound
+// the tiny models' lengths.
 //
 // Three routes, chosen by the wrapper (ops/attention.py flash_route) from
 // (dtype, d):
@@ -47,24 +51,39 @@
 //    one fma of the raw sum, with no mask applied; ops/attention.py
 //    flash_error_bound derives what that and the tensor cores' f32 sums add
 //    to the error. D = 32 is the code of the first tensor-core kernel.
-// 2. f32, d = 64 (the teacher computes in f32): flash_fwd_tc_tf32_kernel<D>,
-//    the same blocks and tiles with f32 rows padded to 68 floats, each product
-//    mma.sync m16n8k8 on tf32 operands as three products (mma_common.cuh
-//    3xTF32: about 2^-21 of each product, f32 sums), so the f32 function
-//    holds to 1e-5 of the plain version where one TF32 pass is off by ~1e-3.
+// 2. f32, d in {16, 32, 64} (the teacher computes in f32, and so do the
+//    evaluator's student and the tiny models): flash_fwd_tc_tf32_kernel<D>,
+//    the same blocks and tiles with f32 rows padded to D + 4 floats (20, 36,
+//    68: 4 mod 16), each product mma.sync m16n8k8 on tf32 operands as three
+//    products (mma_common.cuh 3xTF32: about 2^-21 of each product, f32
+//    sums), so the f32 function holds to 1e-5 of the plain version where
+//    one TF32 pass is off by ~1e-3. S takes D / 8 k-steps and p v D / 8
+//    output tiles.
 //    The fragments are plain 32-bit shared-memory reads (ldmatrix moves b16):
 //    q's once per block into registers, K's and V's at each use, each split
 //    into hi and lo where it is used (two integer operations a term), the
 //    small products in accumulators of their own. A score tile's C fragment
 //    is the A fragment of its p.v step when column 2tig is taken as k = tig
 //    and 2tig + 1 as k = tig + 4, so p stays in registers, and V is read as
-//    rows 2tig and 2tig + 1 (no bank conflict at a stride of 68). The softmax is the CUDA-core kernel's, in
+//    rows 2tig and 2tig + 1 (no bank conflict at a stride of D + 4:
+//    tests/test_torch_attention.py checks 16, 32 and 64). The softmax is the CUDA-core kernel's, in
 //    natural units: p = expf(s - m), nothing rounded but by the products.
-// 3. f32 at d in {16, 32}, bf16 at d = 16: flash_fwd_kernel, the first
-//    kernel on CUDA cores: one block of 128 threads per (b*h, 128-query
+//    At d = 32 and 16 the head-dim-64 kernel itself won a probe of other
+//    schedules on an H100 (tools/probe_attention_f32.py, all of them the
+//    same bits): at [256, 12, 512, 32] it takes 2.45 ms (46.6 KB of shared
+//    memory, 155 registers, no spill), against 2.76-3.55 ms with each K and
+//    V tile split into its TF32 terms once for the block (the terms double
+//    the tile's shared memory and its fragment reads' bytes, and two 8-warp
+//    blocks an SM cap the registers at 128, where those kernels spill),
+//    2.50 ms with 8 warps a block and 2.43 ms with q split once and S an
+//    8-key tile at a time (within the noise, at 157 registers); two m-tiles
+//    a warp would pass the 255 registers a thread may hold. The CUDA-core
+//    kernel it replaced took 4.63 ms there and SDPA 5.90 ms.
+// 3. bf16 at d = 16: flash_fwd_kernel, the first kernel on CUDA cores (no
+//    path of the port launches it: the tiny models' lengths stay under
+//    FLASH_MIN_L): one block of 128 threads per (b*h, 128-query
 //    tile), a thread per query row, K and V tiles converted to f32 in shared
-//    memory and read as broadcasts. The f32 instantiation rounds nothing, so
-//    it holds the masking and the tiling to summation order.
+//    memory and read as broadcasts.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -567,16 +586,16 @@ __global__ void __launch_bounds__(FT_THREADS, 2) flash_fwd_tc2_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Route 2: f32, d = 64, tensor cores as three TF32 products
+// Route 2: f32, d in {16, 32, 64}, tensor cores as three TF32 products
 // ---------------------------------------------------------------------------
 
-constexpr int FF_LD = 68;  // shared row stride in floats (272 bytes; 68 = 4 mod 32)
 constexpr int FF_KB = 64;  // keys per tile
 
-// Dynamic shared memory of the f32 route: q, two stages of K and V, the keep
-// flags (87.5 KB at D = 64: two blocks an SM).
-__host__ __device__ constexpr size_t ff_smem_bytes() {
-  return (size_t)(FT_QB + 4 * FF_KB) * FF_LD * 4 + 2 * FF_KB * 4;
+// Dynamic shared memory of the f32 route at head dim d: q, two stages of K
+// and V (rows padded to d + 4 floats), the keep flags (87.5 KB at d = 64: two
+// blocks an SM; 46.6 KB at 32, 26.1 KB at 16).
+__host__ __device__ constexpr size_t ff_smem_bytes(int d) {
+  return (size_t)(FT_QB + 4 * FF_KB) * (d + 4) * 4 + 2 * FF_KB * 4;
 }
 
 template <int D>
@@ -584,7 +603,7 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ mask, float* __restrict__ out, int h, int L, int n_qt,
     float sm_scale) {
-  static_assert(D + 4 <= FF_LD, "row stride");
+  constexpr int FF_LD = D + 4;  // shared row stride in floats (68 = 4 mod 32 at D = 64)
   constexpr unsigned CH = D / 4;  // 16-byte chunks a row
   constexpr int NT = FF_KB / 8;  // 8-key tiles a tile
   extern __shared__ __align__(16) unsigned char smem[];
@@ -740,6 +759,21 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_tf32_kernel(
   }
 }
 
+// A launch of the f32 tensor-core flash at head dim D. Its shared memory
+// passes 48 KB at d = 64: the attribute is set once, on the first launch.
+template <int D>
+static int launch_tf32(const float* q, const float* k, const float* v, const int* mask,
+                       float* out, int B, int h, int L, float sm_scale, cudaStream_t s) {
+  constexpr size_t smem = ff_smem_bytes(D);
+  static const int attr = (int)cudaFuncSetAttribute(
+      flash_fwd_tc_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != 0) return attr;
+  const int n_qt = (L + FT_QB - 1) / FT_QB;
+  flash_fwd_tc_tf32_kernel<D><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
+      q, k, v, mask, out, h, L, n_qt, sm_scale);
+  return 0;
+}
+
 template <typename T, int D, int KT>
 static void launch(const void* q, const void* k, const void* v, const int* mask, void* out,
                    int B, int h, int L, float sm_scale, cudaStream_t stream) {
@@ -749,37 +783,24 @@ static void launch(const void* q, const void* k, const void* v, const int* mask,
       (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, h, L, n_qt, sm_scale);
 }
 
-template <typename T>
-static int launch_d(const void* q, const void* k, const void* v, const int* mask, void* out,
-                    int B, int h, int L, int d, float sm_scale, cudaStream_t stream) {
-  if (d == 16) launch<T, 16, 64>(q, k, v, mask, out, B, h, L, sm_scale, stream);
-  else if (d == 32) launch<T, 32, 64>(q, k, v, mask, out, B, h, L, sm_scale, stream);
-  else return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
-//   dtype: 0 f32, 1 bf16. q, k, v, out: [B, h, L, d] contiguous. mask: [B, L] int32.
-//   d in {16, 32} (head dim 64 takes the tensor-core routes below).
+//   dtype 1 (bf16) at d = 16, the one mode left on the CUDA cores (every
+//   other (dtype, d) takes the tensor-core routes below; others are
+//   refused). q, k, v, out: [B, h, L, d] contiguous. mask: [B, L] int32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int sskd_flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
                                    const int* mask, void* out, int B, int h, int L, int d,
                                    float sm_scale, void* stream) {
   using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (dtype == 0) rc = launch_d<float>(q, k, v, mask, out, B, h, L, d, sm_scale, s);
-  else if (dtype == 1) rc = launch_d<__nv_bfloat16>(q, k, v, mask, out, B, h, L, d, sm_scale, s);
-  else rc = (int)cudaErrorInvalidValue;
-  if (rc != 0) return rc;
+  if (B <= 0 || h <= 0 || L <= 0 || dtype != 1 || d != 16) return (int)cudaErrorInvalidValue;
+  launch<__nv_bfloat16, 16, 64>(q, k, v, mask, out, B, h, L, sm_scale, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 //   The tensor-core routes: dtype 1 (bf16) at d = 32 or 64, dtype 0 (f32) at
-//   d = 64 (others are refused); q, k, v, out [B, h, L, d] contiguous, mask
+//   d = 16, 32 or 64 (others are refused); q, k, v, out [B, h, L, d] contiguous, mask
 //   [B, L] int32; sm_scale = 1 / sqrt(d) (the f32 route) and scale_log2 =
 //   log2(e) / sqrt(d) (the bf16 route), both in f32.
 extern "C" int sskd_flash_attn_fwd_tc(int dtype, const void* q, const void* k, const void* v,
@@ -802,16 +823,15 @@ extern "C" int sskd_flash_attn_fwd_tc(int dtype, const void* q, const void* k, c
     flash_fwd_tc2_kernel<64><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
         (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
-  } else if (dtype == 0 && d == 64) {
-    constexpr size_t smem = ff_smem_bytes();
-    const int rc = (int)cudaFuncSetAttribute(flash_fwd_tc_tf32_kernel<64>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
+  } else if (dtype == 0 && (d == 16 || d == 32 || d == 64)) {
+    const float* fq = (const float*)q;
+    const float* fk = (const float*)k;
+    const float* fv = (const float*)v;
+    float* fo = (float*)out;
+    const int rc = d == 64   ? launch_tf32<64>(fq, fk, fv, mask, fo, B, h, L, sm_scale, s)
+                   : d == 32 ? launch_tf32<32>(fq, fk, fv, mask, fo, B, h, L, sm_scale, s)
+                             : launch_tf32<16>(fq, fk, fv, mask, fo, B, h, L, sm_scale, s);
     if (rc != 0) return rc;
-    const int n_qt = (L + FT_QB - 1) / FT_QB;
-    flash_fwd_tc_tf32_kernel<64><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, mask, (float*)out, h, L, n_qt,
-        sm_scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

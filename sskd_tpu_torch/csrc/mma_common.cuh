@@ -2,7 +2,7 @@
 // cp.async copies into shared memory, ldmatrix (plain and transposed),
 // mma.sync m16n8k16 with bf16 operands and f32 accumulators (the attention
 // kernels), mma.sync m16n8k8 with tf32 operands as three products for f32
-// (the f32 attention kernels at head dim 64), mma.sync m16n8k32 with s8
+// (the f32 attention kernels), mma.sync m16n8k32 with s8
 // operands and exact s32 sums over
 // padded rows of int8 (the top-k kernels: binmax.cu, bin_gather.cu,
 // cell_gather.cu), the unpack of packed int4 rows into s8 fragments, the

@@ -17,19 +17,21 @@
   (csrc/dropattn_fwd.cu, csrc/dropattn_bwd.cu), the port of the Pallas pair
   ``_dropattn_fwd_kernel`` / ``_dropattn_bwd_kernel``, at head dims 16 (the
   pipeline's ``--tiny`` models), 32 (the student's) and 64 (the teacher's).
-  The forward has tensor-core routes for bf16 at head dims 16, 32 and 64 and
-  for f32 at 64 (:func:`dropattn_fwd_route`),
-  as flash has (:func:`flash_route`); the backward is on the tensor cores at
+  The forward is on the tensor cores for bf16 at head dims 16, 32 and 64
+  while the head fits a block and for f32 at every head dim and L
+  (:func:`dropattn_fwd_route`), as flash is for every (dtype, head dim) but
+  bf16 at 16 (:func:`flash_route`); the backward is on the tensor cores at
   every (dtype, head dim, L) it takes, a head held in shared memory
   (``"tc"``) or streamed through it (``"tc_stream"``,
   :func:`dropattn_bwd_route`). ``tc_launches`` counts the tensor-core
   launches, ``dropattn_bwd.stream_launches`` the streaming ones.
-- The f32 tensor-core routes (the teacher's f32 compute, and the student's
-  in f32 on the streaming backward) take
-  each product as three TF32 products on the tensor cores (hi and lo terms
-  of each operand, f32 sums: csrc/mma_common.cuh), which keeps the f32
-  function to about 2^-21 of each product; one TF32 pass would be ~1e-3
-  off.
+- The f32 tensor-core routes (every f32 attention of the port: the
+  teacher's, the f32 student's training and its encode) take each product
+  as three TF32 products on the tensor cores (hi and lo terms of each
+  operand, f32 sums: csrc/mma_common.cuh), which keeps the f32 function to
+  about 2^-21 of each product; one TF32 pass would be ~1e-3 off. One
+  template of each forward serves head dims 16, 32 and 64; no f32
+  attention runs on the CUDA cores.
 
 The three wrappers also count their launches by head dim
 (``head_dim_launches``, ``{d: launches}``).
@@ -111,8 +113,7 @@ DROPATTN_TC_MAX_L = {
 }
 # the longest L whose head's K and V fit the shared memory of one block of
 # the bf16 tensor-core forward, by (dtype, head dim) (the kernel refuses
-# longer L); the f32 tensor-core forward at head dim 64 streams K and V and
-# takes any L
+# longer L); the f32 tensor-core forwards stream K and V and take any L
 DROPATTN_FWD_TC_MAX_L = {
     (torch.bfloat16, d): _longest(lambda L, d=d: _dft_smem_bytes(d, L) <= _SMEM_MAX)
     for d in (16, 32, 64)
@@ -121,22 +122,41 @@ DROPATTN_FWD_TC_MAX_L = {
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of :func:`flash_attention` launches: ``"tc"``
-    (tensor cores, csrc/flash_attn.cu: ``flash_fwd_tc_kernel`` for bf16 at
-    head dims 32 and 64, ``flash_fwd_tc_tf32_kernel`` for f32 at head dim 64,
-    three TF32 products a product), ``"cuda_core"`` (``flash_fwd_kernel``)
-    for f32 at head dims 16 and 32 and bf16 at 16."""
-    tc = (dtype == torch.bfloat16 and d in (32, 64)) or (dtype == torch.float32 and d == 64)
-    return "tc" if tc else "cuda_core"
+    (tensor cores, csrc/flash_attn.cu: ``flash_fwd_tc_kernel`` /
+    ``flash_fwd_tc2_kernel`` for bf16 at head dims 32 and 64,
+    ``flash_fwd_tc_tf32_kernel<D>`` for f32 at head dims 16, 32 and 64, three
+    TF32 products a product), ``"cuda_core"`` (``flash_fwd_kernel``) for
+    bf16 at head dim 16 only.
+
+    At the f32 encode shape [256, 12, 512, 32] the bytes take 0.240 ms at
+    3.35 TB/s and the three TF32 passes 0.625 ms at TF32's 495 TFLOP/s (the
+    same work on the CUDA cores' FMA: 1.538 ms). Of six schedules with the
+    same bits (tools/probe_attention_f32.py) the head-dim-64 kernel's 4
+    warps, each splitting the K and V values it reads into TF32 terms, came
+    first; splitting each tile once for the block doubled its shared memory
+    and cost 13-45 %."""
+    if dtype == torch.float32:
+        return "tc"
+    return "tc" if d in (32, 64) else "cuda_core"
 
 
 def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernel a CUDA call of :func:`dropattn_fwd` launches: ``"tc"``
     (tensor cores, csrc/dropattn_fwd.cu: ``dropattn_fwd_tc_kernel`` for bf16
-    at head dims 16, 32 and 64 up to ``DROPATTN_FWD_TC_MAX_L[(dtype, d)]``,
-    ``dropattn_fwd_tc_tf32_kernel`` for f32 at head dim 64 at any L, three
-    TF32 products a product), ``"cuda_core"`` (``dropattn_fwd_kernel``) for
-    f32 at head dims 16 and 32 and bf16 past its limit."""
-    if dtype == torch.float32 and d == 64:
+    at head dims 16, 32 and 64 up to ``DROPATTN_FWD_TC_MAX_L[(dtype, d)]``;
+    ``dropattn_fwd_tc_tf32_kernel<D>`` for f32 at head dims 16, 32 and 64
+    at every L, three TF32 products a product in one online pass over K and
+    V tiles of 64 keys), ``"cuda_core"`` (``dropattn_fwd_kernel``) for bf16
+    past its limit only.
+
+    At the f32 student's shape [256, 12, 192, 32], p 0.1, the bytes take
+    0.090 ms at 3.35 TB/s and the three TF32 passes 0.088 ms; the keep-mask's
+    28.3 M Philox calls sit above both (0.231 ms measured as what dropout
+    adds to the backward, which draws the same bits). At the tiny teacher's
+    [32, 4, 64, 16] the bytes bound it: 0.0006 ms. The head-dim-64 kernel's
+    schedule came first at these head dims as it did for flash
+    (tools/probe_attention_f32.py)."""
+    if dtype == torch.float32:
         return "tc"
     return "tc" if L <= DROPATTN_FWD_TC_MAX_L.get((dtype, d), 0) else "cuda_core"
 

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from sskd_tpu.ops.attention import flash_attention as j_flash, xla_attention
 from sskd_tpu_torch.ops import attention as ta
-from torch_tc_emulation import flash_tc, flash_tf32
+from torch_tc_emulation import flash_tc, flash_tf32, fragment_banks
 
 
 def _qkv(seed, B, h, L, d):
@@ -122,27 +122,35 @@ def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_plain_version(d
                      <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
 
 
-def _f32_flash_case(seed, B, h, L):
-    q, k, v = (torch.from_numpy(a) for a in _qkv(seed, B, h, L, 64))
+def _f32_flash_case(seed, B, h, L, d=64):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(seed, B, h, L, d))
     mask = torch.from_numpy(_mask(seed, B, L))
     return q, k, v, mask
 
 
-def test_tf32_flash_arithmetic_is_within_1e5_of_the_plain_version():
-    """The f32 route at head dim 64 (three TF32 products a product, their
-    small terms in an accumulator of their own, truncating mma sums, the
-    CUDA-core kernel's softmax; tests/torch_tc_emulation.py flash_tf32)
-    against flash_attention_plain at the teacher's scoring width [2, 16,
-    512, 64]: within the 1e-5 the card holds the f32 kernel to."""
-    q, k, v, mask = _f32_flash_case(21, 2, 16, 512)
+# (d, B, h, L): the teacher's scoring width at head dim 64; the f32
+# student's encode length at 32 and a cut of its heads; the tiny models'
+# head dim 16 (any L: 256, four tiles)
+F32_FLASH_CASES = [(64, 2, 16, 512), (32, 1, 4, 512), (16, 1, 4, 256)]
+
+
+@pytest.mark.parametrize("d,B,h,L", F32_FLASH_CASES)
+def test_tf32_flash_arithmetic_is_within_1e5_of_the_plain_version(d, B, h, L):
+    """The f32 route (three TF32 products a product, their small terms in an
+    accumulator of their own, truncating mma sums, the CUDA-core kernel's
+    softmax; tests/torch_tc_emulation.py flash_tf32, which both f32 kernels
+    compute) against flash_attention_plain at head dims 64, 32 and 16:
+    within the 1e-5 the card holds the f32 kernels to."""
+    q, k, v, mask = _f32_flash_case(21, B, h, L, d)
     err = (flash_tf32(q, k, v, mask) - ta.flash_attention_plain(q, k, v, mask)).abs().max()
     assert err.item() <= 1e-5, err.item()
 
 
-def test_tf32_flash_arithmetic_is_within_1e5_of_the_jax_kernel():
+@pytest.mark.parametrize("d", [64, 32, 16])
+def test_tf32_flash_arithmetic_is_within_1e5_of_the_jax_kernel(d):
     """The same against the JAX flash kernel in interpret mode (f32), ragged
     L and a row with no live key included: within 1e-5."""
-    q, k, v, mask = _f32_flash_case(23, 3, 2, 200)
+    q, k, v, mask = _f32_flash_case(23, 3, 2, 200, d)
     mask[2] = 0
     want = np.asarray(j_flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                               mask=jnp.asarray(mask.numpy()), interpret=True))
@@ -150,14 +158,25 @@ def test_tf32_flash_arithmetic_is_within_1e5_of_the_jax_kernel():
     assert err <= 1e-5, err
 
 
-def test_one_pass_tf32_flash_fails_the_1e5_check():
+@pytest.mark.parametrize("d,B,h,L", F32_FLASH_CASES)
+def test_one_pass_tf32_flash_fails_the_1e5_check(d, B, h, L):
     """One TF32 pass (each operand rounded to TF32 once) misses 1e-5 at the
-    same shape by about a hundred times: the f32 checks would catch a
-    kernel that dropped the small terms."""
-    q, k, v, mask = _f32_flash_case(21, 2, 16, 512)
+    same shapes by far: the f32 checks would catch a kernel that dropped
+    the small terms."""
+    q, k, v, mask = _f32_flash_case(21, B, h, L, d)
     err = (flash_tf32(q, k, v, mask, passes=1)
            - ta.flash_attention_plain(q, k, v, mask)).abs().max()
     assert err.item() > 1e-4, err.item()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_f32_fragment_reads_hit_distinct_banks(d):
+    """At the f32 kernels' row stride of d + 4 floats (20, 36, 68: 4 mod 16),
+    each 4-byte fragment read of a warp (q's and K's at row grp, column tig;
+    V's at row 2 tig, column grp) hits 32 distinct banks at head dims 16, 32
+    and 64, as 68 does at 64: no read waits on another lane's."""
+    for name, banks in fragment_banks(d).items():
+        assert sorted(banks) == list(range(32)), name
 
 
 def test_flash_checks_shapes():

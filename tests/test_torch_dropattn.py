@@ -451,12 +451,14 @@ def test_the_mask_applied_at_head_dim_64_is_dropout_keep_mask(L):
 def test_routes_send_head_dim_64_to_the_tensor_cores():
     """The routes at head dim 64: flash and both dropattn kernels take the
     tensor cores in bf16 and f32. The f32 forward streams the head and takes
-    every L; the bf16 forward takes L while the head's K and V fit a block
-    (656 at d = 64, 1344 at d = 32) and the CUDA-core kernel past that; the
-    backward holds the head in a block while it fits (208 in bf16, 128 in
-    f32) and streams it on the tensor cores past that ("tc_stream"), as it
-    does for f32 at head dim 32 at every L: no backward is left on the CUDA
-    cores."""
+    every L, at head dims 16 and 32 as at 64 (dropattn_fwd_tc_tf32_kernel);
+    the bf16 forward takes L while the head's K and V fit a block (656 at
+    d = 64, 1344 at d = 32) and the CUDA-core kernel past that; the backward
+    holds the head in a block while it fits (208 in bf16, 128 in f32) and
+    streams it on the tensor cores past that ("tc_stream"), as it does for
+    f32 at head dim 32 at every L: no backward is left on the CUDA cores,
+    and no f32 forward either. f32 flash takes the tensor cores at head dims
+    16, 32 and 64; only bf16 flash at 16 stays on the CUDA cores."""
     limits, fwd_limits = ta.DROPATTN_TC_MAX_L, ta.DROPATTN_FWD_TC_MAX_L
     assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
     assert fwd_limits == {(torch.bfloat16, 16): 2256, (torch.bfloat16, 32): 1344,
@@ -470,21 +472,22 @@ def test_routes_send_head_dim_64_to_the_tensor_cores():
                 "tc" if L <= limits[(dtype, 64)] else "tc_stream")
         assert ta.dropattn_fwd_route(torch.bfloat16, 32, L) == (
             "tc" if L <= 1344 else "cuda_core")
-        assert ta.dropattn_fwd_route(torch.float32, 32, L) == "cuda_core"
+        assert ta.dropattn_fwd_route(torch.float32, 32, L) == "tc"
         assert ta.dropattn_bwd_route(torch.bfloat16, 32, L) == (
             "tc" if L <= limits[(torch.bfloat16, 32)] else "tc_stream")
         assert ta.dropattn_bwd_route(torch.float32, 32, L) == "tc_stream"
-        # head dim 16 (the --tiny models): bf16 as at 32, f32 on the CUDA-core
-        # forward and the streaming backward
+        # head dim 16 (the --tiny models): bf16 as at 32, f32 on the
+        # tensor-core forward and the streaming backward
         assert ta.dropattn_fwd_route(torch.bfloat16, 16, L) == (
             "tc" if L <= 2256 else "cuda_core")
-        assert ta.dropattn_fwd_route(torch.float32, 16, L) == "cuda_core"
+        assert ta.dropattn_fwd_route(torch.float32, 16, L) == "tc"
         assert ta.dropattn_bwd_route(torch.bfloat16, 16, L) == (
             "tc" if L <= limits[(torch.bfloat16, 16)] else "tc_stream")
         assert ta.dropattn_bwd_route(torch.float32, 16, L) == "tc_stream"
     assert ta.flash_route(torch.bfloat16, 64) == ta.flash_route(torch.float32, 64) == "tc"
     assert ta.flash_route(torch.bfloat16, 32) == "tc"
-    assert ta.flash_route(torch.float32, 32) == ta.flash_route(torch.bfloat16, 16) == "cuda_core"
+    assert ta.flash_route(torch.float32, 32) == ta.flash_route(torch.float32, 16) == "tc"
+    assert ta.flash_route(torch.bfloat16, 16) == "cuda_core"
     assert ta._DROPATTN_HEAD_DIMS == (16, 32, 64)
 
 
@@ -523,28 +526,36 @@ def _fwd_within_1e5(got, want):
     assert lse_err <= 1e-4, lse_err
 
 
+# (d, B, h, L): the teacher's train shape [4, 16, 64, 64] and eight tiles
+# at head dim 64; the f32 student's train length 192 at 32 (ragged: three
+# tiles, the last of them full) with its heads cut, and 100 (a ragged last
+# tile); the tiny teacher's [*, 4, 64, 16]
+F32_FWD_CASES = [(64, 4, 16, 64), (64, 2, 16, 512), (32, 2, 4, 192), (32, 2, 3, 100),
+                 (16, 4, 4, 64)]
+
+
 @pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("B,L", [(4, 64), (2, 512)])
-def test_tf32_forward_arithmetic_is_within_1e5_of_the_plain_version(B, L, p):
-    """The f32 forward at head dim 64 (tests/torch_tc_emulation.py
-    dropattn_fwd_tf32: three TF32 products a product with their small terms
-    apart, truncating mma sums, one online pass over 64-key tiles) against
-    dropattn_fwd_plain at [4, 16, 64, 64] (the teacher's train shape) and
-    [2, 16, 512, 64] (eight tiles), with a padding bias and, at p = 0.1, the
-    plain keep-mask: out within the 1e-5 and lse within the 1e-4 the card
-    holds the kernel to."""
-    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 3, B, 16, L, 64))
-    keep = None if p == 0 else ta.dropout_keep_mask(31, B * 16, L, p).view(B, 16, L, L)
+@pytest.mark.parametrize("d,B,h,L", F32_FWD_CASES)
+def test_tf32_forward_arithmetic_is_within_1e5_of_the_plain_version(d, B, h, L, p):
+    """The f32 forwards (tests/torch_tc_emulation.py dropattn_fwd_tf32, which
+    both f32 kernels compute: three TF32 products a product with their small
+    terms apart, truncating mma sums, one online pass over 64-key tiles)
+    against dropattn_fwd_plain at head dims 64, 32 and 16, with a padding
+    bias and, at p = 0.1, the plain keep-mask: out within the 1e-5 and lse
+    within the 1e-4 the card holds the kernels to."""
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(L + 3, B, h, L, d))
+    keep = None if p == 0 else ta.dropout_keep_mask(31, B * h, L, p).view(B, h, L, L)
     got = dropattn_fwd_tf32(q, k, v, bias, p, keep)
     _fwd_within_1e5(got, ta.dropattn_fwd_plain(q, k, v, bias, p, 31))
 
 
+@pytest.mark.parametrize("d", [64, 32, 16])
 @pytest.mark.parametrize("L", [64, 128])
-def test_tf32_forward_arithmetic_is_within_1e5_of_the_jax_kernel(L):
+def test_tf32_forward_arithmetic_is_within_1e5_of_the_jax_kernel(L, d):
     """The same against the JAX forward kernel in interpret mode at p = 0
-    (f32, a padding bias): out within 1e-5, lse within 1e-4 of the plain
-    version's."""
-    q, k, v, _, bias = _inputs(L + 9, 2, 3, L, 64)
+    (f32, a padding bias) at head dims 64, 32 and 16: out within 1e-5, lse
+    within 1e-4 of the plain version's."""
+    q, k, v, _, bias = _inputs(L + 9, 2, 3, L, d)
     tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
     want = j_dropattn_fwd(0.0, True, *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias),
                           jnp.asarray([3], jnp.int32))
@@ -555,30 +566,39 @@ def test_tf32_forward_arithmetic_is_within_1e5_of_the_jax_kernel(L):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
-def test_one_pass_tf32_forward_fails_the_1e5_check():
-    """One TF32 pass misses 1e-5 at the teacher's train shape by far: the
-    f32 checks would catch a forward that dropped the small terms."""
-    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(67, 4, 16, 64, 64))
-    keep = ta.dropout_keep_mask(31, 64, 64, 0.1).view(4, 16, 64, 64)
+@pytest.mark.parametrize("d,B,h,L", [(64, 4, 16, 64), (32, 2, 4, 192), (16, 4, 4, 64)])
+def test_one_pass_tf32_forward_fails_the_1e5_check(d, B, h, L):
+    """One TF32 pass misses 1e-5 by far at the teacher's train shape and at
+    the student's and the tiny teacher's head dims: the f32 checks would
+    catch a forward that dropped the small terms."""
+    q, k, v, _, bias = (torch.from_numpy(a) for a in _inputs(67, B, h, L, d))
+    keep = ta.dropout_keep_mask(31, B * h, L, 0.1).view(B, h, L, L)
     out, _ = dropattn_fwd_tf32(q, k, v, bias, 0.1, keep, passes=1)
     want, _ = ta.dropattn_fwd_plain(q, k, v, bias, 0.1, 31)
     assert (out - want).abs().max().item() > 1e-4
 
 
-def test_the_f32_forward_lanes_hold_whole_philox_groups():
-    """The f32 tensor-core forward's index arithmetic (K and V rows stored by
-    csrc/attn_common.cuh slot_row): the key each score element's shared row
-    holds is the key the kernel takes its bias and keep bit for; lane (grp,
-    tig) holds keys 4 tig .. 4 tig + 3 of every 16-key chunk of the tile, the
-    four words of one Philox call; and step nt of p v reads the V rows of
-    the keys of that lane's score columns."""
-    stored, used, pv_rows = tf32_forward_fragment_keys()
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_the_f32_forward_lanes_hold_whole_philox_groups(d):
+    """The f32 tensor-core forward's index arithmetic at head dims 16, 32 and
+    64 (K and V rows stored by csrc/attn_common.cuh slot_row, d + 4 floats
+    apart): the key each score element's shared row holds is the key the
+    kernel takes its bias and keep bit for; lane (grp, tig) holds keys
+    4 tig .. 4 tig + 3 of every 16-key chunk of the tile, the four words of
+    one Philox call; step nt of p v reads the V rows of the keys of that
+    lane's score columns; and each score step ks < d / 8 reads K at columns
+    8 ks + tig and + 4 of the key in shared row nt * 8 + grp, never a
+    padding column."""
+    stored, used, pv_rows, k_reads = tf32_forward_fragment_keys(d)
+    key_at = {(r & ~15) + 8 * ((r >> 1) & 1) + 2 * ((r & 15) >> 2) + (r & 1): r for r in range(64)}
     for lane in range(32):
-        tig = lane & 3
+        grp, tig = lane >> 2, lane & 3
         assert stored[lane] == used[lane]
         for c in range(4):
             assert sorted(stored[lane][4 * c:4 * c + 4]) == [16 * c + 4 * tig + j for j in range(4)]
         assert pv_rows[lane] == stored[lane]
+        assert k_reads[lane] == {(nt, ks, b): (key_at[nt * 8 + grp], 8 * ks + tig + 4 * b)
+                                 for nt in range(8) for ks in range(d // 8) for b in range(2)}
 
 
 def _tc_forward_smem(d: int, L: int) -> int:

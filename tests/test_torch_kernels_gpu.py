@@ -413,11 +413,11 @@ def test_dropattn_bwd_tensor_core_route_is_bitwise_repeatable():
 
 def test_attention_routes_and_their_counters():
     """Each call counts one launch; only the tensor-core routes count in
-    tc_launches: flash for bf16 at head dim 32, the forward for bf16 at
-    L <= 1344, the backward at every L (bf16 at L <= 256 holding the head,
-    f32 and longer L streaming it, counted in stream_launches too); f32
-    flash and forward, other head dims and longer L take the CUDA-core
-    kernels."""
+    tc_launches: flash for bf16 at head dim 32 and f32 at every head dim,
+    the forward for bf16 at L <= 1344 and f32 at every L, the backward at
+    every L (bf16 at L <= 256 holding the head, f32 and longer L streaming
+    it, counted in stream_launches too); bf16 flash at head dim 16 and the
+    bf16 forward past its limit take the CUDA-core kernels."""
     from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
@@ -433,10 +433,10 @@ def test_attention_routes_and_their_counters():
             ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
     torch.cuda.synchronize()
     counts, tc = launch_counts(), tc_launch_counts()
-    assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 1
+    assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 2
     assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 3
     assert ta.dropattn_bwd.stream_launches == 2  # f32 at 192, bf16 at 320
-    assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 2
+    assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 3
     limit = ta.DROPATTN_TC_MAX_L[(torch.bfloat16, 32)]
     assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit) == "tc"
     assert ta.dropattn_bwd_route(torch.bfloat16, 32, limit + 1) == "tc_stream"
@@ -444,7 +444,7 @@ def test_attention_routes_and_their_counters():
     fwd_limit = ta.DROPATTN_FWD_TC_MAX_L[(torch.bfloat16, 32)]
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, fwd_limit) == "tc"
     assert ta.dropattn_fwd_route(torch.bfloat16, 32, fwd_limit + 1) == "cuda_core"
-    assert ta.dropattn_fwd_route(torch.float32, 32, 64) == "cuda_core"
+    assert ta.dropattn_fwd_route(torch.float32, 32, 64) == "tc"
     reset_launch_counts()
     assert tc_launch_counts() == {"flash_attn_fwd": 0, "dropattn_fwd": 0, "dropattn_bwd": 0,
                                   "cell_gather": 0, "bin_gather": 0, "binmax_strided": 0,
@@ -1534,6 +1534,109 @@ def test_f32_backwards_give_zero_dq_dk_on_one_live_key_rows(B, h, L, d, route):
     keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
     bias = torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min / 2)
     _, lse = ta.dropattn_fwd_plain(q, k, v, bias, 0.0, 3)
+    got = ta.dropattn_bwd(q, k, v, bias, 0.0, 3, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.0, 3, lse, go)
+    torch.cuda.synchronize()
+    for name, a in zip(("dq", "dk"), got):
+        assert a[1:].abs().max().item() <= 2e-6, (name, a[1:].abs().max().item())
+    _grads_within(torch.float32, q, k, v, bias, 0.0, 3, lse, go, [t[:1] for t in got],
+                  [t[:1] for t in want])
+
+
+# ---------------------------------------------------------------------------
+# The f32 forwards at head dims 16 and 32 on the tensor cores
+# (flash_fwd_tc_tf32_kernel<D>, dropattn_fwd_tc_tf32_kernel<D>)
+# ---------------------------------------------------------------------------
+
+# (B, h, L, d): the f32 student's train shape (B cut) and its encode length,
+# one key tile (L = 64), a ragged one (33) and ragged several (130, 100),
+# one key; the tiny teacher's [32, 4, 64, 16]
+F32_SMALL_D_SHAPES = [(8, 12, 192, 32), (4, 12, 512, 32), (4, 12, 64, 32), (3, 5, 33, 32),
+                      (3, 5, 130, 32), (2, 3, 1, 32), (32, 4, 64, 16), (3, 4, 100, 16),
+                      (2, 3, 1, 16)]
+
+
+@pytest.mark.parametrize("B,h,L,d", F32_SMALL_D_SHAPES)
+def test_f32_forwards_at_head_dims_16_and_32_on_the_tensor_cores(B, h, L, d):
+    """f32 dropattn_fwd (p 0 and 0.1, a padding bias) and flash (a ragged
+    key mask with a row of one key and a row of none) at head dims 16 and 32
+    take the tensor cores: one tensor-core launch a call counted at head dim
+    d, two launches bitwise equal, out within 1e-5 of the plain version and
+    the lse within 1e-4."""
+    _need_card()
+    q, k, v, _, bias = _attn_inputs(B, h, L, d, torch.float32, seed=900 + L + d)
+    assert ta.dropattn_fwd_route(torch.float32, d, L) == ta.flash_route(torch.float32, d) == "tc"
+    for p in (0.0, 0.1):
+        seed = 90 + L
+        before = (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches.get(d, 0))
+        out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+        assert (ta.dropattn_fwd.tc_launches, ta.dropattn_fwd.head_dim_launches[d]) == (
+            before[0] + 1, before[1] + 1)
+        again = ta.dropattn_fwd(q, k, v, bias, p, seed)
+        want, want_lse = ta.dropattn_fwd_plain(q, k, v, bias, p, seed)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert (out - want).abs().max().item() <= 1e-5
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+    lens = torch.tensor([L, max(1, L // 2), 1, 0] * B, device="cuda")[:B]
+    mask = (torch.arange(L, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    before = (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(d, 0))
+    got = ta.flash_attention(q, k, v, mask)
+    assert (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches[d]) == (
+        before[0] + 1, before[1] + 1)
+    again = ta.flash_attention(q, k, v, mask)
+    want = ta.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("d,L", [(32, 64), (32, 256), (16, 64), (16, 256)])
+def test_f32_forward_at_head_dims_16_and_32_applies_the_plain_mask(d, L):
+    """f32, q = k = 0 and a zero bias: each probability is 1/L, each kept pd
+    2/L at p = 0.5, exact in f32 and in the TF32 terms. With v holding
+    2^(j % 8) in channel (j // 8) % d for the keys j of one window of 8 d
+    (0 elsewhere), out spells each row's keep bits over that window: the
+    mask the tensor-core forward applied, read back bit for bit."""
+    _need_card()
+    B, h, seed = 2, 3, 73
+    zero = torch.zeros(B, h, L, d, device="cuda")
+    bias = torch.zeros(B, L, device="cuda")
+    want = ta.dropout_keep_mask(seed, B * h, L, 0.5, device="cuda").view(B, h, L, L)
+    j = torch.arange(L, device="cuda")
+    bit = torch.arange(8, device="cuda")
+    tc_before = ta.dropattn_fwd.tc_launches
+    for w0 in range(0, L, 8 * d):
+        n = min(8 * d, L - w0)
+        code = torch.zeros(L, d, device="cuda")
+        win = j[w0:w0 + n]
+        code[win, (win - w0) // 8] = (2.0 ** (win % 8)).float()
+        out, _ = ta.dropattn_fwd(zero, zero, code.expand(B, h, L, d).contiguous(), bias, 0.5,
+                                 seed)
+        c = (out * (L / 2)).round().long()[..., : n // 8]
+        spelled = ((c[..., None] >> bit) & 1).flatten(-2).bool()
+        assert bool((spelled == want[..., w0:w0 + n]).all())
+    assert ta.dropattn_fwd.tc_launches == tc_before + (L + 8 * d - 1) // (8 * d)
+
+
+@pytest.mark.parametrize("B,h,L,d", [(32, 12, 192, 32), (16, 4, 64, 16)])
+def test_f32_backward_gives_zero_dq_dk_on_one_live_key_rows_with_the_kernel_lse(B, h, L, d):
+    """As test_f32_backwards_give_zero_dq_dk_on_one_live_key_rows, with the
+    lse of the tensor-core forward at head dims 32 and 16 (whose score
+    products run in another order than the streaming backward's): on the
+    rows that keep one key, dq and dk stay within 2e-6 of their exact 0, and
+    the full batch row 0 within 1e-5 (1 + |want|) of the plain pair."""
+    _need_card()
+    assert ta.dropattn_fwd_route(torch.float32, d, L) == "tc"
+    g = torch.Generator(device="cuda").manual_seed(2000 + L + d)
+    q, k, v, go = (torch.randn(B, h, L, d, device="cuda", generator=g) for _ in range(4))
+    lens = torch.ones(B, dtype=torch.long, device="cuda")
+    lens[0] = L
+    keep = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min / 2)
+    tc_before = ta.dropattn_fwd.tc_launches
+    _, lse = ta.dropattn_fwd(q, k, v, bias, 0.0, 3)
+    assert ta.dropattn_fwd.tc_launches == tc_before + 1
     got = ta.dropattn_bwd(q, k, v, bias, 0.0, 3, lse, go)
     want = ta.dropattn_bwd_plain(q, k, v, bias, 0.0, 3, lse, go)
     torch.cuda.synchronize()

@@ -19,8 +19,9 @@ step, with what differs from the plain versions beyond summation order:
   as 2^(s * scale * log2(e) + (bias - lse) * log2(e)), rounded to bf16
   after the keep-mask and 1 / (1 - p).
 
-The f32 routes at head dim 64 (``flash_fwd_tc_tf32_kernel``,
-``dropattn_bwd_tc_tf32_kernel``, and the streaming backward at head dims
+The f32 routes (``flash_fwd_tc_tf32_kernel`` and
+``dropattn_fwd_tc_tf32_kernel`` at head dims 16, 32 and 64,
+``dropattn_bwd_tc_tf32_kernel``, and the streaming backward at head dims 16,
 32 and 64) take each product as three TF32 products
 (``mma_tf32``): each operand rounded to TF32 as cvt.rna.tf32.f32 does (10
 mantissa bits, to nearest, ties away) into a hi term and its remainder into
@@ -28,11 +29,13 @@ a lo term, each 8-deep step of mma.sync m16n8k8 adding hi hi to the
 accumulator and lo hi, hi lo to one of their own, each step's 8 exact
 products added to its accumulator and the sum truncated toward zero, as
 ``mma``'s; the two accumulators added once at the end. The softmax is the CUDA-core
-kernels' in natural units (f32 exp, nothing folded). ``flash_tf32``,
-``dropattn_fwd_tf32`` (``dropattn_fwd_tc_tf32_kernel``: one online pass
-over 64-key tiles, the kept p times 1 / (1 - p) into p v in the tile's slot
-order, one division at the end) and ``dropattn_bwd_tf32`` follow them, the
-backward's dq steps in the kernel's key order, its D divided by the row's
+kernels' in natural units (f32 exp, nothing folded). ``flash_tf32`` and
+``dropattn_fwd_tf32`` (one online pass over 64-key tiles, the kept p times
+1 / (1 - p) into p v in the tile's slot order, one division at the end)
+take any head dim: the f32 kernels are one template instantiated at head
+dims 16, 32 and 64, the sums over the same 64-key tiles at each.
+``dropattn_bwd_tf32`` follows the f32 backward,
+its dq steps in the kernel's key order, its D divided by the row's
 sum of probabilities (``normalize=False``: before that repair, D as the
 plain pair forms it); ``passes=1`` gives the
 one-pass TF32 product the tests show the 1e-5 checks would catch.
@@ -42,7 +45,9 @@ the keep bits over 64-key tiles, dq over the same tiles, dk and dv over
 64-query tiles from S^T and dP^T, each sum on one chain across the tiles
 (``mma_tf32_pair`` carries the f32 route's two accumulators).
 ``tf32_fragment_keys`` and ``tf32_forward_fragment_keys`` write out which
-keys of a chunk each lane of the f32 backward and forward holds.
+keys of a chunk each lane of the f32 backward and forward holds, and
+``fragment_banks`` which shared-memory banks the f32 kernels' fragment
+reads hit.
 
 ``tile_gather_tc`` follows the schedule of csrc/gather_tc.cuh, the
 gather that ``cell_gather_tc_kernel`` and ``bin_gather_tc_kernel`` share:
@@ -245,8 +250,8 @@ def mma_tf32(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
 
 
 def flash_tf32(q, k, v, mask, passes: int = 3):
-    """The f32 flash kernel's result at head dim 64 for q, k, v [B, h, L, d]
-    (f32) and a key keep-mask [B, L] (None = all): 64-key tiles, the online
+    """The f32 flash kernels' result for q, k, v [B, h, L, d] (f32, any head
+    dim) and a key keep-mask [B, L] (None = all): 64-key tiles, the online
     softmax in natural units, both products on ``mma_tf32``."""
     B, h, L, d = q.shape
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
@@ -441,8 +446,8 @@ _SLOT_ORDER = sorted(range(64), key=_slot_row)
 
 
 def dropattn_fwd_tf32(q, k, v, bias, p, keep_mask, passes: int = 3):
-    """(out, lse) of the f32 forward kernel at head dim 64 for q, k, v
-    [B, h, L, d] (f32), bias [B, L] and ``keep_mask`` [B, h, L, L] (bool) or
+    """(out, lse) of the f32 forward kernels for q, k, v [B, h, L, d] (f32,
+    any head dim), bias [B, L] and ``keep_mask`` [B, h, L, L] (bool) or
     None at p = 0: 64-key tiles, s = qk * scale + bias, the running max and
     sum in natural units (the sum over every key, kept or not), the
     accumulator rescaled a tile, the kept p times 1 / (1 - p) into p v whose
@@ -473,23 +478,30 @@ def dropattn_fwd_tf32(q, k, v, bias, p, keep_mask, passes: int = 3):
     return o / l, (m + torch.log(l))[..., 0]
 
 
-def tf32_forward_fragment_keys():
-    """What the f32 forward's lanes hold of a 64-key tile, from its index
-    arithmetic: ``stored[lane]`` the key in the shared row of score element
+def tf32_forward_fragment_keys(d: int = 64):
+    """What the f32 forward's lanes hold of a 64-key tile at head dim ``d``,
+    from its index arithmetic (rows stored by slot_row at a stride of d + 4
+    floats): ``stored[lane]`` the key in the shared row of score element
     e (0, 1) of tile nt (column 2 tig + e of tile nt is shared row nt * 8 +
-    2 tig + e, rows stored by slot_row), ``used[lane]`` the key the kernel
-    takes that element for (its bias and keep bit: 16 (nt >> 1) + 4 tig +
-    2 (nt & 1) + e), and ``pv_rows[lane]`` the keys of the V rows step nt of
-    p v reads as b0 and b1 (shared rows nt * 8 + 2 tig and + 1)."""
+    2 tig + e), ``used[lane]`` the key the kernel takes that element for (its
+    bias and keep bit: 16 (nt >> 1) + 4 tig + 2 (nt & 1) + e),
+    ``pv_rows[lane]`` the keys of the V rows step nt of p v reads as b0 and
+    b1 (shared rows nt * 8 + 2 tig and + 1), and ``k_reads[lane]`` the (key,
+    column) of each K value its score steps read, decoded from the address
+    (nt * 8 + grp) * (d + 4) + ks * 8 + tig (b0) and + 4 (b1), ks < d / 8."""
     key_at = {_slot_row(r): r for r in range(64)}
-    stored, used, pv_rows = [], [], []
+    ld = d + 4
+    stored, used, pv_rows, k_reads = [], [], [], []
     for lane in range(32):
-        tig = lane & 3
+        grp, tig = lane >> 2, lane & 3
         stored.append([key_at[nt * 8 + 2 * tig + e] for nt in range(8) for e in range(2)])
         used.append([16 * (nt >> 1) + 4 * tig + 2 * (nt & 1) + e
                      for nt in range(8) for e in range(2)])
         pv_rows.append([key_at[nt * 8 + 2 * tig + b] for nt in range(8) for b in range(2)])
-    return stored, used, pv_rows
+        k_reads.append({(nt, ks, b): (key_at[addr // ld], addr % ld)
+                        for nt in range(8) for ks in range(d // 8) for b in range(2)
+                        for addr in [(nt * 8 + grp) * ld + ks * 8 + tig + 4 * b]})
+    return stored, used, pv_rows, k_reads
 
 
 def tf32_fragment_keys():
@@ -506,6 +518,17 @@ def tf32_fragment_keys():
         scores.append([key_at[8 * nt + 2 * tig + (e & 1)] for nt in range(2) for e in range(2)])
         dq_rows.append([[key_at[8 * s + 2 * tig + b] for b in range(2)] for s in range(2)])
     return scores, dq_rows
+
+
+def fragment_banks(d: int):
+    """The shared-memory banks (32 of 4 bytes) that the f32 kernels' 4-byte
+    fragment reads hit, lane by lane, at a row stride of d + 4 floats:
+    ``"k"`` a score step's b0 (K row grp, column tig; b1 is four columns
+    on), ``"v"`` a p v step's b0 (V row 2 tig, column grp; b1 is one row
+    on); q's A fragment a0 (row grp, column tig) reads as K's b0 does."""
+    ld = d + 4
+    return {"k": [((lane >> 2) * ld + (lane & 3)) % 32 for lane in range(32)],
+            "v": [(2 * (lane & 3) * ld + (lane >> 2)) % 32 for lane in range(32)]}
 
 
 CELL_RUN = 8  # csrc/cell_gather.cu TC_RUN
