@@ -230,7 +230,28 @@ Phases, each fatal when it fails:
              100, batch 32: every loss finite, more than half the queries
              with negatives, each union at most 5 teacher ids and the ANCE
              picks, every dropattn launch at d = 32 on the tensor cores;
-             seconds per pipeline step and the teacher's pairs a second.
+             seconds per pipeline step and the teacher's pairs a second;
+10. cli    — the port's own entry point, `python -m sskd_tpu_torch.cli.main`,
+             each command a process of its own at the serve phase's width
+             (its seeded student and 1,000,000-row index): `index build
+             --dtype int8 --method exact` over the 8,192 passages written as
+             a chunk parquet by the port's writer, its rows bit for bit an
+             in-process IndexBuilder build's, and `index validate`;
+             `serve` of the 1M-row index under configs/service.yaml with the
+             cache, API keys (a hash from keys.py) and the rate limit turned
+             on: 401 without a key, 64 queries' ids equal to the plain
+             engine's over /encode's embeddings, a cached repeat, 429 past the
+             burst, /docs, /openapi.json and /metrics, 200 sequential timed
+             requests (p50, queries/s), /index/load of the 8,192-row index
+             (the result cache flushed), SIGTERM ending it with exit code 0;
+             `serve --hybrid-bm25` whose fused ids equal HybridSearcher's;
+             `export` (min cosine >= 0.99, the int8 file read back equal);
+             `compare` on artifacts/demo (exit 1, FAILED, every number within
+             1e-3 of eval (a)'s); `demo-data`, `prepare`, `integrity` and
+             `train --tiny --epochs 1` beside the index build; `doctor
+             --index` naming the card; `config --production-audit` (exit 1,
+             the JAX package's audit of the defaults). Every wait bounded,
+             each command's seconds recorded.
 
 The line before the last is {"kernels": [...]}, the one before it the card's
 name and power limit, the last {"ok": true, "device": {...}}. The full
@@ -249,6 +270,7 @@ import json
 import math
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -2004,27 +2026,31 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def post(port: int, path: str, body: dict, timeout: float = 300.0) -> tuple[int, dict, float]:
+def request(port: int, method: str, path: str, body: dict | None = None,
+            headers: dict | None = None, timeout: float = 300.0) -> tuple[int, dict | str, float]:
+    """(status, JSON body or text, ms) of one request to 127.0.0.1:``port``."""
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
-        conn.request("POST", path, json.dumps(body), {"content-type": "application/json"})
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"content-type": "application/json", **(headers or {})})
         resp = conn.getresponse()
-        data = json.loads(resp.read())
-        return resp.status, data, (time.perf_counter() - t0) * 1e3
+        raw = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        try:
+            return resp.status, json.loads(raw), ms
+        except ValueError:
+            return resp.status, raw.decode(), ms
     finally:
         conn.close()
+
+
+def post(port: int, path: str, body: dict, timeout: float = 300.0) -> tuple[int, dict, float]:
+    return request(port, "POST", path, body, timeout=timeout)
 
 
 def get(port: int, path: str) -> int:
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-    try:
-        conn.request("GET", path)
-        resp = conn.getresponse()
-        resp.read()
-        return resp.status
-    finally:
-        conn.close()
+    return request(port, "GET", path, timeout=30)[0]
 
 
 def loadgen(port: int, n_requests: int, clients: int, seed: int, rerank: bool = False) -> dict:
@@ -4736,6 +4762,309 @@ def phase_pipeline(args) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# The cli phase: the port's own entry point, semantic-kd-torch, as subprocesses
+# ---------------------------------------------------------------------------
+
+CLI_QUERIES = 64  # /search against the plain engine over /encode's embeddings
+CLI_SEQUENTIAL = 200  # distinct /search requests from one client, timed
+# the JAX package's production audit of the default settings
+DEFAULT_AUDIT = ["cors.allow_origins contains wildcard", "auth.enabled is False",
+                 "rate_limit.enabled is False"]
+
+
+def cli_run(argv: list, seconds: dict, tag: str, expect_rc: int = 0, timeout: float = 300,
+            env: dict | None = None) -> str:
+    """``python -m sskd_tpu_torch.cli.main *argv`` on the card; checks its exit
+    code, records its seconds under ``tag``, returns its standard output."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "sskd_tpu_torch.cli.main", *map(str, argv)],
+                         cwd=ROOT, env={**os.environ, **(env or {})}, capture_output=True,
+                         text=True, timeout=timeout)
+    seconds[tag] = time.perf_counter() - t0
+    check(out.returncode == expect_rc, f"semantic-kd-torch {tag}: exit {out.returncode}, want "
+          f"{expect_rc}: {out.stderr[-1500:]}")
+    return out.stdout
+
+
+@contextlib.contextmanager
+def cli_server(argv: list, seconds: dict, tag: str, env: dict | None = None):
+    """``semantic-kd-torch serve *argv`` on 127.0.0.1 in a process of its own;
+    yields the port once /ready answers 200 (at most 300 s), then SIGTERM,
+    which must end it with exit code 0 within 60 s."""
+    port = free_port()
+    log_path = ROOT / "build" / "chip_smoke" / "cli" / f"{tag}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sskd_tpu_torch.cli.main", "serve", "--host", "127.0.0.1",
+             "--port", str(port), *map(str, argv)],
+            cwd=ROOT, env={**os.environ, **(env or {})}, stdout=log_file, stderr=log_file)
+        try:
+            while True:
+                check(proc.poll() is None, f"{tag}: the server exited {proc.returncode} at "
+                      f"startup: {log_path.read_text()[-1500:]}")
+                check(time.perf_counter() - t0 < 300, f"{tag}: not ready after 300 s")
+                try:
+                    if get(port, "/ready") == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            seconds[f"{tag}.startup"] = time.perf_counter() - t0
+            yield port
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            check(rc == 0, f"{tag}: SIGTERM ended the server with exit code {rc}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    seconds[tag] = time.perf_counter() - t0
+
+
+def report_rows(report: str) -> dict:
+    """The rows of a `compare` report's table, {model: {metric: value}}."""
+    lines = [ln for ln in report.splitlines() if ln.startswith("| ")]
+    head = [c.strip() for c in lines[0].strip("|").split("|")]
+    return {cells[0]: dict(zip(head[1:], map(float, cells[1:])))
+            for cells in ([c.strip() for c in ln.strip("|").split("|")] for ln in lines[1:])}
+
+
+def phase_cli(args, eval_record: dict) -> dict:
+    """The port's command line on the card, each command a process of its
+    own, at full e5-small-v2 width (the serve phase's seeded student and
+    1,000,000-row index under build/chip_smoke): index build / validate,
+    serve under configs/service.yaml with the cache, auth and the rate
+    limit on, serve with the hybrid arm, export, compare, the data commands
+    and train --tiny, doctor and config. Every wait bounded; each command's
+    seconds recorded."""
+    import shutil
+
+    from sskd_tpu_torch.data.parquet import write_parquet
+    from sskd_tpu_torch.index.builder import IndexBuilder
+    from sskd_tpu_torch.keys import APIKeyManager
+    from sskd_tpu_torch.mining.bm25 import BM25Index
+    from sskd_tpu_torch.models.export import load_quantized_weights, quantize_param_tree
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.models.weights import jax_params_from_bi_encoder
+    from sskd_tpu_torch.ops.topk import cosine_topk_core
+    from sskd_tpu_torch.serve.hybrid import HybridSearcher
+
+    base = ROOT / "build" / "chip_smoke"
+    work = base / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    student_dir, big_index = base / "student", base / "index"
+    seconds: dict = {}
+    out: dict = {"seconds": seconds}
+
+    data = work / "data"
+
+    def pipeline():
+        manifest = json.loads(cli_run(["demo-data", "--out", data / "raw" / "demo", "--samples",
+                                       TINY_SAMPLES], seconds, "demo-data"))
+        check(sum(s["num_samples"] for s in manifest["splits"].values()) == TINY_SAMPLES,
+              f"demo-data: {manifest}")
+        cli_run(["prepare", "--data-dir", data], seconds, "prepare")
+        check(json.loads(cli_run(["integrity", "--data-dir", data], seconds, "integrity"))["ok"],
+              "integrity")
+        # as pipeline (b): the untrained teacher's confidence would filter every negative
+        res = json.loads(cli_run(["train", "--tiny", "--epochs", "1", "--data-dir", data,
+                                  "--output-dir", work / "run"], seconds, "train --tiny",
+                                 timeout=600, env={
+                                     "SEMANTIC_KD_MINING__TEACHER_CONFIDENCE_THRESHOLD": "0.0"}))
+        history = json.loads((work / "run" / "history.json").read_text())
+        losses = [v for rec in history for k, v in rec.items() if "loss" in k
+                  and isinstance(v, float)]
+        check(res["global_step"] > 0 and losses and all(math.isfinite(v) for v in losses),
+              f"train --tiny: {res}, losses {losses}")
+        return {"global_step": res["global_step"], "losses": losses}
+
+    # the data commands and train --tiny run beside the index build (the
+    # served latencies below are timed with nothing else on the card)
+    side = ThreadPoolExecutor(5)
+    chain_future = side.submit(pipeline)
+
+    # 1-2. index build over the serve cell's passages, then validate
+    passages = make_passages(N_DOCS, args.seed)
+    chunk_ids = [f"chunk-{i}" for i in range(N_DOCS)]
+    write_parquet(work / "chunks.parquet", {"chunk_id": chunk_ids, "text": passages})
+    built = json.loads(cli_run(["index", "build", "--model", student_dir, "--data",
+                                work / "chunks.parquet", "--out", work / "index", "--dtype",
+                                "int8", "--method", "exact"], seconds, "index build",
+                               timeout=600))
+    check(built["ntotal"] == N_DOCS, f"index build: {built}")
+    student = StudentModel(str(student_dir), device="cuda")
+    want = IndexBuilder(student.embedding_dim, index_type="exact", dtype="int8",
+                        device="cuda").build_from_parquet(student, work / "chunks.parquet")
+    got = IndexBuilder(device="cuda").load(work / "index")
+    check(np.array_equal(got._vectors, want._vectors) and np.array_equal(got._scales, want._scales)
+          and got.doc_ids == want.doc_ids, "the CLI's index rows differ from an in-process build")
+    del want, student
+    report = json.loads(cli_run(["index", "validate", "--dir", work / "index"], seconds,
+                                "index validate"))
+    check(report["passed"], f"index validate: {report}")
+    out["validate_recall@10"] = report["recall@10"]
+    out["pipeline"] = chain_future.result()
+
+    # 3. serve the 1M-row index under configs/service.yaml, cache + auth + rate limit
+    keys = APIKeyManager(work / "keys.json")
+    key = keys.generate("chip-smoke")
+    env = {"SEMANTIC_KD_CONFIG_PATH": str(ROOT / "configs" / "service.yaml"),
+           "SEMANTIC_KD_CACHE__ENABLED": "true", "SEMANTIC_KD_AUTH__ENABLED": "true",
+           "SEMANTIC_KD_AUTH__API_KEY_HASHES": keys.export_env(),
+           "SEMANTIC_KD_RATE_LIMIT__ENABLED": "true"}
+    rng = np.random.default_rng(args.seed + 10)
+    queries = [" ".join(rng.choice(WORDS, 6)) for _ in range(CLI_QUERIES + CLI_SEQUENTIAL)]
+    check(len(set(queries)) == len(queries), "the phase's queries repeat")
+    served, encoded = [], []
+    serve_out: dict = {}
+    with cli_server(["--index", big_index, "--model", student_dir], seconds, "serve", env) as port:
+        auth = {"X-API-Key": key}
+
+        def as_client(name: str) -> dict:  # each client its own token bucket
+            return {**auth, "X-Forwarded-For": name}
+
+        status, body, _ = request(port, "POST", "/search", {"query": queries[0]},
+                                  {"X-Forwarded-For": "anonymous"})
+        check(status == 401, f"/search without a key: HTTP {status} {body}")
+        for path in ("/docs", "/openapi.json"):
+            check(request(port, "GET", path, headers=as_client("docs"))[0] == 200, path)
+        check(request(port, "GET", "/metrics", headers=auth)[0] == 200, "/metrics")
+        for i, q in enumerate(queries[:CLI_QUERIES]):
+            status, body, _ = request(port, "POST", "/search", {"query": q, "k": 10},
+                                      as_client(f"q{i}"))
+            check(status == 200 and body["cached"] is False, f"/search {q!r}: {status} {body}")
+            served.append([r["doc_id"] for r in body["results"]])
+            status, enc, _ = request(port, "POST", "/encode", {"texts": ["query: " + q]},
+                                     as_client(f"e{i}"))
+            check(status == 200, f"/encode {q!r}: {status}")
+            encoded.append(enc["embeddings"][0])
+        status, body, _ = request(port, "POST", "/search", {"query": queries[0], "k": 10},
+                                  as_client("repeat"))
+        check(status == 200 and body["cached"] is True and
+              [r["doc_id"] for r in body["results"]] == served[0], f"repeat: {body}")
+        # configs/service.yaml: a burst of 10, then a token a second
+        burst = [request(port, "POST", "/search", {"query": queries[0], "k": 10},
+                         as_client("burst"))[0] for _ in range(12)]
+        check(burst[:10] == [200] * 10 and burst[-1] == 429, f"the burst's statuses: {burst}")
+        serve_out["burst"] = burst
+        lat = []
+        t0 = time.perf_counter()
+        for i, q in enumerate(queries[CLI_QUERIES:]):
+            status, body, ms = request(port, "POST", "/search", {"query": q, "k": 10},
+                                       as_client(f"s{i}"))
+            check(status == 200, f"sequential /search: {status} {body}")
+            lat.append(ms)
+        wall = time.perf_counter() - t0
+        serve_out["sequential"] = {"requests": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+                                   "p99_ms": float(np.percentile(lat, 99)),
+                                   "queries_per_s": len(lat) / wall}
+        status, body, _ = request(port, "POST", "/index/load",
+                                  {"index_dir": str(work / "index")}, as_client("load"))
+        check(status == 200 and body["index_size"] == N_DOCS, f"/index/load: {status} {body}")
+        status, body, _ = request(port, "POST", "/search", {"query": queries[0], "k": 10},
+                                  as_client("after-load"))
+        check(status == 200 and body["cached"] is False and
+              all(r["doc_id"].startswith("chunk-") for r in body["results"]),
+              f"after /index/load the result cache was not flushed: {body}")
+        status, health, _ = request(port, "GET", "/health")
+        check(health["index_size"] == N_DOCS, f"/health after the swap: {health}")
+        metrics = request(port, "GET", "/metrics", headers=auth)[1]
+        check('semantic_kd_cache_hits_total{cache="result"}' in metrics and
+              f"semantic_kd_rate_limit_hits_total {float(burst.count(429))!r}" in metrics,
+              "the cache and rate-limit counters")
+    # every served id list against the plain engine on /encode's embeddings
+    b = IndexBuilder(device="cuda").load(big_index)
+    b.ensure_device()
+    emb = torch.tensor(encoded, dtype=torch.float32, device="cuda")
+    _, pi = cosine_topk_core(emb, b.device_vectors, 10, row_scales=b.device_scales,
+                             valid_n=b.ntotal)
+    plain = [[b.doc_ids[i] for i in row] for row in pi.cpu().tolist()]
+    serve_out["mismatched_queries"] = sum(g != w for g, w in zip(served, plain))
+    check(serve_out["mismatched_queries"] == 0,
+          f"{serve_out['mismatched_queries']} of {CLI_QUERIES} queries differ from the plain engine")
+    del b, emb
+    torch.cuda.empty_cache()
+    out["serve"] = serve_out
+    log(f"[cli] serve: {json.dumps(serve_out)}")
+
+    # 4-8. the hybrid arm, export, compare, doctor and config: independent
+    # of each other, run side by side
+
+    def hybrid_arm():
+        """The hybrid arm over a BM25 index of the same passages."""
+        BM25Index().build(passages, chunk_ids).save(work / "bm25")
+        fused_served, fused_enc = [], []
+        with cli_server(["--index", work / "index", "--model", student_dir, "--hybrid-bm25",
+                         work / "bm25"], seconds, "serve hybrid") as port:
+            for q in queries[:8]:
+                status, body, _ = request(port, "POST", "/search", {"query": q, "k": 10})
+                check(status == 200 and body["hybrid"] is True, f"hybrid /search: {status} {body}")
+                fused_served.append([r["doc_id"] for r in body["results"]])
+                fused_enc.append(request(port, "POST", "/encode",
+                                         {"texts": ["query: " + q]})[1]["embeddings"][0])
+        small = IndexBuilder(device="cuda").load(work / "index")
+        small.ensure_device()
+        pv, pi = cosine_topk_core(torch.tensor(fused_enc, device="cuda"), small.device_vectors, 10,
+                                  row_scales=small.device_scales, valid_n=small.ntotal)
+        hybrid = HybridSearcher(BM25Index.load(work / "bm25"))
+        want_fused = [[d for d, _ in hybrid.fuse(q, [(small.doc_ids[i], float(s))
+                                                     for s, i in zip(sv, si)], k=10)]
+                      for q, sv, si in zip(queries[:8], pv.cpu().tolist(), pi.cpu().tolist())]
+        mismatched = sum(g != w for g, w in zip(fused_served, want_fused))
+        check(mismatched == 0, "the served fusion differs from HybridSearcher's")
+        return {"queries": len(want_fused), "mismatched_queries": mismatched}
+
+    def export():
+        rep = json.loads(cli_run(["export", "--model", student_dir, "--out", work / "export"],
+                                 seconds, "export"))
+        s = StudentModel(str(student_dir), device="cpu")
+        want_q, _ = quantize_param_tree(jax_params_from_bi_encoder(s.module.state_dict(),
+                                                                    s.config))
+        back = load_quantized_weights(work / "export" / "weights_int8.npz")
+        same = back.keys() == want_q.keys() and all(
+            np.array_equal(back[k][kind], want_q[k][kind]) for k in want_q for kind in want_q[k])
+        check(rep["validation_min_cosine"] >= 0.99 and same, f"export: {rep}, read back {same}")
+        return {"validation_min_cosine": rep["validation_min_cosine"],
+                "compression_ratio": rep["compression_ratio"], "read_back_equal": same}
+
+    def compare():
+        text = cli_run(["compare", "--kd-model", DEMO / "run_kd/best_model", "--vanilla-model",
+                        DEMO / "vanilla", "--teacher-model", DEMO / "teacher", "--data",
+                        DEMO_TEST, "--max-samples", "600"], seconds, "compare", expect_rc=1)
+        check("**FAILED**" in text, "compare: the gate did not say FAILED")
+        rows, want_rows = report_rows(text), eval_record["checkpoints"]["rows"]
+        gap = max(abs(rows[m][k] - want_rows[m][k]) for m in want_rows for k in rows[m])
+        check(gap <= 1e-3, f"compare: a number {gap} from the eval phase's")
+        return {"max_gap_vs_eval": gap}
+
+    def doctor():
+        rep = json.loads(cli_run(["doctor", "--index", work / "index"], seconds, "doctor"))
+        name = torch.cuda.get_device_name(0)
+        check(rep["ok"] and rep["checks"]["cuda_device"].get("name") == name, f"doctor: {rep}")
+        return rep["checks"]["cuda_device"]
+
+    def config():
+        text = cli_run(["config", "--production-audit"], seconds, "config", expect_rc=1)
+        tree, end = json.JSONDecoder().raw_decode(text)
+        problems = json.loads(text[end:])["production_problems"]
+        check(problems == DEFAULT_AUDIT and tree["service"]["port"] == 8000,
+              f"config --production-audit: {problems}")
+        return problems
+
+    parts = {"hybrid": hybrid_arm, "export": export, "compare": compare, "doctor": doctor,
+             "audit": config}
+    with side:
+        futures = {name: side.submit(fn) for name, fn in parts.items()}
+        for name, fut in futures.items():
+            out[name] = fut.result()
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[cli] {json.dumps({k: v for k, v in out.items() if k != 'serve'})}")
+    return out
+
+
 def probed_cells(b, q: torch.Tensor) -> torch.Tensor:
     """The cells that clustered_topk probes for ``q``."""
     from sskd_tpu_torch.ops.topk_kernels import topk_stable
@@ -4817,6 +5146,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["pipeline"] = phase_pipeline(args)
     log(f"[pipeline] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["cli"] = phase_cli(args, record["eval"])
+    log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
     record["seconds"] = time.perf_counter() - t_all
     record["profiler_windows"] = dict(PROFILER)
     log(f"[profiler] kernel_device_ms windows: {json.dumps(PROFILER)}")

@@ -1,2 +1,3 @@
-"""Command-line pipeline (port of sskd_tpu/cli): so far the evaluation and
-training inputs of ``pipeline.py``."""
+"""Command-line entry point of the port (port of sskd_tpu/cli): ``main.py``,
+the ``semantic-kd-torch`` console script, and ``pipeline.py``, the training
+and evaluation pipeline it drives."""

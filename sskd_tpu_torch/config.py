@@ -1,43 +1,52 @@
 """Configuration of the port (port of sskd_tpu/config.py).
 
-Standard-library dataclasses in place of pydantic (the machine with the GPU
-has neither pydantic nor pyyaml). The sections the port reads keep the JAX
-package's field names, defaults and bounds: ``student``, ``teacher``,
-``index``, ``search`` (with the rerank fields), ``service``, ``precision``,
-``cors`` and ``monitoring`` for serving, ``loss``, ``training``, ``mining``
-(the three-stage curriculum) and ``data`` (the pipeline's data directory
-and chunking) for KD training, each with only the fields the port reads.
-Sections that later slices need (rate limiting, auth, cache, hybrid) are
-not here yet; a ``mesh`` section raises, as data-parallel training is not
-ported.
+Standard-library dataclasses in place of pydantic, and a reader of its own
+in place of pyyaml (the machine with the GPU has neither). Every section and
+field of the JAX package is here, with its name, default and bounds:
+``student``, ``teacher``, ``loss``, ``training``, ``mining``, ``index``,
+``mesh``, ``precision``, ``cors``, ``rate_limit``, ``auth``, ``monitoring``,
+``service``, ``search`` (with ``search.hybrid``), ``cache`` and ``data``,
+and the top-level ``debug``. ``mesh`` takes only values that mean one
+device: data-parallel training and sharded serving are not ported.
 
-Overrides: ``Settings.from_dict({"index": {"search_method": "exact"}})``
-for keyword-style trees, and ``SEMANTIC_KD_<SECTION>__<FIELD>=value``
-environment variables through :meth:`Settings.from_env` (values parsed as
-JSON when they parse, else kept as strings). A value outside its bounds or
-an unknown section or field raises :class:`ConfigError`. ``Settings``
-remembers which fields ``from_dict`` / ``from_env`` were given
-(:meth:`Settings.is_set`, the stand-in for pydantic's ``model_fields_set``):
-serving lets an explicit ``index.nprobe`` override a loaded index's own.
+Precedence, as in the JAX package: environment variables
+(``SEMANTIC_KD_<SECTION>__<FIELD>=value``, nested by ``__``, values parsed
+as JSON when they parse, else kept as strings) over the YAML file named by
+``SEMANTIC_KD_CONFIG_PATH`` over the defaults (:func:`get_settings`).
+``Settings.from_dict`` takes keyword-style trees, ``Settings.from_yaml`` /
+``to_yaml`` read and write the YAML subset of ``configs/*.yaml``
+(:func:`parse_yaml`). A value outside its bounds, an unknown section or
+field, or YAML outside the subset raises :class:`ConfigError`. ``Settings``
+remembers which fields ``from_dict`` / ``from_env`` / ``from_yaml`` were
+given (:meth:`Settings.is_set`, the stand-in for pydantic's
+``model_fields_set``): serving lets an explicit ``index.nprobe`` override a
+loaded index's own.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
+import warnings
 from dataclasses import asdict, dataclass, field, fields
+from pathlib import Path
 from typing import Any
 
 from sskd_tpu_torch.exceptions import ConfigError
 
 ENV_PREFIX = "SEMANTIC_KD_"
 NESTED_DELIMITER = "__"
+CONFIG_PATH_ENV = "SEMANTIC_KD_CONFIG_PATH"
+SHARDING_NOT_PORTED = "data-parallel training and sharding are not ported yet: ROADMAP Queue 1 item 7"
 
 
-def _check(obj, name: str, *, ge=None, le=None, choices=None, kind=None) -> None:
+def _check(obj, name: str, *, ge=None, le=None, gt=None, choices=None, kind=None) -> None:
     value = getattr(obj, name)
     where = f"{type(obj).__name__}.{name}={value!r}"
-    if kind is not None and not isinstance(value, kind):
+    if kind is not None and (not isinstance(value, kind) or
+                             (isinstance(value, bool) and bool not in kind)):
         raise ConfigError(f"{where}: expected {kind}")
     if choices is not None and value not in choices:
         raise ConfigError(f"{where}: must be one of {choices}")
@@ -45,128 +54,71 @@ def _check(obj, name: str, *, ge=None, le=None, choices=None, kind=None) -> None
         raise ConfigError(f"{where}: must be >= {ge}")
     if le is not None and value > le:
         raise ConfigError(f"{where}: must be <= {le}")
+    if gt is not None and value <= gt:
+        raise ConfigError(f"{where}: must be > {gt}")
 
 
 _INT = (int,)
 _NUM = (int, float)
+_BOOL = (bool,)
+_STR = (str,)
+
+
+class _Section:
+    """Coerces ints given to float fields (as pydantic does: YAML's ``5000``
+    is ``5000.0`` in the JAX tree), checks bool, str and list fields, then
+    runs the section's own checks."""
+
+    def __post_init__(self):
+        for f in fields(self):
+            value = getattr(self, f.name)
+            if f.type == "float" and isinstance(value, int) and not isinstance(value, bool):
+                setattr(self, f.name, float(value))
+            elif f.type == "bool":
+                _check(self, f.name, kind=_BOOL)
+            elif f.type == "str":
+                _check(self, f.name, kind=_STR)
+            elif f.type == "list":
+                if not isinstance(value, list) or not all(isinstance(v, str) for v in value):
+                    raise ConfigError(f"{type(self).__name__}.{f.name}={value!r}: "
+                                      "expected a list of strings")
+        self.validate()
+
+    def validate(self) -> None:
+        pass
 
 
 @dataclass
-class StudentModelConfig:
+class StudentModelConfig(_Section):
     model_name: str = "intfloat/e5-small-v2"
+    embedding_dim: int = 384
     max_seq_length: int = 512
     normalize_embeddings: bool = True
     query_prefix: str = "query: "
     passage_prefix: str = "passage: "
     pooling: str = "mean"
 
-    def __post_init__(self):
+    def validate(self):
+        _check(self, "embedding_dim", ge=1, kind=_INT)
         _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
         _check(self, "pooling", choices=("mean", "cls"))
 
 
 @dataclass
-class TeacherModelConfig:
+class TeacherModelConfig(_Section):
     """The cross-encoder teacher (sskd_tpu/config.py:44)."""
 
     model_name: str = "BAAI/bge-reranker-large"
     max_seq_length: int = 512
     batch_size: int = 32
 
-    def __post_init__(self):
+    def validate(self):
         _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
         _check(self, "batch_size", ge=1, kind=_INT)
 
 
 @dataclass
-class IndexConfig:
-    """The JAX package's IndexConfig, the fields the port reads. These are
-    build-time settings: a loaded index is served as it was recorded, except
-    for an explicitly set ``nprobe`` and for ``refine_storage``, where the
-    bf16 refine rows live, a deployment choice applied at load (see
-    ``serve/app.py``)."""
-
-    search_method: str = "approx"
-    recall_target: float = 0.99
-    block_rows: int = 262144
-    cluster_rows: int = 0  # 0 = auto (about sqrt(N))
-    nprobe: int = 64
-    # int8 / int4 two-stage refinement: the sweep fetches refine_m candidates,
-    # their bf16 rows are rescored; 0 disables
-    refine_m: int = 0
-    refine_storage: str = "device"  # "device" or "host": where the bf16 refine rows live
-    validation_queries: int = 1000
-    validation_recall_at_10: float = 0.97
-
-    def __post_init__(self):
-        _check(self, "search_method", choices=("exact", "approx", "clustered"))
-        _check(self, "recall_target", ge=0.5, le=1.0, kind=_NUM)
-        _check(self, "block_rows", ge=128, kind=_INT)
-        _check(self, "cluster_rows", ge=0, kind=_INT)
-        _check(self, "nprobe", ge=1, kind=_INT)
-        _check(self, "refine_m", ge=0, kind=_INT)
-        _check(self, "refine_storage", choices=("device", "host"))
-        _check(self, "validation_queries", ge=1, kind=_INT)
-        _check(self, "validation_recall_at_10", ge=0.0, le=1.0, kind=_NUM)
-
-
-@dataclass
-class PrecisionConfig:
-    compute_dtype: str = "bfloat16"
-
-    def __post_init__(self):
-        _check(self, "compute_dtype", choices=("float32", "bfloat16"))
-
-
-@dataclass
-class CORSConfig:
-    enabled: bool = True
-    allow_origins: list = field(default_factory=lambda: ["*"])
-    allow_methods: list = field(default_factory=lambda: ["GET", "POST"])
-    allow_headers: list = field(default_factory=lambda: ["*"])
-    allow_credentials: bool = False
-
-
-@dataclass
-class MonitoringConfig:
-    prometheus_enabled: bool = True
-    prometheus_path: str = "/metrics"
-    log_queries: bool = False
-    log_latencies: bool = True
-
-
-@dataclass
-class ServiceConfig:
-    environment: str = "development"
-    micro_batch_window_ms: float = 0.0
-    micro_batch_max_size: int = 64
-
-    def __post_init__(self):
-        _check(self, "environment", choices=("development", "staging", "production"))
-        _check(self, "micro_batch_window_ms", ge=0.0, kind=_NUM)
-        _check(self, "micro_batch_max_size", ge=1, kind=_INT)
-
-
-@dataclass
-class SearchConfig:
-    default_k: int = 10
-    max_k: int = 100
-    rerank_enabled: bool = False
-    rerank_top_k: int = 50  # results the teacher rescores
-    rerank_timeout_ms: float = 5000.0  # past it, the bi-encoder order is served
-
-    def __post_init__(self):
-        _check(self, "default_k", ge=1, le=100, kind=_INT)
-        _check(self, "max_k", ge=1, kind=_INT)
-        _check(self, "rerank_top_k", ge=1, le=200, kind=_INT)
-        _check(self, "rerank_timeout_ms", kind=_NUM)
-        if self.rerank_timeout_ms <= 0.0:
-            raise ConfigError(f"SearchConfig.rerank_timeout_ms={self.rerank_timeout_ms!r}: "
-                              "must be > 0")
-
-
-@dataclass
-class LossConfig:
+class LossConfig(_Section):
     margin_mse_weight: float = 0.6
     listwise_kd_weight: float = 0.2
     contrastive_weight: float = 0.2
@@ -176,20 +128,18 @@ class LossConfig:
     # widen the InfoNCE denominator with every other query's docs in the batch
     in_batch_negatives: bool = False
 
-    def __post_init__(self):
+    def validate(self):
         for name in ("margin_mse_weight", "listwise_kd_weight", "contrastive_weight"):
             _check(self, name, ge=0.0, le=1.0, kind=_NUM)
         for name in ("temperature_start", "temperature_end", "contrastive_tau"):
-            _check(self, name, kind=_NUM)
-            if getattr(self, name) <= 0.0:
-                raise ConfigError(f"LossConfig.{name}={getattr(self, name)!r}: must be > 0")
+            _check(self, name, gt=0.0, kind=_NUM)
         total = self.margin_mse_weight + self.listwise_kd_weight + self.contrastive_weight
         if abs(total - 1.0) > 1e-6:
             raise ConfigError(f"loss weights must sum to 1.0, got {total}")
 
 
 @dataclass
-class TrainingConfig:
+class TrainingConfig(_Section):
     epochs: int = 3
     batch_size: int = 32
     learning_rate: float = 2e-5
@@ -216,18 +166,17 @@ class TrainingConfig:
     output_dir: str = "artifacts/models/kd_student"
     resume: bool = True
 
-    def __post_init__(self):
+    def validate(self):
         for name in ("epochs", "batch_size", "grad_accum_steps"):
             _check(self, name, ge=1, kind=_INT)
         _check(self, "num_docs_per_query", ge=2, kind=_INT)
         for name in ("early_stopping_patience", "save_steps", "eval_steps", "prefetch_batches"):
             _check(self, name, ge=0, kind=_INT)
+        _check(self, "seed", kind=_INT)
         _check(self, "weight_decay", ge=0.0, kind=_NUM)
         _check(self, "warmup_ratio", ge=0.0, le=1.0, kind=_NUM)
         for name in ("learning_rate", "max_grad_norm"):
-            _check(self, name, kind=_NUM)
-            if getattr(self, name) <= 0.0:
-                raise ConfigError(f"TrainingConfig.{name}={getattr(self, name)!r}: must be > 0")
+            _check(self, name, gt=0.0, kind=_NUM)
         _check(self, "remat_policy", choices=("full", "dots"))
         if self.rng_impl != "rbg":
             raise ConfigError(
@@ -238,7 +187,7 @@ class TrainingConfig:
 
 
 @dataclass
-class MiningConfig:
+class MiningConfig(_Section):
     """The three-stage curriculum's knobs (sskd_tpu/config.py MiningConfig):
     the stage, BM25's depth and parameters, the teacher's depth and
     confidence floor, ANCE's picks, margin and in-training refresh, and the
@@ -258,7 +207,7 @@ class MiningConfig:
     bm25_b: float = 0.75
     bm25_epsilon: float = 0.25
 
-    def __post_init__(self):
+    def validate(self):
         _check(self, "stage", ge=1, le=3, kind=_INT)
         for name in ("bm25_top_k", "teacher_top_k", "ance_top_k",
                      "ance_refresh_every_n_steps"):
@@ -269,13 +218,239 @@ class MiningConfig:
             _check(self, name, ge=0.0, le=1.0, kind=_NUM)
         for name in ("ance_margin", "bm25_epsilon"):
             _check(self, name, ge=0.0, kind=_NUM)
-        _check(self, "bm25_k1", kind=_NUM)
-        if self.bm25_k1 <= 0.0:
-            raise ConfigError(f"MiningConfig.bm25_k1={self.bm25_k1!r}: must be > 0")
+        _check(self, "bm25_k1", gt=0.0, kind=_NUM)
 
 
 @dataclass
-class DataConfig:
+class IndexConfig(_Section):
+    """The JAX package's IndexConfig. ``embedding_dim``, ``metric``,
+    ``dtype``, ``search_method``, ``block_rows``, ``cluster_rows`` and
+    ``refine_m`` are build-time settings (``semantic-kd index build``): a
+    loaded index is served as it was recorded, except for an explicitly set
+    ``nprobe`` and for ``refine_storage``, where the bf16 refine rows live,
+    a deployment choice applied at load (see ``serve/app.py``)."""
+
+    embedding_dim: int = 384
+    metric: str = "cosine"
+    dtype: str = "float32"
+    search_method: str = "approx"
+    recall_target: float = 0.99
+    block_rows: int = 262144
+    default_k: int = 10
+    cluster_rows: int = 0  # 0 = auto (about sqrt(N))
+    nprobe: int = 64
+    # int8 / int4 two-stage refinement: the sweep fetches refine_m candidates,
+    # their bf16 rows are rescored; 0 disables
+    refine_m: int = 0
+    refine_storage: str = "device"  # "device" or "host": where the bf16 refine rows live
+    validation_queries: int = 1000
+    validation_recall_at_10: float = 0.97
+
+    def validate(self):
+        _check(self, "embedding_dim", ge=1, kind=_INT)
+        _check(self, "metric", choices=("cosine", "dot"))
+        _check(self, "dtype", choices=("float32", "bfloat16", "int8", "int4"))
+        _check(self, "search_method", choices=("exact", "approx", "clustered"))
+        _check(self, "recall_target", ge=0.5, le=1.0, kind=_NUM)
+        _check(self, "block_rows", ge=128, kind=_INT)
+        _check(self, "default_k", ge=1, kind=_INT)
+        _check(self, "cluster_rows", ge=0, kind=_INT)
+        _check(self, "nprobe", ge=1, kind=_INT)
+        _check(self, "refine_m", ge=0, kind=_INT)
+        _check(self, "refine_storage", choices=("device", "host"))
+        _check(self, "validation_queries", ge=1, kind=_INT)
+        _check(self, "validation_recall_at_10", ge=0.0, le=1.0, kind=_NUM)
+
+
+@dataclass
+class MeshConfig(_Section):
+    """The JAX package's device mesh. The port runs on one device: a mesh
+    that means more than one (``data_parallel`` other than -1 or 1,
+    ``index_parallel`` other than 1) raises."""
+
+    data_axis: str = "data"
+    index_axis: str = "index"
+    data_parallel: int = -1  # -1 = all devices, which is one here
+    index_parallel: int = 1
+
+    def validate(self):
+        _check(self, "data_parallel", ge=-1, kind=_INT)
+        _check(self, "index_parallel", ge=1, kind=_INT)
+        if self.data_parallel not in (-1, 1) or self.index_parallel != 1:
+            raise ConfigError(
+                f"mesh data_parallel={self.data_parallel}, index_parallel="
+                f"{self.index_parallel}: the port runs on one device; {SHARDING_NOT_PORTED}"
+            )
+
+
+@dataclass
+class PrecisionConfig(_Section):
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    index_dtype: str = "float32"
+
+    def validate(self):
+        _check(self, "compute_dtype", choices=("float32", "bfloat16"))
+        _check(self, "param_dtype", choices=("float32", "bfloat16"))
+        _check(self, "index_dtype", choices=("float32", "bfloat16", "int8", "int4"))
+
+
+@dataclass
+class CORSConfig(_Section):
+    enabled: bool = True
+    allow_origins: list = field(default_factory=lambda: ["*"])
+    allow_methods: list = field(default_factory=lambda: ["GET", "POST"])
+    allow_headers: list = field(default_factory=lambda: ["*"])
+    allow_credentials: bool = False
+
+
+@dataclass
+class RateLimitConfig(_Section):
+    enabled: bool = False
+    requests_per_minute: int = 60
+    burst: int = 10
+
+    def validate(self):
+        _check(self, "requests_per_minute", ge=1, kind=_INT)
+        _check(self, "burst", ge=1, kind=_INT)
+
+
+@dataclass
+class AuthConfig(_Section):
+    enabled: bool = False
+    api_key_hashes: list = field(default_factory=list)
+    api_key_header: str = "X-API-Key"
+    # plaintext keys (a migration aid): hashed into api_key_hashes each time
+    # the section is built, as the JAX validator does, and flagged by the
+    # production audit
+    api_keys: list = field(default_factory=list)
+    salt: str = ""
+
+    def validate(self):
+        self._hash_plaintext_keys()
+
+    def _hash_plaintext_keys(self) -> None:
+        if self.api_keys:
+            from sskd_tpu_torch.serve.middleware import APIKeyAuth
+
+            self.api_key_hashes = list(self.api_key_hashes) + [
+                APIKeyAuth.hash_key(k, salt=self.salt) for k in self.api_keys
+            ]
+
+
+@dataclass
+class MonitoringConfig(_Section):
+    prometheus_enabled: bool = True
+    prometheus_path: str = "/metrics"
+    # >0 also binds a listener on this port that serves only the metrics
+    prometheus_port: int = 0
+    opentelemetry_enabled: bool = False
+    opentelemetry_endpoint: str = ""
+    service_name: str = "semantic-kd"
+    # the JAX profiler's port: the port has no such server, so create_app
+    # refuses a nonzero value (see serve/app.py)
+    jax_profiler_port: int = 0
+    log_queries: bool = False
+    log_latencies: bool = True
+
+    def validate(self):
+        _check(self, "prometheus_port", ge=0, le=65535, kind=_INT)
+        _check(self, "jax_profiler_port", ge=0, le=65535, kind=_INT)
+
+
+@dataclass
+class ServiceConfig(_Section):
+    host: str = "0.0.0.0"
+    port: int = 8000
+    environment: str = "development"
+    version: str = "0.1.0"
+    micro_batch_window_ms: float = 0.0
+    micro_batch_max_size: int = 64
+    read_timeout_s: float = 30.0
+    idle_timeout_s: float = 75.0
+    max_connections: int = 1024
+    # worker processes sharing the port (SO_REUSEPORT); more than one is
+    # served only on the CPU (one process owns the card)
+    workers: int = 1
+    log_level: str = "info"
+
+    def validate(self):
+        _check(self, "port", ge=1, le=65535, kind=_INT)
+        _check(self, "environment", choices=("development", "staging", "production"))
+        _check(self, "micro_batch_window_ms", ge=0.0, kind=_NUM)
+        _check(self, "micro_batch_max_size", ge=1, kind=_INT)
+        _check(self, "read_timeout_s", gt=0.0, kind=_NUM)
+        _check(self, "idle_timeout_s", gt=0.0, kind=_NUM)
+        _check(self, "max_connections", ge=1, kind=_INT)
+        _check(self, "workers", ge=1, le=32, kind=_INT)
+        _check(self, "log_level", choices=("debug", "info", "warning", "error", "critical"))
+
+
+@dataclass
+class HybridConfig(_Section):
+    """BM25 + semantic fusion (serve/hybrid.py)."""
+
+    enabled: bool = False
+    bm25_index_path: str = "artifacts/indexes/bm25"
+    bm25_weight: float = 0.3
+    semantic_weight: float = 0.7
+    fusion_method: str = "rrf"
+    rrf_k: int = 60
+    query_expansion: bool = False
+    expansion_docs: int = 3
+    expansion_terms: int = 5
+
+    def validate(self):
+        _check(self, "bm25_weight", ge=0.0, le=1.0, kind=_NUM)
+        _check(self, "semantic_weight", ge=0.0, le=1.0, kind=_NUM)
+        _check(self, "fusion_method", choices=("rrf", "linear"))
+        for name in ("rrf_k", "expansion_docs", "expansion_terms"):
+            _check(self, name, ge=1, kind=_INT)
+        total = self.bm25_weight + self.semantic_weight
+        if abs(total - 1.0) > 1e-6:
+            raise ConfigError(f"bm25_weight + semantic_weight must sum to 1.0, got {total}")
+
+
+@dataclass
+class CacheConfig(_Section):
+    """Query-result and embedding caches (serve/cache.py). Backends other
+    than memory are accepted and served from memory with a warning, as in
+    the JAX package."""
+
+    enabled: bool = False
+    backend: str = "memory"
+    redis_url: str = "redis://localhost:6379"  # kept for the settings' parity; unused
+    ttl_seconds: float = 3600.0
+    max_size: int = 10000
+    embedding_cache: bool = True
+
+    def validate(self):
+        _check(self, "ttl_seconds", gt=0.0, kind=_NUM)
+        _check(self, "max_size", ge=1, kind=_INT)
+
+
+@dataclass
+class SearchConfig(_Section):
+    default_k: int = 10
+    max_k: int = 100
+    rerank_enabled: bool = False
+    rerank_top_k: int = 50  # results the teacher rescores
+    rerank_timeout_ms: float = 5000.0  # past it, the bi-encoder order is served
+    # doc-level MaxSim over chunk hits (utils/chunk.py maxsim_aggregate_topk)
+    maxsim_aggregation: bool = False
+    hybrid: HybridConfig = field(default_factory=HybridConfig)
+
+    def validate(self):
+        _check(self, "default_k", ge=1, le=100, kind=_INT)
+        _check(self, "max_k", ge=1, kind=_INT)
+        _check(self, "rerank_top_k", ge=1, le=200, kind=_INT)
+        _check(self, "rerank_timeout_ms", gt=0.0, kind=_NUM)
+        if isinstance(self.hybrid, dict):
+            self.hybrid = HybridConfig(**self.hybrid)
+
+
+@dataclass
+class DataConfig(_Section):
     """Where the pipeline keeps its data and how it chunks it
     (sskd_tpu/config.py DataConfig)."""
 
@@ -284,66 +459,114 @@ class DataConfig:
     chunk_max_tokens: int = 512
     chunk_stride: int = 80
 
-    def __post_init__(self):
+    def validate(self):
         _check(self, "max_samples", ge=0, kind=_INT)
         _check(self, "chunk_max_tokens", ge=8, kind=_INT)
         _check(self, "chunk_stride", ge=0, kind=_INT)
 
 
+# in the JAX tree's order
 _SECTIONS = {
     "student": StudentModelConfig,
     "teacher": TeacherModelConfig,
-    "index": IndexConfig,
-    "precision": PrecisionConfig,
-    "cors": CORSConfig,
-    "monitoring": MonitoringConfig,
-    "service": ServiceConfig,
-    "search": SearchConfig,
     "loss": LossConfig,
     "training": TrainingConfig,
     "mining": MiningConfig,
+    "index": IndexConfig,
+    "mesh": MeshConfig,
+    "precision": PrecisionConfig,
+    "cors": CORSConfig,
+    "rate_limit": RateLimitConfig,
+    "auth": AuthConfig,
+    "monitoring": MonitoringConfig,
+    "service": ServiceConfig,
+    "search": SearchConfig,
+    "cache": CacheConfig,
     "data": DataConfig,
 }
+_NESTED = {("search", "hybrid"): HybridConfig}
 
 
 @dataclass
 class Settings:
+    debug: bool = False
     student: StudentModelConfig = field(default_factory=StudentModelConfig)
     teacher: TeacherModelConfig = field(default_factory=TeacherModelConfig)
-    index: IndexConfig = field(default_factory=IndexConfig)
-    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
-    cors: CORSConfig = field(default_factory=CORSConfig)
-    monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
-    service: ServiceConfig = field(default_factory=ServiceConfig)
-    search: SearchConfig = field(default_factory=SearchConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     mining: MiningConfig = field(default_factory=MiningConfig)
+    index: IndexConfig = field(default_factory=IndexConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    cors: CORSConfig = field(default_factory=CORSConfig)
+    rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
+    auth: AuthConfig = field(default_factory=AuthConfig)
+    monitoring: MonitoringConfig = field(default_factory=MonitoringConfig)
+    service: ServiceConfig = field(default_factory=ServiceConfig)
+    search: SearchConfig = field(default_factory=SearchConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
     data: DataConfig = field(default_factory=DataConfig)
-    # the (section, field) names that from_dict / from_env were given
+    # the (section, field) names that from_dict / from_env / from_yaml were
+    # given; a field of search.hybrid is ("search", "hybrid.<field>")
     fields_set: frozenset = field(default_factory=frozenset, compare=False, repr=False)
 
+    def __post_init__(self):
+        if not isinstance(self.debug, bool):
+            raise ConfigError(f"Settings.debug={self.debug!r}: expected a bool")
+        self._production_enforcement()
+
+    def _production_enforcement(self) -> None:
+        """Warn about unsafe production combinations, as the JAX package does."""
+        if self.service.environment == "production":
+            if "*" in self.cors.allow_origins:
+                warnings.warn("CORS wildcard origin in production", UserWarning, stacklevel=3)
+            if not self.auth.enabled:
+                warnings.warn("API key auth disabled in production", UserWarning, stacklevel=3)
+            if not self.rate_limit.enabled:
+                warnings.warn("rate limiting disabled in production", UserWarning, stacklevel=3)
+
+    def validate_for_production(self) -> list[str]:
+        """The production audit's problems (the JAX package's list)."""
+        problems: list[str] = []
+        if "*" in self.cors.allow_origins:
+            problems.append("cors.allow_origins contains wildcard")
+        if not self.auth.enabled:
+            problems.append("auth.enabled is False")
+        if self.auth.api_keys:
+            problems.append(
+                "auth.api_keys holds PLAINTEXT keys (migration aid) — move "
+                "the hashes to auth.api_key_hashes and drop the plaintext"
+            )
+        if not self.rate_limit.enabled:
+            problems.append("rate_limit.enabled is False")
+        if not self.monitoring.prometheus_enabled:
+            problems.append("monitoring.prometheus_enabled is False")
+        if self.debug:
+            problems.append("debug mode is enabled")
+        return problems
+
     def to_dict(self) -> dict[str, Any]:
-        return {s: asdict(getattr(self, s)) for s in _SECTIONS}
+        """The tree of the JAX package's ``model_dump()``."""
+        return {"debug": self.debug, **{s: asdict(getattr(self, s)) for s in _SECTIONS}}
 
     def is_set(self, section: str, name: str) -> bool:
-        """Whether ``section.name`` was given explicitly (by ``from_dict`` or
-        ``from_env``, here or in ``base``) rather than left at its default."""
+        """Whether ``section.name`` was given explicitly (by ``from_dict``,
+        ``from_env`` or ``from_yaml``, here or in ``base``) rather than left
+        at its default."""
         return (section, name) in self.fields_set
 
     @classmethod
     def from_dict(cls, data: dict[str, Any], base: "Settings | None" = None) -> "Settings":
-        """Settings from a nested ``{section: {field: value}}`` tree, on top
-        of ``base`` (or the defaults)."""
+        """Settings from a nested ``{section: {field: value}}`` tree (and
+        ``debug``), on top of ``base`` (or the defaults)."""
         base = base or cls()
         merged = base.to_dict()
         given = set(base.fields_set)
         for section, values in data.items():
-            if section == "mesh":
-                raise ConfigError(
-                    "the mesh section (data-parallel training and sharding) is not "
-                    "ported yet: ROADMAP Queue 1 item 7"
-                )
+            if section == "debug":
+                merged["debug"] = values
+                given.add(("debug", "debug"))
+                continue
             if section not in _SECTIONS:
                 raise ConfigError(f"unknown config section {section!r}")
             if not isinstance(values, dict):
@@ -352,35 +575,327 @@ class Settings:
             for name, value in values.items():
                 if name not in known:
                     raise ConfigError(f"unknown config field {section}.{name}")
-                merged[section][name] = value
-                given.add((section, name))
+                nested = _NESTED.get((section, name))
+                if nested is None:
+                    merged[section][name] = value
+                    given.add((section, name))
+                    continue
+                if not isinstance(value, dict):
+                    raise ConfigError(f"config field {section}.{name} must be a mapping")
+                sub_known = {f.name for f in fields(nested)}
+                for sub, sub_value in value.items():
+                    if sub not in sub_known:
+                        raise ConfigError(f"unknown config field {section}.{name}.{sub}")
+                    merged[section][name][sub] = sub_value
+                    given.add((section, f"{name}.{sub}"))
         return cls(
-            **{s: _SECTIONS[s](**merged[s]) for s in _SECTIONS}, fields_set=frozenset(given)
+            debug=merged["debug"],
+            **{s: _SECTIONS[s](**merged[s]) for s in _SECTIONS},
+            fields_set=frozenset(given),
         )
 
     @classmethod
     def from_env(cls, base: "Settings | None" = None, environ=None) -> "Settings":
-        """Apply ``SEMANTIC_KD_<section>__<field>=value`` overrides; variables
-        that name no known section and field are ignored, as in the JAX
-        package."""
+        """Apply ``SEMANTIC_KD_<section>__<field>=value`` overrides (``__``
+        nests deeper, ``SEMANTIC_KD_DEBUG`` sets ``debug``); variables that
+        name no known field are ignored, as in the JAX package."""
         environ = os.environ if environ is None else environ
-        tree: dict[str, dict[str, Any]] = {}
+        known = (base or cls()).to_dict()
+        tree: dict[str, Any] = {}
         for key, value in environ.items():
-            if not key.startswith(ENV_PREFIX):
+            if not key.startswith(ENV_PREFIX) or key == CONFIG_PATH_ENV:
                 continue
-            parts = key[len(ENV_PREFIX) :].lower().split(NESTED_DELIMITER)
-            if len(parts) != 2 or parts[0] not in _SECTIONS:
-                continue
-            section, name = parts
-            if name not in {f.name for f in fields(_SECTIONS[section])}:
+            parts = key[len(ENV_PREFIX):].lower().split(NESTED_DELIMITER)
+            node, ok = known, True
+            for part in parts[:-1]:
+                if isinstance(node, dict) and part in node:
+                    node = node[part]
+                else:
+                    ok = False
+                    break
+            if not ok or not isinstance(node, dict) or parts[-1] not in node:
                 continue
             try:
-                tree.setdefault(section, {})[name] = json.loads(value)
+                parsed = json.loads(value)
             except ValueError:
-                tree.setdefault(section, {})[name] = value
+                parsed = value
+            out = tree
+            for part in parts[:-1]:
+                out = out.setdefault(part, {})
+            out[parts[-1]] = parsed
         return cls.from_dict(tree, base)
+
+    # -- YAML ----------------------------------------------------------------
+
+    @classmethod
+    def from_yaml(cls, path: str | Path) -> "Settings":
+        """Settings from a YAML file in the subset :func:`parse_yaml` reads."""
+        with open(path, encoding="utf-8") as f:
+            tree = parse_yaml(f.read()) or {}
+        if not isinstance(tree, dict):
+            raise ConfigError(f"{path}: the top level must be a mapping")
+        return cls.from_dict(tree)
+
+    def to_yaml(self, path: str | Path) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(dump_yaml(self.to_dict()))
 
 
 def get_settings() -> Settings:
-    """Defaults with the environment's overrides."""
-    return Settings.from_env()
+    """The YAML at ``SEMANTIC_KD_CONFIG_PATH`` (when set), then the
+    environment's overrides, then the defaults."""
+    config_path = os.environ.get(CONFIG_PATH_ENV)
+    base = Settings.from_yaml(config_path) if config_path else None
+    return Settings.from_env(base)
+
+
+# ---------------------------------------------------------------------------
+# YAML: the subset of configs/*.yaml (block mappings by indentation, plain
+# and quoted scalars, inline [] lists, comments), typed as pyyaml's safe
+# loader types plain scalars (YAML 1.1). Anything else raises ConfigError.
+# ---------------------------------------------------------------------------
+
+_YAML_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                        r"|on|On|ON|off|Off|OFF)$")
+_YAML_TRUE = {"yes", "true", "on"}
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                       r"|[-+]?0x[0-9a-fA-F_]+)$")
+_YAML_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+# plain scalars that pyyaml would read as something this reader does not
+# build: sexagesimal numbers, timestamps, merge keys, anchors, tags, aliases
+_YAML_OUTSIDE = re.compile(r"^(?:[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+                           r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=)$")
+_YAML_INDICATORS = set("&*!|>%@`{}[]\"'")
+_KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_.\-]*)\s*:(?:\s+(.*))?$")
+
+
+def _yaml_plain(text: str, where: str) -> Any:
+    if _YAML_NULL.match(text):
+        return None
+    if _YAML_BOOL.match(text):
+        return text.lower() in _YAML_TRUE
+    if _YAML_INT.match(text):
+        v = text.replace("_", "")
+        sign = -1 if v.startswith("-") else 1
+        v = v.lstrip("+-")
+        if v.startswith("0b"):
+            return sign * int(v[2:], 2)
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if len(v) > 1 and v.startswith("0"):
+            return sign * int(v, 8)
+        return sign * int(v)
+    if _YAML_FLOAT.match(text):
+        v = text.replace("_", "").lower()
+        if v.lstrip("+-") == ".inf":
+            return -math.inf if v.startswith("-") else math.inf
+        if v == ".nan":
+            return math.nan
+        return float(v)
+    if _YAML_OUTSIDE.match(text) or text[0] in _YAML_INDICATORS or text.startswith(("- ", "? ")) \
+            or ": " in text or " #" in text or text.endswith(":"):
+        raise ConfigError(f"{where}: {text!r} is outside the YAML subset the port reads")
+    return text
+
+
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
+            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
+            "N": "\x85", "_": "\xa0", "L": " ", "P": " "}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+
+
+def _yaml_quoted(text: str, i: int, where: str) -> tuple[str, int]:
+    """The quoted scalar starting at ``text[i]`` and the index after it."""
+    quote, out, i = text[i], [], i + 1
+    while i < len(text):
+        c = text[i]
+        if quote == "'" and c == "'":
+            if text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), i + 1
+        if quote == '"' and c == '"':
+            return "".join(out), i + 1
+        if quote == '"' and c == "\\":
+            e = text[i + 1:i + 2]
+            if e in _ESCAPES:
+                out.append(_ESCAPES[e])
+                i += 2
+                continue
+            if e in _HEX_ESCAPES:
+                n = _HEX_ESCAPES[e]
+                digits = text[i + 2:i + 2 + n]
+                if len(digits) != n or not all(d in "0123456789abcdefABCDEF" for d in digits):
+                    raise ConfigError(f"{where}: bad escape in {text!r}")
+                out.append(chr(int(digits, 16)))
+                i += 2 + n
+                continue
+            raise ConfigError(f"{where}: unknown escape \\{e} in {text!r}")
+        out.append(c)
+        i += 1
+    raise ConfigError(f"{where}: unterminated quoted scalar in {text!r}")
+
+
+def _strip_comment(text: str) -> str:
+    """``text`` without a trailing comment (``#`` at the start or after
+    whitespace, outside quotes)."""
+    quote = None
+    i = 0
+    while i < len(text):
+        c = text[i]
+        if quote:
+            if c == "\\" and quote == '"':
+                i += 2
+                continue
+            if c == quote:
+                if quote == "'" and text[i + 1:i + 2] == "'":
+                    i += 2
+                    continue
+                quote = None
+        elif c in "\"'" and (i == 0 or text[i - 1] in " [,:"):
+            quote = c
+        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+        i += 1
+    return text.rstrip()
+
+
+def _yaml_value(text: str, where: str) -> Any:
+    """A scalar or an inline ``[...]`` list of scalars (comment removed)."""
+    if text[0] in "\"'":
+        value, end = _yaml_quoted(text, 0, where)
+        if text[end:].strip():
+            raise ConfigError(f"{where}: text after a quoted scalar: {text!r}")
+        return value
+    if text[0] == "[":
+        if not text.endswith("]"):
+            raise ConfigError(f"{where}: unterminated inline list {text!r}")
+        items: list = []
+        i, body = 0, text[1:-1]
+        while True:
+            while i < len(body) and body[i] in " \t":
+                i += 1
+            if i >= len(body):
+                if items:
+                    raise ConfigError(f"{where}: trailing comma in {text!r}")
+                return items
+            if body[i] in "\"'":
+                value, i = _yaml_quoted(body, i, where)
+            else:
+                j = body.find(",", i)
+                j = len(body) if j < 0 else j
+                item = body[i:j].strip()
+                if not item or item[0] in "[{":
+                    raise ConfigError(f"{where}: {text!r} is outside the YAML subset the port reads")
+                value, i = _yaml_plain(item, where), j
+            items.append(value)
+            while i < len(body) and body[i] in " \t":
+                i += 1
+            if i >= len(body):
+                return items
+            if body[i] != ",":
+                raise ConfigError(f"{where}: expected ',' in {text!r}")
+            i += 1
+    return _yaml_plain(text, where)
+
+
+def parse_yaml(text: str, source: str = "<yaml>") -> Any:
+    """The tree that ``yaml.safe_load`` gives for YAML in the subset of
+    ``configs/*.yaml``: block mappings nested by indentation (spaces),
+    plain, single- and double-quoted scalars typed as pyyaml types them,
+    inline ``[...]`` lists of scalars, comments and blank lines.
+    Anything else (block sequences, multi-line or block scalars, anchors,
+    tags, flow mappings, tabs, duplicate keys) raises :class:`ConfigError`."""
+    lines: list[tuple[int, int, str]] = []  # (line number, indent, content)
+    for n, raw in enumerate(text.splitlines(), 1):
+        if raw.strip() in ("---", "...") and not raw.startswith(" "):
+            if raw.strip() == "..." or lines:
+                raise ConfigError(f"{source}:{n}: one document only")
+            continue
+        body = _strip_comment(raw)
+        if not body.strip():
+            continue
+        stripped = body.lstrip(" ")
+        if stripped.startswith("\t") or "\t" in body[: len(body) - len(stripped)]:
+            raise ConfigError(f"{source}:{n}: tabs in indentation")
+        lines.append((n, len(body) - len(stripped), stripped))
+    if not lines:
+        return None
+    if len(lines) == 1 and not _KEY.match(lines[0][2]):
+        n, _, content = lines[0]
+        return _yaml_value(content, f"{source}:{n}")
+
+    pos = 0
+
+    def mapping(indent: int) -> dict:
+        nonlocal pos
+        out: dict = {}
+        while pos < len(lines):
+            n, ind, content = lines[pos]
+            where = f"{source}:{n}"
+            if ind < indent:
+                break
+            if ind > indent:
+                raise ConfigError(f"{where}: unexpected indentation")
+            m = _KEY.match(content)
+            if not m:
+                raise ConfigError(f"{where}: {content!r} is outside the YAML subset the port reads")
+            key, rest = m.group(1), m.group(2)
+            if key in out:
+                raise ConfigError(f"{where}: duplicate key {key!r}")
+            pos += 1
+            if rest:
+                out[key] = _yaml_value(rest, where)
+            elif pos < len(lines) and lines[pos][1] > indent:
+                out[key] = mapping(lines[pos][1])
+            else:
+                out[key] = None
+        return out
+
+    tree = mapping(lines[0][1])
+    if pos != len(lines):
+        n = lines[pos][0]
+        raise ConfigError(f"{source}:{n}: unexpected indentation")
+    return tree
+
+
+def _yaml_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        r = repr(value)
+        if "e" in r:  # YAML 1.1 floats need a dot and a signed exponent
+            mant, exp = r.split("e")
+            mant = mant if "." in mant else mant + ".0"
+            exp = exp if exp[0] in "+-" else "+" + exp
+            r = f"{mant}e{exp}"
+        return r
+    if isinstance(value, str):
+        return json.dumps(value)  # a JSON string is a YAML double-quoted scalar
+    raise ConfigError(f"cannot write {value!r} as YAML")
+
+
+def dump_yaml(tree: dict, indent: int = 0) -> str:
+    """``tree`` in the subset :func:`parse_yaml` reads (and pyyaml too)."""
+    out = []
+    pad = " " * indent
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.append(f"{pad}{key}:\n{dump_yaml(value, indent + 2)}")
+        elif isinstance(value, list):
+            out.append(f"{pad}{key}: [{', '.join(_yaml_scalar(v) for v in value)}]\n")
+        else:
+            out.append(f"{pad}{key}: {_yaml_scalar(value)}\n")
+    return "".join(out)

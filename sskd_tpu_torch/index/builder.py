@@ -244,6 +244,26 @@ class IndexBuilder:
         logger.info(f"built index: ntotal={self.ntotal} dtype={self.dtype}")
         return self
 
+    def build_from_parquet(
+        self,
+        model,
+        parquet_path: str | Path,
+        batch_size: int = 256,
+        max_docs: int | None = None,
+        text_column: str = "text",
+        id_column: str = "chunk_id",
+    ) -> "IndexBuilder":
+        """Encode a prepared corpus parquet (read by the port's own reader,
+        ``data/parquet.py``) with ``model.encode_documents`` and build."""
+        from sskd_tpu_torch.data.parquet import read_parquet
+
+        cols = read_parquet(parquet_path, columns=[id_column, text_column])
+        texts, ids = cols[text_column], [str(d) for d in cols[id_column]]
+        if max_docs:
+            texts, ids = texts[:max_docs], ids[:max_docs]
+        emb = model.encode_documents(texts, batch_size=batch_size)
+        return self.build_from_arrays(np.asarray(emb), ids, texts=texts)
+
     # ------------------------------------------------------------------
     # Persistence
     # ------------------------------------------------------------------
@@ -480,6 +500,14 @@ class IndexBuilder:
         idx = np.asarray(idx)
         safe = np.clip(idx, 0, len(self._perm) - 1)
         return np.where(idx >= 0, self._perm[safe], -1).astype(idx.dtype)
+
+    def position_of(self, doc_id: str) -> int | None:
+        """The position of a doc id (None when unknown); the inverse map is
+        built on first use and again when the ids change."""
+        pos = getattr(self, "_pos_by_id", None)
+        if pos is None or len(pos) != len(self.doc_ids):
+            self._pos_by_id = pos = {d: i for i, d in enumerate(self.doc_ids)}
+        return pos.get(doc_id)
 
     def get_texts(self, indices: Sequence[int]) -> list[str | None]:
         return [

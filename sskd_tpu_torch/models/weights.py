@@ -8,7 +8,9 @@ numpy arrays into a ``state_dict`` of :class:`~sskd_tpu_torch.models.bert.
 BiEncoder` (``Linear.weight`` is ``[out, in]``, so kernels are transposed),
 :func:`cross_encoder_from_jax_params` one of :class:`~sskd_tpu_torch.models.
 bert.CrossEncoder` (the encoder, then the ``pooler`` and ``classifier``
-head). The port reads no msgpack and no Flax: callers hand it numpy arrays.
+head); :func:`jax_params_from_bi_encoder` turns a BiEncoder's state_dict
+back into the Flax tree (the export writes it). The port reads no msgpack
+and no Flax: callers hand it numpy arrays.
 
 :func:`random_jax_params` draws a Flax-layout tree with the initializers Flax
 applies by default (``lecun_normal`` for Dense kernels, ``variance_scaling(1,
@@ -75,6 +77,36 @@ def bi_encoder_from_jax_params(params: Mapping, config: BertConfig) -> dict[str,
         _dense(sd, f"{pre}.ffn_output", layer["ffn_output"])
         norm(f"{pre}.ffn_norm", layer["ffn_norm"])
     return sd
+
+
+def jax_params_from_bi_encoder(state: Mapping, config: BertConfig) -> dict:
+    """BiEncoder state_dict -> the Flax BiEncoder tree ``{"params":
+    {"encoder": ...}}`` of f32 numpy arrays, kernels ``[in, out]``: the
+    inverse of :func:`bi_encoder_from_jax_params`."""
+
+    def a(name: str) -> np.ndarray:
+        return state[name].detach().to("cpu", torch.float32).numpy().copy()
+
+    def dense(prefix: str) -> dict:
+        return {"kernel": np.ascontiguousarray(a(f"{prefix}.weight").T),
+                "bias": a(f"{prefix}.bias")}
+
+    def norm(prefix: str) -> dict:
+        return {"scale": a(f"{prefix}.weight"), "bias": a(f"{prefix}.bias")}
+
+    enc: dict = {name: {"embedding": a(f"encoder.{name}.weight")}
+                 for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    enc["embeddings_norm"] = norm("encoder.embeddings_norm")
+    for i in range(config.num_layers):
+        pre = f"encoder.layers.{i}"
+        enc[f"layer_{i}"] = {
+            "attention": {name: dense(f"{pre}.attention.{name}") for name in _LINEAR_NAMES},
+            "attention_norm": norm(f"{pre}.attention_norm"),
+            "intermediate": dense(f"{pre}.intermediate"),
+            "ffn_output": dense(f"{pre}.ffn_output"),
+            "ffn_norm": norm(f"{pre}.ffn_norm"),
+        }
+    return {"params": {"encoder": enc}}
 
 
 def cross_encoder_from_jax_params(params: Mapping,

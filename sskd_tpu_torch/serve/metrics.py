@@ -50,6 +50,9 @@ class _Series:
     def observe(self, value: float) -> None:
         self.metric._add(self.values, value)
 
+    def set(self, value: float) -> None:
+        self.metric._set(self.values, value)
+
 
 class Counter(_Metric):
     kind = "counter"
@@ -74,9 +77,12 @@ class Gauge(_Metric):
     def _empty(self):
         return 0.0
 
-    def set(self, value: float) -> None:
+    def _set(self, values, value):
         with self._lock:
-            self._series[()] = float(value)
+            self._series[values] = float(value)
+
+    def set(self, value: float) -> None:
+        self._set((), value)
 
     def _lines(self, labels, state):
         return [f"{self.name}{_labels(labels)} {float(state)!r}"]
@@ -131,6 +137,18 @@ class Metrics:
         )
         self.rerank_triggers = Counter(
             "semantic_kd_rerank_trigger", "Searches that requested reranking"
+        )
+        self.rate_limit_hits = Counter(
+            "semantic_kd_rate_limit_hits", "Requests rejected by the rate limiter"
+        )
+        self.cache_hits = Counter(
+            "semantic_kd_cache_hits",
+            "Cache hits (result = /search payloads, embedding = /encode vectors)",
+            ("cache",),
+        )
+        self.cache_misses = Counter("semantic_kd_cache_misses", "Cache misses", ("cache",))
+        self.cache_entries = Gauge(
+            "semantic_kd_cache_entries", "Entries currently held by each cache", ("cache",)
         )
 
     def render(self) -> bytes:

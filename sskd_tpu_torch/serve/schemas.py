@@ -1,4 +1,6 @@
-"""API request and response schemas (port of sskd_tpu/serve/schemas.py).
+"""API request and response schemas (port of sskd_tpu/serve/schemas.py): the
+requests (``SearchRequest``, ``EncodeRequest``, ``IndexLoadRequest``) and
+``SearchResult``; ``serve/openapi.py`` states every model's JSON schema.
 
 Validation by hand with the JAX package's bounds (pydantic is not on the
 machine with the GPU): a request that breaks one raises
@@ -89,4 +91,20 @@ class EncodeRequest:
         req = cls(texts=texts, normalize=_field(body, "normalize", bool, True, problems))
         if problems:
             raise ValidationError_("invalid encode request", {"problems": problems})
+        return req
+
+
+@dataclass
+class IndexLoadRequest:
+    index_dir: str
+
+    @classmethod
+    def parse(cls, body: Any) -> "IndexLoadRequest":
+        body = _object(body)
+        problems: list[str] = []
+        if "index_dir" not in body:
+            problems.append("index_dir: field required")
+        req = cls(index_dir=_field(body, "index_dir", str, "", problems, lo=1))
+        if problems:
+            raise ValidationError_("invalid index load request", {"problems": problems})
         return req

@@ -111,3 +111,30 @@ def test_training_path_imports_without_the_jax_package_dependencies():
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)))\n"
     )
     assert _run(code) == []
+
+
+@pytest.mark.parametrize("module", [
+    "sskd_tpu_torch.cli.main", "sskd_tpu_torch.utils.doctor", "sskd_tpu_torch.registry",
+    "sskd_tpu_torch.keys", "sskd_tpu_torch.models.export", "sskd_tpu_torch.serve.cache",
+    "sskd_tpu_torch.serve.hybrid", "sskd_tpu_torch.serve.openapi",
+    "sskd_tpu_torch.serve.supervisor", "sskd_tpu_torch.utils.tracing",
+])
+def test_cli_and_serving_extras_import_without_the_jax_package_dependencies(module):
+    """The command line and what it reaches: no pyyaml for the YAML settings,
+    no pydantic for the OpenAPI schemas, no JAX for the export's Flax tree."""
+    blocked = BLOCKED + ("jax", "jaxlib", "flax", "optax", "orbax", "sskd_tpu")
+    code = (
+        "import importlib, importlib.abc, json, sys\n"
+        f"BLOCKED = {blocked!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "for m in BLOCKED: sys.modules.pop(m, None)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module({module!r})\n"
+        "from sskd_tpu_torch.config import Settings\n"
+        "Settings.from_yaml('configs/service.yaml')\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)))\n"
+    )
+    assert _run(code) == []
