@@ -10,8 +10,8 @@ Phases, each fatal when it fails:
              spills;
 2. kernels — each kernel against its plain torch version on the card at the
              shapes of the main path (binmax / exact engine: f32, int8 and
-             int4 at 1M x 384, B in {1, 16, 256}, int8 also at 32 and 64 and
-             int4 at 64, k in {10, 100}, and bf16 at B in {1, 16, 64, 256}, k in {10,
+             int4 at 1M x 384, B in {1, 16, 256}, int8 also at 32 and 64,
+             int4 and f32 at 64, k in {10, 100}, and bf16 at B in {1, 16, 64, 256}, k in {10,
              40}, every bf16 launch on its bf16 route within 1e-5, beside
              cuBLAS's bf16 product with the query rounded and the f32 route
              over the widened rows, bf16 bin_gather on its tensor-core route
@@ -26,7 +26,12 @@ Phases, each fatal when it fails:
              {1, 16, 256}, bit for bit, bf16 bin_gather at D = 528 on
              bin_gather_kernel's bf16 mode within 1e-5, f32 binmax and
              binmax_strided on the
-             register-tiled CUDA-core kernels, with bin_gather's pairs in
+             register-tiled CUDA-core kernels, f32 bin_gather on its
+             tensor-core route (bin_gather_f32_tc_kernel, three TF32
+             products) within 1e-5, both of its layouts (the pairs in their
+             own order and sorted by bin) bit for bit the wrapper's, beside
+             the sort and bin_gather_kernel (the kernel f32 rows took
+             before) on the same inputs, with the int8 bin_gather's pairs in
              their own order against sorted by bin on corpus-derived queries,
              binmax also with the L2 cache flushed before each launch, the
              wrapper's host microseconds by part, and binmax_strided at
@@ -79,7 +84,11 @@ Phases, each fatal when it fails:
              head) and [32, 4, 64, 16] f32 (tensor-core forward, streaming
              backward), p in {0, 0.1}, the keep-mask bit for bit, bitwise
              repeatable, bf16 within the rounding bounds and f32 within 1e-5
-             (1 + |want|), each timed beside SDPA with dropout:
+             (1 + |want|), each timed beside SDPA with dropout; the bf16
+             backward on the three-pass kernel (dropattn_bwd_tc_3pass_kernel)
+             beside the kernel it replaced (dropattn_bwd_tc_kernel<16>,
+             whose bits it gives) and the streaming route, each within its
+             bound, and their device times:
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k, cell and d = 64 attention kernels),
              the bound and yardsticks that the port never calls;
@@ -194,7 +203,8 @@ Phases, each fatal when it fails:
              12-word spans of distinct passages (flash in f32 at d = 32 on
              flash_fwd_tc_tf32_kernel<32>, 384 launches, every one on the
              tensor cores; binmax and bin_gather in f32,
-             one launch each for the 1,000 queries), its top-20 ids against
+             one launch each for the 1,000 queries, the gather's on
+             bin_gather_f32_tc_kernel over its pairs sorted by bin), its top-20 ids against
              cosine_topk_core but at ties within 1e-5, its metrics within
              1e-6 of those of the plain ids, the encode within 1e-4 (1 + |x|)
              of plain attention's on 1,024 passages;
@@ -223,7 +233,8 @@ Phases, each fatal when it fails:
              the --tiny defaults: 48 generated demo rows prepared and
              checked by require_integrity, stage 3 with BertConfig.tiny (the
              student bf16, every dropattn launch at d = 16 on the tensor
-             cores), then 4 TeacherTrainer steps of the tiny teacher in f32
+             cores, every backward that holds its head on
+             dropattn_bwd_tc_3pass_kernel), then 4 TeacherTrainer steps of the tiny teacher in f32
              (d = 16: tensor-core forward, streaming backward); (c) full width
              (e5-small-v2 bf16, bge-reranker-large f32, seeded, vocabulary
              fitted to the corpus) at stage 3 over 128 queries, bm25 top
@@ -525,25 +536,29 @@ def same_topk(kv, ki, pv, pi, tol: float) -> bool:
 # dims (packed int4 rows of 192 bytes on the tensor cores in all three, bf16 rows on
 # the tensor cores in the gather)
 TOPK_ROUTES = {
-    kernel: {"int8": "tc", "f32": "cuda_core", "int4": "tc",
-             "bf16": "bf16_tc" if kernel == "bin_gather" else "bf16"}
+    kernel: {"int8": "tc", "f32": "f32_tc" if kernel == "bin_gather" else "cuda_core",
+             "int4": "tc", "bf16": "bf16_tc" if kernel == "bin_gather" else "bf16"}
     for kernel in ("binmax", "binmax_strided", "bin_gather")
 }
 # the kernel each bin_gather route launches
 GATHER_KERNEL = {"tc": "bin_gather_tc_kernel", "bf16_tc": "bin_gather_bf16_tc_kernel",
-                 "bf16": "bin_gather_kernel", "cuda_core": "bin_gather_kernel"}
+                 "f32_tc": "bin_gather_f32_tc_kernel", "bf16": "bin_gather_kernel",
+                 "cuda_core": "bin_gather_kernel"}
 
 
 def routed(wrapper, route: str, fn):
     """Run ``fn`` and check that it launched ``wrapper`` once, on ``route``
-    (its tc_launches / bf16_launches counters: "bf16_tc" counts in both);
-    returns what ``fn`` returns."""
-    before = (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches)
+    (its tc_launches / bf16_launches / f32_tc_launches counters: "bf16_tc"
+    counts in the first two, "f32_tc" in the first and the last); returns
+    what ``fn`` returns."""
+    def counts():
+        return (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches,
+                getattr(wrapper, "f32_tc_launches", 0))
+    before = counts()
     out = fn()
-    after = (wrapper.launches, wrapper.tc_launches, wrapper.bf16_launches)
-    want = (before[0] + 1, before[1] + (route in ("tc", "bf16_tc")),
-            before[2] + (route in ("bf16", "bf16_tc")))
-    check(after == want, f"{wrapper.__name__}: the launch did not take the {route} route")
+    want = (before[0] + 1, before[1] + (route in ("tc", "bf16_tc", "f32_tc")),
+            before[2] + (route in ("bf16", "bf16_tc")), before[3] + (route == "f32_tc"))
+    check(counts() == want, f"{wrapper.__name__}: the launch did not take the {route} route")
     return out
 
 
@@ -576,8 +591,9 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
         want_route = {kernel: routes[dtype] for kernel, routes in TOPK_ROUTES.items()}
         if dtype == "int4":  # the same rows unpacked, for the yardstick over int8 rows
             unpacked = unpack_int4(corpus)
-        for B in {"int8": (1, 16, 32, 64, 256), "f32": (1, 16, 256)}.get(dtype, (1, 16, 64, 256)):
-            q = unit_rows(B, dim, extra if (dtype, B) == ("int4", 64) else gen)
+        for B in {"int8": (1, 16, 32, 64, 256), "f32": (1, 16, 64, 256)}.get(dtype,
+                                                                            (1, 16, 64, 256)):
+            q = unit_rows(B, dim, extra if (dtype, B) in (("int4", 64), ("f32", 64)) else gen)
             q_in, q_scale = tk.quantize_queries(q, corpus)
             route = tk.binmax_route(corpus.dtype, row_bytes)
             check(route == want_route["binmax"], f"binmax {dtype}: route {route}")
@@ -819,7 +835,10 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                     "library_ms": None, **yard,
                     "engine_ms": e_ms, "plain_engine_ms": e_plain,
                 }
-                if dtype in ("int4", "bf16"):
+                if dtype == "f32":  # both layouts of the f32 kernel, the sort, three TF32 passes
+                    g_entry.update(f32_gather_layouts(q_in, corpus, bins, valid_n))
+                    g_entry["three_pass_ms"] = 3 * 2.0 * cand * dim / PEAK_OPS["tf32"] * 1e3
+                if dtype in ("int4", "bf16", "f32"):
                     # the CUDA-core kernel these rows took before, on the same inputs
                     old_call = lambda: bin_gather_cuda_cores(
                         q_in, q_scale, corpus, scales, bins, valid_n)
@@ -849,6 +868,8 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
                     bf16["bin_gather"] = g_entry
                 if B == 16 and k == 10 and dtype == "int4":
                     int4["bin_gather"] = g_entry
+                if B == 16 and k == 10 and dtype == "f32":
+                    main["bin_gather.f32.search"] = g_entry
         if dtype == "int8":
             rows += gather_order_cases(gen, x, corpus, scales)
             rows.append(wrapper_host_us(gen, corpus, scales))
@@ -858,6 +879,39 @@ def phase_topk(gen, n_rows: int, dim: int = 384) -> tuple[list, dict, dict, dict
     del widened, x
     rows += dp4a_cases(extra, n_rows, l2_flush)
     return rows, main, bf16, int4
+
+
+def f32_gather_layouts(q_in, corpus, bins, valid_n) -> dict:
+    """bin_gather's f32 tensor-core kernel (bin_gather_f32_tc_kernel) in both
+    of its layouts through its C entry on the same inputs: the pairs in their
+    own order and sorted by bin (bin_order, the sort apart), each bit for bit
+    the wrapper's result; their device times behind a held stream, the
+    sort's, and the layout the wrapper takes (bin_gather_f32_layout)."""
+    from sskd_tpu_torch.ops import _build
+    from sskd_tpu_torch.ops import topk_kernels as tk
+
+    B, kb = bins.shape
+    n = corpus.shape[0]
+    fn = tk._fn("bin_gather", "sskd_bin_gather_f32_tc")
+    want = tk.bin_gather(q_in, None, corpus, None, bins, valid_n)
+    order = tk.bin_order(bins, n)
+    got = torch.empty((B, kb, 128), dtype=torch.float32, device="cuda")
+
+    def layout(sort):
+        _build.check(fn(tk._ptr(q_in), tk._ptr(corpus), None, tk._ptr(bins),
+                        tk._ptr(order if sort else None), tk._ptr(got), B, kb, n,
+                        corpus.shape[1], valid_n, tk._stream(corpus.device)),
+                     "bin_gather (f32, one layout)")
+        return got
+    out = {"f32_layout": tk.bin_gather_f32_layout(B * kb, n)}
+    for name, sort in (("own", False), ("sorted", True)):
+        layout(sort)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"bin_gather f32 {name} layout B={B} kb={kb}: not the "
+              "wrapper's bits")
+        out[f"f32_{name}_layout_device_ms"] = stream_device_ms(lambda s=sort: layout(s), 20)
+    out["f32_sort_device_ms"] = stream_device_ms(lambda: tk.bin_order(bins, n), 20)
+    return out
 
 
 def dp4a_cases(gen, n_rows: int, l2_flush, dim: int = 1056) -> list:
@@ -1815,14 +1869,16 @@ def phase_attention16(gen, build: dict) -> tuple[list, dict]:
             tag = f"d=16 {str(dtype).split('.')[1]} [{B}, {h}, {L}] p={p}"
             before = (ta.dropattn_fwd.head_dim_launches.get(16, 0), ta.dropattn_fwd.tc_launches,
                       ta.dropattn_bwd.head_dim_launches.get(16, 0), ta.dropattn_bwd.tc_launches,
-                      ta.dropattn_bwd.stream_launches)
+                      ta.dropattn_bwd.stream_launches, ta.dropattn_bwd.three_pass_launches)
             out, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
             grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             check((ta.dropattn_fwd.head_dim_launches[16], ta.dropattn_fwd.tc_launches,
                    ta.dropattn_bwd.head_dim_launches[16], ta.dropattn_bwd.tc_launches,
-                   ta.dropattn_bwd.stream_launches)
+                   ta.dropattn_bwd.stream_launches, ta.dropattn_bwd.three_pass_launches)
                   == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1,
-                      before[4] + f32), f"dropattn {tag}: launches not counted on their routes")
+                      before[4] + f32, before[5] + (not f32)),
+                  f"dropattn {tag}: launches not counted on their routes (bf16: the three-pass "
+                  "kernel)")
             again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g)
             check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                   f"dropattn_bwd {tag}: two launches differ")
@@ -1854,6 +1910,8 @@ def phase_attention16(gen, build: dict) -> tuple[list, dict]:
                               for a, b, bd in zip(grads, want_grads, bounds))
                 check(b_slack <= 1.0, f"dropattn_bwd {tag}: {b_slack:.3f} of its bound")
                 entry.update(fwd_err_over_bound=f_slack, bwd_err_over_bound=b_slack)
+                entry.update(d16_backward_candidates(q, k, v, bias, p, seed, lse, g, grads,
+                                                     want_grads, build, tag))
                 del bounds
             del out, want, grads, want_grads, lse
             if p > 0:
@@ -1872,10 +1930,92 @@ def phase_attention16(gen, build: dict) -> tuple[list, dict]:
                             "bound_ms": entry[f"{pre}_bound_ms"],
                             "bound_by": entry[f"{pre}_bound_by"],
                             "library_ms": entry[f"{pre}_library_ms"]}
+                    if not f32:
+                        main["dropattn_bwd.d16"].update({
+                            f"{n}_device_ms": entry[f"bwd_{n}_device_ms"]
+                            for n in ("buffer_kernel", "three_pass", "stream")})
             rows.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
         del q, k, v, g
+    rows.append(flash_d16_case(gen.initial_seed() + 2))
     return rows, main
+
+
+def flash_d16_case(seed: int) -> dict:
+    """flash_attn_fwd in bf16 at head dim 16, the one flash route left on the
+    CUDA cores (flash_fwd_kernel; the --tiny models' encode at L = 512), at
+    [256, 4, 512, 16] with a ragged key mask: within flash_error_bound of the
+    plain version, its time beside the plain version's, SDPA's, the byte
+    bound and the exp floor. Its inputs come from a generator of their own."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, h, L, d = 256, 4, 512, 16
+    q, k, v = (torch.randn(B, h, L, d, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.randint(L // 8, L + 1, (B,), device="cuda", generator=g)
+    lens[0] = L
+    mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+    route = ta.flash_route(q.dtype, d)
+    check(route == "cuda_core", f"flash bf16 d=16: route {route}")
+    before = (ta.flash_attention.launches, ta.flash_attention.tc_launches)
+    got = ta.flash_attention(q, k, v, mask)
+    check((ta.flash_attention.launches, ta.flash_attention.tc_launches)
+          == (before[0] + 1, before[1]), "flash bf16 d=16: not one CUDA-core launch")
+    want = ta.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    slack = (diff / ta.flash_error_bound(q, k, v, mask, got, want)).max().item()
+    check(slack <= 1.0, f"flash_attn_fwd bf16 d=16: {slack:.3f} of its bound")
+    call = lambda: ta.flash_attention(q, k, v, mask)
+    keep = mask[:, None, None, :].bool()
+    b_ms, b_by = bound_ms(4 * B * h * L * d * 2 + B * L * 4, 4.0 * B * h * L * L * d, "bf16")
+    entry = {
+        "kernel": "flash_attn_fwd", "dtype": "bf16", "shape": [B, h, L, d], "route": route,
+        "max_abs_err": diff.max().item(), "err_over_bound": slack, "ms": time_ms(call, 10),
+        "kernel_device_ms": kernel_device_ms(call, "flash_fwd_kernel", 8),
+        "plain_ms": time_ms(lambda: ta.flash_attention_plain(q, k, v, mask), 3, 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+                              10),
+        "exp_floor_ms": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
+    }
+    log(f"[kernels] {json.dumps(entry)}")
+    return entry
+
+
+def d16_backward_candidates(q, k, v, bias, p, seed, lse, g, route_grads, want, build,
+                            tag) -> dict:
+    """The bf16 backward at head dim 16 beside the kernel its route took
+    before: dropattn_bwd_tc_kernel<16> (the [Lp, Lp] buffer; reached through
+    the probe entry only) and the streaming route's three kernels, each
+    within dropattn_bwd_error_bound of the plain pair; whether the buffer
+    kernel gives the route's (three-pass) bits; the device time of each from
+    a held stream, and ptxas's registers and spills of both resident
+    kernels."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    out = {}
+    calls = {"three_pass": lambda: ta.dropattn_bwd(q, k, v, bias, p, seed, lse, g),
+             "buffer_kernel": lambda: ta.dropattn_bwd_tc_kernel(0, q, k, v, bias, p, seed, lse,
+                                                                g),
+             "stream": lambda: ta._dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g)[:3]}
+    for name in ("buffer_kernel", "stream"):
+        got = calls[name]()
+        torch.cuda.synchronize()
+        bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, g, got, want)
+        slack = max(((a.float() - b.float()).abs() / bd).max().item()
+                    for a, b, bd in zip(got, want, bounds))
+        check(slack <= 1.0, f"dropattn_bwd {name} {tag}: {slack:.3f} of its bound")
+        out[f"bwd_{name}_err_over_bound"] = slack
+        if name == "buffer_kernel":
+            out["bwd_three_pass_bitwise_equal_buffer_kernel"] = all(
+                torch.equal(a, b) for a, b in zip(got, route_grads))
+        del got, bounds
+    for name, call in calls.items():
+        out[f"bwd_{name}_device_ms"] = stream_device_ms(call, 20)
+    out["bwd_ptxas"] = ptxas_of(build, "dropattn_bwd", r"tc_(3pass_)?kernelILi16E")
+    return out
 
 
 def phase_cells(gen, dim: int = 384) -> tuple[list, dict, dict]:
@@ -4087,30 +4227,44 @@ def eval_kernel_cases(q: torch.Tensor, d: torch.Tensor, seed: int, build: dict) 
     kb = min(20, n_bins)
     _, bins = tk.topk_stable(want.T, kb)
     bins = bins.to(torch.int32).contiguous()
-    check(tk.bin_gather_route(d.dtype, dim * 4) == "cuda_core", "f32 bin_gather route")
-    g_got = tk.bin_gather(q, None, d, None, bins, n)
+    check(tk.bin_gather_route(d.dtype, dim * 4) == "f32_tc", "f32 bin_gather route")
+    g_got = routed(tk.bin_gather, "f32_tc", lambda: tk.bin_gather(q, None, d, None, bins, n))
     g_want = tk.bin_gather_plain(q, None, d, None, bins, n)
     torch.cuda.synchronize()
     g_err = (g_got - g_want).abs().max().item()
     check(g_err <= 1e-5, f"bin_gather f32 B={B}: max abs err {g_err} > 1e-5")
+    # the kernel this route took before (bin_gather_kernel), on the same inputs
+    parent = bin_gather_cuda_cores(q, None, d, None, bins, n)
+    torch.cuda.synchronize()
+    p_err = (parent - g_want).abs().max().item()
+    check(p_err <= 1e-5, f"bin_gather_kernel f32 B={B}: max abs err {p_err} > 1e-5")
     cand = B * kb * 128
     distinct = torch.unique(bins).numel()
+    # bytes: each distinct bin's rows once; operations: the products at the CUDA
+    # cores' FMA rate (bin_gather_kernel's bound) and as three TF32 passes (this route's)
     gb_ms, gb_by = bound_ms(distinct * 128 * dim * 4 + cand * 4 + bins.numel() * 4
-                            + B * dim * 4, 2.0 * cand * dim, "f32")
+                            + B * dim * 4, 3 * 2.0 * cand * dim, "tf32")
     pick = (bins.long()[:, :, None] * 128
             + torch.arange(128, device="cuda")).view(-1).clamp(max=n - 1)
+    g_call = lambda: tk.bin_gather(q, None, d, None, bins, n)
     out["bin_gather.f32"] = {
         "kernel": "bin_gather", "dtype": "f32", "B": B, "kb": kb, "distinct_bins": distinct,
-        "route": "cuda_core", "max_abs_err": g_err,
-        "ms": time_ms(lambda: tk.bin_gather(q, None, d, None, bins, n), 20),
-        "kernel_device_ms": kernel_device_ms(
-            lambda: tk.bin_gather(q, None, d, None, bins, n), "bin_gather_kernel", 8),
+        "route": "f32_tc", "max_abs_err": g_err,
+        "ms": time_ms(g_call, 20),
+        "kernel_device_ms": kernel_device_ms(g_call, "bin_gather_f32_tc_kernel", 8),
+        # the wrapper's whole device time: the stable sort by bin and the kernel
+        "call_device_ms": stream_device_ms(g_call, 20),
         "plain_ms": time_ms(lambda: tk.bin_gather_plain(q, None, d, None, bins, n), 2, 1),
         "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": None,
+        "fma_bound_ms": 2.0 * cand * dim / PEAK_OPS["f32"] * 1e3,
+        "cuda_core_kernel_max_abs_err": p_err,
+        "cuda_core_kernel_device_ms": kernel_device_ms(
+            lambda: bin_gather_cuda_cores(q, None, d, None, bins, n), "bin_gather_kernel", 8),
         "yardstick_index_select_bmm_ms": time_ms(lambda: torch.bmm(
             d.index_select(0, pick).view(B, kb * 128, dim), q[:, :, None]), 10),
+        **f32_gather_layouts(q, d, bins, n),
     }
-    del g_got, g_want, got, want
+    del g_got, g_want, got, want, parent
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     Bf, h, L, hd = 256, 12, 512, 32
@@ -4193,6 +4347,7 @@ def eval_full_width(args, build: dict) -> dict:
         tc_launch_counts,
     )
     from sskd_tpu_torch.ops import attention as ta
+    from sskd_tpu_torch.ops import topk_kernels as tk
     from sskd_tpu_torch.ops.topk import cosine_topk_core
     from sskd_tpu_torch.utils.chunk import TextChunker, maxsim_aggregate_topk
 
@@ -4263,11 +4418,15 @@ def eval_full_width(args, build: dict) -> dict:
               f"flash_attn_fwd: {counts['flash_attn_fwd']} launches {by_d['flash_attn_fwd']}, "
               f"{tc_counts['flash_attn_fwd']} on the tensor cores; want {n_flash} at d = 32, "
               "all on flash_fwd_tc_tf32_kernel<32>")
+        f32_gathers = (tk.bin_gather.f32_tc_launches, tk.bin_gather.sorted_launches)
         check(counts["binmax"] == 1 and counts["bin_gather"] == 1
-              and tc_counts["binmax"] == tc_counts["bin_gather"] == 0,
+              and tc_counts["binmax"] == 0 and tc_counts["bin_gather"] == 1
+              and f32_gathers == (1, 1),
               f"binmax / bin_gather: {counts['binmax']} / {counts['bin_gather']} launches "
-              f"({tc_counts['binmax']} / {tc_counts['bin_gather']} tensor-core); want one "
-              "f32 launch each for the 1,000 queries")
+              f"({tc_counts['binmax']} / {tc_counts['bin_gather']} tensor-core, "
+              f"{f32_gathers} f32 tensor-core / sorted by bin); want one f32 launch each for "
+              "the 1,000 queries, the gather's on bin_gather_f32_tc_kernel over pairs sorted "
+              "by bin")
         others = {k: v for k, v in counts.items()
                   if k not in ("flash_attn_fwd", "binmax", "bin_gather") and v}
         check(not others, f"kernels off the evaluation path launched: {others}")
@@ -4669,6 +4828,13 @@ def pipeline_tiny(work: Path) -> dict:
         "dropattn_fwd"], f"the tiny student's dropattn launches: {by_d}")
     check(tc["dropattn_fwd"] == student["dropattn_fwd"] and tc["dropattn_bwd"]
           == student["dropattn_bwd"], f"a bf16 d=16 launch left the tensor cores: {tc}")
+    # the resident route tools/probe_dropattn16.py chose for bf16 at d = 16: every
+    # backward that held its head took the three-pass kernel
+    check(ta.dropattn_bwd.three_pass_launches > 0 and ta.dropattn_bwd.three_pass_launches
+          + ta.dropattn_bwd.stream_launches == student["dropattn_bwd"],
+          f"the tiny student's d=16 backwards: {ta.dropattn_bwd.three_pass_launches} of "
+          f"{student['dropattn_bwd']} on dropattn_bwd_tc_3pass_kernel, "
+          f"{ta.dropattn_bwd.stream_launches} streaming")
     out = {"prepare_seconds": prep_s, "chunks": {k: v["num_chunks"]
                                                  for k, v in manifest["splits"].items()},
            "losses": finite_losses(result), "global_step": result["global_step"],
@@ -5253,6 +5419,16 @@ def main(argv=None) -> int:
         if name == "bin_gather":  # its bf16 rows on the tensor cores, B = 16
             kernels[-1]["bf16"] = {n: bf16_topk[name][n]
                                    for n in ("ms", "kernel_device_ms", "bound_ms")}
+        if name == "bin_gather.f32":  # an f32 index's /search: B = 16, kb = 10, 1M rows
+            kernels[-1]["kernel"] = "bin_gather_f32_tc_kernel"
+            kernels[-1]["search_b16"] = {n: main_topk["bin_gather.f32.search"][n] for n in (
+                "ms", "kernel_device_ms", "kernel_device_ms_cold_l2", "bound_ms",
+                "cuda_core_kernel_device_ms")}
+            kernels[-1]["cuda_core_kernel_device_ms"] = entry["cuda_core_kernel_device_ms"]
+        if name == "dropattn_bwd.d16":  # the kernel the route took before, the same call
+            kernels[-1]["kernel"] = "dropattn_bwd_tc_3pass_kernel"
+            kernels[-1].update({n: entry[n] for n in (
+                "buffer_kernel_device_ms", "three_pass_device_ms", "stream_device_ms")})
     record["kernels"] = kernels
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

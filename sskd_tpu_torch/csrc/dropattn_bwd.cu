@@ -77,6 +77,21 @@
 //    arrive by cp.async into a second buffer while this head computes
 //    (launch_tc). Every input is read once. Shared memory at L = 192 in bf16
 //    at d = 32: 208,896 bytes (one block of 12 warps per SM).
+//    bf16 at d = 16 takes dropattn_bwd_tc_3pass_kernel instead: no [Lp, Lp]
+//    buffer (dv and dk from registers in a third pass over the keys, S^T and
+//    dP^T recomputed as the streaming route's K3 does; 45 KB a block at L =
+//    192 with one head buffer, 84 KB with two, against 119-156 KB), the same
+//    sums and roundings, the same bits. On an H100 (tools/probe_dropattn16.py)
+//    it took [256, 4, 192, 16] p 0.1 from 0.170 ms to 0.157 and [32, 4, 64,
+//    16] from 0.0089 to 0.0077, with its chunk loops unrolled twice (122
+//    registers: one 12-warp block an SM still; capped at 64 registers two
+//    blocks fit and it spills, and it is no faster at p 0.1). The bound
+//    there is the work a score, not latency: the keep-mask's Philox draw
+//    (0.065-0.073 ms, p 0.1 less p 0) and, without dropout, 0.087-0.095 ms
+//    of exps and elementwise work that freeing the buffer did not shorten.
+//    At d = 32 and 64 the three passes lost (0.575 against 0.545 ms at
+//    [256, 12, 192, 32] p 0.1, 0.0255 against 0.0220 at [32, 16, 64, 64]),
+//    so dropattn_bwd_tc_kernel stays there.
 // 2. Every other (dtype, d, L) at d in {16, 32, 64}, bf16 and f32, f32 at
 //    d = 16 and 32 at every L (the student trained in f32, the tiny
 //    teacher): the streaming kernels, three
@@ -122,7 +137,9 @@
 
 #include <algorithm>
 #include <climits>
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 #include "attn_common.cuh"
 #include "mma_common.cuh"
@@ -1252,6 +1269,220 @@ __global__ void __launch_bounds__(DS_THREADS) dropattn_bwd_stream_cols_kernel(
   store_rows<D>(dv + head_off, dva, key0, L, tig);
 }
 
+// ---------------------------------------------------------------------------
+// Route 1 without the [Lp, Lp] buffer: bf16, a whole head per block, three
+// passes (dropattn_bwd_tc_3pass_kernel)
+// ---------------------------------------------------------------------------
+
+// Shared memory of the three-pass kernel with n_buf (1 or 2) copies of the
+// head (dt_head_bytes), then the keep bits (16 keys a word), the bias and
+// the lse as the kernel uses them, and each row's D: no [Lp, Lp] buffer.
+// At L = 192, d = 16: 45,312 bytes with one copy, 83,712 with two.
+template <int D>
+__host__ __device__ constexpr size_t dt3_smem_bytes(int Lp, int n_buf) {
+  return n_buf * dt_head_bytes<D>(Lp) + (size_t)Lp * (Lp / 16) * 2 + 3 * (size_t)Lp * 4;
+}
+
+// The function and the blocks of dropattn_bwd_tc_kernel (persistent, one
+// head at a time, warp w on query rows 16w..16w+15 and on keys 16w..16w+15),
+// with dv and dk taken from registers instead of an [Lp, Lp] buffer:
+// - pass 1 (query rows): S and dP, probs, the keep bits drawn once into
+//   shared memory (one Philox call per four neighbouring keys of a row), D =
+//   sum(dprobs * probs) into shared memory;
+// - pass 2 (query rows): S and dP again, ds, dq = round(ds) k from
+//   registers (route 1's pass 2);
+// - pass 3 (key rows, as the streaming route's K3): S^T = k q^T and
+//   dP^T = v g^T per 16-query chunk, so that pd^T and ds^T are the A
+//   fragments of dv += round(pd^T) g and dk += round(ds^T) q; each
+//   probability from the same folded exponent of the same score, the keep
+//   bit and D read back from shared memory.
+// Every product is the parent kernel's over the same chunks in the same
+// order (S and S^T add the same bf16 products in the same k-steps), so the
+// sums and roundings are those of dropattn_bwd_tc_kernel, bit for bit on
+// the card. Freeing the buffer cuts a block at L = 192, d = 16 from 119-156
+// KB to 45-84 KB; it costs a third computation of S and dP (one k-step each
+// at d = 16) and a third exp a score. The registers, not the shared
+// memory, set the blocks an SM (see the note at the top).
+// The chunk loops are unrolled twice: at d = 16 that overlaps one chunk's
+// Philox draw with the other's exps and products, 5 % on the card at p 0.1
+// (tools/probe_dropattn16.py; capping the registers to fit two blocks an SM
+// spilled and gained nothing at p 0.1).
+template <int D>
+__global__ void __launch_bounds__(512) dropattn_bwd_tc_3pass_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+    __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int h, int L, float sm_scale, float scale_log2,
+    uint32_t seed, float p, float inv, int BH, int Lp, int n_buf) {
+  constexpr int LD = D + 8;       // row stride in bf16
+  constexpr unsigned CH = D / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int NC = Lp / 16;
+  uint16_t* s_bits = reinterpret_cast<uint16_t*>(smem + n_buf * dt_head_bytes<D>(Lp));
+  float* s_bias2 = reinterpret_cast<float*>(s_bits + Lp * NC);
+  float* s_lse2 = s_bias2 + Lp;
+  float* s_dsum = s_lse2 + Lp;
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 2, tig = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const bool drop = p > 0.f;
+
+  auto load_head = [&](long bh, int buf) {
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(smem + buf * dt_head_bytes<D>(Lp));
+    const long head_off = bh * (long)L * D;
+    for (unsigned i = tid; i < 4 * Lp * CH; i += nthreads) {
+      const int t = i / (Lp * CH), j = i % (Lp * CH), r = j / CH, c = (j % CH) * 8;
+      const __nv_bfloat16* src = (t == 0 ? q : t == 1 ? k : t == 2 ? v : g) + head_off;
+      cp_async16(dst + t * Lp * LD + r * LD + c, src + (long)min(r, L - 1) * D + c,
+                 r < L ? 16 : 0);
+    }
+    float* raw = reinterpret_cast<float*>(dst + 4 * Lp * LD);
+    for (int i = tid; i < L; i += nthreads) {
+      cp_async4(raw + i, bias + (bh / h) * L + i);
+      cp_async4(raw + Lp + i, lse + bh * L + i);
+    }
+  };
+
+  int buf = 0;
+  long bh = blockIdx.x;
+  if (n_buf == 2) load_head(bh, 0);
+  cp_async_commit();
+  for (; bh < BH; bh += gridDim.x, buf ^= n_buf - 1) {
+    const long next = bh + gridDim.x;
+    if (n_buf == 1) load_head(bh, 0);
+    else if (next < BH) load_head(next, buf ^ 1);
+    cp_async_commit();
+    if (n_buf == 1) cp_async_wait<0>();
+    else cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* s_q =
+        reinterpret_cast<const __nv_bfloat16*>(smem + buf * dt_head_bytes<D>(Lp));
+    const __nv_bfloat16* s_k = s_q + Lp * LD;
+    const __nv_bfloat16* s_v = s_k + Lp * LD;
+    const __nv_bfloat16* s_g = s_v + Lp * LD;
+    const float* raw = reinterpret_cast<const float*>(s_g + Lp * LD);
+    for (int i = tid; i < Lp; i += nthreads) {
+      s_bias2[i] = i < L ? raw[i] * LOG2E : -INFINITY;
+      s_lse2[i] = i < L ? raw[Lp + i] * LOG2E : INFINITY;
+    }
+    __syncthreads();
+    const long head_off = bh * (long)L * D;
+
+    // ---- passes 1 and 2 over the warp's query rows -------------------------
+    const int row0 = warp * 16 + grp;
+    BfFrags<D> qa, ga;
+    load_frags(qa, s_q, warp * 16, lane);
+    load_frags(ga, s_g, warp * 16, lane);
+    const float lse2[2] = {s_lse2[row0], s_lse2[row0 + 8]};
+    // element e of tile nt: row row0 + 8 (e >> 1), key c16 + 4 tig + 2 nt + (e & 1)
+    auto probs4 = [&](const float (&s)[2][4], int rr, int key0, float (&prob)[4]) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        prob[j] = exp2_approx(fmaf(s[j >> 1][2 * rr + (j & 1)], scale_log2,
+                                   s_bias2[key0 + j] - lse2[rr]));
+    };
+
+    float dsum[2] = {0.f, 0.f};
+#pragma unroll 2
+    for (int c = 0; c < NC; ++c) {
+      float s[2][4], dp[2][4];
+      chunk_products(s, dp, qa, ga, s_k, s_v, c * 16, lane, false);
+      const int key0 = c * 16 + 4 * tig;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        const uint32_t keep =
+            drop ? draw_keep4(seed, (uint32_t)bh, row, key0, p, tig, s_bits + row * NC + c)
+                 : 0xFu;
+        float prob[4];
+        probs4(s, rr, key0, prob);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dpv = dp[j >> 1][2 * rr + (j & 1)];
+          const float dprobs = drop ? (((keep >> j) & 1u) ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+          dsum[rr] = fmaf(dprobs, prob[j], dsum[rr]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      dsum[rr] += __shfl_xor_sync(0xffffffffu, dsum[rr], 1);
+      dsum[rr] += __shfl_xor_sync(0xffffffffu, dsum[rr], 2);
+      if (tig == 0) s_dsum[row0 + 8 * rr] = dsum[rr];
+    }
+    __syncwarp();  // the warp's own keep bits, for pass 2
+
+    float dqa[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < NC; ++c) {
+      float s[2][4], dp[2][4];
+      chunk_products(s, dp, qa, ga, s_k, s_v, c * 16, lane, false);
+      const int key0 = c * 16 + 4 * tig;
+      float ds[2][4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        const uint32_t keep =
+            drop ? (uint32_t)(s_bits[row * NC + c] >> (4 * tig)) & 0xFu : 0xFu;
+        float prob[4];
+        probs4(s, rr, key0, prob);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dpv = dp[j >> 1][2 * rr + (j & 1)];
+          const float dprobs = drop ? (((keep >> j) & 1u) ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+          ds[rr][j] = __fmul_rn(__fmul_rn(prob[j], __fsub_rn(dprobs, dsum[rr])), sm_scale);
+        }
+      }
+      chunk_accumulate<D>(dqa, dqa, ds, s_k, c * 16, lane, false);
+    }
+    store_rows<D>(dq + head_off, dqa, row0, L, tig);
+    __syncthreads();  // every row's keep bits and D are in shared memory
+
+    // ---- pass 3 over the warp's keys: dv and dk ------------------------------
+    const int kw = warp * 16;
+    BfFrags<D> ka, va;
+    load_frags(ka, s_k, kw, lane);
+    load_frags(va, s_v, kw, lane);
+    const float kbias2[2] = {s_bias2[kw + grp], s_bias2[kw + grp + 8]};
+    float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < NC; ++c) {
+      float s[2][4], dp[2][4];  // S^T, dP^T: element e of tile nt: key kw + grp + 8 (e >> 1),
+      chunk_products(s, dp, ka, va, s_q, s_g, c * 16, lane, true);  // query c16 + 8 nt + 2 tig + (e & 1)
+      float pd[2][4], ds[2][4];  // [rr][j]: key kw + grp + 8 rr, query c16 + 8 (j >> 1) + 2 tig + (j & 1)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c * 16 + 8 * nt + 2 * tig + (e & 1), rr = e >> 1;
+          const float prob =
+              exp2_approx(fmaf(s[nt][e], scale_log2, kbias2[rr] - s_lse2[col]));
+          const bool kept = !drop || ((s_bits[col * NC + warp] >> (grp + 8 * rr)) & 1u);
+          const float dpv = dp[nt][e];
+          const float dprobs = drop ? (kept ? __fmul_rn(dpv, inv) : 0.f) : dpv;
+          pd[rr][2 * nt + (e & 1)] = drop ? (kept ? __fmul_rn(prob, inv) : 0.f) : prob;
+          ds[rr][2 * nt + (e & 1)] =
+              __fmul_rn(__fmul_rn(prob, __fsub_rn(dprobs, s_dsum[col])), sm_scale);
+        }
+      chunk_accumulate<D>(dva, dva, pd, s_g, c * 16, lane, true);
+      chunk_accumulate<D>(dka, dka, ds, s_q, c * 16, lane, true);
+    }
+    store_rows<D>(dk + head_off, dka, kw + grp, L, tig);
+    store_rows<D>(dv + head_off, dva, kw + grp, L, tig);
+    __syncthreads();  // this head's buffers are free for the head after next
+  }
+}
+
 template <typename Kern>
 static int allow_smem(Kern kernel, size_t smem) {
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -1261,36 +1492,86 @@ static int allow_smem(Kern kernel, size_t smem) {
   return 0;
 }
 
-// The tensor-core route's launch for operand T at head dim D: two head
-// buffers (the next head's copy in flight) where they fit a block's shared
-// memory and cost no block an SM, else one (in f32 at [32, 16, 64, 64] two
-// blocks an SM with one buffer beat one block with two:
-// tools/probe_attention64.py); refused where one does not fit.
-template <typename T, int D, typename Kern, typename... Args>
-static int launch_tc(Kern kernel, int max_threads, long BH, int L, cudaStream_t stream,
-                     Args... args) {
+// The resident route's launch choice for one (device, kernel, Lp): head
+// buffers, the grid and the block's shared memory; and the dynamic shared
+// memory limit last given to each kernel on each device. Both are looked up
+// on every launch and computed on the first one only: the occupancy query
+// and the attribute calls cost the host more than the card's time of a
+// small launch.
+struct TcChoice {
+  int device;
+  const void* kernel;
+  int Lp, n_buf;
+  long grid_cap;
+  size_t smem;
+};
+struct SmemLimit {
+  int device;
+  const void* kernel;
+  size_t bytes;
+};
+static std::mutex tc_mutex;
+static std::vector<TcChoice> tc_choices;
+static std::vector<SmemLimit> tc_limits;
+
+// The resident route's launch of `kernel` (smem_bytes(Lp, n_buf) its shared
+// memory): two head buffers (the next head's copy in flight) where they fit
+// a block's shared memory and cost no block an SM, else one (in f32 at [32,
+// 16, 64, 64] two blocks an SM with one buffer beat one block with two:
+// tools/probe_attention64.py); refused where one does not fit. As many
+// blocks as fit the card at once, at most one a head.
+template <typename Kern, typename Smem, typename... Args>
+static int launch_tc(Kern kernel, Smem smem_bytes, int max_threads, long BH, int L,
+                     cudaStream_t stream, Args... args) {
   const int Lp = (L + 15) / 16 * 16, threads = 2 * Lp;
   if (threads > max_threads) return (int)cudaErrorInvalidValue;
-  int per_sm[2] = {0, 0};  // blocks an SM with 1 and 2 head buffers
-  for (int nb = 2; nb >= 1; --nb) {
-    const size_t bytes = dt_smem_bytes<T, D>(Lp, nb);
-    if (bytes > DT_SMEM_MAX) continue;
-    int rc = allow_smem(kernel, bytes);
-    if (rc == 0)
-      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[nb - 1], kernel, threads,
-                                                              bytes);
-    if (rc != 0) return rc;
-  }
-  if (per_sm[0] <= 0) return (int)cudaErrorInvalidConfiguration;
-  const int n_buf = per_sm[1] >= per_sm[0] ? 2 : 1;
-  const size_t smem = dt_smem_bytes<T, D>(Lp, n_buf);
-  int rc = allow_smem(kernel, smem);  // the limit the launch needs (the loop set it last for 1)
-  int device = 0, n_sm = 0;
-  if (rc == 0) rc = (int)cudaGetDevice(&device);
-  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  int device = 0;
+  int rc = (int)cudaGetDevice(&device);
   if (rc != 0) return rc;
-  const unsigned grid = (unsigned)std::min<long>(BH, (long)n_sm * per_sm[n_buf - 1]);
-  kernel<<<grid, threads, smem, stream>>>(args..., (int)BH, Lp, n_buf);
+  const void* key = (const void*)kernel;
+  TcChoice choice{};
+  {
+    std::lock_guard<std::mutex> lock(tc_mutex);
+    const auto hit = std::find_if(tc_choices.begin(), tc_choices.end(), [&](const TcChoice& c) {
+      return c.device == device && c.kernel == key && c.Lp == Lp;
+    });
+    auto limit = std::find_if(tc_limits.begin(), tc_limits.end(), [&](const SmemLimit& l) {
+      return l.device == device && l.kernel == key;
+    });
+    if (limit == tc_limits.end()) {
+      tc_limits.push_back({device, key, 48 * 1024});
+      limit = tc_limits.end() - 1;
+    }
+    if (hit != tc_choices.end()) {
+      choice = *hit;
+    } else {
+      int per_sm[2] = {0, 0};  // blocks an SM with 1 and 2 head buffers
+      for (int nb = 2; nb >= 1; --nb) {
+        const size_t bytes = smem_bytes(Lp, nb);
+        if (bytes > DT_SMEM_MAX) continue;
+        rc = allow_smem(kernel, bytes);
+        if (rc == 0)
+          rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[nb - 1], kernel,
+                                                                  threads, bytes);
+        if (rc != 0) return rc;
+      }
+      limit->bytes = 0;  // the queries above left the kernel's limit at their last size
+      if (per_sm[0] <= 0) return (int)cudaErrorInvalidConfiguration;
+      const int n_buf = per_sm[1] >= per_sm[0] ? 2 : 1;
+      int n_sm = 0;
+      rc = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+      if (rc != 0) return rc;
+      choice = {device, key, Lp, n_buf, (long)n_sm * per_sm[n_buf - 1], smem_bytes(Lp, n_buf)};
+      tc_choices.push_back(choice);
+    }
+    if (limit->bytes < choice.smem) {  // the limit this launch needs
+      rc = allow_smem(kernel, choice.smem);
+      if (rc != 0) return rc;
+      limit->bytes = choice.smem;
+    }
+  }
+  const unsigned grid = (unsigned)std::min<long>(BH, choice.grid_cap);
+  kernel<<<grid, threads, choice.smem, stream>>>(args..., (int)BH, Lp, choice.n_buf);
   return (int)cudaGetLastError();
 }
 
@@ -1339,9 +1620,12 @@ static int launch_stream(const void* q, const void* k, const void* v, const floa
 //   The resident route: dtype 1 (bf16) at d = 16, 32 or 64, dtype 0 (f32) at
 //   d = 64, at any L whose head fits a block's shared memory (dt_smem_bytes
 //   with one buffer) in at most 512 threads: L <= 256 for bf16 at d = 16
-//   and 32, 208 at d = 64, 128 for f32; others are refused. Launches one kernel: blocks of L / 16 warps (L
-//   rounded up to 16), as many as fit the card at once (at most one per
-//   head), each walking its heads (launch_tc).
+//   and 32, 208 at d = 64, 128 for f32; others are refused. Launches one
+//   kernel: blocks of L / 16 warps (L rounded up to 16), as many as fit the
+//   card at once (at most one per head), each walking its heads (launch_tc):
+//   dropattn_bwd_tc_3pass_kernel<16> for bf16 at d = 16,
+//   dropattn_bwd_tc_kernel<D> for bf16 at d = 32 and 64,
+//   dropattn_bwd_tc_tf32_kernel<64> for f32.
 extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, const void* v,
                                     const float* bias, const void* g, const float* lse, void* dq,
                                     void* dk, void* dv, int B, int h, int L, int d,
@@ -1352,22 +1636,59 @@ extern "C" int sskd_dropattn_bwd_tc(int dtype, const void* q, const void* k, con
   const long BH = (long)B * h;
   cudaStream_t s = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
+#define SSKD_BF_ARGS \
+  (const bf*)q, (const bf*)k, (const bf*)v, bias, (const bf*)g, lse, (bf*)dq, (bf*)dk, (bf*)dv, \
+      h, L, sm_scale, scale_log2, seed, p, inv
   if (dtype == 1 && d == 16)
-    return launch_tc<bf, 16>(dropattn_bwd_tc_kernel<16>, 512, BH, L, s, (const bf*)q,
-                             (const bf*)k, (const bf*)v, bias, (const bf*)g, lse, (bf*)dq,
-                             (bf*)dk, (bf*)dv, h, L, sm_scale, scale_log2, seed, p, inv);
+    return launch_tc(dropattn_bwd_tc_3pass_kernel<16>, dt3_smem_bytes<16>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
   if (dtype == 1 && d == 32)
-    return launch_tc<bf, 32>(dropattn_bwd_tc_kernel<32>, 512, BH, L, s, (const bf*)q,
-                             (const bf*)k, (const bf*)v, bias, (const bf*)g, lse, (bf*)dq,
-                             (bf*)dk, (bf*)dv, h, L, sm_scale, scale_log2, seed, p, inv);
+    return launch_tc(dropattn_bwd_tc_kernel<32>, dt_smem_bytes<bf, 32>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
   if (dtype == 1 && d == 64)
-    return launch_tc<bf, 64>(dropattn_bwd_tc_kernel<64>, 512, BH, L, s, (const bf*)q,
-                             (const bf*)k, (const bf*)v, bias, (const bf*)g, lse, (bf*)dq,
-                             (bf*)dk, (bf*)dv, h, L, sm_scale, scale_log2, seed, p, inv);
+    return launch_tc(dropattn_bwd_tc_kernel<64>, dt_smem_bytes<bf, 64>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
   if (dtype == 0 && d == 64)
-    return launch_tc<float, 64>(dropattn_bwd_tc_tf32_kernel<64>, 256, BH, L, s, (const float*)q,
-                                (const float*)k, (const float*)v, bias, (const float*)g, lse,
-                                (float*)dq, (float*)dk, (float*)dv, h, L, sm_scale, seed, p, inv);
+    return launch_tc(dropattn_bwd_tc_tf32_kernel<64>, dt_smem_bytes<float, 64>, 256, BH, L, s,
+                     (const float*)q, (const float*)k, (const float*)v, bias, (const float*)g,
+                     lse, (float*)dq, (float*)dk, (float*)dv, h, L, sm_scale, seed, p, inv);
+  return (int)cudaErrorInvalidValue;
+}
+
+//   Either bf16 resident kernel at d = 16, 32 or 64, for the probes that
+//   time them side by side (tools/probe_dropattn16.py, chip_smoke.py): kernel
+//   0 dropattn_bwd_tc_kernel<D> (the [Lp, Lp] buffer), 1
+//   dropattn_bwd_tc_3pass_kernel<D>; the wrapper's route is
+//   sskd_dropattn_bwd_tc. Arguments as there, bf16 only.
+extern "C" int sskd_dropattn_bwd_tc_kernel(int kernel, const void* q, const void* k,
+                                           const void* v, const float* bias, const void* g,
+                                           const float* lse, void* dq, void* dk, void* dv, int B,
+                                           int h, int L, int d, float sm_scale, float scale_log2,
+                                           uint32_t seed, float p, float inv, void* stream) {
+  using namespace sskd;
+  if (B <= 0 || h <= 0 || L <= 0 || !(p >= 0.f && p < 1.f)) return (int)cudaErrorInvalidValue;
+  const long BH = (long)B * h;
+  cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (kernel == 0 && d == 16)
+    return launch_tc(dropattn_bwd_tc_kernel<16>, dt_smem_bytes<bf, 16>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
+  if (kernel == 0 && d == 32)
+    return launch_tc(dropattn_bwd_tc_kernel<32>, dt_smem_bytes<bf, 32>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
+  if (kernel == 0 && d == 64)
+    return launch_tc(dropattn_bwd_tc_kernel<64>, dt_smem_bytes<bf, 64>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
+  if (kernel == 1 && d == 16)
+    return launch_tc(dropattn_bwd_tc_3pass_kernel<16>, dt3_smem_bytes<16>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
+  if (kernel == 1 && d == 32)
+    return launch_tc(dropattn_bwd_tc_3pass_kernel<32>, dt3_smem_bytes<32>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
+  if (kernel == 1 && d == 64)
+    return launch_tc(dropattn_bwd_tc_3pass_kernel<64>, dt3_smem_bytes<64>, 512, BH, L, s,
+                     SSKD_BF_ARGS);
+#undef SSKD_BF_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

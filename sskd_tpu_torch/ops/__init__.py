@@ -7,8 +7,11 @@ path went through. A wrapper with more than one kernel route also counts the
 launches of its tensor-core route in ``tc_launches`` (``tc_launch_counts``),
 a top-k wrapper those of its bf16 route in ``bf16_launches``
 (``bf16_launch_counts``), an attention wrapper its launches by head dim in
-``head_dim_launches`` (``head_dim_launch_counts``), and ``dropattn_bwd``
-those of its streaming route in ``stream_launches``.
+``head_dim_launches`` (``head_dim_launch_counts``), ``dropattn_bwd`` those
+of its streaming route in ``stream_launches`` and those on its three-pass
+kernel in ``three_pass_launches``, and ``bin_gather`` those of its f32
+tensor-core route in ``f32_tc_launches`` and, of them, those over pairs
+sorted by bin in ``sorted_launches``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def head_dim_launch_counts() -> dict[str, dict[int, int]]:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for extra in ("tc_launches", "bf16_launches", "stream_launches"):
+        for extra in ("tc_launches", "bf16_launches", "stream_launches",
+                      "three_pass_launches", "f32_tc_launches", "sorted_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
         if hasattr(fn, "head_dim_launches"):

@@ -22,9 +22,11 @@
   (:func:`dropattn_fwd_route`), as flash is for every (dtype, head dim) but
   bf16 at 16 (:func:`flash_route`); the backward is on the tensor cores at
   every (dtype, head dim, L) it takes, a head held in shared memory
-  (``"tc"``) or streamed through it (``"tc_stream"``,
+  (``"tc"``; for bf16 at head dim 16 without an [L, L] buffer, in three
+  passes) or streamed through it (``"tc_stream"``,
   :func:`dropattn_bwd_route`). ``tc_launches`` counts the tensor-core
-  launches, ``dropattn_bwd.stream_launches`` the streaming ones.
+  launches, ``dropattn_bwd.stream_launches`` the streaming ones and
+  ``dropattn_bwd.three_pass_launches`` the three-pass ones.
 - The f32 tensor-core routes (every f32 attention of the port: the
   teacher's, the f32 student's training and its encode) take each product
   as three TF32 products on the tensor cores (hi and lo terms of each
@@ -55,6 +57,7 @@ from 16-bit halves so nothing overflows.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -72,15 +75,26 @@ _DROPATTN_HEAD_DIMS = (16, 32, 64)
 _SMEM_MAX = 227 * 1024  # shared memory a block may hold (DT_SMEM_MAX, DF_SMEM_MAX)
 
 
+# the (dtype, head dim) whose resident backward is dropattn_bwd_tc_3pass_kernel
+# (no [Lp, Lp] buffer: dv and dk from registers, a third pass over the keys);
+# the others keep dropattn_bwd_tc_kernel / dropattn_bwd_tc_tf32_kernel. On an
+# H100 (tools/probe_dropattn16.py) the three passes took [256, 4, 192, 16] p 0.1
+# from 0.170 to 0.157 ms and lost at head dims 32 (0.574 against 0.545) and 64
+DROPATTN_BWD_THREE_PASS = ((torch.bfloat16, 16),)
+
+
 def _dt_smem_bytes(dtype, d: int, Lp: int) -> int:
     """Shared memory of one block of the resident tensor-core backward with
     one head buffer at padded length ``Lp`` (csrc/dropattn_bwd.cu
     dt_smem_bytes: the head's q, k, v, g rows, bias and lse, the [Lp, Lp]
-    buffer of pd then ds, the keep bits, the bias and lse as used)."""
+    buffer of pd then ds, the keep bits, the bias and lse as used; for the
+    three-pass kernel dt3_smem_bytes: no buffer, each row's D)."""
     if dtype == torch.bfloat16:
         head, elt = 4 * Lp * (d + 8) * 2 + 2 * Lp * 4, 2
     else:
         head, elt = Lp * (2 * (d + 8) + 2 * (d + 4)) * 4 + 2 * Lp * 4, 4
+    if (dtype, d) in DROPATTN_BWD_THREE_PASS:
+        return head + Lp * (Lp // 16) * 2 + 3 * Lp * 4
     return head + Lp * (Lp + 8) * elt + Lp * (Lp // 16) * 2 + 2 * Lp * 4
 
 
@@ -164,7 +178,10 @@ def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
 def dropattn_bwd_route(dtype: torch.dtype, d: int, L: int) -> str:
     """The kernels a CUDA call of :func:`dropattn_bwd` launches: ``"tc"``
     (one tensor-core kernel holding a whole head in shared memory:
-    ``dropattn_bwd_tc_kernel`` for bf16 at head dims 16, 32 and 64,
+    ``dropattn_bwd_tc_3pass_kernel`` for bf16 at head dim 16
+    (``DROPATTN_BWD_THREE_PASS``: dv and dk from registers in a third pass
+    over the keys, counted in ``three_pass_launches``),
+    ``dropattn_bwd_tc_kernel`` for bf16 at head dims 32 and 64,
     ``dropattn_bwd_tc_tf32_kernel`` for f32 at head dim 64) for L up to
     ``DROPATTN_TC_MAX_L[(dtype, d)]``; ``"tc_stream"`` (three tensor-core
     kernels streaming the head through shared memory in 64-row tiles:
@@ -188,12 +205,27 @@ def _scale_log2(d: int) -> float:
     return math.log2(math.e) / math.sqrt(d)
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
+    device, without the Stream object ``torch.cuda.current_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+_CTYPES = {"i": ctypes.c_int, "u": ctypes.c_uint32, "f": ctypes.c_float, "p": ctypes.c_void_p}
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(stem: str, name: str, argtypes: str):
+    """C entry point ``name`` of the library built from ``csrc/<stem>.cu``,
+    its signature declared once (``argtypes``: one letter an argument)."""
+    fn = getattr(_build.load_library(stem), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_CTYPES[c] for c in argtypes.split()]
+    return fn
 
 
 def plain_attention(q, k, v, bias=None):
@@ -320,32 +352,19 @@ def flash_attention(q, k, v, mask=None):
         if t.device != q.device:
             raise ValueError("q, k, v and mask must be on one device")
     out = torch.empty_like(q)
-    lib = _build.load_library("flash_attn")
     tc = flash_route(q.dtype, d) == "tc"
     if tc:
-        fn = lib.sskd_flash_attn_fwd_tc
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        fn = _fn("flash_attn", "sskd_flash_attn_fwd_tc", "i p p p p p i i i i f f p")
         _build.check(
             fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, d,
                1.0 / (d**0.5), _scale_log2(d), _stream(q)),
             "flash_attn_fwd (tensor cores)",
         )
     else:
-        fn = lib.sskd_flash_attn_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float,
-            ctypes.c_void_p,
-        ]
+        fn = _fn("flash_attn", "sskd_flash_attn_fwd", "i p p p p p i i i i f p")
         _build.check(
-            fn(
-                _DTYPES[q.dtype],
-                *(_ptr(t) for t in (q, k, v, mask, out)),
-                B, h, L, d, 1.0 / (d**0.5),
-                _stream(q),
-            ),
+            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, d,
+               1.0 / (d**0.5), _stream(q)),
             "flash_attn_fwd",
         )
     _count(flash_attention, d, tc)
@@ -736,14 +755,8 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B, h, L), dtype=torch.float32, device=q.device)
-    lib = _build.load_library("dropattn_fwd")
     if dropattn_fwd_route(q.dtype, d, L) == "tc":
-        fn = lib.sskd_dropattn_fwd_tc
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p,
-        ]
+        fn = _fn("dropattn_fwd", "sskd_dropattn_fwd_tc", "i p p p p p p i i i i f f u f f p")
         _build.check(
             fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, out, lse)), B, h, L, d,
                1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
@@ -752,11 +765,7 @@ def dropattn_fwd(q, k, v, bias, p: float, seed: int):
         )
         _count(dropattn_fwd, d, True)
         return out, lse
-    fn = lib.sskd_dropattn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
+    fn = _fn("dropattn_fwd", "sskd_dropattn_fwd", "i p p p p p p i i i i f u f f p")
     _build.check(
         fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, out, lse)), B, h, L, d,
            1.0 / (d**0.5), int(seed) & _U32, float(p), 1.0 / (1.0 - p), _stream(q)),
@@ -786,13 +795,10 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
     lse = lse.to(torch.float32).contiguous()
     if dropattn_bwd_route(q.dtype, d, L) == "tc_stream":
         return _dropattn_bwd_stream(q, k, v, bias, p, seed, lse, g)[:3]
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd_tc
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
+    # one allocation for the three gradients (each a contiguous view): the
+    # wrapper's host time, not the card's, sets the pace of a small launch
+    dq, dk, dv = torch.empty((3, *q.shape), dtype=q.dtype, device=q.device).unbind(0)
+    fn = _fn("dropattn_bwd", "sskd_dropattn_bwd_tc", _BWD_TC_ARGS)
     _build.check(
         fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)),
            B, h, L, d,
@@ -801,6 +807,33 @@ def dropattn_bwd(q, k, v, bias, p: float, seed: int, lse, g):
         "dropattn_bwd (tensor cores)",
     )
     _count(dropattn_bwd, d, True)
+    dropattn_bwd.three_pass_launches += (q.dtype, d) in DROPATTN_BWD_THREE_PASS
+    return dq, dk, dv
+
+
+# the arguments of sskd_dropattn_bwd_tc (sskd_dropattn_bwd_tc_kernel takes the
+# kernel's number in place of the dtype)
+_BWD_TC_ARGS = "i p p p p p p p p p i i i i f f u f f p"
+
+
+def dropattn_bwd_tc_kernel(kernel: int, q, k, v, bias, p: float, seed: int, lse, g):
+    """Either bf16 resident backward kernel on CUDA tensors as
+    :func:`dropattn_bwd` prepares them, whatever the route: ``kernel`` 0
+    ``dropattn_bwd_tc_kernel`` (the [Lp, Lp] buffer), 1
+    ``dropattn_bwd_tc_3pass_kernel``, at head dims 16, 32 and 64 and L up to
+    ``DROPATTN_TC_MAX_L[(bf16, d)]``, so that a probe can time them side by
+    side. Not a path kernel: it counts no launch. Returns (dq, dk, dv)."""
+    B, h, L, d = q.shape
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("dropattn_bwd_tc_kernel takes bf16 CUDA tensors")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    fn = _fn("dropattn_bwd", "sskd_dropattn_bwd_tc_kernel", _BWD_TC_ARGS)
+    _build.check(
+        fn(int(kernel), *(_ptr(t) for t in (q, k, v, bias, g, lse, dq, dk, dv)), B, h, L, d,
+           1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p), 1.0 / (1.0 - p),
+           _stream(q)),
+        f"dropattn_bwd kernel {kernel}",
+    )
     return dq, dk, dv
 
 
@@ -825,12 +858,8 @@ def _dropattn_bwd_stream(q, k, v, bias, p: float, seed: int, lse, g):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dsum = torch.empty((B, h, L), dtype=torch.float32, device=q.device)
     bits = torch.empty((B * h, L, (L + 31) // 32), dtype=torch.int32, device=q.device)
-    fn = _build.load_library("dropattn_bwd").sskd_dropattn_bwd_stream
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
+    fn = _fn("dropattn_bwd", "sskd_dropattn_bwd_stream",
+             "i p p p p p p p p p p p i i i i f f u f f p")
     _build.check(
         fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, bias, g, lse, dsum, bits, dq, dk, dv)),
            B, h, L, d, 1.0 / (d**0.5), _scale_log2(d), int(seed) & _U32, float(p),
@@ -845,6 +874,8 @@ def _dropattn_bwd_stream(q, k, v, bias, p: float, seed: int, lse, g):
 dropattn_bwd.launches = 0
 dropattn_bwd.tc_launches = 0  # the launches on the tensor cores: all of them
 dropattn_bwd.stream_launches = 0  # those that streamed the head ("tc_stream")
+# those on dropattn_bwd_tc_3pass_kernel (the "tc" route at DROPATTN_BWD_THREE_PASS)
+dropattn_bwd.three_pass_launches = 0
 dropattn_bwd.head_dim_launches = {}
 
 
@@ -854,10 +885,7 @@ def dropattn_keep_mask_kernel(seed: int, BH: int, L: int, p: float) -> torch.Ten
     holding it against :func:`dropout_keep_mask`. Not a path kernel: it has
     no launch count."""
     out = torch.empty((BH, L, L), dtype=torch.uint8, device="cuda")
-    fn = _build.load_library("dropattn_fwd").sskd_dropattn_keep_mask
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                   ctypes.c_float, ctypes.c_void_p]
+    fn = _fn("dropattn_fwd", "sskd_dropattn_keep_mask", "p i i u f p")
     _build.check(fn(_ptr(out), BH, L, int(seed) & _U32, float(p), _stream(out)),
                  "dropattn_keep_mask")
     return out.bool()

@@ -24,10 +24,13 @@ counted also in ``tc_launches``; bf16 rows against f32 queries (the TPU
 kernels' bf16 branch: each bf16 widened exactly, f32 sums), counted also in
 ``bf16_launches``, in ``bin_gather`` on the tensor cores up to 1,024 bytes
 (the query split exactly into three bf16 terms, counted in both), in
-``binmax`` and ``binmax_strided`` and past that on the CUDA cores; f32 and
-longer int8 and int4 rows on the CUDA cores (f32 and bf16 in ``binmax``
-and ``binmax_strided`` through the register-tiled score tile of
-csrc/f32_tile.cuh). Results
+``binmax`` and ``binmax_strided`` and past that on the CUDA cores; f32
+rows of at most 1,024 floats in ``bin_gather`` on the tensor cores (each
+product three TF32 products, counted in ``tc_launches`` and
+``f32_tc_launches``); f32 rows in ``binmax`` and ``binmax_strided``, longer
+f32 rows in ``bin_gather`` and longer int8 and int4 rows on the CUDA cores
+(f32 and bf16 in ``binmax`` and ``binmax_strided`` through the
+register-tiled score tile of csrc/f32_tile.cuh). Results
 follow the JAX engine's contract: ``(vals [B, k] f32, idx [B, k] int32)``
 with ``(-inf, -1)`` sentinels, where "-inf" is ``finfo(float32).min / 2``.
 """
@@ -55,6 +58,14 @@ _PLAIN_ROWS = 1 << 18  # rows per chunk of the plain versions' score matrix
 # bin_gather bf16 rows of at most all of it (D <= 512).
 TC_MAX_ROW_BYTES = 1024
 GATHER_TC_RUN = 1  # (query, slot) pairs a bin_gather_tc job takes, in their own order
+# the longest f32 row bin_gather's f32 tensor-core kernel takes, in floats: the
+# widths of the models the port serves; longer rows take bin_gather_kernel
+GATHER_F32_TC_MAX_DIM = 1024
+# bin_gather's f32 route sorts its (query, slot) pairs by bin, so that one block
+# reads a bin once for up to 32 of the queries that chose it, when there are at
+# least this many pairs a bin of the corpus; below, each pair's bin is read on its
+# own (bin_gather_f32_layout)
+GATHER_F32_SORT_PAIRS_PER_BIN = 0.5
 
 
 def _route(dtype: torch.dtype, row_bytes: int) -> str:
@@ -105,9 +116,15 @@ def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
       ``TC_MAX_ROW_BYTES`` (D <= 512): the f32 query split exactly into three
       bf16 terms, one bf16 mma a 16-dim step, the f32-query function of the
       CUDA cores up to the summation order.
+    - ``"f32_tc"``: ``bin_gather_f32_tc_kernel``, for f32 rows of at most
+      ``GATHER_F32_TC_MAX_DIM`` floats: each product as three TF32
+      products on mma.sync m16n8k8 (hi hi, lo hi, hi lo, f32 sums), the
+      rows streamed through a ring of 32-float chunks, the pairs sorted by
+      bin or in their own order (:func:`bin_gather_f32_layout`); counted in
+      ``tc_launches`` and ``f32_tc_launches`` (``sorted_launches``: sorted).
     - ``"bf16"``: ``bin_gather_kernel`` in its bf16 mode, longer bf16 rows.
-    - ``"cuda_core"``: ``bin_gather_kernel``, a block per pair, for f32 and
-      longer int8 and int4 rows.
+    - ``"cuda_core"``: ``bin_gather_kernel``, a block per pair, for longer
+      f32, int8 and int4 rows.
 
     Why, on an H100 (tools/probe_gather.py, 1M x 384 rows, B * kb pairs):
     where one launch's latency is the time, the tensor-core kernels beat
@@ -119,7 +136,41 @@ def bin_gather_route(dtype: torch.dtype, row_bytes: int) -> str:
     route."""
     if dtype == torch.bfloat16 and row_bytes <= TC_MAX_ROW_BYTES:
         return "bf16_tc"
+    if dtype == torch.float32 and row_bytes <= 4 * GATHER_F32_TC_MAX_DIM:
+        return "f32_tc"
     return _route(dtype, row_bytes)
+
+
+def bin_order(bins: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The (query, slot) pairs ``b * kb + s`` of ``bins [B, kb]`` (each bin
+    below ceil(n_rows / 128)) sorted by bin, the pairs of one bin in their
+    own order (int64 [B * kb]): one stable argsort, on 16-bit keys where
+    every bin fits them (fewer radix passes)."""
+    keys = bins.view(-1)
+    if -(-n_rows // BIN_W) <= 2**15:
+        keys = keys.to(torch.int16)
+    return torch.argsort(keys, stable=True)
+
+
+def bin_gather_f32_layout(n_pairs: int, n_rows: int) -> str:
+    """How the f32 route lays out ``n_pairs`` (query, slot) pairs over a
+    corpus of ``n_rows`` rows: ``"sorted"`` (the pairs sorted by bin,
+    :func:`bin_order`, so that a block scores up to 32 queries of one bin
+    against each tile it reads, the queries as the columns of the mma) from
+    ``GATHER_F32_SORT_PAIRS_PER_BIN`` pairs a bin on, else ``"own"`` (a
+    block of four warps half of one pair's bin, no sort).
+
+    Why, on an H100 (tools/probe_gather_f32.py, device ms of the kernel
+    and, sorted, of the sort, 1M x 384 rows unless said): at B = 256, 0.28
+    pairs a bin (kb = 10), own 0.183 against sorted 0.218 + 0.028; at
+    0.98 (kb = 30) 0.532 against 0.393 + 0.052; at 3.3 (kb = 100) 1.764
+    against 0.636 + 0.055; the evaluator's 312 (B = 1,000, kb = 20 over
+    8,192 rows) 0.741 against 0.099 + 0.053. Below a pair a bin the runs of
+    a sorted block hold many bins of one query each, scored in turn, so the
+    crossing lies between 0.28 and 0.98; at B <= 64, kb = 10 the pairs'
+    own order wins 4-17x."""
+    n_bins = -(-n_rows // BIN_W)
+    return "sorted" if n_pairs >= GATHER_F32_SORT_PAIRS_PER_BIN * n_bins else "own"
 
 
 def _mode(corpus: torch.Tensor) -> int:
@@ -379,6 +430,21 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
     _check_cuda(q_in, corpus, row_scales, bins, q_scale if quantized else None)
     out = torch.empty((B, kb, BIN_W), dtype=torch.float32, device=corpus.device)
     route = bin_gather_route(corpus.dtype, row_words * 4)
+    if route == "f32_tc":
+        sort = bin_gather_f32_layout(B * kb, n) == "sorted"
+        order = bin_order(bins, n) if sort else None
+        _build.check(
+            _fn("bin_gather", "sskd_bin_gather_f32_tc")(
+                _ptr(q_in), _ptr(corpus), _ptr(row_scales), _ptr(bins), _ptr(order), _ptr(out),
+                B, kb, n, corpus.shape[1], valid_n, _stream(corpus.device),
+            ),
+            "bin_gather (f32, tensor cores)",
+        )
+        bin_gather.launches += 1
+        bin_gather.tc_launches += 1
+        bin_gather.f32_tc_launches += 1
+        bin_gather.sorted_launches += sort
+        return out
     if route in ("tc", "bf16_tc"):
         # the pairs in their own order (order NULL), one a job: no sort
         _build.check(
@@ -407,8 +473,10 @@ def bin_gather(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = No
 
 
 bin_gather.launches = 0
-bin_gather.tc_launches = 0  # the launches that took a tensor-core route ("tc", "bf16_tc")
+bin_gather.tc_launches = 0  # the launches that took a tensor-core route ("tc", "bf16_tc", "f32_tc")
 bin_gather.bf16_launches = 0  # the launches over bf16 rows ("bf16_tc", "bf16")
+bin_gather.f32_tc_launches = 0  # the launches over f32 rows on the tensor cores ("f32_tc")
+bin_gather.sorted_launches = 0  # of them, those over pairs sorted by bin
 
 
 def bin_gather_plain(q_in, q_scale, corpus, row_scales, bins, valid_n: int | None = None):
@@ -440,6 +508,7 @@ _ARGTYPES = {
     "sskd_binmax_strided_tc": "i p p p p p i l i l i p",
     "sskd_bin_gather": "i p p p p p p i i l i l p",
     "sskd_bin_gather_tc": "i p p p p p p p i i l i l i p",
+    "sskd_bin_gather_f32_tc": "p p p p p p i i l i l p",
     "sskd_cell_gather": "i p p p p p p p i i i i p",
     "sskd_cell_gather_b1": "i p p p p p i i i p",
     "sskd_cell_gather_tc": "p p p p p p p i i i i p",

@@ -278,9 +278,10 @@ def test_kernel_gate_takes_bf16_and_refuses_what_no_kernel_takes():
         with pytest.raises(TypeError, match="no kernel takes"):
             tt.approx_topk(q, _on("cuda", dtype), 10)
     for route in (tk.binmax_route, tk.binmax_strided_route, tk.bin_gather_route):
-        want = "bf16_tc" if route is tk.bin_gather_route else "bf16"
-        assert route(torch.bfloat16, 768) == want
-        assert route(torch.int8, 384) == "tc" and route(torch.float32, 1536) == "cuda_core"
+        gather = route is tk.bin_gather_route
+        assert route(torch.bfloat16, 768) == ("bf16_tc" if gather else "bf16")
+        assert route(torch.int8, 384) == "tc"
+        assert route(torch.float32, 1536) == ("f32_tc" if gather else "cuda_core")
 
 
 def test_bf16_wrappers_refuse_bad_operands():

@@ -20,6 +20,7 @@ from sskd_tpu.ops.attention import dropout_attention as j_dropattn
 from sskd_tpu.ops.attention import scaled_dot_attention as j_sda
 from sskd_tpu_torch.ops import attention as ta
 from torch_tc_emulation import (
+    dropattn_bwd_tc_3pass,
     dropattn_bwd_tc,
     dropattn_bwd_tf32,
     dropattn_fwd_tc,
@@ -250,6 +251,41 @@ def test_tensor_core_backward_arithmetic_is_within_the_bound_of_the_plain_versio
     got = dropattn_bwd_tc(qb, kb, vb, bias, 0.1, 17, lse, gb, keep)
     want = ta.dropattn_bwd_plain(qb, kb, vb, bias, 0.1, 17, lse, gb)
     _held_to_the_bound(qb, kb, vb, bias, 0.1, 17, lse, gb, got, want)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [64, 130, 192, 256])
+def test_three_pass_backward_at_head_dim_16_is_the_buffer_kernels_arithmetic(L, p):
+    """The bf16 backward at head dim 16 without its [L, L] buffer
+    (tests/torch_tc_emulation.py ``dropattn_bwd_tc_3pass``: dv and dk from
+    S^T = k q^T and dP^T = v g^T with the keys as rows) gives the buffer
+    kernel's arithmetic (``dropattn_bwd_tc``) bit for bit, and is within
+    dropattn_bwd_error_bound of dropattn_bwd_plain (with the plain keep-mask
+    at p = 0.1) and, at p = 0, of the JAX backward kernel in interpret
+    mode."""
+    B, h, d = 2, 2, 16
+    q, k, v, g, bias = _inputs(L + 16, B, h, L, d)
+    qb, kb, vb, gb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+    tb = torch.from_numpy(bias)
+    seed = 23 + L
+    _, lse = ta.dropattn_fwd_plain(qb, kb, vb, tb, p, seed)
+    keep = (ta.dropout_keep_mask(seed, B * h, L, p).view(B, h, L, L) if p > 0 else None)
+    got = dropattn_bwd_tc_3pass(qb, kb, vb, tb, p, seed, lse, gb, keep)
+    for a, b in zip(got, dropattn_bwd_tc(qb, kb, vb, tb, p, seed, lse, gb, keep)):
+        assert torch.equal(a, b)
+    refs = [ta.dropattn_bwd_plain(qb, kb, vb, tb, p, seed, lse, gb)]
+    if p == 0:
+        jax_want = j_dropattn_bwd(0.0, True, *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                               for t in (qb, kb, vb)),
+                                  jnp.asarray(bias), jnp.asarray([seed], jnp.int32),
+                                  jnp.asarray(gb.float().numpy(), jnp.bfloat16))
+        refs.append([torch.from_numpy(np.array(x.astype(jnp.bfloat16).astype(jnp.float32)))
+                     .to(torch.bfloat16) for x in jax_want])
+    for want in refs:
+        bounds = ta.dropattn_bwd_error_bound(qb, kb, vb, tb, p, seed, lse, gb, got, want)
+        for name, a, b, bd in zip(("dq", "dk", "dv"), got, want, bounds):
+            diff = (a.float() - b.float()).abs()
+            assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
 
 
 def _f32_within_1e5(got, want):

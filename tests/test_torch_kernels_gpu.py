@@ -699,11 +699,12 @@ def test_int4_bin_gather_tensor_core_route_is_bit_for_bit(B, kb, d):
     assert torch.equal(got == tk.NEG_INF, rows >= valid_n)
 
 
-@pytest.mark.parametrize("dtype,d", [("f32", 384), ("int4", 1056), ("int8", 1040)])
+@pytest.mark.parametrize("dtype,d", [("f32", 1028), ("int4", 1056), ("int8", 1040)])
 def test_topk_cuda_core_routes_and_their_counters(dtype, d):
-    """f32 rows, and packed int4 (528 bytes) and int8 rows over the limits,
-    stay on the CUDA-core kernels of binmax, binmax_strided and bin_gather:
-    counted in launches, not in tc_launches."""
+    """f32 rows past the f32 gather's 1,024 floats, and packed int4 (528
+    bytes) and int8 rows over the limits, stay on the CUDA-core kernels of
+    binmax, binmax_strided and bin_gather: counted in launches, not in
+    tc_launches."""
     _need_card()
     x, q = _data(20_001, d, 4, seed=d)
     corpus, scales = _storage(dtype, x)
@@ -1644,3 +1645,150 @@ def test_f32_backward_gives_zero_dq_dk_on_one_live_key_rows_with_the_kernel_lse(
         assert a[1:].abs().max().item() <= 2e-6, (name, a[1:].abs().max().item())
     _grads_within(torch.float32, q, k, v, bias, 0.0, 3, lse, go, [t[:1] for t in got],
                   [t[:1] for t in want])
+
+
+# ---------------------------------------------------------------------------
+# f32 bin_gather on the tensor cores, and the three-pass bf16 backward at d = 16
+# ---------------------------------------------------------------------------
+
+
+def _f32_gather_case(n, valid_n, B, kb, d, scaled, seed):
+    x, q = _data(n, d, B, seed=seed)
+    scales = None
+    if scaled:
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        scales = torch.rand(n, device="cuda", generator=g) + 0.5
+    want_max = tk.binmax_plain(q, x, scales, valid_n)
+    bins = tk.topk_stable(want_max.T, min(kb, want_max.shape[0]))[1].to(torch.int32)
+    return x, q, scales, bins.contiguous()
+
+
+def _f32_layout(sort, q, x, scales, bins, valid_n):
+    """The f32 route's kernel in one layout, through its C entry."""
+    B, kb = bins.shape
+    out = torch.empty(B, kb, 128, device="cuda")
+    order = tk.bin_order(bins, x.shape[0]) if sort else None
+    rc = tk._fn("bin_gather", "sskd_bin_gather_f32_tc")(
+        q.data_ptr(), x.data_ptr(), scales.data_ptr() if scales is not None else None,
+        bins.data_ptr(), order.data_ptr() if order is not None else None, out.data_ptr(),
+        B, kb, x.shape[0], x.shape[1], valid_n, tk._stream(x.device))
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("n,valid_n,B,kb,d,scaled", [
+    (1_000_000, 1_000_000, 1, 10, 384, False),   # an f32 index's /search
+    (1_000_000, 1_000_000, 16, 10, 384, False),
+    (1_000_000, 999_950, 64, 10, 384, True),
+    (8192, 8192, 1000, 20, 384, False),          # the evaluator: 64 bins, sorted
+    (1900, 1850, 3, 4, 32, True),                # a ragged last bin cut by valid_n
+    (5000, 5000, 40, 12, 1024, False),           # the longest row of the route, sorted
+    (3000, 2990, 7, 3, 100, False),              # a partial last chunk of 32 floats
+])
+def test_f32_bin_gather_tensor_core_route_within_1e5(n, valid_n, B, kb, d, scaled):
+    """bin_gather over f32 rows of at most 1,024 floats launches
+    bin_gather_f32_tc_kernel (three TF32 products a product; counted in
+    tc_launches, f32_tc_launches and, when it sorts the pairs by bin,
+    sorted_launches), within 1e-5 of bin_gather_plain with the sentinel
+    where the plain version has it; both layouts give the same bits, and two
+    launches too."""
+    _need_card()
+    x, q, scales, bins = _f32_gather_case(n, valid_n, B, kb, d, scaled, seed=n % 997 + B)
+    assert tk.bin_gather_route(x.dtype, 4 * d) == "f32_tc"
+    sort = tk.bin_gather_f32_layout(bins.numel(), n) == "sorted"
+    before = (tk.bin_gather.launches, tk.bin_gather.tc_launches, tk.bin_gather.f32_tc_launches,
+              tk.bin_gather.sorted_launches, tk.bin_gather.bf16_launches)
+    got = tk.bin_gather(q, None, x, scales, bins, valid_n)
+    assert (tk.bin_gather.launches, tk.bin_gather.tc_launches, tk.bin_gather.f32_tc_launches,
+            tk.bin_gather.sorted_launches, tk.bin_gather.bf16_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + sort, before[4])
+    want = tk.bin_gather_plain(q, None, x, scales, bins, valid_n)
+    torch.cuda.synchronize()
+    dead = want == tk.NEG_INF
+    assert torch.equal(got == tk.NEG_INF, dead)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, tk.bin_gather(q, None, x, scales, bins, valid_n))
+    for layout in (False, True):
+        assert torch.equal(_f32_layout(layout, q, x, scales, bins, valid_n), got)
+
+
+@pytest.mark.parametrize("n,B,k", [(1_000_000, 16, 10), (8192, 1000, 20), (100_000, 256, 100)])
+def test_f32_kernel_engine_ids_match_the_plain_engine(n, B, k):
+    """The exact engine over f32 rows through binmax and the f32 tensor-core
+    gather gives cosine_topk_core's ids, ties within 1e-5 aside."""
+    from sskd_tpu_torch.ops.topk import cosine_topk_core
+
+    _need_card()
+    x, q = _data(n, 384, B, seed=B + k)
+    kv, ki = tk.cosine_topk_kernels(q, x, k)
+    pv, pi = cosine_topk_core(q, x, k)
+    torch.cuda.synchronize()
+    assert (kv - pv).abs().max().item() <= 1e-5
+    kth = pv[:, -1:]
+    for r in range(B):
+        a, b = set(ki[r].tolist()), set(pi[r].tolist())
+        for i in a ^ b:  # an id in one set only scores within 1e-5 of the k-th
+            row, ids = (kv, ki) if i in a else (pv, pi)
+            assert abs(row[r][ids[r] == i].item() - kth[r].item()) <= 1e-5
+
+
+def test_f32_bin_gather_routes_by_row_length():
+    """f32 rows past 1,024 floats stay on bin_gather_kernel (counted in
+    launches only), within 1e-5 of the plain version."""
+    _need_card()
+    x, q, scales, bins = _f32_gather_case(20_001, 20_001, 4, 10, 1028, False, seed=5)
+    assert tk.bin_gather_route(x.dtype, 4 * 1028) == "cuda_core"
+    before = (tk.bin_gather.launches, tk.bin_gather.tc_launches, tk.bin_gather.f32_tc_launches)
+    got = tk.bin_gather(q, None, x, None, bins)
+    assert (tk.bin_gather.launches, tk.bin_gather.tc_launches,
+            tk.bin_gather.f32_tc_launches) == (before[0] + 1, before[1], before[2])
+    want = tk.bin_gather_plain(q, None, x, None, bins)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("L", [64, 130, 192, 256])
+def test_three_pass_backward_at_head_dim_16_matches_plain(p, L):
+    """bf16 at head dim 16 takes dropattn_bwd_tc_3pass_kernel (the resident
+    route, counted in three_pass_launches): within dropattn_bwd_error_bound
+    of the plain pair, and two launches give the same bits."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(6, 4, L, 16, torch.bfloat16, seed=700 + L)
+    seed = 19 + L
+    assert ta.dropattn_bwd_route(torch.bfloat16, 16, L) == "tc"
+    _, lse = ta.dropattn_fwd(q, k, v, bias, p, seed)
+    before = (ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.three_pass_launches,
+              ta.dropattn_bwd.stream_launches)
+    grads = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    assert (ta.dropattn_bwd.tc_launches, ta.dropattn_bwd.three_pass_launches,
+            ta.dropattn_bwd.stream_launches) == (before[0] + 1, before[1] + 1, before[2])
+    again = ta.dropattn_bwd(q, k, v, bias, p, seed, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, p, seed, lse, go)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, p, seed, lse, go, grads, want)
+    for name, a, b, bd in zip("dq dk dv".split(), grads, want, bounds):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bd).all()), (name, (diff / bd).max().item())
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_three_pass_kernel_stays_off_the_other_head_dims(d):
+    """bf16 at head dims 32 and 64 keeps dropattn_bwd_tc_kernel: its
+    launches do not count in three_pass_launches; the three-pass kernel at
+    those head dims, reached through its probe entry, is still within the
+    bound of the plain pair."""
+    _need_card()
+    q, k, v, go, bias = _attn_inputs(4, 4, 64, d, torch.bfloat16, seed=800 + d)
+    _, lse = ta.dropattn_fwd(q, k, v, bias, 0.1, 3)
+    before = ta.dropattn_bwd.three_pass_launches
+    ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
+    assert ta.dropattn_bwd.three_pass_launches == before
+    got = ta.dropattn_bwd_tc_kernel(1, q, k, v, bias, 0.1, 3, lse, go)
+    want = ta.dropattn_bwd_plain(q, k, v, bias, 0.1, 3, lse, go)
+    torch.cuda.synchronize()
+    bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, 0.1, 3, lse, go, got, want)
+    for a, b, bd in zip(got, want, bounds):
+        assert bool(((a.float() - b.float()).abs() <= bd).all())

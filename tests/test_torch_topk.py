@@ -12,6 +12,7 @@ recall (at least the recall target) and by the scores of the ids it returns;
 below the reduction threshold and at recall_target 1.0 the ids are equal.
 """
 
+from collections import Counter
 from types import SimpleNamespace
 
 import ml_dtypes
@@ -27,12 +28,15 @@ from sskd_tpu.ops.topk_pallas import cosine_topk_pallas
 from sskd_tpu_torch.ops import topk as tt
 from sskd_tpu_torch.ops import topk_kernels as tk
 from torch_tc_emulation import (
+    GF_SORT_RUN,
     bin_gather_bf16_tc,
+    bin_gather_f32_tc,
     bin_gather_tc,
     binmax_f32,
     binmax_strided_f32,
     binmax_strided_tc,
     binmax_tc,
+    mma_tf32,
     packed_tile_dot,
     split_bf16x3,
     unpack_i4_words,
@@ -349,7 +353,9 @@ def test_approx_keeps_neighbours_stored_side_by_side():
     (tk.bin_gather_route, torch.int8, 384, "tc"),
     (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES, "tc"),
     (tk.bin_gather_route, torch.int8, tk.TC_MAX_ROW_BYTES + 16, "cuda_core"),
-    (tk.bin_gather_route, torch.float32, 384 * 4, "cuda_core"),
+    (tk.bin_gather_route, torch.float32, 384 * 4, "f32_tc"),
+    (tk.bin_gather_route, torch.float32, 4 * tk.GATHER_F32_TC_MAX_DIM, "f32_tc"),
+    (tk.bin_gather_route, torch.float32, 4 * tk.GATHER_F32_TC_MAX_DIM + 16, "cuda_core"),
     (tk.bin_gather_route, torch.uint8, 192, "tc"),
     (tk.bin_gather_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2, "tc"),
     (tk.bin_gather_route, torch.uint8, tk.TC_MAX_ROW_BYTES // 2 + 16, "cuda_core"),
@@ -361,8 +367,9 @@ def test_topk_kernel_routes(route, dtype, row_bytes, want):
     """int8 rows go to the tensor cores, and packed int4 rows of at most
     512 bytes (D <= 1,024); bin_gather's bf16 rows of at most 1,024 bytes
     (D <= 512) to its split-query tensor-core kernel, longer ones to the
-    CUDA cores' bf16 mode; f32 and rows over the route's limit to the
-    CUDA-core kernels."""
+    CUDA cores' bf16 mode; bin_gather's f32 rows of at most 1,024 floats to
+    its three-TF32-product kernel; binmax's and binmax_strided's f32 rows,
+    and rows over a route's limit, to the CUDA-core kernels."""
     assert route(dtype, row_bytes) == want
 
 
@@ -563,6 +570,75 @@ def test_split_query_bf16_gather_within_1e5(n, valid_n, B, kb, d, scaled):
     # the split carries the f32 query: rounding it to bf16 moves scores further
     rounded = tk.bin_gather_plain(qt.to(torch.bfloat16).float(), None, xt, st, bins, valid_n)
     assert (rounded - want).abs().max().item() > 10 * (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("n,valid_n,B,kb,d,scaled", [
+    (1900, 1900, 1, 4, 32, False),     # a ragged last bin (108 rows), one query
+    (1900, 1850, 3, 3, 384, True),     # valid_n cuts the ragged last bin; scales
+    (2000, 1920, 16, 2, 32, False),    # the last bin holds no valid row
+    (1300, 1300, 16, 4, 384, True),    # 64 pairs over 11 bins: the sorted runs share them
+    (700, 650, 3, 1, 100, False),      # a partial last chunk of 32 floats
+])
+def test_f32_tensor_core_bin_gather_within_1e5(n, valid_n, B, kb, d, scaled, sort):
+    """The f32 tensor-core bin gather (tests/torch_tc_emulation.py
+    ``bin_gather_f32_tc``: three TF32 products a product, f32 sums over
+    8-deep steps, the pairs in their own order or sorted by bin, each group
+    of equal bins reading its bin once) stays within the 1e-5 that the card
+    allows of bin_gather_plain and of the JAX package's _gather_kernel f32
+    branch (interpret mode) on unit rows, with the sentinel where they have
+    it and every pair scored; sorted, a bin is read once a run."""
+    x, q = _int8_case(n + B + d + kb, n, d, B)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    scales = (np.random.default_rng(d).uniform(0.5, 2.0, n).astype(np.float32)
+              if scaled else None)
+    st = torch.from_numpy(scales) if scaled else None
+    bins = _gather_bins(n + kb, B, kb, -(-n // 128))
+    got, loads = bin_gather_f32_tc(qt, xt, st, bins, valid_n, sort=sort)
+    want = tk.bin_gather_plain(qt, None, xt, st, bins, valid_n)
+    assert not torch.isnan(got).any()
+    assert torch.equal(got == tk.NEG_INF, want == tk.NEG_INF)
+    assert (got - want).abs().max().item() <= 1e-5
+    jax_got = _jax_gather(q, None, x, scales, bins.numpy(), valid_n)
+    assert np.abs(got.numpy() - jax_got).max() <= 1e-5
+    pairs_of = Counter(bins.reshape(-1).tolist())
+    if sort:  # each distinct bin read once a run of GF_SORT_RUN sorted entries it falls in
+        ordered = sorted(bins.reshape(-1).tolist())
+        assert loads == Counter(b for i in range(0, len(ordered), GF_SORT_RUN)
+                                for b in set(ordered[i:i + GF_SORT_RUN]))
+    else:
+        assert loads == pairs_of
+    # three TF32 products carry the f32 product: one TF32 pass moves scores further
+    one_pass = mma_tf32(xt, qt.T, passes=1).T
+    exact = (xt.double() @ qt.double().T).T
+    assert (one_pass - exact).abs().max().item() > 10 * (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("n_pairs,n_rows,want", [
+    (16 * 10, 1_000_000, "own"),      # an f32 index's /search: pairs rarely share a bin
+    (256 * 10, 1_000_000, "own"),     # 0.33 pairs a bin of the 7,813
+    (256 * 30, 1_000_000, "sorted"),  # 0.98
+    (1000 * 20, 8192, "sorted"),      # the evaluator: 312 pairs a bin
+    (32, 8192, "sorted"),             # the threshold: half a pair a bin of 64
+    (31, 8192, "own"),
+])
+def test_f32_bin_gather_layout_rule(n_pairs, n_rows, want):
+    """The f32 route sorts its pairs by bin from GATHER_F32_SORT_PAIRS_PER_BIN
+    pairs a bin of the corpus on."""
+    assert tk.GATHER_F32_SORT_PAIRS_PER_BIN == 0.5
+    assert tk.bin_gather_f32_layout(n_pairs, n_rows) == want
+
+
+@pytest.mark.parametrize("n_rows", [1900, 2**15 * 128, 2**15 * 128 + 1])
+def test_bin_order_is_the_stable_sort_by_bin(n_rows):
+    """bin_order gives the pairs sorted by bin, a bin's pairs in their own
+    order, whether the keys go to 16 bits (bins below 2^15) or stay 32."""
+    rng = np.random.default_rng(n_rows % 1000)
+    n_bins = -(-n_rows // 128)
+    bins = torch.from_numpy(rng.integers(0, n_bins, (37, 9)).astype(np.int32))
+    bins[3, :4] = n_bins - 1
+    want = sorted(range(bins.numel()), key=lambda i: (int(bins.view(-1)[i]), i))
+    assert tk.bin_order(bins, n_rows).tolist() == want
 
 
 def test_exact_engine_at_b64_int8_matches_jax():

@@ -34,6 +34,11 @@ kernels' in natural units (f32 exp, nothing folded). ``flash_tf32`` and
 1 / (1 - p) into p v in the tile's slot order, one division at the end)
 take any head dim: the f32 kernels are one template instantiated at head
 dims 16, 32 and 64, the sums over the same 64-key tiles at each.
+``dropattn_bwd_tc_3pass`` follows ``dropattn_bwd_tc_3pass_kernel`` (bf16 at
+head dim 16): passes 1 and 2 as ``dropattn_bwd_tc`` over the query rows, then
+S^T = k q^T and dP^T = v g^T with the keys as rows, each probability from the
+key's bias and the query's lse, dv and dk over 16-query steps; every sum is
+``dropattn_bwd_tc``'s, so the two give the same bits.
 ``dropattn_bwd_tf32`` follows the f32 backward,
 its dq steps in the kernel's key order, its D divided by the row's
 sum of probabilities (``normalize=False``: before that repair, D as the
@@ -64,6 +69,13 @@ against the f32 query split exactly into three bf16 terms
 (``split_bf16x3``), the terms as columns 0-2 of an 8-column B operand,
 one ``mma`` a 16-dim step over rows zero-filled to the step count, and
 each score the sum of the three columns, the smallest first.
+
+``bin_gather_f32_tc`` follows ``bin_gather_f32_tc_kernel`` (f32 rows): the
+entries in runs (the pairs' own order, one a run, or sorted by bin in runs of
+32), each run cut into groups of equal neighbouring bins, each group's bin
+read once for all its queries, each score three TF32 products a product
+(``mma_tf32``) over the row zero-filled to the 32-float chunks, then the row
+scale and the sentinel.
 
 ``binmax_strided_tc`` follows csrc/binmax.cu ``binmax_strided_tc_kernel``:
 logical block j as two blocks of four warps, each warp 16 row positions of
@@ -199,6 +211,44 @@ def dropattn_bwd_tc(q, k, v, bias, p, seed, lse, g, keep_mask):
     dv = mma(_bf16(pd).transpose(-1, -2), gf)
     dq = mma(ds, kf)
     dk = mma(ds.transpose(-1, -2), qf)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def dropattn_bwd_tc_3pass(q, k, v, bias, p, seed, lse, g, keep_mask):
+    """(dq, dk, dv) of ``dropattn_bwd_tc_3pass_kernel`` (bf16) for the
+    arguments of ``dropattn_bwd_tc``: dq from the query rows' S and dP; dv
+    and dk from S^T = k q^T and dP^T = v g^T with the keys as rows, each
+    probability 2^(s^T scale log2(e) + (bias_key - lse_query) log2(e)), the
+    keep bit of (query, key) and the query's D read back."""
+    B, h, L, d = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    scale_log2 = torch.tensor(LOG2E / math.sqrt(d), dtype=torch.float32)
+    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    bias2 = (bias.float() * LOG2E)[:, None, :]  # [B, 1, keys]
+    lse2 = lse.float() * LOG2E  # [B, h, queries]
+    # passes 1 and 2: the query rows
+    x2 = (mma(qf, kf.transpose(-1, -2)).double() * scale_log2.double()
+          + (bias2[:, :, None, :] - lse2[..., None]).double()).float()
+    probs = torch.exp2(x2) * EX2_ERR
+    dp = mma(gf, vf.transpose(-1, -2))
+    dprobs = dp if keep_mask is None else torch.where(keep_mask, dp * inv, 0.0)
+    D = (dprobs * probs).sum(dim=-1, keepdim=True)
+    dq = mma(_bf16(probs * (dprobs - D) * scale), kf)
+    # pass 3: the keys as rows, [.., key, query]
+    x2t = (mma(kf, qf.transpose(-1, -2)).double() * scale_log2.double()
+           + (bias2[:, :, :, None] - lse2[:, :, None, :]).double()).float()
+    probs_t = torch.exp2(x2t) * EX2_ERR
+    dpt = mma(vf, gf.transpose(-1, -2))
+    keep_t = None if keep_mask is None else keep_mask.transpose(-1, -2)
+    if keep_t is None:
+        pd_t, dprobs_t = probs_t, dpt
+    else:
+        pd_t = torch.where(keep_t, probs_t * inv, 0.0)
+        dprobs_t = torch.where(keep_t, dpt * inv, 0.0)
+    ds_t = _bf16(probs_t * (dprobs_t - D.transpose(-1, -2)) * scale)
+    dv = mma(_bf16(pd_t), gf)
+    dk = mma(ds_t, qf)
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
@@ -661,6 +711,55 @@ def bin_gather_bf16_tc(q, corpus, row_scales, bins, valid_n):
                 scores = scores * row_scales[rows.clamp(max=n - 1)]
             out[b, slot] = torch.where(rows < valid_n, scores, NEG)
     return out
+
+
+GF_CK, GF_SORT_RUN = 32, 32  # csrc/bin_gather.cu: floats a chunk, entries a sorted run
+
+
+def bin_gather_f32_tc(q, corpus, row_scales, bins, valid_n, sort=False):
+    """(scores [B, kb, 128] f32, loads) of ``bin_gather_f32_tc_kernel`` for
+    f32 queries ``q`` [B, D] and f32 rows ``corpus`` [N, D]: the (query,
+    slot) pairs in their own order, one a run, or sorted by bin (one stable
+    sort) in runs of 32 entries; each run cut into groups of equal
+    neighbouring bins, each group's bin brought in once (``loads``, a
+    Counter by bin) for all its queries; each score ``mma_tf32`` of the
+    row and the query, both zero-filled to a whole number of 32-float
+    chunks, then the row scale if any and NEG_INF at rows >= valid_n. A
+    pair no run scores stays NaN."""
+    B, kb = bins.shape
+    n, d = corpus.shape
+    width = -(-d // GF_CK) * GF_CK
+    if sort:
+        cells, order = torch.sort(bins.reshape(-1), stable=True)
+        run_len = GF_SORT_RUN
+    else:
+        cells, order, run_len = bins.reshape(-1), None, 1
+    cl = [int(c) for c in cells]
+    od = list(range(len(cl))) if order is None else [int(i) for i in order]
+    out = torch.full((B * kb, BIN_W), float("nan"))
+    loads = Counter()
+    qp = torch.zeros(B, width)
+    qp[:, :d] = q.float()
+    for s in range(0, len(cl), run_len):
+        e = min(s + run_len, len(cl))
+        g = s
+        while g < e:
+            g_end = g + 1
+            while g_end < e and cl[g_end] == cl[g]:
+                g_end += 1
+            c = cl[g]
+            loads[c] += 1
+            rows = c * BIN_W + torch.arange(BIN_W)
+            live = rows < n
+            tile = torch.zeros(BIN_W, width)
+            tile[live, :d] = corpus[rows[live]].float()
+            pairs = od[g:g_end]
+            acc = mma_tf32(tile, qp[[pair // kb for pair in pairs]].T)  # [128, n_q]
+            if row_scales is not None:
+                acc = acc * row_scales[rows.clamp(max=n - 1)][:, None]
+            out[pairs] = torch.where((rows < valid_n)[:, None], acc, NEG).T
+            g = g_end
+    return out.view(B, kb, BIN_W), loads
 
 
 ST_WARPS, ST_PARTS, ST_QUERIES = 4, 2, 64  # csrc/binmax.cu
