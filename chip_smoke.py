@@ -137,6 +137,17 @@ Phases, each fatal when it fails:
              over the same rows (gate 0.90), validate() of the index as
              clustered and as approx (gate 0.97 for approx), and ms per search
              of the clustered, approx and exact engines at B in {1, 16, 64};
+5b. sharded — the serve phase's 1,000,000 x 384 rows as int8 exact, approx
+             and refined (refine_m 40) indexes, and the clustered phase's
+             int8 index, on a one-device CUDA mesh: ShardedIndex.search and
+             ShardedFusedSearcher at B in {1, 16, 64}, ids equal to the
+             single-device engines' (IndexBuilder.search, FusedSearcher) and
+             scores within 1e-6, every sharded kernel launched on that path;
+             each kernel route on the second half of the rows at
+             index_offset N/2 (exact, approx, clustered at B = 1 and 16,
+             refine) against its plain version (ids equal, scores equal,
+             the exact engine within 1e-5); two shards on the one card
+             against the single-device exact ids; ms per batch of each;
 6. refine  — the same topical corpus (made once for both phases) built into
              five indexes, each saved and loaded: (a) int8 approx and (b) int4
              exact, both with refine_m 40 (bf16 refine rows), (c) bf16 exact,
@@ -2492,6 +2503,7 @@ def phase_serve(args, gen) -> dict:
         "peak_device_gib": peak_gib,
         "launches": counts,
         "tc_launches": tc_counts,
+        "rows": emb,  # the index's f32 rows, for the sharded phase (not recorded)
     }
 
 
@@ -2505,6 +2517,178 @@ def _real_rows(recorded, student) -> list[int]:
 # ---------------------------------------------------------------------------
 # Phase 4: the KD train path
 # ---------------------------------------------------------------------------
+
+SHARDED_BATCHES = (1, 16, 64)
+# the kernels of the sharded engines; the query encode (at most 64 tokens,
+# below FLASH_MIN_L) launches no flash_attn_fwd, as on the serve path
+SHARDED_KERNELS = ("binmax", "bin_gather", "binmax_strided", "cell_gather", "cell_gather_b1")
+
+
+def phase_sharded(args, emb: np.ndarray) -> dict:
+    """Index-sharded search on a one-device CUDA mesh over 1,000,000 x 384
+    int8 rows: ShardedIndex.search and ShardedFusedSearcher (the engines'
+    kernels per shard, then the merge) against the single-device engines,
+    for exact, approx and refine over the serve cell's rows and clustered
+    over the clustered phase's saved index (a second cell layout over the
+    serve rows would add 35-40 s of host time to a script near its limit),
+    at B in SHARDED_BATCHES; each kernel route on the second half of the
+    rows at index_offset N/2 against its plain version; two shards on the
+    one card against the single-device exact engine; ms per query batch of
+    both."""
+    from sskd_tpu_torch.index.builder import IndexBuilder
+    from sskd_tpu_torch.index.sharded import ShardedIndex
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
+    from sskd_tpu_torch.ops.topk import (approx_topk, cosine_topk, cosine_topk_core,
+                                         offset_positions, refined_candidates_core,
+                                         rescore_candidates)
+    from sskd_tpu_torch.ops.topk_cluster import clustered_topk
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+    from sskd_tpu_torch.serve.fused import FusedSearcher, ShardedFusedSearcher
+
+    work = ROOT / "build" / "chip_smoke"
+    ids = [f"doc-{i}" for i in range(N_ROWS)]
+    t0 = time.perf_counter()
+    builders = {"exact": IndexBuilder(device="cuda").load(work / "index")}
+    for name, kw in (("approx", {}), ("refine", {"refine_m": REFINE_M})):
+        builders[name] = IndexBuilder(384, index_type="approx", dtype="int8", device="cuda",
+                                      **kw).build_from_arrays(emb, ids)
+    builders["clustered"] = IndexBuilder(device="cuda").load(work / "clustered_index")
+    build_s = time.perf_counter() - t0
+    check(builders["exact"].index_type == "exact" and builders["exact"].dtype == "int8"
+          and builders["exact"].ntotal == N_ROWS, "the serve phase's index")
+    cl = builders["clustered"]
+    check((cl.index_type, cl.dtype, cl.ntotal, cl._centroids.shape[0], cl._rows_per_cell,
+           cl.nprobe) == ("clustered", "int8", N_ROWS, N_CELLS, CELL_ROWS, NPROBE),
+          "the clustered phase's index")
+    student = StudentModel(str(work / "student"), device="cuda", compute_dtype=torch.bfloat16)
+    texts = distinct_queries(max(SHARDED_BATCHES), args.seed + 41)
+    q_emb = student.encode_queries(texts)
+    mesh = create_mesh(1, 1)
+    check(mesh.devices == ((torch.device("cuda", 0),),), f"mesh {mesh.devices}")
+
+    # the single-device engines first, outside the counted path; the served
+    # clustered engine probes cells as the sharded one does
+    saved_env = os.environ.get("SSKD_SERVE_CELL_PROBE")
+    os.environ["SSKD_SERVE_CELL_PROBE"] = "1"
+    try:
+        single = {name: {B: (b.search(q_emb[:B], k=10),
+                             FusedSearcher(student, b).search_texts(texts[:B], k=10))
+                         for B in SHARDED_BATCHES} for name, b in builders.items()}
+    finally:
+        if saved_env is None:
+            os.environ.pop("SSKD_SERVE_CELL_PROBE")
+        else:
+            os.environ["SSKD_SERVE_CELL_PROBE"] = saved_env
+
+    # --- the sharded path: counts set to 0 before it, read after -----------
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sharded, got = {}, {}
+    for name, b in builders.items():
+        sharded[name] = ShardedIndex.from_builder(b, mesh)
+        fused = ShardedFusedSearcher(student, sharded[name])
+        if name == "exact":
+            fused.warmup(max_batch=64, k=10)
+        got[name] = {B: (sharded[name].search(q_emb[:B], k=10), fused.search_texts(texts[:B], k=10))
+                     for B in SHARDED_BATCHES}
+    torch.cuda.synchronize()
+    counts, tc_counts = launch_counts(), tc_launch_counts()
+    log(f"[sharded] launches on the sharded path: {counts}; tensor-core routes: {tc_counts}")
+    for kernel in SHARDED_KERNELS:
+        check(counts[kernel] > 0, f"kernel {kernel} was not launched on the sharded path")
+
+    engines = {}
+    for name, b in builders.items():
+        sh = sharded[name]
+        check((sh.n_shards, sh.ntotal) == (1, N_ROWS), f"{name}: {sh.n_shards} shards")
+        gaps = []
+        for B in SHARDED_BATCHES:
+            (sv, si), (fv, fi) = got[name][B]
+            (wv, wi), (wfv, wfi) = single[name][B]
+            check(np.array_equal(si, wi), f"{name} B={B}: ShardedIndex ids differ from "
+                  f"the single-device engine's in {mismatched(si, wi)} places")
+            check(np.array_equal(fi, wfi), f"{name} B={B}: ShardedFusedSearcher ids differ "
+                  f"from FusedSearcher's in {mismatched(fi, wfi)} places")
+            gaps.append(float(max(np.abs(sv - wv).max(), np.abs(fv - wfv).max())))
+        check(max(gaps) <= 1e-6, f"{name}: scores {max(gaps)} from the single-device ones")
+        q_host = np.asarray(q_emb, dtype=np.float32)
+        ms = {f"B={B}": {
+            "sharded": time_ms(lambda: sh.search(q_host[:B], k=10), iters=10),
+            "single": time_ms(lambda: b.search(q_host[:B], k=10), iters=10)}
+            for B in SHARDED_BATCHES}
+        engines[name] = {"max_score_gap": max(gaps), "ms_per_batch": ms}
+        log(f"[sharded] {name}: ids equal the single-device engine's at B in "
+            f"{SHARDED_BATCHES}; ms per batch {json.dumps(ms)}")
+
+    # --- each kernel route at index_offset N/2 against its plain version ----
+    half = N_ROWS // 2
+    q = torch.from_numpy(np.asarray(q_emb[:16], dtype=np.float32)).cuda()
+    offsets = {}
+    ex = builders["exact"]
+    rows, scales = ex.device_vectors[half:], ex.device_scales[half:]
+    valid = N_ROWS - 777  # cuts the last bin of the half
+    kv, ki = cosine_topk(q, rows, 10, row_scales=scales, valid_n=valid, index_offset=half)
+    pv, pi = cosine_topk_core(q, rows, 10, row_scales=scales, valid_n=valid, index_offset=half)
+    offsets["exact"] = (kv, ki, pv, pi)
+    ap = builders["approx"]
+    kv, ki = approx_topk(q, ap.device_vectors[half:], 10, row_scales=ap.device_scales[half:],
+                         valid_n=valid, index_offset=half, kernels=True)
+    pv, pi = approx_topk(q, ap.device_vectors[half:], 10, row_scales=ap.device_scales[half:],
+                         valid_n=valid, index_offset=half, kernels=False)
+    offsets["approx"] = (kv, ki, pv, pi)
+    cl = builders["clustered"]
+    c0 = cl.device_centroids.shape[0] // 2
+    c_off = c0 * cl._rows_per_cell
+    for B in (1, 16):
+        kw = dict(k=10, nprobe=cl.nprobe, rows_per_cell=cl._rows_per_cell,
+                  row_scales=cl.device_scales[c_off:], valid_n=cl.ntotal, index_offset=c_off)
+        args_ = (q[:B], cl.device_vectors[c_off:], cl.device_centroids[c0:])
+        offsets[f"clustered B={B}"] = (*clustered_topk(*args_, kernels=True, **kw),
+                                       *clustered_topk(*args_, kernels=False, **kw))
+    rf = builders["refine"]
+    ref_rows, ref_scales, ref_bf16 = (rf.device_vectors[half:], rf.device_scales[half:],
+                                      rf.device_refine[half:])
+    refined = []
+    for kernels in (True, False):
+        _, cand = refined_candidates_core(q, ref_rows, REFINE_M, row_scales=ref_scales,
+                                          valid_n=valid - half, kernels=kernels)
+        v, i = rescore_candidates(q, ref_bf16, cand, 10)
+        refined += [v, offset_positions(i, half)]
+    offsets["refine"] = tuple(refined)
+    offset_record = {}
+    for name, (kv, ki, pv, pi) in offsets.items():
+        ki, pi = ki.cpu().numpy(), pi.cpu().numpy()
+        err = float((kv - pv).abs().max())
+        # the exact engine against the blocked plain engine within the kernel
+        # phase's 1e-5; the others against their own plain versions, int8 bit for bit
+        tol = 1e-5 if name == "exact" else 0.0
+        lo, hi = (c_off, N_ROWS) if name.startswith("clustered") else (half, valid)
+        check(np.array_equal(ki, pi), f"offset {name}: kernel ids differ from the plain "
+              f"version's in {mismatched(ki, pi)} places")
+        check(((ki == -1) | ((ki >= lo) & (ki < hi))).all(),
+              f"offset {name}: ids outside the shard's valid rows [{lo}, {hi})")
+        check(err <= tol, f"offset {name}: scores {err} from the plain version's")
+        offset_record[name] = {"max_abs_err": err, "ids_equal": True}
+    log(f"[sharded] every route at index_offset {half} gives the plain version's ids and "
+        f"scores: {sorted(offset_record)}")
+
+    # --- two shards on the one card: the sharded exact engine's merge -------
+    mesh2 = create_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)
+    two = ShardedIndex.from_builder(ex, mesh2)
+    for B in SHARDED_BATCHES:
+        tv, ti = two.search(q_emb[:B], k=10)
+        (wv, wi), _ = single["exact"][B]
+        check(np.array_equal(ti, wi), f"two shards B={B}: ids differ from the single-device "
+              f"engine's in {mismatched(ti, wi)} places")
+    two_ms = {f"B={B}": time_ms(lambda: two.search(np.asarray(q_emb[:B]), k=10), iters=10)
+              for B in SHARDED_BATCHES}
+    log(f"[sharded] two shards on one card ({two.rows_per_shard} rows each): the "
+        f"single-device exact ids; ms per batch {json.dumps(two_ms)}")
+    del sharded, two, builders
+    return {"build_seconds": build_s, "engines": engines, "offset_checks": offset_record,
+            "two_shards_ms_per_batch": two_ms, "launches": counts, "tc_launches": tc_counts}
+
 
 TRAIN_QUERIES = 512  # 16 steps of 32 queries x 8 docs
 LONG_DOC_STEPS = 4  # the run at doc_len 512: 4 steps of 32 queries x 8 docs
@@ -5291,6 +5475,7 @@ def main(argv=None) -> int:
     log(f"[kernels] cell_gather int8: {json.dumps(record['cell_gather_int8'])}")
     t0 = time.perf_counter()
     record["serve"] = phase_serve(args, gen)
+    serve_rows = record["serve"].pop("rows")  # for the sharded phase
     log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["train"] = phase_train(args)
@@ -5299,6 +5484,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     record["clustered"] = phase_clustered(args, emb, queries)
     log(f"[clustered] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    record["sharded"] = phase_sharded(args, serve_rows)
+    del serve_rows
+    log(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["refine"] = phase_refine(args, emb, queries)
     log(f"[refine] phase took {time.perf_counter() - t0:.1f} s")
@@ -5429,6 +5618,10 @@ def main(argv=None) -> int:
             kernels[-1]["kernel"] = "dropattn_bwd_tc_3pass_kernel"
             kernels[-1].update({n: entry[n] for n in (
                 "buffer_kernel_device_ms", "three_pass_device_ms", "stream_device_ms")})
+    # the launches of the sharded path (the sharded phase), beside each kernel's own
+    for entry in kernels:
+        if entry["name"] in SHARDED_KERNELS:
+            entry["sharded_launches"] = record["sharded"]["launches"][entry["name"]]
     record["kernels"] = kernels
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -21,12 +21,16 @@ defaults, JSON output and exit codes::
 (``python -m sskd_tpu_torch.cli.main ...`` is the same.) Each command runs
 on the CUDA device unless ``--platform cpu`` or ``SSKD_PLATFORM=cpu`` asks
 for the CPU (the JAX CLI's switch), and exits with an error, without
-falling back, when CUDA is wanted and absent. What the port does not have
-fails the same way, with a message, never silently: ``--platform`` other
-than cpu, cuda or gpu; ``--cpu-devices``, ``train --data-parallel N > 1``
-and ``serve --shards N > 1`` (sharding is not ported: ROADMAP Queue 1 item
-7). ``serve --workers N > 1`` forks worker processes on the CPU only; on
-the card it warns and serves one process, as the JAX CLI does on a TPU.
+falling back, when CUDA is wanted and absent. ``serve --shards N`` shards
+the served index over N devices (``mesh.index_parallel``): every CUDA device
+of the machine, or with ``--cpu-devices N`` (which runs the command on the
+CPU) a CPU mesh of N entries, the port's counterpart of the JAX flag's
+virtual devices; a mesh the devices cannot hold exits 2 before the server
+starts. What the port does not have fails the same way, with a message,
+never silently: ``--platform`` other than cpu, cuda or gpu, and ``train
+--data-parallel N > 1`` (ROADMAP Queue 1 item 7b). ``serve --workers N >
+1`` forks worker processes on the CPU only; on the card it warns and serves
+one process, as the JAX CLI does on a TPU.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import os
 import sys
 from pathlib import Path
 
-from sskd_tpu_torch.config import SHARDING_NOT_PORTED
+from sskd_tpu_torch.config import DATA_PARALLEL_NOT_PORTED
 from sskd_tpu_torch.exceptions import ConfigError
 
 _PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
@@ -47,7 +51,8 @@ def _add_platform_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--platform", default=None,
                    help="cpu, or cuda (the default; also 'gpu'); overrides SSKD_PLATFORM")
     p.add_argument("--cpu-devices", type=int, default=None,
-                   help="virtual CPU device count (the JAX CLI's; not ported: raises)")
+                   help="run on the CPU, as a mesh of N CPU entries (the JAX CLI's virtual "
+                   "CPU device count)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dev-data", default=None,
                    help="held-out raw JSONL: its retrieval nDCG@10 drives early stopping")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="DP mesh size (default: mesh.data_parallel); only 1 is ported")
+                   help="DP mesh size (default: mesh.data_parallel); only 1 is ported "
+                   "(ROADMAP Queue 1 item 7b)")
     _add_platform_arg(p)
 
     p = sub.add_parser("train-teacher",
@@ -181,7 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--index", default=None, help="index dir to preload")
     p.add_argument("--device", default=None)
     p.add_argument("--shards", type=int, default=None,
-                   help="shard the index over N devices (mesh.index_parallel); only 1 is ported")
+                   help="shard the index over N devices (mesh.index_parallel)")
     p.add_argument("--hybrid-bm25", default=None, metavar="DIR",
                    help="enable hybrid BM25+semantic fusion with this BM25 index dir")
     p.add_argument("--workers", type=int, default=None,
@@ -210,8 +216,16 @@ def build_parser() -> argparse.ArgumentParser:
 def _device(args) -> str:
     """The device the command runs on: ``--platform``, else ``SSKD_PLATFORM``,
     else CUDA."""
-    if getattr(args, "cpu_devices", None):
-        raise ConfigError(f"--cpu-devices: virtual devices serve a mesh; {SHARDING_NOT_PORTED}")
+    cpu_devices = getattr(args, "cpu_devices", None)
+    if cpu_devices is not None:
+        if cpu_devices < 1:
+            raise ConfigError(f"--cpu-devices {cpu_devices}: a CPU mesh needs an entry")
+        if getattr(args, "platform", None) not in (None, "cpu"):
+            raise ConfigError(f"--cpu-devices runs on the CPU, not --platform {args.platform}")
+        from sskd_tpu_torch.parallel.mesh import set_cpu_devices
+
+        set_cpu_devices(cpu_devices)
+        return "cpu"
     platform = getattr(args, "platform", None) or os.environ.get("SSKD_PLATFORM") or "cuda"
     if platform not in _PLATFORMS:
         raise ConfigError(f"--platform {platform!r}: the port runs on {sorted(_PLATFORMS)}")
@@ -308,7 +322,7 @@ def _run(args, settings, device: str) -> int:
             dp = settings.mesh.data_parallel
             args.data_parallel = dp if dp > 0 else 1
         if args.data_parallel > 1:
-            raise ConfigError(f"--data-parallel {args.data_parallel}: {SHARDING_NOT_PORTED}")
+            raise ConfigError(f"--data-parallel {args.data_parallel}: {DATA_PARALLEL_NOT_PORTED}")
         result = run_train_pipeline(
             settings,
             data_dir=args.data_dir,
@@ -491,8 +505,18 @@ def _serve(args, settings, device: str) -> int:
         setup_logging(level=settings.service.log_level, force=True)
     elif settings.debug:
         setup_logging(level="debug", force=True)
-    if args.shards and args.shards > 1:
-        raise ConfigError(f"--shards {args.shards}: {SHARDING_NOT_PORTED}")
+    if args.shards:
+        settings = settings.from_dict({"mesh": {"index_parallel": args.shards}}, base=settings)
+    if settings.mesh.index_parallel > 1:
+        # the mesh is made when an index is loaded: refuse one the devices
+        # cannot hold before the server starts
+        from sskd_tpu_torch.parallel.mesh import local_devices, mesh_shape_for
+
+        try:
+            mesh_shape_for(len(local_devices(args.device or device)), 1,
+                           settings.mesh.index_parallel)
+        except ValueError as e:
+            raise ConfigError(f"mesh.index_parallel={settings.mesh.index_parallel}: {e}") from e
 
     n_workers = args.workers if args.workers is not None else settings.service.workers
     if n_workers > 1 and not is_worker():

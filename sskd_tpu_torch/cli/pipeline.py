@@ -23,7 +23,7 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-from sskd_tpu_torch.config import Settings
+from sskd_tpu_torch.config import DATA_PARALLEL_NOT_PORTED, Settings
 from sskd_tpu_torch.data.prepare import _iter_passages_graded
 from sskd_tpu_torch.exceptions import ConfigError, DataError
 from sskd_tpu_torch.utils.logging import get_logger
@@ -200,9 +200,7 @@ def run_train_pipeline(
     from sskd_tpu_torch.utils.platform import resolve_device
 
     if mesh is not None:
-        raise ConfigError(
-            "data-parallel training over a mesh is not ported yet: ROADMAP Queue 1 item 7"
-        )
+        raise ConfigError(f"data-parallel training over a mesh: {DATA_PARALLEL_NOT_PORTED}")
     device = resolve_device(device)
     data_dir = Path(data_dir)
     output_dir = Path(output_dir or settings.training.output_dir)

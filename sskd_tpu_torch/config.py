@@ -6,8 +6,9 @@ field of the JAX package is here, with its name, default and bounds:
 ``student``, ``teacher``, ``loss``, ``training``, ``mining``, ``index``,
 ``mesh``, ``precision``, ``cors``, ``rate_limit``, ``auth``, ``monitoring``,
 ``service``, ``search`` (with ``search.hybrid``), ``cache`` and ``data``,
-and the top-level ``debug``. ``mesh`` takes only values that mean one
-device: data-parallel training and sharded serving are not ported.
+and the top-level ``debug``. ``mesh`` takes ``index_parallel`` > 1 (sharded
+serving, :mod:`sskd_tpu_torch.index.sharded`) and refuses a
+``data_parallel`` other than -1 or 1: data-parallel training is not ported.
 
 Precedence, as in the JAX package: environment variables
 (``SEMANTIC_KD_<SECTION>__<FIELD>=value``, nested by ``__``, values parsed
@@ -15,12 +16,15 @@ as JSON when they parse, else kept as strings) over the YAML file named by
 ``SEMANTIC_KD_CONFIG_PATH`` over the defaults (:func:`get_settings`).
 ``Settings.from_dict`` takes keyword-style trees, ``Settings.from_yaml`` /
 ``to_yaml`` read and write the YAML subset of ``configs/*.yaml``
-(:func:`parse_yaml`). A value outside its bounds, an unknown section or
-field, or YAML outside the subset raises :class:`ConfigError`. ``Settings``
-remembers which fields ``from_dict`` / ``from_env`` / ``from_yaml`` were
-given (:meth:`Settings.is_set`, the stand-in for pydantic's
-``model_fields_set``): serving lets an explicit ``index.nprobe`` override a
-loaded index's own.
+(:func:`parse_yaml`). Values are coerced as pydantic's lax mode coerces them
+(:func:`_coerce`: ``"True"``, ``"yes"``, ``1`` or ``"on"`` for a bool, ``3.0``
+or ``"3"`` for an int, an int for a float), and unknown sections and fields
+are ignored, as pydantic ignores extras. A value that pydantic refuses, a
+value outside its bounds, or YAML outside the subset raises
+:class:`ConfigError`. ``Settings`` remembers which fields ``from_dict`` /
+``from_env`` / ``from_yaml`` were given (:meth:`Settings.is_set`, the
+stand-in for pydantic's ``model_fields_set``): serving lets an explicit
+``index.nprobe`` override a loaded index's own.
 """
 
 from __future__ import annotations
@@ -39,15 +43,16 @@ from sskd_tpu_torch.exceptions import ConfigError
 ENV_PREFIX = "SEMANTIC_KD_"
 NESTED_DELIMITER = "__"
 CONFIG_PATH_ENV = "SEMANTIC_KD_CONFIG_PATH"
-SHARDING_NOT_PORTED = "data-parallel training and sharding are not ported yet: ROADMAP Queue 1 item 7"
+DATA_PARALLEL_NOT_PORTED = (
+    "data-parallel training, tensor parallelism and multi-process meshes are not ported "
+    "yet: ROADMAP Queue 1 item 7b"
+)
 
 
-def _check(obj, name: str, *, ge=None, le=None, gt=None, choices=None, kind=None) -> None:
+def _check(obj, name: str, *, ge=None, le=None, gt=None, choices=None) -> None:
+    """Bounds and choices of a field (its type is coerced before, by ``_Section``)."""
     value = getattr(obj, name)
     where = f"{type(obj).__name__}.{name}={value!r}"
-    if kind is not None and (not isinstance(value, kind) or
-                             (isinstance(value, bool) and bool not in kind)):
-        raise ConfigError(f"{where}: expected {kind}")
     if choices is not None and value not in choices:
         raise ConfigError(f"{where}: must be one of {choices}")
     if ge is not None and value < ge:
@@ -58,30 +63,74 @@ def _check(obj, name: str, *, ge=None, le=None, gt=None, choices=None, kind=None
         raise ConfigError(f"{where}: must be > {gt}")
 
 
-_INT = (int,)
-_NUM = (int, float)
-_BOOL = (bool,)
-_STR = (str,)
+# pydantic's lax-mode bool strings (any case, no surrounding whitespace)
+_BOOL_STRINGS = {"0": False, "off": False, "f": False, "false": False, "n": False, "no": False,
+                 "1": True, "on": True, "t": True, "true": True, "y": True, "yes": True}
+# an int string: ASCII digits with single underscores between them, and an
+# all-zero fraction ("3.0", "3_000.00")
+_INT_STRING = re.compile(r"^[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?$")
+_LAX = object()  # _coerce's marker for a value pydantic refuses
+
+
+def _lax(kind: str, value: Any) -> Any:
+    """``value`` as pydantic's lax mode coerces it to ``kind`` ("bool",
+    "int", "float", "str" or "list" of str), or ``_LAX``."""
+    if kind == "bool":
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, (int, float)) and value in (0, 1):
+            return bool(value)
+        if isinstance(value, str):
+            return _BOOL_STRINGS.get(value.lower(), _LAX)
+        return _LAX
+    if kind == "int":
+        if isinstance(value, int):  # bool included, as pydantic takes True for 1
+            return int(value)
+        if isinstance(value, float):
+            ok = math.isfinite(value) and value.is_integer() and abs(value) < 2.0**63
+            return int(value) if ok else _LAX
+        if isinstance(value, str):
+            text = value.strip()
+            return int(text.split(".")[0].replace("_", "")) if _INT_STRING.match(text) else _LAX
+        return _LAX
+    if kind == "float":
+        if isinstance(value, (int, float)):
+            return float(value)
+        if isinstance(value, str) and value.isascii():
+            try:
+                return float(value.strip())
+            except ValueError:
+                return _LAX
+        return _LAX
+    if kind == "str":
+        return value if isinstance(value, str) else _LAX
+    if kind == "list":
+        if isinstance(value, (list, tuple)) and all(isinstance(v, str) for v in value):
+            return list(value)
+        return _LAX
+    return value
+
+
+def _coerce(owner: str, name: str, kind: str, value: Any) -> Any:
+    """:func:`_lax`, raising :class:`ConfigError` where pydantic raises."""
+    out = _lax(kind, value)
+    if out is _LAX:
+        what = "a list of strings" if kind == "list" else f"a valid {kind}"
+        raise ConfigError(f"{owner}.{name}={value!r}: expected {what}")
+    return out
 
 
 class _Section:
-    """Coerces ints given to float fields (as pydantic does: YAML's ``5000``
-    is ``5000.0`` in the JAX tree), checks bool, str and list fields, then
-    runs the section's own checks."""
+    """Coerces each bool, int, float, str and list field as pydantic's lax
+    mode does (YAML's ``5000`` is ``5000.0`` in a float field, the
+    environment's ``"True"`` is ``True`` in a bool one), then runs the
+    section's own checks."""
 
     def __post_init__(self):
         for f in fields(self):
-            value = getattr(self, f.name)
-            if f.type == "float" and isinstance(value, int) and not isinstance(value, bool):
-                setattr(self, f.name, float(value))
-            elif f.type == "bool":
-                _check(self, f.name, kind=_BOOL)
-            elif f.type == "str":
-                _check(self, f.name, kind=_STR)
-            elif f.type == "list":
-                if not isinstance(value, list) or not all(isinstance(v, str) for v in value):
-                    raise ConfigError(f"{type(self).__name__}.{f.name}={value!r}: "
-                                      "expected a list of strings")
+            if f.type in ("bool", "int", "float", "str", "list"):
+                setattr(self, f.name,
+                        _coerce(type(self).__name__, f.name, f.type, getattr(self, f.name)))
         self.validate()
 
     def validate(self) -> None:
@@ -99,8 +148,8 @@ class StudentModelConfig(_Section):
     pooling: str = "mean"
 
     def validate(self):
-        _check(self, "embedding_dim", ge=1, kind=_INT)
-        _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
+        _check(self, "embedding_dim", ge=1)
+        _check(self, "max_seq_length", ge=1, le=8192)
         _check(self, "pooling", choices=("mean", "cls"))
 
 
@@ -113,8 +162,8 @@ class TeacherModelConfig(_Section):
     batch_size: int = 32
 
     def validate(self):
-        _check(self, "max_seq_length", ge=1, le=8192, kind=_INT)
-        _check(self, "batch_size", ge=1, kind=_INT)
+        _check(self, "max_seq_length", ge=1, le=8192)
+        _check(self, "batch_size", ge=1)
 
 
 @dataclass
@@ -130,9 +179,9 @@ class LossConfig(_Section):
 
     def validate(self):
         for name in ("margin_mse_weight", "listwise_kd_weight", "contrastive_weight"):
-            _check(self, name, ge=0.0, le=1.0, kind=_NUM)
+            _check(self, name, ge=0.0, le=1.0)
         for name in ("temperature_start", "temperature_end", "contrastive_tau"):
-            _check(self, name, gt=0.0, kind=_NUM)
+            _check(self, name, gt=0.0)
         total = self.margin_mse_weight + self.listwise_kd_weight + self.contrastive_weight
         if abs(total - 1.0) > 1e-6:
             raise ConfigError(f"loss weights must sum to 1.0, got {total}")
@@ -168,15 +217,15 @@ class TrainingConfig(_Section):
 
     def validate(self):
         for name in ("epochs", "batch_size", "grad_accum_steps"):
-            _check(self, name, ge=1, kind=_INT)
-        _check(self, "num_docs_per_query", ge=2, kind=_INT)
+            _check(self, name, ge=1)
+        _check(self, "num_docs_per_query", ge=2)
         for name in ("early_stopping_patience", "save_steps", "eval_steps", "prefetch_batches"):
-            _check(self, name, ge=0, kind=_INT)
-        _check(self, "seed", kind=_INT)
-        _check(self, "weight_decay", ge=0.0, kind=_NUM)
-        _check(self, "warmup_ratio", ge=0.0, le=1.0, kind=_NUM)
+            _check(self, name, ge=0)
+        _check(self, "seed")
+        _check(self, "weight_decay", ge=0.0)
+        _check(self, "warmup_ratio", ge=0.0, le=1.0)
         for name in ("learning_rate", "max_grad_norm"):
-            _check(self, name, gt=0.0, kind=_NUM)
+            _check(self, name, gt=0.0)
         _check(self, "remat_policy", choices=("full", "dots"))
         if self.rng_impl != "rbg":
             raise ConfigError(
@@ -208,17 +257,17 @@ class MiningConfig(_Section):
     bm25_epsilon: float = 0.25
 
     def validate(self):
-        _check(self, "stage", ge=1, le=3, kind=_INT)
+        _check(self, "stage", ge=1, le=3)
         for name in ("bm25_top_k", "teacher_top_k", "ance_top_k",
                      "ance_refresh_every_n_steps"):
-            _check(self, name, ge=1, kind=_INT)
-        _check(self, "ance_warmup_steps", ge=0, kind=_INT)
+            _check(self, name, ge=1)
+        _check(self, "ance_warmup_steps", ge=0)
         for name in ("teacher_confidence_threshold", "denoise_text_overlap_threshold",
                      "bm25_b"):
-            _check(self, name, ge=0.0, le=1.0, kind=_NUM)
+            _check(self, name, ge=0.0, le=1.0)
         for name in ("ance_margin", "bm25_epsilon"):
-            _check(self, name, ge=0.0, kind=_NUM)
-        _check(self, "bm25_k1", gt=0.0, kind=_NUM)
+            _check(self, name, ge=0.0)
+        _check(self, "bm25_k1", gt=0.0)
 
 
 @dataclass
@@ -247,39 +296,39 @@ class IndexConfig(_Section):
     validation_recall_at_10: float = 0.97
 
     def validate(self):
-        _check(self, "embedding_dim", ge=1, kind=_INT)
+        _check(self, "embedding_dim", ge=1)
         _check(self, "metric", choices=("cosine", "dot"))
         _check(self, "dtype", choices=("float32", "bfloat16", "int8", "int4"))
         _check(self, "search_method", choices=("exact", "approx", "clustered"))
-        _check(self, "recall_target", ge=0.5, le=1.0, kind=_NUM)
-        _check(self, "block_rows", ge=128, kind=_INT)
-        _check(self, "default_k", ge=1, kind=_INT)
-        _check(self, "cluster_rows", ge=0, kind=_INT)
-        _check(self, "nprobe", ge=1, kind=_INT)
-        _check(self, "refine_m", ge=0, kind=_INT)
+        _check(self, "recall_target", ge=0.5, le=1.0)
+        _check(self, "block_rows", ge=128)
+        _check(self, "default_k", ge=1)
+        _check(self, "cluster_rows", ge=0)
+        _check(self, "nprobe", ge=1)
+        _check(self, "refine_m", ge=0)
         _check(self, "refine_storage", choices=("device", "host"))
-        _check(self, "validation_queries", ge=1, kind=_INT)
-        _check(self, "validation_recall_at_10", ge=0.0, le=1.0, kind=_NUM)
+        _check(self, "validation_queries", ge=1)
+        _check(self, "validation_recall_at_10", ge=0.0, le=1.0)
 
 
 @dataclass
 class MeshConfig(_Section):
-    """The JAX package's device mesh. The port runs on one device: a mesh
-    that means more than one (``data_parallel`` other than -1 or 1,
-    ``index_parallel`` other than 1) raises."""
+    """The JAX package's device mesh. ``index_parallel`` > 1 shards a served
+    index over that many devices (one process, a shard a device:
+    :mod:`sskd_tpu_torch.parallel.mesh`); a ``data_parallel`` other than -1
+    or 1 raises, since data-parallel training is not ported."""
 
     data_axis: str = "data"
     index_axis: str = "index"
-    data_parallel: int = -1  # -1 = all devices, which is one here
+    data_parallel: int = -1  # -1 = all devices not used by index_parallel
     index_parallel: int = 1
 
     def validate(self):
-        _check(self, "data_parallel", ge=-1, kind=_INT)
-        _check(self, "index_parallel", ge=1, kind=_INT)
-        if self.data_parallel not in (-1, 1) or self.index_parallel != 1:
+        _check(self, "data_parallel", ge=-1)
+        _check(self, "index_parallel", ge=1)
+        if self.data_parallel not in (-1, 1):
             raise ConfigError(
-                f"mesh data_parallel={self.data_parallel}, index_parallel="
-                f"{self.index_parallel}: the port runs on one device; {SHARDING_NOT_PORTED}"
+                f"mesh data_parallel={self.data_parallel}: {DATA_PARALLEL_NOT_PORTED}"
             )
 
 
@@ -311,8 +360,8 @@ class RateLimitConfig(_Section):
     burst: int = 10
 
     def validate(self):
-        _check(self, "requests_per_minute", ge=1, kind=_INT)
-        _check(self, "burst", ge=1, kind=_INT)
+        _check(self, "requests_per_minute", ge=1)
+        _check(self, "burst", ge=1)
 
 
 @dataclass
@@ -354,8 +403,8 @@ class MonitoringConfig(_Section):
     log_latencies: bool = True
 
     def validate(self):
-        _check(self, "prometheus_port", ge=0, le=65535, kind=_INT)
-        _check(self, "jax_profiler_port", ge=0, le=65535, kind=_INT)
+        _check(self, "prometheus_port", ge=0, le=65535)
+        _check(self, "jax_profiler_port", ge=0, le=65535)
 
 
 @dataclass
@@ -375,14 +424,14 @@ class ServiceConfig(_Section):
     log_level: str = "info"
 
     def validate(self):
-        _check(self, "port", ge=1, le=65535, kind=_INT)
+        _check(self, "port", ge=1, le=65535)
         _check(self, "environment", choices=("development", "staging", "production"))
-        _check(self, "micro_batch_window_ms", ge=0.0, kind=_NUM)
-        _check(self, "micro_batch_max_size", ge=1, kind=_INT)
-        _check(self, "read_timeout_s", gt=0.0, kind=_NUM)
-        _check(self, "idle_timeout_s", gt=0.0, kind=_NUM)
-        _check(self, "max_connections", ge=1, kind=_INT)
-        _check(self, "workers", ge=1, le=32, kind=_INT)
+        _check(self, "micro_batch_window_ms", ge=0.0)
+        _check(self, "micro_batch_max_size", ge=1)
+        _check(self, "read_timeout_s", gt=0.0)
+        _check(self, "idle_timeout_s", gt=0.0)
+        _check(self, "max_connections", ge=1)
+        _check(self, "workers", ge=1, le=32)
         _check(self, "log_level", choices=("debug", "info", "warning", "error", "critical"))
 
 
@@ -401,11 +450,11 @@ class HybridConfig(_Section):
     expansion_terms: int = 5
 
     def validate(self):
-        _check(self, "bm25_weight", ge=0.0, le=1.0, kind=_NUM)
-        _check(self, "semantic_weight", ge=0.0, le=1.0, kind=_NUM)
+        _check(self, "bm25_weight", ge=0.0, le=1.0)
+        _check(self, "semantic_weight", ge=0.0, le=1.0)
         _check(self, "fusion_method", choices=("rrf", "linear"))
         for name in ("rrf_k", "expansion_docs", "expansion_terms"):
-            _check(self, name, ge=1, kind=_INT)
+            _check(self, name, ge=1)
         total = self.bm25_weight + self.semantic_weight
         if abs(total - 1.0) > 1e-6:
             raise ConfigError(f"bm25_weight + semantic_weight must sum to 1.0, got {total}")
@@ -425,8 +474,8 @@ class CacheConfig(_Section):
     embedding_cache: bool = True
 
     def validate(self):
-        _check(self, "ttl_seconds", gt=0.0, kind=_NUM)
-        _check(self, "max_size", ge=1, kind=_INT)
+        _check(self, "ttl_seconds", gt=0.0)
+        _check(self, "max_size", ge=1)
 
 
 @dataclass
@@ -441,10 +490,10 @@ class SearchConfig(_Section):
     hybrid: HybridConfig = field(default_factory=HybridConfig)
 
     def validate(self):
-        _check(self, "default_k", ge=1, le=100, kind=_INT)
-        _check(self, "max_k", ge=1, kind=_INT)
-        _check(self, "rerank_top_k", ge=1, le=200, kind=_INT)
-        _check(self, "rerank_timeout_ms", gt=0.0, kind=_NUM)
+        _check(self, "default_k", ge=1, le=100)
+        _check(self, "max_k", ge=1)
+        _check(self, "rerank_top_k", ge=1, le=200)
+        _check(self, "rerank_timeout_ms", gt=0.0)
         if isinstance(self.hybrid, dict):
             self.hybrid = HybridConfig(**self.hybrid)
 
@@ -460,9 +509,9 @@ class DataConfig(_Section):
     chunk_stride: int = 80
 
     def validate(self):
-        _check(self, "max_samples", ge=0, kind=_INT)
-        _check(self, "chunk_max_tokens", ge=8, kind=_INT)
-        _check(self, "chunk_stride", ge=0, kind=_INT)
+        _check(self, "max_samples", ge=0)
+        _check(self, "chunk_max_tokens", ge=8)
+        _check(self, "chunk_stride", ge=0)
 
 
 # in the JAX tree's order
@@ -511,8 +560,7 @@ class Settings:
     fields_set: frozenset = field(default_factory=frozenset, compare=False, repr=False)
 
     def __post_init__(self):
-        if not isinstance(self.debug, bool):
-            raise ConfigError(f"Settings.debug={self.debug!r}: expected a bool")
+        self.debug = _coerce("Settings", "debug", "bool", self.debug)
         self._production_enforcement()
 
     def _production_enforcement(self) -> None:
@@ -558,7 +606,8 @@ class Settings:
     @classmethod
     def from_dict(cls, data: dict[str, Any], base: "Settings | None" = None) -> "Settings":
         """Settings from a nested ``{section: {field: value}}`` tree (and
-        ``debug``), on top of ``base`` (or the defaults)."""
+        ``debug``), on top of ``base`` (or the defaults). Sections and fields
+        the settings do not have are ignored, as pydantic ignores extras."""
         base = base or cls()
         merged = base.to_dict()
         given = set(base.fields_set)
@@ -568,13 +617,13 @@ class Settings:
                 given.add(("debug", "debug"))
                 continue
             if section not in _SECTIONS:
-                raise ConfigError(f"unknown config section {section!r}")
+                continue
             if not isinstance(values, dict):
                 raise ConfigError(f"config section {section!r} must be a mapping")
             known = {f.name for f in fields(_SECTIONS[section])}
             for name, value in values.items():
                 if name not in known:
-                    raise ConfigError(f"unknown config field {section}.{name}")
+                    continue
                 nested = _NESTED.get((section, name))
                 if nested is None:
                     merged[section][name] = value
@@ -584,10 +633,9 @@ class Settings:
                     raise ConfigError(f"config field {section}.{name} must be a mapping")
                 sub_known = {f.name for f in fields(nested)}
                 for sub, sub_value in value.items():
-                    if sub not in sub_known:
-                        raise ConfigError(f"unknown config field {section}.{name}.{sub}")
-                    merged[section][name][sub] = sub_value
-                    given.add((section, f"{name}.{sub}"))
+                    if sub in sub_known:
+                        merged[section][name][sub] = sub_value
+                        given.add((section, f"{name}.{sub}"))
         return cls(
             debug=merged["debug"],
             **{s: _SECTIONS[s](**merged[s]) for s in _SECTIONS},

@@ -96,9 +96,9 @@ def _save_bf16(path: Path, bits: np.ndarray) -> None:
         f.write(bits.tobytes())
 
 
-def _load_bf16(path: Path) -> np.ndarray:
+def _load_bf16(path: Path, mmap_mode: str | None = None) -> np.ndarray:
     """A saved bf16 array (two-byte voids, or uint16) as its bits ``uint16``."""
-    arr = np.load(path)
+    arr = np.load(path, mmap_mode=mmap_mode)
     if arr.dtype.itemsize != 2 or arr.dtype.kind not in "Vu":
         raise IndexLoadError(f"{path.name}: expected bf16 rows, found {arr.dtype}")
     return arr.view(np.uint16)

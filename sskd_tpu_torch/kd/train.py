@@ -32,7 +32,7 @@ Checkpoints are the port's own (``torch.save``), under
 state, step, epoch and best metric; the 3 newest are kept and training
 resumes from the newest when ``training.resume`` is on. The best model goes
 to ``output_dir/best_model`` through ``StudentModel.save``. Data-parallel
-training (the JAX package's ``mesh``) is not ported: ROADMAP Queue 1 item 7.
+training (the JAX package's ``mesh``) is not ported: ROADMAP Queue 1 item 7b.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sskd_tpu_torch.config import Settings
+from sskd_tpu_torch.config import DATA_PARALLEL_NOT_PORTED, Settings
 from sskd_tpu_torch.exceptions import ConfigError
 from sskd_tpu_torch.kd.dataset import KDDataset, KDSample, prefetch_batches
 from sskd_tpu_torch.kd.losses import combined_kd_loss, temperature_at
@@ -131,9 +131,7 @@ class KDTrainer:
 
     def __init__(self, student, settings: Settings | None = None, mesh=None):
         if mesh is not None:
-            raise ConfigError(
-                "data-parallel training over a mesh is not ported yet: ROADMAP Queue 1 item 7"
-            )
+            raise ConfigError(f"data-parallel training over a mesh: {DATA_PARALLEL_NOT_PORTED}")
         self.student = student
         self.settings = settings or Settings()
         self.cfg = self.settings.training

@@ -20,6 +20,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sskd_tpu_torch"
 NVCC_FLAGS = (
@@ -116,3 +118,17 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def check_current_device(device) -> None:
+    """Raise unless ``device`` is the current CUDA device. A C entry launches
+    on the current device (and on a stream of ``device``), so a wrapper
+    calls this before each launch: its caller holds
+    ``torch.cuda.device(device)`` where the tensors are not on the current
+    device, as each shard of a sharded index does."""
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise RuntimeError(
+            f"kernel operands on {device} but the current device is cuda:{current}: "
+            f"launch under torch.cuda.device({device})"
+        )

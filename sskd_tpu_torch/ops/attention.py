@@ -207,7 +207,9 @@ def _scale_log2(d: int) -> float:
 
 def _stream(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
-    device, without the Stream object ``torch.cuda.current_stream`` builds."""
+    device, without the Stream object ``torch.cuda.current_stream`` builds;
+    raises unless that device is the current one, where the C entry launches."""
+    _build.check_current_device(t.device)
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 

@@ -3,7 +3,10 @@ sskd_tpu/ops/topk.py, its exact, approx and refined engines).
 
 Three engines, one contract: ``(scores [B, k] f32, indices [B, k] int32)``,
 missing results ``(finfo(f32).min / 2, -1)``, rows ``>= valid_n`` never
-returned, ties broken toward the lower row.
+returned, ties broken toward the lower row. ``index_offset`` (a shard's
+first global row, :mod:`sskd_tpu_torch.index.sharded`) is added to the
+returned positions, and ``valid_n`` counts global rows: a row is live where
+its position plus the offset is below it.
 
 - The two-phase kernel engine (:mod:`sskd_tpu_torch.ops.topk_kernels`),
   taken on CUDA when :func:`kernel_exact_ok` holds.
@@ -61,6 +64,7 @@ def cosine_topk_core(
     block_rows: int = 262144,
     row_scales: torch.Tensor | None = None,
     valid_n: int | None = None,
+    index_offset: int = 0,
     method: str = "exact",
     recall_target: float = 0.99,
 ):
@@ -73,10 +77,11 @@ def cosine_topk_core(
     if method == "approx":
         return approx_topk(
             queries, corpus, k, row_scales=row_scales, valid_n=valid_n,
-            recall_target=recall_target, kernels=False,
+            index_offset=index_offset, recall_target=recall_target, kernels=False,
         )
     if method != "exact":
         raise ValueError(f"unknown method {method!r}")
+    off = int(index_offset)
     if corpus.dtype == torch.uint8:
         if row_scales is None:
             raise ValueError("packed int4 corpus requires row_scales")
@@ -104,12 +109,12 @@ def cosine_topk_core(
             scores = scores * q_scale[:, None] * row_scales[None, lo:hi]
         elif row_scales is not None:
             scores = scores * row_scales[None, lo:hi]
-        if hi > valid_n:
-            rows = torch.arange(lo, hi, device=corpus.device)
+        if hi + off > valid_n:
+            rows = torch.arange(lo + off, hi + off, device=corpus.device)
             scores = torch.where(rows[None, :] < valid_n, scores, NEG_INF)
         v, pos = topk_stable(scores, min(k_eff, hi - lo))
         parts_v.append(v)
-        parts_i.append(pos + lo)
+        parts_i.append(pos + (lo + off))
     vals, pos = topk_stable(torch.cat(parts_v, dim=1), k_eff)
     idx = torch.gather(torch.cat(parts_i, dim=1), 1, pos).to(torch.int32)
     if k_eff < k:  # pad out to the requested k
@@ -117,6 +122,20 @@ def cosine_topk_core(
         idx = torch.cat([idx, idx.new_full((B, k - k_eff), -1)], dim=1)
     idx = torch.where(vals > NEG_INF / 2, idx, -1)
     return vals, idx
+
+
+def local_valid(n: int, valid_n: int | None, index_offset: int) -> int:
+    """Rows of an ``n``-row corpus whose global position (position plus
+    ``index_offset``) is below ``valid_n``: the count the kernels mask by."""
+    valid_n = n if valid_n is None else int(valid_n)
+    return max(0, min(n, valid_n - int(index_offset)))
+
+
+def offset_positions(idx: torch.Tensor, index_offset: int) -> torch.Tensor:
+    """Local positions to global ones; the -1 of a missing result stays."""
+    if not index_offset:
+        return idx
+    return torch.where(idx >= 0, idx + int(index_offset), -1).to(torch.int32)
 
 
 # the corpus types the top-k kernels take (csrc/binmax.cu, csrc/bin_gather.cu)
@@ -177,6 +196,7 @@ def approx_topk(
     valid_n: int | None = None,
     recall_target: float = 0.99,
     kernels: bool | None = None,
+    index_offset: int = 0,
 ):
     """Approximate top-k in one pass. The bins the answer is taken from are
     ``groups * 128`` in number, ``groups`` the fewest that give
@@ -190,7 +210,9 @@ def approx_topk(
     threshold, the exact kernel engine where :func:`kernel_exact_ok` holds),
     False the plain versions; None (the default) takes the kernels for a
     corpus :func:`on_card`. The plain pass scores a chunk of rows at a time,
-    so no f32 copy of a quantized corpus is ever held."""
+    so no f32 copy of a quantized corpus is ever held. The pass runs over
+    local positions (``index_offset`` folded into the valid count), and the
+    offset is added to what it returns."""
     if not 0.0 < recall_target <= 1.0:
         raise ValueError(f"recall_target {recall_target} outside (0, 1]")
     if kernels is None:
@@ -199,15 +221,18 @@ def approx_topk(
         raise ValueError("an int8 or int4 corpus requires row_scales")
     B = queries.shape[0]
     n = corpus.shape[0]
-    valid_n = n if valid_n is None else int(valid_n)
+    valid_n = local_valid(n, valid_n, index_offset)
     k_eff = max(1, min(k, n))
     n_tiles = (n + BIN_W - 1) // BIN_W
     need = max(k_eff, approx_min_bins(k_eff, recall_target))
     if n_tiles < need:  # also recall_target 1.0
         if kernels and kernel_exact_ok(queries, corpus, k):
-            return cosine_topk_kernels(queries, corpus, k, row_scales=row_scales,
-                                       valid_n=valid_n)
-        return cosine_topk_core(queries, corpus, k, row_scales=row_scales, valid_n=valid_n)
+            vals, idx = cosine_topk_kernels(queries, corpus, k, row_scales=row_scales,
+                                            valid_n=valid_n)
+        else:
+            vals, idx = cosine_topk_core(queries, corpus, k, row_scales=row_scales,
+                                         valid_n=valid_n)
+        return vals, offset_positions(idx, index_offset)
     groups = math.ceil(need / BIN_W)
     blocks = approx_blocks(B, groups, n_tiles)
     fold = blocks // groups
@@ -227,7 +252,7 @@ def approx_topk(
     if k_eff < k:  # pad out to the requested k
         vals = torch.cat([vals, vals.new_full((B, k - k_eff), NEG_INF)], dim=1)
         idx = torch.cat([idx, idx.new_full((B, k - k_eff), -1)], dim=1)
-    return vals, idx
+    return vals, offset_positions(idx, index_offset)
 
 
 def cosine_topk(
@@ -239,6 +264,7 @@ def cosine_topk(
     valid_n: int | None = None,
     method: str = "exact",
     recall_target: float = 0.99,
+    index_offset: int = 0,
 ):
     """Top-k by ``queries @ corpus.T`` (cosine when both sides are
     L2-normalized, which the index builder guarantees). ``method``:
@@ -248,14 +274,19 @@ def cosine_topk(
     if method == "approx":
         return approx_topk(
             queries, corpus, k, row_scales=row_scales, valid_n=valid_n,
-            recall_target=recall_target,
+            recall_target=recall_target, index_offset=index_offset,
         )
     if method != "exact":
         raise ValueError(f"unknown method {method!r}")
     if kernel_exact_ok(queries, corpus, k):
-        return cosine_topk_kernels(queries, corpus, k, row_scales=row_scales, valid_n=valid_n)
+        vals, idx = cosine_topk_kernels(
+            queries, corpus, k, row_scales=row_scales,
+            valid_n=local_valid(corpus.shape[0], valid_n, index_offset),
+        )
+        return vals, offset_positions(idx, index_offset)
     return cosine_topk_core(
-        queries, corpus, k, block_rows=block_rows, row_scales=row_scales, valid_n=valid_n
+        queries, corpus, k, block_rows=block_rows, row_scales=row_scales, valid_n=valid_n,
+        index_offset=index_offset,
     )
 
 

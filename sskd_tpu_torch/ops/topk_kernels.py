@@ -226,7 +226,11 @@ def _stream(device):
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``:
     ``torch.cuda.current_stream(device).cuda_stream`` without the Stream
     object it builds, which cost a launch-bound wrapper 3 us a call on the
-    card's host (chip_smoke.py's ``bin_gather_host_us``)."""
+    card's host (chip_smoke.py's ``bin_gather_host_us``). A C entry launches
+    on the current device, so ``device`` must be it (the caller holds
+    ``torch.cuda.device(device)``, as each shard of a sharded index does):
+    a kernel never launches on another device than its tensors'."""
+    _build.check_current_device(device)
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 

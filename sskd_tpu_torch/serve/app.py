@@ -23,9 +23,16 @@ the micro-batcher. Differences from the JAX package:
   ``ValueError``, ``DataError``) leaves hybrid search off. A CUDA or kernel
   error is not such a case: it fails the startup or the request;
 - a nonzero ``monitoring.jax_profiler_port`` raises :class:`ConfigError`:
-  the JAX profiler server has no torch counterpart;
-- sharding (``mesh.index_parallel > 1``) is not ported (the settings refuse
-  it).
+  the JAX profiler server has no torch counterpart.
+
+With ``mesh.index_parallel > 1`` a loaded index (preloaded or through
+``/index/load``) is lifted onto a mesh of that many devices of the
+student's type (:meth:`AppState.maybe_shard_index`, the JAX app's): every
+CUDA device, or the CPU entries that ``--cpu-devices`` asked for
+(:func:`~sskd_tpu_torch.parallel.mesh.local_devices`); too few raise. It is
+then served by :class:`~sskd_tpu_torch.serve.fused.ShardedFusedSearcher`;
+texts and doc ids stay on the builder, and host refine storage is ignored
+with the JAX app's warning (each shard keeps its refine rows).
 
 ``/search`` with ``rerank=true`` fetches the request's ``rerank_top_k``
 results (default 50, as in the JAX app; ``search.rerank_top_k`` is kept for
@@ -81,7 +88,7 @@ from sskd_tpu_torch.models.student import StudentModel
 from sskd_tpu_torch.models.teacher import TeacherModel
 from sskd_tpu_torch.serve.batcher import MicroBatcher
 from sskd_tpu_torch.serve.cache import embedding_cache_key, make_caches, result_cache_key
-from sskd_tpu_torch.serve.fused import FusedSearcher
+from sskd_tpu_torch.serve.fused import FusedSearcher, ShardedFusedSearcher
 from sskd_tpu_torch.serve.http import App, Request, Response
 from sskd_tpu_torch.serve.metrics import Metrics
 from sskd_tpu_torch.serve.middleware import (
@@ -127,6 +134,7 @@ class AppState:
         self.student: StudentModel | None = None
         self.teacher: TeacherModel | None = None
         self.index_builder: IndexBuilder | None = None
+        self.sharded_index = None  # ShardedIndex when mesh.index_parallel > 1
         self.fused_searcher: FusedSearcher | None = None
         self.search_batcher: MicroBatcher | None = None
         self.hybrid = None  # HybridSearcher when search.hybrid.enabled
@@ -150,9 +158,36 @@ class AppState:
         # where the bf16 refine rows live is a deployment choice (the rows
         # are the same bytes either way)
         builder.refine_storage = self.settings.index.refine_storage
-        self.fused_searcher = FusedSearcher(self.student, builder)
+        self.maybe_shard_index(builder)
+        if self.sharded_index is not None:
+            self.fused_searcher = ShardedFusedSearcher(self.student, self.sharded_index)
+        else:
+            self.fused_searcher = FusedSearcher(self.student, builder)
         self.index_builder = builder
         self.metrics.index_size.set(builder.ntotal)
+
+    def maybe_shard_index(self, builder: IndexBuilder) -> None:
+        """Lift ``builder`` onto a mesh when ``mesh.index_parallel > 1``
+        (the JAX app's), over the devices of the student's type; texts and
+        doc ids stay on the builder."""
+        m = self.settings.mesh
+        if m.index_parallel <= 1:
+            self.sharded_index = None
+            return
+        from sskd_tpu_torch.index.sharded import ShardedIndex
+        from sskd_tpu_torch.parallel.mesh import create_mesh, local_devices
+
+        mesh = create_mesh(data_parallel=1, index_parallel=m.index_parallel,
+                           data_axis=m.data_axis, index_axis=m.index_axis,
+                           devices=local_devices(self.student.device))
+        if builder.refine_storage == "host" and builder._refine is not None:
+            # each shard rescores its own candidates against its refine rows
+            logger.warning(
+                "refine_storage='host' ignored under index_parallel>1: "
+                "sharded serving keeps refine rows on-device per shard"
+            )
+        self.sharded_index = ShardedIndex.from_builder(builder, mesh, axis=m.index_axis)
+        logger.info(f"index sharded over {m.index_parallel} devices ({builder.ntotal} rows)")
 
     def batched_search(self, items: list[tuple[str, int]]):
         """One encode + search for a micro-batch of (query, k) requests."""

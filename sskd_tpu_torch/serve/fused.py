@@ -17,6 +17,10 @@ ones too (as the JAX package serves them, while its ``IndexBuilder.search``
 refines only an approx index): ``"refined"`` with the rows on the device, or
 ``"host_refined"``, where the device pass ends at the candidates and the
 rescore runs on the host (``refine_storage="host"``).
+
+:class:`ShardedFusedSearcher` serves an index sharded over a mesh
+(``mesh.index_parallel > 1``): the same encode, then the sharded index's
+per-shard search and merge.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from sskd_tpu_torch.models.student import bucket_length, buckets_for
 from sskd_tpu_torch.ops.topk import cosine_topk, refined_candidates, refined_topk
 from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
+from sskd_tpu_torch.parallel.mesh import same_device
 
 K_BUCKETS = (10, 20, 50, 100, 200, 400)
 
@@ -73,9 +78,49 @@ class FusedSearcher:
                 return bucket
         return k
 
+    def _topk(self, q: torch.Tensor, k: int, engine: str):
+        """The device engine's ``(vals, idx)`` for the encoded queries, or
+        the candidates alone for ``host_refined``."""
+        b = self.builder
+        if engine == "clustered":
+            return clustered_topk(
+                q,
+                b.device_vectors,
+                b.device_centroids,
+                k=k,
+                nprobe=b.nprobe,
+                rows_per_cell=b._rows_per_cell,
+                row_scales=b.device_scales,
+                valid_n=b.ntotal,
+            )
+        if engine == "refined":
+            return refined_topk(
+                q, b.device_vectors, b.device_refine, k, refine_m=b.refine_m,
+                row_scales=b.device_scales, valid_n=b.ntotal,
+            )
+        if engine == "host_refined":
+            # the device pass ends at the candidates; the query embeddings
+            # and the candidates go to the host for the rescore
+            return refined_candidates(
+                q, b.device_vectors, max(b.refine_m, k),
+                row_scales=b.device_scales, valid_n=b.ntotal,
+            )[1]
+        return cosine_topk(
+            q,
+            b.device_vectors,
+            k=k,
+            block_rows=b.block_rows,
+            row_scales=b.device_scales,
+            valid_n=b.ntotal,
+            method=engine,
+            recall_target=b.recall_target,
+        )
+
+    def _map_positions(self, idx):
+        return self.builder.map_positions(idx)
+
     def search_texts(self, queries: list[str], k: int):
         """Returns (scores [B, k], indices [B, k]) numpy."""
-        b = self.builder
         k_eff = min(self.bucket_k(k), self.ntotal)
         n = len(queries)
         padded_n = bucket_length(n, 256, self.student.device)
@@ -86,45 +131,13 @@ class FusedSearcher:
         engine = self._engine(padded_n)
         with torch.inference_mode():
             q = self.student.forward_batch(batch)
-            if engine == "clustered":
-                vals, idx = clustered_topk(
-                    q,
-                    b.device_vectors,
-                    b.device_centroids,
-                    k=k_eff,
-                    nprobe=b.nprobe,
-                    rows_per_cell=b._rows_per_cell,
-                    row_scales=b.device_scales,
-                    valid_n=b.ntotal,
-                )
-            elif engine == "refined":
-                vals, idx = refined_topk(
-                    q, b.device_vectors, b.device_refine, k_eff, refine_m=b.refine_m,
-                    row_scales=b.device_scales, valid_n=b.ntotal,
-                )
-            elif engine == "host_refined":
-                # the device pass ends at the candidates; the query embeddings
-                # and the candidates go to the host for the rescore
-                _, cand = refined_candidates(
-                    q, b.device_vectors, max(b.refine_m, k_eff),
-                    row_scales=b.device_scales, valid_n=b.ntotal,
-                )
-            else:
-                vals, idx = cosine_topk(
-                    q,
-                    b.device_vectors,
-                    k=k_eff,
-                    block_rows=b.block_rows,
-                    row_scales=b.device_scales,
-                    valid_n=b.ntotal,
-                    method=engine,
-                    recall_target=b.recall_target,
-                )
+            out = self._topk(q, k_eff, engine)
         if engine == "host_refined":
-            vals, idx = b._host_rescore(q.float().cpu().numpy(), cand.cpu().numpy(), k_eff)
+            vals, idx = self.builder._host_rescore(q.float().cpu().numpy(), out.cpu().numpy(),
+                                                   k_eff)
         else:
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-        return vals[:n, :k], b.map_positions(idx)[:n, :k]
+            vals, idx = out[0].cpu().numpy(), out[1].cpu().numpy()
+        return vals[:n, :k], self._map_positions(idx)[:n, :k]
 
     def warmup(self, max_batch: int = 64, k: int = 10) -> None:
         for bucket in buckets_for(self.student.device):
@@ -133,3 +146,32 @@ class FusedSearcher:
             self.search_texts(["warmup"] * bucket, k)
         self.search_texts(["warmup"], k)
 
+
+class ShardedFusedSearcher(FusedSearcher):
+    """The fused searcher over a :class:`~sskd_tpu_torch.index.sharded.
+    ShardedIndex` (port of ``sskd_tpu/serve/fused.py`` ``ShardedFusedSearcher``):
+    the queries are encoded on the mesh's first device, where the student
+    lives, and swept by the index's ``shard_search``."""
+
+    def __init__(self, student, sharded):
+        if not same_device(student.device, sharded.devices[0]):
+            raise ValueError(
+                f"student on {student.device} but the mesh's first device is "
+                f"{sharded.devices[0]}"
+            )
+        self.student = student
+        self.builder = None
+        self.sharded = sharded
+
+    @property
+    def ntotal(self) -> int:
+        return self.sharded.ntotal
+
+    def _engine(self, padded_n: int) -> str:
+        return "sharded"
+
+    def _topk(self, q: torch.Tensor, k: int, engine: str):
+        return self.sharded.shard_search(k)(q, *self.sharded.index_args())
+
+    def _map_positions(self, idx):
+        return self.sharded.map_positions(idx)

@@ -1792,3 +1792,37 @@ def test_three_pass_kernel_stays_off_the_other_head_dims(d):
     bounds = ta.dropattn_bwd_error_bound(q, k, v, bias, 0.1, 3, lse, go, got, want)
     for a, b, bd in zip(got, want, bounds):
         assert bool(((a.float() - b.float()).abs() <= bd).all())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(index_type="exact"), dict(index_type="approx"),
+    dict(index_type="clustered", cluster_rows=1024, nprobe=8),
+    dict(index_type="approx", refine_m=40),
+], ids=["exact", "approx", "clustered", "refine"])
+def test_one_device_cuda_mesh_gives_the_single_device_ids(kw):
+    """A ShardedIndex over a one-device CUDA mesh (each engine's kernels,
+    launched under the shard's device guard) against the single-device
+    engine on the same int8 rows, and over two shards of the one card
+    against the exact engine."""
+    _need_card()
+    import numpy as np
+
+    from sskd_tpu_torch.index.builder import IndexBuilder
+    from sskd_tpu_torch.index.sharded import ShardedIndex
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((60_000, 128)).astype(np.float32)
+    q = x[:64] + 0.05 * rng.standard_normal((64, 128)).astype(np.float32)
+    ids = [str(i) for i in range(len(x))]
+    single = IndexBuilder(128, dtype="int8", device="cuda", **kw).build_from_arrays(x, ids)
+    meshes = [create_mesh(1, 1)]
+    if kw["index_type"] == "exact":  # the merge of two shards is exact only for exact
+        meshes.append(create_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2))
+    for mesh in meshes:
+        sharded = ShardedIndex.from_builder(single, mesh)
+        for B in (1, 16, 64):
+            want_v, want = single.search(q[:B], k=10)
+            got_v, got = sharded.search(q[:B], k=10)
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-6)

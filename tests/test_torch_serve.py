@@ -122,8 +122,8 @@ def test_unported_configurations_fail_loudly(monkeypatch, pair):
         Settings.from_dict({"search": {"rerank_timeout_ms": 0}})
     with pytest.raises(ConfigError):
         Settings.from_dict({"search": {"default_k": 0}})
-    with pytest.raises(ConfigError):
-        Settings.from_dict({"nosuch": {}})
+    # an unknown section is ignored, as pydantic ignores extras
+    assert Settings.from_dict({"nosuch": {}}).to_dict() == Settings().to_dict()
     # refine is served now (tests/test_torch_refine.py); its fields are bounded
     assert Settings.from_dict({"index": {"refine_m": 64}}).index.refine_m == 64
     with pytest.raises(ConfigError, match="refine_m"):
