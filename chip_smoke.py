@@ -200,6 +200,25 @@ Phases, each fatal when it fails:
              1e-5 excepted), every flash launch at d = 64 on the tensor
              cores; ms per step, samples/s, peak memory, pairs/s, rerank ms
              and queries/s;
+7b. distributed — (a) initialize_distributed from the SSKD_* variables
+             at world size 1 on NCCL, an all-reduce and an all-gather
+             (plain and differentiable) of CUDA tensors, the barrier and the
+             broadcast of its gloo group; (b)
+             KDTrainer(mesh=create_mesh(data_parallel=1)) at full
+             e5-small-v2 width with the train phase's settings (bf16
+             compute, remat "full", batch 32 x 8 docs, L 64 / 192) and
+             in-batch negatives against the single-device trainer from the
+             same init: 3 steps at dropout 0, parameters bit for bit (or
+             within 1e-6 (1 + |p|)), then 2 steps at dropout 0.1, every
+             loss finite and the dropattn_fwd / dropattn_bwd launches the
+             code implies, all on the tensor cores; ms per step of both;
+             (c) set_mesh encode equal to encode; (d) the teacher phase's
+             saved teacher over 64 pairs whose chunks reach L = 512,
+             shard_tensor_parallel over a one-device mesh and over two
+             slices of the one card (8 heads and FFN 2,048 each), scores
+             within 1e-4 (1 + |s|) of the unsharded ones, 24 flash_attn_fwd
+             launches an L = 512 chunk a slice at d = 64, all on the tensor
+             cores, the placement summary and ms per chunk of each;
 8. eval    — KDEvaluator on the card: (a) the JAX package's demo checkpoints
              (artifacts/demo/{run_kd/best_model, vanilla, teacher}), each
              read from its params.msgpack, over load_eval_inputs(test.jsonl,
@@ -4271,6 +4290,299 @@ def phase_teacher(args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7b: distributed (data-parallel KD at world size 1, the teacher's TP)
+# ---------------------------------------------------------------------------
+
+DIST_BATCH, DIST_DOCS, DIST_QUERY_LEN, DIST_DOC_LEN = 32, 8, 64, 192  # the train phase's
+DIST_STEPS_P0, DIST_STEPS_P1 = 3, 2  # at dropout 0 (in-batch negatives), then at 0.1
+TP_PAIRS = slice(32, 96)  # make_score_pairs' chunks at the 256 and 512 buckets
+
+
+def timed_train(trainer, samples, out_dir: Path) -> tuple[dict, list]:
+    """``trainer.train`` over one epoch of ``samples``, each step between
+    CUDA events; returns the result and the steps' milliseconds."""
+    inner, events = trainer._train_step, []
+
+    def step(*a):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        aux = inner(*a)
+        end.record()
+        events.append((start, end))
+        return aux
+
+    trainer._train_step = step
+    try:
+        result = trainer.train(samples, output_dir=out_dir, query_len=DIST_QUERY_LEN,
+                               doc_len=DIST_DOC_LEN)
+    finally:
+        trainer._train_step = inner
+    torch.cuda.synchronize()
+    return result, [a.elapsed_time(b) for a, b in events]
+
+
+def phase_distributed(args) -> dict:
+    """(a) ``initialize_distributed`` from the SSKD_* variables at world size
+    1 on NCCL, an all-reduce and an all-gather of CUDA tensors; (b)
+    ``KDTrainer(mesh=create_mesh(data_parallel=1))`` at full e5-small-v2
+    width with the train phase's settings against the single-device trainer
+    from the same init (3 steps at dropout 0 with in-batch negatives, then 2
+    at dropout 0.1 with the dropattn launches the code implies, on the
+    tensor cores); (c) ``set_mesh`` encode against ``encode``; (d) the
+    teacher phase's saved teacher, ``shard_tensor_parallel`` over a one-device
+    mesh and over two slices of the one card, against its unsharded scores."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sskd_tpu_torch.config import Settings
+    from sskd_tpu_torch.kd.dataset import KDDataset
+    from sskd_tpu_torch.kd.train import KDTrainer
+    from sskd_tpu_torch.models.bert import BertConfig
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.models.teacher import TeacherModel
+    from sskd_tpu_torch.ops import (
+        head_dim_launch_counts,
+        launch_counts,
+        reset_launch_counts,
+        tc_launch_counts,
+    )
+    from sskd_tpu_torch.parallel.distributed import (
+        all_gather_rows,
+        all_reduce_sum_,
+        barrier,
+        broadcast_object,
+        initialize_distributed,
+    )
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+    from sskd_tpu_torch.parallel.tp import tp_sharding_summary
+
+    record: dict = {}
+    env = {"SSKD_COORDINATOR": f"127.0.0.1:{free_port()}", "SSKD_NUM_PROCESSES": "1",
+           "SSKD_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        # ---- (a) the group and its collectives --------------------------
+        t0 = time.perf_counter()
+        check(initialize_distributed(timeout_s=120), "initialize_distributed did not join")
+        join_s = time.perf_counter() - t0
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"group {dist.get_backend()} of {dist.get_world_size()}, want nccl of 1")
+        x = torch.randn(4, 384, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+        summed = x.clone()
+        all_reduce_sum_([summed])
+        gathered = all_gather_rows(x)
+        leaf = x.clone().requires_grad_()
+        all_gather_rows(leaf).sum().backward()
+        check(torch.equal(summed, x) and torch.equal(gathered, x)
+              and torch.equal(leaf.grad, torch.ones_like(x)),
+              "world-1 all-reduce / all-gather changed their input")
+        barrier()  # the waits for rank 0's work alone, in their gloo group
+        check(broadcast_object({"rank": 0}) == {"rank": 0}, "broadcast_object changed its input")
+        record["collectives"] = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                                 "join_seconds": join_s}
+
+        # ---- (b) data-parallel KD against the single-device trainer ------
+        def settings(epochs=1):
+            s = Settings.from_dict({"training": {
+                "epochs": epochs, "batch_size": DIST_BATCH, "learning_rate": 2e-5,
+                "weight_decay": 0.01, "warmup_ratio": 0.1, "max_grad_norm": 1.0,
+                "num_docs_per_query": DIST_DOCS, "remat": True, "remat_policy": "full",
+                "resume": False, "seed": args.seed}})
+            s.loss.in_batch_negatives = True
+            return s
+
+        def student(p: float):
+            cfg = BertConfig.e5_small_v2(hidden_dropout=p, attention_dropout=p)
+            return StudentModel("intfloat/e5-small-v2", device="cuda", config=cfg,
+                                compute_dtype=torch.bfloat16, seed=args.seed)
+
+        mesh = create_mesh(data_parallel=1)
+        towers = 2 * 12
+        runs = {}
+        with tempfile.TemporaryDirectory(prefix="sskd_dist_") as tmp:
+            for p, n_steps, names in ((0.0, DIST_STEPS_P0, ("single", "data_parallel", "again")),
+                                      (0.1, DIST_STEPS_P1, ("single", "data_parallel"))):
+                samples = make_kd_samples(DIST_BATCH * n_steps, DIST_DOCS, args.seed + 11)
+                for name in names:
+                    st = student(p)
+                    trainer = KDTrainer(st, settings(),
+                                        mesh=mesh if name == "data_parallel" else None)
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    result, step_ms = timed_train(trainer, samples, Path(tmp) / f"{name}_{p}")
+                    runs[(p, name)] = {
+                        "student": st, "trainer": trainer, "step_ms": step_ms,
+                        "steps": result["global_step"],
+                        "losses": [h["train_loss"] for h in result["history"]],
+                        "launches": launch_counts(), "tc_launches": tc_launch_counts()}
+
+        def param_gap(a, b) -> tuple[bool, float]:
+            """Whether two students' parameters are equal bit for bit, and
+            their largest |a - b| / (1 + |b|)."""
+            theirs, same, worst = dict(b.module.named_parameters()), True, 0.0
+            for name, q in a.module.named_parameters():
+                want = theirs[name].detach()
+                same &= torch.equal(q.detach(), want)
+                worst = max(worst, ((q.detach() - want).abs() / (1 + want.abs())).max().item())
+            return same, worst
+
+        p0s, p0d = runs[(0.0, "single")], runs[(0.0, "data_parallel")]
+        bitwise, worst = param_gap(p0d["student"], p0s["student"])
+        # the single-device trainer run twice: whether the step itself repeats its bits
+        again_bitwise, again_worst = param_gap(runs[(0.0, "again")]["student"], p0s["student"])
+        log(f"[distributed] dropout 0: data-parallel vs single-device parameters bitwise "
+            f"{bitwise}, max |dp| / (1 + |p|) {worst:.3g}; single-device run twice: bitwise "
+            f"{again_bitwise}, {again_worst:.3g}")
+        check(p0d["steps"] == p0s["steps"] == DIST_STEPS_P0, f"steps {p0d['steps']}")
+        # world 1 makes the same calls on the same values and the collectives
+        # copy: equal bits, else within 1e-6 (1 + |p|), as far as the
+        # single-device step repeats itself
+        check(bitwise or worst <= 1e-6, f"data-parallel parameters off by {worst} (1 + |p|)")
+        p1 = runs[(0.1, "data_parallel")]
+        counts, tc_counts = p1["launches"], p1["tc_launches"]
+        check(all(math.isfinite(x) for x in p1["losses"]) and p1["steps"] == DIST_STEPS_P1,
+              f"dropout 0.1 run: {p1['steps']} steps, losses {p1['losses']}")
+        check(counts["dropattn_fwd"] == DIST_STEPS_P1 * 2 * towers
+              and counts["dropattn_bwd"] == DIST_STEPS_P1 * towers,
+              f"dropattn launches {counts['dropattn_fwd']} / {counts['dropattn_bwd']}, want "
+              f"{DIST_STEPS_P1 * 2 * towers} / {DIST_STEPS_P1 * towers}")
+        check(tc_counts["dropattn_fwd"] == counts["dropattn_fwd"]
+              and tc_counts["dropattn_bwd"] == counts["dropattn_bwd"],
+              f"dropattn tensor-core launches {tc_counts}")
+        check(p0d["launches"]["dropattn_fwd"] == 0, "dropout 0 launched dropattn_fwd")
+
+        # ms a step at dropout 0.1 of both trainers on one packed batch, in
+        # turns (single, data-parallel, data-parallel, single), 4 steps a turn
+        packed = next(KDDataset(make_kd_samples(DIST_BATCH, DIST_DOCS, args.seed + 13),
+                                p1["student"].tokenizer, num_docs=DIST_DOCS,
+                                query_len=DIST_QUERY_LEN, doc_len=DIST_DOC_LEN)
+                      .batches(DIST_BATCH, shuffle=False))
+        turns = {"single": [], "data_parallel": []}
+        for name in ("single", "data_parallel", "data_parallel", "single"):
+            trainer = runs[(0.1, name)]["trainer"]
+            trainer._prepare_module()
+            for i in range(4):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                trainer._train_step(packed, 0.5, 100 + i)
+                end.record()
+                torch.cuda.synchronize()
+                turns[name].append(start.elapsed_time(end))
+            trainer.student.module.eval()
+        ms = {name: float(np.median(t)) for name, t in turns.items()}
+        # the collectives a data-parallel step adds, alone at this step's
+        # sizes: the three loss counts, the docs' embeddings and validity,
+        # the gradients (one all-reduce of the optimizer's flat buffer, of
+        # which every .grad is a view), the four loss terms
+        flat = runs[(0.1, "data_parallel")]["trainer"]._opt._flat
+        rows = DIST_BATCH * DIST_DOCS
+        docs, valid = torch.zeros(rows, 384, device="cuda"), torch.ones(rows, device="cuda")
+        scalars = [torch.ones((), device="cuda") for _ in range(3)]
+        terms = torch.zeros(4, device="cuda")
+
+        def step_collectives():
+            all_reduce_sum_(scalars)
+            all_gather_rows(docs)
+            all_gather_rows(valid)
+            all_reduce_sum_([flat])
+            all_reduce_sum_([terms])
+
+        collectives_ms = time_ms(step_collectives, 10)
+        record["train"] = {
+            "batch": DIST_BATCH, "docs": DIST_DOCS, "doc_len": DIST_DOC_LEN,
+            "params_bitwise": bitwise, "max_param_diff_rel": worst,
+            "single_twice_bitwise": again_bitwise, "single_twice_max_diff_rel": again_worst,
+            "losses": {f"{n}_p{p}": r["losses"] for (p, n), r in runs.items()},
+            "train_step_ms": {f"{n}_p{p}": r["step_ms"] for (p, n), r in runs.items()},
+            "turn_step_ms": turns, "ms_per_step": ms,
+            "step_ms_difference": ms["data_parallel"] - ms["single"],
+            "collectives_ms_per_step": collectives_ms,
+            "grad_bytes": flat.numel() * flat.element_size(),
+            "launches": counts, "tc_launches": tc_counts,
+        }
+        log(f"[distributed] train: {json.dumps(ms)} ms a step (median of 8 in turns); the "
+            f"step's collectives alone {collectives_ms:.3f} ms")
+
+        # ---- (c) data-parallel encode --------------------------------------
+        enc = p0d["student"]
+        texts = [s.query for s in make_kd_samples(100, 2, args.seed + 12)]
+        enc.set_mesh(mesh)
+        got = enc.encode(texts, batch_size=64)
+        enc.set_mesh(None)
+        want = enc.encode(texts, batch_size=64)
+        check(got.shape == (100, 384) and np.array_equal(got, want),
+              f"set_mesh encode differs from encode by {np.abs(got - want).max()}")
+        record["encode"] = {"texts": len(texts), "equal": True}
+        del runs, p0s, p0d, p1, enc, trainer, flat
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the teacher's tensor parallelism ---------------------------------
+    teacher = TeacherModel(str(ROOT / "build" / "chip_smoke" / "teacher"), device="cuda")
+    pairs = make_score_pairs(SCORE_PAIRS, args.seed)[TP_PAIRS]
+    lengths = [teacher.tokenize_pairs(pairs[i:i + TEACHER_BATCH])["input_ids"].shape[1]
+               for i in range(0, len(pairs), TEACHER_BATCH)]
+    n512 = lengths.count(512)
+    check(n512 > 0, f"no chunk reached L = 512: {lengths}")
+    chunk = teacher.tokenize_pairs(pairs[lengths.index(512) * TEACHER_BATCH:][:TEACHER_BATCH])
+    want = np.asarray(teacher.score(pairs, batch_size=TEACHER_BATCH))
+    tp_record = {"pairs": len(pairs), "chunk_lengths": lengths,
+                 "unsharded_chunk512_ms": time_ms(lambda: teacher.forward_batch(chunk), 5, 1)}
+    unsharded = teacher.module
+    cfg = teacher.config
+    for case, devices in (("one_device", [torch.device("cuda", 0)]),
+                          ("two_slices", [torch.device("cuda", 0)] * 2)):
+        ip = len(devices)
+        teacher.module, teacher.device = unsharded, torch.device("cuda")
+        teacher.shard_tensor_parallel(create_mesh(data_parallel=1, index_parallel=ip,
+                                                  devices=devices))
+        shard = teacher.module.encoder.layers[0].shards[0]
+        check(shard.attention.num_heads == cfg.num_heads // ip
+              and shard.intermediate.weight.shape[0] == cfg.intermediate_size // ip,
+              f"{case}: a shard holds {shard.attention.num_heads} heads, "
+              f"{shard.intermediate.weight.shape[0]} FFN columns")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = np.asarray(teacher.score(pairs, batch_size=TEACHER_BATCH))
+        torch.cuda.synchronize()
+        counts, by_d, tc_counts = launch_counts(), head_dim_launch_counts(), tc_launch_counts()
+        n_flash = cfg.num_layers * ip * n512
+        check(counts["flash_attn_fwd"] == n_flash and by_d["flash_attn_fwd"] == {64: n_flash}
+              and tc_counts["flash_attn_fwd"] == n_flash,
+              f"{case}: flash_attn_fwd {counts['flash_attn_fwd']} launches "
+              f"{by_d['flash_attn_fwd']}, {tc_counts['flash_attn_fwd']} on the tensor cores, "
+              f"want {cfg.num_layers * ip} a chunk at L = 512, d = 64")
+        slack = float(np.max(np.abs(got - want) / (1e-4 * (1.0 + np.abs(want)))))
+        check(np.isfinite(got).all() and slack <= 1.0,
+              f"{case}: tensor-parallel scores off the unsharded ones by {slack} of 1e-4")
+        tp_record[case] = {
+            "devices": [str(d) for d in devices], "heads_per_shard": shard.attention.num_heads,
+            "summary": tp_sharding_summary(teacher.module),
+            "max_abs_diff": float(np.abs(got - want).max()), "diff_over_bound": slack,
+            "launches": counts["flash_attn_fwd"], "tc_launches": tc_counts["flash_attn_fwd"],
+            "flash_launches_per_512_chunk": counts["flash_attn_fwd"] // n512,
+            "chunk512_ms": time_ms(lambda: teacher.forward_batch(chunk), 5, 1),
+        }
+        log(f"[distributed] tp {case}: {json.dumps(tp_record[case])}")
+    check(tp_record["two_slices"]["summary"] == tp_record["one_device"]["summary"],
+          "the placement summary depends on the slice count")
+    record["tp"] = tp_record
+    record["launches"] = {
+        "dropattn_fwd": record["train"]["launches"]["dropattn_fwd"],
+        "dropattn_bwd": record["train"]["launches"]["dropattn_bwd"],
+        "flash_attn_fwd.d64": tp_record["two_slices"]["launches"],
+    }
+    del teacher, unsharded
+    torch.cuda.empty_cache()
+    return record
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: evaluation
 # ---------------------------------------------------------------------------
 
@@ -5496,6 +5808,9 @@ def main(argv=None) -> int:
     record["teacher"] = phase_teacher(args)
     log(f"[teacher] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    record["distributed"] = phase_distributed(args)
+    log(f"[distributed] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     record["eval"] = phase_eval(args, record["build"])
     log(f"[eval] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5622,6 +5937,10 @@ def main(argv=None) -> int:
     for entry in kernels:
         if entry["name"] in SHARDED_KERNELS:
             entry["sharded_launches"] = record["sharded"]["launches"][entry["name"]]
+        # and of the distributed phase: data-parallel KD (the dropout pair) and
+        # the teacher's two tensor-parallel slices (flash at d = 64)
+        if entry["name"] in record["distributed"]["launches"]:
+            entry["distributed_launches"] = record["distributed"]["launches"][entry["name"]]
     record["kernels"] = kernels
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

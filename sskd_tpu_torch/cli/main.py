@@ -27,10 +27,21 @@ of the machine, or with ``--cpu-devices N`` (which runs the command on the
 CPU) a CPU mesh of N entries, the port's counterpart of the JAX flag's
 virtual devices; a mesh the devices cannot hold exits 2 before the server
 starts. What the port does not have fails the same way, with a message,
-never silently: ``--platform`` other than cpu, cuda or gpu, and ``train
---data-parallel N > 1`` (ROADMAP Queue 1 item 7b). ``serve --workers N >
-1`` forks worker processes on the CPU only; on the card it warns and serves
-one process, as the JAX CLI does on a TPU.
+never silently: ``--platform`` other than cpu, cuda or gpu. ``serve
+--workers N > 1`` forks worker processes on the CPU only; on the card it
+warns and serves one process, as the JAX CLI does on a TPU.
+
+Every command first joins the process group that ``SSKD_COORDINATOR``,
+``SSKD_NUM_PROCESSES`` and ``SSKD_PROCESS_ID`` describe, when they are set
+(``initialize_distributed``, as the JAX CLI does). ``train --data-parallel
+N`` (N > 1) trains data-parallel, one process a data-axis entry: inside a
+group N must equal its size, else the command exits 2; outside one it
+starts N local workers itself, joined on a free port of 127.0.0.1 (gloo
+under ``--platform cpu``, NCCL on ``cuda:r`` otherwise; N must not pass the
+CUDA device count, checked before any work), so that one command means
+what the JAX CLI's does. Rank 0 prints the result; the command exits
+non-zero when a worker does, and a worker left waiting on a failed one is
+killed after ``WORKER_GRACE_S``.
 """
 
 from __future__ import annotations
@@ -38,13 +49,17 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
+import time
 from pathlib import Path
 
-from sskd_tpu_torch.config import DATA_PARALLEL_NOT_PORTED
 from sskd_tpu_torch.exceptions import ConfigError
 
 _PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+# how long the other workers of `train --data-parallel` may run on once one
+# has failed (they would wait for it in their next collective)
+WORKER_GRACE_S = 30.0
 
 
 def _add_platform_arg(p: argparse.ArgumentParser) -> None:
@@ -102,8 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dev-data", default=None,
                    help="held-out raw JSONL: its retrieval nDCG@10 drives early stopping")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="DP mesh size (default: mesh.data_parallel); only 1 is ported "
-                   "(ROADMAP Queue 1 item 7b)")
+                   help="DP mesh size (default: mesh.data_parallel setting): a process per "
+                   "entry, started by this command outside a process group")
     _add_platform_arg(p)
 
     p = sub.add_parser("train-teacher",
@@ -250,11 +265,17 @@ def _write_json(path: str | None, obj) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
 
+    import torch.distributed as dist
+
+    from sskd_tpu_torch.parallel import distributed
     from sskd_tpu_torch.utils.logging import get_logger, setup_logging
 
     setup_logging()
+    joined = False  # whether this call made the process group (and ends it)
     try:
         device = _device(args)
         if args.command != "doctor":  # the doctor reports a missing device
@@ -264,6 +285,12 @@ def main(argv: list[str] | None = None) -> int:
                 resolve_device(device)
             except RuntimeError as e:  # CUDA wanted and absent
                 raise ConfigError(str(e)) from e
+        # a multi-process run: no-op unless the SSKD_* variables are set
+        try:
+            joined = not dist.is_initialized() and distributed.initialize_distributed(
+                device=device)
+        except (ValueError, RuntimeError) as e:
+            raise ConfigError(f"process group: {e}") from e
         from sskd_tpu_torch.config import get_settings
 
         return _run(args, get_settings(), device)
@@ -271,6 +298,56 @@ def main(argv: list[str] | None = None) -> int:
         get_logger("cli").error(f"{args.command}: {e}")
         print(f"semantic-kd-torch {args.command}: error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _spawn_data_parallel(argv: list[str], n: int, device: str) -> int:
+    """``train --data-parallel n`` outside a process group: the same command
+    in ``n`` local processes, ranks of a group on a free port of 127.0.0.1.
+    Returns 0 when every worker does, else the first failure's code; a
+    worker still running ``WORKER_GRACE_S`` after another failed is killed."""
+    import socket
+
+    if device == "cuda":
+        import torch
+
+        if torch.cuda.device_count() < n:
+            raise ConfigError(f"--data-parallel {n} runs a process on each of {n} CUDA devices "
+                              f"(NCCL takes one a rank); this machine has "
+                              f"{torch.cuda.device_count()}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[2])
+    # the workers share the host's cores: n processes of a thread per core
+    # each spin against each other (a tiny CPU run went from 0.5 s to 66 s)
+    threads = os.environ.get("OMP_NUM_THREADS") or str(max(1, (os.cpu_count() or 1) // n))
+    env = {**os.environ, "SSKD_COORDINATOR": f"127.0.0.1:{port}",
+           "SSKD_NUM_PROCESSES": str(n), "OMP_NUM_THREADS": threads,
+           "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    cmd = [sys.executable, "-m", "sskd_tpu_torch.cli.main", *argv]
+    procs = [subprocess.Popen(cmd, env={**env, "SSKD_PROCESS_ID": str(r)}) for r in range(n)]
+    kill_at = None
+    try:
+        while any(p.poll() is None for p in procs):
+            if kill_at is None and any(p.poll() not in (None, 0) for p in procs):
+                kill_at = time.monotonic() + WORKER_GRACE_S
+            if kill_at is not None and time.monotonic() > kill_at:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        print(f"semantic-kd-torch train: error: data-parallel workers failed "
+              f"(rank, exit code): {failed}", file=sys.stderr)
+        return failed[0][1] if failed[0][1] > 0 else 1
+    return 0
 
 
 def _run(args, settings, device: str) -> int:
@@ -318,11 +395,20 @@ def _run(args, settings, device: str) -> int:
             student_config = (BertConfig.demo_teacher() if args.student_arch == "demo"
                               else BertConfig.tiny())
             teacher_config = BertConfig.tiny()
+        import torch.distributed as dist
+
+        from sskd_tpu_torch.parallel import distributed
+
         if args.data_parallel is None:
             dp = settings.mesh.data_parallel
             args.data_parallel = dp if dp > 0 else 1
-        if args.data_parallel > 1:
-            raise ConfigError(f"--data-parallel {args.data_parallel}: {DATA_PARALLEL_NOT_PORTED}")
+        in_group = dist.is_initialized()
+        if in_group and args.data_parallel != distributed.world_size():
+            raise ConfigError(f"--data-parallel {args.data_parallel} inside a process group of "
+                              f"{distributed.world_size()}: it must equal the group's size")
+        if args.data_parallel > 1 and not in_group:
+            return _spawn_data_parallel(args.argv, args.data_parallel, device)
+        mesh = distributed.process_mesh(device) if args.data_parallel > 1 else None
         result = run_train_pipeline(
             settings,
             data_dir=args.data_dir,
@@ -335,9 +421,11 @@ def _run(args, settings, device: str) -> int:
             teacher_config=teacher_config,
             save_init_to=args.save_init,
             dev_data=args.dev_data,
+            mesh=mesh,
             device=device,
         )
-        print(json.dumps({k: v for k, v in result.items() if k != "history"}, indent=2))
+        if distributed.rank() == 0:
+            print(json.dumps({k: v for k, v in result.items() if k != "history"}, indent=2))
         return 0
 
     if args.command == "train-teacher":

@@ -16,6 +16,13 @@ reference: scripts/train_kd_pipeline.py, 7 steps):
 ``build_training_inputs`` and ``load_eval_inputs`` give the evaluation's
 inputs too. The models run on ``device`` (default ``"cuda"``: raises
 without CUDA); the tests pass ``device="cpu"``.
+
+Data-parallel (``mesh``, one process a data-axis entry in a
+``torch.distributed`` group): rank 0 alone generates, prepares, builds
+BM25, loads the teacher, mines and writes; the other ranks wait at a
+barrier, then read the raw split and the mined negatives it wrote, and
+every rank trains (:class:`~sskd_tpu_torch.kd.train.KDTrainer` over the
+mesh).
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-from sskd_tpu_torch.config import DATA_PARALLEL_NOT_PORTED, Settings
+from sskd_tpu_torch.config import Settings
 from sskd_tpu_torch.data.prepare import _iter_passages_graded
-from sskd_tpu_torch.exceptions import ConfigError, DataError
+from sskd_tpu_torch.exceptions import DataError
+from sskd_tpu_torch.parallel import distributed
 from sskd_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("pipeline")
@@ -163,6 +171,60 @@ def _load_mined_cache(cache_path: Path, queries, corpus):
     return None
 
 
+def _prepare_data(settings, data_dir: Path, dataset: str, raw_train: Path, train_parquet: Path,
+                  use_demo_data: bool, max_samples) -> None:
+    """Steps 1 and 2: the raw split (generated for the demo set) and its
+    chunked parquet, each made only when missing."""
+    from sskd_tpu_torch.data.demo import generate_demo_dataset
+    from sskd_tpu_torch.data.prepare import prepare_dataset
+    from sskd_tpu_torch.data.registry import ensure_dirs, get_raw_dir
+
+    ensure_dirs(data_dir, dataset)
+    if not raw_train.exists():
+        if not use_demo_data:
+            raise DataError(
+                f"raw split not found: {raw_train}. Fetching {dataset!r} from the Hugging "
+                "Face hub (sskd_tpu/data/fetch.py) needs the network and is not part of the "
+                "port: place the raw JSONL there, or use the demo dataset"
+            )
+        logger.info("[1/7] generating offline demo dataset")
+        generate_demo_dataset(get_raw_dir(data_dir, dataset), num_samples=max_samples or 200)
+    else:
+        logger.info("[1/7] raw data present, skipping generation")
+    if not train_parquet.exists():
+        logger.info("[2/7] preparing chunked parquet")
+        prepare_dataset(
+            data_dir,
+            dataset=dataset,
+            max_tokens=settings.data.chunk_max_tokens,
+            stride=settings.data.chunk_stride,
+            max_samples=max_samples,
+        )
+    else:
+        logger.info("[2/7] prepared parquet present, skipping")
+
+
+def _bm25(settings, bm25_dir: Path, corpus: dict):
+    """Step 3: the persisted BM25 index over ``corpus``, rebuilt and saved
+    when missing or stale."""
+    from sskd_tpu_torch.mining.bm25 import BM25Index
+
+    if BM25Index.exists(bm25_dir):
+        logger.info("[3/7] loading persisted BM25 index")
+        bm25 = BM25Index.load(bm25_dir)
+        if set(bm25.doc_ids) == set(corpus):
+            return bm25
+        logger.warning("persisted BM25 id space is stale — rebuilding")
+    logger.info("[3/7] building BM25 index over the passage corpus")
+    ids = list(corpus.keys())
+    bm25 = BM25Index(
+        k1=settings.mining.bm25_k1, b=settings.mining.bm25_b,
+        epsilon=settings.mining.bm25_epsilon,
+    ).build([corpus[i] for i in ids], ids)
+    bm25.save(bm25_dir)
+    return bm25
+
+
 def run_train_pipeline(
     settings: Settings,
     data_dir: str | Path = "data",
@@ -185,23 +247,26 @@ def run_train_pipeline(
     ``teacher_config`` (the ``--tiny`` runs) build seeded models with a
     vocabulary fitted to the corpus; otherwise ``settings.student.model_name``
     and ``settings.teacher.model_name`` name checkpoints (the port's own or
-    the JAX package's) or known architectures. ``mesh`` (data-parallel
-    training) is refused, as the port's trainer refuses it."""
+    the JAX package's) or known architectures. ``mesh``: data-parallel
+    training over the processes of a group (module docstring)."""
     from dataclasses import replace
 
-    from sskd_tpu_torch.data.demo import generate_demo_dataset
-    from sskd_tpu_torch.data.prepare import prepare_dataset
-    from sskd_tpu_torch.data.registry import ensure_dirs, get_chunks_path, get_raw_dir, get_raw_path
+    from sskd_tpu_torch.data.registry import get_chunks_path, get_raw_path
     from sskd_tpu_torch.kd.train import KDTrainer
-    from sskd_tpu_torch.mining.bm25 import BM25Index
     from sskd_tpu_torch.mining.miners import build_mining_curriculum, refresh_ance_negatives
     from sskd_tpu_torch.models.student import StudentModel
     from sskd_tpu_torch.models.teacher import TeacherModel
     from sskd_tpu_torch.utils.platform import resolve_device
 
-    if mesh is not None:
-        raise ConfigError(f"data-parallel training over a mesh: {DATA_PARALLEL_NOT_PORTED}")
     device = resolve_device(device)
+    if mesh is not None:  # before any work: a mesh this run's processes do not make up
+        distributed.data_axis_rank(mesh, device)
+    lead = mesh is None or distributed.rank() == 0  # the rank that prepares and writes
+
+    def sync():  # the other ranks wait here for what the lead wrote
+        if mesh is not None:
+            distributed.barrier()
+
     data_dir = Path(data_dir)
     output_dir = Path(output_dir or settings.training.output_dir)
     stage = stage or settings.mining.stage
@@ -211,34 +276,13 @@ def run_train_pipeline(
     if use_demo_data is None:
         use_demo_data = dataset == "demo"
 
-    # [1/7] generate ---------------------------------------------------------
-    ensure_dirs(data_dir, dataset)
+    # [1/7] generate, [2/7] prepare ------------------------------------------
     raw_train = get_raw_path(data_dir, dataset, "train")
-    if not raw_train.exists():
-        if not use_demo_data:
-            raise DataError(
-                f"raw split not found: {raw_train}. Fetching {dataset!r} from the Hugging "
-                "Face hub (sskd_tpu/data/fetch.py) needs the network and is not part of the "
-                "port: place the raw JSONL there, or use the demo dataset"
-            )
-        logger.info("[1/7] generating offline demo dataset")
-        generate_demo_dataset(get_raw_dir(data_dir, dataset), num_samples=max_samples or 200)
-    else:
-        logger.info("[1/7] raw data present, skipping generation")
-
-    # [2/7] prepare ----------------------------------------------------------
     train_parquet = get_chunks_path(data_dir, dataset, "train")
-    if not train_parquet.exists():
-        logger.info("[2/7] preparing chunked parquet")
-        prepare_dataset(
-            data_dir,
-            dataset=dataset,
-            max_tokens=settings.data.chunk_max_tokens,
-            stride=settings.data.chunk_stride,
-            max_samples=max_samples,
-        )
-    else:
-        logger.info("[2/7] prepared parquet present, skipping")
+    if lead:
+        _prepare_data(settings, data_dir, dataset, raw_train, train_parquet, use_demo_data,
+                      max_samples)
+    sync()
 
     # [5/7 first] training inputs: the corpus defines the mining id space
     logger.info("[5/7] building queries/positives/corpus from raw JSONL")
@@ -246,22 +290,7 @@ def run_train_pipeline(
     logger.info(f"    {len(queries)} queries, corpus {len(corpus)} passages")
 
     # [3/7] BM25 over the same passage-id space the miners look texts up in
-    bm25_dir = data_dir / "bm25" / dataset
-    bm25 = None
-    if BM25Index.exists(bm25_dir):
-        logger.info("[3/7] loading persisted BM25 index")
-        bm25 = BM25Index.load(bm25_dir)
-        if set(bm25.doc_ids) != set(corpus):
-            logger.warning("persisted BM25 id space is stale — rebuilding")
-            bm25 = None
-    if bm25 is None:
-        logger.info("[3/7] building BM25 index over the passage corpus")
-        ids = list(corpus.keys())
-        bm25 = BM25Index(
-            k1=settings.mining.bm25_k1, b=settings.mining.bm25_b,
-            epsilon=settings.mining.bm25_epsilon,
-        ).build([corpus[i] for i in ids], ids)
-        bm25.save(bm25_dir)
+    bm25 = _bm25(settings, data_dir / "bm25" / dataset, corpus) if lead else None
 
     # [4/7] models -----------------------------------------------------------
     logger.info("[4/7] loading models")
@@ -287,12 +316,12 @@ def run_train_pipeline(
         normalize=settings.student.normalize_embeddings,
         pooling=settings.student.pooling,
     )
-    if save_init_to:
+    if save_init_to and lead:
         # the untrained snapshot sharing this run's init and tokenizer: the
         # fair "vanilla" row of the KD comparison
         student.save(save_init_to)
     teacher = None
-    if stage >= 2:
+    if stage >= 2 and lead:
         teacher = TeacherModel(
             settings.teacher.model_name,
             device=device,
@@ -303,8 +332,8 @@ def run_train_pipeline(
 
     # [6/7] mining (with the mined-negatives cache) -----------------------------
     cache_path = output_dir / f"mined_stage{stage}.json"
-    mined = _load_mined_cache(cache_path, queries, corpus)
-    if mined is None:
+    mined = _load_mined_cache(cache_path, queries, corpus) if lead else None
+    if mined is None and lead:
         logger.info(f"[6/7] mining curriculum stage {stage}")
         mined = build_mining_curriculum(
             stage,
@@ -326,6 +355,12 @@ def run_train_pipeline(
         output_dir.mkdir(parents=True, exist_ok=True)
         with open(cache_path, "w") as f:
             json.dump([{"doc_ids": m.doc_ids, "scores": m.scores} for m in mined], f)
+    sync()
+    if not lead:  # the negatives rank 0 mined
+        mined = _load_mined_cache(cache_path, queries, corpus)
+        if mined is None:
+            raise DataError(f"rank {distributed.rank()}: {cache_path}, which rank 0 wrote, "
+                            "does not match this rank's corpus")
 
     samples = mined_to_samples(queries, positives, mined, corpus)
     n_empty = sum(1 for m in mined if not m.doc_ids)
@@ -370,7 +405,7 @@ def run_train_pipeline(
 
     # [7/7] train ------------------------------------------------------------
     logger.info(f"[7/7] KD training: {len(train_samples)} train / {n_dev} dev")
-    trainer = KDTrainer(student, settings)
+    trainer = KDTrainer(student, settings, mesh=mesh)
     result = trainer.train(
         train_samples,
         dev_samples=dev_samples,

@@ -7,8 +7,9 @@ field of the JAX package is here, with its name, default and bounds:
 ``mesh``, ``precision``, ``cors``, ``rate_limit``, ``auth``, ``monitoring``,
 ``service``, ``search`` (with ``search.hybrid``), ``cache`` and ``data``,
 and the top-level ``debug``. ``mesh`` takes ``index_parallel`` > 1 (sharded
-serving, :mod:`sskd_tpu_torch.index.sharded`) and refuses a
-``data_parallel`` other than -1 or 1: data-parallel training is not ported.
+serving, :mod:`sskd_tpu_torch.index.sharded`) and ``data_parallel`` > 1
+(data-parallel training, one process a data-axis entry:
+:mod:`sskd_tpu_torch.parallel.distributed`).
 
 Precedence, as in the JAX package: environment variables
 (``SEMANTIC_KD_<SECTION>__<FIELD>=value``, nested by ``__``, values parsed
@@ -43,10 +44,6 @@ from sskd_tpu_torch.exceptions import ConfigError
 ENV_PREFIX = "SEMANTIC_KD_"
 NESTED_DELIMITER = "__"
 CONFIG_PATH_ENV = "SEMANTIC_KD_CONFIG_PATH"
-DATA_PARALLEL_NOT_PORTED = (
-    "data-parallel training, tensor parallelism and multi-process meshes are not ported "
-    "yet: ROADMAP Queue 1 item 7b"
-)
 
 
 def _check(obj, name: str, *, ge=None, le=None, gt=None, choices=None) -> None:
@@ -315,8 +312,8 @@ class IndexConfig(_Section):
 class MeshConfig(_Section):
     """The JAX package's device mesh. ``index_parallel`` > 1 shards a served
     index over that many devices (one process, a shard a device:
-    :mod:`sskd_tpu_torch.parallel.mesh`); a ``data_parallel`` other than -1
-    or 1 raises, since data-parallel training is not ported."""
+    :mod:`sskd_tpu_torch.parallel.mesh`); ``data_parallel`` > 1 trains over
+    that many processes (``train --data-parallel``)."""
 
     data_axis: str = "data"
     index_axis: str = "index"
@@ -326,10 +323,6 @@ class MeshConfig(_Section):
     def validate(self):
         _check(self, "data_parallel", ge=-1)
         _check(self, "index_parallel", ge=1)
-        if self.data_parallel not in (-1, 1):
-            raise ConfigError(
-                f"mesh data_parallel={self.data_parallel}: {DATA_PARALLEL_NOT_PORTED}"
-            )
 
 
 @dataclass

@@ -49,7 +49,6 @@ the other onto any shard count. bf16 rows are read as their bits
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 from pathlib import Path
@@ -71,6 +70,7 @@ from sskd_tpu_torch.ops.topk import (
 )
 from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
 from sskd_tpu_torch.ops.topk_kernels import NEG_INF, cosine_topk_kernels
+from sskd_tpu_torch.parallel.mesh import on_device
 from sskd_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("index.sharded")
@@ -84,12 +84,6 @@ def _file_sha256(path: Path, chunk: int = 1 << 22) -> str:
         while block := f.read(chunk):
             h.update(block)
     return h.hexdigest()
-
-
-def _on(device: torch.device):
-    """``torch.cuda.device(device)`` for a CUDA device: the kernels of a
-    shard launch on its device and its current stream."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _to_device(rows: np.ndarray, bf16: bool, device: torch.device) -> torch.Tensor:
@@ -481,7 +475,7 @@ class ShardedIndex:
             first = queries.device
             parts_v, parts_i = [], []
             for j, device in enumerate(self.devices):
-                with _on(device):
+                with on_device(device):
                     vals, idx = local_search(queries.to(device), j, vectors[j], scales[j],
                                              cents[j], refines[j])
                 parts_v.append(vals.to(first))

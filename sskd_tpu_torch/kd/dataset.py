@@ -93,24 +93,33 @@ class KDDataset:
         shuffle: bool = True,
         seed: int = 0,
         drop_last: bool = False,
+        shard: tuple[int, int] = (0, 1),
     ) -> Iterator[dict[str, np.ndarray]]:
+        """Batches of ``batch_size`` rows in a seeded shuffle. ``shard`` =
+        (rank, world) packs only rows ``[rank * b, (rank + 1) * b)`` of each
+        batch, b = batch_size / world: a data-parallel rank's share of the
+        global batch, padding rows marked as they are in the whole batch."""
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"batch size {batch_size} is not a multiple of {world} shards")
+        lo, hi = rank * batch_size // world, (rank + 1) * batch_size // world
         order = np.arange(len(self.samples))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
         for start in range(0, len(order), batch_size):
             idx = order[start : start + batch_size]
-            if len(idx) < batch_size:
+            n_real = len(idx)
+            if n_real < batch_size:
                 if drop_last:
                     return
                 # repeat-pad to the static batch size; mark padded rows
                 # invalid so they contribute nothing to the loss
-                pad = batch_size - len(idx)
-                idx = np.concatenate([idx, order[:pad]])
-                batch = self._pack([self.samples[i] for i in idx])
-                batch["doc_valid"][-pad:, :] = 0.0
-                yield batch
+                idx = np.concatenate([idx, order[: batch_size - n_real]])
+            batch = self._pack([self.samples[i] for i in idx[lo:hi]])
+            batch["doc_valid"][max(n_real - lo, 0):, :] = 0.0
+            yield batch
+            if n_real < batch_size:
                 return
-            yield self._pack([self.samples[i] for i in idx])
 
     def steps_per_epoch(self, batch_size: int, drop_last: bool = False) -> int:
         n = len(self.samples)

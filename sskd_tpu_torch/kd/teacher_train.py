@@ -32,8 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from sskd_tpu_torch.config import TrainingConfig
-from sskd_tpu_torch.exceptions import DataError
+from sskd_tpu_torch.exceptions import ConfigError, DataError
 from sskd_tpu_torch.kd.train import KDOptimizer
+from sskd_tpu_torch.parallel.tp import is_tensor_parallel
 from sskd_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("kd.teacher_train")
@@ -149,6 +150,9 @@ class TeacherTrainer:
         max_grad_norm: float = 1.0,
         seed: int = 0,
     ):
+        if is_tensor_parallel(teacher.module):
+            raise ConfigError("the teacher is tensor-parallel (shard_tensor_parallel), which is "
+                              "for scoring: train it unsharded")
         self.teacher = teacher
         self.cfg = TrainingConfig(learning_rate=learning_rate, weight_decay=weight_decay,
                                   warmup_ratio=warmup_ratio, max_grad_norm=max_grad_norm)

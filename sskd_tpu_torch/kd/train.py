@@ -27,12 +27,33 @@ Dropout seeds: step ``n`` draws its query- and doc-tower seeds from
 ``training.seed`` and ``n``, so a resumed run sees the masks an
 uninterrupted one would have.
 
+Data parallelism (``mesh``, the JAX package's sharded jit over the ``data``
+axis): one process per data-axis entry, joined by a ``torch.distributed``
+group (:mod:`sskd_tpu_torch.parallel.distributed`; the CLI's ``train
+--data-parallel N`` starts the processes). Rank ``r`` trains on
+``mesh.devices[r][0]`` and takes rows ``[r B/W, (r + 1) B/W)`` of every
+global batch (the same shuffle on every rank). The step computes the JAX
+step's global loss: each term's masked sum over the rank's rows is divided
+by the term's count summed over the ranks, the in-batch negatives are the
+doc embeddings and validity of every rank (an all-gather whose backward
+sums every rank's gradient on a rank's rows), and the "own docs" mask
+compares global rows. Each rank's loss is thus its share of the global
+loss, so the gradients are summed over the ranks (one all-reduce) before
+clipping, and every rank takes the same AdamW step: the parameters stay
+bit-identical, as rank 0's are broadcast at the start. Rank 0 draws the
+single-device seeds and rank ``r`` the next pair after rank ``r - 1``'s, so
+the ranks' dropout masks differ from each other and from a single-device
+run's on the same rows (a recorded divergence: the JAX step draws one mask
+over the global batch). Every decision (resume, ANCE refresh, evaluation,
+early stopping) is rank 0's, broadcast; only rank 0 writes files, and the
+others pass a barrier after them. The output directory must be one
+directory that every rank reads (one host, or a shared filesystem).
+
 Checkpoints are the port's own (``torch.save``), under
 ``output_dir/checkpoints/step_<n>/state.pt``: the parameters, the optimizer
 state, step, epoch and best metric; the 3 newest are kept and training
 resumes from the newest when ``training.resume`` is on. The best model goes
-to ``output_dir/best_model`` through ``StudentModel.save``. Data-parallel
-training (the JAX package's ``mesh``) is not ported: ROADMAP Queue 1 item 7b.
+to ``output_dir/best_model`` through ``StudentModel.save``.
 """
 
 from __future__ import annotations
@@ -47,10 +68,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sskd_tpu_torch.config import DATA_PARALLEL_NOT_PORTED, Settings
+from sskd_tpu_torch.config import Settings
 from sskd_tpu_torch.exceptions import ConfigError
 from sskd_tpu_torch.kd.dataset import KDDataset, KDSample, prefetch_batches
 from sskd_tpu_torch.kd.losses import combined_kd_loss, temperature_at
+from sskd_tpu_torch.parallel import distributed
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.metrics import ndcg_at_k
 
@@ -63,10 +85,21 @@ _SEED_STRIDE = 1_000_003  # step seed = training.seed * stride + step
 class KDOptimizer:
     """``optax.chain(clip_by_global_norm, adamw(schedule))``, wrapped in
     ``optax.MultiSteps`` when ``grad_accum_steps`` > 1, over torch
-    parameters whose ``.grad`` the train step fills."""
+    parameters whose ``.grad`` the train step fills. ``grad_reduce``, when
+    given, sums the gradients over the ranks of a data-parallel run in place
+    before they are averaged over the accumulated steps and clipped: it is
+    called with one flat buffer, of which every ``.grad`` is a view, so the
+    backward accumulates into it and one collective reduces it."""
 
-    def __init__(self, params, cfg, total_steps: int):
+    def __init__(self, params, cfg, total_steps: int, grad_reduce=None):
         self.params = [p for p in params if p.requires_grad]
+        self.grad_reduce = grad_reduce
+        self._flat = None
+        if grad_reduce is not None:
+            self._flat = torch.zeros(sum(p.numel() for p in self.params),
+                                     dtype=self.params[0].dtype, device=self.params[0].device)
+            self._views = [g.view_as(p) for p, g in zip(
+                self.params, self._flat.split([p.numel() for p in self.params]))]
         self.learning_rate = cfg.learning_rate
         self.warmup = max(1, int(total_steps * cfg.warmup_ratio))
         self.decay_steps = max(1, total_steps - self.warmup)
@@ -88,8 +121,14 @@ class KDOptimizer:
     def begin(self) -> None:
         """Before the backward of a step: a new accumulation clears the
         gradients (the last update's stay readable until then)."""
-        if self.mini_step == 0:
+        if self.mini_step:
+            return
+        if self._flat is None:
             self.adam.zero_grad(set_to_none=True)
+            return
+        self._flat.zero_()
+        for p, g in zip(self.params, self._views):
+            p.grad = g
 
     def step(self) -> None:
         """After the backward of a step: an update every ``accum`` steps."""
@@ -97,9 +136,13 @@ class KDOptimizer:
         if self.mini_step < self.accum:
             return
         self.mini_step = 0
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        if self._flat is None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+            for p, g in zip(self.params, grads):
+                p.grad = g
+        else:
+            grads = self._views
+            self.grad_reduce([self._flat])
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -130,21 +173,42 @@ class KDTrainer:
     _GRADE_WEIGHT = 0.25
 
     def __init__(self, student, settings: Settings | None = None, mesh=None):
-        if mesh is not None:
-            raise ConfigError(f"data-parallel training over a mesh: {DATA_PARALLEL_NOT_PORTED}")
         self.student = student
         self.settings = settings or Settings()
         self.cfg = self.settings.training
         self.loss_cfg = self.settings.loss
         self._opt: KDOptimizer | None = None
         self._total_steps = 0
+        self.mesh = mesh
+        self.rank, self.world = 0, 1
+        if mesh is not None:
+            self.rank, self.world = self._check_mesh(mesh)
+
+    def _check_mesh(self, mesh) -> tuple[int, int]:
+        """(rank, world) of this process in a data-parallel run over the
+        mesh's data axis (its first); the index axis only adds replicas, as
+        in JAX, and training ignores it."""
+        rank, dp = distributed.data_axis_rank(mesh, self.student.device)
+        if self.cfg.batch_size % dp:
+            raise ConfigError(f"training.batch_size={self.cfg.batch_size} is not a multiple of "
+                              f"the {dp} data-parallel processes")
+        return rank, dp
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            distributed.barrier()
+
+    def _from_rank0(self, obj):
+        """Rank 0's ``obj``: what every rank of a data-parallel run decides."""
+        return distributed.broadcast_object(obj) if self.mesh is not None else obj
 
     # ------------------------------------------------------------------
     # Optimizer / train step
     # ------------------------------------------------------------------
 
     def _make_optimizer(self, total_steps: int) -> KDOptimizer:
-        return KDOptimizer(self.student.module.parameters(), self.cfg, total_steps)
+        reduce = distributed.all_reduce_sum_ if self.mesh is not None else None
+        return KDOptimizer(self.student.module.parameters(), self.cfg, total_steps, reduce)
 
     def _prepare_module(self) -> None:
         module = self.student.module
@@ -154,13 +218,23 @@ class KDTrainer:
     def _step_seed(self, global_step: int) -> int:
         return self.cfg.seed * _SEED_STRIDE + global_step
 
-    def _train_step(self, batch: dict, progress: float, step_seed: int) -> dict:
-        """One step on a packed batch (numpy arrays): forward, loss,
-        backward, optimizer. Returns the loss terms as device scalars."""
-        module, dev, lc = self.student.module, self.student.device, self.loss_cfg
-        t = {k: torch.from_numpy(v).to(dev, non_blocking=True) for k, v in batch.items()}
+    def _tower_seeds(self, step_seed: int) -> tuple[int, int]:
+        """The query- and doc-tower dropout seeds of this rank at a step:
+        the step seed's first pair of draws on rank 0 (the single-device
+        seeds), its pair ``r`` on rank ``r``."""
         gen = torch.Generator().manual_seed(int(step_seed))
-        q_seed, d_seed = torch.randint(0, 2**31 - 1, (2,), generator=gen).tolist()
+        draws = torch.randint(0, 2**31 - 1, (2 * (self.rank + 1),), generator=gen).tolist()
+        return draws[-2], draws[-1]
+
+    def _train_step(self, batch: dict, progress: float, step_seed: int) -> dict:
+        """One step on a packed batch (numpy arrays; in a data-parallel run
+        this rank's rows of the global batch): forward, loss, backward,
+        optimizer. Returns the loss terms (of the global batch) as device
+        scalars."""
+        module, dev, lc = self.student.module, self.student.device, self.loss_cfg
+        dp = self.mesh is not None
+        t = {k: torch.from_numpy(v).to(dev, non_blocking=True) for k, v in batch.items()}
+        q_seed, d_seed = self._tower_seeds(step_seed)
         self._opt.begin()
         q_emb = module(t["query_ids"].long(), t["query_mask"], dropout_seed=q_seed)
         B, N, L = t["doc_ids"].shape
@@ -175,12 +249,17 @@ class KDTrainer:
             # every other query's docs widen the InfoNCE denominator; own
             # docs are masked out of the extension (they already occupy the
             # first N columns) and a batch-tail padding row gains no columns
+            # (data-parallel: every rank's docs, and global rows for "own")
             valid = t["doc_valid"].float()
-            all_s = q_emb @ d_emb.reshape(B * N, -1).T
-            own = (torch.arange(B * N, device=dev)[None, :] // N
-                   == torch.arange(B, device=dev)[:, None])
+            docs, valid_all = d_emb.reshape(B * N, -1), valid.reshape(1, B * N)
+            if dp:
+                docs = distributed.all_gather_rows(docs)
+                valid_all = distributed.all_gather_rows(valid.reshape(B * N)).reshape(1, -1)
+            all_s = q_emb @ docs.T
+            own = (torch.arange(docs.shape[0], device=dev)[None, :] // N
+                   == (torch.arange(B, device=dev) + self.rank * B)[:, None])
             row_live = valid.amax(dim=1, keepdim=True)
-            others = valid.reshape(1, B * N) * (~own).float() * row_live
+            others = valid_all * (~own).float() * row_live
             ct_scores = torch.cat([scores, all_s], dim=1)
             ct_mask = torch.cat([valid, others], dim=1)
         out = combined_kd_loss(
@@ -194,10 +273,17 @@ class KDTrainer:
             tau=lc.contrastive_tau,
             contrastive_scores=ct_scores,
             contrastive_mask=ct_mask,
+            count_reduce=distributed.all_reduce_sum_ if dp else None,
         )
         out["loss"].backward()
         self._opt.step()
-        return {k: v.detach() for k, v in out.items()}
+        aux = {k: v.detach() for k, v in out.items()}
+        if dp:  # each rank holds its share of each term: their sums are the batch's
+            keys = ("loss", "margin_mse", "listwise_kd", "contrastive")
+            terms = torch.stack([aux[k] for k in keys])
+            distributed.all_reduce_sum_([terms])
+            aux.update(zip(keys, terms))
+        return aux
 
     # ------------------------------------------------------------------
     # Dev evaluation for early stopping
@@ -248,6 +334,12 @@ class KDTrainer:
 
     def _save_checkpoint(self, output_dir: Path, step: int, epoch: int,
                          best_metric: float) -> None:
+        if self.rank == 0:
+            self._write_checkpoint(output_dir, step, epoch, best_metric)
+        self._barrier()
+
+    def _write_checkpoint(self, output_dir: Path, step: int, epoch: int,
+                          best_metric: float) -> None:
         root = output_dir / "checkpoints"
         final = root / f"step_{step}"
         tmp = root / f".step_{step}.tmp"
@@ -270,9 +362,10 @@ class KDTrainer:
 
     def _restore_latest(self, output_dir: Path):
         found = self._checkpoints(output_dir)
-        if not found:
+        path = self._from_rank0(found[-1][1] if found else None)
+        if path is None:
             return None
-        state = torch.load(found[-1][1] / "state.pt", map_location=self.student.device,
+        state = torch.load(path / "state.pt", map_location=self.student.device,
                            weights_only=True)
         self.student.module.load_state_dict(state["params"])
         self._opt.load_state_dict(state["opt_state"])
@@ -283,9 +376,23 @@ class KDTrainer:
     # ------------------------------------------------------------------
 
     def _evaluate(self, dev_samples, dev_evaluator) -> float:
+        """The dev metric (every rank evaluates, for an evaluator that runs
+        collectives; rank 0's value is used)."""
         if dev_evaluator is not None:
-            return float(dev_evaluator(self.student))
-        return self._dev_ndcg(dev_samples)
+            metric = float(dev_evaluator(self.student))
+        else:
+            metric = self._dev_ndcg(dev_samples)
+        return self._from_rank0(metric)
+
+    def _save_best(self, output_dir: Path) -> None:
+        if self.rank == 0:
+            self.student.save(output_dir / "best_model")
+        self._barrier()
+
+    def _sync_parameters(self) -> None:
+        """Every rank starts from rank 0's parameters."""
+        for p in self.student.module.parameters():
+            torch.distributed.broadcast(p.data, src=0)
 
     def train(
         self,
@@ -305,7 +412,9 @@ class KDTrainer:
         stopping and best-model selection. ``negative_refresher``, when
         given, is called with the student at an epoch boundary once
         ``mining.ance_refresh_every_n_steps`` steps have passed since the
-        last refresh, and returns fresh samples (or nothing)."""
+        last refresh, and returns fresh samples (or nothing); in a
+        data-parallel run rank 0 calls it and sends its samples to the
+        others."""
         cfg = self.cfg
         epochs = epochs or cfg.epochs
         output_dir = Path(output_dir or cfg.output_dir)
@@ -328,6 +437,8 @@ class KDTrainer:
         self._total_steps = total_steps
         self._opt = self._make_optimizer(total_steps)
         self._prepare_module()
+        if self.mesh is not None:
+            self._sync_parameters()
 
         global_step, start_epoch, best_metric = 0, 0, -math.inf
         if cfg.resume:
@@ -352,7 +463,8 @@ class KDTrainer:
                     and global_step >= mining.ance_warmup_steps
                     and global_step - last_refresh_step >= mining.ance_refresh_every_n_steps
                 ):
-                    fresh = negative_refresher(self.student)
+                    fresh = self._from_rank0(
+                        negative_refresher(self.student) if self.rank == 0 else None)
                     if fresh:
                         dataset = make_dataset(fresh)
                         last_refresh_step = global_step
@@ -365,7 +477,8 @@ class KDTrainer:
                 improved_mid_epoch = False
                 step_evals: list[dict] = []
                 for batch in prefetch_batches(
-                    dataset.batches(cfg.batch_size, shuffle=True, seed=cfg.seed + epoch),
+                    dataset.batches(cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
+                                    shard=(self.rank, self.world)),
                     size=cfg.prefetch_batches,
                 ):
                     progress = float(np.float32(global_step / max(1, total_steps - 1)))
@@ -384,7 +497,7 @@ class KDTrainer:
                         if cfg.early_stopping_metric != "loss" and step_ndcg > best_metric:
                             best_metric = step_ndcg
                             improved_mid_epoch = True
-                            self.student.save(output_dir / "best_model")
+                            self._save_best(output_dir)
 
                 means = {k: float(torch.stack(v).float().mean().cpu()) for k, v in terms.items()}
                 record = {
@@ -406,6 +519,7 @@ class KDTrainer:
                     metric = record["dev_ndcg@10"]
                 else:
                     metric = -record["train_loss"]
+                metric = self._from_rank0(metric)
                 history.append(record)
                 logger.info(
                     f"epoch {epoch + 1}/{epochs}: loss={record['train_loss']:.4f} "
@@ -414,15 +528,16 @@ class KDTrainer:
                        if "dev_ndcg@10" in record else "")
                     + f"({record['seconds']:.1f}s)"
                 )
+                if self.rank == 0:
+                    with open(output_dir / f"metrics_epoch_{epoch + 1}.json", "w") as f:
+                        json.dump(record, f, indent=2)
                 self._save_checkpoint(output_dir, global_step, epoch + 1,
                                       max(best_metric, metric))
-                with open(output_dir / f"metrics_epoch_{epoch + 1}.json", "w") as f:
-                    json.dump(record, f, indent=2)
 
                 if metric > best_metric:
                     best_metric = metric
                     epochs_without_improvement = 0
-                    self.student.save(output_dir / "best_model")
+                    self._save_best(output_dir)
                 elif improved_mid_epoch:
                     # a step eval already raised best_metric this epoch
                     epochs_without_improvement = 0
@@ -435,8 +550,10 @@ class KDTrainer:
         finally:
             self.student.module.eval()
             self.student.module.encoder.remat = None
-        with open(output_dir / "history.json", "w") as f:
-            json.dump(history, f, indent=2)
+        if self.rank == 0:
+            with open(output_dir / "history.json", "w") as f:
+                json.dump(history, f, indent=2)
+        self._barrier()
         return {
             "history": history,
             "best_metric": float(best_metric),

@@ -130,7 +130,7 @@ class _Cast:
 
     def _cast(self, name: str) -> torch.Tensor:
         t = getattr(self, name)
-        if t.dtype == self.compute_dtype:
+        if t is None or t.dtype == self.compute_dtype:
             return t
         if torch.is_grad_enabled():
             return t.to(self.compute_dtype)
@@ -208,11 +208,10 @@ class SelfAttention(nn.Module):
     def forward(self, hidden, attn_bias, seeds=None) -> torch.Tensor:
         """``seeds``: (attention-dropout seed, output-dropout seed) in
         training, None otherwise."""
-        B, L, H = hidden.shape
-        hd = H // self.num_heads
+        B, L, _ = hidden.shape
 
         def split_heads(x):
-            return x.view(B, L, self.num_heads, hd).transpose(1, 2)
+            return x.view(B, L, self.num_heads, -1).transpose(1, 2)
 
         q = split_heads(self.query(hidden))
         k = split_heads(self.key(hidden))
@@ -222,7 +221,7 @@ class SelfAttention(nn.Module):
                                     seeds[0])
         else:
             ctx = scaled_dot_attention(q, k, v, attn_bias)
-        out = self.output(ctx.transpose(1, 2).reshape(B, L, H))
+        out = self.output(ctx.transpose(1, 2).reshape(B, L, -1))
         return dropout(out, self.hidden_dropout, None if seeds is None else seeds[1])
 
 
@@ -242,9 +241,12 @@ class TransformerLayer(nn.Module):
         output, FFN output) in training, None otherwise."""
         attn_seeds = None if seeds is None else seeds[:2]
         hidden = self.attention_norm(hidden + self.attention(hidden, attn_bias, attn_seeds))
-        ff = self.ffn_output(F.gelu(self.intermediate(hidden), approximate="none"))
-        ff = dropout(ff, self.hidden_dropout, None if seeds is None else seeds[2])
+        ff = dropout(self.ffn(hidden), self.hidden_dropout, None if seeds is None else seeds[2])
         return self.ffn_norm(hidden + ff)
+
+    def ffn(self, hidden) -> torch.Tensor:
+        """The FFN's two products, before dropout, residual and norm."""
+        return self.ffn_output(F.gelu(self.intermediate(hidden), approximate="none"))
 
 
 # matrix products kept by remat policy "dots" (jax.checkpoint_policies

@@ -25,7 +25,12 @@ Differences from the JAX package:
   once to pick the bucket, once to encode);
 - the parameters live in ``module`` (a torch ``BiEncoder``, f32, computing
   in ``config.compute_dtype``), not in a ``params`` tree: the trainer
-  updates them in place, and ``encode*`` always runs in eval mode.
+  updates them in place, and ``encode*`` always runs in eval mode;
+- ``set_mesh`` (data-parallel encoding) spans the processes of a
+  ``torch.distributed`` group, one a data-axis entry: each rank encodes its
+  share of every padded chunk and all-gathers the rest, so every rank
+  returns the whole array (the JAX package shards one jitted encode over
+  the devices of the ``data`` axis).
 
 The bucket ladder keeps the JAX package's values, chosen on a TPU and not
 yet measured on the H100: the device ladder starts at 16 rows, the CPU
@@ -49,6 +54,7 @@ from sskd_tpu_torch.models.weights import (
     checkpoint_state,
     random_jax_params,
 )
+from sskd_tpu_torch.parallel import distributed
 from sskd_tpu_torch.tokenization import WordPieceTokenizer, get_default_tokenizer
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.platform import resolve_device
@@ -143,6 +149,7 @@ class StudentModel:
         self.module = BiEncoder(self.config, normalize=self.normalize, pooling=self.pooling)
         self.module.load_state_dict(state)
         self.module.to(device=self.device).eval()
+        self._data_shards: int | None = None  # processes a chunk is encoded over (set_mesh)
 
     # ------------------------------------------------------------------
     # Loading / saving
@@ -192,6 +199,19 @@ class StudentModel:
     def embedding_dim(self) -> int:
         return self.config.hidden_size
 
+    def set_mesh(self, mesh, axis: str = "data") -> None:
+        """Encode data-parallel over ``axis`` of ``mesh``, whose entries are
+        the processes of this run's group (one each; the other axis only
+        adds replicas): every batch is padded to a multiple of their count,
+        each rank encodes its rows on its entry's device (the student's) and
+        all-gathers the others'. Every rank of the group must call
+        ``encode*`` together. ``None`` goes back to one device."""
+        if mesh is None:
+            self._data_shards = None
+            return
+        _, dp = distributed.data_axis_rank(mesh, self.device, axis)
+        self._data_shards = dp
+
     def tokenize_batch(self, texts: Sequence[str], pad_to: int | None = None) -> dict:
         """Host-side tokenization to fixed [B, L] int32 arrays; L is the
         bucket of the longest text (``pad_to`` overrides it)."""
@@ -238,8 +258,17 @@ class StudentModel:
             chunk = list(texts[start : start + batch_size])
             n = len(chunk)
             padded_n = bucket_length(n, batch_size, self.device)
+            shards = self._data_shards or 1
+            padded_n = -(-padded_n // shards) * shards  # divisible across the ranks
             chunk += [""] * (padded_n - n)
-            emb = self.forward_batch(self.tokenize_batch(chunk))
+            batch = self.tokenize_batch(chunk)
+            if self._data_shards is not None:  # this rank's rows, then every rank's
+                lo, hi = (distributed.rank() * padded_n // shards,
+                          (distributed.rank() + 1) * padded_n // shards)
+                emb = distributed.all_gather_rows(
+                    self.forward_batch({k: v[lo:hi] for k, v in batch.items()}))
+            else:
+                emb = self.forward_batch(batch)
             if pending is not None:
                 out.append(pending[0][: pending[1]].cpu().numpy())
             pending = (emb, n)

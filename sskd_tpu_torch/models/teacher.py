@@ -27,7 +27,13 @@ Differences from the JAX package:
 - each text is tokenized once per chunk (the JAX package tokenizes twice);
 - the parameters live in ``module`` (a torch ``CrossEncoder``, f32,
   computing in ``config.compute_dtype``): the trainer updates them in
-  place, and ``score`` always runs in eval mode.
+  place, and ``score`` always runs in eval mode;
+- ``shard_tensor_parallel`` replaces ``module`` by its tensor-parallel copy
+  (:mod:`sskd_tpu_torch.parallel.tp`, whole heads a shard, so the heads
+  must divide by the axis size); ``score``, ``forward_batch`` and rerank
+  then run it, ``save`` writes the unsharded weights, and
+  :class:`~sskd_tpu_torch.kd.teacher_train.TeacherTrainer` refuses it
+  (tensor parallelism is for scoring).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from sskd_tpu_torch.models.weights import (
     cross_encoder_from_jax_params,
     random_jax_params,
 )
+from sskd_tpu_torch.parallel.tp import is_tensor_parallel, shard_params_tp, unsharded_state_dict
 from sskd_tpu_torch.tokenization import WordPieceTokenizer, get_default_tokenizer
 from sskd_tpu_torch.utils.logging import get_logger
 from sskd_tpu_torch.utils.platform import resolve_device
@@ -142,8 +149,9 @@ class TeacherModel:
         }
         with open(path / "sskd_config.json", "w") as f:
             json.dump(meta, f, indent=2)
-        state = {k: v.detach().to("cpu", torch.float32)
-                 for k, v in self.module.state_dict().items()}
+        state = (unsharded_state_dict(self.module) if is_tensor_parallel(self.module)
+                 else self.module.state_dict())
+        state = {k: v.detach().to("cpu", torch.float32) for k, v in state.items()}
         torch.save(state, path / "weights.pt")
         self.tokenizer.save(path / "tokenizer")
         logger.info(f"saved teacher checkpoint to {path}")
@@ -152,6 +160,13 @@ class TeacherModel:
     # ------------------------------------------------------------------
     # Scoring
     # ------------------------------------------------------------------
+
+    def shard_tensor_parallel(self, mesh, axis: str = "index") -> None:
+        """Split this teacher's matrix products over the devices of a mesh
+        axis (Megatron's layout, :mod:`sskd_tpu_torch.parallel.tp`); the
+        inputs and the residual stream live on the axis's first device."""
+        self.module = shard_params_tp(self.module, mesh, axis)
+        self.device = mesh.devices_along(axis)[0]
 
     def tokenize_pairs(self, pairs: Sequence[tuple[str, str]]) -> dict:
         """``[CLS] q [SEP] d [SEP]`` arrays [B, L] (int32), L the bucket of

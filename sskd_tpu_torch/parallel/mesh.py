@@ -13,13 +13,18 @@ raises where CUDA is missing; asking for more devices than there are raises
 A CPU mesh of N entries is made only when it is asked for:
 ``devices=[torch.device("cpu")] * N``, or :func:`local_devices` of the CPU
 after :func:`set_cpu_devices` (the CLI's ``--cpu-devices N``, the port's
-counterpart of the JAX flag's virtual CPU devices). Multi-process meshes
-(the JAX package's ``initialize_distributed``) are not ported: ROADMAP
-Queue 1 item 7b.
+counterpart of the JAX flag's virtual CPU devices).
+
+Across processes: in a data-parallel run the ``data`` axis spans processes,
+one process a row, joined by a ``torch.distributed`` group
+(:mod:`sskd_tpu_torch.parallel.distributed`, ``initialize_distributed``);
+row ``r`` holds rank ``r``'s device (``process_mesh``), and only a rank's
+own row is read by it. The ``index`` axis stays inside a process.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -56,6 +61,13 @@ def same_device(a: str | torch.device, b: str | torch.device) -> bool:
         return True
     current = torch.cuda.current_device()
     return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device (a nothing context for
+    the CPU): the kernels launched under it run on that device's current
+    stream, as a shard's must."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def mesh_shape_for(

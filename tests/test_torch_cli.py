@@ -7,6 +7,7 @@ build / validate, export and doctor run end to end; what is not ported
 exits nonzero with a message."""
 
 import json
+import logging
 import re
 import shutil
 import warnings
@@ -28,6 +29,23 @@ from sskd_tpu_torch.models.student import StudentModel
 ROOT = Path(__file__).resolve().parent.parent
 DEMO = ROOT / "artifacts" / "demo"
 CPU = ["--platform", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_logging_restored():
+    """``main`` configures the port's logging as a command does (its own
+    handlers on the stream of the test that ran it, no propagation); later
+    test files in this process get the logging they would have had without
+    this one (a caplog there sees the port's records again)."""
+    yield
+    from sskd_tpu_torch.utils import logging as port_logging
+
+    port_logging._stop_listener()
+    logger = logging.getLogger("sskd_tpu_torch")
+    logger.handlers.clear()
+    logger.propagate = True
+    logger.setLevel(logging.NOTSET)
+    port_logging._CONFIGURED = False
 
 
 def _run(fn, argv, capsys):
@@ -170,12 +188,16 @@ def test_index_build_validate_doctor_and_export(flow, capsys):
     # sharded serving is ported; a mesh the devices cannot hold (one CPU
     # entry without --cpu-devices) exits before the server starts
     (["serve", "--shards", "2"] + CPU, "must divide device count 1"),
-    (["train", "--data-parallel", "2"] + CPU, "Queue 1 item 7"),
+    # data-parallel training is ported: on CUDA it needs a card a process
+    # (the test makes the machine hold one), checked before any work
+    (["train", "--data-parallel", "2"], "this machine has 1"),
     # --cpu-devices runs on the CPU: it cannot go with another platform
     (["config", "--cpu-devices", "8", "--platform", "cuda"], "--cpu-devices"),
     (["config", "--platform", "tpu"], "tpu"),
 ], ids=["shards", "data-parallel", "cpu-devices", "tpu"])
-def test_what_is_not_ported_exits_nonzero(capsys, argv, says):
+def test_what_is_not_ported_exits_nonzero(monkeypatch, capsys, argv, says):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     rc = main(argv)
     err = capsys.readouterr().err
     assert rc == 2 and "error" in err and says in err

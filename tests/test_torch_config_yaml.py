@@ -120,13 +120,14 @@ def test_yaml_outside_the_subset_raises(text):
 
 def test_mesh_of_one_device_loads_and_more_raises():
     """A mesh of one data-parallel device loads, an index sharded over more
-    devices too (sharded serving is ported); more data-parallel devices
-    raise, naming what is left of Queue 1 item 7."""
+    devices too, and more data-parallel devices (data-parallel training is
+    ported); below -1 raises, as the JAX package's bound does."""
     assert Settings.from_yaml(ROOT / "configs" / "index.yaml").mesh.data_parallel == 1
     assert Settings.from_dict({"mesh": {"data_parallel": -1}}).mesh.index_parallel == 1
     assert Settings.from_dict({"mesh": {"index_parallel": 4}}).mesh.index_parallel == 4
-    with pytest.raises(ConfigError, match="Queue 1 item 7"):
-        Settings.from_dict({"mesh": {"data_parallel": 2}})
+    assert Settings.from_dict({"mesh": {"data_parallel": 2}}).mesh.data_parallel == 2
+    with pytest.raises(ConfigError, match="data_parallel=-2"):
+        Settings.from_dict({"mesh": {"data_parallel": -2}})
 
 
 @pytest.mark.parametrize("bad", [

@@ -118,6 +118,7 @@ def test_training_path_imports_without_the_jax_package_dependencies():
     "sskd_tpu_torch.keys", "sskd_tpu_torch.models.export", "sskd_tpu_torch.serve.cache",
     "sskd_tpu_torch.serve.hybrid", "sskd_tpu_torch.serve.openapi",
     "sskd_tpu_torch.serve.supervisor", "sskd_tpu_torch.utils.tracing",
+    "sskd_tpu_torch.parallel.tp", "sskd_tpu_torch.parallel.distributed",
 ])
 def test_cli_and_serving_extras_import_without_the_jax_package_dependencies(module):
     """The command line and what it reaches: no pyyaml for the YAML settings,

@@ -32,6 +32,7 @@ from sskd_tpu_torch.data.parquet import read_parquet
 from sskd_tpu_torch.exceptions import ConfigError, DataError
 from sskd_tpu_torch.models.bert import BertConfig
 from sskd_tpu_torch.models.student import StudentModel
+from sskd_tpu_torch.parallel.mesh import create_mesh
 
 DEMO = Path(__file__).resolve().parents[1] / "artifacts" / "demo"
 N_ROWS = 8  # rows of each raw split
@@ -151,7 +152,10 @@ def test_pipeline_refuses_what_the_port_does_not_do(tmp_path):
     with pytest.raises(DataError, match="network"):
         t_pipeline.run_train_pipeline(settings, data_dir=tmp_path, dataset="msmarco",
                                       device="cpu")
-    with pytest.raises(ConfigError, match="mesh"):
-        t_pipeline.run_train_pipeline(settings, data_dir=tmp_path, mesh=object(), device="cpu")
+    # data parallelism is ported: a mesh whose data axis this run's one
+    # process does not make up is refused before any work
+    mesh = create_mesh(data_parallel=2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ConfigError, match="mesh axis 'data' has 2 entries"):
+        t_pipeline.run_train_pipeline(settings, data_dir=tmp_path, mesh=mesh, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         t_pipeline.run_train_pipeline(settings, data_dir=_inputs(tmp_path / "c"))

@@ -442,10 +442,16 @@ def test_ance_refresh_is_called_at_epoch_boundaries(tok, tmp_path):
 
 
 def test_mesh_and_data_parallel_raise(tok):
-    with pytest.raises(ConfigError, match="Queue 1 item 7"):
-        KDTrainer(_student(tok), mesh=object())
-    with pytest.raises(ConfigError, match="Queue 1 item 7"):
-        Settings.from_dict({"mesh": {"data_parallel": 8}})
+    """Data-parallel training runs one process per data-axis entry: a data
+    axis larger than the world size (1 without a process group) raises,
+    naming both numbers and how to start the processes; ``mesh.data_parallel``
+    8 loads."""
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(data_parallel=2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ConfigError, match="2 entries but this run has 1 process.*--data-parallel"):
+        KDTrainer(_student(tok), mesh=mesh)
+    assert Settings.from_dict({"mesh": {"data_parallel": 8}}).mesh.data_parallel == 8
 
 
 @pytest.mark.parametrize("bad", [
