@@ -88,7 +88,14 @@ Phases, each fatal when it fails:
              backward on the three-pass kernel (dropattn_bwd_tc_3pass_kernel)
              beside the kernel it replaced (dropattn_bwd_tc_kernel<16>,
              whose bits it gives) and the streaming route, each within its
-             bound, and their device times:
+             bound, and their device times; flash_attn_fwd in bf16 at
+             [256, 4, 512, 16] (a ragged mask, a row with no live key),
+             [64, 4, 200, 16] and [1, 4, 512, 16] on its tensor-core route
+             (flash_fwd_tc2_kernel<16, 2, 4>), one launch a call at d = 16,
+             bitwise repeatable, within its rounding bound, its time beside
+             the CUDA-core kernel the route took before (built from
+             tools/flash_d16_variants.cuh beside the product), SDPA, the
+             byte bound and the exp floor, with both kernels' registers:
              error, time per launch (CUDA events, and on the card alone from
              the profiler for the top-k, cell and d = 64 attention kernels),
              the bound and yardsticks that the port never calls;
@@ -257,14 +264,19 @@ Phases, each fatal when it fails:
              negatives equal run_kd/mined_stage2.json (ids; scores within
              1e-4 (1 + |s|), order only among near ties), every loss finite,
              every dropattn_fwd launch of the f32 student on the tensor
-             cores, best_model reloaded, its nDCG@10 on test.jsonl above the
+             cores, the [B, h, L, d] of every dropattn launch recorded (the
+             commonest timed alone), best_model reloaded, its nDCG@10 on test.jsonl above the
              vanilla init's (reported with MRR@10, recall@10 and nDCG@20
              beside the JAX files and the gate, which is not enforced); (b)
              the --tiny defaults: 48 generated demo rows prepared and
              checked by require_integrity, stage 3 with BertConfig.tiny (the
              student bf16, every dropattn launch at d = 16 on the tensor
              cores, every backward that holds its head on
-             dropattn_bwd_tc_3pass_kernel), then 4 TeacherTrainer steps of the tiny teacher in f32
+             dropattn_bwd_tc_3pass_kernel), the trained student's bf16
+             encode of 256 passages of at least 512 tokens (2 flash launches
+             at [256, 4, 512, 16], on the tensor cores; every embedding's
+             cosine with the checkpoint's on the CPU >= 0.999; docs/s),
+             then 4 TeacherTrainer steps of the tiny teacher in f32
              (d = 16: tensor-core forward, streaming backward); (c) full width
              (e5-small-v2 bf16, bge-reranker-large f32, seeded, vocabulary
              fitted to the corpus) at stage 3 over 128 queries, bm25 top
@@ -1871,7 +1883,7 @@ DROPATTN_D16_CASES = (((256, 4, 192, 16), torch.bfloat16), ((32, 4, 64, 16), tor
                       ((32, 4, 64, 16), torch.float32))
 
 
-def phase_attention16(gen, build: dict) -> tuple[list, dict]:
+def phase_attention16(gen, build: dict, probe) -> tuple[list, dict]:
     """dropattn_fwd / dropattn_bwd at head dim 16 against their plain
     versions (DROPATTN_D16_CASES), p in {0, 0.1}: bf16 on the tensor cores
     (dropattn_fwd_tc_kernel<16>, the resident dropattn_bwd_tc_kernel<16>),
@@ -1880,8 +1892,10 @@ def phase_attention16(gen, build: dict) -> tuple[list, dict]:
     kernels' keep-mask equal to the plain one bit for bit, the backward
     bitwise equal over two launches, bf16 within dropattn_*_error_bound and
     f32 within 1e-5 (1 + |want|); times beside SDPA with dropout and its
-    backward, and the bounds. Returns the rows and the main entries (the
-    bf16 doc tower's shape, the f32 teacher's)."""
+    backward, and the bounds; then flash in bf16 (flash_d16_case, the
+    CUDA-core kernel it replaced from ``probe``). Returns the rows and the
+    main entries (the bf16 doc tower's shape, the f32 teacher's, flash at
+    [256, 4, 512, 16])."""
     from sskd_tpu_torch.ops import attention as ta
 
     rows, main = [], {}
@@ -1967,50 +1981,103 @@ def phase_attention16(gen, build: dict) -> tuple[list, dict]:
             rows.append(entry)
             log(f"[kernels] {json.dumps(entry)}")
         del q, k, v, g
-    rows.append(flash_d16_case(gen.initial_seed() + 2))
+    flash = flash_d16_case(gen.initial_seed() + 2, build, probe)
+    rows.append(flash)
+    main["flash_attn_fwd.d16"] = {key: flash[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "kernel_device_ms", "cuda_core_kernel_device_ms")}
     return rows, main
 
 
-def flash_d16_case(seed: int) -> dict:
-    """flash_attn_fwd in bf16 at head dim 16, the one flash route left on the
-    CUDA cores (flash_fwd_kernel; the --tiny models' encode at L = 512), at
-    [256, 4, 512, 16] with a ragged key mask: within flash_error_bound of the
-    plain version, its time beside the plain version's, SDPA's, the byte
-    bound and the exp floor. Its inputs come from a generator of their own."""
+def probe_module(name: str):
+    """tools/<name>.py loaded as a module (tools/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# flash in bf16 at head dim 16: the tiny models' encode shape with a ragged
+# mask and a row with no live key, a ragged last tile (L = 200) and B = 1
+FLASH_D16_CASES = ((256, 512), (64, 200), (1, 512))
+
+
+def flash_d16_case(seed: int, build: dict, probe) -> dict:
+    """flash_attn_fwd in bf16 at head dim 16 on its tensor-core route
+    (flash_fwd_tc2_kernel<16, 2, 4>; the --tiny models' encode at L = 512),
+    FLASH_D16_CASES with ragged key masks (from B = 3 the second row with
+    no live key): one tensor-core launch a call counted at d = 16, within
+    flash_error_bound of the plain version, the same bits over two launches;
+    at [256, 4, 512, 16] its time beside the plain version's, SDPA's, the
+    CUDA-core kernel's that the route took before (flash_fwd_kernel, built
+    from tools/flash_d16_variants.cuh by ``probe``: tools/probe_flash16.py's
+    start_build, started with the build phase), the byte bound and the exp
+    floor, and ptxas's registers and spills of both. Its inputs come from a
+    generator of their own. Returns the [256, 4, 512, 16] entry with the
+    other cases under "cases"."""
     from sskd_tpu_torch.ops import attention as ta
 
+    flash16 = probe_module("probe_flash16")
+    old_fn, old_ptxas = flash16.load(probe)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, h, L, d = 256, 4, 512, 16
-    q, k, v = (torch.randn(B, h, L, d, device="cuda", generator=g).to(torch.bfloat16)
-               for _ in range(3))
-    lens = torch.randint(L // 8, L + 1, (B,), device="cuda", generator=g)
-    lens[0] = L
-    mask = (torch.arange(L, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
-    route = ta.flash_route(q.dtype, d)
-    check(route == "cuda_core", f"flash bf16 d=16: route {route}")
-    before = (ta.flash_attention.launches, ta.flash_attention.tc_launches)
-    got = ta.flash_attention(q, k, v, mask)
-    check((ta.flash_attention.launches, ta.flash_attention.tc_launches)
-          == (before[0] + 1, before[1]), "flash bf16 d=16: not one CUDA-core launch")
-    want = ta.flash_attention_plain(q, k, v, mask)
-    torch.cuda.synchronize()
-    diff = (got.float() - want.float()).abs()
-    slack = (diff / ta.flash_error_bound(q, k, v, mask, got, want)).max().item()
-    check(slack <= 1.0, f"flash_attn_fwd bf16 d=16: {slack:.3f} of its bound")
-    call = lambda: ta.flash_attention(q, k, v, mask)
-    keep = mask[:, None, None, :].bool()
-    b_ms, b_by = bound_ms(4 * B * h * L * d * 2 + B * L * 4, 4.0 * B * h * L * L * d, "bf16")
-    entry = {
-        "kernel": "flash_attn_fwd", "dtype": "bf16", "shape": [B, h, L, d], "route": route,
-        "max_abs_err": diff.max().item(), "err_over_bound": slack, "ms": time_ms(call, 10),
-        "kernel_device_ms": kernel_device_ms(call, "flash_fwd_kernel", 8),
-        "plain_ms": time_ms(lambda: ta.flash_attention_plain(q, k, v, mask), 3, 1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
-                              10),
-        "exp_floor_ms": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
-    }
-    log(f"[kernels] {json.dumps(entry)}")
+    d, cases = 16, []
+    route = ta.flash_route(torch.bfloat16, d)
+    check(route == "tc", f"flash bf16 d=16: route {route}")
+    for B, L in FLASH_D16_CASES:
+        q, k, v, mask = flash16.inputs(B, L, "ragged", g)
+        h, tag = q.shape[1], f"flash bf16 d=16 [{B}, 4, {L}, 16]"
+        before = (ta.flash_attention.launches, ta.flash_attention.tc_launches,
+                  ta.flash_attention.head_dim_launches.get(d, 0))
+        got = ta.flash_attention(q, k, v, mask)
+        check((ta.flash_attention.launches, ta.flash_attention.tc_launches,
+               ta.flash_attention.head_dim_launches[d])
+              == (before[0] + 1, before[1] + 1, before[2] + 1),
+              f"{tag}: not one tensor-core launch at d = 16")
+        check(torch.equal(got, ta.flash_attention(q, k, v, mask)), f"{tag}: launches differ")
+        want = ta.flash_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        slack = (diff / ta.flash_error_bound(q, k, v, mask, got, want)).max().item()
+        check(slack <= 1.0, f"{tag}: {slack:.3f} of its bound")
+        case = {"shape": [B, h, L, d], "max_abs_err": diff.max().item(), "err_over_bound": slack,
+                "no_live_key_rows": int((mask.sum(dim=1) == 0).sum().item()),
+                "bitwise_repeatable": True}
+        if (B, L) != FLASH_D16_CASES[0]:
+            cases.append(case)
+            log(f"[kernels] {tag}: {json.dumps(case)}")
+            continue
+        old_out = torch.empty_like(q)
+        old_call = flash16.launcher(old_fn, flash16.VARIANTS["cuda_core"], q, k, v, mask, old_out)
+        old_call()
+        torch.cuda.synchronize()
+        old_slack = ((old_out.float() - want.float()).abs()
+                     / ta.flash_error_bound(q, k, v, mask, old_out, want)).max().item()
+        check(old_slack <= 1.0, f"{tag}: the CUDA-core kernel at {old_slack:.3f} of its bound")
+        call = lambda: ta.flash_attention(q, k, v, mask)  # noqa: E731
+        keep = mask[:, None, None, :].bool()
+        b_ms, b_by = bound_ms(4 * B * h * L * d * 2 + B * L * 4, 4.0 * B * h * L * L * d, "bf16")
+        entry = {
+            "kernel": "flash_attn_fwd", "dtype": "bf16", "route": route, **case,
+            "ms": time_ms(call, 10),
+            "kernel_device_ms": kernel_device_ms(call, "flash_fwd_tc2_kernel<16", 8),
+            "cuda_core_kernel_device_ms": kernel_device_ms(old_call, "flash_fwd_kernel", 8),
+            "cuda_core_err_over_bound": old_slack,
+            "plain_ms": time_ms(lambda: ta.flash_attention_plain(q, k, v, mask), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_bound_ms": (4 * B * h * L * d * 2 + B * L * 4) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 10),
+            "library_device_ms": stream_device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep), 8),
+            "exp_floor_ms": B * h * L * L / (16 * SM_COUNT * SM_CLOCK_HZ) * 1e3,
+            "ptxas": {**ptxas_of(build, "flash_attn", "tc2_kernelILi16"),
+                      **{n: i for n, i in old_ptxas.items() if "flash_fwd_kernel" in n}},
+        }
+        log(f"[kernels] {tag}: {json.dumps(entry)}")
+        del old_out
+    entry["cases"] = cases
     return entry
 
 
@@ -5183,6 +5250,56 @@ def pipeline_probe():
         del probe["marks"]
 
 
+@contextlib.contextmanager
+def dropattn_shapes():
+    """While open: the [B, h, L, d] of every dropattn_fwd and dropattn_bwd
+    launch of the training path (ops.attention._DropoutAttention), with
+    their counts. Yields {"dropattn_fwd": {"BxhxLxd": n}, "dropattn_bwd":
+    {...}}."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    seen = {"dropattn_fwd": {}, "dropattn_bwd": {}}
+    cls = ta._DropoutAttention
+    fwd, bwd = cls.forward, cls.backward
+
+    def tally(name, t):
+        key = "x".join(str(n) for n in t.shape)
+        seen[name][key] = seen[name].get(key, 0) + 1
+
+    def forward(ctx, q, *rest):
+        tally("dropattn_fwd", q)
+        return fwd(ctx, q, *rest)
+
+    def backward(ctx, g):
+        tally("dropattn_bwd", g)
+        return bwd(ctx, g)
+
+    cls.forward, cls.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield seen
+    finally:
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+def dropattn_shape_times(shape: str, p: float = 0.1) -> dict:
+    """The device ms of one f32 dropattn_fwd and one dropattn_bwd launch at
+    ``shape`` ("BxhxLxd", seeded inputs, no padding), CUDA events behind a
+    held stream, with each one's route."""
+    from sskd_tpu_torch.ops import attention as ta
+
+    B, h, L, d = (int(n) for n in shape.split("x"))
+    g = torch.Generator(device="cuda").manual_seed(B + L)
+    q, k, v, go = (torch.randn(B, h, L, d, device="cuda", generator=g) for _ in range(4))
+    bias = torch.zeros(B, L, device="cuda")
+    _, lse = ta.dropattn_fwd(q, k, v, bias, p, 5)
+    return {"shape": [B, h, L, d], "p": p,
+            "fwd_route": ta.dropattn_fwd_route(q.dtype, d, L),
+            "bwd_route": ta.dropattn_bwd_route(q.dtype, d, L),
+            "fwd_device_ms": stream_device_ms(lambda: ta.dropattn_fwd(q, k, v, bias, p, 5), 8),
+            "bwd_device_ms": stream_device_ms(
+                lambda: ta.dropattn_bwd(q, k, v, bias, p, 5, lse, go), 8)}
+
+
 def finite_losses(result: dict) -> int:
     """Checks every loss term of every epoch record is finite; returns how
     many there were."""
@@ -5245,7 +5362,7 @@ def pipeline_demo(work: Path) -> dict:
     recipe = dict(DEMO_RECIPE, student={"model_name": str(DEMO / "vanilla")},
                   teacher={"model_name": str(DEMO / "teacher")})
     reset_launch_counts()
-    with pipeline_probe() as probe:
+    with pipeline_probe() as probe, dropattn_shapes() as shapes:
         result = run_train_pipeline(Settings.from_dict(recipe), data_dir=work / "data",
                                     output_dir=work / "run_kd", dataset="demo",
                                     dev_data=raw / "validation.jsonl", device="cuda")
@@ -5256,12 +5373,18 @@ def pipeline_demo(work: Path) -> dict:
     want = json.loads((DEMO / "run_kd" / "mined_stage2.json").read_text())
     out = {"mined_vs_file": mined_vs_file(mined, want), "losses": finite_losses(result),
            "global_step": result["global_step"], "best_dev_ndcg@10": result["best_metric"],
-           "launches": launches, "head_dim_launches": by_d, "tc_launches": tc, **probe}
+           "launches": launches, "head_dim_launches": by_d, "tc_launches": tc,
+           "dropattn_shapes": shapes, **probe}
+    check(sum(shapes["dropattn_fwd"].values()) == launches["dropattn_fwd"]
+          and sum(shapes["dropattn_bwd"].values()) == launches["dropattn_bwd"],
+          f"the demo run's dropattn shapes {shapes} do not sum to its launches {launches}")
     check(by_d["dropattn_fwd"].get(32, 0) > 0 and by_d["dropattn_bwd"].get(32, 0) > 0,
           f"the demo student (head dim 32) launched no dropattn kernel: {by_d}")
     # the student computes in f32: every forward on dropattn_fwd_tc_tf32_kernel<32>
     check(tc["dropattn_fwd"] == launches["dropattn_fwd"],
           f"a dropattn_fwd launch of the demo run left the tensor cores: {tc}, {by_d}")
+    out["top_shape"] = dropattn_shape_times(max(shapes["dropattn_bwd"],
+                                                key=shapes["dropattn_bwd"].get))
     best = StudentModel(str(work / "run_kd" / "best_model"), device="cuda")
     inputs = load_eval_inputs(DEMO_TEST, 600)
     kd = KDEvaluator(device="cuda").evaluate_retrieval(best, *inputs)
@@ -5289,7 +5412,8 @@ def pipeline_tiny(work: Path) -> dict:
     max_len 64, the corpus-fitted vocabulary). Every dropattn launch of the
     student at d = 16 on the tensor cores, the teacher's forward on the
     tensor cores too (dropattn_fwd_tc_tf32_kernel<16>) and its backward
-    streaming."""
+    streaming. Between the two, the trained student's encode at L = 512
+    (tiny_encode_512: flash at d = 16 on the tensor cores)."""
     from dataclasses import replace
 
     from sskd_tpu_torch.cli.pipeline import run_train_pipeline
@@ -5335,8 +5459,10 @@ def pipeline_tiny(work: Path) -> dict:
                                                  for k, v in manifest["splits"].items()},
            "losses": finite_losses(result), "global_step": result["global_step"],
            "student_launches": student, **probe}
-    # train-teacher --tiny: the corpus-fitted vocabulary, 4 steps in f32
     triples = triples_from_raw(data / "raw" / "demo" / "train.jsonl")
+    out["encode_512"] = tiny_encode_512(work / "run" / "best_model",
+                                        sorted({d for _, d, _ in triples}))
+    # train-teacher --tiny: the corpus-fitted vocabulary, 4 steps in f32
     texts = sorted({q for q, _, _ in triples} | {d for _, d, _ in triples})
     tok = WordPieceTokenizer.build_from_corpus(texts, vocab_size=2048)
     teacher = TeacherModel("tiny-teacher", device="cuda", tokenizer=tok,
@@ -5354,12 +5480,62 @@ def pipeline_tiny(work: Path) -> dict:
     check(math.isfinite(tr["final_loss"]), f"the tiny teacher's loss {tr['final_loss']}")
     out["teacher"] = {"steps": tr["steps"], "final_loss": tr["final_loss"],
                       "seconds": time.perf_counter() - t0, "launches": f32}
-    out["d16_launches"] = {"dropattn_fwd.d16": student["dropattn_fwd"],
+    out["d16_launches"] = {"flash_attn_fwd.d16": out["encode_512"]["flash_launches"],
+                           "dropattn_fwd.d16": student["dropattn_fwd"],
                            "dropattn_bwd.d16": student["dropattn_bwd"],
                            "dropattn_fwd.d16.f32": f32["dropattn_fwd"],
                            "dropattn_bwd.d16.f32": f32["dropattn_bwd"]}
     log(f"[pipeline] (b) tiny: {json.dumps(out)}")
     return out
+
+
+TINY_ENCODE_DOCS = 256  # passages of at least 512 tokens: one batch at L = 512
+
+
+def tiny_encode_512(checkpoint: Path, passages: list[str]) -> dict:
+    """The trained tiny student (bf16, as the --tiny run computes) encodes
+    TINY_ENCODE_DOCS passages of at least 512 tokens, each the corpus's
+    passages joined from a different start, through encode_documents: one
+    batch at L = 512, where each of its 2 layers takes flash at
+    [256, 4, 512, 16] on the tensor cores (flash_fwd_tc2_kernel<16, 2, 4>).
+    Checks the launches (2, each on the route and at d = 16) and each
+    embedding's cosine with the same checkpoint's on the CPU (plain
+    versions, bf16) at least 0.999; records the encode's docs/s."""
+    from sskd_tpu_torch.models.student import StudentModel
+    from sskd_tpu_torch.ops import attention as ta
+
+    student = StudentModel(str(checkpoint), device="cuda", compute_dtype=torch.bfloat16)
+    sizes = [len(student.tokenizer.tokenize(t)) for t in passages]
+    texts = []
+    for i in range(TINY_ENCODE_DOCS):
+        parts, n, j = [], 0, i
+        while n < 520:
+            parts.append(passages[j % len(passages)])
+            n += sizes[j % len(passages)]
+            j += 1
+        texts.append(" ".join(parts))
+    width = student.tokenize_batch([student.passage_prefix + t for t in texts])["input_ids"].shape
+    check(tuple(width) == (TINY_ENCODE_DOCS, 512), f"the tiny encode's batch is {width}")
+    before = (ta.flash_attention.launches, ta.flash_attention.tc_launches,
+              ta.flash_attention.head_dim_launches.get(16, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = student.encode_documents(texts, batch_size=TINY_ENCODE_DOCS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = [ta.flash_attention.launches - before[0], ta.flash_attention.tc_launches
+                - before[1], ta.flash_attention.head_dim_launches.get(16, 0) - before[2]]
+    layers = student.config.num_layers
+    check(launches == [layers] * 3, f"the tiny encode at L = 512: flash launches (all, tensor "
+          f"cores, d = 16) {launches}, want {layers} each")
+    cpu = StudentModel(str(checkpoint), device="cpu", compute_dtype=torch.bfloat16)
+    want = cpu.encode_documents(texts, batch_size=32)
+    cos = (got * want).sum(axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    check(got.shape == want.shape and bool(np.isfinite(got).all()) and cos.min() >= 0.999,
+          f"the tiny encode at L = 512 against the CPU: min cosine {cos.min()}")
+    return {"docs": TINY_ENCODE_DOCS, "L": 512, "flash_launches": launches[0],
+            "min_cosine_vs_cpu": float(cos.min()), "seconds": seconds,
+            "docs_per_s": TINY_ENCODE_DOCS / seconds}
 
 
 def pipeline_full(work: Path) -> dict:
@@ -5767,6 +5943,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     record: dict = {"seed": args.seed, "nvidia_smi": smi}
+    # the probe library holding the CUDA-core flash the d = 16 route replaced
+    # (tools/flash_d16_variants.cuh), compiled beside the product's sources
+    flash16_probe = probe_module("probe_flash16").start_build(ROOT / "build" / "chip_smoke_probe")
     record["build"] = phase_build()
     t0 = time.perf_counter()
     topk_rows, main_topk, bf16_topk, int4_topk = phase_topk(gen, N_ROWS)
@@ -5775,7 +5954,7 @@ def main(argv=None) -> int:
         gen, record["build"])
     cell_rows, main_cells, bf16_cells = phase_cells(gen)
     attn64_rows, main_d64 = phase_attention64(gen, record["build"])
-    attn16_rows, main_d16 = phase_attention16(gen, record["build"])
+    attn16_rows, main_d16 = phase_attention16(gen, record["build"], flash16_probe)
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     record["kernel_cases"] = (topk_rows + flash_rows + dropattn_rows + cell_rows + attn64_rows
                               + attn16_rows)
@@ -5898,9 +6077,11 @@ def main(argv=None) -> int:
          "sskd_tpu/ops/topk_pallas.py:167", eval_kernels["bin_gather.f32"], eval_launches),
         ("flash_attn_fwd.f32", "sskd_tpu_torch/csrc/flash_attn.cu",
          "sskd_tpu/ops/attention.py:43", eval_kernels["flash_attn_fwd.f32"], eval_launches),
-        # head dim 16, the pipeline's --tiny models: the bf16 student's KD run
-        # and the f32 teacher's train steps (both forwards on the tensor
-        # cores; the f32 backward streaming)
+        # head dim 16, the pipeline's --tiny models: the bf16 student's encode
+        # at L = 512 (flash), its KD run and the f32 teacher's train steps
+        # (both forwards on the tensor cores; the f32 backward streaming)
+        ("flash_attn_fwd.d16", "sskd_tpu_torch/csrc/flash_attn.cu",
+         "sskd_tpu/ops/attention.py:43", main_d16["flash_attn_fwd.d16"], tiny_launches),
         ("dropattn_fwd.d16", "sskd_tpu_torch/csrc/dropattn_fwd.cu",
          "sskd_tpu/ops/attention.py:266", main_d16["dropattn_fwd.d16"], tiny_launches),
         ("dropattn_bwd.d16", "sskd_tpu_torch/csrc/dropattn_bwd.cu",
@@ -5929,6 +6110,10 @@ def main(argv=None) -> int:
                 "ms", "kernel_device_ms", "kernel_device_ms_cold_l2", "bound_ms",
                 "cuda_core_kernel_device_ms")}
             kernels[-1]["cuda_core_kernel_device_ms"] = entry["cuda_core_kernel_device_ms"]
+        if name == "flash_attn_fwd.d16":  # the kernel the route took before, the same call
+            kernels[-1]["kernel"] = "flash_fwd_tc2_kernel<16, 2, 4>"
+            kernels[-1].update({n: entry[n] for n in (
+                "kernel_device_ms", "cuda_core_kernel_device_ms")})
         if name == "dropattn_bwd.d16":  # the kernel the route took before, the same call
             kernels[-1]["kernel"] = "dropattn_bwd_tc_3pass_kernel"
             kernels[-1].update({n: entry[n] for n in (

@@ -28,19 +28,22 @@
 // ms (the same products on the FMA 1.538 ms); at head dim 16 the bytes bound
 // the tiny models' lengths.
 //
-// Three routes, chosen by the wrapper (ops/attention.py flash_route) from
-// (dtype, d):
+// Two routes, chosen by the wrapper (ops/attention.py flash_route) from the
+// dtype, both on the tensor cores:
 //
-// 1. bf16, d in {32, 64}: flash_fwd_tc_kernel<32> and flash_fwd_tc2_kernel<64>,
-//    on the tensor cores (FlashAttention-2 shape). Query rows go in m-tiles
+// 1. bf16, d in {16, 32, 64}: flash_fwd_tc_kernel<32> and
+//    flash_fwd_tc2_kernel<D, MT, MINB> at 16 and 64, on the tensor cores
+//    (FlashAttention-2 shape). Query rows go in m-tiles
 //    of 16, whose q stays in registers as mma A fragments (D / 16 k-steps);
 //    a block has 4 warps, each owning one m-tile at d = 32 (64 rows) and two
 //    at d = 64 (128 rows, FlashAttention-2's shape for that head dim), where
 //    each K and V tile a block copies from L2 then serves twice the rows
 //    that it did at 64 (the copies bounded the 64-row kernel) and each K and
-//    V fragment a warp reads feeds both m-tiles, two blocks an SM.
+//    V fragment a warp reads feeds both m-tiles, two blocks an SM; at d = 16
+//    (the tiny models' encode at L = 512) the m-tiles and blocks an SM that
+//    tools/probe_flash16.py chose (FT16_MT, FT16_MINB).
 //    K and V tiles of 64 keys are double-buffered in shared memory by
-//    cp.async (rows padded to D + 8 bf16, 80 or 144 bytes, so ldmatrix reads
+//    cp.async (rows padded to D + 8 bf16, 48, 80 or 144 bytes, so ldmatrix reads
 //    them without bank conflicts). Per tile a warp computes S = q k^T with
 //    mma.sync m16n8k16 (f32 sums), runs the online softmax on the
 //    accumulator fragments, and feeds p, rounded to bf16, straight from
@@ -50,7 +53,10 @@
 //    whose 64 keys are all live (every tile of a full row) its exponent is
 //    one fma of the raw sum, with no mask applied; ops/attention.py
 //    flash_error_bound derives what that and the tensor cores' f32 sums add
-//    to the error. D = 32 is the code of the first tensor-core kernel.
+//    to the error. D = 32 is the code of the first tensor-core kernel. At
+//    d = 16 one ex2 a score is the highest floor: at [256, 4, 512, 16] 268 M
+//    of them at 16 a clock an SM take 0.064 ms, the bytes 0.020 and the
+//    products 0.017 at bf16's peak.
 // 2. f32, d in {16, 32, 64} (the teacher computes in f32, and so do the
 //    evaluator's student and the tiny models): flash_fwd_tc_tf32_kernel<D>,
 //    the same blocks and tiles with f32 rows padded to D + 4 floats (20, 36,
@@ -66,7 +72,7 @@
 //    is the A fragment of its p.v step when column 2tig is taken as k = tig
 //    and 2tig + 1 as k = tig + 4, so p stays in registers, and V is read as
 //    rows 2tig and 2tig + 1 (no bank conflict at a stride of D + 4:
-//    tests/test_torch_attention.py checks 16, 32 and 64). The softmax is the CUDA-core kernel's, in
+//    tests/test_torch_attention.py checks 16, 32 and 64). The softmax is the plain version's, in
 //    natural units: p = expf(s - m), nothing rounded but by the products.
 //    At d = 32 and 16 the head-dim-64 kernel itself won a probe of other
 //    schedules on an H100 (tools/probe_attention_f32.py, all of them the
@@ -79,11 +85,6 @@
 //    8-key tile at a time (within the noise, at 157 registers); two m-tiles
 //    a warp would pass the 255 registers a thread may hold. The CUDA-core
 //    kernel it replaced took 4.63 ms there and SDPA 5.90 ms.
-// 3. bf16 at d = 16: flash_fwd_kernel, the first kernel on CUDA cores (no
-//    path of the port launches it: the tiny models' lengths stay under
-//    FLASH_MIN_L): one block of 128 threads per (b*h, 128-query
-//    tile), a thread per query row, K and V tiles converted to f32 in shared
-//    memory and read as broadcasts.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -91,109 +92,14 @@
 #include <float.h>
 #include <math.h>
 
-#include "attn_common.cuh"
 #include "mma_common.cuh"
 
 namespace sskd {
 
-constexpr int FA_QB = 128;  // queries per block == threads per block
 constexpr float FA_NEG = -FLT_MAX / 2;
 
-template <typename T, int D, int KT>
-__global__ void __launch_bounds__(FA_QB) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ mask, T* __restrict__ out, int h, int L, int n_qt, float sm_scale) {
-  constexpr int VE = 16 / sizeof(T);
-  __shared__ __align__(16) float s_k[KT * D];
-  __shared__ __align__(16) float s_v[KT * D];
-  __shared__ int s_keep[KT];  // 1 keep, 0 masked, -1 past L
-
-  const int tid = threadIdx.x;
-  const long bh = blockIdx.x / n_qt;
-  const int qi = (blockIdx.x % n_qt) * FA_QB + tid;
-  const long b = bh / h;
-  const long head_off = bh * (long)L * D;
-  const bool has_q = qi < L;
-
-  float qr[D], acc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) { qr[c] = 0.f; acc[c] = 0.f; }
-  if (has_q) {
-#pragma unroll
-    for (int c = 0; c < D; c += VE) load_vec<T>(qr + c, q + head_off + (long)qi * D + c);
-  }
-  float m_i = FA_NEG, l_i = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += KT) {
-    __syncthreads();  // previous tile consumed
-    for (int i = tid; i < KT * D / VE; i += FA_QB) {
-      const int r = i / (D / VE), c = (i % (D / VE)) * VE;
-      const int kr = k0 + r;
-      if (kr < L) {
-        load_vec<T>(s_k + r * D + c, k + head_off + (long)kr * D + c);
-        load_vec<T>(s_v + r * D + c, v + head_off + (long)kr * D + c);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VE; ++e) { s_k[r * D + c + e] = 0.f; s_v[r * D + c + e] = 0.f; }
-      }
-    }
-    for (int r = tid; r < KT; r += FA_QB) {
-      const int kr = k0 + r;
-      s_keep[r] = kr < L ? (mask[b * L + kr] != 0 ? 1 : 0) : -1;
-    }
-    __syncthreads();
-
-    float s[KT];
-    float mx = FA_NEG;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(s_k + j * D + c);
-        dot = fmaf(qr[c], kv.x, dot);
-        dot = fmaf(qr[c + 1], kv.y, dot);
-        dot = fmaf(qr[c + 2], kv.z, dot);
-        dot = fmaf(qr[c + 3], kv.w, dot);
-      }
-      const int keep = s_keep[j];
-      s[j] = keep > 0 ? dot * sm_scale : (keep == 0 ? FA_NEG : -INFINITY);
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      const float pr = round_as(p, (const T*)nullptr);
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(s_v + j * D + c);
-        acc[c] = fmaf(pr, vv.x, acc[c]);
-        acc[c + 1] = fmaf(pr, vv.y, acc[c + 1]);
-        acc[c + 2] = fmaf(pr, vv.z, acc[c + 2]);
-        acc[c + 3] = fmaf(pr, vv.w, acc[c + 3]);
-      }
-    }
-    l_i = alpha * l_i + psum;
-    m_i = m_new;
-  }
-
-  if (has_q) {
-    const float denom = fmaxf(l_i, 1e-30f);
-    T* o = out + head_off + (long)qi * D;
-#pragma unroll
-    for (int c = 0; c < D; ++c) store_as(o + c, acc[c] / denom);
-  }
-}
-
-
 // ---------------------------------------------------------------------------
-// Route 1: bf16, d in {32, 64}, tensor cores
+// Route 1: bf16, d in {16, 32, 64}, tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int FT_KB = 64;  // keys per tile
@@ -201,7 +107,7 @@ constexpr int FT_KB = 64;  // keys per tile
 constexpr int FT_QB = 64;  // query rows per block: 4 warps x 16
 constexpr int FT_THREADS = FT_QB * 2;  // a warp per 16 query rows
 
-// D: the head dim, instantiated at 32 (d = 64 takes flash_fwd_tc2_kernel
+// D: the head dim, instantiated at 32 (d = 16 and 64 take flash_fwd_tc2_kernel
 // below: built on this template, the two-tile kernel cost d = 32 3-11 % in
 // tools/probe_attention64.py). Shared rows are padded to D + 8 bf16 (80
 // bytes: 5 units of 16 bytes, so ldmatrix's eight row addresses fall in
@@ -375,26 +281,39 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_kernel(
   }
 }
 
-// D = 64: a block of 4 warps owns 128 query rows, two 16-row m-tiles a warp
-// (FlashAttention-2's shape for this head dim), so each K and V tile a block
-// copies from L2 serves twice the rows that the 64-row kernel above serves
-// it (at 64 rows the copies bounded the kernel: tools/probe_attention64.py)
-// and each K and V fragment a warp reads from shared memory feeds both
-// m-tiles. Each row's arithmetic is the kernel's above, bit for bit.
-// Registers for two blocks an SM (230 of them); 55.8 KB of dynamic shared
-// memory (q, two stages of K and V, their keep flags).
-constexpr int FT2_MT = 2;                         // m-tiles a warp
-constexpr int FT2_QB = FT2_MT * FT_QB;            // query rows a block
-__host__ __device__ constexpr size_t ft2_smem_bytes(int d) {
-  return (size_t)(FT2_QB + 4 * FT_KB) * (d + 8) * 2 + 2 * FT_KB * 4;
+// MT 16-row m-tiles a warp, 4 warps: 64 MT query rows a block, so each K
+// and V tile a block copies from L2 serves MT times the rows that the 64-row
+// kernel above serves it, and each K and V fragment a warp reads from shared
+// memory feeds every m-tile. Each row's arithmetic is the kernel's above,
+// bit for bit. MINB blocks an SM bound the registers (__launch_bounds__).
+//
+// D = 64 at MT 2, MINB 2 (FlashAttention-2's shape for this head dim: at 64
+// rows a block the copies bounded the kernel, tools/probe_attention64.py):
+// 230 registers, 55.8 KB of dynamic shared memory (q, two stages of K and V,
+// their keep flags). D = 16 at MT 2, MINB 4: S takes one k-step, K read as
+// 16-d fragments (one ldmatrix_x4 covers two 8-key tiles), rows padded to 24
+// bf16 (48 bytes, three 16-byte units: ldmatrix's eight row addresses fall in
+// eight bank groups); 120 registers, 18.9 KB of shared memory, four blocks an
+// SM. Of eight schedules with the same bits (tools/probe_flash16.py on an
+// H100) it came first at [256, 4, 512, 16]: 0.155 ms on the card with a
+// ragged mask, 0.141 with every key live, against 0.164 / 0.149 for one
+// m-tile at eight blocks an SM (64 registers, 60 bytes of spill), 0.175 /
+// 0.161 for one m-tile at 88 registers (five blocks) and two at 131 (three),
+// 0.189 / 0.170 for four m-tiles (228), 0.788 for the CUDA-core kernel it
+// replaced and 0.283 for SDPA. One ex2 a score takes 0.064 ms of the SFU
+// there, the floor above the bytes' 0.020 ms.
+constexpr int FT2_MT = 2;                  // m-tiles a warp at D = 64
+constexpr int FT16_MT = 2, FT16_MINB = 4;  // at D = 16
+__host__ __device__ constexpr size_t ft2_smem_bytes(int d, int mt) {
+  return (size_t)(mt * FT_QB + 4 * FT_KB) * (d + 8) * 2 + 2 * FT_KB * 4;
 }
 
-template <int D>
-__global__ void __launch_bounds__(FT_THREADS, 2) flash_fwd_tc2_kernel(
+template <int D, int MT, int MINB>
+__global__ void __launch_bounds__(FT_THREADS, MINB) flash_fwd_tc2_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
     __nv_bfloat16* __restrict__ out, int h, int L, int n_qt, float scale_log2) {
-  constexpr int MT = FT2_MT, QB = FT2_QB;
+  constexpr int QB = MT * FT_QB;
   constexpr int LD = D + 8;
   constexpr unsigned CH = D / 8;  // 16-byte chunks a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -470,25 +389,42 @@ __global__ void __launch_bounds__(FT_THREADS, 2) flash_fwd_tc2_kernel(
     const __nv_bfloat16* sv = s_v + (t & 1) * FT_KB * LD;
     const float* keep = s_keep + (t & 1) * FT_KB;
 
-    // S = q k^T, 8 tiles of 8 keys, 32 d an ldmatrix, each K fragment into
-    // every m-tile of the warp
+    // S = q k^T, 8 tiles of 8 keys, each K fragment into every m-tile of the
+    // warp
     float s[MT][8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+    if constexpr (D == 16) {
+      // one k-step: matrices 0 and 1 are d 0-7 and 8-15 of keys 16 np .. + 7
+      // (b0, b1 of tile 2 np), matrices 2 and 3 the same of the next 8 keys
 #pragma unroll
-      for (int kc = 0; kc < D / 32; ++kc) {
+      for (int np = 0; np < 4; ++np) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, sk + (nt * 8 + mr) * LD + kc * 32 + mi * 8);
+        ldmatrix_x4(kb, sk + (np * 16 + (mi >> 1) * 8 + mr) * LD + (mi & 1) * 8);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][nt], qa[mt][2 * kc], kb[0], kb[1]);
-          mma_bf16(s[mt][nt], qa[mt][2 * kc + 1], kb[2], kb[3]);
+          mma_bf16(s[mt][2 * np], qa[mt][0], kb[0], kb[1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt][0], kb[2], kb[3]);
         }
       }
+    } else {
+      // 32 d an ldmatrix: matrix i is d 8 i .. 8 i + 7 of the tile's 8 keys
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int kc = 0; kc < D / 32; ++kc) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, sk + (nt * 8 + mr) * LD + kc * 32 + mi * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][nt], qa[mt][2 * kc], kb[0], kb[1]);
+            mma_bf16(s[mt][nt], qa[mt][2 * kc + 1], kb[2], kb[3]);
+          }
+        }
     }
     // The row max in log2 units. A tile whose 64 keys are all live (every
     // tile of a full row) needs no mask: its max is the max of the raw sums
@@ -687,7 +623,8 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_tf32_kernel(
         mma_3xtf32(s[nt], s_lo[nt], ah, al, kr[0], kr[4]);
       }
     }
-    // the scores in natural units, masked as flash_fwd_kernel masks them
+    // the scores in natural units: a masked key finfo(f32).min / 2, a slot
+    // past L -inf
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -759,6 +696,25 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_tc_tf32_kernel(
   }
 }
 
+// A launch of the bf16 multi-tile flash at head dim D. Its shared memory
+// passes 48 KB at d = 64: the attribute is set before each such launch.
+template <int D, int MT, int MINB>
+static int launch_tc2(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                      const int* mask, __nv_bfloat16* out, int B, int h, int L,
+                      float scale_log2, cudaStream_t s) {
+  constexpr size_t smem = ft2_smem_bytes(D, MT);
+  if constexpr (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(flash_fwd_tc2_kernel<D, MT, MINB>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+    if (rc != 0) return rc;
+  }
+  const int n_qt = (L + MT * FT_QB - 1) / (MT * FT_QB);
+  flash_fwd_tc2_kernel<D, MT, MINB><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
+      q, k, v, mask, out, h, L, n_qt, scale_log2);
+  return 0;
+}
+
 // A launch of the f32 tensor-core flash at head dim D. Its shared memory
 // passes 48 KB at d = 64: the attribute is set once, on the first launch.
 template <int D>
@@ -774,33 +730,11 @@ static int launch_tf32(const float* q, const float* k, const float* v, const int
   return 0;
 }
 
-template <typename T, int D, int KT>
-static void launch(const void* q, const void* k, const void* v, const int* mask, void* out,
-                   int B, int h, int L, float sm_scale, cudaStream_t stream) {
-  const int n_qt = (L + FA_QB - 1) / FA_QB;
-  const unsigned grid = (unsigned)((long)B * h * n_qt);
-  flash_fwd_kernel<T, D, KT><<<grid, FA_QB, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, h, L, n_qt, sm_scale);
-}
-
 }  // namespace sskd
 
 // C interface, loaded with ctypes.
-//   dtype 1 (bf16) at d = 16, the one mode left on the CUDA cores (every
-//   other (dtype, d) takes the tensor-core routes below; others are
-//   refused). q, k, v, out: [B, h, L, d] contiguous. mask: [B, L] int32.
-// Returns cudaGetLastError() after the launch.
-extern "C" int sskd_flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   const int* mask, void* out, int B, int h, int L, int d,
-                                   float sm_scale, void* stream) {
-  using namespace sskd;
-  if (B <= 0 || h <= 0 || L <= 0 || dtype != 1 || d != 16) return (int)cudaErrorInvalidValue;
-  launch<__nv_bfloat16, 16, 64>(q, k, v, mask, out, B, h, L, sm_scale, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
-}
-
-//   The tensor-core routes: dtype 1 (bf16) at d = 32 or 64, dtype 0 (f32) at
-//   d = 16, 32 or 64 (others are refused); q, k, v, out [B, h, L, d] contiguous, mask
+//   dtype 1 (bf16) or 0 (f32) at d = 16, 32 or 64, each on the tensor cores
+//   (others are refused); q, k, v, out [B, h, L, d] contiguous, mask
 //   [B, L] int32; sm_scale = 1 / sqrt(d) (the f32 route) and scale_log2 =
 //   log2(e) / sqrt(d) (the bf16 route), both in f32.
 extern "C" int sskd_flash_attn_fwd_tc(int dtype, const void* q, const void* k, const void* v,
@@ -814,15 +748,15 @@ extern "C" int sskd_flash_attn_fwd_tc(int dtype, const void* q, const void* k, c
     flash_fwd_tc_kernel<32><<<(unsigned)((long)B * h * n_qt), FT_THREADS, 0, s>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
         (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
-  } else if (dtype == 1 && d == 64) {
-    constexpr size_t smem = ft2_smem_bytes(64);
-    const int rc = (int)cudaFuncSetAttribute(
-        flash_fwd_tc2_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  } else if (dtype == 1 && (d == 16 || d == 64)) {
+    const __nv_bfloat16* bq = (const __nv_bfloat16*)q;
+    const __nv_bfloat16* bk = (const __nv_bfloat16*)k;
+    const __nv_bfloat16* bv = (const __nv_bfloat16*)v;
+    __nv_bfloat16* bo = (__nv_bfloat16*)out;
+    const int rc =
+        d == 64 ? launch_tc2<64, FT2_MT, 2>(bq, bk, bv, mask, bo, B, h, L, scale_log2, s)
+                : launch_tc2<16, FT16_MT, FT16_MINB>(bq, bk, bv, mask, bo, B, h, L, scale_log2, s);
     if (rc != 0) return rc;
-    const int n_qt = (L + FT2_QB - 1) / FT2_QB;
-    flash_fwd_tc2_kernel<64><<<(unsigned)((long)B * h * n_qt), FT_THREADS, smem, s>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
-        (__nv_bfloat16*)out, h, L, n_qt, scale_log2);
   } else if (dtype == 0 && (d == 16 || d == 32 || d == 64)) {
     const float* fq = (const float*)q;
     const float* fk = (const float*)k;

@@ -19,8 +19,8 @@
   pipeline's ``--tiny`` models), 32 (the student's) and 64 (the teacher's).
   The forward is on the tensor cores for bf16 at head dims 16, 32 and 64
   while the head fits a block and for f32 at every head dim and L
-  (:func:`dropattn_fwd_route`), as flash is for every (dtype, head dim) but
-  bf16 at 16 (:func:`flash_route`); the backward is on the tensor cores at
+  (:func:`dropattn_fwd_route`), as flash is for every (dtype, head dim)
+  (:func:`flash_route`); the backward is on the tensor cores at
   every (dtype, head dim, L) it takes, a head held in shared memory
   (``"tc"``; for bf16 at head dim 16 without an [L, L] buffer, in three
   passes) or streamed through it (``"tc_stream"``,
@@ -136,11 +136,11 @@ DROPATTN_FWD_TC_MAX_L = {
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of :func:`flash_attention` launches: ``"tc"``
-    (tensor cores, csrc/flash_attn.cu: ``flash_fwd_tc_kernel`` /
-    ``flash_fwd_tc2_kernel`` for bf16 at head dims 32 and 64,
-    ``flash_fwd_tc_tf32_kernel<D>`` for f32 at head dims 16, 32 and 64, three
-    TF32 products a product), ``"cuda_core"`` (``flash_fwd_kernel``) for
-    bf16 at head dim 16 only.
+    (tensor cores, csrc/flash_attn.cu) for every (dtype, head dim) it takes:
+    ``flash_fwd_tc_kernel`` for bf16 at head dim 32,
+    ``flash_fwd_tc2_kernel<D, MT, MINB>`` for bf16 at head dims 16 and 64,
+    ``flash_fwd_tc_tf32_kernel<D>`` for f32 at head dims 16, 32 and 64
+    (three TF32 products a product). No flash runs on the CUDA cores.
 
     At the f32 encode shape [256, 12, 512, 32] the bytes take 0.240 ms at
     3.35 TB/s and the three TF32 passes 0.625 ms at TF32's 495 TFLOP/s (the
@@ -148,10 +148,11 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
     same bits (tools/probe_attention_f32.py) the head-dim-64 kernel's 4
     warps, each splitting the K and V values it reads into TF32 terms, came
     first; splitting each tile once for the block doubled its shared memory
-    and cost 13-45 %."""
-    if dtype == torch.float32:
-        return "tc"
-    return "tc" if d in (32, 64) else "cuda_core"
+    and cost 13-45 %. In bf16 at head dim 16 (the tiny models' encode at
+    [256, 4, 512, 16]) one ex2 a score is the floor, 0.064 ms on an H100,
+    above the bytes' 0.020 and the products' 0.017; tools/probe_flash16.py
+    chose the schedule."""
+    return "tc"
 
 
 def dropattn_fwd_route(dtype: torch.dtype, d: int, L: int) -> str:
@@ -354,22 +355,13 @@ def flash_attention(q, k, v, mask=None):
         if t.device != q.device:
             raise ValueError("q, k, v and mask must be on one device")
     out = torch.empty_like(q)
-    tc = flash_route(q.dtype, d) == "tc"
-    if tc:
-        fn = _fn("flash_attn", "sskd_flash_attn_fwd_tc", "i p p p p p i i i i f f p")
-        _build.check(
-            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, d,
-               1.0 / (d**0.5), _scale_log2(d), _stream(q)),
-            "flash_attn_fwd (tensor cores)",
-        )
-    else:
-        fn = _fn("flash_attn", "sskd_flash_attn_fwd", "i p p p p p i i i i f p")
-        _build.check(
-            fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, d,
-               1.0 / (d**0.5), _stream(q)),
-            "flash_attn_fwd",
-        )
-    _count(flash_attention, d, tc)
+    fn = _fn("flash_attn", "sskd_flash_attn_fwd_tc", "i p p p p p i i i i f f p")
+    _build.check(
+        fn(_DTYPES[q.dtype], *(_ptr(t) for t in (q, k, v, mask, out)), B, h, L, d,
+           1.0 / (d**0.5), _scale_log2(d), _stream(q)),
+        "flash_attn_fwd (tensor cores)",
+    )
+    _count(flash_attention, d, tc=True)
     return out
 
 

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from sskd_tpu.ops.attention import flash_attention as j_flash, xla_attention
 from sskd_tpu_torch.ops import attention as ta
-from torch_tc_emulation import flash_tc, flash_tf32, fragment_banks
+from torch_tc_emulation import flash_tc, flash_tf32, fragment_banks, ldmatrix_bank_groups
 
 
 def _qkv(seed, B, h, L, d):
@@ -62,10 +62,10 @@ def test_fully_masked_row_averages_values():
     torch.testing.assert_close(out[0, 0], v[0, 0].mean(dim=0).expand(8, 16), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_flash_error_bound_admits_rounding_and_catches_a_scale_fault(d):
-    """The bf16 bound the card's kernel is held to, at the student's and the
-    teacher's head dims: the plain result against one that skips the
+    """The bf16 bound the card's kernel is held to, at the tiny models', the
+    student's and the teacher's head dims: the plain result against one that skips the
     rounding of p lies inside it; a 2% scale fault does not."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(5, 2, 3, 96, d))
     mask = torch.from_numpy(_mask(5, 2, 96))
@@ -79,12 +79,12 @@ def test_flash_error_bound_admits_rounding_and_catches_a_scale_fault(d):
                      <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_jax_kernel(d):
     """The bf16 tensor-core route's arithmetic (truncating mma sums, the scale
     folded into one exp2, 64-key online tiles; tests/torch_tc_emulation.py)
     against the JAX flash kernel in interpret mode on the same bf16 inputs,
-    ragged L and a row with no live key included, at head dims 32 and 64:
+    ragged L and a row with no live key included, at head dims 16, 32 and 64:
     within flash_error_bound at every element, and a 2% scale fault of it is
     not."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(9, 3, 2, 200, d))
@@ -102,7 +102,7 @@ def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_jax_kernel(d):
                      <= ta.flash_error_bound(q, k, v, mask, faulty, want)).all())
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_tensor_core_flash_arithmetic_is_within_the_bound_of_the_plain_version(d):
     """The same bf16 arithmetic against flash_attention_plain (what the card
     holds the kernel to) at the teacher's scoring length, a half row and a
@@ -177,6 +177,19 @@ def test_f32_fragment_reads_hit_distinct_banks(d):
     and 64, as 68 does at 64: no read waits on another lane's."""
     for name, banks in fragment_banks(d).items():
         assert sorted(banks) == list(range(32)), name
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bf16_ldmatrix_rows_fall_in_distinct_bank_groups(d):
+    """At the bf16 kernels' row stride of d + 8 bf16 (24, 40, 72: 48, 80
+    and 144 bytes, an odd number of 16-byte units), the eight row addresses
+    of every 8 x 8 matrix an ldmatrix reads fall in eight distinct 16-byte
+    bank groups: no row of a matrix waits on another's. At d = 16 that is
+    the tensor-core flash's K (16-d fragments, two 8-key tiles an
+    ldmatrix_x4), q and V (ldmatrix.trans) reads."""
+    for (row0, col0), groups in ldmatrix_bank_groups(d).items():
+        assert sorted(groups) == list(range(8)), (row0, col0, groups)
+    assert ldmatrix_bank_groups(16)[(0, 0)] == [0, 3, 6, 1, 4, 7, 2, 5]
 
 
 def test_flash_checks_shapes():

@@ -100,3 +100,32 @@ def test_port_checkpoint_round_trip(nb_pair, tmp_path):
     again = StudentModel(str(tmp_path / "ckpt"), device="cpu")
     texts = ["round trip"]
     np.testing.assert_array_equal(again.encode(texts), ts.encode(texts))
+
+
+def test_tiny_student_bf16_at_512_matches_jax():
+    """The --tiny student in bf16 at L = 512, where the port's attention
+    takes flash (on the CPU its plain version; on the card the tensor-core
+    kernel at head dim 16), against the JAX StudentModel in bf16 on the same
+    parameters, carried over by bi_encoder_from_jax_params: 2 passages of
+    more than 512 tokens, cut to 512. Each embedding's cosine with JAX's is
+    at least 0.999 (bf16 rounding of two layers' products, each side its
+    own order)."""
+    import jax.numpy as jnp
+
+    from sskd_tpu.tokenization.wordpiece import WordPieceTokenizer as JTokenizer
+
+    rng = np.random.default_rng(11)
+    words = ("semantic search distillation teacher student passage query index "
+             "vector embedding score model training retrieval ranking").split()
+    texts = [" ".join(rng.choice(words, 600)) for _ in range(2)]
+    corpus = [" ".join(words), " ".join(chr(c) for c in range(33, 127))]
+    params = random_jax_params(BertConfig.tiny(), seed=5)
+    js = JStudent(config=JConfig.tiny(compute_dtype=jnp.bfloat16), params=params,
+                  tokenizer=JTokenizer.build_from_corpus(corpus, vocab_size=2048))
+    ts = StudentModel(device="cpu", config=BertConfig.tiny(compute_dtype=torch.bfloat16),
+                      params=params,
+                      tokenizer=WordPieceTokenizer.build_from_corpus(corpus, vocab_size=2048))
+    assert ts.tokenize_batch(texts)["input_ids"].shape == (2, 512)
+    want, got = js.encode_documents(texts), ts.encode_documents(texts)
+    cos = (got * want).sum(axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.999, cos

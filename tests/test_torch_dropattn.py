@@ -493,8 +493,8 @@ def test_routes_send_head_dim_64_to_the_tensor_cores():
     holds the head in a block while it fits (208 in bf16, 128 in f32) and
     streams it on the tensor cores past that ("tc_stream"), as it does for
     f32 at head dim 32 at every L: no backward is left on the CUDA cores,
-    and no f32 forward either. f32 flash takes the tensor cores at head dims
-    16, 32 and 64; only bf16 flash at 16 stays on the CUDA cores."""
+    and no f32 forward either. Flash takes the tensor cores at head dims
+    16, 32 and 64 in f32 and in bf16."""
     limits, fwd_limits = ta.DROPATTN_TC_MAX_L, ta.DROPATTN_FWD_TC_MAX_L
     assert limits[(torch.bfloat16, 64)] == 208 and limits[(torch.float32, 64)] == 128
     assert fwd_limits == {(torch.bfloat16, 16): 2256, (torch.bfloat16, 32): 1344,
@@ -523,7 +523,7 @@ def test_routes_send_head_dim_64_to_the_tensor_cores():
     assert ta.flash_route(torch.bfloat16, 64) == ta.flash_route(torch.float32, 64) == "tc"
     assert ta.flash_route(torch.bfloat16, 32) == "tc"
     assert ta.flash_route(torch.float32, 32) == ta.flash_route(torch.float32, 16) == "tc"
-    assert ta.flash_route(torch.bfloat16, 16) == "cuda_core"
+    assert ta.flash_route(torch.bfloat16, 16) == "tc"
     assert ta._DROPATTN_HEAD_DIMS == (16, 32, 64)
 
 

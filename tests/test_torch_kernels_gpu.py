@@ -97,6 +97,33 @@ def test_flash_matches_plain(dtype, L, d):
         assert diff.max().item() <= 2e-6
 
 
+@pytest.mark.parametrize("B", [4, 1])
+@pytest.mark.parametrize("L", [64, 200, 512, 520])  # 200, 520: a ragged last tile
+def test_flash_bf16_head_dim_16_tensor_core_route(L, B):
+    """bf16 flash at head dim 16 (the tiny models' encode) on its
+    tensor-core route: one launch counted on the route and at d = 16, rows
+    whole, half, one key and no live key (B = 4) or one whole row (B = 1),
+    within flash_error_bound of the plain version, the same bits over two
+    launches."""
+    _need_card()
+    assert ta.flash_route(torch.bfloat16, 16) == "tc"
+    g = torch.Generator(device="cuda").manual_seed(L + B)
+    q, k, v = (torch.randn(B, 4, L, 16, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([L, L // 2, 1, 0][:B], device="cuda")
+    mask = (torch.arange(L, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    before = (ta.flash_attention.tc_launches, ta.flash_attention.head_dim_launches.get(16, 0))
+    got = ta.flash_attention(q, k, v, mask)
+    assert (ta.flash_attention.tc_launches,
+            ta.flash_attention.head_dim_launches[16]) == (before[0] + 1, before[1] + 1)
+    want = ta.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    bound = ta.flash_error_bound(q, k, v, mask, got, want)
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+    assert torch.equal(got, ta.flash_attention(q, k, v, mask))
+
+
 def test_launch_counters_count_kernel_launches_only():
     from sskd_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -413,11 +440,11 @@ def test_dropattn_bwd_tensor_core_route_is_bitwise_repeatable():
 
 def test_attention_routes_and_their_counters():
     """Each call counts one launch; only the tensor-core routes count in
-    tc_launches: flash for bf16 at head dim 32 and f32 at every head dim,
-    the forward for bf16 at L <= 1344 and f32 at every L, the backward at
-    every L (bf16 at L <= 256 holding the head, f32 and longer L streaming
-    it, counted in stream_launches too); bf16 flash at head dim 16 and the
-    bf16 forward past its limit take the CUDA-core kernels."""
+    tc_launches: flash at every (dtype, head dim), the forward for bf16 at
+    L <= 1344 and f32 at every L, the backward at every L (bf16 at L <= 256
+    holding the head, f32 and longer L streaming it, counted in
+    stream_launches too); the bf16 forward past its limit takes the
+    CUDA-core kernel."""
     from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
@@ -433,7 +460,7 @@ def test_attention_routes_and_their_counters():
             ta.dropattn_bwd(q, k, v, bias, 0.1, 3, lse, go)
     torch.cuda.synchronize()
     counts, tc = launch_counts(), tc_launch_counts()
-    assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 2
+    assert counts["flash_attn_fwd"] == 3 and tc["flash_attn_fwd"] == 3
     assert counts["dropattn_bwd"] == 3 and tc["dropattn_bwd"] == 3
     assert ta.dropattn_bwd.stream_launches == 2  # f32 at 192, bf16 at 320
     assert counts["dropattn_fwd"] == 4 and tc["dropattn_fwd"] == 3
@@ -1129,8 +1156,9 @@ def test_dropattn_head_dim_64_is_bitwise_repeatable():
 
 def test_head_dim_routes_and_counters():
     """At head dim 64 flash and both dropattn kernels take the tensor cores
-    in bf16 and f32; at head dim 32 bf16 takes the tensor cores throughout;
-    the launches are counted by head dim and on the tensor-core route."""
+    in bf16 and f32; at head dims 32 and 16 bf16 takes the tensor cores
+    throughout; the launches are counted by head dim and on the tensor-core
+    route."""
     from sskd_tpu_torch.ops import head_dim_launch_counts, reset_launch_counts, tc_launch_counts
 
     _need_card()
@@ -1151,8 +1179,8 @@ def test_head_dim_routes_and_counters():
     by_d, tc = head_dim_launch_counts(), tc_launch_counts()
     assert by_d == {name: {32: 1, 64: 2, 16: 1}
                     for name in ("flash_attn_fwd", "dropattn_fwd", "dropattn_bwd")}
-    # flash at head dim 16 runs on the CUDA cores (flash_route)
-    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == 4 and tc["flash_attn_fwd"] == 3
+    # flash at head dim 16 runs on the tensor cores too (flash_route)
+    assert tc["dropattn_fwd"] == tc["dropattn_bwd"] == 4 and tc["flash_attn_fwd"] == 4
     reset_launch_counts()
     assert head_dim_launch_counts() == {"flash_attn_fwd": {}, "dropattn_fwd": {},
                                         "dropattn_bwd": {}}

@@ -581,6 +581,18 @@ def fragment_banks(d: int):
             "v": [(2 * (lane & 3) * ld + (lane >> 2)) % 32 for lane in range(32)]}
 
 
+def ldmatrix_bank_groups(d: int) -> dict:
+    """The 16-byte bank groups (eight to the 128 bytes the banks span) that
+    one 8 x 8 matrix of an ``ldmatrix`` in the bf16 kernels reads, by the
+    first row and column it starts at: its eight rows (row0 .. row0 + 7,
+    8 bf16 from column col0) at a row stride of d + 8 bf16, for every
+    matrix the kernels read (q's and V's at columns 0, 8, ... of 16-row
+    steps, K's at 8-key tiles)."""
+    ld = d + 8
+    return {(row0, col0): [((row0 + r) * ld * 2 + col0 * 2) // 16 % 8 for r in range(8)]
+            for row0 in range(0, 64, 8) for col0 in range(0, d, 8)}
+
+
 CELL_RUN = 8  # csrc/cell_gather.cu TC_RUN
 TC_TILE = 16  # csrc/gather_tc.cuh: rows a warp scores
 BIN_W = 128
