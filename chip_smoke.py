@@ -155,6 +155,7 @@ Phases, each fatal when it fails:
              refine) against its plain version (ids equal, scores equal,
              the exact engine within 1e-5); two shards on the one card
              against the single-device exact ids; ms per batch of each;
+             the exact index saved as sskd-sharded-1 for 7b (f);
 6. refine  — the same topical corpus (made once for both phases) built into
              five indexes, each saved and loaded: (a) int8 approx and (b) int4
              exact, both with refine_m 40 (bf16 refine rows), (c) bf16 exact,
@@ -226,6 +227,23 @@ Phases, each fatal when it fails:
              within 1e-4 (1 + |s|) of the unsharded ones, 24 flash_attn_fwd
              launches an L = 512 chunk a slice at d = 64, all on the tensor
              cores, the placement summary and ms per chunk of each;
+             (e) the index axis over the NCCL group of one rank: the serve
+             phase's 1M x 384 int8 exact index and the clustered phase's
+             int8 index on two entries of cuda:0 of a mesh over the group,
+             the candidates meeting in the group's all-gather, at B in
+             {1, 16, 64}: the exact ids the single-device engine's, the
+             clustered ids the same two shards' on a mesh of this process
+             (and over one group entry the single-device engine's), 0
+             mismatches, scores within 1e-6, every binmax, bin_gather and
+             cell_gather launch on the tensor cores, ms per batch beside the
+             one-process mesh's; (f) two gloo ranks (this script with
+             --shard-rank, each an entry of cuda:0; NCCL refuses two ranks
+             on one card) each loading its half of the sharded phase's
+             saved index: each rank's index memory about half the
+             one-process index's, its ids the single-device engine's at B in
+             {1, 16, 64}, its binmax and bin_gather launches on the tensor
+             cores, ms per batch of each rank and of the one-process
+             two-shard index;
 8. eval    — KDEvaluator on the card: (a) the JAX package's demo checkpoints
              (artifacts/demo/{run_kd/best_model, vanilla, teacher}), each
              read from its params.msgpack, over load_eval_inputs(test.jsonl,
@@ -2759,6 +2777,12 @@ def phase_sharded(args, emb: np.ndarray) -> dict:
     log(f"[sharded] every route at index_offset {half} gives the plain version's ids and "
         f"scores: {sorted(offset_record)}")
 
+    # --- the one-device exact index saved as sskd-sharded-1, for the
+    # distributed phase's ranks, each of which loads its own half ------------
+    t0 = time.perf_counter()
+    sharded["exact"].save(work / "sharded_index")
+    save_s = time.perf_counter() - t0
+
     # --- two shards on the one card: the sharded exact engine's merge -------
     mesh2 = create_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)
     two = ShardedIndex.from_builder(ex, mesh2)
@@ -2772,8 +2796,13 @@ def phase_sharded(args, emb: np.ndarray) -> dict:
     log(f"[sharded] two shards on one card ({two.rows_per_shard} rows each): the "
         f"single-device exact ids; ms per batch {json.dumps(two_ms)}")
     del sharded, two, builders
+    # the queries and the single-device results, for the distributed phase (not recorded)
+    reference = {"queries": np.asarray(q_emb, dtype=np.float32),
+                 "exact": {B: single["exact"][B][0] for B in SHARDED_BATCHES},
+                 "clustered": {B: single["clustered"][B][0] for B in SHARDED_BATCHES}}
     return {"build_seconds": build_s, "engines": engines, "offset_checks": offset_record,
-            "two_shards_ms_per_batch": two_ms, "launches": counts, "tc_launches": tc_counts}
+            "two_shards_ms_per_batch": two_ms, "launches": counts, "tc_launches": tc_counts,
+            "save_seconds": save_s, "reference": reference}
 
 
 TRAIN_QUERIES = 512  # 16 steps of 32 queries x 8 docs
@@ -4388,7 +4417,210 @@ def timed_train(trainer, samples, out_dir: Path) -> tuple[dict, list]:
     return result, [a.elapsed_time(b) for a, b in events]
 
 
-def phase_distributed(args) -> dict:
+# the kernels of the index axis over the group: the exact engine's pair and
+# the clustered engine's cell gather at B >= 16
+INDEX_AXIS_KERNELS = ("binmax", "bin_gather", "cell_gather")
+SHARD_RANK_TIMEOUT_S = 240  # both ranks of (f), start to exit
+
+
+def gap(got: tuple, want: tuple) -> tuple[int, float]:
+    """(mismatched ids, largest score gap) of two ``(scores, ids)`` results."""
+    return mismatched(got[1], want[1]), float(np.abs(got[0] - want[0]).max())
+
+
+def index_axis_world1(reference: dict) -> dict:
+    """(e) The index axis over the NCCL group of one rank: the serve phase's
+    1M x 384 int8 exact index and the clustered phase's int8 index, each
+    sharded over two entries on ``cuda:0`` of a mesh over the group (the
+    candidates meet in the group's all-gather), searched at
+    SHARDED_BATCHES. The exact ids are the single-device engine's; the
+    clustered index's two shards probe ``nprobe`` cells each, so its ids
+    are held against the same two shards on a mesh of this process alone,
+    and over one group entry against the single-device engine. Every
+    binmax, bin_gather and cell_gather launch on its tensor-core route;
+    ms per batch beside the one-process mesh's."""
+    from sskd_tpu_torch.index.builder import IndexBuilder
+    from sskd_tpu_torch.index.sharded import ShardedIndex
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+
+    work = ROOT / "build" / "chip_smoke"
+    cuda0 = torch.device("cuda", 0)
+    q = reference["queries"]
+    builders = {"exact": IndexBuilder(device="cuda").load(work / "index"),
+                "clustered": IndexBuilder(device="cuda").load(work / "clustered_index")}
+    group = {n: create_mesh(1, n, devices=[cuda0] * n, ranks=[0] * n) for n in (1, 2)}
+    local = create_mesh(1, 2, devices=[cuda0] * 2)
+    indexes = {(name, mesh_name): ShardedIndex.from_builder(b, mesh)
+               for name, b in builders.items()
+               for mesh_name, mesh in (("group", group[2]), ("local", local))}
+    indexes[("clustered", "group1")] = ShardedIndex.from_builder(builders["clustered"], group[1])
+    for (name, mesh_name), idx in indexes.items():
+        check(idx.over_group == mesh_name.startswith("group") and idx.stop - idx.first
+              == idx.n_shards, f"{name} over {mesh_name}: shards {idx.first}..{idx.stop}")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = {key: {B: indexes[key].search(q[:B], k=10) for B in SHARDED_BATCHES}
+           for key in (("exact", "group"), ("clustered", "group"), ("clustered", "group1"))}
+    torch.cuda.synchronize()
+    counts, tc_counts = launch_counts(), tc_launch_counts()
+    for kernel in INDEX_AXIS_KERNELS:
+        check(counts[kernel] > 0 and tc_counts[kernel] == counts[kernel],
+              f"(e) {kernel}: {counts[kernel]} launches, {tc_counts[kernel]} on the tensor cores")
+    local_got = {name: {B: indexes[(name, "local")].search(q[:B], k=10) for B in SHARDED_BATCHES}
+                 for name in builders}
+    checks = {}
+    for label, ours, theirs in (
+            ("exact vs single-device", got[("exact", "group")], reference["exact"]),
+            ("exact vs one-process mesh", got[("exact", "group")], local_got["exact"]),
+            ("clustered vs one-process mesh", got[("clustered", "group")], local_got["clustered"]),
+            ("clustered one entry vs single-device", got[("clustered", "group1")],
+             reference["clustered"])):
+        gaps = [gap(ours[B], theirs[B]) for B in SHARDED_BATCHES]
+        checks[label] = {"mismatched_ids": sum(g[0] for g in gaps),
+                         "max_score_gap": max(g[1] for g in gaps)}
+        check(checks[label]["mismatched_ids"] == 0 and checks[label]["max_score_gap"] <= 1e-6,
+              f"(e) {label}: {checks[label]}")
+    # two shards probe 2 x nprobe cells: not gated against one device's nprobe
+    info = [gap(got[("clustered", "group")][B], reference["clustered"][B])[0]
+            for B in SHARDED_BATCHES]
+    ms = {f"B={B}": {mesh_name: time_ms(lambda: indexes[("exact", mesh_name)].search(
+        q[:B], k=10), iters=10) for mesh_name in ("group", "local")} for B in SHARDED_BATCHES}
+    log(f"[distributed] (e) index axis over the NCCL group of 1, two entries on cuda:0: "
+        f"{json.dumps(checks)}; clustered two shards vs one device {info} ids differ; "
+        f"exact ms per batch {json.dumps(ms)}")
+    del indexes, builders
+    torch.cuda.empty_cache()
+    return {"checks": checks, "clustered_two_shards_vs_single_mismatches": info,
+            "exact_ms_per_batch": ms,
+            "launches": {k: counts[k] for k in (*INDEX_AXIS_KERNELS, "cell_gather_b1")},
+            "tc_launches": {k: tc_counts[k] for k in INDEX_AXIS_KERNELS}}
+
+
+def index_axis_two_ranks(reference: dict) -> dict:
+    """(f) Two ranks on the one card: NCCL refuses two ranks on one device,
+    so they join a gloo group and each places its index-axis entry on
+    ``cuda:0`` (``create_mesh(1, 2)`` over the group). Each is this script
+    run with ``--shard-rank`` (:func:`shard_rank_worker`) and loads its half
+    of the sharded phase's sskd-sharded-1 index; its index memory, its ids
+    at SHARDED_BATCHES against the single-device engine's, its binmax and
+    bin_gather launches (all on the tensor cores) and its ms per batch,
+    beside the one-process two-shard index over the same files."""
+    from sskd_tpu_torch.index.sharded import ShardedIndex
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+
+    work = ROOT / "build" / "chip_smoke"
+    ranks_dir = work / "two_ranks"
+    ranks_dir.mkdir(parents=True, exist_ok=True)
+    q = reference["queries"]
+    np.save(ranks_dir / "queries.npy", q)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    one = ShardedIndex(create_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)).load(
+        work / "sharded_index")
+    torch.cuda.synchronize()
+    one_bytes = torch.cuda.memory_allocated() - base
+    for B in SHARDED_BATCHES:
+        n_bad, score_gap = gap(one.search(q[:B], k=10), reference["exact"][B])
+        check(n_bad == 0 and score_gap <= 1e-6, f"(f) one process B={B}: {n_bad} ids differ")
+    one_ms = {f"B={B}": time_ms(lambda: one.search(q[:B], k=10), iters=10)
+              for B in SHARDED_BATCHES}
+    del one
+    torch.cuda.empty_cache()
+
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+                               f"{r},{port},{ranks_dir}"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=SHARD_RANK_TIMEOUT_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"(f) the two ranks did not finish within {SHARD_RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    check([p.returncode for p in procs] == [0, 0],
+          "(f) a rank failed:\n" + "\n".join(log_[-3000:] for log_ in logs))
+    ranks = [json.loads((ranks_dir / f"rank_{r}.json").read_text()) for r in (0, 1)]
+    for r, got in enumerate(ranks):
+        share = got["index_bytes"] / one_bytes
+        check(got["shards"] == [r, r + 1, 2] and got["over_group"],
+              f"(f) rank {r} holds shards {got['shards']}")
+        check(0.45 <= share <= 0.55, f"(f) rank {r} holds {share:.3f} of the index's memory")
+        for B in SHARDED_BATCHES:
+            n_bad, score_gap = gap((np.asarray(got["scores"][str(B)], np.float32),
+                                    np.asarray(got["ids"][str(B)], np.int32)),
+                                   reference["exact"][B])
+            check(n_bad == 0 and score_gap <= 1e-6,
+                  f"(f) rank {r} B={B}: {n_bad} ids differ, scores by {score_gap}")
+        for kernel in ("binmax", "bin_gather"):
+            check(got["launches"][kernel] > 0
+                  and got["tc_launches"][kernel] == got["launches"][kernel],
+                  f"(f) rank {r} {kernel}: {got['launches'][kernel]} launches, "
+                  f"{got['tc_launches'][kernel]} on the tensor cores")
+        got["index_share"] = share
+        del got["ids"], got["scores"]
+    log(f"[distributed] (f) two gloo ranks on cuda:0: each holds "
+        f"{[round(r['index_share'], 4) for r in ranks]} of the one-process index's "
+        f"{one_bytes} bytes, the single-device ids at B in {SHARDED_BATCHES}; ms per batch "
+        f"{[r['ms_per_batch'] for r in ranks]}, one process {json.dumps(one_ms)}; "
+        f"{wall:.1f} s with the ranks' start")
+    return {"one_process_index_bytes": one_bytes, "one_process_ms_per_batch": one_ms,
+            "ranks": ranks, "seconds": wall}
+
+
+def shard_rank_worker(rank: int, port: int, work: Path) -> int:
+    """One rank of (f): joins the gloo group of two, loads its half of the
+    sskd-sharded-1 index onto ``cuda:0``, searches the queries at
+    SHARDED_BATCHES in step with the other rank, and writes what it saw to
+    ``work/rank_R.json``."""
+    import torch.distributed as dist
+
+    from sskd_tpu_torch.index.sharded import ShardedIndex
+    from sskd_tpu_torch.ops import launch_counts, reset_launch_counts, tc_launch_counts
+    from sskd_tpu_torch.parallel.distributed import initialize_distributed
+    from sskd_tpu_torch.parallel.mesh import create_mesh
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cpu", timeout_s=120)
+    join_s = time.perf_counter() - t0
+    mesh = create_mesh(1, 2, device="cuda")
+    cuda0 = torch.device("cuda", 0)
+    check(mesh.ranks == ((0, 1),) and mesh.devices == ((cuda0, cuda0),),
+          f"rank {rank}: mesh {mesh}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    index = ShardedIndex(mesh).load(work.parent / "sharded_index")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    index_bytes = torch.cuda.memory_allocated() - base
+    q = np.load(work / "queries.npy")
+    reset_launch_counts()
+    got = {B: index.search(q[:B], k=10) for B in SHARDED_BATCHES}
+    torch.cuda.synchronize()
+    counts, tc_counts = launch_counts(), tc_launch_counts()
+    ms = {f"B={B}": time_ms(lambda: index.search(q[:B], k=10), iters=10)
+          for B in SHARDED_BATCHES}
+    out = {"rank": rank, "shards": [index.first, index.stop, index.n_shards],
+           "over_group": index.over_group, "join_seconds": join_s, "load_seconds": load_s,
+           "index_bytes": index_bytes, "rows_per_shard": index.rows_per_shard,
+           "ids": {str(B): v[1].tolist() for B, v in got.items()},
+           "scores": {str(B): v[0].tolist() for B, v in got.items()},
+           "launches": {k: counts[k] for k in ("binmax", "bin_gather")},
+           "tc_launches": {k: tc_counts[k] for k in ("binmax", "bin_gather")},
+           "ms_per_batch": ms}
+    (work / f"rank_{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_distributed(args, reference: dict) -> dict:
     """(a) ``initialize_distributed`` from the SSKD_* variables at world size
     1 on NCCL, an all-reduce and an all-gather of CUDA tensors; (b)
     ``KDTrainer(mesh=create_mesh(data_parallel=1))`` at full e5-small-v2
@@ -4397,7 +4629,10 @@ def phase_distributed(args) -> dict:
     at dropout 0.1 with the dropattn launches the code implies, on the
     tensor cores); (c) ``set_mesh`` encode against ``encode``; (d) the
     teacher phase's saved teacher, ``shard_tensor_parallel`` over a one-device
-    mesh and over two slices of the one card, against its unsharded scores."""
+    mesh and over two slices of the one card, against its unsharded scores;
+    (e) and (f) the index axis over the group (:func:`index_axis_world1`,
+    :func:`index_axis_two_ranks`) against ``reference``, the sharded phase's
+    queries and single-device results."""
     import tempfile
 
     import torch.distributed as dist
@@ -4582,12 +4817,18 @@ def phase_distributed(args) -> dict:
               f"set_mesh encode differs from encode by {np.abs(got - want).max()}")
         record["encode"] = {"texts": len(texts), "equal": True}
         del runs, p0s, p0d, p1, enc, trainer, flat
+
+        # ---- (e) the index axis over the group: two entries on cuda:0 ------
+        record["index_axis"] = index_axis_world1(reference)
     finally:
         for key in env:
             os.environ.pop(key, None)
         if dist.is_initialized():
             dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    # ---- (f) two gloo ranks, each holding its half of the index on cuda:0 ------
+    record["two_ranks"] = index_axis_two_ranks(reference)
 
     # ---- (d) the teacher's tensor parallelism ---------------------------------
     teacher = TeacherModel(str(ROOT / "build" / "chip_smoke" / "teacher"), device="cuda")
@@ -4644,6 +4885,12 @@ def phase_distributed(args) -> dict:
         "dropattn_bwd": record["train"]["launches"]["dropattn_bwd"],
         "flash_attn_fwd.d64": tp_record["two_slices"]["launches"],
     }
+    # the index axis over the group: (e) at world 1, (f) each of the two ranks
+    record["index_axis_launches"] = {
+        name: {"world1": record["index_axis"]["launches"][name],
+               **{f"rank{r['rank']}": r["launches"][name] for r in record["two_ranks"]["ranks"]
+                  if name in r["launches"]}}
+        for name in INDEX_AXIS_KERNELS}
     del teacher, unsharded
     torch.cuda.empty_cache()
     return record
@@ -5919,6 +6166,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke.json"))
     ap.add_argument("--loadgen", help=argparse.SUPPRESS)  # PORT,REQUESTS,CLIENTS,RERANK (child)
+    ap.add_argument("--shard-rank", help=argparse.SUPPRESS)  # RANK,PORT,DIR (child of (f))
     args = ap.parse_args(argv)
     if args.loadgen:
         port, n_requests, clients, rerank = (int(v) for v in args.loadgen.split(","))
@@ -5928,6 +6176,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
+    if args.shard_rank:
+        rank, port, work = args.shard_rank.split(",", 2)
+        return shard_rank_worker(int(rank), int(port), Path(work))
     from sskd_tpu_torch.utils.logging import setup_logging
 
     setup_logging(level="WARNING")
@@ -5977,6 +6228,7 @@ def main(argv=None) -> int:
     log(f"[clustered] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["sharded"] = phase_sharded(args, serve_rows)
+    sharded_reference = record["sharded"].pop("reference")  # for the distributed phase
     del serve_rows
     log(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5987,7 +6239,8 @@ def main(argv=None) -> int:
     record["teacher"] = phase_teacher(args)
     log(f"[teacher] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    record["distributed"] = phase_distributed(args)
+    record["distributed"] = phase_distributed(args, sharded_reference)
+    del sharded_reference
     log(f"[distributed] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["eval"] = phase_eval(args, record["build"])
@@ -6126,6 +6379,10 @@ def main(argv=None) -> int:
         # the teacher's two tensor-parallel slices (flash at d = 64)
         if entry["name"] in record["distributed"]["launches"]:
             entry["distributed_launches"] = record["distributed"]["launches"][entry["name"]]
+        # and of the index axis over the process group, (e) and each rank of (f)
+        if entry["name"] in record["distributed"]["index_axis_launches"]:
+            entry["index_axis_launches"] = record["distributed"]["index_axis_launches"][
+                entry["name"]]
     record["kernels"] = kernels
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

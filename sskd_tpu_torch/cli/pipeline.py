@@ -1,8 +1,8 @@
 """End-to-end KD training pipeline (port of sskd_tpu/cli/pipeline.py;
 reference: scripts/train_kd_pipeline.py, 7 steps):
 
-  [1] generate the offline demo set (the hub fetch of other datasets needs
-      the network and is not part of the port: a missing raw split raises)
+  [1] generate the offline demo set, or fetch MS MARCO from the hub
+      (``data/fetch.py``: ``DataError`` without ``datasets`` or a network)
   [2] prepare: chunk to parquet (512 tokens / stride 80), through the port's
       own parquet writer
   [3] build (or reuse) the BM25 index over the passage corpus
@@ -181,16 +181,17 @@ def _prepare_data(settings, data_dir: Path, dataset: str, raw_train: Path, train
 
     ensure_dirs(data_dir, dataset)
     if not raw_train.exists():
-        if not use_demo_data:
-            raise DataError(
-                f"raw split not found: {raw_train}. Fetching {dataset!r} from the Hugging "
-                "Face hub (sskd_tpu/data/fetch.py) needs the network and is not part of the "
-                "port: place the raw JSONL there, or use the demo dataset"
-            )
-        logger.info("[1/7] generating offline demo dataset")
-        generate_demo_dataset(get_raw_dir(data_dir, dataset), num_samples=max_samples or 200)
+        if use_demo_data:
+            logger.info("[1/7] generating offline demo dataset")
+            generate_demo_dataset(get_raw_dir(data_dir, dataset),
+                                  num_samples=max_samples or 200)
+        else:
+            logger.info("[1/7] fetching dataset from hub")
+            from sskd_tpu_torch.data.fetch import fetch_msmarco
+
+            fetch_msmarco(data_dir, max_samples=max_samples)
     else:
-        logger.info("[1/7] raw data present, skipping generation")
+        logger.info("[1/7] raw data present, skipping fetch")
     if not train_parquet.exists():
         logger.info("[2/7] preparing chunked parquet")
         prepare_dataset(

@@ -4,21 +4,33 @@ sskd_tpu/index/sharded.py, ``ShardedIndex``).
 Queries are replicated, each shard searches its own rows on its own device,
 and the shards' ``[B, k]`` candidates are merged into the global top k. The
 JAX package runs that as one ``shard_map`` with an ``all_gather`` over the
-``index`` axis; here one process holds every shard (:mod:`sskd_tpu_torch.
-parallel.mesh`), issues each shard's kernels on its device's current stream
-under ``torch.cuda.device`` (the launches of different devices overlap, as
-kernels are asynchronous), brings the candidates to the mesh's first device,
-concatenates them in shard order (the layout of ``all_gather(...,
-tiled=True)``) and merges them with :func:`~sskd_tpu_torch.ops.topk.merge_topk`,
-so that equal scores resolve as they do in JAX.
+``index`` axis. Here a process issues each of its shards' kernels on the
+shard's device's current stream under ``torch.cuda.device`` (the launches of
+different devices overlap, as kernels are asynchronous), brings the
+candidates to its first device and concatenates them in shard order (the
+layout of ``all_gather(..., tiled=True)``). When the ``index`` axis spans
+the processes of a group (a mesh over the group whose index line holds
+every rank, :mod:`sskd_tpu_torch.parallel.mesh`), each rank holds only its
+own shards and the ranks' candidates meet in one all-gather over the group
+(:func:`~sskd_tpu_torch.parallel.distributed.all_gather_candidates`), in
+rank order, which is shard order. Every rank then merges them with
+:func:`~sskd_tpu_torch.ops.topk.merge_topk`, so that equal scores resolve as
+they do in JAX and every rank holds the same result, as JAX's ``out_specs
+(P(), P())`` gives. Every rank must call :meth:`search` (or the program of
+:meth:`shard_search`) with the same queries, as JAX's SPMD program
+requires; a rank that does not come fails the others after the group's
+timeout.
 
 Placement: shard ``j`` holds global rows ``[j * rows_per_shard, (j + 1) *
 rows_per_shard)``, zero rows of scale 1.0 past ``ntotal``, masked by their
-position. ``rows_per_shard`` is the row count over the shards rounded up to
-128, or for a clustered index whole cells (``cells_per_shard *
-rows_per_cell``), each shard owning a contiguous block of cells and their
-centroids (zero centroids pad the last shard). bf16 refine rows are sharded
-beside the quantized rows, so each shard rescores its own candidates.
+position. A process places, reads and quantizes only the rows of the shards
+it holds (the counterpart of ``jax.make_array_from_callback``, which asks a
+process only for its addressable shards). ``rows_per_shard`` is the row
+count over the shards rounded up to 128, or for a clustered index whole
+cells (``cells_per_shard * rows_per_cell``), each shard owning a contiguous
+block of cells and their centroids (zero centroids pad the last shard).
+bf16 refine rows are sharded beside the quantized rows, so each shard
+rescores its own candidates.
 
 Each shard's search, in the JAX package's order (:meth:`shard_search`):
 
@@ -43,8 +55,14 @@ missing results without a launch.
 ``save`` / ``load`` use the ``sskd-sharded-1`` layout of the JAX package,
 file for file: unpadded rows, ``meta.json`` with the checksums of the files,
 independent of the mesh's shape, so an index either package saved loads in
-the other onto any shard count. bf16 rows are read as their bits
-(``index/builder.py``), without ``ml_dtypes``.
+the other onto any shard count. ``load`` memory-maps the files and each
+rank reads its own shards' row ranges (the checksums stream every file, as
+the JAX package's do). bf16 rows are read as their bits
+(``index/builder.py``), without ``ml_dtypes``. An index whose shards lie in
+more than one process is not saved: the JAX package's ``save`` fetches the
+whole array (``np.asarray``), which JAX refuses for an array spanning
+non-addressable devices, on every process; here ``save`` raises
+``IndexBuildError`` there.
 """
 
 from __future__ import annotations
@@ -70,6 +88,7 @@ from sskd_tpu_torch.ops.topk import (
 )
 from sskd_tpu_torch.ops.topk_cluster import CLUSTER_MAX_BATCH, clustered_topk
 from sskd_tpu_torch.ops.topk_kernels import NEG_INF, cosine_topk_kernels
+from sskd_tpu_torch.parallel import distributed
 from sskd_tpu_torch.parallel.mesh import on_device
 from sskd_tpu_torch.utils.logging import get_logger
 
@@ -117,7 +136,16 @@ class ShardedIndex:
             raise IndexBuildError(f"mesh has no axis {axis!r}")
         self.mesh = mesh
         self.axis = axis
-        self.devices = mesh.devices_along(axis)  # shard j lives on devices[j]
+        me = distributed.rank() if mesh.ranks is not None else 0
+        # shard j lives on devices[j], in the process owners[j]
+        self.devices, owners = mesh.line_of(axis, me)
+        mine = [j for j, r in enumerate(owners) if r == me]
+        # the shards this process holds, [first, stop), and where its queries enter
+        self.first, self.stop = mine[0], mine[-1] + 1
+        self.query_device = self.devices[self.first]
+        # candidates meet over the group when the index line holds every rank
+        self.over_group = (mesh.ranks is not None
+                           and set(owners) == set(range(distributed.world_size())))
         self.metric = metric
         self.block_rows = block_rows
         self.method = method
@@ -127,7 +155,7 @@ class ShardedIndex:
         self.rows_per_shard = 0
         self.dtype = "float32"
         self.doc_ids: list[str] = []
-        self._vectors: list[torch.Tensor] | None = None  # one tensor a shard
+        self._vectors: list[torch.Tensor] | None = None  # one tensor a shard held here
         self._scales: list[torch.Tensor] | None = None
         # recall-margin rescore: bf16 rows sharded like the quantized rows
         # (refine_m = 0 disables)
@@ -153,12 +181,20 @@ class ShardedIndex:
         per_shard = -(-ntotal // self.n_shards)
         return -(-per_shard // 128) * 128
 
+    def _local_rows(self, ntotal: int) -> tuple[int, int]:
+        """The global rows ``[lo, hi)`` of the valid rows that this process's
+        shards hold."""
+        per_shard = self._padded_rows(ntotal)
+        return min(self.first * per_shard, ntotal), min(self.stop * per_shard, ntotal)
+
     def _shard_rows(self, read, ntotal: int, per_shard: int, width: int | None, dtype,
                     fill, bf16: bool = False) -> list[torch.Tensor]:
-        """Each shard's rows (``width`` None: a vector) read from the
-        unpadded source ``read(start, stop)``, ``fill`` past ``ntotal``."""
+        """The rows of each shard this process holds (``width`` None: a
+        vector) read from the unpadded source ``read(start, stop)``, ``fill``
+        past ``ntotal``."""
         out = []
-        for j, device in enumerate(self.devices):
+        for j in range(self.first, self.stop):
+            device = self.devices[j]
             start, stop = j * per_shard, (j + 1) * per_shard
             shape = (per_shard,) if width is None else (per_shard, width)
             rows = np.full(shape, fill, dtype)
@@ -216,32 +252,33 @@ class ShardedIndex:
         n, d = emb.shape
         if len(doc_ids) != n:
             raise IndexBuildError("doc_ids length != embedding rows")
+        if refine_m > 0 and dtype not in ("int8", "int4"):
+            raise IndexBuildError("refine_m rescore applies to quantized rows (int8/int4)")
+        if dtype not in ("float32", "bfloat16", "int8", "int4"):
+            raise IndexBuildError(f"unsupported index dtype {dtype!r}")
+        # only the rows of this process's shards: every step is row by row
+        lo, hi = self._local_rows(n)
+        emb = emb[lo:hi]
         if self.metric == "cosine":
             emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
-        refine = None
-        if refine_m > 0:
-            if dtype not in ("int8", "int4"):
-                raise IndexBuildError("refine_m rescore applies to quantized rows (int8/int4)")
-            refine = _bf16_bits(emb)
+        refine = _bf16_bits(emb) if refine_m > 0 else None
         scales = None
         if dtype in ("int8", "int4"):
-            # quantized on the mesh's first device, as the builder does on its own
+            # quantized on this process's first device, as the builder does on its own
             quantize = quantize_rows if dtype == "int8" else quantize_rows_int4
-            values, scales_t = quantize(torch.from_numpy(emb).to(self.devices[0]))
+            values, scales_t = quantize(torch.from_numpy(emb).to(self.query_device))
             emb, scales = values.cpu().numpy(), scales_t.cpu().numpy()
         elif dtype == "bfloat16":
             emb = _bf16_bits(emb)
-        elif dtype != "float32":
-            raise IndexBuildError(f"unsupported index dtype {dtype!r}")
         self._place_from_source(
-            lambda a, b: emb[a:b],
+            lambda a, b: emb[a - lo:b - lo],
             emb.shape[1],  # D / 2 stored columns for packed int4
             emb.dtype,
             n,
             doc_ids,
-            scales_read=None if scales is None else (lambda a, b: scales[a:b]),
+            scales_read=None if scales is None else (lambda a, b: scales[a - lo:b - lo]),
             dtype=dtype,
-            refine_read=None if refine is None else (lambda a, b: refine[a:b]),
+            refine_read=None if refine is None else (lambda a, b: refine[a - lo:b - lo]),
             refine_m=refine_m,
             refine_dim=d,
         )
@@ -308,6 +345,12 @@ class ShardedIndex:
     def save(self, output_dir: str | Path) -> Path:
         if self._vectors is None:
             raise IndexBuildError("cannot save an empty sharded index")
+        if self.stop - self.first < self.n_shards:
+            raise IndexBuildError(
+                f"cannot save an index whose {self.n_shards} shards lie in more than one "
+                f"process (this one holds shards {self.first}..{self.stop - 1}): the JAX "
+                "package's save fetches the whole array, which JAX refuses across processes. "
+                "Save the index before sharding it, from a builder or a one-process mesh")
         out = Path(output_dir)
         out.mkdir(parents=True, exist_ok=True)
         # unpadded rows: the layout does not depend on the mesh's shape
@@ -428,9 +471,11 @@ class ShardedIndex:
 
     def shard_search(self, k: int):
         """``program(queries, *index_args()) -> (vals [B, k], idx [B, k])``
-        on the mesh's first device: each shard's local top-k on its own
-        device, then the merge (see the module docstring). ``queries`` are
-        L2-normalized by the caller (:meth:`search`, the fused searcher)."""
+        on :attr:`query_device`: the local top-k of each shard this process
+        holds on its own device, over the group the gather of every rank's
+        candidates, then the merge (see the module docstring). ``queries``
+        are L2-normalized by the caller (:meth:`search`, the fused searcher);
+        across processes every rank passes the same."""
         ntotal, rows_per_shard = self.ntotal, self.rows_per_shard
         block = min(self.block_rows, rows_per_shard)
         clustered = self._perm is not None
@@ -438,6 +483,7 @@ class ShardedIndex:
         refine_m, rpc, nprobe = self.refine_m, self._rows_per_cell, self.nprobe
         method, recall_target = self.method, self.recall_target
         has_scales = self._scales is not None
+        over_group = self.over_group
 
         def local_search(q, j, shard, scales, cent, refine):
             offset = j * rows_per_shard
@@ -472,22 +518,26 @@ class ShardedIndex:
             scales = rest.pop(0) if has_scales else [None] * len(vectors)
             cents = rest.pop(0) if clustered else [None] * len(vectors)
             refines = rest.pop(0) if has_refine else [None] * len(vectors)
-            first = queries.device
+            home = queries.device
             parts_v, parts_i = [], []
-            for j, device in enumerate(self.devices):
+            for i, j in enumerate(range(self.first, self.stop)):
+                device = self.devices[j]
                 with on_device(device):
-                    vals, idx = local_search(queries.to(device), j, vectors[j], scales[j],
-                                             cents[j], refines[j])
-                parts_v.append(vals.to(first))
-                parts_i.append(idx.to(first))
+                    vals, idx = local_search(queries.to(device), j, vectors[i], scales[i],
+                                             cents[i], refines[i])
+                parts_v.append(vals.to(home))
+                parts_i.append(idx.to(home))
             # in shard order, as all_gather(..., tiled=True) lays them out
-            return merge_topk(torch.cat(parts_v, dim=1), torch.cat(parts_i, dim=1), k)
+            vals, idx = torch.cat(parts_v, dim=1), torch.cat(parts_i, dim=1)
+            if over_group:
+                vals, idx = distributed.all_gather_candidates(vals, idx)
+            return merge_topk(vals, idx, k)
 
         return program
 
     def index_args(self) -> tuple:
-        """The per-shard tensors to pass after the queries (matches
-        :meth:`shard_search`)."""
+        """The tensors of the shards this process holds, to pass after the
+        queries (matches :meth:`shard_search`)."""
         args = (self._vectors,)
         if self._scales is not None:
             args += (self._scales,)
@@ -508,7 +558,8 @@ class ShardedIndex:
 
     def search(self, query_emb: np.ndarray, k: int = 10):
         """``(scores [B, k], positions [B, k])`` numpy, (-inf, -1) padded as
-        the engines pad."""
+        the engines pad. Across processes every rank calls it with the same
+        queries and gets the same result."""
         if self._vectors is None:
             raise IndexBuildError("index not built")
         q = np.asarray(query_emb, dtype=np.float32)
@@ -517,6 +568,6 @@ class ShardedIndex:
         if self.metric == "cosine":
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         with torch.inference_mode():
-            vals, idx = self.shard_search(k)(torch.from_numpy(q).to(self.devices[0]),
+            vals, idx = self.shard_search(k)(torch.from_numpy(q).to(self.query_device),
                                              *self.index_args())
         return vals.cpu().numpy(), self.map_positions(idx.cpu().numpy())

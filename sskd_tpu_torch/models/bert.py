@@ -142,6 +142,16 @@ class _Cast:
         return hit[1]
 
 
+def release_casts(module: nn.Module, device: torch.device) -> None:
+    """Drop the cached casts of every layer of ``module`` and, on CUDA, the
+    caching allocator's unused blocks (a model's ``cleanup``)."""
+    for layer in module.modules():
+        if isinstance(layer, _Cast):
+            layer._casts.clear()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 class Linear(_Cast, nn.Linear):
     """``nn.Dense(dtype=compute_dtype)``: f32 parameters, the product in the
     compute type."""

@@ -132,6 +132,11 @@ def convert_encoder_params(state_dict: Mapping[str, object], config: BertConfig)
     return params
 
 
+def convert_bi_encoder(state_dict, config: BertConfig) -> dict:
+    """Full parameter tree of the BiEncoder (student)."""
+    return {"params": {"encoder": convert_encoder_params(state_dict, config)}}
+
+
 def convert_cross_encoder(state_dict, config: BertConfig) -> dict:
     """Full parameter tree of the CrossEncoder (teacher). Head mapping:
     XLM-R ``classifier.dense`` -> ``pooler``, ``classifier.out_proj`` ->

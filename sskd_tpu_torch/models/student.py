@@ -19,7 +19,10 @@ Differences from the JAX package:
 
   and a JAX package's checkpoint directory (the same files with
   ``params.msgpack`` in place of ``weights.pt``) loads too, through the
-  port's own msgpack reader (``weights.pt`` wins when both are there);
+  port's own msgpack reader (``weights.pt`` wins when both are there), and
+  a Hugging Face checkpoint directory (``config.json`` beside
+  ``model.safetensors`` or ``pytorch_model.bin``) through
+  ``models/convert.py``, as in the JAX package;
 
 - each text is tokenized once per batch (the JAX package tokenizes twice:
   once to pick the bucket, once to encode);
@@ -47,8 +50,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sskd_tpu_torch.exceptions import ModelLoadError
-from sskd_tpu_torch.models.bert import BertConfig, BiEncoder
+from sskd_tpu_torch.models.bert import BertConfig, BiEncoder, release_casts
 from sskd_tpu_torch.models.weights import (
     bi_encoder_from_jax_params,
     checkpoint_state,
@@ -122,11 +124,7 @@ class StudentModel:
             if (path / "weights.pt").exists() or (path / "params.msgpack").exists():
                 state = self._load_own_checkpoint(path)
             elif (path / "config.json").exists():
-                raise ModelLoadError(
-                    f"{path} holds a Hugging Face checkpoint; the student loads its own "
-                    "format (weights.pt) or the JAX package's (params.msgpack). Carry HF "
-                    "weights over with sskd_tpu_torch.models.convert."
-                )
+                state = self._load_hf_checkpoint(path)
         if state is None:
             self.config = config or (
                 BertConfig.e5_small_v2() if "e5" in self.model_name else BertConfig.tiny()
@@ -168,6 +166,22 @@ class StudentModel:
         state = checkpoint_state(path, self.config)
         logger.info(f"loaded student checkpoint from {path}")
         return state
+
+    def _load_hf_checkpoint(self, path: Path) -> dict:
+        """A Hugging Face checkpoint directory through ``models/convert.py``
+        (``convert_bi_encoder``), its ``vocab.txt`` as the tokenizer."""
+        from sskd_tpu_torch.models.convert import (
+            convert_bi_encoder,
+            hf_config_to_bert_config,
+            load_hf_checkpoint,
+        )
+
+        sd, hf_cfg = load_hf_checkpoint(path)
+        self.config = hf_config_to_bert_config(hf_cfg)
+        self.tokenizer = (WordPieceTokenizer.from_pretrained_dir(path)
+                          if (path / "vocab.txt").exists() else get_default_tokenizer())
+        logger.info(f"converted HF checkpoint from {path}")
+        return bi_encoder_from_jax_params(convert_bi_encoder(sd, self.config), self.config)
 
     def save(self, path: str | Path) -> Path:
         path = Path(path)
@@ -283,3 +297,14 @@ class StudentModel:
 
     def encode_documents(self, texts: str | Sequence[str], batch_size: int = 256) -> np.ndarray:
         return self.encode(texts, batch_size=batch_size, prefix=self.passage_prefix)
+
+    def compute_similarity(self, query_embs, doc_embs) -> np.ndarray:
+        """The ``[nq, nd]`` dot (cosine, for normalized rows) matrix of two
+        embedding arrays, on the host."""
+        return np.asarray(query_embs) @ np.asarray(doc_embs).T
+
+    def cleanup(self) -> None:
+        """Release what the model caches beside its parameters: the casts
+        of the weights to the compute type, and the CUDA allocator's unused
+        blocks (the JAX package drops its compiled encodes)."""
+        release_casts(self.module, self.device)

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from sskd_tpu_torch.exceptions import WeightConversionError
-from sskd_tpu_torch.models.bert import BertConfig, CrossEncoder
+from sskd_tpu_torch.models.bert import BertConfig, CrossEncoder, release_casts
 from sskd_tpu_torch.models.student import ARCH_KEYS, bucket_length
 from sskd_tpu_torch.models.weights import (
     checkpoint_state,
@@ -215,6 +215,12 @@ class TeacherModel:
     def predict_score(self, query: str, doc: str) -> float:
         """One pair's logit."""
         return self.score([(query, doc)])[0]
+
+    def cleanup(self) -> None:
+        """Release what the model caches beside its parameters: the casts
+        of the weights to the compute type, and the CUDA allocator's unused
+        blocks (the JAX package drops its compiled scorers)."""
+        release_casts(self.module, self.device)
 
     @staticmethod
     def get_confidence(score: float) -> float:

@@ -15,7 +15,10 @@ clipped to [-7, 7], so the code for -8 never occurs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from sskd_tpu_torch.utils.platform import resolve_device
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -57,3 +60,34 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 def dequantize_rows_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return unpack_int4(packed).to(torch.float32) * scales[:, None]
+
+
+def _error_report(x: np.ndarray, recon: np.ndarray) -> dict[str, float]:
+    err = np.abs(recon - x)
+    denom = np.maximum(np.abs(x), 1e-9)
+    cos = np.sum(recon * x, axis=1) / (
+        np.linalg.norm(recon, axis=1) * np.linalg.norm(x, axis=1) + 1e-12
+    )
+    return {
+        "max_abs_err": float(err.max()),
+        "mean_abs_err": float(err.mean()),
+        "max_rel_err": float((err / denom).max()),
+        "min_row_cosine": float(cos.min()),
+    }
+
+
+def quantization_error(x: np.ndarray, device: str | torch.device = "cuda") -> dict[str, float]:
+    """Parity diagnostics of the int8 rows of ``x`` [N, D] (the export and
+    validation step's; reference: scripts/export_to_onnx.py:40-45): the
+    largest and mean absolute error of the dequantized rows, the largest
+    relative error and the smallest row cosine. Quantized on ``device``."""
+    x = np.asarray(x, dtype=np.float32)
+    values, scales = quantize_rows(torch.from_numpy(x).to(resolve_device(device)))
+    return _error_report(x, dequantize_rows(values, scales).cpu().numpy())
+
+
+def quantization_error_int4(x: np.ndarray, device: str | torch.device = "cuda") -> dict[str, float]:
+    """Same diagnostics as :func:`quantization_error`, int4 path."""
+    x = np.asarray(x, dtype=np.float32)
+    packed, scales = quantize_rows_int4(torch.from_numpy(x).to(resolve_device(device)))
+    return _error_report(x, dequantize_rows_int4(packed, scales).cpu().numpy())

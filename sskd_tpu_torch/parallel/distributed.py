@@ -1,27 +1,33 @@
-"""Process groups for data-parallel training (port of
-``initialize_distributed`` in sskd_tpu/parallel/mesh.py).
+"""Process groups for data-parallel training and for an index sharded
+across processes (port of ``initialize_distributed`` in
+sskd_tpu/parallel/mesh.py).
 
 The JAX package spans processes with ``jax.distributed.initialize``: after
 it one global mesh holds every process's devices and a jitted step reduces
-over the ``data`` axis by itself. Here the ``data`` axis of a mesh spans
-processes, one process a data-axis entry, joined by a
+over the ``data`` axis by itself. Here the processes join a
 ``torch.distributed`` process group (NCCL between CUDA devices, gloo on the
-CPU); the ``index`` axis stays inside a process
-(:mod:`sskd_tpu_torch.parallel.mesh`). Rank ``r`` runs on
+CPU), and a mesh over the group records the rank that owns each entry
+(:mod:`sskd_tpu_torch.parallel.mesh`): the ``data`` axis over processes,
+one process a data-axis entry, or the ``index`` axis over every process of
+the group, each rank holding its own shards. Rank ``r`` runs on
 :func:`rank_device` ``(r)``: ``cuda:(r % devices on the host)``, so the
 ranks of one host take its cards in order (NCCL refuses two ranks on one
 card), or the CPU.
 
-The collectives the trainer and the student need are here: rank and world
-size (0 and 1 without a group), a barrier, a broadcast of a Python object
-from rank 0, a sum over ranks of a list of tensors, and an all-gather along
-dim 0, differentiable (``torch.distributed.nn.functional.all_gather``: its
-backward gives each rank the sum over ranks of the gradient on its rows).
-They are collectives of the library, not kernels.
+The collectives the trainer, the student and the sharded index need are
+here: rank and world size (0 and 1 without a group), a barrier, a
+broadcast of a Python object from rank 0, a sum over ranks of a list of
+tensors, an all-gather along dim 0, differentiable
+(``torch.distributed.nn.functional.all_gather``: its backward gives each
+rank the sum over ranks of the gradient on its rows), and the all-gather of
+each rank's top-k candidates that a search across processes merges
+(:func:`all_gather_candidates`). They are collectives of the library, not
+kernels.
 
 Two timeouts. The training collectives (the sums and the gather) wait at
-most ``timeout_s`` for the other ranks: a rank that died or took another
-branch fails the run rather than hanging it. The barrier and the broadcast
+most ``timeout_s`` for the other ranks, and so does the candidates' gather: a
+rank that died or took another branch fails the run rather than hanging
+it. The barrier and the broadcast
 are where the other ranks wait for work rank 0 does alone (preparing and
 mining the data, an ANCE refresh, a checkpoint), which can take hours on a
 real corpus; they run in a gloo group of their own whose timeout is
@@ -202,3 +208,30 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     with warnings.catch_warnings():  # the library marks its autograd collectives deprecated
         warnings.simplefilter("ignore")
         return torch.cat(all_gather(x.contiguous()), dim=0)
+
+
+# the device a collective's tensors cross on, by the group's backend
+_WIRE = {"nccl": lambda: torch.device("cuda", torch.cuda.current_device()),
+         "gloo": lambda: torch.device("cpu")}
+
+
+def all_gather_candidates(vals: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor,
+                                                                          torch.Tensor]:
+    """Every rank's ``[B, m]`` candidate scores (f32) and positions (int32),
+    concatenated along dim 1 in rank order, on ``vals``'s device: the layout
+    of ``all_gather(..., axis=1, tiled=True)`` over the ranks. One
+    collective: the scores ride beside the positions as their int32 bits. The
+    tensors cross on the device of the group's backend: this rank's CUDA
+    device for NCCL, the CPU for gloo. Every rank must call it with the same
+    ``[B, m]``; a rank that does not come fails the others after the
+    group's timeout."""
+    if not dist.is_initialized():
+        raise RuntimeError("a search across processes needs the process group: call "
+                           "initialize_distributed() first")
+    backend = dist.get_backend()
+    if backend not in _WIRE:
+        raise ValueError(f"no candidate gather over a {backend!r} group (nccl or gloo)")
+    packed = torch.stack([vals.to(torch.float32).view(torch.int32), idx.to(torch.int32)])
+    parts = all_gather_rows(packed[None].to(_WIRE[backend]()))  # [world, 2, B, m]
+    both = parts.permute(1, 2, 0, 3).reshape(2, vals.shape[0], -1).to(vals.device)
+    return both[0].view(torch.float32), both[1]

@@ -1,25 +1,40 @@
 """Device meshes (port of sskd_tpu/parallel/mesh.py: ``mesh_shape_for`` and
 ``create_mesh``).
 
-A mesh is what the JAX mesh is on one host: one process and a grid of its
-devices, ``[data, index]``, with the JAX package's axis names. An index
-sharded over the ``index`` axis keeps one shard on each device of that axis
-(:mod:`sskd_tpu_torch.index.sharded`), the layout FAISS's ``IndexShards``
-uses over the GPUs of one host. Nothing here needs a process group.
+A mesh is a ``[data, index]`` grid of devices with the JAX package's axis
+names. An index sharded over the ``index`` axis keeps one shard on each
+entry of that axis (:mod:`sskd_tpu_torch.index.sharded`), the layout
+FAISS's ``IndexShards`` uses over the GPUs of one host.
 
 Devices: ``create_mesh(devices=None)`` takes ``cuda:0`` .. ``cuda:n-1`` and
 raises where CUDA is missing; asking for more devices than there are raises
 (:func:`mesh_shape_for`), with no fallback to fewer devices or to the CPU.
 A CPU mesh of N entries is made only when it is asked for:
-``devices=[torch.device("cpu")] * N``, or :func:`local_devices` of the CPU
-after :func:`set_cpu_devices` (the CLI's ``--cpu-devices N``, the port's
+``devices=[torch.device("cpu")] * N``, ``create_mesh(device="cpu")`` after
+:func:`set_cpu_devices` (the CLI's ``--cpu-devices N``, the port's
 counterpart of the JAX flag's virtual CPU devices).
 
-Across processes: in a data-parallel run the ``data`` axis spans processes,
-one process a row, joined by a ``torch.distributed`` group
-(:mod:`sskd_tpu_torch.parallel.distributed`, ``initialize_distributed``);
-row ``r`` holds rank ``r``'s device (``process_mesh``), and only a rank's
-own row is read by it. The ``index`` axis stays inside a process.
+Across processes: a mesh over a ``torch.distributed`` group records the
+rank that owns each entry (``Mesh.ranks``), as a JAX mesh over
+``jax.devices()`` after ``jax.distributed.initialize`` holds every
+process's devices. ``create_mesh(devices=None)`` while a group is up lays
+out every rank's :func:`local_devices` in rank order (one gather of each
+rank's device names), or ``devices`` and ``ranks`` are given entry by
+entry. Two
+layouts are served, and any other raises ``ValueError`` naming it:
+
+- the ``data`` axis over processes and the ``index`` axis inside one: every
+  row of the grid is one rank's (a data-parallel run, row ``r`` rank
+  ``r``'s; an index sharded over a rank's own devices);
+- one row, the ``index`` axis over every process of the group, each rank
+  owning an equal run of its entries in rank order (the layout of
+  ``create_mesh(data_parallel=1, index_parallel=world * local)``): a rank
+  holds only its own shards and the shards' candidates meet in one
+  all-gather over the group (:mod:`sskd_tpu_torch.parallel.distributed`).
+
+A mesh made without a group (``ranks`` None) is this process's alone. Only
+a rank's own entries are touched by it; an entry names a device of its
+owner's host.
 """
 
 from __future__ import annotations
@@ -28,6 +43,7 @@ import contextlib
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from sskd_tpu_torch.utils.platform import resolve_device
 
@@ -92,10 +108,12 @@ def mesh_shape_for(
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``[dp, ip]`` grid of devices and the names of its two axes."""
+    """A ``[dp, ip]`` grid of devices and the names of its two axes; over a
+    process group, also the rank that owns each entry."""
 
     devices: tuple[tuple[torch.device, ...], ...]
     axis_names: tuple[str, str]
+    ranks: tuple[tuple[int, ...], ...] | None = None  # None: this process's alone
 
     @property
     def shape(self) -> dict[str, int]:
@@ -105,11 +123,55 @@ class Mesh:
     def devices_along(self, axis: str) -> list[torch.device]:
         """The devices of ``axis`` at position 0 of the other axis: where an
         array sharded over ``axis`` keeps its shards, in shard order."""
+        return self.line_of(axis)[0]
+
+    def line_of(self, axis: str, rank: int = 0) -> tuple[list[torch.device], list[int]]:
+        """The entries of ``axis`` through ``rank``'s first entry, in order,
+        and the rank that owns each: where an array sharded over ``axis``
+        keeps its shards, and who holds them. A mesh of one process: the
+        line at position 0 of the other axis, every entry ``rank``'s."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r}")
+        owners = self.ranks or tuple((rank,) * len(row) for row in self.devices)
+        at = next(((i, j) for i, row in enumerate(owners) for j, r in enumerate(row) if r == rank),
+                  None)
+        if at is None:
+            raise ValueError(f"rank {rank} owns no entry of the mesh")
+        i, j = at
         if axis == self.axis_names[1]:
-            return list(self.devices[0])
-        if axis == self.axis_names[0]:
-            return [row[0] for row in self.devices]
-        raise ValueError(f"mesh has no axis {axis!r}")
+            return list(self.devices[i]), list(owners[i])
+        return [row[j] for row in self.devices], [row[j] for row in owners]
+
+
+def _group_ranks(local: list[torch.device]) -> tuple[list[torch.device], list[int]]:
+    """Every rank's local entries in rank order and their owners: one gather
+    of each rank's device names over the group."""
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, [str(d) for d in local])
+    devices = [torch.device(n) for theirs in names for n in theirs]
+    ranks = [r for r, theirs in enumerate(names) for _ in theirs]
+    return devices, ranks
+
+
+def _check_layout(grid: tuple[tuple[int, ...], ...], world: int) -> None:
+    """Raise ``ValueError`` for a group layout the port cannot serve (see
+    the module docstring); the layout is never cut down to one that fits."""
+    dp, ip = len(grid), len(grid[0])
+    name = f"mesh {dp}x{ip} with entries of ranks {[list(row) for row in grid]}"
+    missing = sorted(set(range(world)) - {r for row in grid for r in row})
+    if missing:
+        raise ValueError(f"{name} over {world} processes leaves rank(s) {missing} without an "
+                         "entry: every process runs the same program over the mesh")
+    if all(len(set(row)) == 1 for row in grid):
+        return  # the index axis inside one process
+    row = list(grid[0])
+    run = ip // world
+    if dp == 1 and ip % world == 0 and row == [r for r in range(world) for _ in range(run)]:
+        return  # the index axis over every process, equal runs in rank order
+    raise ValueError(
+        f"{name} over {world} processes: the port serves an index axis inside one process "
+        "(every row one rank's) or over every process of the group in one row, each rank "
+        "owning an equal run of entries in rank order")
 
 
 def create_mesh(
@@ -118,8 +180,36 @@ def create_mesh(
     data_axis: str = "data",
     index_axis: str = "index",
     devices=None,
+    ranks=None,
+    device: str | torch.device = "cuda",
 ) -> Mesh:
-    devices = list(devices) if devices is not None else local_devices("cuda")
+    """The ``[data_parallel, index_parallel]`` mesh over ``devices`` (the
+    first dp * ip of them). ``devices`` None: this process's
+    :func:`local_devices` of ``device``'s type, or, while a process group is
+    up, every rank's in rank order (a mesh over the group, as JAX's over
+    ``jax.devices()``). ``ranks``: the owner of each of ``devices`` (a mesh
+    over the group; needs one). A group layout the port cannot serve raises
+    ``ValueError``."""
+    if ranks is not None and devices is None:
+        raise ValueError("ranks name the owners of the devices given; pass both")
+    if devices is None:
+        devices = local_devices(device)
+        if dist.is_initialized():
+            devices, ranks = _group_ranks(devices)
+    devices = list(devices)
     dp, ip = mesh_shape_for(len(devices), data_parallel, index_parallel)
     grid = tuple(tuple(devices[r * ip:(r + 1) * ip]) for r in range(dp))
-    return Mesh(grid, (data_axis, index_axis))
+    if ranks is None:
+        return Mesh(grid, (data_axis, index_axis))
+    ranks = [int(r) for r in ranks]
+    if len(ranks) != len(devices):
+        raise ValueError(f"{len(ranks)} ranks for {len(devices)} devices")
+    if not dist.is_initialized():
+        raise ValueError("a mesh over a process group needs the group: call "
+                         "initialize_distributed() first")
+    world = dist.get_world_size()
+    if not all(0 <= r < world for r in ranks):
+        raise ValueError(f"ranks {sorted(set(ranks))} outside the group's 0..{world - 1}")
+    owners = tuple(tuple(ranks[r * ip:(r + 1) * ip]) for r in range(dp))
+    _check_layout(owners, world)
+    return Mesh(grid, (data_axis, index_axis), owners)

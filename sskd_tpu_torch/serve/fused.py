@@ -20,7 +20,9 @@ rescore runs on the host (``refine_storage="host"``).
 
 :class:`ShardedFusedSearcher` serves an index sharded over a mesh
 (``mesh.index_parallel > 1``): the same encode, then the sharded index's
-per-shard search and merge.
+per-shard search and merge. Over an index whose shards span the processes
+of a group, every rank encodes the same texts and gets the same ids, as the
+JAX package's fused program does on a global mesh.
 """
 
 from __future__ import annotations
@@ -150,14 +152,16 @@ class FusedSearcher:
 class ShardedFusedSearcher(FusedSearcher):
     """The fused searcher over a :class:`~sskd_tpu_torch.index.sharded.
     ShardedIndex` (port of ``sskd_tpu/serve/fused.py`` ``ShardedFusedSearcher``):
-    the queries are encoded on the mesh's first device, where the student
-    lives, and swept by the index's ``shard_search``."""
+    the queries are encoded on the index's ``query_device`` (the first
+    device of the shards this process holds), where the student lives, and
+    swept by the index's ``shard_search``. Across processes every rank calls
+    :meth:`search_texts` with the same texts."""
 
     def __init__(self, student, sharded):
-        if not same_device(student.device, sharded.devices[0]):
+        if not same_device(student.device, sharded.query_device):
             raise ValueError(
-                f"student on {student.device} but the mesh's first device is "
-                f"{sharded.devices[0]}"
+                f"student on {student.device} but the index takes its queries on "
+                f"{sharded.query_device}"
             )
         self.student = student
         self.builder = None

@@ -150,6 +150,11 @@ class Metrics:
         self.cache_entries = Gauge(
             "semantic_kd_cache_entries", "Entries currently held by each cache", ("cache",)
         )
+        # never set, as in the JAX package: infra/alert_rules.yml's
+        # ThroughputCollapse reads it
+        self.queries_per_second = Gauge(
+            "semantic_kd_queries_per_second_chip", "Most recent measured search throughput per chip"
+        )
 
     def render(self) -> bytes:
         lines: list[str] = []

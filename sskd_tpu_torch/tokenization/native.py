@@ -188,6 +188,13 @@ class NativeWordPiece:
         pairs = tls.off_buf[: 2 * n].reshape(n, 2)
         return tls.ids_buf[:n].tolist(), [tuple(p) for p in pairs.tolist()]
 
+    def tokenize_ids_view(self, text: str) -> np.ndarray:
+        """Ids only, as an int32 view into this thread's scratch buffer,
+        valid until the next call on this instance from the same thread: no
+        per-token list is made. Caller guarantees ``text.isascii()``."""
+        n = self._call(text)  # allocates this thread's buffers first
+        return self._tls.ids_buf[:n]
+
     def tokenize_ids_matrix(self, texts, cap: int) -> tuple[np.ndarray, np.ndarray]:
         """Batch ids: one C call over all texts, internally multithreaded
         (ctypes drops the GIL for the call, so the std::thread pool gives

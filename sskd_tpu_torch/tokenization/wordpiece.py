@@ -281,6 +281,10 @@ class WordPieceTokenizer:
     def tokenize(self, text: str) -> list[int]:
         return self.tokenize_with_offsets(text)[0]
 
+    def decode_tokens(self, ids: Sequence[int]) -> list[str]:
+        """The token of each id, ``[UNK]`` for an id outside the vocab."""
+        return [self.inv_vocab.get(int(i), UNK) for i in ids]
+
     def ids_batch(self, texts: Sequence[str], cap: int) -> list:
         """The ids of each text, cut to ``cap`` tokens: an all-ASCII batch of
         more than one text in one call of the C++ core (its threads run

@@ -107,6 +107,19 @@ def setup_logging(
     return logger
 
 
+def flush_logs() -> None:
+    """Drain the queued sink: call before reading a log file the same
+    process just wrote (tests, rotation checks). The listener has no public
+    flush; its ``stop`` joins the thread after draining, so a stop and a
+    restart over the same queue and sinks is a full barrier."""
+    global _LISTENER
+    if _LISTENER is not None:
+        sinks, q = _LISTENER.handlers, _LISTENER.queue
+        _stop_listener()
+        _LISTENER = logging.handlers.QueueListener(q, *sinks, respect_handler_level=True)
+        _LISTENER.start()
+
+
 def get_logger(name: str | None = None) -> logging.Logger:
     """Child logger under the framework root. Unlike the JAX package's copy,
     asking for a logger configures nothing (importing a module must start no

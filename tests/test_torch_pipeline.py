@@ -16,6 +16,8 @@ in-training ANCE refresh) on the CPU, and what the port refuses.
 
 import json
 import math
+import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -147,9 +149,19 @@ def test_tiny_pipeline_runs_stage_3_on_generated_data(tmp_path):
     assert init.tokenizer.vocab_size <= 2048
 
 
-def test_pipeline_refuses_what_the_port_does_not_do(tmp_path):
+def test_pipeline_refuses_what_the_port_does_not_do(tmp_path, monkeypatch):
     settings = Settings.from_dict(RECIPE)
-    with pytest.raises(DataError, match="network"):
+    # a missing non-demo raw split is fetched from the hub (data/fetch.py);
+    # a `datasets` whose download fails stands in for a host without a
+    # network, so that no test reaches for one
+    offline = types.ModuleType("datasets")
+
+    def load_dataset(*args, **kwargs):
+        raise ConnectionError("no network")
+
+    offline.load_dataset = load_dataset
+    monkeypatch.setitem(sys.modules, "datasets", offline)
+    with pytest.raises(DataError, match="cannot download ms_marco"):
         t_pipeline.run_train_pipeline(settings, data_dir=tmp_path, dataset="msmarco",
                                       device="cpu")
     # data parallelism is ported: a mesh whose data axis this run's one
